@@ -8,25 +8,43 @@ repository around this file; exits non-zero, printing no result, without
 them.  Phases, each of which raises on failure:
 
   1. the card's name and power limit (nvidia-smi), then the build of every
-     kernel from ubdvss_tpu_torch/csrc/ (one nvcc per source, in parallel);
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, on the real logits of 64 synthetic 512x512 scenes plus
-     adversarial maps (snake, checkerboard, tall bars, single pixels,
-     staircase, noise, empty): CCL and slots identical, rect rows within
-     1e-4 (or the same rectangle on an exact caliper tie) with any_edge
+     kernel from ubdvss_tpu_torch/csrc/ (one nvcc per source, five, in
+     parallel);
+  2. each kernel against its plain PyTorch version on the card, at its
+     path's shapes, on real logits plus adversarial maps (snake,
+     checkerboard, tall bars, single pixels, staircase, noise, empty): CCL,
+     slots and the fused compat geometry identical (the latter also to
+     slots after CCL), rect rows (compacted and uncompacted) within 1e-4
+     (or the same rectangle on an exact caliper tie) with any_edge
      identical, the context module within 1e-4 with TF32 off;
-  3. the main path: assets/pretrained_synthetic.npz through params_from_flat,
-     NetConfig() with max_components=16, B=64 synthetic 512x512 uint8 scenes
-     from seed 7, detect_program_batch(device="cuda") with every launch
-     counter set to 0 just before and read just after (each must be > 0),
-     detections checked against the same call through the plain versions on
-     the host CPU;
+  3. the paths, each driven with every launch counter set to 0 just before
+     and read just after:
+     a. the main path: assets/pretrained_synthetic.npz through
+        params_from_flat, NetConfig() with max_components=16, B=64
+        synthetic 512x512 uint8 scenes from seed 7,
+        detect_program_batch(device="cuda"); each of its kernels must have
+        launched; detections checked against the same call through the
+        plain versions on the host CPU;
+     b. the QVGA camera stream: 256 synthetic 240x320 uint8 frames (seed 7)
+        through StreamingDetector(batch_size=64), the asset's own NetConfig
+        with max_components=16 (max_hull_points=64 >= the 60-row heatmap,
+        so the rects take the uncompacted kernel); context, CCL, slots and
+        the uncompacted rect kernel must have launched and the compacted
+        one not; all 256 frames' detections checked against the plain
+        route on the host CPU by compare_detections (which leaves out a
+        frame holding a detection logit within 1e-4 of the threshold);
+     c. the compat route: the main path with UBDVSS_PALLAS_COMPAT=1 (set
+        for the call, then restored); the fused geometry kernel must have
+        launched and CCL and slots not; detections identical to the
+        default route's on the card;
   4. timing with CUDA events (median of 10 samples of 10 back-to-back calls,
-     after warm-up): img/s of the main
-     path, each kernel's ms beside its plain version's, the library call's
-     (where one PyTorch call computes the same function) and its bound;
-     then a torch.profiler breakdown of the main path's device time by
-     kernel and the device's busy share of the path's time.
+     after warm-up): img/s of the main path, frames/s of the stream (the
+     whole process() of 256 frames, median of 3), each kernel's ms beside
+     its plain version's, the library call's (where one PyTorch call
+     computes the same function) and its bound, the fused geometry beside
+     CCL + slots on the same maps; then a torch.profiler breakdown of the
+     main path's device time by kernel and the device's busy share of the
+     path's time.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -49,6 +67,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 B, IMG, K, M = 64, 512, 16, 64
 SEED = 7
+QVGA, N_FRAMES = (240, 320), 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (no tensor cores)
 ITERS, REPS, WARMUP = 10, 10, 2
@@ -191,7 +210,7 @@ def profile_path(run, ms_per_batch: float, iters: int = 3) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
     return {
-        "profile_ms_per_batch": {k[:80]: ms for k, ms in rows[:15]},
+        "profile_ms_per_batch": {k[:80]: ms for k, ms in rows[:20]},
         "device_busy_ms": busy,
         "busy_share": busy / ms_per_batch,
     }
@@ -207,11 +226,18 @@ def main() -> int:
         print("chip_smoke: the ubdvss_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from ubdvss_tpu_torch import NetConfig, detect_program_batch, load_params_npz, params_from_flat
+    from ubdvss_tpu_torch import (
+        NetConfig,
+        StreamingDetector,
+        detect_program_batch,
+        load_net_config,
+        load_params_npz,
+        params_from_flat,
+    )
     from ubdvss_tpu_torch.models.model import exact_f32
     from ubdvss_tpu_torch.ops.cuda import _build
     from ubdvss_tpu_torch.ops.cuda import ccl_kernel, context_kernel, postproc_kernel, rect_kernel
-    from ubdvss_tpu_torch.ops.cuda.context_kernel import _pack_weights, stem_apply
+    from ubdvss_tpu_torch.ops.cuda.context_kernel import _pack_weights, fused_model_apply, stem_apply
     from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
 
     dev = torch.device("cuda")
@@ -226,15 +252,23 @@ def main() -> int:
 
     # --- 1. build every kernel, one nvcc per source, in parallel ---
     t0 = time.perf_counter()
-    _build.build(["context_kernel", "ccl_kernel", "postproc_kernel", "rect_kernel"])
-    log(f"build: {time.perf_counter() - t0:.1f} s (4 kernels, nvcc {' '.join(_build.NVCC_FLAGS)})")
+    sources = ["context_kernel", "ccl_kernel", "postproc_kernel", "geometry_kernel", "rect_kernel"]
+    _build.build(sources)
+    log(f"build: {time.perf_counter() - t0:.1f} s ({len(sources)} sources, "
+        f"nvcc {' '.join(_build.NVCC_FLAGS)})")
 
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
     cfg = NetConfig(max_components=K, max_hull_points=M)
-    params = params_from_flat(load_params_npz(REPO / "assets" / "pretrained_synthetic.npz"))
+    cfg_q = load_net_config(asset).replace(max_components=K)
+    if not cfg_q.max_hull_points >= QVGA[0] // cfg_q.scale:
+        raise AssertionError("the QVGA stream must take the uncompacted rect kernel")
+    params = params_from_flat(load_params_npz(asset))
     params_d = {k: v.to(dev) for k, v in params.items()}
     reader = SyntheticMarkupReader(n_samples=B, image_hw=(IMG, IMG), seed=SEED)
     imgs = np.stack([reader.sample_at(i).image for i in range(B)])
     imgs_d = torch.from_numpy(imgs).to(dev)
+    reader_q = SyntheticMarkupReader(n_samples=N_FRAMES, image_hw=QVGA, seed=SEED)
+    frames = np.stack([reader_q.sample_at(i).image for i in range(N_FRAMES)])
     dil = tuple(cfg.dilations)
 
     # --- 2. each kernel against its plain version on the card ---
@@ -266,27 +300,73 @@ def main() -> int:
             if not torch.equal(geo_k[key], geo_p[key]):
                 raise AssertionError(f"slots: {key} differs from the plain version")
         log(f"check slots: K={K}, all five outputs identical")
-        sel_k = rect_kernel.min_area_rect_select(geo_p["minx"], geo_p["maxx"], M)
+        for conn in (8, 4):
+            fused_k = postproc_kernel.geometry_compat(maps, K, connectivity=conn)
+            fused_p = postproc_kernel.geometry_compat_reference(maps, K, connectivity=conn)
+            pair_k = postproc_kernel.component_slots(
+                maps, ccl_kernel.ccl_labels_from_logits(maps, connectivity=conn), K)
+            for key in fused_p:
+                if not torch.equal(fused_k[key], fused_p[key]):
+                    raise AssertionError(f"geometry_compat ({conn}-conn): {key} differs "
+                                         "from the plain version")
+                if not torch.equal(fused_k[key], pair_k[key]):
+                    raise AssertionError(f"geometry_compat ({conn}-conn): {key} differs "
+                                         "from slots after CCL")
+        log(f"check geometry_compat: {tuple(maps.shape)} K={K}, 8- and 4-connected, all "
+            "five outputs identical to the plain version and to slots after CCL")
+        sel_k = rect_kernel.min_area_rect_compact(geo_p["minx"], geo_p["maxx"], M)
         sel_p = rect_kernel.min_area_rect_select_reference(geo_p["minx"], geo_p["maxx"], M)
         err_rect, flips = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
         log(f"check rect_compact: M={M}, rows max|err| {err_rect:.3g} <= 1e-4, "
             f"any_edge identical, {flips} exact-tie flips (same rectangle)")
 
-    # --- 3. the main path, counting launches ---
+        # the uncompacted kernel on the QVGA stream's own extremes (B=64
+        # frames, K=16, H=60) and on the adversarial maps at n=60 and 128
+        frames_d = torch.from_numpy(frames[:B]).to(dev)
+        logits_q = fused_model_apply(params_d, frames_d.float()[..., None], cfg_q, raw_gray=True)
+        det_q = logits_q[..., 0].contiguous()
+        geo_q = postproc_kernel.component_slots_from_logits(det_q, K)
+        minx_q, maxx_q = geo_q["minx"], geo_q["maxx"]
+        extremes = {"QVGA": (minx_q, maxx_q)}
+        for n in (60, 128):
+            g = postproc_kernel.geometry_compat_reference(
+                torch.from_numpy(adversarial_maps(n)).to(dev), K)
+            extremes[f"adversarial n={n}"] = g["minx"], g["maxx"]
+        err_exact = 0.0
+        for name, (mn, mx) in extremes.items():
+            sel_k = rect_kernel.min_area_rect_exact(mn, mx)
+            sel_p = rect_kernel.min_area_rect_select_reference(mn, mx, None)
+            e, f = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
+            err_exact = max(err_exact, e)
+            log(f"check rect_exact {name}: (B,K,H)={tuple(mn.shape)}, rows max|err| "
+                f"{e:.3g} <= 1e-4, any_edge identical, {f} exact-tie flips (same rectangle)")
+
+    # --- 3a. the main path, counting launches ---
     wrappers = {
         "context_layer": context_kernel.fused_context_head,
         "ccl": ccl_kernel.ccl_labels_from_logits,
         "slots": postproc_kernel.component_slots,
-        "rect_compact": rect_kernel.min_area_rect_select,
+        "geometry_compat": postproc_kernel.geometry_compat,
+        "rect_compact": rect_kernel.min_area_rect_compact,
+        "rect_exact": rect_kernel.min_area_rect_exact,
     }
-    for f in wrappers.values():
-        f.launches = 0
-    res_d, logits_d = detect_program_batch(params_d, imgs, cfg, (IMG, IMG), device="cuda")
-    torch.cuda.synchronize()
-    launches = {name: f.launches for name, f in wrappers.items()}
+
+    def counted(run, must_launch, must_not):
+        for f in wrappers.values():
+            f.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        n = {name: f.launches for name, f in wrappers.items()}
+        if not all(n[k] > 0 for k in must_launch) or any(n[k] for k in must_not):
+            raise AssertionError(f"launches {n}: expected {must_launch} > 0, {must_not} == 0")
+        return out, n
+
+    main_kernels = ["context_layer", "ccl", "slots", "rect_compact"]
+    (res_d, logits_d), n_main = counted(
+        lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), device="cuda"),
+        main_kernels, ["geometry_compat", "rect_exact"])
+    launches = {k: n_main[k] for k in main_kernels}
     log(f"main path: B={B} {IMG}x{IMG} uint8 f32 K={K} M={M}, launches {launches}")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
     res = {k: v.cpu().numpy() for k, v in res_d.items()}
     logits = logits_d.cpu().numpy()
     if not (np.isfinite(logits).all() and logits.shape == (B, IMG // 4, IMG // 4, 17)):
@@ -309,6 +389,56 @@ def main() -> int:
         f"{int(res['num_components_total'].sum())} components; == plain route on the host "
         f"CPU ({t_cpu:.1f} s): logits max|err| {err_logits:.3g}, {skipped_imgs} images and "
         f"{skipped_cls} near-tie class ids left out")
+
+    # --- 3b. the QVGA camera stream through StreamingDetector ---
+    stream = StreamingDetector(cfg_q, params, QVGA, batch_size=B, device="cuda")
+    got, n_stream = counted(
+        lambda: list(stream.process(iter(frames))),
+        ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat"])
+    launches["rect_exact"] = n_stream["rect_exact"]
+    if [i for i, _ in got] != list(range(N_FRAMES)):
+        raise AssertionError("stream: frame indices not 0..N-1 in order")
+    res_s = {k: np.stack([d[k] for _, d in got]) for k in got[0][1]}
+    t0 = time.perf_counter()
+    ref_s, lg_s = {}, []
+    for b0 in range(0, N_FRAMES, B):
+        r, lg = detect_program_batch(params, frames[b0:b0 + B], cfg_q, QVGA, device="cpu")
+        for k, v in r.items():
+            ref_s.setdefault(k, []).append(v.numpy())
+        lg_s.append(lg[..., 0].numpy())
+    t_cpu_s = time.perf_counter() - t0
+    ref_s = {k: np.concatenate(v) for k, v in ref_s.items()}
+    n_det_s = int(res_s["num_detections"].sum())
+    if n_det_s == 0:
+        raise AssertionError("stream: no valid detection")
+    skipped_s = compare_detections(
+        res_s, ref_s, np.concatenate(lg_s), box_atol=4e-4, score_atol=1e-5)
+    log(f"stream: {N_FRAMES} frames {QVGA[0]}x{QVGA[1]} uint8, batch {B}, K={K} "
+        f"M={cfg_q.max_hull_points}, launches {n_stream}; {n_det_s} detections; all "
+        f"{N_FRAMES} frames compared, == plain route on the host CPU ({t_cpu_s:.1f} s), "
+        f"{skipped_s[0]} frames (a det logit within 1e-4 of the threshold) and "
+        f"{skipped_s[1]} near-tie class ids left out")
+
+    # --- 3c. the compat route: the main path with UBDVSS_PALLAS_COMPAT=1 ---
+    def compat_path():
+        old = os.environ.get("UBDVSS_PALLAS_COMPAT")
+        os.environ["UBDVSS_PALLAS_COMPAT"] = "1"
+        try:
+            return detect_program_batch(
+                params_d, imgs, cfg, (IMG, IMG), detections_only=True, device="cuda")[0]
+        finally:
+            if old is None:
+                del os.environ["UBDVSS_PALLAS_COMPAT"]
+            else:
+                os.environ["UBDVSS_PALLAS_COMPAT"] = old
+
+    res_c, n_compat = counted(
+        compat_path, ["context_layer", "geometry_compat", "rect_compact"], ["ccl", "slots"])
+    launches["geometry_compat"] = n_compat["geometry_compat"]
+    for k, v in res_c.items():
+        if not torch.equal(v, res_d[k]):
+            raise AssertionError(f"compat route: {k} differs from the default route")
+    log(f"compat route: launches {n_compat}; detections identical to the default route")
 
     # --- 4. timing ---
     with torch.inference_mode(), exact_f32():
@@ -351,6 +481,17 @@ def main() -> int:
             n_pts += n
             n_dirs += (n - 1).clamp(min=0)
         rect_flops = float((n_dirs * n_pts).sum()) * 10
+        # uncompacted rect work: valid directions x 2 points per valid row x 10
+        Bq, _, Hq = minx_q.shape
+        Nq = Bq * K
+        rowv_q = (maxx_q >= 0).reshape(Nq, Hq)
+        dirs_q = torch.zeros(Nq, dtype=torch.int64, device=dev)
+        for v_, s_ in ((minx_q, 1), (maxx_q, -1)):
+            alive = rect_kernel._convexify(v_.reshape(Nq, Hq).long(), rowv_q, s_)
+            dirs_q += (alive.sum(1) - 1).clamp(min=0)
+        exact_flops = float((dirs_q * 2 * rowv_q.sum(1)).sum()) * 10
+        ms_pair = time_ms(lambda: postproc_kernel.component_slots(
+            det, ccl_kernel.ccl_labels_from_logits(det), K))
         kernels = [
             dict(
                 name="context_layer", route="cuda",
@@ -392,11 +533,47 @@ def main() -> int:
                 library_ms=None,
                 bound=bound(Nc * H * 8 + Bm * 9 * K * 4, rect_flops),
             ),
+            dict(
+                name="rect_exact", route="cuda", source="ubdvss_tpu_torch/csrc/rect_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/rect_kernel.py:136",
+                launches=launches["rect_exact"], max_abs_err=err_exact,
+                ms=time_ms(lambda: rect_kernel.min_area_rect_exact(minx_q, maxx_q)),
+                plain_ms=time_ms(
+                    lambda: rect_kernel.min_area_rect_select_reference(minx_q, maxx_q, None)),
+                library_ms=None,
+                bound=bound(Nq * Hq * 8 + Bq * 9 * K * 4, exact_flops),
+            ),
+            dict(
+                name="geometry_compat", route="cuda",
+                source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50",
+                launches=launches["geometry_compat"], max_abs_err=0.0,
+                ms=time_ms(lambda: postproc_kernel.geometry_compat(det, K)),
+                plain_ms=time_ms(lambda: postproc_kernel.geometry_compat_reference(det, K)),
+                library_ms=None,
+                bound=bound(px * 8 + Bm * K * (2 * H + 1) * 4 + Bm * 4, px * 13),
+            ),
         ]
     for kd in kernels:
         kd["bound_ms"], kd["bound_by"] = kd.pop("bound")
         log(f"time {kd['name']}: {kd['ms']:.4f} ms/call (plain {kd['plain_ms']:.4f}, "
             f"library {kd['library_ms']}, bound {kd['bound_ms']:.4f} by {kd['bound_by']})")
+    def run_stream():
+        return list(stream.process(iter(frames)))
+
+    ms_stream = time_ms(run_stream, iters=3, reps=1, warmup=1)
+    log(json.dumps({
+        "path": "StreamingDetector QVGA, uint8 host frames", "frames": N_FRAMES,
+        "frame_hw": list(QVGA), "batch": B, "K": K, "M": cfg_q.max_hull_points,
+        "ms_per_stream": ms_stream, "frames_per_s": N_FRAMES / ms_stream * 1e3,
+        "plain_cpu_s": t_cpu_s,
+    }))
+    log(json.dumps({"stream_profile (per 256 frames)": profile_path(run_stream, ms_stream, 2)}))
+    by_name = {kd["name"]: kd for kd in kernels}
+    log(json.dumps({
+        "fused_geometry_vs_pair": "B=64 128x128 main-path maps, K=16",
+        "geometry_compat_ms": by_name["geometry_compat"]["ms"], "ccl_plus_slots_ms": ms_pair,
+    }))
     log(json.dumps({
         "path": "detect_program_batch fused f32, uint8 images on the card",
         "batch": B, "image": IMG, "K": K, "M": M, "ms_per_batch": ms_path,

@@ -8,6 +8,8 @@ there, so without the JAX-importing conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+from itertools import permutations
+
 import numpy as np
 import pytest
 import torch
@@ -98,6 +100,77 @@ def test_rect_kernel_matches_plain(dev, shape, M):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
+def _tall_bar_extremes(H, W, seed):
+    """(1, 16, H) extremes of one map of bars (some taller than 64 rows,
+    of different widths and slants) and blobs, through the plain CCL and
+    slots, K=16."""
+    rng = np.random.default_rng(seed)
+    lg = np.full((1, H, W), -4.0, np.float32)
+    for i, x0 in enumerate(range(2, W - 6, 9)):
+        y0 = int(rng.integers(0, max(1, H // 8)))
+        y1 = H - int(rng.integers(0, max(1, H // 8)))
+        slant = (i % 3) * (W / 4) / H  # upright, then slanted bars
+        for y in range(y0, y1):
+            x = int(x0 + slant * (y - y0)) % (W - 5)
+            lg[0, y, x : x + 1 + i % 4] = 4.0
+    t = torch.from_numpy(lg)
+    geo = postproc_kernel.component_slots_reference(t, ccl_kernel.ccl_labels_reference(t), 16)
+    return geo["minx"], geo["maxx"]
+
+
+@pytest.mark.parametrize("K", [1, 16])
+@pytest.mark.parametrize("H", [32, 60, 128])
+def test_rect_exact_kernel_matches_plain(dev, H, K):
+    """K3x (no compaction, every valid row projected) against its plain
+    version on blob, noise and snake maps plus bars taller than 64 rows:
+    any_edge identical, rows within 1e-4."""
+    W = H + 20
+    lg = torch.from_numpy(_maps(H + K, 3, H, W)).to(dev)
+    geo = postproc_kernel.component_slots_reference(lg, ccl_kernel.ccl_labels_reference(lg), K)
+    bars = _tall_bar_extremes(H, W, H + K)
+    minx = torch.cat([geo["minx"], bars[0][:, :K].to(dev)])
+    maxx = torch.cat([geo["maxx"], bars[1][:, :K].to(dev)])
+    rect_kernel.min_area_rect_exact.launches = 0
+    out = rect_kernel.min_area_rect_select(minx, maxx, None)
+    assert rect_kernel.min_area_rect_exact.launches == 1
+    ref = rect_kernel.min_area_rect_select_reference(minx, maxx, None)
+    assert torch.equal(out[:, 6], ref[:, 6])
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    # M >= H takes the same kernel
+    torch.testing.assert_close(rect_kernel.min_area_rect_select(minx, maxx, H), out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("K", [1, 16, 64])
+@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53)])
+def test_geometry_compat_kernel_matches_plain_and_pair(dev, shape, K, connectivity):
+    """K12c's five outputs identical to its plain version and to slots
+    after CCL on the card."""
+    lg = torch.from_numpy(_maps(K + connectivity, *shape)).to(dev)
+    out = postproc_kernel.geometry_compat(lg, K, connectivity=connectivity)
+    ref = postproc_kernel.geometry_compat_reference(lg, K, connectivity=connectivity)
+    pair = postproc_kernel.component_slots(
+        lg, ccl_kernel.ccl_labels_from_logits(lg, connectivity=connectivity), K)
+    for key in ref:
+        assert torch.equal(out[key], ref[key]), key
+        assert torch.equal(out[key], pair[key]), key
+
+
+def test_compat_switch_selects_the_fused_kernel(dev, monkeypatch):
+    lg = torch.from_numpy(_maps(5, 2, 64, 64)).to(dev)
+    for f in (postproc_kernel.geometry_compat, postproc_kernel.component_slots,
+              ccl_kernel.ccl_labels_from_logits):
+        f.launches = 0
+    default = postproc_kernel.component_slots_from_logits(lg, 8)
+    monkeypatch.setenv("UBDVSS_PALLAS_COMPAT", "1")
+    compat = postproc_kernel.component_slots_from_logits(lg, 8)
+    assert postproc_kernel.geometry_compat.launches == 1
+    assert postproc_kernel.component_slots.launches == 1
+    assert ccl_kernel.ccl_labels_from_logits.launches == 1
+    for key in default:
+        assert torch.equal(compat[key], default[key]), key
+
+
 def test_kernel_wrappers_reject_what_they_do_not_take(dev):
     lg = torch.zeros((2, 16, 16), device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -111,6 +184,43 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         postproc_kernel.component_slots(lg, lab.long(), 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         postproc_kernel.component_slots(lg, lab.cpu(), 4)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        postproc_kernel.geometry_compat(torch.zeros((1, 220, 240), device=dev), 16)
+    tall = torch.zeros((1, 1, 513), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="H=513"):
+        rect_kernel.min_area_rect_exact(tall, tall)
+
+
+def test_streaming_on_card_matches_cpu(dev):
+    """StreamingDetector on the card against the CPU: 10 QVGA-shaped frames
+    (120x160, 30-row heatmaps, so the rects take K3x), batch 4 with a
+    padded tail; masks, areas and classes identical, scores within 1e-5,
+    boxes within 1e-3 as corner sets (an exact caliper tie may report the
+    other side of the same rectangle)."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import StreamingDetector, load_net_config, load_params_npz, params_from_flat
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(path).replace(max_components=16)
+    params = params_from_flat(load_params_npz(path))
+    reader = SyntheticMarkupReader(n_samples=10, image_hw=(120, 160), seed=5)
+    frames = [reader.sample_at(i).image for i in range(10)]
+    rect_kernel.min_area_rect_exact.launches = 0
+    out = list(StreamingDetector(cfg, params, (120, 160), 4, device=dev).process(frames))
+    assert rect_kernel.min_area_rect_exact.launches == 3
+    ref = list(StreamingDetector(cfg, params, (120, 160), 4, device="cpu").process(frames))
+    assert [i for i, _ in out] == [i for i, _ in ref] == list(range(10))
+    assert sum(int(r["num_detections"]) for _, r in ref) > 0
+    perms = np.array(list(permutations(range(4))))
+    for (_, o), (_, r) in zip(out, ref):
+        for key in ("valid", "areas", "classes", "num_detections", "num_components_total"):
+            np.testing.assert_array_equal(o[key], r[key], err_msg=key)
+        np.testing.assert_allclose(o["scores"], r["scores"], atol=1e-5)
+        v = r["valid"]
+        d = np.linalg.norm(o["boxes"][v][:, :, None] - r["boxes"][v][:, None], axis=-1)
+        assert (d[:, np.arange(4), perms].max(-1).min(-1) <= 1e-3).all()
 
 
 @pytest.mark.parametrize("asset", ["pretrained_synthetic", "pretrained_dense_synthetic"])

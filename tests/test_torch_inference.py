@@ -70,3 +70,25 @@ def test_barcode_detector_matches_jax():
         assert abs(o.score - r.score) < 1e-5
         assert_same_boxes(o.box[None], r.box[None], 1e-3)
         np.testing.assert_allclose(o.center, r.center, atol=1e-3)
+
+
+def test_barcode_detector_serves_small_images_like_jax():
+    """A 240x320 camera frame with the asset's own NetConfig: the 60-row
+    heatmap is within max_hull_points=64, so the port's rects take the
+    uncompacted kernel (K3x; this raised before it was ported).  Against
+    the JAX detector (its XLA route on the CPU): class, area identical,
+    score within 1e-5, box within 1e-3 as a corner set, centre within 1e-3."""
+    jcfg, jparams = _jax_asset("separable")
+    cfg = load_net_config(ASSETS["separable"])
+    assert cfg.max_hull_points >= 240 // cfg.scale
+    gray = SyntheticMarkupReader(n_samples=1, image_hw=(240, 320), seed=12).sample_at(0).image
+    jdet = JaxBarcodeDetector(jcfg, jparams)
+    assert np.abs(jdet.heatmap(gray) - 0.5).min() > MARGIN / 4
+    ref = jdet.detect(gray)
+    out = BarcodeDetector(cfg, load_params(ASSETS["separable"]), device="cpu").detect(gray)
+    assert len(ref) > 0 and len(out) == len(ref)
+    for o, r in zip(out, ref):
+        assert (o.class_id, o.class_name, o.area) == (r.class_id, r.class_name, r.area)
+        assert abs(o.score - r.score) < 1e-5
+        assert_same_boxes(o.box[None], r.box[None], 1e-3)
+        np.testing.assert_allclose(o.center, r.center, atol=1e-3)

@@ -1,6 +1,10 @@
 """PyTorch port: ``postprocess_batch_fused`` (CCL -> slots -> stats ->
 rects) on the JAX model's logits, held against the JAX package's fused
-postprocessing with its Pallas kernels in interpret mode (CPU)."""
+postprocessing with its Pallas kernels in interpret mode (CPU).  The
+uncompacted rect (K3x) and compat geometry (K12c) routes are in
+test_torch_postproc_routes.py."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +27,10 @@ from test_torch_model import ASSETS
 torch.set_num_threads(1)
 
 
+@functools.lru_cache(maxsize=None)
 def jax_scene_logits(asset, n=4, hw=128, seed=3):
-    """The JAX model's logits on normalized synthetic scenes."""
+    """The JAX model's logits on normalized synthetic scenes (computed once
+    per asset; callers do not write to the array)."""
     jcfg = jax_load_net_config(ASSETS[asset])
     params = jax_load_params_npz(ASSETS[asset], init_params(jcfg, 0))
     reader = SyntheticMarkupReader(n_samples=n, image_hw=(hw, hw), seed=seed)
@@ -77,3 +83,12 @@ def test_postprocess_fused_matches_jax_on_blobs(K, min_area):
     ref = jax.device_get(jax_postprocess(jnp.asarray(logits), jcfg, interpret=True))
     out = postprocess_batch_fused(torch.from_numpy(logits), cfg)
     assert_same_detections(out, ref)
+
+
+def test_exact_rect_beyond_128_rows_raises_naming_the_xla_route():
+    """max_hull_points >= H > 128 is served by the JAX package's XLA
+    caliper, which is not ported: it raises, and nothing falls back."""
+    cfg = NetConfig(max_components=4, max_hull_points=130)
+    with pytest.raises(NotImplementedError, match="XLA compact caliper") as e:
+        postprocess_batch_fused(torch.zeros((1, 130, 4, 1)), cfg)
+    assert "ROADMAP.md §1 item 4" in str(e.value)

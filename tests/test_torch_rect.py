@@ -1,5 +1,6 @@
-"""PyTorch port: min-area rect selection (K3) plain version held against the
-JAX package's compacted Pallas kernel in interpret mode (CPU).
+"""PyTorch port: min-area rect selection plain versions, compacted (K3) and
+uncompacted (K3x), held against the JAX package's Pallas kernels in
+interpret mode (CPU).
 
 Rows agree within 1e-4 and ``any_edge`` is identical.  One difference is
 allowed, and it selects the same rectangle: when two hull edges have folded
@@ -147,5 +148,29 @@ def test_rect_compaction_keeps_first_m_points():
         jax_rect_select(jnp.asarray(minx), jnp.asarray(maxx), interpret=True, max_points=8)
     )
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="K3x"):
-        min_area_rect_select(torch.from_numpy(minx), torch.from_numpy(maxx), 32)
+    # M >= H takes the uncompacted kernel on both sides, as M=None does
+    ref_x = np.asarray(
+        jax_rect_select(jnp.asarray(minx), jnp.asarray(maxx), interpret=True, max_points=None)
+    )
+    out_x = min_area_rect_select(torch.from_numpy(minx), torch.from_numpy(maxx), 32).numpy()
+    np.testing.assert_allclose(out_x, ref_x, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rect_exact_matches_pallas_interpret(seed):
+    """K3x's plain version (no compaction; every valid row's two extremes
+    projected) against ``_rect_kernel`` in interpret mode, at H=32 with
+    bars of more than M rows; rows within 1e-4, any_edge identical, exact
+    ties only as the same rectangle (module docstring).  ``max_points=32``
+    (M >= H) and ``None`` give the same rows on both sides."""
+    minx, maxx = _extremes(shape_masks(seed))
+    mn, mx = jnp.asarray(minx), jnp.asarray(maxx)
+    ref = np.asarray(jax_rect_select(mn, mx, interpret=True, max_points=None))
+    np.testing.assert_array_equal(
+        np.asarray(jax_rect_select(mn, mx, interpret=True, max_points=32)), ref
+    )
+    tn, tx = torch.from_numpy(minx), torch.from_numpy(maxx)
+    out = min_area_rect_select(tn, tx, None).numpy()
+    np.testing.assert_array_equal(min_area_rect_select(tn, tx, 32).numpy(), out)
+    assert out.shape == ref.shape == (3, 9, 8)
+    assert_rect_rows_equivalent(out, ref)

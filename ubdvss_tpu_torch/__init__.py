@@ -10,6 +10,7 @@ plain PyTorch version beside it, which CPU tensors take.
 from ubdvss_tpu_torch.inference import BarcodeDetector, Detection, detect_program_batch
 from ubdvss_tpu_torch.models.model import BarcodeFCN, get_model
 from ubdvss_tpu_torch.net_config import CLASS_GROUPS, DEFAULT_CLASS_NAMES, NetConfig
+from ubdvss_tpu_torch.streaming import StreamingDetector
 from ubdvss_tpu_torch.utils.checkpoint import (
     load_net_config,
     load_params_npz,
@@ -23,6 +24,7 @@ __all__ = [
     "DEFAULT_CLASS_NAMES",
     "Detection",
     "NetConfig",
+    "StreamingDetector",
     "detect_program_batch",
     "get_model",
     "load_net_config",

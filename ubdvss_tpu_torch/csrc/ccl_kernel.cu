@@ -6,21 +6,15 @@
 // 4-connected) component, background holds H*W.
 //
 // One thread block per image; the whole int32 label map lives in dynamic
-// shared memory (64 KB at 128x128).  Each round every foreground pixel
-// takes the minimum label of its neighbourhood and then pointer-jumps
-// (l = lab[l] while that falls).  Both steps keep the invariant that a
-// label is the index of a pixel of the same component and never rises, so
-// updating in place while other threads read is safe; rounds repeat until
-// a whole round changes nothing (__syncthreads_or), which is exactly the
-// fixpoint the TPU kernel reaches: all labels of a component equal, and
-// equal to its minimum index.  The TPU kernel's segmented run-min passes
-// were a way to cross long runs in few vectorised rounds; pointer jumping
-// does that here.
+// shared memory (64 KB at 128x128), where geometry::ccl_labels_shared
+// (geometry.cuh, shared with the fused K12c kernel) runs neighbour-min and
+// pointer-jumping rounds to the fixpoint.
 //
 // Bound on this card: the input and output are 8 B per pixel (8.4 MB at
 // B=64, 128x128, ~2.5 us at 3.35 TB/s); the rounds run in shared memory,
 // whose latency and the serial round count bound the kernel in practice.
 #include "common.cuh"
+#include "geometry.cuh"
 
 namespace {
 
@@ -30,43 +24,11 @@ __global__ void __launch_bounds__(kThreads)
 ccl_kernel(const float* __restrict__ logits, int* __restrict__ labels, int H,
            int W, float thr, int connectivity) {
   extern __shared__ int lab_s[];
-  volatile int* lab = lab_s;
   const int N = H * W;
   const float* lg = logits + static_cast<long long>(blockIdx.x) * N;
   int* out = labels + static_cast<long long>(blockIdx.x) * N;
-  for (int p = threadIdx.x; p < N; p += blockDim.x) lab[p] = lg[p] > thr ? p : N;
-  __syncthreads();
-
-  const bool eight = connectivity == 8;
-  while (true) {
-    int changed = 0;
-    for (int p = threadIdx.x; p < N; p += blockDim.x) {
-      const int l = lab[p];
-      if (l == N) continue;
-      const int y = p / W;
-      const int x = p - y * W;
-      int m = l;
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int yy = y + dy;
-        if (yy < 0 || yy >= H) continue;
-        for (int dx = -1; dx <= 1; ++dx) {
-          if (dy == 0 && dx == 0) continue;
-          if (!eight && dy != 0 && dx != 0) continue;
-          const int xx = x + dx;
-          if (xx < 0 || xx >= W) continue;
-          m = min(m, lab[yy * W + xx]);  // background holds N, the identity
-        }
-      }
-      // pointer jumping: m is the index of a foreground pixel
-      for (int r = lab[m]; r < m; r = lab[m]) m = r;
-      if (m < l) {
-        lab[p] = m;
-        changed = 1;
-      }
-    }
-    if (!__syncthreads_or(changed)) break;
-  }
-  for (int p = threadIdx.x; p < N; p += blockDim.x) out[p] = lab[p];
+  geometry::ccl_labels_shared(lg, lab_s, H, W, thr, connectivity == 8);
+  for (int p = threadIdx.x; p < N; p += blockDim.x) out[p] = lab_s[p];
 }
 
 }  // namespace

@@ -1,28 +1,36 @@
-// Minimum-area rectangles from per-row component extremes, with each
-// convex chain compacted to M hull points.
+// Minimum-area rectangles from per-row component extremes.
 //
-// Replaces the TPU kernel _rect_kernel_compact (ubdvss_tpu/ops/pallas/
-// rect_kernel.py:294) and returns the same nine rows per component: ux, uy,
-// min_u, max_u, min_v, max_v, any_edge, p0x, p0y.
+// Two kernels, one per TPU kernel, returning the same nine rows per
+// component: ux, uy, min_u, max_u, min_v, max_v, any_edge, p0x, p0y.
+//   rect_kernel<false> replaces _rect_kernel_compact (ubdvss_tpu/ops/pallas/
+//     rect_kernel.py:294): each convex chain compacted to its first M points,
+//     directions projected over the 2M packed points.
+//   rect_kernel<true> replaces _rect_kernel (rect_kernel.py:136): no cap
+//     (M = H), directions projected over every valid row's two extremes,
+//     the TPU kernel's point set.  The extremes of a projection are hull
+//     points in exact arithmetic, but the f32 projection is not monotone in
+//     the exact value, so an interior point can win by an ulp; projecting
+//     the same points keeps the rows equal.
 //
-// One thread block per component.  The TPU kernel convexifies the left
+// One thread block per component.  The TPU kernels convexify the left
 // (min x) and right (max x) chains by lockstep rounds that delete every
 // strictly concave point at once; here one thread per chain runs a
 // monotone stack that pops only on strict concavity (int32 cross
 // products), which reaches the same set of points — every point on the
 // chain's hull boundary, collinear points kept — and a third warp computes
 // the horizontal candidate meanwhile.  Each chain's first M points by rank
-// are packed (left in slots [0, M), right in [M, 2M)); a chain with more
-// than M points loses the rest, as on the TPU.  Then one thread per packed
-// edge direction projects all 2M points, and thread 0 takes the minimum
-// area within amin*(1+1e-6)+1e-9, breaks ties by the folded caliper angle,
-// then the first slot, then the horizontal candidate — the TPU kernel's
-// order.  Products and sums are rounded separately (no FMA contraction)
-// so the kernel matches its plain PyTorch version to the rounding of
-// rsqrtf.
+// are packed (left in slots [0, M), right in [M, 2M)); with M < H a chain
+// with more than M points loses the rest, as on the TPU.  Then one thread
+// per packed edge direction projects the points, and thread 0 takes the
+// minimum area within amin*(1+1e-6)+1e-9, breaks ties by the folded
+// caliper angle, then the first slot, then the horizontal candidate — the
+// TPU kernels' order.  Products and sums are rounded separately (no FMA
+// contraction) so the kernels match their plain PyTorch version to the
+// rounding of rsqrtf.
 //
-// Bound on this card: per component 2M directions x 2M points x ~8 flops
-// (0.13 GFLOP at B=64, K=16, M=64: ~2 us at 67 TFLOP/s f32) over 1 KB of
+// Bound on this card: per component 2M directions x 2M points x ~10 flops
+// (compact; 0.13 GFLOP at B=64, K=16, M=64: ~2 us at 67 TFLOP/s f32), or
+// valid directions x 2 x valid rows x 10 (exact), over 8 B per row of
 // input; in practice the serial chain walk (H steps) bounds each block,
 // and B*K blocks in flight hide it.
 #include <algorithm>
@@ -69,6 +77,21 @@ __device__ void convexify_pack(const int* v, const int* xv, int* st, int H,
   }
 }
 
+// One direction's projection extremes over the point (px, py).
+__device__ __forceinline__ void project(float ux, float uy, float px, float py,
+                                        float& mnu, float& mxu, float& mnv,
+                                        float& mxv) {
+  const float pu = __fadd_rn(__fmul_rn(ux, px), __fmul_rn(uy, py));
+  const float pv = __fadd_rn(__fmul_rn(-uy, px), __fmul_rn(ux, py));
+  mnu = fminf(mnu, pu);
+  mxu = fmaxf(mxu, pu);
+  mnv = fminf(mnv, pv);
+  mxv = fmaxf(mxv, pv);
+}
+
+// kExact: M == H and the points are every valid row's (minx, y), (maxx, y);
+// otherwise the 2M packed hull points.
+template <bool kExact>
 __global__ void rect_kernel(const int* __restrict__ minx,
                             const int* __restrict__ maxx,
                             float* __restrict__ out, int K, int H, int M) {
@@ -140,16 +163,19 @@ __global__ void rect_kernel(const int* __restrict__ minx,
     const float ux = __fmul_rn(ex, inv);
     const float uy = __fmul_rn(ey, inv);
     float mnu = kInf, mxu = -kInf, mnv = kInf, mxv = -kInf;
-    for (int p = 0; p < D; ++p) {
-      if (cok[p] != 1) continue;
-      const float px = static_cast<float>(cx[p]);
-      const float py = static_cast<float>(cy[p]);
-      const float pu = __fadd_rn(__fmul_rn(ux, px), __fmul_rn(uy, py));
-      const float pv = __fadd_rn(__fmul_rn(-uy, px), __fmul_rn(ux, py));
-      mnu = fminf(mnu, pu);
-      mxu = fmaxf(mxu, pu);
-      mnv = fminf(mnv, pv);
-      mxv = fmaxf(mxv, pv);
+    if (kExact) {
+      for (int y = 0; y < H; ++y) {
+        if (xv[y] < 0) continue;
+        const float py = static_cast<float>(y);
+        project(ux, uy, static_cast<float>(mv[y]), py, mnu, mxu, mnv, mxv);
+        project(ux, uy, static_cast<float>(xv[y]), py, mnu, mxu, mnv, mxv);
+      }
+    } else {
+      for (int p = 0; p < D; ++p) {
+        if (cok[p] != 1) continue;
+        project(ux, uy, static_cast<float>(cx[p]), static_cast<float>(cy[p]),
+                mnu, mxu, mnv, mxv);
+      }
     }
     s_ux[d] = ux;
     s_uy[d] = uy;
@@ -214,21 +240,34 @@ __global__ void rect_kernel(const int* __restrict__ minx,
   o[8 * K] = static_cast<float>(h_has ? h_ytop : 0);
 }
 
-}  // namespace
-
-// minx, maxx (B, K, H) int32 -> out (B, 9, K) f32.
-extern "C" int rect_select(const void* minx, const void* maxx, void* out,
-                           int B, int K, int H, int M, void* stream) {
+template <bool kExact>
+int launch_rect(const void* minx, const void* maxx, void* out, int B, int K,
+                int H, int M, void* stream) {
   if (B <= 0 || K <= 0 || H <= 0 || M <= 0 || 2 * M > 1024) return cudaErrorInvalidValue;
   const int D = 2 * M;
   const size_t smem = (4 * static_cast<size_t>(H) + 3 * D) * sizeof(int) +
                       8 * static_cast<size_t>(D) * sizeof(float) + D * sizeof(int);
   cudaError_t e = cudaFuncSetAttribute(
-      rect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      rect_kernel<kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int threads = std::max(96, (D + 31) / 32 * 32);
-  rect_kernel<<<B * K, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  rect_kernel<kExact><<<B * K, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(minx), static_cast<const int*>(maxx),
       static_cast<float*>(out), K, H, M);
   return launch_status();
+}
+
+}  // namespace
+
+// minx, maxx (B, K, H) int32 -> out (B, 9, K) f32, chains compacted to M < H.
+extern "C" int rect_select(const void* minx, const void* maxx, void* out,
+                           int B, int K, int H, int M, void* stream) {
+  return launch_rect<false>(minx, maxx, out, B, K, H, M, stream);
+}
+
+// The same without compaction (M = H, so H <= 512).
+extern "C" int rect_select_exact(const void* minx, const void* maxx, void* out,
+                                 int B, int K, int H, void* stream) {
+  return launch_rect<true>(minx, maxx, out, B, K, H, H, stream);
 }

@@ -9,7 +9,9 @@ the CPU (``device="cpu"``, where every kernel takes its plain version).
 Routes of the JAX package this slice does not port raise
 ``NotImplementedError`` naming their ROADMAP.md item: bf16, int8
 ``qparams``, ``mesh``, ``n_strips`` / two-stage large-scan tiling,
-heatmaps larger than 128x128 and the XLA (``fused=False``) route.
+heatmaps larger than 128x128, the XLA (``fused=False``) route, and
+``max_hull_points >= H > 128`` (which the JAX package serves by its XLA
+rect caliper).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def _check_route(cfg: NetConfig, out_hw, fused, n_strips, qparams, mesh) -> None
     if qparams is not None:
         raise NotImplementedError("int8 qparams serving: ROADMAP.md §1 item 8")
     if mesh is not None:
-        raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 11")
+        raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 9")
     if n_strips is not None and n_strips > 1:
         raise NotImplementedError("n_strips strip tiling: ROADMAP.md §1 item 7")
     if cfg.dtype != "float32":

@@ -3,7 +3,7 @@
 The part of ``ubdvss_tpu/markup.py`` that ``synthetic.py`` needs: one
 barcode's polygon and type, one sample, and the reader interface.  The JSON
 and XML readers and the reader registry are not ported yet (ROADMAP.md §1
-item 10).
+item 11).
 """
 
 from __future__ import annotations

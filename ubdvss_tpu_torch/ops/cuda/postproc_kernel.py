@@ -1,4 +1,5 @@
-"""Component slots (K2) and per-component stats over the CCL labels.
+"""Component slots (K2), the fused compat geometry (K12c) and per-component
+stats over the CCL labels.
 
 Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
 
@@ -9,7 +10,13 @@ Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
     label H*W: when an image has fewer than K components, background pixels
     take slot K-1 and every padding slot carries the background's extremes;
     ``postprocess_batch_fused`` masks them by ``rootvals``.
-  * ``component_slots_from_logits`` — CCL (``ccl_kernel``) then slots.
+  * ``geometry_compat`` — CCL and slots as one kernel per image (K12c,
+    ``_geometry_kernel_compat``), the same outputs as slots after CCL.
+  * ``component_slots_from_logits`` — CCL (``ccl_kernel``) then slots, or,
+    when ``UBDVSS_PALLAS_COMPAT`` is ``"1"``, ``geometry_compat``: the JAX
+    package's compat switch with its meaning.  The JAX package reads it
+    once, at import; the port reads it at each call.  No route retries the
+    other on an error.
   * ``component_stats_from_logits`` — plus areas, sigmoid sums and class
     softmax sums per slot.  Those sums are one-hot matrix products in plain
     f32 torch on every device, as the JAX package leaves them to XLA.
@@ -21,12 +28,15 @@ stacking.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ubdvss_tpu_torch.ops.cuda import _build
 from ubdvss_tpu_torch.ops.cuda.ccl_kernel import (
     MAX_SHARED_BYTES,
     ccl_labels_from_logits,
+    ccl_labels_reference,
     threshold_logit,
 )
 
@@ -71,6 +81,18 @@ def component_slots_reference(
 _FUNCS = {"component_slots": [_build.P] * 7 + [_build.I] * 4 + [_build.F, _build.P]}
 
 
+def _empty_outputs(B: int, H: int, W: int, K: int, dev) -> dict:
+    """The five int32 outputs of K2 and K12c, in their C argument order."""
+    shapes = {
+        "rootvals": (B, K),
+        "slots": (B, H, W),
+        "minx": (B, K, H),
+        "maxx": (B, K, H),
+        "num_components_total": (B,),
+    }
+    return {k: torch.empty(v, dtype=torch.int32, device=dev) for k, v in shapes.items()}
+
+
 def component_slots(
     det_logits: torch.Tensor, labels: torch.Tensor, max_components: int,
     threshold: float = 0.5,
@@ -94,28 +116,70 @@ def component_slots(
             "(large scans: ROADMAP.md §1 item 7)"
         )
     lib = _build.load("postproc_kernel", _FUNCS)
-    dev = det_logits.device
-    rootvals = torch.empty((B, K), dtype=torch.int32, device=dev)
-    slots = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    minx = torch.empty((B, K, H), dtype=torch.int32, device=dev)
-    maxx = torch.empty((B, K, H), dtype=torch.int32, device=dev)
-    nroots = torch.empty((B,), dtype=torch.int32, device=dev)
+    out = _empty_outputs(B, H, W, K, det_logits.device)
     _build.launch(
-        lib, "component_slots", dev, det_logits.data_ptr(), labels.data_ptr(),
-        rootvals.data_ptr(), slots.data_ptr(), minx.data_ptr(), maxx.data_ptr(),
-        nroots.data_ptr(), B, H, W, K, threshold_logit(threshold),
+        lib, "component_slots", det_logits.device, det_logits.data_ptr(),
+        labels.data_ptr(), *(t.data_ptr() for t in out.values()),
+        B, H, W, K, threshold_logit(threshold),
     )
     component_slots.launches += 1
-    return {
-        "rootvals": rootvals,
-        "slots": slots,
-        "minx": minx,
-        "maxx": maxx,
-        "num_components_total": nroots,
-    }
+    return out
 
 
 component_slots.launches = 0
+
+
+def geometry_compat_reference(
+    det_logits: torch.Tensor, max_components: int, threshold: float = 0.5,
+    connectivity: int = 8,
+) -> dict:
+    """Plain version of K12c: the slots of the CCL labels.  K12c runs K1's
+    rounds (with the same H+W cap) and then K2's, so this is exactly its
+    semantics."""
+    labels = ccl_labels_reference(det_logits, threshold, connectivity)
+    return component_slots_reference(det_logits, labels, max_components, threshold)
+
+
+_GEO_FUNCS = {
+    "geometry_compat": [_build.P] * 6 + [_build.I] * 4 + [_build.F, _build.I, _build.P]
+}
+
+
+def geometry_compat(
+    det_logits: torch.Tensor, max_components: int, threshold: float = 0.5,
+    connectivity: int = 8,
+) -> dict:
+    """(B, H, W) f32 logits -> the slots outputs, CCL and slots fused in one
+    kernel (K12c, one block per image, the label map kept in shared memory
+    between the two phases; no round cap, as K1).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    if det_logits.device.type == "cpu":
+        return geometry_compat_reference(det_logits, max_components, threshold, connectivity)
+    _build.check_input(det_logits, "det_logits", torch.float32, 3)
+    B, H, W = det_logits.shape
+    K = max_components
+    if (H * W + K + 2 * K * H) * 4 > MAX_SHARED_BYTES:
+        raise NotImplementedError(
+            f"a {H}x{W} label map and K={K} x H extremes exceed one block's "
+            "shared memory (large scans: ROADMAP.md §1 item 7)"
+        )
+    lib = _build.load("geometry_kernel", _GEO_FUNCS)
+    out = _empty_outputs(B, H, W, K, det_logits.device)
+    _build.launch(
+        lib, "geometry_compat", det_logits.device, det_logits.data_ptr(),
+        *(t.data_ptr() for t in out.values()),
+        B, H, W, K, threshold_logit(threshold), connectivity,
+    )
+    geometry_compat.launches += 1
+    return out
+
+
+geometry_compat.launches = 0
 
 
 def component_slots_from_logits(
@@ -124,10 +188,14 @@ def component_slots_from_logits(
 ) -> dict:
     """(B, H, W) detection logits -> slot map + rootvals + rect extremes.
 
-    Returns dict: rootvals (B, K) int32 (H*W at padding), slots (B, H, W)
-    int32, minx/maxx (B, K, H) int32, num_components_total (B,) int32.
+    CCL then slots, or K12c when ``UBDVSS_PALLAS_COMPAT`` is ``"1"`` (read
+    at each call).  Returns dict: rootvals (B, K) int32 (H*W at padding),
+    slots (B, H, W) int32, minx/maxx (B, K, H) int32, num_components_total
+    (B,) int32.
     """
     det = det_logits.to(torch.float32).contiguous()
+    if os.environ.get("UBDVSS_PALLAS_COMPAT", "") == "1":
+        return geometry_compat(det, max_components, threshold, connectivity)
     labels = ccl_labels_from_logits(det, threshold, connectivity)
     return component_slots(det, labels, max_components, threshold)
 

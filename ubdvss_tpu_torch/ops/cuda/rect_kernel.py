@@ -1,21 +1,30 @@
-"""Minimum-area rectangles from per-row extremes: plain version + CUDA kernel.
+"""Minimum-area rectangles from per-row extremes: plain versions + CUDA kernels.
 
-Counterpart of ``ubdvss_tpu/ops/pallas/rect_kernel.py`` on its production
-route, ``_rect_kernel_compact`` (``max_points`` = M < H): per component,
-the left (min x) and right (max x) chains of the row extremes are
-convexified by deleting strictly concave points (int32 cross products,
-collinear points kept), each chain's first M surviving points are packed,
-every packed edge direction is tried with rotating calipers, and the
-minimum area wins within a 1e-6 relative tolerance, ties broken by the
-folded caliper angle, then the first slot, then the horizontal candidate.
+Counterpart of ``ubdvss_tpu/ops/pallas/rect_kernel.py`` and its two TPU
+kernels.  Per component, the left (min x) and right (max x) chains of the
+row extremes are convexified by deleting strictly concave points (int32
+cross products, collinear points kept); every hull edge direction is tried
+with rotating calipers, and the minimum area wins within a 1e-6 relative
+tolerance, ties broken by the folded caliper angle, then the first
+direction (left chain by row, then right chain by row), then the
+horizontal candidate.
+
+  * ``min_area_rect_compact`` (K3, ``_rect_kernel_compact``, M =
+    ``max_points`` < H): each chain's first M surviving points are packed,
+    and the directions are projected over the 2M packed points.
+  * ``min_area_rect_exact`` (K3x, ``_rect_kernel``, M None or >= H): no
+    cap, and the directions are projected over every valid row's two
+    extremes, as the TPU kernel does.
+
 Output rows (B, 9, K): ux, uy, min_u, max_u, min_v, max_v, any_edge, p0x,
 p0y; ``rects_from_selection`` turns them into corners, centre, size, angle.
 
 ``min_area_rect_select_reference`` mirrors the JAX lockstep deletion rounds
-vectorised over components; the CUDA kernel (``csrc/rect_kernel.cu``) runs
+vectorised over components; the CUDA kernels (``csrc/rect_kernel.cu``) run
 a monotone stack per chain, which keeps the same points, so comparing the
-two also checks that claim.  The uncompacted kernel (``_rect_kernel``,
-taken when M >= H) is not ported yet.
+two also checks that claim.  ``UBDVSS_PALLAS_COMPAT=1`` makes the JAX
+kernels convexify the two chains one after the other instead of in
+lockstep; that keeps the same points, so it changes nothing here.
 """
 
 from __future__ import annotations
@@ -82,12 +91,44 @@ def _fold_phi_key(ux: torch.Tensor, uy: torch.Tensor) -> torch.Tensor:
     return torch.where(found, ky / torch.clamp(kx, min=1e-30), 0.0)
 
 
+def _extents(ux, uy, px, py, pm, chunk_elems=1 << 24):
+    """min/max of the u- and v-projections of the points (px, py) where pm,
+    for every direction: (N, D) each.  Components go in chunks so that the
+    (chunk, D, P) projection tensors stay near ``chunk_elems`` (a CPU batch
+    of 64 images with K=64 would otherwise hold GBs)."""
+    N, D = ux.shape
+    step = max(1, chunk_elems // max(1, D * px.shape[1]))
+    out = [[], [], [], []]
+    for c0 in range(0, N, step):
+        sl = slice(c0, c0 + step)
+        a, b = ux[sl, :, None], uy[sl, :, None]
+        x = px[sl].to(torch.float32)[:, None, :]
+        y = py[sl].to(torch.float32)[:, None, :]
+        m = pm[sl, None, :]
+        pu = a * x + b * y
+        pv = (-b) * x + a * y
+        out[0].append(torch.where(m, pu, _INF).amin(2))
+        out[1].append(torch.where(m, pu, -_INF).amax(2))
+        out[2].append(torch.where(m, pv, _INF).amin(2))
+        out[3].append(torch.where(m, pv, -_INF).amax(2))
+    return [torch.cat(o) for o in out]
+
+
 def min_area_rect_select_reference(
-    minx: torch.Tensor, maxx: torch.Tensor, max_points: int
+    minx: torch.Tensor, maxx: torch.Tensor, max_points: int | None
 ) -> torch.Tensor:
-    """Plain version: (B, K, H) int32 extremes -> (B, 9, K) f32 rows."""
+    """Plain version: (B, K, H) int32 extremes -> (B, 9, K) f32 rows.
+
+    ``max_points`` = M < H is the compacted kernel: directions and points
+    are each chain's first M hull points.  None or M >= H is the
+    uncompacted kernel: every hull edge's direction, projected over every
+    valid row's two extremes (an interior point's f32 projection can beat
+    a hull point's by an ulp, so the point set is the TPU kernel's).  The
+    two share everything else.
+    """
     B, K, H = minx.shape
-    M = max_points
+    exact = max_points is None or max_points >= H
+    M = H if exact else max_points
     D = 2 * M
     dev = minx.device
     mv = minx.reshape(B * K, H).to(torch.int64)
@@ -124,16 +165,12 @@ def min_area_rect_select_reference(
     ux = ex * inv
     uy = ey * inv
 
-    # --- projections: (N, D dirs, D pts) ---
-    pxf = cx.to(torch.float32)[:, None, :]
-    pyf = cy.to(torch.float32)[:, None, :]
-    pm = cok[:, None, :]
-    pu = ux[:, :, None] * pxf + uy[:, :, None] * pyf
-    pv = (-uy)[:, :, None] * pxf + ux[:, :, None] * pyf
-    minu = torch.where(pm, pu, _INF).amin(2)
-    maxu = torch.where(pm, pu, -_INF).amax(2)
-    minv = torch.where(pm, pv, _INF).amin(2)
-    maxv = torch.where(pm, pv, -_INF).amax(2)
+    # --- projections: (N, D dirs) over the packed points or every row ---
+    if exact:
+        pts = torch.cat([mv, xv], 1), torch.cat([yi, yi], 1), torch.cat([rowv, rowv], 1)
+    else:
+        pts = cx, cy, cok
+    minu, maxu, minv, maxv = _extents(ux, uy, *pts)
     area = torch.where(eok, (maxu - minu) * (maxv - minv), _INF)
     phi = torch.where(eok, _fold_phi_key(ux, uy), _INF)
 
@@ -179,43 +216,85 @@ def min_area_rect_select_reference(
     return torch.stack(rows, 1).reshape(B, K, 9).permute(0, 2, 1).contiguous()
 
 
-_FUNCS = {"rect_select": [_build.P] * 3 + [_build.I] * 4 + [_build.P]}
+_FUNCS = {
+    "rect_select": [_build.P] * 3 + [_build.I] * 4 + [_build.P],
+    "rect_select_exact": [_build.P] * 3 + [_build.I] * 3 + [_build.P],
+}
+# 2H directions, one thread each, in one block (1024 threads)
+MAX_EXACT_HEIGHT = 512
 
 
-def min_area_rect_select(
-    minx: torch.Tensor, maxx: torch.Tensor, max_points: int | None
-) -> torch.Tensor:
-    """(B, K, H) int32 extremes -> (B, 9, K) f32 selection rows.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one block per component) or raises.
-    """
-    H = minx.shape[-1]
-    if max_points is None or max_points >= H:
-        raise NotImplementedError(
-            f"max_points={max_points} >= H={H} asks for the uncompacted rect "
-            "kernel (_rect_kernel), still to be ported: ROADMAP.md §2 K3x"
-        )
-    if minx.device.type == "cpu":
-        return min_area_rect_select_reference(minx, maxx, max_points)
+def _check_extremes(minx: torch.Tensor, maxx: torch.Tensor) -> None:
     _build.check_input(minx, "minx", torch.int32, 3)
     _build.check_input(maxx, "maxx", torch.int32, 3, minx.device)
     if maxx.shape != minx.shape:
         raise ValueError(f"maxx {tuple(maxx.shape)} != minx {tuple(minx.shape)}")
+
+
+def min_area_rect_compact(
+    minx: torch.Tensor, maxx: torch.Tensor, max_points: int
+) -> torch.Tensor:
+    """The compacted kernel (K3), M = ``max_points`` < H hull points per
+    chain.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (one block per component) or raises."""
+    B, K, H = minx.shape
+    if not 0 < max_points < H:
+        raise ValueError(f"max_points={max_points}: the compacted kernel takes 0 < M < H={H}")
+    if minx.device.type == "cpu":
+        return min_area_rect_select_reference(minx, maxx, max_points)
+    _check_extremes(minx, maxx)
     if 2 * max_points > 1024:
         raise ValueError(f"max_points={max_points}: one thread per direction, 2M <= 1024")
-    B, K, _ = minx.shape
     lib = _build.load("rect_kernel", _FUNCS)
     out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)
     _build.launch(
         lib, "rect_select", minx.device, minx.data_ptr(), maxx.data_ptr(),
         out.data_ptr(), B, K, H, max_points,
     )
-    min_area_rect_select.launches += 1
+    min_area_rect_compact.launches += 1
     return out
 
 
-min_area_rect_select.launches = 0
+min_area_rect_compact.launches = 0
+
+
+def min_area_rect_exact(minx: torch.Tensor, maxx: torch.Tensor) -> torch.Tensor:
+    """The uncompacted kernel (K3x): every hull edge's direction over every
+    valid row's two extremes.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (one block per component) or raises."""
+    B, K, H = minx.shape
+    if minx.device.type == "cpu":
+        return min_area_rect_select_reference(minx, maxx, None)
+    _check_extremes(minx, maxx)
+    if H > MAX_EXACT_HEIGHT:
+        raise NotImplementedError(
+            f"H={H} > {MAX_EXACT_HEIGHT}: the uncompacted rect kernel runs one "
+            "thread per direction (2H) in one block; taller extremes are the "
+            "large-scan regime, ROADMAP.md §1 item 7"
+        )
+    lib = _build.load("rect_kernel", _FUNCS)
+    out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)
+    _build.launch(
+        lib, "rect_select_exact", minx.device, minx.data_ptr(), maxx.data_ptr(),
+        out.data_ptr(), B, K, H,
+    )
+    min_area_rect_exact.launches += 1
+    return out
+
+
+min_area_rect_exact.launches = 0
+
+
+def min_area_rect_select(
+    minx: torch.Tensor, maxx: torch.Tensor, max_points: int | None
+) -> torch.Tensor:
+    """(B, K, H) int32 extremes -> (B, 9, K) f32 selection rows, choosing
+    the kernel as ``ubdvss_tpu/ops/pallas/rect_kernel.min_area_rect_select``
+    does: the compacted one for M = ``max_points`` < H, else (compaction
+    could drop nothing) the uncompacted one."""
+    if max_points is None or max_points >= minx.shape[-1]:
+        return min_area_rect_exact(minx, maxx)
+    return min_area_rect_compact(minx, maxx, max_points)
 
 
 def rects_from_selection(sel: torch.Tensor) -> dict:

@@ -33,11 +33,15 @@ def postprocess_batch_fused(
     """
     B, Ho, Wo, C = logits.shape
     K = cfg.max_components
-    if cfg.max_hull_points >= Ho:
+    # the rect gate of the JAX package (ops/postproc.py:190-207): the rect
+    # kernels serve M < H, and M >= H up to H = 128 (the uncompacted K3x);
+    # beyond that it fits the rects with its XLA compact caliper
+    if cfg.max_hull_points >= Ho > 128:
         raise NotImplementedError(
-            f"max_hull_points={cfg.max_hull_points} >= heatmap height {Ho} "
-            "takes the uncompacted rect kernel, still to be ported "
-            "(ROADMAP.md §2 K3x)"
+            f"max_hull_points={cfg.max_hull_points} >= heatmap height {Ho} > 128 "
+            "takes the XLA compact caliper (ops/rect.py::"
+            "min_area_rect_from_extremes_compact) instead of K3x in the JAX "
+            "package; the XLA route is not ported: ROADMAP.md §1 item 4"
         )
     stats = component_stats_from_logits(
         logits, max_components=K, threshold=cfg.detection_threshold,

@@ -1,0 +1,135 @@
+"""Streaming multi-frame pipeline: camera frames in, per-frame detections out.
+
+Counterpart of ``ubdvss_tpu/streaming.py``.  Frames are batched and run
+through ``detect_program_batch`` (fused route, detections only) with double
+buffering: batch N+1 is copied host->device from a pinned buffer and
+launched before batch N's results are pulled, so the card always has the
+next batch queued while the host waits for and hands out the previous one.
+Each batch's results are copied device->host right behind its work, all
+leaves together, and the host waits once per batch, on that batch's event
+(not on the whole stream, so the next batch keeps running).
+
+Throughput-oriented: frames are batched; latency mode is batch_size 1.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from ubdvss_tpu_torch.inference import detect_program_batch, resolve_device
+from ubdvss_tpu_torch.net_config import NetConfig
+
+
+class StreamingDetector:
+    """Double-buffered frame-sequence detector.
+
+    >>> sd = StreamingDetector(cfg, params, frame_hw=(240, 320), batch_size=64)
+    >>> for frame_idx, dets in sd.process(frames):
+    ...     ...
+
+    Runs on the card unless ``device="cpu"``.  ``qparams`` (int8) and
+    ``mesh`` (data-parallel) serving are not ported and raise.
+    """
+
+    def __init__(
+        self,
+        cfg: NetConfig,
+        params: dict,
+        frame_hw: tuple[int, int],
+        batch_size: int = 8,
+        qparams=None,
+        mesh=None,
+        device=None,
+    ):
+        if qparams is not None:
+            raise NotImplementedError("int8 qparams serving: ROADMAP.md §1 item 8")
+        if mesh is not None:
+            raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 9")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.frame_hw = frame_hw
+        self.batch_size = batch_size
+        self.out_hw = cfg.grid_size(*frame_hw)
+        self._pinned: list[torch.Tensor | None] = [None, None]
+
+    def _to_device(self, batch_np: np.ndarray, slot: int) -> torch.Tensor:
+        """Host batch -> device tensor, through pinned buffer ``slot`` on
+        the card.  A buffer is refilled two batches later, after the host
+        has waited on the event of the batch that used it, which follows
+        that batch's copy on the stream."""
+        x = torch.from_numpy(batch_np)
+        if self.device.type == "cpu":
+            return x
+        buf = self._pinned[slot]
+        if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
+            buf = self._pinned[slot] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        buf.copy_(x)
+        return buf.to(self.device, non_blocking=True)
+
+    def _launch(self, batch_np: np.ndarray, slot: int):
+        """Queue one batch: H2D copy, the fused program, D2H copies of every
+        result leaf.  Returns (host results, event recorded after them)."""
+        imgs = self._to_device(batch_np, slot)
+        res, _ = detect_program_batch(
+            self.params, imgs, self.cfg, self.out_hw, detections_only=True,
+            device=self.device,
+        )
+        if self.device.type == "cpu":
+            return res, None
+        host = {}
+        for k, v in res.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def process(self, frames: Iterable[np.ndarray]) -> Iterator[tuple[int, dict]]:
+        """Yield (frame_index, per-frame dict of numpy arrays) in order.
+
+        The card always has the next batch in flight before the previous
+        batch's results are pulled (double buffering).  The tail batch is
+        padded with zero frames, whose results are not yielded.
+        """
+        it = iter(frames)
+
+        def next_batch():
+            buf = []
+            for f in it:
+                buf.append(np.asarray(f))
+                if len(buf) == self.batch_size:
+                    break
+            if not buf:
+                return None
+            n_real = len(buf)
+            while len(buf) < self.batch_size:  # pad the tail batch
+                buf.append(np.zeros_like(buf[0]))
+            return np.stack(buf), n_real
+
+        def pull(pending):
+            pbase, pcount, (host, done) = pending
+            if done is not None:
+                done.synchronize()  # this batch only; the next one keeps running
+            arrs = {k: v.numpy() for k, v in host.items()}
+            for i in range(pcount):
+                yield pbase + i, {k: a[i] for k, a in arrs.items()}
+
+        base = 0
+        slot = 0
+        pending = None  # (base, count, (host results, event))
+        nb = next_batch()
+        while nb is not None:
+            batch_np, n_real = nb
+            launched = self._launch(batch_np, slot)  # in flight
+            if pending is not None:
+                yield from pull(pending)
+            pending = (base, n_real, launched)
+            base += n_real
+            slot ^= 1
+            nb = next_batch()
+        if pending is not None:
+            yield from pull(pending)

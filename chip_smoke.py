@@ -16,22 +16,25 @@ them.  Phases, each of which raises on failure:
      slots and the fused compat geometry identical (the latter also to
      slots after CCL), rect rows (compacted and uncompacted) within 1e-4
      (or the same rectangle on an exact caliper tie) with any_edge
-     identical, the context module within 1e-4 with TF32 off;
+     identical, the context module within 1e-4 with TF32 off at the main
+     path's (64, 24, 128, 128) and the QVGA stream's (64, 24, 60, 80)
+     features, one launch a layer;
   3. the paths, each driven with every launch counter set to 0 just before
      and read just after:
      a. the main path: assets/pretrained_synthetic.npz through
         params_from_flat, NetConfig() with max_components=16, B=64
         synthetic 512x512 uint8 scenes from seed 7,
         detect_program_batch(device="cuda"); each of its kernels must have
-        launched; detections checked against the same call through the
-        plain versions on the host CPU;
+        launched, the context module once a layer; detections checked
+        against the same call through the plain versions on the host CPU;
      b. the QVGA camera stream: 256 synthetic 240x320 uint8 frames (seed 7)
         through StreamingDetector(batch_size=64), the asset's own NetConfig
         with max_components=16 (max_hull_points=64 >= the 60-row heatmap,
-        so the rects take the uncompacted kernel); context, CCL, slots and
-        the uncompacted rect kernel must have launched and the compacted
-        one not; all 256 frames' detections checked against the plain
-        route on the host CPU by compare_detections (which leaves out a
+        so the rects take the uncompacted kernel); context (once a layer
+        a batch), CCL, slots and the uncompacted rect kernel must have
+        launched and the compacted one not; all 256 frames' detections
+        checked against the plain route on the host CPU by
+        compare_detections (which leaves out a
         frame holding a detection logit within 1e-4 of the threshold);
      c. the compat route: the main path with UBDVSS_PALLAS_COMPAT=1 (set
         for the call, then restored); the fused geometry kernel must have
@@ -283,6 +286,21 @@ def main() -> int:
         if not err_ctx <= 1e-4:
             raise AssertionError(f"context kernel: max |err| {err_ctx} > 1e-4")
         log(f"check context_layer: (B,C,H,W)={tuple(xc.shape)} max|err| {err_ctx:.3g} <= 1e-4")
+        # the QVGA stream's shape, from the stem's features of its frames
+        frames_d = torch.from_numpy(frames[:B]).to(dev)
+        xq = stem_apply(params_d, frames_d.float()[..., None], cfg_q, raw_gray=True)
+        xq = xq.permute(0, 3, 1, 2).contiguous()  # (B, 24, 60, 80)
+        dil_q = tuple(cfg_q.dilations)
+        w_q = _pack_weights(params_d, dil_q)
+        context_kernel.fused_context_head.launches = 0
+        ctx_kq = context_kernel.fused_context_head(xq, *w_q, dil_q)
+        if context_kernel.fused_context_head.launches != len(dil_q):
+            raise AssertionError("context kernel: not one launch a layer")
+        err_ctx_q = float((ctx_kq - context_kernel.context_head_reference(xq, *w_q, dil_q)).abs().max())
+        if not err_ctx_q <= 1e-4:
+            raise AssertionError(f"context kernel at the QVGA shape: max |err| {err_ctx_q} > 1e-4")
+        err_ctx = max(err_ctx, err_ctx_q)
+        log(f"check context_layer: (B,C,H,W)={tuple(xq.shape)} max|err| {err_ctx_q:.3g} <= 1e-4")
 
         det_real = ctx_k[:, 0].contiguous()
         maps = torch.cat([det_real, torch.from_numpy(adversarial_maps()).to(dev)])
@@ -322,7 +340,6 @@ def main() -> int:
 
         # the uncompacted kernel on the QVGA stream's own extremes (B=64
         # frames, K=16, H=60) and on the adversarial maps at n=60 and 128
-        frames_d = torch.from_numpy(frames[:B]).to(dev)
         logits_q = fused_model_apply(params_d, frames_d.float()[..., None], cfg_q, raw_gray=True)
         det_q = logits_q[..., 0].contiguous()
         geo_q = postproc_kernel.component_slots_from_logits(det_q, K)
@@ -366,6 +383,9 @@ def main() -> int:
         lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), device="cuda"),
         main_kernels, ["geometry_compat", "rect_exact"])
     launches = {k: n_main[k] for k in main_kernels}
+    if n_main["context_layer"] != len(dil):
+        raise AssertionError(f"main path: {n_main['context_layer']} context launches, "
+                             f"expected one for each of {len(dil)} layers")
     log(f"main path: B={B} {IMG}x{IMG} uint8 f32 K={K} M={M}, launches {launches}")
     res = {k: v.cpu().numpy() for k, v in res_d.items()}
     logits = logits_d.cpu().numpy()
@@ -396,6 +416,9 @@ def main() -> int:
         lambda: list(stream.process(iter(frames))),
         ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat"])
     launches["rect_exact"] = n_stream["rect_exact"]
+    if n_stream["context_layer"] != N_FRAMES // B * len(cfg_q.dilations):
+        raise AssertionError(f"stream: {n_stream['context_layer']} context launches, expected "
+                             f"one for each of {len(cfg_q.dilations)} layers of {N_FRAMES // B} batches")
     if [i for i, _ in got] != list(range(N_FRAMES)):
         raise AssertionError("stream: frame indices not 0..N-1 in order")
     res_s = {k: np.stack([d[k] for _, d in got]) for k in got[0][1]}

@@ -45,10 +45,33 @@ def adversarial_logits(H=32, W=32):
     return np.stack([snake, checker, stairs, noise])
 
 
+def spiral_logits(H=32, W=40):
+    """A one-pixel-wide spiral with one-pixel gaps: one component whose
+    geodesic length is about H*W/2, a map that makes union-find walk long
+    paths (the CUDA kernel's case)."""
+    m = np.zeros((H, W), bool)
+    y, x, d, stuck = 0, 0, 0, 0
+    m[0, 0] = True
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    while stuck < 2:
+        dy, dx = dirs[d]
+        ny, nx, ay, ax = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        if (0 <= ny < H and 0 <= nx < W and not m[ny, nx]
+                and not (0 <= ay < H and 0 <= ax < W and m[ay, ax])):
+            y, x, stuck = ny, nx, 0
+            m[y, x] = True
+        else:
+            d, stuck = (d + 1) % 4, stuck + 1
+    assert m.sum() >= 0.45 * H * W
+    return np.where(m, 6.0, -6.0).astype(np.float32)[None]
+
+
 CASES = {
     "blobs": lambda: blob_logits(0),
     "dense_blobs": lambda: blob_logits(3, B=3, n_blobs=9),
     "adversarial": adversarial_logits,
+    "spiral": spiral_logits,
+    "full": lambda: np.full((2, 24, 40), 6.0, np.float32),
 }
 
 

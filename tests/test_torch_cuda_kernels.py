@@ -46,7 +46,7 @@ def _maps(seed, B, H, W):
 
 
 @pytest.mark.parametrize("C,O", [(8, 1), (24, 17), (32, 32)])
-@pytest.mark.parametrize("hw", [(128, 128), (37, 53)])
+@pytest.mark.parametrize("hw", [(128, 128), (37, 53), (60, 80)])
 def test_context_kernel_matches_plain(dev, C, O, hw):
     rng = np.random.default_rng(C + O)
     dil = (1, 2, 16, 64)  # 64 puts every off-centre tap outside a 37x53 map
@@ -68,6 +68,33 @@ def test_context_kernel_matches_plain(dev, C, O, hw):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
+def test_context_kernel_qvga_asset(dev):
+    """The QVGA stream's shape (C=24, 60x80 heatmaps) with the asset's
+    weights and dilations, on the stem's features of 240x320 frames."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import load_net_config, load_params_npz, params_from_flat
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(path)
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(path)).items()}
+    reader = SyntheticMarkupReader(n_samples=4, image_hw=(240, 320), seed=3)
+    frames = np.stack([reader.sample_at(i).image for i in range(4)])
+    dil = tuple(cfg.dilations)
+    with context_kernel.exact_f32():
+        feat = context_kernel.stem_apply(
+            params, torch.from_numpy(frames).to(dev).float()[..., None], cfg, raw_gray=True)
+        xc = feat.permute(0, 3, 1, 2).contiguous()
+        assert tuple(xc.shape) == (4, 24, 60, 80)
+        w = context_kernel._pack_weights(params, dil)
+        context_kernel.fused_context_head.launches = 0
+        out = context_kernel.fused_context_head(xc, *w, dil)
+        assert context_kernel.fused_context_head.launches == len(dil)
+        ref = context_kernel.context_head_reference(xc, *w, dil)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("connectivity", [4, 8])
 @pytest.mark.parametrize("shape,thr", [((3, 128, 128), 0.5), ((4, 37, 53), 0.3), ((2, 200, 240), 0.5)])
 def test_ccl_kernel_matches_plain(dev, shape, thr, connectivity):
@@ -75,6 +102,51 @@ def test_ccl_kernel_matches_plain(dev, shape, thr, connectivity):
     out = ccl_kernel.ccl_labels_from_logits(lg, thr, connectivity)
     ref = ccl_kernel.ccl_labels_reference(lg, thr, connectivity)
     assert torch.equal(out, ref)
+
+
+def _spiral(H, W):
+    """A one-pixel-wide spiral path with one-pixel gaps: one component whose
+    geodesic length is about H*W/2."""
+    m = np.zeros((H, W), bool)
+    y, x, d, stuck = 0, 0, 0, 0
+    m[0, 0] = True
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    while stuck < 2:
+        dy, dx = dirs[d]
+        ny, nx, ay, ax = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        if (0 <= ny < H and 0 <= nx < W and not m[ny, nx]
+                and not (0 <= ay < H and 0 <= ax < W and m[ay, ax])):
+            y, x, stuck = ny, nx, 0
+            m[y, x] = True
+        else:
+            d, stuck = (d + 1) % 4, stuck + 1
+    return m
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("hw", [(128, 128), (200, 240), (37, 53)])
+def test_ccl_kernel_union_find_stress(dev, hw, connectivity):
+    """Maps that stress union-find: full foreground, the checkerboard (one
+    component under 8-connectivity), a spiral of geodesic length ~H*W/2;
+    200x240 takes 192 KB of shared memory.  CCL and K12c identical to their
+    plain versions."""
+    H, W = hw
+    spiral = _spiral(H, W)
+    assert spiral.sum() >= 0.45 * H * W
+    lg = np.stack([
+        np.full((H, W), 4.0, np.float32),
+        np.where(np.indices((H, W)).sum(0) % 2 == 0, 4.0, -4.0).astype(np.float32),
+        np.where(spiral, 4.0, -4.0).astype(np.float32),
+    ])
+    lg = torch.from_numpy(lg).to(dev)
+    out = ccl_kernel.ccl_labels_from_logits(lg, 0.5, connectivity)
+    ref = ccl_kernel.ccl_labels_reference(lg, 0.5, connectivity)
+    assert torch.equal(out, ref)
+    assert bool((ref[0] == 0).all()) and bool((ref[2][torch.from_numpy(spiral).to(dev)] == 0).all())
+    geo = postproc_kernel.geometry_compat(lg, 16, connectivity=connectivity)
+    geo_ref = postproc_kernel.geometry_compat_reference(lg, 16, connectivity=connectivity)
+    for key in geo_ref:
+        assert torch.equal(geo[key], geo_ref[key]), key
 
 
 @pytest.mark.parametrize("K", [1, 16, 64])

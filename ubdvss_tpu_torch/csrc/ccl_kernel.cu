@@ -7,12 +7,14 @@
 //
 // One thread block per image; the whole int32 label map lives in dynamic
 // shared memory (64 KB at 128x128), where geometry::ccl_labels_shared
-// (geometry.cuh, shared with the fused K12c kernel) runs neighbour-min and
-// pointer-jumping rounds to the fixpoint.
+// (geometry.cuh, shared with the fused K12c kernel) runs union-find in three
+// passes (initialise, merge by shared-memory atomicMin, flatten), however
+// long the components are.
 //
 // Bound on this card: the input and output are 8 B per pixel (8.4 MB at
-// B=64, 128x128, ~2.5 us at 3.35 TB/s); the rounds run in shared memory,
-// whose latency and the serial round count bound the kernel in practice.
+// B=64, 128x128, ~2.5 us at 3.35 TB/s).  One block per map puts 64 blocks
+// on the 132 SMs at B=64, and the merge's find walks and atomics run at
+// shared-memory latency.
 #include "common.cuh"
 #include "geometry.cuh"
 

@@ -15,50 +15,100 @@ constexpr int kBig = 1 << 30;
 // On return every foreground pixel (logit > thr) of the (H, W) map holds
 // the minimum linear index of its 8-connected (or 4-connected) component
 // and background holds H*W, the contract of the TPU kernel _ccl_kernel
-// (ubdvss_tpu/ops/pallas/ccl_kernel.py:116).  Each round every foreground
-// pixel takes the minimum label of its neighbourhood and then
-// pointer-jumps (l = lab[l] while that falls).  Both steps keep the
-// invariant that a label is the index of a pixel of the same component
-// and never rises, so updating in place while other threads read is
-// safe; rounds repeat until a whole round changes nothing
-// (__syncthreads_or, which is also the closing barrier), the fixpoint the
-// TPU kernel reaches.  The TPU kernel's segmented run-min passes were a
-// way to cross long runs in few vectorised rounds; pointer jumping does
-// that here.
+// (ubdvss_tpu/ops/pallas/ccl_kernel.py:116).
+//
+// Block-wide union-find over the label map (Playne & Hawick, IEEE TPDS
+// 2018; the block-based variants of Allegretti, Bolelli & Grana, IEEE TPDS
+// 2019), three passes with a __syncthreads() after each, whatever the
+// components' shapes:
+//   1. initialise: lab[p] = p on foreground, H*W on background;
+//   2. merge: every foreground pixel unions with its foreground neighbours
+//      earlier in raster order, halving the paths its finds walk (a column
+//      of N unions would otherwise walk the column again for every pixel);
+//   3. flatten: lab[p] = find(p).
+// A parent always points to a smaller index of the same component (a union
+// links the larger root under the smaller with atomicMin, and retries when
+// that root was linked elsewhere meanwhile), so each component's root is
+// its minimum linear index and the flattened labels are exactly the TPU
+// kernel's, with no round loop and no cap.
+//
+// The merge takes the scan mask of Wu, Otoo & Suzuki's decision tree for
+// 8-connectivity: when N is foreground the pixel unions with N alone (W, NW
+// and NE are neighbours of N and reach it through their own unions);
+// otherwise with W (or, without W, with NW) and with NE.  4-connectivity
+// unions with W and N.
+__device__ inline int find_root(volatile int* lab, int p) {
+  for (int r = lab[p]; r != p; r = lab[p]) p = r;
+  return p;
+}
+
+// find_root that also points every other node of the path it walks at its
+// grandparent (path halving), so that later walks are shorter.  Safe while
+// unions run: it writes only to nodes that are not roots, each time an
+// ancestor in the same component, and a link that an atomicMin in
+// union_roots makes on a node that is no longer a root may be overwritten
+// only because that union then retries from the node's parent.  Not for the
+// flatten pass, where another thread may already have written a node's
+// final label.
+__device__ inline int find_root_halving(volatile int* lab, int p) {
+  while (true) {
+    const int r = lab[p];
+    if (r == p) return p;
+    const int g = lab[r];
+    if (g != r) lab[p] = g;
+    p = g;
+  }
+}
+
+__device__ inline void union_roots(volatile int* lab, int a, int b) {
+  while (true) {
+    a = find_root_halving(lab, a);
+    b = find_root_halving(lab, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    const int old = atomicMin(const_cast<int*>(lab) + b, a);
+    if (old == b) return;  // b was a root and now points to a
+    b = old;  // b was linked under `old` meanwhile: join old's set and a's
+  }
+}
+
 __device__ inline void ccl_labels_shared(const float* __restrict__ lg,
                                          volatile int* lab, int H, int W,
                                          float thr, bool eight) {
   const int N = H * W;
   for (int p = threadIdx.x; p < N; p += blockDim.x) lab[p] = lg[p] > thr ? p : N;
   __syncthreads();
-  while (true) {
-    int changed = 0;
-    for (int p = threadIdx.x; p < N; p += blockDim.x) {
-      const int l = lab[p];
-      if (l == N) continue;
-      const int y = p / W;
-      const int x = p - y * W;
-      int m = l;
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int yy = y + dy;
-        if (yy < 0 || yy >= H) continue;
-        for (int dx = -1; dx <= 1; ++dx) {
-          if (dy == 0 && dx == 0) continue;
-          if (!eight && dy != 0 && dx != 0) continue;
-          const int xx = x + dx;
-          if (xx < 0 || xx >= W) continue;
-          m = min(m, lab[yy * W + xx]);  // background holds N, the identity
-        }
-      }
-      // pointer jumping: m is the index of a foreground pixel
-      for (int r = lab[m]; r < m; r = lab[m]) m = r;
-      if (m < l) {
-        lab[p] = m;
-        changed = 1;
-      }
+  for (int p = threadIdx.x; p < N; p += blockDim.x) {
+    if (lab[p] == N) continue;
+    const int y = p / W;
+    const int x = p - y * W;
+    const bool w = x > 0 && lab[p - 1] != N;
+    const bool n = y > 0 && lab[p - W] != N;
+    if (!eight) {
+      if (w) union_roots(lab, p, p - 1);
+      if (n) union_roots(lab, p, p - W);
+      continue;
     }
-    if (!__syncthreads_or(changed)) break;
+    if (n) {
+      union_roots(lab, p, p - W);
+      continue;
+    }
+    if (w) {
+      union_roots(lab, p, p - 1);
+    } else if (y > 0 && x > 0 && lab[p - W - 1] != N) {
+      union_roots(lab, p, p - W - 1);
+    }
+    if (y > 0 && x + 1 < W && lab[p - W + 1] != N) union_roots(lab, p, p - W + 1);
   }
+  __syncthreads();
+  for (int p = threadIdx.x; p < N; p += blockDim.x) {
+    if (lab[p] != N) lab[p] = find_root(lab, p);
+  }
+  __syncthreads();
 }
 
 // Phase 2: root count, the K smallest roots, the slot map and each slot's

@@ -1,5 +1,5 @@
 // The whole component geometry of one image in one block: threshold + CCL
-// to the fixpoint, then the root count, the K smallest roots, the slot map
+// (union-find), then the root count, the K smallest roots, the slot map
 // and each slot's per-row x extremes.
 //
 // Replaces the TPU kernel _geometry_kernel_compat (ubdvss_tpu/ops/pallas/
@@ -9,14 +9,14 @@
 // geometry::roots_slots_extremes (geometry.cuh), run back to back with the
 // label map kept in shared memory between them, so the labels never go to
 // device memory and the second phase reads them from shared memory.  Like
-// K1 it runs to the fixpoint with no round cap.
+// K1 it reaches the true components, with no round cap.
 //
 // Shared memory: H*W*4 + (K + 2*K*H)*4 bytes (80 KB at 128x128, K=16;
 // 128 KB at K=64); the caller keeps it within the card's 227 KB.
 //
 // Bound on this card: 8 B per pixel of device memory (logits read, slots
-// written) plus the (K, H) extremes; the rounds run in shared memory, whose
-// latency and the serial round count bound the kernel in practice, as K1.
+// written) plus the (K, H) extremes; the union-find and the slot search run
+// at shared-memory latency, one block per map, as K1.
 #include "common.cuh"
 #include "geometry.cuh"
 

@@ -8,8 +8,8 @@ index of its component, background holds H*W.
 (or cross) neighbour min, then a segmented run-min along W and along H by
 shift doubling, repeated until nothing changes or H + W rounds have run —
 so it equals the TPU kernel even where that cap binds.  The CUDA kernel
-(``csrc/ccl_kernel.cu``) reaches the same fixpoint by neighbour min and
-pointer jumping, with no cap.
+(``csrc/ccl_kernel.cu``) finds the true components by union-find in
+shared memory (three passes, no rounds and no cap).
 """
 
 from __future__ import annotations

@@ -133,9 +133,9 @@ def geometry_compat_reference(
     det_logits: torch.Tensor, max_components: int, threshold: float = 0.5,
     connectivity: int = 8,
 ) -> dict:
-    """Plain version of K12c: the slots of the CCL labels.  K12c runs K1's
-    rounds (with the same H+W cap) and then K2's, so this is exactly its
-    semantics."""
+    """Plain version of K12c: the slots of the CCL labels.  The TPU's K12c
+    runs K1's rounds (with the same H+W cap) and then K2's, so this is
+    exactly its semantics."""
     labels = ccl_labels_reference(det_logits, threshold, connectivity)
     return component_slots_reference(det_logits, labels, max_components, threshold)
 
@@ -151,7 +151,7 @@ def geometry_compat(
 ) -> dict:
     """(B, H, W) f32 logits -> the slots outputs, CCL and slots fused in one
     kernel (K12c, one block per image, the label map kept in shared memory
-    between the two phases; no round cap, as K1).
+    between the two phases; union-find with no round cap, as K1).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.

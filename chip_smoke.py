@@ -12,11 +12,14 @@ them.  Phases, each of which raises on failure:
      parallel);
   2. each kernel against its plain PyTorch version on the card, at its
      path's shapes, on real logits plus adversarial maps (snake,
-     checkerboard, tall bars, single pixels, staircase, noise, empty): CCL,
-     slots and the fused compat geometry identical (the latter also to
-     slots after CCL), rect rows (compacted and uncompacted) within 1e-4
-     (or the same rectangle on an exact caliper tie) with any_edge
-     identical, the context module within 1e-4 with TF32 off at the main
+     checkerboard, tall bars, single pixels, staircase, noise, empty): CCL
+     labels identical; slots and the fused compat geometry with their
+     per-component stats over the head's 17-channel NHWC view: slot
+     outputs and areas identical, det_sums / areas and cls_sums / areas
+     within 2e-6, two launches bit for bit equal, the fused geometry's
+     eight outputs bit for bit equal to slots after CCL; rect rows
+     (compacted at M = 1, 8, 64 and H-1, and uncompacted) within 1e-4 (or
+     the same rectangle on an exact caliper tie) with any_edge identical, the context module within 1e-4 with TF32 off at the main
      path's (64, 24, 128, 128) and the QVGA stream's (64, 24, 60, 80)
      features, one launch a layer;
   3. the paths, each driven with every launch counter set to 0 just before
@@ -44,9 +47,11 @@ them.  Phases, each of which raises on failure:
      after warm-up): img/s of the main path, frames/s of the stream (the
      whole process() of 256 frames, median of 3), each kernel's ms beside
      its plain version's, the library call's (where one PyTorch call
-     computes the same function) and its bound, the fused geometry beside
-     CCL + slots on the same maps; then a torch.profiler breakdown of the
-     main path's device time by kernel and the device's busy share of the
+     computes the same function; for slots, the torch one-hot stats it
+     replaces) and its bound, the fused geometry beside CCL + slots on the
+     same maps; then a torch.profiler breakdown of the main path's device
+     time by kernel, which must hold no stats row (cuBLAS gemv or gemm,
+     one-hot compare, sigmoid, softmax), and the device's busy share of the
      path's time.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
@@ -166,6 +171,22 @@ def check_rect_rows(out, ref, atol=1e-4) -> tuple[float, int]:
     return err, int(flips.sum())
 
 
+def check_stats(out, ref, name, atol=2e-6) -> float:
+    """Slot outputs and areas identical; det_sums / areas and cls_sums /
+    areas within atol (f32 sums in another order).  Returns the max error
+    of the means."""
+    for key in ("rootvals", "slots", "minx", "maxx", "num_components_total", "areas"):
+        if not out[key].equal(ref[key]):
+            raise AssertionError(f"{name}: {key} differs from the plain version")
+    area = ref["areas"].clamp(min=1)
+    err = max(float((out["det_sums"] / area - ref["det_sums"] / area).abs().max()),
+              float((out["cls_sums"] / area[..., None] - ref["cls_sums"] / area[..., None])
+                    .abs().max()))
+    if not err <= atol:
+        raise AssertionError(f"{name}: stats means max|err| {err} > {atol}")
+    return err
+
+
 def compare_detections(out, ref, det_logits, box_atol, score_atol):
     """Detections of the kernel path == the plain path, image by image.
 
@@ -190,6 +211,15 @@ def compare_detections(out, ref, det_logits, box_atol, score_atol):
     return int(near.sum()), int((v & ~sure).sum())
 
 
+def is_stats_kernel(name: str) -> bool:
+    """A device kernel of the torch one-hot stats: cuBLAS gemv or gemm (not
+    the stem's implicit-GEMM convolution), the one-hot compare, sigmoid or
+    softmax."""
+    n = name.lower()
+    gemm = "gemm" in n and "implicit" not in n and "conv" not in n
+    return gemm or any(t in n for t in ("gemv", "compareeq", "sigmoid", "softmax"))
+
+
 def profile_path(run, ms_per_batch: float, iters: int = 3) -> dict:
     """Device time of the main path by kernel (torch.profiler, CUPTI).
 
@@ -212,6 +242,9 @@ def profile_path(run, ms_per_batch: float, iters: int = 3) -> dict:
     ]
     rows.sort(key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
+    stats_rows = [k for k, _ in rows if is_stats_kernel(k)]
+    if stats_rows:
+        raise AssertionError(f"the path ran torch stats kernels on the card: {stats_rows}")
     return {
         "profile_ms_per_batch": {k[:80]: ms for k, ms in rows[:20]},
         "device_busy_ms": busy,
@@ -302,8 +335,12 @@ def main() -> int:
         err_ctx = max(err_ctx, err_ctx_q)
         log(f"check context_layer: (B,C,H,W)={tuple(xq.shape)} max|err| {err_ctx_q:.3g} <= 1e-4")
 
-        det_real = ctx_k[:, 0].contiguous()
-        maps = torch.cat([det_real, torch.from_numpy(adversarial_maps()).to(dev)])
+        # the head's (B, 17, H, W) planes, then the adversarial maps with the
+        # first 8 images' class planes; K2 and K12c read the NHWC view
+        adv = torch.from_numpy(adversarial_maps()).to(dev)
+        planes = torch.cat([ctx_k, torch.cat([adv[:, None], ctx_k[:8, 1:]], 1)])
+        lg_all = planes.permute(0, 2, 3, 1)
+        maps = planes[:, 0].contiguous()
         for conn in (8, 4):
             lab_k = ccl_kernel.ccl_labels_from_logits(maps, connectivity=conn)
             lab_p = ccl_kernel.ccl_labels_reference(maps, connectivity=conn)
@@ -312,31 +349,40 @@ def main() -> int:
                 raise AssertionError(f"ccl ({conn}-conn): labels differ in maps {bad}")
         log(f"check ccl: {tuple(maps.shape)} 8- and 4-connected labels identical")
         lab = ccl_kernel.ccl_labels_reference(maps)
-        geo_k = postproc_kernel.component_slots(maps, lab, K)
-        geo_p = postproc_kernel.component_slots_reference(maps, lab, K)
-        for key in geo_p:
-            if not torch.equal(geo_k[key], geo_p[key]):
-                raise AssertionError(f"slots: {key} differs from the plain version")
-        log(f"check slots: K={K}, all five outputs identical")
+        geo_k = postproc_kernel.component_slots(lg_all, lab, K)
+        geo_p = postproc_kernel.component_slots_reference(lg_all, lab, K)
+        err_slots = check_stats(geo_k, geo_p, "slots")
+        again = postproc_kernel.component_slots(lg_all, lab, K)
+        if not all(torch.equal(geo_k[k], again[k]) for k in geo_k):
+            raise AssertionError("slots: two launches differ")
+        totals = geo_p["num_components_total"]
+        log(f"check slots: {tuple(lg_all.shape)} K={K} ({int((totals < K).sum())} maps with "
+            f"padding slots, {int((totals > K).sum())} with more than K components), slot "
+            f"outputs and areas identical, means max|err| {err_slots:.3g} <= 2e-6, two "
+            "launches bit for bit equal")
+        err_geo = 0.0
         for conn in (8, 4):
-            fused_k = postproc_kernel.geometry_compat(maps, K, connectivity=conn)
-            fused_p = postproc_kernel.geometry_compat_reference(maps, K, connectivity=conn)
+            fused_k = postproc_kernel.geometry_compat(lg_all, K, connectivity=conn)
+            fused_p = postproc_kernel.geometry_compat_reference(lg_all, K, connectivity=conn)
             pair_k = postproc_kernel.component_slots(
-                maps, ccl_kernel.ccl_labels_from_logits(maps, connectivity=conn), K)
+                lg_all, ccl_kernel.ccl_labels_from_logits(maps, connectivity=conn), K)
+            err_geo = max(err_geo, check_stats(fused_k, fused_p, f"geometry_compat ({conn}-conn)"))
             for key in fused_p:
-                if not torch.equal(fused_k[key], fused_p[key]):
-                    raise AssertionError(f"geometry_compat ({conn}-conn): {key} differs "
-                                         "from the plain version")
                 if not torch.equal(fused_k[key], pair_k[key]):
                     raise AssertionError(f"geometry_compat ({conn}-conn): {key} differs "
                                          "from slots after CCL")
-        log(f"check geometry_compat: {tuple(maps.shape)} K={K}, 8- and 4-connected, all "
-            "five outputs identical to the plain version and to slots after CCL")
-        sel_k = rect_kernel.min_area_rect_compact(geo_p["minx"], geo_p["maxx"], M)
-        sel_p = rect_kernel.min_area_rect_select_reference(geo_p["minx"], geo_p["maxx"], M)
-        err_rect, flips = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
-        log(f"check rect_compact: M={M}, rows max|err| {err_rect:.3g} <= 1e-4, "
-            f"any_edge identical, {flips} exact-tie flips (same rectangle)")
+        log(f"check geometry_compat: {tuple(lg_all.shape)} K={K}, 8- and 4-connected, slot "
+            f"outputs and areas identical to the plain version, means max|err| {err_geo:.3g}"
+            " <= 2e-6; all eight outputs bit for bit equal to slots after CCL")
+        err_rect = 0.0
+        Hm = geo_p["minx"].shape[2]
+        for m in (M, 1, 8, Hm - 1):
+            sel_k = rect_kernel.min_area_rect_compact(geo_p["minx"], geo_p["maxx"], m)
+            sel_p = rect_kernel.min_area_rect_select_reference(geo_p["minx"], geo_p["maxx"], m)
+            e, flips = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
+            err_rect = max(err_rect, e)
+            log(f"check rect_compact: (B,K,H)={tuple(geo_p['minx'].shape)} M={m}, rows max|err| "
+                f"{e:.3g} <= 1e-4, any_edge identical, {flips} exact-tie flips (same rectangle)")
 
         # the uncompacted kernel on the QVGA stream's own extremes (B=64
         # frames, K=16, H=60) and on the adversarial maps at n=60 and 128
@@ -474,10 +520,15 @@ def main() -> int:
         prof = profile_path(run_path, ms_path)
         Bm, C, H, W = xc.shape
         O = w[3].shape[0]
+        lg_main = ctx_k.permute(0, 2, 3, 1)  # the head's NHWC view
         det = ctx_k[:, 0].contiguous()
         lab_main = ccl_kernel.ccl_labels_from_logits(det)
-        geo = postproc_kernel.component_slots(det, lab_main, K)
+        geo = postproc_kernel.component_slots(lg_main, lab_main, K)
         minx, maxx = geo["minx"], geo["maxx"]
+        # class logits of the pixels in a slot: the rest need none
+        in_slot = int((geo["slots"] < K).sum())
+        stats_bytes = in_slot * (O - 1) * 4 + Bm * K * (O + 1) * 4
+        stats_ops = in_slot * O * 8  # sigmoid, max, exp, divide and the sums
 
         def library_context():
             x = xc
@@ -514,7 +565,7 @@ def main() -> int:
             dirs_q += (alive.sum(1) - 1).clamp(min=0)
         exact_flops = float((dirs_q * 2 * rowv_q.sum(1)).sum()) * 10
         ms_pair = time_ms(lambda: postproc_kernel.component_slots(
-            det, ccl_kernel.ccl_labels_from_logits(det), K))
+            lg_main, ccl_kernel.ccl_labels_from_logits(det), K))
         kernels = [
             dict(
                 name="context_layer", route="cuda",
@@ -541,11 +592,15 @@ def main() -> int:
             dict(
                 name="slots", route="cuda", source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130",
-                launches=launches["slots"], max_abs_err=0.0,
-                ms=time_ms(lambda: postproc_kernel.component_slots(det, lab_main, K)),
-                plain_ms=time_ms(lambda: postproc_kernel.component_slots_reference(det, lab_main, K)),
-                library_ms=None,
-                bound=bound(px * 12 + Bm * K * (2 * H + 1) * 4 + Bm * 4, px * 4),
+                launches=launches["slots"], max_abs_err=err_slots,
+                ms=time_ms(lambda: postproc_kernel.component_slots(lg_main, lab_main, K)),
+                plain_ms=time_ms(
+                    lambda: postproc_kernel.component_slots_reference(lg_main, lab_main, K)),
+                # the torch one-hot, sum and bmm stats that the kernel replaces
+                library_ms=time_ms(
+                    lambda: postproc_kernel._stats_reference(lg_main, geo["slots"], K)),
+                bound=bound(px * 12 + Bm * K * (2 * H + 1) * 4 + Bm * 4 + stats_bytes,
+                            px * 4 + stats_ops),
             ),
             dict(
                 name="rect_compact", route="cuda", source="ubdvss_tpu_torch/csrc/rect_kernel.cu",
@@ -570,11 +625,12 @@ def main() -> int:
                 name="geometry_compat", route="cuda",
                 source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50",
-                launches=launches["geometry_compat"], max_abs_err=0.0,
-                ms=time_ms(lambda: postproc_kernel.geometry_compat(det, K)),
-                plain_ms=time_ms(lambda: postproc_kernel.geometry_compat_reference(det, K)),
+                launches=launches["geometry_compat"], max_abs_err=err_geo,
+                ms=time_ms(lambda: postproc_kernel.geometry_compat(lg_main, K)),
+                plain_ms=time_ms(lambda: postproc_kernel.geometry_compat_reference(lg_main, K)),
                 library_ms=None,
-                bound=bound(px * 8 + Bm * K * (2 * H + 1) * 4 + Bm * 4, px * 13),
+                bound=bound(px * 8 + Bm * K * (2 * H + 1) * 4 + Bm * 4 + stats_bytes,
+                            px * 13 + stats_ops),
             ),
         ]
     for kd in kernels:

@@ -145,19 +145,65 @@ def test_ccl_kernel_union_find_stress(dev, hw, connectivity):
     assert bool((ref[0] == 0).all()) and bool((ref[2][torch.from_numpy(spiral).to(dev)] == 0).all())
     geo = postproc_kernel.geometry_compat(lg, 16, connectivity=connectivity)
     geo_ref = postproc_kernel.geometry_compat_reference(lg, 16, connectivity=connectivity)
-    for key in geo_ref:
+    for key in _SLOT_KEYS:
         assert torch.equal(geo[key], geo_ref[key]), key
+    # a 16384-pixel component of one constant logit: the plain version's f32
+    # cuBLAS product drifts ~5e-6 from the exact mean there, so the kernel's
+    # mean is held to the f64 sum
+    onehot = (geo_ref["slots"].flatten(1)[:, None] == torch.arange(16, device=dev)[:, None])
+    exact = torch.bmm(onehot.double(), torch.sigmoid(lg.double()).flatten(1)[..., None])[..., 0]
+    area = geo_ref["areas"].clamp(min=1).double()
+    torch.testing.assert_close(geo["det_sums"] / area, exact / area, atol=2e-6, rtol=0)
 
 
+def _head_logits(det: np.ndarray, C: int, seed: int, dev) -> torch.Tensor:
+    """(B, H, W) detection logits -> the (B, H, W, C) NHWC view over
+    (B, C, H, W) planes that the head returns, class logits normal."""
+    B, H, W = det.shape
+    planes = np.random.default_rng(seed).normal(0, 2, (B, C, H, W)).astype(np.float32)
+    planes[:, 0] = det
+    return torch.from_numpy(planes).to(dev).permute(0, 2, 3, 1)
+
+
+_SLOT_KEYS = ("rootvals", "slots", "minx", "maxx", "num_components_total", "areas")
+
+
+def assert_stats_close(out: dict, ref: dict):
+    """Slot outputs and areas identical; det_sums / areas and
+    cls_sums / areas within 2e-6 (f32 sums in another order)."""
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], ref[key]), key
+    area = ref["areas"].clamp(min=1)
+    torch.testing.assert_close(out["det_sums"] / area, ref["det_sums"] / area, atol=2e-6, rtol=0)
+    torch.testing.assert_close(
+        out["cls_sums"] / area[..., None], ref["cls_sums"] / area[..., None], atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("C", [1, 5, 17])
 @pytest.mark.parametrize("K", [1, 16, 64])
-@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53)])
-def test_slots_kernel_matches_plain(dev, shape, K):
-    lg = torch.from_numpy(_maps(K, *shape)).to(dev)
-    lab = ccl_kernel.ccl_labels_reference(lg)
+@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53), (6, 60, 80)])
+def test_slots_kernel_matches_plain(dev, shape, K, C):
+    """K2's eight outputs against its plain version: blob maps (fewer than
+    K=16 components, so the padding slot K-1 carries the background),
+    noise (more than K) and snakes; two launches bit for bit equal.  C=1
+    and C=17 (the main path's) have their own compiled kernels, C=5 takes
+    the one for any C up to MAX_CHANNELS."""
+    lg = _head_logits(_maps(K, *shape), C, K + C, dev)
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
     out = postproc_kernel.component_slots(lg, lab, K)
     ref = postproc_kernel.component_slots_reference(lg, lab, K)
-    for key in ref:
-        assert torch.equal(out[key], ref[key]), key
+    assert out["cls_sums"].shape == (shape[0], K, max(C - 1, 1))
+    assert_stats_close(out, ref)
+    again = postproc_kernel.component_slots(lg, lab, K)
+    for key in out:
+        assert torch.equal(out[key], again[key]), key
+    totals = ref["num_components_total"]
+    if K == 16:
+        assert bool((totals < K).any())  # padding slots
+    if K == 1:
+        assert bool((totals > K).any())  # pixels beyond the slots
+    if C == 1:
+        assert not bool(out["cls_sums"].any())
 
 
 @pytest.mark.parametrize(
@@ -170,6 +216,70 @@ def test_rect_kernel_matches_plain(dev, shape, M):
     ref = rect_kernel.min_area_rect_select_reference(geo["minx"], geo["maxx"], M)
     assert torch.equal(out[:, 6], ref[:, 6])
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n,M", [(60, 1), (60, 8), (60, 59), (128, 1), (128, 8), (128, 64),
+                                 (128, 127)])
+def test_rect_compact_kernel_adversarial(dev, n, M):
+    """K3 on chip_smoke's adversarial maps (snake, checkerboard, tall bars,
+    single pixels, staircases, noise, a notched blob, empty) at n=60 and
+    n=128, K=16, for M in {1, 8, 64, H-1} below H: any_edge identical, rows
+    within 1e-4."""
+    from chip_smoke import adversarial_maps
+
+    g = postproc_kernel.geometry_compat_reference(
+        torch.from_numpy(adversarial_maps(n)).to(dev), 16)
+    minx, maxx = g["minx"].to(dev), g["maxx"].to(dev)
+    rect_kernel.min_area_rect_compact.launches = 0
+    out = rect_kernel.min_area_rect_select(minx, maxx, M)
+    assert rect_kernel.min_area_rect_compact.launches == 1
+    ref = rect_kernel.min_area_rect_select_reference(minx, maxx, M)
+    assert torch.equal(out[:, 6], ref[:, 6])
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("M", [8, 39])
+def test_rect_compact_kernel_long_lockstep(dev, M):
+    """Chains that lockstep rounds peel one point a round (a collinear run
+    between two far rows, on either side), so K3 finishes them with its
+    slope rule after 4 rounds; staircases and zig-zags beside them."""
+    H = 40
+    mn = np.full((1, 4, H), 1 << 30, np.int32)
+    mx = np.full((1, 4, H), -1, np.int32)
+    y = np.arange(H)
+    mn[0, 0], mx[0, 0] = np.where((y == 0) | (y == H - 1), 0, 10 + y), 60
+    mn[0, 1], mx[0, 1] = 0, np.where((y == 0) | (y == H - 1), 90, 50 - y)
+    mn[0, 2], mx[0, 2] = y, y + 3
+    mn[0, 3, ::2], mx[0, 3, ::2] = 5 + 4 * (y[::2] % 4 == 0), 20
+    minx, maxx = torch.from_numpy(mn).to(dev), torch.from_numpy(mx).to(dev)
+    out = rect_kernel.min_area_rect_compact(minx, maxx, M)
+    ref = rect_kernel.min_area_rect_select_reference(minx, maxx, M)
+    assert torch.equal(out[:, 6], ref[:, 6])
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+def test_rect_compact_kernel_main_path_extremes(dev):
+    """K3 on the extremes of the main path's shape: 4 synthetic 512x512
+    scenes through the asset's model, K=16, M=64 and M=8."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import load_params_npz, params_from_flat
+    from ubdvss_tpu_torch.net_config import NetConfig
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(path)).items()}
+    reader = SyntheticMarkupReader(n_samples=4, image_hw=(512, 512), seed=7)
+    imgs = torch.from_numpy(np.stack([reader.sample_at(i).image for i in range(4)])).to(dev)
+    logits = context_kernel.fused_model_apply(params, imgs.float()[..., None], NetConfig(),
+                                              raw_gray=True)
+    g = postproc_kernel.component_slots_from_logits(logits[..., 0].contiguous(), 16)
+    assert int((g["num_components_total"] > 0).sum()) == 4
+    for M in (64, 8):
+        out = rect_kernel.min_area_rect_compact(g["minx"], g["maxx"], M)
+        ref = rect_kernel.min_area_rect_select_reference(g["minx"], g["maxx"], M)
+        assert torch.equal(out[:, 6], ref[:, 6])
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
 def _tall_bar_extremes(H, W, seed):
@@ -216,15 +326,17 @@ def test_rect_exact_kernel_matches_plain(dev, H, K):
 @pytest.mark.parametrize("K", [1, 16, 64])
 @pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53)])
 def test_geometry_compat_kernel_matches_plain_and_pair(dev, shape, K, connectivity):
-    """K12c's five outputs identical to its plain version and to slots
-    after CCL on the card."""
-    lg = torch.from_numpy(_maps(K + connectivity, *shape)).to(dev)
+    """K12c's slot outputs identical to its plain version, its stats within
+    the plain version's tolerance, and all eight outputs bit for bit equal
+    to slots after CCL on the card (K2 sums in the same order)."""
+    lg = _head_logits(_maps(K + connectivity, *shape), 17, K, dev)
     out = postproc_kernel.geometry_compat(lg, K, connectivity=connectivity)
     ref = postproc_kernel.geometry_compat_reference(lg, K, connectivity=connectivity)
+    det = lg[..., 0].contiguous()
     pair = postproc_kernel.component_slots(
-        lg, ccl_kernel.ccl_labels_from_logits(lg, connectivity=connectivity), K)
+        lg, ccl_kernel.ccl_labels_from_logits(det, connectivity=connectivity), K)
+    assert_stats_close(out, ref)
     for key in ref:
-        assert torch.equal(out[key], ref[key]), key
         assert torch.equal(out[key], pair[key]), key
 
 
@@ -233,9 +345,10 @@ def test_compat_switch_selects_the_fused_kernel(dev, monkeypatch):
     for f in (postproc_kernel.geometry_compat, postproc_kernel.component_slots,
               ccl_kernel.ccl_labels_from_logits):
         f.launches = 0
-    default = postproc_kernel.component_slots_from_logits(lg, 8)
+    lg = _head_logits(lg.cpu().numpy(), 17, 5, dev)
+    default = postproc_kernel.component_stats_from_logits(lg, 8)
     monkeypatch.setenv("UBDVSS_PALLAS_COMPAT", "1")
-    compat = postproc_kernel.component_slots_from_logits(lg, 8)
+    compat = postproc_kernel.component_stats_from_logits(lg, 8)
     assert postproc_kernel.geometry_compat.launches == 1
     assert postproc_kernel.component_slots.launches == 1
     assert ccl_kernel.ccl_labels_from_logits.launches == 1
@@ -254,6 +367,11 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
     lab = ccl_kernel.ccl_labels_from_logits(lg)
     with pytest.raises(TypeError, match="int32"):
         postproc_kernel.component_slots(lg, lab.long(), 4)
+    with pytest.raises(TypeError, match="float32"):
+        postproc_kernel.component_slots(lg.double(), lab, 4)
+    too_many = torch.zeros((2, 16, 16, postproc_kernel.MAX_CHANNELS + 1), device=dev)
+    with pytest.raises(NotImplementedError, match="channels"):
+        postproc_kernel.component_slots(too_many, lab, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         postproc_kernel.component_slots(lg, lab.cpu(), 4)
     with pytest.raises(NotImplementedError, match="shared memory"):

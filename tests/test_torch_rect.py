@@ -174,3 +174,108 @@ def test_rect_exact_matches_pallas_interpret(seed):
     np.testing.assert_array_equal(min_area_rect_select(tn, tx, 32).numpy(), out)
     assert out.shape == ref.shape == (3, 9, 8)
     assert_rect_rows_equivalent(out, ref)
+
+
+def slope_rule(v: torch.Tensor, alive: torch.Tensor, sign: int) -> torch.Tensor:
+    """Plain mirror of the compacted CUDA kernel's slope rule
+    (``csrc/rect_kernel.cu``, step 2): an alive row p stays on the chain iff
+    the largest slope dx/dy from p back to an earlier alive row is at most
+    the smallest slope from p to a later one, slopes compared by integer
+    cross-multiplication from the same sentinels; the right chain (sign -1)
+    is the rule on -x.  (N, H) int64 x values and alive rows -> (N, H) bool
+    kept rows."""
+    x = sign * v
+    N, H = x.shape
+    y = torch.arange(H)
+    s = torch.where(alive, v.abs(), 0).amax(1, keepdim=True) + 1
+    e_n, e_d = -s.expand(N, H).clone(), torch.ones_like(x)
+    f_n, f_d = s.expand(N, H).clone(), torch.ones_like(x)
+    for j in range(H):
+        aj, xj = alive[:, j : j + 1], x[:, j : j + 1]
+        dy = (y - j).expand(N, H)
+        take = aj & (y > j) & ((x - xj) * e_d > e_n * dy)
+        e_n, e_d = torch.where(take, x - xj, e_n), torch.where(take, dy, e_d)
+        take = aj & (y < j) & (f_n * (-dy) > (xj - x) * f_d)
+        f_n, f_d = torch.where(take, xj - x, f_n), torch.where(take, -dy, f_d)
+    return alive & (e_n * f_d <= f_n * e_d)
+
+
+def hull_rows(v: torch.Tensor, valid: torch.Tensor, sign: int, rounds: int = 4) -> torch.Tensor:
+    """The compacted kernel's hull membership: at most ``rounds`` lockstep
+    rounds, then the slope rule over the rows left."""
+    from ubdvss_tpu_torch.ops.cuda.rect_kernel import _convexify
+
+    return slope_rule(v, _convexify(v, valid, sign, max_rounds=rounds), sign)
+
+
+def _chain(rows, H=40):
+    """{row: (minx, maxx)} -> (1, H) int64 minx, maxx and valid rows."""
+    mn = torch.zeros((1, H), dtype=torch.int64)
+    mx = torch.full((1, H), -1, dtype=torch.int64)
+    for y, (a, b) in rows.items():
+        mn[0, y], mx[0, y] = a, b
+    return mn, mx, mx >= 0
+
+
+def _adversarial_chains():
+    rng = np.random.default_rng(0)
+    w = 24
+    yield "staircase", {y: (y, y + 2) for y in range(40)}
+    yield "steep_staircase", {y: (3 * y % 37, 3 * y % 37 + 1) for y in range(40)}
+    yield "collinear_run", {y: (5, 9) for y in range(3, 37)}
+    yield "collinear_diagonal", {y: (10 + y // 2 * 2 - y % 2, 30) for y in range(40)}
+    yield "one_row", {17: (4, 9)}
+    yield "one_pixel", {0: (3, 3)}
+    yield "two_rows", {5: (2, 8), 30: (6, 6)}
+    yield "gaps", {y: (int(rng.integers(0, 10)), int(rng.integers(10, 20))) for y in range(0, 40, 7)}
+    yield "zigzag", {y: (5 + 4 * (y % 2), 20 - 4 * (y % 2)) for y in range(40)}
+    yield "zigzag_period3", {y: ((0, 6, 3)[y % 3], (30, 24, 27)[y % 3]) for y in range(1, 39)}
+    yield "full_width", {y: (0, w - 1) for y in range(40)}
+    yield "full_width_with_notch", {y: (0 if y % 9 else 6, w - 1 if y % 5 else w - 8) for y in range(40)}
+    yield "convex_arc", {y: (int(round(0.04 * (y - 20) ** 2)), 30 - int(round(0.04 * (y - 20) ** 2)))
+                         for y in range(40)}
+    yield "concave_arc", {y: (16 - int(round(0.04 * (y - 20) ** 2)),
+                              17 + int(round(0.04 * (y - 20) ** 2))) for y in range(40)}
+    yield "noise", {y: tuple(sorted(int(t) for t in rng.integers(0, 40, 2)))
+                    for y in range(40) if rng.random() < 0.6}
+    # a collinear run between two far-left rows: lockstep peels one point
+    # a round, so it has not settled after the kernel's 4 rounds
+    yield "cascade", {y: (0 if y in (0, 39) else 10 + y, 60) for y in range(40)}
+
+
+_CHAINS = dict(_adversarial_chains())
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 4, 16])
+@pytest.mark.parametrize("name", sorted(_CHAINS))
+def test_hull_rule_keeps_the_lockstep_points(name, rounds):
+    """The compacted kernel's hull membership (lockstep rounds, then the
+    slope rule) keeps exactly the rows that the lockstep concave-point
+    deletion to its fixpoint (``_convexify``, the TPU kernels' rounds)
+    keeps, on both chains, whether the slope rule starts from the valid
+    rows (0 rounds) or after 1, 4 (the kernel's) or 16 rounds."""
+    from ubdvss_tpu_torch.ops.cuda.rect_kernel import _convexify
+
+    mn, mx, valid = _chain(_CHAINS[name])
+    for v, sign in ((mn, 1), (mx, -1)):
+        want = _convexify(v, valid, sign)
+        got = hull_rows(v, valid, sign, rounds)
+        assert torch.equal(got, want), (sign, got.nonzero().flatten(), want.nonzero().flatten())
+    if name == "cascade":
+        assert not torch.equal(_convexify(mn, valid, 1, max_rounds=16), _convexify(mn, valid, 1))
+
+
+def test_hull_rule_keeps_the_lockstep_points_on_shapes():
+    """The same on every component of the rect tests' shape masks, at H=32
+    and H=128 (rotated rects, bars, rows, pixels, diagonals, notches)."""
+    from ubdvss_tpu_torch.ops.cuda.rect_kernel import _convexify
+
+    for seed, H in ((0, 32), (1, 32), (2, 128)):
+        minx, maxx = _extremes(shape_masks(seed, H=H, W=H))
+        mn = torch.from_numpy(minx).reshape(-1, H).long()
+        mx = torch.from_numpy(maxx).reshape(-1, H).long()
+        valid = mx >= 0
+        for v, sign in ((mn, 1), (mx, -1)):
+            want = _convexify(v, valid, sign)
+            assert torch.equal(hull_rows(v, valid, sign), want)
+            assert torch.equal(slope_rule(v, valid, sign), want)

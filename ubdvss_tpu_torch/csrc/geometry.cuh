@@ -1,14 +1,32 @@
 // The two phases of the component geometry, as block-wide device functions
 // shared by ccl_kernel.cu (K1), postproc_kernel.cu (K2) and
 // geometry_kernel.cu (K12c, both phases in one block), so that each
-// algorithm has one copy.  Every thread of the block calls them.
+// algorithm has one copy; phase 2 also sums the per-component stats.
+// Every thread of the block calls them.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace geometry {
 
 constexpr int kBig = 1 << 30;
+
+// The stats keep a pixel's class logits in registers: CM is the logit
+// channel count C as a compile-time constant, exact for 1 (detection only)
+// and 17 (the main path's), else the bound kAnyChannels.
+constexpr int kAnyChannels = 33;
+
+// Calls f(std::integral_constant<int, CM>()) for C channels; more than
+// kAnyChannels are cudaErrorInvalidValue.
+template <class F>
+inline int with_channel_bound(int C, F&& f) {
+  if (C == 1) return f(std::integral_constant<int, 1>());
+  if (C == 17) return f(std::integral_constant<int, 17>());
+  if (C <= kAnyChannels) return f(std::integral_constant<int, kAnyChannels>());
+  return cudaErrorInvalidValue;
+}
 
 // Phase 1: threshold + connected-component labelling, in shared memory.
 //
@@ -111,111 +129,371 @@ __device__ inline void ccl_labels_shared(const float* __restrict__ lg,
   __syncthreads();
 }
 
-// Phase 2: root count, the K smallest roots, the slot map and each slot's
-// per-row x extremes, from the logits and the raw labels (global or shared
-// memory, which this phase only reads), as the TPU's _roots_slots_extremes
-// (ubdvss_tpu/ops/pallas/postproc_kernel.py:182), including its padding
-// slots: when an image has fewer than K components, the padding slots hold
-// the root value H*W, which the TPU kernel matches against the background
-// label, so background pixels take the LAST padding slot (K-1) and every
-// padding slot carries the background's per-row extremes.  Callers mask
-// padding slots by rootvals.
+// One image's (H, W, C) logits at element strides: channel 0 is the
+// detection logit, 1..C-1 the class logits.  The head writes (C, H, W)
+// planes, so a pixel's channels lie H*W apart and neighbouring pixels are
+// neighbours in memory.
+struct Logits {
+  const float* p;
+  long long sy, sx, sc;
+  int C;
+};
+
+// One image's (H, W) detection logits at element strides.
+struct Plane {
+  const float* p;
+  long long sy, sx;
+  __device__ float operator()(int y, int x) const { return p[y * sy + x * sx]; }
+};
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// The position of the j-th (from 0) set bit of m, j < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const unsigned low = m & ((1u << w) - 1u);
+    const int c = __popc(low);
+    if (j >= c) {
+      j -= c;
+      m >>= w;
+      pos += w;
+    } else {
+      m = low;
+    }
+  }
+  return pos;
+}
+
+// Phase 2b: the per-slot stats, accumulated in phase 2's pixel pass: the
+// pixel count, the sum of sigmoid(det logit) and the sums of the softmax
+// over the C-1 class logits, as the one-hot contractions of the TPU module
+// around K2 (ubdvss_tpu/ops/pallas/postproc_kernel.py:441-467) give them.
+// The sums are taken in an order that depends only on the data and the
+// block size, so two launches agree bit for bit and K2 and K12c, which both
+// run this, agree with each other:
+//   1. each thread adds its pixels, in its pass order, into registers for
+//      the slot of its last pixel (CM: C at compile time, or a bound); a
+//      pixel's class logits are loaded with its detection logit and label,
+//      before its slot is known, so that one memory latency, not two, lies
+//      on each step of a thread's pass;
+//   2. when a thread's slot changes, and at the end of the pass, it
+//      flushes them: the flushing lanes of the warp are grouped by slot
+//      (__match_any_sync), each group is summed by a tree over its lanes'
+//      ranks (shuffles), and the group's rank 0 adds the sum to the warp's
+//      partial set in shared memory, ``part`` (K, C) floats and ``cnt``
+//      (K) ints, one set per virtual warp of the pass (slot_pass);
+//   3. slot_finish sums the partials in the virtual warps' order.
+// sigmoid and softmax follow torch's formulas with expf.
+template <int CM>
+struct StatsAcc {
+  static constexpr bool kExact = CM != kAnyChannels;  // C == CM
+  int slot;
+  int cnt;
+  float det;
+  float cls[CM > 1 ? CM - 1 : 1];
+  float e[CM > 1 ? CM - 1 : 1];  // the pixel's class logits, from fetch()
+
+  __device__ void fetch(const Logits& lg, int y, int x) {
+    const float* q = lg.p + y * lg.sy + x * lg.sx;
+#pragma unroll
+    for (int c = 0; c < CM - 1; ++c) {
+      q += lg.sc;
+      if (kExact || c < lg.C - 1) e[c] = *q;
+    }
+  }
+
+  __device__ void reset(int s) {
+    slot = s;
+    cnt = 0;
+    det = 0.f;
+#pragma unroll
+    for (int c = 0; c < CM - 1; ++c) cls[c] = 0.f;
+  }
+
+  // Warp-wide: lanes with ``go`` add their sums to the warp's partials.
+  __device__ void flush(bool go, int K, int C, float* part, int* cnt_s) const {
+    const int key = go ? slot : K;
+    const int lane = threadIdx.x & 31;
+    const unsigned grp = __match_any_sync(kFull, key);
+    const int rank = __popc(grp & ((1u << lane) - 1u));
+    const int size = __popc(grp);
+    const int steps = 32 - __clz(__reduce_max_sync(kFull, static_cast<unsigned>(size)) - 1u);
+    int src[5];
+    unsigned take = 0;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      src[s] = lane;
+      if (s < steps) {  // warp-uniform
+        const int off = 1 << s;
+        const bool t = (rank & (2 * off - 1)) == 0 && rank + off < size;
+        if (t) src[s] = nth_set_bit(grp, rank + off);
+        take |= static_cast<unsigned>(t) << s;
+      }
+    }
+    auto group_sum = [&](auto v) {
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        if (s < steps) {  // warp-uniform
+          const auto o = __shfl_sync(kFull, v, src[s]);
+          if ((take >> s) & 1u) v += o;
+        }
+      }
+      return v;
+    };
+    const bool lead = rank == 0 && key < K;
+    float* ps = part + key * C;
+    const int n = group_sum(go ? cnt : 0);
+    const float d = group_sum(go ? det : 0.f);
+    if (lead) {
+      cnt_s[key] += n;
+      ps[0] += d;
+    }
+#pragma unroll
+    for (int c = 0; c < CM - 1; ++c) {
+      if (kExact || c < C - 1) {  // uniform
+        const float v = group_sum(go ? cls[c] : 0.f);
+        if (lead) ps[1 + c] += v;
+      }
+    }
+  }
+
+  // Warp-wide: one pixel of slot ``s`` (K: none) with detection logit d
+  // and the class logits that fetch() loaded.
+  __device__ void add(const Logits& lg, int s, float d, int K, float* part, int* cnt_s) {
+    const bool change = s != slot;
+    const bool go = change && slot < K;
+    if (__ballot_sync(kFull, go)) flush(go, K, lg.C, part, cnt_s);
+    if (change) reset(s);
+    if (s >= K) return;
+    cnt += 1;
+    det += 1.f / (1.f + expf(-d));
+    if (CM == 1) return;
+    float mx = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+    for (int c = 0; c < CM - 1; ++c) {
+      if (kExact || c < lg.C - 1) mx = fmaxf(mx, e[c]);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int c = 0; c < CM - 1; ++c) {
+      if (kExact || c < lg.C - 1) {
+        e[c] = expf(e[c] - mx);
+        den += e[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CM - 1; ++c) {
+      if (kExact || c < lg.C - 1) cls[c] += e[c] / den;
+    }
+  }
+};
+
+// Phase 2: root count, the K smallest roots, the slot map, each slot's
+// per-row x extremes and its stats, from the detection logits and the raw
+// labels (global or shared memory, which this phase only reads), as the
+// TPU's _roots_slots_extremes (ubdvss_tpu/ops/pallas/postproc_kernel.py:182)
+// plus the stats around it, including its padding slots: when an image has
+// fewer than K components, the padding slots hold the root value H*W, which
+// the TPU kernel matches against the background label, so background
+// pixels take the LAST padding slot (K-1) and every padding slot carries
+// the background's per-row extremes.  Callers mask padding slots by
+// rootvals.
 //
-// Roots (foreground pixels whose label is their own index) are ranked in
-// raster order by a block-wide exclusive prefix sum (warp shuffles; the
-// block is a whole number of warps); roots of rank < K are the slots, kept
-// ascending in shared memory, and each pixel finds its root's slot by
-// binary search there.  Per-row extremes are shared-memory atomicMin/Max
-// into (K, H) arrays.  ``sm`` holds K + 2*K*H ints.  The outputs are one
-// image's: rootvals (K), slots (H, W), minx/maxx (K, H), nroots (1).
-__device__ inline void roots_slots_extremes(
-    const float* __restrict__ lg, const int* __restrict__ lab, int* sm, int H,
-    int W, int K, float thr, int* __restrict__ rootvals, int* __restrict__ slots,
-    int* __restrict__ minx, int* __restrict__ maxx, int* __restrict__ nroots) {
-  int* s_root = sm;          // K, ascending, H*W pads
-  int* s_mn = sm + K;        // (K, H)
-  int* s_mx = s_mn + K * H;  // (K, H)
+// Three steps, so that one image's pass can be split over the blocks of a
+// cluster (K2) or run in one block (K12c) in the same order:
+//   slot_roots   every block of the image ranks the roots itself;
+//   slot_pass    the pixel pass over the block's share of the virtual
+//                warps, writing slots, extremes and stats partials;
+//   slot_finish  one block writes the extremes, roots and stats.
+
+// K2 splits an image's pixel pass over a cluster of this many blocks;
+// K12c, one block an image, runs the same virtual warps in the same order.
+constexpr int kSlotCtas = 2;
+
+// The per-image state in shared memory: ``sm`` holds K roots (ascending,
+// H*W pads), (K, H) min x, (K, H) max x, then the stats partials, (K, C)
+// floats and K ints for each virtual warp the block runs.
+struct SlotSmem {
+  int* root;
+  int* mn;
+  int* mx;
+  float* part;
+  int* cnt;
+  __device__ SlotSmem(int* sm, int K, int H, int C, int sets)
+      : root(sm), mn(sm + K), mx(sm + K + K * H),
+        part(reinterpret_cast<float*>(sm + K + 2 * K * H)),
+        cnt(reinterpret_cast<int*>(part + sets * K * C)) {}
+};
+
+// Roots (foreground pixels whose label is their own index) ranked in raster
+// order by a block-wide exclusive prefix sum (warp shuffles; the block is
+// a whole number of warps); roots of rank < K are the slots.  Also clears
+// the extremes and the block's ``sets`` stats partial sets.  Returns the
+// image's root count.  Ends with a __syncthreads().
+template <class Det>
+__device__ inline int slot_roots(const Det& det, const int* __restrict__ lab, const SlotSmem& s,
+                                 int H, int W, int K, int C, int sets, float thr) {
   __shared__ int s_warp[32];
   const int N = H * W;
   const int tid = threadIdx.x;
-
-  for (int i = tid; i < K; i += blockDim.x) s_root[i] = N;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int i = tid; i < K; i += blockDim.x) s.root[i] = N;
   for (int i = tid; i < K * H; i += blockDim.x) {
-    s_mn[i] = kBig;
-    s_mx[i] = -1;
+    s.mn[i] = kBig;
+    s.mx[i] = -1;
   }
+  for (int i = tid; i < sets * K * C; i += blockDim.x) s.part[i] = 0.f;
+  for (int i = tid; i < sets * K; i += blockDim.x) s.cnt[i] = 0;
 
-  // 1. count roots in a contiguous raster chunk per thread
+  // count roots in a contiguous raster chunk per thread
   const int chunk = (N + blockDim.x - 1) / blockDim.x;
   const int begin = min(tid * chunk, N);
   const int end = min(begin + chunk, N);
   int cnt = 0;
-  for (int p = begin; p < end; ++p) cnt += (lg[p] > thr && lab[p] == p);
+  for (int p = begin; p < end; ++p) cnt += (lab[p] == p && det(p / W, p % W) > thr);
 
-  // 2. block-wide exclusive prefix sum of the counts
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  // block-wide exclusive prefix sum of the counts
   int incl = cnt;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    const int v = __shfl_up_sync(kFull, incl, off);
     if (lane >= off) incl += v;
   }
   if (lane == 31) s_warp[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
     int v = lane < nw ? s_warp[lane] : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, off);
+      const int u = __shfl_up_sync(kFull, v, off);
       if (lane >= off) v += u;
     }
     if (lane < nw) s_warp[lane] = v;  // inclusive warp totals
   }
   __syncthreads();
-  const int total = s_warp[(blockDim.x >> 5) - 1];
+  const int total = s_warp[nw - 1];
   int rank = (warp > 0 ? s_warp[warp - 1] : 0) + incl - cnt;
   for (int p = begin; p < end && rank < K; ++p) {
-    if (lg[p] > thr && lab[p] == p) s_root[rank++] = p;
+    if (lab[p] == p && det(p / W, p % W) > thr) s.root[rank++] = p;
   }
   __syncthreads();
+  return total;
+}
 
-  // 3. slot map + per-row extremes
+// The pixel pass.  The image's (32-column strip, row) pairs, strip-major,
+// are cut into ``nv`` runs, one per virtual warp; a warp walks its run with
+// lanes over the strip's columns, so a lane goes down its column and its
+// slot changes only at a component's edge, and every warp-wide stats call
+// sees the whole warp.  Warp w of the block runs the virtual warps
+// first + w + j * nw for j < ``reps``, each into the partial set
+// v - first.  Each pixel finds its root's slot by binary search among the
+// ranked roots, writes it, and takes part in the per-row extremes
+// (shared-memory atomicMin/Max) and the stats.  Ends with a
+// __syncthreads().
+template <int CM, class Det>
+__device__ inline void slot_pass(const Det& det, const Logits& lg, const int* __restrict__ lab,
+                                 const SlotSmem& s, int H, int W, int K, float thr, int total,
+                                 int first, int reps, int nv, int* __restrict__ slots) {
+  const int N = H * W;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
   const int nvalid = min(total, K);
   const int bg_slot = total < K ? K - 1 : K;
-  for (int p = tid; p < N; p += blockDim.x) {
-    const int l = lg[p] > thr ? lab[p] : N;
-    int slot;
-    if (l == N) {
-      slot = bg_slot;
-    } else {
-      int lo = 0, hi = nvalid;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (s_root[mid] < l) lo = mid + 1; else hi = mid;
+  const int runs = (W + 31) / 32 * H;
+  const int per_v = (runs + nv - 1) / nv;
+  for (int j = 0; j < reps; ++j) {
+    const int v = first + warp + j * nw;
+    const int set = v - first;
+    float* w_part = s.part + set * K * lg.C;
+    int* w_cnt = s.cnt + set * K;
+    StatsAcc<CM> acc;
+    acc.reset(K);
+    const int r0 = min(v * per_v, runs);
+    const int r1 = min(r0 + per_v, runs);
+    int y = r0 % H;
+    int x = r0 / H * 32 + lane;
+    for (int r = r0; r < r1; ++r, ++y) {
+      if (y == H) {
+        y = 0;
+        x += 32;
       }
-      slot = (lo < nvalid && s_root[lo] == l) ? lo : K;
+      const int p = y * W + x;
+      int slot = K;
+      float d = 0.f;
+      if (x < W) {
+        acc.fetch(lg, y, x);
+        d = det(y, x);
+        const int lp = lab[p];  // loaded beside d, not after it
+        const int l = d > thr ? lp : N;
+        if (l == N) {
+          slot = bg_slot;
+        } else {
+          int lo = 0, hi = nvalid;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (s.root[mid] < l) lo = mid + 1; else hi = mid;
+          }
+          slot = (lo < nvalid && s.root[lo] == l) ? lo : K;
+        }
+        slots[p] = slot;
+        if (slot < K) {
+          atomicMin(&s.mn[slot * H + y], x);
+          atomicMax(&s.mx[slot * H + y], x);
+        }
+      }
+      acc.add(lg, slot, d, K, w_part, w_cnt);
     }
-    slots[p] = slot;
-    if (slot < K) {
-      const int y = p / W;
-      const int x = p - y * W;
-      atomicMin(&s_mn[slot * H + y], x);
-      atomicMax(&s_mx[slot * H + y], x);
-    }
+    if (__ballot_sync(kFull, acc.slot < K)) acc.flush(acc.slot < K, K, lg.C, w_part, w_cnt);
   }
   __syncthreads();
+}
 
-  // 4. write out; padding slots all carry the background's extremes
-  for (int i = tid; i < K * H; i += blockDim.x) {
+// The outputs of one image: the stats summed over the ``nv`` virtual
+// warps' partial sets in their order (sets [0, nv/2) in ``lo``, the rest
+// in ``hi``, which may be another block's shared memory) into areas (K),
+// det_sums (K) and cls_sums (K, max(C-1, 1)) — with C = 1 one zero column
+// — then rootvals (K), minx/maxx (K, H), the padding slots all carrying the
+// background's extremes, and nroots (1).
+__device__ inline void slot_finish(const SlotSmem& s, const float* hi_part, const int* hi_cnt,
+                                   int H, int K, int C, int total, int nv,
+                                   int* __restrict__ rootvals, int* __restrict__ minx,
+                                   int* __restrict__ maxx, int* __restrict__ nroots,
+                                   float* __restrict__ areas, float* __restrict__ det_sums,
+                                   float* __restrict__ cls_sums) {
+  const int half = nv / 2;
+  for (int i = threadIdx.x; i < K * C; i += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < half; ++w) v += s.part[w * K * C + i];
+    for (int w = 0; w < nv - half; ++w) v += hi_part[w * K * C + i];
+    const int k = i / C;
+    const int c = i - k * C;
+    if (c == 0) {
+      det_sums[k] = v;
+    } else {
+      cls_sums[k * (C - 1) + c - 1] = v;
+    }
+  }
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    int a = 0;
+    for (int w = 0; w < half; ++w) a += s.cnt[w * K + k];
+    for (int w = 0; w < nv - half; ++w) a += hi_cnt[w * K + k];
+    areas[k] = static_cast<float>(a);
+    if (C == 1) cls_sums[k] = 0.f;
+  }
+  const int nvalid = min(total, K);
+  for (int i = threadIdx.x; i < K * H; i += blockDim.x) {
     const int k = i / H;
     const int src = (k >= nvalid && k < K - 1) ? (K - 1) * H + (i - k * H) : i;
-    minx[i] = s_mn[src];
-    maxx[i] = s_mx[src];
+    minx[i] = s.mn[src];
+    maxx[i] = s.mx[src];
   }
-  for (int k = tid; k < K; k += blockDim.x) rootvals[k] = s_root[k];
-  if (tid == 0) *nroots = total;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) rootvals[k] = s.root[k];
+  if (threadIdx.x == 0) *nroots = total;
 }
 
 }  // namespace geometry

@@ -138,6 +138,7 @@ def check_input(t, name: str, dtype, ndim: int, device=None) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 

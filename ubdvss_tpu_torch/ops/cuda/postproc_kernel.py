@@ -1,25 +1,34 @@
-"""Component slots (K2), the fused compat geometry (K12c) and per-component
-stats over the CCL labels.
+"""Component slots and stats (K2), the fused compat geometry (K12c) over
+the CCL labels.
 
 Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
 
-  * ``component_slots`` — from the raw labels: the root count, the K
-    smallest roots in raster order (H*W pads), the slot map (0..K-1, K for
-    pixels beyond slot K) and each slot's per-row min/max x (1<<30 / -1 on
-    empty rows).  As in the TPU kernel, padding slots match the background
-    label H*W: when an image has fewer than K components, background pixels
-    take slot K-1 and every padding slot carries the background's extremes;
-    ``postprocess_batch_fused`` masks them by ``rootvals``.
-  * ``geometry_compat`` — CCL and slots as one kernel per image (K12c,
-    ``_geometry_kernel_compat``), the same outputs as slots after CCL.
-  * ``component_slots_from_logits`` — CCL (``ccl_kernel``) then slots, or,
-    when ``UBDVSS_PALLAS_COMPAT`` is ``"1"``, ``geometry_compat``: the JAX
+  * ``component_slots`` — from the logits and the raw labels: the root
+    count, the K smallest roots in raster order (H*W pads), the slot map
+    (0..K-1, K for pixels beyond slot K), each slot's per-row min/max x
+    (1<<30 / -1 on empty rows), and each slot's stats: pixel count
+    (``areas``), sum of sigmoid(det logit) (``det_sums``) and sums of the
+    class softmax (``cls_sums``).  As in the TPU kernel, padding slots match
+    the background label H*W: when an image has fewer than K components,
+    background pixels take slot K-1 and every padding slot carries the
+    background's extremes; ``postprocess_batch_fused`` masks them by
+    ``rootvals``.
+  * ``geometry_compat`` — CCL, slots and stats as one kernel per image
+    (K12c, ``_geometry_kernel_compat``), the same outputs as slots after
+    CCL, stats bit for bit.
+  * ``component_geometry`` — CCL (``ccl_kernel``) then slots, or, when
+    ``UBDVSS_PALLAS_COMPAT`` is ``"1"``, ``geometry_compat``: the JAX
     package's compat switch with its meaning.  The JAX package reads it
     once, at import; the port reads it at each call.  No route retries the
-    other on an error.
-  * ``component_stats_from_logits`` — plus areas, sigmoid sums and class
-    softmax sums per slot.  Those sums are one-hot matrix products in plain
-    f32 torch on every device, as the JAX package leaves them to XLA.
+    other on an error.  ``component_slots_from_logits`` and
+    ``component_stats_from_logits`` are the JAX functions of those names
+    over it.
+
+The JAX package leaves the stats to XLA, as one-hot contractions over the
+slot map; their plain version here does the same in f32 torch, and that is
+what a CPU tensor takes.  On the card K2 and K12c sum them in the pixel
+pass that assigns the slots, reading the class logits where the head wrote
+them, so no one-hot exists there.
 
 The JAX package stacks G images per CCL program (``_stack_group``) to
 amortise TPU grid overhead; blocks run in parallel here, so there is no
@@ -43,16 +52,44 @@ from ubdvss_tpu_torch.ops.cuda.ccl_kernel import (
 _BIG = 1 << 30
 
 
+_GEO_KEYS = ("rootvals", "slots", "minx", "maxx", "num_components_total")
+
+
+def _as_nhwc(logits: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) detection logits or (B, H, W, C) logits -> (B, H, W, C)."""
+    return logits[..., None] if logits.ndim == 3 else logits
+
+
+def _stats_reference(logits: torch.Tensor, slots: torch.Tensor, K: int) -> dict:
+    """Plain per-slot stats: areas, detection-probability sums and
+    class-probability sums as one-hot products in f32, as the JAX package
+    leaves them to XLA; (B, K, 1) zeros for cls_sums when C = 1."""
+    B, H, W, C = logits.shape
+    det = logits[..., 0].to(torch.float32)
+    k_ids = torch.arange(K, dtype=torch.int32, device=logits.device).view(1, K, 1)
+    onehot = (slots.view(B, 1, H * W) == k_ids).to(torch.float32)  # (B, K, HW)
+    areas = onehot.sum(-1)
+    det_sums = torch.bmm(onehot, torch.sigmoid(det).reshape(B, H * W, 1))[..., 0]
+    if C > 1:
+        sm = torch.softmax(logits[..., 1:].to(torch.float32), dim=-1)
+        cls_sums = torch.bmm(onehot, sm.reshape(B, H * W, C - 1))
+    else:
+        cls_sums = torch.zeros((B, K, 1), dtype=torch.float32, device=logits.device)
+    return {"areas": areas, "det_sums": det_sums, "cls_sums": cls_sums}
+
+
 def component_slots_reference(
-    det_logits: torch.Tensor, labels: torch.Tensor, max_components: int,
+    logits: torch.Tensor, labels: torch.Tensor, max_components: int,
     threshold: float = 0.5,
 ) -> dict:
-    """Plain version of the slots kernel (the JAX K-round loop, batched)."""
-    B, H, W = det_logits.shape
+    """Plain version of the slots kernel: the JAX K-round loop, batched, then
+    the one-hot stats.  ``logits`` is (B, H, W) or (B, H, W, C)."""
+    logits = _as_nhwc(logits)
+    B, H, W, _ = logits.shape
     K = max_components
     N = H * W
-    dev = det_logits.device
-    mask = det_logits.to(torch.float32) > threshold_logit(threshold)
+    dev = logits.device
+    mask = logits[..., 0].to(torch.float32) > threshold_logit(threshold)
     lab = torch.where(mask, labels.to(torch.int32), N)
     lin = torch.arange(N, dtype=torch.int32, device=dev).view(1, H, W)
     cand = torch.where(mask & (lab == lin), lab, N).view(B, N)
@@ -75,14 +112,52 @@ def component_slots_reference(
         "minx": minx,
         "maxx": maxx,
         "num_components_total": nroots,
+        **_stats_reference(logits, slots, K),
     }
 
 
-_FUNCS = {"component_slots": [_build.P] * 7 + [_build.I] * 4 + [_build.F, _build.P]}
+_LOGITS_ARGS = [_build.P] + [_build.L] * 4 + [_build.I]
+_FUNCS = {
+    "component_slots": _LOGITS_ARGS + [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.P]
+}
 
 
-def _empty_outputs(B: int, H: int, W: int, K: int, dev) -> dict:
-    """The five int32 outputs of K2 and K12c, in their C argument order."""
+# the kernels' stats keep a pixel's class probabilities in registers, for
+# at most this many channels (csrc/geometry.cuh, with_channel_bound)
+MAX_CHANNELS = 33
+
+
+def _check_logits(logits: torch.Tensor) -> None:
+    """The kernels read the logits at their strides: f32, 4 dims, on the
+    card, at most MAX_CHANNELS channels."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"logits: expected a CUDA tensor, got {logits.device}")
+    if logits.dtype != torch.float32:
+        raise TypeError(f"logits: expected torch.float32, got {logits.dtype}")
+    if logits.ndim != 4:
+        raise ValueError(f"logits: expected 3 or 4 dims, got shape {tuple(logits.shape)}")
+    if logits.shape[-1] > MAX_CHANNELS:
+        raise NotImplementedError(
+            f"{logits.shape[-1]} logit channels: the stats kernels take at most {MAX_CHANNELS}"
+        )
+
+
+# K2's blocks (a cluster) per image (csrc/geometry.cuh, kSlotCtas)
+SLOT_CTAS = 2
+
+
+def stats_warps(H: int, W: int, K: int, C: int) -> int:
+    """Warps of a K2 block and of a K12c block: each K2 warp keeps one stats
+    partial set, each K12c warp the SLOT_CTAS sets of K2's warps it stands
+    for.  As many as K12c's shared memory leaves room for, at most 32 and at
+    least 1.  K2 takes the same count, which fixes the order of the stats'
+    sums, so that both kernels' stats agree bit for bit."""
+    free = MAX_SHARED_BYTES - 1024 - (H * W + K + 2 * K * H) * 4
+    return max(1, min(32, free // (SLOT_CTAS * K * (C + 1) * 4)))
+
+
+def _empty_outputs(B: int, H: int, W: int, K: int, C: int, dev) -> dict:
+    """The eight outputs of K2 and K12c, in their C argument order."""
     shapes = {
         "rootvals": (B, K),
         "slots": (B, H, W),
@@ -90,37 +165,43 @@ def _empty_outputs(B: int, H: int, W: int, K: int, dev) -> dict:
         "maxx": (B, K, H),
         "num_components_total": (B,),
     }
-    return {k: torch.empty(v, dtype=torch.int32, device=dev) for k, v in shapes.items()}
+    out = {k: torch.empty(v, dtype=torch.int32, device=dev) for k, v in shapes.items()}
+    for k, v in (("areas", (B, K)), ("det_sums", (B, K)), ("cls_sums", (B, K, max(C - 1, 1)))):
+        out[k] = torch.empty(v, dtype=torch.float32, device=dev)
+    return out
 
 
 def component_slots(
-    det_logits: torch.Tensor, labels: torch.Tensor, max_components: int,
+    logits: torch.Tensor, labels: torch.Tensor, max_components: int,
     threshold: float = 0.5,
 ) -> dict:
-    """Slots from (B, H, W) logits and raw labels (the slots kernel).
+    """Slots and stats from (B, H, W) detection logits or (B, H, W, C)
+    logits at any strides, and the raw labels (the slots kernel).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one block per image) or raises.
+    (a cluster of SLOT_CTAS blocks per image) or raises.
     """
-    if det_logits.device.type == "cpu":
-        return component_slots_reference(det_logits, labels, max_components, threshold)
-    _build.check_input(det_logits, "det_logits", torch.float32, 3)
-    _build.check_input(labels, "labels", torch.int32, 3, det_logits.device)
-    if labels.shape != det_logits.shape:
-        raise ValueError(f"labels {tuple(labels.shape)} != logits {tuple(det_logits.shape)}")
-    B, H, W = det_logits.shape
+    if logits.device.type == "cpu":
+        return component_slots_reference(logits, labels, max_components, threshold)
+    logits = _as_nhwc(logits)
+    _check_logits(logits)
+    _build.check_input(labels, "labels", torch.int32, 3, logits.device)
+    B, H, W, C = logits.shape
+    if labels.shape != (B, H, W):
+        raise ValueError(f"labels {tuple(labels.shape)} != logits {(B, H, W)}")
     K = max_components
-    if (K + 2 * K * H) * 4 > MAX_SHARED_BYTES:
+    nw = stats_warps(H, W, K, C)
+    if (K + 2 * K * H + nw * K * (C + 1)) * 4 > MAX_SHARED_BYTES:
         raise NotImplementedError(
-            f"K={K} x H={H} extremes exceed one block's shared memory "
+            f"K={K} x H={H} extremes and stats exceed one block's shared memory "
             "(large scans: ROADMAP.md §1 item 7)"
         )
     lib = _build.load("postproc_kernel", _FUNCS)
-    out = _empty_outputs(B, H, W, K, det_logits.device)
+    out = _empty_outputs(B, H, W, K, C, logits.device)
     _build.launch(
-        lib, "component_slots", det_logits.device, det_logits.data_ptr(),
+        lib, "component_slots", logits.device, logits.data_ptr(), *logits.stride(), C,
         labels.data_ptr(), *(t.data_ptr() for t in out.values()),
-        B, H, W, K, threshold_logit(threshold),
+        B, H, W, K, 32 * nw, threshold_logit(threshold),
     )
     component_slots.launches += 1
     return out
@@ -130,50 +211,56 @@ component_slots.launches = 0
 
 
 def geometry_compat_reference(
-    det_logits: torch.Tensor, max_components: int, threshold: float = 0.5,
+    logits: torch.Tensor, max_components: int, threshold: float = 0.5,
     connectivity: int = 8,
 ) -> dict:
-    """Plain version of K12c: the slots of the CCL labels.  The TPU's K12c
-    runs K1's rounds (with the same H+W cap) and then K2's, so this is
-    exactly its semantics."""
-    labels = ccl_labels_reference(det_logits, threshold, connectivity)
-    return component_slots_reference(det_logits, labels, max_components, threshold)
+    """Plain version of K12c: the slots and stats of the CCL labels.  The
+    TPU's K12c runs K1's rounds (with the same H+W cap) and then K2's, so
+    this is exactly its semantics."""
+    logits = _as_nhwc(logits)
+    labels = ccl_labels_reference(logits[..., 0], threshold, connectivity)
+    return component_slots_reference(logits, labels, max_components, threshold)
 
 
 _GEO_FUNCS = {
-    "geometry_compat": [_build.P] * 6 + [_build.I] * 4 + [_build.F, _build.I, _build.P]
+    "geometry_compat": [_build.P] + _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
+    + [_build.F, _build.I, _build.P]
 }
 
 
 def geometry_compat(
-    det_logits: torch.Tensor, max_components: int, threshold: float = 0.5,
+    logits: torch.Tensor, max_components: int, threshold: float = 0.5,
     connectivity: int = 8,
 ) -> dict:
-    """(B, H, W) f32 logits -> the slots outputs, CCL and slots fused in one
-    kernel (K12c, one block per image, the label map kept in shared memory
-    between the two phases; union-find with no round cap, as K1).
+    """(B, H, W) detection logits or (B, H, W, C) logits -> the slots and
+    stats outputs, CCL and slots fused in one kernel (K12c, one block per
+    image, the label map kept in shared memory between the two phases;
+    union-find with no round cap, as K1).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.
     """
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
-    if det_logits.device.type == "cpu":
-        return geometry_compat_reference(det_logits, max_components, threshold, connectivity)
-    _build.check_input(det_logits, "det_logits", torch.float32, 3)
-    B, H, W = det_logits.shape
+    if logits.device.type == "cpu":
+        return geometry_compat_reference(logits, max_components, threshold, connectivity)
+    logits = _as_nhwc(logits)
+    _check_logits(logits)
+    B, H, W, C = logits.shape
     K = max_components
-    if (H * W + K + 2 * K * H) * 4 > MAX_SHARED_BYTES:
+    nw = stats_warps(H, W, K, C)
+    if (H * W + K + 2 * K * H + SLOT_CTAS * nw * K * (C + 1)) * 4 > MAX_SHARED_BYTES:
         raise NotImplementedError(
             f"a {H}x{W} label map and K={K} x H extremes exceed one block's "
             "shared memory (large scans: ROADMAP.md §1 item 7)"
         )
+    det = logits[..., 0].contiguous()  # the CCL phase reads a dense plane
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
-    out = _empty_outputs(B, H, W, K, det_logits.device)
+    out = _empty_outputs(B, H, W, K, C, logits.device)
     _build.launch(
-        lib, "geometry_compat", det_logits.device, det_logits.data_ptr(),
-        *(t.data_ptr() for t in out.values()),
-        B, H, W, K, threshold_logit(threshold), connectivity,
+        lib, "geometry_compat", logits.device, det.data_ptr(), logits.data_ptr(),
+        *logits.stride(), C, *(t.data_ptr() for t in out.values()),
+        B, H, W, K, 32 * nw, threshold_logit(threshold), connectivity,
     )
     geometry_compat.launches += 1
     return out
@@ -182,22 +269,30 @@ def geometry_compat(
 geometry_compat.launches = 0
 
 
+def component_geometry(
+    logits: torch.Tensor, max_components: int, threshold: float = 0.5,
+    connectivity: int = 8,
+) -> dict:
+    """(B, H, W) detection logits or (B, H, W, C) logits -> the eight
+    outputs of the slots kernel: CCL then slots, or K12c when
+    ``UBDVSS_PALLAS_COMPAT`` is ``"1"`` (read at each call)."""
+    logits = _as_nhwc(logits).to(torch.float32)
+    if os.environ.get("UBDVSS_PALLAS_COMPAT", "") == "1":
+        return geometry_compat(logits, max_components, threshold, connectivity)
+    labels = ccl_labels_from_logits(logits[..., 0].contiguous(), threshold, connectivity)
+    return component_slots(logits, labels, max_components, threshold)
+
+
 def component_slots_from_logits(
     det_logits: torch.Tensor, max_components: int, threshold: float = 0.5,
     connectivity: int = 8,
 ) -> dict:
-    """(B, H, W) detection logits -> slot map + rootvals + rect extremes.
-
-    CCL then slots, or K12c when ``UBDVSS_PALLAS_COMPAT`` is ``"1"`` (read
-    at each call).  Returns dict: rootvals (B, K) int32 (H*W at padding),
-    slots (B, H, W) int32, minx/maxx (B, K, H) int32, num_components_total
-    (B,) int32.
-    """
-    det = det_logits.to(torch.float32).contiguous()
-    if os.environ.get("UBDVSS_PALLAS_COMPAT", "") == "1":
-        return geometry_compat(det, max_components, threshold, connectivity)
-    labels = ccl_labels_from_logits(det, threshold, connectivity)
-    return component_slots(det, labels, max_components, threshold)
+    """(B, H, W) detection logits -> slot map + rootvals + rect extremes,
+    the five outputs of the JAX function of this name: rootvals (B, K)
+    int32 (H*W at padding), slots (B, H, W) int32, minx/maxx (B, K, H)
+    int32, num_components_total (B,) int32."""
+    geo = component_geometry(det_logits, max_components, threshold, connectivity)
+    return {k: geo[k] for k in _GEO_KEYS}
 
 
 def component_stats_from_logits(
@@ -206,32 +301,14 @@ def component_stats_from_logits(
 ) -> dict:
     """(B, H, W, C) NHWC logits -> per-component stats.
 
-    Geometry from the kernels; areas, detection-probability sums and
-    class-probability sums as one-hot products in f32.  Returns (B, K)
-    rootvals/areas/det_sums, (B, K, n_cls) cls_sums (a zero column when
-    detection-only), (B, K, H) minx/maxx, the slot map as ``labels`` and
-    ``num_components_total``.
+    Geometry and stats from the kernels on the card (the stats summed in
+    K2's or K12c's pixel pass); on the CPU the stats are the plain one-hot
+    products.  Returns (B, K) rootvals/areas/det_sums, (B, K, n_cls)
+    cls_sums (a zero column when detection-only), (B, K, H) minx/maxx, the
+    slot map as ``labels`` and ``num_components_total``.
     """
-    B, H, W, C = logits.shape
-    K = max_components
-    det = logits[..., 0].to(torch.float32).contiguous()
-    geo = component_slots_from_logits(det, K, threshold, connectivity)
-    k_ids = torch.arange(K, dtype=torch.int32, device=logits.device).view(1, K, 1)
-    onehot = (geo["slots"].view(B, 1, H * W) == k_ids).to(torch.float32)  # (B, K, HW)
-    areas = onehot.sum(-1)
-    det_sums = torch.bmm(onehot, torch.sigmoid(det).view(B, H * W, 1))[..., 0]
-    if C > 1:
-        sm = torch.softmax(logits[..., 1:].to(torch.float32), dim=-1)
-        cls_sums = torch.bmm(onehot, sm.reshape(B, H * W, C - 1))
-    else:
-        cls_sums = torch.zeros((B, K, 1), dtype=torch.float32, device=logits.device)
-    return {
-        "rootvals": geo["rootvals"],
-        "areas": areas,
-        "det_sums": det_sums,
-        "cls_sums": cls_sums,
-        "minx": geo["minx"],
-        "maxx": geo["maxx"],
-        "labels": geo["slots"],
-        "num_components_total": geo["num_components_total"],
-    }
+    geo = component_geometry(logits, max_components, threshold, connectivity)
+    out = {k: geo[k] for k in ("rootvals", "areas", "det_sums", "cls_sums", "minx", "maxx")}
+    out["labels"] = geo["slots"]
+    out["num_components_total"] = geo["num_components_total"]
+    return out

@@ -20,9 +20,11 @@ Output rows (B, 9, K): ux, uy, min_u, max_u, min_v, max_v, any_edge, p0x,
 p0y; ``rects_from_selection`` turns them into corners, centre, size, angle.
 
 ``min_area_rect_select_reference`` mirrors the JAX lockstep deletion rounds
-vectorised over components; the CUDA kernels (``csrc/rect_kernel.cu``) run
-a monotone stack per chain, which keeps the same points, so comparing the
-two also checks that claim.  ``UBDVSS_PALLAS_COMPAT=1`` makes the JAX
+vectorised over components.  The CUDA kernels (``csrc/rect_kernel.cu``)
+reach the same points another way — K3 runs at most 4 lockstep rounds
+and then keeps a row whose largest slope back is at most its smallest
+slope forward, K3x runs a monotone stack per chain — so comparing them
+with it also checks that claim.  ``UBDVSS_PALLAS_COMPAT=1`` makes the JAX
 kernels convexify the two chains one after the other instead of in
 lockstep; that keeps the same points, so it changes nothing here.
 """
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ubdvss_tpu_torch.ops.cuda import _build
+from ubdvss_tpu_torch.ops.cuda.ccl_kernel import MAX_SHARED_BYTES
 
 _INF = 3.4e38
 _BIG = 1 << 30
@@ -57,8 +60,11 @@ def _next_alive(alive: torch.Tensor) -> torch.Tensor:
     return torch.where(pf >= 0, H - 1 - pf, -1).flip(-1)
 
 
-def _convexify(v: torch.Tensor, alive: torch.Tensor, sign: int) -> torch.Tensor:
-    """Lockstep concave-point deletion on one chain to its fixpoint.
+def _convexify(
+    v: torch.Tensor, alive: torch.Tensor, sign: int, max_rounds: int | None = None
+) -> torch.Tensor:
+    """Lockstep concave-point deletion on one chain to its fixpoint (or for
+    at most ``max_rounds`` rounds).
 
     v (N, H) int64 x values, alive (N, H) bool; a round deletes every alive
     point whose alive neighbours both exist and for which
@@ -66,7 +72,7 @@ def _convexify(v: torch.Tensor, alive: torch.Tensor, sign: int) -> torch.Tensor:
     """
     H = v.shape[-1]
     yi = torch.arange(H, device=v.device).expand_as(v)
-    for _ in range(H):
+    for _ in range(H if max_rounds is None else max_rounds):
         prv, nxt = _prev_alive(alive), _next_alive(alive)
         pc, nc = prv.clamp(min=0), nxt.clamp(min=0)
         px, nx = v.gather(1, pc), v.gather(1, nc)
@@ -243,8 +249,12 @@ def min_area_rect_compact(
     if minx.device.type == "cpu":
         return min_area_rect_select_reference(minx, maxx, max_points)
     _check_extremes(minx, maxx)
-    if 2 * max_points > 1024:
-        raise ValueError(f"max_points={max_points}: one thread per direction, 2M <= 1024")
+    if (20 * max_points + 3 * H + 4 * ((H + 31) // 32)) * 4 > MAX_SHARED_BYTES:
+        raise NotImplementedError(
+            f"H={H}, max_points={max_points}: a component's rows, points and "
+            "directions exceed one block's shared memory (large scans: "
+            "ROADMAP.md §1 item 7)"
+        )
     lib = _build.load("rect_kernel", _FUNCS)
     out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)
     _build.launch(

@@ -18,7 +18,8 @@ them.  Phases, each of which raises on failure:
      outputs and areas identical, det_sums / areas and cls_sums / areas
      within 2e-6, two launches bit for bit equal, the fused geometry's
      eight outputs bit for bit equal to slots after CCL; rect rows
-     (compacted at M = 1, 8, 64 and H-1, and uncompacted) within 1e-4 (or
+     (compacted at M = 1, 8, 64 and H-1, and uncompacted, also one image
+     at a time as detect calls it) within 1e-4 (or
      the same rectangle on an exact caliper tie) with any_edge identical, the context module within 1e-4 with TF32 off at the main
      path's (64, 24, 128, 128) and the QVGA stream's (64, 24, 60, 80)
      features, one launch a layer;
@@ -43,16 +44,22 @@ them.  Phases, each of which raises on failure:
         for the call, then restored); the fused geometry kernel must have
         launched and CCL and slots not; detections identical to the
         default route's on the card;
+     d. single-image detection: BarcodeDetector(device="cuda").detect and
+        detect_program on 4 of the main path's 512x512 scenes, the XLA
+        route's exact rects; context, CCL, slots and the uncompacted rect
+        kernel must have launched and the compacted one not; detections
+        equal to the same calls through the plain versions on the host CPU;
   4. timing with CUDA events (median of 10 samples of 10 back-to-back calls,
      after warm-up): img/s of the main path, frames/s of the stream (the
      whole process() of 256 frames, median of 3), each kernel's ms beside
      its plain version's, the library call's (where one PyTorch call
      computes the same function; for slots, the torch one-hot stats it
      replaces) and its bound, the fused geometry beside CCL + slots on the
-     same maps; then a torch.profiler breakdown of the main path's device
-     time by kernel, which must hold no stats row (cuBLAS gemv or gemm,
-     one-hot compare, sigmoid, softmax), and the device's busy share of the
-     path's time.
+     same maps, each kernel's device time (torch.profiler); the latency of
+     one detect call; then a torch.profiler breakdown of the main path's
+     device time by kernel, which must hold no stats row (cuBLAS gemv or
+     gemm, one-hot compare, sigmoid, softmax), and the device's busy share
+     of the path's time.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -108,6 +115,23 @@ def time_ms(fn, iters=ITERS, reps=REPS, warmup=WARMUP) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20) -> float:
+    """Mean device time of one call of fn: the sum of its kernels' CUPTI
+    durations (torch.profiler), without the host's launch time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
@@ -134,6 +158,27 @@ def adversarial_maps(n=128):
     maps[6, 40:60, 40:60] = -6
     maps[6, 70:80, 20:50] = -6
     return maps  # maps[7] stays empty
+
+
+def exact_directions(minx, maxx) -> np.ndarray:
+    """(B, K, H) extremes -> per component, the directions the uncompacted
+    rect kernel projects: the edges between consecutive hull points of
+    each chain, less an edge equal to the one before it on its chain."""
+    from ubdvss_tpu_torch.ops.cuda.rect_kernel import _convexify
+
+    H = minx.shape[-1]
+    rowv = (maxx >= 0).reshape(-1, H)
+    out = np.zeros(rowv.shape[0], np.int64)
+    for v, sign in ((minx, 1), (maxx, -1)):
+        v = v.reshape(-1, H).long()
+        alive = _convexify(v, rowv, sign).cpu().numpy()
+        xs = v.cpu().numpy()
+        for c in range(len(out)):
+            ys = np.flatnonzero(alive[c])
+            if len(ys) >= 2:
+                e = np.stack([np.diff(xs[c, ys]), np.diff(ys)], 1)
+                out[c] += 1 + int((e[1:] != e[:-1]).any(1).sum())
+    return out
 
 
 _PERMS = np.array(list(permutations(range(4))))
@@ -263,8 +308,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from ubdvss_tpu_torch import (
+        BarcodeDetector,
         NetConfig,
         StreamingDetector,
+        detect_program,
         detect_program_batch,
         load_net_config,
         load_params_npz,
@@ -391,6 +438,9 @@ def main() -> int:
         geo_q = postproc_kernel.component_slots_from_logits(det_q, K)
         minx_q, maxx_q = geo_q["minx"], geo_q["maxx"]
         extremes = {"QVGA": (minx_q, maxx_q)}
+        for b in range(4):  # one image at a time, as detect calls it
+            extremes[f"main-path image {b}"] = (geo_p["minx"][b:b + 1].contiguous(),
+                                                geo_p["maxx"][b:b + 1].contiguous())
         for n in (60, 128):
             g = postproc_kernel.geometry_compat_reference(
                 torch.from_numpy(adversarial_maps(n)).to(dev), K)
@@ -509,6 +559,45 @@ def main() -> int:
             raise AssertionError(f"compat route: {k} differs from the default route")
     log(f"compat route: launches {n_compat}; detections identical to the default route")
 
+    # --- 3d. single-image detection: detect and detect_program, the XLA
+    # route's exact rects ---
+    n_scenes = 4
+    det_d = BarcodeDetector(cfg, params, device="cuda")
+    det_h = BarcodeDetector(cfg, params, device="cpu")
+    launches["rect_exact_detect"] = 0
+    n_dets = 0
+    for i in range(n_scenes):
+        (res_1, lg_1), n_detect = counted(
+            lambda: detect_program(params_d, imgs[i], cfg, (IMG, IMG), device="cuda"),
+            ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat"])
+        dets, n_detect2 = counted(lambda: det_d.detect(imgs[i]),
+                                  ["context_layer", "ccl", "slots", "rect_exact"],
+                                  ["rect_compact", "geometry_compat"])
+        launches["rect_exact_detect"] += n_detect["rect_exact"] + n_detect2["rect_exact"]
+        ref_1, ref_lg_1 = detect_program(params, imgs[i], cfg, (IMG, IMG), device="cpu")
+        lg_1 = lg_1.cpu().numpy()
+        err_1 = float(np.abs(lg_1 - ref_lg_1.numpy()).max())
+        if not err_1 <= 1e-4:
+            raise AssertionError(f"detect_program: logits differ from the plain route by {err_1}")
+        compare_detections({k: v.cpu().numpy()[None] for k, v in res_1.items()},
+                           {k: v.numpy()[None] for k, v in ref_1.items()}, lg_1[None, ..., 0],
+                           box_atol=4e-4, score_atol=1e-5)
+        if np.abs(lg_1[..., 0]).min() >= 1e-4:
+            ref_dets = det_h.detect(imgs[i])
+            if len(dets) != len(ref_dets) or len(dets) != int(res_1["num_detections"]):
+                raise AssertionError("detect: detections differ from the plain route")
+            for o, r in zip(dets, ref_dets):
+                if (o.class_id, o.area) != (r.class_id, r.area) or abs(o.score - r.score) > 1e-5:
+                    raise AssertionError("detect: a detection differs from the plain route")
+                if not same_corner_sets(o.box, r.box, 4e-4):
+                    raise AssertionError("detect: a box differs from the plain route")
+        n_dets += len(dets)
+    if n_dets == 0:
+        raise AssertionError("detect: no detection in the scenes")
+    log(f"detect: {n_scenes} {IMG}x{IMG} scenes through detect_program and "
+        f"BarcodeDetector.detect on the card, launches of one call {n_detect}; {n_dets} "
+        "detections, == the plain route on the host CPU")
+
     # --- 4. timing ---
     with torch.inference_mode(), exact_f32():
         def run_path(images=imgs_d):
@@ -555,17 +644,17 @@ def main() -> int:
             n_pts += n
             n_dirs += (n - 1).clamp(min=0)
         rect_flops = float((n_dirs * n_pts).sum()) * 10
-        # uncompacted rect work: valid directions x 2 points per valid row x 10
+        # uncompacted rect work: the directions it projects x 2 points per
+        # valid row x 10
         Bq, _, Hq = minx_q.shape
         Nq = Bq * K
-        rowv_q = (maxx_q >= 0).reshape(Nq, Hq)
-        dirs_q = torch.zeros(Nq, dtype=torch.int64, device=dev)
-        for v_, s_ in ((minx_q, 1), (maxx_q, -1)):
-            alive = rect_kernel._convexify(v_.reshape(Nq, Hq).long(), rowv_q, s_)
-            dirs_q += (alive.sum(1) - 1).clamp(min=0)
-        exact_flops = float((dirs_q * 2 * rowv_q.sum(1)).sum()) * 10
+        rows_q = (maxx_q >= 0).reshape(Nq, Hq).sum(1).cpu().numpy()
+        exact_flops = float((exact_directions(minx_q, maxx_q) * 2 * rows_q).sum()) * 10
         ms_pair = time_ms(lambda: postproc_kernel.component_slots(
             lg_main, ccl_kernel.ccl_labels_from_logits(det), K))
+        dev_pair = device_ms(lambda: postproc_kernel.component_slots(
+            lg_main, ccl_kernel.ccl_labels_from_logits(det), K))
+        minx_1, maxx_1 = minx[:1].contiguous(), maxx[:1].contiguous()  # a detect call's
         kernels = [
             dict(
                 name="context_layer", route="cuda",
@@ -573,6 +662,7 @@ def main() -> int:
                 replaces="ubdvss_tpu/ops/pallas/context_kernel.py:39",
                 launches=launches["context_layer"], max_abs_err=err_ctx,
                 ms=time_ms(lambda: context_kernel.fused_context_head(xc, *w, dil)),
+                device_ms=device_ms(lambda: context_kernel.fused_context_head(xc, *w, dil)),
                 plain_ms=time_ms(lambda: context_kernel.context_head_reference(xc, *w, dil)),
                 library_ms=time_ms(library_context),
                 bound=bound(
@@ -585,6 +675,7 @@ def main() -> int:
                 replaces="ubdvss_tpu/ops/pallas/ccl_kernel.py:116",
                 launches=launches["ccl"], max_abs_err=0.0,
                 ms=time_ms(lambda: ccl_kernel.ccl_labels_from_logits(det)),
+                device_ms=device_ms(lambda: ccl_kernel.ccl_labels_from_logits(det)),
                 plain_ms=time_ms(lambda: ccl_kernel.ccl_labels_reference(det)),
                 library_ms=None,
                 bound=bound(px * 8, px * 9),  # logits in, labels out; one 3x3 pass
@@ -594,6 +685,7 @@ def main() -> int:
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130",
                 launches=launches["slots"], max_abs_err=err_slots,
                 ms=time_ms(lambda: postproc_kernel.component_slots(lg_main, lab_main, K)),
+                device_ms=device_ms(lambda: postproc_kernel.component_slots(lg_main, lab_main, K)),
                 plain_ms=time_ms(
                     lambda: postproc_kernel.component_slots_reference(lg_main, lab_main, K)),
                 # the torch one-hot, sum and bmm stats that the kernel replaces
@@ -607,6 +699,7 @@ def main() -> int:
                 replaces="ubdvss_tpu/ops/pallas/rect_kernel.py:294",
                 launches=launches["rect_compact"], max_abs_err=err_rect,
                 ms=time_ms(lambda: rect_kernel.min_area_rect_select(minx, maxx, M)),
+                device_ms=device_ms(lambda: rect_kernel.min_area_rect_select(minx, maxx, M)),
                 plain_ms=time_ms(lambda: rect_kernel.min_area_rect_select_reference(minx, maxx, M)),
                 library_ms=None,
                 bound=bound(Nc * H * 8 + Bm * 9 * K * 4, rect_flops),
@@ -614,8 +707,12 @@ def main() -> int:
             dict(
                 name="rect_exact", route="cuda", source="ubdvss_tpu_torch/csrc/rect_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/rect_kernel.py:136",
-                launches=launches["rect_exact"], max_abs_err=err_exact,
+                launches=launches["rect_exact_detect"], max_abs_err=err_exact,
                 ms=time_ms(lambda: rect_kernel.min_area_rect_exact(minx_q, maxx_q)),
+                device_ms=device_ms(lambda: rect_kernel.min_area_rect_exact(minx_q, maxx_q)),
+                detect_ms=time_ms(lambda: rect_kernel.min_area_rect_exact(minx_1, maxx_1)),
+                detect_device_ms=device_ms(
+                    lambda: rect_kernel.min_area_rect_exact(minx_1, maxx_1)),
                 plain_ms=time_ms(
                     lambda: rect_kernel.min_area_rect_select_reference(minx_q, maxx_q, None)),
                 library_ms=None,
@@ -627,6 +724,7 @@ def main() -> int:
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50",
                 launches=launches["geometry_compat"], max_abs_err=err_geo,
                 ms=time_ms(lambda: postproc_kernel.geometry_compat(lg_main, K)),
+                device_ms=device_ms(lambda: postproc_kernel.geometry_compat(lg_main, K)),
                 plain_ms=time_ms(lambda: postproc_kernel.geometry_compat_reference(lg_main, K)),
                 library_ms=None,
                 bound=bound(px * 8 + Bm * K * (2 * H + 1) * 4 + Bm * 4 + stats_bytes,
@@ -635,8 +733,17 @@ def main() -> int:
         ]
     for kd in kernels:
         kd["bound_ms"], kd["bound_by"] = kd.pop("bound")
-        log(f"time {kd['name']}: {kd['ms']:.4f} ms/call (plain {kd['plain_ms']:.4f}, "
-            f"library {kd['library_ms']}, bound {kd['bound_ms']:.4f} by {kd['bound_by']})")
+        log(f"time {kd['name']}: {kd['ms']:.4f} ms/call, device {kd['device_ms']:.4f} (plain "
+            f"{kd['plain_ms']:.4f}, library {kd['library_ms']}, bound {kd['bound_ms']:.4f} by "
+            f"{kd['bound_by']})")
+    with torch.inference_mode():
+        ms_detect = time_ms(lambda: det_d.detect(imgs[0]), iters=10, reps=3)
+        dev_detect = device_ms(lambda: det_d.detect(imgs[0]), n=10)
+    log(json.dumps({
+        "path": "BarcodeDetector.detect, one 512x512 uint8 host image", "K": K,
+        "ms_per_image": ms_detect, "device_ms_per_image": dev_detect,
+        "rect_exact_launches_per_call": n_detect2["rect_exact"],
+    }))
     def run_stream():
         return list(stream.process(iter(frames)))
 
@@ -652,6 +759,8 @@ def main() -> int:
     log(json.dumps({
         "fused_geometry_vs_pair": "B=64 128x128 main-path maps, K=16",
         "geometry_compat_ms": by_name["geometry_compat"]["ms"], "ccl_plus_slots_ms": ms_pair,
+        "geometry_compat_device_ms": by_name["geometry_compat"]["device_ms"],
+        "ccl_plus_slots_device_ms": dev_pair,
     }))
     log(json.dumps({
         "path": "detect_program_batch fused f32, uint8 images on the card",

@@ -1,0 +1,250 @@
+#!/usr/bin/env python3
+"""Parent against change for the port's uncompacted rect (K3x), fused
+compat geometry (K12c) and compacted rect (K3) kernels, on one CUDA card.
+
+    python3 scripts/torch_kernel_ab.py --parent PARENT_TREE [--variants TREE ...] [--out FILE]
+
+PARENT_TREE is an unpacked earlier commit of this repository (for example
+``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
+ignores).  Both trees' ``csrc/rect_kernel.cu``, ``geometry_kernel.cu``,
+``ccl_kernel.cu`` and ``postproc_kernel.cu`` are built with this tree's
+nvcc flags into ``build/ab/`` and called through their C entry points on
+the same tensors, with preallocated outputs, in the order parent, change,
+change, parent.  Each case reports the median of 15 CUDA-event samples of
+20 back-to-back calls (``ms``) and the mean of its kernels' CUPTI durations
+over 20 calls (``device_ms``, torch.profiler).
+
+Inputs: the asset's model on B=64 synthetic 512x512 scenes (seed 7, K=16)
+and on 64 QVGA 240x320 frames (seed 7).  Cases: K3x on the stream's
+extremes (B=64, H=60) and on four single images' extremes (B=1, H=128, as
+a detect call gives them); K3 at M=64 on the batch's extremes; K12c on the
+batch's logits against the parent's K12c (which reads a dense copy of the
+detection plane, made once outside the timing) and against CCL + slots.
+Before timing, the outputs are checked: K3x's and K3's rows identical
+between the trees, K12c's eight outputs identical to CCL + slots and to the
+parent's.  Each ``--variants`` tree (another ``csrc/rect_kernel.cu`` of the
+change, under its own directory name) has its K3x rows checked against the
+change's and timed in the change's turns.  Prints one JSON object and
+writes it to FILE (default ``build/ab/ab.json``); exits non-zero on a
+mismatch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from ubdvss_tpu_torch import NetConfig, load_net_config, load_params_npz, params_from_flat  # noqa: E402
+from ubdvss_tpu_torch.models.model import exact_f32  # noqa: E402
+from ubdvss_tpu_torch.ops.cuda import _build, ccl_kernel, postproc_kernel  # noqa: E402
+from ubdvss_tpu_torch.ops.cuda.context_kernel import fused_model_apply  # noqa: E402
+from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader  # noqa: E402
+
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+SOURCES = ("rect_kernel", "geometry_kernel", "ccl_kernel", "postproc_kernel")
+
+
+def build(csrc: Path, tag: str, sources=SOURCES) -> dict:
+    """Compile the sources of one tree, in parallel."""
+    out = REPO / "build" / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in sources:
+        so = out / f"{tag}-{name}.so"
+        jobs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / f"{name}.cu")]))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed on {tag} {name}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def time_ms(fn, iters=15, reps=20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    return statistics.median(ts)
+
+
+def device_ms(fn, n=20) -> float:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--variants", type=Path, nargs="*", default=[])
+    ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
+    args = ap.parse_args()
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parent"),
+            "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "change")}
+    variants = [v.name for v in args.variants]
+    for v in args.variants:
+        libs[v.name] = build(v / "ubdvss_tpu_torch" / "csrc", v.name, ("rect_kernel",))
+    stream = lambda: P(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUDA error {err}")
+
+    # inputs: the main path's logits and extremes, the stream's extremes
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(asset)).items()}
+    B, K, M = 64, 16, 64
+    reader = SyntheticMarkupReader(n_samples=B, image_hw=(512, 512), seed=7)
+    imgs = torch.from_numpy(np.stack([reader.sample_at(i).image for i in range(B)])).to(dev)
+    reader_q = SyntheticMarkupReader(n_samples=B, image_hw=(240, 320), seed=7)
+    frames = torch.from_numpy(np.stack([reader_q.sample_at(i).image for i in range(B)])).to(dev)
+    with torch.inference_mode(), exact_f32():
+        lg = fused_model_apply(params, imgs.float()[..., None], NetConfig(), raw_gray=True)
+        lg_q = fused_model_apply(params, frames.float()[..., None], load_net_config(asset),
+                                 raw_gray=True)
+    H, W, C = lg.shape[1:]
+    det = lg[..., 0].contiguous()
+    thr = ccl_kernel.threshold_logit(0.5)
+    nw = postproc_kernel.stats_warps(H, W, K, C)
+    # the parent's K12c: one block, two partial sets a warp, the same count
+    nw_parent = max(1, min(32, (ccl_kernel.MAX_SHARED_BYTES - 1024 - (H * W + K + 2 * K * H) * 4)
+                           // (2 * K * (C + 1) * 4)))
+    geo = postproc_kernel.component_slots_from_logits(det, K)
+    geo_q = postproc_kernel.component_slots_from_logits(lg_q[..., 0].contiguous(), K)
+    res = {"card": smi, "B": B, "H": H, "W": W, "K": K, "C": C, "M": M,
+           "stats_warps": nw, "stats_warps_parent_k12c": nw_parent}
+
+    extremes = {"stream_B64_H60": (geo_q["minx"], geo_q["maxx"])}
+    singles = [(geo["minx"][b : b + 1].contiguous(), geo["maxx"][b : b + 1].contiguous())
+               for b in range(4)]
+    outs = {}
+
+    def rect_exact(tag, mn, mx):
+        Bq, Kq, Hq = mn.shape
+        out = outs.setdefault(("x", tag, Bq, Hq), torch.empty((Bq, 9, Kq), device=dev))
+        check(libs[tag]["rect_kernel"].rect_select_exact(
+            P(mn.data_ptr()), P(mx.data_ptr()), P(out.data_ptr()), I(Bq), I(Kq), I(Hq),
+            stream()), f"{tag} rect_select_exact")
+        return out
+
+    def rect_compact(tag, mn, mx, m=M):
+        Bq, Kq, Hq = mn.shape
+        out = outs.setdefault(("c", tag, Bq, Hq), torch.empty((Bq, 9, Kq), device=dev))
+        check(libs[tag]["rect_kernel"].rect_select(
+            P(mn.data_ptr()), P(mx.data_ptr()), P(out.data_ptr()), I(Bq), I(Kq), I(Hq), I(m),
+            stream()), f"{tag} rect_select")
+        return out
+
+    geo_out = {t: postproc_kernel._empty_outputs(B, H, W, K, C, dev)
+               for t in ("parent", "change", "pair")}
+    labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+
+    def k12c(tag):
+        o = geo_out[tag]
+        ptrs = [P(t.data_ptr()) for t in o.values()]
+        strides = [L(s_) for s_ in lg.stride()]
+        if tag == "parent":
+            err = libs[tag]["geometry_kernel"].geometry_compat(
+                P(det.data_ptr()), P(lg.data_ptr()), *strides, I(C), *ptrs, I(B), I(H), I(W),
+                I(K), I(32 * nw_parent), F(thr), I(8), stream())
+        else:
+            err = libs[tag]["geometry_kernel"].geometry_compat(
+                P(lg.data_ptr()), *strides, I(C), *ptrs, I(B), I(H), I(W), I(K), I(32 * nw),
+                F(thr), I(8), stream())
+        check(err, f"{tag} geometry_compat")
+        return o
+
+    def pair(tag="change"):
+        lib = libs[tag]
+        check(lib["ccl_kernel"].ccl_labels(P(det.data_ptr()), P(labels.data_ptr()), I(B), I(H),
+                                           I(W), F(thr), I(8), stream()), "ccl")
+        o = geo_out["pair"]
+        check(lib["postproc_kernel"].component_slots(
+            P(lg.data_ptr()), *(L(s_) for s_ in lg.stride()), I(C), P(labels.data_ptr()),
+            *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(K), I(32 * nw), F(thr),
+            stream()), "slots")
+        return o
+
+    # outputs first: identical rows, identical geometry
+    for name, (mn, mx) in list(extremes.items()) + [
+            (f"detect_image{b}", s_) for b, s_ in enumerate(singles)]:
+        a, b_ = rect_exact("parent", mn, mx).clone(), rect_exact("change", mn, mx).clone()
+        if not torch.equal(a, b_):
+            raise AssertionError(f"K3x rows differ between the trees on {name}")
+        for v in variants:
+            if not torch.equal(rect_exact(v, mn, mx), b_):
+                raise AssertionError(f"K3x rows of {v} differ from the change's on {name}")
+    a = rect_compact("parent", geo["minx"], geo["maxx"]).clone()
+    if not torch.equal(a, rect_compact("change", geo["minx"], geo["maxx"])):
+        raise AssertionError("K3 rows differ between the trees")
+    gp = {k: v.clone() for k, v in k12c("parent").items()}
+    gc = {k: v.clone() for k, v in k12c("change").items()}
+    gq = pair()
+    for key in gc:
+        if not torch.equal(gc[key], gq[key]):
+            raise AssertionError(f"K12c {key} differs from CCL + slots")
+        if not torch.equal(gc[key], gp[key]):
+            raise AssertionError(f"K12c {key} differs from the parent's")
+    res["rows_identical"] = True
+
+    def detect_calls(tag):
+        for mn, mx in singles:
+            rect_exact(tag, mn, mx)
+
+    cases = {
+        "k3x_stream_B64_H60": lambda t: rect_exact(t, *extremes["stream_B64_H60"]),
+        "k3x_detect_B1_H128_4calls": detect_calls,
+        "k3_main_M64": lambda t: rect_compact(t, geo["minx"], geo["maxx"]),
+        "k12c_main": k12c,
+        "k1_plus_k2_main": pair,
+    }
+    for turn in ("parent", "change", "change", "parent"):
+        for tag in [turn] + (variants if turn == "change" else []):
+            for name, fn in cases.items():
+                if tag in variants and not name.startswith("k3x"):
+                    continue
+                key = f"{name}_{tag}"
+                res.setdefault(key, []).append(time_ms(lambda: fn(tag)))
+                res.setdefault(key + "_device", []).append(device_ms(lambda: fn(tag)))
+    res["parent_det_plane_copy_device"] = device_ms(lambda: lg[..., 0].contiguous())
+    print(json.dumps(res), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -286,6 +286,13 @@ def _tall_bar_extremes(H, W, seed):
     """(1, 16, H) extremes of one map of bars (some taller than 64 rows,
     of different widths and slants) and blobs, through the plain CCL and
     slots, K=16."""
+    t = torch.from_numpy(_tall_bar_extremes_map(H, W, seed))
+    geo = postproc_kernel.component_slots_reference(t, ccl_kernel.ccl_labels_reference(t), 16)
+    return geo["minx"], geo["maxx"]
+
+
+def _tall_bar_extremes_map(H, W, seed):
+    """The (1, H, W) detection logits of _tall_bar_extremes."""
     rng = np.random.default_rng(seed)
     lg = np.full((1, H, W), -4.0, np.float32)
     for i, x0 in enumerate(range(2, W - 6, 9)):
@@ -295,9 +302,7 @@ def _tall_bar_extremes(H, W, seed):
         for y in range(y0, y1):
             x = int(x0 + slant * (y - y0)) % (W - 5)
             lg[0, y, x : x + 1 + i % 4] = 4.0
-    t = torch.from_numpy(lg)
-    geo = postproc_kernel.component_slots_reference(t, ccl_kernel.ccl_labels_reference(t), 16)
-    return geo["minx"], geo["maxx"]
+    return lg
 
 
 @pytest.mark.parametrize("K", [1, 16])
@@ -324,11 +329,12 @@ def test_rect_exact_kernel_matches_plain(dev, H, K):
 
 @pytest.mark.parametrize("connectivity", [4, 8])
 @pytest.mark.parametrize("K", [1, 16, 64])
-@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53)])
+@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53), (3, 256, 64), (2, 1, 40)])
 def test_geometry_compat_kernel_matches_plain_and_pair(dev, shape, K, connectivity):
     """K12c's slot outputs identical to its plain version, its stats within
     the plain version's tolerance, and all eight outputs bit for bit equal
-    to slots after CCL on the card (K2 sums in the same order)."""
+    to slots after CCL on the card (K2 sums in the same order); a tall map,
+    and a one-row map whose second block holds no row."""
     lg = _head_logits(_maps(K + connectivity, *shape), 17, K, dev)
     out = postproc_kernel.geometry_compat(lg, K, connectivity=connectivity)
     ref = postproc_kernel.geometry_compat_reference(lg, K, connectivity=connectivity)
@@ -375,10 +381,145 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="CUDA tensor"):
         postproc_kernel.component_slots(lg, lab.cpu(), 4)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        postproc_kernel.geometry_compat(torch.zeros((1, 220, 240), device=dev), 16)
-    tall = torch.zeros((1, 1, 513), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="H=513"):
+        postproc_kernel.geometry_compat(torch.zeros((1, 400, 300), device=dev), 16)
+    tall = torch.zeros((1, 1, 1025), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="H=1025"):
         rect_kernel.min_area_rect_exact(tall, tall)
+
+
+@pytest.mark.parametrize("C,O", [(4, 17), (24, 33), (40, 17)])
+def test_channel_caps_name_their_roadmap_item(dev, C, O):
+    """The context kernel is compiled for C in (8, 16, 24, 32) and O <= 32,
+    the stats kernels take at most 33 logit channels; beyond that they
+    raise NotImplementedError naming ROADMAP.md §2a, as the JAX kernels and
+    the plain versions have no such cap."""
+    x = torch.zeros((1, C, 8, 8), device=dev)
+    w = [torch.zeros(s, device=dev) for s in ((1, 9, C, 1, 1), (1, C, C), (1, C, 1, 1),
+                                              (O, C), (O, 1, 1))]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
+        context_kernel.fused_context_head(x, *w, (1,))
+    lg = torch.zeros((1, 8, 8, postproc_kernel.MAX_CHANNELS + 1), device=dev)
+    lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
+    for call in (lambda: postproc_kernel.component_slots(lg, lab, 4),
+                 lambda: postproc_kernel.geometry_compat(lg, 4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
+            call()
+
+
+def test_kernels_at_a_tall_shape(dev):
+    """A 1024x256 scan's 256x64 heatmap, which the entry points serve (the
+    route gate is on area): K4, K1, K2, K3 and K3x against their plain
+    versions, K12c bit for bit equal to K1 -> K2."""
+    B, C, H, W, K = 2, 24, 256, 64, 16
+    rng = np.random.default_rng(256)
+    x = torch.from_numpy(rng.normal(0, 1, (B, C, H, W)).astype(np.float32)).to(dev)
+    dil = (1, 2, 16, 1)
+    w = [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).to(dev)
+         for s, shape in ((0.3, (4, 9, C, 1, 1)), (0.3, (4, C, C)), (0.1, (4, C, 1, 1)),
+                          (0.3, (17, C)), (0.1, (17, 1, 1)))]
+    out = context_kernel.fused_context_head(x, *w, dil)
+    with context_kernel.exact_f32():
+        ref = context_kernel.context_head_reference(x, *w, dil)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+    det = np.concatenate([_maps(H, 3, H, W), _tall_bar_extremes_map(H, W, 7)])
+    lg = _head_logits(det, 17, 3, dev)
+    for conn in (4, 8):
+        lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous(), connectivity=conn)
+        assert torch.equal(lab, ccl_kernel.ccl_labels_reference(lg[..., 0], connectivity=conn))
+        geo = postproc_kernel.component_slots(lg, lab, K)
+        assert_stats_close(geo, postproc_kernel.component_slots_reference(lg, lab, K))
+        fused = postproc_kernel.geometry_compat(lg, K, connectivity=conn)
+        for key in geo:
+            assert torch.equal(fused[key], geo[key]), key
+    for M in (64, None):
+        sel = rect_kernel.min_area_rect_select(geo["minx"], geo["maxx"], M)
+        sel_p = rect_kernel.min_area_rect_select_reference(geo["minx"], geo["maxx"], M)
+        assert torch.equal(sel[:, 6], sel_p[:, 6])
+        torch.testing.assert_close(sel, sel_p, atol=1e-4, rtol=0)
+
+
+def _synthetic_extremes(B, K, H, seed):
+    """(B, K, H) int32 extremes without a CCL: upright bars of every height
+    (collinear chains), slanted bars (staircases), rotated rectangles, rows
+    of noise, a single row, a single point and empty slots."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(H)
+    mn = np.full((B, K, H), 1 << 30, np.int64)
+    mx = np.full((B, K, H), -1, np.int64)
+    for b in range(B):
+        for k in range(K):
+            kind = (k + b) % 7
+            y0 = int(rng.integers(0, max(1, H // 4)))
+            y1 = H - int(rng.integers(0, max(1, H // 4)))
+            rows = (y >= y0) & (y < y1)
+            if kind == 0:  # upright bar
+                x0 = int(rng.integers(0, 200))
+                mn[b, k, rows], mx[b, k, rows] = x0, x0 + int(rng.integers(0, 9))
+            elif kind == 1:  # slanted bar
+                s = rng.uniform(-2.5, 2.5)
+                xs = np.floor(300 + s * (y - y0)).astype(np.int64)
+                mn[b, k, rows], mx[b, k, rows] = xs[rows], xs[rows] + int(rng.integers(1, 6))
+            elif kind == 2:  # rotated rectangle
+                a = rng.uniform(0, np.pi)
+                hw, hh = rng.uniform(3, 60), rng.uniform(3, H / 3)
+                cy, cx = (y0 + y1) / 2, 400.0
+                for yy in range(y0, y1):
+                    xs = np.arange(0, 800)
+                    u = (xs - cx) * np.cos(a) + (yy - cy) * np.sin(a)
+                    v = -(xs - cx) * np.sin(a) + (yy - cy) * np.cos(a)
+                    inside = xs[(np.abs(u) <= hw) & (np.abs(v) <= hh)]
+                    if inside.size:
+                        mn[b, k, yy], mx[b, k, yy] = inside.min(), inside.max()
+            elif kind == 3:  # noise rows
+                keep = rows & (rng.random(H) < 0.7)
+                lo = rng.integers(0, 300, H)
+                mn[b, k, keep], mx[b, k, keep] = lo[keep], lo[keep] + rng.integers(0, 40, H)[keep]
+            elif kind == 4:  # one row
+                mn[b, k, y0], mx[b, k, y0] = 5, 5 + int(rng.integers(0, 30))
+            elif kind == 5:  # one point
+                mn[b, k, y1 - 1] = mx[b, k, y1 - 1] = 7
+    return (torch.from_numpy(mn.astype(np.int32)), torch.from_numpy(mx.astype(np.int32)))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H", [60, 128, 513, 1024])
+def test_rect_exact_kernel_heights(dev, H, B):
+    """K3x up to its 1024-row limit, at B=1 (a detect call) and B=3, on
+    synthetic extremes (K=16): any_edge identical, rows within 1e-4; two
+    launches bit for bit equal."""
+    minx, maxx = (t.to(dev) for t in _synthetic_extremes(B, 16, H, H + B))
+    rect_kernel.min_area_rect_exact.launches = 0
+    out = rect_kernel.min_area_rect_exact(minx, maxx)
+    assert rect_kernel.min_area_rect_exact.launches == 1
+    ref = rect_kernel.min_area_rect_select_reference(minx, maxx, None)
+    assert torch.equal(out[:, 6], ref[:, 6])
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert torch.equal(rect_kernel.min_area_rect_exact(minx, maxx), out)
+
+
+def test_rect_exact_kernel_detect_extremes(dev):
+    """K3x at a detect call's shape, B=1, K=16, H=128: the extremes of each
+    of 4 synthetic 512x512 scenes alone, through the asset's model."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import load_params_npz, params_from_flat
+    from ubdvss_tpu_torch.net_config import NetConfig
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(path)).items()}
+    reader = SyntheticMarkupReader(n_samples=4, image_hw=(512, 512), seed=9)
+    imgs = torch.from_numpy(np.stack([reader.sample_at(i).image for i in range(4)])).to(dev)
+    logits = context_kernel.fused_model_apply(params, imgs.float()[..., None], NetConfig(),
+                                              raw_gray=True)
+    g = postproc_kernel.component_slots_from_logits(logits[..., 0].contiguous(), 16)
+    for b in range(4):
+        minx, maxx = g["minx"][b : b + 1].contiguous(), g["maxx"][b : b + 1].contiguous()
+        out = rect_kernel.min_area_rect_exact(minx, maxx)
+        ref = rect_kernel.min_area_rect_select_reference(minx, maxx, None)
+        assert torch.equal(out[:, 6], ref[:, 6])
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
 def test_streaming_on_card_matches_cpu(dev):

@@ -147,10 +147,7 @@ def test_default_device_is_the_card():
         (dict(qparams={}), "int8"),
         (dict(mesh=object()), "mesh"),
         (dict(n_strips=2), "n_strips"),
-        (dict(fused=False), "XLA"),
         (dict(out_hw=(1024, 1024)), "large-scan"),
-        # M >= H > 128: the JAX package takes its XLA caliper, not K3x
-        (dict(cfg=NetConfig(max_hull_points=512), out_hw=(1024, 64)), "K3x"),
     ],
 )
 def test_unported_routes_raise(kw, match):
@@ -167,3 +164,33 @@ def test_unported_routes_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         detect_program_batch(**args)
     assert "ROADMAP.md" in str(e.value)
+
+
+@pytest.mark.parametrize(
+    "kw,post",
+    [
+        # the XLA route: exact rects (K3x's plain version here)
+        (dict(fused=False), "postprocess_batch"),
+        # M >= H > 128: the JAX package takes its XLA caliper at M = H,
+        # which is exact too; the port takes K3x
+        (dict(cfg=NetConfig(max_hull_points=512), out_hw=(1024, 64)), "postprocess_batch_fused"),
+    ],
+)
+def test_xla_route_entry_points_are_served(kw, post):
+    """``fused=False`` and ``max_hull_points >= H > 128`` run to the end and
+    give the postprocessing of their route on the call's own logits."""
+    from ubdvss_tpu_torch.ops import postproc
+
+    args = dict(
+        params=load_params(ASSETS["separable"]),
+        imgs=np.random.default_rng(0).integers(0, 256, (1, 64, 64), dtype=np.uint8),
+        cfg=NetConfig(max_hull_points=8),
+        out_hw=(64, 64),
+        device="cpu",
+    )
+    args.update(kw)
+    res, logits = detect_program_batch(**args)
+    want = getattr(postproc, post)(logits, args["cfg"])
+    assert sorted(res) == sorted(want)
+    for key in want:
+        assert torch.equal(res[key], want[key]), key

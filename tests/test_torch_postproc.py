@@ -86,9 +86,29 @@ def test_postprocess_fused_matches_jax_on_blobs(K, min_area):
 
 
 def test_exact_rect_beyond_128_rows_raises_naming_the_xla_route():
-    """max_hull_points >= H > 128 is served by the JAX package's XLA
-    caliper, which is not ported: it raises, and nothing falls back."""
-    cfg = NetConfig(max_components=4, max_hull_points=130)
-    with pytest.raises(NotImplementedError, match="XLA compact caliper") as e:
-        postprocess_batch_fused(torch.zeros((1, 130, 4, 1)), cfg)
-    assert "ROADMAP.md §1 item 4" in str(e.value)
+    """max_hull_points >= H > 128: the JAX package fits the rects with its
+    XLA compact caliper at M = H, the port with K3x (the plain version
+    here), both exact; nothing raises.  Two 256x64 maps of bars up to 240
+    rows tall and a blob across three of them, with classes, against JAX's
+    postprocess_batch_fused (interpret mode), to the tolerances above.  The
+    foreground logit is 20, whose sigmoid is 1 in f32, so that the score
+    sums over these components of up to 2,000 pixels are exact in any
+    order."""
+    from ubdvss_tpu.net_config import NetConfig as JaxNetConfig
+
+    rng = np.random.default_rng(130)
+    det = np.full((2, 256, 64), -6.0, np.float32)
+    for b in range(2):
+        for i, x0 in enumerate(range(3, 56, 9)):
+            y0 = int(rng.integers(0, 16))
+            det[b, y0 : 256 - int(rng.integers(0, 16)), x0 : x0 + 2 + i % 3] = 20
+        det[b, 100:140, 20:40] = 20  # a blob across three bars
+    logits = rng.normal(0, 2, det.shape + (5,)).astype(np.float32)
+    logits[..., 0] = det
+    names = ("a", "b", "c", "d")
+    cfg = NetConfig(class_names=names, max_components=8, max_hull_points=256)
+    jcfg = JaxNetConfig(class_names=names, max_components=8, max_hull_points=256)
+    ref = jax.device_get(jax_postprocess(jnp.asarray(logits), jcfg, interpret=True))
+    out = postprocess_batch_fused(torch.from_numpy(logits), cfg)
+    assert int(np.asarray(ref["num_detections"]).sum()) > 0
+    assert_same_detections(out, ref)

@@ -1,0 +1,198 @@
+"""PyTorch port: the XLA route's entry points — ``postprocess``,
+``postprocess_batch``, ``detect_program``, ``BarcodeDetector.detect`` /
+``.heatmap`` and ``detect_program_batch(fused=False)`` — held against the
+JAX package's (CPU).  On the port's side every kernel takes its plain
+version: CCL, slots and the uncompacted rect (K3x, every chain point
+projected).
+
+Labels, ``valid``, ``areas`` and ``classes`` identical; scores and class
+probabilities within 1e-6; boxes within 1e-4 as corner sets (an exact
+caliper tie may report the other side of the same rectangle; see
+test_torch_rect's module docstring)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_ccl import adversarial_logits, blob_logits
+from test_torch_inference import MARGIN, _jax_asset
+from test_torch_model import ASSETS, load_params
+from test_torch_postproc import assert_same_detections
+from test_torch_rect import assert_same_boxes, same_corner_sets
+
+from ubdvss_tpu.inference import BarcodeDetector as JaxBarcodeDetector
+from ubdvss_tpu.inference import detect_program as jax_detect_program
+from ubdvss_tpu.inference import detect_program_batch as jax_detect_program_batch
+from ubdvss_tpu.net_config import NetConfig as JaxNetConfig
+from ubdvss_tpu.ops.ccl import connected_components as jax_connected_components
+from ubdvss_tpu.ops.postproc import postprocess as jax_postprocess
+from ubdvss_tpu.ops.postproc import postprocess_batch as jax_postprocess_batch
+from ubdvss_tpu_torch import BarcodeDetector, NetConfig, detect_program, detect_program_batch
+from ubdvss_tpu_torch import load_net_config
+from ubdvss_tpu_torch.ops.cuda.ccl_kernel import ccl_labels_from_logits
+from ubdvss_tpu_torch.ops.postproc import postprocess, postprocess_batch, postprocess_batch_fused
+from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+torch.set_num_threads(1)
+
+NAMES = ("a", "b", "c", "d")
+
+
+def _cfgs(**kw):
+    return NetConfig(class_names=NAMES, **kw), JaxNetConfig(class_names=NAMES, **kw)
+
+
+def _with_classes(det: np.ndarray, seed: int) -> np.ndarray:
+    """(B, H, W) detection logits -> (B, H, W, 5) with normal class logits."""
+    logits = np.random.default_rng(seed).normal(0, 2, det.shape + (5,)).astype(np.float32)
+    logits[..., 0] = det
+    return logits
+
+
+def upright_bar(B=1, H=128, W=128, rows=100):
+    """One upright bar, `rows` rows tall and 6 columns wide, in each map:
+    its chains are two columns of collinear points, more than 64 each."""
+    det = np.full((B, H, W), -6.0, np.float32)
+    det[:, 10 : 10 + rows, 40:46] = 6.0
+    return det
+
+
+def compact_labels(raw: torch.Tensor) -> np.ndarray:
+    """Raw min-index labels (B, H, W) -> 1..N raster-ordered labels, 0 at
+    the background, as the JAX package's connected_components gives."""
+    raw = raw.numpy()
+    out = np.zeros_like(raw)
+    N = raw.shape[1] * raw.shape[2]
+    for b in range(raw.shape[0]):
+        roots = np.unique(raw[b][raw[b] < N])
+        out[b] = np.where(raw[b] < N, np.searchsorted(roots, raw[b]) + 1, 0)
+    return out
+
+
+def assert_same_labels(det: np.ndarray, threshold: float, connectivity: int):
+    raw = ccl_labels_from_logits(torch.from_numpy(det), threshold, connectivity)
+    mask = jax.nn.sigmoid(jnp.asarray(det)) > threshold
+    ref = jax.vmap(lambda m: jax_connected_components(m, connectivity=connectivity)[0])(mask)
+    np.testing.assert_array_equal(compact_labels(raw), np.asarray(ref))
+
+
+def test_upright_bar_takes_the_exact_route():
+    """A 100-row upright bar in a 128x128 map: postprocess equals the JAX
+    postprocess, its box 100 rows tall; the fused route at M=64 keeps each
+    chain's first 64 points only and cuts the box short."""
+    logits = _with_classes(upright_bar(), 1)
+    cfg, jcfg = _cfgs(max_components=8, max_hull_points=64)
+    assert_same_labels(logits[..., 0], cfg.detection_threshold, 8)
+    ref = jax.device_get(jax_postprocess(jnp.asarray(logits[0]), jcfg))
+    out = postprocess(torch.from_numpy(logits[0]), cfg)
+    assert sorted(out) == sorted(ref)
+    assert int(ref["num_detections"]) == 1
+    assert_same_detections(out, ref)
+    assert float(out["size"][0].max()) == pytest.approx(99 * cfg.scale)
+    fused = postprocess_batch_fused(torch.from_numpy(logits), cfg)
+    assert not same_corner_sets(fused["boxes"][0, :1].numpy(), ref["boxes"][:1], 1e-4).any()
+    assert float(fused["size"][0, 0].max()) < 99 * cfg.scale
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("K,n_blobs", [(4, 9), (16, 6)])
+def test_postprocess_batch_matches_jax_on_blobs(K, n_blobs, connectivity):
+    """Blob maps with several components (more than K=4 of them, or fewer
+    than K=16, so that padding slots stay empty), the bar and the
+    adversarial maps, through postprocess_batch, against the JAX one."""
+    det = np.concatenate([
+        blob_logits(K + connectivity, B=3, n_blobs=n_blobs),
+        upright_bar(H=32, W=32, rows=20),
+        adversarial_logits(),
+    ])
+    logits = _with_classes(det, K)
+    cfg, jcfg = _cfgs(max_components=K, min_component_area=3)
+    assert_same_labels(det, cfg.detection_threshold, connectivity)
+    ref = jax.device_get(jax_postprocess_batch(jnp.asarray(logits), jcfg, connectivity))
+    out = postprocess_batch(torch.from_numpy(logits), cfg, connectivity)
+    totals = np.asarray(ref["num_components_total"])
+    assert ((totals > K) if K == 4 else (totals < K)).any()
+    assert int(np.asarray(ref["num_detections"]).sum()) > 0
+    assert_same_detections(out, ref)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_postprocess_one_image_matches_jax(connectivity):
+    """postprocess on each image alone == the JAX postprocess, and == the
+    port's postprocess_batch row by row (float outputs within 1e-6: the
+    plain stats' products sum in another order at another batch size)."""
+    logits = _with_classes(blob_logits(3, B=2, n_blobs=5), 3)
+    cfg, jcfg = _cfgs(max_components=4, min_component_area=3)
+    batch = postprocess_batch(torch.from_numpy(logits), cfg, connectivity)
+    for b in range(len(logits)):
+        ref = jax.device_get(jax_postprocess(jnp.asarray(logits[b]), jcfg, connectivity))
+        out = postprocess(torch.from_numpy(logits[b]), cfg, connectivity)
+        assert out["boxes"].shape == (4, 4, 2) and out["num_detections"].shape == ()
+        assert_same_detections(out, ref)
+        for key in out:
+            if out[key].is_floating_point():
+                torch.testing.assert_close(out[key], batch[key][b], atol=1e-6, rtol=0)
+            else:
+                assert torch.equal(out[key], batch[key][b]), key
+
+
+@pytest.mark.parametrize("asset", sorted(ASSETS))
+def test_detect_program_batch_xla_route_matches_jax(asset):
+    """detect_program_batch(fused=False) on 128x128 scenes == the JAX
+    package's XLA route: the same inputs, default hull cap."""
+    jcfg, jparams = _jax_asset(asset, max_components=16)
+    cfg = load_net_config(ASSETS[asset]).replace(max_components=16)
+    reader = SyntheticMarkupReader(n_samples=3, image_hw=(128, 128), seed=33)
+    imgs = np.stack([reader.sample_at(i).image for i in range(3)])
+    ref, ref_logits = jax.device_get(
+        jax_detect_program_batch(jparams, jnp.asarray(imgs), jcfg, (128, 128), fused=False)
+    )
+    assert np.abs(ref_logits[..., 0]).min() > MARGIN
+    out, logits = detect_program_batch(
+        load_params(ASSETS[asset]), imgs, cfg, (128, 128), fused=False, device="cpu"
+    )
+    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
+    assert int(ref["num_detections"].sum()) > 0
+    assert_same_detections(out, ref, score_atol=1e-5)
+
+
+def _scene_512():
+    img = SyntheticMarkupReader(n_samples=1, image_hw=(512, 512), seed=8).sample_at(0).image
+    jcfg, jparams = _jax_asset("separable")
+    return img, jcfg, jparams, load_net_config(ASSETS["separable"])
+
+
+def test_detect_program_matches_jax_on_a_512_scene():
+    """detect_program on one 512x512 scene (the context kernel's route on
+    the port's side): logits within 1e-4 of the flax model's, detections
+    equal to the JAX detect_program's (scores within 1e-5: conv rounding)."""
+    img, jcfg, jparams, cfg = _scene_512()
+    ref, ref_logits = jax.device_get(jax_detect_program(jparams, jnp.asarray(img), jcfg, (512, 512)))
+    assert np.abs(ref_logits[..., 0]).min() > MARGIN
+    out, logits = detect_program(load_params(ASSETS["separable"]), img, cfg, (512, 512),
+                                 device="cpu")
+    assert logits.shape == (128, 128, 17)
+    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
+    assert int(ref["num_detections"]) > 0
+    assert_same_detections(out, ref, score_atol=1e-5)
+
+
+def test_detector_detect_and_heatmap_match_jax_on_a_512_scene():
+    """BarcodeDetector.detect and .heatmap on the same scene, RGB, against
+    the JAX detector's."""
+    img, jcfg, jparams, cfg = _scene_512()
+    rgb = np.stack([img, np.clip(img.astype(int) + 5, 0, 255), img], -1).astype(np.uint8)
+    jdet = JaxBarcodeDetector(jcfg, jparams)
+    det = BarcodeDetector(cfg, load_params(ASSETS["separable"]), device="cpu")
+    heat, ref_heat = det.heatmap(rgb), jdet.heatmap(rgb)
+    assert heat.shape == ref_heat.shape == (128, 128)
+    np.testing.assert_allclose(heat, ref_heat, atol=1e-5)
+    assert np.abs(ref_heat - 0.5).min() > MARGIN / 4
+    ref, out = jdet.detect(rgb), det.detect(rgb)
+    assert len(ref) > 0 and len(out) == len(ref)
+    for o, r in zip(out, ref):
+        assert (o.class_id, o.class_name, o.area) == (r.class_id, r.class_name, r.area)
+        assert abs(o.score - r.score) < 1e-5
+        assert_same_boxes(o.box[None], r.box[None], 1e-3)
+        np.testing.assert_allclose(o.center, r.center, atol=1e-3)

@@ -7,7 +7,12 @@ kernel under ``csrc/`` (built at first use by ``ops/cuda/_build.py``) and a
 plain PyTorch version beside it, which CPU tensors take.
 """
 
-from ubdvss_tpu_torch.inference import BarcodeDetector, Detection, detect_program_batch
+from ubdvss_tpu_torch.inference import (
+    BarcodeDetector,
+    Detection,
+    detect_program,
+    detect_program_batch,
+)
 from ubdvss_tpu_torch.models.model import BarcodeFCN, get_model
 from ubdvss_tpu_torch.net_config import CLASS_GROUPS, DEFAULT_CLASS_NAMES, NetConfig
 from ubdvss_tpu_torch.streaming import StreamingDetector
@@ -25,6 +30,7 @@ __all__ = [
     "Detection",
     "NetConfig",
     "StreamingDetector",
+    "detect_program",
     "detect_program_batch",
     "get_model",
     "load_net_config",

@@ -1,8 +1,8 @@
 // The two phases of the component geometry, as block-wide device functions
 // shared by ccl_kernel.cu (K1), postproc_kernel.cu (K2) and
-// geometry_kernel.cu (K12c, both phases in one block), so that each
-// algorithm has one copy; phase 2 also sums the per-component stats.
-// Every thread of the block calls them.
+// geometry_kernel.cu (K12c, both phases in one cluster of two blocks), so
+// that each algorithm has one copy; phase 2 also sums the per-component
+// stats.  Every thread of the block calls them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,8 +55,27 @@ inline int with_channel_bound(int C, F&& f) {
 // and NE are neighbours of N and reach it through their own unions);
 // otherwise with W (or, without W, with NW) and with NE.  4-connectivity
 // unions with W and N.
-__device__ inline int find_root(volatile int* lab, int p) {
-  for (int r = lab[p]; r != p; r = lab[p]) p = r;
+//
+// The label map is reached through an accessor: lab(p) is the word of
+// linear index p, in one block's shared memory (FlatLabels) or split by
+// rows over the two blocks of a cluster (SplitLabels, K12c), where the
+// unions reach the other block's words through distributed shared memory.
+struct FlatLabels {
+  volatile int* base;
+  __device__ volatile int& operator()(int p) const { return base[p]; }
+};
+
+// Rows [0, split / W) in lo, the rest in hi.
+struct SplitLabels {
+  volatile int* lo;
+  volatile int* hi;
+  int split;
+  __device__ volatile int& operator()(int p) const { return p < split ? lo[p] : hi[p - split]; }
+};
+
+template <class Lab>
+__device__ inline int find_root(const Lab& lab, int p) {
+  for (int r = lab(p); r != p; r = lab(p)) p = r;
   return p;
 }
 
@@ -68,17 +87,19 @@ __device__ inline int find_root(volatile int* lab, int p) {
 // only because that union then retries from the node's parent.  Not for the
 // flatten pass, where another thread may already have written a node's
 // final label.
-__device__ inline int find_root_halving(volatile int* lab, int p) {
+template <class Lab>
+__device__ inline int find_root_halving(const Lab& lab, int p) {
   while (true) {
-    const int r = lab[p];
+    const int r = lab(p);
     if (r == p) return p;
-    const int g = lab[r];
-    if (g != r) lab[p] = g;
+    const int g = lab(r);
+    if (g != r) lab(p) = g;
     p = g;
   }
 }
 
-__device__ inline void union_roots(volatile int* lab, int a, int b) {
+template <class Lab>
+__device__ inline void union_roots(const Lab& lab, int a, int b) {
   while (true) {
     a = find_root_halving(lab, a);
     b = find_root_halving(lab, b);
@@ -88,24 +109,29 @@ __device__ inline void union_roots(volatile int* lab, int a, int b) {
       a = b;
       b = t;
     }
-    const int old = atomicMin(const_cast<int*>(lab) + b, a);
+    const int old = atomicMin(const_cast<int*>(&lab(b)), a);
     if (old == b) return;  // b was a root and now points to a
     b = old;  // b was linked under `old` meanwhile: join old's set and a's
   }
 }
 
-__device__ inline void ccl_labels_shared(const float* __restrict__ lg,
-                                         volatile int* lab, int H, int W,
-                                         float thr, bool eight) {
-  const int N = H * W;
-  for (int p = threadIdx.x; p < N; p += blockDim.x) lab[p] = lg[p] > thr ? p : N;
-  __syncthreads();
-  for (int p = threadIdx.x; p < N; p += blockDim.x) {
-    if (lab[p] == N) continue;
+// The three passes over the pixels [p0, p1) of the block, rows y0 on (the
+// merge takes no neighbour above row y0); fg(p) says whether p is
+// foreground.  Each ends before its __syncthreads().
+template <class Lab, class Fg>
+__device__ inline void ccl_init(const Lab& lab, const Fg& fg, int p0, int p1, int N) {
+  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) lab(p) = fg(p) ? p : N;
+}
+
+template <class Lab>
+__device__ inline void ccl_merge(const Lab& lab, int W, int y0, int p0, int p1, int N,
+                                 bool eight) {
+  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+    if (lab(p) == N) continue;
     const int y = p / W;
     const int x = p - y * W;
-    const bool w = x > 0 && lab[p - 1] != N;
-    const bool n = y > 0 && lab[p - W] != N;
+    const bool w = x > 0 && lab(p - 1) != N;
+    const bool n = y > y0 && lab(p - W) != N;
     if (!eight) {
       if (w) union_roots(lab, p, p - 1);
       if (n) union_roots(lab, p, p - W);
@@ -117,17 +143,65 @@ __device__ inline void ccl_labels_shared(const float* __restrict__ lg,
     }
     if (w) {
       union_roots(lab, p, p - 1);
-    } else if (y > 0 && x > 0 && lab[p - W - 1] != N) {
+    } else if (y > y0 && x > 0 && lab(p - W - 1) != N) {
       union_roots(lab, p, p - W - 1);
     }
-    if (y > 0 && x + 1 < W && lab[p - W + 1] != N) union_roots(lab, p, p - W + 1);
+    if (y > y0 && x + 1 < W && lab(p - W + 1) != N) union_roots(lab, p, p - W + 1);
   }
+}
+
+template <class Lab>
+__device__ inline void ccl_flatten(const Lab& lab, int p0, int p1, int N) {
+  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+    if (lab(p) != N) lab(p) = find_root(lab, p);
+  }
+}
+
+__device__ inline void ccl_labels_shared(const float* __restrict__ lg,
+                                         volatile int* lab_s, int H, int W,
+                                         float thr, bool eight) {
+  const int N = H * W;
+  const FlatLabels lab{lab_s};
+  ccl_init(lab, [&](int p) { return lg[p] > thr; }, 0, N, N);
   __syncthreads();
-  for (int p = threadIdx.x; p < N; p += blockDim.x) {
-    if (lab[p] != N) lab[p] = find_root(lab, p);
-  }
+  ccl_merge(lab, W, 0, 0, N, N, eight);
+  __syncthreads();
+  ccl_flatten(lab, 0, N, N);
   __syncthreads();
 }
+
+// The unions across the seam above row y0 (y0 > 0): every foreground pixel
+// of row y0 with its foreground neighbours in row y0 - 1 (N; for
+// 8-connectivity NW and NE when N is background, since NW and NE are N's
+// own neighbours otherwise).  With ccl_merge over the rows on each side,
+// this is the merge of the whole map.
+template <class Lab>
+__device__ inline void ccl_seam(const Lab& lab, int W, int y0, int N, bool eight) {
+  for (int x = threadIdx.x; x < W; x += blockDim.x) {
+    const int p = y0 * W + x;
+    if (lab(p) == N) continue;
+    const int q = p - W;
+    if (lab(q) != N) {
+      union_roots(lab, p, q);
+    } else if (eight) {
+      if (x > 0 && lab(q - 1) != N) union_roots(lab, p, q - 1);
+      if (x + 1 < W && lab(q + 1) != N) union_roots(lab, p, q + 1);
+    }
+  }
+}
+
+// Read-only views of a finished label map for the slot phase: lab[p].
+struct GlobalLabels {
+  const int* __restrict__ p;
+  __device__ int operator[](int i) const { return __ldg(p + i); }
+};
+
+struct SplitView {
+  const int* lo;
+  const int* hi;
+  int split;
+  __device__ int operator[](int p) const { return p < split ? lo[p] : hi[p - split]; }
+};
 
 // One image's (H, W, C) logits at element strides: channel 0 is the
 // detection logit, 1..C-1 the class logits.  The head writes (C, H, W)
@@ -302,14 +376,15 @@ struct StatsAcc {
 // rootvals.
 //
 // Three steps, so that one image's pass can be split over the blocks of a
-// cluster (K2) or run in one block (K12c) in the same order:
-//   slot_roots   every block of the image ranks the roots itself;
+// cluster, K2's and K12c's alike, in one order:
+//   slot_roots   every block of the image ranks the roots itself (K2), or
+//                those of its own rows (K12c, which then joins the lists);
 //   slot_pass    the pixel pass over the block's share of the virtual
 //                warps, writing slots, extremes and stats partials;
 //   slot_finish  one block writes the extremes, roots and stats.
 
-// K2 splits an image's pixel pass over a cluster of this many blocks;
-// K12c, one block an image, runs the same virtual warps in the same order.
+// K2 and K12c split an image's pixel pass over a cluster of this many
+// blocks, the same virtual warps in each.
 constexpr int kSlotCtas = 2;
 
 // The per-image state in shared memory: ``sm`` holds K roots (ascending,
@@ -327,21 +402,23 @@ struct SlotSmem {
         cnt(reinterpret_cast<int*>(part + sets * K * C)) {}
 };
 
-// Roots (foreground pixels whose label is their own index) ranked in raster
-// order by a block-wide exclusive prefix sum (warp shuffles; the block is
-// a whole number of warps); roots of rank < K are the slots.  Also clears
-// the extremes and the block's ``sets`` stats partial sets.  Returns the
-// image's root count.  Ends with a __syncthreads().
-template <class Det>
-__device__ inline int slot_roots(const Det& det, const int* __restrict__ lab, const SlotSmem& s,
-                                 int H, int W, int K, int C, int sets, float thr) {
+// Roots (foreground pixels whose label is their own index) among the pixels
+// [p0, p1), ranked in raster order by a block-wide exclusive prefix sum
+// (warp shuffles; the block is a whole number of warps); those of rank < K
+// go to ``roots`` (K words, N pads).  Also clears the extremes and the
+// block's ``sets`` stats partial sets.  Returns the root count of the
+// range.  Ends with a __syncthreads().
+template <class Det, class Lab>
+__device__ inline int slot_roots(const Det& det, const Lab& lab, const SlotSmem& s, int* roots,
+                                 int p0, int p1, int H, int W, int K, int C, int sets,
+                                 float thr) {
   __shared__ int s_warp[32];
   const int N = H * W;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nw = blockDim.x >> 5;
-  for (int i = tid; i < K; i += blockDim.x) s.root[i] = N;
+  for (int i = tid; i < K; i += blockDim.x) roots[i] = N;
   for (int i = tid; i < K * H; i += blockDim.x) {
     s.mn[i] = kBig;
     s.mx[i] = -1;
@@ -350,9 +427,9 @@ __device__ inline int slot_roots(const Det& det, const int* __restrict__ lab, co
   for (int i = tid; i < sets * K; i += blockDim.x) s.cnt[i] = 0;
 
   // count roots in a contiguous raster chunk per thread
-  const int chunk = (N + blockDim.x - 1) / blockDim.x;
-  const int begin = min(tid * chunk, N);
-  const int end = min(begin + chunk, N);
+  const int chunk = (p1 - p0 + blockDim.x - 1) / blockDim.x;
+  const int begin = p0 + min(tid * chunk, p1 - p0);
+  const int end = min(begin + chunk, p1);
   int cnt = 0;
   for (int p = begin; p < end; ++p) cnt += (lab[p] == p && det(p / W, p % W) > thr);
 
@@ -378,7 +455,7 @@ __device__ inline int slot_roots(const Det& det, const int* __restrict__ lab, co
   const int total = s_warp[nw - 1];
   int rank = (warp > 0 ? s_warp[warp - 1] : 0) + incl - cnt;
   for (int p = begin; p < end && rank < K; ++p) {
-    if (lab[p] == p && det(p / W, p % W) > thr) s.root[rank++] = p;
+    if (lab[p] == p && det(p / W, p % W) > thr) roots[rank++] = p;
   }
   __syncthreads();
   return total;
@@ -394,8 +471,8 @@ __device__ inline int slot_roots(const Det& det, const int* __restrict__ lab, co
 // ranked roots, writes it, and takes part in the per-row extremes
 // (shared-memory atomicMin/Max) and the stats.  Ends with a
 // __syncthreads().
-template <int CM, class Det>
-__device__ inline void slot_pass(const Det& det, const Logits& lg, const int* __restrict__ lab,
+template <int CM, class Det, class Lab>
+__device__ inline void slot_pass(const Det& det, const Logits& lg, const Lab& lab,
                                  const SlotSmem& s, int H, int W, int K, float thr, int total,
                                  int first, int reps, int nv, int* __restrict__ slots) {
   const int N = H * W;

@@ -1,93 +1,163 @@
-// The whole component geometry of one image in one block: threshold + CCL
-// (union-find), then the root count, the K smallest roots, the slot map,
-// each slot's per-row x extremes and its stats.
+// The whole component geometry of one image in one cluster of two blocks:
+// threshold + CCL (union-find), then the root count, the K smallest roots,
+// the slot map, each slot's per-row x extremes and its stats.
 //
 // Replaces the TPU kernel _geometry_kernel_compat (ubdvss_tpu/ops/pallas/
 // postproc_kernel.py:50), which the JAX package runs instead of its CCL and
 // slots kernels under UBDVSS_PALLAS_COMPAT=1.  Its outputs are those of
-// K2 after K1: the same two phases, geometry::ccl_labels_shared and
-// geometry::slot_roots / slot_pass / slot_finish (geometry.cuh), run back
-// to back with the label map kept in shared memory between them, so the
-// labels never go to device memory and the second phase reads them from
-// shared memory.  Like K1 it reaches the true components, with no round
-// cap.  Each warp runs the kSlotCtas virtual warps that K2's cluster runs
-// in two blocks, into their own stats partial sets, and the sets are summed
-// in K2's order, so the stats equal K2's bit for bit.
+// K2 after K1, bit for bit: the same phases of geometry.cuh, with the label
+// map kept in shared memory, so the labels never go to device memory.
 //
-// Shared memory: H*W*4 + (K + 2*K*H)*4 bytes (80 KB at 128x128, K=16;
-// 128 KB at K=64), plus (K, C+1) words per virtual warp of stats partials;
-// the caller picks the warps so that it stays within the card's 227 KB.
+// One cluster of geometry::kSlotCtas (2) blocks per image, as K2, so that
+// B=64 images fill 128 of the 132 SMs:
+//   1. each block holds half of the image's label rows (block 0 rows
+//      [0, S), block 1 rows [S, H), S = ceil(H/2)) in its shared memory and
+//      runs the union-find's initialise and merge passes on them;
+//   2. block 1 merges the seam rows S-1 and S across the cluster: its
+//      unions reach block 0's words through distributed shared memory
+//      (cluster.map_shared_rank; atomicMin on the peer's words).  A root is
+//      always the smaller linear index, so block 1's components link into
+//      block 0's and never the other way;
+//   3. each block flattens its rows (a find may walk into block 0);
+//   4. each block ranks the roots of its rows; block 0's come first in
+//      raster order, so the image's K smallest are block 0's list, then
+//      block 1's, which each block reads from the other;
+//   5. each block runs K2's virtual warps rank * nw ... of the pixel pass,
+//      on labels read from whichever block holds the row, and block 0
+//      finishes as K2 does, with block 1's extremes and stats partials.
+// The same warp count as K2 (the caller's ``threads``), the same virtual
+// warps and the same order of sums give K2's stats bit for bit.  Like K1
+// it reaches the true components, with no round cap.  The detection logits
+// are read at the head's strides, as K2 reads them.
 //
-// Bound on this card: 8 B per pixel of device memory (logits read, slots
-// written) plus the class logits of the pixels in a slot and the (K, H)
-// extremes; the union-find and the slot search run at shared-memory
-// latency, one block per map, as K1.
+// Shared memory a block: S*W + 2K + 1 + 2*K*H words (labels of its rows,
+// the roots, its own ranked roots and count, the extremes; 49 KB at
+// 128x128, K=16), plus (K, C+1) words per warp of stats partials; the
+// caller picks the warps so that it stays within the card's 227 KB.
+//
+// Bound on this card: 8 B per pixel of device memory (detection logit
+// read, slot written) plus the class logits of the pixels in a slot and
+// the (K, H) extremes; the union-find and the slot search run at
+// shared-memory latency.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "geometry.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 1024;
 
 template <int CM>
-__global__ void __launch_bounds__(kThreads)
-geometry_kernel(const float* __restrict__ det_logits, const float* __restrict__ logits,
-                long long sb, long long sy, long long sx, long long sc, int C,
-                int* __restrict__ rootvals, int* __restrict__ slots,
-                int* __restrict__ minx, int* __restrict__ maxx,
-                int* __restrict__ nroots, float* __restrict__ areas,
-                float* __restrict__ det_sums, float* __restrict__ cls_sums, int H,
-                int W, int K, float thr, int connectivity) {
+__global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1) __launch_bounds__(kThreads)
+geometry_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+                long long sc, int C, int* __restrict__ rootvals, int* __restrict__ slots,
+                int* __restrict__ minx, int* __restrict__ maxx, int* __restrict__ nroots,
+                float* __restrict__ areas, float* __restrict__ det_sums,
+                float* __restrict__ cls_sums, int H, int W, int K, float thr,
+                int connectivity) {
   extern __shared__ int sm[];
-  const long long b = blockIdx.x;
-  const long long N = static_cast<long long>(H) * W;
-  const float* dl = det_logits + b * N;
-  geometry::ccl_labels_shared(dl, sm, H, W, thr, connectivity == 8);
-  const geometry::Plane det{dl, W, 1};
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long b = blockIdx.x / geometry::kSlotCtas;
+  const int N = H * W;
+  const int S = (H + 1) / 2;  // block 0 holds rows [0, S), block 1 [S, H)
+  const int split = S * W;
+  int* own = sm;
+  int* peer = cluster.map_shared_rank(sm, rank ^ 1);
+  int* lo = rank == 0 ? own : peer;
+  int* hi = rank == 0 ? peer : own;
+  const int p0 = rank == 0 ? 0 : split;
+  const int p1 = rank == 0 ? split : N;
   const geometry::Logits lg{logits + b * sb, sy, sx, sc, C};
-  // K2's virtual warps, kSlotCtas per warp of this block, in K2's order
+  const geometry::Plane det{lg.p, sy, sx};
+  const bool eight = connectivity == 8;
+
+  // 1-3. CCL over the cluster
+  const geometry::SplitLabels lab{lo, hi, split};
+  geometry::ccl_init(
+      lab,
+      [&](int p) {
+        const int y = p / W;
+        return det(y, p - y * W) > thr;
+      },
+      p0, p1, N);
+  __syncthreads();
+  geometry::ccl_merge(lab, W, rank == 0 ? 0 : S, p0, p1, N, eight);
+  cluster.sync();
+  if (rank == 1 && S < H) geometry::ccl_seam(lab, W, S, N, eight);
+  cluster.sync();
+  geometry::ccl_flatten(lab, p0, p1, N);
+  cluster.sync();
+
+  // 4. the roots: each block ranks its rows', then joins the two lists
   const int nw = blockDim.x >> 5;
-  const int nv = geometry::kSlotCtas * nw;
-  const geometry::SlotSmem s(sm + N, K, H, C, nv);
-  const int total = geometry::slot_roots(det, sm, s, H, W, K, C, nv, thr);
-  geometry::slot_pass<CM>(det, lg, sm, s, H, W, K, thr, total, 0, geometry::kSlotCtas, nv,
-                          slots + b * N);
-  geometry::slot_finish(s, s.part + nw * K * C, s.cnt + nw * K, H, K, C, total, nv,
-                        rootvals + b * K, minx + b * K * H, maxx + b * K * H, nroots + b,
-                        areas + b * K, det_sums + b * K, cls_sums + b * K * max(C - 1, 1));
+  const geometry::SlotSmem s(sm + split, K, H, C, nw);
+  int* ranked = s.cnt + nw * K;  // K roots of this block's rows, then their count
+  const geometry::SplitView view{lo, hi, split};
+  const int count = geometry::slot_roots(det, view, s, ranked, p0, p1, H, W, K, C, nw, thr);
+  if (threadIdx.x == 0) ranked[K] = count;
+  cluster.sync();
+  const int* other = cluster.map_shared_rank(ranked, rank ^ 1);
+  const int* lo_roots = rank == 0 ? ranked : other;
+  const int* hi_roots = rank == 0 ? other : ranked;
+  const int c0 = lo_roots[K];
+  const int c1 = hi_roots[K];
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    s.root[k] = k < c0 ? lo_roots[k] : (k - c0 < c1 ? hi_roots[k - c0] : N);
+  }
+  __syncthreads();
+
+  // 5. K2's pixel pass and finish
+  geometry::slot_pass<CM>(det, lg, view, s, H, W, K, thr, c0 + c1, rank * nw, 1,
+                          geometry::kSlotCtas * nw, slots + b * N);
+  cluster.sync();
+  if (rank == 0) {
+    const geometry::SlotSmem o(cluster.map_shared_rank(sm, 1) + split, K, H, C, nw);
+    for (int i = threadIdx.x; i < K * H; i += blockDim.x) {
+      s.mn[i] = min(s.mn[i], o.mn[i]);
+      s.mx[i] = max(s.mx[i], o.mx[i]);
+    }
+    __syncthreads();
+    geometry::slot_finish(s, o.part, o.cnt, H, K, C, c0 + c1, geometry::kSlotCtas * nw,
+                          rootvals + b * K, minx + b * K * H, maxx + b * K * H, nroots + b,
+                          areas + b * K, det_sums + b * K, cls_sums + b * K * max(C - 1, 1));
+  }
+  cluster.sync();  // block 1's shared memory lives until block 0 has read it
 }
 
 }  // namespace
 
-// det_logits (B, H, W) f32 contiguous (channel 0 of logits), logits
-// (B, H, W, C) f32 at element strides (sb, sy, sx, sc) -> the outputs of
-// component_slots (postproc_kernel.cu).  ``threads`` is that of one of
-// K2's blocks.
-extern "C" int geometry_compat(const void* det_logits, const void* logits, long long sb,
-                               long long sy, long long sx, long long sc, int C,
-                               void* rootvals, void* slots, void* minx, void* maxx,
-                               void* nroots, void* areas, void* det_sums, void* cls_sums,
-                               int B, int H, int W, int K, int threads, float thr,
-                               int connectivity, void* stream) {
+// logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc) -> the
+// outputs of component_slots (postproc_kernel.cu).  ``threads`` is that of
+// one of K2's blocks.
+extern "C" int geometry_compat(const void* logits, long long sb, long long sy, long long sx,
+                               long long sc, int C, void* rootvals, void* slots, void* minx,
+                               void* maxx, void* nroots, void* areas, void* det_sums,
+                               void* cls_sums, int B, int H, int W, int K, int threads,
+                               float thr, int connectivity, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads <= 0 ||
       threads > kThreads || threads % 32 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = (static_cast<size_t>(H) * W + K + 2 * static_cast<size_t>(K) * H) *
-                          sizeof(int) +
-                      static_cast<size_t>(geometry::kSlotCtas) * (threads / 32) * K * (C + 1) *
-                          sizeof(float);
+  const size_t smem =
+      (static_cast<size_t>((H + 1) / 2) * W + 2 * static_cast<size_t>(K) + 1 +
+       2 * static_cast<size_t>(K) * H) * sizeof(int) +
+      static_cast<size_t>(threads / 32) * K * (C + 1) * sizeof(float);
   return geometry::with_channel_bound(C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
     cudaError_t e = cudaFuncSetAttribute(
         geometry_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    geometry_kernel<CM><<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(det_logits), static_cast<const float*>(logits), sb, sy,
-        sx, sc, C, static_cast<int*>(rootvals), static_cast<int*>(slots),
-        static_cast<int*>(minx), static_cast<int*>(maxx), static_cast<int*>(nroots),
-        static_cast<float*>(areas), static_cast<float*>(det_sums),
-        static_cast<float*>(cls_sums), H, W, K, thr, connectivity);
+    geometry_kernel<CM><<<geometry::kSlotCtas * B, threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(logits), sb, sy, sx, sc, C, static_cast<int*>(rootvals),
+        static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
+        static_cast<int*>(nroots), static_cast<float*>(areas),
+        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, thr,
+        connectivity);
     return launch_status();
   });
 }

@@ -22,8 +22,8 @@
 // strides — and then block 0 takes the other block's extremes and stats
 // partials from its shared memory (distributed shared memory) and writes
 // the outputs (slot_finish).  A block has one warp per stats partial set,
-// 32 where shared memory allows; K12c runs the same virtual warps, so both
-// sum in one order.
+// 32 where K12c's shared memory allows; K12c runs the same virtual warps in
+// its cluster of two blocks, so both sum in one order.
 //
 // Bound on this card: device memory.  Logits plane and labels read, slots
 // written (12 B a pixel), plus the C-1 class logits of the pixels in a
@@ -58,9 +58,10 @@ slots_kernel(const float* __restrict__ logits, long long sb, long long sy,
   const int nw = blockDim.x >> 5;
   const geometry::Logits lg{logits + b * sb, sy, sx, sc, C};
   const geometry::Plane det{lg.p, sy, sx};
-  const int* lab = labels + b * N;
+  const geometry::GlobalLabels lab{labels + b * N};
   const geometry::SlotSmem s(sm, K, H, C, nw);
-  const int total = geometry::slot_roots(det, lab, s, H, W, K, C, nw, thr);
+  const int total = geometry::slot_roots(det, lab, s, s.root, 0, static_cast<int>(N), H, W, K,
+                                         C, nw, thr);
   geometry::slot_pass<CM>(det, lg, lab, s, H, W, K, thr, total, rank * nw, 1,
                           geometry::kSlotCtas * nw, slots + b * N);
   cluster.sync();

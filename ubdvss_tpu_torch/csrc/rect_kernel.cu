@@ -2,10 +2,12 @@
 //
 // Two kernels, one per TPU kernel, returning the same nine rows per
 // component: ux, uy, min_u, max_u, min_v, max_v, any_edge, p0x, p0y.
-//   rect_compact_kernel replaces _rect_kernel_compact (ubdvss_tpu/ops/
-//     pallas/rect_kernel.py:294): each convex chain compacted to its first M
+//   the compact kernel (rect_kernel<false>, entry rect_select)
+//     replaces _rect_kernel_compact (ubdvss_tpu/ops/pallas/
+//     rect_kernel.py:294): each convex chain compacted to its first M
 //     points, directions projected over the packed points.
-//   rect_exact_kernel replaces _rect_kernel (rect_kernel.py:136): no cap
+//   the exact kernel (rect_kernel<true>, entry rect_select_exact)
+//     replaces _rect_kernel (rect_kernel.py:136): no cap
 //     (M = H), directions projected over every valid row's two extremes,
 //     the TPU kernel's point set.  The extremes of a projection are hull
 //     points in exact arithmetic, but the f32 projection is not monotone in
@@ -30,8 +32,8 @@
 // every chain full: ~2 us at 67 TFLOP/s f32).  What sets the time is one
 // component's critical path: all B*K components are resident at once.
 //
-// rect_compact_kernel runs one block of 128 threads per component, with no
-// loop that one thread runs for the others:
+// Both are one template, rect_kernel<kExact>: one 128-thread block per
+// component, with no loop that one thread runs for the others:
 //   1. the valid rows are compacted by ballot and popc (threads over rows),
 //      and the horizontal candidate is taken by block reductions;
 //   2. one warp per chain runs the TPU kernels' lockstep rounds, every
@@ -45,15 +47,22 @@
 //      compared by int32 cross-multiplication): threads over rows, O(n)
 //      steps each;
 //   3. a chain's kept rows are ranked by ballot and popc, its first M
-//      packed;
-//   4. threads take the valid directions (consecutive packed points of one
-//      chain) and project them over the valid packed points only;
+//      packed (all of them in the exact kernel, where M = H);
+//   4. the compact kernel: threads take the valid directions (consecutive
+//      packed points of one chain) and project them over the valid packed
+//      points only.  The exact kernel: a
+//      direction equal to the one before it on its chain (a run of
+//      collinear points with equal steps, such as a padding slot's
+//      background rows) gives the same rows and loses the tie to it, so
+//      only the others are kept, compacted in order; then a group of G
+//      lanes takes each direction (G a power of two, G * directions <=
+//      128), each lane projects every G-th valid row's two extremes, and
+//      the group reduces min and max by shuffles.  Min and max do not
+//      depend on order, so the rows are those of one thread walking every
+//      row, and one component's critical path stays short at B=1;
 //   5. the minimum area, the caliper key among the ties and the lowest
 //      direction among those are block reductions.
-// rect_exact_kernel runs one block per component: one thread per chain
-// convexifies it with a monotone stack that pops only on strict concavity
-// (int32 cross products), one thread per direction projects, thread 0
-// selects.
+// H <= 1024 for the exact kernel: its shared memory is then 119 KB.
 #include <climits>
 
 #include "common.cuh"
@@ -73,30 +82,6 @@ __device__ __forceinline__ float fold_phi_key(float ux, float uy) {
     if (cx[i] > 0.f && cy[i] >= 0.f) return cy[i] / fmaxf(cx[i], 1e-30f);
   }
   return 0.f;
-}
-
-// Convexify one chain (sign +1: left/min-x chain, -1: right/max-x chain)
-// with a monotone stack, then pack its first M points into slots.
-__device__ void convexify_pack(const int* v, const int* xv, int* st, int H,
-                               int M, int sign, int* cx, int* cy, int* cok) {
-  int n = 0;
-  for (int y = 0; y < H; ++y) {
-    if (xv[y] < 0) continue;  // empty row
-    const int vx = v[y];
-    while (n >= 2) {
-      const int a = st[n - 2];
-      const int p = st[n - 1];
-      const int cross = (v[p] - v[a]) * (y - a) - (p - a) * (vx - v[a]);
-      if (sign * cross > 0) --n; else break;
-    }
-    st[n++] = y;
-  }
-  for (int j = 0; j < M; ++j) {
-    const bool ok = j < n;
-    cx[j] = ok ? v[st[j]] : 0;
-    cy[j] = ok ? st[j] : 0;
-    cok[j] = ok ? 1 : 0;
-  }
 }
 
 // One direction's projection extremes over the point (px, py).
@@ -136,25 +121,55 @@ __device__ __forceinline__ int next_bit(const unsigned* m, int k, int lane, int 
   return w ? 32 * k + __ffs(w) - 1 : -1;
 }
 
-// Bytes of the compact kernel's shared memory: the packed chain points
-// (float2, 2M), for each of the 2M slots' direction ux, uy, min_u, max_u,
-// min_v, max_v, area and the caliper key, the compacted valid rows (y, min
-// x, max x; H each) and two chains' alive and deleted bitmasks.
-__host__ __device__ constexpr size_t compact_smem_bytes(int H, int M) {
-  return (4 * static_cast<size_t>(M) + 16 * static_cast<size_t>(M) + 3 * static_cast<size_t>(H) +
-          4 * static_cast<size_t>((H + 31) / 32)) * 4;
+// One block of 4 warps per component, in both kernels (256 and 512 threads
+// were slower for the exact kernel at both the stream's and a detect
+// call's shapes).
+constexpr int kThreads = 128;
+
+// Block-wide ordered compaction: every thread of the block calls this once
+// a pass with its flag; returns the thread's slot among the flagged threads
+// of the pass, counting from n, and adds the pass's count to n.
+__device__ __forceinline__ int compact_slot(bool ok, int& n, int* s_cnt) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned m = __ballot_sync(kFull, ok);
+  if (lane == 0) s_cnt[warp] = __popc(m);
+  __syncthreads();
+  int off = n + __popc(m & ((1u << lane) - 1u));
+  for (int w = 0; w < kThreads / 32; ++w) {
+    off += w < warp ? s_cnt[w] : 0;
+    n += s_cnt[w];
+  }
+  __syncthreads();  // s_cnt is the next pass's
+  return off;
 }
 
-constexpr int kCompactThreads = 128;  // one block of 4 warps per component
+// Bytes of shared memory: the exact kernel's valid rows as float4 (min x,
+// max x, y; H), the packed chain points (float2, 2M), for each of the 2M
+// directions ux, uy, min_u, max_u, min_v, max_v, area and the caliper key,
+// the compacted valid rows (y, min x, max x; H each), two chains' alive and
+// deleted bitmasks, and the exact kernel's kept directions' slots (2M).
+template <bool kExact>
+__host__ __device__ constexpr size_t rect_smem_bytes(int H, int M) {
+  return ((kExact ? 4 * static_cast<size_t>(H) : 0) + 4 * static_cast<size_t>(M) +
+          16 * static_cast<size_t>(M) + 3 * static_cast<size_t>(H) +
+          4 * static_cast<size_t>((H + 31) / 32) + (kExact ? 2 * static_cast<size_t>(M) : 0)) *
+         4;
+}
+
+constexpr int kMaxExactHeight = 1024;
 constexpr int kRounds = 4;  // lockstep rounds before the slope rule finishes
 
-__global__ void __launch_bounds__(kCompactThreads)
-rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
-                    float* __restrict__ out, int K, int H, int M) {
-  extern __shared__ float2 pts[];  // left [0, M), right [M, 2M)
+template <bool kExact>
+__global__ void __launch_bounds__(kThreads)
+rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
+            float* __restrict__ out, int K, int H, int M) {
+  extern __shared__ float4 smem4[];
+  float4* rows = smem4;  // kExact: (min x, max x, y) of the valid rows
+  float2* pts = reinterpret_cast<float2*>(smem4 + (kExact ? H : 0));  // left [0, M), right [M, 2M)
   const int D = 2 * M;
   const int NW = (H + 31) / 32;
-  float* d_ux = reinterpret_cast<float*>(pts + D);  // per direction slot d
+  float* d_ux = reinterpret_cast<float*>(pts + D);  // per direction
   float* d_uy = d_ux + D;
   float* d_mnu = d_uy + D;
   float* d_mxu = d_mnu + D;
@@ -167,7 +182,8 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   int* r_r = r_l + H;
   unsigned* alive = reinterpret_cast<unsigned*>(r_r + H);  // (2, NW)
   unsigned* dead = alive + 2 * NW;                        // (2, NW)
-  constexpr int kW = kCompactThreads / 32;
+  int* u_d = reinterpret_cast<int*>(dead + 2 * NW);  // kExact: kept directions' slots
+  constexpr int kW = kThreads / 32;
   __shared__ int s_cnt[kW], s_mn[kW], s_mx[kW], s_first[kW], s_nchain[2], s_moving[2];
   __shared__ float s_amin[kW], s_phi[kW];
 
@@ -180,28 +196,25 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   // 1. compact the valid rows; the horizontal candidate's extents
   const long long base = static_cast<long long>(comp) * H;
   int n = 0, mn = kBig, mx = -kBig;
-  for (int y0 = 0; y0 < H; y0 += kCompactThreads) {
+  for (int y0 = 0; y0 < H; y0 += kThreads) {
     const int y = y0 + tid;
     const int l = y < H ? minx[base + y] : 0;
     const int r = y < H ? maxx[base + y] : -1;
     const bool ok = r >= 0;
-    const unsigned m = __ballot_sync(kFull, ok);
-    if (lane == 0) s_cnt[warp] = __popc(m);
-    __syncthreads();
-    int off = n + __popc(m & below);
-    for (int w = 0; w < kW; ++w) {
-      off += w < warp ? s_cnt[w] : 0;
-      n += s_cnt[w];
-    }
+    const int off = compact_slot(ok, n, s_cnt);
     if (ok) {
       r_y[off] = y;
       r_l[off] = l;
       r_r[off] = r;
+      if (kExact) {
+        rows[off] = make_float4(static_cast<float>(l), static_cast<float>(r),
+                                static_cast<float>(y), 0.f);
+      }
       mn = min(mn, l);
       mx = max(mx, r);
     }
-    __syncthreads();
   }
+  __syncthreads();
   mn = __reduce_min_sync(kFull, mn);
   mx = __reduce_max_sync(kFull, mx);
   if (lane == 0) {
@@ -269,7 +282,7 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
     // a row stays iff its largest slope dx/dy back to an alive row is <= its
     // smallest slope forward; threads over rows, both chains at once
     const int S = mx + 1;  // > |dx| of any two rows: a slope sentinel
-    for (int i0 = 0; i0 < n; i0 += kCompactThreads) {
+    for (int i0 = 0; i0 < n; i0 += kThreads) {
       const int i = i0 + tid;
       const bool own = i < n;
       const int yi = own ? r_y[i] : 0;
@@ -303,7 +316,7 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
       }
     }
     __syncthreads();
-    for (int k = tid; k < 2 * NW; k += kCompactThreads) alive[k] = dead[k];
+    for (int k = tid; k < 2 * NW; k += kThreads) alive[k] = dead[k];
     __syncthreads();
   }
   if (warp < 2 && has) {
@@ -327,37 +340,105 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   const int nl = s_nchain[0];
   const int nr = s_nchain[1];
 
-  // 3. threads over the valid directions (d = e on the left chain, M + e
-  // on the right), each projected over the nl + nr packed points.  Two
-  // consecutive points of a chain lie on different rows, so every such
-  // direction has el2 >= 1.
+  // 3. the directions: d = e on the left chain, M + e on the right, for the
+  // edge from packed point e to e + 1.  Two consecutive points of a chain
+  // lie on different rows, so every such direction has el2 >= 1.
   const int ndl = max(nl - 1, 0);
   const int ndir = ndl + max(nr - 1, 0);
   float amin = kInf;
-  for (int c = tid; c < ndir; c += kCompactThreads) {
-    const int d = c < ndl ? c : M + (c - ndl);
-    const float ex = pts[d + 1].x - pts[d].x;
-    const float ey = pts[d + 1].y - pts[d].y;
-    const float el2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
-    const float inv = rsqrtf(fmaxf(el2, 1e-30f));
-    const float ux = __fmul_rn(ex, inv);
-    const float uy = __fmul_rn(ey, inv);
-    float mnu = kInf, mxu = -kInf, mnv = kInf, mxv = -kInf;
+  int cnt = ndir;  // the directions the selection ranges over
+  if (kExact) {
+    // keep a direction unless it equals the one before it on its chain,
+    // compacted in order: u_d[j] is the slot, index j its arrays
+    cnt = 0;
+    for (int c0 = 0; c0 < ndir; c0 += kThreads) {
+      const int c = c0 + tid;
+      const int d = c < ndl ? c : M + (c - ndl);
+      float ex = 0.f, ey = 0.f;
+      bool keep = false;
+      if (c < ndir) {
+        ex = pts[d + 1].x - pts[d].x;
+        ey = pts[d + 1].y - pts[d].y;
+        keep = c == 0 || c == ndl || ex != pts[d].x - pts[d - 1].x ||
+               ey != pts[d].y - pts[d - 1].y;
+      }
+      const int j = compact_slot(keep, cnt, s_cnt);
+      if (keep) {
+        const float el2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
+        const float inv = rsqrtf(fmaxf(el2, 1e-30f));
+        u_d[j] = d;
+        d_ux[j] = __fmul_rn(ex, inv);
+        d_uy[j] = __fmul_rn(ey, inv);
+      }
+    }
+    __syncthreads();
+    // G lanes a direction, each over every G-th valid row's two extremes
+    int G = 1;
+    while (G < 32 && cnt * 2 * G <= kThreads) G *= 2;
+    const int groups = kThreads / G;
+    const int g = tid / G;
+    const int gl = tid - g * G;
+    for (int j0 = 0; j0 < cnt; j0 += groups) {
+      const int j = j0 + g;
+      const bool own = j < cnt;
+      const float ux = own ? d_ux[j] : 0.f;
+      const float uy = own ? d_uy[j] : 0.f;
+      float mnu = kInf, mxu = -kInf, mnv = kInf, mxv = -kInf;
+      if (own) {
+#pragma unroll 2
+        for (int i = gl; i < n; i += G) {
+          const float4 q = rows[i];
+          project(ux, uy, q.x, q.z, mnu, mxu, mnv, mxv);
+          project(ux, uy, q.y, q.z, mnu, mxu, mnv, mxv);
+        }
+      }
+      for (int off = G >> 1; off > 0; off >>= 1) {  // block-uniform
+        mnu = fminf(mnu, __shfl_xor_sync(kFull, mnu, off));
+        mxu = fmaxf(mxu, __shfl_xor_sync(kFull, mxu, off));
+        mnv = fminf(mnv, __shfl_xor_sync(kFull, mnv, off));
+        mxv = fmaxf(mxv, __shfl_xor_sync(kFull, mxv, off));
+      }
+      if (own && gl == 0) {
+        const float area = __fmul_rn(__fsub_rn(mxu, mnu), __fsub_rn(mxv, mnv));
+        d_mnu[j] = mnu;
+        d_mxu[j] = mxu;
+        d_mnv[j] = mnv;
+        d_mxv[j] = mxv;
+        d_area[j] = area;
+        d_phi[j] = fold_phi_key(ux, uy);
+        amin = fminf(amin, area);
+      }
+    }
+  } else {
+    // threads over the valid directions, each projected over the nl + nr
+    // packed points
+    for (int c = tid; c < ndir; c += kThreads) {
+      const int d = c < ndl ? c : M + (c - ndl);
+      const float ex = pts[d + 1].x - pts[d].x;
+      const float ey = pts[d + 1].y - pts[d].y;
+      const float el2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
+      const float inv = rsqrtf(fmaxf(el2, 1e-30f));
+      const float ux = __fmul_rn(ex, inv);
+      const float uy = __fmul_rn(ey, inv);
+      float mnu = kInf, mxu = -kInf, mnv = kInf, mxv = -kInf;
 #pragma unroll 4
-    for (int p = 0; p < nl; ++p) project(ux, uy, pts[p].x, pts[p].y, mnu, mxu, mnv, mxv);
+      for (int p = 0; p < nl; ++p) project(ux, uy, pts[p].x, pts[p].y, mnu, mxu, mnv, mxv);
 #pragma unroll 4
-    for (int p = M; p < M + nr; ++p) project(ux, uy, pts[p].x, pts[p].y, mnu, mxu, mnv, mxv);
-    const float area = __fmul_rn(__fsub_rn(mxu, mnu), __fsub_rn(mxv, mnv));
-    d_ux[d] = ux;
-    d_uy[d] = uy;
-    d_mnu[d] = mnu;
-    d_mxu[d] = mxu;
-    d_mnv[d] = mnv;
-    d_mxv[d] = mxv;
-    d_area[d] = area;
-    d_phi[d] = fold_phi_key(ux, uy);
-    amin = fminf(amin, area);
+      for (int p = M; p < M + nr; ++p) project(ux, uy, pts[p].x, pts[p].y, mnu, mxu, mnv, mxv);
+      const float area = __fmul_rn(__fsub_rn(mxu, mnu), __fsub_rn(mxv, mnv));
+      d_ux[d] = ux;
+      d_uy[d] = uy;
+      d_mnu[d] = mnu;
+      d_mxu[d] = mxu;
+      d_mnv[d] = mnv;
+      d_mxv[d] = mxv;
+      d_area[d] = area;
+      d_phi[d] = fold_phi_key(ux, uy);
+      amin = fminf(amin, area);
+    }
   }
+  // where direction c's values are: its slot, or (kExact) its index
+  auto at = [&](int c) { return kExact ? c : (c < ndl ? c : M + (c - ndl)); };
 
   // 4. selection by block reductions: min area, then the caliper key within
   // the tie threshold, then the lowest direction; the horizontal
@@ -371,9 +452,8 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   amin = fminf(amin, h_area);
   const float thresh = __fadd_rn(__fmul_rn(amin, 1.000001f), 1e-9f);
   float phi = kInf;
-  for (int c = tid; c < ndir; c += kCompactThreads) {
-    const int d = c < ndl ? c : M + (c - ndl);
-    if (d_area[d] <= thresh) phi = fminf(phi, d_phi[d]);
+  for (int c = tid; c < cnt; c += kThreads) {
+    if (d_area[at(c)] <= thresh) phi = fminf(phi, d_phi[at(c)]);
   }
   phi = warp_min(phi);
   if (lane == 0) s_phi[warp] = phi;
@@ -381,10 +461,9 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   float best = (hok && h_area <= thresh) ? 0.f : kInf;
   for (int w = 0; w < kW; ++w) best = fminf(best, s_phi[w]);
   int first = INT_MAX;
-  for (int c = tid; c < ndir; c += kCompactThreads) {
-    const int d = c < ndl ? c : M + (c - ndl);
-    if (d_area[d] <= thresh && d_phi[d] <= best) {
-      first = d;
+  for (int c = tid; c < cnt; c += kThreads) {
+    if (d_area[at(c)] <= thresh && d_phi[at(c)] <= best) {
+      first = c;
       break;
     }
   }
@@ -395,12 +474,13 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   for (int w = 0; w < kW; ++w) first = min(first, s_first[w]);
   float vals[6];
   if (first != INT_MAX) {
-    vals[0] = d_ux[first];
-    vals[1] = d_uy[first];
-    vals[2] = d_mnu[first];
-    vals[3] = d_mxu[first];
-    vals[4] = d_mnv[first];
-    vals[5] = d_mxv[first];
+    const int f = at(first);
+    vals[0] = d_ux[f];
+    vals[1] = d_uy[f];
+    vals[2] = d_mnu[f];
+    vals[3] = d_mxu[f];
+    vals[4] = d_mnv[f];
+    vals[5] = d_mxv[f];
   } else {
     vals[0] = 1.f;
     vals[1] = 0.f;
@@ -419,146 +499,18 @@ rect_compact_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   o[8 * K] = static_cast<float>(has ? top : 0);
 }
 
-// M == H: the points are every valid row's (minx, y), (maxx, y).
-__global__ void rect_exact_kernel(const int* __restrict__ minx,
-                                  const int* __restrict__ maxx,
-                                  float* __restrict__ out, int K, int H) {
-  extern __shared__ int sm[];
-  const int M = H;
-  const int D = 2 * M;
-  int* mv = sm;             // H
-  int* xv = mv + H;         // H
-  int* st_l = xv + H;       // H
-  int* st_r = st_l + H;     // H
-  int* cx = st_r + H;       // D
-  int* cy = cx + D;         // D
-  int* cok = cy + D;        // D
-  float* f = reinterpret_cast<float*>(cok + D);
-  float* s_ux = f;          // D each
-  float* s_uy = s_ux + D;
-  float* s_mnu = s_uy + D;
-  float* s_mxu = s_mnu + D;
-  float* s_mnv = s_mxu + D;
-  float* s_mxv = s_mnv + D;
-  float* s_area = s_mxv + D;
-  float* s_phi = s_area + D;
-  int* s_eok = reinterpret_cast<int*>(s_phi + D);
-  __shared__ int h_minall, h_maxall, h_ytop, h_ybot, h_has, h_ok, h_p0x;
-
-  const int comp = blockIdx.x;
-  const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(comp) * H;
-  for (int i = tid; i < H; i += blockDim.x) {
-    mv[i] = minx[base + i];
-    xv[i] = maxx[base + i];
-  }
-  __syncthreads();
-
-  if (tid == 0) convexify_pack(mv, xv, st_l, H, M, +1, cx, cy, cok);
-  if (tid == 32) convexify_pack(xv, xv, st_r, H, M, -1, cx + M, cy + M, cok + M);
-  if (tid == 64) {
-    int mn = kBig, mx = -kBig, top = kBig, bot = -kBig, has = 0;
-    for (int y = 0; y < H; ++y) {
-      if (xv[y] < 0) continue;
-      mn = min(mn, mv[y]);
-      mx = max(mx, xv[y]);
-      top = min(top, y);
-      bot = max(bot, y);
-      has = 1;
-    }
-    const bool top_two = has && xv[top] - mv[top] > 0;
-    const bool bot_two = has && xv[bot] - mv[bot] > 0;
-    h_minall = mn;
-    h_maxall = mx;
-    h_ytop = top;
-    h_ybot = bot;
-    h_has = has;
-    h_ok = has && (top_two || bot_two);
-    h_p0x = has ? mv[top] : 0;
-  }
-  __syncthreads();
-
-  // one thread per packed edge direction
-  for (int d = tid; d < D; d += blockDim.x) {
-    const bool last = d == M - 1 || d == D - 1;
-    const int nx = d + 1 < D ? cx[d + 1] : 0;
-    const int ny = d + 1 < D ? cy[d + 1] : 0;
-    const int nok = d + 1 < D ? cok[d + 1] : 0;
-    const float ex = static_cast<float>(nx - cx[d]);
-    const float ey = static_cast<float>(ny - cy[d]);
-    const float el2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
-    const bool eok = cok[d] == 1 && nok == 1 && !last && el2 > 0.f;
-    const float inv = rsqrtf(fmaxf(el2, 1e-30f));
-    const float ux = __fmul_rn(ex, inv);
-    const float uy = __fmul_rn(ey, inv);
-    float mnu = kInf, mxu = -kInf, mnv = kInf, mxv = -kInf;
-    for (int y = 0; y < H; ++y) {
-      if (xv[y] < 0) continue;
-      const float py = static_cast<float>(y);
-      project(ux, uy, static_cast<float>(mv[y]), py, mnu, mxu, mnv, mxv);
-      project(ux, uy, static_cast<float>(xv[y]), py, mnu, mxu, mnv, mxv);
-    }
-    s_ux[d] = ux;
-    s_uy[d] = uy;
-    s_mnu[d] = mnu;
-    s_mxu[d] = mxu;
-    s_mnv[d] = mnv;
-    s_mxv[d] = mxv;
-    s_eok[d] = eok;
-    s_area[d] = eok ? __fmul_rn(__fsub_rn(mxu, mnu), __fsub_rn(mxv, mnv)) : kInf;
-    s_phi[d] = eok ? fold_phi_key(ux, uy) : kInf;
-  }
-  __syncthreads();
-
-  if (tid != 0) return;
-  const bool hok = h_ok;
-  const float h_area =
-      hok ? __fmul_rn(static_cast<float>(h_maxall - h_minall),
-                      static_cast<float>(h_ybot - h_ytop))
-          : kInf;
-  float amin = kInf;
-  for (int d = 0; d < D; ++d) amin = fminf(amin, s_area[d]);
-  amin = fminf(amin, h_area);
-  const float thresh = __fadd_rn(__fmul_rn(amin, 1.000001f), 1e-9f);
-  float phi_e = kInf;
-  for (int d = 0; d < D; ++d) {
-    if (s_eok[d] && s_area[d] <= thresh) phi_e = fminf(phi_e, s_phi[d]);
-  }
-  const float phi_h = (hok && h_area <= thresh) ? 0.f : kInf;
-  const float best = fminf(phi_e, phi_h);
-  int first = -1;
-  for (int d = 0; d < D; ++d) {
-    if (s_eok[d] && s_area[d] <= thresh && s_phi[d] <= best) {
-      first = d;
-      break;
-    }
-  }
-  // the horizontal candidate's key is 0 <= best, so it hits whenever valid
-  const bool hit_h = hok;
-  float vals[6];
-  if (first >= 0) {
-    vals[0] = s_ux[first];
-    vals[1] = s_uy[first];
-    vals[2] = s_mnu[first];
-    vals[3] = s_mxu[first];
-    vals[4] = s_mnv[first];
-    vals[5] = s_mxv[first];
-  } else {
-    vals[0] = 1.f;
-    vals[1] = 0.f;
-    vals[2] = static_cast<float>(h_minall);
-    vals[3] = static_cast<float>(h_maxall);
-    vals[4] = static_cast<float>(h_ytop);
-    vals[5] = static_cast<float>(h_ybot);
-  }
-  const int b = comp / K;
-  const int k = comp - b * K;
-  float* o = out + static_cast<long long>(b) * 9 * K + k;
-#pragma unroll
-  for (int r = 0; r < 6; ++r) o[r * K] = vals[r];
-  o[6 * K] = (first >= 0 || hit_h) ? 1.f : 0.f;
-  o[7 * K] = static_cast<float>(h_p0x);
-  o[8 * K] = static_cast<float>(h_has ? h_ytop : 0);
+template <bool kExact>
+int launch_rect(const void* minx, const void* maxx, void* out, int B, int K, int H, int M,
+                void* stream) {
+  const size_t smem = rect_smem_bytes<kExact>(H, M);
+  cudaError_t e = cudaFuncSetAttribute(rect_kernel<kExact>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rect_kernel<kExact><<<B * K, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(minx), static_cast<const int*>(maxx), static_cast<float*>(out),
+      K, H, M);
+  return launch_status();
 }
 
 }  // namespace
@@ -567,29 +519,12 @@ __global__ void rect_exact_kernel(const int* __restrict__ minx,
 extern "C" int rect_select(const void* minx, const void* maxx, void* out,
                            int B, int K, int H, int M, void* stream) {
   if (B <= 0 || K <= 0 || H <= 0 || M <= 0) return cudaErrorInvalidValue;
-  const size_t smem = compact_smem_bytes(H, M);
-  cudaError_t e = cudaFuncSetAttribute(
-      rect_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rect_compact_kernel<<<B * K, kCompactThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(minx), static_cast<const int*>(maxx),
-      static_cast<float*>(out), K, H, M);
-  return launch_status();
+  return launch_rect<false>(minx, maxx, out, B, K, H, M, stream);
 }
 
-// The same without compaction (M = H, so H <= 512).
+// The same without compaction (M = H <= 1024), every valid row projected.
 extern "C" int rect_select_exact(const void* minx, const void* maxx, void* out,
                                  int B, int K, int H, void* stream) {
-  if (B <= 0 || K <= 0 || H <= 0 || 2 * H > 1024) return cudaErrorInvalidValue;
-  const int D = 2 * H;
-  const size_t smem = (4 * static_cast<size_t>(H) + 3 * D) * sizeof(int) +
-                      8 * static_cast<size_t>(D) * sizeof(float) + D * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      rect_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = (D + 31) / 32 * 32 < 96 ? 96 : (D + 31) / 32 * 32;
-  rect_exact_kernel<<<B * K, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(minx), static_cast<const int*>(maxx),
-      static_cast<float*>(out), K, H);
-  return launch_status();
+  if (B <= 0 || K <= 0 || H <= 0 || H > kMaxExactHeight) return cudaErrorInvalidValue;
+  return launch_rect<true>(minx, maxx, out, B, K, H, H, stream);
 }

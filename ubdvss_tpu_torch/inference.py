@@ -1,17 +1,24 @@
 """End-to-end inference API: image(s) -> detected barcode rectangles.
 
-Counterpart of ``ubdvss_tpu/inference.py`` on its fused serving route
-(``detect_program_batch`` with ``fused=True``): grayscale -> (resize +
-normalize, or the raw no-resize fold into the stem) -> FCN trunk -> fused
-postprocessing.  Entry points run on the card unless the caller asks for
-the CPU (``device="cpu"``, where every kernel takes its plain version).
+Counterpart of ``ubdvss_tpu/inference.py``:
+
+  * ``detect_program`` — one image: preprocess -> FCN trunk -> the XLA
+    route's ``postprocess`` (exact rects, K3x).  ``BarcodeDetector.detect``
+    and ``.heatmap`` go through it, as in the JAX package.
+  * ``detect_program_batch`` — a batch: grayscale -> (resize + normalize,
+    or the raw no-resize fold into the stem) -> FCN trunk -> the fused
+    postprocessing (``fused=None`` or ``True``) or the XLA route's
+    ``postprocess_batch`` (``fused=False``).
+
+The trunk of a separable config is the context kernel's (K4) route; a
+dense config runs ``BarcodeFCN``.  Entry points run on the card unless the
+caller asks for the CPU (``device="cpu"``, where every kernel takes its
+plain version).
 
 Routes of the JAX package this slice does not port raise
 ``NotImplementedError`` naming their ROADMAP.md item: bf16, int8
-``qparams``, ``mesh``, ``n_strips`` / two-stage large-scan tiling,
-heatmaps larger than 128x128, the XLA (``fused=False``) route, and
-``max_hull_points >= H > 128`` (which the JAX package serves by its XLA
-rect caliper).
+``qparams``, ``mesh``, ``n_strips`` / two-stage large-scan tiling and
+heatmaps larger than 128x128.
 """
 
 from __future__ import annotations
@@ -24,8 +31,13 @@ import torch
 from ubdvss_tpu_torch.models.model import exact_f32, get_model
 from ubdvss_tpu_torch.net_config import NetConfig
 from ubdvss_tpu_torch.ops.cuda.context_kernel import fused_model_apply
-from ubdvss_tpu_torch.ops.postproc import postprocess_batch_fused
-from ubdvss_tpu_torch.ops.preproc import normalize, resize_bilinear, to_grayscale_batch
+from ubdvss_tpu_torch.ops.postproc import postprocess, postprocess_batch, postprocess_batch_fused
+from ubdvss_tpu_torch.ops.preproc import (
+    normalize,
+    preprocess,
+    resize_bilinear,
+    to_grayscale_batch,
+)
 
 
 @dataclasses.dataclass
@@ -55,11 +67,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_route(cfg: NetConfig, out_hw, fused, n_strips, qparams, mesh) -> None:
-    if fused is False:
-        raise NotImplementedError(
-            "fused=False (the XLA postprocessing route) is not ported: ROADMAP.md §1 item 4"
-        )
+def _check_route(cfg: NetConfig, out_hw, n_strips=None, qparams=None, mesh=None) -> None:
     if qparams is not None:
         raise NotImplementedError("int8 qparams serving: ROADMAP.md §1 item 8")
     if mesh is not None:
@@ -76,6 +84,37 @@ def _check_route(cfg: NetConfig, out_hw, fused, n_strips, qparams, mesh) -> None
             f"{hf}x{wf} heatmaps are the large-scan regime (two-stage / "
             "s2d / dense context routes): ROADMAP.md §1 item 7"
         )
+
+
+def _trunk(params: dict, x: torch.Tensor, cfg: NetConfig, raw: bool) -> torch.Tensor:
+    """(B, H, W) grayscale -> (B, H/4, W/4, C) f32 logits.  ``raw``: x is
+    unnormalized [0, 255], else already normalized."""
+    if cfg.separable_context:
+        return fused_model_apply(params, x[..., None], cfg, raw_gray=raw)
+    model = get_model(cfg).to(x.device)
+    model.load_state_dict(params)
+    return model((normalize(x) if raw else x)[..., None])
+
+
+def detect_program(
+    params: dict,
+    img,
+    cfg: NetConfig,
+    out_hw: tuple[int, int],
+    channel_order: str = "rgb",
+    device=None,
+):
+    """One (H, W[, C]) image -> ``(res, logits)``: the XLA route's
+    ``postprocess`` dict (every rect exact) and the (H'/4, W'/4, C) f32
+    logits.  Runs on ``device`` (default the card)."""
+    _check_route(cfg, tuple(out_hw))
+    dev = resolve_device(device)
+    x = torch.as_tensor(img).to(dev)
+    params = {k: v.to(dev) for k, v in params.items()}
+    with torch.inference_mode(), exact_f32():
+        x = preprocess(x, tuple(out_hw), channel_order)
+        logits = _trunk(params, x[None, ..., 0], cfg, raw=False)[0]
+        return postprocess(logits, cfg), logits
 
 
 def detect_program_batch(
@@ -95,11 +134,12 @@ def detect_program_batch(
 
     ``params`` is the port's state_dict (``utils.checkpoint.params_from_flat``);
     ``imgs`` a numpy array or tensor, uint8 or float in [0, 255].  Returns
-    ``(res, logits)``: the ``postprocess_batch_fused`` dict and the
+    ``(res, logits)``: the ``postprocess_batch_fused`` dict (or, with
+    ``fused=False``, the XLA route's ``postprocess_batch`` dict) and the
     (B, H/4, W/4, C) f32 logits, or ``(res, None)`` with
     ``detections_only=True``.  Runs on ``device`` (default the card).
     """
-    _check_route(cfg, tuple(out_hw), fused, n_strips, qparams, mesh)
+    _check_route(cfg, tuple(out_hw), n_strips, qparams, mesh)
     dev = resolve_device(device)
     x = torch.as_tensor(imgs).to(dev)
     params = {k: v.to(dev) for k, v in params.items()}
@@ -110,15 +150,8 @@ def detect_program_batch(
         raw = tuple(x.shape[1:]) == tuple(out_hw)
         if not raw:
             x = normalize(resize_bilinear(x, tuple(out_hw)))
-        if cfg.separable_context:
-            logits = fused_model_apply(params, x[..., None], cfg, raw_gray=raw)
-        else:
-            if raw:
-                x = normalize(x)
-            model = get_model(cfg).to(dev)
-            model.load_state_dict(params)
-            logits = model(x[..., None])
-        res = postprocess_batch_fused(logits, cfg)
+        logits = _trunk(params, x, cfg, raw)
+        res = (postprocess_batch if fused is False else postprocess_batch_fused)(logits, cfg)
     if detections_only:
         return res, None
     return res, logits
@@ -141,13 +174,14 @@ class BarcodeDetector:
         self.channel_order = channel_order
 
     def detect(self, image: np.ndarray) -> list[Detection]:
+        """The image's detections through ``detect_program`` (exact rects),
+        in input-image coordinates."""
         h, w = image.shape[:2]
         out_hw = self.cfg.grid_size(h, w)
-        res, _ = detect_program_batch(
-            self.params, np.asarray(image)[None], self.cfg, out_hw,
-            self.channel_order, detections_only=True, device=self.device,
+        res, _ = detect_program(
+            self.params, image, self.cfg, out_hw, self.channel_order, device=self.device
         )
-        res = {k: v[0].cpu().numpy() for k, v in res.items()}
+        res = {k: v.cpu().numpy() for k, v in res.items()}
         # grid -> original resolution rescale (exact when no resize happened)
         rescale = np.array([w / out_hw[1], h / out_hw[0]], np.float32)
         out = []
@@ -168,3 +202,12 @@ class BarcodeDetector:
                 )
             )
         return out
+
+    def heatmap(self, image: np.ndarray) -> np.ndarray:
+        """Detection-probability heatmap at 1/scale resolution (debug/eval)."""
+        h, w = image.shape[:2]
+        out_hw = self.cfg.grid_size(h, w)
+        _, logits = detect_program(
+            self.params, image, self.cfg, out_hw, self.channel_order, device=self.device
+        )
+        return torch.sigmoid(logits[..., 0]).cpu().numpy()

@@ -32,6 +32,10 @@ from ubdvss_tpu_torch.ops.cuda.ccl_kernel import _shift
 
 # largest feature map the f32 route serves (the JAX package's Pallas gate)
 MAX_FEATURE_AREA = 128 * 128
+# the context kernel's compiled channel counts and its head's output bound
+# (csrc/context_kernel.cu)
+KERNEL_CHANNELS = (8, 16, 24, 32)
+MAX_HEAD_OUTPUTS = 32
 
 
 def _pack_weights(params: dict, dilations) -> tuple:
@@ -100,8 +104,11 @@ def fused_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations) -> torch.Tensor:
         _build.check_input(t, name, torch.float32, len(shape), dev)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
-    if C not in (8, 16, 24, 32) or O > 32:
-        raise ValueError(f"context kernel takes C in (8, 16, 24, 32) and O <= 32, got {C}, {O}")
+    if C not in KERNEL_CHANNELS or O > MAX_HEAD_OUTPUTS:
+        raise NotImplementedError(
+            f"C={C}, O={O}: the context kernel is compiled for C in {KERNEL_CHANNELS} "
+            f"and O <= {MAX_HEAD_OUTPUTS} (ROADMAP.md §2a)"
+        )
     lib = _build.load("context_kernel", _FUNCS)
     bufs = [torch.empty_like(x_nchw), torch.empty_like(x_nchw)] if L > 1 else []
     out = torch.empty((B, O, H, W), dtype=torch.float32, device=dev)

@@ -13,9 +13,9 @@ Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
     background pixels take slot K-1 and every padding slot carries the
     background's extremes; ``postprocess_batch_fused`` masks them by
     ``rootvals``.
-  * ``geometry_compat`` — CCL, slots and stats as one kernel per image
-    (K12c, ``_geometry_kernel_compat``), the same outputs as slots after
-    CCL, stats bit for bit.
+  * ``geometry_compat`` — CCL, slots and stats as one kernel (K12c,
+    ``_geometry_kernel_compat``; a cluster of two blocks per image), the
+    same outputs as slots after CCL, stats bit for bit.
   * ``component_geometry`` — CCL (``ccl_kernel``) then slots, or, when
     ``UBDVSS_PALLAS_COMPAT`` is ``"1"``, ``geometry_compat``: the JAX
     package's compat switch with its meaning.  The JAX package reads it
@@ -138,7 +138,8 @@ def _check_logits(logits: torch.Tensor) -> None:
         raise ValueError(f"logits: expected 3 or 4 dims, got shape {tuple(logits.shape)}")
     if logits.shape[-1] > MAX_CHANNELS:
         raise NotImplementedError(
-            f"{logits.shape[-1]} logit channels: the stats kernels take at most {MAX_CHANNELS}"
+            f"{logits.shape[-1]} logit channels: the stats kernels take at most "
+            f"{MAX_CHANNELS} (ROADMAP.md §2a)"
         )
 
 
@@ -146,14 +147,20 @@ def _check_logits(logits: torch.Tensor) -> None:
 SLOT_CTAS = 2
 
 
+def geometry_smem_words(H: int, W: int, K: int) -> int:
+    """Shared-memory words of one K12c block besides its stats partials:
+    the labels of its half of the rows, the roots, its own ranked roots and
+    their count, the (K, H) extremes (csrc/geometry_kernel.cu)."""
+    return (H + 1) // 2 * W + 2 * K + 1 + 2 * K * H
+
+
 def stats_warps(H: int, W: int, K: int, C: int) -> int:
-    """Warps of a K2 block and of a K12c block: each K2 warp keeps one stats
-    partial set, each K12c warp the SLOT_CTAS sets of K2's warps it stands
-    for.  As many as K12c's shared memory leaves room for, at most 32 and at
-    least 1.  K2 takes the same count, which fixes the order of the stats'
-    sums, so that both kernels' stats agree bit for bit."""
-    free = MAX_SHARED_BYTES - 1024 - (H * W + K + 2 * K * H) * 4
-    return max(1, min(32, free // (SLOT_CTAS * K * (C + 1) * 4)))
+    """Warps of a K2 block and of a K12c block, each warp keeping one stats
+    partial set: as many as K12c's shared memory leaves room for, at most
+    32 and at least 1.  Both kernels take the same count, which fixes the
+    order of the stats' sums, so that they agree bit for bit."""
+    free = MAX_SHARED_BYTES - 1024 - geometry_smem_words(H, W, K) * 4
+    return max(1, min(32, free // (K * (C + 1) * 4)))
 
 
 def _empty_outputs(B: int, H: int, W: int, K: int, C: int, dev) -> dict:
@@ -223,7 +230,7 @@ def geometry_compat_reference(
 
 
 _GEO_FUNCS = {
-    "geometry_compat": [_build.P] + _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
+    "geometry_compat": _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
     + [_build.F, _build.I, _build.P]
 }
 
@@ -232,10 +239,10 @@ def geometry_compat(
     logits: torch.Tensor, max_components: int, threshold: float = 0.5,
     connectivity: int = 8,
 ) -> dict:
-    """(B, H, W) detection logits or (B, H, W, C) logits -> the slots and
-    stats outputs, CCL and slots fused in one kernel (K12c, one block per
-    image, the label map kept in shared memory between the two phases;
-    union-find with no round cap, as K1).
+    """(B, H, W) detection logits or (B, H, W, C) logits at any strides ->
+    the slots and stats outputs, CCL and slots fused in one kernel (K12c, a
+    cluster of SLOT_CTAS blocks per image, each holding half of the label
+    rows in shared memory; union-find with no round cap, as K1).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.
@@ -249,17 +256,16 @@ def geometry_compat(
     B, H, W, C = logits.shape
     K = max_components
     nw = stats_warps(H, W, K, C)
-    if (H * W + K + 2 * K * H + SLOT_CTAS * nw * K * (C + 1)) * 4 > MAX_SHARED_BYTES:
+    if (geometry_smem_words(H, W, K) + nw * K * (C + 1)) * 4 > MAX_SHARED_BYTES:
         raise NotImplementedError(
-            f"a {H}x{W} label map and K={K} x H extremes exceed one block's "
+            f"half of a {H}x{W} label map and K={K} x H extremes exceed one block's "
             "shared memory (large scans: ROADMAP.md §1 item 7)"
         )
-    det = logits[..., 0].contiguous()  # the CCL phase reads a dense plane
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
     _build.launch(
-        lib, "geometry_compat", logits.device, det.data_ptr(), logits.data_ptr(),
-        *logits.stride(), C, *(t.data_ptr() for t in out.values()),
+        lib, "geometry_compat", logits.device, logits.data_ptr(), *logits.stride(), C,
+        *(t.data_ptr() for t in out.values()),
         B, H, W, K, 32 * nw, threshold_logit(threshold), connectivity,
     )
     geometry_compat.launches += 1

@@ -21,10 +21,9 @@ p0y; ``rects_from_selection`` turns them into corners, centre, size, angle.
 
 ``min_area_rect_select_reference`` mirrors the JAX lockstep deletion rounds
 vectorised over components.  The CUDA kernels (``csrc/rect_kernel.cu``)
-reach the same points another way — K3 runs at most 4 lockstep rounds
-and then keeps a row whose largest slope back is at most its smallest
-slope forward, K3x runs a monotone stack per chain — so comparing them
-with it also checks that claim.  ``UBDVSS_PALLAS_COMPAT=1`` makes the JAX
+reach the same points another way — at most 4 lockstep rounds, then a
+row stays iff its largest slope back is at most its smallest slope
+forward — so comparing them with it also checks that claim.  ``UBDVSS_PALLAS_COMPAT=1`` makes the JAX
 kernels convexify the two chains one after the other instead of in
 lockstep; that keeps the same points, so it changes nothing here.
 """
@@ -226,8 +225,9 @@ _FUNCS = {
     "rect_select": [_build.P] * 3 + [_build.I] * 4 + [_build.P],
     "rect_select_exact": [_build.P] * 3 + [_build.I] * 3 + [_build.P],
 }
-# 2H directions, one thread each, in one block (1024 threads)
-MAX_EXACT_HEIGHT = 512
+# the uncompacted kernel's rows, points and directions fill 119 KB of one
+# block's shared memory at this height (csrc/rect_kernel.cu)
+MAX_EXACT_HEIGHT = 1024
 
 
 def _check_extremes(minx: torch.Tensor, maxx: torch.Tensor) -> None:
@@ -278,9 +278,10 @@ def min_area_rect_exact(minx: torch.Tensor, maxx: torch.Tensor) -> torch.Tensor:
     _check_extremes(minx, maxx)
     if H > MAX_EXACT_HEIGHT:
         raise NotImplementedError(
-            f"H={H} > {MAX_EXACT_HEIGHT}: the uncompacted rect kernel runs one "
-            "thread per direction (2H) in one block; taller extremes are the "
-            "large-scan regime, ROADMAP.md §1 item 7"
+            f"H={H} > {MAX_EXACT_HEIGHT}: a component's rows, points and 2H "
+            "directions exceed one block's shared memory in the uncompacted "
+            "rect kernel; taller extremes are the large-scan regime, "
+            "ROADMAP.md §1 item 7"
         )
     lib = _build.load("rect_kernel", _FUNCS)
     out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)

@@ -1,14 +1,25 @@
-"""Heatmap -> rectangles postprocessing on the fused kernel route.
+"""Heatmap -> rectangles postprocessing: the fused route and the XLA route's
+entry points.
 
-Counterpart of ``postprocess_batch_fused`` (``ubdvss_tpu/ops/postproc.py``):
-sigmoid threshold -> connected components -> the K smallest components
-(raster order) -> areas, mean detection probability, mean class
-probabilities -> minimum-area rectangle per component -> rects scaled by
-``cfg.scale`` back to input-image coordinates.  Outputs are fixed-size
-K-slot tensors plus a ``valid`` mask, exactly as the JAX package returns.
+Counterpart of ``ubdvss_tpu/ops/postproc.py``: sigmoid threshold ->
+connected components -> the K smallest components (raster order) -> areas,
+mean detection probability, mean class probabilities -> minimum-area
+rectangle per component -> rects scaled by ``cfg.scale`` back to
+input-image coordinates.  Outputs are fixed-size K-slot tensors plus a
+``valid`` mask, exactly as the JAX package returns.
 
-The XLA route (``postprocess`` / ``postprocess_batch`` over ``ops/ccl.py``
-and ``ops/rect.py``) is not ported yet (ROADMAP.md §1 item 4).
+  * ``postprocess_batch_fused`` — the fused route: K1 -> K2 -> the rect
+    kernel the JAX package picks by ``max_hull_points`` (K3 when M < H, the
+    uncompacted K3x otherwise).
+  * ``postprocess`` / ``postprocess_batch`` — the XLA route's entry points,
+    one image or a batch.  The JAX package fits each rect exactly from
+    every row's extremes (``min_area_rect_from_mask_stack``); that is what
+    K3x computes, so here they run K1 -> K2 -> K3x with no hull cap.  The
+    XLA internals (``label_propagation``, ``monotone_chain_hull``, the
+    mask-stack rect) are not ported (ROADMAP.md §1 item 4): the kernels
+    give the same labels, sums and rects.
+
+On the CPU every kernel takes its plain version.
 """
 
 from __future__ import annotations
@@ -23,26 +34,13 @@ from ubdvss_tpu_torch.ops.cuda.rect_kernel import (
 )
 
 
-def postprocess_batch_fused(
-    logits: torch.Tensor, cfg: NetConfig, connectivity: int = 8
+def _postprocess(
+    logits: torch.Tensor, cfg: NetConfig, connectivity: int, max_points: int | None
 ) -> dict:
-    """(B, Ho, Wo, C) NHWC logits -> dict of (B, K, ...) detection tensors.
-
-    Keys: boxes (B, K, 4, 2), center, size, angle_deg, classes, class_probs,
-    scores, areas, valid, num_detections (B,), num_components_total (B,).
-    """
+    """(B, Ho, Wo, C) NHWC logits -> dict of (B, K, ...) detection tensors,
+    the rects fitted with ``max_points`` hull points a chain (None: all)."""
     B, Ho, Wo, C = logits.shape
     K = cfg.max_components
-    # the rect gate of the JAX package (ops/postproc.py:190-207): the rect
-    # kernels serve M < H, and M >= H up to H = 128 (the uncompacted K3x);
-    # beyond that it fits the rects with its XLA compact caliper
-    if cfg.max_hull_points >= Ho > 128:
-        raise NotImplementedError(
-            f"max_hull_points={cfg.max_hull_points} >= heatmap height {Ho} > 128 "
-            "takes the XLA compact caliper (ops/rect.py::"
-            "min_area_rect_from_extremes_compact) instead of K3x in the JAX "
-            "package; the XLA route is not ported: ROADMAP.md §1 item 4"
-        )
     stats = component_stats_from_logits(
         logits, max_components=K, threshold=cfg.detection_threshold,
         connectivity=connectivity,
@@ -64,7 +62,7 @@ def postprocess_batch_fused(
         classes = torch.zeros((B, K), dtype=torch.int32, device=logits.device)
         class_probs = torch.ones((B, K, 1), dtype=torch.float32, device=logits.device)
 
-    sel = min_area_rect_select(stats["minx"], stats["maxx"], cfg.max_hull_points)
+    sel = min_area_rect_select(stats["minx"], stats["maxx"], max_points)
     rects = rects_from_selection(sel)
     rv = root_valid
     points = torch.where(rv[..., None, None], rects["points"], 0.0)
@@ -87,3 +85,30 @@ def postprocess_batch_fused(
         "num_detections": final_valid.sum(-1).to(torch.int32),
         "num_components_total": stats["num_components_total"],
     }
+
+
+def postprocess_batch_fused(
+    logits: torch.Tensor, cfg: NetConfig, connectivity: int = 8
+) -> dict:
+    """(B, Ho, Wo, C) NHWC logits -> dict of (B, K, ...) detection tensors.
+
+    Keys: boxes (B, K, 4, 2), center, size, angle_deg, classes, class_probs,
+    scores, areas, valid, num_detections (B,), num_components_total (B,).
+    The rects take K3 with M = ``cfg.max_hull_points`` < Ho, else K3x.  The
+    JAX package serves M >= Ho > 128 by its XLA compact caliper at M = Ho,
+    which is exact too, so K3x gives the same rects there.
+    """
+    return _postprocess(logits, cfg, connectivity, cfg.max_hull_points)
+
+
+def postprocess_batch(logits: torch.Tensor, cfg: NetConfig, connectivity: int = 8) -> dict:
+    """The XLA route over a batch: (B, Ho, Wo, C) logits -> the dict of
+    ``postprocess_batch_fused``, every rect exact (K3x, no hull cap)."""
+    return _postprocess(logits, cfg, connectivity, None)
+
+
+def postprocess(logits: torch.Tensor, cfg: NetConfig, connectivity: int = 8) -> dict:
+    """One image's (Ho, Wo, C) logits -> the XLA route's dict: boxes (K, 4,
+    2), center, size, angle_deg, classes, class_probs, scores, areas, valid
+    (K, ...), num_detections and num_components_total ()."""
+    return {k: v[0] for k, v in postprocess_batch(logits[None], cfg, connectivity).items()}

@@ -90,6 +90,13 @@ def to_grayscale_batch(imgs: torch.Tensor, channel_order: str = "rgb") -> torch.
     return x
 
 
+def preprocess(
+    img: torch.Tensor, out_hw: tuple[int, int], channel_order: str = "rgb"
+) -> torch.Tensor:
+    """One (H, W[, C]) image -> (H', W', 1) normalized grayscale f32."""
+    return preprocess_batch(img[None], out_hw, channel_order)[0]
+
+
 def preprocess_batch(
     imgs: torch.Tensor, out_hw: tuple[int, int], channel_order: str = "rgb"
 ) -> torch.Tensor:

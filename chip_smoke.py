@@ -21,8 +21,15 @@ them.  Phases, each of which raises on failure:
      (compacted at M = 1, 8, 64 and H-1, and uncompacted, also one image
      at a time as detect calls it) within 1e-4 (or
      the same rectangle on an exact caliper tie) with any_edge identical, the context module within 1e-4 with TF32 off at the main
-     path's (64, 24, 128, 128) and the QVGA stream's (64, 24, 60, 80)
-     features, one launch a layer;
+     path's (64, 24, 128, 128), the QVGA stream's (64, 24, 60, 80) and
+     the large scans' (8, 24, 512, 512) features, one launch a layer;
+     then the large maps: the device-memory CCL on the 2048² scans' 512²
+     maps (with the adversarial maps at 512²) and the 4096² scan's 1024²
+     map, labels identical; the tiled slots kernel on both at K=64, slot
+     outputs and areas identical, means within 2e-6 of the plain one-hot
+     sums taken in f64, two launches bit for bit; the compacted rect at
+     H=512 and 1024 (M=64) and the uncompacted one at the three detect
+     sizes' heatmaps;
   3. the paths, each driven with every launch counter set to 0 just before
      and read just after:
      a. the main path: assets/pretrained_synthetic.npz through
@@ -49,6 +56,24 @@ them.  Phases, each of which raises on failure:
         route's exact rects; context, CCL, slots and the uncompacted rect
         kernel must have launched and the compacted one not; detections
         equal to the same calls through the plain versions on the host CPU;
+     e. large scans: the asset's own NetConfig (K=64, M=64, f32), B=8
+        synthetic 2048x2048 uint8 scans (seed 11, as
+        tests/test_inference.py:117), detect_program_batch: context,
+        the device-memory CCL, the tiled slots kernel and the compacted
+        rect kernel must have launched, and the one-block CCL, the cluster
+        slots kernel, the fused geometry and the uncompacted rect not;
+        the first 2 scans' detections equal to the plain route on the
+        host CPU;
+     f. one 4096x4096 scan (a 1024² heatmap, the compacted rect at
+        H=1024), the same kernels, equal to the plain route on the host
+        CPU;
+     g. BarcodeDetector.detect and detect_program with the asset's
+        NetConfig on a 640x480, a 1024x768 and a 1024x1024 image
+        (120x160, 192x256 and 256x256 heatmaps): context, a CCL, a slots
+        kernel and the uncompacted rect on each call, the device-memory
+        CCL and the tiled slots kernel exactly where the map exceeds one
+        block's shared memory (256x256); equal to the plain route on the
+        host CPU;
   4. timing with CUDA events (median of 10 samples of 10 back-to-back calls,
      after warm-up): img/s of the main path, frames/s of the stream (the
      whole process() of 256 frames, median of 3), each kernel's ms beside
@@ -59,7 +84,9 @@ them.  Phases, each of which raises on failure:
      one detect call; then a torch.profiler breakdown of the main path's
      device time by kernel, which must hold no stats row (cuBLAS gemv or
      gemm, one-hot compare, sigmoid, softmax), and the device's busy share
-     of the path's time.
+     of the path's time; the same for the large scans (scans/s, device
+     ms a batch, the profile), the 4096² scan and one detect call at each
+     of the three sizes.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -83,13 +110,24 @@ REPO = Path(__file__).resolve().parent
 B, IMG, K, M = 64, 512, 16, 64
 SEED = 7
 QVGA, N_FRAMES = (240, 320), 256
+SCAN, B_SCAN, SCAN_SEED = 2048, 8, 11  # large scans (tests/test_inference.py:117)
+BIG_SCAN = 4096
+DETECT_HW = ((480, 640), (768, 1024), (1024, 1024))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (no tensor cores)
 ITERS, REPS, WARMUP = 10, 10, 2
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name: str) -> None:
+    """One line at the start of each phase, with the seconds since start."""
+    log(f"== {name} ({time.perf_counter() - T0:.1f} s)")
 
 
 def time_ms(fn, iters=ITERS, reps=REPS, warmup=WARMUP) -> float:
@@ -216,16 +254,34 @@ def check_rect_rows(out, ref, atol=1e-4) -> tuple[float, int]:
     return err, int(flips.sum())
 
 
-def check_stats(out, ref, name, atol=2e-6) -> float:
+def exact_stats(logits, slots, K) -> dict:
+    """The plain version's det_sums and cls_sums summed in f64: at a few
+    hundred thousand pixels a component the f32 one-hot products drift from
+    the exact sum by more than the kernels' own rounding."""
+    import torch
+
+    B, H, W, C = logits.shape
+    idx = slots.reshape(B, H * W).long()
+    det = torch.sigmoid(logits[..., 0].double()).reshape(B, H * W)
+    cls = torch.softmax(logits[..., 1:].double(), -1).reshape(B, H * W, C - 1)
+    d = torch.zeros((B, K + 1), dtype=torch.float64, device=logits.device).scatter_add_(1, idx, det)
+    c = torch.zeros((B, K + 1, C - 1), dtype=torch.float64, device=logits.device).scatter_add_(
+        1, idx[..., None].expand(-1, -1, C - 1), cls)
+    return {"det_sums": d[:, :K], "cls_sums": c[:, :K]}
+
+
+def check_stats(out, ref, name, atol=2e-6, exact=None) -> float:
     """Slot outputs and areas identical; det_sums / areas and cls_sums /
-    areas within atol (f32 sums in another order).  Returns the max error
+    areas within atol (f32 sums in another order) of the plain version's,
+    or of ``exact`` (``exact_stats``) where given.  Returns the max error
     of the means."""
     for key in ("rootvals", "slots", "minx", "maxx", "num_components_total", "areas"):
         if not out[key].equal(ref[key]):
             raise AssertionError(f"{name}: {key} differs from the plain version")
-    area = ref["areas"].clamp(min=1)
-    err = max(float((out["det_sums"] / area - ref["det_sums"] / area).abs().max()),
-              float((out["cls_sums"] / area[..., None] - ref["cls_sums"] / area[..., None])
+    want = ref if exact is None else exact
+    area = ref["areas"].clamp(min=1).to(want["det_sums"].dtype)
+    err = max(float((out["det_sums"] / area - want["det_sums"] / area).abs().max()),
+              float((out["cls_sums"] / area[..., None] - want["cls_sums"] / area[..., None])
                     .abs().max()))
     if not err <= atol:
         raise AssertionError(f"{name}: stats means max|err| {err} > {atol}")
@@ -353,8 +409,19 @@ def main() -> int:
     reader_q = SyntheticMarkupReader(n_samples=N_FRAMES, image_hw=QVGA, seed=SEED)
     frames = np.stack([reader_q.sample_at(i).image for i in range(N_FRAMES)])
     dil = tuple(cfg.dilations)
+    # the large scans and the photos take the asset's own config: K=64, M=64
+    cfg_l = load_net_config(asset)
+    K_l, M_l = cfg_l.max_components, cfg_l.max_hull_points
+    dil_l = tuple(cfg_l.dilations)
+    reader_l = SyntheticMarkupReader(n_samples=B_SCAN, image_hw=(SCAN, SCAN), seed=SCAN_SEED)
+    scans = np.stack([reader_l.sample_at(i).image for i in range(B_SCAN)])
+    big = SyntheticMarkupReader(
+        n_samples=1, image_hw=(BIG_SCAN, BIG_SCAN), seed=SCAN_SEED).sample_at(0).image[None]
+    photos = [SyntheticMarkupReader(n_samples=1, image_hw=hw, seed=SEED).sample_at(0).image
+              for hw in DETECT_HW]
 
     # --- 2. each kernel against its plain version on the card ---
+    phase("kernel checks")
     with torch.inference_mode(), exact_f32():
         feat = stem_apply(params_d, imgs_d.float()[..., None], cfg, raw_gray=True)
         xc = feat.permute(0, 3, 1, 2).contiguous()  # (B, 24, 128, 128)
@@ -454,7 +521,67 @@ def main() -> int:
             log(f"check rect_exact {name}: (B,K,H)={tuple(mn.shape)}, rows max|err| "
                 f"{e:.3g} <= 1e-4, any_edge identical, {f} exact-tie flips (same rectangle)")
 
+        # the large maps: the 2048² scans' 512² maps and the 4096² scan's
+        # 1024² map, from the stem and the context kernel on the card
+        phase("large-map kernel checks")
+        scans_d = torch.from_numpy(scans).to(dev)
+        xl = stem_apply(params_d, scans_d.float()[..., None], cfg_l, raw_gray=True)
+        xl = xl.permute(0, 3, 1, 2).contiguous()  # (8, 24, 512, 512)
+        w_l = _pack_weights(params_d, dil_l)
+        ctx_l = context_kernel.fused_context_head(xl, *w_l, dil_l)
+        err_ctx_l = float((ctx_l - context_kernel.context_head_reference(xl, *w_l, dil_l))
+                          .abs().max())
+        if not err_ctx_l <= 1e-4:
+            raise AssertionError(f"context kernel at the large scans' shape: {err_ctx_l} > 1e-4")
+        err_ctx = max(err_ctx, err_ctx_l)
+        log(f"check context_layer: (B,C,H,W)={tuple(xl.shape)} max|err| {err_ctx_l:.3g} <= 1e-4")
+        lg_l = ctx_l.permute(0, 2, 3, 1)  # the head's NHWC view
+        det_l = ctx_l[:, 0].contiguous()
+        lg_big = fused_model_apply(params_d, torch.from_numpy(big).to(dev).float()[..., None],
+                                   cfg_l, raw_gray=True)  # (1, 1024, 1024, 17)
+        large_maps = {"512²": (torch.cat([det_l, torch.from_numpy(adversarial_maps(512)).to(dev)]),
+                               lg_l),
+                      "1024²": (lg_big[..., 0].contiguous(), lg_big)}
+        err_slots_l, err_rect_l = 0.0, 0.0
+        for name, (maps_l, lg_) in large_maps.items():
+            for conn in (4, 8):
+                lab_k = ccl_kernel.ccl_labels_tiled(maps_l, connectivity=conn)
+                lab_p = ccl_kernel.ccl_labels_reference(maps_l, connectivity=conn)
+                if not torch.equal(lab_k, lab_p):
+                    bad = (lab_k != lab_p).flatten(1).any(1).nonzero().flatten().tolist()
+                    raise AssertionError(f"ccl_tiled {name} ({conn}-conn): labels differ in {bad}")
+            log(f"check ccl_tiled: {tuple(maps_l.shape)} 8- and 4-connected labels identical")
+            lab = lab_p[: lg_.shape[0]]  # 8-connected; the adversarial maps hold no class planes
+            geo_k = postproc_kernel.component_slots_tiled(lg_, lab, K_l)
+            geo_p = postproc_kernel.component_slots_reference(lg_, lab, K_l)
+            e = check_stats(geo_k, geo_p, f"slots_tiled {name}",
+                            exact=exact_stats(lg_, geo_p["slots"], K_l))
+            err_slots_l = max(err_slots_l, e)
+            again = postproc_kernel.component_slots_tiled(lg_, lab, K_l)
+            if not all(torch.equal(geo_k[k], again[k]) for k in geo_k):
+                raise AssertionError(f"slots_tiled {name}: two launches differ")
+            log(f"check slots_tiled: {tuple(lg_.shape)} K={K_l}, slot outputs and areas identical"
+                f", means max|err| {e:.3g} <= 2e-6 of the f64 sums, two launches bit for bit equal")
+            sel_k = rect_kernel.min_area_rect_compact(geo_p["minx"], geo_p["maxx"], M_l)
+            sel_p = rect_kernel.min_area_rect_select_reference(geo_p["minx"], geo_p["maxx"], M_l)
+            e, flips = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
+            err_rect = max(err_rect, e)
+            log(f"check rect_compact: (B,K,H)={tuple(geo_p['minx'].shape)} M={M_l}, rows max|err| "
+                f"{e:.3g} <= 1e-4, any_edge identical, {flips} exact-tie flips (same rectangle)")
+        # the uncompacted rect on the detect calls' extremes (K=64)
+        for hw, img in zip(DETECT_HW, photos):
+            lg_1 = fused_model_apply(params_d, torch.from_numpy(img).to(dev).float()[None, ..., None],
+                                     cfg_l, raw_gray=True)
+            g = postproc_kernel.component_slots_from_logits(lg_1[..., 0].contiguous(), K_l)
+            sel_k = rect_kernel.min_area_rect_exact(g["minx"], g["maxx"])
+            sel_p = rect_kernel.min_area_rect_select_reference(g["minx"], g["maxx"], None)
+            e, f = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
+            err_exact = max(err_exact, e)
+            log(f"check rect_exact detect {hw[1]}x{hw[0]}: (B,K,H)={tuple(g['minx'].shape)}, rows "
+                f"max|err| {e:.3g} <= 1e-4, any_edge identical, {f} exact-tie flips")
+
     # --- 3a. the main path, counting launches ---
+    phase("main path")
     wrappers = {
         "context_layer": context_kernel.fused_context_head,
         "ccl": ccl_kernel.ccl_labels_from_logits,
@@ -462,7 +589,10 @@ def main() -> int:
         "geometry_compat": postproc_kernel.geometry_compat,
         "rect_compact": rect_kernel.min_area_rect_compact,
         "rect_exact": rect_kernel.min_area_rect_exact,
+        "ccl_tiled": ccl_kernel.ccl_labels_tiled,
+        "slots_tiled": postproc_kernel.component_slots_tiled,
     }
+    tiled = ["ccl_tiled", "slots_tiled"]  # not on the 128² and smaller maps
 
     def counted(run, must_launch, must_not):
         for f in wrappers.values():
@@ -477,7 +607,7 @@ def main() -> int:
     main_kernels = ["context_layer", "ccl", "slots", "rect_compact"]
     (res_d, logits_d), n_main = counted(
         lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), device="cuda"),
-        main_kernels, ["geometry_compat", "rect_exact"])
+        main_kernels, ["geometry_compat", "rect_exact", *tiled])
     launches = {k: n_main[k] for k in main_kernels}
     if n_main["context_layer"] != len(dil):
         raise AssertionError(f"main path: {n_main['context_layer']} context launches, "
@@ -507,10 +637,11 @@ def main() -> int:
         f"{skipped_cls} near-tie class ids left out")
 
     # --- 3b. the QVGA camera stream through StreamingDetector ---
+    phase("stream")
     stream = StreamingDetector(cfg_q, params, QVGA, batch_size=B, device="cuda")
     got, n_stream = counted(
         lambda: list(stream.process(iter(frames))),
-        ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat"])
+        ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat", *tiled])
     launches["rect_exact"] = n_stream["rect_exact"]
     if n_stream["context_layer"] != N_FRAMES // B * len(cfg_q.dilations):
         raise AssertionError(f"stream: {n_stream['context_layer']} context launches, expected "
@@ -539,6 +670,7 @@ def main() -> int:
         f"{skipped_s[1]} near-tie class ids left out")
 
     # --- 3c. the compat route: the main path with UBDVSS_PALLAS_COMPAT=1 ---
+    phase("compat route")
     def compat_path():
         old = os.environ.get("UBDVSS_PALLAS_COMPAT")
         os.environ["UBDVSS_PALLAS_COMPAT"] = "1"
@@ -552,7 +684,8 @@ def main() -> int:
                 os.environ["UBDVSS_PALLAS_COMPAT"] = old
 
     res_c, n_compat = counted(
-        compat_path, ["context_layer", "geometry_compat", "rect_compact"], ["ccl", "slots"])
+        compat_path, ["context_layer", "geometry_compat", "rect_compact"],
+        ["ccl", "slots", *tiled])
     launches["geometry_compat"] = n_compat["geometry_compat"]
     for k, v in res_c.items():
         if not torch.equal(v, res_d[k]):
@@ -561,6 +694,7 @@ def main() -> int:
 
     # --- 3d. single-image detection: detect and detect_program, the XLA
     # route's exact rects ---
+    phase("detect")
     n_scenes = 4
     det_d = BarcodeDetector(cfg, params, device="cuda")
     det_h = BarcodeDetector(cfg, params, device="cpu")
@@ -569,10 +703,11 @@ def main() -> int:
     for i in range(n_scenes):
         (res_1, lg_1), n_detect = counted(
             lambda: detect_program(params_d, imgs[i], cfg, (IMG, IMG), device="cuda"),
-            ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat"])
+            ["context_layer", "ccl", "slots", "rect_exact"],
+            ["rect_compact", "geometry_compat", *tiled])
         dets, n_detect2 = counted(lambda: det_d.detect(imgs[i]),
                                   ["context_layer", "ccl", "slots", "rect_exact"],
-                                  ["rect_compact", "geometry_compat"])
+                                  ["rect_compact", "geometry_compat", *tiled])
         launches["rect_exact_detect"] += n_detect["rect_exact"] + n_detect2["rect_exact"]
         ref_1, ref_lg_1 = detect_program(params, imgs[i], cfg, (IMG, IMG), device="cpu")
         lg_1 = lg_1.cpu().numpy()
@@ -598,7 +733,96 @@ def main() -> int:
         f"BarcodeDetector.detect on the card, launches of one call {n_detect}; {n_dets} "
         "detections, == the plain route on the host CPU")
 
+    # --- 3e. large scans: B=8 2048² scans, the asset's config ---
+    phase("large scans")
+    large_kernels = ["context_layer", "ccl_tiled", "slots_tiled", "rect_compact"]
+    not_large = ["ccl", "slots", "geometry_compat", "rect_exact"]
+    (res_l, logits_l), n_large = counted(
+        lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), device="cuda"),
+        large_kernels, not_large)
+    if n_large["context_layer"] != len(dil_l):
+        raise AssertionError(f"large scans: {n_large['context_layer']} context launches")
+    launches.update({k: n_large[k] for k in tiled})
+    res_l = {k: v.cpu().numpy() for k, v in res_l.items()}
+    logits_l = logits_l.cpu().numpy()
+    if not (np.isfinite(logits_l).all() and logits_l.shape == (B_SCAN, SCAN // 4, SCAN // 4, 17)):
+        raise AssertionError("large scans: logits not finite or of the wrong shape")
+    n_cmp = 2
+    t0 = time.perf_counter()
+    ref_l, ref_lg_l = detect_program_batch(params, scans[:n_cmp], cfg_l, (SCAN, SCAN), device="cpu")
+    t_cpu_l = time.perf_counter() - t0
+    err_lg_l = float(np.abs(logits_l[:n_cmp] - ref_lg_l.numpy()).max())
+    if not err_lg_l <= 1e-4:
+        raise AssertionError(f"large scans: logits differ from the plain route by {err_lg_l}")
+    skipped_l = compare_detections({k: v[:n_cmp] for k, v in res_l.items()},
+                                   {k: v.numpy() for k, v in ref_l.items()},
+                                   logits_l[:n_cmp, ..., 0], box_atol=4e-4, score_atol=1e-5)
+    n_det_l = int(res_l["num_detections"].sum())
+    n_det_cmp = int(res_l["num_detections"][:n_cmp].sum())
+    if skipped_l[0] or n_det_cmp == 0:
+        raise AssertionError(f"large scans: {skipped_l[0]} of the {n_cmp} compared scans left "
+                             f"out, {n_det_cmp} detections compared with the plain route")
+    log(f"large scans: B={B_SCAN} {SCAN}x{SCAN} uint8 f32 K={K_l} M={M_l}, launches {n_large}; "
+        f"{n_det_l} detections; all {n_cmp} compared scans ({n_det_cmp} detections) == plain "
+        f"route on the host CPU ({t_cpu_l:.1f} s): logits max|err| {err_lg_l:.3g}, "
+        f"{skipped_l[1]} near-tie class ids left out")
+
+    # --- 3f. one 4096² scan: a 1024² heatmap ---
+    phase("4096² scan")
+    (res_b, logits_b), n_big = counted(
+        lambda: detect_program_batch(params_d, big, cfg_l, (BIG_SCAN, BIG_SCAN), device="cuda"),
+        large_kernels, not_large)
+    res_b = {k: v.cpu().numpy() for k, v in res_b.items()}
+    logits_b = logits_b.cpu().numpy()
+    t0 = time.perf_counter()
+    ref_b, ref_lg_b = detect_program_batch(params, big, cfg_l, (BIG_SCAN, BIG_SCAN), device="cpu")
+    t_cpu_b = time.perf_counter() - t0
+    err_lg_b = float(np.abs(logits_b - ref_lg_b.numpy()).max())
+    if not (np.isfinite(logits_b).all() and err_lg_b <= 1e-4):
+        raise AssertionError(f"4096² scan: logits not finite or off the plain route by {err_lg_b}")
+    skipped_b = compare_detections(res_b, {k: v.numpy() for k, v in ref_b.items()},
+                                   logits_b[..., 0], box_atol=4e-4, score_atol=1e-5)
+    if skipped_b[0] or int(res_b["num_detections"].sum()) == 0:
+        raise AssertionError("4096² scan: no detection compared with the plain route")
+    log(f"4096² scan: {BIG_SCAN}x{BIG_SCAN} uint8, launches {n_big}; "
+        f"{int(res_b['num_detections'].sum())} detections == plain route on the host CPU "
+        f"({t_cpu_b:.1f} s): logits max|err| {err_lg_b:.3g}")
+
+    # --- 3g. detect at 640x480, 1024x768 and 1024x1024, the asset's config ---
+    phase("detect at three sizes")
+    det_l_d = BarcodeDetector(cfg_l, params, device="cuda")
+    det_l_h = BarcodeDetector(cfg_l, params, device="cpu")
+    detect_launches = {}
+    for hw, img in zip(DETECT_HW, photos):
+        gh, gw = cfg_l.grid_size(*hw)
+        big_map = (gh // 4) * (gw // 4) * 4 > ccl_kernel.MAX_SHARED_BYTES
+        must = ["context_layer", "rect_exact", *(tiled if big_map else ["ccl", "slots"])]
+        must_not = ["rect_compact", "geometry_compat", *(["ccl", "slots"] if big_map else tiled)]
+        (res_1, lg_1), n_1 = counted(
+            lambda: detect_program(params_d, img, cfg_l, (gh, gw), device="cuda"), must, must_not)
+        dets, n_2 = counted(lambda: det_l_d.detect(img), must, must_not)
+        detect_launches[f"{hw[1]}x{hw[0]}"] = n_2
+        ref_1, ref_lg_1 = detect_program(params, img, cfg_l, (gh, gw), device="cpu")
+        lg_1 = lg_1.cpu().numpy()
+        err_1 = float(np.abs(lg_1 - ref_lg_1.numpy()).max())
+        if not err_1 <= 1e-4:
+            raise AssertionError(f"detect {hw}: logits differ from the plain route by {err_1}")
+        skipped_1 = compare_detections({k: v.cpu().numpy()[None] for k, v in res_1.items()},
+                                       {k: v.numpy()[None] for k, v in ref_1.items()},
+                                       lg_1[None, ..., 0], box_atol=4e-4, score_atol=1e-5)
+        ref_dets = det_l_h.detect(img)
+        if skipped_1[0] or not dets or len(dets) != len(ref_dets):
+            raise AssertionError(f"detect {hw}: detections not compared or differ in number")
+        for o, r in zip(dets, ref_dets):
+            if (o.class_id, o.area) != (r.class_id, r.area) or abs(o.score - r.score) > 1e-5:
+                raise AssertionError(f"detect {hw}: a detection differs from the plain route")
+            if not same_corner_sets(o.box, r.box, 4e-4):
+                raise AssertionError(f"detect {hw}: a box differs from the plain route")
+        log(f"detect {hw[1]}x{hw[0]}: {gh // 4}x{gw // 4} heatmap, launches of one call {n_2}; "
+            f"{len(dets)} detections == the plain route on the host CPU")
+
     # --- 4. timing ---
+    phase("timing")
     with torch.inference_mode(), exact_f32():
         def run_path(images=imgs_d):
             return detect_program_batch(
@@ -731,6 +955,51 @@ def main() -> int:
                             px * 13 + stats_ops),
             ),
         ]
+        # the large scans' kernels at their path's shapes: B=8 512² maps, K=64
+        Bl, Hl, Wl = det_l.shape
+        px_l = Bl * Hl * Wl
+        lab_l = ccl_kernel.ccl_labels_tiled(det_l)
+        geo_l = postproc_kernel.component_slots_tiled(lg_l, lab_l, K_l)
+        in_slot_l = int((geo_l["slots"] < K_l).sum())
+        kernels += [
+            dict(
+                name="ccl_tiled", route="cuda", source="ubdvss_tpu_torch/csrc/ccl_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/ccl_kernel.py:116",
+                launches=launches["ccl_tiled"], max_abs_err=0.0,
+                ms=time_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l)),
+                device_ms=device_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l)),
+                plain_ms=time_ms(lambda: ccl_kernel.ccl_labels_reference(det_l), iters=3, reps=1),
+                library_ms=None,
+                bound=bound(px_l * 8, px_l * 9),  # logits in, labels out; one 3x3 pass
+            ),
+            dict(
+                name="slots_tiled", route="cuda",
+                source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130",
+                launches=launches["slots_tiled"], max_abs_err=err_slots_l,
+                ms=time_ms(lambda: postproc_kernel.component_slots_tiled(lg_l, lab_l, K_l)),
+                device_ms=device_ms(
+                    lambda: postproc_kernel.component_slots_tiled(lg_l, lab_l, K_l)),
+                plain_ms=time_ms(
+                    lambda: postproc_kernel.component_slots_reference(lg_l, lab_l, K_l),
+                    iters=3, reps=1),
+                library_ms=time_ms(
+                    lambda: postproc_kernel._stats_reference(lg_l, geo_l["slots"], K_l),
+                    iters=3, reps=1),
+                bound=bound(px_l * 12 + Bl * K_l * (2 * Hl + 1) * 4 + Bl * 4
+                            + in_slot_l * (O - 1) * 4 + Bl * K_l * (O + 1) * 4,
+                            px_l * 4 + in_slot_l * O * 8),
+            ),
+        ]
+        # the large scans' K3 (M=64, H=512) beside the main path's row
+        large_rect = {
+            "rect_compact_large_ms": time_ms(
+                lambda: rect_kernel.min_area_rect_compact(geo_l["minx"], geo_l["maxx"], M_l)),
+            "rect_compact_large_device_ms": device_ms(
+                lambda: rect_kernel.min_area_rect_compact(geo_l["minx"], geo_l["maxx"], M_l)),
+            "context_layer_large_device_ms": device_ms(
+                lambda: context_kernel.fused_context_head(xl, *w_l, dil_l), n=5),
+        }
     for kd in kernels:
         kd["bound_ms"], kd["bound_by"] = kd.pop("bound")
         log(f"time {kd['name']}: {kd['ms']:.4f} ms/call, device {kd['device_ms']:.4f} (plain "
@@ -770,6 +1039,48 @@ def main() -> int:
         "img_per_s_host_images": B / ms_path_host * 1e3, "plain_cpu_s": t_cpu,
     }))
     log(json.dumps(prof))
+
+    # the large scans, the 4096² scan and the detect calls at three sizes
+    phase("timing of the large scans and the detect sizes")
+    with torch.inference_mode():
+        scans_d = torch.from_numpy(scans).to(dev)
+        big_d = torch.from_numpy(big).to(dev)
+
+        def run_large(images=scans_d):
+            return detect_program_batch(params_d, images, cfg_l, (SCAN, SCAN),
+                                        detections_only=True, device="cuda")
+
+        ms_large = time_ms(run_large, iters=5, reps=3)
+        ms_large_host = time_ms(lambda: run_large(scans), iters=5, reps=3)
+        prof_large = profile_path(run_large, ms_large)
+        def run_big():
+            return detect_program_batch(params_d, big_d, cfg_l, (BIG_SCAN, BIG_SCAN),
+                                        detections_only=True, device="cuda")
+
+        ms_big = time_ms(run_big, iters=5, reps=2)
+        dev_big = device_ms(run_big, n=5)
+        detect_ms = {}
+        for hw, img in zip(DETECT_HW, photos):
+            detect_ms[f"{hw[1]}x{hw[0]}"] = {
+                "ms_per_image": time_ms(lambda: det_l_d.detect(img), iters=5, reps=3),
+                "device_ms_per_image": device_ms(lambda: det_l_d.detect(img), n=5),
+                "launches": detect_launches[f"{hw[1]}x{hw[0]}"],
+            }
+    log(json.dumps({
+        "path": "detect_program_batch fused f32, 2048x2048 uint8 scans on the card",
+        "batch": B_SCAN, "image": SCAN, "K": K_l, "M": M_l, "ms_per_batch": ms_large,
+        "scans_per_s": B_SCAN / ms_large * 1e3, "ms_per_batch_host_images": ms_large_host,
+        "scans_per_s_host_images": B_SCAN / ms_large_host * 1e3,
+        "plain_cpu_s_first_2": t_cpu_l, "launches": n_large, **large_rect,
+    }))
+    log(json.dumps({"large_scan_profile": prof_large}))
+    log(json.dumps({
+        "path": "detect_program_batch fused f32, one 4096x4096 uint8 scan on the card",
+        "ms_per_scan": ms_big, "device_ms_per_scan": dev_big, "launches": n_big,
+        "plain_cpu_s": t_cpu_b,
+    }))
+    log(json.dumps({"path": "BarcodeDetector.detect, one host image, the asset's config",
+                    "K": K_l, "sizes": detect_ms}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Parent against change for the port's uncompacted rect (K3x), fused
-compat geometry (K12c) and compacted rect (K3) kernels, on one CUDA card.
+"""Parent against change for the port's geometry kernels (CCL K1, slots
+K2, fused compat geometry K12c, compacted rect K3 and uncompacted rect
+K3x), on one CUDA card.
 
     python3 scripts/torch_kernel_ab.py --parent PARENT_TREE [--variants TREE ...] [--out FILE]
 
 PARENT_TREE is an unpacked earlier commit of this repository (for example
 ``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
-ignores).  Both trees' ``csrc/rect_kernel.cu``, ``geometry_kernel.cu``,
+ignores) whose C entry points take the same arguments as this tree's.
+Both trees' ``csrc/rect_kernel.cu``, ``geometry_kernel.cu``,
 ``ccl_kernel.cu`` and ``postproc_kernel.cu`` are built with this tree's
 nvcc flags into ``build/ab/`` and called through their C entry points on
 the same tensors, with preallocated outputs, in the order parent, change,
@@ -15,15 +17,18 @@ change, parent.  Each case reports the median of 15 CUDA-event samples of
 over 20 calls (``device_ms``, torch.profiler).
 
 Inputs: the asset's model on B=64 synthetic 512x512 scenes (seed 7, K=16)
-and on 64 QVGA 240x320 frames (seed 7).  Cases: K3x on the stream's
-extremes (B=64, H=60) and on four single images' extremes (B=1, H=128, as
-a detect call gives them); K3 at M=64 on the batch's extremes; K12c on the
-batch's logits against the parent's K12c (which reads a dense copy of the
-detection plane, made once outside the timing) and against CCL + slots.
-Before timing, the outputs are checked: K3x's and K3's rows identical
-between the trees, K12c's eight outputs identical to CCL + slots and to the
-parent's.  Each ``--variants`` tree (another ``csrc/rect_kernel.cu`` of the
-change, under its own directory name) has its K3x rows checked against the
+and on 64 QVGA 240x320 frames (seed 7).  Cases: K1 on the batch's 128²
+detection maps, on the stream's 60x80 maps and on one image's map (B=1,
+as a detect call gives it), and the change's device-memory K1
+(``ccl_labels_tiled``, timed in the change's turns) on the same maps; K3x
+on the stream's extremes (B=64, H=60) and on four single images' extremes
+(B=1, H=128); K3 at M=64 on the batch's extremes; K12c on the batch's
+logits and CCL + slots.  Before timing, the outputs are checked: K1's
+labels (both of the change's K1 entries), K3x's and K3's rows and K12c's
+eight outputs identical between the trees, and K12c's identical to CCL +
+slots.
+Each ``--variants`` tree (another ``csrc/rect_kernel.cu`` of the change,
+under its own directory name) has its K3x rows checked against the
 change's and timed in the change's turns.  Prints one JSON object and
 writes it to FILE (default ``build/ab/ab.json``); exits non-zero on a
 mismatch.
@@ -139,13 +144,9 @@ def main() -> int:
     det = lg[..., 0].contiguous()
     thr = ccl_kernel.threshold_logit(0.5)
     nw = postproc_kernel.stats_warps(H, W, K, C)
-    # the parent's K12c: one block, two partial sets a warp, the same count
-    nw_parent = max(1, min(32, (ccl_kernel.MAX_SHARED_BYTES - 1024 - (H * W + K + 2 * K * H) * 4)
-                           // (2 * K * (C + 1) * 4)))
     geo = postproc_kernel.component_slots_from_logits(det, K)
     geo_q = postproc_kernel.component_slots_from_logits(lg_q[..., 0].contiguous(), K)
-    res = {"card": smi, "B": B, "H": H, "W": W, "K": K, "C": C, "M": M,
-           "stats_warps": nw, "stats_warps_parent_k12c": nw_parent}
+    res = {"card": smi, "B": B, "H": H, "W": W, "K": K, "C": C, "M": M, "stats_warps": nw}
 
     extremes = {"stream_B64_H60": (geo_q["minx"], geo_q["maxx"])}
     singles = [(geo["minx"][b : b + 1].contiguous(), geo["maxx"][b : b + 1].contiguous())
@@ -170,27 +171,29 @@ def main() -> int:
 
     geo_out = {t: postproc_kernel._empty_outputs(B, H, W, K, C, dev)
                for t in ("parent", "change", "pair")}
-    labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    det_maps = {"main_B64_128": det, "stream_B64_60x80": lg_q[..., 0].contiguous(),
+                "detect_B1_128": det[:1].contiguous()}
+
+    def ccl(tag, name, entry="ccl_labels"):
+        d = det_maps[name]
+        lab = outs.setdefault(("k1", tag, name, entry),
+                              torch.empty(d.shape, dtype=torch.int32, device=dev))
+        check(getattr(libs[tag]["ccl_kernel"], entry)(
+            P(d.data_ptr()), P(lab.data_ptr()), *(I(n) for n in d.shape), F(thr), I(8),
+            stream()), f"{tag} {entry}")
+        return lab
 
     def k12c(tag):
         o = geo_out[tag]
-        ptrs = [P(t.data_ptr()) for t in o.values()]
-        strides = [L(s_) for s_ in lg.stride()]
-        if tag == "parent":
-            err = libs[tag]["geometry_kernel"].geometry_compat(
-                P(det.data_ptr()), P(lg.data_ptr()), *strides, I(C), *ptrs, I(B), I(H), I(W),
-                I(K), I(32 * nw_parent), F(thr), I(8), stream())
-        else:
-            err = libs[tag]["geometry_kernel"].geometry_compat(
-                P(lg.data_ptr()), *strides, I(C), *ptrs, I(B), I(H), I(W), I(K), I(32 * nw),
-                F(thr), I(8), stream())
-        check(err, f"{tag} geometry_compat")
+        check(libs[tag]["geometry_kernel"].geometry_compat(
+            P(lg.data_ptr()), *(L(s_) for s_ in lg.stride()), I(C),
+            *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(K), I(32 * nw), F(thr),
+            I(8), stream()), f"{tag} geometry_compat")
         return o
 
     def pair(tag="change"):
         lib = libs[tag]
-        check(lib["ccl_kernel"].ccl_labels(P(det.data_ptr()), P(labels.data_ptr()), I(B), I(H),
-                                           I(W), F(thr), I(8), stream()), "ccl")
+        labels = ccl(tag, "main_B64_128")
         o = geo_out["pair"]
         check(lib["postproc_kernel"].component_slots(
             P(lg.data_ptr()), *(L(s_) for s_ in lg.stride()), I(C), P(labels.data_ptr()),
@@ -198,7 +201,12 @@ def main() -> int:
             stream()), "slots")
         return o
 
-    # outputs first: identical rows, identical geometry
+    # outputs first: identical labels, rows and geometry
+    for name in det_maps:
+        if not torch.equal(ccl("parent", name), ccl("change", name)):
+            raise AssertionError(f"K1 labels differ between the trees on {name}")
+        if not torch.equal(ccl("change", name, "ccl_labels_tiled"), ccl("change", name)):
+            raise AssertionError(f"the device-memory K1 differs from the one-block K1 on {name}")
     for name, (mn, mx) in list(extremes.items()) + [
             (f"detect_image{b}", s_) for b, s_ in enumerate(singles)]:
         a, b_ = rect_exact("parent", mn, mx).clone(), rect_exact("change", mn, mx).clone()
@@ -225,6 +233,10 @@ def main() -> int:
             rect_exact(tag, mn, mx)
 
     cases = {
+        **{f"k1_{name}": (lambda t, n=name: ccl(t, n)) for name in det_maps},
+        # the change's device-memory K1 on the same maps (change's turns only)
+        **{f"k1_tiled_{name}": (lambda t, n=name: ccl(t, n, "ccl_labels_tiled"))
+           for name in det_maps},
         "k3x_stream_B64_H60": lambda t: rect_exact(t, *extremes["stream_B64_H60"]),
         "k3x_detect_B1_H128_4calls": detect_calls,
         "k3_main_M64": lambda t: rect_compact(t, geo["minx"], geo["maxx"]),
@@ -236,10 +248,11 @@ def main() -> int:
             for name, fn in cases.items():
                 if tag in variants and not name.startswith("k3x"):
                     continue
+                if tag == "parent" and name.startswith("k1_tiled"):
+                    continue
                 key = f"{name}_{tag}"
                 res.setdefault(key, []).append(time_ms(lambda: fn(tag)))
                 res.setdefault(key + "_device", []).append(device_ms(lambda: fn(tag)))
-    res["parent_det_plane_copy_device"] = device_ms(lambda: lg[..., 0].contiguous())
     print(json.dumps(res), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))

@@ -368,8 +368,9 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         ccl_kernel.ccl_labels_from_logits(lg.transpose(1, 2))
     with pytest.raises(TypeError, match="float32"):
         ccl_kernel.ccl_labels_from_logits(lg.double())
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        ccl_kernel.ccl_labels_from_logits(torch.zeros((1, 256, 256), device=dev))
+    # a map past one block's shared memory takes the device-memory kernel
+    big = torch.from_numpy(_maps(1, 1, 256, 256)).to(dev)
+    assert torch.equal(ccl_kernel.ccl_labels_from_logits(big), ccl_kernel.ccl_labels_reference(big))
     lab = ccl_kernel.ccl_labels_from_logits(lg)
     with pytest.raises(TypeError, match="int32"):
         postproc_kernel.component_slots(lg, lab.long(), 4)
@@ -581,3 +582,124 @@ def test_detector_on_card_matches_cpu(dev, asset):
         assert (o.class_id, o.area) == (r.class_id, r.area)
         assert abs(o.score - r.score) < 1e-5
         np.testing.assert_allclose(o.center, r.center, atol=1e-3)
+
+
+def _uncapped_labels(lg: np.ndarray, connectivity: int) -> np.ndarray:
+    """(B, H, W) logits -> the true components' min-index labels (H*W at
+    the background), from scipy.ndimage.label: no round cap, so it holds
+    the device-memory CCL on maps whose components the plain version's
+    H+W rounds would need long to reach."""
+    from scipy import ndimage
+
+    B, H, W = lg.shape
+    N = H * W
+    st = np.ones((3, 3), bool) if connectivity == 8 else ndimage.generate_binary_structure(2, 1)
+    out = np.empty((B, H, W), np.int32)
+    for b in range(B):
+        lab, n = ndimage.label(lg[b] > ccl_kernel.threshold_logit(0.5), structure=st)
+        mins = np.full(n + 1, N, np.int64)
+        np.minimum.at(mins, lab.ravel(), np.arange(N))
+        out[b] = np.where(lab > 0, mins[lab], N)
+    return out
+
+
+def _large_map(kind: str, B: int, H: int, W: int) -> np.ndarray:
+    if kind == "maps":  # blobs, noise, snake
+        return _maps(H + W, B, H, W)
+    if kind == "noise":
+        return np.random.default_rng(H * W).normal(0, 1, (B, H, W)).astype(np.float32)
+    if kind == "spiral":  # crosses every tile seam, one component
+        return np.broadcast_to(np.where(_spiral(H, W), 4.0, -4.0), (B, H, W)).astype(np.float32)
+    if kind == "checker":  # joins only at pixel (and tile) corners under 8-connectivity
+        return np.broadcast_to(
+            np.where(np.indices((H, W)).sum(0) % 2 == 0, 4.0, -4.0), (B, H, W)).astype(np.float32)
+    return np.full((B, H, W), 4.0 if kind == "full" else -4.0, np.float32)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("kind,shape", [
+    ("maps", (3, 256, 256)), ("maps", (3, 512, 512)), ("maps", (3, 1024, 1024)),
+    ("maps", (3, 257, 1000)), ("noise", (2, 1, 60000)), ("noise", (2, 60000, 1)),
+    ("spiral", (1, 301, 299)), ("checker", (1, 256, 320)), ("full", (2, 512, 512)),
+    ("empty", (1, 512, 512)), ("maps", (3, 128, 128)), ("maps", (4, 37, 53)),
+    ("maps", (64, 60, 80)),
+])
+def test_ccl_tiled_matches_uncapped_reference(dev, kind, shape, connectivity):
+    """The device-memory CCL against scipy's components (min-index labels):
+    256², 512², 1024², odd shapes past one block's shared memory, one-pixel
+    rows and columns, a spiral through every tile seam, the checkerboard,
+    full and empty maps; small maps too, where the router takes the
+    one-block kernel.  Labels identical; ccl_labels_from_logits takes the
+    tiled kernel exactly where the map exceeds one block's shared memory."""
+    lg = _large_map(kind, *shape)
+    ref = torch.from_numpy(_uncapped_labels(lg, connectivity)).to(dev)
+    t = torch.from_numpy(lg).to(dev)
+    out = ccl_kernel.ccl_labels_tiled(t, 0.5, connectivity)
+    assert torch.equal(out, ref)
+    ccl_kernel.ccl_labels_tiled.launches = 0
+    ccl_kernel.ccl_labels_from_logits.launches = 0
+    routed = ccl_kernel.ccl_labels_from_logits(t, 0.5, connectivity)
+    assert torch.equal(routed, ref)
+    big = shape[1] * shape[2] * 4 > ccl_kernel.MAX_SHARED_BYTES
+    assert (ccl_kernel.ccl_labels_tiled.launches, ccl_kernel.ccl_labels_from_logits.launches) == (
+        (1, 0) if big else (0, 1))
+
+
+def _stats_f64(lg: torch.Tensor, slots: torch.Tensor, K: int) -> dict:
+    """The plain version's stats, its one-hot products taken in f64 (at a
+    million pixels a component the f32 products drift from the exact sum
+    by more than the kernels' own rounding)."""
+    B, H, W, C = lg.shape
+    onehot = (slots.view(B, 1, H * W) == torch.arange(K, device=lg.device).view(1, K, 1)).double()
+    det = torch.sigmoid(lg[..., 0].double()).reshape(B, H * W, 1)
+    cls = torch.softmax(lg[..., 1:].double(), -1).reshape(B, H * W, C - 1)
+    return {"det_sums": torch.bmm(onehot, det)[..., 0], "cls_sums": torch.bmm(onehot, cls)}
+
+
+@pytest.mark.parametrize("H,W", [(256, 256), (512, 512), (1024, 1024), (512, 250), (300, 1000)])
+@pytest.mark.parametrize("K", [16, 64])
+def test_slots_tiled_matches_plain(dev, K, H, W):
+    """The tiled slots kernel against the plain version on blob (fewer than
+    K components: padding slots), noise (more than K) and snake maps: slot
+    outputs and areas identical, det_sums / areas and cls_sums / areas
+    within 2e-6 of the plain one-hot sums (in f64), two launches bit for
+    bit; component_slots takes it where K12c cannot run.  The non-square
+    maps' widths are no multiple of the pass block's threads, so lanes past
+    the last column and a partial last tile column run (out_hw=(2048, 1000)
+    gives the 512x250 heatmap)."""
+    lg = _head_logits(_maps(K + H, 3, H, W), 17, K, dev)
+    lab = torch.from_numpy(_uncapped_labels(lg[..., 0].cpu().numpy(), 8)).to(dev)
+    component_slots_tiled = postproc_kernel.component_slots_tiled
+    out = component_slots_tiled(lg, lab, K)
+    ref = postproc_kernel.component_slots_reference(lg, lab, K)
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], ref[key]), key
+    exact = _stats_f64(lg, ref["slots"], K)
+    area = ref["areas"].clamp(min=1).double()
+    torch.testing.assert_close(out["det_sums"] / area, exact["det_sums"] / area, atol=2e-6, rtol=0)
+    torch.testing.assert_close(out["cls_sums"] / area[..., None],
+                               exact["cls_sums"] / area[..., None], atol=2e-6, rtol=0)
+    again = component_slots_tiled(lg, lab, K)
+    for key in out:
+        assert torch.equal(out[key], again[key]), key
+    totals = ref["num_components_total"]
+    assert bool((totals < K).any()) and bool((totals > K).any())
+    component_slots_tiled.launches = postproc_kernel.component_slots.launches = 0
+    routed = postproc_kernel.component_slots(lg, lab, K)
+    fits = postproc_kernel.geometry_compat_fits(H, W, K, 17)
+    assert (component_slots_tiled.launches, postproc_kernel.component_slots.launches) == (
+        (0, 1) if fits else (1, 0))
+    assert torch.equal(routed["slots"], out["slots"])
+
+
+@pytest.mark.parametrize("H", [512, 1024])
+def test_rect_kernels_at_large_heights(dev, H):
+    """K3 (M=64) and K3x on K=64 synthetic extremes at the large scans'
+    heights (2048² and 4096² scans' heatmaps): any_edge identical, rows
+    within 1e-4."""
+    minx, maxx = (t.to(dev) for t in _synthetic_extremes(2, 64, H, H))
+    for M in (64, None):
+        out = rect_kernel.min_area_rect_select(minx, maxx, M)
+        ref = rect_kernel.min_area_rect_select_reference(minx, maxx, M)
+        assert torch.equal(out[:, 6], ref[:, 6])
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)

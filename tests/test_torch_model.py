@@ -146,8 +146,6 @@ def test_default_device_is_the_card():
         (dict(cfg=NetConfig(dtype="bfloat16")), "bf16"),
         (dict(qparams={}), "int8"),
         (dict(mesh=object()), "mesh"),
-        (dict(n_strips=2), "n_strips"),
-        (dict(out_hw=(1024, 1024)), "large-scan"),
     ],
 )
 def test_unported_routes_raise(kw, match):
@@ -164,6 +162,42 @@ def test_unported_routes_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         detect_program_batch(**args)
     assert "ROADMAP.md" in str(e.value)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        # row strips over a 576x576 scene (the whole trunk's logits)
+        dict(n_strips=2, in_hw=(576, 576), out_hw=(576, 576)),
+        # a 512x512 scene resized to 1024x1024: a 256x256 heatmap
+        dict(in_hw=(512, 512), out_hw=(1024, 1024)),
+    ],
+)
+def test_large_routes_are_served(kw):
+    """``n_strips`` and heatmaps past 128x128, which raised before the
+    large-scan slice, against the JAX package's detect_program_batch (its
+    XLA route on the CPU): logits within 1e-4; valid, areas and classes
+    identical, scores within 1e-5, boxes within 1e-4 as corner sets.
+    max_hull_points is past the heatmap's height, so both take exact
+    rects."""
+    from test_torch_postproc import assert_same_detections
+
+    from ubdvss_tpu.inference import detect_program_batch as jax_detect_program_batch
+
+    kw = dict(kw)
+    in_hw, out_hw = kw.pop("in_hw"), kw.pop("out_hw")
+    cfg, jcfg = NetConfig(max_hull_points=1024), JaxNetConfig(max_hull_points=1024)
+    reader = SyntheticMarkupReader(n_samples=1, image_hw=in_hw, seed=17)
+    imgs = np.stack([reader.sample_at(0).image])
+    _, jparams = _jax_asset(ASSETS["separable"])
+    ref, ref_logits = jax_detect_program_batch(jparams, jnp.asarray(imgs), jcfg, out_hw, fused=False)
+    ref_logits = np.asarray(ref_logits)
+    assert np.abs(ref_logits[..., 0]).min() > 1e-4
+    out, logits = detect_program_batch(
+        load_params(ASSETS["separable"]), imgs, cfg, out_hw, device="cpu", **kw)
+    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
+    assert int(ref["num_detections"].sum()) > 0
+    assert_same_detections(out, ref, score_atol=1e-5)
 
 
 @pytest.mark.parametrize(

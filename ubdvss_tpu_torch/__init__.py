@@ -10,6 +10,7 @@ plain PyTorch version beside it, which CPU tensors take.
 from ubdvss_tpu_torch.inference import (
     BarcodeDetector,
     Detection,
+    detect_preprocessed_batch,
     detect_program,
     detect_program_batch,
 )
@@ -30,6 +31,7 @@ __all__ = [
     "Detection",
     "NetConfig",
     "StreamingDetector",
+    "detect_preprocessed_batch",
     "detect_program",
     "detect_program_batch",
     "get_model",

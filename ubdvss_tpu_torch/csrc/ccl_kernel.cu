@@ -5,16 +5,44 @@
 // (logit > thr) holds the minimum linear index of its 8-connected (or
 // 4-connected) component, background holds H*W.
 //
-// One thread block per image; the whole int32 label map lives in dynamic
+// Two routes, chosen by the wrapper from the map's size:
+//
+// ccl_labels (one block a map): the whole int32 label map lives in dynamic
 // shared memory (64 KB at 128x128), where geometry::ccl_labels_shared
 // (geometry.cuh, shared with the fused K12c kernel) runs union-find in three
 // passes (initialise, merge by shared-memory atomicMin, flatten), however
-// long the components are.
+// long the components are.  Bound on this card: the input and output are
+// 8 B per pixel (8.4 MB at B=64, 128x128, ~2.5 us at 3.35 TB/s).  One block
+// per map puts 64 blocks on the 132 SMs at B=64, and the merge's find walks
+// and atomics run at shared-memory latency; even so it beats the tiled
+// kernel below on the batched 128² and 60x80 maps of the 512² path and the
+// QVGA stream (H100, scripts/torch_kernel_ab.py), so the wrapper keeps it
+// for every map it can hold.
 //
-// Bound on this card: the input and output are 8 B per pixel (8.4 MB at
-// B=64, 128x128, ~2.5 us at 3.35 TB/s).  One block per map puts 64 blocks
-// on the 132 SMs at B=64, and the merge's find walks and atomics run at
-// shared-memory latency.
+// ccl_labels_tiled (maps larger than one block's shared memory, 232,448 B
+// of labels: a 2048² scan's 512² map is 1 MiB, a 4096² scan's 4 MiB).  The
+// TPU kernel holds such a map in VMEM; here the labels live in device
+// memory and union-find runs in three launches (the block-based
+// union-find of Allegretti, Bolelli & Grana, IEEE TPDS 2019):
+//   1. tiles: one block a 32x64 tile labels it in shared memory with the
+//      same three passes, and writes each pixel the GLOBAL linear index of
+//      its tile-component's root.  Within a tile, raster order of (row,
+//      column) is the same locally and globally, so that root is the
+//      smallest global index of the tile-component;
+//   2. seams: one block a tile unites every foreground pixel on the tile's
+//      top row and left and right columns with each foreground neighbour
+//      that lies in another tile and comes earlier in raster order (W, N,
+//      and under 8-connectivity NW and NE, which reach the diagonal tiles
+//      at corners), by geometry::union_roots on device memory: atomicMin on
+//      roots, so a root is always the smaller index, and a union that finds
+//      its root relinked meanwhile retries from there;
+//   3. flatten: every foreground pixel takes find(p).
+// Every pair of neighbouring pixels is joined by pass 1 (same tile) or
+// pass 2 (different tiles), and links only ever point to smaller indices,
+// so each component's root is its minimum linear index.  Bound: 8 B a
+// pixel (the logits read, the labels written; 16.8 MB at B=8, 512x512,
+// ~5 us); passes 2 and 3 reread the labels of the seams and the
+// foreground.
 #include "common.cuh"
 #include "geometry.cuh"
 
@@ -33,6 +61,84 @@ ccl_kernel(const float* __restrict__ logits, int* __restrict__ labels, int H,
   for (int p = threadIdx.x; p < N; p += blockDim.x) out[p] = lab_s[p];
 }
 
+constexpr int kTileH = 32;
+constexpr int kTileW = 64;
+constexpr int kTileThreads = 512;
+constexpr int kSeamThreads = 128;
+constexpr int kFlattenThreads = 256;
+
+// Pass 1: block (tile x, tile y, image).
+__global__ void __launch_bounds__(kTileThreads)
+ccl_tile_kernel(const float* __restrict__ logits, int* __restrict__ labels, int H,
+                int W, float thr, int connectivity) {
+  __shared__ int lab_s[kTileH * kTileW];
+  const int x0 = blockIdx.x * kTileW;
+  const int y0 = blockIdx.y * kTileH;
+  const int tw = min(kTileW, W - x0);
+  const int n = tw * min(kTileH, H - y0);
+  const int N = H * W;
+  const float* lg = logits + static_cast<long long>(blockIdx.z) * N;
+  int* out = labels + static_cast<long long>(blockIdx.z) * N;
+  // tile-local linear index q = ly * tw + lx -> global index
+  auto global = [&](int q) {
+    const int ly = q / tw;
+    return (y0 + ly) * W + x0 + (q - ly * tw);
+  };
+  const geometry::FlatLabels lab{lab_s};
+  geometry::ccl_init(lab, [&](int q) { return lg[global(q)] > thr; }, 0, n, n);
+  __syncthreads();
+  geometry::ccl_merge(lab, tw, 0, 0, n, n, connectivity == 8);
+  __syncthreads();
+  geometry::ccl_flatten(lab, 0, n, n);
+  __syncthreads();
+  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+    const int r = lab_s[q];
+    out[global(q)] = r == n ? N : global(r);
+  }
+}
+
+// Pass 2: block (tile x, tile y, image); the tile's top row, then its left
+// and right columns.
+__global__ void __launch_bounds__(kSeamThreads)
+ccl_seam_kernel(int* __restrict__ labels, int H, int W, int connectivity) {
+  const int x0 = blockIdx.x * kTileW;
+  const int y0 = blockIdx.y * kTileH;
+  const int tw = min(kTileW, W - x0);
+  const int th = min(kTileH, H - y0);
+  const int N = H * W;
+  const bool eight = connectivity == 8;
+  const geometry::FlatLabels lab{labels + static_cast<long long>(blockIdx.z) * N};
+  for (int i = threadIdx.x; i < tw + 2 * th; i += blockDim.x) {
+    const int lx = i < tw ? i : (i < tw + th ? 0 : tw - 1);
+    const int ly = i < tw ? 0 : (i < tw + th ? i - tw : i - tw - th);
+    const int x = x0 + lx;
+    const int y = y0 + ly;
+    const int p = y * W + x;
+    if (lab(p) == N) continue;
+    if (lx == 0 && x > 0 && lab(p - 1) != N) geometry::union_roots(lab, p, p - 1);
+    if (y == 0) continue;
+    const int q = p - W;
+    if (ly == 0 && lab(q) != N) geometry::union_roots(lab, p, q);
+    if (!eight) continue;
+    if (x > 0 && (lx == 0 || ly == 0) && lab(q - 1) != N) geometry::union_roots(lab, p, q - 1);
+    if (x + 1 < W && (lx == tw - 1 || ly == 0) && lab(q + 1) != N)
+      geometry::union_roots(lab, p, q + 1);
+  }
+}
+
+// Pass 3: grid-stride over every pixel of the batch.
+__global__ void __launch_bounds__(kFlattenThreads)
+ccl_flatten_kernel(int* __restrict__ labels, long long total, int N) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += step) {
+    const long long b = i / N;
+    const int p = static_cast<int>(i - b * N);
+    const geometry::FlatLabels lab{labels + b * N};
+    if (lab(p) != N) lab(p) = geometry::find_root(lab, p);
+  }
+}
+
 }  // namespace
 
 // logits (B, H, W) f32 -> labels (B, H, W) int32; H*W*4 bytes of shared
@@ -47,5 +153,29 @@ extern "C" int ccl_labels(const void* logits, void* labels, int B, int H,
   ccl_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(logits), static_cast<int*>(labels), H, W, thr,
       connectivity);
+  return launch_status();
+}
+
+// The same contract for maps of any size up to H*W < 2^30 (B <= 65535):
+// the labels are built in place in ``labels`` by three launches.
+extern "C" int ccl_labels_tiled(const void* logits, void* labels, int B, int H,
+                                int W, float thr, int connectivity, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
+      static_cast<long long>(H) * W >= (1LL << 30))
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto lab = static_cast<int*>(labels);
+  const dim3 tiles((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  ccl_tile_kernel<<<tiles, kTileThreads, 0, s>>>(static_cast<const float*>(logits), lab, H, W,
+                                                 thr, connectivity);
+  int e = launch_status();
+  if (e != 0) return e;
+  ccl_seam_kernel<<<tiles, kSeamThreads, 0, s>>>(lab, H, W, connectivity);
+  e = launch_status();
+  if (e != 0) return e;
+  const long long total = static_cast<long long>(B) * H * W;
+  const long long blocks = (total + kFlattenThreads - 1) / kFlattenThreads;
+  ccl_flatten_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), kFlattenThreads, 0,
+                       s>>>(lab, total, H * W);
   return launch_status();
 }

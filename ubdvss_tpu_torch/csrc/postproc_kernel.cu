@@ -30,6 +30,31 @@
 // slot: 12.6 MB + up to 67 MB at B=64, 128x128, C=17 (~24 us at 3.35
 // TB/s).  This kernel reads the class logits of every pixel, with its
 // label, before its slot is known.
+//
+// component_slots_tiled serves the maps where that cluster cannot: where
+// the (K, H) extremes, or K12c's half label map beside them, exceed one
+// block's shared memory (K=64 at a 256² map and beyond; at H=512 the
+// extremes alone are 256 KB).  The same outputs, in four launches:
+//   1. roots_count: a block a (raster chunk, image) counts the chunk's
+//      roots and sets the extremes to their empty values;
+//   2. roots_rank: a block a chunk that holds one of the K smallest roots
+//      ranks them by a block-wide prefix sum after the counts of the
+//      chunks before it, and writes them to rootvals (H*W pads) and the
+//      root count to nroots;
+//   3. slots_tile: a block a (tile of kTileRows rows x 32 columns a warp,
+//      image) runs the pixel pass of the cluster kernel: each warp walks
+//      its 32-column strip down the tile, lanes over the columns, writes
+//      the slot of each pixel, and sums the stats in registers and warp
+//      trees (geometry.cuh StatsAcc) into its own partial set in shared
+//      memory; the extremes go to device memory by integer atomicMin/Max,
+//      one a slot and row for each warp (lanes ascend in x, so a slot's
+//      lowest lane holds its min x and its highest lane its max x); the
+//      block then sums its warps' sets in order into the tile's partials;
+//   4. slots_finish: each (slot, channel) sum over the image's tiles in
+//      order, and the padding slots' copies of the background's extremes.
+// No float atomic anywhere, so two launches agree bit for bit; the order
+// of the sums differs from the cluster kernel's, so the two agree within
+// f32 rounding, not bit for bit.  Bound: the cluster kernel's bytes.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -80,6 +105,236 @@ slots_kernel(const float* __restrict__ logits, long long sb, long long sy,
   cluster.sync();  // block 1's shared memory lives until block 0 has read it
 }
 
+// ---- component_slots_tiled ----
+
+constexpr int kRankThreads = 256;
+constexpr int kPassThreads = 256;  // at most, 8 warps a pass block
+
+// The block-wide sum of v, returned to every thread (the block is whole
+// warps).
+__device__ inline int block_sum(int v) {
+  __shared__ int s_part[32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(geometry::kFull, v, o);
+  __syncthreads();  // s_part may still be read by an earlier call
+  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int t = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t += s_part[w];
+  return t;
+}
+
+__device__ inline bool is_root(const geometry::Plane& det, const int* lab, int p, int W,
+                               float thr) {
+  return __ldg(lab + p) == p && det(p / W, p % W) > thr;
+}
+
+// 1. block (chunk, image)
+__global__ void __launch_bounds__(kRankThreads)
+roots_count_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+                   const int* __restrict__ labels, int* __restrict__ counts,
+                   int* __restrict__ minx, int* __restrict__ maxx, int H, int W, int K,
+                   int chunk, float thr) {
+  const int c = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int N = H * W;
+  const geometry::Plane det{logits + b * sb, sy, sx};
+  const int* lab = labels + b * N;
+  const int p1 = min(c * chunk + chunk, N);
+  int cnt = 0;
+  for (int p = c * chunk + threadIdx.x; p < p1; p += blockDim.x) cnt += is_root(det, lab, p, W, thr);
+  cnt = block_sum(cnt);
+  if (threadIdx.x == 0) counts[b * gridDim.x + c] = cnt;
+  int* mn = minx + b * K * H;
+  int* mx = maxx + b * K * H;
+  for (int i = c * blockDim.x + threadIdx.x; i < K * H; i += gridDim.x * blockDim.x) {
+    mn[i] = geometry::kBig;
+    mx[i] = -1;
+  }
+}
+
+// 2. block (chunk, image)
+__global__ void __launch_bounds__(kRankThreads)
+roots_rank_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+                  const int* __restrict__ labels, const int* __restrict__ counts,
+                  int* __restrict__ rootvals, int* __restrict__ nroots, int H, int W, int K,
+                  int chunk, float thr) {
+  __shared__ int s_warp[32];
+  const int c = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int nchunks = gridDim.x;
+  const int N = H * W;
+  const int* cn = counts + b * nchunks;
+  int before = 0, total = 0;
+  for (int i = threadIdx.x; i < nchunks; i += blockDim.x) {
+    total += cn[i];
+    if (i < c) before += cn[i];
+  }
+  before = block_sum(before);
+  total = block_sum(total);
+  int* roots = rootvals + b * K;
+  if (c == 0) {
+    for (int i = total + threadIdx.x; i < K; i += blockDim.x) roots[i] = N;
+    if (threadIdx.x == 0) nroots[b] = total;
+  }
+  if (cn[c] == 0 || before >= K) return;  // uniform over the block
+  // a contiguous run of the chunk per thread, ranked by a block-wide
+  // exclusive prefix sum of the runs' root counts
+  const geometry::Plane det{logits + b * sb, sy, sx};
+  const int* lab = labels + b * N;
+  const int p0 = c * chunk;
+  const int n = min(p0 + chunk, N) - p0;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int begin = p0 + min(static_cast<int>(threadIdx.x) * per, n);
+  const int end = min(begin + per, p0 + n);
+  int cnt = 0;
+  for (int p = begin; p < end; ++p) cnt += is_root(det, lab, p, W, thr);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int incl = cnt;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(geometry::kFull, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < nw ? s_warp[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(geometry::kFull, v, off);
+      if (lane >= off) v += u;
+    }
+    if (lane < nw) s_warp[lane] = v;  // inclusive warp totals
+  }
+  __syncthreads();
+  int rank = before + (warp > 0 ? s_warp[warp - 1] : 0) + incl - cnt;
+  for (int p = begin; p < end && rank < K; ++p) {
+    if (is_root(det, lab, p, W, thr)) roots[rank++] = p;
+  }
+}
+
+// 3. block (tile column, tile row, image); dynamic shared memory: K roots,
+// then one stats partial set, (K, C) floats and K ints, per warp.
+template <int CM>
+__global__ void __launch_bounds__(kPassThreads)
+slots_tile_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+                  long long sc, int C, const int* __restrict__ labels,
+                  const int* __restrict__ rootvals, const int* __restrict__ nroots,
+                  int* __restrict__ slots, int* __restrict__ minx, int* __restrict__ maxx,
+                  float* __restrict__ tpart, int* __restrict__ tcnt, int H, int W, int K,
+                  int tile_rows, float thr) {
+  extern __shared__ int sm[];
+  const int nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long b = blockIdx.z;
+  int* root = sm;
+  float* part = reinterpret_cast<float*>(sm + K);
+  int* cnt = reinterpret_cast<int*>(part + nw * K * C);
+  for (int i = threadIdx.x; i < K; i += blockDim.x) root[i] = rootvals[b * K + i];
+  for (int i = threadIdx.x; i < nw * K * C; i += blockDim.x) part[i] = 0.f;
+  for (int i = threadIdx.x; i < nw * K; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  const int N = H * W;
+  const int total = nroots[b];
+  const int nvalid = min(total, K);
+  const int bg_slot = total < K ? K - 1 : K;
+  const geometry::Logits lg{logits + b * sb, sy, sx, sc, C};
+  const geometry::Plane det{lg.p, sy, sx};
+  const int* lab = labels + b * N;
+  int* sl = slots + b * N;
+  int* mn = minx + b * K * H;
+  int* mx = maxx + b * K * H;
+  float* w_part = part + warp * K * C;
+  int* w_cnt = cnt + warp * K;
+  const int x = (blockIdx.x * nw + warp) * 32 + lane;
+  const int y0 = blockIdx.y * tile_rows;
+  const int y1 = min(y0 + tile_rows, H);
+  geometry::StatsAcc<CM> acc;
+  acc.reset(K);
+  for (int y = y0; y < y1; ++y) {
+    int slot = K;
+    float d = 0.f;
+    if (x < W) {
+      acc.fetch(lg, y, x);
+      d = det(y, x);
+      const int lp = __ldg(lab + y * W + x);  // loaded beside d, not after it
+      const int l = d > thr ? lp : N;
+      if (l == N) {
+        slot = bg_slot;
+      } else {
+        int lo = 0, hi = nvalid;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (root[mid] < l) lo = mid + 1; else hi = mid;
+        }
+        slot = (lo < nvalid && root[lo] == l) ? lo : K;
+      }
+      sl[y * W + x] = slot;
+    }
+    const unsigned grp = __match_any_sync(geometry::kFull, slot);
+    if (slot < K) {
+      if (lane == __ffs(grp) - 1) atomicMin(&mn[slot * H + y], x);
+      if (lane == 31 - __clz(grp)) atomicMax(&mx[slot * H + y], x);
+    }
+    acc.add(lg, slot, d, K, w_part, w_cnt);
+  }
+  if (__ballot_sync(geometry::kFull, acc.slot < K)) acc.flush(acc.slot < K, K, C, w_part, w_cnt);
+  __syncthreads();
+  const long long tile = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* tp = tpart + tile * K * C;
+  int* tc = tcnt + tile * K;
+  for (int i = threadIdx.x; i < K * C; i += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < nw; ++w) v += part[w * K * C + i];
+    tp[i] = v;
+  }
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    int a = 0;
+    for (int w = 0; w < nw; ++w) a += cnt[w * K + k];
+    tc[k] = a;
+  }
+}
+
+// 4. block (part of the image's K*(C+1) sums, image)
+__global__ void __launch_bounds__(kRankThreads)
+slots_finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcnt,
+                    const int* __restrict__ nroots, int* __restrict__ minx,
+                    int* __restrict__ maxx, float* __restrict__ areas,
+                    float* __restrict__ det_sums, float* __restrict__ cls_sums, int H, int K,
+                    int C, int tiles) {
+  const long long b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float* tp = tpart + b * tiles * K * C;
+  const int* tc = tcnt + b * tiles * K;
+  if (i < K * C) {
+    float v = 0.f;
+    for (int t = 0; t < tiles; ++t) v += tp[static_cast<long long>(t) * K * C + i];
+    const int k = i / C;
+    const int c = i - k * C;
+    if (c == 0) {
+      det_sums[b * K + k] = v;
+    } else {
+      cls_sums[(b * K + k) * (C - 1) + c - 1] = v;
+    }
+  } else if (i < K * C + K) {
+    const int k = i - K * C;
+    int a = 0;
+    for (int t = 0; t < tiles; ++t) a += tc[static_cast<long long>(t) * K + k];
+    areas[b * K + k] = static_cast<float>(a);
+    if (C == 1) cls_sums[b * K + k] = 0.f;
+  }
+  // padding slots carry the background's extremes (slot K-1's)
+  const int nvalid = min(nroots[b], K);
+  int* mn = minx + b * K * H;
+  int* mx = maxx + b * K * H;
+  for (int j = nvalid * H + i; j < (K - 1) * H; j += gridDim.x * blockDim.x) {
+    const int src = (K - 1) * H + j % H;
+    mn[j] = mn[src];
+    mx[j] = mx[src];
+  }
+}
+
 }  // namespace
 
 // logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc), labels
@@ -112,4 +367,61 @@ extern "C" int component_slots(const void* logits, long long sb, long long sy,
         static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, thr);
     return launch_status();
   });
+}
+
+// The outputs of component_slots for maps of any size (H*W < 2^30, B <=
+// 65535), through the four launches above.  Scratch from the caller:
+// ``counts`` B * ceil(H*W / chunk) ints, ``tpart`` B * tiles * K * C floats
+// and ``tcnt`` B * tiles * K ints, where tiles = ceil(W / threads) *
+// ceil(H / tile_rows); ``threads`` is 32 x the warps of a pass block.
+extern "C" int component_slots_tiled(const void* logits, long long sb, long long sy,
+                                     long long sx, long long sc, int C, const void* labels,
+                                     void* rootvals, void* slots, void* minx, void* maxx,
+                                     void* nroots, void* areas, void* det_sums,
+                                     void* cls_sums, void* counts, void* tpart, void* tcnt,
+                                     int B, int H, int W, int K, int threads, int chunk,
+                                     int tile_rows, float thr, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || B > 65535 || chunk <= 0 ||
+      tile_rows <= 0 || threads <= 0 || threads > kPassThreads || threads % 32 != 0 ||
+      static_cast<long long>(H) * W >= (1LL << 30))
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* lg = static_cast<const float*>(logits);
+  const auto* lab = static_cast<const int*>(labels);
+  auto* roots = static_cast<int*>(rootvals);
+  auto* nr = static_cast<int*>(nroots);
+  auto* mn = static_cast<int*>(minx);
+  auto* mx = static_cast<int*>(maxx);
+  const int N = H * W;
+  const dim3 chunks((N + chunk - 1) / chunk, B);
+  roots_count_kernel<<<chunks, kRankThreads, 0, s>>>(lg, sb, sy, sx, lab,
+                                                     static_cast<int*>(counts), mn, mx, H, W, K,
+                                                     chunk, thr);
+  int e = launch_status();
+  if (e != 0) return e;
+  roots_rank_kernel<<<chunks, kRankThreads, 0, s>>>(lg, sb, sy, sx, lab,
+                                                    static_cast<const int*>(counts), roots, nr,
+                                                    H, W, K, chunk, thr);
+  e = launch_status();
+  if (e != 0) return e;
+  const dim3 tiles((W + threads - 1) / threads, (H + tile_rows - 1) / tile_rows, B);
+  const size_t smem = static_cast<size_t>(K) * sizeof(int) +
+                      static_cast<size_t>(threads / 32) * K * (C + 1) * sizeof(float);
+  e = geometry::with_channel_bound(C, [&](auto cm) {
+    constexpr int CM = decltype(cm)::value;
+    cudaError_t a = cudaFuncSetAttribute(
+        slots_tile_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (a != cudaSuccess) return static_cast<int>(a);
+    slots_tile_kernel<CM><<<tiles, threads, smem, s>>>(
+        lg, sb, sy, sx, sc, C, lab, roots, nr, static_cast<int*>(slots), mn, mx,
+        static_cast<float*>(tpart), static_cast<int*>(tcnt), H, W, K, tile_rows, thr);
+    return launch_status();
+  });
+  if (e != 0) return e;
+  const dim3 fin((K * (C + 1) + kRankThreads - 1) / kRankThreads, B);
+  slots_finish_kernel<<<fin, kRankThreads, 0, s>>>(
+      static_cast<const float*>(tpart), static_cast<const int*>(tcnt), nr, mn, mx,
+      static_cast<float*>(areas), static_cast<float*>(det_sums), static_cast<float*>(cls_sums),
+      H, K, C, static_cast<int>(tiles.x * tiles.y));
+  return launch_status();
 }

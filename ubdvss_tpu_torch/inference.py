@@ -6,24 +6,30 @@ Counterpart of ``ubdvss_tpu/inference.py``:
     route's ``postprocess`` (exact rects, K3x).  ``BarcodeDetector.detect``
     and ``.heatmap`` go through it, as in the JAX package.
   * ``detect_program_batch`` — a batch: grayscale -> (resize + normalize,
-    or the raw no-resize fold into the stem) -> FCN trunk -> the fused
-    postprocessing (``fused=None`` or ``True``) or the XLA route's
-    ``postprocess_batch`` (``fused=False``).
+    or the raw no-resize fold into the stem) -> FCN trunk (whole, or over
+    ``n_strips`` row strips) -> the fused postprocessing (``fused=None`` or
+    ``True``) or the XLA route's ``postprocess_batch`` (``fused=False``).
+  * ``detect_preprocessed_batch`` — the same over already-normalized
+    (B, H, W, 1) images.
 
-The trunk of a separable config is the context kernel's (K4) route; a
-dense config runs ``BarcodeFCN``.  Entry points run on the card unless the
-caller asks for the CPU (``device="cpu"``, where every kernel takes its
-plain version).
+As in the JAX package, heatmaps larger than ``_fused_heatmap_limit`` a
+side take the XLA route (``fused=False``).  The trunk of a separable
+config is the context kernel's (K4) route at every size; a dense config
+runs ``BarcodeFCN``.  Entry points run on the card unless the caller asks
+for the CPU (``device="cpu"``, where every kernel takes its plain
+version).
 
 Routes of the JAX package this slice does not port raise
-``NotImplementedError`` naming their ROADMAP.md item: bf16, int8
-``qparams``, ``mesh``, ``n_strips`` / two-stage large-scan tiling and
-heatmaps larger than 128x128.
+``NotImplementedError`` naming their ROADMAP.md item: bf16 (item 7), int8
+``qparams`` (item 8) and ``mesh`` (item 9).  The JAX package's packed and
+two-stage large-scan trunks give the same detections as the untiled trunk
+the port runs (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -38,6 +44,7 @@ from ubdvss_tpu_torch.ops.preproc import (
     resize_bilinear,
     to_grayscale_batch,
 )
+from ubdvss_tpu_torch.ops.strips import receptive_field_halo, strip_tiled_logits
 
 
 @dataclasses.dataclass
@@ -67,23 +74,35 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_route(cfg: NetConfig, out_hw, n_strips=None, qparams=None, mesh=None) -> None:
+def _check_route(cfg: NetConfig, hw, qparams=None, mesh=None) -> None:
     if qparams is not None:
         raise NotImplementedError("int8 qparams serving: ROADMAP.md §1 item 8")
     if mesh is not None:
         raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 9")
-    if n_strips is not None and n_strips > 1:
-        raise NotImplementedError("n_strips strip tiling: ROADMAP.md §1 item 7")
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype={cfg.dtype!r}: ROADMAP.md §1 item 7 (bf16 route)")
-    if out_hw[0] % cfg.scale or out_hw[1] % cfg.scale:
-        raise ValueError(f"out_hw {out_hw} not aligned to scale={cfg.scale}")
-    hf, wf = out_hw[0] // cfg.scale, out_hw[1] // cfg.scale
-    if hf * wf > 128 * 128:
-        raise NotImplementedError(
-            f"{hf}x{wf} heatmaps are the large-scan regime (two-stage / "
-            "s2d / dense context routes): ROADMAP.md §1 item 7"
-        )
+    if hw[0] % cfg.scale or hw[1] % cfg.scale:
+        raise ValueError(f"out_hw {hw} not aligned to scale={cfg.scale}")
+
+
+def _fused_heatmap_limit(cfg: NetConfig) -> int:
+    """Largest heatmap side the fused postprocessing serves, as in the JAX
+    package (``ubdvss_tpu/inference.py:88-95``): 1024 for separable-context
+    configs, 512 for dense ones.  Beyond it the XLA route serves."""
+    return 1024 if cfg.separable_context else 512
+
+
+def _fused_route(cfg: NetConfig, hw, fused: bool | None) -> bool:
+    """The JAX package's route choice: fused unless asked otherwise or the
+    heatmap exceeds ``_fused_heatmap_limit``."""
+    return fused is not False and max(hw) // cfg.scale <= _fused_heatmap_limit(cfg)
+
+
+def _tiled_trunk(trunk, x: torch.Tensor, cfg: NetConfig, n_strips: int | None) -> torch.Tensor:
+    """``trunk(x)``, or its row-strip tiling for ``n_strips > 1``."""
+    if n_strips is not None and n_strips > 1:
+        return strip_tiled_logits(trunk, x, cfg.scale, receptive_field_halo(cfg), n_strips)
+    return trunk(x)
 
 
 def _trunk(params: dict, x: torch.Tensor, cfg: NetConfig, raw: bool) -> torch.Tensor:
@@ -138,11 +157,17 @@ def detect_program_batch(
     ``fused=False``, the XLA route's ``postprocess_batch`` dict) and the
     (B, H/4, W/4, C) f32 logits, or ``(res, None)`` with
     ``detections_only=True``.  Runs on ``device`` (default the card).
+
+    Heatmaps larger than ``_fused_heatmap_limit`` a side take the XLA
+    route, as in the JAX package; ``n_strips > 1`` runs the fused route's
+    trunk over that many row strips (``ops/strips.py``), which gives the
+    same logits.
     """
-    _check_route(cfg, tuple(out_hw), n_strips, qparams, mesh)
+    _check_route(cfg, tuple(out_hw), qparams, mesh)
     dev = resolve_device(device)
     x = torch.as_tensor(imgs).to(dev)
     params = {k: v.to(dev) for k, v in params.items()}
+    fused = _fused_route(cfg, out_hw, fused)
     with torch.inference_mode(), exact_f32():
         x = to_grayscale_batch(x, channel_order)
         # no-resize inputs skip the full-res normalize: x/127.5 - 1 is
@@ -150,11 +175,46 @@ def detect_program_batch(
         raw = tuple(x.shape[1:]) == tuple(out_hw)
         if not raw:
             x = normalize(resize_bilinear(x, tuple(out_hw)))
-        logits = _trunk(params, x, cfg, raw)
-        res = (postprocess_batch if fused is False else postprocess_batch_fused)(logits, cfg)
+        trunk = functools.partial(_trunk, params, cfg=cfg, raw=raw)
+        logits = _tiled_trunk(trunk, x, cfg, n_strips) if fused else trunk(x)
+        res = (postprocess_batch_fused if fused else postprocess_batch)(logits, cfg)
     if detections_only:
         return res, None
     return res, logits
+
+
+def detect_preprocessed_batch(
+    params: dict,
+    x,
+    cfg: NetConfig,
+    fused: bool | None = None,
+    n_strips: int | None = None,
+    qparams=None,
+    mesh=None,
+    device=None,
+):
+    """Detection over already-preprocessed images: (B, H, W, 1) f32
+    normalized to [-1, 1] (the data pipeline's ``images``).  Returns
+    ``(res, logits)`` as ``detect_program_batch``.
+
+    The same route selection as ``detect_program_batch``; as in the JAX
+    package, the fused postprocessing serves separable configs only, and
+    a dense config takes the XLA route's.  Runs on ``device`` (default the
+    card).
+    """
+    x = torch.as_tensor(x)
+    hw = tuple(x.shape[1:3])
+    _check_route(cfg, hw, qparams, mesh)
+    dev = resolve_device(device)
+    x = x.to(dev)
+    params = {k: v.to(dev) for k, v in params.items()}
+    fused = _fused_route(cfg, hw, fused)
+    with torch.inference_mode(), exact_f32():
+        x = x.to(torch.float32)[..., 0]
+        trunk = functools.partial(_trunk, params, cfg=cfg, raw=False)
+        logits = _tiled_trunk(trunk, x, cfg, n_strips) if fused else trunk(x)
+        post = postprocess_batch_fused if fused and cfg.separable_context else postprocess_batch
+        return post(logits, cfg), logits
 
 
 class BarcodeDetector:

@@ -7,9 +7,11 @@ index of its component, background holds H*W.
 ``ccl_labels_reference`` copies the JAX algorithm round for round: a 3x3
 (or cross) neighbour min, then a segmented run-min along W and along H by
 shift doubling, repeated until nothing changes or H + W rounds have run —
-so it equals the TPU kernel even where that cap binds.  The CUDA kernel
-(``csrc/ccl_kernel.cu``) finds the true components by union-find in
-shared memory (three passes, no rounds and no cap).
+so it equals the TPU kernel even where that cap binds.  The CUDA kernels
+(``csrc/ccl_kernel.cu``) find the true components by union-find (no
+rounds and no cap): one block a map with the map in shared memory where it
+fits (``MAX_SHARED_BYTES``), else ``ccl_labels_tiled`` over device memory
+(tiles in shared memory, then the seams between them, then a flatten).
 """
 
 from __future__ import annotations
@@ -102,8 +104,47 @@ def ccl_labels_reference(
     return lab
 
 
-_FUNCS = {"ccl_labels": [_build.P, _build.P, _build.I, _build.I, _build.I,
-                         _build.F, _build.I, _build.P]}
+_ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.F, _build.I, _build.P]
+_FUNCS = {"ccl_labels": _ARGS, "ccl_labels_tiled": _ARGS}
+# the tiled kernel's labels are int32 linear indices below 2^30
+MAX_TILED_PIXELS = 1 << 30
+
+
+def _check(det_logits: torch.Tensor) -> None:
+    _build.check_input(det_logits, "det_logits", torch.float32, 3)
+    B, H, W = det_logits.shape
+    if H * W >= MAX_TILED_PIXELS or B > 65535:
+        raise ValueError(f"{B} maps of {H}x{W}: the CCL kernels take H*W < 2^30, B <= 65535")
+
+
+def ccl_labels_tiled(
+    det_logits: torch.Tensor, threshold: float = 0.5, connectivity: int = 8
+) -> torch.Tensor:
+    """(B, H, W) f32 detection logits -> (B, H, W) int32 raw labels, by the
+    device-memory kernel: 32x64 tiles labelled in shared memory, the seams
+    between tiles united by atomicMin on roots in device memory, then a
+    flatten (three launches; any map size).  ``ccl_labels_from_logits``
+    takes it for maps larger than one block's shared memory.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    if det_logits.device.type == "cpu":
+        return ccl_labels_reference(det_logits, threshold, connectivity)
+    _check(det_logits)
+    lib = _build.load("ccl_kernel", _FUNCS)
+    out = torch.empty(det_logits.shape, dtype=torch.int32, device=det_logits.device)
+    _build.launch(
+        lib, "ccl_labels_tiled", det_logits.device, det_logits.data_ptr(),
+        out.data_ptr(), *det_logits.shape, threshold_logit(threshold), connectivity,
+    )
+    ccl_labels_tiled.launches += 1
+    return out
+
+
+ccl_labels_tiled.launches = 0
 
 
 def ccl_labels_from_logits(
@@ -111,20 +152,21 @@ def ccl_labels_from_logits(
 ) -> torch.Tensor:
     """(B, H, W) f32 detection logits -> (B, H, W) int32 raw labels.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one block per image, the label map in shared memory) or raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
+    or raises: one block per image with the label map in shared memory
+    (counted here) where the map fits, else ``ccl_labels_tiled``.  Both give
+    the same labels; the one-block kernel is kept for the maps it holds
+    because it is the faster of the two on the batched 128² and 60x80 maps
+    of the 512² path and the QVGA stream (``scripts/torch_kernel_ab.py``).
     """
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     if det_logits.device.type == "cpu":
         return ccl_labels_reference(det_logits, threshold, connectivity)
-    _build.check_input(det_logits, "det_logits", torch.float32, 3)
+    _check(det_logits)
     B, H, W = det_logits.shape
     if H * W * 4 > MAX_SHARED_BYTES:
-        raise NotImplementedError(
-            f"{H}x{W} label maps exceed one block's shared memory; the "
-            "global-memory CCL for large scans is ROADMAP.md §1 item 7"
-        )
+        return ccl_labels_tiled(det_logits, threshold, connectivity)
     lib = _build.load("ccl_kernel", _FUNCS)
     out = torch.empty((B, H, W), dtype=torch.int32, device=det_logits.device)
     _build.launch(

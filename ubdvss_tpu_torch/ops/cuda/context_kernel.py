@@ -1,7 +1,10 @@
 """The fused separable context module + head (K4) and the f32 trunk.
 
 Counterpart of ``ubdvss_tpu/ops/pallas/context_kernel.py`` on its f32
-route for heatmaps up to 128x128 (``context_head_route``, :669-674):
+route.  The JAX package runs its Pallas kernel up to 128x128 feature maps
+and the XLA formulations ``dense_context_head`` / ``s2d_context_head``
+(layouts for the TPU's matrix unit) beyond (``context_head_route``,
+:654-674); the port runs the context kernel at every size, in full f32:
 
   * ``_pack_weights`` — the state_dict's context/head weights as the
     kernel's tensors, in the JAX package's shapes: dw (L, 9, C, 1, 1),
@@ -30,8 +33,6 @@ from ubdvss_tpu_torch.models.model import conv2d_same, exact_f32
 from ubdvss_tpu_torch.ops.cuda import _build
 from ubdvss_tpu_torch.ops.cuda.ccl_kernel import _shift
 
-# largest feature map the f32 route serves (the JAX package's Pallas gate)
-MAX_FEATURE_AREA = 128 * 128
 # the context kernel's compiled channel counts and its head's output bound
 # (csrc/context_kernel.cu)
 KERNEL_CHANNELS = (8, 16, 24, 32)
@@ -160,13 +161,8 @@ def stem_apply(params: dict, x_nhwc: torch.Tensor, cfg, raw_gray: bool = False):
 
 def context_head_route(params: dict, feat: torch.Tensor, cfg) -> torch.Tensor:
     """Context module + 1x1 head over stem features (B, Hf, Wf, C) ->
-    (B, Hf, Wf, O) logits (an NHWC view of the kernel's NCHW output)."""
-    Hf, Wf = feat.shape[1], feat.shape[2]
-    if Hf * Wf > MAX_FEATURE_AREA:
-        raise NotImplementedError(
-            f"{Hf}x{Wf} feature maps are the JAX package's large regime "
-            "(dense/s2d context convs), ROADMAP.md §1 item 7"
-        )
+    (B, Hf, Wf, O) logits (an NHWC view of the kernel's NCHW output), at
+    any map size."""
     dw, pwt, pb, hwt, hb = _pack_weights(params, tuple(cfg.dilations))
     xc = feat.permute(0, 3, 1, 2).contiguous()
     logits = fused_context_head(xc, dw, pwt, pb, hwt, hb, tuple(cfg.dilations))

@@ -13,6 +13,13 @@ Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
     background pixels take slot K-1 and every padding slot carries the
     background's extremes; ``postprocess_batch_fused`` masks them by
     ``rootvals``.
+  * ``component_slots_tiled`` — the same outputs for maps where the
+    cluster kernel's (K, H) extremes or K12c's half label map beside them
+    exceed one block's shared memory (K=64 at a 256² map and beyond): the
+    roots ranked over raster chunks, the pixel pass over row tiles with the
+    extremes by integer atomics in device memory and the stats partials
+    summed over the tiles in order (four launches; no float atomic).
+    ``component_slots`` takes it where K12c cannot run.
   * ``geometry_compat`` — CCL, slots and stats as one kernel (K12c,
     ``_geometry_kernel_compat``; a cluster of two blocks per image), the
     same outputs as slots after CCL, stats bit for bit.
@@ -118,7 +125,9 @@ def component_slots_reference(
 
 _LOGITS_ARGS = [_build.P] + [_build.L] * 4 + [_build.I]
 _FUNCS = {
-    "component_slots": _LOGITS_ARGS + [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.P]
+    "component_slots": _LOGITS_ARGS + [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.P],
+    "component_slots_tiled": _LOGITS_ARGS + [_build.P] * 12 + [_build.I] * 7
+    + [_build.F, _build.P],
 }
 
 
@@ -163,6 +172,22 @@ def stats_warps(H: int, W: int, K: int, C: int) -> int:
     return max(1, min(32, free // (K * (C + 1) * 4)))
 
 
+def geometry_compat_fits(H: int, W: int, K: int, C: int) -> bool:
+    """K12c runs at this shape: half the label map, the extremes and one
+    stats partial set a warp fit one block's shared memory.  K2's cluster
+    kernel serves exactly these shapes, so that the two agree bit for bit
+    wherever both run; ``component_slots_tiled`` serves the rest."""
+    words = geometry_smem_words(H, W, K) + stats_warps(H, W, K, C) * K * (C + 1)
+    return words * 4 <= MAX_SHARED_BYTES
+
+
+# component_slots_tiled: pixels a block ranks roots in, rows a pass block
+# walks, and its warps (at most; csrc/postproc_kernel.cu kPassThreads / 32)
+SLOTS_CHUNK = 8192
+SLOTS_TILE_ROWS = 32
+SLOTS_TILE_WARPS = 8
+
+
 def _empty_outputs(B: int, H: int, W: int, K: int, C: int, dev) -> dict:
     """The eight outputs of K2 and K12c, in their C argument order."""
     shapes = {
@@ -185,24 +210,20 @@ def component_slots(
     """Slots and stats from (B, H, W) detection logits or (B, H, W, C)
     logits at any strides, and the raw labels (the slots kernel).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (a cluster of SLOT_CTAS blocks per image) or raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
+    or raises: a cluster of SLOT_CTAS blocks per image (counted here) where
+    K12c could run (``geometry_compat_fits``), else
+    ``component_slots_tiled``.
     """
     if logits.device.type == "cpu":
         return component_slots_reference(logits, labels, max_components, threshold)
     logits = _as_nhwc(logits)
-    _check_logits(logits)
-    _build.check_input(labels, "labels", torch.int32, 3, logits.device)
+    _check_slots_inputs(logits, labels)
     B, H, W, C = logits.shape
-    if labels.shape != (B, H, W):
-        raise ValueError(f"labels {tuple(labels.shape)} != logits {(B, H, W)}")
     K = max_components
+    if not geometry_compat_fits(H, W, K, C):
+        return component_slots_tiled(logits, labels, K, threshold)
     nw = stats_warps(H, W, K, C)
-    if (K + 2 * K * H + nw * K * (C + 1)) * 4 > MAX_SHARED_BYTES:
-        raise NotImplementedError(
-            f"K={K} x H={H} extremes and stats exceed one block's shared memory "
-            "(large scans: ROADMAP.md §1 item 7)"
-        )
     lib = _build.load("postproc_kernel", _FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
     _build.launch(
@@ -215,6 +236,65 @@ def component_slots(
 
 
 component_slots.launches = 0
+
+
+def _check_slots_inputs(logits: torch.Tensor, labels: torch.Tensor) -> None:
+    _check_logits(logits)
+    _build.check_input(labels, "labels", torch.int32, 3, logits.device)
+    B, H, W, _ = logits.shape
+    if labels.shape != (B, H, W):
+        raise ValueError(f"labels {tuple(labels.shape)} != logits {(B, H, W)}")
+    if H * W >= 1 << 30 or B > 65535:
+        raise ValueError(f"{B} maps of {H}x{W}: the slots kernels take H*W < 2^30, B <= 65535")
+
+
+def component_slots_tiled(
+    logits: torch.Tensor, labels: torch.Tensor, max_components: int,
+    threshold: float = 0.5,
+) -> dict:
+    """``component_slots`` for maps of any size: the roots ranked over
+    raster chunks of SLOTS_CHUNK pixels, then the pixel pass over tiles of
+    SLOTS_TILE_ROWS rows by 32 columns a warp, the extremes in device
+    memory, each tile's stats partials summed over the tiles in a fixed
+    order (four launches).  Outputs as ``component_slots``; two launches
+    agree bit for bit, and the stats with the cluster kernel's within f32
+    rounding (another order of the sums).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if logits.device.type == "cpu":
+        return component_slots_reference(logits, labels, max_components, threshold)
+    logits = _as_nhwc(logits)
+    _check_slots_inputs(logits, labels)
+    B, H, W, C = logits.shape
+    K = max_components
+    set_bytes = K * (C + 1) * 4
+    nw = min(SLOTS_TILE_WARPS, -(-W // 32), (MAX_SHARED_BYTES - K * 4) // set_bytes)
+    if nw < 1:
+        raise NotImplementedError(
+            f"K={K}, C={C}: one warp's stats partial set exceeds one block's "
+            "shared memory in the tiled slots kernel (ROADMAP.md §2a)"
+        )
+    threads = 32 * nw
+    tiles = -(-W // threads) * -(-H // SLOTS_TILE_ROWS)
+    dev = logits.device
+    counts = torch.empty((B, -(-(H * W) // SLOTS_CHUNK)), dtype=torch.int32, device=dev)
+    tpart = torch.empty((B, tiles, K, C), dtype=torch.float32, device=dev)
+    tcnt = torch.empty((B, tiles, K), dtype=torch.int32, device=dev)
+    lib = _build.load("postproc_kernel", _FUNCS)
+    out = _empty_outputs(B, H, W, K, C, dev)
+    _build.launch(
+        lib, "component_slots_tiled", dev, logits.data_ptr(), *logits.stride(), C,
+        labels.data_ptr(), *(t.data_ptr() for t in out.values()),
+        counts.data_ptr(), tpart.data_ptr(), tcnt.data_ptr(),
+        B, H, W, K, threads, SLOTS_CHUNK, SLOTS_TILE_ROWS, threshold_logit(threshold),
+    )
+    component_slots_tiled.launches += 1
+    return out
+
+
+component_slots_tiled.launches = 0
 
 
 def geometry_compat_reference(
@@ -255,12 +335,12 @@ def geometry_compat(
     _check_logits(logits)
     B, H, W, C = logits.shape
     K = max_components
-    nw = stats_warps(H, W, K, C)
-    if (geometry_smem_words(H, W, K) + nw * K * (C + 1)) * 4 > MAX_SHARED_BYTES:
+    if not geometry_compat_fits(H, W, K, C):
         raise NotImplementedError(
             f"half of a {H}x{W} label map and K={K} x H extremes exceed one block's "
-            "shared memory (large scans: ROADMAP.md §1 item 7)"
+            "shared memory: K12c at large maps is still to be served (ROADMAP.md §2a)"
         )
+    nw = stats_warps(H, W, K, C)
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
     _build.launch(

@@ -252,8 +252,8 @@ def min_area_rect_compact(
     if (20 * max_points + 3 * H + 4 * ((H + 31) // 32)) * 4 > MAX_SHARED_BYTES:
         raise NotImplementedError(
             f"H={H}, max_points={max_points}: a component's rows, points and "
-            "directions exceed one block's shared memory (large scans: "
-            "ROADMAP.md §1 item 7)"
+            "directions exceed one block's shared memory in the compacted rect "
+            "kernel (ROADMAP.md §2a)"
         )
     lib = _build.load("rect_kernel", _FUNCS)
     out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)
@@ -280,8 +280,7 @@ def min_area_rect_exact(minx: torch.Tensor, maxx: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError(
             f"H={H} > {MAX_EXACT_HEIGHT}: a component's rows, points and 2H "
             "directions exceed one block's shared memory in the uncompacted "
-            "rect kernel; taller extremes are the large-scan regime, "
-            "ROADMAP.md §1 item 7"
+            "rect kernel (ROADMAP.md §2a: K3x above 1024 rows)"
         )
     lib = _build.load("rect_kernel", _FUNCS)
     out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)

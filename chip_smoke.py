@@ -74,6 +74,26 @@ them.  Phases, each of which raises on failure:
         CCL and the tiled slots kernel exactly where the map exceeds one
         block's shared memory (256x256); equal to the plain route on the
         host CPU;
+     h. the bf16 main path (the JAX bench's default mode): the main path
+        with NetConfig(dtype="bfloat16") and the weights cast to bf16 (as
+        bench.py:290-291): the bf16 stem and dense-equivalent context convs
+        (cuDNN), then the bf16 CCL and slots kernels on the bf16 logits and
+        the compacted rect; the context kernel must not launch; detections
+        equal to the bf16 route on the host CPU by compare_bf16_detections
+        (a pixel may change sides of the threshold only within the logit
+        tolerance of it), no copy of the whole logits before the slots
+        kernel (operator shapes), and the scenes whose count and classes
+        equal the f32 path's reported;
+     i. the bf16 compat route: the fused geometry's bf16 kernel launched,
+        detections identical to the bf16 default route, its eight outputs
+        bit for bit equal to the bf16 slots after the bf16 CCL;
+     j. bf16 large scans: the scans of e in bf16: the bf16 device-memory
+        CCL and tiled slots kernels launched; the first 2 scans equal to
+        the bf16 route on the host CPU;
+     k. BarcodeDetector.detect in bf16 (BarcodeFCN's bf16 logits are f32,
+        so the f32 CCL, slots and uncompacted rect run) at 512x512 and
+        640x480, and the QVGA stream in bf16 (the bf16 CCL and slots), each
+        against the host CPU;
   4. timing with CUDA events (median of 10 samples of 10 back-to-back calls,
      after warm-up): img/s of the main path, frames/s of the stream (the
      whole process() of 256 frames, median of 3), each kernel's ms beside
@@ -86,7 +106,9 @@ them.  Phases, each of which raises on failure:
      gemm, one-hot compare, sigmoid, softmax), and the device's busy share
      of the path's time; the same for the large scans (scans/s, device
      ms a batch, the profile), the 4096² scan and one detect call at each
-     of the three sizes.
+     of the three sizes.  The bf16 variants of CCL, slots and the fused
+     geometry get their own rows (bounds at 2 B a logit), and the bf16
+     paths their timings and profiles.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -113,6 +135,8 @@ QVGA, N_FRAMES = (240, 320), 256
 SCAN, B_SCAN, SCAN_SEED = 2048, 8, 11  # large scans (tests/test_inference.py:117)
 BIG_SCAN = 4096
 DETECT_HW = ((480, 640), (768, 1024), (1024, 1024))
+LOGIT_ULPS = 4  # bf16 logits of one route on the card against the host CPU
+SCORE_TOL_BF16, CLS_TOL_BF16 = 1e-3, 1e-2  # tests/test_torch_bf16.py's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (no tensor cores)
 ITERS, REPS, WARMUP = 10, 10, 2
@@ -153,21 +177,27 @@ def time_ms(fn, iters=ITERS, reps=REPS, warmup=WARMUP) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int = 20) -> float:
+def device_ms(fn, n: int = 20, tries: int = 3) -> float:
     """Mean device time of one call of fn: the sum of its kernels' CUPTI
-    durations (torch.profiler), without the host's launch time."""
+    durations (torch.profiler), without the host's launch time.  A profile
+    that recorded no kernel at all (seen once in a while) is taken again,
+    up to ``tries`` times, rather than read as 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / n / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / n / 1e3
+    raise AssertionError(f"device_ms: {tries} profiles recorded no kernel")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -263,29 +293,56 @@ def exact_stats(logits, slots, K) -> dict:
     B, H, W, C = logits.shape
     idx = slots.reshape(B, H * W).long()
     det = torch.sigmoid(logits[..., 0].double()).reshape(B, H * W)
-    cls = torch.softmax(logits[..., 1:].double(), -1).reshape(B, H * W, C - 1)
+    if logits.dtype == torch.bfloat16:  # the f32 softmax rounded to bf16, as summed
+        cls = torch.softmax(logits[..., 1:].float(), -1).bfloat16().double()
+    else:
+        cls = torch.softmax(logits[..., 1:].double(), -1)
+    cls = cls.reshape(B, H * W, C - 1)
     d = torch.zeros((B, K + 1), dtype=torch.float64, device=logits.device).scatter_add_(1, idx, det)
     c = torch.zeros((B, K + 1, C - 1), dtype=torch.float64, device=logits.device).scatter_add_(
         1, idx[..., None].expand(-1, -1, C - 1), cls)
     return {"det_sums": d[:, :K], "cls_sums": c[:, :K]}
 
 
-def check_stats(out, ref, name, atol=2e-6, exact=None) -> float:
+def bf16_cls_slack(logits, slots, K):
+    """(B, K, C-1): per slot and class, the most the sum of the bf16-rounded
+    class probabilities can move when the kernel's f32 softmax differs from
+    torch's by a few ulps (expf against torch's exp): the bf16 step at each
+    probability of the slot within 8 f32 ulps of a bf16 rounding boundary."""
+    import torch
+
+    B, H, W, C = logits.shape
+    sm = torch.softmax(logits[..., 1:].float(), -1)
+    step = (sm * (1 + 8 * 2.0**-24)).bfloat16().float() - (sm * (1 - 8 * 2.0**-24)).bfloat16().float()
+    idx = slots.reshape(B, H * W).long()
+    return torch.zeros((B, K + 1, C - 1), device=logits.device).scatter_add_(
+        1, idx[..., None].expand(-1, -1, C - 1), step.reshape(B, H * W, C - 1))[:, :K]
+
+
+def check_stats(out, ref, name, atol=2e-6, exact=None, logits=None) -> float:
     """Slot outputs and areas identical; det_sums / areas and cls_sums /
     areas within atol (f32 sums in another order) of the plain version's,
-    or of ``exact`` (``exact_stats``) where given.  Returns the max error
-    of the means."""
+    or of ``exact`` (``exact_stats``) where given.  On bf16 ``logits`` the
+    cls means may also move by ``bf16_cls_slack`` over the area (a
+    probability at a bf16 rounding boundary that expf rounds the other
+    way).  Returns the max error of the means."""
     for key in ("rootvals", "slots", "minx", "maxx", "num_components_total", "areas"):
         if not out[key].equal(ref[key]):
             raise AssertionError(f"{name}: {key} differs from the plain version")
     want = ref if exact is None else exact
     area = ref["areas"].clamp(min=1).to(want["det_sums"].dtype)
-    err = max(float((out["det_sums"] / area - want["det_sums"] / area).abs().max()),
-              float((out["cls_sums"] / area[..., None] - want["cls_sums"] / area[..., None])
-                    .abs().max()))
-    if not err <= atol:
-        raise AssertionError(f"{name}: stats means max|err| {err} > {atol}")
-    return err
+    err_det = (out["det_sums"] / area - want["det_sums"] / area).abs()
+    err_cls = (out["cls_sums"] / area[..., None] - want["cls_sums"] / area[..., None]).abs()
+    import torch
+
+    slack = 0.0
+    if logits is not None and logits.dtype == torch.bfloat16:
+        slack = bf16_cls_slack(logits, ref["slots"], out["areas"].shape[1]).to(area.dtype)
+        slack = slack / area[..., None]
+    if not (float(err_det.max()) <= atol and bool((err_cls <= atol + slack).all())):
+        raise AssertionError(f"{name}: stats means max|err| {float(err_det.max())}, "
+                             f"{float((err_cls - slack).max())} past the bf16 slack > {atol}")
+    return max(float(err_det.max()), float(err_cls.max()))
 
 
 def compare_detections(out, ref, det_logits, box_atol, score_atol):
@@ -312,12 +369,68 @@ def compare_detections(out, ref, det_logits, box_atol, score_atol):
     return int(near.sum()), int((v & ~sure).sum())
 
 
+def compare_bf16_detections(out, ref, det_out, det_ref, logit_tol, name,
+                            score_tol=SCORE_TOL_BF16, cls_tol=CLS_TOL_BF16,
+                            min_kept=1) -> dict:
+    """Detections of a bf16 route against another computation of the same
+    route (the card against the host CPU), whose logits may differ by a
+    bf16 rounding: a pixel may change sides of the threshold only where its
+    detection logit lies within ``logit_tol`` of it (checked), and an image
+    where one did is left out; in every other image valid, areas, counts
+    identical, classes where the top two mean probabilities are further
+    apart than ``cls_tol``, scores and class probabilities within their
+    tolerances, boxes within 1.5 px as corner sets (the JAX package's bound
+    between its routes, tests/test_quant.py:160-166).  Fails when fewer
+    than ``min_kept`` images are compared.  Returns what was measured."""
+    flipped = (det_out > 0) != (det_ref > 0)  # threshold 0.5: logit 0
+    if not (np.abs(det_ref[flipped]) <= logit_tol).all():
+        raise AssertionError(f"{name}: a mask differs away from the threshold")
+    keep = ~flipped.reshape(len(det_out), -1).any(1)
+    if keep.sum() < min_kept:
+        raise AssertionError(f"{name}: {int(keep.sum())} images compared, fewer than {min_kept}")
+    for key in ("valid", "areas", "num_detections", "num_components_total"):
+        if not np.array_equal(out[key][keep], ref[key][keep]):
+            raise AssertionError(f"{name}: {key} differs")
+    v = ref["valid"][keep]
+    srt = np.sort(ref["class_probs"][keep], -1)
+    sure = v & (srt[..., -1] - srt[..., -2] > cls_tol)
+    if not np.array_equal(out["classes"][keep][sure], ref["classes"][keep][sure]):
+        raise AssertionError(f"{name}: classes differ")
+    d_score = float(np.abs(out["scores"][keep][v] - ref["scores"][keep][v]).max(initial=0))
+    d_cls = float(np.abs(out["class_probs"][keep][v] - ref["class_probs"][keep][v]).max(initial=0))
+    if not (d_score <= score_tol and d_cls <= cls_tol):
+        raise AssertionError(f"{name}: scores {d_score} or class probabilities {d_cls} differ")
+    if not same_corner_sets(out["boxes"][keep][v], ref["boxes"][keep][v], 1.5).all():
+        raise AssertionError(f"{name}: boxes differ by more than 1.5 px")
+    return {"left_out": int((~keep).sum()), "compared_detections": int(v.sum()),
+            "score": d_score, "class_probs": d_cls,
+            "box": float(np.abs(out["boxes"][keep][v] - ref["boxes"][keep][v]).max(initial=0))}
+
+
+def logit_copies(run, numel: int) -> list:
+    """The copy and cast operators of one run of ``run`` (torch.profiler,
+    operator shapes) whose input has ``numel`` elements: on the bf16 path
+    with the logits' numel, any f32 copy of the whole logits."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    ops = ("aten::to", "aten::_to_copy", "aten::copy_", "aten::contiguous", "aten::clone")
+    return [(e.name, e.input_shapes) for e in prof.events() if e.name in ops
+            and any(sh and math.prod(sh) == numel for sh in e.input_shapes)]
+
+
 def is_stats_kernel(name: str) -> bool:
     """A device kernel of the torch one-hot stats: cuBLAS gemv or gemm (not
-    the stem's implicit-GEMM convolution), the one-hot compare, sigmoid or
-    softmax."""
+    the stem's implicit-GEMM convolution, nor a bf16 GEMM, which is the bf16
+    head's 1x1 conv as cuDNN may run it: the plain stats multiply in f32),
+    the one-hot compare, sigmoid or softmax."""
     n = name.lower()
-    gemm = "gemm" in n and "implicit" not in n and "conv" not in n
+    gemm = "gemm" in n and not any(t in n for t in ("implicit", "conv", "bf16"))
     return gemm or any(t in n for t in ("gemv", "compareeq", "sigmoid", "softmax"))
 
 
@@ -346,8 +459,11 @@ def profile_path(run, ms_per_batch: float, iters: int = 3) -> dict:
     stats_rows = [k for k, _ in rows if is_stats_kernel(k)]
     if stats_rows:
         raise AssertionError(f"the path ran torch stats kernels on the card: {stats_rows}")
+    by_name: dict[str, float] = {}  # kernels whose names share 100 chars are summed
+    for k, ms in rows:
+        by_name[k[:100]] = by_name.get(k[:100], 0.0) + ms
     return {
-        "profile_ms_per_batch": {k[:80]: ms for k, ms in rows[:20]},
+        "profile_ms_per_batch": dict(sorted(by_name.items(), key=lambda r: -r[1])[:24]),
         "device_busy_ms": busy,
         "busy_share": busy / ms_per_batch,
     }
@@ -580,26 +696,103 @@ def main() -> int:
             log(f"check rect_exact detect {hw[1]}x{hw[0]}: (B,K,H)={tuple(g['minx'].shape)}, rows "
                 f"max|err| {e:.3g} <= 1e-4, any_edge identical, {f} exact-tie flips")
 
+        # the bf16 variants of K1, K2 and K12c on the bf16 trunk's logits
+        # (channels-last bf16 from cuDNN) at the main path's and the large
+        # scans' shapes, the weights cast to bf16 as bench.py:290-291 does
+        phase("bf16 kernel checks")
+        params16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        params16_d = {k: v.to(dev) for k, v in params16.items()}
+        cfg16 = cfg.replace(dtype="bfloat16")
+        cfg_l16 = cfg_l.replace(dtype="bfloat16")
+        lg16 = fused_model_apply(params16_d, imgs_d.to(torch.bfloat16)[..., None], cfg16,
+                                 raw_gray=True, act_out=True)  # (B, 128, 128, 17) bf16
+        if lg16.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 trunk: logits {lg16.dtype}, expected bf16")
+        adv16 = torch.cat([adv.to(torch.bfloat16)[..., None], lg16[:8, ..., 1:]], -1)
+        lg16_all = torch.cat([lg16, adv16])
+        maps16 = lg16_all[..., 0].contiguous()
+        for conn in (8, 4):
+            lab_k = ccl_kernel.ccl_labels_from_logits(maps16, connectivity=conn)
+            if not torch.equal(lab_k, ccl_kernel.ccl_labels_reference(maps16, connectivity=conn)):
+                raise AssertionError(f"ccl bf16 ({conn}-conn): labels differ from the plain version")
+        log(f"check ccl bf16: {tuple(maps16.shape)} 8- and 4-connected labels identical")
+        lab16 = ccl_kernel.ccl_labels_reference(maps16)
+        geo16_k = postproc_kernel.component_slots(lg16_all, lab16, K)
+        geo16_p = postproc_kernel.component_slots_reference(lg16_all, lab16, K)
+        err_slots16 = check_stats(geo16_k, geo16_p, "slots bf16", logits=lg16_all)
+        again = postproc_kernel.component_slots(lg16_all, lab16, K)
+        if not all(torch.equal(geo16_k[k], again[k]) for k in geo16_k):
+            raise AssertionError("slots bf16: two launches differ")
+        log(f"check slots bf16: {tuple(lg16_all.shape)} strides {lg16_all.stride()} K={K}, slot "
+            f"outputs and areas identical, means max|err| {err_slots16:.3g} (<= 2e-6 plus a "
+            "bf16 step a probability at a rounding boundary), two launches bit for bit equal")
+        err_geo16 = 0.0
+        for conn in (8, 4):
+            fused_k = postproc_kernel.geometry_compat(lg16_all, K, connectivity=conn)
+            fused_p = postproc_kernel.geometry_compat_reference(lg16_all, K, connectivity=conn)
+            pair_k = postproc_kernel.component_slots(
+                lg16_all, ccl_kernel.ccl_labels_from_logits(maps16, connectivity=conn), K)
+            err_geo16 = max(err_geo16, check_stats(fused_k, fused_p, f"geometry_compat bf16 "
+                                                   f"({conn}-conn)", logits=lg16_all))
+            for key in fused_p:
+                if not torch.equal(fused_k[key], pair_k[key]):
+                    raise AssertionError(f"geometry_compat bf16 ({conn}-conn): {key} differs "
+                                         "from slots after CCL")
+        log(f"check geometry_compat bf16: 8- and 4-connected, slot outputs and areas identical "
+            f"to the plain version, means max|err| {err_geo16:.3g}; all eight outputs bit for "
+            "bit equal to the bf16 slots after the bf16 CCL")
+        lg_l16 = fused_model_apply(params16_d, scans_d.to(torch.bfloat16)[..., None], cfg_l16,
+                                   raw_gray=True, act_out=True)  # (8, 512, 512, 17) bf16
+        det_l16 = lg_l16[..., 0].contiguous()
+        maps_l16 = torch.cat([det_l16, torch.from_numpy(adversarial_maps(512)).to(dev)
+                              .to(torch.bfloat16)])
+        for conn in (4, 8):
+            lab_k = ccl_kernel.ccl_labels_tiled(maps_l16, connectivity=conn)
+            lab_p = ccl_kernel.ccl_labels_reference(maps_l16, connectivity=conn)
+            if not torch.equal(lab_k, lab_p):
+                raise AssertionError(f"ccl_tiled bf16 ({conn}-conn): labels differ")
+        log(f"check ccl_tiled bf16: {tuple(maps_l16.shape)} 8- and 4-connected labels identical")
+        lab_l16 = lab_p[: lg_l16.shape[0]]
+        geo_k = postproc_kernel.component_slots_tiled(lg_l16, lab_l16, K_l)
+        geo_p = postproc_kernel.component_slots_reference(lg_l16, lab_l16, K_l)
+        err_slots_l16 = check_stats(geo_k, geo_p, "slots_tiled bf16", logits=lg_l16,
+                                    exact=exact_stats(lg_l16, geo_p["slots"], K_l))
+        again = postproc_kernel.component_slots_tiled(lg_l16, lab_l16, K_l)
+        if not all(torch.equal(geo_k[k], again[k]) for k in geo_k):
+            raise AssertionError("slots_tiled bf16: two launches differ")
+        log(f"check slots_tiled bf16: {tuple(lg_l16.shape)} K={K_l}, slot outputs and areas "
+            f"identical, means max|err| {err_slots_l16:.3g} of the f64 sums (bf16 slack as "
+            "above), two launches bit for bit equal")
+
     # --- 3a. the main path, counting launches ---
     phase("main path")
+    # each kernel's wrapper and the count it keeps: the bf16 variants of
+    # K1, K2 and K12c count their launches in ``launches_bf16``
     wrappers = {
-        "context_layer": context_kernel.fused_context_head,
-        "ccl": ccl_kernel.ccl_labels_from_logits,
-        "slots": postproc_kernel.component_slots,
-        "geometry_compat": postproc_kernel.geometry_compat,
-        "rect_compact": rect_kernel.min_area_rect_compact,
-        "rect_exact": rect_kernel.min_area_rect_exact,
-        "ccl_tiled": ccl_kernel.ccl_labels_tiled,
-        "slots_tiled": postproc_kernel.component_slots_tiled,
+        "context_layer": (context_kernel.fused_context_head, "launches"),
+        "ccl": (ccl_kernel.ccl_labels_from_logits, "launches"),
+        "slots": (postproc_kernel.component_slots, "launches"),
+        "geometry_compat": (postproc_kernel.geometry_compat, "launches"),
+        "rect_compact": (rect_kernel.min_area_rect_compact, "launches"),
+        "rect_exact": (rect_kernel.min_area_rect_exact, "launches"),
+        "ccl_tiled": (ccl_kernel.ccl_labels_tiled, "launches"),
+        "slots_tiled": (postproc_kernel.component_slots_tiled, "launches"),
+        "ccl_bf16": (ccl_kernel.ccl_labels_from_logits, "launches_bf16"),
+        "slots_bf16": (postproc_kernel.component_slots, "launches_bf16"),
+        "geometry_compat_bf16": (postproc_kernel.geometry_compat, "launches_bf16"),
+        "ccl_tiled_bf16": (ccl_kernel.ccl_labels_tiled, "launches_bf16"),
+        "slots_tiled_bf16": (postproc_kernel.component_slots_tiled, "launches_bf16"),
     }
     tiled = ["ccl_tiled", "slots_tiled"]  # not on the 128² and smaller maps
+    bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", "ccl_tiled_bf16",
+            "slots_tiled_bf16"]  # not on the f32 paths
 
     def counted(run, must_launch, must_not):
-        for f in wrappers.values():
-            f.launches = 0
+        for f, attr in wrappers.values():
+            setattr(f, attr, 0)
         out = run()
         torch.cuda.synchronize()
-        n = {name: f.launches for name, f in wrappers.items()}
+        n = {name: getattr(f, attr) for name, (f, attr) in wrappers.items()}
         if not all(n[k] > 0 for k in must_launch) or any(n[k] for k in must_not):
             raise AssertionError(f"launches {n}: expected {must_launch} > 0, {must_not} == 0")
         return out, n
@@ -607,7 +800,7 @@ def main() -> int:
     main_kernels = ["context_layer", "ccl", "slots", "rect_compact"]
     (res_d, logits_d), n_main = counted(
         lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), device="cuda"),
-        main_kernels, ["geometry_compat", "rect_exact", *tiled])
+        main_kernels, ["geometry_compat", "rect_exact", *tiled, *bf16])
     launches = {k: n_main[k] for k in main_kernels}
     if n_main["context_layer"] != len(dil):
         raise AssertionError(f"main path: {n_main['context_layer']} context launches, "
@@ -641,7 +834,8 @@ def main() -> int:
     stream = StreamingDetector(cfg_q, params, QVGA, batch_size=B, device="cuda")
     got, n_stream = counted(
         lambda: list(stream.process(iter(frames))),
-        ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat", *tiled])
+        ["context_layer", "ccl", "slots", "rect_exact"],
+        ["rect_compact", "geometry_compat", *tiled, *bf16])
     launches["rect_exact"] = n_stream["rect_exact"]
     if n_stream["context_layer"] != N_FRAMES // B * len(cfg_q.dilations):
         raise AssertionError(f"stream: {n_stream['context_layer']} context launches, expected "
@@ -685,7 +879,7 @@ def main() -> int:
 
     res_c, n_compat = counted(
         compat_path, ["context_layer", "geometry_compat", "rect_compact"],
-        ["ccl", "slots", *tiled])
+        ["ccl", "slots", *tiled, *bf16])
     launches["geometry_compat"] = n_compat["geometry_compat"]
     for k, v in res_c.items():
         if not torch.equal(v, res_d[k]):
@@ -704,10 +898,10 @@ def main() -> int:
         (res_1, lg_1), n_detect = counted(
             lambda: detect_program(params_d, imgs[i], cfg, (IMG, IMG), device="cuda"),
             ["context_layer", "ccl", "slots", "rect_exact"],
-            ["rect_compact", "geometry_compat", *tiled])
+            ["rect_compact", "geometry_compat", *tiled, *bf16])
         dets, n_detect2 = counted(lambda: det_d.detect(imgs[i]),
                                   ["context_layer", "ccl", "slots", "rect_exact"],
-                                  ["rect_compact", "geometry_compat", *tiled])
+                                  ["rect_compact", "geometry_compat", *tiled, *bf16])
         launches["rect_exact_detect"] += n_detect["rect_exact"] + n_detect2["rect_exact"]
         ref_1, ref_lg_1 = detect_program(params, imgs[i], cfg, (IMG, IMG), device="cpu")
         lg_1 = lg_1.cpu().numpy()
@@ -736,7 +930,7 @@ def main() -> int:
     # --- 3e. large scans: B=8 2048² scans, the asset's config ---
     phase("large scans")
     large_kernels = ["context_layer", "ccl_tiled", "slots_tiled", "rect_compact"]
-    not_large = ["ccl", "slots", "geometry_compat", "rect_exact"]
+    not_large = ["ccl", "slots", "geometry_compat", "rect_exact", *bf16]
     (res_l, logits_l), n_large = counted(
         lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), device="cuda"),
         large_kernels, not_large)
@@ -797,7 +991,8 @@ def main() -> int:
         gh, gw = cfg_l.grid_size(*hw)
         big_map = (gh // 4) * (gw // 4) * 4 > ccl_kernel.MAX_SHARED_BYTES
         must = ["context_layer", "rect_exact", *(tiled if big_map else ["ccl", "slots"])]
-        must_not = ["rect_compact", "geometry_compat", *(["ccl", "slots"] if big_map else tiled)]
+        must_not = ["rect_compact", "geometry_compat", *bf16,
+                    *(["ccl", "slots"] if big_map else tiled)]
         (res_1, lg_1), n_1 = counted(
             lambda: detect_program(params_d, img, cfg_l, (gh, gw), device="cuda"), must, must_not)
         dets, n_2 = counted(lambda: det_l_d.detect(img), must, must_not)
@@ -820,6 +1015,182 @@ def main() -> int:
                 raise AssertionError(f"detect {hw}: a box differs from the plain route")
         log(f"detect {hw[1]}x{hw[0]}: {gh // 4}x{gw // 4} heatmap, launches of one call {n_2}; "
             f"{len(dets)} detections == the plain route on the host CPU")
+
+    # --- 3h. the bf16 main path (the JAX bench's default mode) ---
+    phase("bf16 main path")
+    main16 = ["ccl_bf16", "slots_bf16", "rect_compact"]
+    not16 = ["context_layer", "ccl", "slots", "geometry_compat", "geometry_compat_bf16",
+             "rect_exact", *tiled, "ccl_tiled_bf16", "slots_tiled_bf16"]
+    (res16_d, logits16_d), n_main16 = counted(
+        lambda: detect_program_batch(params16_d, imgs, cfg16, (IMG, IMG), device="cuda"),
+        main16, not16)
+    launches.update({k: n_main16[k] for k in ("ccl_bf16", "slots_bf16")})
+    res16 = {k: v.cpu().numpy() for k, v in res16_d.items()}
+    logits16 = logits16_d.cpu().numpy()
+    if not (logits16_d.dtype == torch.float32 and np.isfinite(logits16).all()
+            and logits16.shape == (B, IMG // 4, IMG // 4, 17)):
+        raise AssertionError("bf16 main path: logits not f32, not finite or of the wrong shape")
+    if int(res16["num_detections"].sum()) == 0:
+        raise AssertionError("bf16 main path: no valid detection")
+    t0 = time.perf_counter()
+    ref16, ref_lg16 = detect_program_batch(params16, imgs, cfg16, (IMG, IMG), device="cpu")
+    t_cpu16 = time.perf_counter() - t0
+    ref_lg16 = ref_lg16.numpy()
+    ulps16 = float(np.abs(logits16 - ref_lg16).max() / (np.abs(ref_lg16).max() * 2.0**-8))
+    if not ulps16 <= LOGIT_ULPS:
+        raise AssertionError(f"bf16 main path: logits {ulps16} bf16 ulps off the host CPU's")
+    tol16 = LOGIT_ULPS * 2.0**-8 * float(np.abs(ref_lg16).max())
+    cmp16 = compare_bf16_detections(res16, {k: v.numpy() for k, v in ref16.items()},
+                                    logits16[..., 0], ref_lg16[..., 0], tol16, "bf16 main path")
+    # the JAX perf mode's contract (tests/test_context_kernel.py:76-97): the
+    # same count and classes as f32, scene by scene; reported, not gated
+    same_count = res16["num_detections"] == res["num_detections"]
+    same_cls = np.array([np.array_equal(res16["classes"][b][res16["valid"][b]],
+                                        res["classes"][b][res["valid"][b]]) for b in range(B)])
+    agree16 = int((same_count & same_cls).sum())
+    log(f"bf16 main path: B={B} {IMG}x{IMG} uint8 bf16 K={K} M={M}, launches {n_main16}; "
+        f"{int(res16['num_detections'].sum())} detections; == the bf16 route on the host CPU "
+        f"({t_cpu16:.1f} s): logits max|err| {ulps16:.3g} bf16 ulps of max|logit|, {cmp16}; "
+        f"{agree16} of {B} scenes with the f32 path's count and classes")
+    copies = logit_copies(
+        lambda: detect_program_batch(params16_d, imgs_d, cfg16, (IMG, IMG),
+                                     detections_only=True, device="cuda"),
+        B * (IMG // 4) ** 2 * 17)
+    if copies:
+        raise AssertionError(f"bf16 main path: copies of the whole logits {copies}")
+
+    # --- 3i. the bf16 compat route ---
+    phase("bf16 compat route")
+
+    def compat16():
+        old = os.environ.get("UBDVSS_PALLAS_COMPAT")
+        os.environ["UBDVSS_PALLAS_COMPAT"] = "1"
+        try:
+            return detect_program_batch(
+                params16_d, imgs, cfg16, (IMG, IMG), detections_only=True, device="cuda")[0]
+        finally:
+            if old is None:
+                del os.environ["UBDVSS_PALLAS_COMPAT"]
+            else:
+                os.environ["UBDVSS_PALLAS_COMPAT"] = old
+
+    res16_c, n_compat16 = counted(
+        compat16, ["geometry_compat_bf16", "rect_compact"],
+        ["context_layer", "ccl", "slots", "ccl_bf16", "slots_bf16", "geometry_compat", *tiled,
+         "ccl_tiled_bf16", "slots_tiled_bf16"])
+    launches["geometry_compat_bf16"] = n_compat16["geometry_compat_bf16"]
+    for k, v in res16_c.items():
+        if not torch.equal(v, res16_d[k]):
+            raise AssertionError(f"bf16 compat route: {k} differs from the bf16 default route")
+    with torch.inference_mode():
+        lg16_main = fused_model_apply(params16_d, imgs_d.to(torch.bfloat16)[..., None], cfg16,
+                                      raw_gray=True, act_out=True)
+        fused16 = postproc_kernel.geometry_compat(lg16_main, K)
+        pair16 = postproc_kernel.component_slots(
+            lg16_main, ccl_kernel.ccl_labels_from_logits(lg16_main[..., 0].contiguous()), K)
+    for key in fused16:
+        if not torch.equal(fused16[key], pair16[key]):
+            raise AssertionError(f"bf16 compat route: K12c's {key} differs from the bf16 K2's")
+    log(f"bf16 compat route: launches {n_compat16}; detections identical to the bf16 default "
+        "route; K12c's eight outputs bit for bit equal to the bf16 K2's after K1")
+
+    # --- 3j. bf16 large scans: B=8 2048² scans, the asset's config ---
+    phase("bf16 large scans")
+    (res_l16, logits_l16), n_large16 = counted(
+        lambda: detect_program_batch(params16_d, scans, cfg_l16, (SCAN, SCAN), device="cuda"),
+        ["ccl_tiled_bf16", "slots_tiled_bf16", "rect_compact"],
+        ["context_layer", "ccl", "slots", "ccl_bf16", "slots_bf16", "geometry_compat",
+         "geometry_compat_bf16", "rect_exact", *tiled])
+    launches.update({k: n_large16[k] for k in ("ccl_tiled_bf16", "slots_tiled_bf16")})
+    res_l16 = {k: v.cpu().numpy() for k, v in res_l16.items()}
+    logits_l16 = logits_l16.cpu().numpy()
+    if not (np.isfinite(logits_l16).all() and logits_l16.shape == (B_SCAN, SCAN // 4, SCAN // 4, 17)):
+        raise AssertionError("bf16 large scans: logits not finite or of the wrong shape")
+    t0 = time.perf_counter()
+    ref_l16, ref_lg_l16 = detect_program_batch(params16, scans[:n_cmp], cfg_l16, (SCAN, SCAN),
+                                               device="cpu")
+    t_cpu_l16 = time.perf_counter() - t0
+    ref_lg_l16 = ref_lg_l16.numpy()
+    ulps_l16 = float(np.abs(logits_l16[:n_cmp] - ref_lg_l16).max()
+                     / (np.abs(ref_lg_l16).max() * 2.0**-8))
+    if not ulps_l16 <= LOGIT_ULPS:
+        raise AssertionError(f"bf16 large scans: logits {ulps_l16} bf16 ulps off the host CPU's")
+    cmp_l16 = compare_bf16_detections(
+        {k: v[:n_cmp] for k, v in res_l16.items()}, {k: v.numpy() for k, v in ref_l16.items()},
+        logits_l16[:n_cmp, ..., 0], ref_lg_l16[..., 0],
+        LOGIT_ULPS * 2.0**-8 * float(np.abs(ref_lg_l16).max()), "bf16 large scans")
+    log(f"bf16 large scans: B={B_SCAN} {SCAN}x{SCAN} uint8 bf16 K={K_l} M={M_l}, launches "
+        f"{n_large16}; {int(res_l16['num_detections'].sum())} detections; the first {n_cmp} == "
+        f"the bf16 route on the host CPU ({t_cpu_l16:.1f} s): logits max|err| {ulps_l16:.3g} "
+        f"ulps, {cmp_l16}")
+
+    # --- 3k. bf16 detect (512² and 640x480) and the QVGA stream ---
+    phase("bf16 detect and stream")
+    det16_d = BarcodeDetector(cfg16, params16, device="cuda")
+    det16_h = BarcodeDetector(cfg16, params16, device="cpu")
+    det16_ld = BarcodeDetector(cfg_l16, params16, device="cuda")
+    det16_lh = BarcodeDetector(cfg_l16, params16, device="cpu")
+    detect16 = {}
+    for name, c16, dd, dh, img in (("512x512", cfg16, det16_d, det16_h, imgs[0]),
+                                   ("640x480", cfg_l16, det16_ld, det16_lh, photos[0])):
+        # detect_program runs BarcodeFCN in bf16, whose logits are f32 (as
+        # the JAX package's get_model(cfg).apply), then the f32 K1, K2, K3x
+        out_hw = c16.grid_size(*img.shape[:2])
+        must16 = ["ccl", "slots", "rect_exact"]
+        not_detect16 = ["context_layer", "rect_compact", "geometry_compat", *tiled, *bf16]
+        (res_1, lg_1), _ = counted(
+            lambda: detect_program(params16_d, img, c16, out_hw, device="cuda"), must16,
+            not_detect16)
+        dets, n_16 = counted(lambda: dd.detect(img), must16, not_detect16)
+        ref_1, ref_lg_1 = detect_program(params16, img, c16, out_hw, device="cpu")
+        lg_1, ref_lg_1 = lg_1.cpu().numpy(), ref_lg_1.numpy()
+        ulps_1 = float(np.abs(lg_1 - ref_lg_1).max() / (np.abs(ref_lg_1).max() * 2.0**-8))
+        if not ulps_1 <= LOGIT_ULPS:
+            raise AssertionError(f"bf16 detect {name}: logits {ulps_1} ulps off the host CPU's")
+        cmp_1 = compare_bf16_detections(
+            {k: v.cpu().numpy()[None] for k, v in res_1.items()},
+            {k: v.numpy()[None] for k, v in ref_1.items()}, lg_1[None, ..., 0],
+            ref_lg_1[None, ..., 0], LOGIT_ULPS * 2.0**-8 * float(np.abs(ref_lg_1).max()),
+            f"bf16 detect {name}", min_kept=0)
+        detect16[name] = {"launches": n_16, "detections": len(dets), "logit_ulps": ulps_1,
+                          **cmp_1}
+        if cmp_1["left_out"]:
+            continue  # a pixel at the threshold changed sides: compared above
+        ref_dets = dh.detect(img)
+        hm_d, hm_h = dd.heatmap(img), dh.heatmap(img)
+        detect16[name]["heatmap_max_abs_diff"] = float(np.abs(hm_d - hm_h).max())
+        if not dets or len(dets) != len(ref_dets):
+            raise AssertionError(f"bf16 detect {name}: {len(dets)} detections, "
+                                 f"{len(ref_dets)} on the host CPU")
+        for o, r in zip(dets, ref_dets):
+            if (o.class_id, o.area) != (r.class_id, r.area) or abs(o.score - r.score) > SCORE_TOL_BF16:
+                raise AssertionError(f"bf16 detect {name}: a detection differs from the host CPU's")
+            if not same_corner_sets(o.box, r.box, 1.5):
+                raise AssertionError(f"bf16 detect {name}: a box differs by more than 1.5 px")
+    log(f"bf16 detect: {detect16}; == the host CPU's detections")
+    cfg_q16 = cfg_q.replace(dtype="bfloat16")
+    stream16 = StreamingDetector(cfg_q16, params16, QVGA, batch_size=B, device="cuda")
+    got16, n_stream16 = counted(
+        lambda: list(stream16.process(iter(frames))), ["ccl_bf16", "slots_bf16", "rect_exact"],
+        ["context_layer", "ccl", "slots", "rect_compact", "geometry_compat",
+         "geometry_compat_bf16", *tiled, "ccl_tiled_bf16", "slots_tiled_bf16"])
+    res_s16 = {k: np.stack([d[k] for _, d in got16]) for k in got16[0][1]}
+    ref_s16, lg_s16, lg_s16_d = {}, [], []
+    for b0 in range(0, N_FRAMES, B):
+        r, lg = detect_program_batch(params16, frames[b0:b0 + B], cfg_q16, QVGA, device="cpu")
+        for k, v in r.items():
+            ref_s16.setdefault(k, []).append(v.numpy())
+        lg_s16.append(lg[..., 0].numpy())
+        lg_s16_d.append(detect_program_batch(params16_d, frames[b0:b0 + B], cfg_q16, QVGA,
+                                             device="cuda")[1][..., 0].cpu().numpy())
+    ref_s16 = {k: np.concatenate(v) for k, v in ref_s16.items()}
+    lg_s16, lg_s16_d = np.concatenate(lg_s16), np.concatenate(lg_s16_d)
+    cmp_s16 = compare_bf16_detections(res_s16, ref_s16, lg_s16_d, lg_s16,
+                                      LOGIT_ULPS * 2.0**-8 * float(np.abs(lg_s16).max()),
+                                      "bf16 stream")
+    log(f"bf16 stream: {N_FRAMES} frames {QVGA[0]}x{QVGA[1]} uint8, batch {B}, launches "
+        f"{n_stream16}; {int(res_s16['num_detections'].sum())} detections; == the bf16 route "
+        f"on the host CPU: {cmp_s16}")
 
     # --- 4. timing ---
     phase("timing")
@@ -1000,6 +1371,84 @@ def main() -> int:
             "context_layer_large_device_ms": device_ms(
                 lambda: context_kernel.fused_context_head(xl, *w_l, dil_l), n=5),
         }
+    # the bf16 variants at their paths' shapes, on the bf16 trunk's logits:
+    # the main path's B=64 128² maps (K=16), the large scans' B=8 512² maps
+    # (K=64); a logit is 2 B
+    with torch.inference_mode():
+        det16 = lg16_main[..., 0].contiguous()
+        lab16m = ccl_kernel.ccl_labels_from_logits(det16)
+        geo16 = postproc_kernel.component_slots(lg16_main, lab16m, K)
+        in_slot16 = int((geo16["slots"] < K).sum())
+        stats16_bytes = in_slot16 * (O - 1) * 2 + Bm * K * (O + 1) * 4
+        lab_l16m = ccl_kernel.ccl_labels_tiled(det_l16)
+        geo_l16 = postproc_kernel.component_slots_tiled(lg_l16, lab_l16m, K_l)
+        in_slot_l16 = int((geo_l16["slots"] < K_l).sum())
+        kernels += [
+            dict(
+                name="ccl_bf16", route="cuda", source="ubdvss_tpu_torch/csrc/ccl_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/ccl_kernel.py:116",
+                launches=launches["ccl_bf16"], max_abs_err=0.0,
+                ms=time_ms(lambda: ccl_kernel.ccl_labels_from_logits(det16)),
+                device_ms=device_ms(lambda: ccl_kernel.ccl_labels_from_logits(det16)),
+                plain_ms=time_ms(lambda: ccl_kernel.ccl_labels_reference(det16)),
+                library_ms=None,
+                bound=bound(px * 6, px * 9),  # bf16 logits in, labels out
+            ),
+            dict(
+                name="ccl_tiled_bf16", route="cuda", source="ubdvss_tpu_torch/csrc/ccl_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/ccl_kernel.py:116",
+                launches=launches["ccl_tiled_bf16"], max_abs_err=0.0,
+                ms=time_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l16)),
+                device_ms=device_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l16)),
+                plain_ms=time_ms(lambda: ccl_kernel.ccl_labels_reference(det_l16), iters=3, reps=1),
+                library_ms=None,
+                bound=bound(px_l * 6, px_l * 9),
+            ),
+            dict(
+                name="slots_bf16", route="cuda", source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130",
+                launches=launches["slots_bf16"], max_abs_err=err_slots16,
+                ms=time_ms(lambda: postproc_kernel.component_slots(lg16_main, lab16m, K)),
+                device_ms=device_ms(lambda: postproc_kernel.component_slots(lg16_main, lab16m, K)),
+                plain_ms=time_ms(
+                    lambda: postproc_kernel.component_slots_reference(lg16_main, lab16m, K)),
+                # the torch one-hot stats on the bf16 logits
+                library_ms=time_ms(
+                    lambda: postproc_kernel._stats_reference(lg16_main, geo16["slots"], K)),
+                bound=bound(px * 10 + Bm * K * (2 * H + 1) * 4 + Bm * 4 + stats16_bytes,
+                            px * 4 + in_slot16 * O * 8),
+            ),
+            dict(
+                name="slots_tiled_bf16", route="cuda",
+                source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130",
+                launches=launches["slots_tiled_bf16"], max_abs_err=err_slots_l16,
+                ms=time_ms(lambda: postproc_kernel.component_slots_tiled(lg_l16, lab_l16m, K_l)),
+                device_ms=device_ms(
+                    lambda: postproc_kernel.component_slots_tiled(lg_l16, lab_l16m, K_l)),
+                plain_ms=time_ms(
+                    lambda: postproc_kernel.component_slots_reference(lg_l16, lab_l16m, K_l),
+                    iters=3, reps=1),
+                library_ms=time_ms(
+                    lambda: postproc_kernel._stats_reference(lg_l16, geo_l16["slots"], K_l),
+                    iters=3, reps=1),
+                bound=bound(px_l * 10 + Bl * K_l * (2 * Hl + 1) * 4 + Bl * 4
+                            + in_slot_l16 * (O - 1) * 2 + Bl * K_l * (O + 1) * 4,
+                            px_l * 4 + in_slot_l16 * O * 8),
+            ),
+            dict(
+                name="geometry_compat_bf16", route="cuda",
+                source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50",
+                launches=launches["geometry_compat_bf16"], max_abs_err=err_geo16,
+                ms=time_ms(lambda: postproc_kernel.geometry_compat(lg16_main, K)),
+                device_ms=device_ms(lambda: postproc_kernel.geometry_compat(lg16_main, K)),
+                plain_ms=time_ms(lambda: postproc_kernel.geometry_compat_reference(lg16_main, K)),
+                library_ms=None,
+                bound=bound(px * 6 + Bm * K * (2 * H + 1) * 4 + Bm * 4 + stats16_bytes,
+                            px * 13 + in_slot16 * O * 8),
+            ),
+        ]
     for kd in kernels:
         kd["bound_ms"], kd["bound_by"] = kd.pop("bound")
         log(f"time {kd['name']}: {kd['ms']:.4f} ms/call, device {kd['device_ms']:.4f} (plain "
@@ -1081,6 +1530,51 @@ def main() -> int:
     }))
     log(json.dumps({"path": "BarcodeDetector.detect, one host image, the asset's config",
                     "K": K_l, "sizes": detect_ms}))
+
+    # the bf16 paths: the main path, the large scans, the stream, a detect call
+    phase("bf16 timing")
+    with torch.inference_mode():
+        def run16(images=imgs_d):
+            return detect_program_batch(params16_d, images, cfg16, (IMG, IMG),
+                                        detections_only=True, device="cuda")
+
+        def run_l16(images=scans_d):
+            return detect_program_batch(params16_d, images, cfg_l16, (SCAN, SCAN),
+                                        detections_only=True, device="cuda")
+
+        def run_stream16():
+            return list(stream16.process(iter(frames)))
+
+        ms16 = time_ms(run16)
+        ms16_host = time_ms(lambda: run16(imgs))
+        prof16 = profile_path(run16, ms16)
+        ms_l16 = time_ms(run_l16, iters=5, reps=3)
+        prof_l16 = profile_path(run_l16, ms_l16)
+        ms_stream16 = time_ms(run_stream16, iters=3, reps=1, warmup=1)
+        prof_s16 = profile_path(run_stream16, ms_stream16, 2)
+        ms_detect16 = time_ms(lambda: det16_d.detect(imgs[0]), iters=10, reps=3)
+        dev_detect16 = device_ms(lambda: det16_d.detect(imgs[0]), n=10)
+    log(json.dumps({
+        "path": "detect_program_batch fused bf16, uint8 images on the card",
+        "batch": B, "image": IMG, "K": K, "M": M, "ms_per_batch": ms16,
+        "img_per_s": B / ms16 * 1e3, "ms_per_batch_host_images": ms16_host,
+        "img_per_s_host_images": B / ms16_host * 1e3, "plain_cpu_s": t_cpu16,
+        "scenes_agreeing_with_f32": agree16, "launches": n_main16,
+    }))
+    log(json.dumps({"bf16_profile": prof16}))
+    log(json.dumps({
+        "path": "detect_program_batch fused bf16, 2048x2048 uint8 scans on the card",
+        "batch": B_SCAN, "image": SCAN, "K": K_l, "M": M_l, "ms_per_batch": ms_l16,
+        "scans_per_s": B_SCAN / ms_l16 * 1e3, "launches": n_large16,
+    }))
+    log(json.dumps({"bf16_large_scan_profile": prof_l16}))
+    log(json.dumps({
+        "path": "StreamingDetector QVGA bf16, uint8 host frames", "frames": N_FRAMES,
+        "ms_per_stream": ms_stream16, "frames_per_s": N_FRAMES / ms_stream16 * 1e3,
+        "device_busy_ms": prof_s16["device_busy_ms"], "busy_share": prof_s16["busy_share"],
+    }))
+    log(json.dumps({"path": "BarcodeDetector.detect bf16, one 512x512 uint8 host image",
+                    "ms_per_image": ms_detect16, "device_ms_per_image": dev_detect16}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

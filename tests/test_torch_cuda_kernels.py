@@ -648,11 +648,16 @@ def test_ccl_tiled_matches_uncapped_reference(dev, kind, shape, connectivity):
 def _stats_f64(lg: torch.Tensor, slots: torch.Tensor, K: int) -> dict:
     """The plain version's stats, its one-hot products taken in f64 (at a
     million pixels a component the f32 products drift from the exact sum
-    by more than the kernels' own rounding)."""
+    by more than the kernels' own rounding).  On bf16 logits the class
+    probabilities are the f32 softmax rounded to bf16, as the kernels and
+    the JAX package sum them."""
     B, H, W, C = lg.shape
     onehot = (slots.view(B, 1, H * W) == torch.arange(K, device=lg.device).view(1, K, 1)).double()
     det = torch.sigmoid(lg[..., 0].double()).reshape(B, H * W, 1)
-    cls = torch.softmax(lg[..., 1:].double(), -1).reshape(B, H * W, C - 1)
+    if lg.dtype == torch.bfloat16:
+        cls = torch.softmax(lg[..., 1:].float(), -1).bfloat16().double().reshape(B, H * W, C - 1)
+    else:
+        cls = torch.softmax(lg[..., 1:].double(), -1).reshape(B, H * W, C - 1)
     return {"det_sums": torch.bmm(onehot, det)[..., 0], "cls_sums": torch.bmm(onehot, cls)}
 
 
@@ -703,3 +708,210 @@ def test_rect_kernels_at_large_heights(dev, H):
         ref = rect_kernel.min_area_rect_select_reference(minx, maxx, M)
         assert torch.equal(out[:, 6], ref[:, 6])
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+# ---- bf16 logits (the bf16 route's trunk output) ----
+
+_BF16_SHAPES = [(3, 128, 128, 16), (3, 256, 64, 16), (2, 512, 512, 64)]
+
+
+def _bf16_head_logits(shape, layout, dev):
+    """bf16 (B, H, W, 17) logits over blob, noise and snake detection maps:
+    the NHWC view over (B, 17, H, W) planes, or channels-last storage (what
+    cuDNN's bf16 head may write)."""
+    B, H, W, K = shape
+    lg = _head_logits(_maps(H + K, B, H, W), 17, K, dev).to(torch.bfloat16)
+    return lg.contiguous() if layout == "channels_last" else lg
+
+
+def _bf16_cls_slack(lg: torch.Tensor, slots: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, K, C-1): per slot and class, the most the sum of the bf16-rounded
+    class probabilities can move when the kernel's f32 softmax differs from
+    torch's by a few ulps (expf against torch's exp, another order of the
+    denominator's sum): the bf16 step at every probability of the slot that
+    lies within 8 f32 ulps of a bf16 rounding boundary."""
+    B, H, W, C = lg.shape
+    sm = torch.softmax(lg[..., 1:].float(), -1)
+    step = (sm * (1 + 8 * 2.0**-24)).bfloat16().float() - (sm * (1 - 8 * 2.0**-24)).bfloat16().float()
+    onehot = (slots.view(B, 1, H * W) == torch.arange(K, device=lg.device).view(1, K, 1)).float()
+    return torch.bmm(onehot, step.reshape(B, H * W, C - 1))
+
+
+def assert_bf16_stats_close(out: dict, ref: dict, lg: torch.Tensor, K: int, exact=None) -> float:
+    """Slot outputs and areas identical; det_sums / areas within 2e-6 (the
+    sigmoid is not rounded); cls_sums / areas within 2e-6 plus the slack of
+    probabilities at a bf16 rounding boundary (``_bf16_cls_slack``) over
+    the area, of the plain version or of ``exact`` (``_stats_f64``).
+    Returns the largest cls error past 2e-6 in bf16 steps a pixel."""
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], ref[key]), key
+    want = ref if exact is None else exact
+    area = ref["areas"].clamp(min=1).to(want["det_sums"].dtype)
+    torch.testing.assert_close(out["det_sums"] / area, want["det_sums"] / area, atol=2e-6, rtol=0)
+    err = (out["cls_sums"] / area[..., None] - want["cls_sums"] / area[..., None]).abs()
+    slack = _bf16_cls_slack(lg, ref["slots"], K).to(err.dtype) / area[..., None]
+    assert bool((err <= 2e-6 + slack).all()), float((err - slack).max())
+    return float((err - 2e-6).clamp(min=0).max())
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("shape", _BF16_SHAPES)
+def test_bf16_ccl_matches_plain(dev, shape, connectivity):
+    """K1 (one block a map) and the device-memory K1 on bf16 detection
+    logits: labels identical to the plain version's and to the kernels' on
+    the f32 copy of the same logits; the router takes the bf16 kernels
+    (``launches_bf16``) and no f32 one."""
+    B, H, W, K = shape
+    lg = torch.from_numpy(_maps(H + K, B, H, W)).to(dev).to(torch.bfloat16)
+    ref = ccl_kernel.ccl_labels_reference(lg, 0.5, connectivity)
+    assert torch.equal(ccl_kernel.ccl_labels_tiled(lg, 0.5, connectivity), ref)
+    for f in (ccl_kernel.ccl_labels_tiled, ccl_kernel.ccl_labels_from_logits):
+        f.launches = f.launches_bf16 = 0
+    routed = ccl_kernel.ccl_labels_from_logits(lg, 0.5, connectivity)
+    assert torch.equal(routed, ref)
+    assert torch.equal(routed, ccl_kernel.ccl_labels_from_logits(lg.float(), 0.5, connectivity))
+    big = H * W * 4 > ccl_kernel.MAX_SHARED_BYTES
+    tiled, one = ccl_kernel.ccl_labels_tiled, ccl_kernel.ccl_labels_from_logits
+    assert (tiled.launches_bf16, one.launches_bf16) == ((1, 0) if big else (0, 1))
+    assert (tiled.launches, one.launches) == ((1, 0) if big else (0, 1))  # the f32 copy's
+
+
+@pytest.mark.parametrize("layout", ["planes", "channels_last"])
+@pytest.mark.parametrize("shape", _BF16_SHAPES)
+def test_bf16_slots_match_plain_and_compat(dev, shape, layout):
+    """K2 (the cluster kernel where K12c fits, else the tiled one) and the
+    tiled K2 on bf16 logits, at 128², the tall 256x64 map and a 512² map
+    with K=64: slot outputs and areas identical to the plain version's and
+    to the kernels' on the f32 copy of the logits; means within the bounds
+    of ``assert_bf16_stats_close`` (the large map's against the sums in
+    f64); two launches bit for bit; K12c, where it runs, equal to K2 bit for
+    bit on bf16 too."""
+    B, H, W, K = shape
+    lg = _bf16_head_logits(shape, layout, dev)
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
+    fits = postproc_kernel.geometry_compat_fits(H, W, K, 17)
+    for f in (postproc_kernel.component_slots, postproc_kernel.component_slots_tiled):
+        f.launches = f.launches_bf16 = 0
+    out = postproc_kernel.component_slots(lg, lab, K)
+    assert (postproc_kernel.component_slots.launches_bf16,
+            postproc_kernel.component_slots_tiled.launches_bf16) == ((1, 0) if fits else (0, 1))
+    ref = postproc_kernel.component_slots_reference(lg, lab, K)
+    exact = None if fits else _stats_f64(lg, ref["slots"], K)
+    assert_bf16_stats_close(out, ref, lg, K, exact)
+    again = postproc_kernel.component_slots(lg, lab, K)
+    for key in out:
+        assert torch.equal(out[key], again[key]), key
+    f32 = postproc_kernel.component_slots(lg.float(), lab, K)
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], f32[key]), key
+    tiled = postproc_kernel.component_slots_tiled(lg, lab, K)
+    assert_bf16_stats_close(tiled, ref, lg, K, _stats_f64(lg, ref["slots"], K))
+    if fits:
+        fused = postproc_kernel.geometry_compat(lg, K)
+        assert postproc_kernel.geometry_compat.launches_bf16 >= 1
+        for key in out:
+            assert torch.equal(fused[key], out[key]), key
+    assert postproc_kernel.component_slots.launches == int(fits)  # the f32 copy's launch
+
+
+def test_bf16_wrappers_raise_where_f32_ones_do(dev):
+    """No route falls back to another: on bf16 logits K12c past its shared
+    memory and the stats kernels past MAX_CHANNELS raise
+    NotImplementedError naming ROADMAP.md §2a, as on f32."""
+    big = torch.zeros((1, 400, 300), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
+        postproc_kernel.geometry_compat(big, 16)
+    lg = torch.zeros((1, 8, 8, postproc_kernel.MAX_CHANNELS + 1), dtype=torch.bfloat16,
+                     device=dev)
+    lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
+    for call in (lambda: postproc_kernel.component_slots(lg, lab, 4),
+                 lambda: postproc_kernel.component_slots_tiled(lg, lab, 4),
+                 lambda: postproc_kernel.geometry_compat(lg, 4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
+            call()
+    with pytest.raises(TypeError, match="bfloat16"):
+        ccl_kernel.ccl_labels_from_logits(big.half())
+
+
+def _assert_bf16_route_matches(out, ref, lg_out, lg_ref, logit_ulps=4):
+    """A bf16 route on the card against the same route on the CPU (cuDNN
+    and oneDNN sum in other orders, so one bf16 rounding may differ): logits
+    within ``logit_ulps`` bf16 ulps of max|logit|; a pixel may change sides
+    of the threshold only within that tolerance of it, and an image where
+    one did is left out; elsewhere valid, areas, counts identical, classes
+    where the top two mean probabilities are more than 1e-2 apart, scores
+    within 1e-3, class probabilities within 1e-2, boxes within 1.5 px as
+    corner sets (tests/test_torch_bf16.py's tolerances)."""
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    ref = {k: v.numpy() for k, v in ref.items()}
+    lo, lr = lg_out.cpu().numpy(), lg_ref.numpy()
+    tol = logit_ulps * 2.0**-8 * np.abs(lr).max()
+    assert np.abs(lo - lr).max() <= tol
+    flipped = (lo[..., 0] > 0) != (lr[..., 0] > 0)
+    assert (np.abs(lr[..., 0][flipped]) <= tol).all()
+    keep = ~flipped.reshape(len(lo), -1).any(1)
+    assert keep.any()
+    for key in ("valid", "areas", "num_detections", "num_components_total"):
+        np.testing.assert_array_equal(out[key][keep], ref[key][keep], err_msg=key)
+    v = ref["valid"][keep]
+    assert v.any()
+    srt = np.sort(ref["class_probs"][keep], -1)
+    sure = v & (srt[..., -1] - srt[..., -2] > 1e-2)
+    np.testing.assert_array_equal(out["classes"][keep][sure], ref["classes"][keep][sure])
+    np.testing.assert_allclose(out["scores"][keep][v], ref["scores"][keep][v], atol=1e-3)
+    np.testing.assert_allclose(out["class_probs"][keep][v], ref["class_probs"][keep][v], atol=1e-2)
+    perms = np.array(list(permutations(range(4))))
+    d = np.linalg.norm(out["boxes"][keep][v][:, :, None] - ref["boxes"][keep][v][:, None], axis=-1)
+    assert (d[:, np.arange(4), perms].max(-1).min(-1) <= 1.5).all()
+
+
+@pytest.mark.parametrize("asset,case", [
+    ("pretrained_synthetic", "fused"), ("pretrained_synthetic", "xla"),
+    ("pretrained_synthetic", "strips"), ("pretrained_synthetic", "preprocessed"),
+    ("pretrained_dense_synthetic", "fused"),
+])
+def test_bf16_entry_points_on_card_match_cpu(dev, asset, case):
+    """The bf16 mode's batch entry points on the card (the weights cast to
+    bf16, as bench.py does) against the same calls on the CPU: the fused
+    route (bf16 stem and dense-equivalent context, the bf16 CCL and slots
+    kernels; K4 not launched), ``fused=False`` (BarcodeFCN in bf16, f32
+    logits, the f32 kernels), ``n_strips=2`` on 576x128 scenes,
+    ``detect_preprocessed_batch``, and a dense config (BarcodeFCN on the
+    fused postprocessing).  The returned logits are f32."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import (
+        detect_preprocessed_batch,
+        detect_program_batch,
+        load_net_config,
+        load_params_npz,
+        params_from_flat,
+    )
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / f"{asset}.npz"
+    cfg = load_net_config(path).replace(dtype="bfloat16", max_components=16)
+    params = {k: v.to(torch.bfloat16) for k, v in params_from_flat(load_params_npz(path)).items()}
+    hw = (576, 128) if case == "strips" else (128, 128)
+    reader = SyntheticMarkupReader(n_samples=4, image_hw=hw, seed=31)
+    imgs = np.stack([reader.sample_at(i).image for i in range(4)])
+    context_kernel.fused_context_head.launches = 0
+    for f in (ccl_kernel.ccl_labels_from_logits, postproc_kernel.component_slots):
+        f.launches = f.launches_bf16 = 0
+    if case == "preprocessed":
+        x = (imgs.astype(np.float32) * np.float32(1 / 127.5) - 1.0)[..., None]
+        out, lg = detect_preprocessed_batch(params, x, cfg, device=dev)
+        ref, lg_ref = detect_preprocessed_batch(params, x, cfg, device="cpu")
+    else:
+        kw = {"xla": dict(fused=False), "strips": dict(n_strips=2)}.get(case, {})
+        out, lg = detect_program_batch(params, imgs, cfg, hw, device=dev, **kw)
+        ref, lg_ref = detect_program_batch(params, imgs, cfg, hw, device="cpu", **kw)
+    assert lg.dtype == lg_ref.dtype == torch.float32
+    assert context_kernel.fused_context_head.launches == 0
+    bf16_trunk = cfg.separable_context and case != "xla"
+    assert ccl_kernel.ccl_labels_from_logits.launches_bf16 == int(bf16_trunk)
+    assert postproc_kernel.component_slots.launches_bf16 == int(bf16_trunk)
+    assert ccl_kernel.ccl_labels_from_logits.launches == int(not bf16_trunk)
+    assert int(ref["num_detections"].sum()) > 0
+    _assert_bf16_route_matches(out, ref, lg, lg_ref)
+

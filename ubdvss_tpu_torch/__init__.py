@@ -14,7 +14,7 @@ from ubdvss_tpu_torch.inference import (
     detect_program,
     detect_program_batch,
 )
-from ubdvss_tpu_torch.models.model import BarcodeFCN, get_model
+from ubdvss_tpu_torch.models.model import BarcodeFCN, get_model, param_count
 from ubdvss_tpu_torch.net_config import CLASS_GROUPS, DEFAULT_CLASS_NAMES, NetConfig
 from ubdvss_tpu_torch.streaming import StreamingDetector
 from ubdvss_tpu_torch.utils.checkpoint import (
@@ -37,5 +37,6 @@ __all__ = [
     "get_model",
     "load_net_config",
     "load_params_npz",
+    "param_count",
     "params_from_flat",
 ]

@@ -43,6 +43,11 @@
 // pixel (the logits read, the labels written; 16.8 MB at B=8, 512x512,
 // ~5 us); passes 2 and 3 reread the labels of the seams and the
 // foreground.
+//
+// Each route reads f32 or bf16 logits (``_bf16`` entry points: the bf16
+// route's trunk output, 6 B a pixel); a logit is widened to f32 exactly and
+// compared with the f32 threshold logit, so the labels are those of the
+// f32 copy of the same logits.
 #include "common.cuh"
 #include "geometry.cuh"
 
@@ -50,12 +55,13 @@ namespace {
 
 constexpr int kThreads = 1024;
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-ccl_kernel(const float* __restrict__ logits, int* __restrict__ labels, int H,
-           int W, float thr, int connectivity) {
+ccl_kernel(const T* __restrict__ logits, int* __restrict__ labels, int H, int W, float thr,
+           int connectivity) {
   extern __shared__ int lab_s[];
   const int N = H * W;
-  const float* lg = logits + static_cast<long long>(blockIdx.x) * N;
+  const T* lg = logits + static_cast<long long>(blockIdx.x) * N;
   int* out = labels + static_cast<long long>(blockIdx.x) * N;
   geometry::ccl_labels_shared(lg, lab_s, H, W, thr, connectivity == 8);
   for (int p = threadIdx.x; p < N; p += blockDim.x) out[p] = lab_s[p];
@@ -68,16 +74,17 @@ constexpr int kSeamThreads = 128;
 constexpr int kFlattenThreads = 256;
 
 // Pass 1: block (tile x, tile y, image).
+template <class T>
 __global__ void __launch_bounds__(kTileThreads)
-ccl_tile_kernel(const float* __restrict__ logits, int* __restrict__ labels, int H,
-                int W, float thr, int connectivity) {
+ccl_tile_kernel(const T* __restrict__ logits, int* __restrict__ labels, int H, int W, float thr,
+                int connectivity) {
   __shared__ int lab_s[kTileH * kTileW];
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
   const int tw = min(kTileW, W - x0);
   const int n = tw * min(kTileH, H - y0);
   const int N = H * W;
-  const float* lg = logits + static_cast<long long>(blockIdx.z) * N;
+  const T* lg = logits + static_cast<long long>(blockIdx.z) * N;
   int* out = labels + static_cast<long long>(blockIdx.z) * N;
   // tile-local linear index q = ly * tw + lx -> global index
   auto global = [&](int q) {
@@ -85,7 +92,7 @@ ccl_tile_kernel(const float* __restrict__ logits, int* __restrict__ labels, int 
     return (y0 + ly) * W + x0 + (q - ly * tw);
   };
   const geometry::FlatLabels lab{lab_s};
-  geometry::ccl_init(lab, [&](int q) { return lg[global(q)] > thr; }, 0, n, n);
+  geometry::ccl_init(lab, [&](int q) { return geometry::widen(lg[global(q)]) > thr; }, 0, n, n);
   __syncthreads();
   geometry::ccl_merge(lab, tw, 0, 0, n, n, connectivity == 8);
   __syncthreads();
@@ -139,35 +146,30 @@ ccl_flatten_kernel(int* __restrict__ labels, long long total, int N) {
   }
 }
 
-}  // namespace
-
-// logits (B, H, W) f32 -> labels (B, H, W) int32; H*W*4 bytes of shared
-// memory per block (the caller keeps it within the card's 227 KB).
-extern "C" int ccl_labels(const void* logits, void* labels, int B, int H,
-                          int W, float thr, int connectivity, void* stream) {
+template <class T>
+int labels_one_block(const void* logits, void* labels, int B, int H, int W, float thr,
+                     int connectivity, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(H) * W * sizeof(int);
   cudaError_t e = cudaFuncSetAttribute(
-      ccl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      ccl_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  ccl_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<int*>(labels), H, W, thr,
-      connectivity);
+  ccl_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(logits), static_cast<int*>(labels), H, W, thr, connectivity);
   return launch_status();
 }
 
-// The same contract for maps of any size up to H*W < 2^30 (B <= 65535):
-// the labels are built in place in ``labels`` by three launches.
-extern "C" int ccl_labels_tiled(const void* logits, void* labels, int B, int H,
-                                int W, float thr, int connectivity, void* stream) {
+template <class T>
+int labels_tiled(const void* logits, void* labels, int B, int H, int W, float thr,
+                 int connectivity, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
       static_cast<long long>(H) * W >= (1LL << 30))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto lab = static_cast<int*>(labels);
   const dim3 tiles((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  ccl_tile_kernel<<<tiles, kTileThreads, 0, s>>>(static_cast<const float*>(logits), lab, H, W,
-                                                 thr, connectivity);
+  ccl_tile_kernel<T><<<tiles, kTileThreads, 0, s>>>(static_cast<const T*>(logits), lab, H, W,
+                                                    thr, connectivity);
   int e = launch_status();
   if (e != 0) return e;
   ccl_seam_kernel<<<tiles, kSeamThreads, 0, s>>>(lab, H, W, connectivity);
@@ -178,4 +180,32 @@ extern "C" int ccl_labels_tiled(const void* logits, void* labels, int B, int H,
   ccl_flatten_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), kFlattenThreads, 0,
                        s>>>(lab, total, H * W);
   return launch_status();
+}
+
+}  // namespace
+
+// logits (B, H, W) f32 -> labels (B, H, W) int32; H*W*4 bytes of shared
+// memory per block (the caller keeps it within the card's 227 KB).
+extern "C" int ccl_labels(const void* logits, void* labels, int B, int H, int W, float thr,
+                          int connectivity, void* stream) {
+  return labels_one_block<float>(logits, labels, B, H, W, thr, connectivity, stream);
+}
+
+// The same from bf16 logits.
+extern "C" int ccl_labels_bf16(const void* logits, void* labels, int B, int H, int W, float thr,
+                               int connectivity, void* stream) {
+  return labels_one_block<__nv_bfloat16>(logits, labels, B, H, W, thr, connectivity, stream);
+}
+
+// The same contract for maps of any size up to H*W < 2^30 (B <= 65535):
+// the labels are built in place in ``labels`` by three launches.
+extern "C" int ccl_labels_tiled(const void* logits, void* labels, int B, int H, int W, float thr,
+                                int connectivity, void* stream) {
+  return labels_tiled<float>(logits, labels, B, H, W, thr, connectivity, stream);
+}
+
+// The same from bf16 logits.
+extern "C" int ccl_labels_tiled_bf16(const void* logits, void* labels, int B, int H, int W,
+                                     float thr, int connectivity, void* stream) {
+  return labels_tiled<__nv_bfloat16>(logits, labels, B, H, W, thr, connectivity, stream);
 }

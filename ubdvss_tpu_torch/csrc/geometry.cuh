@@ -3,8 +3,14 @@
 // geometry_kernel.cu (K12c, both phases in one cluster of two blocks), so
 // that each algorithm has one copy; phase 2 also sums the per-component
 // stats.  Every thread of the block calls them.
+//
+// The logits are f32 or bf16 (T = float or __nv_bfloat16; the bf16 route's
+// trunk hands bf16 logits to postprocessing, as the JAX package does).
+// Every load widens a logit to f32 exactly, so the threshold compares, the
+// sigmoid and the softmax run in f32 on either type.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -12,6 +18,22 @@
 namespace geometry {
 
 constexpr int kBig = 1 << 30;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A class probability as the stats add it: on bf16 logits it is rounded to
+// bf16 (round to nearest even) and widened back, as the JAX package stores
+// the softmax at the logits' dtype before its f32 sums
+// (ubdvss_tpu/ops/pallas/postproc_kernel.py:461-466); on f32 logits as is.
+template <class T>
+__device__ __forceinline__ float at_logit_precision(float v) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
 
 // The stats keep a pixel's class logits in registers: CM is the logit
 // channel count C as a compile-time constant, exact for 1 (detection only)
@@ -157,12 +179,12 @@ __device__ inline void ccl_flatten(const Lab& lab, int p0, int p1, int N) {
   }
 }
 
-__device__ inline void ccl_labels_shared(const float* __restrict__ lg,
-                                         volatile int* lab_s, int H, int W,
-                                         float thr, bool eight) {
+template <class T>
+__device__ inline void ccl_labels_shared(const T* __restrict__ lg, volatile int* lab_s, int H,
+                                         int W, float thr, bool eight) {
   const int N = H * W;
   const FlatLabels lab{lab_s};
-  ccl_init(lab, [&](int p) { return lg[p] > thr; }, 0, N, N);
+  ccl_init(lab, [&](int p) { return widen(lg[p]) > thr; }, 0, N, N);
   __syncthreads();
   ccl_merge(lab, W, 0, 0, N, N, eight);
   __syncthreads();
@@ -203,21 +225,24 @@ struct SplitView {
   __device__ int operator[](int p) const { return p < split ? lo[p] : hi[p - split]; }
 };
 
-// One image's (H, W, C) logits at element strides: channel 0 is the
-// detection logit, 1..C-1 the class logits.  The head writes (C, H, W)
-// planes, so a pixel's channels lie H*W apart and neighbouring pixels are
-// neighbours in memory.
+// One image's (H, W, C) logits of type T at element strides: channel 0 is
+// the detection logit, 1..C-1 the class logits.  The context kernel writes
+// (C, H, W) planes, so a pixel's channels lie H*W apart and neighbouring
+// pixels are neighbours in memory; cuDNN's bf16 head may write channels
+// last, where a pixel's channels are neighbours.
+template <class T>
 struct Logits {
-  const float* p;
+  const T* p;
   long long sy, sx, sc;
   int C;
 };
 
-// One image's (H, W) detection logits at element strides.
+// One image's (H, W) detection logits at element strides, widened to f32.
+template <class T>
 struct Plane {
-  const float* p;
+  const T* p;
   long long sy, sx;
-  __device__ float operator()(int y, int x) const { return p[y * sy + x * sx]; }
+  __device__ float operator()(int y, int x) const { return widen(p[y * sy + x * sx]); }
 };
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -259,8 +284,10 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
 //      partial set in shared memory, ``part`` (K, C) floats and ``cnt``
 //      (K) ints, one set per virtual warp of the pass (slot_pass);
 //   3. slot_finish sums the partials in the virtual warps' order.
-// sigmoid and softmax follow torch's formulas with expf.
-template <int CM>
+// sigmoid and softmax follow torch's formulas with expf; on bf16 logits
+// each class probability is rounded to bf16 before it is added
+// (at_logit_precision), the sigmoid and the counts are not.
+template <int CM, class T>
 struct StatsAcc {
   static constexpr bool kExact = CM != kAnyChannels;  // C == CM
   int slot;
@@ -269,12 +296,12 @@ struct StatsAcc {
   float cls[CM > 1 ? CM - 1 : 1];
   float e[CM > 1 ? CM - 1 : 1];  // the pixel's class logits, from fetch()
 
-  __device__ void fetch(const Logits& lg, int y, int x) {
-    const float* q = lg.p + y * lg.sy + x * lg.sx;
+  __device__ void fetch(const Logits<T>& lg, int y, int x) {
+    const T* q = lg.p + y * lg.sy + x * lg.sx;
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
       q += lg.sc;
-      if (kExact || c < lg.C - 1) e[c] = *q;
+      if (kExact || c < lg.C - 1) e[c] = widen(*q);
     }
   }
 
@@ -335,7 +362,7 @@ struct StatsAcc {
 
   // Warp-wide: one pixel of slot ``s`` (K: none) with detection logit d
   // and the class logits that fetch() loaded.
-  __device__ void add(const Logits& lg, int s, float d, int K, float* part, int* cnt_s) {
+  __device__ void add(const Logits<T>& lg, int s, float d, int K, float* part, int* cnt_s) {
     const bool change = s != slot;
     const bool go = change && slot < K;
     if (__ballot_sync(kFull, go)) flush(go, K, lg.C, part, cnt_s);
@@ -359,7 +386,7 @@ struct StatsAcc {
     }
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
-      if (kExact || c < lg.C - 1) cls[c] += e[c] / den;
+      if (kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] / den);
     }
   }
 };
@@ -471,8 +498,8 @@ __device__ inline int slot_roots(const Det& det, const Lab& lab, const SlotSmem&
 // ranked roots, writes it, and takes part in the per-row extremes
 // (shared-memory atomicMin/Max) and the stats.  Ends with a
 // __syncthreads().
-template <int CM, class Det, class Lab>
-__device__ inline void slot_pass(const Det& det, const Logits& lg, const Lab& lab,
+template <int CM, class T, class Det, class Lab>
+__device__ inline void slot_pass(const Det& det, const Logits<T>& lg, const Lab& lab,
                                  const SlotSmem& s, int H, int W, int K, float thr, int total,
                                  int first, int reps, int nv, int* __restrict__ slots) {
   const int N = H * W;
@@ -488,7 +515,7 @@ __device__ inline void slot_pass(const Det& det, const Logits& lg, const Lab& la
     const int set = v - first;
     float* w_part = s.part + set * K * lg.C;
     int* w_cnt = s.cnt + set * K;
-    StatsAcc<CM> acc;
+    StatsAcc<CM, T> acc;
     acc.reset(K);
     const int r0 = min(v * per_v, runs);
     const int r1 = min(r0 + per_v, runs);

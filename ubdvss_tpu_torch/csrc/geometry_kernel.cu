@@ -39,6 +39,10 @@
 // read, slot written) plus the class logits of the pixels in a slot and
 // the (K, H) extremes; the union-find and the slot search run at
 // shared-memory latency.
+//
+// It reads f32 or bf16 logits (``geometry_compat_bf16``), with K2's
+// rounding of the class probabilities on bf16 (geometry.cuh StatsAcc), so
+// it equals K2 after K1 bit for bit on either type.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -50,9 +54,9 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 1024;
 
-template <int CM>
+template <int CM, class T>
 __global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1) __launch_bounds__(kThreads)
-geometry_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
                 long long sc, int C, int* __restrict__ rootvals, int* __restrict__ slots,
                 int* __restrict__ minx, int* __restrict__ maxx, int* __restrict__ nroots,
                 float* __restrict__ areas, float* __restrict__ det_sums,
@@ -71,8 +75,8 @@ geometry_kernel(const float* __restrict__ logits, long long sb, long long sy, lo
   int* hi = rank == 0 ? peer : own;
   const int p0 = rank == 0 ? 0 : split;
   const int p1 = rank == 0 ? split : N;
-  const geometry::Logits lg{logits + b * sb, sy, sx, sc, C};
-  const geometry::Plane det{lg.p, sy, sx};
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
+  const geometry::Plane<T> det{lg.p, sy, sx};
   const bool eight = connectivity == 8;
 
   // 1-3. CCL over the cluster
@@ -128,16 +132,14 @@ geometry_kernel(const float* __restrict__ logits, long long sb, long long sy, lo
   cluster.sync();  // block 1's shared memory lives until block 0 has read it
 }
 
-}  // namespace
-
-// logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc) -> the
-// outputs of component_slots (postproc_kernel.cu).  ``threads`` is that of
-// one of K2's blocks.
-extern "C" int geometry_compat(const void* logits, long long sb, long long sy, long long sx,
-                               long long sc, int C, void* rootvals, void* slots, void* minx,
-                               void* maxx, void* nroots, void* areas, void* det_sums,
-                               void* cls_sums, int B, int H, int W, int K, int threads,
-                               float thr, int connectivity, void* stream) {
+// logits (B, H, W, C) at element strides (sb, sy, sx, sc) -> the outputs
+// of component_slots (postproc_kernel.cu).  ``threads`` is that of one of
+// K2's blocks.
+template <class T>
+int geometry_launch(const void* logits, long long sb, long long sy, long long sx, long long sc,
+                    int C, void* rootvals, void* slots, void* minx, void* maxx, void* nroots,
+                    void* areas, void* det_sums, void* cls_sums, int B, int H, int W, int K,
+                    int threads, float thr, int connectivity, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads <= 0 ||
       threads > kThreads || threads % 32 != 0)
     return cudaErrorInvalidValue;
@@ -148,16 +150,42 @@ extern "C" int geometry_compat(const void* logits, long long sb, long long sy, l
   return geometry::with_channel_bound(C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
     cudaError_t e = cudaFuncSetAttribute(
-        geometry_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        geometry_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    geometry_kernel<CM><<<geometry::kSlotCtas * B, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(logits), sb, sy, sx, sc, C, static_cast<int*>(rootvals),
+    geometry_kernel<CM, T><<<geometry::kSlotCtas * B, threads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(logits), sb, sy, sx, sc, C, static_cast<int*>(rootvals),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
         static_cast<int*>(nroots), static_cast<float*>(areas),
         static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, thr,
         connectivity);
     return launch_status();
   });
+}
+
+}  // namespace
+
+// logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc) -> the
+// outputs of component_slots (postproc_kernel.cu).
+extern "C" int geometry_compat(const void* logits, long long sb, long long sy, long long sx,
+                               long long sc, int C, void* rootvals, void* slots, void* minx,
+                               void* maxx, void* nroots, void* areas, void* det_sums,
+                               void* cls_sums, int B, int H, int W, int K, int threads,
+                               float thr, int connectivity, void* stream) {
+  return geometry_launch<float>(logits, sb, sy, sx, sc, C, rootvals, slots, minx, maxx, nroots,
+                                areas, det_sums, cls_sums, B, H, W, K, threads, thr,
+                                connectivity, stream);
+}
+
+// The same from bf16 logits.
+extern "C" int geometry_compat_bf16(const void* logits, long long sb, long long sy,
+                                    long long sx, long long sc, int C, void* rootvals,
+                                    void* slots, void* minx, void* maxx, void* nroots,
+                                    void* areas, void* det_sums, void* cls_sums, int B, int H,
+                                    int W, int K, int threads, float thr, int connectivity,
+                                    void* stream) {
+  return geometry_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, C, rootvals, slots, minx,
+                                        maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
+                                        threads, thr, connectivity, stream);
 }

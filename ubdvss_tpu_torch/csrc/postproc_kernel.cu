@@ -55,6 +55,12 @@
 // No float atomic anywhere, so two launches agree bit for bit; the order
 // of the sums differs from the cluster kernel's, so the two agree within
 // f32 rounding, not bit for bit.  Bound: the cluster kernel's bytes.
+//
+// Both read f32 or bf16 logits (``_bf16`` entry points, the bf16 route's
+// trunk output: half the logit bytes); on bf16 each class probability is
+// rounded to bf16 before the f32 sums, as in the JAX package
+// (geometry.cuh StatsAcc), and the partials, their order and the warp
+// count are those of f32, so K2 and K12c stay equal bit for bit.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -66,9 +72,9 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 1024;
 
-template <int CM>
+template <int CM, class T>
 __global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1) __launch_bounds__(kThreads)
-slots_kernel(const float* __restrict__ logits, long long sb, long long sy,
+slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
              long long sx, long long sc, int C, const int* __restrict__ labels,
              int* __restrict__ rootvals, int* __restrict__ slots,
              int* __restrict__ minx, int* __restrict__ maxx,
@@ -81,8 +87,8 @@ slots_kernel(const float* __restrict__ logits, long long sb, long long sy,
   const long long b = blockIdx.x / geometry::kSlotCtas;
   const long long N = static_cast<long long>(H) * W;
   const int nw = blockDim.x >> 5;
-  const geometry::Logits lg{logits + b * sb, sy, sx, sc, C};
-  const geometry::Plane det{lg.p, sy, sx};
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
+  const geometry::Plane<T> det{lg.p, sy, sx};
   const geometry::GlobalLabels lab{labels + b * N};
   const geometry::SlotSmem s(sm, K, H, C, nw);
   const int total = geometry::slot_roots(det, lab, s, s.root, 0, static_cast<int>(N), H, W, K,
@@ -123,21 +129,23 @@ __device__ inline int block_sum(int v) {
   return t;
 }
 
-__device__ inline bool is_root(const geometry::Plane& det, const int* lab, int p, int W,
+template <class T>
+__device__ inline bool is_root(const geometry::Plane<T>& det, const int* lab, int p, int W,
                                float thr) {
   return __ldg(lab + p) == p && det(p / W, p % W) > thr;
 }
 
 // 1. block (chunk, image)
+template <class T>
 __global__ void __launch_bounds__(kRankThreads)
-roots_count_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+roots_count_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
                    const int* __restrict__ labels, int* __restrict__ counts,
                    int* __restrict__ minx, int* __restrict__ maxx, int H, int W, int K,
                    int chunk, float thr) {
   const int c = blockIdx.x;
   const long long b = blockIdx.y;
   const int N = H * W;
-  const geometry::Plane det{logits + b * sb, sy, sx};
+  const geometry::Plane<T> det{logits + b * sb, sy, sx};
   const int* lab = labels + b * N;
   const int p1 = min(c * chunk + chunk, N);
   int cnt = 0;
@@ -153,8 +161,9 @@ roots_count_kernel(const float* __restrict__ logits, long long sb, long long sy,
 }
 
 // 2. block (chunk, image)
+template <class T>
 __global__ void __launch_bounds__(kRankThreads)
-roots_rank_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+roots_rank_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
                   const int* __restrict__ labels, const int* __restrict__ counts,
                   int* __restrict__ rootvals, int* __restrict__ nroots, int H, int W, int K,
                   int chunk, float thr) {
@@ -179,7 +188,7 @@ roots_rank_kernel(const float* __restrict__ logits, long long sb, long long sy, 
   if (cn[c] == 0 || before >= K) return;  // uniform over the block
   // a contiguous run of the chunk per thread, ranked by a block-wide
   // exclusive prefix sum of the runs' root counts
-  const geometry::Plane det{logits + b * sb, sy, sx};
+  const geometry::Plane<T> det{logits + b * sb, sy, sx};
   const int* lab = labels + b * N;
   const int p0 = c * chunk;
   const int n = min(p0 + chunk, N) - p0;
@@ -215,9 +224,9 @@ roots_rank_kernel(const float* __restrict__ logits, long long sb, long long sy, 
 
 // 3. block (tile column, tile row, image); dynamic shared memory: K roots,
 // then one stats partial set, (K, C) floats and K ints, per warp.
-template <int CM>
+template <int CM, class T>
 __global__ void __launch_bounds__(kPassThreads)
-slots_tile_kernel(const float* __restrict__ logits, long long sb, long long sy, long long sx,
+slots_tile_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
                   long long sc, int C, const int* __restrict__ labels,
                   const int* __restrict__ rootvals, const int* __restrict__ nroots,
                   int* __restrict__ slots, int* __restrict__ minx, int* __restrict__ maxx,
@@ -239,8 +248,8 @@ slots_tile_kernel(const float* __restrict__ logits, long long sb, long long sy, 
   const int total = nroots[b];
   const int nvalid = min(total, K);
   const int bg_slot = total < K ? K - 1 : K;
-  const geometry::Logits lg{logits + b * sb, sy, sx, sc, C};
-  const geometry::Plane det{lg.p, sy, sx};
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
+  const geometry::Plane<T> det{lg.p, sy, sx};
   const int* lab = labels + b * N;
   int* sl = slots + b * N;
   int* mn = minx + b * K * H;
@@ -250,7 +259,7 @@ slots_tile_kernel(const float* __restrict__ logits, long long sb, long long sy, 
   const int x = (blockIdx.x * nw + warp) * 32 + lane;
   const int y0 = blockIdx.y * tile_rows;
   const int y1 = min(y0 + tile_rows, H);
-  geometry::StatsAcc<CM> acc;
+  geometry::StatsAcc<CM, T> acc;
   acc.reset(K);
   for (int y = y0; y < y1; ++y) {
     int slot = K;
@@ -335,19 +344,16 @@ slots_finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcn
   }
 }
 
-}  // namespace
-
-// logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc), labels
+// logits (B, H, W, C) at element strides (sb, sy, sx, sc), labels
 // (B, H, W) -> rootvals (B, K), slots (B, H, W), minx/maxx (B, K, H),
 // nroots (B,), all int32; areas, det_sums (B, K) and cls_sums
 // (B, K, max(C-1, 1)) f32.  ``threads`` is 32 x the stats partial sets
 // of a block.
-extern "C" int component_slots(const void* logits, long long sb, long long sy,
-                               long long sx, long long sc, int C,
-                               const void* labels, void* rootvals, void* slots,
-                               void* minx, void* maxx, void* nroots, void* areas,
-                               void* det_sums, void* cls_sums, int B, int H, int W,
-                               int K, int threads, float thr, void* stream) {
+template <class T>
+int slots_cluster(const void* logits, long long sb, long long sy, long long sx, long long sc,
+                  int C, const void* labels, void* rootvals, void* slots, void* minx, void* maxx,
+                  void* nroots, void* areas, void* det_sums, void* cls_sums, int B, int H, int W,
+                  int K, int threads, float thr, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads <= 0 ||
       threads > kThreads || threads % 32 != 0)
     return cudaErrorInvalidValue;
@@ -356,11 +362,12 @@ extern "C" int component_slots(const void* logits, long long sb, long long sy,
   return geometry::with_channel_bound(C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
     cudaError_t e = cudaFuncSetAttribute(
-        slots_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        slots_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    slots_kernel<CM><<<geometry::kSlotCtas * B, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(logits), sb, sy, sx, sc, C,
+    slots_kernel<CM, T><<<geometry::kSlotCtas * B, threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(logits), sb, sy, sx, sc, C,
         static_cast<const int*>(labels), static_cast<int*>(rootvals),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
         static_cast<int*>(nroots), static_cast<float*>(areas),
@@ -374,19 +381,18 @@ extern "C" int component_slots(const void* logits, long long sb, long long sy,
 // ``counts`` B * ceil(H*W / chunk) ints, ``tpart`` B * tiles * K * C floats
 // and ``tcnt`` B * tiles * K ints, where tiles = ceil(W / threads) *
 // ceil(H / tile_rows); ``threads`` is 32 x the warps of a pass block.
-extern "C" int component_slots_tiled(const void* logits, long long sb, long long sy,
-                                     long long sx, long long sc, int C, const void* labels,
-                                     void* rootvals, void* slots, void* minx, void* maxx,
-                                     void* nroots, void* areas, void* det_sums,
-                                     void* cls_sums, void* counts, void* tpart, void* tcnt,
-                                     int B, int H, int W, int K, int threads, int chunk,
-                                     int tile_rows, float thr, void* stream) {
+template <class T>
+int slots_tiled(const void* logits, long long sb, long long sy, long long sx, long long sc,
+                int C, const void* labels, void* rootvals, void* slots, void* minx, void* maxx,
+                void* nroots, void* areas, void* det_sums, void* cls_sums, void* counts,
+                void* tpart, void* tcnt, int B, int H, int W, int K, int threads, int chunk,
+                int tile_rows, float thr, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || B > 65535 || chunk <= 0 ||
       tile_rows <= 0 || threads <= 0 || threads > kPassThreads || threads % 32 != 0 ||
       static_cast<long long>(H) * W >= (1LL << 30))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* lg = static_cast<const float*>(logits);
+  const auto* lg = static_cast<const T*>(logits);
   const auto* lab = static_cast<const int*>(labels);
   auto* roots = static_cast<int*>(rootvals);
   auto* nr = static_cast<int*>(nroots);
@@ -394,14 +400,12 @@ extern "C" int component_slots_tiled(const void* logits, long long sb, long long
   auto* mx = static_cast<int*>(maxx);
   const int N = H * W;
   const dim3 chunks((N + chunk - 1) / chunk, B);
-  roots_count_kernel<<<chunks, kRankThreads, 0, s>>>(lg, sb, sy, sx, lab,
-                                                     static_cast<int*>(counts), mn, mx, H, W, K,
-                                                     chunk, thr);
+  roots_count_kernel<T><<<chunks, kRankThreads, 0, s>>>(
+      lg, sb, sy, sx, lab, static_cast<int*>(counts), mn, mx, H, W, K, chunk, thr);
   int e = launch_status();
   if (e != 0) return e;
-  roots_rank_kernel<<<chunks, kRankThreads, 0, s>>>(lg, sb, sy, sx, lab,
-                                                    static_cast<const int*>(counts), roots, nr,
-                                                    H, W, K, chunk, thr);
+  roots_rank_kernel<T><<<chunks, kRankThreads, 0, s>>>(
+      lg, sb, sy, sx, lab, static_cast<const int*>(counts), roots, nr, H, W, K, chunk, thr);
   e = launch_status();
   if (e != 0) return e;
   const dim3 tiles((W + threads - 1) / threads, (H + tile_rows - 1) / tile_rows, B);
@@ -410,9 +414,10 @@ extern "C" int component_slots_tiled(const void* logits, long long sb, long long
   e = geometry::with_channel_bound(C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
     cudaError_t a = cudaFuncSetAttribute(
-        slots_tile_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        slots_tile_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (a != cudaSuccess) return static_cast<int>(a);
-    slots_tile_kernel<CM><<<tiles, threads, smem, s>>>(
+    slots_tile_kernel<CM, T><<<tiles, threads, smem, s>>>(
         lg, sb, sy, sx, sc, C, lab, roots, nr, static_cast<int*>(slots), mn, mx,
         static_cast<float*>(tpart), static_cast<int*>(tcnt), H, W, K, tile_rows, thr);
     return launch_status();
@@ -424,4 +429,57 @@ extern "C" int component_slots_tiled(const void* logits, long long sb, long long
       static_cast<float*>(areas), static_cast<float*>(det_sums), static_cast<float*>(cls_sums),
       H, K, C, static_cast<int>(tiles.x * tiles.y));
   return launch_status();
+}
+
+}  // namespace
+
+// logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc), labels
+// (B, H, W) -> the outputs of slots_cluster above.
+extern "C" int component_slots(const void* logits, long long sb, long long sy, long long sx,
+                               long long sc, int C, const void* labels, void* rootvals,
+                               void* slots, void* minx, void* maxx, void* nroots, void* areas,
+                               void* det_sums, void* cls_sums, int B, int H, int W, int K,
+                               int threads, float thr, void* stream) {
+  return slots_cluster<float>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx, maxx,
+                              nroots, areas, det_sums, cls_sums, B, H, W, K, threads, thr,
+                              stream);
+}
+
+// The same from bf16 logits.
+extern "C" int component_slots_bf16(const void* logits, long long sb, long long sy,
+                                    long long sx, long long sc, int C, const void* labels,
+                                    void* rootvals, void* slots, void* minx, void* maxx,
+                                    void* nroots, void* areas, void* det_sums, void* cls_sums,
+                                    int B, int H, int W, int K, int threads, float thr,
+                                    void* stream) {
+  return slots_cluster<__nv_bfloat16>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx,
+                                      maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
+                                      threads, thr, stream);
+}
+
+// The outputs of component_slots for maps of any size, from f32 logits
+// (slots_tiled above).
+extern "C" int component_slots_tiled(const void* logits, long long sb, long long sy,
+                                     long long sx, long long sc, int C, const void* labels,
+                                     void* rootvals, void* slots, void* minx, void* maxx,
+                                     void* nroots, void* areas, void* det_sums,
+                                     void* cls_sums, void* counts, void* tpart, void* tcnt,
+                                     int B, int H, int W, int K, int threads, int chunk,
+                                     int tile_rows, float thr, void* stream) {
+  return slots_tiled<float>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx, maxx,
+                            nroots, areas, det_sums, cls_sums, counts, tpart, tcnt, B, H, W, K,
+                            threads, chunk, tile_rows, thr, stream);
+}
+
+// The same from bf16 logits.
+extern "C" int component_slots_tiled_bf16(const void* logits, long long sb, long long sy,
+                                          long long sx, long long sc, int C, const void* labels,
+                                          void* rootvals, void* slots, void* minx, void* maxx,
+                                          void* nroots, void* areas, void* det_sums,
+                                          void* cls_sums, void* counts, void* tpart, void* tcnt,
+                                          int B, int H, int W, int K, int threads, int chunk,
+                                          int tile_rows, float thr, void* stream) {
+  return slots_tiled<__nv_bfloat16>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx,
+                                    maxx, nroots, areas, det_sums, cls_sums, counts, tpart, tcnt,
+                                    B, H, W, K, threads, chunk, tile_rows, thr, stream);
 }

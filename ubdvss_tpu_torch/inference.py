@@ -13,17 +13,28 @@ Counterpart of ``ubdvss_tpu/inference.py``:
     (B, H, W, 1) images.
 
 As in the JAX package, heatmaps larger than ``_fused_heatmap_limit`` a
-side take the XLA route (``fused=False``).  The trunk of a separable
-config is the context kernel's (K4) route at every size; a dense config
-runs ``BarcodeFCN``.  Entry points run on the card unless the caller asks
-for the CPU (``device="cpu"``, where every kernel takes its plain
-version).
+side take the XLA route (``fused=False``).  The trunk, by
+``NetConfig.dtype``:
+
+  * float32: a separable config runs the context kernel's (K4) route at
+    every size, on every route; a dense config runs ``BarcodeFCN``;
+  * bfloat16 (the JAX package's throughput mode): the fused route of a
+    separable config runs ``fused_model_apply`` — the bf16 stem and the
+    dense-equivalent context convs — and hands its bf16 logits to the
+    fused postprocessing, whose kernels read bf16 (K1, K2, K12c); the raw
+    no-resize batch is fed to it as bf16.  ``detect_program``,
+    ``fused=False`` and dense configs run ``BarcodeFCN`` in bf16, whose
+    logits are f32, as the JAX package's ``get_model(cfg).apply``.  The
+    logits an entry point returns are f32, exact converts of the trunk's.
+
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``, where every kernel takes its plain version).
 
 Routes of the JAX package this slice does not port raise
-``NotImplementedError`` naming their ROADMAP.md item: bf16 (item 7), int8
-``qparams`` (item 8) and ``mesh`` (item 9).  The JAX package's packed and
-two-stage large-scan trunks give the same detections as the untiled trunk
-the port runs (ROADMAP.md §1 item 7).
+``NotImplementedError`` naming their ROADMAP.md item: int8 ``qparams``
+(item 8) and ``mesh`` (item 9).  The JAX package's packed, two-stage and
+s2d large-scan trunks give the same detections as the untiled trunk the
+port runs (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -79,8 +90,7 @@ def _check_route(cfg: NetConfig, hw, qparams=None, mesh=None) -> None:
         raise NotImplementedError("int8 qparams serving: ROADMAP.md §1 item 8")
     if mesh is not None:
         raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 9")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: ROADMAP.md §1 item 7 (bf16 route)")
+    cfg.compute_dtype  # float32 or bfloat16, else ValueError
     if hw[0] % cfg.scale or hw[1] % cfg.scale:
         raise ValueError(f"out_hw {hw} not aligned to scale={cfg.scale}")
 
@@ -105,11 +115,16 @@ def _tiled_trunk(trunk, x: torch.Tensor, cfg: NetConfig, n_strips: int | None) -
     return trunk(x)
 
 
-def _trunk(params: dict, x: torch.Tensor, cfg: NetConfig, raw: bool) -> torch.Tensor:
-    """(B, H, W) grayscale -> (B, H/4, W/4, C) f32 logits.  ``raw``: x is
-    unnormalized [0, 255], else already normalized."""
-    if cfg.separable_context:
-        return fused_model_apply(params, x[..., None], cfg, raw_gray=raw)
+def _trunk(
+    params: dict, x: torch.Tensor, cfg: NetConfig, raw: bool, fused: bool = True
+) -> torch.Tensor:
+    """(B, H, W) grayscale -> (B, H/4, W/4, C) logits.  ``raw``: x is
+    unnormalized [0, 255], else already normalized.  A separable config
+    runs ``fused_model_apply`` (bf16 logits in the bf16 mode) in f32 and
+    on the fused route; else ``BarcodeFCN`` (f32 logits), as the JAX
+    package's ``get_model(cfg).apply``."""
+    if cfg.separable_context and (fused or cfg.compute_dtype == torch.float32):
+        return fused_model_apply(params, x[..., None], cfg, raw_gray=raw, act_out=True)
     model = get_model(cfg).to(x.device)
     model.load_state_dict(params)
     return model((normalize(x) if raw else x)[..., None])
@@ -132,7 +147,7 @@ def detect_program(
     params = {k: v.to(dev) for k, v in params.items()}
     with torch.inference_mode(), exact_f32():
         x = preprocess(x, tuple(out_hw), channel_order)
-        logits = _trunk(params, x[None, ..., 0], cfg, raw=False)[0]
+        logits = _trunk(params, x[None, ..., 0], cfg, raw=False, fused=False)[0]
         return postprocess(logits, cfg), logits
 
 
@@ -169,18 +184,21 @@ def detect_program_batch(
     params = {k: v.to(dev) for k, v in params.items()}
     fused = _fused_route(cfg, out_hw, fused)
     with torch.inference_mode(), exact_f32():
-        x = to_grayscale_batch(x, channel_order)
         # no-resize inputs skip the full-res normalize: x/127.5 - 1 is
         # folded into the stem's first conv (border-exact)
-        raw = tuple(x.shape[1:]) == tuple(out_hw)
+        raw = tuple(x.shape[1:3]) == tuple(out_hw)
+        # the fused separable trunk casts its input to the compute dtype
+        # first, so it is fed at that dtype (exact for uint8 0..255)
+        feed = cfg.compute_dtype if raw and fused and cfg.separable_context else torch.float32
+        x = to_grayscale_batch(x, channel_order, feed)
         if not raw:
             x = normalize(resize_bilinear(x, tuple(out_hw)))
-        trunk = functools.partial(_trunk, params, cfg=cfg, raw=raw)
+        trunk = functools.partial(_trunk, params, cfg=cfg, raw=raw, fused=fused)
         logits = _tiled_trunk(trunk, x, cfg, n_strips) if fused else trunk(x)
         res = (postprocess_batch_fused if fused else postprocess_batch)(logits, cfg)
     if detections_only:
         return res, None
-    return res, logits
+    return res, logits.to(torch.float32)
 
 
 def detect_preprocessed_batch(
@@ -211,10 +229,10 @@ def detect_preprocessed_batch(
     fused = _fused_route(cfg, hw, fused)
     with torch.inference_mode(), exact_f32():
         x = x.to(torch.float32)[..., 0]
-        trunk = functools.partial(_trunk, params, cfg=cfg, raw=False)
+        trunk = functools.partial(_trunk, params, cfg=cfg, raw=False, fused=fused)
         logits = _tiled_trunk(trunk, x, cfg, n_strips) if fused else trunk(x)
         post = postprocess_batch_fused if fused and cfg.separable_context else postprocess_batch
-        return post(logits, cfg), logits
+        return post(logits, cfg), logits.to(torch.float32)
 
 
 class BarcodeDetector:

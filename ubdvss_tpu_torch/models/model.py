@@ -13,17 +13,46 @@ Layout: the module takes and returns NHWC tensors like the JAX model; it
 computes in NCHW inside.  Padding is TF "SAME": a 3x3 stride-2 conv on an
 even size pads 0 before and 1 after (torch's ``padding=1`` would pad 1 and
 1), a dilated stride-1 conv pads ``d`` on both sides.
+
+Two compute dtypes, as ``NetConfig.dtype`` names them:
+
+  * float32, the parity mode: every conv in full f32 (``exact_f32``; the
+    JAX package runs at ``Precision.HIGHEST``);
+  * bfloat16, the throughput mode, with flax's semantics: the input and
+    every kernel are cast to bf16, each conv takes bf16 operands and
+    accumulates in f32 (``Precision.DEFAULT``) with a bf16 result, the bias
+    is cast to bf16 and added after the conv in bf16, ReLU runs in bf16 and
+    the head's output is cast to f32.  The separable layer's depthwise
+    output is a bf16 tensor before the pointwise conv.
+
+``dense_equivalent_apply`` is the JAX function of that name: each
+separable layer as its rank-1-expanded dense conv.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ubdvss_tpu_torch.net_config import NetConfig
+
+
+@contextlib.contextmanager
+def bf16_full_accumulation():
+    """bf16 matmuls on the card reduce in f32 for the block
+    (``allow_bf16_reduced_precision_reduction`` off, then restored), as the
+    JAX package's bf16 convs accumulate in f32."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
 
 
 @contextlib.contextmanager
@@ -87,6 +116,9 @@ class BarcodeFCN(nn.Module):
 
     Input:  (B, H, W, 1) float images, H and W divisible by 4.
     Output: (B, H/4, W/4, 1 + n_classes) f32 logits (NHWC).
+
+    ``dtype``: the compute dtype (the module docstring); the parameters
+    stay f32, and bf16 weights load into them exactly.
     """
 
     def __init__(
@@ -95,8 +127,12 @@ class BarcodeFCN(nn.Module):
         dilations: tuple[int, ...] = (1, 1, 2, 4, 8, 16, 1),
         separable_context: bool = True,
         n_output_channels: int = 17,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {dtype}: expected torch.float32 or torch.bfloat16")
+        self.dtype = dtype
         self.dilations = tuple(dilations)
         self.separable_context = separable_context
         self.downscale_0 = nn.Conv2d(1, channels, 3)
@@ -112,21 +148,43 @@ class BarcodeFCN(nn.Module):
 
     @classmethod
     def from_config(cls, cfg: NetConfig) -> "BarcodeFCN":
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={cfg.dtype!r}: the port serves float32 only; the bf16 "
-                "route is queued in ROADMAP.md §1 item 7"
-            )
         return cls(
             channels=cfg.channels,
             dilations=tuple(cfg.dilations),
             separable_context=cfg.separable_context,
             n_output_channels=cfg.n_output_channels,
+            dtype=cfg.compute_dtype,
         )
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.bfloat16:
+            with bf16_full_accumulation():
+                return self._forward_bf16(x_nhwc)
         with exact_f32():
             return self._forward(x_nhwc)
+
+    def _forward_bf16(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        bf = torch.bfloat16
+
+        def conv(x, layer, stride=1, dilation=1, groups=1):
+            y = conv2d_same(x, layer.weight.to(bf), None, stride, dilation, groups)
+            if layer.bias is None:
+                return y
+            return y + layer.bias.to(bf).view(1, -1, 1, 1)
+
+        x = x_nhwc.to(bf).permute(0, 3, 1, 2)
+        for layer in (self.downscale_0, self.downscale_1):
+            x = F.relu(conv(x, layer, stride=2))
+        for i, d in enumerate(self.dilations):
+            layer = getattr(self, f"context_{i}")
+            if self.separable_context:
+                x = conv(x, layer.depthwise, dilation=d, groups=x.shape[1])
+                x = conv(x, layer.pointwise)
+            else:
+                x = conv(x, layer, dilation=d)
+            x = F.relu(x)
+        x = conv(x, self.head)
+        return x.to(torch.float32).permute(0, 2, 3, 1)
 
     def _forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         x = x_nhwc.to(torch.float32).permute(0, 3, 1, 2)
@@ -146,3 +204,40 @@ class BarcodeFCN(nn.Module):
 def get_model(cfg: NetConfig) -> BarcodeFCN:
     """Model-builder entry point mirroring the JAX package's API."""
     return BarcodeFCN.from_config(cfg)
+
+
+def dense_equivalent_apply(params: dict, x_nhwc: torch.Tensor, cfg: NetConfig) -> torch.Tensor:
+    """``get_model(cfg)`` on the state_dict ``params`` with each separable
+    context layer computed as its rank-1-expanded dense conv, kernel[co, ci]
+    = depthwise[ci] * pointwise[co, ci]: the same linear map, in the dtype
+    regime of the model.  As in the JAX function, both factors are cast to
+    the compute dtype and multiplied in it (a bf16 product in the bf16
+    mode), and each bias is added after its conv in that dtype.  NHWC in,
+    (B, H/4, W/4, O) f32 logits out."""
+    dt = cfg.compute_dtype
+    ctx = bf16_full_accumulation() if dt == torch.bfloat16 else exact_f32()
+
+    def conv(x, w, b, stride=1, dilation=1):
+        return conv2d_same(x, w.to(dt), None, stride, dilation) + b.to(dt).view(1, -1, 1, 1)
+
+    with ctx:
+        x = x_nhwc.to(dt).permute(0, 3, 1, 2)
+        for i in range(2):
+            x = F.relu(conv(x, params[f"downscale_{i}.weight"], params[f"downscale_{i}.bias"], 2))
+        for i, d in enumerate(cfg.dilations):
+            if cfg.separable_context:
+                dw = params[f"context_{i}.depthwise.weight"].to(dt)  # (C, 1, 3, 3)
+                pw = params[f"context_{i}.pointwise.weight"].to(dt)  # (C, C, 1, 1)
+                k = dw[None, :, 0] * pw[:, :, 0, 0, None, None]  # (Co, Ci, 3, 3)
+                b = params[f"context_{i}.pointwise.bias"]
+            else:
+                k = params[f"context_{i}.weight"]
+                b = params[f"context_{i}.bias"]
+            x = F.relu(conv(x, k, b, dilation=d))
+        x = conv(x, params["head.weight"], params["head.bias"])
+        return x.to(torch.float32).permute(0, 2, 3, 1)
+
+
+def param_count(params: dict) -> int:
+    """Number of scalars in a state_dict (or any dict of tensors/arrays)."""
+    return sum(math.prod(v.shape) for v in params.values())

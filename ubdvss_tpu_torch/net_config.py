@@ -27,6 +27,8 @@ import dataclasses
 import json
 from dataclasses import dataclass
 
+import torch
+
 # Barcode object types detected by the reference system (paper §1/§4 lists
 # 1D families, 2D codes and postal codes; exact reference spelling
 # unverifiable with the empty mount — SURVEY.md §0).
@@ -58,6 +60,10 @@ CLASS_GROUPS: dict[str, tuple[str, ...]] = {
     "1D": ("EAN13", "UPCA", "Code39", "Code93", "Code128", "Codabar", "ITF"),
     "postal": ("Postnet", "IntelligentMail", "JapanPost", "RoyalMail"),
 }
+
+
+# the compute dtypes a config may name, as torch dtypes
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -128,6 +134,17 @@ class NetConfig:
     dtype: str = "float32"
 
     # ---- derived quantities -------------------------------------------------
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The trunk's torch compute dtype: ``dtype`` is "float32" (the
+        parity mode) or "bfloat16" (the throughput mode), as in the JAX
+        package, which takes ``jnp.dtype(cfg.dtype)``."""
+        if self.dtype not in _TORCH_DTYPES:
+            raise ValueError(
+                f"dtype={self.dtype!r}: expected one of {sorted(_TORCH_DTYPES)}"
+            )
+        return _TORCH_DTYPES[self.dtype]
 
     @property
     def n_classes(self) -> int:

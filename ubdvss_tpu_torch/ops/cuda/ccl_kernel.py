@@ -12,6 +12,12 @@ so it equals the TPU kernel even where that cap binds.  The CUDA kernels
 rounds and no cap): one block a map with the map in shared memory where it
 fits (``MAX_SHARED_BYTES``), else ``ccl_labels_tiled`` over device memory
 (tiles in shared memory, then the seams between them, then a flatten).
+
+Both kernels read f32 or bf16 detection logits (the bf16 route's trunk
+hands bf16 logits to postprocessing, as the JAX package does); each logit
+is widened to f32, exactly, and compared with the f32 threshold logit, as
+the JAX package compares ``det_logit.astype(f32)``.  A wrapper counts its
+bf16 launches in ``launches_bf16`` and its f32 launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -105,13 +111,28 @@ def ccl_labels_reference(
 
 
 _ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.F, _build.I, _build.P]
-_FUNCS = {"ccl_labels": _ARGS, "ccl_labels_tiled": _ARGS}
+_FUNCS = {
+    name + sfx: _ARGS for name in ("ccl_labels", "ccl_labels_tiled") for sfx in ("", "_bf16")
+}
 # the tiled kernel's labels are int32 linear indices below 2^30
 MAX_TILED_PIXELS = 1 << 30
+# the logit dtypes the kernels read, and the suffix of their C entry points
+LOGIT_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def count_launch(fn, dtype: torch.dtype) -> None:
+    """One launch of ``fn``'s kernel at this logit dtype: bf16 launches in
+    ``fn.launches_bf16``, f32 ones in ``fn.launches``."""
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def _check(det_logits: torch.Tensor) -> None:
-    _build.check_input(det_logits, "det_logits", torch.float32, 3)
+    if det_logits.dtype not in LOGIT_DTYPES:
+        raise TypeError(f"det_logits: expected float32 or bfloat16, got {det_logits.dtype}")
+    _build.check_input(det_logits, "det_logits", det_logits.dtype, 3)
     B, H, W = det_logits.shape
     if H * W >= MAX_TILED_PIXELS or B > 65535:
         raise ValueError(f"{B} maps of {H}x{W}: the CCL kernels take H*W < 2^30, B <= 65535")
@@ -120,8 +141,8 @@ def _check(det_logits: torch.Tensor) -> None:
 def ccl_labels_tiled(
     det_logits: torch.Tensor, threshold: float = 0.5, connectivity: int = 8
 ) -> torch.Tensor:
-    """(B, H, W) f32 detection logits -> (B, H, W) int32 raw labels, by the
-    device-memory kernel: 32x64 tiles labelled in shared memory, the seams
+    """(B, H, W) f32 or bf16 detection logits -> (B, H, W) int32 raw labels,
+    by the device-memory kernel: 32x64 tiles labelled in shared memory, the seams
     between tiles united by atomicMin on roots in device memory, then a
     flatten (three launches; any map size).  ``ccl_labels_from_logits``
     takes it for maps larger than one block's shared memory.
@@ -137,20 +158,22 @@ def ccl_labels_tiled(
     lib = _build.load("ccl_kernel", _FUNCS)
     out = torch.empty(det_logits.shape, dtype=torch.int32, device=det_logits.device)
     _build.launch(
-        lib, "ccl_labels_tiled", det_logits.device, det_logits.data_ptr(),
-        out.data_ptr(), *det_logits.shape, threshold_logit(threshold), connectivity,
+        lib, "ccl_labels_tiled" + LOGIT_DTYPES[det_logits.dtype], det_logits.device,
+        det_logits.data_ptr(), out.data_ptr(), *det_logits.shape, threshold_logit(threshold),
+        connectivity,
     )
-    ccl_labels_tiled.launches += 1
+    count_launch(ccl_labels_tiled, det_logits.dtype)
     return out
 
 
 ccl_labels_tiled.launches = 0
+ccl_labels_tiled.launches_bf16 = 0
 
 
 def ccl_labels_from_logits(
     det_logits: torch.Tensor, threshold: float = 0.5, connectivity: int = 8
 ) -> torch.Tensor:
-    """(B, H, W) f32 detection logits -> (B, H, W) int32 raw labels.
+    """(B, H, W) f32 or bf16 detection logits -> (B, H, W) int32 raw labels.
 
     A CPU tensor takes the plain version; a CUDA tensor launches a kernel
     or raises: one block per image with the label map in shared memory
@@ -170,11 +193,13 @@ def ccl_labels_from_logits(
     lib = _build.load("ccl_kernel", _FUNCS)
     out = torch.empty((B, H, W), dtype=torch.int32, device=det_logits.device)
     _build.launch(
-        lib, "ccl_labels", det_logits.device, det_logits.data_ptr(),
-        out.data_ptr(), B, H, W, threshold_logit(threshold), connectivity,
+        lib, "ccl_labels" + LOGIT_DTYPES[det_logits.dtype], det_logits.device,
+        det_logits.data_ptr(), out.data_ptr(), B, H, W, threshold_logit(threshold),
+        connectivity,
     )
-    ccl_labels_from_logits.launches += 1
+    count_launch(ccl_labels_from_logits, det_logits.dtype)
     return out
 
 
 ccl_labels_from_logits.launches = 0
+ccl_labels_from_logits.launches_bf16 = 0

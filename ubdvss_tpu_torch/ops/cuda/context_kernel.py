@@ -1,27 +1,37 @@
-"""The fused separable context module + head (K4) and the f32 trunk.
+"""The context module + head (K4, and the bf16 route's dense convs) and
+the trunk.
 
-Counterpart of ``ubdvss_tpu/ops/pallas/context_kernel.py`` on its f32
-route.  The JAX package runs its Pallas kernel up to 128x128 feature maps
-and the XLA formulations ``dense_context_head`` / ``s2d_context_head``
-(layouts for the TPU's matrix unit) beyond (``context_head_route``,
-:654-674); the port runs the context kernel at every size, in full f32:
+Counterpart of ``ubdvss_tpu/ops/pallas/context_kernel.py``.  The JAX
+package picks a formulation by dtype and size (``context_head_route``,
+:654-674): its Pallas kernel in f32 up to 128x128 feature maps, the XLA
+formulations ``dense_context_head`` / ``s2d_context_head`` (layouts for
+the TPU's matrix unit) in the bf16 mode and beyond.  The port runs:
+
+  * f32: the context kernel (K4) at every size, in full f32 (``exact_f32``
+    turns cuDNN's TF32 off and refuses to run with TF32 matmuls enabled;
+    the JAX reference runs at ``Precision.HIGHEST``);
+  * bf16: ``dense_context_head`` at every size, as the JAX bf16 route does
+    below the s2d route's sizes; ``s2d_context_head`` is the same conv on
+    space-to-depth tensors for the TPU's matrix unit and is not ported
+    (ROADMAP.md §1 item 7).
+
+The pieces:
 
   * ``_pack_weights`` — the state_dict's context/head weights as the
     kernel's tensors, in the JAX package's shapes: dw (L, 9, C, 1, 1),
-    pwt (L, C, C), pb (L, C, 1, 1), hwt (O, C), hb (O, 1, 1);
-  * ``context_head_reference`` — the plain version: 9 zero-filled shifted
-    multiply-adds, the pointwise product, bias, ReLU per layer, then the
-    1x1 head;
-  * ``fused_context_head`` — the kernel wrapper (one launch per layer, the
+    pwt (L, C, C), pb (L, C, 1, 1), hwt (O, C), hb (O, 1, 1), all f32;
+  * ``context_head_reference`` — the plain version of K4: 9 zero-filled
+    shifted multiply-adds, the pointwise product, bias, ReLU per layer,
+    then the 1x1 head;
+  * ``fused_context_head`` — the K4 wrapper (one launch per layer, the
     head fused into the last, ``csrc/context_kernel.cu``);
+  * ``dense_context_head`` — each separable layer as one dense 3x3 dilated
+    conv (cuDNN in bf16 with f32 accumulation, as XLA's conv in the JAX
+    package), bias and ReLU as separate ops at the activation dtype;
   * ``stem_apply`` — the two stride-2 "SAME" convs (``F.conv2d``, as the
     JAX package leaves them to XLA), with the optional ``raw_gray`` fold of
-    x/127.5 - 1 into the first conv;
+    x/127.5 - 1 into the first conv, in either dtype;
   * ``context_head_route`` and ``fused_model_apply`` — the trunk.
-
-Everything runs in exact f32: ``exact_f32`` turns cuDNN's TF32 off and
-refuses to run with TF32 matmuls enabled (the JAX reference runs at
-``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ubdvss_tpu_torch.models.model import conv2d_same, exact_f32
+from ubdvss_tpu_torch.models.model import bf16_full_accumulation, conv2d_same, exact_f32
 from ubdvss_tpu_torch.ops.cuda import _build
 from ubdvss_tpu_torch.ops.cuda.ccl_kernel import _shift
 
@@ -131,6 +141,27 @@ def fused_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations) -> torch.Tensor:
 fused_context_head.launches = 0
 
 
+def _stem(params: dict, x_nhwc: torch.Tensor, cfg, raw_gray: bool) -> torch.Tensor:
+    """The stem's (B, C, H/4, W/4) features at the compute dtype (NCHW)."""
+    dt = cfg.compute_dtype
+    x = x_nhwc.to(dt).permute(0, 3, 1, 2)
+    for i in range(2):
+        w = params[f"downscale_{i}.weight"].to(torch.float32)
+        b = params[f"downscale_{i}.bias"].to(dt).view(1, -1, 1, 1)
+        if i == 0 and raw_gray:
+            # the quotient is rounded to the compute dtype, and the border
+            # correction is the conv of ones with the kernel at that dtype
+            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=dt, device=x.device)
+            corr = conv2d_same(ones, w.to(dt), None, stride=2)
+            x = conv2d_same(x, (w * (1.0 / 127.5)).to(dt), None, stride=2) - corr + b
+        elif dt == torch.float32:
+            x = conv2d_same(x, w, b.view(-1), stride=2)
+        else:
+            x = conv2d_same(x, w.to(dt), None, stride=2) + b  # bias after the conv, in bf16
+        x = F.relu(x)
+    return x
+
+
 def stem_apply(params: dict, x_nhwc: torch.Tensor, cfg, raw_gray: bool = False):
     """Downscale stem: two 3x3 stride-2 SAME convs + ReLU,
     (B, H, W, 1) -> (B, H/4, W/4, C) f32 features (an NHWC view).
@@ -139,41 +170,72 @@ def stem_apply(params: dict, x_nhwc: torch.Tensor, cfg, raw_gray: bool = False):
     x/127.5 - 1 is folded into the first conv — conv(x/s - 1) =
     conv(x, k/s) - conv(ones, k), where conv(ones, k) is a constant map
     that is exact at the SAME borders, where fewer taps are in bounds.
+
+    In the bf16 mode each conv takes bf16 operands with f32 accumulation,
+    and conv - corr + bias and the ReLU run in bf16; the features are then
+    cast to f32, as the JAX function returns them.  (``fused_model_apply``
+    keeps them in bf16: the dense context casts them straight back.)
     """
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: only the f32 route is ported; the bf16 "
-            "route is ROADMAP.md §1 item 7"
-        )
-    x = x_nhwc.to(torch.float32).permute(0, 3, 1, 2)
-    for i in range(2):
-        w = params[f"downscale_{i}.weight"].to(torch.float32)
-        b = params[f"downscale_{i}.bias"].to(torch.float32)
-        if i == 0 and raw_gray:
-            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=torch.float32, device=x.device)
-            corr = conv2d_same(ones, w, None, stride=2)
-            x = conv2d_same(x, w * (1.0 / 127.5), None, stride=2) - corr + b.view(1, -1, 1, 1)
-        else:
-            x = conv2d_same(x, w, b, stride=2)
-        x = F.relu(x)
-    return x.permute(0, 2, 3, 1)
+    return _stem(params, x_nhwc, cfg, raw_gray).to(torch.float32).permute(0, 2, 3, 1)
 
 
-def context_head_route(params: dict, feat: torch.Tensor, cfg) -> torch.Tensor:
+def dense_context_head(
+    x_nhwc: torch.Tensor, dw, pwt, pb, hwt, hb, dilations,
+    act_dtype: torch.dtype = torch.float32, act_out: bool = False,
+) -> torch.Tensor:
+    """Context module + head with each separable layer collapsed into ONE
+    dense 3x3 dilated conv, kernel[co, ci] = dw[ci] * pwt[co, ci], the
+    product taken in f32 from ``_pack_weights``' tensors and then cast to
+    ``act_dtype`` (the JAX function's rounding); the activations are
+    stored at ``act_dtype``, each bias added after its conv and the ReLU
+    applied at that dtype.  (B, H, W, C) in, (B, H, W, O) logits out: f32,
+    or at ``act_dtype`` with ``act_out=True`` (the bf16 route hands them
+    to postprocessing at that dtype, as the JAX package does).
+    """
+    C = pwt.shape[-1]
+    x = x_nhwc.to(act_dtype).permute(0, 3, 1, 2)
+    for li, d in enumerate(dilations):
+        k = pwt[li][:, :, None] * dw[li, :, :, 0, 0].T[None]  # (Co, Ci, 9) f32
+        y = conv2d_same(x, k.reshape(C, C, 3, 3).to(act_dtype), None, dilation=d)
+        x = F.relu(y + pb[li].to(act_dtype).view(1, -1, 1, 1))
+    out = F.conv2d(x, hwt[:, :, None, None].to(act_dtype)) + hb.to(act_dtype).view(1, -1, 1, 1)
+    out = out.permute(0, 2, 3, 1)
+    return out if act_out else out.to(torch.float32)
+
+
+def context_head_route(
+    params: dict, feat: torch.Tensor, cfg, act_out: bool = False
+) -> torch.Tensor:
     """Context module + 1x1 head over stem features (B, Hf, Wf, C) ->
-    (B, Hf, Wf, O) logits (an NHWC view of the kernel's NCHW output), at
-    any map size."""
+    (B, Hf, Wf, O) logits, at any map size: f32 through the context kernel
+    (an NHWC view of its NCHW output), bf16 through ``dense_context_head``
+    (bf16 logits with ``act_out=True``, else f32)."""
     dw, pwt, pb, hwt, hb = _pack_weights(params, tuple(cfg.dilations))
+    if cfg.compute_dtype == torch.bfloat16:
+        return dense_context_head(
+            feat, dw, pwt, pb, hwt, hb, tuple(cfg.dilations),
+            act_dtype=torch.bfloat16, act_out=act_out,
+        )
     xc = feat.permute(0, 3, 1, 2).contiguous()
     logits = fused_context_head(xc, dw, pwt, pb, hwt, hb, tuple(cfg.dilations))
     return logits.permute(0, 2, 3, 1)
 
 
-def fused_model_apply(params: dict, x_nhwc: torch.Tensor, cfg, raw_gray: bool = False):
-    """Full separable FCN forward with the fused context module + head,
-    NHWC in / NHWC logits out; equals ``BarcodeFCN`` on the same weights."""
+def fused_model_apply(
+    params: dict, x_nhwc: torch.Tensor, cfg, raw_gray: bool = False,
+    act_out: bool = False,
+):
+    """Full separable FCN forward, NHWC in / NHWC logits out: the stem, then
+    ``context_head_route``.  In f32 it equals ``BarcodeFCN`` on the same
+    weights; in bf16 it is the JAX package's bf16 route (the dense
+    equivalent of each separable layer), whose logits are f32, or bf16 with
+    ``act_out=True``."""
     if not cfg.separable_context:
         raise ValueError("fused path implements the separable context module")
+    if cfg.compute_dtype == torch.bfloat16:
+        with bf16_full_accumulation():
+            feat = _stem(params, x_nhwc, cfg, raw_gray).permute(0, 2, 3, 1)
+            return context_head_route(params, feat, cfg, act_out=act_out)
     with exact_f32():
         feat = stem_apply(params, x_nhwc, cfg, raw_gray=raw_gray)
         return context_head_route(params, feat, cfg)

@@ -37,6 +37,13 @@ what a CPU tensor takes.  On the card K2 and K12c sum them in the pixel
 pass that assigns the slots, reading the class logits where the head wrote
 them, so no one-hot exists there.
 
+The logits are f32 or bf16 (the bf16 route's trunk output).  On bf16
+logits the class softmax is taken in f32 and each probability rounded to
+bf16 before the f32 sums, as the JAX package stores it at the logits'
+dtype (``postproc_kernel.py:461-466``); the sigmoid and the counts are not
+rounded.  Each kernel has a bf16 instantiation, counted in its wrapper's
+``launches_bf16`` (f32 launches in ``launches``).
+
 The JAX package stacks G images per CCL program (``_stack_group``) to
 amortise TPU grid overhead; blocks run in parallel here, so there is no
 stacking.
@@ -50,9 +57,11 @@ import torch
 
 from ubdvss_tpu_torch.ops.cuda import _build
 from ubdvss_tpu_torch.ops.cuda.ccl_kernel import (
+    LOGIT_DTYPES,
     MAX_SHARED_BYTES,
     ccl_labels_from_logits,
     ccl_labels_reference,
+    count_launch,
     threshold_logit,
 )
 
@@ -70,7 +79,9 @@ def _as_nhwc(logits: torch.Tensor) -> torch.Tensor:
 def _stats_reference(logits: torch.Tensor, slots: torch.Tensor, K: int) -> dict:
     """Plain per-slot stats: areas, detection-probability sums and
     class-probability sums as one-hot products in f32, as the JAX package
-    leaves them to XLA; (B, K, 1) zeros for cls_sums when C = 1."""
+    leaves them to XLA; (B, K, 1) zeros for cls_sums when C = 1.  The class
+    softmax is taken in f32 and rounded to the logits' dtype (a no-op for
+    f32 logits) before the f32 sums."""
     B, H, W, C = logits.shape
     det = logits[..., 0].to(torch.float32)
     k_ids = torch.arange(K, dtype=torch.int32, device=logits.device).view(1, K, 1)
@@ -79,6 +90,7 @@ def _stats_reference(logits: torch.Tensor, slots: torch.Tensor, K: int) -> dict:
     det_sums = torch.bmm(onehot, torch.sigmoid(det).reshape(B, H * W, 1))[..., 0]
     if C > 1:
         sm = torch.softmax(logits[..., 1:].to(torch.float32), dim=-1)
+        sm = sm.to(logits.dtype).to(torch.float32)
         cls_sums = torch.bmm(onehot, sm.reshape(B, H * W, C - 1))
     else:
         cls_sums = torch.zeros((B, K, 1), dtype=torch.float32, device=logits.device)
@@ -125,9 +137,14 @@ def component_slots_reference(
 
 _LOGITS_ARGS = [_build.P] + [_build.L] * 4 + [_build.I]
 _FUNCS = {
-    "component_slots": _LOGITS_ARGS + [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.P],
-    "component_slots_tiled": _LOGITS_ARGS + [_build.P] * 12 + [_build.I] * 7
-    + [_build.F, _build.P],
+    name + sfx: args
+    for name, args in (
+        ("component_slots",
+         _LOGITS_ARGS + [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.P]),
+        ("component_slots_tiled",
+         _LOGITS_ARGS + [_build.P] * 12 + [_build.I] * 7 + [_build.F, _build.P]),
+    )
+    for sfx in LOGIT_DTYPES.values()
 }
 
 
@@ -137,12 +154,12 @@ MAX_CHANNELS = 33
 
 
 def _check_logits(logits: torch.Tensor) -> None:
-    """The kernels read the logits at their strides: f32, 4 dims, on the
-    card, at most MAX_CHANNELS channels."""
+    """The kernels read the logits at their strides: f32 or bf16, 4 dims,
+    on the card, at most MAX_CHANNELS channels."""
     if logits.device.type != "cuda":
         raise ValueError(f"logits: expected a CUDA tensor, got {logits.device}")
-    if logits.dtype != torch.float32:
-        raise TypeError(f"logits: expected torch.float32, got {logits.dtype}")
+    if logits.dtype not in LOGIT_DTYPES:
+        raise TypeError(f"logits: expected torch.float32 or torch.bfloat16, got {logits.dtype}")
     if logits.ndim != 4:
         raise ValueError(f"logits: expected 3 or 4 dims, got shape {tuple(logits.shape)}")
     if logits.shape[-1] > MAX_CHANNELS:
@@ -227,15 +244,16 @@ def component_slots(
     lib = _build.load("postproc_kernel", _FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
     _build.launch(
-        lib, "component_slots", logits.device, logits.data_ptr(), *logits.stride(), C,
-        labels.data_ptr(), *(t.data_ptr() for t in out.values()),
+        lib, "component_slots" + LOGIT_DTYPES[logits.dtype], logits.device, logits.data_ptr(),
+        *logits.stride(), C, labels.data_ptr(), *(t.data_ptr() for t in out.values()),
         B, H, W, K, 32 * nw, threshold_logit(threshold),
     )
-    component_slots.launches += 1
+    count_launch(component_slots, logits.dtype)
     return out
 
 
 component_slots.launches = 0
+component_slots.launches_bf16 = 0
 
 
 def _check_slots_inputs(logits: torch.Tensor, labels: torch.Tensor) -> None:
@@ -285,16 +303,17 @@ def component_slots_tiled(
     lib = _build.load("postproc_kernel", _FUNCS)
     out = _empty_outputs(B, H, W, K, C, dev)
     _build.launch(
-        lib, "component_slots_tiled", dev, logits.data_ptr(), *logits.stride(), C,
-        labels.data_ptr(), *(t.data_ptr() for t in out.values()),
+        lib, "component_slots_tiled" + LOGIT_DTYPES[logits.dtype], dev, logits.data_ptr(),
+        *logits.stride(), C, labels.data_ptr(), *(t.data_ptr() for t in out.values()),
         counts.data_ptr(), tpart.data_ptr(), tcnt.data_ptr(),
         B, H, W, K, threads, SLOTS_CHUNK, SLOTS_TILE_ROWS, threshold_logit(threshold),
     )
-    component_slots_tiled.launches += 1
+    count_launch(component_slots_tiled, logits.dtype)
     return out
 
 
 component_slots_tiled.launches = 0
+component_slots_tiled.launches_bf16 = 0
 
 
 def geometry_compat_reference(
@@ -310,8 +329,9 @@ def geometry_compat_reference(
 
 
 _GEO_FUNCS = {
-    "geometry_compat": _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
+    "geometry_compat" + sfx: _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
     + [_build.F, _build.I, _build.P]
+    for sfx in LOGIT_DTYPES.values()
 }
 
 
@@ -344,15 +364,16 @@ def geometry_compat(
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
     _build.launch(
-        lib, "geometry_compat", logits.device, logits.data_ptr(), *logits.stride(), C,
-        *(t.data_ptr() for t in out.values()),
+        lib, "geometry_compat" + LOGIT_DTYPES[logits.dtype], logits.device, logits.data_ptr(),
+        *logits.stride(), C, *(t.data_ptr() for t in out.values()),
         B, H, W, K, 32 * nw, threshold_logit(threshold), connectivity,
     )
-    geometry_compat.launches += 1
+    count_launch(geometry_compat, logits.dtype)
     return out
 
 
 geometry_compat.launches = 0
+geometry_compat.launches_bf16 = 0
 
 
 def component_geometry(
@@ -361,8 +382,10 @@ def component_geometry(
 ) -> dict:
     """(B, H, W) detection logits or (B, H, W, C) logits -> the eight
     outputs of the slots kernel: CCL then slots, or K12c when
-    ``UBDVSS_PALLAS_COMPAT`` is ``"1"`` (read at each call)."""
-    logits = _as_nhwc(logits).to(torch.float32)
+    ``UBDVSS_PALLAS_COMPAT`` is ``"1"`` (read at each call).  The logits
+    stay at their dtype: the kernels read f32 or bf16, and CCL takes a
+    (B, H, W) copy of the detection channel."""
+    logits = _as_nhwc(logits)
     if os.environ.get("UBDVSS_PALLAS_COMPAT", "") == "1":
         return geometry_compat(logits, max_components, threshold, connectivity)
     labels = ccl_labels_from_logits(logits[..., 0].contiguous(), threshold, connectivity)

@@ -19,7 +19,9 @@ input-image coordinates.  Outputs are fixed-size K-slot tensors plus a
     mask-stack rect) are not ported (ROADMAP.md §1 item 4): the kernels
     give the same labels, sums and rects.
 
-On the CPU every kernel takes its plain version.
+On the CPU every kernel takes its plain version.  The logits are f32, or
+bf16 from the bf16 route's trunk (the kernels read them at that dtype);
+scores and class probabilities are f32 either way.
 """
 
 from __future__ import annotations

@@ -75,19 +75,21 @@ def normalize(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) * (1.0 / 127.5) - 1.0
 
 
-def to_grayscale_batch(imgs: torch.Tensor, channel_order: str = "rgb") -> torch.Tensor:
-    """(B, H, W[, C]) -> (B, H, W) f32 grayscale (C = 1 or 3)."""
-    x = imgs.to(torch.float32)
-    if x.ndim == 4:
-        if x.shape[-1] == 3:
-            x = rgb_to_grayscale(x, channel_order)
-        elif x.shape[-1] == 1:
-            x = x[..., 0]
-        else:
+def to_grayscale_batch(
+    imgs: torch.Tensor, channel_order: str = "rgb", dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(B, H, W[, C]) -> (B, H, W) grayscale (C = 1 or 3) at ``dtype``: the
+    luma of three channels is taken in f32, then cast; one channel is cast
+    directly (uint8 0..255 is exact in bf16 as in f32)."""
+    if imgs.ndim == 4:
+        if imgs.shape[-1] == 3:
+            return rgb_to_grayscale(imgs.to(torch.float32), channel_order).to(dtype)
+        if imgs.shape[-1] != 1:
             raise ValueError(f"expected 1 or 3 channels, got shape {tuple(imgs.shape)}")
-    elif x.ndim != 3:
+        imgs = imgs[..., 0]
+    elif imgs.ndim != 3:
         raise ValueError(f"expected (B, H, W[, C]) images, got shape {tuple(imgs.shape)}")
-    return x
+    return imgs.to(dtype)
 
 
 def preprocess(

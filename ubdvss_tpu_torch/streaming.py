@@ -10,6 +10,9 @@ leaves together, and the host waits once per batch, on that batch's event
 (not on the whole stream, so the next batch keeps running).
 
 Throughput-oriented: frames are batched; latency mode is batch_size 1.
+A bf16 config (``NetConfig(dtype="bfloat16")``) runs the fused route's
+bf16 trunk and the bf16 CCL and slots kernels, as ``detect_program_batch``
+does.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ repository around this file; exits non-zero, printing no result, without
 them.  Phases, each of which raises on failure:
 
   1. the card's name and power limit (nvidia-smi), then the build of every
-     kernel from ubdvss_tpu_torch/csrc/ (one nvcc per source, five, in
+     kernel from ubdvss_tpu_torch/csrc/ (one nvcc per source, six, in
      parallel);
   2. each kernel against its plain PyTorch version on the card, at its
      path's shapes, on real logits plus adversarial maps (snake,
@@ -94,6 +94,29 @@ them.  Phases, each of which raises on failure:
         so the f32 CCL, slots and uncompacted rect run) at 512x512 and
         640x480, and the QVGA stream in bf16 (the bf16 CCL and slots), each
         against the host CPU;
+     l. the int8 mode (the JAX package's production serving route):
+        quantize_trunk on the card over 32 synthetic 512x512 scenes (seed
+        99), bench.py's calibration, against the same call on the host CPU
+        (scales within 1e-5 relative, at most 0.1% of the int8 weights and
+        1e-3 of a bias apart; reported); then the int8 conv kernel (qconv)
+        against its plain version on the card and on the host CPU, bit for
+        bit, at every layer of the main path (uint8, f32 raw and f32
+        normalized images into layer 0), the QVGA stream's and one image's
+        chains, a 2048² scan's layer 0, odd sizes at stride 2, random
+        activations at dilation 16, saturating ±127 (|acc| = 3,483,864)
+        and zeros;
+     m. the int8 main path: the main path with qparams: qconv once a layer
+        (ten launches), K1, K2, K3; the context kernel never; logits equal
+        to the same call on the host CPU with the card's qparams bit for
+        bit, detections identical; the scenes whose count and classes equal
+        the f32 path's reported;
+     n. int8 large scans (the scans of e): qconv, the device-memory CCL, the
+        tiled slots kernel and K3; the first 2 scans equal to the host CPU;
+     o. int8 BarcodeDetector.detect and detect_program_int8 at 512x512
+        (K=16) and 640x480 (the asset's config): qconv, K1, K2, K3x; and the
+        int8 QVGA stream: each equal to the host CPU;
+     p. the CLI's calibration (calibrate_qparams, detect --int8) on 4 scenes
+        on the card against the host CPU, as in l;
   4. timing with CUDA events (median of 10 samples of 10 back-to-back calls,
      after warm-up): img/s of the main path, frames/s of the stream (the
      whole process() of 256 frames, median of 3), each kernel's ms beside
@@ -108,7 +131,11 @@ them.  Phases, each of which raises on failure:
      ms a batch, the profile), the 4096² scan and one detect call at each
      of the three sizes.  The bf16 variants of CCL, slots and the fused
      geometry get their own rows (bounds at 2 B a logit), and the bf16
-     paths their timings and profiles.
+     paths their timings and profiles; so do the int8 paths (whose
+     profiles must hold no cuDNN convolution row), and qconv layer by layer
+     at the main path's shapes beside its bound (bytes at 3.35 TB/s against
+     int8 operations at 1,979 TOPS), its plain version and one f32 F.conv2d
+     on the int8 values (TF32 off), the library yardstick.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -139,6 +166,8 @@ LOGIT_ULPS = 4  # bf16 logits of one route on the card against the host CPU
 SCORE_TOL_BF16, CLS_TOL_BF16 = 1e-3, 1e-2  # tests/test_torch_bf16.py's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (no tensor cores)
+INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
+N_CALIB, CALIB_SEED = 32, 99  # the int8 calibration pool (bench.py:296-301)
 ITERS, REPS, WARMUP = 10, 10, 2
 
 
@@ -200,9 +229,9 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> float:
     raise AssertionError(f"device_ms: {tries} profiles recorded no kernel")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -345,13 +374,14 @@ def check_stats(out, ref, name, atol=2e-6, exact=None, logits=None) -> float:
     return max(float(err_det.max()), float(err_cls.max()))
 
 
-def compare_detections(out, ref, det_logits, box_atol, score_atol):
+def compare_detections(out, ref, det_logits, box_atol, score_atol, margin=1e-4):
     """Detections of the kernel path == the plain path, image by image.
 
-    Images holding a det logit within 1e-4 of the threshold are left out
-    (one pixel may flip on rounding alone); so are class ids whose top two
-    mean probabilities are within 1e-5.  Returns the counts left out."""
-    near = (np.abs(det_logits) < 1e-4).reshape(len(det_logits), -1).any(1)
+    Images holding a det logit within ``margin`` of the threshold are left
+    out (one pixel may flip on rounding alone; 0 where the logits are equal
+    bit for bit); so are class ids whose top two mean probabilities are
+    within 1e-5.  Returns the counts left out."""
+    near = (np.abs(det_logits) < margin).reshape(len(det_logits), -1).any(1)
     keep = ~near
     for key in ("valid", "areas", "num_detections", "num_components_total"):
         if not np.array_equal(out[key][keep], ref[key][keep]):
@@ -434,11 +464,48 @@ def is_stats_kernel(name: str) -> bool:
     return gemm or any(t in n for t in ("gemv", "compareeq", "sigmoid", "softmax"))
 
 
-def profile_path(run, ms_per_batch: float, iters: int = 3) -> dict:
+def is_library_conv(name: str) -> bool:
+    """A device kernel of cuDNN's convolutions (or its layout conversion)."""
+    n = name.lower()
+    return any(t in n for t in ("cudnn", "xmma", "implicit", "convolve", "fprop", "nchwtonhwc",
+                                "winograd", "fft"))
+
+
+def qparams_diff(a: dict, b: dict) -> dict:
+    """How far two int8 qparams are apart: int8 weights differing, the
+    largest relative difference of a scale (s_in, ws), the largest bias
+    difference."""
+    la, lb = a["layers"] + [a["head"]], b["layers"] + [b["head"]]
+
+    def rel(x, y):
+        x, y = x.cpu(), y.cpu()
+        return float(((x - y).abs() / y.abs()).max())
+
+    return {
+        "int8_weights": sum(int(x["q"].numel()) for x in la),
+        "int8_weights_differing": sum(int((x["q"].cpu() != y["q"].cpu()).sum()) for x, y in zip(la, lb)),
+        "max_rel_scale_diff": max([rel(x, y) for x, y in zip(a["s_in"], b["s_in"])]
+                                  + [rel(x["ws"], y["ws"]) for x, y in zip(la, lb)]),
+        "max_abs_bias_diff": max(float((x["b"].cpu() - y["b"].cpu()).abs().max()) for x, y in zip(la, lb)),
+    }
+
+
+def check_qparams(diff: dict, name: str) -> None:
+    """The card's calibration against the host CPU's: the f32 convs sum in
+    another order, so the scales may differ within 1e-5 relative (the CPU
+    tests' bound against JAX), a weight at a rounding boundary may flip
+    (at most 0.1% of them) and a corrected bias move with it (1e-3)."""
+    if not (diff["max_rel_scale_diff"] <= 1e-5 and diff["max_abs_bias_diff"] <= 1e-3
+            and diff["int8_weights_differing"] <= 1e-3 * diff["int8_weights"]):
+        raise AssertionError(f"{name}: card and host CPU calibrations too far apart: {diff}")
+
+
+def profile_path(run, ms_per_batch: float, iters: int = 3, no_convs: bool = False) -> dict:
     """Device time of the main path by kernel (torch.profiler, CUPTI).
 
     Only kernel rows are summed (operator rows repeat their kernels' time);
-    one stream runs them, so the sum is the device's busy time."""
+    one stream runs them, so the sum is the device's busy time.  With
+    ``no_convs`` a cuDNN convolution row fails it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -459,6 +526,9 @@ def profile_path(run, ms_per_batch: float, iters: int = 3) -> dict:
     stats_rows = [k for k, _ in rows if is_stats_kernel(k)]
     if stats_rows:
         raise AssertionError(f"the path ran torch stats kernels on the card: {stats_rows}")
+    conv_rows = [k for k, _ in rows if is_library_conv(k)]
+    if no_convs and conv_rows:
+        raise AssertionError(f"the path ran cuDNN convolutions: {conv_rows}")
     by_name: dict[str, float] = {}  # kernels whose names share 100 chars are summed
     for k, ms in rows:
         by_name[k[:100]] = by_name.get(k[:100], 0.0) + ms
@@ -485,13 +555,22 @@ def main() -> int:
         StreamingDetector,
         detect_program,
         detect_program_batch,
+        detect_program_int8,
         load_net_config,
         load_params_npz,
         params_from_flat,
     )
+    from ubdvss_tpu_torch.detect import calibrate_qparams
     from ubdvss_tpu_torch.models.model import exact_f32
     from ubdvss_tpu_torch.ops.cuda import _build
-    from ubdvss_tpu_torch.ops.cuda import ccl_kernel, context_kernel, postproc_kernel, rect_kernel
+    from ubdvss_tpu_torch.ops.cuda import (
+        ccl_kernel,
+        context_kernel,
+        postproc_kernel,
+        qconv_kernel,
+        rect_kernel,
+    )
+    from ubdvss_tpu_torch.ops.quant import int8_trunk_apply, qparams_to, quantize_trunk
     from ubdvss_tpu_torch.ops.cuda.context_kernel import _pack_weights, fused_model_apply, stem_apply
     from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
 
@@ -507,7 +586,8 @@ def main() -> int:
 
     # --- 1. build every kernel, one nvcc per source, in parallel ---
     t0 = time.perf_counter()
-    sources = ["context_kernel", "ccl_kernel", "postproc_kernel", "geometry_kernel", "rect_kernel"]
+    sources = ["context_kernel", "ccl_kernel", "postproc_kernel", "geometry_kernel", "rect_kernel",
+               "qconv_kernel"]
     _build.build(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s ({len(sources)} sources, "
         f"nvcc {' '.join(_build.NVCC_FLAGS)})")
@@ -782,6 +862,7 @@ def main() -> int:
         "geometry_compat_bf16": (postproc_kernel.geometry_compat, "launches_bf16"),
         "ccl_tiled_bf16": (ccl_kernel.ccl_labels_tiled, "launches_bf16"),
         "slots_tiled_bf16": (postproc_kernel.component_slots_tiled, "launches_bf16"),
+        "qconv": (qconv_kernel.qconv, "launches"),
     }
     tiled = ["ccl_tiled", "slots_tiled"]  # not on the 128² and smaller maps
     bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", "ccl_tiled_bf16",
@@ -1192,6 +1273,208 @@ def main() -> int:
         f"{n_stream16}; {int(res_s16['num_detections'].sum())} detections; == the bf16 route "
         f"on the host CPU: {cmp_s16}")
 
+    # --- 3l. the int8 mode: calibration on the card, qconv against its plain version ---
+    phase("int8 calibration and kernel checks")
+    creader = SyntheticMarkupReader(n_samples=N_CALIB, image_hw=(IMG, IMG), seed=CALIB_SEED)
+    calib = (np.stack([creader.sample_at(i).image for i in range(N_CALIB)]).astype(np.float32)
+             / 127.5 - 1.0)[..., None]  # bench.py's calibration images
+    t0 = time.perf_counter()
+    q_d = quantize_trunk(params_d, cfg, torch.from_numpy(calib).to(dev))
+    torch.cuda.synchronize()
+    t_calib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_hc = quantize_trunk(params, cfg, torch.from_numpy(calib))
+    t_calib_cpu = time.perf_counter() - t0
+    calib_diff = qparams_diff(q_d, q_hc)
+    check_qparams(calib_diff, "quantize_trunk")
+    q_h = qparams_to(q_d, "cpu")  # the card's qparams: every equality check below uses them
+    log(f"int8 calibration: quantize_trunk on {N_CALIB} {IMG}x{IMG} scenes (seed {CALIB_SEED}) on "
+        f"the card {t_calib:.1f} s, on the host CPU {t_calib_cpu:.1f} s; card against host CPU: "
+        f"{calib_diff}")
+
+    err_q = 0.0
+
+    def check_qconv(name, x, layer, s_out, stride, d, raw=False, n_host=None):
+        """qconv == qconv_reference on the card and on the host CPU (the
+        first ``n_host`` images), bit for bit; returns the kernel's output."""
+        nonlocal err_q
+        out = qconv_kernel.qconv(x, layer, s_out, stride, d, raw_gray=raw)
+        ref = qconv_kernel.qconv_reference(x, layer, s_out, stride, d, raw_gray=raw)
+        n = x.shape[0] if n_host is None else n_host
+        cpu = qconv_kernel.qconv_reference(
+            x[:n].cpu(), {k: v.cpu() for k, v in layer.items()},
+            None if s_out is None else s_out.cpu(), stride, d, raw_gray=raw)
+        if not (torch.equal(out, ref) and torch.equal(out[:n].cpu(), cpu)):
+            bad = int((out != ref).sum()) + int((out[:n].cpu() != cpu).sum())
+            raise AssertionError(f"qconv {name}: {bad} outputs differ from the plain version")
+        err_q = max(err_q, float((out.float() - ref.float()).abs().max()))
+        log(f"check qconv {name}: {tuple(x.shape)} {x.dtype} -> {tuple(out.shape)} {out.dtype}, "
+            f"stride {stride} dilation {d}: == plain version on the card and on the host CPU "
+            f"({n} images), bit for bit")
+        return out
+
+    def check_chain(name, x, q, c, raw, n_host=None):
+        """Every layer of the int8 trunk on x, each against its plain version;
+        returns (the layer inputs, the logits)."""
+        ins, specs = [], [(2, 1), (2, 1)] + [(1, d) for d in c.dilations]
+        for i, (st, d) in enumerate(specs):
+            ins.append(x)
+            x = check_qconv(f"{name} layer {i}", x, q["layers"][i], q["s_in"][i + 1], st, d,
+                            raw=raw and i == 0, n_host=n_host)
+        ins.append(x)
+        return ins, check_qconv(f"{name} head", x, q["head"], None, 1, 1, n_host=n_host)
+
+    with torch.inference_mode():
+        ins8, lg8_chain = check_chain("main path", imgs_d, q_d, cfg, raw=True, n_host=8)
+        x_main = imgs_d.float()
+        check_qconv("layer 0 f32 raw", x_main, q_d["layers"][0], q_d["s_in"][1], 2, 1, raw=True, n_host=8)
+        check_qconv("layer 0 f32 normalized", (x_main / 127.5 - 1.0)[..., None], q_d["layers"][0],
+                    q_d["s_in"][1], 2, 1, n_host=8)
+        check_chain("QVGA stream", frames_d, q_d, cfg_q, raw=True, n_host=8)
+        check_chain("B=1", imgs_d[:1].contiguous(), q_d, cfg, raw=True)
+        check_qconv("2048² scan layer 0", scans_d, q_d["layers"][0], q_d["s_in"][1], 2, 1, raw=True,
+                    n_host=2)
+        rng = np.random.default_rng(SEED)
+        odd = torch.from_numpy(rng.uniform(0, 255, (3, 75, 101)).astype(np.float32)).to(dev)
+        odd = check_qconv("odd 75x101 layer 0", odd, q_d["layers"][0], q_d["s_in"][1], 2, 1, raw=True)
+        check_qconv("odd 38x51 stride 2", odd, q_d["layers"][1], q_d["s_in"][2], 2, 1)
+        rand = torch.from_numpy(rng.integers(-127, 128, (8, IMG // 4, IMG // 4, 24)).astype(np.int8)).to(dev)
+        check_qconv("random d=16", rand, q_d["layers"][7], q_d["s_in"][8], 1, 16)
+        sat = torch.full((2, 40, 40, 24), 127, dtype=torch.int8, device=dev)
+        sat[1] = -127
+        sat_layer = dict(q=torch.full_like(q_d["layers"][2]["q"], 127), ws=q_d["layers"][2]["ws"],
+                         b=q_d["layers"][2]["b"])
+        acc = check_qconv("saturated ±127 logits", sat, sat_layer, None, 1, 1)[:, 1:-1, 1:-1]
+        acc = (acc.double() - sat_layer["b"].double()) / sat_layer["ws"].double()
+        if not float((acc.abs() - 9 * 24 * 127**2).abs().max()) <= 1e-6 * 9 * 24 * 127**2:
+            raise AssertionError("qconv saturated: the accumulators are not ±3,483,864")
+        check_qconv("saturated ±127 requant", sat, sat_layer, q_d["s_in"][3], 1, 1)
+        check_qconv("zeros", torch.zeros_like(sat), q_d["layers"][3], q_d["s_in"][4], 1, 2)
+
+    # --- 3m. the int8 main path: bench.py's int8 protocol ---
+    phase("int8 main path")
+    main8 = ["qconv", "ccl", "slots", "rect_compact"]
+    not8 = ["context_layer", "geometry_compat", "rect_exact", *tiled, *bf16]
+    (res8_d, logits8_d), n_main8 = counted(
+        lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), qparams=q_d, device="cuda"),
+        main8, not8)
+    n_layers = 3 + len(dil)
+    if n_main8["qconv"] != n_layers:
+        raise AssertionError(f"int8 main path: {n_main8['qconv']} qconv launches, expected {n_layers}")
+    launches["qconv"] = n_main8["qconv"]
+    res8 = {k: v.cpu().numpy() for k, v in res8_d.items()}
+    logits8 = logits8_d.cpu().numpy()
+    if not (np.isfinite(logits8).all() and logits8.shape == (B, IMG // 4, IMG // 4, 17)):
+        raise AssertionError("int8 main path: logits not finite or of the wrong shape")
+    if not np.array_equal(logits8, lg8_chain.cpu().numpy()):
+        raise AssertionError("int8 main path: logits differ from the checked layer chain's")
+    if int(res8["num_detections"].sum()) == 0:
+        raise AssertionError("int8 main path: no valid detection")
+    t0 = time.perf_counter()
+    ref8, ref_lg8 = detect_program_batch(params, imgs, cfg, (IMG, IMG), qparams=q_h, device="cpu")
+    t_cpu8 = time.perf_counter() - t0
+    ref_lg8 = ref_lg8.numpy()
+    if not np.array_equal(logits8, ref_lg8):
+        raise AssertionError(f"int8 main path: {int((logits8 != ref_lg8).sum())} logits differ from "
+                             "the host CPU's")
+    skipped8 = compare_detections(res8, {k: v.numpy() for k, v in ref8.items()}, logits8[..., 0],
+                                  box_atol=4e-4, score_atol=1e-5, margin=0.0)
+    same_count8 = res8["num_detections"] == res["num_detections"]
+    same_cls8 = np.array([np.array_equal(res8["classes"][b][res8["valid"][b]],
+                                         res["classes"][b][res["valid"][b]]) for b in range(B)])
+    agree8 = int((same_count8 & same_cls8).sum())
+    log(f"int8 main path: B={B} {IMG}x{IMG} uint8 K={K} M={M}, launches {n_main8}; "
+        f"{int(res8['num_detections'].sum())} detections; == the host CPU ({t_cpu8:.1f} s) with "
+        f"the same qparams: logits bit for bit, detections identical ({skipped8[1]} near-tie class "
+        f"ids left out); {agree8} of {B} scenes with the f32 path's count and classes")
+
+    # --- 3n. int8 large scans: B=8 2048² scans, the asset's config ---
+    phase("int8 large scans")
+    (res8_l, lg8_l), n_large8 = counted(
+        lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), qparams=q_d, device="cuda"),
+        ["qconv", "ccl_tiled", "slots_tiled", "rect_compact"],
+        ["context_layer", "ccl", "slots", "geometry_compat", "rect_exact", *bf16])
+    res8_l = {k: v.cpu().numpy() for k, v in res8_l.items()}
+    lg8_l = lg8_l.cpu().numpy()
+    if not (np.isfinite(lg8_l).all() and lg8_l.shape == (B_SCAN, SCAN // 4, SCAN // 4, 17)):
+        raise AssertionError("int8 large scans: logits not finite or of the wrong shape")
+    t0 = time.perf_counter()
+    ref8_l, ref_lg8_l = detect_program_batch(params, scans[:n_cmp], cfg_l, (SCAN, SCAN), qparams=q_h,
+                                             device="cpu")
+    t_cpu8_l = time.perf_counter() - t0
+    if not np.array_equal(lg8_l[:n_cmp], ref_lg8_l.numpy()):
+        raise AssertionError("int8 large scans: logits differ from the host CPU's")
+    skipped8_l = compare_detections({k: v[:n_cmp] for k, v in res8_l.items()},
+                                    {k: v.numpy() for k, v in ref8_l.items()}, lg8_l[:n_cmp, ..., 0],
+                                    box_atol=4e-4, score_atol=1e-5, margin=0.0)
+    if int(res8_l["num_detections"][:n_cmp].sum()) == 0:
+        raise AssertionError("int8 large scans: no detection compared with the host CPU")
+    log(f"int8 large scans: B={B_SCAN} {SCAN}x{SCAN} uint8 K={K_l} M={M_l}, launches {n_large8}; "
+        f"{int(res8_l['num_detections'].sum())} detections; the first {n_cmp} == the host CPU "
+        f"({t_cpu8_l:.1f} s): logits bit for bit, detections identical ({skipped8_l[1]} near-tie "
+        "class ids left out)")
+
+    # --- 3o. int8 BarcodeDetector.detect (detect_program_int8) and the QVGA stream ---
+    phase("int8 detect and stream")
+    det8_d = BarcodeDetector(cfg, params, qparams=q_d, device="cuda")
+    det8_ld = BarcodeDetector(cfg_l, params, qparams=q_d, device="cuda")
+    detect8 = {}
+    for name, c8, dd, img in (("512x512", cfg, det8_d, imgs[0]), ("640x480", cfg_l, det8_ld, photos[0])):
+        out_hw = c8.grid_size(*img.shape[:2])
+        must = ["qconv", "ccl", "slots", "rect_exact"]
+        must_not = ["context_layer", "rect_compact", "geometry_compat", *tiled, *bf16]
+        (res_1, lg_1), _ = counted(
+            lambda: detect_program_int8(q_d, img, c8, out_hw, device="cuda"), must, must_not)
+        dets, n_8 = counted(lambda: dd.detect(img), must, must_not)
+        ref_1, ref_lg_1 = detect_program_int8(q_h, img, c8, out_hw, device="cpu")
+        if not torch.equal(lg_1.cpu(), ref_lg_1):
+            raise AssertionError(f"int8 detect {name}: logits differ from the host CPU's")
+        compare_detections({k: v.cpu().numpy()[None] for k, v in res_1.items()},
+                           {k: v.numpy()[None] for k, v in ref_1.items()},
+                           ref_lg_1.numpy()[None, ..., 0], box_atol=4e-4, score_atol=1e-5, margin=0.0)
+        ref_dets = BarcodeDetector(c8, params, qparams=q_h, device="cpu").detect(img)
+        if not dets or len(dets) != len(ref_dets):
+            raise AssertionError(f"int8 detect {name}: {len(dets)} detections, {len(ref_dets)} on the "
+                                 "host CPU")
+        for o, r in zip(dets, ref_dets):
+            if (o.class_id, o.area) != (r.class_id, r.area) or abs(o.score - r.score) > 1e-5:
+                raise AssertionError(f"int8 detect {name}: a detection differs from the host CPU's")
+            if not same_corner_sets(o.box, r.box, 4e-4):
+                raise AssertionError(f"int8 detect {name}: a box differs from the host CPU's")
+        detect8[name] = {"launches": n_8, "detections": len(dets)}
+    log(f"int8 detect: {detect8}; logits bit for bit and detections == the host CPU's")
+    stream8 = StreamingDetector(cfg_q, params, QVGA, batch_size=B, qparams=q_d, device="cuda")
+    got8, n_stream8 = counted(
+        lambda: list(stream8.process(iter(frames))), ["qconv", "ccl", "slots", "rect_exact"],
+        ["context_layer", "rect_compact", "geometry_compat", *tiled, *bf16])
+    if n_stream8["qconv"] != N_FRAMES // B * n_layers:
+        raise AssertionError(f"int8 stream: {n_stream8['qconv']} qconv launches")
+    res_s8 = {k: np.stack([d[k] for _, d in got8]) for k in got8[0][1]}
+    ref_s8, lg_s8 = {}, []
+    for b0 in range(0, N_FRAMES, B):
+        r, lg = detect_program_batch(params, frames[b0:b0 + B], cfg_q, QVGA, qparams=q_h, device="cpu")
+        for k, v in r.items():
+            ref_s8.setdefault(k, []).append(v.numpy())
+        lg_s8.append(lg[..., 0].numpy())
+    ref_s8 = {k: np.concatenate(v) for k, v in ref_s8.items()}
+    if int(res_s8["num_detections"].sum()) == 0:
+        raise AssertionError("int8 stream: no valid detection")
+    skipped_s8 = compare_detections(res_s8, ref_s8, np.concatenate(lg_s8), box_atol=4e-4,
+                                    score_atol=1e-5)
+    log(f"int8 stream: {N_FRAMES} frames {QVGA[0]}x{QVGA[1]} uint8, batch {B}, launches "
+        f"{n_stream8}; {int(res_s8['num_detections'].sum())} detections == the host CPU, "
+        f"{skipped_s8[0]} frames (a det logit within 1e-4 of the threshold) and {skipped_s8[1]} "
+        "near-tie class ids left out")
+
+    # --- 3p. the CLI's calibration (detect --int8) on the card and on the host CPU ---
+    phase("int8 CLI calibration")
+    cli_imgs = [imgs[i] for i in range(4)]
+    qc_d = calibrate_qparams(params, cfg, cli_imgs, "cuda")
+    cli_diff = qparams_diff(qc_d, calibrate_qparams(params, cfg, cli_imgs, "cpu"))
+    check_qparams(cli_diff, "calibrate_qparams")
+    log(f"int8 CLI calibration: calibrate_qparams on 4 {IMG}x{IMG} scenes, card against host CPU: "
+        f"{cli_diff}")
+
     # --- 4. timing ---
     phase("timing")
     with torch.inference_mode(), exact_f32():
@@ -1575,6 +1858,100 @@ def main() -> int:
     }))
     log(json.dumps({"path": "BarcodeDetector.detect bf16, one 512x512 uint8 host image",
                     "ms_per_image": ms_detect16, "device_ms_per_image": dev_detect16}))
+
+    # the int8 paths, and qconv layer by layer at the main path's shapes
+    phase("int8 timing")
+    with torch.inference_mode():
+        def run8(images=imgs_d):
+            return detect_program_batch(params_d, images, cfg, (IMG, IMG), qparams=q_d,
+                                        detections_only=True, device="cuda")
+
+        def run8_l(images=scans_d):
+            return detect_program_batch(params_d, images, cfg_l, (SCAN, SCAN), qparams=q_d,
+                                        detections_only=True, device="cuda")
+
+        def run_stream8():
+            return list(stream8.process(iter(frames)))
+
+        ms8 = time_ms(run8)
+        ms8_host = time_ms(lambda: run8(imgs))
+        prof8 = profile_path(run8, ms8, no_convs=True)
+        ms8_l = time_ms(run8_l, iters=5, reps=3)
+        prof8_l = profile_path(run8_l, ms8_l, no_convs=True)
+        ms_stream8 = time_ms(run_stream8, iters=3, reps=1, warmup=1)
+        prof_s8 = profile_path(run_stream8, ms_stream8, 2, no_convs=True)
+        ms_detect8 = time_ms(lambda: det8_d.detect(imgs[0]), iters=10, reps=3)
+        dev_detect8 = device_ms(lambda: det8_d.detect(imgs[0]), n=10)
+
+        # qconv a layer at the main path's shapes (the inputs of the checked
+        # chain): the kernel, its plain version (f64 conv, cuDNN off) and one
+        # f32 F.conv2d on the int8 values as floats (TF32 off), the library
+        # yardstick: no PyTorch call computes the int8 conv itself
+        specs8 = [(2, 1), (2, 1)] + [(1, d) for d in dil] + [(1, 1)]
+        layers8 = q_d["layers"] + [q_d["head"]]
+        s_outs8 = q_d["s_in"][1:] + [None]
+        qconv_layers = []
+        for i, ((st, d), layer, s_o) in enumerate(zip(specs8, layers8, s_outs8)):
+            x = ins8[i]
+            ks, _, cin, cout = layer["q"].shape
+
+            def kern(x=x, layer=layer, s_o=s_o, st=st, d=d):
+                return qconv_kernel.qconv(x, layer, s_o, st, d, raw_gray=i == 0)
+
+            xf = (x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)).float().contiguous()
+            wf = layer["q"].permute(3, 2, 0, 1).float().contiguous()
+            pad = d if ks == 3 else 0
+
+            def lib(xf=xf, wf=wf, st=st, d=d, pad=pad):
+                return torch.nn.functional.conv2d(xf, wf, None, st, pad, d)
+
+            out = kern()
+            nbytes = x.numel() * x.element_size() + out.numel() * out.element_size() + wf.numel()
+            ops = 2 * out.numel() // cout * cout * cin * ks * ks
+            with exact_f32():
+                lib_ms = time_ms(lib, iters=5, reps=5)
+            row = dict(layer=i, input=list(x.shape), input_dtype=str(x.dtype).split(".")[-1],
+                       output=list(out.shape), stride=st, dilation=d, ms=time_ms(kern),
+                       device_ms=device_ms(kern), bound=bound(nbytes, ops, INT8_OPS),
+                       plain_ms=time_ms(lambda: qconv_kernel.qconv_reference(
+                           x, layer, s_o, st, d, raw_gray=i == 0), iters=3, reps=1, warmup=1),
+                       library_ms=lib_ms)
+            row["bound_ms"], row["bound_by"] = row.pop("bound")
+            qconv_layers.append(row)
+        trunk8 = lambda: int8_trunk_apply(q_d, imgs_d, cfg, raw_gray=True)  # noqa: E731
+        kernels.append(dict(
+            name="qconv", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_kernel.cu",
+            replaces="ubdvss_tpu/ops/quant.py:276",
+            launches=launches["qconv"], max_abs_err=err_q,
+            ms=time_ms(trunk8), device_ms=device_ms(trunk8),
+            plain_ms=sum(r["plain_ms"] for r in qconv_layers),
+            bound_ms=sum(r["bound_ms"] for r in qconv_layers),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in qconv_layers) else "operations",
+            library_ms=sum(r["library_ms"] for r in qconv_layers),
+        ))
+    log(json.dumps({"qconv_layers (the int8 main path's ten launches; plain and library per layer)":
+                    qconv_layers}))
+    log(json.dumps({
+        "path": "detect_program_batch int8, uint8 images on the card",
+        "batch": B, "image": IMG, "K": K, "M": M, "ms_per_batch": ms8, "img_per_s": B / ms8 * 1e3,
+        "ms_per_batch_host_images": ms8_host, "img_per_s_host_images": B / ms8_host * 1e3,
+        "plain_cpu_s": t_cpu8, "launches": n_main8, "scenes_agreeing_with_f32": agree8,
+        "calibration": calib_diff, "calibration_s": t_calib,
+    }))
+    log(json.dumps({"int8_profile": prof8}))
+    log(json.dumps({
+        "path": "detect_program_batch int8, 2048x2048 uint8 scans on the card",
+        "batch": B_SCAN, "image": SCAN, "K": K_l, "M": M_l, "ms_per_batch": ms8_l,
+        "scans_per_s": B_SCAN / ms8_l * 1e3, "launches": n_large8,
+    }))
+    log(json.dumps({"int8_large_scan_profile": prof8_l}))
+    log(json.dumps({
+        "path": "StreamingDetector QVGA int8, uint8 host frames", "frames": N_FRAMES,
+        "ms_per_stream": ms_stream8, "frames_per_s": N_FRAMES / ms_stream8 * 1e3,
+        "device_busy_ms": prof_s8["device_busy_ms"], "busy_share": prof_s8["busy_share"],
+    }))
+    log(json.dumps({"path": "BarcodeDetector.detect int8, one 512x512 uint8 host image",
+                    "ms_per_image": ms_detect8, "device_ms_per_image": dev_detect8}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

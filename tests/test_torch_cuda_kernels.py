@@ -14,7 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from ubdvss_tpu_torch.ops.cuda import ccl_kernel, context_kernel, postproc_kernel, rect_kernel
+from ubdvss_tpu_torch.ops.cuda import (
+    ccl_kernel,
+    context_kernel,
+    postproc_kernel,
+    qconv_kernel,
+    rect_kernel,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -915,3 +921,148 @@ def test_bf16_entry_points_on_card_match_cpu(dev, asset, case):
     assert int(ref["num_detections"].sum()) > 0
     _assert_bf16_route_matches(out, ref, lg, lg_ref)
 
+
+
+# the int8 conv (qconv): (input shape, input kind, ks, cout, stride, dil,
+# requant); the main path's layer shapes at B=2, odd sizes at stride 2,
+# dilation 16 at 128x128, saturation, zeros, one image, other widths
+_QCONV_CASES = {
+    "layer0-u8-512": ((2, 512, 512), "u8", 3, 24, 2, 1, True),
+    "layer0-f32raw-odd": ((2, 75, 101), "f32raw", 3, 24, 2, 1, True),
+    "layer0-norm-qvga": ((2, 240, 320), "norm", 3, 24, 2, 1, True),
+    "stem1-256": ((2, 256, 256, 24), "int8", 3, 24, 2, 1, True),
+    "stem1-odd": ((2, 37, 53, 24), "int8", 3, 24, 2, 1, True),
+    "context-d1": ((2, 128, 128, 24), "int8", 3, 24, 1, 1, True),
+    "context-d2": ((2, 128, 128, 24), "int8", 3, 24, 1, 2, True),
+    "context-d8": ((2, 128, 128, 24), "int8", 3, 24, 1, 8, True),
+    "context-d16": ((2, 128, 128, 24), "int8", 3, 24, 1, 16, True),
+    "context-qvga": ((2, 60, 80, 24), "int8", 3, 24, 1, 4, True),
+    "head-17": ((2, 128, 128, 24), "int8", 1, 17, 1, 1, False),
+    "logits-3x3": ((1, 33, 47, 24), "int8", 3, 24, 1, 2, False),
+    "saturated": ((2, 40, 40, 24), "sat", 3, 24, 1, 1, False),
+    "saturated-requant": ((2, 40, 40, 24), "sat", 3, 24, 1, 1, True),
+    "zeros": ((1, 40, 40, 24), "zeros", 3, 24, 2, 1, True),
+    "one-image": ((1, 128, 128, 24), "int8", 3, 24, 1, 16, True),
+    "widths-4-to-8": ((2, 50, 30, 4), "int8", 3, 8, 1, 3, True),
+    "widths-32-to-32": ((2, 50, 30, 32), "int8", 3, 32, 2, 1, True),
+    "widths-16-to-12": ((2, 50, 30, 16), "int8", 3, 12, 1, 1, True),
+}
+
+
+def _qconv_inputs(case, dev):
+    shape, kind, ks, cout, stride, dil, requant = _QCONV_CASES[case]
+    rng = np.random.default_rng(len(case) + 7 * cout)
+    cin = shape[3] if len(shape) == 4 else 1
+    q = rng.integers(-127, 128, (ks, ks, cin, cout)).astype(np.int8)
+    if kind == "u8":
+        x = rng.integers(0, 256, shape).astype(np.uint8)
+    elif kind == "f32raw":
+        x = rng.uniform(0, 255, shape).astype(np.float32)
+    elif kind == "norm":
+        x = rng.uniform(-1.05, 1.05, shape + (1,)).astype(np.float32)
+    elif kind == "sat":  # |acc| = 9 * 24 * 127^2 = 3,483,864 inside
+        x = np.full(shape, 127, np.int8)
+        x[1] = -127
+        q[:] = np.where(rng.random(q.shape) < 0.5, -127, 127) if requant else 127
+    elif kind == "zeros":
+        x = np.zeros(shape, np.int8)
+    else:
+        x = rng.integers(-127, 128, shape).astype(np.int8)
+    layer = dict(q=q, ws=rng.uniform(1e-4, 2e-3, cout).astype(np.float32),
+                 b=rng.normal(0, 0.5, cout).astype(np.float32))
+    layer = {k: torch.from_numpy(v).to(dev) for k, v in layer.items()}
+    s_out = torch.from_numpy(rng.uniform(5, 60, cout).astype(np.float32)).to(dev) if requant else None
+    return torch.from_numpy(x).to(dev), layer, s_out, stride, dil, kind in ("u8", "f32raw")
+
+
+@pytest.mark.parametrize("case", sorted(_QCONV_CASES))
+def test_qconv_kernel_matches_plain_bit_for_bit(dev, case):
+    """The int8 conv kernel == its plain version on the card (f64 conv with
+    cuDNN off, the epilogue rounded once) and on the CPU, bit for bit, int8
+    activations and f32 logits alike; one launch."""
+    x, layer, s_out, stride, dil, raw = _qconv_inputs(case, dev)
+    qconv_kernel.qconv.launches = 0
+    out = qconv_kernel.qconv(x, layer, s_out, stride, dil, raw_gray=raw)
+    torch.cuda.synchronize()
+    assert qconv_kernel.qconv.launches == 1
+    ref = qconv_kernel.qconv_reference(x, layer, s_out, stride, dil, raw_gray=raw)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.equal(out, ref)
+    cpu = qconv_kernel.qconv_reference(
+        x.cpu(), {k: v.cpu() for k, v in layer.items()}, None if s_out is None else s_out.cpu(),
+        stride, dil, raw_gray=raw)
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("cin,cout,requant", [(6, 24, True), (36, 24, True), (24, 36, False),
+                                              (24, 17, True)])
+def test_qconv_channel_caps_name_their_roadmap_item(dev, cin, cout, requant):
+    x = torch.zeros((1, 8, 8, cin), dtype=torch.int8, device=dev)
+    layer = dict(q=torch.zeros((3, 3, cin, cout), dtype=torch.int8, device=dev),
+                 ws=torch.ones(cout, device=dev), b=torch.zeros(cout, device=dev))
+    s_out = torch.ones(cout, device=dev) if requant else None
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
+        qconv_kernel.qconv(x, layer, s_out, 1, 1)
+
+
+def test_int8_entry_points_on_card_match_cpu(dev):
+    """The int8 route on the card against the CPU with the same qparams
+    (calibrated on the card): int8_trunk_apply ten qconv launches and no
+    context-kernel launch, logits bit for bit; detect_program_batch fused
+    and fused=False, BarcodeDetector.detect and the stream: masks, areas,
+    classes and counts identical, scores within 1e-5, boxes within 1e-3 as
+    corner sets."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import (
+        BarcodeDetector,
+        StreamingDetector,
+        detect_program_batch,
+        load_net_config,
+        load_params_npz,
+        params_from_flat,
+    )
+    from ubdvss_tpu_torch.ops.quant import int8_trunk_apply, qparams_to, quantize_trunk
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(path).replace(max_components=16)
+    params = params_from_flat(load_params_npz(path))
+    reader = SyntheticMarkupReader(n_samples=6, image_hw=(128, 160), seed=41)
+    imgs = np.stack([reader.sample_at(i).image for i in range(6)])
+    calib = torch.from_numpy((imgs.astype(np.float32) / 127.5 - 1.0)[..., None]).to(dev)
+    q = quantize_trunk({k: v.to(dev) for k, v in params.items()}, cfg, calib)
+    q_cpu = qparams_to(q, "cpu")
+    qconv_kernel.qconv.launches = 0
+    context_kernel.fused_context_head.launches = 0
+    lg = int8_trunk_apply(q, torch.from_numpy(imgs).to(dev), cfg, raw_gray=True)
+    assert qconv_kernel.qconv.launches == 3 + len(cfg.dilations)
+    assert context_kernel.fused_context_head.launches == 0
+    assert torch.equal(lg.cpu(), int8_trunk_apply(q_cpu, torch.from_numpy(imgs), cfg, raw_gray=True))
+    perms = np.array(list(permutations(range(4))))
+
+    def same(o, r):
+        o = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v) for k, v in o.items()}
+        r = {k: np.asarray(v) for k, v in r.items()}
+        for key in ("valid", "areas", "classes", "num_detections", "num_components_total"):
+            np.testing.assert_array_equal(o[key], r[key], err_msg=key)
+        np.testing.assert_allclose(o["scores"], r["scores"], atol=1e-5)
+        v = r["valid"]
+        d = np.linalg.norm(o["boxes"][v][:, :, None] - r["boxes"][v][:, None], axis=-1)
+        assert (d[:, np.arange(4), perms].max(-1).min(-1) <= 1e-3).all()
+
+    for fused in (True, False):
+        out, lg = detect_program_batch(params, imgs, cfg, (128, 160), qparams=q, fused=fused, device=dev)
+        ref, lg_ref = detect_program_batch(params, imgs, cfg, (128, 160), qparams=q_cpu, fused=fused,
+                                           device="cpu")
+        assert torch.equal(lg.cpu(), lg_ref) and int(ref["num_detections"].sum()) > 0
+        same(out, ref)
+    dets = BarcodeDetector(cfg, params, qparams=q, device=dev).detect(imgs[0])
+    ref_dets = BarcodeDetector(cfg, params, qparams=q_cpu, device="cpu").detect(imgs[0])
+    assert len(dets) == len(ref_dets) > 0
+    for o, r in zip(dets, ref_dets):
+        assert (o.class_id, o.area) == (r.class_id, r.area) and abs(o.score - r.score) < 1e-5
+    out = list(StreamingDetector(cfg, params, (128, 160), 4, qparams=q, device=dev).process(imgs))
+    ref = list(StreamingDetector(cfg, params, (128, 160), 4, qparams=q_cpu, device="cpu").process(imgs))
+    for (_, o), (_, r) in zip(out, ref):
+        same(o, r)

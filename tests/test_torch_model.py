@@ -144,8 +144,10 @@ def test_default_device_is_the_card():
     "kw,match",
     [
         # the ids the cases had beside the bf16 case, which the bf16 slice
-        # removed (the bf16 route is served: tests/test_torch_bf16.py)
-        pytest.param(dict(qparams={}), "int8", id="kw1-int8"),
+        # removed (the bf16 route is served: tests/test_torch_bf16.py); int8
+        # qparams are served too (tests/test_torch_int8.py), but not over a
+        # mesh
+        pytest.param(dict(qparams={}, mesh=object()), "int8 qparams: .*item 9", id="kw1-int8"),
         pytest.param(dict(mesh=object()), "mesh", id="kw2-mesh"),
     ],
 )

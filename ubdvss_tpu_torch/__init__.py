@@ -13,6 +13,7 @@ from ubdvss_tpu_torch.inference import (
     detect_preprocessed_batch,
     detect_program,
     detect_program_batch,
+    detect_program_int8,
 )
 from ubdvss_tpu_torch.models.model import BarcodeFCN, get_model, param_count
 from ubdvss_tpu_torch.net_config import CLASS_GROUPS, DEFAULT_CLASS_NAMES, NetConfig
@@ -21,6 +22,7 @@ from ubdvss_tpu_torch.utils.checkpoint import (
     load_net_config,
     load_params_npz,
     params_from_flat,
+    qparams_from_numpy,
 )
 
 __all__ = [
@@ -34,9 +36,11 @@ __all__ = [
     "detect_preprocessed_batch",
     "detect_program",
     "detect_program_batch",
+    "detect_program_int8",
     "get_model",
     "load_net_config",
     "load_params_npz",
     "param_count",
     "params_from_flat",
+    "qparams_from_numpy",
 ]

@@ -27,14 +27,23 @@ side take the XLA route (``fused=False``).  The trunk, by
     logits are f32, as the JAX package's ``get_model(cfg).apply``.  The
     logits an entry point returns are f32, exact converts of the trunk's.
 
+The int8 route (``qparams`` from ``ops/quant.quantize_trunk``, the JAX
+package's production serving mode; ``NetConfig.dtype`` is not read on it,
+as in JAX) runs ``int8_trunk_apply`` — ten launches of the int8 conv
+kernel — and the same postprocessing: ``detect_program_int8`` for one
+image, ``detect_program_batch(qparams=)`` (raw grayscale when no resize is
+needed, else the resized image normalized with one rounding; no heatmap
+limit, as the JAX int8 branch comes before it) and
+``detect_preprocessed_batch(qparams=)`` (whose fused postprocessing serves
+dense configs too, as in JAX).  ``n_strips`` is not read on it, as in JAX.
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, where every kernel takes its plain version).
 
-Routes of the JAX package this slice does not port raise
-``NotImplementedError`` naming their ROADMAP.md item: int8 ``qparams``
-(item 8) and ``mesh`` (item 9).  The JAX package's packed, two-stage and
-s2d large-scan trunks give the same detections as the untiled trunk the
-port runs (ROADMAP.md §1 item 7).
+``mesh`` (data-parallel serving, ROADMAP.md §1 item 9) raises
+``NotImplementedError``.  The JAX package's packed, two-stage and s2d
+large-scan trunks, and its packed int8 trunks, give the same detections
+as the untiled trunks the port runs (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from ubdvss_tpu_torch.ops.preproc import (
     resize_bilinear,
     to_grayscale_batch,
 )
+from ubdvss_tpu_torch.ops.quant import int8_trunk_apply, normalize_fma, qparams_to
 from ubdvss_tpu_torch.ops.strips import receptive_field_halo, strip_tiled_logits
 
 
@@ -86,11 +96,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_route(cfg: NetConfig, hw, qparams=None, mesh=None) -> None:
-    if qparams is not None:
-        raise NotImplementedError("int8 qparams serving: ROADMAP.md §1 item 8")
     if mesh is not None:
-        raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 9")
-    cfg.compute_dtype  # float32 or bfloat16, else ValueError
+        what = " of int8 qparams" if qparams is not None else ""
+        raise NotImplementedError(f"mesh data-parallel serving{what}: ROADMAP.md §1 item 9")
+    if qparams is None:
+        cfg.compute_dtype  # float32 or bfloat16, else ValueError
     if hw[0] % cfg.scale or hw[1] % cfg.scale:
         raise ValueError(f"out_hw {hw} not aligned to scale={cfg.scale}")
 
@@ -176,11 +186,17 @@ def detect_program_batch(
     Heatmaps larger than ``_fused_heatmap_limit`` a side take the XLA
     route, as in the JAX package; ``n_strips > 1`` runs the fused route's
     trunk over that many row strips (``ops/strips.py``), which gives the
-    same logits.
+    same logits.  ``qparams`` takes the int8 route (``ops/quant.py``) at
+    any heatmap size, fused unless ``fused=False``.
     """
     _check_route(cfg, tuple(out_hw), qparams, mesh)
     dev = resolve_device(device)
     x = torch.as_tensor(imgs).to(dev)
+    if qparams is not None:
+        return _detect_program_batch_int8(
+            qparams_to(qparams, dev), x, cfg, tuple(out_hw), channel_order,
+            fused is not False, detections_only,
+        )
     params = {k: v.to(dev) for k, v in params.items()}
     fused = _fused_route(cfg, out_hw, fused)
     with torch.inference_mode(), exact_f32():
@@ -201,6 +217,51 @@ def detect_program_batch(
     return res, logits.to(torch.float32)
 
 
+def _detect_program_batch_int8(
+    qparams: dict, x: torch.Tensor, cfg: NetConfig, out_hw, channel_order: str,
+    fused: bool, detections_only: bool,
+):
+    """The int8 route of ``detect_program_batch``, after the JAX package's
+    ``_detect_program_batch_int8``: the raw grayscale batch when no resize
+    is needed (a one-channel uint8 batch goes to the kernel as it is), else
+    the resized image normalized; ``int8_trunk_apply``; the fused or the
+    XLA route's postprocessing."""
+    with torch.inference_mode(), exact_f32():
+        raw = tuple(x.shape[1:3]) == out_hw
+        if raw and x.dtype == torch.uint8 and (x.ndim == 3 or x.shape[-1] == 1):
+            x = x.reshape(x.shape[:3]).contiguous()
+        else:
+            x = to_grayscale_batch(x, channel_order)
+            if not raw:
+                x = normalize_fma(resize_bilinear(x, out_hw))[..., None]
+        logits = int8_trunk_apply(qparams, x, cfg, raw_gray=raw)
+        res = (postprocess_batch_fused if fused else postprocess_batch)(logits, cfg)
+    return (res, None) if detections_only else (res, logits)
+
+
+def detect_program_int8(
+    qparams: dict,
+    img,
+    cfg: NetConfig,
+    out_hw: tuple[int, int],
+    channel_order: str = "rgb",
+    device=None,
+):
+    """``detect_program`` with the int8 trunk: one (H, W[, C]) image ->
+    ``(res, logits)`` through ``preprocess`` (its normalize rounded once, as
+    under ``jit``), ``int8_trunk_apply`` and the XLA route's
+    ``postprocess``.  Runs on ``device`` (default the card)."""
+    _check_route(cfg, tuple(out_hw), qparams)
+    dev = resolve_device(device)
+    x = torch.as_tensor(img).to(dev)
+    qparams = qparams_to(qparams, dev)
+    with torch.inference_mode(), exact_f32():
+        x = to_grayscale_batch(x[None], channel_order)
+        x = normalize_fma(resize_bilinear(x, tuple(out_hw)))[..., None]
+        logits = int8_trunk_apply(qparams, x, cfg)[0]
+        return postprocess(logits, cfg), logits
+
+
 def detect_preprocessed_batch(
     params: dict,
     x,
@@ -217,14 +278,21 @@ def detect_preprocessed_batch(
 
     The same route selection as ``detect_program_batch``; as in the JAX
     package, the fused postprocessing serves separable configs only, and
-    a dense config takes the XLA route's.  Runs on ``device`` (default the
-    card).
+    a dense config takes the XLA route's — except on the int8 route
+    (``qparams``), where it serves dense configs too.  Runs on ``device``
+    (default the card).
     """
     x = torch.as_tensor(x)
     hw = tuple(x.shape[1:3])
     _check_route(cfg, hw, qparams, mesh)
     dev = resolve_device(device)
     x = x.to(dev)
+    if qparams is not None:
+        with torch.inference_mode():
+            x = x.to(torch.float32).contiguous()
+            logits = int8_trunk_apply(qparams_to(qparams, dev), x, cfg)
+            post = postprocess_batch if fused is False else postprocess_batch_fused
+            return post(logits, cfg), logits
     params = {k: v.to(dev) for k, v in params.items()}
     fused = _fused_route(cfg, hw, fused)
     with torch.inference_mode(), exact_f32():
@@ -240,25 +308,35 @@ class BarcodeDetector:
 
     >>> det = BarcodeDetector(cfg, params)          # on the card
     >>> detections = det.detect(image)              # numpy HxW[x3]
+
+    ``qparams`` (``ops/quant.quantize_trunk``) switches ``detect`` to the
+    int8 trunk (``detect_program_int8``); ``heatmap`` stays on ``params``,
+    as in the JAX package.  Weights and qparams go to the device once, here.
     """
 
     def __init__(
         self, cfg: NetConfig, params: dict, channel_order: str = "rgb",
-        device=None,
+        qparams: dict | None = None, device=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.channel_order = channel_order
+        self.qparams = None if qparams is None else qparams_to(qparams, self.device)
 
     def detect(self, image: np.ndarray) -> list[Detection]:
         """The image's detections through ``detect_program`` (exact rects),
-        in input-image coordinates."""
+        or ``detect_program_int8`` with qparams, in input-image coordinates."""
         h, w = image.shape[:2]
         out_hw = self.cfg.grid_size(h, w)
-        res, _ = detect_program(
-            self.params, image, self.cfg, out_hw, self.channel_order, device=self.device
-        )
+        if self.qparams is not None:
+            res, _ = detect_program_int8(
+                self.qparams, image, self.cfg, out_hw, self.channel_order, device=self.device
+            )
+        else:
+            res, _ = detect_program(
+                self.params, image, self.cfg, out_hw, self.channel_order, device=self.device
+            )
         res = {k: v.cpu().numpy() for k, v in res.items()}
         # grid -> original resolution rescale (exact when no resize happened)
         rescale = np.array([w / out_hw[1], h / out_hw[0]], np.float32)

@@ -12,7 +12,7 @@ leaves together, and the host waits once per batch, on that batch's event
 Throughput-oriented: frames are batched; latency mode is batch_size 1.
 A bf16 config (``NetConfig(dtype="bfloat16")``) runs the fused route's
 bf16 trunk and the bf16 CCL and slots kernels, as ``detect_program_batch``
-does.
+does; ``qparams`` (``ops/quant.quantize_trunk``) the int8 trunk.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from ubdvss_tpu_torch.inference import detect_program_batch, resolve_device
 from ubdvss_tpu_torch.net_config import NetConfig
+from ubdvss_tpu_torch.ops.quant import qparams_to
 
 
 class StreamingDetector:
@@ -33,8 +34,9 @@ class StreamingDetector:
     >>> for frame_idx, dets in sd.process(frames):
     ...     ...
 
-    Runs on the card unless ``device="cpu"``.  ``qparams`` (int8) and
-    ``mesh`` (data-parallel) serving are not ported and raise.
+    Runs on the card unless ``device="cpu"``.  ``qparams`` serves the int8
+    trunk (moved to the device once, here); ``mesh`` (data-parallel
+    serving) is not ported and raises.
     """
 
     def __init__(
@@ -47,13 +49,12 @@ class StreamingDetector:
         mesh=None,
         device=None,
     ):
-        if qparams is not None:
-            raise NotImplementedError("int8 qparams serving: ROADMAP.md §1 item 8")
         if mesh is not None:
             raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 9")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.qparams = None if qparams is None else qparams_to(qparams, self.device)
         self.frame_hw = frame_hw
         self.batch_size = batch_size
         self.out_hw = cfg.grid_size(*frame_hw)
@@ -78,8 +79,8 @@ class StreamingDetector:
         result leaf.  Returns (host results, event recorded after them)."""
         imgs = self._to_device(batch_np, slot)
         res, _ = detect_program_batch(
-            self.params, imgs, self.cfg, self.out_hw, detections_only=True,
-            device=self.device,
+            self.params, imgs, self.cfg, self.out_hw, qparams=self.qparams,
+            detections_only=True, device=self.device,
         )
         if self.device.type == "cpu":
             return res, None

@@ -5,7 +5,7 @@ The JAX package writes weights with ``save_params_npz``
 flax parameter path joined with ``"/"`` (``context_3/depthwise/kernel``),
 kernels in HWIO layout.  ``params_from_flat`` carries those arrays into the
 port's ``state_dict`` (OIHW kernels), so both packages serve the same
-assets.
+assets; ``qparams_from_numpy`` carries the JAX package's int8 qparams.
 """
 
 from __future__ import annotations
@@ -69,3 +69,22 @@ def params_from_flat(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
             raise ValueError(f"{key}: unknown parameter kind {parts[-1]!r}")
         out[".".join(parts)] = t
     return out
+
+
+def qparams_from_numpy(qparams: dict) -> dict:
+    """The JAX package's int8 qparams (``ubdvss_tpu/ops/quant.py``'s
+    ``quantize_trunk``), as host arrays (e.g. ``jax.tree.map(np.asarray,
+    q)``), -> the port's: the same structure (``layers`` [{q, ws, b}],
+    ``head``, ``s_in``) as CPU tensors of the same dtypes (HWIO int8
+    kernels, f32 vectors)."""
+    def tensor(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    def layer(L):
+        return {k: tensor(L[k]) for k in ("q", "ws", "b")}
+
+    return {
+        "layers": [layer(L) for L in qparams["layers"]],
+        "head": layer(qparams["head"]),
+        "s_in": [tensor(s) for s in qparams["s_in"]],
+    }

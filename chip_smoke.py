@@ -8,7 +8,7 @@ repository around this file; exits non-zero, printing no result, without
 them.  Phases, each of which raises on failure:
 
   1. the card's name and power limit (nvidia-smi), then the build of every
-     kernel from ubdvss_tpu_torch/csrc/ (one nvcc per source, six, in
+     kernel from ubdvss_tpu_torch/csrc/ (one nvcc per source, seven, in
      parallel);
   2. each kernel against its plain PyTorch version on the card, at its
      path's shapes, on real logits plus adversarial maps (snake,
@@ -98,25 +98,36 @@ them.  Phases, each of which raises on failure:
         quantize_trunk on the card over 32 synthetic 512x512 scenes (seed
         99), bench.py's calibration, against the same call on the host CPU
         (scales within 1e-5 relative, at most 0.1% of the int8 weights and
-        1e-3 of a bias apart; reported); then the int8 conv kernel (qconv)
-        against its plain version on the card and on the host CPU, bit for
-        bit, at every layer of the main path (uint8, f32 raw and f32
-        normalized images into layer 0), the QVGA stream's and one image's
-        chains, a 2048² scan's layer 0, odd sizes at stride 2, random
-        activations at dilation 16, saturating ±127 (|acc| = 3,483,864)
-        and zeros;
-     m. the int8 main path: the main path with qparams: qconv once a layer
-        (ten launches), K1, K2, K3; the context kernel never; logits equal
-        to the same call on the host CPU with the card's qparams bit for
-        bit, detections identical; the scenes whose count and classes equal
-        the f32 path's reported;
-     n. int8 large scans (the scans of e): qconv, the device-memory CCL, the
-        tiled slots kernel and K3; the first 2 scans equal to the host CPU;
+        1e-3 of a bias apart; reported), its bias correction in two
+        qconv_layer launches a layer and one for the head (each checked
+        against its plain version); then the int8 trunk's kernels
+        against their plain versions on the card and on the host CPU, bit
+        for bit: qstem (layers 0 and 1 from the image), qconv (a context
+        layer) and qconv_head (the last context layer with the head), each
+        launch of the main path's, the QVGA stream's, one image's and the
+        2048² scans' chains, qstem on f32 raw and f32 normalized images and
+        on an odd 75x101 image (19x26 out, then qconv and qconv_head
+        there), random activations at dilation 16, saturating ±127 (|acc| =
+        3,483,864, read back from the int8 outputs), with the head too,
+        zeros, and 32 channels at saturation (|acc| = 4,645,152, past the
+        epilogue's conversion-free window) through qconv, qconv_head and
+        qstem's layer 1;
+     m. the int8 main path: the main path with qparams: the trunk in eight
+        launches (qstem once, qconv once a context layer but the last,
+        qconv_head once), K1, K2, K3; the context kernel never; logits equal
+        to the checked chain's and to the same call on the host CPU with
+        the card's qparams bit for bit, detections identical; the scenes
+        whose count and classes equal the f32 path's reported;
+     n. int8 large scans (the scans of e): the eight trunk launches, the
+        device-memory CCL, the tiled slots kernel and K3; the first 2 scans
+        equal to the host CPU;
      o. int8 BarcodeDetector.detect and detect_program_int8 at 512x512
-        (K=16) and 640x480 (the asset's config): qconv, K1, K2, K3x; and the
-        int8 QVGA stream: each equal to the host CPU;
+        (K=16) and 640x480 (the asset's config): the trunk's kernels, K1,
+        K2, K3x; and the int8 QVGA stream (eight trunk launches a batch):
+        each equal to the host CPU;
      p. the CLI's calibration (calibrate_qparams, detect --int8) on 4 scenes
-        on the card against the host CPU, as in l;
+        on the card (qconv_layer launched, the trunk's kernels not) against
+        the host CPU, as in l;
   4. timing with CUDA events (median of 10 samples of 10 back-to-back calls,
      after warm-up): img/s of the main path, frames/s of the stream (the
      whole process() of 256 frames, median of 3), each kernel's ms beside
@@ -132,10 +143,15 @@ them.  Phases, each of which raises on failure:
      of the three sizes.  The bf16 variants of CCL, slots and the fused
      geometry get their own rows (bounds at 2 B a logit), and the bf16
      paths their timings and profiles; so do the int8 paths (whose
-     profiles must hold no cuDNN convolution row), and qconv layer by layer
-     at the main path's shapes beside its bound (bytes at 3.35 TB/s against
-     int8 operations at 1,979 TOPS), its plain version and one f32 F.conv2d
-     on the int8 values (TF32 off), the library yardstick.
+     profiles must hold no cuDNN convolution row), and the int8 trunk's
+     eight launches at the main path's shapes, one row a launch and one a
+     kernel, beside their bounds (bytes at 3.35 TB/s against int8
+     operations at 1,979 TOPS), their plain versions, one f32 F.conv2d a
+     layer on the int8 values (TF32 off), the library yardstick, and, time
+     only, a channels-last bf16 F.conv2d a layer of the same shapes; and
+     the bias correction's qconv_layer launches over the calibration
+     images, together, beside the same bounds, their plain versions and
+     one f32 F.conv2d a launch.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -570,7 +586,7 @@ def main() -> int:
         qconv_kernel,
         rect_kernel,
     )
-    from ubdvss_tpu_torch.ops.quant import int8_trunk_apply, qparams_to, quantize_trunk
+    from ubdvss_tpu_torch.ops.quant import _conv_specs, int8_trunk_apply, qparams_to, quantize_trunk
     from ubdvss_tpu_torch.ops.cuda.context_kernel import _pack_weights, fused_model_apply, stem_apply
     from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
 
@@ -587,7 +603,7 @@ def main() -> int:
     # --- 1. build every kernel, one nvcc per source, in parallel ---
     t0 = time.perf_counter()
     sources = ["context_kernel", "ccl_kernel", "postproc_kernel", "geometry_kernel", "rect_kernel",
-               "qconv_kernel"]
+               "qconv_kernel", "qstem_kernel", "qconv_layer_kernel"]
     _build.build(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s ({len(sources)} sources, "
         f"nvcc {' '.join(_build.NVCC_FLAGS)})")
@@ -862,7 +878,10 @@ def main() -> int:
         "geometry_compat_bf16": (postproc_kernel.geometry_compat, "launches_bf16"),
         "ccl_tiled_bf16": (ccl_kernel.ccl_labels_tiled, "launches_bf16"),
         "slots_tiled_bf16": (postproc_kernel.component_slots_tiled, "launches_bf16"),
+        "qstem": (qconv_kernel.qstem, "launches"),
         "qconv": (qconv_kernel.qconv, "launches"),
+        "qconv_head": (qconv_kernel.qconv_head, "launches"),
+        "qconv_layer": (qconv_kernel.qconv_layer, "launches"),
     }
     tiled = ["ccl_tiled", "slots_tiled"]  # not on the 128² and smaller maps
     bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", "ccl_tiled_bf16",
@@ -1278,10 +1297,15 @@ def main() -> int:
     creader = SyntheticMarkupReader(n_samples=N_CALIB, image_hw=(IMG, IMG), seed=CALIB_SEED)
     calib = (np.stack([creader.sample_at(i).image for i in range(N_CALIB)]).astype(np.float32)
              / 127.5 - 1.0)[..., None]  # bench.py's calibration images
+    calib_d = torch.from_numpy(calib).to(dev)
     t0 = time.perf_counter()
-    q_d = quantize_trunk(params_d, cfg, torch.from_numpy(calib).to(dev))
-    torch.cuda.synchronize()
+    q_d, n_calib = counted(lambda: quantize_trunk(params_d, cfg, calib_d), ["qconv_layer"],
+                           ["qstem", "qconv", "qconv_head"])
     t_calib = time.perf_counter() - t0
+    if n_calib["qconv_layer"] != 2 * len(_conv_specs(cfg)) + 1:
+        raise AssertionError(f"calibration: {n_calib['qconv_layer']} qconv_layer launches, expected "
+                             f"two a layer and one for the head")
+    launches["qconv_layer"] = n_calib["qconv_layer"]
     t0 = time.perf_counter()
     q_hc = quantize_trunk(params, cfg, torch.from_numpy(calib))
     t_calib_cpu = time.perf_counter() - t0
@@ -1289,79 +1313,165 @@ def main() -> int:
     check_qparams(calib_diff, "quantize_trunk")
     q_h = qparams_to(q_d, "cpu")  # the card's qparams: every equality check below uses them
     log(f"int8 calibration: quantize_trunk on {N_CALIB} {IMG}x{IMG} scenes (seed {CALIB_SEED}) on "
-        f"the card {t_calib:.1f} s, on the host CPU {t_calib_cpu:.1f} s; card against host CPU: "
-        f"{calib_diff}")
+        f"the card {t_calib:.3f} s ({n_calib['qconv_layer']} qconv_layer launches), on the host CPU "
+        f"{t_calib_cpu:.1f} s; card against host CPU: {calib_diff}")
 
     err_q = 0.0
+    kq = qconv_kernel
 
-    def check_qconv(name, x, layer, s_out, stride, d, raw=False, n_host=None):
-        """qconv == qconv_reference on the card and on the host CPU (the
-        first ``n_host`` images), bit for bit; returns the kernel's output."""
+    def check_q(name, fn, plain, args, n_host=None):
+        """A kernel of the int8 trunk (qstem, qconv, qconv_head) == its plain
+        version on the card and on the host CPU (the first ``n_host``
+        images), bit for bit; returns the kernel's output."""
         nonlocal err_q
-        out = qconv_kernel.qconv(x, layer, s_out, stride, d, raw_gray=raw)
-        ref = qconv_kernel.qconv_reference(x, layer, s_out, stride, d, raw_gray=raw)
-        n = x.shape[0] if n_host is None else n_host
-        cpu = qconv_kernel.qconv_reference(
-            x[:n].cpu(), {k: v.cpu() for k, v in layer.items()},
-            None if s_out is None else s_out.cpu(), stride, d, raw_gray=raw)
+        out = fn(*args)
+        ref = plain(*args)
+        n = args[0].shape[0] if n_host is None else n_host
+        host = [a[:n].cpu() if i == 0 else {k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+                else a.cpu() if torch.is_tensor(a) else a for i, a in enumerate(args)]
+        cpu = plain(*host)
         if not (torch.equal(out, ref) and torch.equal(out[:n].cpu(), cpu)):
             bad = int((out != ref).sum()) + int((out[:n].cpu() != cpu).sum())
-            raise AssertionError(f"qconv {name}: {bad} outputs differ from the plain version")
+            raise AssertionError(f"{fn.__name__} {name}: {bad} outputs differ from the plain version")
         err_q = max(err_q, float((out.float() - ref.float()).abs().max()))
-        log(f"check qconv {name}: {tuple(x.shape)} {x.dtype} -> {tuple(out.shape)} {out.dtype}, "
-            f"stride {stride} dilation {d}: == plain version on the card and on the host CPU "
+        log(f"check {fn.__name__} {name}: {tuple(args[0].shape)} {args[0].dtype} -> "
+            f"{tuple(out.shape)} {out.dtype}: == plain version on the card and on the host CPU "
             f"({n} images), bit for bit")
         return out
 
+    def stem(name, x, q, raw, n_host=None):
+        L, s = q["layers"], q["s_in"]
+        return check_q(name, kq.qstem, kq.qstem_reference, (x, L[0], s[1], L[1], s[2], raw), n_host)
+
+    def qconv_plain(x, layer, s_out, dil):
+        return kq.qconv_reference(x, layer, s_out, 1, dil)
+
+    def context(name, x, q, li, d, n_host=None):
+        return check_q(name, kq.qconv, qconv_plain,
+                       (x, q["layers"][2 + li], q["s_in"][3 + li], d), n_host)
+
+    def fused(name, x, q, li, d, n_host=None):
+        return check_q(name, kq.qconv_head, kq.qconv_head_reference,
+                       (x, q["layers"][2 + li], q["s_in"][3 + li], d, q["head"]), n_host)
+
     def check_chain(name, x, q, c, raw, n_host=None):
-        """Every layer of the int8 trunk on x, each against its plain version;
-        returns (the layer inputs, the logits)."""
-        ins, specs = [], [(2, 1), (2, 1)] + [(1, d) for d in c.dilations]
-        for i, (st, d) in enumerate(specs):
+        """The int8 trunk's eight launches on x — qstem (layers 0 and 1),
+        qconv for each context layer but the last, qconv_head for the last
+        with the head — each against its plain version; returns (each
+        launch's input, the logits)."""
+        ins = [x]
+        x = stem(f"{name} layers 0-1", x, q, raw, n_host)
+        for li, d in enumerate(c.dilations[:-1]):
             ins.append(x)
-            x = check_qconv(f"{name} layer {i}", x, q["layers"][i], q["s_in"][i + 1], st, d,
-                            raw=raw and i == 0, n_host=n_host)
+            x = context(f"{name} context {li} (d={d})", x, q, li, d, n_host)
         ins.append(x)
-        return ins, check_qconv(f"{name} head", x, q["head"], None, 1, 1, n_host=n_host)
+        n = len(c.dilations)
+        return ins, fused(f"{name} context {n - 1} + head", x, q, n - 1, c.dilations[-1], n_host)
+
+    def bias_walk(x, q, c):
+        """The bias correction's qconv_layer calls on the calibration images
+        x with the corrected qparams q (ops/quant.bias_correct_qparams): a
+        layer's f32 pre-activation, then its requantized output, each layer;
+        then the head's pre-activation.  Each is checked against the plain
+        version; returns the calls' arguments."""
+        calls = []
+        for i, (st, d) in enumerate(_conv_specs(c)):
+            L, s_o = q["layers"][i], q["s_in"][i + 1]
+            calls.append((x, L, None, st, d))
+            check_q(f"bias correction layer {i} pre-activation", kq.qconv_layer, kq.qconv_reference,
+                    calls[-1], n_host=2)
+            calls.append((x, L, s_o, st, d))
+            x = check_q(f"bias correction layer {i} requantized", kq.qconv_layer, kq.qconv_reference,
+                        calls[-1], n_host=2)
+        calls.append((x, q["head"], None, 1, 1))
+        check_q("bias correction head pre-activation", kq.qconv_layer, kq.qconv_reference,
+                calls[-1], n_host=2)
+        return calls
+
+    def saturating(cin, cout, ks=3):
+        """Every weight +-127 by output channel and ws of that sign mapping
+        the full accumulator ks^2 Cin 127^2 to 40: on inputs of 127 every
+        interior output is 40, the accumulators of both signs at their
+        extremes."""
+        sign = torch.tensor([1.0 if c % 2 == 0 else -1.0 for c in range(cout)], device=dev)
+        return dict(q=(127 * sign).to(torch.int8).expand(ks, ks, cin, cout).contiguous(),
+                    ws=(torch.tensor(40.0 / (ks * ks * cin * 127**2), device=dev) * sign).float(),
+                    b=torch.zeros(cout, device=dev))
 
     with torch.inference_mode():
+        calls_bias = bias_walk(calib_d, q_d, cfg)
         ins8, lg8_chain = check_chain("main path", imgs_d, q_d, cfg, raw=True, n_host=8)
         x_main = imgs_d.float()
-        check_qconv("layer 0 f32 raw", x_main, q_d["layers"][0], q_d["s_in"][1], 2, 1, raw=True, n_host=8)
-        check_qconv("layer 0 f32 normalized", (x_main / 127.5 - 1.0)[..., None], q_d["layers"][0],
-                    q_d["s_in"][1], 2, 1, n_host=8)
+        stem("f32 raw", x_main, q_d, True, n_host=8)
+        stem("f32 normalized", (x_main / 127.5 - 1.0)[..., None], q_d, False, n_host=8)
         check_chain("QVGA stream", frames_d, q_d, cfg_q, raw=True, n_host=8)
         check_chain("B=1", imgs_d[:1].contiguous(), q_d, cfg, raw=True)
-        check_qconv("2048² scan layer 0", scans_d, q_d["layers"][0], q_d["s_in"][1], 2, 1, raw=True,
-                    n_host=2)
+        check_chain("2048² scans", scans_d, q_d, cfg_l, raw=True, n_host=1)
         rng = np.random.default_rng(SEED)
         odd = torch.from_numpy(rng.uniform(0, 255, (3, 75, 101)).astype(np.float32)).to(dev)
-        odd = check_qconv("odd 75x101 layer 0", odd, q_d["layers"][0], q_d["s_in"][1], 2, 1, raw=True)
-        check_qconv("odd 38x51 stride 2", odd, q_d["layers"][1], q_d["s_in"][2], 2, 1)
+        odd = stem("odd 75x101 (38x51, then 19x26)", odd, q_d, True)
+        context("odd 19x26 d=16", odd, q_d, 5, 16)
+        fused("odd 19x26", odd, q_d, 6, 1)
         rand = torch.from_numpy(rng.integers(-127, 128, (8, IMG // 4, IMG // 4, 24)).astype(np.int8)).to(dev)
-        check_qconv("random d=16", rand, q_d["layers"][7], q_d["s_in"][8], 1, 16)
+        context("random d=16", rand, q_d, 5, 16)
+        fused("random d=16", rand, q_d, 5, 16)
+        # saturation: every weight +-127 on +-127 inputs, |acc| = 9 * 24 * 127^2 inside;
+        # ws = 40 / 3,483,864 and s_out = 1 put +3,483,864 at the int8 40
         sat = torch.full((2, 40, 40, 24), 127, dtype=torch.int8, device=dev)
         sat[1] = -127
-        sat_layer = dict(q=torch.full_like(q_d["layers"][2]["q"], 127), ws=q_d["layers"][2]["ws"],
-                         b=q_d["layers"][2]["b"])
-        acc = check_qconv("saturated ±127 logits", sat, sat_layer, None, 1, 1)[:, 1:-1, 1:-1]
-        acc = (acc.double() - sat_layer["b"].double()) / sat_layer["ws"].double()
-        if not float((acc.abs() - 9 * 24 * 127**2).abs().max()) <= 1e-6 * 9 * 24 * 127**2:
-            raise AssertionError("qconv saturated: the accumulators are not ±3,483,864")
-        check_qconv("saturated ±127 requant", sat, sat_layer, q_d["s_in"][3], 1, 1)
-        check_qconv("zeros", torch.zeros_like(sat), q_d["layers"][3], q_d["s_in"][4], 1, 2)
+        acc_max = 9 * 24 * 127**2
+        for sign in (1, -1):
+            sat_layer = dict(q=torch.full_like(q_d["layers"][2]["q"], 127 * sign),
+                             ws=torch.full((24,), 40.0 / acc_max, device=dev),
+                             b=torch.zeros(24, device=dev))
+            o = check_q(f"saturated {'+' if sign > 0 else '-'}127 weights", kq.qconv,
+                        qconv_plain, (sat, sat_layer, torch.ones(24, device=dev), 1))
+            inner = o[:, 1:-1, 1:-1].cpu()
+            if not (bool((inner[(1 - sign) // 2] == 40).all()) and bool((inner[(1 + sign) // 2] == 0).all())):
+                raise AssertionError("qconv saturated: the accumulators are not ±3,483,864")
+        signs = dict(q_d["layers"][2], q=torch.where(torch.rand(q_d["layers"][2]["q"].shape, device=dev)
+                                                     < 0.5, -127, 127).to(torch.int8))
+        check_q("saturated ±127 requant", kq.qconv, qconv_plain, (sat, signs, q_d["s_in"][3], 1))
+        check_q("saturated ±127 + head", kq.qconv_head, kq.qconv_head_reference,
+                (sat, dict(signs, q=torch.full_like(signs["q"], 127)), q_d["s_in"][3], 1, q_d["head"]))
+        context("zeros", torch.zeros_like(sat), q_d, 1, 2)
+        # 32 channels at saturation: |acc| = 9 * 32 * 127^2 = 4,645,152, past the
+        # epilogue's conversion-free window (the plan's acc_wide); interior outputs 40
+        sat32 = torch.full((2, 40, 40, 32), 127, dtype=torch.int8, device=dev)
+        sat32[1] = -127
+        ones32 = torch.ones(32, device=dev)
+        head32 = dict(q=torch.from_numpy(rng.integers(-127, 128, (1, 1, 32, 17)).astype(np.int8)).to(dev),
+                      ws=torch.full((17,), 1e-3, device=dev), b=torch.zeros(17, device=dev))
+        img255 = torch.full((2, 100, 76), 255, dtype=torch.uint8, device=dev)  # quantizes to 127
+        l0_127 = dict(q=torch.full((3, 3, 1, 32), 127, dtype=torch.int8, device=dev),
+                      ws=torch.full((32,), 1 / 127, device=dev), b=torch.zeros(32, device=dev))
+        for o in (check_q("saturated 32 channels", kq.qconv, qconv_plain,
+                          (sat32, saturating(32, 32), ones32, 1)),
+                  check_q("saturated 32 channels layer 1", kq.qstem, kq.qstem_reference,
+                          (img255, l0_127, ones32, saturating(32, 32), ones32, True))):
+            if not bool((o[0, 1:-1, 1:-1] == 40).all()):
+                raise AssertionError("saturated 32 channels: the accumulators are not ±4,645,152")
+        check_q("saturated 32 channels + head", kq.qconv_head, kq.qconv_head_reference,
+                (sat32, saturating(32, 32), ones32, 1, head32))
 
     # --- 3m. the int8 main path: bench.py's int8 protocol ---
     phase("int8 main path")
-    main8 = ["qconv", "ccl", "slots", "rect_compact"]
-    not8 = ["context_layer", "geometry_compat", "rect_exact", *tiled, *bf16]
+    trunk8 = ["qstem", "qconv", "qconv_head"]
+    main8 = [*trunk8, "ccl", "slots", "rect_compact"]
+    not8 = ["context_layer", "geometry_compat", "rect_exact", "qconv_layer", *tiled, *bf16]
     (res8_d, logits8_d), n_main8 = counted(
         lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), qparams=q_d, device="cuda"),
         main8, not8)
-    n_layers = 3 + len(dil)
-    if n_main8["qconv"] != n_layers:
-        raise AssertionError(f"int8 main path: {n_main8['qconv']} qconv launches, expected {n_layers}")
-    launches["qconv"] = n_main8["qconv"]
+
+    def trunk_launches(n, batches, name):
+        """qstem once, qconv once a context layer but the last, qconv_head
+        once: 1 + len(dilations) launches a batch."""
+        want = [batches, batches * (len(dil) - 1), batches]
+        if [n[k] for k in trunk8] != want:
+            raise AssertionError(f"{name}: trunk launches {[n[k] for k in trunk8]}, expected {want}")
+
+    trunk_launches(n_main8, 1, "int8 main path")
+    launches.update({k: n_main8[k] for k in trunk8})
     res8 = {k: v.cpu().numpy() for k, v in res8_d.items()}
     logits8 = logits8_d.cpu().numpy()
     if not (np.isfinite(logits8).all() and logits8.shape == (B, IMG // 4, IMG // 4, 17)):
@@ -1392,8 +1502,9 @@ def main() -> int:
     phase("int8 large scans")
     (res8_l, lg8_l), n_large8 = counted(
         lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), qparams=q_d, device="cuda"),
-        ["qconv", "ccl_tiled", "slots_tiled", "rect_compact"],
-        ["context_layer", "ccl", "slots", "geometry_compat", "rect_exact", *bf16])
+        [*trunk8, "ccl_tiled", "slots_tiled", "rect_compact"],
+        ["context_layer", "ccl", "slots", "geometry_compat", "rect_exact", "qconv_layer", *bf16])
+    trunk_launches(n_large8, 1, "int8 large scans")
     res8_l = {k: v.cpu().numpy() for k, v in res8_l.items()}
     lg8_l = lg8_l.cpu().numpy()
     if not (np.isfinite(lg8_l).all() and lg8_l.shape == (B_SCAN, SCAN // 4, SCAN // 4, 17)):
@@ -1421,11 +1532,12 @@ def main() -> int:
     detect8 = {}
     for name, c8, dd, img in (("512x512", cfg, det8_d, imgs[0]), ("640x480", cfg_l, det8_ld, photos[0])):
         out_hw = c8.grid_size(*img.shape[:2])
-        must = ["qconv", "ccl", "slots", "rect_exact"]
-        must_not = ["context_layer", "rect_compact", "geometry_compat", *tiled, *bf16]
+        must = [*trunk8, "ccl", "slots", "rect_exact"]
+        must_not = ["context_layer", "rect_compact", "geometry_compat", "qconv_layer", *tiled, *bf16]
         (res_1, lg_1), _ = counted(
             lambda: detect_program_int8(q_d, img, c8, out_hw, device="cuda"), must, must_not)
         dets, n_8 = counted(lambda: dd.detect(img), must, must_not)
+        trunk_launches(n_8, 1, f"int8 detect {name}")
         ref_1, ref_lg_1 = detect_program_int8(q_h, img, c8, out_hw, device="cpu")
         if not torch.equal(lg_1.cpu(), ref_lg_1):
             raise AssertionError(f"int8 detect {name}: logits differ from the host CPU's")
@@ -1445,10 +1557,9 @@ def main() -> int:
     log(f"int8 detect: {detect8}; logits bit for bit and detections == the host CPU's")
     stream8 = StreamingDetector(cfg_q, params, QVGA, batch_size=B, qparams=q_d, device="cuda")
     got8, n_stream8 = counted(
-        lambda: list(stream8.process(iter(frames))), ["qconv", "ccl", "slots", "rect_exact"],
-        ["context_layer", "rect_compact", "geometry_compat", *tiled, *bf16])
-    if n_stream8["qconv"] != N_FRAMES // B * n_layers:
-        raise AssertionError(f"int8 stream: {n_stream8['qconv']} qconv launches")
+        lambda: list(stream8.process(iter(frames))), [*trunk8, "ccl", "slots", "rect_exact"],
+        ["context_layer", "rect_compact", "geometry_compat", "qconv_layer", *tiled, *bf16])
+    trunk_launches(n_stream8, N_FRAMES // B, "int8 stream")
     res_s8 = {k: np.stack([d[k] for _, d in got8]) for k in got8[0][1]}
     ref_s8, lg_s8 = {}, []
     for b0 in range(0, N_FRAMES, B):
@@ -1469,7 +1580,8 @@ def main() -> int:
     # --- 3p. the CLI's calibration (detect --int8) on the card and on the host CPU ---
     phase("int8 CLI calibration")
     cli_imgs = [imgs[i] for i in range(4)]
-    qc_d = calibrate_qparams(params, cfg, cli_imgs, "cuda")
+    qc_d, _ = counted(lambda: calibrate_qparams(params, cfg, cli_imgs, "cuda"), ["qconv_layer"],
+                      trunk8)
     cli_diff = qparams_diff(qc_d, calibrate_qparams(params, cfg, cli_imgs, "cpu"))
     check_qparams(cli_diff, "calibrate_qparams")
     log(f"int8 CLI calibration: calibrate_qparams on 4 {IMG}x{IMG} scenes, card against host CPU: "
@@ -1883,54 +1995,113 @@ def main() -> int:
         ms_detect8 = time_ms(lambda: det8_d.detect(imgs[0]), iters=10, reps=3)
         dev_detect8 = device_ms(lambda: det8_d.detect(imgs[0]), n=10)
 
-        # qconv a layer at the main path's shapes (the inputs of the checked
-        # chain): the kernel, its plain version (f64 conv, cuDNN off) and one
-        # f32 F.conv2d on the int8 values as floats (TF32 off), the library
-        # yardstick: no PyTorch call computes the int8 conv itself
-        specs8 = [(2, 1), (2, 1)] + [(1, d) for d in dil] + [(1, 1)]
-        layers8 = q_d["layers"] + [q_d["head"]]
-        s_outs8 = q_d["s_in"][1:] + [None]
-        qconv_layers = []
-        for i, ((st, d), layer, s_o) in enumerate(zip(specs8, layers8, s_outs8)):
-            x = ins8[i]
-            ks, _, cin, cout = layer["q"].shape
+        # the trunk's eight launches at the main path's shapes (the inputs of
+        # the checked chain): each kernel, its plain version (f64 convs,
+        # cuDNN off), one f32 F.conv2d a layer on the int8 values as floats
+        # (TF32 off; the library yardstick: no PyTorch call computes the int8
+        # conv itself) and, time only, a channels-last bf16 F.conv2d a layer
+        # of the same shapes (a tensor-core yardstick of another function)
+        F_ = torch.nn.functional
+        L8, s8 = q_d["layers"], q_d["s_in"]
+        n8 = len(dil)
 
-            def kern(x=x, layer=layer, s_o=s_o, st=st, d=d):
-                return qconv_kernel.qconv(x, layer, s_o, st, d, raw_gray=i == 0)
+        def lib_convs(convs, dtype):
+            """One F.conv2d a layer, NCHW f32 or channels-last bf16."""
+            prepared = []
+            for x, q, st, d in convs:
+                xf = (x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)).to(dtype)
+                wf = q.permute(3, 2, 0, 1).to(dtype)
+                if dtype == torch.bfloat16:
+                    xf, wf = (t.contiguous(memory_format=torch.channels_last) for t in (xf, wf))
+                else:
+                    xf, wf = xf.contiguous(), wf.contiguous()
+                prepared.append((xf, wf, st, d if q.shape[0] == 3 else 0, d))
+            return lambda: [F_.conv2d(xf, wf, None, st, pad, d) for xf, wf, st, pad, d in prepared]
 
-            xf = (x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)).float().contiguous()
-            wf = layer["q"].permute(3, 2, 0, 1).float().contiguous()
-            pad = d if ks == 3 else 0
-
-            def lib(xf=xf, wf=wf, st=st, d=d, pad=pad):
-                return torch.nn.functional.conv2d(xf, wf, None, st, pad, d)
-
+        launches8 = []  # (kind, label, kernel call, plain call, the layer convs, input, output)
+        x0 = ins8[0]
+        l0_out = kq.qconv_reference(x0, L8[0], s8[1], 2, 1, raw_gray=True)
+        launches8.append(("qstem", "layers 0-1", lambda: kq.qstem(x0, L8[0], s8[1], L8[1], s8[2], True),
+                          lambda: kq.qstem_reference(x0, L8[0], s8[1], L8[1], s8[2], True),
+                          [(x0.float(), L8[0]["q"], 2, 1), (l0_out, L8[1]["q"], 2, 1)]))
+        for li, d in enumerate(dil[:-1]):
+            xi, Li, si = ins8[1 + li], L8[2 + li], s8[3 + li]
+            launches8.append(("qconv", f"context {li} (d={d})",
+                              lambda xi=xi, Li=Li, si=si, d=d: kq.qconv(xi, Li, si, d),
+                              lambda xi=xi, Li=Li, si=si, d=d: kq.qconv_reference(xi, Li, si, 1, d),
+                              [(xi, Li["q"], 1, d)]))
+        xl, Ll, sl, dl = ins8[n8], L8[1 + n8], s8[2 + n8], dil[-1]
+        last_out = kq.qconv_reference(xl, Ll, sl, 1, dl)
+        launches8.append(("qconv_head", f"context {n8 - 1} (d={dl}) + head",
+                          lambda: kq.qconv_head(xl, Ll, sl, dl, q_d["head"]),
+                          lambda: kq.qconv_head_reference(xl, Ll, sl, dl, q_d["head"]),
+                          [(xl, Ll["q"], 1, dl), (last_out, q_d["head"]["q"], 1, 1)]))
+        rows8 = []
+        for kind8, label, kern, plain, convs in launches8:
             out = kern()
-            nbytes = x.numel() * x.element_size() + out.numel() * out.element_size() + wf.numel()
-            ops = 2 * out.numel() // cout * cout * cin * ks * ks
+            x = convs[0][0] if kind8 != "qstem" else x0
+            weights = sum(c[1].numel() for c in convs)
+            nbytes = x.numel() * x.element_size() + out.numel() * out.element_size() + weights
+            ops = 0
+            for xc, qc, st, _ in convs:
+                ks, _, cin, cout = qc.shape
+                h, w = (xc.shape[1], xc.shape[2])
+                ops += 2 * xc.shape[0] * -(-h // st) * -(-w // st) * cout * cin * ks * ks
             with exact_f32():
-                lib_ms = time_ms(lib, iters=5, reps=5)
-            row = dict(layer=i, input=list(x.shape), input_dtype=str(x.dtype).split(".")[-1],
-                       output=list(out.shape), stride=st, dilation=d, ms=time_ms(kern),
-                       device_ms=device_ms(kern), bound=bound(nbytes, ops, INT8_OPS),
-                       plain_ms=time_ms(lambda: qconv_kernel.qconv_reference(
-                           x, layer, s_o, st, d, raw_gray=i == 0), iters=3, reps=1, warmup=1),
-                       library_ms=lib_ms)
+                lib_ms = time_ms(lib_convs(convs, torch.float32), iters=5, reps=5)
+            row = dict(kernel=kind8, launch=label, input=list(x.shape),
+                       input_dtype=str(x.dtype).split(".")[-1], output=list(out.shape),
+                       ms=time_ms(kern), device_ms=device_ms(kern), bound=bound(nbytes, ops, INT8_OPS),
+                       plain_ms=time_ms(plain, iters=3, reps=1, warmup=1), library_ms=lib_ms,
+                       bf16_conv_ms=time_ms(lib_convs(convs, torch.bfloat16), iters=5, reps=5))
             row["bound_ms"], row["bound_by"] = row.pop("bound")
-            qconv_layers.append(row)
-        trunk8 = lambda: int8_trunk_apply(q_d, imgs_d, cfg, raw_gray=True)  # noqa: E731
+            rows8.append(row)
+        kinds8 = {}
+        for kind8 in trunk8:
+            rs = [r for r in rows8 if r["kernel"] == kind8]
+            kinds8[kind8] = {key: sum(r[key] for r in rs) for key in (
+                "ms", "device_ms", "bound_ms", "plain_ms", "library_ms", "bf16_conv_ms")}
+            kinds8[kind8].update(launches=launches[kind8], bound_by="bytes" if all(
+                r["bound_by"] == "bytes" for r in rs) else "operations")
+            src = "qstem_kernel.cu" if kind8 == "qstem" else "qconv_kernel.cu"
+            kernels.append(dict(
+                name=kind8, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}",
+                replaces="ubdvss_tpu/ops/quant.py:315" if kind8 == "qstem" else "ubdvss_tpu/ops/quant.py:276",
+                launches=launches[kind8], max_abs_err=err_q,
+                **{k: kinds8[kind8][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            ))
+        trunk8_fn = lambda: int8_trunk_apply(q_d, imgs_d, cfg, raw_gray=True)  # noqa: E731
+        trunk8_ms, trunk8_dev = time_ms(trunk8_fn), device_ms(trunk8_fn)
+
+        # the bias correction's qconv_layer launches over the calibration images
+        def walk(fn):
+            return lambda: [fn(*c) for c in calls_bias]
+
+        nbytes_b = ops_b = 0
+        for xc, Lc, s_c, st, d in calls_bias:
+            ks, _, cin, cout = Lc["q"].shape
+            ho, wo = -(-xc.shape[1] // st), -(-xc.shape[2] // st)
+            nbytes_b += (xc.numel() * xc.element_size() + Lc["q"].numel()
+                         + xc.shape[0] * ho * wo * cout * (4 if s_c is None else 1))
+            ops_b += 2 * xc.shape[0] * ho * wo * cout * cin * ks * ks
+        with exact_f32():
+            lib_b = time_ms(lib_convs([(c[0], c[1]["q"], c[3], c[4]) for c in calls_bias],
+                                      torch.float32), iters=3, reps=3)
+        bias_row = dict(launches=launches["qconv_layer"], ms=time_ms(walk(kq.qconv_layer), iters=5, reps=3),
+                        device_ms=device_ms(walk(kq.qconv_layer), n=5), bound=bound(nbytes_b, ops_b, INT8_OPS),
+                        plain_ms=time_ms(walk(kq.qconv_reference), iters=3, reps=1, warmup=1),
+                        library_ms=lib_b)
+        bias_row["bound_ms"], bias_row["bound_by"] = bias_row.pop("bound")
         kernels.append(dict(
-            name="qconv", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_kernel.cu",
-            replaces="ubdvss_tpu/ops/quant.py:276",
-            launches=launches["qconv"], max_abs_err=err_q,
-            ms=time_ms(trunk8), device_ms=device_ms(trunk8),
-            plain_ms=sum(r["plain_ms"] for r in qconv_layers),
-            bound_ms=sum(r["bound_ms"] for r in qconv_layers),
-            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in qconv_layers) else "operations",
-            library_ms=sum(r["library_ms"] for r in qconv_layers),
+            name="qconv_layer", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_layer_kernel.cu",
+            replaces="ubdvss_tpu/ops/quant.py:276", max_abs_err=err_q,
+            **{k: bias_row[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         ))
-    log(json.dumps({"qconv_layers (the int8 main path's ten launches; plain and library per layer)":
-                    qconv_layers}))
+    log(json.dumps({f"bias correction walk (qconv_layer, {N_CALIB} {IMG}x{IMG} calibration images, "
+                    "all its launches)": bias_row}))
+    log(json.dumps({"int8 trunk launches (main path; plain, library f32 and bf16 per launch)": rows8}))
+    log(json.dumps({"int8 trunk by kernel (main path)": kinds8, "trunk_ms": trunk8_ms,
+                    "trunk_device_ms": trunk8_dev}))
     log(json.dumps({
         "path": "detect_program_batch int8, uint8 images on the card",
         "batch": B, "image": IMG, "K": K, "M": M, "ms_per_batch": ms8, "img_per_s": B / ms8 * 1e3,

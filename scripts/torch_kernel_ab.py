@@ -1,37 +1,50 @@
 #!/usr/bin/env python3
-"""Parent against change for the port's geometry kernels (CCL K1, slots
-K2, fused compat geometry K12c, compacted rect K3 and uncompacted rect
-K3x), on one CUDA card.
+"""Parent against change for the port's kernels on one CUDA card: the
+geometry kernels (CCL K1, slots K2, fused compat geometry K12c, compacted
+rect K3 and uncompacted rect K3x) and the int8 trunk.
 
-    python3 scripts/torch_kernel_ab.py --parent PARENT_TREE [--variants TREE ...] [--out FILE]
+    python3 scripts/torch_kernel_ab.py --parent PARENT_TREE [--only geometry|int8]
+        [--variants TREE ...] [--out FILE]
 
 PARENT_TREE is an unpacked earlier commit of this repository (for example
 ``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
-ignores) whose C entry points take the same arguments as this tree's.
-Both trees' ``csrc/rect_kernel.cu``, ``geometry_kernel.cu``,
-``ccl_kernel.cu`` and ``postproc_kernel.cu`` are built with this tree's
-nvcc flags into ``build/ab/`` and called through their C entry points on
-the same tensors, with preallocated outputs, in the order parent, change,
-change, parent.  Each case reports the median of 15 CUDA-event samples of
-20 back-to-back calls (``ms``) and the mean of its kernels' CUPTI durations
-over 20 calls (``device_ms``, torch.profiler).
+ignores).  Both trees' sources are built with this tree's nvcc flags into
+``build/ab/`` and called through their C entry points on the same tensors,
+with preallocated outputs, in the order parent, change, change, parent.
+Each case reports the median of 15 CUDA-event samples of 20 back-to-back
+calls (``ms``) and the mean of its kernels' CUPTI durations over 20 calls
+(``device_ms``, torch.profiler).
 
-Inputs: the asset's model on B=64 synthetic 512x512 scenes (seed 7, K=16)
-and on 64 QVGA 240x320 frames (seed 7).  Cases: K1 on the batch's 128²
-detection maps, on the stream's 60x80 maps and on one image's map (B=1,
-as a detect call gives it), and the change's device-memory K1
-(``ccl_labels_tiled``, timed in the change's turns) on the same maps; K3x
-on the stream's extremes (B=64, H=60) and on four single images' extremes
-(B=1, H=128); K3 at M=64 on the batch's extremes; K12c on the batch's
-logits and CCL + slots.  Before timing, the outputs are checked: K1's
-labels (both of the change's K1 entries), K3x's and K3's rows and K12c's
-eight outputs identical between the trees, and K12c's identical to CCL +
-slots.
-Each ``--variants`` tree (another ``csrc/rect_kernel.cu`` of the change,
-under its own directory name) has its K3x rows checked against the
-change's and timed in the change's turns.  Prints one JSON object and
-writes it to FILE (default ``build/ab/ab.json``); exits non-zero on a
-mismatch.
+Geometry (the parent's C entry points must take this tree's arguments):
+the asset's model on B=64 synthetic 512x512 scenes (seed 7, K=16) and on
+64 QVGA 240x320 frames (seed 7).  Cases: K1 on the batch's 128² detection
+maps, on the stream's 60x80 maps and on one image's map (B=1, as a detect
+call gives it), and the change's device-memory K1 (``ccl_labels_tiled``,
+timed in the change's turns) on the same maps; K3x on the stream's
+extremes (B=64, H=60) and on four single images' extremes (B=1, H=128);
+K3 at M=64 on the batch's extremes; K12c on the batch's logits and CCL +
+slots.  Before timing, the outputs are checked: K1's labels (both of the
+change's K1 entries), K3x's and K3's rows and K12c's eight outputs
+identical between the trees, and K12c's identical to CCL + slots.  Each
+``--variants`` tree (another ``csrc/rect_kernel.cu`` of the change, under
+its own directory name) has its K3x rows checked against the change's and
+timed in the change's turns.
+
+int8: the parent's ``csrc/qconv_kernel.cu`` (PR 9's ``qconv_layer``, ten
+launches a trunk: layer 0, layer 1, the context layers, the head) against
+this tree's ``qstem_tc`` and ``qconv_tc`` (eight launches: qstem, a
+context layer each but the last, the last with the head), on qparams
+calibrated on the card (``quantize_trunk``, 32 synthetic 512² scenes,
+seed 99), for B=64 512² uint8 scenes (seed 7, NetConfig()) and B=8 2048²
+uint8 scans (seed 11, the asset's config).  The two trunks' logits must be
+identical; then the whole trunk and each launch alone are timed.  Then
+each tree's ``quantize_trunk`` on the card over those calibration scenes
+(NetConfig(), bias correction on), in a process of its own started in the
+tree (parent, change, change, parent): wall seconds of four calls after a
+first one that builds the tree's kernels.
+
+Prints one JSON object and writes it to FILE (default
+``build/ab/ab.json``); exits non-zero on a mismatch.
 """
 
 from __future__ import annotations
@@ -108,25 +121,22 @@ def device_ms(fn, n=20) -> float:
                if e.device_type == DeviceType.CUDA) / n / 1e3
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--variants", type=Path, nargs="*", default=[])
-    ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
-    args = ap.parse_args()
-    dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+def check(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream():
+    return P(torch.cuda.current_stream().cuda_stream)
+
+
+def geometry_ab(args, dev, res: dict) -> None:
+    """The geometry kernels, parent against change (module docstring)."""
     libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parent"),
             "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "change")}
     variants = [v.name for v in args.variants]
     for v in args.variants:
         libs[v.name] = build(v / "ubdvss_tpu_torch" / "csrc", v.name, ("rect_kernel",))
-    stream = lambda: P(torch.cuda.current_stream().cuda_stream)  # noqa: E731
-
-    def check(err, what):
-        if err != 0:
-            raise RuntimeError(f"{what}: CUDA error {err}")
 
     # inputs: the main path's logits and extremes, the stream's extremes
     asset = REPO / "assets" / "pretrained_synthetic.npz"
@@ -146,7 +156,7 @@ def main() -> int:
     nw = postproc_kernel.stats_warps(H, W, K, C)
     geo = postproc_kernel.component_slots_from_logits(det, K)
     geo_q = postproc_kernel.component_slots_from_logits(lg_q[..., 0].contiguous(), K)
-    res = {"card": smi, "B": B, "H": H, "W": W, "K": K, "C": C, "M": M, "stats_warps": nw}
+    res.update({"B": B, "H": H, "W": W, "K": K, "C": C, "M": M, "stats_warps": nw})
 
     extremes = {"stream_B64_H60": (geo_q["minx"], geo_q["maxx"])}
     singles = [(geo["minx"][b : b + 1].contiguous(), geo["maxx"][b : b + 1].contiguous())
@@ -253,6 +263,162 @@ def main() -> int:
                 key = f"{name}_{tag}"
                 res.setdefault(key, []).append(time_ms(lambda: fn(tag)))
                 res.setdefault(key + "_device", []).append(device_ms(lambda: fn(tag)))
+
+
+# one tree's quantize_trunk on the card: argv = tree, asset, calibration images (.npy)
+_CALIB_TIMER = """
+import json, sys, time
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from ubdvss_tpu_torch import NetConfig, load_params_npz, params_from_flat
+from ubdvss_tpu_torch.ops.quant import quantize_trunk
+dev = torch.device("cuda")
+params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(sys.argv[2])).items()}
+calib = torch.from_numpy(np.load(sys.argv[3])).to(dev)
+ts = []
+with torch.inference_mode():
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quantize_trunk(params, NetConfig(), calib)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+print(json.dumps(ts[1:]))
+"""
+
+
+def calibration_ab(args, calib: np.ndarray, res: dict) -> None:
+    """Each tree's quantize_trunk seconds on the card (module docstring)."""
+    out = REPO / "build" / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    npy = out / "calib.npy"
+    np.save(npy, calib)
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
+    trees = {"parent": args.parent.resolve(), "change": REPO}
+    for turn in ("parent", "change", "change", "parent"):
+        run = subprocess.run([sys.executable, "-c", _CALIB_TIMER, str(trees[turn]), str(asset), str(npy)],
+                             cwd=trees[turn], capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise RuntimeError(f"{turn} calibration failed:\n{run.stderr[-3000:]}")
+        res.setdefault(f"calibration_s_{turn}", []).append(json.loads(run.stdout.strip().splitlines()[-1]))
+
+
+def int8_ab(args, dev, res: dict) -> None:
+    """The int8 trunk: the parent's ten qconv_layer launches against this
+    tree's qstem_tc + qconv_tc launches (module docstring)."""
+    from ubdvss_tpu_torch.models.model import same_pad
+    from ubdvss_tpu_torch.ops.cuda import qconv_kernel as qk
+    from ubdvss_tpu_torch.ops.quant import quantize_trunk
+
+    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parent8", ("qconv_kernel",)),
+            "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "change8",
+                            ("qconv_kernel", "qstem_kernel"))}
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(asset)).items()}
+
+    def scenes(n, hw, seed):
+        reader = SyntheticMarkupReader(n_samples=n, image_hw=hw, seed=seed)
+        return np.stack([reader.sample_at(i).image for i in range(n)])
+
+    cfg, cfg_l = NetConfig(), load_net_config(asset)
+    calib_np = (scenes(32, (512, 512), 99).astype(np.float32) / 127.5 - 1.0)[..., None]
+    calib = torch.from_numpy(calib_np)
+    with torch.inference_mode():
+        q = quantize_trunk(params, cfg, calib.to(dev))
+    inputs = {"main_B64_512": (scenes(64, (512, 512), 7), cfg),
+              "scans_B8_2048": (scenes(8, (2048, 2048), 11), cfg_l)}
+    ptr = lambda t: P(None if t is None else t.data_ptr())  # noqa: E731
+
+    def parent_calls(x, c):
+        """The parent's trunk: (name, library, entry, arguments) a launch."""
+        B, H, W = x.shape
+        layers, s_outs = q["layers"] + [q["head"]], q["s_in"][1:] + [None]
+        specs = [(2, 1), (2, 1)] + [(1, d) for d in c.dilations] + [(1, 1)]
+        calls, cur, (h, w) = [], x, (H, W)
+        for i, (layer, (st, d), s_o) in enumerate(zip(layers, specs, s_outs)):
+            ks, _, cin, cout = layer["q"].shape
+            ho, wo = -(-h // st), -(-w // st)
+            out = torch.empty((B, ho, wo, cout), device=dev,
+                              dtype=torch.float32 if s_o is None else torch.int8)
+            a = (ptr(cur), ptr(layer["q"]), ptr(layer["ws"]), ptr(layer["b"]), ptr(s_o), ptr(out),
+                 I(1 if i == 0 else 0), I(B), I(h), I(w), I(cin), I(ho), I(wo), I(cout), I(ks),
+                 I(st), I(d), I(same_pad(h, ks, st, d)[0]), I(same_pad(w, ks, st, d)[0]))
+            name = "layer0" if i == 0 else "layer1" if i == 1 else "head" if s_o is None else f"context{i - 2}"
+            calls.append((name, "qconv_kernel", "qconv_layer", a, out))
+            cur, h, w = out, ho, wo
+        return calls, cur
+
+    def change_calls(x, c):
+        """This tree's trunk, as int8_trunk_apply launches it."""
+        B, H, W = x.shape
+        L, s, n = q["layers"], q["s_in"], len(c.dilations)
+        c0, c1 = L[0]["q"].shape[-1], L[1]["q"].shape[-1]
+        plan = qk.tile_plan("stem", B, H, W, 1, c1, c0=c0, in_kind=qk.IN_U8_RAW)
+        cur = torch.empty((B, plan.Ho, plan.Wo, c1), dtype=torch.int8, device=dev)
+        arr = plan.ints
+        calls = [("qstem", "qstem_kernel", "qstem_tc",
+                  (ptr(x), *(ptr(t) for t in (L[0]["q"], L[0]["ws"], L[0]["b"], s[1], L[1]["q"],
+                                              L[1]["ws"], L[1]["b"], s[2], cur)),
+                   P(arr.ctypes.data), I(arr.size)), arr)]
+        h, w = plan.Ho, plan.Wo
+        for li, d in enumerate(c.dilations):
+            last = li == n - 1
+            layer, head = L[2 + li], q["head"]
+            cout = layer["q"].shape[-1]
+            nh = head["q"].shape[-1] if last else 0
+            plan = qk.tile_plan("conv", B, h, w, cur.shape[-1], cout, dil=d, nh=nh)
+            out = torch.empty((B, h, w, nh or cout), device=dev,
+                              dtype=torch.float32 if last else torch.int8)
+            arr = plan.ints
+            hp = (head["q"], head["ws"], head["b"]) if last else (None, None, None)
+            calls.append(("head" if last else f"context{li}", "qconv_kernel", "qconv_tc",
+                          (ptr(cur), ptr(layer["q"]), ptr(layer["ws"]), ptr(layer["b"]),
+                           ptr(s[3 + li]), *(ptr(t) for t in hp), ptr(out), P(arr.ctypes.data),
+                           I(arr.size)), arr))
+            cur = out
+        return calls, cur
+
+    def run(tag, calls):
+        for name, lib, fn, a, _ in calls:
+            check(getattr(libs[tag][lib], fn)(*a, stream()), f"{tag} {name}")
+
+    for name, (imgs, c) in inputs.items():
+        x = torch.from_numpy(imgs).to(dev)
+        calls = {"parent": parent_calls(x, c), "change": change_calls(x, c)}
+        for tag, (cl, _) in calls.items():
+            run(tag, cl)
+        torch.cuda.synchronize()
+        lg_p, lg_c = calls["parent"][1], calls["change"][1]
+        if not torch.equal(lg_p, lg_c):
+            raise AssertionError(f"int8 {name}: {int((lg_p != lg_c).sum())} logits differ")
+        res[f"int8_{name}_logits_identical"] = True
+        res[f"int8_{name}_launches"] = {t: [cl[0] for cl in calls[t][0]] for t in calls}
+        for turn in ("parent", "change", "change", "parent"):
+            cl = calls[turn][0]
+            key = f"int8_trunk_{name}_{turn}"
+            res.setdefault(key, []).append(time_ms(lambda: run(turn, cl)))
+            res.setdefault(key + "_device", []).append(device_ms(lambda: run(turn, cl)))
+            for one in cl:
+                res.setdefault(f"int8_{name}_{turn}_{one[0]}_device", []).append(
+                    device_ms(lambda: run(turn, [one])))
+    calibration_ab(args, calib_np, res)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--only", choices=("geometry", "int8"), default=None)
+    ap.add_argument("--variants", type=Path, nargs="*", default=[])
+    ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
+    args = ap.parse_args()
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    res = {"card": smi}
+    if args.only != "int8":
+        geometry_ab(args, dev, res)
+    if args.only != "geometry":
+        int8_ab(args, dev, res)
     print(json.dumps(res), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))

@@ -923,91 +923,232 @@ def test_bf16_entry_points_on_card_match_cpu(dev, asset, case):
 
 
 
-# the int8 conv (qconv): (input shape, input kind, ks, cout, stride, dil,
-# requant); the main path's layer shapes at B=2, odd sizes at stride 2,
-# dilation 16 at 128x128, saturation, zeros, one image, other widths
+# the int8 trunk's kernels: (kernel, input shape, input kind, cout,
+# dilation, head outputs).  qstem takes the image (layer 0 to cout, then
+# layer 1 to cout); qconv an int8 NHWC map, 3x3 stride 1; qconv_head that
+# and a 1x1 head.  The main path's layer shapes at B=2, odd sizes, ragged
+# tile edges, dilation 16 on 128² and on the stream's 60x80, saturation
+# (at 24 channels |acc| = 3,483,864; at 32, "sat-wide", 4,645,152, past the
+# epilogue's conversion-free window), zeros, one image, a 1024² map and a
+# 4096² image, other widths.
 _QCONV_CASES = {
-    "layer0-u8-512": ((2, 512, 512), "u8", 3, 24, 2, 1, True),
-    "layer0-f32raw-odd": ((2, 75, 101), "f32raw", 3, 24, 2, 1, True),
-    "layer0-norm-qvga": ((2, 240, 320), "norm", 3, 24, 2, 1, True),
-    "stem1-256": ((2, 256, 256, 24), "int8", 3, 24, 2, 1, True),
-    "stem1-odd": ((2, 37, 53, 24), "int8", 3, 24, 2, 1, True),
-    "context-d1": ((2, 128, 128, 24), "int8", 3, 24, 1, 1, True),
-    "context-d2": ((2, 128, 128, 24), "int8", 3, 24, 1, 2, True),
-    "context-d8": ((2, 128, 128, 24), "int8", 3, 24, 1, 8, True),
-    "context-d16": ((2, 128, 128, 24), "int8", 3, 24, 1, 16, True),
-    "context-qvga": ((2, 60, 80, 24), "int8", 3, 24, 1, 4, True),
-    "head-17": ((2, 128, 128, 24), "int8", 1, 17, 1, 1, False),
-    "logits-3x3": ((1, 33, 47, 24), "int8", 3, 24, 1, 2, False),
-    "saturated": ((2, 40, 40, 24), "sat", 3, 24, 1, 1, False),
-    "saturated-requant": ((2, 40, 40, 24), "sat", 3, 24, 1, 1, True),
-    "zeros": ((1, 40, 40, 24), "zeros", 3, 24, 2, 1, True),
-    "one-image": ((1, 128, 128, 24), "int8", 3, 24, 1, 16, True),
-    "widths-4-to-8": ((2, 50, 30, 4), "int8", 3, 8, 1, 3, True),
-    "widths-32-to-32": ((2, 50, 30, 32), "int8", 3, 32, 2, 1, True),
-    "widths-16-to-12": ((2, 50, 30, 16), "int8", 3, 12, 1, 1, True),
+    "layer0-u8-512": ("qstem", (2, 512, 512), "u8", 24, 1, 0),
+    "layer0-f32raw-odd": ("qstem", (2, 75, 101), "f32raw", 24, 1, 0),  # 38x51, then 19x26
+    "layer0-norm-qvga": ("qstem", (2, 240, 320), "norm", 24, 1, 0),
+    "stem1-256": ("qstem", (2, 512, 512), "f32raw", 24, 1, 0),
+    "stem1-odd": ("qstem", (2, 73, 105), "u8", 24, 1, 0),  # layer 1 on 37x53
+    "stem-one-image": ("qstem", (1, 512, 512), "u8", 24, 1, 0),
+    "stem-4096": ("qstem", (1, 4096, 4096), "u8", 24, 1, 0),
+    "stem-zeros": ("qstem", (1, 160, 96), "norm-zeros", 24, 1, 0),
+    "context-d1": ("qconv", (2, 128, 128, 24), "int8", 24, 1, 0),
+    "context-d2": ("qconv", (2, 128, 128, 24), "int8", 24, 2, 0),
+    "context-d8": ("qconv", (2, 128, 128, 24), "int8", 24, 8, 0),
+    "context-d16": ("qconv", (2, 128, 128, 24), "int8", 24, 16, 0),
+    "context-qvga": ("qconv", (2, 60, 80, 24), "int8", 24, 4, 0),
+    "context-qvga-d16": ("qconv", (2, 60, 80, 24), "int8", 24, 16, 0),
+    "ragged-33x47": ("qconv", (2, 33, 47, 24), "int8", 24, 1, 0),
+    "ragged-19x26": ("qconv", (2, 19, 26, 24), "int8", 24, 4, 0),
+    "map-1024-d16": ("qconv", (1, 1024, 1024, 24), "int8", 24, 16, 0),
+    "saturated-requant": ("qconv", (2, 40, 40, 24), "sat", 24, 1, 0),
+    "zeros": ("qconv", (1, 40, 40, 24), "zeros", 24, 2, 0),
+    "one-image": ("qconv", (1, 128, 128, 24), "int8", 24, 16, 0),
+    "widths-4-to-8": ("qconv", (2, 50, 30, 4), "int8", 8, 3, 0),
+    "widths-32-to-32": ("qstem", (2, 100, 60), "u8", 32, 1, 0),
+    "widths-16-to-12": ("qconv", (2, 50, 30, 16), "int8", 12, 1, 0),
+    "head-17": ("qconv_head", (2, 128, 128, 24), "int8", 24, 1, 17),
+    "logits-3x3": ("qconv_head", (1, 33, 47, 24), "int8", 24, 2, 17),
+    "saturated": ("qconv_head", (2, 40, 40, 24), "sat", 24, 1, 17),
+    "head-qvga-d16": ("qconv_head", (2, 60, 80, 24), "int8", 24, 16, 17),
+    "head-ragged-19x26": ("qconv_head", (2, 19, 26, 24), "int8", 24, 1, 17),
+    "head-one-image": ("qconv_head", (1, 128, 128, 24), "int8", 24, 1, 17),
+    "head-1024": ("qconv_head", (1, 1024, 1024, 24), "int8", 24, 1, 17),
+    "head-narrow": ("qconv_head", (2, 19, 26, 8), "int8", 8, 2, 5),
+    "head-widths-32": ("qconv_head", (1, 33, 47, 32), "int8", 32, 16, 32),
+    "saturated-32": ("qconv", (2, 40, 40, 32), "sat-wide", 32, 1, 0),
+    "saturated-32-head": ("qconv_head", (2, 40, 40, 32), "sat-wide", 32, 1, 17),
+    "stem-saturated-32": ("qstem", (2, 100, 76), "sat-wide", 32, 1, 0),
 }
 
 
-def _qconv_inputs(case, dev):
-    shape, kind, ks, cout, stride, dil, requant = _QCONV_CASES[case]
-    rng = np.random.default_rng(len(case) + 7 * cout)
-    cin = shape[3] if len(shape) == 4 else 1
+def _qconv_layer(rng, ks, cin, cout, dev, sat=None):
     q = rng.integers(-127, 128, (ks, ks, cin, cout)).astype(np.int8)
-    if kind == "u8":
-        x = rng.integers(0, 256, shape).astype(np.uint8)
-    elif kind == "f32raw":
-        x = rng.uniform(0, 255, shape).astype(np.float32)
-    elif kind == "norm":
-        x = rng.uniform(-1.05, 1.05, shape + (1,)).astype(np.float32)
-    elif kind == "sat":  # |acc| = 9 * 24 * 127^2 = 3,483,864 inside
+    ws = rng.uniform(1e-4, 2e-3, cout).astype(np.float32)
+    b = rng.normal(0, 0.5, cout).astype(np.float32)
+    if sat == "signs":
+        q[:] = np.where(rng.random(q.shape) < 0.5, -127, 127)
+    elif sat == "ones":  # every weight 127: |acc| = 9 * Cin * 127^2
+        q[:] = 127
+    elif sat == "extreme":  # +-127 by output channel, ws of that sign mapping 9 Cin 127^2 to 40
+        sign = np.where(np.arange(cout) % 2 == 0, 1, -1)
+        q[:] = (127 * sign).astype(np.int8)
+        ws = (np.float32(40.0 / (ks * ks * cin * 127**2)) * sign).astype(np.float32)
+        b[:] = 0
+    layer = dict(q=q, ws=ws, b=b)
+    return {k: torch.from_numpy(v).to(dev) for k, v in layer.items()}
+
+
+def _qconv_call(case, dev):
+    """(wrapper, its arguments, plain version) of a case."""
+    fn_name, shape, kind, cout, dil, nh = _QCONV_CASES[case]
+    rng = np.random.default_rng(len(case) + 7 * cout)
+    scale = lambda c: torch.from_numpy(rng.uniform(5, 60, c).astype(np.float32)).to(dev)  # noqa: E731
+    if fn_name == "qstem" and kind == "sat-wide":
+        # raw 255 quantizes to 127; layer 0 (every weight 127, ws 1/127) puts
+        # 127 at every pixel of its map, layer 1 reaches 9 * 32 * 127^2
+        img = torch.full(shape, 255, dtype=torch.uint8, device=dev)
+        l0 = dict(q=torch.full((3, 3, 1, cout), 127, dtype=torch.int8, device=dev),
+                  ws=torch.full((cout,), 1 / 127, device=dev), b=torch.zeros(cout, device=dev))
+        ones = torch.ones(cout, device=dev)
+        args = (img, l0, ones, _qconv_layer(rng, 3, cout, cout, dev, sat="extreme"), ones, True)
+        return qconv_kernel.qstem, args, qconv_kernel.qstem_reference
+    if fn_name == "qstem":
+        if kind == "u8":
+            x = rng.integers(0, 256, shape).astype(np.uint8)
+        elif kind == "f32raw":
+            x = rng.uniform(0, 255, shape).astype(np.float32)
+        elif kind == "norm":
+            x = rng.uniform(-1.05, 1.05, shape + (1,)).astype(np.float32)
+        else:  # normalized zeros quantize to int8 0
+            x = np.zeros(shape + (1,), np.float32)
+        args = (torch.from_numpy(x).to(dev), _qconv_layer(rng, 3, 1, cout, dev), scale(cout),
+                _qconv_layer(rng, 3, cout, cout, dev), scale(cout), kind in ("u8", "f32raw"))
+        return qconv_kernel.qstem, args, qconv_kernel.qstem_reference
+    cin = shape[3]
+    if kind in ("sat", "sat-wide"):  # |acc| = 9 * Cin * 127^2 inside
         x = np.full(shape, 127, np.int8)
         x[1] = -127
-        q[:] = np.where(rng.random(q.shape) < 0.5, -127, 127) if requant else 127
     elif kind == "zeros":
         x = np.zeros(shape, np.int8)
     else:
         x = rng.integers(-127, 128, shape).astype(np.int8)
-    layer = dict(q=q, ws=rng.uniform(1e-4, 2e-3, cout).astype(np.float32),
-                 b=rng.normal(0, 0.5, cout).astype(np.float32))
-    layer = {k: torch.from_numpy(v).to(dev) for k, v in layer.items()}
-    s_out = torch.from_numpy(rng.uniform(5, 60, cout).astype(np.float32)).to(dev) if requant else None
-    return torch.from_numpy(x).to(dev), layer, s_out, stride, dil, kind in ("u8", "f32raw")
+    x = torch.from_numpy(x).to(dev)
+    sat = {"sat": "ones" if fn_name == "qconv_head" else "signs", "sat-wide": "extreme"}.get(kind)
+    layer = _qconv_layer(rng, 3, cin, cout, dev, sat=sat)
+    s_out = torch.ones(cout, device=dev) if kind == "sat-wide" else scale(cout)
+    if fn_name == "qconv":
+        return qconv_kernel.qconv, (x, layer, s_out, dil), _qconv_plain
+    args = (x, layer, s_out, dil, _qconv_layer(rng, 1, cout, nh, dev))
+    return qconv_kernel.qconv_head, args, qconv_kernel.qconv_head_reference
+
+
+def _qconv_plain(x, layer, s_out, dil):
+    return qconv_kernel.qconv_reference(x, layer, s_out, 1, dil)
+
+
+def _to_cpu(a):
+    if torch.is_tensor(a):
+        return a.cpu()
+    if isinstance(a, dict):
+        return {k: v.cpu() for k, v in a.items()}
+    return a
 
 
 @pytest.mark.parametrize("case", sorted(_QCONV_CASES))
 def test_qconv_kernel_matches_plain_bit_for_bit(dev, case):
-    """The int8 conv kernel == its plain version on the card (f64 conv with
-    cuDNN off, the epilogue rounded once) and on the CPU, bit for bit, int8
-    activations and f32 logits alike; one launch."""
-    x, layer, s_out, stride, dil, raw = _qconv_inputs(case, dev)
-    qconv_kernel.qconv.launches = 0
-    out = qconv_kernel.qconv(x, layer, s_out, stride, dil, raw_gray=raw)
+    """The int8 trunk's kernels (qstem, qconv, qconv_head) == their plain
+    versions on the card (f64 convs with cuDNN off, the epilogue rounded
+    once) and on the CPU, bit for bit, int8 activations and f32 logits
+    alike; one launch of the case's kernel and none of the others."""
+    fn, args, plain = _qconv_call(case, dev)
+    kernels = (qconv_kernel.qstem, qconv_kernel.qconv, qconv_kernel.qconv_head)
+    for f in kernels:
+        f.launches = 0
+    out = fn(*args)
     torch.cuda.synchronize()
-    assert qconv_kernel.qconv.launches == 1
-    ref = qconv_kernel.qconv_reference(x, layer, s_out, stride, dil, raw_gray=raw)
+    assert [f.launches for f in kernels] == [int(f is fn) for f in kernels]
+    ref = plain(*args)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert torch.equal(out, ref)
-    cpu = qconv_kernel.qconv_reference(
-        x.cpu(), {k: v.cpu() for k, v in layer.items()}, None if s_out is None else s_out.cpu(),
-        stride, dil, raw_gray=raw)
-    assert torch.equal(out.cpu(), cpu)
+    if case in ("saturated", "saturated-requant"):
+        assert ref.abs().max() > 0
+    if _QCONV_CASES[case][2] == "sat-wide" and fn is not qconv_kernel.qconv_head:
+        assert bool((out[0, 1:-1, 1:-1] == 40).all())  # both signs' accumulators exact
+    assert torch.equal(out.cpu(), plain(*(_to_cpu(a) for a in args)))
 
 
-@pytest.mark.parametrize("cin,cout,requant", [(6, 24, True), (36, 24, True), (24, 36, False),
-                                              (24, 17, True)])
-def test_qconv_channel_caps_name_their_roadmap_item(dev, cin, cout, requant):
+@pytest.mark.parametrize("cin,cout", [(6, 24), (36, 24), (24, 36), (24, 17)])
+def test_qconv_channel_caps_name_their_roadmap_item(dev, cin, cout):
     x = torch.zeros((1, 8, 8, cin), dtype=torch.int8, device=dev)
     layer = dict(q=torch.zeros((3, 3, cin, cout), dtype=torch.int8, device=dev),
                  ws=torch.ones(cout, device=dev), b=torch.zeros(cout, device=dev))
-    s_out = torch.ones(cout, device=dev) if requant else None
     with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
-        qconv_kernel.qconv(x, layer, s_out, 1, 1)
+        qconv_kernel.qconv(x, layer, torch.ones(cout, device=dev), 1)
+
+
+# qconv_layer (the bias correction's single layers): (input shape, input
+# kind, kernel size, cout, stride, dilation, int8 out).  Layer 0 on the
+# normalized image, the stride-2 layer, the dilated context layers and the
+# head, f32 pre-activations and requantized outputs, odd sizes, 32 channels
+# saturated (|acc| = 4,645,152).
+_QLAYER_CASES = {
+    "layer0-f32": ((4, 75, 101), "norm", 3, 24, 2, 1, False),
+    "layer0-int8": ((4, 64, 64), "norm", 3, 24, 2, 1, True),
+    "stride2-f32": ((4, 38, 51, 24), "int8", 3, 24, 2, 1, False),
+    "stride2-int8": ((4, 64, 64, 24), "int8", 3, 24, 2, 1, True),
+    "context-d16-f32": ((4, 32, 32, 24), "int8", 3, 24, 1, 16, False),
+    "context-d4-int8": ((2, 19, 26, 24), "int8", 3, 24, 1, 4, True),
+    "head-f32": ((4, 32, 32, 24), "int8", 1, 17, 1, 1, False),
+    "saturated-32-f32": ((2, 20, 20, 32), "sat", 3, 32, 1, 1, False),
+    "saturated-32-int8": ((2, 20, 20, 32), "sat", 3, 32, 1, 1, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_QLAYER_CASES))
+def test_qconv_layer_matches_plain_bit_for_bit(dev, case):
+    """qconv_layer == qconv_reference on the card and on the CPU, bit for
+    bit, f32 pre-activations and int8 outputs alike; one launch."""
+    shape, kind, ks, cout, stride, dil, requant = _QLAYER_CASES[case]
+    rng = np.random.default_rng(len(case) + cout)
+    if kind == "norm":
+        x = rng.uniform(-1.05, 1.05, shape + (1,)).astype(np.float32)
+        cin = 1
+    elif kind == "sat":
+        x = np.full(shape, 127, np.int8)
+        x[1] = -127
+        cin = shape[3]
+    else:
+        x = rng.integers(-127, 128, shape).astype(np.int8)
+        cin = shape[3]
+    x = torch.from_numpy(x).to(dev)
+    layer = _qconv_layer(rng, ks, cin, cout, dev, sat="extreme" if kind == "sat" else None)
+    s_out = torch.from_numpy(rng.uniform(5, 60, cout).astype(np.float32)).to(dev) if requant else None
+    qconv_kernel.qconv_layer.launches = 0
+    out = qconv_kernel.qconv_layer(x, layer, s_out, stride, dil)
+    torch.cuda.synchronize()
+    assert qconv_kernel.qconv_layer.launches == 1
+    ref = qconv_kernel.qconv_reference(x, layer, s_out, stride, dil)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.equal(out, ref)
+    if kind == "sat" and not requant:  # the interior pre-activations: acc_max * ws = 40
+        assert float((out[0, 1:-1, 1:-1] - 40).abs().max()) < 1e-4
+    cpu = qconv_kernel.qconv_reference(*(_to_cpu(a) for a in (x, layer, s_out)), stride, dil)
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kernel,c0,c1,nh", [("qstem", 6, 24, 0), ("qstem", 24, 36, 0),
+                                             ("qstem", 36, 24, 0), ("qconv_head", 6, 24, 17),
+                                             ("qconv_head", 24, 36, 17), ("qconv_head", 24, 24, 33)])
+def test_qstem_and_qconv_head_channel_caps_name_their_roadmap_item(dev, kernel, c0, c1, nh):
+    def layer(ks, cin, cout):
+        return dict(q=torch.zeros((ks, ks, cin, cout), dtype=torch.int8, device=dev),
+                    ws=torch.ones(cout, device=dev), b=torch.zeros(cout, device=dev))
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
+        if kernel == "qstem":
+            img = torch.zeros((1, 32, 32), dtype=torch.uint8, device=dev)
+            qconv_kernel.qstem(img, layer(3, 1, c0), torch.ones(c0, device=dev), layer(3, c0, c1),
+                               torch.ones(c1, device=dev), raw_gray=True)
+        else:
+            x = torch.zeros((1, 8, 8, c0), dtype=torch.int8, device=dev)
+            qconv_kernel.qconv_head(x, layer(3, c0, c1), torch.ones(c1, device=dev), 1,
+                                    layer(1, c1, nh))
 
 
 def test_int8_entry_points_on_card_match_cpu(dev):
     """The int8 route on the card against the CPU with the same qparams
-    (calibrated on the card): int8_trunk_apply ten qconv launches and no
+    (calibrated on the card, the bias correction through qconv_layer):
+    int8_trunk_apply eight launches (qstem once,
+    qconv once a context layer but the last, qconv_head once) and no
     context-kernel launch, logits bit for bit; detect_program_batch fused
     and fused=False, BarcodeDetector.detect and the stream: masks, areas,
     classes and counts identical, scores within 1e-5, boxes within 1e-3 as
@@ -1031,12 +1172,18 @@ def test_int8_entry_points_on_card_match_cpu(dev):
     reader = SyntheticMarkupReader(n_samples=6, image_hw=(128, 160), seed=41)
     imgs = np.stack([reader.sample_at(i).image for i in range(6)])
     calib = torch.from_numpy((imgs.astype(np.float32) / 127.5 - 1.0)[..., None]).to(dev)
+    kernels = (qconv_kernel.qstem, qconv_kernel.qconv, qconv_kernel.qconv_head)
+    for f in (*kernels, qconv_kernel.qconv_layer):
+        f.launches = 0
     q = quantize_trunk({k: v.to(dev) for k, v in params.items()}, cfg, calib)
+    # the bias correction: each layer's f32 pre-activation and requantized
+    # output, then the head's pre-activation, one qconv_layer launch each
+    assert qconv_kernel.qconv_layer.launches == 2 * (2 + len(cfg.dilations)) + 1
+    assert [f.launches for f in kernels] == [0, 0, 0]
     q_cpu = qparams_to(q, "cpu")
-    qconv_kernel.qconv.launches = 0
     context_kernel.fused_context_head.launches = 0
     lg = int8_trunk_apply(q, torch.from_numpy(imgs).to(dev), cfg, raw_gray=True)
-    assert qconv_kernel.qconv.launches == 3 + len(cfg.dilations)
+    assert [f.launches for f in kernels] == [1, len(cfg.dilations) - 1, 1]
     assert context_kernel.fused_context_head.launches == 0
     assert torch.equal(lg.cpu(), int8_trunk_apply(q_cpu, torch.from_numpy(imgs), cfg, raw_gray=True))
     perms = np.array(list(permutations(range(4))))

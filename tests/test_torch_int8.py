@@ -264,7 +264,7 @@ def test_qconv_reference_matches_jitted_qconv(case):
     ref = np.asarray(jax.jit(jq._qconv, static_argnums=(3, 4))(
         jx, jax.tree.map(jnp.asarray, layer), None if s_out is None else jnp.asarray(s_out),
         (stride, stride), (dil, dil)))
-    out = qconv_kernel.qconv(
+    out = qconv_kernel.qconv_reference(
         torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in layer.items()},
         None if s_out is None else torch.from_numpy(s_out), stride, dil, raw_gray=kind == "raw")
     assert out.shape == ref.shape and out.dtype == (torch.int8 if requant else torch.float32)
@@ -308,9 +308,11 @@ def test_int8_trunk_apply_bit_for_bit(kind, raw_gray):
     qx = torch.from_numpy(x)
     specs = pq._conv_specs(cfg)
     for i, (st, d) in enumerate(specs):
-        qx = qconv_kernel.qconv(qx, pqp["layers"][i], pqp["s_in"][i + 1], st, d, raw_gray=raw_gray)
+        qx = qconv_kernel.qconv_reference(qx, pqp["layers"][i], pqp["s_in"][i + 1], st, d,
+                                          raw_gray=raw_gray)
         np.testing.assert_array_equal(qx.numpy(), ref[i], err_msg=f"layer {i}")
-    np.testing.assert_array_equal(qconv_kernel.qconv(qx, pqp["head"], None, 1, 1).numpy(), ref[-1])
+    np.testing.assert_array_equal(qconv_kernel.qconv_reference(qx, pqp["head"], None, 1, 1).numpy(),
+                                  ref[-1])
     logits = pq.int8_trunk_apply(pqp, torch.from_numpy(x), cfg, raw_gray=raw_gray)
     np.testing.assert_array_equal(logits.numpy(), ref[-1])
 

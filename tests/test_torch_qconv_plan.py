@@ -1,0 +1,546 @@
+"""PyTorch port: the int8 trunk's launch plan (``ops/cuda/qconv_kernel.py``
+``tile_plan``) and the plain versions of its fused launches, on the CPU.
+
+The kernels (``csrc/qstem_kernel.cu``, ``csrc/qconv_kernel.cu``) take
+every index from the plan: tiles and halos, the row phases of a dilated
+layer, the (tap, channel word) order of the MMA's K dimension with its
+zero padding, the shared-memory regions.  Held here:
+
+  * every output pixel of every layer of the asset's config is written by
+    exactly one block, at the main path's, the stream's, the scans' and
+    odd map sizes, one image or a few;
+  * each block's shared memory fits the H100's 227 KB;
+  * the K order, unpacked from the fragments the kernels pack, gives back
+    the HWIO weights, and each K word's A offset names the same tap and
+    channel word as its B word;
+  * a numpy walk of the plans as the kernels walk them (halo, A gather by
+    offset, B fragments, the MMA row maps, the epilogue's 1.5 * 2^23
+    rounding, the staged runs) equals the plain versions bit for bit, and
+    the epilogue's conversion-free read is used only inside its window
+    (saturated 32-channel layers convert);
+  * the plain versions of ``qstem`` and ``qconv_head`` equal the jitted
+    JAX chains (``_quantize_input`` -> ``_qconv`` x2; ``_qconv`` -> the
+    head) bit for bit.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ubdvss_tpu.ops import quant as jq
+from ubdvss_tpu_torch.ops.cuda import qconv_kernel as qk
+
+torch.set_num_threads(1)
+
+DILATIONS = (1, 1, 2, 4, 8, 16, 1)  # the asset's config (assets/pretrained_synthetic.npz)
+MAPS = {"qvga-60x80": (60, 80), "main-128": (128, 128), "scan-512": (512, 512),
+        "scan-1024": (1024, 1024), "odd-19x26": (19, 26)}
+IMAGES = {"qvga-240x320": (240, 320), "main-512": (512, 512), "scan-2048": (2048, 2048),
+          "scan-4096": (4096, 4096), "odd-75x101": (75, 101)}
+
+
+def _coverage(plan):
+    seen = np.zeros((plan.B, plan.Ho, plan.Wo), np.int32)
+    for tile in range(plan.n_tiles):
+        b, rows, cols = plan.tile_outputs(tile)
+        seen[b, rows[:, None], cols[None, :]] += 1
+    return seen
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("name", sorted(MAPS))
+def test_conv_plan_covers_each_output_once(name, B):
+    H, W = MAPS[name]
+    for d in sorted(set(DILATIONS)):
+        for nh in (0, 17):
+            plan = qk.tile_plan("conv", B, H, W, 24, 24, dil=d, nh=nh)
+            assert (_coverage(plan) == 1).all(), (d, nh)
+            assert plan.phases == min(d, H) and plan.halo_h == plan.th + 2
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("name", sorted(IMAGES))
+def test_stem_plan_covers_each_output_once(name, B):
+    H, W = IMAGES[name]
+    plan = qk.tile_plan("stem", B, H, W, 1, 24, c0=24, in_kind=qk.IN_U8_RAW)
+    assert (plan.Ho, plan.Wo) == (-(-(-(-H // 2)) // 2), -(-(-(-W // 2)) // 2))
+    assert (_coverage(plan) == 1).all()
+    # the layer-0 tile is what layer 1's tile reads, the input window what layer 0's reads
+    assert (plan.l0h, plan.l0w) == (2 * plan.th + 1, 2 * plan.tw + 1)
+    assert (plan.inh, plan.inw) == (2 * plan.l0h + 1, 2 * plan.l0w + 1)
+
+
+@pytest.mark.parametrize("cin,cout,nh", [(24, 24, 17), (32, 32, 32), (4, 4, 1), (8, 8, 5)])
+def test_plans_fit_shared_memory(cin, cout, nh):
+    for H, W in list(MAPS.values()) + [(1, 4096), (4096, 1), (33, 47)]:
+        for d in (1, 2, 16, 64):
+            for h in (0, nh):
+                plan = qk.tile_plan("conv", 2, H, W, cin, cout, dil=d, nh=h)
+                assert plan.smem <= qk.SHARED_MEMORY_LIMIT, (H, W, d, h, plan.smem)
+                assert all(plan.fields[k] % 16 == 0 for k in qk.PLAN_FIELDS if k.startswith("off_"))
+    for H, W in list(IMAGES.values()) + [(3, 3), (1, 9000)]:
+        plan = qk.tile_plan("stem", 2, H, W, 1, cout, c0=cin, in_kind=qk.IN_F32_RAW)
+        assert plan.smem <= qk.SHARED_MEMORY_LIMIT, (H, W, plan.smem)
+
+
+def test_plan_fields_match_the_kernels_struct():
+    """The kernels read the plan's ints through struct Plan (csrc/qconv.cuh):
+    the same fields in the same order, then the four K-order arrays."""
+    import re
+    from pathlib import Path
+
+    src = (Path(qk.__file__).resolve().parents[2] / "csrc" / "qconv.cuh").read_text()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    names = [n.strip() for line in body.splitlines()
+             for n in re.sub(r"//.*", "", line).replace("int ", "").replace(";", "").split(",")
+             if n.strip()]
+    assert names[: len(qk.PLAN_FIELDS)] == list(qk.PLAN_FIELDS)
+    assert names[len(qk.PLAN_FIELDS):] == ["a_off[kMaxKWords]", "b_src[kMaxKWords]",
+                                           "k0_off[16]", "k0_src[16]"]
+    plan = qk.tile_plan("stem", 1, 20, 20, 1, 8, c0=8, in_kind=qk.IN_U8_RAW)
+    assert plan.ints.size == len(qk.PLAN_FIELDS) + 2 * qk.MAX_K_WORDS + 32
+
+
+def _k_words(nw):
+    """K word -> (tap, channel word), as the plan documents the order: with
+    nw even, lane t's words t and 4+t of step s are channel words 2c, 2c+1
+    of one tap (pair 4 s + t); with nw odd, word j is (j // nw, j % nw)."""
+    if nw % 2:
+        return {j: divmod(j, nw) for j in range(9 * nw)}
+    out = {}
+    for q in range(9 * nw // 2):
+        s, t = divmod(q, 4)
+        tap, cp = divmod(q, nw // 2)
+        out[8 * s + t], out[8 * s + 4 + t] = (tap, 2 * cp), (tap, 2 * cp + 1)
+    return out
+
+
+def _unpack(frags, plan, cin, cout):
+    """HWIO weights back from the kernels' B fragments and the K order; the
+    padding's words must be zero."""
+    q = np.zeros((3, 3, cin, cout), np.int8)
+    words = _k_words(cin // 4)
+    raw = frags.view(np.uint32)
+    for s, n, lane, r in np.ndindex(raw.shape):
+        j, co = 8 * s + 4 * r + lane % 4, 8 * n + lane // 4
+        word = raw[s, n, lane, r]
+        if j not in words or co >= cout:
+            assert word == 0 and (co >= cout or plan.b_src[j] == -1)
+            continue
+        tap, cw = words[j]
+        for k in range(4):
+            q[tap // 3, tap % 3, 4 * cw + k, co] = np.uint8((word >> (8 * k)) & 0xFF).view(np.int8)
+    return q
+
+
+@pytest.mark.parametrize("kind", ["conv", "stem"])
+@pytest.mark.parametrize("cin,cout", [(24, 24), (8, 8), (4, 8), (32, 32), (16, 12), (12, 4)])
+def test_k_order_unpacks_to_the_hwio_weights(kind, cin, cout):
+    rng = np.random.default_rng(cin * 33 + cout)
+    q = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    if kind == "conv":
+        plan = qk.tile_plan("conv", 2, 40, 50, cin, cout, dil=3)
+        width, d = plan.halo_w, plan.d
+    else:
+        plan = qk.tile_plan("stem", 2, 40, 50, 1, cout, c0=cin, in_kind=qk.IN_F32_NORM)
+        width, d = plan.l0w, 1
+    nw = cin // 4
+    assert plan.nsteps == -(-9 * nw // 8) and plan.nw == nw
+    frags = qk.pack_fragments(q, plan)
+    assert frags.shape == (plan.nsteps, -(-cout // 8), 32, 2)
+    np.testing.assert_array_equal(_unpack(frags, plan, cin, cout), q)
+    # A and B name the same (tap, channel word) for every K word; paired
+    # words are adjacent, so one 8-byte load (8-byte aligned) fetches both
+    words = _k_words(nw)
+    for j in range(8 * plan.nsteps):
+        if j not in words:
+            assert plan.b_src[j] == -1 and plan.a_off[j] == 0
+            continue
+        tap, cw = words[j]
+        assert plan.b_src[j] == (tap * cin + 4 * cw) * cout
+        row = plan.row_words if kind == "conv" else width * nw
+        assert plan.a_off[j] == (tap // 3) * row + (tap % 3) * d * nw + cw
+        if nw % 2 == 0 and j % 8 < 4:
+            assert plan.a_off[j] % 2 == 0 and plan.a_off[j + 4] == plan.a_off[j] + 1
+
+
+def test_layer0_k_order_is_window_rows():
+    """Layer 0's K byte 4 ty + tx is window row ty, column tx: a lane's A word
+    is four bytes of one row, the fourth (and the fourth row) zero-weighted."""
+    plan = qk.tile_plan("stem", 1, 75, 101, 1, 24, c0=24, in_kind=qk.IN_U8_RAW)
+    assert plan.in_row % 4 == 0 and plan.in_row >= plan.inw
+    for k in range(16):
+        ty, tx = divmod(k, 4)
+        if ty < 3 and tx < 3:
+            assert plan.k0_src[k] == (3 * ty + tx) * 24 and plan.k0_off[k] == ty * plan.in_row + tx
+        else:
+            assert plan.k0_src[k] == -1
+    # the magic division the kernel uses for a layer-0 pixel's row
+    p = np.arange(plan.l0h * plan.l0w + 16)
+    np.testing.assert_array_equal((p * plan.l0w_magic) >> 20, p // plan.l0w)
+
+
+# --- a numpy walk of the plans, as the kernels walk them ---------------------
+
+_MAGIC = np.float32(12582912.0)
+
+
+def _fma32(a, b, c):
+    """fmaf: the exact f64 product plus c, rounded once to f32."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _acc_float(acc, wide=0):
+    """The kernels' (float)acc: the MMA's sum started at the bits of
+    1.5 * 2^23, read as a float, minus 1.5 * 2^23; with ``wide`` (the
+    plan's acc_wide) converted as an integer instead."""
+    if wide:
+        return acc.astype(np.float32)
+    return (acc.astype(np.int64) + 0x4B400000).astype(np.int32).view(np.float32) - _MAGIC
+
+
+def _round_int8(v):
+    """clamp to +-127, then v + 1.5 * 2^23 in f32: the low byte."""
+    v = np.minimum(np.maximum(v, np.float32(-127)), np.float32(127)).astype(np.float32)
+    return ((v + _MAGIC).view(np.int32) & 0xFF).astype(np.uint8).view(np.int8)
+
+
+def _requant(acc, ws, b, s, wide=0):
+    y = _fma32(_acc_float(acc, wide), ws, b)
+    return _round_int8(np.maximum(y, np.float32(0)) * s)
+
+
+def _bmatrix(frags, nsteps):
+    """The K x N matrix the MMA sees: (K word, byte, column)."""
+    nt = frags.shape[1]
+    m = np.zeros((8 * nsteps, 4, 8 * nt), np.int64)
+    raw = frags.view(np.uint32)
+    for s, n, lane, r in np.ndindex(raw.shape):
+        w = int(raw[s, n, lane, r])
+        m[8 * s + 4 * r + lane % 4, :, 8 * n + lane // 4] = [
+            np.int8(np.uint8((w >> (8 * k)) & 0xFF)) for k in range(4)]
+    return m
+
+
+def _row_map(plan):
+    """MMA row -> pixel of a 16-pixel run."""
+    if plan.row_step == 2:
+        return np.array([2 * g for g in range(8)] + [2 * g + 1 for g in range(8)])
+    return np.arange(16)
+
+
+def _runs_mma(words, bases, a_off, bmat):
+    """acc (16, N) of one run: A word j of row m is words[bases[m] + a_off[j]]."""
+    a = words[bases[:, None] + np.asarray(a_off[: bmat.shape[0]])[None, :]]
+    a = a.astype(np.int32).view(np.int8).reshape(len(bases), bmat.shape[0], 4).astype(np.int64)
+    return np.einsum("mjk,jkn->mn", a, bmat)
+
+
+def _emulate_conv(x, layer, s_out, dil, head=None, acc_wide=None):
+    """The conv kernels' walk in numpy; ``acc_wide`` overrides the plan's."""
+    B, H, W, cin = x.shape
+    q, ws, b = (layer[k].numpy() for k in ("q", "ws", "b"))
+    cout = q.shape[-1]
+    nh = 0 if head is None else head["q"].shape[-1]
+    plan = qk.tile_plan("conv", B, H, W, cin, cout, dil=dil, nh=nh)
+    wide = plan.acc_wide if acc_wide is None else acc_wide
+    bmat = _bmatrix(qk.pack_fragments(q, plan), plan.nsteps)
+    xw = np.ascontiguousarray(x.numpy()).view(np.int32)  # (B, H, W, nw) channel words
+    nw, hw, d = plan.nw, plan.halo_w, plan.d
+    out = np.zeros((B, H, W, nh or cout), np.float32 if nh else np.int8)
+    pixels = _row_map(plan)
+    s_o = s_out.numpy()
+    if nh:  # the head's B: word w of channel co, zero past cout/4 words and nh channels
+        qh = head["q"].numpy()[0, 0]
+        hb = np.zeros((8, 4, 8 * -(-nh // 8)), np.int64)
+        for w in range(cout // 4):
+            hb[w, :, :nh] = qh[4 * w : 4 * w + 4]
+    for tile in range(plan.n_tiles):
+        bi, r0, x0, ph = plan.decode(tile)
+        halo = np.zeros((plan.halo_h, hw, nw), np.int32)
+        for hr in range(plan.halo_h):
+            y = ph + d * (r0 + hr - 1)
+            if 0 <= y < H:
+                cols = x0 - d + np.arange(hw)
+                ok = (cols >= 0) & (cols < W)
+                halo[hr, ok] = xw[bi, y, cols[ok]]
+        rows = np.zeros((plan.halo_h, plan.row_words), np.int32)  # the kernels' row stride
+        rows[:, : hw * nw] = halo.reshape(plan.halo_h, -1)
+        flat = rows.reshape(-1)
+        for i in range(plan.th):
+            y = ph + d * (r0 + i)
+            for jx in range(0, plan.tw, 16):
+                xs = x0 + jx
+                if y >= H or xs >= W:
+                    continue
+                acc = _runs_mma(flat, i * plan.row_words + (jx + pixels) * nw, plan.a_off, bmat)[:, :cout]
+                q8 = _requant(acc, ws, b, s_o, wide)  # (16, cout), row m -> pixel rows[m]
+                stage = np.zeros((16, cout), np.int8)
+                stage[pixels] = q8
+                if nh:
+                    st_words = np.ascontiguousarray(stage).view(np.int32).reshape(-1)
+                    wsel = np.array([w if w < cout // 4 else 0 for w in range(8)])  # padding reads word 0
+                    hacc = _runs_mma(st_words, pixels * (cout // 4), wsel, hb)[:, :nh]
+                    res = np.zeros((16, nh), np.float32)
+                    res[pixels] = _fma32(_acc_float(hacc), head["ws"].numpy(), head["b"].numpy())
+                else:
+                    res = stage
+                n = min(16, W - xs)
+                out[bi, y, xs : xs + n] = res[:n]
+    return torch.from_numpy(out)
+
+
+def _emulate_stem(x, layer0, s1, layer1, s2, raw_gray, acc_wide=None):
+    """The stem kernel's walk in numpy; ``acc_wide`` overrides the plan's."""
+    x = x.numpy()
+    if x.ndim == 4:
+        x = x[..., 0]
+    B, H, W = x.shape
+    kind = qk.IN_U8_RAW if x.dtype == np.uint8 else (qk.IN_F32_RAW if raw_gray else qk.IN_F32_NORM)
+    q0, q1 = layer0["q"].numpy(), layer1["q"].numpy()
+    c0, c1 = q0.shape[-1], q1.shape[-1]
+    plan = qk.tile_plan("stem", B, H, W, 1, c1, c0=c0, in_kind=kind)
+    wide = plan.acc_wide if acc_wide is None else acc_wide
+    b1mat = _bmatrix(qk.pack_fragments(q1, plan), plan.nsteps)
+    b0mat = np.zeros((16, c0), np.int64)
+    for k in range(16):
+        if plan.k0_src[k] >= 0:
+            b0mat[k] = q0.reshape(-1)[plan.k0_src[k] : plan.k0_src[k] + c0]
+    xf = x.astype(np.float32)
+    if kind == qk.IN_F32_NORM:
+        v = xf * np.float32(127)
+    else:
+        v = _fma32(xf, np.float32(127 / 127.5), np.float32(-127))
+    xq = _round_int8(v)
+    out = np.zeros((B, plan.Ho, plan.Wo, c1), np.int8)
+    rows = _row_map(plan)
+    for tile in range(plan.n_tiles):
+        bi, Y1, X1, _ = plan.decode(tile)
+        R0, C0 = 2 * Y1 - plan.pt1, 2 * X1 - plan.pl1
+        IR, IC = 2 * R0 - plan.pt0, 2 * C0 - plan.pl0
+        # the quantized window at the kernels' row stride, and the word past it
+        win = np.zeros((plan.inh, plan.in_row), np.int64)
+        yy, xx = IR + np.arange(plan.inh), IC + np.arange(plan.inw)
+        oy, ox = (yy >= 0) & (yy < H), (xx >= 0) & (xx < W)
+        sub = np.zeros((plan.inh, plan.inw), np.int64)
+        sub[np.ix_(oy, ox)] = xq[bi][np.ix_(yy[oy], xx[ox])]
+        win[:, : plan.inw] = sub
+        win = np.concatenate([win.reshape(-1), np.zeros(4, np.int64)])
+        n0 = plan.l0h * plan.l0w
+        p = np.arange(n0)
+        r = (p * plan.l0w_magic) >> 20
+        c = p - r * plan.l0w
+        np.testing.assert_array_equal(r, p // plan.l0w)
+        a0 = win[(2 * r * plan.in_row + 2 * c)[:, None] + np.asarray(plan.k0_off)[None, :]]
+        l0 = _requant(a0 @ b0mat, layer0["ws"].numpy(), layer0["b"].numpy(), s1.numpy())
+        inside = (R0 + r >= 0) & (R0 + r < plan.H0) & (C0 + c >= 0) & (C0 + c < plan.W0)
+        l0[~inside] = 0
+        words = np.ascontiguousarray(l0).view(np.int32).reshape(-1)
+        for i in range(plan.th):
+            for jx in range(0, plan.tw, 16):
+                y, xs = Y1 + i, X1 + jx
+                if y >= plan.Ho or xs >= plan.Wo:
+                    continue
+                bases = (2 * i * plan.l0w + 2 * (jx + rows)) * plan.nw
+                acc = _runs_mma(words, bases, plan.a_off, b1mat)[:, :c1]
+                res = np.zeros((16, c1), np.int8)
+                res[rows] = _requant(acc, layer1["ws"].numpy(), layer1["b"].numpy(), s2.numpy(),
+                                     wide)
+                n = min(16, plan.Wo - xs)
+                out[bi, y, xs : xs + n] = res[:n]
+    return torch.from_numpy(out)
+
+
+def _layer(rng, ks, cin, cout, sat=False):
+    if sat:
+        q = np.full((ks, ks, cin, cout), 127, np.int8)
+    else:
+        q = rng.integers(-127, 128, (ks, ks, cin, cout)).astype(np.int8)
+    return {"q": torch.from_numpy(q),
+            "ws": torch.from_numpy(rng.uniform(1e-4, 2e-3, cout).astype(np.float32)),
+            "b": torch.from_numpy(rng.normal(0, 0.5, cout).astype(np.float32))}
+
+
+def _scale(rng, c):
+    return torch.from_numpy(rng.uniform(5, 60, c).astype(np.float32))
+
+
+# (B, H, W, Cin, Cout, dilation, head outputs or 0)
+CONV_CASES = {
+    "context-d1-ragged": (2, 33, 47, 24, 24, 1, 0),
+    "context-d16-qvga": (1, 12, 20, 24, 24, 16, 0),
+    "context-d4-odd": (2, 19, 26, 8, 8, 4, 0),
+    "widths-4-to-8": (1, 10, 30, 4, 8, 3, 0),
+    "widths-16-to-12": (1, 9, 17, 16, 12, 2, 0),
+    "head-17": (2, 16, 20, 24, 24, 1, 17),
+    "head-narrow-5": (1, 19, 26, 8, 8, 2, 5),
+    "head-32-d16": (1, 17, 18, 32, 32, 16, 32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv_plan_walk_equals_the_plain_version(case):
+    B, H, W, cin, cout, d, nh = CONV_CASES[case]
+    rng = np.random.default_rng(len(case) + cout)
+    x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
+    layer, s_out = _layer(rng, 3, cin, cout), _scale(rng, cout)
+    if nh:
+        head = _layer(rng, 1, cout, nh)
+        ref = qk.qconv_head(x, layer, s_out, d, head)  # CPU: the plain version
+        np.testing.assert_array_equal(ref.numpy(), qk.qconv_head_reference(x, layer, s_out, d, head).numpy())
+    else:
+        head, ref = None, qk.qconv(x, layer, s_out, d)
+    np.testing.assert_array_equal(_emulate_conv(x, layer, s_out, d, head).numpy(), ref.numpy())
+
+
+# (B, H, W, input kind, C0, C1)
+STEM_CASES = {
+    "u8-odd-75x101": (1, 75, 101, "u8", 24, 24),
+    "f32raw-odd-37x53": (2, 37, 53, "f32raw", 8, 8),
+    "norm-64x48": (1, 64, 48, "norm", 8, 12),
+    "widths-32": (1, 20, 30, "u8", 32, 32),
+    "widths-4": (1, 13, 9, "norm", 4, 4),
+}
+
+
+def _stem_input(rng, B, H, W, kind):
+    if kind == "u8":
+        return torch.from_numpy(rng.integers(0, 256, (B, H, W)).astype(np.uint8)), True
+    if kind == "f32raw":
+        return torch.from_numpy(rng.uniform(0, 255, (B, H, W)).astype(np.float32)), True
+    return torch.from_numpy(rng.uniform(-1.05, 1.05, (B, H, W, 1)).astype(np.float32)), False
+
+
+@pytest.mark.parametrize("case", sorted(STEM_CASES))
+def test_stem_plan_walk_equals_the_plain_version(case):
+    B, H, W, kind, c0, c1 = STEM_CASES[case]
+    rng = np.random.default_rng(len(case) + c0)
+    x, raw = _stem_input(rng, B, H, W, kind)
+    l0, l1 = _layer(rng, 3, 1, c0), _layer(rng, 3, c0, c1)
+    s1, s2 = _scale(rng, c0), _scale(rng, c1)
+    ref = qk.qstem(x, l0, s1, l1, s2, raw_gray=raw)  # CPU: the plain version
+    np.testing.assert_array_equal(ref.numpy(), qk.qstem_reference(x, l0, s1, l1, s2, raw).numpy())
+    np.testing.assert_array_equal(_emulate_stem(x, l0, s1, l1, s2, raw).numpy(), ref.numpy())
+
+
+def test_saturated_accumulators_round_exactly():
+    """|acc| = 9 * 24 * 127^2 = 3,483,864 through the biased accumulator
+    and the f32 epilogue: the walk equals the plain version."""
+    rng = np.random.default_rng(3)
+    x = np.full((2, 12, 12, 24), 127, np.int8)
+    x[1] = -127
+    layer = _layer(rng, 3, 24, 24, sat=True)
+    layer["ws"] = torch.full((24,), np.float32(40.0 / 3_483_864), dtype=torch.float32)
+    s_out = torch.full((24,), 1.0)
+    x = torch.from_numpy(x)
+    ref = qk.qconv(x, layer, s_out, 1)
+    assert int(ref[0, 5, 5, 0]) == int(np.round(40 + layer["b"][0].item()))
+    np.testing.assert_array_equal(_emulate_conv(x, layer, s_out, 1).numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("nw", range(1, 9))
+def test_conversion_free_epilogue_only_inside_its_window(nw):
+    """The epilogue reads an accumulator started at the bits of 1.5 * 2^23
+    as a float, exact only for -2^22 <= acc < 2^22.  Where a plan keeps that
+    read (acc_wide 0: up to 28 input channels) it is exact at the extremes
+    of any int8 inputs and weights; at 32 channels a saturated layer
+    (9 * 32 * 127^2 = 4,645,152) leaves the window, and the plan converts
+    (acc_wide 1)."""
+    plan = qk.tile_plan("conv", 1, 16, 16, 4 * nw, 8)
+    stem = qk.tile_plan("stem", 1, 64, 64, 1, 8, c0=4 * nw, in_kind=qk.IN_U8_RAW)
+    assert stem.acc_wide == plan.acc_wide == int(nw == 8)
+    k = 36 * nw  # int8 products an accumulator sums
+    extremes = np.array([k * 128 * 128, -k * 128 * 127, k * 127 * 127, -k * 127 * 127], np.int64)
+    magic_read_exact = _acc_float(extremes) == extremes.astype(np.float32)
+    if plan.acc_wide:
+        assert not magic_read_exact.any()
+    else:
+        assert magic_read_exact.all()
+    np.testing.assert_array_equal(_acc_float(extremes, wide=1), extremes.astype(np.float32))
+
+
+def _saturating_layer(cin, cout):
+    """Every weight +-127, the sign alternating by output channel, and ws of
+    the same sign mapping the full 3x3 accumulator 9 Cin 127^2 to 40: on
+    inputs of 127 every interior output is 40, with the accumulators of
+    both signs at their extremes."""
+    sign = np.where(np.arange(cout) % 2 == 0, 1, -1)
+    q = np.broadcast_to((127 * sign).astype(np.int8), (3, 3, cin, cout)).copy()
+    ws = (np.float32(40.0 / (9 * cin * 127**2)) * sign).astype(np.float32)
+    return {"q": torch.from_numpy(q), "ws": torch.from_numpy(ws), "b": torch.zeros(cout)}
+
+
+@pytest.mark.parametrize("kernel", ["qconv", "qconv_head", "qstem"])
+def test_saturated_wide_accumulators_round_exactly(kernel):
+    """32 input channels at saturation, |acc| = 4,645,152 past the
+    conversion-free window: the walk with the plan's conversion equals the
+    plain version (interior outputs 40), and the magic read alone would
+    not."""
+    rng = np.random.default_rng(9)
+    ones = torch.ones(32)
+    if kernel == "qstem":
+        x = torch.full((1, 44, 52), 255, dtype=torch.uint8)  # raw 255 quantizes to 127
+        l0 = {"q": torch.full((3, 3, 1, 32), 127, dtype=torch.int8),
+              "ws": torch.full((32,), np.float32(1 / 127)), "b": torch.zeros(32)}
+        args = (x, l0, ones, _saturating_layer(32, 32), ones, True)
+        ref = qk.qstem(*args)
+        walk = functools.partial(_emulate_stem, *args)
+    else:
+        x = torch.full((2, 12, 20, 32), 127, dtype=torch.int8)
+        x[1] = -127
+        layer = _saturating_layer(32, 32)
+        if kernel == "qconv":
+            ref, head = qk.qconv(x, layer, ones, 1), None
+        else:
+            head = _layer(rng, 1, 32, 17)
+            ref = qk.qconv_head(x, layer, ones, 1, head)
+            assert (qk.qconv_reference(x, layer, ones, 1, 1)[0, 1:-1, 1:-1] == 40).all()
+        walk = functools.partial(_emulate_conv, x, layer, ones, 1, head)
+    if kernel != "qconv_head":
+        assert (ref[0, 1:-1, 1:-1] == 40).all()
+    np.testing.assert_array_equal(walk().numpy(), ref.numpy())
+    assert not np.array_equal(walk(acc_wide=0).numpy(), ref.numpy())
+
+
+# --- the plain versions against the jitted JAX chains ------------------------
+
+
+def _jax_layer(layer):
+    return {k: jnp.asarray(v.numpy()) for k, v in layer.items()}
+
+
+@pytest.mark.parametrize("case", sorted(STEM_CASES))
+def test_qstem_plain_matches_jitted_jax_chain(case):
+    """qstem's plain version == _quantize_input -> _qconv (stride 2) x2."""
+    B, H, W, kind, c0, c1 = STEM_CASES[case]
+    rng = np.random.default_rng(len(case) + 5 * c1)
+    x, raw = _stem_input(rng, B, H, W, kind)
+    l0, l1 = _layer(rng, 3, 1, c0), _layer(rng, 3, c0, c1)
+    s1, s2 = _scale(rng, c0), _scale(rng, c1)
+    conv = jax.jit(jq._qconv, static_argnums=(3, 4))
+    jx = jax.jit(jq._quantize_input, static_argnums=1)(jnp.asarray(x.numpy(), jnp.float32), raw)
+    jx = conv(jx, _jax_layer(l0), jnp.asarray(s1.numpy()), (2, 2), (1, 1))
+    ref = np.asarray(conv(jx, _jax_layer(l1), jnp.asarray(s2.numpy()), (2, 2), (1, 1)))
+    out = qk.qstem(x, l0, s1, l1, s2, raw_gray=raw)
+    assert out.dtype == torch.int8 and out.shape == ref.shape
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("case", ["head-17", "head-narrow-5", "head-32-d16"])
+def test_qconv_head_plain_matches_jitted_jax_chain(case):
+    """qconv_head's plain version == _qconv (3x3, dilation d) -> _qconv (the
+    1x1 head, f32 logits)."""
+    B, H, W, cin, cout, d, nh = CONV_CASES[case]
+    rng = np.random.default_rng(len(case) + 3 * nh)
+    x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
+    layer, s_out, head = _layer(rng, 3, cin, cout), _scale(rng, cout), _layer(rng, 1, cout, nh)
+    conv = jax.jit(jq._qconv, static_argnums=(3, 4))
+    jx = conv(jnp.asarray(x.numpy()), _jax_layer(layer), jnp.asarray(s_out.numpy()), (1, 1), (d, d))
+    ref = np.asarray(conv(jx, _jax_layer(head), None, (1, 1), (1, 1)))
+    out = qk.qconv_head(x, layer, s_out, d, head)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_array_equal(out.numpy(), ref)

@@ -1,224 +1,345 @@
-// One layer of the int8 trunk: an int8 x int8 -> int32 convolution with its
-// dequant + bias (+ ReLU + requant) epilogue.
+// The int8 trunk's context layers on the tensor cores: one 3x3 stride-1
+// dilated int8 conv with its dequant + bias + ReLU + requant epilogue, and
+// (qconv_head) the last context layer with the 1x1 head fused in.
 //
-// Replaces no Pallas kernel: in the JAX package this layer is XLA's int8
-// conv, _qconv (ubdvss_tpu/ops/quant.py:276-292: lax.conv_general_dilated
+// Replaces no Pallas kernel: in the JAX package these layers are XLA's
+// int8 convs, _qconv (ubdvss_tpu/ops/quant.py:276-292: conv_general_dilated
 // with preferred_element_type=int32, then acc * ws + b, ReLU, round(y * s),
-// clip, int8), and for layer 0 also the input quantization _quantize_input
-// (:315-329).  PyTorch has no int8 convolution on CUDA.
-//
-// What it computes, per output pixel (one thread each), NHWC throughout:
-//   * acc[co] = sum over the 3x3 (or 1x1) taps and the input channels of
-//     x[int8] * q[int8], exact in int32; SAME padding as XLA computes it
-//     (the wrapper passes pad_top / pad_left), out-of-bounds taps skipped;
-//   * y = fmaf((float)acc, ws[co], b[co]) — ONE rounding, which is what
-//     XLA's CPU compiler makes of acc * ws + b under jit (a fused
-//     multiply-add); written out here, not left to nvcc's contraction;
-//   * logits (s_out null): y as f32; else
-//     int8(clamp(rintf(__fmul_rn(fmaxf(y, 0), s_out[co])), -127, 127)),
-//     rintf rounding half to even as jnp.round does.
-// Layer 0 (one input channel) reads the image itself and quantizes each
-// tap in registers by _quantize_input's recipe: raw grayscale [0, 255]
-// (uint8 or f32) as rintf(fmaf(x, 127/127.5, -127)), one rounding as under
-// jit, or a normalized f32 image as rintf(x * 127).
-//
-// Design (simple and exact): the layer's weights go to shared memory at
-// block start, packed there from the HWIO int8 kernel as 32-bit words of
-// four input channels ([tap][word][co], zeros past C_out), so a warp reads
-// each word as a broadcast and four output channels with one 16-byte load;
-// each input word meets them through __dp4a.  All C_out accumulators live
-// in registers (MAXC of 8, 16, 24 or 32).  Input channels must be a
-// multiple of 4 and at most 32; int8 outputs a multiple of 4.
+// clip, int8; the head returns acc * ws + b as f32), chained by
+// int8_trunk_apply (:295-312).  PyTorch has no int8 convolution on CUDA.
 //
 // Bound on this card: a context layer of the main path (B=64, 128x128, 24
-// channels) reads 25.2 MB of int8 and writes 25.2 MB: 15.0 us at 3.35 TB/s,
-// against 10.9 G int8 operations, 5.5 us at 1,979 TOPS dense — so the layer
-// is bound by bytes.  This design is not: it issues 1,296 dp4a a pixel
-// from one thread on the CUDA cores, so it is bound by dp4a issue (the
-// tensor cores' s8 mma.sync / wgmma are a later change).
-#include <cstdint>
-
-#include "common.cuh"
+// channels) reads 25.2 MB of int8 and writes 25.2 MB: 15.0 us at 3.35
+// TB/s, against 10.9 G int8 operations, 5.5 us at 1,979 TOPS — bytes.  The
+// fused launch reads 25.2 MB and writes 71.3 MB of f32 logits: 28.8 us.
+//
+// Design (the plan, ops/cuda/qconv_kernel.py tile_plan, fixes every index):
+//   * a tile is th phase rows x tw columns of one image: a dilated layer
+//     is split into d row phases, so a tile reads th + 2 halo rows whatever
+//     d is, and tw + 2d contiguous columns; the halo is staged into shared
+//     memory by 16-byte cp.async (8 or 4 where map rows are not whole
+//     16-byte chunks), zero outside the map (SAME padding: 3x3 stride 1
+//     pads d each side);
+//   * the blocks are persistent (as many as stay resident, three an SM at
+//     the main path's shapes): each packs the weights once and walks the
+//     tiles blockIdx, blockIdx + gridDim, ..., staging the next tile's halo
+//     into a second buffer while it computes the current one;
+//   * each warp takes 16-pixel runs of a tile row as the M of the s8
+//     mma.sync m16n8k32; N is the output channels (three n8 tiles for 24);
+//     K is (tap, 4-channel word), 9 taps x Cin/4 words padded with zero
+//     weights to whole k32 steps (seven for 24 channels).  An A register is
+//     one channel word of one pixel at one tap, read straight from the halo
+//     (no im2col; with an even number of words a lane's two words of a step
+//     are one 8-byte load); the B fragments are packed from the HWIO kernel
+//     into shared memory once a block; a warp runs two runs' MMAs
+//     interleaved, reading each B fragment once for both (qconv.cuh
+//     Conv3x3);
+//   * the epilogue (qconv.cuh) requantizes in registers, writes the run's
+//     int8 NHWC bytes into a per-warp staging buffer, and the warp stores
+//     them as one contiguous run, 16 bytes a lane;
+//   * qconv_head: the staged int8 run is the head's A operand (K = Cout
+//     padded to 32, N = the logits padded to n8 tiles); its f32 logits go
+//     through a second staging buffer to one contiguous store.
+// Input channels a multiple of 4 up to 32, int8 outputs a multiple of 4 up
+// to 32, logits up to 32.
+#include "qconv.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxWords = 8;  // input channels <= 32
-constexpr float kRawScale = static_cast<float>(127.0 / 127.5);
+using namespace qk;
 
-// what the layer reads: int8 NHWC activations, or the image of layer 0
-enum InKind { kInt8 = 0, kU8Raw = 1, kF32Raw = 2, kF32Norm = 3 };
-
-struct Geometry {
-  int B, H, W, Cin, Ho, Wo, Cout, stride, dil, pad_t, pad_l;
+struct Tile {
+  int b, ph, r0, x0;  // image, phase, first phase row, first column
 };
 
-__device__ __forceinline__ int pack4(const int8_t* p, int step) {
-  return static_cast<int>(static_cast<uint32_t>(static_cast<uint8_t>(p[0])) |
-                          static_cast<uint32_t>(static_cast<uint8_t>(p[step])) << 8 |
-                          static_cast<uint32_t>(static_cast<uint8_t>(p[2 * step])) << 16 |
-                          static_cast<uint32_t>(static_cast<uint8_t>(p[3 * step])) << 24);
+__device__ __forceinline__ Tile decode(const Plan& p, int tile) {
+  const int ct = tile % p.n_ct;
+  tile /= p.n_ct;
+  const int rt = tile % p.n_rt;
+  tile /= p.n_rt;
+  return {tile / p.phases, tile % p.phases, rt * p.th, ct * p.tw};
 }
 
-template <int IN>
-__device__ __forceinline__ int quantize_pixel(const void* x, long long i) {
-  float r;
-  if constexpr (IN == kF32Norm) {
-    r = rintf(__fmul_rn(static_cast<const float*>(x)[i], 127.f));
-  } else {
-    const float v = IN == kU8Raw ? static_cast<float>(static_cast<const uint8_t*>(x)[i])
-                                 : static_cast<const float*>(x)[i];
-    r = rintf(fmaf(v, kRawScale, -127.f));
-  }
-  return static_cast<int>(fminf(fmaxf(r, -127.f), 127.f));
+// Where a tile's halo starts in its buffer: with align16 (every map row a
+// whole number of 16-byte chunks) at the byte offset that matches the
+// source's address mod 16, so the rows copy as aligned 16-byte chunks.
+__device__ __forceinline__ int halo_shift(const int8_t* x, const Plan& p, const Tile& tl) {
+  const uintptr_t g = reinterpret_cast<uintptr_t>(x) +
+                      static_cast<uintptr_t>((static_cast<long long>(tl.x0) - p.d) * 4 * p.nw);
+  return p.align16 ? static_cast<int>(g & 15) : 0;
 }
 
-template <int MAXC, int KS, int IN>
-__global__ void __launch_bounds__(kThreads)
-qconv_kernel(const void* __restrict__ x, const int8_t* __restrict__ q,
-             const float* __restrict__ ws, const float* __restrict__ bias,
-             const float* __restrict__ s_out, void* __restrict__ out, Geometry g) {
-  constexpr int T = KS * KS;
-  __shared__ int4 s_w4[T * kMaxWords * MAXC / 4];
-  __shared__ float s_ws[MAXC], s_b[MAXC], s_so[MAXC];
-  int* s_w = reinterpret_cast<int*>(s_w4);
-  const int nw = IN == kInt8 ? g.Cin / 4 : 1;
-  // weights, HWIO int8 -> [tap][word][co] words (layer 0: [tap][co] ints)
-  for (int i = threadIdx.x; i < T * nw * MAXC; i += blockDim.x) {
-    const int o = i % MAXC;
-    const int tw = i / MAXC;
-    int v = 0;
-    if (o < g.Cout) {
-      if constexpr (IN == kInt8) {
-        const int t = tw / nw, w = tw % nw;
-        v = pack4(q + (t * g.Cin + 4 * w) * g.Cout + o, g.Cout);
-      } else {
-        v = q[tw * g.Cout + o];
-      }
-    }
-    s_w[i] = v;
-  }
-  for (int o = threadIdx.x; o < MAXC; o += blockDim.x) {
-    const bool in = o < g.Cout;
-    s_ws[o] = in ? ws[o] : 0.f;
-    s_b[o] = in ? bias[o] : 0.f;
-    s_so[o] = in && s_out != nullptr ? s_out[o] : 0.f;
-  }
-  __syncthreads();
-
-  const long long n = static_cast<long long>(g.B) * g.Ho * g.Wo;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int ox = static_cast<int>(idx % g.Wo);
-  const long long r = idx / g.Wo;
-  const int oy = static_cast<int>(r % g.Ho);
-  const int b = static_cast<int>(r / g.Ho);
-
-  int acc[MAXC];
+// Stage a tile's halo into buf: phase rows r0-1 .. r0+th, columns x0-d ..
+// x0+tw+d-1, a row every row_words words, halo byte q of a row at byte
+// halo_shift + q; by cp.async of 16 bytes (align16), else 8 (NW even: a
+// pixel is whole 8-byte chunks) or 4; zero outside the map (SAME padding).
+template <int NW>
+__device__ __forceinline__ void issue_halo(uint32_t* buf, const int8_t* x, const Plan& p,
+                                           const Tile& tl) {
+  constexpr int CB = 4 * NW;  // bytes a pixel
+  const int RB = 4 * p.row_words, span = p.halo_w * CB, sh = halo_shift(x, p, tl);
+  uint8_t* b8 = reinterpret_cast<uint8_t*>(buf);
+  for (int hr = 0; hr < p.halo_h; ++hr) {
+    const int y = tl.ph + p.d * (tl.r0 + hr - 1);
+    const bool in = y >= 0 && y < p.H;
+    const int lo = in ? max(0, p.d - tl.x0) * CB : span;  // the row's bytes in the map
+    const int hi = in ? min(p.halo_w, p.W - tl.x0 + p.d) * CB : span;
+    uint8_t* row = b8 + hr * RB;
+    const int8_t* src =
+        x + ((static_cast<long long>(tl.b) * p.H + (in ? y : 0)) * p.W + tl.x0 - p.d) * CB;
+    if (p.align16) {
+      for (int j = threadIdx.x; j < RB / 16; j += kThreads) {
+        const int q0 = 16 * j - sh;  // the halo byte at the chunk's start
+        if (q0 >= lo && q0 + 16 <= hi) {
+          cp_async16(row + 16 * j, src + q0);
+        } else if (q0 + 16 <= lo || q0 >= hi) {
+          *reinterpret_cast<int4*>(row + 16 * j) = make_int4(0, 0, 0, 0);
+        } else {
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) acc[c] = 0;
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const int iy = oy * g.stride - g.pad_t + (t / KS) * g.dil;
-    const int ix = ox * g.stride - g.pad_l + (t % KS) * g.dil;
-    if (iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) continue;
-    const long long pix = (static_cast<long long>(b) * g.H + iy) * g.W + ix;
-    if constexpr (IN == kInt8) {
-      const int* src = reinterpret_cast<const int*>(static_cast<const int8_t*>(x) + pix * g.Cin);
-      for (int w = 0; w < nw; ++w) {
-        const int xv = __ldg(src + w);
-        const int4* wp = s_w4 + (t * nw + w) * (MAXC / 4);
-#pragma unroll
-        for (int c4 = 0; c4 < MAXC / 4; ++c4) {
-          const int4 wv = wp[c4];
-          acc[4 * c4 + 0] = __dp4a(xv, wv.x, acc[4 * c4 + 0]);
-          acc[4 * c4 + 1] = __dp4a(xv, wv.y, acc[4 * c4 + 1]);
-          acc[4 * c4 + 2] = __dp4a(xv, wv.z, acc[4 * c4 + 2]);
-          acc[4 * c4 + 3] = __dp4a(xv, wv.w, acc[4 * c4 + 3]);
+          for (int w = 0; w < 4; ++w) {
+            const int q = q0 + 4 * w;
+            if (q >= lo && q < hi) {
+              cp_async4(row + 16 * j + 4 * w, src + q);
+            } else {
+              *reinterpret_cast<uint32_t*>(row + 16 * j + 4 * w) = 0;
+            }
+          }
         }
       }
     } else {
-      const int xq = quantize_pixel<IN>(x, pix);
-      const int4* wp = s_w4 + t * (MAXC / 4);
-#pragma unroll
-      for (int c4 = 0; c4 < MAXC / 4; ++c4) {
-        const int4 wv = wp[c4];
-        acc[4 * c4 + 0] += xq * wv.x;
-        acc[4 * c4 + 1] += xq * wv.y;
-        acc[4 * c4 + 2] += xq * wv.z;
-        acc[4 * c4 + 3] += xq * wv.w;
+      constexpr int C = NW % 2 == 0 ? 8 : 4;  // bytes a copy
+      for (int e = threadIdx.x; e < span / C; e += kThreads) {
+        const int q = C * e;
+        if (q >= lo && q < hi) {
+          if constexpr (C == 8) {
+            cp_async8(row + q, src + q);
+          } else {
+            cp_async4(row + q, src + q);
+          }
+        } else {
+          *reinterpret_cast<uint32_t*>(row + q) = 0;
+          if constexpr (C == 8) *reinterpret_cast<uint32_t*>(row + q + 4) = 0;
+        }
       }
     }
   }
+}
 
-  if (s_out == nullptr) {  // the head: f32 NHWC logits
-    float* o = static_cast<float*>(out) + idx * g.Cout;
+// One run's epilogue with the head: requantize, run the head on the staged
+// int8 run (K = cout channels padded to 32 with zero B words, N = 4 n8
+// tiles) and store its f32 logits, staged and contiguous.
+template <int NT, bool WIDE>
+__device__ __forceinline__ void finish_run(const int (&acc)[NT][4], const Plan& p, void* out,
+                                           long long pix, int nvalid, uint8_t* stage,
+                                           const float* s_vec, const int* s_wh, int p0, int p1,
+                                           int lane) {
+  const int t = lane & 3, cout = p.cout, nh = p.nh;
+  stage_int8<NT, WIDE>(stage, acc, cout, s_vec, p0, p1, t);
+  __syncwarp();
+  const int cw = cout / 4;
+  const uint32_t* h0 = reinterpret_cast<const uint32_t*>(stage + p0 * cout);
+  const uint32_t* h1 = reinterpret_cast<const uint32_t*>(stage + p1 * cout);
+  const int w0 = t < cw ? t : 0, w1 = 4 + t < cw ? 4 + t : 0;
+  const int a[4] = {static_cast<int>(h0[w0]), static_cast<int>(h1[w0]), static_cast<int>(h0[w1]),
+                    static_cast<int>(h1[w1])};
+  int hacc[4][4];
+  init_acc(hacc);
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < g.Cout) o[c] = fmaf(__int2float_rn(acc[c]), s_ws[c], s_b[c]);
+  for (int n = 0; n < 4; ++n) mma_k32(hacc[n], a, s_wh[n * 64 + lane], s_wh[n * 64 + 32 + lane]);
+  float* dst = static_cast<float*>(out) + pix * nh;
+  const int al = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  uint8_t* st8 = stage + ((16 * cout + 15) & ~15);
+  float* st = reinterpret_cast<float*>(st8 + al);
+  const float* hws = s_vec + 96;
+  const float* hb = s_vec + 128;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (c < nh) {
+      st[p0 * nh + c] = fmaf(acc_float<false>(hacc[n][0]), hws[c], hb[c]);
+      st[p1 * nh + c] = fmaf(acc_float<false>(hacc[n][2]), hws[c], hb[c]);
     }
-    return;
+    if (c + 1 < nh) {
+      st[p0 * nh + c + 1] = fmaf(acc_float<false>(hacc[n][1]), hws[c + 1], hb[c + 1]);
+      st[p1 * nh + c + 1] = fmaf(acc_float<false>(hacc[n][3]), hws[c + 1], hb[c + 1]);
+    }
   }
-  int* o = reinterpret_cast<int*>(static_cast<int8_t*>(out) + idx * g.Cout);
+  __syncwarp();
+  warp_store(st8 + al, reinterpret_cast<uint8_t*>(dst), nvalid * nh * 4, lane);
+  __syncwarp();
+}
+
+// The two runs m and m + kWarps of a tile: where their A operands start,
+// their first pixels, and whether each lies inside the map (a run index past
+// the tile is clamped to a valid one, computed but not stored).
+struct RunPair {
+  const uint32_t* a[2];
+  int y[2], x[2];
+  bool ok[2];
+};
+
+__device__ __forceinline__ RunPair run_pair(const Plan& p, const Tile& tl, const uint32_t* buf,
+                                            int m, int n_mt, int runs, int rw) {
+  RunPair r;
 #pragma unroll
-  for (int c4 = 0; c4 < MAXC / 4; ++c4) {
-    if (4 * c4 >= g.Cout) break;
-    uint32_t word = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 4 * c4 + j;
-      const float y = fmaf(__int2float_rn(acc[c]), s_ws[c], s_b[c]);
-      const float v = fminf(fmaxf(rintf(__fmul_rn(fmaxf(y, 0.f), s_so[c])), -127.f), 127.f);
-      word |= static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(v))) << (8 * j);
+  for (int h = 0; h < 2; ++h) {
+    const int mm = min(m + h * kWarps, n_mt - 1);
+    const int i = mm / runs, jx = (mm - i * runs) * 16;
+    r.y[h] = tl.ph + p.d * (tl.r0 + i);
+    r.x[h] = tl.x0 + jx;
+    r.ok[h] = m + h * kWarps < n_mt && r.y[h] < p.H && r.x[h] < p.W;
+    r.a[h] = buf + i * rw + jx * p.nw;
+  }
+  return r;
+}
+
+template <int NT, int NW>
+__global__ void __launch_bounds__(kThreads, 3)
+qconv_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
+                const float* __restrict__ ws, const float* __restrict__ bias,
+                const float* __restrict__ s_out, const int8_t* __restrict__ qh,
+                const float* __restrict__ wsh, const float* __restrict__ bh,
+                void* __restrict__ out, const __grid_constant__ Plan p) {
+  using Conv = Conv3x3<NT, NW, 1>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* s_w = reinterpret_cast<int*>(smem + p.off_w);
+  int* s_wh = reinterpret_cast<int*>(smem + p.off_w0);
+  float* s_vec = reinterpret_cast<float*>(smem + p.off_vec);
+  uint32_t* const halo = reinterpret_cast<uint32_t*>(smem + p.off_tile);  // two buffers
+  const int hbuf = p.tile_bytes / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cout = p.cout, nh = p.nh, rw = p.row_words;
+
+  // the first tile's halo, then the weights and vectors while it arrives;
+  // the weights are staged raw in the second halo buffer, then packed
+  int tile = blockIdx.x;
+  issue_halo<NW>(halo, x, p, decode(p, tile));
+  cp_async_commit();
+  int8_t* s_q = reinterpret_cast<int8_t*>(halo + hbuf);
+  const int qbytes = 9 * p.cin * cout;
+  copy_to_shared(s_q, q, qbytes);
+  if (nh > 0) copy_to_shared(s_q + ((qbytes + 15) & ~15), qh, cout * nh);
+  __syncthreads();
+  pack_fragments(s_w, s_q, p, NT, cout);
+  if (nh > 0) {
+    const int8_t* s_qh = s_q + ((qbytes + 15) & ~15);
+    for (int i = tid; i < 4 * 64; i += kThreads) {
+      const int ln = i & 31, w = 4 * ((i >> 5) & 1) + (ln & 3), co = 8 * (i >> 6) + (ln >> 2);
+      s_wh[i] = 4 * w < cout && co < nh ? pack4(s_qh + 4 * w * nh + co, nh) : 0;
     }
-    o[c4] = static_cast<int>(word);
+  }
+  if (tid < 32) {
+    s_vec[tid] = tid < cout ? ws[tid] : 0.f;
+    s_vec[32 + tid] = tid < cout ? bias[tid] : 0.f;
+    s_vec[64 + tid] = tid < cout ? s_out[tid] : 0.f;
+    s_vec[96 + tid] = tid < nh ? wsh[tid] : 0.f;
+    s_vec[128 + tid] = tid < nh ? bh[tid] : 0.f;
+  }
+  __syncthreads();
+  Conv conv;
+  conv.load(s_w, p, lane);
+  uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
+  const int runs = p.tw / 16, n_mt = p.th * runs;
+
+  for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
+    // the next tile's halo into the other buffer while this one is computed
+    const int next = tile + gridDim.x;
+    if (next < p.n_tiles) issue_halo<NW>(halo + ((k + 1) & 1) * hbuf, x, p, decode(p, next));
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const Tile tl = decode(p, tile);
+    const uint32_t* buf = halo + (k & 1) * hbuf + halo_shift(x, p, tl) / 4;
+    // two 16-pixel runs a warp at a time: m and m + kWarps
+    const long long row0 = static_cast<long long>(tl.b) * p.H;
+    for (int m = warp; m < n_mt; m += 2 * kWarps) {
+      const RunPair r = run_pair(p, tl, buf, m, n_mt, runs, rw);
+      if (!r.ok[0] && !r.ok[1]) continue;
+      int acc0[NT][4], acc1[NT][4];
+      init_acc(acc0);
+      init_acc(acc1);
+      conv.mma2(acc0, acc1, r.a[0], r.a[1]);
+      const long long pix0 = (row0 + r.y[0]) * p.W + r.x[0], pix1 = (row0 + r.y[1]) * p.W + r.x[1];
+      if (nh == 0) {  // both runs staged, then stored: one pair of warp barriers
+        uint8_t* d0 = static_cast<uint8_t*>(out) + pix0 * cout;
+        uint8_t* d1 = static_cast<uint8_t*>(out) + pix1 * cout;
+        uint8_t* st0 = stage + (reinterpret_cast<uintptr_t>(d0) & 15);
+        uint8_t* st1 = stage + p.stage_bytes / 2 + (reinterpret_cast<uintptr_t>(d1) & 15);
+        stage_int8<NT, Conv::WIDE>(st0, acc0, cout, s_vec, conv.p0, conv.p1, lane & 3);
+        stage_int8<NT, Conv::WIDE>(st1, acc1, cout, s_vec, conv.p0, conv.p1, lane & 3);
+        __syncwarp();
+        if (r.ok[0]) warp_store(st0, d0, min(16, p.W - r.x[0]) * cout, lane);
+        if (r.ok[1]) warp_store(st1, d1, min(16, p.W - r.x[1]) * cout, lane);
+        __syncwarp();
+        continue;
+      }
+      if (r.ok[0])
+        finish_run<NT, Conv::WIDE>(acc0, p, out, pix0, min(16, p.W - r.x[0]), stage, s_vec,
+                                   s_wh, conv.p0, conv.p1, lane);
+      if (r.ok[1])
+        finish_run<NT, Conv::WIDE>(acc1, p, out, pix1, min(16, p.W - r.x[1]), stage, s_vec,
+                                   s_wh, conv.p0, conv.p1, lane);
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 }
 
-template <int MAXC, int KS, int IN>
-void launch(const void* x, const int8_t* q, const float* ws, const float* b,
-            const float* s_out, void* out, const Geometry& g, cudaStream_t stream) {
-  const long long n = static_cast<long long>(g.B) * g.Ho * g.Wo;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  qconv_kernel<MAXC, KS, IN><<<blocks, kThreads, 0, stream>>>(x, q, ws, b, s_out, out, g);
-}
-
-template <int MAXC>
-int dispatch(int in_kind, int ks, const void* x, const int8_t* q, const float* ws,
-             const float* b, const float* s_out, void* out, const Geometry& g,
-             cudaStream_t s) {
-  if (in_kind == kInt8 && ks == 3) launch<MAXC, 3, kInt8>(x, q, ws, b, s_out, out, g, s);
-  else if (in_kind == kInt8 && ks == 1) launch<MAXC, 1, kInt8>(x, q, ws, b, s_out, out, g, s);
-  else if (in_kind == kU8Raw && ks == 3) launch<MAXC, 3, kU8Raw>(x, q, ws, b, s_out, out, g, s);
-  else if (in_kind == kF32Raw && ks == 3) launch<MAXC, 3, kF32Raw>(x, q, ws, b, s_out, out, g, s);
-  else if (in_kind == kF32Norm && ks == 3) launch<MAXC, 3, kF32Norm>(x, q, ws, b, s_out, out, g, s);
-  else return cudaErrorInvalidValue;
+template <int NT, int NW>
+int launch(const void* x, const void* q, const void* ws, const void* b, const void* s_out,
+           const void* qh, const void* wsh, const void* bh, void* out, const Plan& p,
+           cudaStream_t stream) {
+  using Conv = Conv3x3<NT, NW, 1>;
+  if (p.nsteps != Conv::KS || p.row_step != Conv::RS || p.acc_wide != Conv::WIDE)
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const int e = persistent_grid<qconv_tc_kernel<NT, NW>>(p.smem, p.n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  qconv_tc_kernel<NT, NW><<<grid, kThreads, p.smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(ws), static_cast<const float*>(b),
+      static_cast<const float*>(s_out), static_cast<const int8_t*>(qh),
+      static_cast<const float*>(wsh), static_cast<const float*>(bh), out, p);
   return launch_status();
+}
+
+template <int NT>
+int dispatch(int nw, const void* x, const void* q, const void* ws, const void* b,
+             const void* s_out, const void* qh, const void* wsh, const void* bh, void* out,
+             const Plan& p, cudaStream_t s) {
+  switch (nw) {
+    case 1: return launch<NT, 1>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 2: return launch<NT, 2>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 3: return launch<NT, 3>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 4: return launch<NT, 4>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 5: return launch<NT, 5>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 6: return launch<NT, 6>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 7: return launch<NT, 7>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    default: return launch<NT, 8>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+  }
 }
 
 }  // namespace
 
-// x: int8 (B, H, W, Cin) for in_kind 0; the (B, H, W) image of layer 0
-// (Cin = 1) for in_kind 1 (uint8 raw), 2 (f32 raw) or 3 (f32 normalized).
-// q: HWIO int8 (ks, ks, Cin, Cout); ws, b: f32 (Cout); s_out: f32 (Cout),
-// or null for f32 logits.  out: int8 or f32 (B, Ho, Wo, Cout).
-extern "C" int qconv_layer(const void* x, const void* q, const void* ws, const void* b,
-                           const void* s_out, void* out, int in_kind, int B, int H, int W,
-                           int Cin, int Ho, int Wo, int Cout, int ks, int stride, int dil,
-                           int pad_t, int pad_l, void* stream) {
-  const bool int8_in = in_kind == kInt8;
-  if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || Cout <= 0 || Cout > 32 ||
-      (int8_in ? (Cin % 4 != 0 || Cin <= 0 || Cin > 4 * kMaxWords) : Cin != 1) ||
-      (s_out != nullptr && Cout % 4 != 0))
+// x: int8 (B, H, W, Cin); q: HWIO int8 (3, 3, Cin, Cout); ws, b, s_out: f32
+// (Cout).  With qh (HWIO int8 (1, 1, Cout, O)), wsh, bh (f32 (O)): out is
+// f32 (B, H, W, O) logits; else int8 (B, H, W, Cout).  plan: the ints of
+// tile_plan("conv", ...), plan_ints of them.
+extern "C" int qconv_tc(const void* x, const void* q, const void* ws, const void* b,
+                        const void* s_out, const void* qh, const void* wsh, const void* bh,
+                        void* out, const int* plan, int plan_ints, void* stream) {
+  if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
+  Plan p;
+  memcpy(&p, plan, sizeof(Plan));
+  const int nt = (p.cout + 7) / 8;
+  if (p.n_tiles <= 0 || p.cin % 4 != 0 || p.cin <= 0 || p.cin > 32 || p.cout % 4 != 0 ||
+      p.cout <= 0 || p.cout > 32 || p.nh < 0 || p.nh > 32 || p.nw != p.cin / 4 || p.tw % 16 != 0 ||
+      (p.nh > 0) != (qh != nullptr))
     return cudaErrorInvalidValue;
-  const Geometry g{B, H, W, Cin, Ho, Wo, Cout, stride, dil, pad_t, pad_l};
   auto s = static_cast<cudaStream_t>(stream);
-  auto qq = static_cast<const int8_t*>(q);
-  auto fws = static_cast<const float*>(ws);
-  auto fb = static_cast<const float*>(b);
-  auto fso = static_cast<const float*>(s_out);
-  if (Cout <= 8) return dispatch<8>(in_kind, ks, x, qq, fws, fb, fso, out, g, s);
-  if (Cout <= 16) return dispatch<16>(in_kind, ks, x, qq, fws, fb, fso, out, g, s);
-  if (Cout <= 24) return dispatch<24>(in_kind, ks, x, qq, fws, fb, fso, out, g, s);
-  return dispatch<32>(in_kind, ks, x, qq, fws, fb, fso, out, g, s);
+  switch (nt) {
+    case 1: return dispatch<1>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 2: return dispatch<2>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 3: return dispatch<3>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    default: return dispatch<4>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+  }
 }

@@ -1,0 +1,326 @@
+// The int8 trunk's stem in one launch: the image quantized, layer 0 (3x3
+// stride 2, one input channel) and layer 1 (3x3 stride 2), each with its
+// dequant + bias + ReLU + requant epilogue; only layer 1's int8 map is
+// written.
+//
+// Replaces no Pallas kernel: in the JAX package these are _quantize_input
+// (ubdvss_tpu/ops/quant.py:315-329) and the first two _qconv calls of
+// int8_trunk_apply (:276-292, :307-309), which XLA compiles.
+//
+// Bound on this card: a B=64 512x512 uint8 batch reads 16.8 MB and writes
+// 25.2 MB of layer 1's int8 map: 12.5 us at 3.35 TB/s.  Layer 0's 100.7 MB
+// int8 map, which a layer-by-layer trunk writes and reads back, stays in
+// shared memory.  The work that remains is layer 0's 100.7 M requantized
+// outputs (the epilogue, about 8 f32 operations each).
+//
+// Design (ops/cuda/qconv_kernel.py tile_plan, kind "stem"):
+//   * persistent blocks walk th x tw tiles of layer 1's output, staging the
+//     next tile's raw input window by cp.async while they compute the
+//     current one; a tile quantizes its (4 th + 3) x (4 tw + 3) input
+//     window into shared memory once (raw
+//     grayscale as one fused rounding of x * 127/127.5 - 127, a normalized
+//     image as x * 127, both half to even; zero outside the image: SAME
+//     padding is int8 zero, whatever the input kind);
+//   * layer 0: the (2 th + 1) x (2 tw + 1) outputs layer 1 reads, 16
+//     pixels an s8 mma.sync m16n8k16 whose K is the 3x3 window as three
+//     rows of four bytes (the fourth byte and the fourth row carry zero
+//     weights), so an A register is one window row's four bytes, two
+//     aligned shared-memory words and a byte permute; they go to shared
+//     memory as int8 NHWC, zero where they fall outside layer 0's map,
+//     since layer 1's SAME padding pads layer 0's output;
+//   * layer 1: qconv_kernel.cu's m16n8k32 scheme (qconv.cuh Conv3x3) at
+//     stride 2 on that tile, two runs a warp at a time, then the staged
+//     contiguous store of each 16-pixel run.
+// Odd sizes pad as same_pad computes (the plan's pt0, pl0, pt1, pl1).
+#include "qconv.cuh"
+
+namespace {
+
+using namespace qk;
+
+// the value v of an image pixel, quantized to int8 (in the low byte)
+__device__ __forceinline__ uint32_t quantize_value(float v, int kind) {
+  v = kind == kF32Norm ? __fmul_rn(v, 127.f) : fmaf(v, kRawScale, -127.f);
+  v = fminf(fmaxf(v, -127.f), 127.f);
+  return static_cast<uint32_t>(__float_as_int(__fadd_rn(v, kMagic)));
+}
+
+struct StemTile {
+  int b, Y1, X1;  // image, layer 1's first row and column
+  int R0, C0;     // layer 0's tile origin
+  int IR, IC;     // the input window's origin
+};
+
+__device__ __forceinline__ StemTile decode(const Plan& p, int tile) {
+  const int ct = tile % p.n_ct;
+  tile /= p.n_ct;
+  const int rt = tile % p.n_rt, b = tile / p.n_rt;
+  const int Y1 = rt * p.th, X1 = ct * p.tw;
+  const int R0 = 2 * Y1 - p.pt1, C0 = 2 * X1 - p.pl1;
+  return {b, Y1, X1, R0, C0, 2 * R0 - p.pt0, 2 * C0 - p.pl0};
+}
+
+// The raw input window of a tile into buf by 16-byte cp.async, one warp a
+// row: the aligned 16-byte blocks that hold the row's pixels inside the
+// image (an aligned block lies in the page of the bytes it holds, so the
+// few bytes around the row are read but never used).  Pixels outside the
+// image are not read: the quantization writes 0 there.
+__device__ __forceinline__ void issue_window(uint8_t* buf, const void* x, const Plan& p,
+                                             const StemTile& st, int warp, int lane) {
+  const int xlo = max(st.IC, 0), xhi = min(st.IC + p.inw, p.W);
+  const int esz = p.in_kind == kU8Raw ? 1 : 4;
+  for (int r = warp; r < p.inh; r += kWarps) {
+    const int yy = st.IR + r;
+    if (yy < 0 || yy >= p.H || xhi <= xlo) continue;
+    const long long rb = (static_cast<long long>(st.b) * p.H + yy) * p.W;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(x) + (rb + xlo) * esz;
+    const uintptr_t a1 = reinterpret_cast<uintptr_t>(x) + (rb + xhi) * esz;
+    const uintptr_t base = a0 & ~static_cast<uintptr_t>(15);
+    const int blocks = static_cast<int>((a1 - base + 15) >> 4);
+    uint8_t* dst = buf + r * p.raw_row;
+    for (int e = lane; e < blocks; e += 32)
+      cp_async16(dst + 16 * e, reinterpret_cast<const void*>(base + 16 * e));
+  }
+}
+
+// The window quantized into s_in (inh rows of in_row int8), one warp a row,
+// four pixels a lane at a time (one 4-byte store); 0 outside the image
+// (SAME padding pads the quantized image with 0).
+__device__ __forceinline__ void quantize_window(uint8_t* s_in, const uint8_t* buf, const void* x,
+                                                const Plan& p, const StemTile& st, int warp,
+                                                int lane) {
+  const int xlo = max(st.IC, 0), xhi = min(st.IC + p.inw, p.W);
+  const bool u8 = p.in_kind == kU8Raw;
+  const int esz = u8 ? 1 : 4;
+  for (int r = warp; r < p.inh; r += kWarps) {
+    const int yy = st.IR + r;
+    const bool row_in = yy >= 0 && yy < p.H;
+    const long long rb = (static_cast<long long>(st.b) * p.H + (row_in ? yy : 0)) * p.W;
+    // the row's first pixel in the image sits at this byte of the row buffer
+    const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(x) + (rb + xlo) * esz) & 15);
+    const uint8_t* src = buf + r * p.raw_row + sh;
+    for (int c = 4 * lane; c < p.inw; c += 128) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int xx = st.IC + c + i;
+        if (row_in && xx >= xlo && xx < xhi) {
+          const float f = u8 ? __fsub_rn(__int_as_float(0x4B000000 | src[xx - xlo]), 8388608.f)
+                             : reinterpret_cast<const float*>(src)[xx - xlo];  // (float)u8 exactly
+          word |= (quantize_value(f, p.in_kind) & 0xFF) << (8 * i);
+        }
+      }
+      *reinterpret_cast<uint32_t*>(s_in + r * p.in_row + c) = word;
+    }
+  }
+}
+
+template <int NW1, int NT1>
+__global__ void __launch_bounds__(kThreads, 3)
+qstem_tc_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
+                const float* __restrict__ ws0, const float* __restrict__ b0,
+                const float* __restrict__ s1, const int8_t* __restrict__ q1,
+                const float* __restrict__ ws1, const float* __restrict__ b1,
+                const float* __restrict__ s2, int8_t* __restrict__ out,
+                const __grid_constant__ Plan p) {
+  constexpr int NT0 = (NW1 + 1) / 2;  // layer 0's n8 tiles: its c0 = 4 NW1 outputs
+  using Conv = Conv3x3<NT1, NW1, 2>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* s_w = reinterpret_cast<int*>(smem + p.off_w);
+  int* s_w0 = reinterpret_cast<int*>(smem + p.off_w0);
+  float* s_vec = reinterpret_cast<float*>(smem + p.off_vec);
+  uint8_t* s_in = smem + p.off_tile;
+  const uint32_t* s_in_w = reinterpret_cast<const uint32_t*>(s_in);
+  uint8_t* s_l0 = smem + p.off_l0;
+  uint8_t* const raw = smem + p.off_raw;  // two buffers of raw_bytes
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int c0 = 4 * NW1, c1 = p.cout, l0w = p.l0w;
+
+  // the first tile's window, then the weights and vectors while it arrives
+  int tile = blockIdx.x;
+  issue_window(raw, x, p, decode(p, tile), warp, lane);
+  cp_async_commit();
+  if (tid < NT0 * 32) {  // layer 0: word t of channel 8n + g holds window row t's taps
+    const int n = tid >> 5, co = 8 * n + (lane >> 2), tt = lane & 3;
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int src = p.k0_src[4 * tt + k];
+      if (src >= 0 && co < c0) w |= static_cast<uint32_t>(static_cast<uint8_t>(q0[src + co])) << (8 * k);
+    }
+    s_w0[tid] = static_cast<int>(w);
+  }
+  // layer 1's weights staged raw in the layer-0 tile (free until layer 0
+  // runs), then packed
+  copy_to_shared(reinterpret_cast<int8_t*>(s_l0), q1, 9 * c0 * c1);
+  __syncthreads();
+  pack_fragments(s_w, reinterpret_cast<const int8_t*>(s_l0), p, NT1, c1);
+  if (tid < 32) {
+    s_vec[tid] = tid < c0 ? ws0[tid] : 0.f;
+    s_vec[32 + tid] = tid < c0 ? b0[tid] : 0.f;
+    s_vec[64 + tid] = tid < c0 ? s1[tid] : 0.f;
+    s_vec[96 + tid] = tid < c1 ? ws1[tid] : 0.f;
+    s_vec[128 + tid] = tid < c1 ? b1[tid] : 0.f;
+    s_vec[160 + tid] = tid < c1 ? s2[tid] : 0.f;
+  }
+  __syncthreads();
+  int bw0[NT0];
+#pragma unroll
+  for (int n = 0; n < NT0; ++n) bw0[n] = s_w0[n * 32 + lane];
+  Conv conv;
+  conv.load(s_w, p, lane);
+  uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
+  const uint32_t* l0 = reinterpret_cast<const uint32_t*>(s_l0);
+  const int runs = p.tw / 16, n_mt = p.th * runs;
+  const int n0 = p.l0h * l0w, mts0 = (n0 + 15) / 16;
+  const int trow = p.k0_off[4 * t];  // lane t gathers window row t (t = 3: zero weights)
+
+  for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < p.n_tiles)
+      issue_window(raw + ((k + 1) & 1) * p.raw_bytes, x, p, decode(p, next), warp, lane);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const StemTile st = decode(p, tile);
+
+    // 1. the input window, quantized
+    quantize_window(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    __syncthreads();
+
+    // 2. layer 0 on the (2 th + 1) x (2 tw + 1) tile, into shared memory.
+    // K byte 4 ty + tx is window row ty, column tx of the 3x3 window (tx = 3
+    // and ty = 3 carry zero weights), so lane t's A word is four bytes of
+    // window row t: two aligned words and a byte permute.
+    for (int m = warp; m < mts0; m += kWarps) {
+      int pix[2], a[2];
+      bool ok[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pix[h] = m * 16 + g + 8 * h;
+        const bool in = pix[h] < n0;
+        const int r = (pix[h] * p.l0w_magic) >> 20, c = pix[h] - r * l0w;  // pix / l0w
+        ok[h] = in && st.R0 + r >= 0 && st.R0 + r < p.H0 && st.C0 + c >= 0 && st.C0 + c < p.W0;
+        const int byte = in ? 2 * r * p.in_row + trow + 2 * c : 0;
+        const uint32_t lo = s_in_w[byte >> 2], hi = s_in_w[(byte >> 2) + 1];
+        a[h] = t < 3 ? static_cast<int>((byte & 2) ? __byte_perm(lo, hi, 0x5432) : lo) : 0;
+      }
+      int acc[NT0][4];
+      init_acc(acc);
+#pragma unroll
+      for (int n = 0; n < NT0; ++n) mma_k16(acc[n], a[0], a[1], bw0[n]);
+#pragma unroll
+      for (int n = 0; n < NT0; ++n) {
+        const int c = 8 * n + 2 * t;
+        if (c >= c0) continue;
+        const float2 w = *reinterpret_cast<const float2*>(s_vec + c);
+        const float2 bb = *reinterpret_cast<const float2*>(s_vec + 32 + c);
+        const float2 sc = *reinterpret_cast<const float2*>(s_vec + 64 + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (pix[h] >= n0) continue;
+          const uint16_t v = ok[h] ? pack2(requant<false>(acc[n][2 * h], w.x, bb.x, sc.x),
+                                           requant<false>(acc[n][2 * h + 1], w.y, bb.y, sc.y))
+                                   : static_cast<uint16_t>(0);
+          *reinterpret_cast<uint16_t*>(s_l0 + pix[h] * c0 + c) = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. layer 1 from the tile, stride 2, two runs a warp at a time
+    for (int m = warp; m < n_mt; m += 2 * kWarps) {
+      int ys[2], xs[2];
+      bool ok[2];
+      const uint32_t* a[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int mm = min(m + h * kWarps, n_mt - 1);
+        const int i = mm / runs, jx = (mm - i * runs) * 16;
+        ys[h] = st.Y1 + i;
+        xs[h] = st.X1 + jx;
+        ok[h] = m + h * kWarps < n_mt && ys[h] < p.Ho && xs[h] < p.Wo;
+        a[h] = l0 + (2 * i * l0w + 2 * jx) * NW1;
+      }
+      if (!ok[0] && !ok[1]) continue;
+      int acc0[NT1][4], acc1[NT1][4];
+      init_acc(acc0);
+      init_acc(acc1);
+      conv.mma2(acc0, acc1, a[0], a[1]);
+      const long long row0 = static_cast<long long>(st.b) * p.Ho;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!ok[h]) continue;
+        uint8_t* dst = reinterpret_cast<uint8_t*>(out) + ((row0 + ys[h]) * p.Wo + xs[h]) * c1;
+        uint8_t* sg = stage + (reinterpret_cast<uintptr_t>(dst) & 15);
+        if (h == 0)
+          stage_int8<NT1, Conv::WIDE>(sg, acc0, c1, s_vec + 96, conv.p0, conv.p1, t);
+        else
+          stage_int8<NT1, Conv::WIDE>(sg, acc1, c1, s_vec + 96, conv.p0, conv.p1, t);
+        __syncwarp();
+        warp_store(sg, dst, min(16, p.Wo - xs[h]) * c1, lane);
+        __syncwarp();
+      }
+    }
+  }
+}
+
+template <int NW1, int NT1>
+int launch(const void* x, const void* q0, const void* ws0, const void* b0, const void* s1,
+           const void* q1, const void* ws1, const void* b1, const void* s2, void* out,
+           const Plan& p, cudaStream_t stream) {
+  using Conv = Conv3x3<NT1, NW1, 2>;
+  if (p.nsteps != Conv::KS || p.row_step != Conv::RS || p.acc_wide != Conv::WIDE)
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const int e = persistent_grid<qstem_tc_kernel<NW1, NT1>>(p.smem, p.n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  qstem_tc_kernel<NW1, NT1><<<grid, kThreads, p.smem, stream>>>(
+      x, static_cast<const int8_t*>(q0), static_cast<const float*>(ws0),
+      static_cast<const float*>(b0), static_cast<const float*>(s1),
+      static_cast<const int8_t*>(q1), static_cast<const float*>(ws1),
+      static_cast<const float*>(b1), static_cast<const float*>(s2), static_cast<int8_t*>(out), p);
+  return launch_status();
+}
+
+template <int NW1>
+int dispatch(int nt1, const void* x, const void* q0, const void* ws0, const void* b0,
+             const void* s1, const void* q1, const void* ws1, const void* b1, const void* s2,
+             void* out, const Plan& p, cudaStream_t s) {
+  switch (nt1) {
+    case 1: return launch<NW1, 1>(x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 2: return launch<NW1, 2>(x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 3: return launch<NW1, 3>(x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    default: return launch<NW1, 4>(x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+  }
+}
+
+}  // namespace
+
+// x: the (B, H, W) image, uint8 (in_kind 1) or f32 (2 raw, 3 normalized);
+// q0: HWIO int8 (3, 3, 1, C0), ws0, b0, s1: f32 (C0); q1: HWIO int8 (3, 3,
+// C0, C1), ws1, b1, s2: f32 (C1); out: int8 (B, Ho, Wo, C1).  plan: the ints
+// of tile_plan("stem", ...), plan_ints of them.
+extern "C" int qstem_tc(const void* x, const void* q0, const void* ws0, const void* b0,
+                        const void* s1, const void* q1, const void* ws1, const void* b1,
+                        const void* s2, void* out, const int* plan, int plan_ints, void* stream) {
+  if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
+  Plan p;
+  memcpy(&p, plan, sizeof(Plan));
+  if (p.n_tiles <= 0 || p.c0 % 4 != 0 || p.c0 <= 0 || p.c0 > 32 || p.cout % 4 != 0 ||
+      p.cout <= 0 || p.cout > 32 || p.tw % 16 != 0 || p.nsteps != p.c0 / 4 + 1 ||
+      p.in_kind < kU8Raw || p.in_kind > kF32Norm)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int nt1 = (p.cout + 7) / 8;
+  switch (p.c0 / 4) {
+    case 1: return dispatch<1>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 2: return dispatch<2>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 3: return dispatch<3>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 4: return dispatch<4>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 5: return dispatch<5>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 6: return dispatch<6>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    case 7: return dispatch<7>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+    default: return dispatch<8>(nt1, x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+  }
+}

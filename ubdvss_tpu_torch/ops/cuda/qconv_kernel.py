@@ -1,4 +1,5 @@
-"""One layer of the int8 trunk: plain version and CUDA kernel.
+"""The int8 trunk's convolutions: plain versions, the tile plan and the
+CUDA kernels.
 
 Counterpart of the JAX package's ``_qconv`` and ``_quantize_input``
 (``ubdvss_tpu/ops/quant.py:276-292``, :315-329), which XLA compiles: an
@@ -7,29 +8,53 @@ dilation d, or 1x1), then ``acc * ws + b``, and for every layer but the
 head ReLU and the requantization ``clip(round(y * s_out), -127, 127)`` to
 int8.  Layer 0 reads the image (one channel) and quantizes it on the fly.
 
+On the card the trunk is three kernels (``csrc/qstem_kernel.cu``,
+``csrc/qconv_kernel.cu``), each counting its launches:
+
+  * ``qstem`` — layers 0 and 1 in one launch: the image in, layer 1's
+    int8 map out; layer 0's outputs stay in shared memory;
+  * ``qconv`` — one 3x3 stride-1 dilated int8 layer on the tensor cores;
+  * ``qconv_head`` — the last context layer with the 1x1 head fused in,
+    f32 logits out.
+
+The calibration's bias correction reads each layer alone, with its f32
+pre-activation: ``qconv_layer`` (``csrc/qconv_layer_kernel.cu``, dp4a, one
+thread a pixel) runs any single layer, int8 or f32 out.
+
+Every index the kernels rely on — the tiles and their halos, the split of
+a dilated layer into row phases, the (tap, channel word) order of the
+MMA's K dimension with its zero padding, the shared-memory layout — comes
+from one function here, ``tile_plan``, which the wrappers pass to the
+kernels as a block of ints.  The CPU tests hold the plan's coverage and
+K order; the card tests hold the kernels against the plain versions.
+
 Rounding as the JAX package rounds under ``jit``, where XLA's CPU compiler
 fuses ``acc * ws + b`` (and the raw input's ``x * (127/127.5) - 127``)
 into one fused multiply-add:
 
-  * the card (``csrc/qconv_kernel.cu``) writes ``fmaf`` explicitly;
+  * the card writes ``fmaf`` explicitly;
   * the plain version (``qconv_reference``) takes the exact product in
     f64 and rounds the sum to f32 once.  f32(acc) and ``ws`` have 24
     significant bits each, so the product is exact in f64; the sum is
     exact while |b| and |acc * ws| lie within 2^29 of each other (or one
     is 0), which holds far beyond any layer's weights.
 
-``round`` is half to even everywhere (``torch.round``, ``rintf``,
-``jnp.round``).  The plain version's convolution runs in f64 on the int8
-values, where every partial sum is an integer below 2^53, so it is exact
-at any width, in any summation order (cuDNN is switched off for it on the
-card: its FFT and Winograd algorithms would not keep the sums exact).
+``round`` is half to even everywhere (``torch.round``, the kernels' add of
+1.5 * 2^23, ``jnp.round``).  The plain version's convolution runs in f64
+on the int8 values, where every partial sum is an integer below 2^53, so
+it is exact at any width, in any summation order (cuDNN is switched off
+for it on the card: its FFT and Winograd algorithms would not keep the
+sums exact).
 
 Layouts are the JAX package's: activations NHWC, kernels HWIO int8.  The
-kernel packs its weight words itself, so a layer's tensors go to it as
-they are.  ``qconv`` counts its launches in ``qconv.launches``.
+kernels pack their weight fragments themselves at block start, so a
+layer's tensors go to them as they are.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -37,9 +62,10 @@ import torch
 from ubdvss_tpu_torch.models.model import conv2d_same, same_pad
 from ubdvss_tpu_torch.ops.cuda import _build
 
-# the kernel's channel caps (csrc/qconv_kernel.cu): input channels a
-# multiple of 4 up to 32, outputs up to 32 (a multiple of 4 when int8)
+# the kernels' channel caps: input channels a multiple of 4 up to 32,
+# outputs up to 32 (a multiple of 4 when int8)
 MAX_CHANNELS = 32
+SHARED_MEMORY_LIMIT = 232_448  # bytes a block may use on the H100
 
 # the input quantization's constants as the JAX package rounds them to f32
 _RAW_SCALE = float(np.float32(127.0 / 127.5))
@@ -81,72 +107,475 @@ def qconv_reference(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-_FUNCS = {"qconv_layer": [_build.P] * 6 + [_build.I] * 13 + [_build.P]}
-_IN_INT8, _IN_U8_RAW, _IN_F32_RAW, _IN_F32_NORM = range(4)
+def qstem_reference(x, layer0, s1, layer1, s2, raw_gray=False) -> torch.Tensor:
+    """Plain version of ``qstem``: layer 0 on the image, then layer 1."""
+    return qconv_reference(qconv_reference(x, layer0, s1, 2, 1, raw_gray), layer1, s2, 2, 1)
 
 
-def qconv(
-    x: torch.Tensor, layer: dict, s_out: torch.Tensor | None, stride: int, dil: int,
-    raw_gray: bool = False,
-) -> torch.Tensor:
-    """One layer of the int8 trunk (see ``qconv_reference``).
+def qconv_head_reference(x, layer, s_out, dil, head) -> torch.Tensor:
+    """Plain version of ``qconv_head``: the 3x3 layer, then the 1x1 head."""
+    return qconv_reference(qconv_reference(x, layer, s_out, 1, dil), head, None, 1, 1)
 
-    ``x``: int8 NHWC activations; or, for layer 0, the image — raw
-    grayscale (B, H, W) uint8 or f32 with ``raw_gray``, else normalized f32
-    (B, H, W[, 1]).  ``layer``: {q: HWIO int8 (k, k, Cin, Cout), ws, b: f32
-    (Cout,)}.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises.
-    """
-    if x.device.type == "cpu":
-        return qconv_reference(x, layer, s_out, stride, dil, raw_gray)
-    dev = x.device
-    q, ws, b = layer["q"], layer["ws"], layer["b"]
-    _build.check_input(q, "q", torch.int8, 4, dev)
-    ks, _, Cin, Cout = q.shape
-    if x.dtype == torch.int8:
-        _build.check_input(x, "x", torch.int8, 4)
-        kind = _IN_INT8
-        if x.shape[-1] != Cin:
-            raise ValueError(f"x has {x.shape[-1]} channels, the kernel {Cin}")
+
+# ---------------------------------------------------------------------------
+# The tile plan
+# ---------------------------------------------------------------------------
+
+THREADS = 256  # a block: eight warps
+WARPS = THREADS // 32
+MAX_K_WORDS = 72  # 9 taps x 8 channel words (32 channels) = nine k32 steps
+_MAX_TH, _MAX_TW = 8, 128  # qconv's output tile: 8 phase rows x up to 128 columns
+_MIN_BLOCKS = 2 * 132  # smaller tiles below this many tiles (132 SMs)
+_SMEM_TARGET = 75 * 1024  # a conv block's shared memory: three blocks an SM
+
+# the order of the ints the kernels read (struct Plan in csrc/qconv.cuh)
+PLAN_FIELDS = (
+    "B", "H", "W", "Ho", "Wo", "cin", "cout", "nh",
+    "d", "phases", "th", "tw", "n_rt", "n_ct", "halo_h", "halo_w",
+    "nw", "nsteps", "row_step", "n_tiles",
+    "smem", "off_w", "off_w0", "off_vec", "off_stage", "stage_bytes", "off_tile", "tile_bytes",
+    "off_l0", "off_raw", "raw_bytes", "raw_row", "row_words", "align16",
+    "H0", "W0", "pt0", "pl0", "pt1", "pl1", "l0h", "l0w", "inh", "inw", "c0", "in_kind",
+    "in_row", "l0w_magic", "acc_wide",
+)
+IN_U8_RAW, IN_F32_RAW, IN_F32_NORM = 1, 2, 3
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _row_step(nw: int, stride: int) -> int:
+    """How the 16 rows of an MMA tile map to its 16 pixels: rows g and g+8
+    take pixels g and g+8 (1), or 2g and 2g+1 (2), whichever spreads a
+    step's A loads over more shared-memory banks (``csrc/qconv.cuh``
+    ``Conv3x3::RS``, which must agree).  With nw even a lane loads 8 bytes
+    (two paired words) a row; with nw odd 4 bytes, and a pixel stride of 4
+    mod 8 words starts the eight pixels of a row group on eight distinct
+    4-bank groups."""
+    if nw % 2 == 0:
+        return 2 if stride == 2 and (2 * nw) % 8 == 4 else 1
+    ws = nw * stride
+    return 2 if ws % 8 != 4 and (2 * ws) % 8 == 4 else 1
+
+
+def _acc_wide(nw: int) -> int:
+    """1 when a 3x3 layer of ``nw`` input channel words may leave the
+    epilogue's conversion-free window (``csrc/qconv.cuh``: the accumulator
+    started at the bits of 1.5 * 2^23 reads as that float plus acc only
+    while -2^22 <= acc < 2^22).  Its K is 36 nw int8 products: up to 252
+    (28 channels) |acc| <= 252 * 128^2 = 4,128,768 stays inside; at 32
+    channels 9 * 32 * 127^2 = 4,645,152 does not, and the kernel converts
+    with the instruction (``Conv3x3::WIDE``, which must agree)."""
+    return int(36 * nw * 128 * 128 >= 1 << 22)
+
+
+def _k_order(nw: int, cin: int, cout: int, word_offset) -> tuple[list, list, int]:
+    """The MMA's K dimension as (tap, channel word) pairs, padded with zero
+    weights to a whole number of 32-byte k steps.  K word j = 8 s + 4 r + t
+    of step s is what lane t holds in register r of the A (and B) fragment.
+
+      * nw even: the words are paired so that a lane's two words of a step
+        are one 8-byte load: pair q = 4 s + t is tap q // (nw/2), channel
+        words 2 (q % (nw/2)) + r, r = 0, 1;
+      * nw odd: K word j < 9 nw is tap j // nw, channel word j % nw.
+
+    Taps are row-major in the 3x3 window.  Returns, for each of the
+    ``MAX_K_WORDS`` words, the shared-memory word offset of its A operand
+    from a pixel's first tap (``word_offset(ty, tx, cw)``; 0 for padding,
+    whose B words are zero) and the HWIO byte index of its B word's first
+    channel at output 0 (-1 for padding), and the number of k steps."""
+    nsteps = -(-9 * nw // 8)
+    a_off, b_src = [0] * MAX_K_WORDS, [-1] * MAX_K_WORDS
+    if nw % 2 == 0:
+        words = []
+        for q in range(9 * nw // 2):
+            s, t = divmod(q, 4)
+            tap, cp = divmod(q, nw // 2)
+            words += [(8 * s + 4 * r + t, tap, 2 * cp + r) for r in (0, 1)]
     else:
-        if x.ndim == 4 and x.shape[-1] == 1:
-            x = x[..., 0]
-        if x.dtype == torch.uint8 and not raw_gray:
-            raise ValueError("a uint8 image is raw grayscale: pass raw_gray=True")
-        _build.check_input(x, "x", x.dtype if x.dtype == torch.uint8 else torch.float32, 3)
-        kind = _IN_U8_RAW if x.dtype == torch.uint8 else (_IN_F32_RAW if raw_gray else _IN_F32_NORM)
-        if Cin != 1:
-            raise ValueError(f"an image has one channel, the kernel {Cin}")
-    if ks != q.shape[1] or ks not in (1, 3) or (kind != _IN_INT8 and ks != 3):
-        raise ValueError(f"kernel {tuple(q.shape)}: expected 3x3 (1x1 on int8 input)")
-    vecs = (("ws", ws), ("b", b)) + ((("s_out", s_out),) if s_out is not None else ())
-    for name, t in vecs:
-        _build.check_input(t, name, torch.float32, 1, dev)
-        if t.shape[0] != Cout:
-            raise ValueError(f"{name}: expected ({Cout},), got {tuple(t.shape)}")
-    if (kind == _IN_INT8 and (Cin % 4 or Cin > MAX_CHANNELS)) or Cout > MAX_CHANNELS or (
-        s_out is not None and Cout % 4
-    ):
+        words = [(j, *divmod(j, nw)) for j in range(9 * nw)]
+    for j, tap, cw in words:
+        a_off[j] = word_offset(tap // 3, tap % 3, cw)
+        b_src[j] = (tap * cin + 4 * cw) * cout
+    return a_off, b_src, nsteps
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """What a kernel launch reads: ``fields`` (``PLAN_FIELDS``) and the K
+    order.  ``kind`` is "conv" (``qconv``, ``qconv_head``) or "stem"."""
+
+    kind: str
+    fields: dict
+    a_off: tuple
+    b_src: tuple
+    k0_off: tuple
+    k0_src: tuple
+
+    def __getattr__(self, name):
+        try:
+            return self.__dict__["fields"][name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    @functools.cached_property
+    def ints(self) -> np.ndarray:
+        """The ints in the kernels' order (built once a plan)."""
+        return np.array([self.fields[f] for f in PLAN_FIELDS] + list(self.a_off)
+                        + list(self.b_src) + list(self.k0_off) + list(self.k0_src), np.int32)
+
+    def decode(self, tile: int) -> tuple:
+        """Tile ``tile`` as the kernels decode it: (image, tile row origin,
+        column origin, phase)."""
+        f = self.fields
+        ct, r = tile % f["n_ct"], tile // f["n_ct"]
+        rt, r = r % f["n_rt"], r // f["n_rt"]
+        ph, b = r % f["phases"], r // f["phases"]
+        return b, rt * f["th"], ct * f["tw"], ph
+
+    def tile_outputs(self, tile: int) -> tuple[int, np.ndarray, np.ndarray]:
+        """(image, rows, columns) of the output pixels tile ``tile`` writes:
+        the tile's rows (phase rows for a dilated conv) by its columns,
+        those past the map left out, as the kernels mask them."""
+        f = self.fields
+        b, r0, x0, ph = self.decode(tile)
+        rows = ph + f["d"] * (r0 + np.arange(f["th"]))
+        cols = x0 + np.arange(f["tw"])
+        return b, rows[rows < f["Ho"]], cols[cols < f["Wo"]]
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: int = 1,
+              c0: int = 0, nh: int = 0, in_kind: int = 0) -> TilePlan:
+    """The launch plan of one kernel call (cached: a serving loop asks for
+    the same few shapes, and building a plan takes tens of microseconds of
+    host time).
+
+    ``kind="conv"``: a 3x3 stride-1 int8 layer with dilation ``dil`` on a
+    (B, H, W, cin) map to ``cout`` int8 channels, with a 1x1 head to ``nh``
+    f32 logits when ``nh`` > 0.  A dilated layer is split into ``d`` row
+    phases (rows y = phase + d k): within a phase a tap's row offset is one
+    phase row, so a tile of ``th`` phase rows reads ``th + 2`` halo rows at
+    every dilation.  Columns stay contiguous (``tw`` wide, a multiple of
+    16, with ``d`` halo columns each side), so a tile row is one contiguous
+    run of NHWC bytes in and out.  Each warp takes 16-pixel runs of a tile
+    row as the M of its MMA tiles.  A block is resident for the whole
+    launch: it packs the weights once and walks the tiles blockIdx,
+    blockIdx + gridDim, ..., staging the next tile's halo by cp.async into
+    a second buffer while it computes the current one.
+
+    ``kind="stem"``: layers 0 and 1 on a (B, H, W) image (``in_kind``:
+    uint8 raw, f32 raw or f32 normalized) to ``c0`` and then ``cout``
+    channels.  A block owns a ``th`` x ``tw`` tile of layer 1's output; it
+    quantizes the (4 th + 3) x (4 tw + 3) input window into shared memory
+    once, computes the (2 th + 1) x (2 tw + 1) layer-0 outputs layer 1
+    reads (zero where they fall outside layer 0's map: layer 1's SAME
+    padding), and convolves them.  The next tile's raw window (the image's
+    bytes or floats) is staged by cp.async into a second buffer meanwhile;
+    a uint8 row is copied as the aligned 4-byte words that hold it.
+    """
+    f = dict.fromkeys(PLAN_FIELDS, 0)
+    f.update(B=B, H=H, W=W, cin=cin, cout=cout, nh=nh, in_kind=in_kind, d=dil)
+    nt = -(-cout // 8)
+    vec = 6 * 32 * 4  # ws, b, s_out and the next three per-channel vectors
+    k0_off, k0_src = [0] * 16, [-1] * 16
+    if kind == "conv":
+        nw = cin // 4
+        Ho, Wo = H, W
+        phases = min(dil, H)
+        R = -(-H // dil)  # rows of the longest phase
+        n_ct = -(-W // _MAX_TW)
+        tw = _r16(-(-W // n_ct))
+        # a warp's staging: two int8 runs, or one int8 run and its logits
+        stage = _r16(16 * cout) + (_r16(64 * nh + 16) if nh else _r16(16 * cout) + 32)
+        fixed = (_r16(-(-9 * nw // 8) * nt * 256) + (4 * 256 if nh else 0) + _r16(vec)
+                 + WARPS * stage)
+        # the tile's rows: three blocks an SM, enough tiles for the card,
+        # and the phase's rows split evenly
+        th = min(_MAX_TH, R)
+        while th > 2 and fixed + 2 * (th + 2) * _r16((tw + 2 * dil) * cin + 15) > _SMEM_TARGET:
+            th -= 1
+        while th > 2 and B * phases * -(-R // th) * n_ct < _MIN_BLOCKS:
+            th = -(-th // 2)
+        th = -(-R // -(-R // th))
+        halo_h, halo_w = th + 2, tw + 2 * dil
+        # a halo row in shared memory: whole 16-byte chunks, room for the
+        # shift that matches the source's alignment (align16: every map row
+        # is whole 16-byte chunks, so one shift serves the tile's rows)
+        row_words = _r16(halo_w * cin + 15) // 4
+        a_off, b_src, nsteps = _k_order(nw, cin, cout,
+                                        lambda ty, tx, cw: ty * row_words + tx * dil * nw + cw)
+        f.update(phases=phases, n_rt=-(-R // th), n_ct=n_ct, halo_h=halo_h, halo_w=halo_w,
+                 row_step=_row_step(nw, 1), row_words=row_words, align16=int(W * cin % 16 == 0),
+                 acc_wide=_acc_wide(nw))
+        # a halo buffer; the second also stages the raw weights at block start
+        w0_bytes = 4 * 64 * 4 if nh else 0
+        tile = max(halo_h * row_words * 4, _r16(9 * cin * cout) + _r16(cout * nh))
+        tiles, l0_bytes, raw_row, raw = 2 * tile, 0, 0, 0
+    elif kind == "stem":
+        H0, W0 = -(-H // 2), -(-W // 2)
+        Ho, Wo = -(-H0 // 2), -(-W0 // 2)
+        nw = c0 // 4
+        # a 16- or 32-wide tile, whichever leaves fewer masked columns
+        tw = min((16, 32), key=lambda t: (-(-Wo // t) * t, -t))
+        th = min(_MAX_TH, Ho)
+        while th > 2 and B * -(-Ho // th) * -(-Wo // tw) < _MIN_BLOCKS:
+            th = -(-th // 2)
+        l0h, l0w = 2 * th + 1, 2 * tw + 1
+        inh, inw = 2 * l0h + 1, 2 * l0w + 1
+        in_row = -(-inw // 4) * 4  # the quantized window's row stride, whole words
+        a_off, b_src, nsteps = _k_order(nw, c0, cout,
+                                        lambda ty, tx, cw: (ty * l0w + tx) * nw + cw)
+        # layer 0's K: byte 4 ty + tx is window row ty, column tx; column 3
+        # and row 3 have zero weights, so a lane's A word is one row's bytes
+        for ty in range(3):
+            for tx in range(4):
+                k0_off[4 * ty + tx] = ty * in_row + tx
+                k0_src[4 * ty + tx] = (3 * ty + tx) * c0 if tx < 3 else -1
+        stage = _r16(16 * cout) + 16
+        f.update(H0=H0, W0=W0, pt0=same_pad(H, 3, 2)[0], pl0=same_pad(W, 3, 2)[0],
+                 pt1=same_pad(H0, 3, 2)[0], pl1=same_pad(W0, 3, 2)[0], l0h=l0h, l0w=l0w,
+                 inh=inh, inw=inw, c0=c0, phases=1, n_rt=-(-Ho // th), n_ct=-(-Wo // tw),
+                 row_step=_row_step(nw, 2), in_row=in_row, acc_wide=_acc_wide(nw),
+                 l0w_magic=-(-(1 << 20) // l0w))  # pix // l0w == pix * magic >> 20
+        # the window, and one word past it that a gather's second load may touch
+        w0_bytes, tile = -(-c0 // 8) * 32 * 4, _r16(inh * in_row + 4)
+        # the layer-0 tile also stages layer 1's raw weights at block start
+        tiles, l0_bytes = tile, max(l0h * l0w * c0, 9 * c0 * cout)
+        # a raw window row: the aligned 16-byte blocks holding inw pixels
+        raw_row = _r16((1 if in_kind == IN_U8_RAW else 4) * inw + 15)
+        raw = _r16(inh * raw_row)
+    else:
+        raise ValueError(f"unknown plan kind {kind!r}")
+    # shared memory, each region 16-byte aligned
+    off = 0
+    regions = {}
+    for name, size in (("off_w", nsteps * nt * 64 * 4), ("off_w0", w0_bytes), ("off_vec", vec),
+                       ("off_stage", WARPS * stage), ("off_tile", tiles), ("off_l0", l0_bytes),
+                       ("off_raw", 2 * raw)):
+        regions[name] = off
+        off += _r16(size)
+    f.update(regions, Ho=Ho, Wo=Wo, th=th, tw=tw, nw=nw, nsteps=nsteps, stage_bytes=stage,
+             tile_bytes=tile, raw_bytes=raw, raw_row=raw_row, smem=off)
+    f["n_tiles"] = B * f["phases"] * f["n_rt"] * f["n_ct"]
+    return TilePlan(kind, f, tuple(a_off), tuple(b_src), tuple(k0_off), tuple(k0_src))
+
+
+def pack_fragments(q: np.ndarray, plan: TilePlan) -> np.ndarray:
+    """The B fragments a kernel packs at block start from the HWIO int8
+    kernel ``q`` (3, 3, Cin, Cout) of a plan's 3x3 int8-input layer, as
+    (k step, n tile, lane, register) int32 words: lane (g, t) = (lane // 4,
+    lane % 4) holds K words 8 step + 4 register + t of output channel
+    8 n + g, four input channels a word, the lowest channel in the lowest
+    byte; zero past Cout and in the padding."""
+    cout = q.shape[-1]
+    flat = q.reshape(-1).view(np.uint8).astype(np.uint32)
+    nt = -(-cout // 8)
+    out = np.zeros((plan.nsteps, nt, 32, 2), np.uint32)
+    for s, n, lane, r in np.ndindex(out.shape):
+        j, co = 8 * s + 4 * r + lane % 4, 8 * n + lane // 4
+        src = plan.b_src[j]
+        if src >= 0 and co < cout:
+            idx = src + co + cout * np.arange(4)
+            out[s, n, lane, r] = np.bitwise_or.reduce(flat[idx] << (8 * np.arange(4, dtype=np.uint32)))
+    return out.view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------------
+
+_PLAN = _build.P  # a host pointer to the plan's int32s
+_FUNCS_CONV = {"qconv_tc": [_build.P] * 9 + [_PLAN, _build.I, _build.P],
+               "qconv_plan_ints": []}
+_FUNCS_STEM = {"qstem_tc": [_build.P] * 10 + [_PLAN, _build.I, _build.P],
+               "qconv_plan_ints": []}
+
+
+def _check_layer(layer: dict, name: str, dev, ks: int, cin: int | None = None) -> tuple[int, int]:
+    q = layer["q"]
+    _build.check_input(q, f"{name}.q", torch.int8, 4, dev)
+    if tuple(q.shape[:2]) != (ks, ks) or (cin is not None and q.shape[2] != cin):
+        raise ValueError(f"{name}: kernel {tuple(q.shape)}, expected ({ks}, {ks}, {cin}, Cout)")
+    cout = q.shape[3]
+    for key in ("ws", "b"):
+        _build.check_input(layer[key], f"{name}.{key}", torch.float32, 1, dev)
+        if layer[key].shape[0] != cout:
+            raise ValueError(f"{name}.{key}: expected ({cout},), got {tuple(layer[key].shape)}")
+    return q.shape[2], cout
+
+
+def _check_scale(s: torch.Tensor, name: str, cout: int, dev) -> None:
+    _build.check_input(s, name, torch.float32, 1, dev)
+    if s.shape[0] != cout:
+        raise ValueError(f"{name}: expected ({cout},), got {tuple(s.shape)}")
+
+
+def _caps(cin: int | None, couts_int8=(), couts_f32=()) -> None:
+    if (cin is not None and (cin % 4 or cin > MAX_CHANNELS)) or any(
+            c % 4 or c > MAX_CHANNELS for c in couts_int8) or any(
+            c > MAX_CHANNELS for c in couts_f32):
         raise NotImplementedError(
-            f"Cin={Cin}, Cout={Cout}: the int8 conv kernel takes input channels a multiple "
-            f"of 4 up to {MAX_CHANNELS} and at most {MAX_CHANNELS} outputs, a multiple of 4 "
-            "when they are int8 (ROADMAP.md §2a)"
+            f"Cin={cin}, int8 outputs {list(couts_int8)}, f32 outputs {list(couts_f32)}: the "
+            f"int8 conv kernels take input channels a multiple of 4 up to {MAX_CHANNELS} and at "
+            f"most {MAX_CHANNELS} outputs, a multiple of 4 when they are int8 (ROADMAP.md §2a)"
         )
+
+
+_PLAN_CHECKED: set = set()  # libraries whose struct Plan matches PLAN_FIELDS
+
+
+def _launch(lib_name: str, funcs: dict, fn: str, dev, plan: TilePlan, *ptrs) -> None:
+    lib = _build.load(lib_name, funcs)
+    arr = plan.ints
+    if lib_name not in _PLAN_CHECKED:
+        if lib.qconv_plan_ints() != arr.size:
+            raise RuntimeError(f"{lib_name}: the kernel reads {lib.qconv_plan_ints()} plan ints, "
+                               f"the plan has {arr.size}")
+        _PLAN_CHECKED.add(lib_name)
+    if plan.smem > SHARED_MEMORY_LIMIT:
+        raise NotImplementedError(f"{fn}: {plan.smem} B of shared memory a block (ROADMAP.md §2a)")
+    _build.launch(lib, fn, dev, *ptrs, arr.ctypes.data, arr.size)
+
+
+def qconv(x: torch.Tensor, layer: dict, s_out: torch.Tensor, dil: int) -> torch.Tensor:
+    """One context layer of the int8 trunk: int8 (B, H, W, Cin) -> the 3x3
+    stride-1 ``layer`` with dilation ``dil`` ({q: HWIO int8 (3, 3, Cin,
+    Cout), ws, b: f32 (Cout,)}), requantized by ``s_out`` -> int8 (B, H, W,
+    Cout), on the tensor cores.  A CPU tensor takes ``qconv_reference``."""
+    if x.device.type == "cpu":
+        return qconv_reference(x, layer, s_out, 1, dil)
+    dev = x.device
+    _build.check_input(x, "x", torch.int8, 4)
+    cin, cout = _check_layer(layer, "layer", dev, 3, x.shape[-1])
+    _caps(cin, (cout,))
+    _check_scale(s_out, "s_out", cout, dev)
     B, H, W = x.shape[:3]
-    ph = same_pad(H, ks, stride, dil)
-    pw = same_pad(W, ks, stride, dil)
-    Ho, Wo = -(-H // stride), -(-W // stride)  # SAME
-    out = torch.empty(
-        (B, Ho, Wo, Cout), dtype=torch.float32 if s_out is None else torch.int8, device=dev
-    )
-    lib = _build.load("qconv_kernel", _FUNCS)
-    _build.launch(
-        lib, "qconv_layer", dev, x.data_ptr(), q.data_ptr(), ws.data_ptr(), b.data_ptr(),
-        None if s_out is None else s_out.data_ptr(), out.data_ptr(), kind, B, H, W, Cin,
-        Ho, Wo, Cout, ks, stride, dil, ph[0], pw[0],
-    )
+    plan = tile_plan("conv", B, H, W, cin, cout, dil=dil)
+    out = torch.empty((B, H, W, cout), dtype=torch.int8, device=dev)
+    _launch("qconv_kernel", _FUNCS_CONV, "qconv_tc", dev, plan, x.data_ptr(), layer["q"].data_ptr(),
+            layer["ws"].data_ptr(), layer["b"].data_ptr(), s_out.data_ptr(), None, None, None,
+            out.data_ptr())
     qconv.launches += 1
     return out
 
 
 qconv.launches = 0
+
+
+def qconv_head(x: torch.Tensor, layer: dict, s_out: torch.Tensor, dil: int,
+               head: dict) -> torch.Tensor:
+    """The last context layer and the head in one launch: int8 (B, H, W,
+    Cin) -> the 3x3 stride-1 layer with dilation ``dil``, requantized by
+    ``s_out`` -> the 1x1 ``head`` -> f32 logits (B, H, W, O).  The
+    requantized tile is the head's A operand in shared memory and never
+    reaches device memory.  A CPU tensor takes ``qconv_head_reference``."""
+    if x.device.type == "cpu":
+        return qconv_head_reference(x, layer, s_out, dil, head)
+    dev = x.device
+    _build.check_input(x, "x", torch.int8, 4)
+    cin, cout = _check_layer(layer, "layer", dev, 3, x.shape[-1])
+    c_h, nh = _check_layer(head, "head", dev, 1, cout)
+    _caps(cin, (cout,), (nh,))
+    _check_scale(s_out, "s_out", cout, dev)
+    B, H, W = x.shape[:3]
+    plan = tile_plan("conv", B, H, W, cin, cout, dil=dil, nh=nh)
+    out = torch.empty((B, H, W, nh), dtype=torch.float32, device=dev)
+    _launch("qconv_kernel", _FUNCS_CONV, "qconv_tc", dev, plan, x.data_ptr(), layer["q"].data_ptr(),
+            layer["ws"].data_ptr(), layer["b"].data_ptr(), s_out.data_ptr(), head["q"].data_ptr(),
+            head["ws"].data_ptr(), head["b"].data_ptr(), out.data_ptr())
+    qconv_head.launches += 1
+    return out
+
+
+qconv_head.launches = 0
+
+
+def qstem(x: torch.Tensor, layer0: dict, s1: torch.Tensor, layer1: dict, s2: torch.Tensor,
+          raw_gray: bool = False) -> torch.Tensor:
+    """Layers 0 and 1 of the int8 trunk in one launch: the image — raw
+    grayscale (B, H, W) uint8 or f32 with ``raw_gray``, else normalized f32
+    (B, H, W[, 1]) — quantized, layer 0 (3x3 stride 2, requantized by
+    ``s1``), layer 1 (3x3 stride 2, by ``s2``) -> int8 (B, H/4, W/4, C1).
+    Layer 0's map never reaches device memory.  A CPU tensor takes
+    ``qstem_reference``."""
+    if x.device.type == "cpu":
+        return qstem_reference(x, layer0, s1, layer1, s2, raw_gray)
+    dev = x.device
+    if x.ndim == 4 and x.shape[-1] == 1:
+        x = x[..., 0]
+    if x.dtype == torch.uint8 and not raw_gray:
+        raise ValueError("a uint8 image is raw grayscale: pass raw_gray=True")
+    _build.check_input(x, "x", x.dtype if x.dtype == torch.uint8 else torch.float32, 3)
+    _, c0 = _check_layer(layer0, "layer0", dev, 3, 1)
+    _, c1 = _check_layer(layer1, "layer1", dev, 3, c0)
+    _caps(None, (c0, c1))
+    _check_scale(s1, "s1", c0, dev)
+    _check_scale(s2, "s2", c1, dev)
+    kind = IN_U8_RAW if x.dtype == torch.uint8 else (IN_F32_RAW if raw_gray else IN_F32_NORM)
+    B, H, W = x.shape
+    plan = tile_plan("stem", B, H, W, 1, c1, c0=c0, in_kind=kind)
+    out = torch.empty((B, plan.Ho, plan.Wo, c1), dtype=torch.int8, device=dev)
+    _launch("qstem_kernel", _FUNCS_STEM, "qstem_tc", dev, plan, x.data_ptr(),
+            layer0["q"].data_ptr(), layer0["ws"].data_ptr(), layer0["b"].data_ptr(), s1.data_ptr(),
+            layer1["q"].data_ptr(), layer1["ws"].data_ptr(), layer1["b"].data_ptr(), s2.data_ptr(),
+            out.data_ptr())
+    qstem.launches += 1
+    return out
+
+
+qstem.launches = 0
+
+
+_FUNCS_LAYER = {"qconv_layer": [_build.P] * 6 + [_build.I] * 13 + [_build.P]}
+_LAYER_INT8, _LAYER_F32_NORM = 0, 1
+
+
+def qconv_layer(x: torch.Tensor, layer: dict, s_out: torch.Tensor | None, stride: int,
+                dil: int) -> torch.Tensor:
+    """One layer of the int8 trunk alone, any of its kinds, as the bias
+    correction walks them: ``x`` int8 NHWC activations, or for layer 0 the
+    normalized f32 image (B, H, W[, 1]); a 3x3 kernel with ``stride`` and
+    ``dil``, or the 1x1 head; int8 out requantized by ``s_out``, or with
+    ``s_out`` None the f32 pre-activation ``acc * ws + b`` (see
+    ``qconv_reference``).  A CUDA tensor launches ``csrc/qconv_layer_kernel.cu``
+    (dp4a); a CPU tensor takes ``qconv_reference``."""
+    if x.device.type == "cpu":
+        return qconv_reference(x, layer, s_out, stride, dil)
+    dev = x.device
+    _build.check_input(layer["q"], "layer.q", torch.int8, 4, dev)
+    ks, _, cin, cout = layer["q"].shape
+    if x.dtype == torch.int8:
+        _build.check_input(x, "x", torch.int8, 4)
+        kind = _LAYER_INT8
+    else:
+        if x.ndim == 4 and x.shape[-1] == 1:
+            x = x[..., 0]
+        _build.check_input(x, "x", torch.float32, 3)
+        kind = _LAYER_F32_NORM
+        if ks != 3:
+            raise ValueError(f"layer 0 is 3x3, got a kernel {tuple(layer['q'].shape)}")
+    if ks not in (1, 3):
+        raise ValueError(f"kernel {tuple(layer['q'].shape)}: expected 3x3 or 1x1")
+    _check_layer(layer, "layer", dev, ks, x.shape[-1] if kind == _LAYER_INT8 else 1)
+    _caps(cin if kind == _LAYER_INT8 else None,
+          *(((cout,), ()) if s_out is not None else ((), (cout,))))
+    if s_out is not None:
+        _check_scale(s_out, "s_out", cout, dev)
+    B, H, W = x.shape[:3]
+    ph, pw = same_pad(H, ks, stride, dil), same_pad(W, ks, stride, dil)
+    Ho, Wo = -(-H // stride), -(-W // stride)  # SAME
+    out = torch.empty((B, Ho, Wo, cout), device=dev,
+                      dtype=torch.float32 if s_out is None else torch.int8)
+    lib = _build.load("qconv_layer_kernel", _FUNCS_LAYER)
+    _build.launch(
+        lib, "qconv_layer", dev, x.data_ptr(), layer["q"].data_ptr(), layer["ws"].data_ptr(),
+        layer["b"].data_ptr(), None if s_out is None else s_out.data_ptr(), out.data_ptr(), kind,
+        B, H, W, cin, Ho, Wo, cout, ks, stride, dil, ph[0], pw[0],
+    )
+    qconv_layer.launches += 1
+    return out
+
+
+qconv_layer.launches = 0

@@ -5,17 +5,21 @@ the FCN forward, symmetric int8 with per-output-channel weight scales and
 per-channel activation scales from absmax calibration, the input scales
 folded into each next kernel.  Every layer — the two stride-2 stem convs,
 the context convs (each separable layer as its rank-1 dense kernel, or a
-dense checkpoint's own kernel) and the 1x1 head — runs ``qconv``: int8 x
-int8 -> int32, then dequant + bias + ReLU + requant to int8 (the head
-returns f32 logits).  On the card ``qconv`` is the hand-written kernel of
-``ops/cuda/qconv_kernel.py``; on the CPU its plain version.
+dense checkpoint's own kernel) and the 1x1 head — is an int8 x int8 ->
+int32 conv, then dequant + bias + ReLU + requant to int8 (the head returns
+f32 logits).  ``int8_trunk_apply`` runs them as ``qstem`` (layers 0 and
+1), ``qconv`` (the context layers but the last) and ``qconv_head`` (the
+last with the head): on the card the hand-written kernels of
+``ops/cuda/qconv_kernel.py``, on the CPU their plain versions.
 
 The calibration side (``trunk_intermediates``, ``_trunk_pre_relu``) runs
 f32 convolutions with TF32 off (``exact_f32``), as the JAX package runs
-them at ``Precision.HIGHEST``.  Rounding follows the JAX package under
-``jit``: ``acc * ws + b`` is one fused multiply-add (``qconv_kernel``'s
-docstring), and so is ``normalize``'s ``x * (1/127.5) - 1`` on the int8
-route (``normalize_fma``).
+them at ``Precision.HIGHEST``; the bias correction reads every layer's
+pre-activation output, so it runs each layer alone through ``qconv_layer``
+(on the card its dp4a kernel, on the CPU the plain version).  Rounding follows the JAX
+package under ``jit``: ``acc * ws + b`` is one fused multiply-add
+(``qconv_kernel``'s docstring), and so is ``normalize``'s
+``x * (1/127.5) - 1`` on the int8 route (``normalize_fma``).
 
 The qparams keep the JAX pytree's structure as torch tensors:
 ``{"layers": [{"q": HWIO int8, "ws": f32 (Co,), "b": f32 (Co,)}, ...],
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from ubdvss_tpu_torch.models.model import conv2d_same, exact_f32
-from ubdvss_tpu_torch.ops.cuda.qconv_kernel import qconv
+from ubdvss_tpu_torch.ops.cuda.qconv_kernel import qconv, qconv_head, qconv_layer, qstem
 
 _NORM_SCALE = float(np.float32(1.0 / 127.5))
 
@@ -189,12 +193,12 @@ def bias_correct_qparams(qparams: dict, params: dict, cfg, calib_images: torch.T
     layers = []
     for i, (st, dil) in enumerate(_conv_specs(cfg)):
         L = qparams["layers"][i]
-        y = qconv(qx, L, None, st, dil)  # acc * ws + b, one rounding
+        y = qconv_layer(qx, L, None, st, dil)  # acc * ws + b, one rounding
         layer = dict(q=L["q"], ws=L["ws"], b=L["b"] + torch.mean(pre[i] - y, dim=(0, 1, 2)))
         layers.append(layer)
-        qx = qconv(qx, layer, s[i + 1], st, dil)  # requant with the corrected bias
+        qx = qconv_layer(qx, layer, s[i + 1], st, dil)  # requant with the corrected bias
     H = qparams["head"]
-    y = qconv(qx, H, None, 1, 1)
+    y = qconv_layer(qx, H, None, 1, 1)
     head = dict(q=H["q"], ws=H["ws"], b=H["b"] + torch.mean(pre[-1] - y, dim=(0, 1, 2)))
     return {"layers": layers, "head": head, "s_in": s}
 
@@ -219,12 +223,13 @@ def int8_trunk_apply(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False
 
     x: normalized (B, H, W, 1) f32 in [-1, 1], or with ``raw_gray`` raw
     [0, 255] grayscale (B, H, W), uint8 or f32 — the normalize folds into
-    the input quantization of layer 0.  Ten ``qconv`` launches on the card
-    (two stem layers, the context layers, the head)."""
+    the input quantization of layer 0.  On the card 1 + len(dilations)
+    launches: ``qstem`` (layers 0 and 1), ``qconv`` for each context layer
+    but the last, ``qconv_head`` for the last with the head."""
     s = qparams["s_in"]
     L = qparams["layers"]
-    qx = qconv(x, L[0], s[1], 2, 1, raw_gray=raw_gray)
-    qx = qconv(qx, L[1], s[2], 2, 1)
-    for li, d in enumerate(cfg.dilations):
-        qx = qconv(qx, L[2 + li], s[3 + li], 1, d)
-    return qconv(qx, qparams["head"], None, 1, 1)
+    n = len(cfg.dilations)
+    qx = qstem(x, L[0], s[1], L[1], s[2], raw_gray=raw_gray)
+    for li, d in enumerate(cfg.dilations[:-1]):
+        qx = qconv(qx, L[2 + li], s[3 + li], d)
+    return qconv_head(qx, L[1 + n], s[2 + n], cfg.dilations[-1], qparams["head"])

@@ -29,7 +29,16 @@ them.  Phases, each of which raises on failure:
      outputs and areas identical, means within 2e-6 of the plain one-hot
      sums taken in f64, two launches bit for bit; the compacted rect at
      H=512 and 1024 (M=64) and the uncompacted one at the three detect
-     sizes' heatmaps;
+     sizes' heatmaps; then the tall pages' kernels: the uncompacted rect
+     on synthetic extremes (K=16, B=1 and 3) with a rotated bar over every
+     row (a long staircase) at H=1088, at its one-block cap
+     (rect_kernel.MAX_EXACT_HEIGHT, 1994, which the library's
+     rect_exact_max_height() must equal) and, in its tall instance, at
+     2048 and 4096, rows within 1e-4 of the plain version; the large fused
+     compat geometry (geometry_compat_large) on the 2048² scans' 512² maps,
+     the 4096² scan's 1024² map (f32 and bf16) and the adversarial maps at
+     512² (4- and 8-connected), K=64, all eight outputs bit for bit equal
+     to the device-memory CCL then the tiled slots kernel;
   3. the paths, each driven with every launch counter set to 0 just before
      and read just after:
      a. the main path: assets/pretrained_synthetic.npz through
@@ -74,6 +83,15 @@ them.  Phases, each of which raises on failure:
         CCL and the tiled slots kernel exactly where the map exceeds one
         block's shared memory (256x256); equal to the plain route on the
         host CPU;
+     g'. tall pages past the fused route's heatmap limit: a synthetic A4
+        page at 600 dpi (7016x4960 uint8, a 1754x1240 heatmap) and an
+        8192x1024 page (a 2048-row heatmap) with the asset's config and
+        max_image_side raised to keep their resolution, through
+        detect_program_batch and BarcodeDetector.detect: context, the
+        device-memory CCL, the tiled slots kernel and the uncompacted rect
+        launched, the compacted rect not; detections equal to
+        detect_program on the host CPU (boxes within 2e-3 px: an f32 ulp
+        is 4.9e-4 px past 4096 px);
      h. the bf16 main path (the JAX bench's default mode): the main path
         with NetConfig(dtype="bfloat16") and the weights cast to bf16 (as
         bench.py:290-291): the bf16 stem and dense-equivalent context convs
@@ -90,6 +108,11 @@ them.  Phases, each of which raises on failure:
      j. bf16 large scans: the scans of e in bf16: the bf16 device-memory
         CCL and tiled slots kernels launched; the first 2 scans equal to
         the bf16 route on the host CPU;
+     j'. the compat route on the large scans: the scans of e and the scan
+        of f with UBDVSS_PALLAS_COMPAT=1, in f32 and bf16: the large fused
+        compat geometry launched once a call, the device-memory CCL and
+        the tiled slots kernel not; detections identical to the default
+        route's on the card;
      k. BarcodeDetector.detect in bf16 (BarcodeFCN's bf16 logits are f32,
         so the f32 CCL, slots and uncompacted rect run) at 512x512 and
         640x480, and the QVGA stream in bf16 (the bf16 CCL and slots), each
@@ -151,7 +174,13 @@ them.  Phases, each of which raises on failure:
      only, a channels-last bf16 F.conv2d a layer of the same shapes; and
      the bias correction's qconv_layer launches over the calibration
      images, together, beside the same bounds, their plain versions and
-     one f32 F.conv2d a launch.
+     one f32 F.conv2d a launch; the uncompacted rect on the A4 page's and
+     the 8192x1024 page's extremes (rect_exact_h1754, rect_exact_h2048)
+     and the large fused compat geometry on the scans' maps, f32 and bf16,
+     each with its row; the uncompacted rect on the kernel checks'
+     synthetic extremes at each tall height (B=1 and 3); one A4-page
+     detect call and one compat batch of the 2048² scans: wall time,
+     device time and busy share.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -184,6 +213,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 on the CUDA cores (no tensor cores)
 INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 N_CALIB, CALIB_SEED = 32, 99  # the int8 calibration pool (bench.py:296-301)
+A4_PAGE = (7016, 4960)  # an A4 page at 600 dpi: a 1754x1240 heatmap
+TALL_PAGE = (8192, 1024)  # a 2048-row heatmap, past the one-block K3x's cap
 ITERS, REPS, WARMUP = 10, 10, 2
 
 
@@ -294,7 +325,69 @@ def exact_directions(minx, maxx) -> np.ndarray:
     return out
 
 
+def synthetic_extremes(B, K, H, seed):
+    """(B, K, H) int32 extremes without a CCL: slot 0 a bar 5 px wide at a
+    golden-ratio slope over every row (a digital line whose chains are long
+    staircases, more rounds than the kernels' lockstep runs), then upright
+    bars, slanted bars, rotated rectangles, rows of noise, a single row, a
+    single point and empty slots (tests/test_torch_cuda_kernels.py's)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    y = np.arange(H)
+    mn = np.full((B, K, H), 1 << 30, np.int64)
+    mx = np.full((B, K, H), -1, np.int64)
+    for b in range(B):
+        s = 0.6180339887 * (1 if b % 2 == 0 else -1) / (1 + b)
+        left = np.floor(10 + (H * abs(s) if s < 0 else 0) + s * y).astype(np.int64)
+        mn[b, 0], mx[b, 0] = left, left + 5
+        for k in range(1, K):
+            kind = (k + b) % 7
+            y0 = int(rng.integers(0, max(1, H // 4)))
+            y1 = H - int(rng.integers(0, max(1, H // 4)))
+            rows = (y >= y0) & (y < y1)
+            if kind == 0:  # upright bar
+                x0 = int(rng.integers(0, 200))
+                mn[b, k, rows], mx[b, k, rows] = x0, x0 + int(rng.integers(0, 9))
+            elif kind == 1:  # slanted bar
+                sl = rng.uniform(-2.5, 2.5)
+                xs = np.floor(300 + sl * (y - y0)).astype(np.int64)
+                mn[b, k, rows], mx[b, k, rows] = xs[rows], xs[rows] + int(rng.integers(1, 6))
+            elif kind == 2:  # rotated rectangle
+                a = rng.uniform(0, np.pi)
+                hw, hh = rng.uniform(3, 60), rng.uniform(3, H / 3)
+                cy, xs = (y0 + y1) / 2, np.arange(0, 800)
+                for yy in range(y0, y1):
+                    u = (xs - 400.0) * np.cos(a) + (yy - cy) * np.sin(a)
+                    v = -(xs - 400.0) * np.sin(a) + (yy - cy) * np.cos(a)
+                    inside = xs[(np.abs(u) <= hw) & (np.abs(v) <= hh)]
+                    if inside.size:
+                        mn[b, k, yy], mx[b, k, yy] = inside.min(), inside.max()
+            elif kind == 3:  # noise rows
+                keep = rows & (rng.random(H) < 0.7)
+                lo = rng.integers(0, 300, H)
+                mn[b, k, keep], mx[b, k, keep] = lo[keep], lo[keep] + rng.integers(0, 40, H)[keep]
+            elif kind == 4:  # one row
+                mn[b, k, y0], mx[b, k, y0] = 5, 5 + int(rng.integers(0, 30))
+            elif kind == 5:  # one point
+                mn[b, k, y1 - 1] = mx[b, k, y1 - 1] = 7
+    return torch.from_numpy(mn.astype(np.int32)), torch.from_numpy(mx.astype(np.int32))
+
+
 _PERMS = np.array(list(permutations(range(4))))
+
+
+def with_compat(run):
+    """run() with UBDVSS_PALLAS_COMPAT=1 set for the call, then restored."""
+    old = os.environ.get("UBDVSS_PALLAS_COMPAT")
+    os.environ["UBDVSS_PALLAS_COMPAT"] = "1"
+    try:
+        return run()
+    finally:
+        if old is None:
+            del os.environ["UBDVSS_PALLAS_COMPAT"]
+        else:
+            os.environ["UBDVSS_PALLAS_COMPAT"] = old
 
 
 def same_corner_sets(a, b, atol):
@@ -860,6 +953,44 @@ def main() -> int:
             f"identical, means max|err| {err_slots_l16:.3g} of the f64 sums (bf16 slack as "
             "above), two launches bit for bit equal")
 
+        # K3x at the heights of tall pages, one block's shared memory up to
+        # its cap, the tall instance past it; K12c past the cluster kernel's
+        # shared memory against the tiled pair it must equal bit for bit
+        phase("tall-rect and large-compat kernel checks")
+        cap = rect_kernel.MAX_EXACT_HEIGHT
+        if _build.load("rect_kernel", rect_kernel._FUNCS).rect_exact_max_height() != cap:
+            raise AssertionError("rect: the C side's height cap differs from the wrapper's")
+        for H in (1088, cap, 2048, 4096):
+            for b in (1, 3):
+                mn, mx = (t.to(dev) for t in synthetic_extremes(b, 16, H, H + b))
+                sel_k = rect_kernel.min_area_rect_exact(mn, mx)
+                sel_p = rect_kernel.min_area_rect_select_reference(mn, mx, None)
+                e, f = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
+                err_exact = max(err_exact, e)
+                log(f"check rect_exact H={H}{' (tall instance)' if H > cap else ''}: (B,K,H)="
+                    f"{tuple(mn.shape)} with a staircase over every row, rows max|err| {e:.3g} "
+                    f"<= 1e-4, any_edge identical, {f} exact-tie flips")
+        lg_big16 = fused_model_apply(params16_d, torch.from_numpy(big).to(dev).to(torch.bfloat16)
+                                     [..., None], cfg_l16, raw_gray=True, act_out=True)
+        adv_l = torch.from_numpy(adversarial_maps(512)).to(dev)
+        large_logits = {"512² scans": lg_l, "1024² scan": lg_big,
+                        "512² adversarial": torch.cat([adv_l[..., None], lg_l[..., 1:]], -1),
+                        "512² scans bf16": lg_l16, "1024² scan bf16": lg_big16}
+        for name, lg_ in large_logits.items():
+            B_, H_, W_, C_ = lg_.shape
+            if postproc_kernel.geometry_compat_fits(H_, W_, K_l, C_):
+                raise AssertionError(f"geometry_compat_large {name}: the cluster K12c fits")
+            for conn in ((4, 8) if "adversarial" in name else (8,)):
+                fused_k = postproc_kernel.geometry_compat(lg_, K_l, connectivity=conn)
+                lab_k = ccl_kernel.ccl_labels_tiled(lg_[..., 0].contiguous(), connectivity=conn)
+                pair_k = postproc_kernel.component_slots_tiled(lg_, lab_k, K_l)
+                for key in pair_k:
+                    if not torch.equal(fused_k[key], pair_k[key]):
+                        raise AssertionError(f"geometry_compat_large {name} ({conn}-conn): {key} "
+                                             "differs from ccl_tiled then slots_tiled")
+            log(f"check geometry_compat_large {name}: {tuple(lg_.shape)} {lg_.dtype} K={K_l}, "
+                "all eight outputs bit for bit equal to ccl_tiled then slots_tiled")
+
     # --- 3a. the main path, counting launches ---
     phase("main path")
     # each kernel's wrapper and the count it keeps: the bf16 variants of
@@ -869,6 +1000,7 @@ def main() -> int:
         "ccl": (ccl_kernel.ccl_labels_from_logits, "launches"),
         "slots": (postproc_kernel.component_slots, "launches"),
         "geometry_compat": (postproc_kernel.geometry_compat, "launches"),
+        "geometry_compat_large": (postproc_kernel.geometry_compat_large, "launches"),
         "rect_compact": (rect_kernel.min_area_rect_compact, "launches"),
         "rect_exact": (rect_kernel.min_area_rect_exact, "launches"),
         "ccl_tiled": (ccl_kernel.ccl_labels_tiled, "launches"),
@@ -876,6 +1008,7 @@ def main() -> int:
         "ccl_bf16": (ccl_kernel.ccl_labels_from_logits, "launches_bf16"),
         "slots_bf16": (postproc_kernel.component_slots, "launches_bf16"),
         "geometry_compat_bf16": (postproc_kernel.geometry_compat, "launches_bf16"),
+        "geometry_compat_large_bf16": (postproc_kernel.geometry_compat_large, "launches_bf16"),
         "ccl_tiled_bf16": (ccl_kernel.ccl_labels_tiled, "launches_bf16"),
         "slots_tiled_bf16": (postproc_kernel.component_slots_tiled, "launches_bf16"),
         "qstem": (qconv_kernel.qstem, "launches"),
@@ -886,8 +1019,12 @@ def main() -> int:
     tiled = ["ccl_tiled", "slots_tiled"]  # not on the 128² and smaller maps
     bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", "ccl_tiled_bf16",
             "slots_tiled_bf16"]  # not on the f32 paths
+    # the large K12c launches only on the compat route past 200² maps: a
+    # path that does not name it must not launch it
+    large_compat = ["geometry_compat_large", "geometry_compat_large_bf16"]
 
     def counted(run, must_launch, must_not):
+        must_not = [*must_not, *(k for k in large_compat if k not in must_launch)]
         for f, attr in wrappers.values():
             setattr(f, attr, 0)
         out = run()
@@ -915,7 +1052,7 @@ def main() -> int:
         raise AssertionError("main path: no valid detection")
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
-    ref, ref_logits = detect_program_batch(params, imgs, cfg, (IMG, IMG), device="cpu")
+    ref, ref_logits = detect_program_batch(params, imgs, cfg, (IMG, IMG), fused=True, device="cpu")
     t_cpu = time.perf_counter() - t0
     ref = {k: v.numpy() for k, v in ref.items()}
     err_logits = float(np.abs(logits - ref_logits.numpy()).max())
@@ -946,7 +1083,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ref_s, lg_s = {}, []
     for b0 in range(0, N_FRAMES, B):
-        r, lg = detect_program_batch(params, frames[b0:b0 + B], cfg_q, QVGA, device="cpu")
+        r, lg = detect_program_batch(params, frames[b0:b0 + B], cfg_q, QVGA, fused=True, device="cpu")
         for k, v in r.items():
             ref_s.setdefault(k, []).append(v.numpy())
         lg_s.append(lg[..., 0].numpy())
@@ -966,16 +1103,8 @@ def main() -> int:
     # --- 3c. the compat route: the main path with UBDVSS_PALLAS_COMPAT=1 ---
     phase("compat route")
     def compat_path():
-        old = os.environ.get("UBDVSS_PALLAS_COMPAT")
-        os.environ["UBDVSS_PALLAS_COMPAT"] = "1"
-        try:
-            return detect_program_batch(
-                params_d, imgs, cfg, (IMG, IMG), detections_only=True, device="cuda")[0]
-        finally:
-            if old is None:
-                del os.environ["UBDVSS_PALLAS_COMPAT"]
-            else:
-                os.environ["UBDVSS_PALLAS_COMPAT"] = old
+        return with_compat(lambda: detect_program_batch(
+            params_d, imgs, cfg, (IMG, IMG), detections_only=True, device="cuda")[0])
 
     res_c, n_compat = counted(
         compat_path, ["context_layer", "geometry_compat", "rect_compact"],
@@ -1043,7 +1172,7 @@ def main() -> int:
         raise AssertionError("large scans: logits not finite or of the wrong shape")
     n_cmp = 2
     t0 = time.perf_counter()
-    ref_l, ref_lg_l = detect_program_batch(params, scans[:n_cmp], cfg_l, (SCAN, SCAN), device="cpu")
+    ref_l, ref_lg_l = detect_program_batch(params, scans[:n_cmp], cfg_l, (SCAN, SCAN), fused=True, device="cpu")
     t_cpu_l = time.perf_counter() - t0
     err_lg_l = float(np.abs(logits_l[:n_cmp] - ref_lg_l.numpy()).max())
     if not err_lg_l <= 1e-4:
@@ -1069,7 +1198,7 @@ def main() -> int:
     res_b = {k: v.cpu().numpy() for k, v in res_b.items()}
     logits_b = logits_b.cpu().numpy()
     t0 = time.perf_counter()
-    ref_b, ref_lg_b = detect_program_batch(params, big, cfg_l, (BIG_SCAN, BIG_SCAN), device="cpu")
+    ref_b, ref_lg_b = detect_program_batch(params, big, cfg_l, (BIG_SCAN, BIG_SCAN), fused=True, device="cpu")
     t_cpu_b = time.perf_counter() - t0
     err_lg_b = float(np.abs(logits_b - ref_lg_b.numpy()).max())
     if not (np.isfinite(logits_b).all() and err_lg_b <= 1e-4):
@@ -1116,6 +1245,55 @@ def main() -> int:
         log(f"detect {hw[1]}x{hw[0]}: {gh // 4}x{gw // 4} heatmap, launches of one call {n_2}; "
             f"{len(dets)} detections == the plain route on the host CPU")
 
+    # --- 3g'. tall pages past _fused_heatmap_limit: an A4 page at 600 dpi
+    # (a 1754-row heatmap) and an 8192x1024 page (2048 rows, past the
+    # one-block K3x's cap), the asset's config with max_image_side raised
+    # so that detect keeps the page's resolution, as a document-scan
+    # deployment does; the XLA route, so K3x and not K3 ---
+    cfg_page = cfg_l.replace(max_image_side=max(A4_PAGE + TALL_PAGE))
+    pages = {}
+    for hw, seed in ((A4_PAGE, SEED), (TALL_PAGE, SEED + 1)):
+        phase(f"{hw[0]}x{hw[1]} page")
+        page = SyntheticMarkupReader(n_samples=1, image_hw=hw, seed=seed,
+                                     n_objects=(3, 6)).sample_at(0).image
+        det_p = BarcodeDetector(cfg_page, params, device="cuda")
+        must = ["context_layer", "ccl_tiled", "slots_tiled", "rect_exact"]
+        must_not = ["rect_compact", "ccl", "slots", "geometry_compat", *bf16]
+        (res_p, lg_p), n_p = counted(
+            lambda: detect_program_batch(params_d, page[None], cfg_page, hw, device="cuda"),
+            must, must_not)
+        dets_p, n_p2 = counted(lambda: det_p.detect(page), must, must_not)
+        Hh = hw[0] // cfg_page.scale
+        if lg_p.shape[1] != Hh or Hh <= 1024:
+            raise AssertionError(f"page {hw}: a {lg_p.shape[1]}-row heatmap, expected {Hh} > 1024")
+        t0 = time.perf_counter()
+        ref_p, ref_lg_p = detect_program(params, page, cfg_page, hw, device="cpu")
+        t_cpu_p = time.perf_counter() - t0
+        lg_p_h = lg_p.cpu().numpy()
+        err_p = float(np.abs(lg_p_h[0] - ref_lg_p.numpy()).max())
+        if not err_p <= 1e-4:
+            raise AssertionError(f"page {hw}: logits differ from the plain route by {err_p}")
+        ref_p = {k: v.numpy() for k, v in ref_p.items()}
+        # boxes within 2e-3 px: one f32 ulp is 4.9e-4 px past 4096 px
+        skipped_p = compare_detections({k: v.cpu().numpy() for k, v in res_p.items()},
+                                       {k: v[None] for k, v in ref_p.items()}, lg_p_h[..., 0],
+                                       box_atol=2e-3, score_atol=1e-5)
+        valid_p = np.flatnonzero(ref_p["valid"])
+        if skipped_p[0] or not dets_p or len(dets_p) != len(valid_p):
+            raise AssertionError(f"page {hw}: detections not compared or differ in number")
+        for o, i in zip(dets_p, valid_p):
+            if ((o.class_id, o.area) != (int(ref_p["classes"][i]), int(ref_p["areas"][i]))
+                    or abs(o.score - float(ref_p["scores"][i])) > 1e-5
+                    or not same_corner_sets(o.box, ref_p["boxes"][i], 2e-3)):
+                raise AssertionError(f"page {hw}: a detect detection differs from the plain route")
+        with torch.inference_mode():
+            g_p = postproc_kernel.component_stats_from_logits(lg_p, K_l)
+        pages[f"h{Hh}"] = dict(page=page, det=det_p, minx=g_p["minx"], maxx=g_p["maxx"],
+                               launches=n_p["rect_exact"] + n_p2["rect_exact"], cpu_s=t_cpu_p)
+        log(f"page {hw[0]}x{hw[1]}: {Hh}x{hw[1] // cfg_page.scale} heatmap, K={K_l} M={M_l}, "
+            f"detect_program_batch launches {n_p}, detect {n_p2}; {len(dets_p)} detections == "
+            f"the plain route on the host CPU ({t_cpu_p:.1f} s): logits max|err| {err_p:.3g}")
+
     # --- 3h. the bf16 main path (the JAX bench's default mode) ---
     phase("bf16 main path")
     main16 = ["ccl_bf16", "slots_bf16", "rect_compact"]
@@ -1133,7 +1311,7 @@ def main() -> int:
     if int(res16["num_detections"].sum()) == 0:
         raise AssertionError("bf16 main path: no valid detection")
     t0 = time.perf_counter()
-    ref16, ref_lg16 = detect_program_batch(params16, imgs, cfg16, (IMG, IMG), device="cpu")
+    ref16, ref_lg16 = detect_program_batch(params16, imgs, cfg16, (IMG, IMG), fused=True, device="cpu")
     t_cpu16 = time.perf_counter() - t0
     ref_lg16 = ref_lg16.numpy()
     ulps16 = float(np.abs(logits16 - ref_lg16).max() / (np.abs(ref_lg16).max() * 2.0**-8))
@@ -1163,16 +1341,8 @@ def main() -> int:
     phase("bf16 compat route")
 
     def compat16():
-        old = os.environ.get("UBDVSS_PALLAS_COMPAT")
-        os.environ["UBDVSS_PALLAS_COMPAT"] = "1"
-        try:
-            return detect_program_batch(
-                params16_d, imgs, cfg16, (IMG, IMG), detections_only=True, device="cuda")[0]
-        finally:
-            if old is None:
-                del os.environ["UBDVSS_PALLAS_COMPAT"]
-            else:
-                os.environ["UBDVSS_PALLAS_COMPAT"] = old
+        return with_compat(lambda: detect_program_batch(
+            params16_d, imgs, cfg16, (IMG, IMG), detections_only=True, device="cuda")[0])
 
     res16_c, n_compat16 = counted(
         compat16, ["geometry_compat_bf16", "rect_compact"],
@@ -1208,7 +1378,7 @@ def main() -> int:
         raise AssertionError("bf16 large scans: logits not finite or of the wrong shape")
     t0 = time.perf_counter()
     ref_l16, ref_lg_l16 = detect_program_batch(params16, scans[:n_cmp], cfg_l16, (SCAN, SCAN),
-                                               device="cpu")
+                                               fused=True, device="cpu")
     t_cpu_l16 = time.perf_counter() - t0
     ref_lg_l16 = ref_lg_l16.numpy()
     ulps_l16 = float(np.abs(logits_l16[:n_cmp] - ref_lg_l16).max()
@@ -1223,6 +1393,40 @@ def main() -> int:
         f"{n_large16}; {int(res_l16['num_detections'].sum())} detections; the first {n_cmp} == "
         f"the bf16 route on the host CPU ({t_cpu_l16:.1f} s): logits max|err| {ulps_l16:.3g} "
         f"ulps, {cmp_l16}")
+
+    # --- 3j'. the compat route on the large scans: K12c past one block's
+    # shared memory (geometry_compat_large), once a call, in f32 and bf16;
+    # detections identical to the default route's on the card ---
+    phase("compat route on the large scans")
+    big_d = torch.from_numpy(big).to(dev)
+
+    def scan_run(p_, c_, images, hw):
+        return lambda: detect_program_batch(p_, images, c_, hw, detections_only=True,
+                                            device="cuda")[0]
+
+    compat_runs = {
+        "2048² scans f32": (scan_run(params_d, cfg_l, scans, (SCAN, SCAN)), res_l, False),
+        "4096² scan f32": (scan_run(params_d, cfg_l, big_d, (BIG_SCAN, BIG_SCAN)), res_b, False),
+        "2048² scans bf16": (scan_run(params16_d, cfg_l16, scans, (SCAN, SCAN)), res_l16, True),
+        "4096² scan bf16": (scan_run(params16_d, cfg_l16, big_d, (BIG_SCAN, BIG_SCAN)), None, True),
+    }
+    n_compat_l = {}
+    for name, (run, ref_c, is16) in compat_runs.items():
+        if ref_c is None:  # the default route on the card
+            ref_c = {k: v.cpu().numpy() for k, v in run().items()}
+        k12 = "geometry_compat_large_bf16" if is16 else "geometry_compat_large"
+        res_cl, n_cl = counted(
+            lambda: with_compat(run), [k12, "rect_compact", *([] if is16 else ["context_layer"])],
+            ["ccl", "slots", "geometry_compat", "geometry_compat_bf16", "rect_exact", *tiled,
+             "ccl_bf16", "slots_bf16", "ccl_tiled_bf16", "slots_tiled_bf16"])
+        if n_cl[k12] != 1:
+            raise AssertionError(f"compat {name}: {n_cl[k12]} launches of {k12}, expected 1")
+        for k, v in res_cl.items():
+            if not np.array_equal(v.cpu().numpy(), ref_c[k]):
+                raise AssertionError(f"compat {name}: {k} differs from the default route")
+        n_compat_l[name] = n_cl[k12]
+        launches[k12] = launches.get(k12, 0) + n_cl[k12]
+        log(f"compat route {name}: launches {n_cl}; detections identical to the default route")
 
     # --- 3k. bf16 detect (512² and 640x480) and the QVGA stream ---
     phase("bf16 detect and stream")
@@ -1277,7 +1481,7 @@ def main() -> int:
     res_s16 = {k: np.stack([d[k] for _, d in got16]) for k in got16[0][1]}
     ref_s16, lg_s16, lg_s16_d = {}, [], []
     for b0 in range(0, N_FRAMES, B):
-        r, lg = detect_program_batch(params16, frames[b0:b0 + B], cfg_q16, QVGA, device="cpu")
+        r, lg = detect_program_batch(params16, frames[b0:b0 + B], cfg_q16, QVGA, fused=True, device="cpu")
         for k, v in r.items():
             ref_s16.setdefault(k, []).append(v.numpy())
         lg_s16.append(lg[..., 0].numpy())
@@ -1481,7 +1685,7 @@ def main() -> int:
     if int(res8["num_detections"].sum()) == 0:
         raise AssertionError("int8 main path: no valid detection")
     t0 = time.perf_counter()
-    ref8, ref_lg8 = detect_program_batch(params, imgs, cfg, (IMG, IMG), qparams=q_h, device="cpu")
+    ref8, ref_lg8 = detect_program_batch(params, imgs, cfg, (IMG, IMG), qparams=q_h, fused=True, device="cpu")
     t_cpu8 = time.perf_counter() - t0
     ref_lg8 = ref_lg8.numpy()
     if not np.array_equal(logits8, ref_lg8):
@@ -1511,7 +1715,7 @@ def main() -> int:
         raise AssertionError("int8 large scans: logits not finite or of the wrong shape")
     t0 = time.perf_counter()
     ref8_l, ref_lg8_l = detect_program_batch(params, scans[:n_cmp], cfg_l, (SCAN, SCAN), qparams=q_h,
-                                             device="cpu")
+                                             fused=True, device="cpu")
     t_cpu8_l = time.perf_counter() - t0
     if not np.array_equal(lg8_l[:n_cmp], ref_lg8_l.numpy()):
         raise AssertionError("int8 large scans: logits differ from the host CPU's")
@@ -1563,7 +1767,7 @@ def main() -> int:
     res_s8 = {k: np.stack([d[k] for _, d in got8]) for k in got8[0][1]}
     ref_s8, lg_s8 = {}, []
     for b0 in range(0, N_FRAMES, B):
-        r, lg = detect_program_batch(params, frames[b0:b0 + B], cfg_q, QVGA, qparams=q_h, device="cpu")
+        r, lg = detect_program_batch(params, frames[b0:b0 + B], cfg_q, QVGA, qparams=q_h, fused=True, device="cpu")
         for k, v in r.items():
             ref_s8.setdefault(k, []).append(v.numpy())
         lg_s8.append(lg[..., 0].numpy())
@@ -1844,6 +2048,76 @@ def main() -> int:
                             px * 13 + in_slot16 * O * 8),
             ),
         ]
+    # the tall pages' K3x (B=1, K=64: H=1754 in one block, H=2048 the tall
+    # instance) and the large K12c on the scans' B=8 512² maps, K=64
+    with torch.inference_mode():
+        for tag, pg in pages.items():
+            mn_t, mx_t = pg["minx"], pg["maxx"]
+            Bt, Kt, Ht = mn_t.shape
+            rows_t = (mx_t >= 0).reshape(Bt * Kt, Ht).sum(1).cpu().numpy()
+            flops_t = float((exact_directions(mn_t, mx_t) * 2 * rows_t).sum()) * 10
+            kernels.append(dict(
+                name=f"rect_exact_{tag}", route="cuda", source="ubdvss_tpu_torch/csrc/rect_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/rect_kernel.py:136",
+                launches=pg["launches"], max_abs_err=err_exact,
+                ms=time_ms(lambda: rect_kernel.min_area_rect_exact(mn_t, mx_t)),
+                device_ms=device_ms(lambda: rect_kernel.min_area_rect_exact(mn_t, mx_t)),
+                plain_ms=time_ms(lambda: rect_kernel.min_area_rect_select_reference(mn_t, mx_t, None),
+                                 iters=3, reps=1),
+                library_ms=None,
+                bound=bound(Bt * Kt * Ht * 8 + Bt * 9 * Kt * 4, flops_t),
+            ))
+        for tag, lg_, err_ in (("", lg_l, err_slots_l), ("_bf16", lg_l16, err_slots_l16)):
+            lab_ = ccl_kernel.ccl_labels_tiled(lg_[..., 0].contiguous())
+            in_slot_ = int((postproc_kernel.component_slots_tiled(lg_, lab_, K_l)["slots"] < K_l).sum())
+            esz = lg_.element_size()
+            kernels.append(dict(
+                name=f"geometry_compat_large{tag}", route="cuda",
+                source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50",
+                launches=launches.get(f"geometry_compat_large{tag}", 0), max_abs_err=err_,
+                ms=time_ms(lambda: postproc_kernel.geometry_compat(lg_, K_l)),
+                device_ms=device_ms(lambda: postproc_kernel.geometry_compat(lg_, K_l)),
+                plain_ms=time_ms(lambda: postproc_kernel.geometry_compat_reference(lg_, K_l),
+                                 iters=3, reps=1),
+                library_ms=None,
+                bound=bound(px_l * (esz + 4) + Bl * K_l * (2 * Hl + 1) * 4 + Bl * 4
+                            + in_slot_ * (O - 1) * esz + Bl * K_l * (O + 1) * 4,
+                            px_l * 13 + in_slot_ * O * 8),
+            ))
+        # K3x on the kernel checks' synthetic extremes (K=16, a staircase over
+        # every row) at each tall height, one block to the cap, then the tall
+        # instance
+        tall_rect = {}
+        for H in (1088, rect_kernel.MAX_EXACT_HEIGHT, 2048, 4096):
+            for b in (1, 3):
+                mn_s, mx_s = (t.to(dev) for t in synthetic_extremes(b, 16, H, H + b))
+                tall_rect[f"B={b} H={H}"] = {
+                    "ms": time_ms(lambda: rect_kernel.min_area_rect_exact(mn_s, mx_s)),
+                    "device_ms": device_ms(lambda: rect_kernel.min_area_rect_exact(mn_s, mx_s)),
+                }
+        # one A4-page detect call and one compat batch of the 2048² scans:
+        # wall time, device time and busy share
+        a4 = pages[f"h{A4_PAGE[0] // cfg_page.scale}"]
+        run_a4 = lambda: a4["det"].detect(a4["page"])  # noqa: E731
+        ms_a4 = time_ms(run_a4, iters=3, reps=1, warmup=1)
+        prof_a4 = profile_path(run_a4, ms_a4, iters=2)
+        run_cl = lambda: with_compat(compat_runs["2048² scans f32"][0])  # noqa: E731
+        ms_cl = time_ms(run_cl, iters=5, reps=3)
+        prof_cl = profile_path(run_cl, ms_cl)
+    log(json.dumps({"rect_exact on synthetic extremes, K=16, a staircase over every row":
+                    tall_rect}))
+    log(json.dumps({
+        "path": "BarcodeDetector.detect, one A4 page at 600 dpi (7016x4960 uint8 host image)",
+        "K": K_l, "M": M_l, "ms_per_page": ms_a4, "device_busy_ms": prof_a4["device_busy_ms"],
+        "busy_share": prof_a4["busy_share"], "plain_cpu_s": a4["cpu_s"],
+        "profile_ms": prof_a4["profile_ms_per_batch"],
+    }))
+    log(json.dumps({
+        "path": "detect_program_batch f32 with UBDVSS_PALLAS_COMPAT=1, B=8 2048x2048 scans",
+        "ms_per_batch": ms_cl, "device_busy_ms": prof_cl["device_busy_ms"],
+        "busy_share": prof_cl["busy_share"], "profile_ms": prof_cl["profile_ms_per_batch"],
+    }))
     for kd in kernels:
         kd["bound_ms"], kd["bound_by"] = kd.pop("bound")
         log(f"time {kd['name']}: {kd['ms']:.4f} ms/call, device {kd['device_ms']:.4f} (plain "

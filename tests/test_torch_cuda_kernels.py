@@ -387,11 +387,20 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         postproc_kernel.component_slots(too_many, lab, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         postproc_kernel.component_slots(lg, lab.cpu(), 4)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        postproc_kernel.geometry_compat(torch.zeros((1, 400, 300), device=dev), 16)
-    tall = torch.zeros((1, 1, 1025), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="H=1025"):
-        rect_kernel.min_area_rect_exact(tall, tall)
+    # past one block's shared memory K12c launches its large kernel, equal
+    # to the tiled pair bit for bit, and K3x serves a 1025-row map
+    big = torch.from_numpy(_maps(3, 1, 400, 300)).to(dev)
+    postproc_kernel.geometry_compat_large.launches = 0
+    fused = postproc_kernel.geometry_compat(big, 16)
+    assert postproc_kernel.geometry_compat_large.launches == 1
+    pair = postproc_kernel.component_slots_tiled(big, ccl_kernel.ccl_labels_tiled(big), 16)
+    for key in pair:
+        assert torch.equal(fused[key], pair[key]), key
+    minx, maxx = (t.to(dev) for t in _synthetic_extremes(1, 4, 1025, 1025))
+    out = rect_kernel.min_area_rect_exact(minx, maxx)
+    ref = rect_kernel.min_area_rect_select_reference(minx, maxx, None)
+    assert torch.equal(out[:, 6], ref[:, 6])
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("C,O", [(4, 17), (24, 33), (40, 17)])
@@ -490,11 +499,13 @@ def _synthetic_extremes(B, K, H, seed):
 
 
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("H", [60, 128, 513, 1024])
+@pytest.mark.parametrize("H", [60, 128, 513, 1024, 1088, rect_kernel.MAX_EXACT_HEIGHT, 2048, 4096])
 def test_rect_exact_kernel_heights(dev, H, B):
-    """K3x up to its 1024-row limit, at B=1 (a detect call) and B=3, on
-    synthetic extremes (K=16): any_edge identical, rows within 1e-4; two
-    launches bit for bit equal."""
+    """K3x at every height: in one block's shared memory up to
+    MAX_EXACT_HEIGHT (1994 rows), the tall instance past it (2048, 4096: a
+    16,384 px page), at B=1 (a detect call) and B=3, on synthetic extremes
+    (K=16): any_edge identical, rows within 1e-4; two launches bit for bit
+    equal."""
     minx, maxx = (t.to(dev) for t in _synthetic_extremes(B, 16, H, H + B))
     rect_kernel.min_area_rect_exact.launches = 0
     out = rect_kernel.min_area_rect_exact(minx, maxx)
@@ -503,6 +514,74 @@ def test_rect_exact_kernel_heights(dev, H, B):
     assert torch.equal(out[:, 6], ref[:, 6])
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     assert torch.equal(rect_kernel.min_area_rect_exact(minx, maxx), out)
+
+
+def _staircase_extremes(B, K, H, seed):
+    """``_synthetic_extremes`` with slot 0 of each image a bar 5 pixels wide
+    rotated off the axes at a golden-ratio slope and spanning every row: a
+    digital line whose two chains are long staircases that the kernels'
+    four lockstep rounds do not settle, so the slope rule runs over
+    thousands of rows."""
+    mn, mx = (t.numpy().copy() for t in _synthetic_extremes(B, K, H, seed))
+    y = np.arange(H)
+    for b in range(B):
+        s = 0.6180339887 * (1 if b % 2 == 0 else -1) / (1 + b)  # x per row
+        left = np.floor(10 + (H * abs(s) if s < 0 else 0) + s * y).astype(np.int32)
+        mn[b, 0], mx[b, 0] = left, left + 5
+    return torch.from_numpy(mn), torch.from_numpy(mx)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H", [1088, rect_kernel.MAX_EXACT_HEIGHT, 2048, 4096])
+def test_rect_exact_kernel_long_staircase(dev, H, B):
+    """K3x on a rotated bar spanning every row (``_staircase_extremes``)
+    beside the synthetic components, in the one-block instance and past
+    its cap: any_edge identical, rows within 1e-4 of the plain version (or
+    the same rectangle on an exact caliper tie)."""
+    minx, maxx = (t.to(dev) for t in _staircase_extremes(B, 16, H, H + 7))
+    out = rect_kernel.min_area_rect_exact(minx, maxx)
+    ref = rect_kernel.min_area_rect_select_reference(minx, maxx, None)
+    _assert_rect_rows(out, ref)
+
+
+def _assert_rect_rows(out, ref, atol=1e-4):
+    """(B, 9, K) rows: any_edge identical, rows within atol, or on an exact
+    caliper tie the same rectangle by its other side (the same corner set
+    and area; ROADMAP.md §3 Standing)."""
+    assert torch.equal(out[:, 6], ref[:, 6])
+    close = ((out - ref).abs() <= atol).all(1)
+    if bool(close.all()):
+        return
+    ro, rr = rect_kernel.rects_from_selection(out), rect_kernel.rects_from_selection(ref)
+    perms = np.array(list(permutations(range(4))))
+    a, b = ro["points"][~close].cpu().numpy(), rr["points"][~close].cpu().numpy()
+    d = np.linalg.norm(a[:, :, None] - b[:, None], axis=-1)
+    assert (d[:, np.arange(4), perms].max(-1).min(-1) <= atol).all()
+    torch.testing.assert_close(ro["size"][~close].prod(-1), rr["size"][~close].prod(-1),
+                               atol=atol, rtol=1e-6)
+
+
+def test_rect_exact_height_cap_is_one_formula(dev):
+    """The exact kernel's cap and the tall instance's workspace slot are the
+    C side's formulas (rect_exact_max_height, rect_tall_slot_size) and the
+    wrapper's copies of them agree; the tall instance launched directly at
+    heights the one-block kernel serves gives that kernel's rows bit for
+    bit (the same selection in another memory)."""
+    from ubdvss_tpu_torch.ops.cuda import _build
+
+    lib = _build.load("rect_kernel", rect_kernel._FUNCS)
+    assert lib.rect_exact_max_height() == rect_kernel.MAX_EXACT_HEIGHT == 1994
+    for H in (60, 1995, 2048, 4096, 100_000):
+        assert lib.rect_tall_slot_size(H) == rect_kernel.tall_slot_bytes(H)
+    for H in (60, 1024, rect_kernel.MAX_EXACT_HEIGHT):
+        minx, maxx = (t.to(dev) for t in _staircase_extremes(3, 16, H, H))
+        one = rect_kernel.min_area_rect_exact(minx, maxx)
+        for slots in (1, 5, 48):
+            tall = torch.empty_like(one)
+            ws = torch.empty(slots * rect_kernel.tall_slot_bytes(H), dtype=torch.uint8, device=dev)
+            _build.launch(lib, "rect_select_exact_tall", dev, minx.data_ptr(), maxx.data_ptr(),
+                          tall.data_ptr(), ws.data_ptr(), 3, 16, H, slots)
+            assert torch.equal(tall, one), (H, slots)
 
 
 def test_rect_exact_kernel_detect_extremes(dev):
@@ -559,6 +638,40 @@ def test_streaming_on_card_matches_cpu(dev):
         v = r["valid"]
         d = np.linalg.norm(o["boxes"][v][:, :, None] - r["boxes"][v][:, None], axis=-1)
         assert (d[:, np.arange(4), perms].max(-1).min(-1) <= 1e-3).all()
+
+
+def test_detect_on_an_a4_page_matches_cpu(dev):
+    """BarcodeDetector.detect on one synthetic A4 page at 600 dpi (7016x4960
+    uint8, a 1754x1240 heatmap past the fused route's limit), the asset's
+    config with max_image_side raised to keep the page's resolution, on
+    the card against the CPU: the device-memory CCL, the tiled slots and
+    K3x at 1754 rows launched, K3 not; classes and areas identical, scores
+    within 1e-5, boxes within 2e-3 px as corner sets (one f32 ulp is 4.9e-4
+    px past 4096 px)."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import BarcodeDetector, load_net_config, load_params_npz, params_from_flat
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(path).replace(max_image_side=8192)
+    params = params_from_flat(load_params_npz(path))
+    page = SyntheticMarkupReader(n_samples=1, image_hw=(7016, 4960), seed=7,
+                                 n_objects=(3, 6)).sample_at(0).image
+    counted = (ccl_kernel.ccl_labels_tiled, postproc_kernel.component_slots_tiled,
+               rect_kernel.min_area_rect_exact, rect_kernel.min_area_rect_compact)
+    for f in counted:
+        f.launches = 0
+    out = BarcodeDetector(cfg, params, device=dev).detect(page)
+    assert [f.launches for f in counted] == [1, 1, 1, 0]
+    ref = BarcodeDetector(cfg, params, device="cpu").detect(page)
+    assert len(ref) > 0 and len(out) == len(ref)
+    perms = np.array(list(permutations(range(4))))
+    for o, r in zip(out, ref):
+        assert (o.class_id, o.area) == (r.class_id, r.area)
+        assert abs(o.score - r.score) < 1e-5
+        d = np.linalg.norm(o.box[:, None] - r.box[None], axis=-1)
+        assert d[np.arange(4), perms].max(-1).min() <= 2e-3
 
 
 @pytest.mark.parametrize("asset", ["pretrained_synthetic", "pretrained_dense_synthetic"])
@@ -716,6 +829,59 @@ def test_rect_kernels_at_large_heights(dev, H):
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
+_LARGE_COMPAT_SHAPES = [(3, 512, 512), (1, 1024, 1024), (2, 300, 1000), (2, 1000, 300)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("shape", _LARGE_COMPAT_SHAPES)
+def test_geometry_compat_large_matches_tiled_pair(dev, shape, K, dtype):
+    """K12c past one block's shared memory (the 2048² scans' 512² maps, the
+    4096² scan's 1024² map, and maps whose widths are no multiple of a pass
+    tile's): one launch of ``geometry_compat_large`` (counted at the
+    logits' dtype), none of the cluster K12c, and its eight outputs bit for
+    bit equal to ``ccl_labels_tiled`` then ``component_slots_tiled`` on
+    the same logits, f32 and bf16."""
+    B, H, W = shape
+    lg = _head_logits(_maps(K + H, B, H, W), 17, K, dev).to(getattr(torch, dtype))
+    assert not postproc_kernel.geometry_compat_fits(H, W, K, 17)
+    large = postproc_kernel.geometry_compat_large
+    for f in (large, postproc_kernel.geometry_compat, ccl_kernel.ccl_labels_tiled,
+              postproc_kernel.component_slots_tiled):
+        f.launches = f.launches_bf16 = 0
+    out = postproc_kernel.geometry_compat(lg, K)
+    bf16 = dtype == "bfloat16"
+    assert (large.launches, large.launches_bf16) == (int(not bf16), int(bf16))
+    assert postproc_kernel.geometry_compat.launches + postproc_kernel.geometry_compat.launches_bf16 == 0
+    assert ccl_kernel.ccl_labels_tiled.launches + postproc_kernel.component_slots_tiled.launches == 0
+    lab = ccl_kernel.ccl_labels_tiled(lg[..., 0].contiguous())
+    pair = postproc_kernel.component_slots_tiled(lg, lab, K)
+    for key in pair:
+        assert torch.equal(out[key], pair[key]), key
+    again = postproc_kernel.geometry_compat(lg, K)
+    for key in pair:
+        assert torch.equal(again[key], out[key]), key
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("kind", ["noise", "spiral", "checker", "full", "empty"])
+def test_geometry_compat_large_on_adversarial_maps(dev, kind, connectivity):
+    """The large K12c on the device-memory CCL's adversarial maps at 512²
+    (noise, a spiral through every tile seam, the checkerboard, full and
+    empty), K=64: its slots equal the tiled pair's bit for bit, and its
+    components are scipy's (the slot map of the uncapped labels)."""
+    lg = _head_logits(_large_map(kind, 1, 512, 512), 17, 5, dev)
+    out = postproc_kernel.geometry_compat_large(lg, 64, connectivity=connectivity)
+    lab = ccl_kernel.ccl_labels_tiled(lg[..., 0].contiguous(), 0.5, connectivity)
+    pair = postproc_kernel.component_slots_tiled(lg, lab, 64)
+    for key in pair:
+        assert torch.equal(out[key], pair[key]), key
+    ref = torch.from_numpy(_uncapped_labels(lg[..., 0].cpu().numpy(), connectivity)).to(dev)
+    slots = postproc_kernel.component_slots_reference(lg, ref, 64)
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], slots[key]), key
+
+
 # ---- bf16 logits (the bf16 route's trunk output) ----
 
 _BF16_SHAPES = [(3, 128, 128, 16), (3, 256, 64, 16), (2, 512, 512, 64)]
@@ -821,12 +987,17 @@ def test_bf16_slots_match_plain_and_compat(dev, shape, layout):
 
 
 def test_bf16_wrappers_raise_where_f32_ones_do(dev):
-    """No route falls back to another: on bf16 logits K12c past its shared
-    memory and the stats kernels past MAX_CHANNELS raise
-    NotImplementedError naming ROADMAP.md §2a, as on f32."""
-    big = torch.zeros((1, 400, 300), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
-        postproc_kernel.geometry_compat(big, 16)
+    """No route falls back to another: on bf16 logits the stats kernels past
+    MAX_CHANNELS raise NotImplementedError naming ROADMAP.md §2a, as on
+    f32; K12c past its shared memory launches its large bf16 kernel, as on
+    f32, equal to the bf16 tiled pair bit for bit."""
+    big = torch.from_numpy(_maps(3, 1, 400, 300)).to(dev).to(torch.bfloat16)
+    postproc_kernel.geometry_compat_large.launches_bf16 = 0
+    fused = postproc_kernel.geometry_compat(big, 16)
+    assert postproc_kernel.geometry_compat_large.launches_bf16 == 1
+    pair = postproc_kernel.component_slots_tiled(big, ccl_kernel.ccl_labels_tiled(big), 16)
+    for key in pair:
+        assert torch.equal(fused[key], pair[key]), key
     lg = torch.zeros((1, 8, 8, postproc_kernel.MAX_CHANNELS + 1), dtype=torch.bfloat16,
                      device=dev)
     lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
@@ -907,11 +1078,14 @@ def test_bf16_entry_points_on_card_match_cpu(dev, asset, case):
     if case == "preprocessed":
         x = (imgs.astype(np.float32) * np.float32(1 / 127.5) - 1.0)[..., None]
         out, lg = detect_preprocessed_batch(params, x, cfg, device=dev)
-        ref, lg_ref = detect_preprocessed_batch(params, x, cfg, device="cpu")
+        ref, lg_ref = detect_preprocessed_batch(params, x, cfg, fused=True, device="cpu")
     else:
+        # fused=None is the fused route on the card and the XLA route on
+        # the CPU, so the CPU's call names its route
         kw = {"xla": dict(fused=False), "strips": dict(n_strips=2)}.get(case, {})
         out, lg = detect_program_batch(params, imgs, cfg, hw, device=dev, **kw)
-        ref, lg_ref = detect_program_batch(params, imgs, cfg, hw, device="cpu", **kw)
+        ref, lg_ref = detect_program_batch(params, imgs, cfg, hw, device="cpu",
+                                           **{"fused": True, **kw})
     assert lg.dtype == lg_ref.dtype == torch.float32
     assert context_kernel.fused_context_head.launches == 0
     bf16_trunk = cfg.separable_context and case != "xla"

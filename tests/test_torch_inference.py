@@ -45,7 +45,7 @@ def test_detect_program_batch_matches_jax(asset):
     )
     assert np.abs(ref_logits[..., 0]).min() > MARGIN
     out, logits = detect_program_batch(
-        load_params(ASSETS[asset]), imgs, cfg, (128, 128), device="cpu"
+        load_params(ASSETS[asset]), imgs, cfg, (128, 128), fused=True, device="cpu"
     )
     np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
     assert int(ref["num_detections"].sum()) > 0

@@ -356,7 +356,7 @@ def test_detect_preprocessed_batch_int8_dense_fused():
     q, pqp = _jax_qparams("dense")
     x = _norm(_scenes(3, (128, 128), 23))
     jl = np.asarray(jq.int8_trunk_apply(q, jnp.asarray(x), jcfg))
-    out, logits = detect_preprocessed_batch(params, x, cfg, qparams=pqp, device="cpu")
+    out, logits = detect_preprocessed_batch(params, x, cfg, qparams=pqp, fused=True, device="cpu")
     np.testing.assert_array_equal(logits.numpy(), jl)
     ref = jax.device_get(jax_postprocess_batch_fused(jnp.asarray(jl), jcfg, interpret=True))
     assert int(np.asarray(ref["num_detections"]).sum()) > 0

@@ -75,17 +75,17 @@ def port_fused():
     """The port's fused route on ``scans()``'s images: (result, logits)."""
     cfg = load_net_config(ASSETS["separable"])
     return detect_program_batch(load_params(ASSETS["separable"]), scans()[0], cfg, HW,
-                                device="cpu")
+                                fused=True, device="cpu")
 
 
-@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("fused", [None, True, False])
 def test_detect_program_batch_past_the_gate_matches_jax(fused):
-    """The fused route (K3 at M=64 < H=144) and ``fused=False`` (exact
-    rects, K3x) against the JAX XLA route, on the port's and JAX's own
-    logits."""
+    """The fused route (K3 at M=64 < H=144), ``fused=False`` (exact rects,
+    K3x) and the CPU's default (the XLA route, as JAX's CPU default)
+    against the JAX XLA route, on the port's and JAX's own logits."""
     imgs, ref_logits, xla = scans()
     cfg = load_net_config(ASSETS["separable"])
-    out, logits = port_fused() if fused is None else detect_program_batch(
+    out, logits = port_fused() if fused else detect_program_batch(
         load_params(ASSETS["separable"]), imgs, cfg, HW, fused=fused, device="cpu")
     np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
     assert_same_detections(out, xla, score_atol=1e-5)
@@ -100,7 +100,8 @@ def test_n_strips_match_the_whole_trunk_and_jax(n_strips):
     imgs, ref_logits, xla = scans()
     cfg = load_net_config(ASSETS["separable"])
     params = load_params(ASSETS["separable"])
-    out, logits = detect_program_batch(params, imgs, cfg, HW, n_strips=n_strips, device="cpu")
+    out, logits = detect_program_batch(params, imgs, cfg, HW, n_strips=n_strips, fused=True,
+                                       device="cpu")
     whole, whole_logits = port_fused()
     np.testing.assert_allclose(logits.numpy(), whole_logits.numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
@@ -148,11 +149,11 @@ def jax_preprocessed():
         jax_detect_preprocessed_batch(jparams, jnp.asarray(preprocessed()), jcfg, fused=False))
 
 
-@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("fused", [None, True, False])
 def test_detect_preprocessed_batch_matches_jax(fused):
-    """Normalized (B, H, W, 1) images: the port's fused route and
-    ``fused=False`` against JAX's ``detect_preprocessed_batch`` (its XLA
-    route on the CPU)."""
+    """Normalized (B, H, W, 1) images: the port's fused route,
+    ``fused=False`` and the CPU's default (the XLA route) against JAX's
+    ``detect_preprocessed_batch`` (its XLA route on the CPU)."""
     cfg = load_net_config(ASSETS["separable"])
     out, logits = detect_preprocessed_batch(
         load_params(ASSETS["separable"]), preprocessed(), cfg, fused=fused, device="cpu")

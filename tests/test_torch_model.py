@@ -171,9 +171,9 @@ def test_unported_routes_raise(kw, match):
     "kw",
     [
         # row strips over a 576x576 scene (the whole trunk's logits)
-        dict(n_strips=2, in_hw=(576, 576), out_hw=(576, 576)),
+        dict(n_strips=2, in_hw=(576, 576), out_hw=(576, 576), fused=True),
         # a 512x512 scene resized to 1024x1024: a 256x256 heatmap
-        dict(in_hw=(512, 512), out_hw=(1024, 1024)),
+        dict(in_hw=(512, 512), out_hw=(1024, 1024), fused=True),
     ],
 )
 def test_large_routes_are_served(kw):
@@ -210,7 +210,8 @@ def test_large_routes_are_served(kw):
         (dict(fused=False), "postprocess_batch"),
         # M >= H > 128: the JAX package takes its XLA caliper at M = H,
         # which is exact too; the port takes K3x
-        (dict(cfg=NetConfig(max_hull_points=512), out_hw=(1024, 64)), "postprocess_batch_fused"),
+        (dict(cfg=NetConfig(max_hull_points=512), out_hw=(1024, 64), fused=True),
+         "postprocess_batch_fused"),
     ],
 )
 def test_xla_route_entry_points_are_served(kw, post):

@@ -29,7 +29,7 @@ from ubdvss_tpu.ops.ccl import connected_components as jax_connected_components
 from ubdvss_tpu.ops.postproc import postprocess as jax_postprocess
 from ubdvss_tpu.ops.postproc import postprocess_batch as jax_postprocess_batch
 from ubdvss_tpu_torch import BarcodeDetector, NetConfig, detect_program, detect_program_batch
-from ubdvss_tpu_torch import load_net_config
+from ubdvss_tpu_torch import detect_preprocessed_batch, load_net_config
 from ubdvss_tpu_torch.ops.cuda.ccl_kernel import ccl_labels_from_logits
 from ubdvss_tpu_torch.ops.postproc import postprocess, postprocess_batch, postprocess_batch_fused
 from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
@@ -196,3 +196,100 @@ def test_detector_detect_and_heatmap_match_jax_on_a_512_scene():
         assert abs(o.score - r.score) < 1e-5
         assert_same_boxes(o.box[None], r.box[None], 1e-3)
         np.testing.assert_allclose(o.center, r.center, atol=1e-3)
+
+
+def striped_bar_page(seed=1):
+    """A (1, 512, 128) uint8 page, flat gray, with one upright 1D-code
+    band 400 px tall and 40 wide, its stripes constant down the band: the
+    detection mask's edges are straight, so each chain holds about 100
+    collinear points, more than the asset's max_hull_points=64."""
+    rng = np.random.default_rng(seed)
+    img = np.full((512, 128), 210, np.uint8)
+    stripes = np.repeat(rng.random(20) < 0.5, rng.integers(2, 5, 20))[:40]
+    img[40:440, 44 : 44 + len(stripes)] = np.where(stripes, 0, 255)
+    return img[None]
+
+
+def _port_mode(mode, img):
+    """The asset's config and weights in f32, bf16 (the weights cast, as
+    bench.py does) or int8 (qparams calibrated on the CPU on the page)."""
+    from ubdvss_tpu_torch.ops.quant import quantize_trunk
+
+    cfg = load_net_config(ASSETS["separable"])
+    params = load_params(ASSETS["separable"])
+    if mode == "bfloat16":
+        return cfg.replace(dtype="bfloat16"), {k: v.to(torch.bfloat16) for k, v in params.items()}, {}
+    if mode == "int8":
+        calib = torch.from_numpy((img.astype(np.float32) / 127.5 - 1.0)[..., None])
+        return cfg, params, dict(qparams=quantize_trunk(params, cfg, calib))
+    return cfg, params, {}
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+def test_fused_none_takes_the_exact_route_on_the_cpu(mode):
+    """``fused=None`` resolves by the device, as the JAX package resolves it
+    by the backend (ubdvss_tpu/inference.py:159-160, :478-479): on the CPU
+    ``detect_program_batch`` and ``detect_preprocessed_batch`` take the XLA
+    route, bit for bit the ``fused=False`` call, on the f32, bf16 and int8
+    branches.  The upright bar's box is then 400 px tall, as JAX's CPU
+    default gives it (f32: detections equal), while ``fused=True`` still
+    compacts each chain to its first 64 points and cuts the box short."""
+    img = striped_bar_page()
+    cfg, params, kw = _port_mode(mode, img)
+    x = (img.astype(np.float32) / 127.5 - 1.0)[..., None]
+    runs = {}
+    for fused in (None, False, True):
+        runs[fused] = (
+            detect_program_batch(params, img, cfg, (512, 128), fused=fused, device="cpu", **kw)[0],
+            detect_preprocessed_batch(params, x, cfg, fused=fused, device="cpu", **kw)[0],
+        )
+    for default, xla in zip(runs[None], runs[False]):
+        for key in xla:
+            assert torch.equal(default[key], xla[key]), key
+    default, fused = runs[None][0], runs[True][0]
+    assert int(default["num_detections"][0]) == int(fused["num_detections"][0]) == 1
+    tall = float(default["size"][0, 0].max())
+    assert tall >= 396 and float(fused["size"][0, 0].max()) < tall - 50
+    if mode == "float32":
+        jcfg, jparams = _jax_asset("separable")
+        ref, ref_logits = jax.device_get(jax_detect_program_batch(jparams, jnp.asarray(img), jcfg,
+                                                                  (512, 128)))
+        assert np.abs(ref_logits[..., 0]).min() > MARGIN
+        assert_same_detections(default, ref, score_atol=1e-5)
+
+
+def tall_page(seed=0):
+    """A (4160, 64) uint8 page (a 1040x16 heatmap, taller than 1024 rows)
+    with one 2D-code-like band 33 px wide over all but its first and last
+    20 rows, slanted by 0.004 px a row: one component of 1032 heatmap rows
+    whose chains are long staircases."""
+    H, W = 4160, 64
+    rng = np.random.default_rng(seed)
+    img = np.full((H, W), 210.0, np.float32) + rng.normal(0, 6, (H, W))
+    yy, xx = np.mgrid[0:H, 0:W]
+    u = xx - (32 + 0.004 * (yy - H / 2))
+    inside = (np.abs(u) <= 16) & (yy >= 20) & (yy < H - 20)
+    grid = rng.random((H // 6 + 2, W // 6 + 8)) < 0.5
+    dark = grid[yy // 6, ((u + 16) // 6).astype(int).clip(0, W // 6 + 7)]
+    img[inside] = np.where(dark[inside], 0.0, 255.0)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def test_detect_program_on_a_tall_page_matches_jax():
+    """detect_program on a page whose heatmap is taller than 1024 rows (K3x's
+    plain version here) against the JAX detect_program on the CPU: logits
+    within 1e-4; labels, valid, areas and classes identical, scores within
+    1e-5, boxes within 1e-3 px as corner sets (at 4096 px and beyond one f32
+    ulp is 4.9e-4 px, so 1e-4 is below the resolution of either side)."""
+    img = tall_page()
+    jcfg, jparams = _jax_asset("separable", max_components=4)
+    cfg = load_net_config(ASSETS["separable"]).replace(max_components=4)
+    ref, ref_logits = jax.device_get(jax_detect_program(jparams, jnp.asarray(img), jcfg, img.shape))
+    assert np.abs(ref_logits[..., 0]).min() > MARGIN
+    out, logits = detect_program(load_params(ASSETS["separable"]), img, cfg, img.shape,
+                                 device="cpu")
+    assert logits.shape == (1040, 16, 17)
+    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
+    assert int(ref["num_detections"]) == 1
+    assert float(np.asarray(ref["size"])[0].max()) > 1024 * cfg.scale
+    assert_same_detections(out, ref, score_atol=1e-5, box_atol=1e-3)

@@ -279,3 +279,42 @@ def test_hull_rule_keeps_the_lockstep_points_on_shapes():
             want = _convexify(v, valid, sign)
             assert torch.equal(hull_rows(v, valid, sign), want)
             assert torch.equal(slope_rule(v, valid, sign), want)
+
+
+def tall_masks(H=1088, W=96):
+    """(K=6, H, W) component masks of a map taller than 1024 rows: a thin
+    rectangle rotated 2 degrees over most rows, an upright bar over most
+    rows (two columns of collinear chain points), a bar slanted at a
+    golden-ratio slope over every row (staircase chains), a rotated
+    rectangle of a hundred rows, a notched blob and an empty slot."""
+    m = np.zeros((6, H, W), bool)
+    m[0] = _rotated_rect(H, W, 48, H / 2, 18, H - 80, 2.0)
+    m[1, 5 : H - 5, 10:14] = True
+    y = np.arange(H)
+    left = np.floor(20 + 0.0618 * y).astype(int)
+    for dx in range(4):
+        m[2, y, left + dx] = True
+    m[3] = _rotated_rect(H, W, 60, 300, 30, 100, -25.0)
+    m[4, 600:700, 30:70] = True
+    m[4, 630:660, 30:45] = False
+    return m
+
+
+def test_rect_exact_past_1024_rows_matches_jax_mask_stack():
+    """K3x's plain version at H=1088 (taller than 1024 rows) against the JAX
+    package's XLA rect, ``min_area_rect_from_mask_stack``, on the same component
+    masks: corners within 1e-4 as a set, sizes within 1e-4, the empty slot
+    invalid on both sides."""
+    from ubdvss_tpu.ops.rect import min_area_rect_from_mask_stack
+
+    masks = tall_masks()
+    ref = min_area_rect_from_mask_stack(jnp.asarray(masks.transpose(1, 2, 0)))
+    minx, maxx = _extremes(masks[None])
+    sel = min_area_rect_select(torch.from_numpy(minx), torch.from_numpy(maxx), None)
+    out = rects_from_selection(sel)
+    valid = np.asarray(ref["valid"])
+    np.testing.assert_array_equal(valid, masks.any((1, 2)))
+    np.testing.assert_array_equal(sel[0, 6].numpy() > 0.5, valid)
+    assert_same_boxes(out["points"][0].numpy()[valid], np.asarray(ref["points"])[valid])
+    np.testing.assert_allclose(np.sort(out["size"][0].numpy()[valid], -1),
+                               np.sort(np.asarray(ref["size"])[valid], -1), atol=1e-4, rtol=0)

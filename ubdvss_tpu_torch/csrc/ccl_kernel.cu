@@ -37,6 +37,8 @@
 //      roots, so a root is always the smaller index, and a union that finds
 //      its root relinked meanwhile retries from there;
 //   3. flatten: every foreground pixel takes find(p).
+// The passes' bodies are tiled.cuh's, which the large K12c
+// (geometry_kernel.cu) runs in one launch.
 // Every pair of neighbouring pixels is joined by pass 1 (same tile) or
 // pass 2 (different tiles), and links only ever point to smaller indices,
 // so each component's root is its minimum linear index.  Bound: 8 B a
@@ -50,6 +52,7 @@
 // f32 copy of the same logits.
 #include "common.cuh"
 #include "geometry.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -67,8 +70,6 @@ ccl_kernel(const T* __restrict__ logits, int* __restrict__ labels, int H, int W,
   for (int p = threadIdx.x; p < N; p += blockDim.x) out[p] = lab_s[p];
 }
 
-constexpr int kTileH = 32;
-constexpr int kTileW = 64;
 constexpr int kTileThreads = 512;
 constexpr int kSeamThreads = 128;
 constexpr int kFlattenThreads = 256;
@@ -78,72 +79,26 @@ template <class T>
 __global__ void __launch_bounds__(kTileThreads)
 ccl_tile_kernel(const T* __restrict__ logits, int* __restrict__ labels, int H, int W, float thr,
                 int connectivity) {
-  __shared__ int lab_s[kTileH * kTileW];
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const int tw = min(kTileW, W - x0);
-  const int n = tw * min(kTileH, H - y0);
-  const int N = H * W;
-  const T* lg = logits + static_cast<long long>(blockIdx.z) * N;
-  int* out = labels + static_cast<long long>(blockIdx.z) * N;
-  // tile-local linear index q = ly * tw + lx -> global index
-  auto global = [&](int q) {
-    const int ly = q / tw;
-    return (y0 + ly) * W + x0 + (q - ly * tw);
-  };
-  const geometry::FlatLabels lab{lab_s};
-  geometry::ccl_init(lab, [&](int q) { return geometry::widen(lg[global(q)]) > thr; }, 0, n, n);
-  __syncthreads();
-  geometry::ccl_merge(lab, tw, 0, 0, n, n, connectivity == 8);
-  __syncthreads();
-  geometry::ccl_flatten(lab, 0, n, n);
-  __syncthreads();
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    const int r = lab_s[q];
-    out[global(q)] = r == n ? N : global(r);
-  }
+  __shared__ int lab_s[tiled::kTileH * tiled::kTileW];
+  const long long N = static_cast<long long>(H) * W;
+  const geometry::Plane<T> det{logits + blockIdx.z * N, W, 1};
+  tiled::ccl_tile(det, labels + blockIdx.z * N, blockIdx.x, blockIdx.y, H, W, thr,
+                  connectivity == 8, lab_s);
 }
 
 // Pass 2: block (tile x, tile y, image); the tile's top row, then its left
 // and right columns.
 __global__ void __launch_bounds__(kSeamThreads)
 ccl_seam_kernel(int* __restrict__ labels, int H, int W, int connectivity) {
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const int tw = min(kTileW, W - x0);
-  const int th = min(kTileH, H - y0);
-  const int N = H * W;
-  const bool eight = connectivity == 8;
-  const geometry::FlatLabels lab{labels + static_cast<long long>(blockIdx.z) * N};
-  for (int i = threadIdx.x; i < tw + 2 * th; i += blockDim.x) {
-    const int lx = i < tw ? i : (i < tw + th ? 0 : tw - 1);
-    const int ly = i < tw ? 0 : (i < tw + th ? i - tw : i - tw - th);
-    const int x = x0 + lx;
-    const int y = y0 + ly;
-    const int p = y * W + x;
-    if (lab(p) == N) continue;
-    if (lx == 0 && x > 0 && lab(p - 1) != N) geometry::union_roots(lab, p, p - 1);
-    if (y == 0) continue;
-    const int q = p - W;
-    if (ly == 0 && lab(q) != N) geometry::union_roots(lab, p, q);
-    if (!eight) continue;
-    if (x > 0 && (lx == 0 || ly == 0) && lab(q - 1) != N) geometry::union_roots(lab, p, q - 1);
-    if (x + 1 < W && (lx == tw - 1 || ly == 0) && lab(q + 1) != N)
-      geometry::union_roots(lab, p, q + 1);
-  }
+  tiled::ccl_seam(labels + blockIdx.z * static_cast<long long>(H) * W, blockIdx.x, blockIdx.y, H,
+                  W, connectivity == 8);
 }
 
 // Pass 3: grid-stride over every pixel of the batch.
 __global__ void __launch_bounds__(kFlattenThreads)
 ccl_flatten_kernel(int* __restrict__ labels, long long total, int N) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += step) {
-    const long long b = i / N;
-    const int p = static_cast<int>(i - b * N);
-    const geometry::FlatLabels lab{labels + b * N};
-    if (lab(p) != N) lab(p) = geometry::find_root(lab, p);
-  }
+  tiled::ccl_flatten(labels, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x, total,
+                     static_cast<long long>(gridDim.x) * blockDim.x, N);
 }
 
 template <class T>
@@ -167,7 +122,8 @@ int labels_tiled(const void* logits, void* labels, int B, int H, int W, float th
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto lab = static_cast<int*>(labels);
-  const dim3 tiles((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  const dim3 tiles((W + tiled::kTileW - 1) / tiled::kTileW, (H + tiled::kTileH - 1) / tiled::kTileH,
+                   B);
   ccl_tile_kernel<T><<<tiles, kTileThreads, 0, s>>>(static_cast<const T*>(logits), lab, H, W,
                                                     thr, connectivity);
   int e = launch_status();

@@ -52,6 +52,8 @@
 //      block then sums its warps' sets in order into the tile's partials;
 //   4. slots_finish: each (slot, channel) sum over the image's tiles in
 //      order, and the padding slots' copies of the background's extremes.
+// The phases' bodies are tiled.cuh's, which the large K12c
+// (geometry_kernel.cu) runs in one launch, so the two agree bit for bit.
 // No float atomic anywhere, so two launches agree bit for bit; the order
 // of the sums differs from the cluster kernel's, so the two agree within
 // f32 rounding, not bit for bit.  Bound: the cluster kernel's bytes.
@@ -65,6 +67,7 @@
 
 #include "common.cuh"
 #include "geometry.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -111,29 +114,10 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
   cluster.sync();  // block 1's shared memory lives until block 0 has read it
 }
 
-// ---- component_slots_tiled ----
+// ---- component_slots_tiled: one kernel a phase of tiled.cuh ----
 
 constexpr int kRankThreads = 256;
 constexpr int kPassThreads = 256;  // at most, 8 warps a pass block
-
-// The block-wide sum of v, returned to every thread (the block is whole
-// warps).
-__device__ inline int block_sum(int v) {
-  __shared__ int s_part[32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(geometry::kFull, v, o);
-  __syncthreads();  // s_part may still be read by an earlier call
-  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int t = 0;
-  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t += s_part[w];
-  return t;
-}
-
-template <class T>
-__device__ inline bool is_root(const geometry::Plane<T>& det, const int* lab, int p, int W,
-                               float thr) {
-  return __ldg(lab + p) == p && det(p / W, p % W) > thr;
-}
 
 // 1. block (chunk, image)
 template <class T>
@@ -146,11 +130,8 @@ roots_count_kernel(const T* __restrict__ logits, long long sb, long long sy, lon
   const long long b = blockIdx.y;
   const int N = H * W;
   const geometry::Plane<T> det{logits + b * sb, sy, sx};
-  const int* lab = labels + b * N;
-  const int p1 = min(c * chunk + chunk, N);
-  int cnt = 0;
-  for (int p = c * chunk + threadIdx.x; p < p1; p += blockDim.x) cnt += is_root(det, lab, p, W, thr);
-  cnt = block_sum(cnt);
+  const geometry::GlobalLabels lab{labels + b * N};
+  const int cnt = tiled::roots_count(det, lab, c, H, W, chunk, thr);
   if (threadIdx.x == 0) counts[b * gridDim.x + c] = cnt;
   int* mn = minx + b * K * H;
   int* mx = maxx + b * K * H;
@@ -167,59 +148,11 @@ roots_rank_kernel(const T* __restrict__ logits, long long sb, long long sy, long
                   const int* __restrict__ labels, const int* __restrict__ counts,
                   int* __restrict__ rootvals, int* __restrict__ nroots, int H, int W, int K,
                   int chunk, float thr) {
-  __shared__ int s_warp[32];
-  const int c = blockIdx.x;
   const long long b = blockIdx.y;
-  const int nchunks = gridDim.x;
-  const int N = H * W;
-  const int* cn = counts + b * nchunks;
-  int before = 0, total = 0;
-  for (int i = threadIdx.x; i < nchunks; i += blockDim.x) {
-    total += cn[i];
-    if (i < c) before += cn[i];
-  }
-  before = block_sum(before);
-  total = block_sum(total);
-  int* roots = rootvals + b * K;
-  if (c == 0) {
-    for (int i = total + threadIdx.x; i < K; i += blockDim.x) roots[i] = N;
-    if (threadIdx.x == 0) nroots[b] = total;
-  }
-  if (cn[c] == 0 || before >= K) return;  // uniform over the block
-  // a contiguous run of the chunk per thread, ranked by a block-wide
-  // exclusive prefix sum of the runs' root counts
   const geometry::Plane<T> det{logits + b * sb, sy, sx};
-  const int* lab = labels + b * N;
-  const int p0 = c * chunk;
-  const int n = min(p0 + chunk, N) - p0;
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int begin = p0 + min(static_cast<int>(threadIdx.x) * per, n);
-  const int end = min(begin + per, p0 + n);
-  int cnt = 0;
-  for (int p = begin; p < end; ++p) cnt += is_root(det, lab, p, W, thr);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int incl = cnt;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(geometry::kFull, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nw ? s_warp[lane] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(geometry::kFull, v, off);
-      if (lane >= off) v += u;
-    }
-    if (lane < nw) s_warp[lane] = v;  // inclusive warp totals
-  }
-  __syncthreads();
-  int rank = before + (warp > 0 ? s_warp[warp - 1] : 0) + incl - cnt;
-  for (int p = begin; p < end && rank < K; ++p) {
-    if (is_root(det, lab, p, W, thr)) roots[rank++] = p;
-  }
+  const geometry::GlobalLabels lab{labels + b * H * W};
+  tiled::roots_rank(det, lab, counts + b * gridDim.x, blockIdx.x, gridDim.x, rootvals + b * K,
+                    nroots + b, H, W, K, chunk, thr);
 }
 
 // 3. block (tile column, tile row, image); dynamic shared memory: K roots,
@@ -233,76 +166,14 @@ slots_tile_kernel(const T* __restrict__ logits, long long sb, long long sy, long
                   float* __restrict__ tpart, int* __restrict__ tcnt, int H, int W, int K,
                   int tile_rows, float thr) {
   extern __shared__ int sm[];
-  const int nw = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const long long b = blockIdx.z;
-  int* root = sm;
-  float* part = reinterpret_cast<float*>(sm + K);
-  int* cnt = reinterpret_cast<int*>(part + nw * K * C);
-  for (int i = threadIdx.x; i < K; i += blockDim.x) root[i] = rootvals[b * K + i];
-  for (int i = threadIdx.x; i < nw * K * C; i += blockDim.x) part[i] = 0.f;
-  for (int i = threadIdx.x; i < nw * K; i += blockDim.x) cnt[i] = 0;
-  __syncthreads();
-  const int N = H * W;
-  const int total = nroots[b];
-  const int nvalid = min(total, K);
-  const int bg_slot = total < K ? K - 1 : K;
-  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
-  const geometry::Plane<T> det{lg.p, sy, sx};
-  const int* lab = labels + b * N;
-  int* sl = slots + b * N;
-  int* mn = minx + b * K * H;
-  int* mx = maxx + b * K * H;
-  float* w_part = part + warp * K * C;
-  int* w_cnt = cnt + warp * K;
-  const int x = (blockIdx.x * nw + warp) * 32 + lane;
-  const int y0 = blockIdx.y * tile_rows;
-  const int y1 = min(y0 + tile_rows, H);
-  geometry::StatsAcc<CM, T> acc;
-  acc.reset(K);
-  for (int y = y0; y < y1; ++y) {
-    int slot = K;
-    float d = 0.f;
-    if (x < W) {
-      acc.fetch(lg, y, x);
-      d = det(y, x);
-      const int lp = __ldg(lab + y * W + x);  // loaded beside d, not after it
-      const int l = d > thr ? lp : N;
-      if (l == N) {
-        slot = bg_slot;
-      } else {
-        int lo = 0, hi = nvalid;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (root[mid] < l) lo = mid + 1; else hi = mid;
-        }
-        slot = (lo < nvalid && root[lo] == l) ? lo : K;
-      }
-      sl[y * W + x] = slot;
-    }
-    const unsigned grp = __match_any_sync(geometry::kFull, slot);
-    if (slot < K) {
-      if (lane == __ffs(grp) - 1) atomicMin(&mn[slot * H + y], x);
-      if (lane == 31 - __clz(grp)) atomicMax(&mx[slot * H + y], x);
-    }
-    acc.add(lg, slot, d, K, w_part, w_cnt);
-  }
-  if (__ballot_sync(geometry::kFull, acc.slot < K)) acc.flush(acc.slot < K, K, C, w_part, w_cnt);
-  __syncthreads();
+  const long long N = static_cast<long long>(H) * W;
   const long long tile = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  float* tp = tpart + tile * K * C;
-  int* tc = tcnt + tile * K;
-  for (int i = threadIdx.x; i < K * C; i += blockDim.x) {
-    float v = 0.f;
-    for (int w = 0; w < nw; ++w) v += part[w * K * C + i];
-    tp[i] = v;
-  }
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    int a = 0;
-    for (int w = 0; w < nw; ++w) a += cnt[w * K + k];
-    tc[k] = a;
-  }
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
+  const geometry::GlobalLabels lab{labels + b * N};
+  tiled::slots_tile<CM>(lg, lab, rootvals + b * K, nroots[b], slots + b * N, minx + b * K * H,
+                        maxx + b * K * H, tpart + tile * K * C, tcnt + tile * K, blockIdx.x,
+                        blockIdx.y, blockDim.x >> 5, H, W, K, tile_rows, thr, sm);
 }
 
 // 4. block (part of the image's K*(C+1) sums, image)
@@ -314,33 +185,12 @@ slots_finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcn
                     int C, int tiles) {
   const long long b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const float* tp = tpart + b * tiles * K * C;
-  const int* tc = tcnt + b * tiles * K;
-  if (i < K * C) {
-    float v = 0.f;
-    for (int t = 0; t < tiles; ++t) v += tp[static_cast<long long>(t) * K * C + i];
-    const int k = i / C;
-    const int c = i - k * C;
-    if (c == 0) {
-      det_sums[b * K + k] = v;
-    } else {
-      cls_sums[(b * K + k) * (C - 1) + c - 1] = v;
-    }
-  } else if (i < K * C + K) {
-    const int k = i - K * C;
-    int a = 0;
-    for (int t = 0; t < tiles; ++t) a += tc[static_cast<long long>(t) * K + k];
-    areas[b * K + k] = static_cast<float>(a);
-    if (C == 1) cls_sums[b * K + k] = 0.f;
-  }
+  tiled::slots_finish_sum(tpart + b * tiles * K * C, tcnt + b * tiles * K, areas + b * K,
+                          det_sums + b * K, cls_sums + b * K * max(C - 1, 1), i, K, C, tiles);
   // padding slots carry the background's extremes (slot K-1's)
   const int nvalid = min(nroots[b], K);
-  int* mn = minx + b * K * H;
-  int* mx = maxx + b * K * H;
   for (int j = nvalid * H + i; j < (K - 1) * H; j += gridDim.x * blockDim.x) {
-    const int src = (K - 1) * H + j % H;
-    mn[j] = mn[src];
-    mx[j] = mx[src];
+    tiled::slots_pad_extremes(minx + b * K * H, maxx + b * K * H, j, H, K);
   }
 }
 

@@ -45,7 +45,12 @@
 //      alive row is <= the smallest slope from p to a later one (a
 //      supporting line through p leaves every point on one side; slopes
 //      compared by int32 cross-multiplication): threads over rows, O(n)
-//      steps each;
+//      steps each; the exact kernel first compacts each chain's alive rows
+//      to a list of (x, y, row) and runs the rule over the lists, threads
+//      over the alive rows of both chains, so that its cost is the square
+//      of the rows still alive, not of H (on a rotated bar over 1088 rows,
+//      H100 80GB HBM3: 0.57 ms with the rule over every row, 0.13-0.15 ms
+//      with the lists);
 //   3. a chain's kept rows are ranked by ballot and popc, its first M
 //      packed (all of them in the exact kernel, where M = H);
 //   4. the compact kernel: threads take the valid directions (consecutive
@@ -62,7 +67,21 @@
 //      row, and one component's critical path stays short at B=1;
 //   5. the minimum area, the caliper key among the ties and the lowest
 //      direction among those are block reductions.
-// H <= 1024 for the exact kernel: its shared memory is then 119 KB.
+// The exact kernel keeps a component's rows, points and directions in
+// shared memory, about 116.5 B a row (rect_smem_bytes): it serves H up to
+// kMaxExactHeight (1994 rows, an A4 page at 600 dpi is 1754), the height
+// whose bytes and the static reduction slots fill one block's 232,448 B.
+//
+// Taller maps take the tall instance (rect_tall_kernel running
+// rect_component<true, true>, entry rect_select_exact_tall): the same steps
+// and the same selection, with the rows, points and directions in a
+// device-memory workspace of 116 B a row a component that the caller
+// allocates (only the chains' bitmasks stay in shared memory), 512 threads
+// a block, and persistent blocks: block b takes components b, b + grid,
+// ... in workspace slot b, so the workspace is bounded whatever B * K.  The
+// workspace slots (475 KB a component at H = 4096) stay in L2 between the
+// steps, so the tall instance is bound, as the one-block kernel, by one
+// component's critical path.
 #include <climits>
 
 #include "common.cuh"
@@ -123,12 +142,16 @@ __device__ __forceinline__ int next_bit(const unsigned* m, int k, int lane, int 
 
 // One block of 4 warps per component, in both kernels (256 and 512 threads
 // were slower for the exact kernel at both the stream's and a detect
-// call's shapes).
+// call's shapes); 16 warps in the tall instance, whose slope rule and
+// projections walk thousands of rows.
 constexpr int kThreads = 128;
+constexpr int kTallThreads = 512;
 
-// Block-wide ordered compaction: every thread of the block calls this once
-// a pass with its flag; returns the thread's slot among the flagged threads
-// of the pass, counting from n, and adds the pass's count to n.
+// Block-wide ordered compaction: every thread of the block (kT threads)
+// calls this once a pass with its flag; returns the thread's slot among the
+// flagged threads of the pass, counting from n, and adds the pass's count
+// to n.
+template <int kT>
 __device__ __forceinline__ int compact_slot(bool ok, int& n, int* s_cnt) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -136,7 +159,7 @@ __device__ __forceinline__ int compact_slot(bool ok, int& n, int* s_cnt) {
   if (lane == 0) s_cnt[warp] = __popc(m);
   __syncthreads();
   int off = n + __popc(m & ((1u << lane) - 1u));
-  for (int w = 0; w < kThreads / 32; ++w) {
+  for (int w = 0; w < kT / 32; ++w) {
     off += w < warp ? s_cnt[w] : 0;
     n += s_cnt[w];
   }
@@ -144,29 +167,59 @@ __device__ __forceinline__ int compact_slot(bool ok, int& n, int* s_cnt) {
   return off;
 }
 
-// Bytes of shared memory: the exact kernel's valid rows as float4 (min x,
-// max x, y; H), the packed chain points (float2, 2M), for each of the 2M
-// directions ux, uy, min_u, max_u, min_v, max_v, area and the caliper key,
-// the compacted valid rows (y, min x, max x; H each), two chains' alive and
-// deleted bitmasks, and the exact kernel's kept directions' slots (2M).
+// Bytes of a component's arrays: the exact kernel's valid rows as float4
+// (min x, max x, y; H), the packed chain points (float2, 2M), for each of
+// the 2M directions ux, uy, min_u, max_u, min_v, max_v, area and the
+// caliper key, the compacted valid rows (y, min x, max x; H each), two
+// chains' alive and deleted bitmasks, and the exact kernel's kept
+// directions' slots (2M).  All in shared memory, or (kTall) all but the
+// bitmasks in the workspace.
+__host__ __device__ constexpr size_t rect_bitmask_bytes(int H) {
+  return 16 * static_cast<size_t>((H + 31) / 32);
+}
+
 template <bool kExact>
 __host__ __device__ constexpr size_t rect_smem_bytes(int H, int M) {
   return ((kExact ? 4 * static_cast<size_t>(H) : 0) + 4 * static_cast<size_t>(M) +
           16 * static_cast<size_t>(M) + 3 * static_cast<size_t>(H) +
-          4 * static_cast<size_t>((H + 31) / 32) + (kExact ? 2 * static_cast<size_t>(M) : 0)) *
-         4;
+          (kExact ? 2 * static_cast<size_t>(M) : 0)) *
+             4 +
+         rect_bitmask_bytes(H);
 }
 
-constexpr int kMaxExactHeight = 1024;
+// A component's workspace slot in the tall instance, 16-byte aligned.
+__host__ __device__ constexpr size_t rect_tall_slot_bytes(int H) {
+  return (rect_smem_bytes<true>(H, H) - rect_bitmask_bytes(H) + 15) / 16 * 16;
+}
+
+// The block reductions' slots, static shared memory beside the arrays.
+template <int kT>
+struct RectShared {
+  int cnt[kT / 32], mn[kT / 32], mx[kT / 32], first[kT / 32], nchain[2], moving[2];
+  float amin[kT / 32], phi[kT / 32];
+};
+
+// The largest H whose arrays fit one block's shared memory beside the
+// reduction slots: the exact kernel's cap, the tall instance above it.
+constexpr size_t kSmemLimit = 232448;
+constexpr int max_exact_height() {
+  int h = 1;
+  while (rect_smem_bytes<true>(h + 1, h + 1) + sizeof(RectShared<kThreads>) <= kSmemLimit) ++h;
+  return h;
+}
+constexpr int kMaxExactHeight = max_exact_height();
 constexpr int kRounds = 4;  // lockstep rounds before the slope rule finishes
 
-template <bool kExact>
-__global__ void __launch_bounds__(kThreads)
-rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
-            float* __restrict__ out, int K, int H, int M) {
-  extern __shared__ float4 smem4[];
-  float4* rows = smem4;  // kExact: (min x, max x, y) of the valid rows
-  float2* pts = reinterpret_cast<float2*>(smem4 + (kExact ? H : 0));  // left [0, M), right [M, 2M)
+// One component.  ``big`` holds its arrays (shared memory, or kTall its
+// workspace slot), ``bits`` (kTall) the bitmasks in shared memory.
+template <bool kExact, bool kTall>
+__device__ __forceinline__ void rect_component(
+    const int* __restrict__ minx, const int* __restrict__ maxx, float* __restrict__ out,
+    int comp, int K, int H, int M, float4* big, unsigned* bits,
+    RectShared<kTall ? kTallThreads : kThreads>& st) {
+  constexpr int kT = kTall ? kTallThreads : kThreads;
+  float4* rows = big;  // kExact: (min x, max x, y) of the valid rows
+  float2* pts = reinterpret_cast<float2*>(big + (kExact ? H : 0));  // left [0, M), right [M, 2M)
   const int D = 2 * M;
   const int NW = (H + 31) / 32;
   float* d_ux = reinterpret_cast<float*>(pts + D);  // per direction
@@ -180,14 +233,20 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   int* r_y = reinterpret_cast<int*>(d_phi + D);  // valid rows, compacted
   int* r_l = r_y + H;
   int* r_r = r_l + H;
-  unsigned* alive = reinterpret_cast<unsigned*>(r_r + H);  // (2, NW)
-  unsigned* dead = alive + 2 * NW;                        // (2, NW)
-  int* u_d = reinterpret_cast<int*>(dead + 2 * NW);  // kExact: kept directions' slots
-  constexpr int kW = kThreads / 32;
-  __shared__ int s_cnt[kW], s_mn[kW], s_mx[kW], s_first[kW], s_nchain[2], s_moving[2];
-  __shared__ float s_amin[kW], s_phi[kW];
+  unsigned* alive = kTall ? bits : reinterpret_cast<unsigned*>(r_r + H);  // (2, NW)
+  unsigned* dead = alive + 2 * NW;                                         // (2, NW)
+  // kExact: kept directions' slots
+  int* u_d = kTall ? r_r + H : reinterpret_cast<int*>(dead + 2 * NW);
+  constexpr int kW = kT / 32;
+  int* const s_cnt = st.cnt;
+  int* const s_mn = st.mn;
+  int* const s_mx = st.mx;
+  int* const s_first = st.first;
+  int* const s_nchain = st.nchain;
+  int* const s_moving = st.moving;
+  float* const s_amin = st.amin;
+  float* const s_phi = st.phi;
 
-  const int comp = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -196,12 +255,12 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   // 1. compact the valid rows; the horizontal candidate's extents
   const long long base = static_cast<long long>(comp) * H;
   int n = 0, mn = kBig, mx = -kBig;
-  for (int y0 = 0; y0 < H; y0 += kThreads) {
+  for (int y0 = 0; y0 < H; y0 += kT) {
     const int y = y0 + tid;
     const int l = y < H ? minx[base + y] : 0;
     const int r = y < H ? maxx[base + y] : -1;
     const bool ok = r >= 0;
-    const int off = compact_slot(ok, n, s_cnt);
+    const int off = compact_slot<kT>(ok, n, s_cnt);
     if (ok) {
       r_y[off] = y;
       r_l[off] = l;
@@ -278,11 +337,57 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
     s_moving[warp] = 0;
   }
   __syncthreads();
-  if (s_moving[0] || s_moving[1]) {
+  if (kExact && (s_moving[0] || s_moving[1])) {
+    // the slope rule below over each chain's alive rows only: the rows
+    // compacted in order to (x, y, row) lists, left in [0, n), right in
+    // [H, H + n) of the directions' arrays (unused until step 3; the
+    // compact kernel's, 2M a direction array, are too small for them)
+    const int S = mx + 1;  // > |dx| of any two rows: a slope sentinel
+    int4* lst = reinterpret_cast<int4*>(d_ux);
+    int cl = 0, cr = 0;
+    for (int i0 = 0; i0 < n; i0 += kT) {
+      const int i = i0 + tid;
+      const bool own = i < n;
+      const unsigned bit = 1u << (i & 31);
+      const bool al_l = own && (alive[i >> 5] & bit);
+      const bool al_r = own && (alive[NW + (i >> 5)] & bit);
+      const int ol = compact_slot<kT>(al_l, cl, s_cnt);
+      if (al_l) lst[ol] = make_int4(r_l[i], r_y[i], i, 0);
+      const int orr = compact_slot<kT>(al_r, cr, s_cnt);
+      if (al_r) lst[H + orr] = make_int4(r_r[i], r_y[i], i, 0);
+    }
+    for (int k = tid; k < 2 * NW; k += kT) dead[k] = 0;
+    __syncthreads();
+    for (int a = tid; a < cl + cr; a += kT) {
+      const bool left = a < cl;
+      const int4* L = left ? lst : lst + H;
+      const int cn = left ? cl : cr;
+      const int ai = left ? a : a - cl;
+      const int sg = left ? 1 : -1;
+      const int4 p = L[ai];
+      int e_n = -S, e_d = 1, f_n = S, f_d = 1;
+      for (int b = 0; b < cn; ++b) {
+        const int4 q = L[b];
+        if (b < ai) {
+          const int num = sg * (p.x - q.x);
+          if (steeper(num, p.y - q.y, e_n, e_d)) { e_n = num; e_d = p.y - q.y; }
+        } else if (b > ai) {
+          const int num = sg * (q.x - p.x);
+          if (steeper(f_n, f_d, num, q.y - p.y)) { f_n = num; f_d = q.y - p.y; }
+        }
+      }
+      if (!steeper(e_n, e_d, f_n, f_d)) {
+        atomicOr(&dead[(left ? 0 : NW) + (p.z >> 5)], 1u << (p.z & 31));
+      }
+    }
+    __syncthreads();
+    for (int k = tid; k < 2 * NW; k += kT) alive[k] = dead[k];
+    __syncthreads();
+  } else if (s_moving[0] || s_moving[1]) {
     // a row stays iff its largest slope dx/dy back to an alive row is <= its
     // smallest slope forward; threads over rows, both chains at once
     const int S = mx + 1;  // > |dx| of any two rows: a slope sentinel
-    for (int i0 = 0; i0 < n; i0 += kThreads) {
+    for (int i0 = 0; i0 < n; i0 += kT) {
       const int i = i0 + tid;
       const bool own = i < n;
       const int yi = own ? r_y[i] : 0;
@@ -316,7 +421,7 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
       }
     }
     __syncthreads();
-    for (int k = tid; k < 2 * NW; k += kThreads) alive[k] = dead[k];
+    for (int k = tid; k < 2 * NW; k += kT) alive[k] = dead[k];
     __syncthreads();
   }
   if (warp < 2 && has) {
@@ -351,7 +456,7 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
     // keep a direction unless it equals the one before it on its chain,
     // compacted in order: u_d[j] is the slot, index j its arrays
     cnt = 0;
-    for (int c0 = 0; c0 < ndir; c0 += kThreads) {
+    for (int c0 = 0; c0 < ndir; c0 += kT) {
       const int c = c0 + tid;
       const int d = c < ndl ? c : M + (c - ndl);
       float ex = 0.f, ey = 0.f;
@@ -362,7 +467,7 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
         keep = c == 0 || c == ndl || ex != pts[d].x - pts[d - 1].x ||
                ey != pts[d].y - pts[d - 1].y;
       }
-      const int j = compact_slot(keep, cnt, s_cnt);
+      const int j = compact_slot<kT>(keep, cnt, s_cnt);
       if (keep) {
         const float el2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
         const float inv = rsqrtf(fmaxf(el2, 1e-30f));
@@ -374,8 +479,8 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
     __syncthreads();
     // G lanes a direction, each over every G-th valid row's two extremes
     int G = 1;
-    while (G < 32 && cnt * 2 * G <= kThreads) G *= 2;
-    const int groups = kThreads / G;
+    while (G < 32 && cnt * 2 * G <= kT) G *= 2;
+    const int groups = kT / G;
     const int g = tid / G;
     const int gl = tid - g * G;
     for (int j0 = 0; j0 < cnt; j0 += groups) {
@@ -412,7 +517,7 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   } else {
     // threads over the valid directions, each projected over the nl + nr
     // packed points
-    for (int c = tid; c < ndir; c += kThreads) {
+    for (int c = tid; c < ndir; c += kT) {
       const int d = c < ndl ? c : M + (c - ndl);
       const float ex = pts[d + 1].x - pts[d].x;
       const float ey = pts[d + 1].y - pts[d].y;
@@ -452,7 +557,7 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   amin = fminf(amin, h_area);
   const float thresh = __fadd_rn(__fmul_rn(amin, 1.000001f), 1e-9f);
   float phi = kInf;
-  for (int c = tid; c < cnt; c += kThreads) {
+  for (int c = tid; c < cnt; c += kT) {
     if (d_area[at(c)] <= thresh) phi = fminf(phi, d_phi[at(c)]);
   }
   phi = warp_min(phi);
@@ -461,7 +566,7 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
   float best = (hok && h_area <= thresh) ? 0.f : kInf;
   for (int w = 0; w < kW; ++w) best = fminf(best, s_phi[w]);
   int first = INT_MAX;
-  for (int c = tid; c < cnt; c += kThreads) {
+  for (int c = tid; c < cnt; c += kT) {
     if (d_area[at(c)] <= thresh && d_phi[at(c)] <= best) {
       first = c;
       break;
@@ -500,6 +605,29 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
 }
 
 template <bool kExact>
+__global__ void __launch_bounds__(kThreads)
+rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
+            float* __restrict__ out, int K, int H, int M) {
+  extern __shared__ float4 smem4[];
+  __shared__ RectShared<kThreads> st;
+  rect_component<kExact, false>(minx, maxx, out, blockIdx.x, K, H, M, smem4, nullptr, st);
+}
+
+// Persistent blocks over the B * K components, block b in workspace slot b.
+__global__ void __launch_bounds__(kTallThreads)
+rect_tall_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
+                 float* __restrict__ out, unsigned char* __restrict__ ws, int n_comp, int K,
+                 int H) {
+  extern __shared__ unsigned bits_s[];
+  __shared__ RectShared<kTallThreads> st;
+  float4* slot = reinterpret_cast<float4*>(ws + blockIdx.x * rect_tall_slot_bytes(H));
+  for (int comp = blockIdx.x; comp < n_comp; comp += gridDim.x) {
+    rect_component<true, true>(minx, maxx, out, comp, K, H, H, slot, bits_s, st);
+    __syncthreads();  // the slot and the shared memory are the next component's
+  }
+}
+
+template <bool kExact>
 int launch_rect(const void* minx, const void* maxx, void* out, int B, int K, int H, int M,
                 void* stream) {
   const size_t smem = rect_smem_bytes<kExact>(H, M);
@@ -522,9 +650,38 @@ extern "C" int rect_select(const void* minx, const void* maxx, void* out,
   return launch_rect<false>(minx, maxx, out, B, K, H, M, stream);
 }
 
-// The same without compaction (M = H <= 1024), every valid row projected.
+// The same without compaction (M = H <= rect_exact_max_height()), every
+// valid row projected.
 extern "C" int rect_select_exact(const void* minx, const void* maxx, void* out,
                                  int B, int K, int H, void* stream) {
   if (B <= 0 || K <= 0 || H <= 0 || H > kMaxExactHeight) return cudaErrorInvalidValue;
   return launch_rect<true>(minx, maxx, out, B, K, H, H, stream);
 }
+
+// The same for any H, the tall instance: ``ws`` holds ``slots`` workspace
+// slots of rect_tall_slot_bytes(H) (16-byte aligned), one a block.
+extern "C" int rect_select_exact_tall(const void* minx, const void* maxx, void* out, void* ws,
+                                      int B, int K, int H, int slots, void* stream) {
+  if (B <= 0 || K <= 0 || H <= 0 || slots <= 0 ||
+      static_cast<long long>(B) * K * H >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const size_t smem = rect_bitmask_bytes(H);
+  if (smem + sizeof(RectShared<kTallThreads>) > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(rect_tall_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_comp = B * K;
+  rect_tall_kernel<<<n_comp < slots ? n_comp : slots, kTallThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(minx), static_cast<const int*>(maxx), static_cast<float*>(out),
+      static_cast<unsigned char*>(ws), n_comp, K, H);
+  return launch_status();
+}
+
+// The exact kernel's height cap and the tall instance's bytes a workspace
+// slot (H < 2^24), from the formulas the kernels use; the wrapper computes
+// the same from its copy of them, and the card's tests hold the two equal.
+extern "C" int rect_exact_max_height() { return kMaxExactHeight; }
+
+extern "C" int rect_tall_slot_size(int H) { return static_cast<int>(rect_tall_slot_bytes(H)); }

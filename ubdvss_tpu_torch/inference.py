@@ -7,8 +7,10 @@ Counterpart of ``ubdvss_tpu/inference.py``:
     and ``.heatmap`` go through it, as in the JAX package.
   * ``detect_program_batch`` — a batch: grayscale -> (resize + normalize,
     or the raw no-resize fold into the stem) -> FCN trunk (whole, or over
-    ``n_strips`` row strips) -> the fused postprocessing (``fused=None`` or
-    ``True``) or the XLA route's ``postprocess_batch`` (``fused=False``).
+    ``n_strips`` row strips) -> the fused postprocessing (``fused=True``)
+    or the XLA route's ``postprocess_batch`` (``fused=False``).  As in the
+    JAX package, ``fused=None`` resolves by the device: fused on the card,
+    as JAX is fused on its TPU, the XLA route on the CPU.
   * ``detect_preprocessed_batch`` — the same over already-normalized
     (B, H, W, 1) images.
 
@@ -29,8 +31,9 @@ side take the XLA route (``fused=False``).  The trunk, by
 
 The int8 route (``qparams`` from ``ops/quant.quantize_trunk``, the JAX
 package's production serving mode; ``NetConfig.dtype`` is not read on it,
-as in JAX) runs ``int8_trunk_apply`` — ten launches of the int8 conv
-kernel — and the same postprocessing: ``detect_program_int8`` for one
+as in JAX) runs ``int8_trunk_apply`` — eight launches of the int8 conv
+kernels: ``qstem``, ``qconv`` for six context layers and ``qconv_head`` —
+and the same postprocessing: ``detect_program_int8`` for one
 image, ``detect_program_batch(qparams=)`` (raw grayscale when no resize is
 needed, else the resized image normalized with one rounding; no heatmap
 limit, as the JAX int8 branch comes before it) and
@@ -112,10 +115,17 @@ def _fused_heatmap_limit(cfg: NetConfig) -> int:
     return 1024 if cfg.separable_context else 512
 
 
-def _fused_route(cfg: NetConfig, hw, fused: bool | None) -> bool:
-    """The JAX package's route choice: fused unless asked otherwise or the
+def _resolve_fused(fused: bool | None, dev: torch.device) -> bool:
+    """``fused=None`` resolved by the device, as the JAX package resolves it
+    by the backend (``ubdvss_tpu/inference.py:159-160``, :478-479): the
+    fused route on the card, the XLA route on the CPU."""
+    return dev.type == "cuda" if fused is None else bool(fused)
+
+
+def _fused_route(cfg: NetConfig, hw, fused: bool) -> bool:
+    """The JAX package's route choice: the resolved ``fused`` unless the
     heatmap exceeds ``_fused_heatmap_limit``."""
-    return fused is not False and max(hw) // cfg.scale <= _fused_heatmap_limit(cfg)
+    return fused and max(hw) // cfg.scale <= _fused_heatmap_limit(cfg)
 
 
 def _tiled_trunk(trunk, x: torch.Tensor, cfg: NetConfig, n_strips: int | None) -> torch.Tensor:
@@ -187,15 +197,18 @@ def detect_program_batch(
     route, as in the JAX package; ``n_strips > 1`` runs the fused route's
     trunk over that many row strips (``ops/strips.py``), which gives the
     same logits.  ``qparams`` takes the int8 route (``ops/quant.py``) at
-    any heatmap size, fused unless ``fused=False``.
+    any heatmap size.  ``fused=None`` is the fused route on the card and
+    the XLA route on the CPU, on every branch, as the JAX package resolves
+    it by its backend before the int8 branch.
     """
     _check_route(cfg, tuple(out_hw), qparams, mesh)
     dev = resolve_device(device)
+    fused = _resolve_fused(fused, dev)
     x = torch.as_tensor(imgs).to(dev)
     if qparams is not None:
         return _detect_program_batch_int8(
             qparams_to(qparams, dev), x, cfg, tuple(out_hw), channel_order,
-            fused is not False, detections_only,
+            fused, detections_only,
         )
     params = {k: v.to(dev) for k, v in params.items()}
     fused = _fused_route(cfg, out_hw, fused)
@@ -286,12 +299,13 @@ def detect_preprocessed_batch(
     hw = tuple(x.shape[1:3])
     _check_route(cfg, hw, qparams, mesh)
     dev = resolve_device(device)
+    fused = _resolve_fused(fused, dev)
     x = x.to(dev)
     if qparams is not None:
         with torch.inference_mode():
             x = x.to(torch.float32).contiguous()
             logits = int8_trunk_apply(qparams_to(qparams, dev), x, cfg)
-            post = postprocess_batch if fused is False else postprocess_batch_fused
+            post = postprocess_batch_fused if fused else postprocess_batch
             return post(logits, cfg), logits
     params = {k: v.to(dev) for k, v in params.items()}
     fused = _fused_route(cfg, hw, fused)

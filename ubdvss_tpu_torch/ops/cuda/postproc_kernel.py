@@ -22,7 +22,10 @@ Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
     ``component_slots`` takes it where K12c cannot run.
   * ``geometry_compat`` — CCL, slots and stats as one kernel (K12c,
     ``_geometry_kernel_compat``; a cluster of two blocks per image), the
-    same outputs as slots after CCL, stats bit for bit.
+    same outputs as slots after CCL, stats bit for bit; past
+    ``geometry_compat_fits`` it launches ``geometry_compat_large``, the
+    phases of ``ccl_labels_tiled`` and ``component_slots_tiled`` in one
+    cooperative launch, equal to that pair bit for bit.
   * ``component_geometry`` — CCL (``ccl_kernel``) then slots, or, when
     ``UBDVSS_PALLAS_COMPAT`` is ``"1"``, ``geometry_compat``: the JAX
     package's compat switch with its meaning.  The JAX package reads it
@@ -287,13 +290,7 @@ def component_slots_tiled(
     _check_slots_inputs(logits, labels)
     B, H, W, C = logits.shape
     K = max_components
-    set_bytes = K * (C + 1) * 4
-    nw = min(SLOTS_TILE_WARPS, -(-W // 32), (MAX_SHARED_BYTES - K * 4) // set_bytes)
-    if nw < 1:
-        raise NotImplementedError(
-            f"K={K}, C={C}: one warp's stats partial set exceeds one block's "
-            "shared memory in the tiled slots kernel (ROADMAP.md §2a)"
-        )
+    nw = _tiled_pass_warps(W, K, C)
     threads = 32 * nw
     tiles = -(-W // threads) * -(-H // SLOTS_TILE_ROWS)
     dev = logits.device
@@ -329,10 +326,30 @@ def geometry_compat_reference(
 
 
 _GEO_FUNCS = {
-    "geometry_compat" + sfx: _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
-    + [_build.F, _build.I, _build.P]
-    for sfx in LOGIT_DTYPES.values()
+    **{
+        "geometry_compat" + sfx: _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
+        + [_build.F, _build.I, _build.P]
+        for sfx in LOGIT_DTYPES.values()
+    },
+    **{
+        "geometry_compat_large" + sfx: _LOGITS_ARGS + [_build.P] * 12 + [_build.I] * 7
+        + [_build.F, _build.I, _build.P]
+        for sfx in LOGIT_DTYPES.values()
+    },
 }
+
+
+def _tiled_pass_warps(W: int, K: int, C: int) -> int:
+    """Warps of a pass tile of ``component_slots_tiled`` (and of its phase in
+    ``geometry_compat_large``): up to SLOTS_TILE_WARPS, no more than the
+    map's 32-column strips, each warp's stats partial set in shared memory."""
+    nw = min(SLOTS_TILE_WARPS, -(-W // 32), (MAX_SHARED_BYTES - K * 4) // (K * (C + 1) * 4))
+    if nw < 1:
+        raise NotImplementedError(
+            f"K={K}, C={C}: one warp's stats partial set exceeds one block's "
+            "shared memory in the tiled slots kernel (ROADMAP.md §2a)"
+        )
+    return nw
 
 
 def geometry_compat(
@@ -342,9 +359,10 @@ def geometry_compat(
     """(B, H, W) detection logits or (B, H, W, C) logits at any strides ->
     the slots and stats outputs, CCL and slots fused in one kernel (K12c, a
     cluster of SLOT_CTAS blocks per image, each holding half of the label
-    rows in shared memory; union-find with no round cap, as K1).
+    rows in shared memory; union-find with no round cap, as K1).  Past
+    ``geometry_compat_fits`` it is ``geometry_compat_large``'s one launch.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
     or raises.
     """
     if connectivity not in (4, 8):
@@ -356,10 +374,7 @@ def geometry_compat(
     B, H, W, C = logits.shape
     K = max_components
     if not geometry_compat_fits(H, W, K, C):
-        raise NotImplementedError(
-            f"half of a {H}x{W} label map and K={K} x H extremes exceed one block's "
-            "shared memory: K12c at large maps is still to be served (ROADMAP.md §2a)"
-        )
+        return geometry_compat_large(logits, K, threshold, connectivity)
     nw = stats_warps(H, W, K, C)
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
@@ -374,6 +389,54 @@ def geometry_compat(
 
 geometry_compat.launches = 0
 geometry_compat.launches_bf16 = 0
+
+
+def geometry_compat_large(
+    logits: torch.Tensor, max_components: int, threshold: float = 0.5,
+    connectivity: int = 8,
+) -> dict:
+    """K12c for maps of any size (H*W < 2^30): the phases of
+    ``ccl_labels_tiled`` (tiles, seams, flatten) and
+    ``component_slots_tiled`` (count, rank, the tiled pixel pass with its
+    tiles and warps, finish) in one cooperative launch of persistent
+    blocks, grid-wide barriers between the phases, the labels in a
+    device-memory workspace.  The eight outputs equal that pair's bit for
+    bit.  ``geometry_compat`` takes it past ``geometry_compat_fits``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    if logits.device.type == "cpu":
+        return geometry_compat_reference(logits, max_components, threshold, connectivity)
+    logits = _as_nhwc(logits)
+    _check_logits(logits)
+    B, H, W, C = logits.shape
+    K = max_components
+    if H * W >= 1 << 30:
+        raise ValueError(f"a {H}x{W} map: the large K12c takes H*W < 2^30")
+    nw = _tiled_pass_warps(W, K, C)
+    tiles = -(-W // (32 * nw)) * -(-H // SLOTS_TILE_ROWS)
+    dev = logits.device
+    labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    counts = torch.empty((B, -(-(H * W) // SLOTS_CHUNK)), dtype=torch.int32, device=dev)
+    tpart = torch.empty((B, tiles, K, C), dtype=torch.float32, device=dev)
+    tcnt = torch.empty((B, tiles, K), dtype=torch.int32, device=dev)
+    lib = _build.load("geometry_kernel", _GEO_FUNCS)
+    out = _empty_outputs(B, H, W, K, C, dev)
+    _build.launch(
+        lib, "geometry_compat_large" + LOGIT_DTYPES[logits.dtype], dev, logits.data_ptr(),
+        *logits.stride(), C, *(t.data_ptr() for t in out.values()), labels.data_ptr(),
+        counts.data_ptr(), tpart.data_ptr(), tcnt.data_ptr(), B, H, W, K, nw, SLOTS_CHUNK,
+        SLOTS_TILE_ROWS, threshold_logit(threshold), connectivity,
+    )
+    count_launch(geometry_compat_large, logits.dtype)
+    return out
+
+
+geometry_compat_large.launches = 0
+geometry_compat_large.launches_bf16 = 0
 
 
 def component_geometry(

@@ -14,7 +14,10 @@ horizontal candidate.
     and the directions are projected over the 2M packed points.
   * ``min_area_rect_exact`` (K3x, ``_rect_kernel``, M None or >= H): no
     cap, and the directions are projected over every valid row's two
-    extremes, as the TPU kernel does.
+    extremes, as the TPU kernel does.  On the card it serves every height:
+    up to ``MAX_EXACT_HEIGHT`` rows with a component's arrays in one
+    block's shared memory, above it with them in a device-memory workspace
+    (the tall instance; the same selection).
 
 Output rows (B, 9, K): ux, uy, min_u, max_u, min_v, max_v, any_edge, p0x,
 p0y; ``rects_from_selection`` turns them into corners, centre, size, angle.
@@ -224,10 +227,44 @@ def min_area_rect_select_reference(
 _FUNCS = {
     "rect_select": [_build.P] * 3 + [_build.I] * 4 + [_build.P],
     "rect_select_exact": [_build.P] * 3 + [_build.I] * 3 + [_build.P],
+    "rect_select_exact_tall": [_build.P] * 4 + [_build.I] * 4 + [_build.P],
+    "rect_exact_max_height": [],
+    "rect_tall_slot_size": [_build.I],
 }
-# the uncompacted kernel's rows, points and directions fill 119 KB of one
-# block's shared memory at this height (csrc/rect_kernel.cu)
-MAX_EXACT_HEIGHT = 1024
+
+
+def exact_smem_bytes(H: int) -> int:
+    """Shared memory of the uncompacted kernel at M = H, as
+    ``rect_smem_bytes<true>`` in ``csrc/rect_kernel.cu`` counts it: per row
+    the float4 row, two packed points, eight per-direction floats over two
+    directions, the compacted (y, min x, max x) and two kept-direction
+    slots (29 words), plus the chains' bitmasks (4 words a 32 rows)."""
+    return 29 * 4 * H + 16 * (-(-H // 32))
+
+
+# the kernel's block-reduction slots (``RectShared<128>``: 20 ints and 8
+# floats), static shared memory beside the arrays
+_REDUCTION_BYTES = 112
+# the tallest map whose component arrays fit one block's shared memory (1994
+# rows); taller ones take the tall instance.  The library's
+# rect_exact_max_height() returns the C side's value of the same formula.
+MAX_EXACT_HEIGHT = next(
+    h for h in range(1, 1 << 16)
+    if exact_smem_bytes(h + 1) + _REDUCTION_BYTES > MAX_SHARED_BYTES
+)
+
+
+def tall_slot_bytes(H: int) -> int:
+    """The tall instance's device-memory workspace a component: the arrays
+    of ``exact_smem_bytes`` but the bitmasks, 16-byte aligned
+    (``rect_tall_slot_bytes``)."""
+    return (29 * 4 * H + 15) // 16 * 16
+
+
+# the tall instance's workspace at most (persistent blocks reuse their slot)
+TALL_WORKSPACE_BYTES = 1 << 28
+# the tall instance's block-reduction slots (``RectShared<512>``)
+_TALL_REDUCTION_BYTES = 400
 
 
 def _check_extremes(minx: torch.Tensor, maxx: torch.Tensor) -> None:
@@ -271,23 +308,34 @@ min_area_rect_compact.launches = 0
 def min_area_rect_exact(minx: torch.Tensor, maxx: torch.Tensor) -> torch.Tensor:
     """The uncompacted kernel (K3x): every hull edge's direction over every
     valid row's two extremes.  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (one block per component) or raises."""
+    tensor launches the kernel or raises: one block a component with its
+    arrays in shared memory up to ``MAX_EXACT_HEIGHT`` rows, else the tall
+    instance (persistent blocks, the arrays in a workspace of
+    ``tall_slot_bytes`` a block, at most ``TALL_WORKSPACE_BYTES``)."""
     B, K, H = minx.shape
     if minx.device.type == "cpu":
         return min_area_rect_select_reference(minx, maxx, None)
     _check_extremes(minx, maxx)
-    if H > MAX_EXACT_HEIGHT:
+    if B * K * H >= 1 << 31 or 16 * (-(-H // 32)) + _TALL_REDUCTION_BYTES > MAX_SHARED_BYTES:
         raise NotImplementedError(
-            f"H={H} > {MAX_EXACT_HEIGHT}: a component's rows, points and 2H "
-            "directions exceed one block's shared memory in the uncompacted "
-            "rect kernel (ROADMAP.md §2a: K3x above 1024 rows)"
+            f"B={B}, K={K}, H={H}: the tall rect kernel takes B*K*H < 2^31 and the "
+            "chains' bitmasks in one block's shared memory (ROADMAP.md §2a)"
         )
     lib = _build.load("rect_kernel", _FUNCS)
     out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)
-    _build.launch(
-        lib, "rect_select_exact", minx.device, minx.data_ptr(), maxx.data_ptr(),
-        out.data_ptr(), B, K, H,
-    )
+    if H <= MAX_EXACT_HEIGHT:
+        _build.launch(
+            lib, "rect_select_exact", minx.device, minx.data_ptr(), maxx.data_ptr(),
+            out.data_ptr(), B, K, H,
+        )
+    else:
+        slot = tall_slot_bytes(H)
+        slots = max(1, min(B * K, TALL_WORKSPACE_BYTES // slot))
+        ws = torch.empty(slots * slot, dtype=torch.uint8, device=minx.device)
+        _build.launch(
+            lib, "rect_select_exact_tall", minx.device, minx.data_ptr(), maxx.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), B, K, H, slots,
+        )
     min_area_rect_exact.launches += 1
     return out
 

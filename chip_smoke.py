@@ -177,7 +177,11 @@ them.  Phases, each of which raises on failure:
      one f32 F.conv2d a launch; the uncompacted rect on the A4 page's and
      the 8192x1024 page's extremes (rect_exact_h1754, rect_exact_h2048)
      and the large fused compat geometry on the scans' maps, f32 and bf16,
-     each with its row; the uncompacted rect on the kernel checks'
+     each with its row; each launch of the tiled kernels (the device-memory
+     CCL's three, the tiled slots' three, the large fused geometry's one)
+     at the scans' maps, f32 and bf16: device ms, grid and block, and the
+     profiler's estimate of resident warps an SM, printed a line a launch
+     and kept in the row's ``phases``; the uncompacted rect on the kernel checks'
      synthetic extremes at each tall height (B=1 and 3); one A4-page
      detect call and one compat batch of the 2048² scans: wall time,
      device time and busy share.
@@ -274,6 +278,40 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> float:
         if total > 0:
             return total / n / 1e3
     raise AssertionError(f"device_ms: {tries} profiles recorded no kernel")
+
+
+def phase_split(fn, n: int = 20) -> dict:
+    """Each kernel one call of fn launches: its mean device ms a call
+    (CUPTI durations), its grid and block, and kineto's estimate of its
+    resident warps an SM, from torch.profiler's chrome trace."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    split: dict[str, dict] = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e["name"].replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
+        name = name.split("::")[-1].replace("void ", "").strip()
+        a = e.get("args", {})
+        s = split.setdefault(name, {"ms": 0.0})
+        s["ms"] += e["dur"] / 1e3 / n
+        occ = a.get("est. achieved occupancy %")
+        s.update(grid=a.get("grid"), block=a.get("block"),
+                 resident_warps_per_sm=None if occ is None else occ * 64 / 100)
+    return split
 
 
 def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
@@ -1938,6 +1976,7 @@ def main() -> int:
                 launches=launches["ccl_tiled"], max_abs_err=0.0,
                 ms=time_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l)),
                 device_ms=device_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l)),
+                phases=phase_split(lambda: ccl_kernel.ccl_labels_tiled(det_l)),
                 plain_ms=time_ms(lambda: ccl_kernel.ccl_labels_reference(det_l), iters=3, reps=1),
                 library_ms=None,
                 bound=bound(px_l * 8, px_l * 9),  # logits in, labels out; one 3x3 pass
@@ -1949,6 +1988,8 @@ def main() -> int:
                 launches=launches["slots_tiled"], max_abs_err=err_slots_l,
                 ms=time_ms(lambda: postproc_kernel.component_slots_tiled(lg_l, lab_l, K_l)),
                 device_ms=device_ms(
+                    lambda: postproc_kernel.component_slots_tiled(lg_l, lab_l, K_l)),
+                phases=phase_split(
                     lambda: postproc_kernel.component_slots_tiled(lg_l, lab_l, K_l)),
                 plain_ms=time_ms(
                     lambda: postproc_kernel.component_slots_reference(lg_l, lab_l, K_l),
@@ -1999,6 +2040,7 @@ def main() -> int:
                 launches=launches["ccl_tiled_bf16"], max_abs_err=0.0,
                 ms=time_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l16)),
                 device_ms=device_ms(lambda: ccl_kernel.ccl_labels_tiled(det_l16)),
+                phases=phase_split(lambda: ccl_kernel.ccl_labels_tiled(det_l16)),
                 plain_ms=time_ms(lambda: ccl_kernel.ccl_labels_reference(det_l16), iters=3, reps=1),
                 library_ms=None,
                 bound=bound(px_l * 6, px_l * 9),
@@ -2024,6 +2066,8 @@ def main() -> int:
                 launches=launches["slots_tiled_bf16"], max_abs_err=err_slots_l16,
                 ms=time_ms(lambda: postproc_kernel.component_slots_tiled(lg_l16, lab_l16m, K_l)),
                 device_ms=device_ms(
+                    lambda: postproc_kernel.component_slots_tiled(lg_l16, lab_l16m, K_l)),
+                phases=phase_split(
                     lambda: postproc_kernel.component_slots_tiled(lg_l16, lab_l16m, K_l)),
                 plain_ms=time_ms(
                     lambda: postproc_kernel.component_slots_reference(lg_l16, lab_l16m, K_l),
@@ -2078,6 +2122,7 @@ def main() -> int:
                 launches=launches.get(f"geometry_compat_large{tag}", 0), max_abs_err=err_,
                 ms=time_ms(lambda: postproc_kernel.geometry_compat(lg_, K_l)),
                 device_ms=device_ms(lambda: postproc_kernel.geometry_compat(lg_, K_l)),
+                phases=phase_split(lambda: postproc_kernel.geometry_compat(lg_, K_l)),
                 plain_ms=time_ms(lambda: postproc_kernel.geometry_compat_reference(lg_, K_l),
                                  iters=3, reps=1),
                 library_ms=None,
@@ -2085,6 +2130,13 @@ def main() -> int:
                             + in_slot_ * (O - 1) * esz + Bl * K_l * (O + 1) * 4,
                             px_l * 13 + in_slot_ * O * 8),
             ))
+        # each launch of the tiled kernels at the scans' maps: device ms, grid
+        for row in kernels:
+            for phase_name, ph in row.get("phases", {}).items():
+                warps = ph["resident_warps_per_sm"]
+                log(f"tiled phase {row['name']}: {phase_name} {ph['ms']:.4f} ms device, grid "
+                    f"{ph['grid']} x block {ph['block']}, resident warps/SM "
+                    f"{'n/a' if warps is None else f'{warps:.1f}'}")
         # K3x on the kernel checks' synthetic extremes (K=16, a staircase over
         # every row) at each tall height, one block to the cap, then the tall
         # instance

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Parent against change for the port's kernels on one CUDA card: the
 geometry kernels (CCL K1, slots K2, fused compat geometry K12c, compacted
-rect K3 and uncompacted rect K3x) and the int8 trunk.
+rect K3 and uncompacted rect K3x), the int8 trunk, and the tiled kernels
+of the large maps.
 
-    python3 scripts/torch_kernel_ab.py --parent PARENT_TREE [--only geometry|int8]
-        [--variants TREE ...] [--out FILE]
+    python3 scripts/torch_kernel_ab.py --parent PARENT_TREE
+        [--only geometry|int8|tiled] [--variants TREE ...] [--out FILE]
 
 PARENT_TREE is an unpacked earlier commit of this repository (for example
 ``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
@@ -42,6 +43,22 @@ each tree's ``quantize_trunk`` on the card over those calibration scenes
 (NetConfig(), bias correction on), in a process of its own started in the
 tree (parent, change, change, parent): wall seconds of four calls after a
 first one that builds the tree's kernels.
+
+tiled: ``ccl_labels_tiled``, ``component_slots_tiled`` and
+``geometry_compat_large``, f32 and bf16, on the B=8 2048² scans' 512² maps
+(seed 11), the 4096² scan's 1024² map (seed 11) and an A4 page's 1754x1240
+map (7016x4960 at 600 dpi, seed 7, 3-6 barcodes), the asset's config (K=64,
+C=17), logits from the f32 trunk (the NHWC view over planes) or the bf16
+trunk (channels last).  The parent is called by PR 11's C signatures
+(``Pr11Tiled``: sizes as ints, PR 11's chunk, tile rows and warps), the
+change by this tree's (``ChangeTiled``: ``tiled_plan``'s ints and
+``tiled_scratch``).  Checks first: labels and slot outputs (roots, slots,
+extremes, counts, areas) identical between the trees, each tree's
+det_sums / areas and cls_sums / areas within 2e-6 of the f64 sums (bf16:
+plus the rounding-boundary slack), each tree's large K12c bit for bit its
+pair.  Then each call is timed (CUDA events) and split by launch from the
+profiler's chrome trace: each kernel's device ms, grid, block, registers,
+shared memory and estimated resident warps an SM (``launch_split``).
 
 Prints one JSON object and writes it to FILE (default
 ``build/ab/ab.json``); exits non-zero on a mismatch.
@@ -188,9 +205,13 @@ def geometry_ab(args, dev, res: dict) -> None:
         d = det_maps[name]
         lab = outs.setdefault(("k1", tag, name, entry),
                               torch.empty(d.shape, dtype=torch.int32, device=dev))
+        if entry == "ccl_labels_tiled":  # this tree's: the plan's ints
+            arr = postproc_kernel.tiled_plan(*d.shape, 1, 1).ints
+            size = (P(arr.ctypes.data), I(arr.size))
+        else:
+            size = tuple(I(n) for n in d.shape)
         check(getattr(libs[tag]["ccl_kernel"], entry)(
-            P(d.data_ptr()), P(lab.data_ptr()), *(I(n) for n in d.shape), F(thr), I(8),
-            stream()), f"{tag} {entry}")
+            P(d.data_ptr()), P(lab.data_ptr()), *size, F(thr), I(8), stream()), f"{tag} {entry}")
         return lab
 
     def k12c(tag):
@@ -404,10 +425,228 @@ def int8_ab(args, dev, res: dict) -> None:
     calibration_ab(args, calib_np, res)
 
 
+TILED_SOURCES = ("ccl_kernel", "postproc_kernel", "geometry_kernel")
+
+
+def _kernel_name(name: str) -> str:
+    """A CUPTI kernel name without its namespace, template arguments and
+    parameter list: ``slots_tile_kernel``."""
+    name = name.replace("(anonymous namespace)::", "")
+    for sep in ("<", "("):
+        name = name.split(sep)[0]
+    return name.split("::")[-1].strip()
+
+
+def launch_split(fn, tag: str, n: int = 20) -> dict:
+    """Each kernel that one call of fn launches: its mean device ms a call
+    (CUPTI durations, torch.profiler), launches a call, and the grid, block,
+    registers, shared memory, launched warps a SM and kineto's estimated
+    occupancy (resident warps a SM = that share of 64) of its last launch,
+    from the profiler's chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    path = REPO / "build" / "ab" / f"trace-{tag}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    split = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") != "kernel":
+            continue
+        a = e.get("args", {})
+        s = split.setdefault(_kernel_name(e["name"]), {"ms": 0.0, "launches": 0})
+        s["ms"] += e["dur"] / 1e3 / n
+        s["launches"] += 1 / n
+        occ = a.get("est. achieved occupancy %")
+        s.update({"grid": a.get("grid"), "block": a.get("block"),
+                  "registers": a.get("registers per thread"), "smem": a.get("shared memory"),
+                  "warps_per_sm_launched": a.get("warps per SM"), "occupancy_pct": occ,
+                  "resident_warps_per_sm": None if occ is None else occ * 64 / 100})
+    path.unlink()
+    return split
+
+
+def _pr11_slots_scratch(B, H, W, K, C, dev):
+    """PR 11's tiled-slots geometry and scratch (``_tiled_pass_warps``,
+    SLOTS_CHUNK 8192, SLOTS_TILE_ROWS 32)."""
+    nw = min(8, -(-W // 32), (postproc_kernel.MAX_SHARED_BYTES - K * 4) // (K * (C + 1) * 4))
+    tiles = -(-W // (32 * nw)) * -(-H // 32)
+    return nw, {"counts": torch.empty((B, -(-(H * W) // 8192)), dtype=torch.int32, device=dev),
+                "tpart": torch.empty((B, tiles, K, C), dtype=torch.float32, device=dev),
+                "tcnt": torch.empty((B, tiles, K), dtype=torch.int32, device=dev)}
+
+
+class Pr11Tiled:
+    """The tiled kernels through PR 11's C signatures (the parent of the
+    tiled redesign): ccl_labels_tiled, component_slots_tiled(..., counts,
+    tpart, tcnt, B, H, W, K, threads, chunk, tile_rows, thr) and
+    geometry_compat_large(..., labels, counts, tpart, tcnt, B, H, W, K, nw,
+    chunk, tile_rows, thr, connectivity)."""
+
+    def __init__(self, libs, lg, K, dev):
+        self.libs, self.lg, self.K = libs, lg, K
+        B, H, W, C = lg.shape
+        self.sfx = ccl_kernel.LOGIT_DTYPES[lg.dtype]
+        self.det = lg[..., 0].contiguous()
+        self.labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+        self.nw, self.scratch = _pr11_slots_scratch(B, H, W, K, C, dev)
+        self.work = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+        self.out = {k: postproc_kernel._empty_outputs(B, H, W, K, C, dev) for k in ("pair", "large")}
+        self.thr = ccl_kernel.threshold_logit(0.5)
+
+    def ccl(self, conn=8):
+        d = self.det
+        check(getattr(self.libs["ccl_kernel"], "ccl_labels_tiled" + self.sfx)(
+            P(d.data_ptr()), P(self.labels.data_ptr()), *(I(n) for n in d.shape), F(self.thr),
+            I(conn), stream()), "ccl_labels_tiled")
+        return self.labels
+
+    def slots(self):
+        lg, o, s = self.lg, self.out["pair"], self.scratch
+        B, H, W, C = lg.shape
+        check(getattr(self.libs["postproc_kernel"], "component_slots_tiled" + self.sfx)(
+            P(lg.data_ptr()), *(L(x) for x in lg.stride()), I(C), P(self.labels.data_ptr()),
+            *(P(t.data_ptr()) for t in o.values()), *(P(t.data_ptr()) for t in s.values()),
+            I(B), I(H), I(W), I(self.K), I(32 * self.nw), I(8192), I(32), F(self.thr), stream()),
+            "component_slots_tiled")
+        return o
+
+    def large(self, conn=8):
+        lg, o, s = self.lg, self.out["large"], self.scratch
+        B, H, W, C = lg.shape
+        check(getattr(self.libs["geometry_kernel"], "geometry_compat_large" + self.sfx)(
+            P(lg.data_ptr()), *(L(x) for x in lg.stride()), I(C),
+            *(P(t.data_ptr()) for t in o.values()), P(self.work.data_ptr()),
+            *(P(t.data_ptr()) for t in s.values()), I(B), I(H), I(W), I(self.K), I(self.nw),
+            I(8192), I(32), F(self.thr), I(conn), stream()), "geometry_compat_large")
+        return o
+
+
+class ChangeTiled(Pr11Tiled):
+    """The tiled kernels through this tree's C signatures, at
+    ``postproc_kernel.tiled_plan``'s geometry (the plan's ints, then the
+    scratch of ``tiled_scratch``), as the wrappers call them."""
+
+    def __init__(self, libs, lg, K, dev):
+        super().__init__(libs, lg, K, dev)
+        B, H, W, C = lg.shape
+        self.plan = postproc_kernel.tiled_plan(B, H, W, K, C)
+        self.ccl_plan = postproc_kernel.tiled_plan(B, H, W, 1, 1)
+        self.scratch = postproc_kernel.tiled_scratch(self.plan, dev)
+
+    def ccl(self, conn=8):
+        arr = self.ccl_plan.ints
+        check(getattr(self.libs["ccl_kernel"], "ccl_labels_tiled" + self.sfx)(
+            P(self.det.data_ptr()), P(self.labels.data_ptr()), P(arr.ctypes.data), I(arr.size),
+            F(self.thr), I(conn), stream()), "ccl_labels_tiled")
+        return self.labels
+
+    def slots(self):
+        lg, o, arr = self.lg, self.out["pair"], self.plan.ints
+        check(getattr(self.libs["postproc_kernel"], "component_slots_tiled" + self.sfx)(
+            P(lg.data_ptr()), *(L(x) for x in lg.stride()), P(self.labels.data_ptr()),
+            *(P(t.data_ptr()) for t in o.values()), *(P(t.data_ptr()) for t in self.scratch.values()),
+            P(arr.ctypes.data), I(arr.size), F(self.thr), stream()), "component_slots_tiled")
+        return o
+
+    def large(self, conn=8):
+        lg, o, arr = self.lg, self.out["large"], self.plan.ints
+        check(getattr(self.libs["geometry_kernel"], "geometry_compat_large" + self.sfx)(
+            P(lg.data_ptr()), *(L(x) for x in lg.stride()), *(P(t.data_ptr()) for t in o.values()),
+            P(self.work.data_ptr()), *(P(t.data_ptr()) for t in self.scratch.values()),
+            P(arr.ctypes.data), I(arr.size), F(self.thr), I(conn), stream()), "geometry_compat_large")
+        return o
+
+
+def tiled_ab(args, dev, res: dict) -> None:
+    """The tiled CCL, the tiled slots and the large K12c, parent against
+    change (module docstring)."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import bf16_cls_slack, exact_stats
+
+    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parentT", TILED_SOURCES),
+            "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "changeT", TILED_SOURCES)}
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(asset)
+    K = cfg.max_components
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(asset)).items()}
+    params16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    cfg16 = cfg.replace(dtype="bfloat16")
+
+    def image(n, hw, seed, **kw):
+        reader = SyntheticMarkupReader(n_samples=n, image_hw=hw, seed=seed, **kw)
+        return torch.from_numpy(np.stack([reader.sample_at(i).image for i in range(n)])).to(dev)
+
+    images = {"scans_B8_512": image(8, (2048, 2048), 11), "scan_B1_1024": image(1, (4096, 4096), 11),
+              "a4_B1_1754x1240": image(1, (7016, 4960), 7, n_objects=(3, 6))}
+    res["tiled_K"] = K
+    for name, imgs in images.items():
+        for dtype in ("f32", "bf16"):
+            case = f"{name}_{dtype}"
+            with torch.inference_mode():
+                if dtype == "f32":
+                    with exact_f32():
+                        lg = fused_model_apply(params, imgs.float()[..., None], cfg, raw_gray=True)
+                else:
+                    lg = fused_model_apply(params16, imgs.to(torch.bfloat16)[..., None], cfg16,
+                                           raw_gray=True, act_out=True)
+            B, H, W, C = lg.shape
+            trees = {"parent": Pr11Tiled(libs["parent"], lg, K, dev),
+                     "change": ChangeTiled(libs["change"], lg, K, dev)}
+            # outputs first: labels and slot outputs identical between the
+            # trees, each tree's stats within 2e-6 of the f64 sums, each
+            # tree's large K12c bit for bit its pair
+            got = {}
+            for tag, t in trees.items():
+                lab = t.ccl().clone()
+                pair = {k: v.clone() for k, v in t.slots().items()}
+                large = t.large()
+                torch.cuda.synchronize()
+                for key in pair:
+                    if not torch.equal(large[key], pair[key]):
+                        raise AssertionError(f"{case} {tag}: the large K12c's {key} differs from its pair")
+                exact = exact_stats(lg, pair["slots"], K)
+                area = pair["areas"].clamp(min=1).double()
+                slack = 0.0
+                if lg.dtype == torch.bfloat16:
+                    slack = bf16_cls_slack(lg, pair["slots"], K).double() / area[..., None]
+                err_det = float((pair["det_sums"] / area - exact["det_sums"] / area).abs().max())
+                err_cls = (pair["cls_sums"] / area[..., None] - exact["cls_sums"] / area[..., None]).abs()
+                if not (err_det <= 2e-6 and bool((err_cls <= 2e-6 + slack).all())):
+                    raise AssertionError(f"{case} {tag}: stats means {err_det}, {float(err_cls.max())} "
+                                         "past 2e-6 of the f64 sums")
+                res[f"{case}_{tag}_stats_err"] = [err_det, float(err_cls.max())]
+                got[tag] = (lab, pair)
+            if not torch.equal(got["parent"][0], got["change"][0]):
+                raise AssertionError(f"{case}: labels differ between the trees")
+            for key in ("rootvals", "slots", "minx", "maxx", "num_components_total", "areas"):
+                if not torch.equal(got["parent"][1][key], got["change"][1][key]):
+                    raise AssertionError(f"{case}: slot output {key} differs between the trees")
+            res[f"{case}_shape"] = [B, H, W, C]
+            res[f"{case}_nroots"] = got["change"][1]["num_components_total"].tolist()
+            calls = {"ccl_tiled": lambda t: t.ccl(), "slots_tiled": lambda t: t.slots(),
+                     "geometry_compat_large": lambda t: t.large()}
+            for turn in ("parent", "change", "change", "parent"):
+                t = trees[turn]
+                for kname, fn in calls.items():
+                    key = f"{case}_{kname}_{turn}"
+                    res.setdefault(key, []).append(time_ms(lambda: fn(t)))
+                    split = launch_split(lambda: fn(t), f"{case}-{kname}-{turn}")
+                    res.setdefault(key + "_device", []).append(sum(s["ms"] for s in split.values()))
+                    res.setdefault(key + "_launches", []).append(split)
+            log_case = {k: v for k, v in res.items() if k.startswith(case) and not k.endswith("_launches")}
+            print(json.dumps(log_case), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--only", choices=("geometry", "int8"), default=None)
+    ap.add_argument("--only", choices=("geometry", "int8", "tiled"), default=None)
     ap.add_argument("--variants", type=Path, nargs="*", default=[])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
     args = ap.parse_args()
@@ -415,10 +654,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     res = {"card": smi}
-    if args.only != "int8":
+    if args.only in (None, "geometry"):
         geometry_ab(args, dev, res)
-    if args.only != "geometry":
+    if args.only in (None, "int8"):
         int8_ab(args, dev, res)
+    if args.only in (None, "tiled"):
+        tiled_ab(args, dev, res)
     print(json.dumps(res), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))

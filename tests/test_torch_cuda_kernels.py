@@ -882,6 +882,77 @@ def test_geometry_compat_large_on_adversarial_maps(dev, kind, connectivity):
         assert torch.equal(out[key], slots[key]), key
 
 
+# ---- the tiled kernels' plan edges (ops/cuda/postproc_kernel.py tiled_plan) ----
+
+_PLAN_EDGE_SHAPES = [(2, 257, 513), (1, 1023, 257), (3, 5, 4099), (2, 61, 33), (1, 300, 1000)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("shape", _PLAN_EDGE_SHAPES)
+def test_tiled_kernels_on_band_chunk_and_segment_edges(dev, shape, K, dtype):
+    """The tiled CCL, the tiled slots and the large K12c where the plan's
+    work items end mid-map: heights no multiple of a pass band's rows or a
+    CCL tile's, widths one past a pass segment or a tile, raster chunks
+    that end mid-row, maps a few rows tall, components that cross the bands
+    and the segments (snakes and blobs).  Labels are scipy's; slot outputs
+    and areas identical to the plain version's; the means within 2e-6 of
+    the f64 sums (bf16: plus the rounding-boundary slack); the large K12c
+    bit for bit the pair."""
+    B, H, W = shape
+    lg = _head_logits(_maps(H * 7 + W, B, H, W), 17, K, dev).to(getattr(torch, dtype))
+    det = lg[..., 0].contiguous()
+    ref_lab = torch.from_numpy(_uncapped_labels(det.float().cpu().numpy(), 8)).to(dev)
+    lab = ccl_kernel.ccl_labels_tiled(det)
+    assert torch.equal(lab, ref_lab)
+    out = postproc_kernel.component_slots_tiled(lg, lab, K)
+    ref = postproc_kernel.component_slots_reference(lg, lab, K)
+    exact = _stats_f64(lg, ref["slots"], K)
+    if dtype == "bfloat16":
+        assert_bf16_stats_close(out, ref, lg, K, exact=exact)
+    else:
+        for key in _SLOT_KEYS:
+            assert torch.equal(out[key], ref[key]), key
+        area = ref["areas"].clamp(min=1).double()
+        torch.testing.assert_close(out["det_sums"] / area, exact["det_sums"] / area, atol=2e-6,
+                                   rtol=0)
+        torch.testing.assert_close(out["cls_sums"] / area[..., None],
+                                   exact["cls_sums"] / area[..., None], atol=2e-6, rtol=0)
+    large = postproc_kernel.geometry_compat_large(lg, K)
+    for key in out:
+        assert torch.equal(large[key], out[key]), key
+
+
+def test_slots_tiled_band_extremes_in_device_memory(dev):
+    """K=1600 slots of 33 channels: one warp's stats partial set beside the
+    roots fits shared memory, the band's extremes beside it do not, so the
+    plan keeps them in a device-memory slice of their own (``ext_smem``
+    0).  Isolated pixels on every other row and column give more than K
+    components (and chunks of more than K roots); the slot outputs and areas
+    equal the plain version's, the means are within 2e-6 of the f64 sums,
+    and the large K12c equals the pair bit for bit."""
+    B, H, W, K, C = 1, 64, 700, 1600, 33
+    plan = postproc_kernel.tiled_plan(B, H, W, K, C)
+    assert plan.ext_smem == 0 and plan.pass_warps == 1
+    dots = np.full((B, H, W), -4.0, np.float32)
+    dots[:, ::2, ::2] = 4.0
+    lg = _head_logits(dots, C, 3, dev)
+    lab = ccl_kernel.ccl_labels_tiled(lg[..., 0].contiguous())
+    out = postproc_kernel.component_slots_tiled(lg, lab, K)
+    ref = postproc_kernel.component_slots_reference(lg, lab, K)
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], ref[key]), key
+    assert int(ref["num_components_total"][0]) > K
+    exact = _stats_f64(lg, ref["slots"], K)
+    area = ref["areas"].clamp(min=1).double()
+    torch.testing.assert_close(out["det_sums"] / area, exact["det_sums"] / area, atol=2e-6, rtol=0)
+    torch.testing.assert_close(out["cls_sums"] / area[..., None],
+                               exact["cls_sums"] / area[..., None], atol=2e-6, rtol=0)
+    large = postproc_kernel.geometry_compat_large(lg, K)
+    for key in out:
+        assert torch.equal(large[key], out[key]), key
+
+
 # ---- bf16 logits (the bf16 route's trunk output) ----
 
 _BF16_SHAPES = [(3, 128, 128, 16), (3, 256, 64, 16), (2, 512, 512, 64)]

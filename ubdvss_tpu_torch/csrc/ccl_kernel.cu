@@ -23,28 +23,32 @@
 // of labels: a 2048² scan's 512² map is 1 MiB, a 4096² scan's 4 MiB).  The
 // TPU kernel holds such a map in VMEM; here the labels live in device
 // memory and union-find runs in three launches (the block-based
-// union-find of Allegretti, Bolelli & Grana, IEEE TPDS 2019):
-//   1. tiles: one block a 32x64 tile labels it in shared memory with the
-//      same three passes, and writes each pixel the GLOBAL linear index of
-//      its tile-component's root.  Within a tile, raster order of (row,
-//      column) is the same locally and globally, so that root is the
-//      smallest global index of the tile-component;
-//   2. seams: one block a tile unites every foreground pixel on the tile's
-//      top row and left and right columns with each foreground neighbour
-//      that lies in another tile and comes earlier in raster order (W, N,
-//      and under 8-connectivity NW and NE, which reach the diagonal tiles
-//      at corners), by geometry::union_roots on device memory: atomicMin on
-//      roots, so a root is always the smaller index, and a union that finds
-//      its root relinked meanwhile retries from there;
-//   3. flatten: every foreground pixel takes find(p).
+// union-find of Allegretti, Bolelli & Grana, IEEE TPDS 2019), at the
+// geometry of ops/cuda/postproc_kernel.py tiled_plan (tiled.cuh Plan):
+//   1. tiles: one block a tile (32x64, 512 threads) labels it in shared
+//      memory with the same three passes, and writes each pixel the GLOBAL
+//      linear index of its tile-component's root.  Within a tile, raster
+//      order of (row, column) is the same locally and globally, so that
+//      root is the smallest global index of the tile-component;
+//   2. seams: one block a tile unites each foreground pixel on the tile's
+//      top row and side columns with the neighbours in other tiles that
+//      the merge's decision tree would unite it with on the whole map (N
+//      alone when N is foreground, else W or NW, and NE), by
+//      geometry::union_roots on device memory: atomicMin on roots, so a
+//      root is always the smaller index, and a union that finds its root
+//      relinked meanwhile retries from there;
+//   3. flatten: four pixels a thread (one 16-byte load), each foreground
+//      pixel's root found with plain loads and written only where it
+//      moved.
 // The passes' bodies are tiled.cuh's, which the large K12c
-// (geometry_kernel.cu) runs in one launch.
-// Every pair of neighbouring pixels is joined by pass 1 (same tile) or
-// pass 2 (different tiles), and links only ever point to smaller indices,
-// so each component's root is its minimum linear index.  Bound: 8 B a
-// pixel (the logits read, the labels written; 16.8 MB at B=8, 512x512,
-// ~5 us); passes 2 and 3 reread the labels of the seams and the
-// foreground.
+// (geometry_kernel.cu) runs in one launch.  Every union of the decision
+// tree on the whole map is made by pass 1 (same tile) or pass 2 (across a
+// seam), and links only ever point to smaller indices, so each component's
+// root is its minimum linear index.  Bound: 8 B a pixel (the logits read,
+// the labels written; 16.8 MB at B=8, 512x512, ~5 us).  What the card
+// spends beyond it (PERF.md §6, PR 12): pass 1 is three syncs and the
+// union-find's chains of shared-memory atomics a tile, two waves of tiles;
+// passes 2 and 3 are chains of dependent device-memory reads.
 //
 // Each route reads f32 or bf16 logits (``_bf16`` entry points: the bf16
 // route's trunk output, 6 B a pixel); a logit is widened to f32 exactly and
@@ -70,35 +74,33 @@ ccl_kernel(const T* __restrict__ logits, int* __restrict__ labels, int H, int W,
   for (int p = threadIdx.x; p < N; p += blockDim.x) out[p] = lab_s[p];
 }
 
-constexpr int kTileThreads = 512;
-constexpr int kSeamThreads = 128;
 constexpr int kFlattenThreads = 256;
 
-// Pass 1: block (tile x, tile y, image).
+// Pass 1: block (tile x, tile y, image); the tile's labels in dynamic
+// shared memory.
 template <class T>
-__global__ void __launch_bounds__(kTileThreads)
-ccl_tile_kernel(const T* __restrict__ logits, int* __restrict__ labels, int H, int W, float thr,
+__global__ void __launch_bounds__(1024)
+ccl_tile_kernel(const T* __restrict__ logits, int* __restrict__ labels, tiled::Plan pl, float thr,
                 int connectivity) {
-  __shared__ int lab_s[tiled::kTileH * tiled::kTileW];
-  const long long N = static_cast<long long>(H) * W;
-  const geometry::Plane<T> det{logits + blockIdx.z * N, W, 1};
-  tiled::ccl_tile(det, labels + blockIdx.z * N, blockIdx.x, blockIdx.y, H, W, thr,
+  extern __shared__ int lab_s[];
+  const long long N = static_cast<long long>(pl.H) * pl.W;
+  const geometry::Plane<T> det{logits + blockIdx.z * N, pl.W, 1};
+  tiled::ccl_tile(det, labels + blockIdx.z * N, blockIdx.x, blockIdx.y, pl, thr,
                   connectivity == 8, lab_s);
 }
 
-// Pass 2: block (tile x, tile y, image); the tile's top row, then its left
-// and right columns.
-__global__ void __launch_bounds__(kSeamThreads)
-ccl_seam_kernel(int* __restrict__ labels, int H, int W, int connectivity) {
-  tiled::ccl_seam(labels + blockIdx.z * static_cast<long long>(H) * W, blockIdx.x, blockIdx.y, H,
-                  W, connectivity == 8);
+// Pass 2: block (tile x, tile y, image).
+__global__ void __launch_bounds__(1024)
+ccl_seam_kernel(int* __restrict__ labels, tiled::Plan pl, int connectivity) {
+  tiled::ccl_seam(labels + blockIdx.z * static_cast<long long>(pl.H) * pl.W, blockIdx.x,
+                  blockIdx.y, pl, connectivity == 8);
 }
 
-// Pass 3: grid-stride over every pixel of the batch.
+// Pass 3: a group of four pixels a thread.
 __global__ void __launch_bounds__(kFlattenThreads)
 ccl_flatten_kernel(int* __restrict__ labels, long long total, int N) {
-  tiled::ccl_flatten(labels, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x, total,
-                     static_cast<long long>(gridDim.x) * blockDim.x, N);
+  tiled::ccl_flatten(labels, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
+                     static_cast<long long>(gridDim.x) * blockDim.x, total, N);
 }
 
 template <class T>
@@ -115,26 +117,30 @@ int labels_one_block(const void* logits, void* labels, int B, int H, int W, floa
 }
 
 template <class T>
-int labels_tiled(const void* logits, void* labels, int B, int H, int W, float thr,
+int labels_tiled(const void* logits, void* labels, const int* plan, int nplan, float thr,
                  int connectivity, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || B > 65535 ||
-      static_cast<long long>(H) * W >= (1LL << 30))
-    return cudaErrorInvalidValue;
+  tiled::Plan pl;
+  if (!tiled::read_plan(plan, nplan, &pl) || pl.B > 65535) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto lab = static_cast<int*>(labels);
-  const dim3 tiles((W + tiled::kTileW - 1) / tiled::kTileW, (H + tiled::kTileH - 1) / tiled::kTileH,
-                   B);
-  ccl_tile_kernel<T><<<tiles, kTileThreads, 0, s>>>(static_cast<const T*>(logits), lab, H, W,
-                                                    thr, connectivity);
+  const dim3 tiles((pl.W + pl.tile_w - 1) / pl.tile_w, (pl.H + pl.tile_h - 1) / pl.tile_h, pl.B);
+  const size_t smem = tiled::ccl_tile_smem(pl);
+  cudaError_t a = cudaFuncSetAttribute(ccl_tile_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (a != cudaSuccess) return static_cast<int>(a);
+  ccl_tile_kernel<T><<<tiles, pl.ccl_threads, smem, s>>>(static_cast<const T*>(logits), lab, pl,
+                                                        thr, connectivity);
   int e = launch_status();
   if (e != 0) return e;
-  ccl_seam_kernel<<<tiles, kSeamThreads, 0, s>>>(lab, H, W, connectivity);
+  ccl_seam_kernel<<<tiles, pl.seam_threads, 0, s>>>(lab, pl, connectivity);
   e = launch_status();
   if (e != 0) return e;
-  const long long total = static_cast<long long>(B) * H * W;
-  const long long blocks = (total + kFlattenThreads - 1) / kFlattenThreads;
-  ccl_flatten_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), kFlattenThreads, 0,
-                       s>>>(lab, total, H * W);
+  const long long total = static_cast<long long>(pl.B) * pl.H * pl.W;
+  const long long groups = (total + 3) / 4;
+  const long long blocks = (groups + kFlattenThreads - 1) / kFlattenThreads;
+  ccl_flatten_kernel<<<static_cast<unsigned>(blocks < (1 << 20) ? blocks : (1 << 20)),
+                       kFlattenThreads, 0, s>>>(lab, total, pl.H * pl.W);
   return launch_status();
 }
 
@@ -154,14 +160,16 @@ extern "C" int ccl_labels_bf16(const void* logits, void* labels, int B, int H, i
 }
 
 // The same contract for maps of any size up to H*W < 2^30 (B <= 65535):
-// the labels are built in place in ``labels`` by three launches.
-extern "C" int ccl_labels_tiled(const void* logits, void* labels, int B, int H, int W, float thr,
-                                int connectivity, void* stream) {
-  return labels_tiled<float>(logits, labels, B, H, W, thr, connectivity, stream);
+// the labels are built in place in ``labels`` by three launches, whose
+// geometry is the plan's (``plan``: tiled_plan's nplan ints, tiled.cuh
+// Plan).
+extern "C" int ccl_labels_tiled(const void* logits, void* labels, const int* plan, int nplan,
+                                float thr, int connectivity, void* stream) {
+  return labels_tiled<float>(logits, labels, plan, nplan, thr, connectivity, stream);
 }
 
 // The same from bf16 logits.
-extern "C" int ccl_labels_tiled_bf16(const void* logits, void* labels, int B, int H, int W,
-                                     float thr, int connectivity, void* stream) {
-  return labels_tiled<__nv_bfloat16>(logits, labels, B, H, W, thr, connectivity, stream);
+extern "C" int ccl_labels_tiled_bf16(const void* logits, void* labels, const int* plan,
+                                     int nplan, float thr, int connectivity, void* stream) {
+  return labels_tiled<__nv_bfloat16>(logits, labels, plan, nplan, thr, connectivity, stream);
 }

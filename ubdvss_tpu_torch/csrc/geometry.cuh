@@ -286,8 +286,13 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
 //   3. slot_finish sums the partials in the virtual warps' order.
 // sigmoid and softmax follow torch's formulas with expf; on bf16 logits
 // each class probability is rounded to bf16 before it is added
-// (at_logit_precision), the sigmoid and the counts are not.
-template <int CM, class T>
+// (at_logit_precision), the sigmoid and the counts are not.  K2 and K12c
+// divide each exponential by the sum; the tiled pass (kTiled) takes the
+// max and the sum by pairwise trees and multiplies by the correctly
+// rounded reciprocal of the sum, which shortens its dependent chain a
+// pixel (within an ulp or two of the division; its stats are held to the
+// f64 sums, not to K2's bits).
+template <int CM, class T, bool kTiled = false>
 struct StatsAcc {
   static constexpr bool kExact = CM != kAnyChannels;  // C == CM
   int slot;
@@ -360,6 +365,37 @@ struct StatsAcc {
     }
   }
 
+  // The tiled pass's sums of one pixel (add's, by trees and a reciprocal).
+  __device__ void add_tiled(const Logits<T>& lg, float d) {
+    det += __frcp_rn(1.f + expf(-d));
+    if constexpr (CM == 1) return;
+    constexpr int n = CM > 1 ? CM - 1 : 1;
+    float t[n];
+#pragma unroll
+    for (int c = 0; c < n; ++c) t[c] = (kExact || c < lg.C - 1) ? e[c] : __int_as_float(0xff800000);
+#pragma unroll
+    for (int w = 1; w < n; w *= 2) {
+#pragma unroll
+      for (int c = 0; c + w < n; c += 2 * w) t[c] = fmaxf(t[c], t[c + w]);
+    }
+    const float mx = t[0];
+#pragma unroll
+    for (int c = 0; c < n; ++c) {
+      e[c] = (kExact || c < lg.C - 1) ? expf(e[c] - mx) : 0.f;
+      t[c] = e[c];
+    }
+#pragma unroll
+    for (int w = 1; w < n; w *= 2) {
+#pragma unroll
+      for (int c = 0; c + w < n; c += 2 * w) t[c] += t[c + w];
+    }
+    const float inv = __frcp_rn(t[0]);
+#pragma unroll
+    for (int c = 0; c < n; ++c) {
+      if (kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] * inv);
+    }
+  }
+
   // Warp-wide: one pixel of slot ``s`` (K: none) with detection logit d
   // and the class logits that fetch() loaded.
   __device__ void add(const Logits<T>& lg, int s, float d, int K, float* part, int* cnt_s) {
@@ -369,6 +405,10 @@ struct StatsAcc {
     if (change) reset(s);
     if (s >= K) return;
     cnt += 1;
+    if constexpr (kTiled) {
+      add_tiled(lg, d);
+      return;
+    }
     det += 1.f / (1.f + expf(-d));
     if (CM == 1) return;
     float mx = __int_as_float(0xff800000);  // -inf

@@ -48,30 +48,30 @@
 // (K, H) extremes exceed one block's shared memory (K=64 past about 200²:
 // the 2048² scans' 512² maps, the 4096² scan's 1024² map), where the TPU
 // kernel still holds the map in VMEM.  It is one cooperative launch of
-// persistent blocks that run the phases of the device-memory CCL and the
-// tiled slots (tiled.cuh, the bodies ccl_labels_tiled and
-// component_slots_tiled launch one kernel each) in order, each block
+// persistent blocks (four an SM, 64 registers) that run the phases of the
+// device-memory CCL and the tiled slots (tiled.cuh, the bodies
+// ccl_labels_tiled and component_slots_tiled launch one kernel each) at
+// the same plan (ops/cuda/postproc_kernel.py tiled_plan), each block
 // looping over a phase's work items, with a grid-wide barrier
 // (cooperative_groups grid sync) between phases:
-//   1. the CCL's tiles (32x64, in shared memory), and the extremes set to
-//      their empty values;
+//   1. the CCL's tiles (in shared memory);
 //   2. the seams between tiles, union-find on device memory;
-//   3. the flatten, and each raster chunk's root count (a root's label is
-//      its own index before and after the flatten, so the two overlap);
-//   4. the roots ranked chunk by chunk: rootvals, nroots;
-//   5. the pixel pass over the tiled slots' tiles (SLOTS_TILE_ROWS rows by
-//      32 * nw columns, the same nw), slots, extremes by integer atomics,
-//      each tile's stats partials;
-//   6. each (slot, channel) sum over the tiles in order, and the padding
-//      slots' copies of the background's extremes.
-// The labels (a device-memory workspace) are canonical, and the tiles,
-// partials and finish order are component_slots_tiled's, so the eight
-// outputs equal ccl_labels_tiled then component_slots_tiled bit for bit, in
-// f32 and bf16: past geometry_compat_fits the compat route's detections are
-// the default route's.  The labels are read with plain loads (other blocks
-// wrote them earlier in the launch).  Bound: the tiled pair's bytes (8 B a
-// pixel of logit read and slot written, the class logits of the pixels in
-// a slot, the extremes); the barriers cost a few microseconds each.
+//   3. the flatten, and each raster chunk's root count and first K roots
+//      (a root's label is its own index before and after the flatten, so
+//      the two overlap);
+//   4. the pixel pass over the bands: each gathers the K smallest roots,
+//      writes its rows' slots and extremes and its stats partials;
+//   5. each (slot, channel) sum over the bands in order.
+// The labels (a device-memory workspace) are canonical, and the chunks,
+// bands, warps, partials and finish order are component_slots_tiled's, so
+// the eight outputs equal ccl_labels_tiled then component_slots_tiled bit
+// for bit, in f32 and bf16: past geometry_compat_fits the compat route's
+// detections are the default route's.  The labels are read with plain
+// loads (other blocks wrote them earlier in the launch).  Every phase's
+// shared-memory scratch is the launch's dynamic shared memory.  Bound: the
+// tiled pair's bytes (8 B a pixel of logit read and slot written, the
+// class logits of the pixels in a slot, the extremes); the barriers cost a
+// few microseconds each.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -194,42 +194,38 @@ int geometry_launch(const void* logits, long long sb, long long sy, long long sx
   });
 }
 
-constexpr int kLargeThreads = 256;  // component_slots_tiled's pass blocks, at most
+constexpr int kLargeThreads = 256;  // every phase's block: the tiled pair's at most
 
-// The large maps' K12c: every phase of the tiled pair in one launch.
-// ``labels`` (B, H, W), ``counts`` (B, nchunks), ``tpart`` (B, tiles, K, C)
-// and ``tcnt`` (B, tiles, K) are workspaces; nw is the pass tiles' warps.
-// None of the pointers the launch writes and reads again is __restrict__
-// const, so no load of them takes the read-only cache.
+// The large maps' K12c: every phase of the tiled pair in one launch, at
+// the plan's geometry.  ``labels`` (B, H, W), ``counts`` (B, nchunks),
+// ``lists`` (B, nchunks, K), ``tpart`` (B, bands, K, C) and ``tcnt`` (B,
+// bands, K) are workspaces.  None of the pointers the launch writes and
+// reads again is __restrict__ const, so no load of them takes the
+// read-only cache.
 template <int CM, class T>
-__global__ void __launch_bounds__(kLargeThreads)
+__global__ void __launch_bounds__(kLargeThreads, 4)
 geometry_large_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
-                      long long sc, int C, int* labels, int* rootvals, int* slots, int* minx,
-                      int* maxx, int* nroots, float* __restrict__ areas,
-                      float* __restrict__ det_sums, float* __restrict__ cls_sums, int* counts,
-                      float* tpart, int* tcnt, int B, int H, int W, int K, int nw, int chunk,
-                      int tile_rows, float thr, int connectivity) {
+                      long long sc, int* labels, int* rootvals, int* slots, int* minx, int* maxx,
+                      int* nroots, float* __restrict__ areas, float* __restrict__ det_sums,
+                      float* __restrict__ cls_sums, int* counts, int* lists, float* tpart,
+                      int* tcnt, int* ext, tiled::Plan pl, float thr, int connectivity) {
   extern __shared__ int sm[];
   cg::grid_group grid = cg::this_grid();
-  const long long N = static_cast<long long>(H) * W;
+  const int B = pl.B, H = pl.H, K = pl.K, C = pl.C;
+  const long long N = static_cast<long long>(H) * pl.W;
   const bool eight = connectivity == 8;
   const long long gtid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long gstride = static_cast<long long>(gridDim.x) * blockDim.x;
   auto det_of = [&](long long b) { return geometry::Plane<T>{logits + b * sb, sy, sx}; };
 
-  // 1. the CCL's tiles; the extremes' empty values
-  const int ctx = (W + tiled::kTileW - 1) / tiled::kTileW;
-  const int cty = (H + tiled::kTileH - 1) / tiled::kTileH;
-  const int ctiles = ctx * cty;
+  // 1. the CCL's tiles
+  const int ctx = (pl.W + pl.tile_w - 1) / pl.tile_w;
+  const int ctiles = ctx * ((H + pl.tile_h - 1) / pl.tile_h);
   for (int it = blockIdx.x; it < B * ctiles; it += gridDim.x) {
     const int b = it / ctiles;
     const int t = it - b * ctiles;
     __syncthreads();  // lab_s is the next tile's
-    tiled::ccl_tile(det_of(b), labels + b * N, t % ctx, t / ctx, H, W, thr, eight, sm);
-  }
-  for (long long i = gtid; i < static_cast<long long>(B) * K * H; i += gstride) {
-    minx[i] = geometry::kBig;
-    maxx[i] = -1;
+    tiled::ccl_tile(det_of(b), labels + b * N, t % ctx, t / ctx, pl, thr, eight, sm);
   }
   grid.sync();
 
@@ -237,91 +233,71 @@ geometry_large_kernel(const T* __restrict__ logits, long long sb, long long sy, 
   for (int it = blockIdx.x; it < B * ctiles; it += gridDim.x) {
     const int b = it / ctiles;
     const int t = it - b * ctiles;
-    tiled::ccl_seam(labels + b * N, t % ctx, t / ctx, H, W, eight);
+    tiled::ccl_seam(labels + b * N, t % ctx, t / ctx, pl, eight);
   }
   grid.sync();
 
-  // 3. the flatten; the chunks' root counts
-  tiled::ccl_flatten(labels, gtid, B * N, gstride, static_cast<int>(N));
-  const int nchunks = static_cast<int>((N + chunk - 1) / chunk);
-  for (int it = blockIdx.x; it < B * nchunks; it += gridDim.x) {
-    const int b = it / nchunks;
-    const int c = it - b * nchunks;
+  // 3. the flatten; the chunks' roots (a root's label is its own index
+  // before and after the flatten, so the two overlap)
+  tiled::ccl_flatten(labels, gtid, gstride, B * N, static_cast<int>(N));
+  for (int it = blockIdx.x; it < B * pl.nchunks; it += gridDim.x) {
+    const int b = it / pl.nchunks;
+    __syncthreads();  // the scratch is the next chunk's
     const tiled::CoherentLabels lab{labels + b * N};
-    const int cnt = tiled::roots_count(det_of(b), lab, c, H, W, chunk, thr);
-    if (threadIdx.x == 0) counts[it] = cnt;
+    tiled::roots_chunk(det_of(b), lab, it - b * pl.nchunks, static_cast<int>(N), pl.W, K,
+                       pl.chunk, thr, counts + it, lists + static_cast<long long>(it) * K, sm);
   }
   grid.sync();
 
-  // 4. the ranks
-  for (int it = blockIdx.x; it < B * nchunks; it += gridDim.x) {
-    const int b = it / nchunks;
-    const int c = it - b * nchunks;
-    const tiled::CoherentLabels lab{labels + b * N};
-    __syncthreads();  // the block sums' slots are the next chunk's
-    tiled::roots_rank(det_of(b), lab, counts + b * nchunks, c, nchunks, rootvals + b * K,
-                      nroots + b, H, W, K, chunk, thr);
-  }
-  grid.sync();
-
-  // 5. the pixel pass
-  const int ptx = (W + 32 * nw - 1) / (32 * nw);
-  const int pty = (H + tile_rows - 1) / tile_rows;
-  const int ptiles = ptx * pty;
-  for (int it = blockIdx.x; it < B * ptiles; it += gridDim.x) {
-    const int b = it / ptiles;
-    const int t = it - b * ptiles;
+  // 4. the pixel pass over the bands
+  for (int it = blockIdx.x; it < B * pl.bands; it += gridDim.x) {
+    const int b = it / pl.bands;
     const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
     const tiled::CoherentLabels lab{labels + b * N};
-    __syncthreads();  // the roots and partials are the next tile's
-    tiled::slots_tile<CM>(lg, lab, rootvals + b * K, nroots[b], slots + b * N, minx + b * K * H,
-                          maxx + b * K * H, tpart + static_cast<long long>(it) * K * C,
-                          tcnt + static_cast<long long>(it) * K, t % ptx, t / ptx, nw, H, W, K,
-                          tile_rows, thr, sm);
+    __syncthreads();  // the roots, partials and extremes are the next band's
+    tiled::slots_pass<CM>(lg, lab, counts + static_cast<long long>(b) * pl.nchunks,
+                          lists + static_cast<long long>(b) * pl.nchunks * K, rootvals + b * K,
+                          nroots + b, slots + b * N, minx + static_cast<long long>(b) * K * H,
+                          maxx + static_cast<long long>(b) * K * H,
+                          tpart + static_cast<long long>(it) * K * C,
+                          tcnt + static_cast<long long>(it) * K,
+                          ext + static_cast<long long>(it) * 2 * K * pl.tile_rows, it - b * pl.bands,
+                          pl, thr, sm);
   }
   grid.sync();
 
-  // 6. the sums over the tiles; the padding slots' extremes
-  const int items = K * C + K;
-  for (long long i = gtid; i < static_cast<long long>(B) * items; i += gstride) {
-    const long long b = i / items;
-    tiled::slots_finish_sum(tpart + b * ptiles * K * C, tcnt + b * ptiles * K, areas + b * K,
-                            det_sums + b * K, cls_sums + b * K * max(C - 1, 1),
-                            static_cast<int>(i - b * items), K, C, ptiles);
-  }
-  const long long pad = static_cast<long long>(K - 1) * H;
-  for (long long i = gtid; i < B * pad; i += gstride) {
-    const long long b = i / pad;
-    const int j = static_cast<int>(i - b * pad);
-    if (j >= min(nroots[b], K) * H) tiled::slots_pad_extremes(minx + b * K * H, maxx + b * K * H, j, H, K);
+  // 5. the sums over the bands
+  for (int it = blockIdx.x; it < B * pl.fin_blocks; it += gridDim.x) {
+    const long long b = it / pl.fin_blocks;
+    __syncthreads();  // the scratch is the next group's
+    tiled::slots_finish(tpart + b * pl.bands * K * C, tcnt + b * pl.bands * K, areas + b * K,
+                        det_sums + b * K, cls_sums + b * K * max(C - 1, 1),
+                        static_cast<int>(it - b * pl.fin_blocks), K, C, pl.bands, sm);
   }
 }
 
 // The large maps' K12c: the outputs of component_slots (postproc_kernel.cu)
 // through one cooperative launch of as many blocks as the card holds at
-// once (at most one a work item of the largest phase).  Workspaces from the
-// caller: ``labels`` B*H*W ints, ``counts`` B * ceil(H*W / chunk) ints,
-// ``tpart`` B * tiles * K * C floats and ``tcnt`` B * tiles * K ints, where
-// tiles = ceil(W / (32 * nw)) * ceil(H / tile_rows).
+// once (at most one a work item of the largest phase), at the plan's
+// geometry (``plan``: tiled_plan's nplan ints, tiled.cuh Plan).
+// Workspaces from the caller: ``labels`` B*H*W ints and the scratch of
+// component_slots_tiled (``counts``, ``lists``, ``tpart``, ``tcnt``).
 template <class T>
 int geometry_large_launch(const void* logits, long long sb, long long sy, long long sx,
-                          long long sc, int C, void* rootvals, void* slots, void* minx,
-                          void* maxx, void* nroots, void* areas, void* det_sums, void* cls_sums,
-                          void* labels, void* counts, void* tpart, void* tcnt, int B, int H,
-                          int W, int K, int nw, int chunk, int tile_rows, float thr,
-                          int connectivity, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || nw <= 0 || 32 * nw > kLargeThreads ||
-      chunk <= 0 || tile_rows <= 0 || static_cast<long long>(H) * W >= (1LL << 30))
-    return cudaErrorInvalidValue;
-  const size_t pass_smem = (static_cast<size_t>(K) + static_cast<size_t>(nw) * K * (C + 1)) *
-                           sizeof(int);
-  const size_t tile_smem = static_cast<size_t>(tiled::kTileH) * tiled::kTileW * sizeof(int);
-  const size_t smem = pass_smem > tile_smem ? pass_smem : tile_smem;
-  const long long N = static_cast<long long>(H) * W;
-  const long long ctiles = static_cast<long long>((W + tiled::kTileW - 1) / tiled::kTileW) *
-                           ((H + tiled::kTileH - 1) / tiled::kTileH);
-  const long long work = B * ((ctiles > (N + chunk - 1) / chunk) ? ctiles : (N + chunk - 1) / chunk);
-  return geometry::with_channel_bound(C, [&](auto cm) {
+                          long long sc, void* rootvals, void* slots, void* minx, void* maxx,
+                          void* nroots, void* areas, void* det_sums, void* cls_sums, void* labels,
+                          void* counts, void* lists, void* tpart, void* tcnt, void* ext,
+                          const int* plan, int nplan, float thr, int connectivity,
+                          void* stream) {
+  tiled::Plan pl;
+  if (!tiled::read_plan(plan, nplan, &pl)) return cudaErrorInvalidValue;
+  const size_t smem = tiled::large_smem(pl);
+  const long long ctiles = static_cast<long long>((pl.W + pl.tile_w - 1) / pl.tile_w) *
+                           ((pl.H + pl.tile_h - 1) / pl.tile_h);
+  long long most = ctiles > pl.nchunks ? ctiles : pl.nchunks;
+  most = most > pl.bands ? most : pl.bands;
+  const long long work = pl.B * most;
+  return geometry::with_channel_bound(pl.C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
     auto kernel = geometry_large_kernel<CM, T>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -348,11 +324,12 @@ int geometry_large_launch(const void* logits, long long sb, long long sy, long l
     float* ds = static_cast<float*>(det_sums);
     float* cs = static_cast<float*>(cls_sums);
     int* cn = static_cast<int*>(counts);
+    int* li = static_cast<int*>(lists);
     float* tp = static_cast<float*>(tpart);
     int* tc = static_cast<int*>(tcnt);
-    void* args[] = {&lg, &sb, &sy, &sx, &sc, &C, &lab, &roots, &sl, &mn, &mx, &nr, &ar, &ds,
-                    &cs, &cn, &tp, &tc, &B, &H, &W, &K, &nw, &chunk, &tile_rows, &thr,
-                    &connectivity};
+    int* ex = static_cast<int*>(ext);
+    void* args[] = {&lg, &sb, &sy, &sx, &sc, &lab, &roots, &sl, &mn, &mx, &nr, &ar, &ds,
+                    &cs, &cn, &li, &tp, &tc, &ex, &pl, &thr, &connectivity};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                     dim3(kLargeThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));
@@ -389,31 +366,29 @@ extern "C" int geometry_compat_bf16(const void* logits, long long sb, long long 
 
 // The same for maps of any size (H*W < 2^30), in one cooperative launch
 // (geometry_large_launch above), equal to ccl_labels_tiled then
-// component_slots_tiled bit for bit.
+// component_slots_tiled at the same plan bit for bit.
 extern "C" int geometry_compat_large(const void* logits, long long sb, long long sy,
-                                     long long sx, long long sc, int C, void* rootvals,
-                                     void* slots, void* minx, void* maxx, void* nroots,
-                                     void* areas, void* det_sums, void* cls_sums, void* labels,
-                                     void* counts, void* tpart, void* tcnt, int B, int H, int W,
-                                     int K, int nw, int chunk, int tile_rows, float thr,
-                                     int connectivity, void* stream) {
-  return geometry_large_launch<float>(logits, sb, sy, sx, sc, C, rootvals, slots, minx, maxx,
-                                      nroots, areas, det_sums, cls_sums, labels, counts, tpart,
-                                      tcnt, B, H, W, K, nw, chunk, tile_rows, thr, connectivity,
-                                      stream);
+                                     long long sx, long long sc, void* rootvals, void* slots,
+                                     void* minx, void* maxx, void* nroots, void* areas,
+                                     void* det_sums, void* cls_sums, void* labels, void* counts,
+                                     void* lists, void* tpart, void* tcnt, void* ext,
+                                     const int* plan, int nplan, float thr, int connectivity,
+                                     void* stream) {
+  return geometry_large_launch<float>(logits, sb, sy, sx, sc, rootvals, slots, minx, maxx,
+                                      nroots, areas, det_sums, cls_sums, labels, counts, lists,
+                                      tpart, tcnt, ext, plan, nplan, thr, connectivity, stream);
 }
 
 // The same from bf16 logits.
 extern "C" int geometry_compat_large_bf16(const void* logits, long long sb, long long sy,
-                                          long long sx, long long sc, int C, void* rootvals,
+                                          long long sx, long long sc, void* rootvals,
                                           void* slots, void* minx, void* maxx, void* nroots,
                                           void* areas, void* det_sums, void* cls_sums,
-                                          void* labels, void* counts, void* tpart, void* tcnt,
-                                          int B, int H, int W, int K, int nw, int chunk,
-                                          int tile_rows, float thr, int connectivity,
-                                          void* stream) {
-  return geometry_large_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, C, rootvals, slots, minx,
+                                          void* labels, void* counts, void* lists, void* tpart,
+                                          void* tcnt, void* ext, const int* plan, int nplan,
+                                          float thr, int connectivity, void* stream) {
+  return geometry_large_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, rootvals, slots, minx,
                                               maxx, nroots, areas, det_sums, cls_sums, labels,
-                                              counts, tpart, tcnt, B, H, W, K, nw, chunk,
-                                              tile_rows, thr, connectivity, stream);
+                                              counts, lists, tpart, tcnt, ext, plan, nplan, thr,
+                                              connectivity, stream);
 }

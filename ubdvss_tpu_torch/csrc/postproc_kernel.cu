@@ -34,29 +34,35 @@
 // component_slots_tiled serves the maps where that cluster cannot: where
 // the (K, H) extremes, or K12c's half label map beside them, exceed one
 // block's shared memory (K=64 at a 256² map and beyond; at H=512 the
-// extremes alone are 256 KB).  The same outputs, in four launches:
-//   1. roots_count: a block a (raster chunk, image) counts the chunk's
-//      roots and sets the extremes to their empty values;
-//   2. roots_rank: a block a chunk that holds one of the K smallest roots
-//      ranks them by a block-wide prefix sum after the counts of the
-//      chunks before it, and writes them to rootvals (H*W pads) and the
-//      root count to nroots;
-//   3. slots_tile: a block a (tile of kTileRows rows x 32 columns a warp,
-//      image) runs the pixel pass of the cluster kernel: each warp walks
-//      its 32-column strip down the tile, lanes over the columns, writes
-//      the slot of each pixel, and sums the stats in registers and warp
-//      trees (geometry.cuh StatsAcc) into its own partial set in shared
-//      memory; the extremes go to device memory by integer atomicMin/Max,
-//      one a slot and row for each warp (lanes ascend in x, so a slot's
-//      lowest lane holds its min x and its highest lane its max x); the
-//      block then sums its warps' sets in order into the tile's partials;
-//   4. slots_finish: each (slot, channel) sum over the image's tiles in
-//      order, and the padding slots' copies of the background's extremes.
+// extremes alone are 256 KB).  The same outputs, in three launches at the
+// geometry of ops/cuda/postproc_kernel.py tiled_plan (tiled.cuh Plan):
+//   1. roots: a block a (raster chunk of 2048 pixels or more, image)
+//      counts the chunk's roots and lists its first K, ranked by warp
+//      ballots in one pass over the chunk's labels;
+//   2. pass: a block a (band of tile_rows rows by the full width, image)
+//      gathers the image's K smallest roots from the chunks' counts and
+//      lists (band 0 writes rootvals and nroots), then runs the pixel
+//      pass: each warp walks (row, 256-column segment) units along the
+//      row, lanes over consecutive columns, writes the slot of each pixel,
+//      takes the band's per-row extremes by shared-memory atomicMin/Max
+//      (one a slot and step for each warp: lanes ascend in x, so a slot's
+//      lowest lane holds its min x and its highest lane its max x), and
+//      sums the stats in registers and warp trees (geometry.cuh StatsAcc,
+//      its tiled sums) into the warp's partial set in shared memory; the
+//      band then writes its rows of every slot's extremes (the padding
+//      slots the background's) and the sum of its warps' sets in order;
+//   3. finish: each (slot, channel) sum over the bands in a fixed order
+//      (a warp a stride of bands, then the warps in order).
 // The phases' bodies are tiled.cuh's, which the large K12c
 // (geometry_kernel.cu) runs in one launch, so the two agree bit for bit.
 // No float atomic anywhere, so two launches agree bit for bit; the order
 // of the sums differs from the cluster kernel's, so the two agree within
-// f32 rounding, not bit for bit.  Bound: the cluster kernel's bytes.
+// f32 rounding, not bit for bit.  Bound: the cluster kernel's bytes (12 B a
+// pixel and the class logits of the pixels in a slot: 48 us at B=8 512²,
+// K=64, f32).  The pass is bound instead by each warp's chain of dependent
+// steps (load, slot search, match, softmax: about 3 us a 32-pixel step), so
+// its blocks run at 64 registers, four an SM, over bands of a few rows
+// (PERF.md §6, PR 12).
 //
 // Both read f32 or bf16 logits (``_bf16`` entry points, the bf16 route's
 // trunk output: half the logit bytes); on bf16 each class probability is
@@ -116,82 +122,59 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
 
 // ---- component_slots_tiled: one kernel a phase of tiled.cuh ----
 
-constexpr int kRankThreads = 256;
-constexpr int kPassThreads = 256;  // at most, 8 warps a pass block
-
-// 1. block (chunk, image)
+// 1. block (chunk, image): the chunk's root count and first roots; eight
+// blocks an SM, so that a batch's chunks run in one wave.
 template <class T>
-__global__ void __launch_bounds__(kRankThreads)
-roots_count_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
-                   const int* __restrict__ labels, int* __restrict__ counts,
-                   int* __restrict__ minx, int* __restrict__ maxx, int H, int W, int K,
-                   int chunk, float thr) {
+__global__ void __launch_bounds__(tiled::kRootsThreads, 8)
+roots_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
+             const int* __restrict__ labels, int* __restrict__ counts, int* __restrict__ lists,
+             tiled::Plan pl, float thr) {
+  __shared__ int scratch[tiled::kRootsScratch];
   const int c = blockIdx.x;
   const long long b = blockIdx.y;
-  const int N = H * W;
+  const int N = pl.H * pl.W;
   const geometry::Plane<T> det{logits + b * sb, sy, sx};
   const geometry::GlobalLabels lab{labels + b * N};
-  const int cnt = tiled::roots_count(det, lab, c, H, W, chunk, thr);
-  if (threadIdx.x == 0) counts[b * gridDim.x + c] = cnt;
-  int* mn = minx + b * K * H;
-  int* mx = maxx + b * K * H;
-  for (int i = c * blockDim.x + threadIdx.x; i < K * H; i += gridDim.x * blockDim.x) {
-    mn[i] = geometry::kBig;
-    mx[i] = -1;
-  }
+  const long long item = b * pl.nchunks + c;
+  tiled::roots_chunk(det, lab, c, N, pl.W, pl.K, pl.chunk, thr, counts + item,
+                     lists + item * pl.K, scratch);
 }
 
-// 2. block (chunk, image)
-template <class T>
-__global__ void __launch_bounds__(kRankThreads)
-roots_rank_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
-                  const int* __restrict__ labels, const int* __restrict__ counts,
-                  int* __restrict__ rootvals, int* __restrict__ nroots, int H, int W, int K,
-                  int chunk, float thr) {
-  const long long b = blockIdx.y;
-  const geometry::Plane<T> det{logits + b * sb, sy, sx};
-  const geometry::GlobalLabels lab{labels + b * H * W};
-  tiled::roots_rank(det, lab, counts + b * gridDim.x, blockIdx.x, gridDim.x, rootvals + b * K,
-                    nroots + b, H, W, K, chunk, thr);
-}
-
-// 3. block (tile column, tile row, image); dynamic shared memory: K roots,
-// then one stats partial set, (K, C) floats and K ints, per warp.
+// 2. block (band, image); dynamic shared memory tiled::pass_smem.  Four
+// blocks an SM (64 registers a thread): the pass is bound by each warp's
+// chain of dependent steps, so resident warps, not registers, set its pace.
 template <int CM, class T>
-__global__ void __launch_bounds__(kPassThreads)
-slots_tile_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
-                  long long sc, int C, const int* __restrict__ labels,
-                  const int* __restrict__ rootvals, const int* __restrict__ nroots,
-                  int* __restrict__ slots, int* __restrict__ minx, int* __restrict__ maxx,
-                  float* __restrict__ tpart, int* __restrict__ tcnt, int H, int W, int K,
-                  int tile_rows, float thr) {
+__global__ void __launch_bounds__(256, 4)
+pass_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx, long long sc,
+            const int* __restrict__ labels, const int* __restrict__ counts,
+            const int* __restrict__ lists, int* __restrict__ rootvals, int* __restrict__ nroots,
+            int* __restrict__ slots, int* __restrict__ minx, int* __restrict__ maxx,
+            float* __restrict__ tpart, int* __restrict__ tcnt, int* __restrict__ ext,
+            tiled::Plan pl, float thr) {
   extern __shared__ int sm[];
-  const long long b = blockIdx.z;
-  const long long N = static_cast<long long>(H) * W;
-  const long long tile = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
+  const long long b = blockIdx.y;
+  const long long N = static_cast<long long>(pl.H) * pl.W;
+  const long long band = b * pl.bands + blockIdx.x;
+  const int K = pl.K;
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, pl.C};
   const geometry::GlobalLabels lab{labels + b * N};
-  tiled::slots_tile<CM>(lg, lab, rootvals + b * K, nroots[b], slots + b * N, minx + b * K * H,
-                        maxx + b * K * H, tpart + tile * K * C, tcnt + tile * K, blockIdx.x,
-                        blockIdx.y, blockDim.x >> 5, H, W, K, tile_rows, thr, sm);
+  tiled::slots_pass<CM>(lg, lab, counts + b * pl.nchunks, lists + b * pl.nchunks * K,
+                        rootvals + b * K, nroots + b, slots + b * N, minx + b * K * pl.H,
+                        maxx + b * K * pl.H, tpart + band * K * pl.C, tcnt + band * K,
+                        ext + band * 2 * K * pl.tile_rows, blockIdx.x, pl, thr, sm);
 }
 
-// 4. block (part of the image's K*(C+1) sums, image)
-__global__ void __launch_bounds__(kRankThreads)
-slots_finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcnt,
-                    const int* __restrict__ nroots, int* __restrict__ minx,
-                    int* __restrict__ maxx, float* __restrict__ areas,
-                    float* __restrict__ det_sums, float* __restrict__ cls_sums, int H, int K,
-                    int C, int tiles) {
+// 3. block (group of 32 sums, image)
+__global__ void __launch_bounds__(tiled::kFinishThreads)
+finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcnt,
+              float* __restrict__ areas, float* __restrict__ det_sums,
+              float* __restrict__ cls_sums, tiled::Plan pl) {
+  __shared__ int scratch[tiled::kFinishScratch];
   const long long b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  tiled::slots_finish_sum(tpart + b * tiles * K * C, tcnt + b * tiles * K, areas + b * K,
-                          det_sums + b * K, cls_sums + b * K * max(C - 1, 1), i, K, C, tiles);
-  // padding slots carry the background's extremes (slot K-1's)
-  const int nvalid = min(nroots[b], K);
-  for (int j = nvalid * H + i; j < (K - 1) * H; j += gridDim.x * blockDim.x) {
-    tiled::slots_pad_extremes(minx + b * K * H, maxx + b * K * H, j, H, K);
-  }
+  const int K = pl.K, C = pl.C;
+  tiled::slots_finish(tpart + b * pl.bands * K * C, tcnt + b * pl.bands * K, areas + b * K,
+                      det_sums + b * K, cls_sums + b * K * max(C - 1, 1), blockIdx.x, K, C,
+                      pl.bands, scratch);
 }
 
 // logits (B, H, W, C) at element strides (sb, sy, sx, sc), labels
@@ -227,57 +210,47 @@ int slots_cluster(const void* logits, long long sb, long long sy, long long sx, 
 }
 
 // The outputs of component_slots for maps of any size (H*W < 2^30, B <=
-// 65535), through the four launches above.  Scratch from the caller:
-// ``counts`` B * ceil(H*W / chunk) ints, ``tpart`` B * tiles * K * C floats
-// and ``tcnt`` B * tiles * K ints, where tiles = ceil(W / threads) *
-// ceil(H / tile_rows); ``threads`` is 32 x the warps of a pass block.
+// 65535), through the three launches above, at the plan's geometry
+// (``plan``: tiled_plan's nplan ints, tiled.cuh Plan).  Scratch from the
+// caller: ``counts`` B * nchunks ints, ``lists`` B * nchunks * K ints,
+// ``tpart`` B * bands * K * C floats, ``tcnt`` B * bands * K ints and,
+// where the plan keeps the extremes out of shared memory, ``ext`` B *
+// bands * 2 * K * tile_rows ints.
 template <class T>
 int slots_tiled(const void* logits, long long sb, long long sy, long long sx, long long sc,
-                int C, const void* labels, void* rootvals, void* slots, void* minx, void* maxx,
+                const void* labels, void* rootvals, void* slots, void* minx, void* maxx,
                 void* nroots, void* areas, void* det_sums, void* cls_sums, void* counts,
-                void* tpart, void* tcnt, int B, int H, int W, int K, int threads, int chunk,
-                int tile_rows, float thr, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || B > 65535 || chunk <= 0 ||
-      tile_rows <= 0 || threads <= 0 || threads > kPassThreads || threads % 32 != 0 ||
-      static_cast<long long>(H) * W >= (1LL << 30))
-    return cudaErrorInvalidValue;
+                void* lists, void* tpart, void* tcnt, void* ext, const int* plan, int nplan,
+                float thr, void* stream) {
+  tiled::Plan pl;
+  if (!tiled::read_plan(plan, nplan, &pl) || pl.B > 65535) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* lg = static_cast<const T*>(logits);
   const auto* lab = static_cast<const int*>(labels);
-  auto* roots = static_cast<int*>(rootvals);
-  auto* nr = static_cast<int*>(nroots);
-  auto* mn = static_cast<int*>(minx);
-  auto* mx = static_cast<int*>(maxx);
-  const int N = H * W;
-  const dim3 chunks((N + chunk - 1) / chunk, B);
-  roots_count_kernel<T><<<chunks, kRankThreads, 0, s>>>(
-      lg, sb, sy, sx, lab, static_cast<int*>(counts), mn, mx, H, W, K, chunk, thr);
+  auto* cn = static_cast<int*>(counts);
+  auto* li = static_cast<int*>(lists);
+  auto* tp = static_cast<float*>(tpart);
+  auto* tc = static_cast<int*>(tcnt);
+  roots_kernel<T><<<dim3(pl.nchunks, pl.B), tiled::kRootsThreads, 0, s>>>(lg, sb, sy, sx, lab, cn,
+                                                                         li, pl, thr);
   int e = launch_status();
   if (e != 0) return e;
-  roots_rank_kernel<T><<<chunks, kRankThreads, 0, s>>>(
-      lg, sb, sy, sx, lab, static_cast<const int*>(counts), roots, nr, H, W, K, chunk, thr);
-  e = launch_status();
-  if (e != 0) return e;
-  const dim3 tiles((W + threads - 1) / threads, (H + tile_rows - 1) / tile_rows, B);
-  const size_t smem = static_cast<size_t>(K) * sizeof(int) +
-                      static_cast<size_t>(threads / 32) * K * (C + 1) * sizeof(float);
-  e = geometry::with_channel_bound(C, [&](auto cm) {
+  const size_t smem = tiled::pass_smem(pl);
+  e = geometry::with_channel_bound(pl.C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
     cudaError_t a = cudaFuncSetAttribute(
-        slots_tile_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        pass_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (a != cudaSuccess) return static_cast<int>(a);
-    slots_tile_kernel<CM, T><<<tiles, threads, smem, s>>>(
-        lg, sb, sy, sx, sc, C, lab, roots, nr, static_cast<int*>(slots), mn, mx,
-        static_cast<float*>(tpart), static_cast<int*>(tcnt), H, W, K, tile_rows, thr);
+    pass_kernel<CM, T><<<dim3(pl.bands, pl.B), 32 * pl.pass_warps, smem, s>>>(
+        lg, sb, sy, sx, sc, lab, cn, li, static_cast<int*>(rootvals), static_cast<int*>(nroots),
+        static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx), tp, tc,
+        static_cast<int*>(ext), pl, thr);
     return launch_status();
   });
   if (e != 0) return e;
-  const dim3 fin((K * (C + 1) + kRankThreads - 1) / kRankThreads, B);
-  slots_finish_kernel<<<fin, kRankThreads, 0, s>>>(
-      static_cast<const float*>(tpart), static_cast<const int*>(tcnt), nr, mn, mx,
-      static_cast<float*>(areas), static_cast<float*>(det_sums), static_cast<float*>(cls_sums),
-      H, K, C, static_cast<int>(tiles.x * tiles.y));
+  finish_kernel<<<dim3(pl.fin_blocks, pl.B), tiled::kFinishThreads, 0, s>>>(
+      tp, tc, static_cast<float*>(areas), static_cast<float*>(det_sums),
+      static_cast<float*>(cls_sums), pl);
   return launch_status();
 }
 
@@ -307,29 +280,29 @@ extern "C" int component_slots_bf16(const void* logits, long long sb, long long 
                                       threads, thr, stream);
 }
 
-// The outputs of component_slots for maps of any size, from f32 logits
-// (slots_tiled above).
+// The outputs of component_slots for maps of any size, from f32 logits at
+// element strides (sb, sy, sx, sc) and the raw labels (slots_tiled above).
 extern "C" int component_slots_tiled(const void* logits, long long sb, long long sy,
-                                     long long sx, long long sc, int C, const void* labels,
+                                     long long sx, long long sc, const void* labels,
                                      void* rootvals, void* slots, void* minx, void* maxx,
                                      void* nroots, void* areas, void* det_sums,
-                                     void* cls_sums, void* counts, void* tpart, void* tcnt,
-                                     int B, int H, int W, int K, int threads, int chunk,
-                                     int tile_rows, float thr, void* stream) {
-  return slots_tiled<float>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx, maxx,
-                            nroots, areas, det_sums, cls_sums, counts, tpart, tcnt, B, H, W, K,
-                            threads, chunk, tile_rows, thr, stream);
+                                     void* cls_sums, void* counts, void* lists, void* tpart,
+                                     void* tcnt, void* ext, const int* plan, int nplan,
+                                     float thr, void* stream) {
+  return slots_tiled<float>(logits, sb, sy, sx, sc, labels, rootvals, slots, minx, maxx, nroots,
+                            areas, det_sums, cls_sums, counts, lists, tpart, tcnt, ext, plan,
+                            nplan, thr, stream);
 }
 
 // The same from bf16 logits.
 extern "C" int component_slots_tiled_bf16(const void* logits, long long sb, long long sy,
-                                          long long sx, long long sc, int C, const void* labels,
+                                          long long sx, long long sc, const void* labels,
                                           void* rootvals, void* slots, void* minx, void* maxx,
                                           void* nroots, void* areas, void* det_sums,
-                                          void* cls_sums, void* counts, void* tpart, void* tcnt,
-                                          int B, int H, int W, int K, int threads, int chunk,
-                                          int tile_rows, float thr, void* stream) {
-  return slots_tiled<__nv_bfloat16>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx,
-                                    maxx, nroots, areas, det_sums, cls_sums, counts, tpart, tcnt,
-                                    B, H, W, K, threads, chunk, tile_rows, thr, stream);
+                                          void* cls_sums, void* counts, void* lists,
+                                          void* tpart, void* tcnt, void* ext, const int* plan,
+                                          int nplan, float thr, void* stream) {
+  return slots_tiled<__nv_bfloat16>(logits, sb, sy, sx, sc, labels, rootvals, slots, minx, maxx,
+                                    nroots, areas, det_sums, cls_sums, counts, lists, tpart,
+                                    tcnt, ext, plan, nplan, thr, stream);
 }

@@ -110,9 +110,12 @@ def ccl_labels_reference(
     return lab
 
 
-_ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.F, _build.I, _build.P]
 _FUNCS = {
-    name + sfx: _ARGS for name in ("ccl_labels", "ccl_labels_tiled") for sfx in ("", "_bf16")
+    **{"ccl_labels" + sfx: [_build.P, _build.P, _build.I, _build.I, _build.I, _build.F, _build.I,
+                            _build.P] for sfx in ("", "_bf16")},
+    **{"ccl_labels_tiled" + sfx: [_build.P, _build.P, _build.P, _build.I, _build.F, _build.I,
+                                  _build.P] for sfx in ("", "_bf16")},
+    "tiled_plan_ints": [],
 }
 # the tiled kernel's labels are int32 linear indices below 2^30
 MAX_TILED_PIXELS = 1 << 30
@@ -142,10 +145,11 @@ def ccl_labels_tiled(
     det_logits: torch.Tensor, threshold: float = 0.5, connectivity: int = 8
 ) -> torch.Tensor:
     """(B, H, W) f32 or bf16 detection logits -> (B, H, W) int32 raw labels,
-    by the device-memory kernel: 32x64 tiles labelled in shared memory, the seams
-    between tiles united by atomicMin on roots in device memory, then a
-    flatten (three launches; any map size).  ``ccl_labels_from_logits``
-    takes it for maps larger than one block's shared memory.
+    by the device-memory kernel at ``postproc_kernel.tiled_plan``'s
+    geometry: tiles labelled in shared memory, the seams between tiles
+    united by atomicMin on roots in device memory, then a flatten (three
+    launches; any map size).  ``ccl_labels_from_logits`` takes it for maps
+    larger than one block's shared memory.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.
@@ -155,12 +159,16 @@ def ccl_labels_tiled(
     if det_logits.device.type == "cpu":
         return ccl_labels_reference(det_logits, threshold, connectivity)
     _check(det_logits)
+    from ubdvss_tpu_torch.ops.cuda.postproc_kernel import check_plan_length, tiled_plan
+
+    arr = tiled_plan(*det_logits.shape, 1, 1).ints  # the CCL's geometry takes no K, C
     lib = _build.load("ccl_kernel", _FUNCS)
+    check_plan_length(lib, "ccl_kernel")
     out = torch.empty(det_logits.shape, dtype=torch.int32, device=det_logits.device)
     _build.launch(
         lib, "ccl_labels_tiled" + LOGIT_DTYPES[det_logits.dtype], det_logits.device,
-        det_logits.data_ptr(), out.data_ptr(), *det_logits.shape, threshold_logit(threshold),
-        connectivity,
+        det_logits.data_ptr(), out.data_ptr(), arr.ctypes.data, arr.size,
+        threshold_logit(threshold), connectivity,
     )
     count_launch(ccl_labels_tiled, det_logits.dtype)
     return out

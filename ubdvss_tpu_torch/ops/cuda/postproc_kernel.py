@@ -15,11 +15,14 @@ Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
     ``rootvals``.
   * ``component_slots_tiled`` — the same outputs for maps where the
     cluster kernel's (K, H) extremes or K12c's half label map beside them
-    exceed one block's shared memory (K=64 at a 256² map and beyond): the
-    roots ranked over raster chunks, the pixel pass over row tiles with the
-    extremes by integer atomics in device memory and the stats partials
-    summed over the tiles in order (four launches; no float atomic).
-    ``component_slots`` takes it where K12c cannot run.
+    exceed one block's shared memory (K=64 at a 256² map and beyond): each
+    raster chunk's roots counted and listed, the pixel pass over bands of
+    rows by the full width (each band gathering the K smallest roots,
+    writing its rows' extremes and its stats partials), the partials summed
+    over the bands in order (three launches; no float atomic), at the
+    geometry of ``tiled_plan``, which ``ccl_labels_tiled`` and
+    ``geometry_compat_large`` launch with too.  ``component_slots`` takes
+    it where K12c cannot run.
   * ``geometry_compat`` — CCL, slots and stats as one kernel (K12c,
     ``_geometry_kernel_compat``; a cluster of two blocks per image), the
     same outputs as slots after CCL, stats bit for bit; past
@@ -54,8 +57,11 @@ stacking.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 
+import numpy as np
 import torch
 
 from ubdvss_tpu_torch.ops.cuda import _build
@@ -144,11 +150,12 @@ _FUNCS = {
     for name, args in (
         ("component_slots",
          _LOGITS_ARGS + [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.P]),
-        ("component_slots_tiled",
-         _LOGITS_ARGS + [_build.P] * 12 + [_build.I] * 7 + [_build.F, _build.P]),
+        ("component_slots_tiled", [_build.P] + [_build.L] * 4 + [_build.P] * 15
+         + [_build.I, _build.F, _build.P]),
     )
     for sfx in LOGIT_DTYPES.values()
 }
+_FUNCS["tiled_plan_ints"] = []
 
 
 # the kernels' stats keep a pixel's class probabilities in registers, for
@@ -201,11 +208,190 @@ def geometry_compat_fits(H: int, W: int, K: int, C: int) -> bool:
     return words * 4 <= MAX_SHARED_BYTES
 
 
-# component_slots_tiled: pixels a block ranks roots in, rows a pass block
-# walks, and its warps (at most; csrc/postproc_kernel.cu kPassThreads / 32)
-SLOTS_CHUNK = 8192
-SLOTS_TILE_ROWS = 32
-SLOTS_TILE_WARPS = 8
+# The tiled kernels' geometry (``tiled_plan``): the device-memory CCL's
+# tiles and threads, the roots' raster chunks (at least ROOTS_CHUNK pixels,
+# at most MAX_CHUNKS an image, whose counts each pass block scans), the
+# pixel pass's bands of PASS_ROWS rows by the full width, each row walked
+# PASS_SEG columns at a time a warp, up to PASS_WARPS warps a band, and the
+# finish's blocks of FINISH_THREADS threads, 32 sums a block
+# (csrc/tiled.cuh kFinishThreads).
+CCL_TILE = (32, 64)
+CCL_THREADS, SEAM_THREADS = 512, 128
+ROOTS_CHUNK, MAX_CHUNKS = 2048, 1024
+PASS_ROWS, PASS_SEG, PASS_WARPS = 4, 256, 8
+FINISH_THREADS = 256
+# the order of the plan's ints (struct Plan in csrc/tiled.cuh)
+PLAN_FIELDS = (
+    "B", "H", "W", "K", "C",
+    "tile_h", "tile_w", "ccl_threads", "seam_threads",
+    "chunk", "nchunks",
+    "pass_warps", "tile_rows", "seg", "nseg", "bands", "ext_smem",
+    "fin_blocks",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """The launch geometry of ``ccl_labels_tiled``, ``component_slots_tiled``
+    and ``geometry_compat_large``, which the kernels read as ``ints``
+    (``PLAN_FIELDS``), and the scratch it needs.  The pass keeps its band's
+    extremes in shared memory (``ext_smem``) unless one warp's stats
+    partial set leaves no room for them."""
+
+    B: int
+    H: int
+    W: int
+    K: int
+    C: int
+    tile_h: int
+    tile_w: int
+    ccl_threads: int
+    seam_threads: int
+    chunk: int
+    nchunks: int
+    pass_warps: int
+    tile_rows: int
+    seg: int
+    nseg: int
+    bands: int
+    ext_smem: int
+    fin_blocks: int
+
+    @functools.cached_property
+    def ints(self) -> np.ndarray:
+        return np.array([getattr(self, f) for f in PLAN_FIELDS], np.int32)
+
+    @property
+    def ccl_grid(self) -> tuple[int, int]:
+        """(tile columns, tile rows) of one image."""
+        return -(-self.W // self.tile_w), -(-self.H // self.tile_h)
+
+    @property
+    def ccl_smem(self) -> int:
+        return self.tile_h * self.tile_w * 4
+
+    @property
+    def pass_smem(self) -> int:
+        """Bytes of a pass band: its roots, then a stats partial set a warp
+        and, with ``ext_smem``, its (K, tile_rows) min and max x, at least
+        the 32 words the roots' scan takes first."""
+        K, R = self.K, self.tile_rows
+        rest = self.pass_warps * K * (self.C + 1) + self.ext_smem * 2 * K * R
+        return 4 * (K + max(rest, 32))
+
+    @property
+    def large_smem(self) -> int:
+        """Bytes of a block of ``geometry_compat_large``: every phase's,
+        the finish's 512 words of scratch included."""
+        return max(self.ccl_smem, self.pass_smem, 4 * 2 * FINISH_THREADS)
+
+    def scratch_shapes(self) -> dict:
+        """The int32 and f32 workspaces of the slots phases: the chunks'
+        root counts and first-K lists, the bands' stats partials, and the
+        bands' extremes when they do not fit shared memory."""
+        B, K, C = self.B, self.K, self.C
+        ext = (B, self.bands, 2, K, self.tile_rows) if not self.ext_smem else (1,)
+        return {"counts": ((B, self.nchunks), torch.int32),
+                "lists": ((B, self.nchunks, K), torch.int32),
+                "tpart": ((B, self.bands, K, C), torch.float32),
+                "tcnt": ((B, self.bands, K), torch.int32),
+                "ext": (ext, torch.int32)}
+
+    # the work items as the kernels walk them (the CPU tests hold their
+    # coverage)
+    def ccl_tile_pixels(self, tx: int, ty: int) -> tuple[np.ndarray, np.ndarray]:
+        """(rows, columns) of CCL tile (tx, ty)."""
+        y0, x0 = ty * self.tile_h, tx * self.tile_w
+        return (np.arange(y0, min(y0 + self.tile_h, self.H)),
+                np.arange(x0, min(x0 + self.tile_w, self.W)))
+
+    def seam_pixels(self, tx: int, ty: int) -> list[tuple[int, int]]:
+        """The (y, x) pixels CCL tile (tx, ty)'s seam pass visits, in its
+        thread order: the top row, then the left and right columns below
+        it, one column when the tile is one wide (``csrc/tiled.cuh``
+        ccl_seam)."""
+        rows, cols = self.ccl_tile_pixels(tx, ty)
+        tw, th, y0, x0 = len(cols), len(rows), rows[0], cols[0]
+        out = []
+        for i in range(tw + (2 if tw > 1 else 1) * th):
+            lx = i if i < tw else (0 if i < tw + th else tw - 1)
+            ly = 0 if i < tw else (i - tw if i < tw + th else i - tw - th)
+            if i >= tw and ly == 0:
+                continue
+            out.append((y0 + ly, x0 + lx))
+        return out
+
+    def flatten_groups(self) -> int:
+        """The flatten's groups of four label words over the batch."""
+        return -(-self.B * self.H * self.W // 4)
+
+    def chunk_pixels(self, c: int) -> range:
+        """The linear pixels of raster chunk ``c`` of an image."""
+        return range(c * self.chunk, min((c + 1) * self.chunk, self.H * self.W))
+
+    def band_units(self, band: int) -> dict[int, list[tuple[int, int, int]]]:
+        """Warp w of pass band ``band``: its (row, first column, end column)
+        segments in order (``csrc/tiled.cuh`` slots_pass)."""
+        y0 = band * self.tile_rows
+        rows = min(self.tile_rows, self.H - y0)
+        out = {w: [] for w in range(self.pass_warps)}
+        for u in range(rows * self.nseg):
+            r, sg = divmod(u, self.nseg)
+            xs = sg * self.seg
+            out[u % self.pass_warps].append((y0 + r, xs, min(xs + self.seg, self.W)))
+        return out
+
+    def finish_items(self, f: int) -> range:
+        """The sums finish block ``f`` writes: items of the image's K*C
+        (slot, channel) sums, then its K counts."""
+        return range(32 * f, min(32 * f + 32, self.K * (self.C + 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def tiled_plan(B: int, H: int, W: int, K: int, C: int) -> TiledPlan:
+    """The one launch plan of the tiled CCL, the tiled slots and the large
+    K12c for B maps of H x W with K slots and C logit channels.  Raises
+    NotImplementedError when one warp's stats partial set exceeds one
+    block's shared memory."""
+    N = H * W
+    chunk = max(ROOTS_CHUNK, -(-(-(-N // MAX_CHUNKS)) // 256) * 256)  # nchunks <= MAX_CHUNKS
+    seg = PASS_SEG
+    nseg = -(-W // seg)
+    R = PASS_ROWS
+    words = MAX_SHARED_BYTES // 4
+    set_words = K * (C + 1)
+    nw = min(PASS_WARPS, R * nseg, (words - K) // set_words)
+    if nw < 1:
+        raise NotImplementedError(
+            f"K={K}, C={C}: one warp's stats partial set exceeds one block's "
+            "shared memory in the tiled slots kernel (ROADMAP.md §2a)"
+        )
+    ext_smem = int(K + nw * set_words + 2 * K * R <= words)
+    return TiledPlan(
+        B=B, H=H, W=W, K=K, C=C, tile_h=CCL_TILE[0], tile_w=CCL_TILE[1],
+        ccl_threads=CCL_THREADS, seam_threads=SEAM_THREADS,
+        chunk=chunk, nchunks=-(-N // chunk), pass_warps=nw, tile_rows=R, seg=seg, nseg=nseg,
+        bands=-(-H // R), ext_smem=ext_smem, fin_blocks=-(-K * (C + 1) // 32),
+    )
+
+
+def tiled_scratch(plan: TiledPlan, dev) -> dict:
+    """The plan's workspaces on ``dev``, in the C entry points' order."""
+    return {k: torch.empty(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in plan.scratch_shapes().items()}
+
+
+_PLAN_CHECKED: set = set()  # libraries whose struct Plan matches PLAN_FIELDS
+
+
+def check_plan_length(lib, name: str) -> None:
+    """Raise unless the library reads as many plan ints as PLAN_FIELDS
+    holds (once a library)."""
+    if name not in _PLAN_CHECKED:
+        if lib.tiled_plan_ints() != len(PLAN_FIELDS):
+            raise RuntimeError(f"{name}: the kernels read {lib.tiled_plan_ints()} plan ints, "
+                               f"the plan has {len(PLAN_FIELDS)}")
+        _PLAN_CHECKED.add(name)
 
 
 def _empty_outputs(B: int, H: int, W: int, K: int, C: int, dev) -> dict:
@@ -273,13 +459,14 @@ def component_slots_tiled(
     logits: torch.Tensor, labels: torch.Tensor, max_components: int,
     threshold: float = 0.5,
 ) -> dict:
-    """``component_slots`` for maps of any size: the roots ranked over
-    raster chunks of SLOTS_CHUNK pixels, then the pixel pass over tiles of
-    SLOTS_TILE_ROWS rows by 32 columns a warp, the extremes in device
-    memory, each tile's stats partials summed over the tiles in a fixed
-    order (four launches).  Outputs as ``component_slots``; two launches
-    agree bit for bit, and the stats with the cluster kernel's within f32
-    rounding (another order of the sums).
+    """``component_slots`` for maps of any size, at ``tiled_plan``'s
+    geometry (three launches): each raster chunk's root count and first K
+    roots; the pixel pass over bands of rows by the full width, each band
+    gathering the image's K smallest roots from the chunks, writing its
+    rows' slots and extremes and its stats partials; the sums over the
+    bands in a fixed order.  Outputs as ``component_slots``; two launches
+    agree bit for bit (no float atomic), and the stats with the cluster
+    kernel's within f32 rounding (another order of the sums).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.
@@ -289,21 +476,18 @@ def component_slots_tiled(
     logits = _as_nhwc(logits)
     _check_slots_inputs(logits, labels)
     B, H, W, C = logits.shape
-    K = max_components
-    nw = _tiled_pass_warps(W, K, C)
-    threads = 32 * nw
-    tiles = -(-W // threads) * -(-H // SLOTS_TILE_ROWS)
+    plan = tiled_plan(B, H, W, max_components, C)
     dev = logits.device
-    counts = torch.empty((B, -(-(H * W) // SLOTS_CHUNK)), dtype=torch.int32, device=dev)
-    tpart = torch.empty((B, tiles, K, C), dtype=torch.float32, device=dev)
-    tcnt = torch.empty((B, tiles, K), dtype=torch.int32, device=dev)
+    scratch = tiled_scratch(plan, dev)
     lib = _build.load("postproc_kernel", _FUNCS)
-    out = _empty_outputs(B, H, W, K, C, dev)
+    check_plan_length(lib, "postproc_kernel")
+    out = _empty_outputs(B, H, W, max_components, C, dev)
+    arr = plan.ints
     _build.launch(
         lib, "component_slots_tiled" + LOGIT_DTYPES[logits.dtype], dev, logits.data_ptr(),
-        *logits.stride(), C, labels.data_ptr(), *(t.data_ptr() for t in out.values()),
-        counts.data_ptr(), tpart.data_ptr(), tcnt.data_ptr(),
-        B, H, W, K, threads, SLOTS_CHUNK, SLOTS_TILE_ROWS, threshold_logit(threshold),
+        *logits.stride(), labels.data_ptr(), *(t.data_ptr() for t in out.values()),
+        *(t.data_ptr() for t in scratch.values()), arr.ctypes.data, arr.size,
+        threshold_logit(threshold),
     )
     count_launch(component_slots_tiled, logits.dtype)
     return out
@@ -331,25 +515,13 @@ _GEO_FUNCS = {
         + [_build.F, _build.I, _build.P]
         for sfx in LOGIT_DTYPES.values()
     },
+    "tiled_plan_ints": [],
     **{
-        "geometry_compat_large" + sfx: _LOGITS_ARGS + [_build.P] * 12 + [_build.I] * 7
-        + [_build.F, _build.I, _build.P]
+        "geometry_compat_large" + sfx: [_build.P] + [_build.L] * 4 + [_build.P] * 15
+        + [_build.I, _build.F, _build.I, _build.P]
         for sfx in LOGIT_DTYPES.values()
     },
 }
-
-
-def _tiled_pass_warps(W: int, K: int, C: int) -> int:
-    """Warps of a pass tile of ``component_slots_tiled`` (and of its phase in
-    ``geometry_compat_large``): up to SLOTS_TILE_WARPS, no more than the
-    map's 32-column strips, each warp's stats partial set in shared memory."""
-    nw = min(SLOTS_TILE_WARPS, -(-W // 32), (MAX_SHARED_BYTES - K * 4) // (K * (C + 1) * 4))
-    if nw < 1:
-        raise NotImplementedError(
-            f"K={K}, C={C}: one warp's stats partial set exceeds one block's "
-            "shared memory in the tiled slots kernel (ROADMAP.md §2a)"
-        )
-    return nw
 
 
 def geometry_compat(
@@ -397,11 +569,11 @@ def geometry_compat_large(
 ) -> dict:
     """K12c for maps of any size (H*W < 2^30): the phases of
     ``ccl_labels_tiled`` (tiles, seams, flatten) and
-    ``component_slots_tiled`` (count, rank, the tiled pixel pass with its
-    tiles and warps, finish) in one cooperative launch of persistent
-    blocks, grid-wide barriers between the phases, the labels in a
-    device-memory workspace.  The eight outputs equal that pair's bit for
-    bit.  ``geometry_compat`` takes it past ``geometry_compat_fits``.
+    ``component_slots_tiled`` (roots, the band pass, finish) at the same
+    ``tiled_plan`` in one cooperative launch of persistent blocks,
+    grid-wide barriers between the phases, the labels in a device-memory
+    workspace.  The eight outputs equal that pair's bit for bit.
+    ``geometry_compat`` takes it past ``geometry_compat_fits``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.
@@ -413,23 +585,21 @@ def geometry_compat_large(
     logits = _as_nhwc(logits)
     _check_logits(logits)
     B, H, W, C = logits.shape
-    K = max_components
     if H * W >= 1 << 30:
         raise ValueError(f"a {H}x{W} map: the large K12c takes H*W < 2^30")
-    nw = _tiled_pass_warps(W, K, C)
-    tiles = -(-W // (32 * nw)) * -(-H // SLOTS_TILE_ROWS)
+    plan = tiled_plan(B, H, W, max_components, C)
     dev = logits.device
     labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    counts = torch.empty((B, -(-(H * W) // SLOTS_CHUNK)), dtype=torch.int32, device=dev)
-    tpart = torch.empty((B, tiles, K, C), dtype=torch.float32, device=dev)
-    tcnt = torch.empty((B, tiles, K), dtype=torch.int32, device=dev)
+    scratch = tiled_scratch(plan, dev)
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
-    out = _empty_outputs(B, H, W, K, C, dev)
+    check_plan_length(lib, "geometry_kernel")
+    out = _empty_outputs(B, H, W, max_components, C, dev)
+    arr = plan.ints
     _build.launch(
         lib, "geometry_compat_large" + LOGIT_DTYPES[logits.dtype], dev, logits.data_ptr(),
-        *logits.stride(), C, *(t.data_ptr() for t in out.values()), labels.data_ptr(),
-        counts.data_ptr(), tpart.data_ptr(), tcnt.data_ptr(), B, H, W, K, nw, SLOTS_CHUNK,
-        SLOTS_TILE_ROWS, threshold_logit(threshold), connectivity,
+        *logits.stride(), *(t.data_ptr() for t in out.values()), labels.data_ptr(),
+        *(t.data_ptr() for t in scratch.values()), arr.ctypes.data, arr.size,
+        threshold_logit(threshold), connectivity,
     )
     count_launch(geometry_compat_large, logits.dtype)
     return out

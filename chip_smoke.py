@@ -281,9 +281,10 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> float:
 
 
 def phase_split(fn, n: int = 20) -> dict:
-    """Each kernel one call of fn launches: its mean device ms a call
-    (CUPTI durations), its grid and block, and kineto's estimate of its
-    resident warps an SM, from torch.profiler's chrome trace."""
+    """Each kernel one call of fn launches: its mean device ms and launches
+    a call (CUPTI durations), and the grid, block, registers, shared memory
+    and kineto's estimate of resident warps an SM of its last launch, from
+    torch.profiler's chrome trace."""
     import tempfile
 
     import torch
@@ -306,10 +307,12 @@ def phase_split(fn, n: int = 20) -> dict:
         name = e["name"].replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
         name = name.split("::")[-1].replace("void ", "").strip()
         a = e.get("args", {})
-        s = split.setdefault(name, {"ms": 0.0})
+        s = split.setdefault(name, {"ms": 0.0, "launches": 0.0})
         s["ms"] += e["dur"] / 1e3 / n
+        s["launches"] += 1 / n
         occ = a.get("est. achieved occupancy %")
-        s.update(grid=a.get("grid"), block=a.get("block"),
+        s.update(grid=a.get("grid"), block=a.get("block"), registers=a.get("registers per thread"),
+                 smem=a.get("shared memory"),
                  resident_warps_per_sm=None if occ is None else occ * 64 / 100)
     return split
 

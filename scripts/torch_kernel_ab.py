@@ -58,7 +58,7 @@ det_sums / areas and cls_sums / areas within 2e-6 of the f64 sums (bf16:
 plus the rounding-boundary slack), each tree's large K12c bit for bit its
 pair.  Then each call is timed (CUDA events) and split by launch from the
 profiler's chrome trace: each kernel's device ms, grid, block, registers,
-shared memory and estimated resident warps an SM (``launch_split``).
+shared memory and estimated resident warps an SM (``chip_smoke.phase_split``).
 
 Prints one JSON object and writes it to FILE (default
 ``build/ab/ab.json``); exits non-zero on a mismatch.
@@ -428,49 +428,6 @@ def int8_ab(args, dev, res: dict) -> None:
 TILED_SOURCES = ("ccl_kernel", "postproc_kernel", "geometry_kernel")
 
 
-def _kernel_name(name: str) -> str:
-    """A CUPTI kernel name without its namespace, template arguments and
-    parameter list: ``slots_tile_kernel``."""
-    name = name.replace("(anonymous namespace)::", "")
-    for sep in ("<", "("):
-        name = name.split(sep)[0]
-    return name.split("::")[-1].strip()
-
-
-def launch_split(fn, tag: str, n: int = 20) -> dict:
-    """Each kernel that one call of fn launches: its mean device ms a call
-    (CUPTI durations, torch.profiler), launches a call, and the grid, block,
-    registers, shared memory, launched warps a SM and kineto's estimated
-    occupancy (resident warps a SM = that share of 64) of its last launch,
-    from the profiler's chrome trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    path = REPO / "build" / "ab" / f"trace-{tag}.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    split = {}
-    for e in json.loads(path.read_text())["traceEvents"]:
-        if e.get("cat") != "kernel":
-            continue
-        a = e.get("args", {})
-        s = split.setdefault(_kernel_name(e["name"]), {"ms": 0.0, "launches": 0})
-        s["ms"] += e["dur"] / 1e3 / n
-        s["launches"] += 1 / n
-        occ = a.get("est. achieved occupancy %")
-        s.update({"grid": a.get("grid"), "block": a.get("block"),
-                  "registers": a.get("registers per thread"), "smem": a.get("shared memory"),
-                  "warps_per_sm_launched": a.get("warps per SM"), "occupancy_pct": occ,
-                  "resident_warps_per_sm": None if occ is None else occ * 64 / 100})
-    path.unlink()
-    return split
-
-
 def _pr11_slots_scratch(B, H, W, K, C, dev):
     """PR 11's tiled-slots geometry and scratch (``_tiled_pass_warps``,
     SLOTS_CHUNK 8192, SLOTS_TILE_ROWS 32)."""
@@ -566,8 +523,7 @@ class ChangeTiled(Pr11Tiled):
 def tiled_ab(args, dev, res: dict) -> None:
     """The tiled CCL, the tiled slots and the large K12c, parent against
     change (module docstring)."""
-    sys.path.insert(0, str(REPO))
-    from chip_smoke import bf16_cls_slack, exact_stats
+    from chip_smoke import bf16_cls_slack, exact_stats, phase_split
 
     libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parentT", TILED_SOURCES),
             "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "changeT", TILED_SOURCES)}
@@ -636,7 +592,7 @@ def tiled_ab(args, dev, res: dict) -> None:
                 for kname, fn in calls.items():
                     key = f"{case}_{kname}_{turn}"
                     res.setdefault(key, []).append(time_ms(lambda: fn(t)))
-                    split = launch_split(lambda: fn(t), f"{case}-{kname}-{turn}")
+                    split = phase_split(lambda: fn(t))
                     res.setdefault(key + "_device", []).append(sum(s["ms"] for s in split.values()))
                     res.setdefault(key + "_launches", []).append(split)
             log_case = {k: v for k, v in res.items() if k.startswith(case) and not k.endswith("_launches")}

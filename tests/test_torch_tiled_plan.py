@@ -178,6 +178,7 @@ def _drive(monkeypatch, fn, *args, **kw):
         arr = (ctypes.c_int32 * a[ptr_i]).from_address(a[ptr_i - 1])
         lib.plans.append((name, tuple(arr)))
 
+    monkeypatch.setattr(pk, "_PLAN_CHECKED", set())  # the stand-in's check stays here
     monkeypatch.setattr(_build, "load", lambda *a, **k: lib)
     monkeypatch.setattr(_build, "launch", launch)
     monkeypatch.setattr(_build, "check_input", lambda *a, **k: None)

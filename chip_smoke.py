@@ -184,7 +184,23 @@ them.  Phases, each of which raises on failure:
      and kept in the row's ``phases``; the uncompacted rect on the kernel checks'
      synthetic extremes at each tall height (B=1 and 3); one A4-page
      detect call and one compat batch of the 2048² scans: wall time,
-     device time and busy share.
+     device time and busy share;
+  5. evaluation, the JAX package's int8 accuracy protocol
+     (tests/test_quant.py:256-296) on the card: the asset's config (K=64,
+     M=64), 48 synthetic 256x256 scenes (seed 0), DataConfig(batch_size=8,
+     max_polys=32), quantize_trunk on the card over the first 32 images of
+     Batches(train=False) (19 qconv_layer launches); run_evaluation in f32
+     (K4 once a layer a batch, K1, K2, K3x) and in int8 (qstem, qconv and
+     qconv_head once, six times and once a batch, K1, K2, K3x), neither
+     launching K3, the compat geometry or a tiled kernel; int8 F1 >= 0.96
+     (the JAX package's bar); each report equal to the same call on the
+     host CPU (tp, fp, fn, n_pred, n_gt, per-class counts and F1; int8 on
+     the card's qparams); native mode on 256x256 and 192x256 sources at
+     batch 4 (padded remainders), f32 and int8, equal to the host CPU's;
+     then images/s of run_evaluation with the prefetch thread and without
+     it (wall clock, median of 3), the matcher's time, the device's busy
+     share (torch.profiler, the union of the streams' device intervals) and
+     the feed's time alone (Batches on the card, median of 3).
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -220,6 +236,11 @@ N_CALIB, CALIB_SEED = 32, 99  # the int8 calibration pool (bench.py:296-301)
 A4_PAGE = (7016, 4960)  # an A4 page at 600 dpi: a 1754x1240 heatmap
 TALL_PAGE = (8192, 1024)  # a 2048-row heatmap, past the one-block K3x's cap
 ITERS, REPS, WARMUP = 10, 10, 2
+# the JAX package's int8 accuracy protocol (tests/test_quant.py:256-296):
+# 48 synthetic 256² scenes (seed 0), batch 8, calibration on the first 32
+# images of the eval pipeline, int8 F1 >= 0.96; JAX documents F1 0.9661
+EVAL_N, EVAL_HW, EVAL_BATCH, EVAL_CALIB = 48, (256, 256), 8, 32
+EVAL_F1_MIN, EVAL_F1_JAX = 0.96, 0.9661
 
 
 T0 = time.perf_counter()
@@ -687,6 +708,34 @@ def profile_path(run, ms_per_batch: float, iters: int = 3, no_convs: bool = Fals
         "device_busy_ms": busy,
         "busy_share": busy / ms_per_batch,
     }
+
+
+def device_busy(run) -> dict:
+    """One call of ``run`` under torch.profiler: its wall ms, the device's
+    busy ms (the union of its kernels' and copies' intervals: the prefetch
+    and readback streams overlap the compute stream), the busy share and
+    the device ms by kernel (summed over streams)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev_events):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    by_name: dict[str, float] = {}
+    for e in dev_events:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy / 1e3, "busy_share": busy / 1e3 / wall,
+            "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda r: -r[1])[:16])}
 
 
 def main() -> int:
@@ -2452,6 +2501,138 @@ def main() -> int:
     }))
     log(json.dumps({"path": "BarcodeDetector.detect int8, one 512x512 uint8 host image",
                     "ms_per_image": ms_detect8, "device_ms_per_image": dev_detect8}))
+
+    # --- 5. evaluation: the JAX package's int8 accuracy protocol on the card ---
+    phase("evaluation")
+    import dataclasses
+
+    from ubdvss_tpu_torch import evaluate as ev_mod
+    from ubdvss_tpu_torch.data import Batches, DataConfig
+
+    cfg_e = load_net_config(asset)  # K=64, M=64: the 64x64 heatmaps take K3x
+    ev_reader = SyntheticMarkupReader(n_samples=EVAL_N, image_hw=EVAL_HW)
+    ev_reader.samples()  # render the scenes once; the reader keeps them
+    ev_dc = DataConfig(batch_size=EVAL_BATCH, train_hw=EVAL_HW, max_polys=32)
+    cal = []
+    for batch in Batches(ev_reader, cfg_e, dataclasses.replace(
+            ev_dc, shuffle=False, augment=None, drop_remainder=False), train=False,
+            device="cuda").epoch(0):
+        cal.append(batch["images"])
+        if sum(c.shape[0] for c in cal) >= EVAL_CALIB:
+            break
+    cal_e = torch.cat(cal)[:EVAL_CALIB]
+    q_e, n_qe = counted(lambda: quantize_trunk(params_d, cfg_e, cal_e), ["qconv_layer"], trunk8)
+    if n_qe["qconv_layer"] != 2 * len(_conv_specs(cfg_e)) + 1:
+        raise AssertionError(f"evaluation calibration: {n_qe['qconv_layer']} qconv_layer launches")
+    ev_kernels = ["ccl", "slots", "rect_exact"]
+    ev_not = ["geometry_compat", "rect_compact", *tiled, *bf16]
+    n_ev_batches = -(-EVAL_N // EVAL_BATCH)
+
+    def evaluate(dev_, qp=None, reader=ev_reader, dc=ev_dc, native=False):
+        return ev_mod.run_evaluation(params_d if dev_ == "cuda" else params, reader, cfg_e, dc,
+                                     native=native, qparams=qp, device=dev_)
+
+    r32, n_e32 = counted(lambda: evaluate("cuda"), ["context_layer", *ev_kernels],
+                         [*ev_not, *trunk8, "qconv_layer"])
+    r8, n_e8 = counted(lambda: evaluate("cuda", q_e), [*trunk8, *ev_kernels],
+                       [*ev_not, "context_layer", "qconv_layer"])
+    want_launches = {"context_layer": (n_e32, len(cfg_e.dilations) * n_ev_batches),
+                     "qstem": (n_e8, n_ev_batches), "qconv_head": (n_e8, n_ev_batches),
+                     "qconv": (n_e8, (len(cfg_e.dilations) - 1) * n_ev_batches)}
+    for name, (n, want) in want_launches.items():
+        if n[name] != want:
+            raise AssertionError(f"evaluation: {n[name]} {name} launches, expected {want}")
+    if not r8.f1 >= EVAL_F1_MIN:
+        raise AssertionError(f"evaluation: int8 F1 {r8.f1} < {EVAL_F1_MIN} (the JAX package's bar)")
+
+    def counts(r):
+        return dict(tp=r.tp, fp=r.fp, fn=r.fn, n_pred=r.n_pred, n_gt=r.n_gt, f1=r.f1,
+                    per_class={n: (c["tp"], c["fp"], c["fn"]) for n, c in (r.per_class or {}).items()})
+
+    def same_report(card, host, name):
+        if counts(card) != counts(host):
+            raise AssertionError(f"evaluation {name}: the card's report {counts(card)} differs from "
+                                 f"the host CPU's {counts(host)}")
+
+    q_eh = qparams_to(q_e, "cpu")
+    t0 = time.perf_counter()
+    r32_h = evaluate("cpu")
+    t_ev_cpu = time.perf_counter() - t0
+    same_report(r32, r32_h, "f32")
+    same_report(r8, evaluate("cpu", q_eh), "int8")
+
+    class _TwoSizes:  # native mode: two grids, each bucket with a padded remainder
+        parts = [SyntheticMarkupReader(n_samples=5, image_hw=EVAL_HW, seed=2),
+                 SyntheticMarkupReader(n_samples=3, image_hw=(192, 256), seed=3)]
+
+        def samples(self):
+            return [smp for r in self.parts for smp in r.samples()]
+
+    dc_n = dataclasses.replace(ev_dc, batch_size=4)
+    native_reports = {}
+    for mode, qp, qph in (("f32", None, None), ("int8", q_e, q_eh)):
+        trunk, idle = (trunk8, ["context_layer"]) if qp is not None else (["context_layer"], trunk8)
+        rn, n_n = counted(lambda: evaluate("cuda", qp, _TwoSizes(), dc_n, native=True),
+                          [*trunk, *ev_kernels], [*ev_not, *idle, "qconv_layer"])
+        same_report(rn, evaluate("cpu", qph, _TwoSizes(), dc_n, native=True), f"native {mode}")
+        native_reports[mode] = {**counts(rn), "launches": {k: n_n[k] for k in [*trunk, *ev_kernels]}}
+    log(f"evaluation: {EVAL_N} synthetic {EVAL_HW[0]}x{EVAL_HW[1]} scenes, batch {EVAL_BATCH}, "
+        f"int8 calibrated on the card over the first {EVAL_CALIB}: F1 f32 {r32.f1:.4f}, int8 "
+        f"{r8.f1:.4f} >= {EVAL_F1_MIN} (JAX documents {EVAL_F1_JAX}); reports == the host CPU's "
+        f"({t_ev_cpu:.1f} s for f32); native mode on 256x256 and 192x256 sources == the host CPU")
+
+    # throughput and the device's busy share of run_evaluation (wall clock,
+    # scenes already rendered), with the prefetch thread and without it; the
+    # host matcher (evaluate_detections, after the last batch) timed alone
+    matcher_ms = []
+    evaluate_detections = ev_mod.evaluate_detections
+
+    def timed_matcher(*a, **kw):
+        t0 = time.perf_counter()
+        out = evaluate_detections(*a, **kw)
+        matcher_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ev_timing = {}
+    ev_mod.evaluate_detections = timed_matcher
+    try:
+        for mode, qp in (("f32", None), ("int8", q_e)):
+            row = {}
+            for depth in (2, 0):
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    ev_mod.run_evaluation(params_d, ev_reader, cfg_e, ev_dc, qparams=qp,
+                                          prefetch_depth=depth, device="cuda")
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                row[f"prefetch_{depth}"] = dict(walls_ms=walls, img_per_s=EVAL_N / statistics.median(
+                    walls) * 1e3)
+            ev_timing[mode] = dict(**row, matcher_ms=statistics.median(matcher_ms),
+                                   **device_busy(lambda: evaluate("cuda", qp)))
+            matcher_ms.clear()
+    finally:
+        ev_mod.evaluate_detections = evaluate_detections
+    feed_walls = []  # the eval feed alone: Batches(train=False) on the card, synchronous
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _batch in Batches(ev_reader, cfg_e, dataclasses.replace(
+                ev_dc, shuffle=False, augment=None, drop_remainder=False), train=False,
+                device="cuda").epoch(0):
+            pass
+        torch.cuda.synchronize()
+        feed_walls.append((time.perf_counter() - t0) * 1e3)
+    ev_timing["feed_ms"] = statistics.median(feed_walls)
+    log(json.dumps({"evaluation": {
+        "scenes": EVAL_N, "hw": list(EVAL_HW), "batch": EVAL_BATCH, "K": cfg_e.max_components,
+        "M": cfg_e.max_hull_points, "jax_documented_f1": EVAL_F1_JAX,
+        "f32": {**counts(r32), "precision": r32.precision, "recall": r32.recall,
+                "class_accuracy": r32.class_accuracy},
+        "int8": {**counts(r8), "precision": r8.precision, "recall": r8.recall,
+                 "class_accuracy": r8.class_accuracy},
+        "launches_f32": {k: n_e32[k] for k in ["context_layer", *ev_kernels]},
+        "launches_int8": {k: n_e8[k] for k in [*trunk8, *ev_kernels]},
+        "calibration_qconv_layer_launches": n_qe["qconv_layer"], "host_cpu_f32_s": t_ev_cpu,
+        "native": native_reports, "timing": ev_timing}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

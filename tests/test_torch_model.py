@@ -107,14 +107,15 @@ def test_preprocess_matches_jax(in_hw, out_hw, order):
 
 def test_port_imports_no_jax():
     """ubdvss_tpu_torch (every module) and chip_smoke.py import no jax, flax,
-    cv2 or ubdvss_tpu module."""
+    cv2, keras, tensorflow, h5py or ubdvss_tpu module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ubdvss_tpu_torch\n"
         "for m in pkgutil.walk_packages(ubdvss_tpu_torch.__path__, 'ubdvss_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2', 'ubdvss_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2', 'keras', "
+        "'tensorflow', 'h5py', 'ubdvss_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -4,13 +4,15 @@ Counterpart of ``ubdvss_tpu/detect.py``, with the same flags and report,
 plus ``--device`` (the card unless asked otherwise):
 
     python -m ubdvss_tpu_torch.detect --images scan.png \
-        --checkpoint assets/pretrained_synthetic.npz [--int8] [--output out.json]
+        --checkpoint assets/pretrained_synthetic.npz [--int8] [--output out.json] \
+        [--save-overlays outdir]
 
 Weights are ``.npz`` files (with their ``.net_config.json`` sidecar, when
-there is one).  Keras ``.h5``/``.keras`` files and ``--save-overlays``
-(ROADMAP.md §1 item 12) and training log directories (item 10) are not
-ported and raise ``NotImplementedError``.  ``--int8`` calibrates the int8
-trunk on the input images themselves (``calibrate_qparams``).
+there is one) or Keras ``.h5``/``.keras`` files (``utils/keras_import.py``,
+keras imported only then).  Training log directories are not ported
+(ROADMAP.md §1 item 10) and raise ``NotImplementedError``.  ``--int8``
+calibrates the int8 trunk on the input images themselves
+(``calibrate_qparams``).  Images are read, and overlays written, with cv2.
 """
 
 from __future__ import annotations
@@ -32,17 +34,22 @@ from ubdvss_tpu_torch.ops.quant import (
     normalize_fma,
 )
 from ubdvss_tpu_torch.utils.checkpoint import load_net_config, load_params_npz, params_from_flat
+from ubdvss_tpu_torch.utils.visualization import draw_detections
 
 
-def load_params(checkpoint: str) -> dict:
-    """The port's state_dict from an ``.npz`` weight file."""
+def load_params(checkpoint: str, cfg: NetConfig) -> dict:
+    """The port's state_dict from an ``.npz`` weight file or a Keras
+    ``.h5``/``.keras`` file of ``cfg``'s architecture."""
+    if checkpoint.endswith(".npz"):
+        return params_from_flat(load_params_npz(checkpoint))
     if checkpoint.endswith(".h5") or checkpoint.endswith(".keras"):
-        raise NotImplementedError("Keras weight import: ROADMAP.md §1 item 12")
-    if not checkpoint.endswith(".npz"):
-        raise NotImplementedError(
-            "training checkpoints (log directories): ROADMAP.md §1 item 10; pass an .npz"
-        )
-    return params_from_flat(load_params_npz(checkpoint))
+        from ubdvss_tpu_torch.utils.keras_import import load_keras_weights
+
+        return load_keras_weights(checkpoint, cfg)
+    raise NotImplementedError(
+        "training checkpoints (log directories): ROADMAP.md §1 item 10; "
+        "pass an .npz, .h5 or .keras file"
+    )
 
 
 def calibrate_qparams(params: dict, cfg: NetConfig, images, device=None) -> dict | None:
@@ -80,18 +87,16 @@ def main(argv=None):
     p.add_argument("--images", nargs="+", required=True,
                    help="image files or directories")
     p.add_argument("--checkpoint", required=True,
-                   help="params .npz (logdirs and Keras .h5 are not ported)")
+                   help="params .npz or Keras .h5/.keras (logdirs are not ported)")
     p.add_argument("--detection-only", action="store_true")
     p.add_argument("--output", default=None, help="write JSON detections here")
     p.add_argument("--save-overlays", default=None,
-                   help="directory for box-overlay images (not ported)")
+                   help="directory for box-overlay images")
     p.add_argument("--int8", action="store_true",
                    help="int8 quantized trunk (PTQ; activation ranges "
                         "calibrated on the input images themselves)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.save_overlays:
-        raise NotImplementedError("--save-overlays (utils/visualization.py): ROADMAP.md §1 item 12")
 
     import cv2
 
@@ -100,7 +105,7 @@ def main(argv=None):
         cfg = NetConfig(classification=not args.detection_only)
     elif args.detection_only:
         cfg = cfg.replace(classification=False)
-    params = load_params(args.checkpoint)
+    params = load_params(args.checkpoint, cfg)
 
     paths: list[Path] = []
     for item in args.images:
@@ -133,6 +138,10 @@ def main(argv=None):
             for d in dets
         ]
         print(f"{path}: {len(dets)} detections")
+        if args.save_overlays:
+            out = draw_detections(img, np.stack([d.box for d in dets]) if dets else [])
+            Path(args.save_overlays).mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(Path(args.save_overlays) / path.name), out[..., ::-1])
     if args.output:
         with open(args.output, "w") as f:
             json.dump(report, f, indent=2)

@@ -200,7 +200,36 @@ them.  Phases, each of which raises on failure:
      then images/s of run_evaluation with the prefetch thread and without
      it (wall clock, median of 3), the matcher's time, the device's busy
      share (torch.profiler, the union of the streams' device intervals) and
-     the feed's time alone (Batches on the card, median of 3).
+     the feed's time alone (Batches on the card, median of 3);
+  6. training, with the asset's architecture (24 channels, dilations
+     1,1,2,4,8,16,1, 17 outputs): the gradients of fused_model_apply (K4
+     forward, autograd of its plain version backward) against BarcodeFCN's
+     on the asset's weights, B=8 128², TF32 off, within 1e-3 + 1e-4 of
+     each (K4 launched once a layer, in the forward only; the max error
+     goes into the context_layer entry as grad_max_abs_err); one
+     train_step on the card against the host CPU from the asset's weights
+     on one augmented B=8 512² batch built on the host, f32 and bf16, at
+     tests/test_torch_cuda_train.py's tolerances (in bf16 up to 1% of the
+     parameters may land 2 lr apart: Adam's first step is about
+     lr * sign(grad), and a gradient inside bf16's rounding noise may take
+     the other sign on the card; the count is printed) (no kernel of ours launches:
+     the step takes the module, as JAX's train_apply does); the JAX
+     package's overfit gate (tests/test_integration.py:20-37: 16 scenes
+     of 128², seed 1, 1-2 objects, lr 2e-3, 150 epochs at batch 8, no
+     augmentation) with run_evaluation on the card giving object F1 1.0
+     and class accuracy 1.0 (K4, K1, K2, K3x launches printed); resume:
+     a Trainer's checkpoint restored into a fresh Trainer, one more step
+     from each bit for bit equal (cudnn.deterministic); the train CLI in
+     its own process for one epoch, then the evaluate CLI on its log
+     directory and the detect CLI on its exported weights (a .npy scene);
+     then bench.py's train protocol (B=128 512², seed 7, DataConfig(seed=0)
+     with augmentation, lr 1e-3, the batch on the card): ms a step and
+     images/s of train_step in f32 and bf16 (CUDA events, median of 5
+     samples of 2 steps), the device ms a step, busy share and top device
+     rows (torch.profiler over 3 steps), the loss forward's launches and
+     device ms, and the host-fed epoch over 384 scenes through
+     Batches(train=True) then train_step, with the prefetch thread and
+     without it (median of 3 epochs).
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -241,6 +270,11 @@ ITERS, REPS, WARMUP = 10, 10, 2
 # images of the eval pipeline, int8 F1 >= 0.96; JAX documents F1 0.9661
 EVAL_N, EVAL_HW, EVAL_BATCH, EVAL_CALIB = 48, (256, 256), 8, 32
 EVAL_F1_MIN, EVAL_F1_JAX = 0.96, 0.9661
+# training: the gradient and step checks at B=8 (128² and 512²), the JAX
+# package's overfit gate (tests/test_integration.py:20-37: 16 scenes, 150
+# epochs at batch 8), and bench.py's train protocol at B=128 512²
+TRAIN_B, TRAIN_SMALL, OVERFIT_EPOCHS = 8, 128, 150
+TRAIN_BENCH_B, TRAIN_EPOCH_N = 128, 384
 
 
 T0 = time.perf_counter()
@@ -734,7 +768,9 @@ def device_busy(run) -> dict:
     by_name: dict[str, float] = {}
     for e in dev_events:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+    kernels_run = [e for e in dev_events if not e.name.startswith(("Memcpy", "Memset"))]
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3, "busy_share": busy / 1e3 / wall,
+            "kernel_launches": len(kernels_run),
             "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda r: -r[1])[:16])}
 
 
@@ -2633,6 +2669,223 @@ def main() -> int:
         "launches_int8": {k: n_e8[k] for k in [*trunk8, *ev_kernels]},
         "calibration_qconv_layer_launches": n_qe["qconv_layer"], "host_cpu_f32_s": t_ev_cpu,
         "native": native_reports, "timing": ev_timing}}))
+
+    # --- 6. training: the gradient through K4, a train step against the host
+    # CPU, the JAX package's overfit gate, resume, the CLIs, throughput ---
+    phase("training")
+    import shutil
+    import tempfile
+
+    from ubdvss_tpu_torch import detect as detect_mod
+    from ubdvss_tpu_torch.losses import total_loss
+    from ubdvss_tpu_torch.models.model import compute_precision, get_model, train_apply
+    from ubdvss_tpu_torch.train import Trainer, create_train_state, train_step
+    from ubdvss_tpu_torch.utils.prefetch import prefetched
+
+    cfg_t = load_net_config(asset)  # 24 channels, dilations 1,1,2,4,8,16,1, 17 outputs
+    all_kernels = list(wrappers)
+    rd8 = SyntheticMarkupReader(n_samples=TRAIN_B, image_hw=(TRAIN_SMALL, TRAIN_SMALL), seed=SEED)
+    dc8 = DataConfig(batch_size=TRAIN_B, train_hw=(TRAIN_SMALL, TRAIN_SMALL), seed=0)
+    b8 = next(iter(Batches(rd8, cfg_t, dc8, train=True, device="cpu").epoch(0)))
+
+    # F4: the gradient of fused_model_apply (K4 forward, the plain backward)
+    # against BarcodeFCN's, TF32 off for the forward and the backward
+    x8 = b8["images"].to(dev)
+    r8 = torch.randn((TRAIN_B, TRAIN_SMALL // 4, TRAIN_SMALL // 4, cfg_t.n_output_channels),
+                     generator=torch.Generator().manual_seed(1)).to(dev)
+    leaves = {k: v.clone().requires_grad_() for k, v in params_d.items()}
+    fcn = get_model(cfg_t).to(dev)
+    fcn.load_state_dict(params)
+
+    def grad_through_k4():
+        with compute_precision(cfg_t):
+            (fused_model_apply(leaves, x8, cfg_t) * r8).sum().backward()
+
+    _, n_f4 = counted(grad_through_k4, ["context_layer"], [k for k in all_kernels if k != "context_layer"])
+    if n_f4["context_layer"] != len(cfg_t.dilations):
+        raise AssertionError(f"training F4: {n_f4['context_layer']} K4 launches, the backward launched K4")
+    with compute_precision(cfg_t):
+        (fcn(x8) * r8).sum().backward()
+    grad_err, grad_bad = 0.0, []
+    for name, p_ in fcn.named_parameters():
+        diff = (leaves[name].grad - p_.grad).abs()
+        grad_err = max(grad_err, float(diff.max()))
+        if not bool((diff <= 1e-3 + 1e-4 * p_.grad.abs()).all()):
+            grad_bad.append(name)
+    if grad_bad:
+        raise AssertionError(f"training F4: gradients through K4 differ from BarcodeFCN's: {grad_bad}")
+    next(k for k in kernels if k["name"] == "context_layer")["grad_max_abs_err"] = grad_err
+    log(f"check F4: grad of fused_model_apply (K4 forward, {n_f4['context_layer']} launches) == "
+        f"BarcodeFCN's, B={TRAIN_B} {TRAIN_SMALL}², max|err| {grad_err:.3g} (atol 1e-3, rtol 1e-4)")
+
+    # one train step on the card against the host CPU, from the asset's
+    # weights, on one augmented batch built on the host (B=8 512²)
+    rd_s = SyntheticMarkupReader(n_samples=TRAIN_B, image_hw=(IMG, IMG), seed=SEED)
+    b_s = next(iter(Batches(rd_s, cfg_t, DataConfig(batch_size=TRAIN_B, train_hw=(IMG, IMG), seed=0),
+                            train=True, device="cpu").epoch(0)))
+    step_errs = {}
+    # bf16 losses: each logit is a bf16 value that cuDNN's run-dependent
+    # summation order can move by an ulp, so a quarter of one (1e-3)
+    for dtype, p_tol, rel, g_rel, px_tol in (("float32", 2e-7, 1e-6, 1e-6, 0.0),
+                                              ("bfloat16", 1e-5, 1e-3, 2e-2, 2e-3)):
+        cfg_s = cfg_t.replace(dtype=dtype)
+        (s_card, m_card), _ = counted(
+            lambda: train_step(create_train_state(cfg_s, device=dev, params=params),
+                               {k: v.to(dev) for k, v in b_s.items()}, cfg_s), [], all_kernels)
+        t0 = time.perf_counter()
+        s_host, m_host = train_step(create_train_state(cfg_s, device="cpu", params=params), b_s, cfg_s)
+        t_host = time.perf_counter() - t0
+        p_diff = torch.cat([(s_card.params[k].detach().cpu() - v.detach()).abs().ravel()
+                            for k, v in s_host.params.items()])
+        p_err = float(p_diff.max())
+        # Adam's first step moves a parameter by about lr * sign(grad): in
+        # bf16 a gradient inside the bf16 rounding noise may take the other
+        # sign on the card, and its parameter lands 2 lr away
+        n_flip = int((p_diff > p_tol).sum())
+        errs = {"params": p_err, "params_beyond_tol": n_flip, "params_total": p_diff.numel(),
+                "host_cpu_s": t_host}
+        for k, v in m_host.items():
+            a_, b_ = float(m_card[k]), float(v)
+            tol = px_tol if k.startswith("pixel_") else (g_rel if k == "grad_norm" else rel) * abs(b_) + 1e-7
+            errs[k] = abs(a_ - b_)
+            if not abs(a_ - b_) <= tol:
+                raise AssertionError(f"train step {dtype}: {k} {a_} on the card, {b_} on the host CPU")
+        flips_ok = dtype == "bfloat16" and n_flip <= 0.01 * p_diff.numel() and p_err <= 2e-3 + 1e-6
+        if not (p_err <= p_tol or flips_ok):
+            raise AssertionError(f"train step {dtype}: parameters after Adam {p_err} apart, {n_flip} of "
+                                 f"{p_diff.numel()} beyond {p_tol}")
+        step_errs[dtype] = errs
+    log(f"train step on the card == the host CPU, B={TRAIN_B} {IMG}² augmented: "
+        + "; ".join(f"{d} params {e['params']:.3g} ({e['params_beyond_tol']} of {e['params_total']} beyond "
+                    f"the tolerance), loss {e['loss']:.3g}, grad_norm {e['grad_norm']:.3g}"
+                    for d, e in step_errs.items()))
+
+    # the JAX package's overfit gate (tests/test_integration.py:20-37) on the card
+    cfg_o = NetConfig(max_components=16, min_component_area=4)
+    rd_o = SyntheticMarkupReader(n_samples=16, image_hw=(128, 128), seed=1, n_objects=(1, 2))
+    dc_o = DataConfig(batch_size=8, train_hw=(128, 128), augment=None, seed=0)
+    tr_o = Trainer(cfg_o, dc_o, lr=2e-3, logdir=None, device="cuda")
+    bo = Batches(rd_o, cfg_o, dc_o, train=True, device="cuda")
+    t0 = time.perf_counter()
+    for epoch in range(OVERFIT_EPOCHS):
+        for batch in bo.epoch(epoch):
+            tr_o.state, m_o = train_step(tr_o.state, batch, cfg_o)
+    torch.cuda.synchronize()
+    t_overfit = time.perf_counter() - t0
+    # the JAX test also reads the last batch's pixel F1 (> 0.95 there); the
+    # gate is the object-level one below, and the pixel F1 is reported
+    ov_kernels = ["context_layer", "ccl", "slots", "rect_exact"]
+    res_o, n_o = counted(
+        lambda: ev_mod.run_evaluation({k: v.detach() for k, v in tr_o.state.params.items()}, rd_o, cfg_o,
+                                      dc_o, device="cuda"),
+        ov_kernels, [k for k in all_kernels if k not in ov_kernels])
+    if not (res_o.f1 == 1.0 and res_o.class_accuracy == 1.0):
+        raise AssertionError(f"overfit gate: object F1 {res_o.f1}, class accuracy {res_o.class_accuracy}")
+    log(f"overfit gate: {OVERFIT_EPOCHS} epochs x 2 steps in {t_overfit:.1f} s, the last batch's pixel F1 "
+        f"{float(m_o['pixel_f1']):.4f} (the JAX test reads > 0.95); run_evaluation on the card: object F1 {res_o.f1}, class accuracy "
+        f"{res_o.class_accuracy}; launches {{{', '.join(f'{k}: {n_o[k]}' for k in ov_kernels)}}}")
+
+    # resume: save, restore into a fresh Trainer, one more step from each
+    (REPO / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=REPO / "build"))
+    try:
+        prev_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            b_r = Batches(rd8, cfg_t, dc8, train=True, device="cuda")
+            tr_a = Trainer(cfg_t, dc8, logdir=str(work / "resume"), device="cuda")
+            tr_a.fit(b_r, 2)
+            tr_b = Trainer(cfg_t, dc8, logdir=str(work / "resume"), device="cuda")
+            if tr_b.maybe_resume() != tr_a.state.step:
+                raise AssertionError("resume: the restored step differs")
+            nb = next(iter(b_r.epoch(7)))
+            sa, ma = train_step(tr_a.state, nb, cfg_t)
+            sb, mb = train_step(tr_b.state, nb, cfg_t)
+        finally:
+            torch.backends.cudnn.deterministic = prev_det
+        if not (all(torch.equal(sa.params[k], sb.params[k]) for k in sa.params)
+                and float(ma["loss"]) == float(mb["loss"])):
+            raise AssertionError("resume: one more step from the restored Trainer is not bit for bit equal")
+        log(f"resume: step {sa.step} from the saved and the restored Trainer bit for bit equal "
+            "(cudnn.deterministic)")
+
+        # the CLIs from one log directory: train (its own process), evaluate, detect
+        logdir = work / "cli"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "ubdvss_tpu_torch.train", "--train-data", "synthetic", "--epochs", "1",
+             "--batch-size", "8", "--synthetic-samples", "16", "--logdir", str(logdir),
+             "--export-npz", str(logdir / "w.npz")],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        t_cli = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise AssertionError(f"train CLI failed ({cli.returncode}):\n{cli.stdout[-2000:]}{cli.stderr[-4000:]}")
+        ev_cli, n_ev_cli = counted(lambda: ev_mod.main(
+            ["--data", "synthetic", "--checkpoint", str(logdir), "--synthetic-samples", "16"]),
+            ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", *tiled, *bf16])
+        np.save(work / "scene.npy", rd_s.sample_at(0).image)
+        rep, n_det_cli = counted(lambda: detect_mod.main(
+            ["--images", str(work / "scene.npy"), "--checkpoint", str(logdir / "w.npz")]),
+            ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", *tiled, *bf16])
+        if not (0.0 <= ev_cli.f1 <= 1.0 and len(rep) == 1):
+            raise AssertionError("the evaluate and detect CLIs on the trained log directory")
+        log(f"CLIs: train 1 epoch (16 scenes, B=8) in its own process {t_cli:.1f} s; evaluate "
+            f"--checkpoint <logdir> F1 {ev_cli.f1:.4f}; detect --checkpoint <logdir>/w.npz "
+            f"{len(next(iter(rep.values())))} detections")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # throughput at bench.py:309-340's protocol: B=128 512², synthetic seed 7,
+    # DataConfig(seed=0) with augmentation, lr 1e-3, the batch on the card
+    rd_t = SyntheticMarkupReader(n_samples=TRAIN_BENCH_B, image_hw=(IMG, IMG), seed=SEED)
+    dc_t = DataConfig(batch_size=TRAIN_BENCH_B, train_hw=(IMG, IMG), seed=0)
+    b_t = next(iter(Batches(rd_t, cfg_t, dc_t, train=True, device="cuda").epoch(0)))
+    train_timing = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_b = NetConfig(dtype=dtype)
+        st = create_train_state(cfg_b, lr=1e-3, device="cuda")
+
+        def one_step(st=st, cfg_b=cfg_b):
+            train_step(st, b_t, cfg_b)
+
+        ms_step = time_ms(one_step, iters=5, reps=2)
+        busy = device_busy(lambda: [one_step() for _ in range(3)])
+        with torch.no_grad(), compute_precision(cfg_b):
+            lg = train_apply(st.params, b_t["images"], cfg_b)
+        loss_prof = device_busy(lambda: total_loss(lg, b_t["segmap"], cfg_b))
+        train_timing[dtype] = {
+            "ms_per_step": ms_step, "img_per_s": TRAIN_BENCH_B / ms_step * 1e3,
+            "device_ms_per_step": busy["device_busy_ms"] / 3, "busy_share": busy["busy_share"],
+            "top_device_rows_ms_3_steps": busy["device_ms_by_kernel"],
+            "loss_forward_device_ms": loss_prof["device_busy_ms"],
+            "loss_forward_kernels": loss_prof["kernel_launches"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+    # the host-fed epoch (Trainer.fit's feed): Batches(train=True) then the step,
+    # with the prefetch thread (depth 2, a stream of its own) and without it
+    rd_e = SyntheticMarkupReader(n_samples=TRAIN_EPOCH_N, image_hw=(IMG, IMG), seed=SEED)
+    rd_e.samples()  # render once: the reader keeps the scenes
+    b_e = Batches(rd_e, cfg_t, dc_t, train=True, device="cuda")
+    st_e = create_train_state(NetConfig(), lr=1e-3, device="cuda")
+    for depth in (2, 0):
+        walls = []
+        for epoch in range(3):
+            t0 = time.perf_counter()
+            for batch in prefetched(b_e.epoch(epoch), depth=depth, device=dev):
+                train_step(st_e, batch, NetConfig())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        train_timing[f"epoch_prefetch_{depth}"] = {
+            "walls_ms": walls, "img_per_s": TRAIN_EPOCH_N / statistics.median(walls) * 1e3}
+    log(json.dumps({"training": {
+        "card": smi, "f4_grad_max_abs_err": grad_err, "step_card_vs_host": step_errs,
+        "overfit": {"epochs": OVERFIT_EPOCHS, "seconds": t_overfit, "pixel_f1": float(m_o["pixel_f1"]),
+                    "object_f1": res_o.f1, "class_accuracy": res_o.class_accuracy,
+                    "launches": {k: n_o[k] for k in ov_kernels}},
+        "cli": {"train_s": t_cli, "evaluate_f1": ev_cli.f1,
+                "evaluate_launches": {k: n_ev_cli[k] for k in ov_kernels},
+                "detect_launches": {k: n_det_cli[k] for k in ov_kernels}},
+        "bench": {"batch": TRAIN_BENCH_B, "image": IMG, "epoch_scenes": TRAIN_EPOCH_N, **train_timing}}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -128,11 +128,15 @@ def test_batches_len_and_drop_remainder():
 
 
 def test_training_paths_raise_naming_item_10():
+    """Training batches are served (tests/test_torch_augment.py); the
+    windowed rasterizer of the on-device synthesis raises, naming the next
+    slice of item 10."""
     reader = SyntheticMarkupReader(n_samples=2, image_hw=(32, 32))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pdata.Batches(reader, NetConfig(), pdata.DataConfig(), train=True, device="cpu")
+    batch = next(iter(pdata.Batches(reader, NetConfig(), pdata.DataConfig(batch_size=2, train_hw=(32, 32)),
+                                    train=True, device="cpu")))
+    assert batch["images"].shape == (2, 32, 32, 1)
     dc = pdata.DataConfig(batch_size=2, train_hw=(32, 32), augment=None, raster_window=16)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         next(iter(pdata.Batches(reader, NetConfig(), dc, train=False, device="cpu")))
     assert pdata.DataConfig() == pdata.DataConfig(augment=pdata.AugmentConfig())
     assert pdata.AugmentConfig().__dict__ == jdata.AugmentConfig().__dict__

@@ -290,6 +290,11 @@ def test_cli_refusals(tmp_path):
     base = ["--data", "synthetic", "--synthetic-samples", "2", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="item 9"):
         peval.main(base + ["--checkpoint", str(ASSETS["separable"]), "--num-devices", "2"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a log directory without checkpoints, and one of the JAX package's orbax
+    # checkpoints (tests/test_torch_train.py serves the port's own)
+    with pytest.raises(FileNotFoundError, match="no training checkpoint"):
+        peval.main(base + ["--checkpoint", str(tmp_path)])
+    (tmp_path / "checkpoints" / "12" / "default").mkdir(parents=True)
+    with pytest.raises(ValueError, match="--export-npz"):
         peval.main(base + ["--checkpoint", str(tmp_path)])
     assert json.loads(peval.EvalResult(1, 1, 1, 1, 1, 1, 1, 1, 0, 0).to_json())["per_class"] is None

@@ -475,10 +475,15 @@ def test_detect_cli_int8_matches_jax(tmp_path):
 
 
 def test_detect_cli_unported_inputs_raise(tmp_path):
-    """Only training log directories are refused (ROADMAP.md §1 item 10);
-    Keras weights and --save-overlays are served (tests/test_torch_utils.py)."""
+    """A log directory without a training checkpoint is refused, and one of
+    the JAX package's orbax checkpoints names --export-npz; the port's own
+    log directories (tests/test_torch_train.py), Keras weights and
+    --save-overlays (tests/test_torch_utils.py) are served."""
     from ubdvss_tpu_torch import detect as port_detect
 
     for ckpt in ("logdir", str(tmp_path)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(FileNotFoundError, match="no training checkpoint"):
             port_detect.main(["--images", str(tmp_path), "--device", "cpu", "--checkpoint", ckpt])
+    (tmp_path / "checkpoints" / "3").mkdir(parents=True)
+    with pytest.raises(ValueError, match="--export-npz"):
+        port_detect.main(["--images", str(tmp_path), "--device", "cpu", "--checkpoint", str(tmp_path)])

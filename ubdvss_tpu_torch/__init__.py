@@ -15,7 +15,7 @@ from ubdvss_tpu_torch.inference import (
     detect_program_batch,
     detect_program_int8,
 )
-from ubdvss_tpu_torch.models.model import BarcodeFCN, get_model, param_count
+from ubdvss_tpu_torch.models.model import BarcodeFCN, get_model, init_params, param_count
 from ubdvss_tpu_torch.net_config import CLASS_GROUPS, DEFAULT_CLASS_NAMES, NetConfig
 from ubdvss_tpu_torch.streaming import StreamingDetector
 from ubdvss_tpu_torch.utils.checkpoint import (
@@ -38,6 +38,7 @@ __all__ = [
     "detect_program_batch",
     "detect_program_int8",
     "get_model",
+    "init_params",
     "load_net_config",
     "load_params_npz",
     "param_count",

@@ -18,10 +18,15 @@ Batch contract (static shapes, cfg-bounded):
   polys:    (B, max_polys, max_verts, 2) f32 at train_hw, with n_verts and
             class_ids (B, max_polys) int32
 
-Training (``augment_batch``, ``GrainBatches``, ``DeviceCachedBatches``,
-``rasterize_polygons_windowed``) is not ported (ROADMAP.md §1 item 10):
-``Batches(train=True)`` with an ``augment`` config and ``raster_window``
-raise ``NotImplementedError``.
+Training batches (``train=True``) run ``ops/augment.augment_batch`` first,
+from a ``torch.Generator`` on the batch's device seeded by
+``batch_seed(dc.seed * 7919 + epoch, batch_index)``, the counterpart of the
+JAX package's ``fold_in(key(dc.seed * 7919 + epoch), batch_index)``; the
+shuffle is the JAX package's, ``np.random.default_rng(dc.seed + epoch)``.
+The device-fed pipelines (``DeviceCachedBatches``, the on-device synthesis
+and its ``raster_window``) and ``GrainBatches`` are the next slice of
+training (ROADMAP.md §1 item 10b): ``raster_window`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 from ubdvss_tpu_torch.inference import resolve_device
 from ubdvss_tpu_torch.markup import MarkupReader, Sample
 from ubdvss_tpu_torch.net_config import NetConfig
-from ubdvss_tpu_torch.ops.augment import AugmentConfig
+from ubdvss_tpu_torch.ops.augment import AugmentConfig, augment_batch
 from ubdvss_tpu_torch.ops.preproc import resize_bilinear, rgb_to_grayscale
 from ubdvss_tpu_torch.ops.quant import normalize_fma
 from ubdvss_tpu_torch.ops.rasterize import polygons_to_grid, rasterize_polygons
@@ -52,8 +57,8 @@ class DataConfig:
     shuffle: bool = True
     seed: int = 0
     drop_remainder: bool = True
-    # GT-size bound for object-windowed rasterization (grid px), a training
-    # synthesis setting: not ported (ROADMAP.md §1 item 10)
+    # GT-size bound for object-windowed rasterization (grid px), set by the
+    # on-device synthesis: not ported (ROADMAP.md §1 item 10b)
     raster_window: int | None = None
 
 
@@ -161,13 +166,20 @@ def finalize_batch(
     [0, 255] images at ``train_hw`` -> the batch contract."""
     if data_cfg.raster_window is not None:
         raise NotImplementedError(
-            "DataConfig.raster_window (rasterize_polygons_windowed): ROADMAP.md §1 item 10"
+            "DataConfig.raster_window (rasterize_polygons_windowed): ROADMAP.md §1 item 10b"
         )
     ho = data_cfg.train_hw[0] // net_cfg.scale
     wo = data_cfg.train_hw[1] // net_cfg.scale
     segmap = rasterize_polygons(polygons_to_grid(polys, net_cfg.scale), n_verts, class_ids, (ho, wo))
     return {"images": normalize_fma(imgs)[..., None], "segmap": segmap, "polys": polys,
             "n_verts": n_verts, "class_ids": class_ids}
+
+
+def batch_seed(epoch_seed: int, batch_index: int) -> int:
+    """The seed of one batch's augmentation generator, from the epoch's
+    seed and the batch index (the JAX package folds the index into the
+    epoch's key)."""
+    return int(np.random.SeedSequence([epoch_seed, batch_index]).generate_state(1, np.uint64)[0])
 
 
 def device_batch_step(
@@ -178,14 +190,17 @@ def device_batch_step(
     net_cfg: NetConfig,
     data_cfg: DataConfig,
     train: bool,
+    generator: torch.Generator | None = None,
 ) -> dict:
-    """All on-device batch processing: (augment ->) normalize -> rasterize.
+    """All on-device batch processing: augment -> normalize -> rasterize.
 
     imgs: (B, H, W) f32 [0, 255] at train_hw.  Returns the batch contract.
-    The JAX signature's PRNG key feeds only the augmentation, which is not
-    ported (ROADMAP.md §1 item 10): ``train`` with an ``augment`` raises."""
+    ``train`` with ``data_cfg.augment`` set augments first, drawing from
+    ``generator`` (on the images' device; the JAX signature's PRNG key)."""
     if train and data_cfg.augment is not None:
-        raise NotImplementedError("augment_batch (training augmentation): ROADMAP.md §1 item 10")
+        if generator is None:
+            raise ValueError("an augmented training batch needs a generator")
+        imgs, polys = augment_batch(generator, imgs, polys, data_cfg.augment)
     return finalize_batch(imgs, polys, n_verts, class_ids, net_cfg, data_cfg)
 
 
@@ -193,8 +208,8 @@ class Batches:
     """Iterable over device-ready batches (the reference's generator role).
 
     Runs on ``device`` (the card unless ``device="cpu"``).  Training batches
-    with augmentation are not ported (ROADMAP.md §1 item 10):
-    ``train=True`` with ``data_cfg.augment`` set raises."""
+    are shuffled and, with ``data_cfg.augment``, augmented (module
+    docstring)."""
 
     def __init__(
         self,
@@ -204,10 +219,6 @@ class Batches:
         train: bool = True,
         device=None,
     ):
-        if train and data_cfg.augment is not None:
-            raise NotImplementedError(
-                "Batches(train=True) with augmentation (augment_batch): ROADMAP.md §1 item 10"
-            )
         self.reader = reader
         self.net_cfg = net_cfg
         self.data_cfg = data_cfg
@@ -248,7 +259,10 @@ class Batches:
             if len(idx) < b and dc.drop_remainder:
                 break
             imgs, polys, nvs, cids = self._host_collate([self._samples[i] for i in idx])
-            yield device_batch_step(imgs, polys, nvs, cids, self.net_cfg, dc, self.train)
+            g = None
+            if self.train and dc.augment is not None:
+                g = torch.Generator(self.device).manual_seed(batch_seed(dc.seed * 7919 + epoch, bi))
+            yield device_batch_step(imgs, polys, nvs, cids, self.net_cfg, dc, self.train, g)
 
     def __iter__(self):
         return self.epoch()

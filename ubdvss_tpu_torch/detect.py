@@ -8,11 +8,14 @@ plus ``--device`` (the card unless asked otherwise):
         [--save-overlays outdir]
 
 Weights are ``.npz`` files (with their ``.net_config.json`` sidecar, when
-there is one) or Keras ``.h5``/``.keras`` files (``utils/keras_import.py``,
-keras imported only then).  Training log directories are not ported
-(ROADMAP.md §1 item 10) and raise ``NotImplementedError``.  ``--int8``
-calibrates the int8 trunk on the input images themselves
-(``calibrate_qparams``).  Images are read, and overlays written, with cv2.
+there is one), Keras ``.h5``/``.keras`` files (``utils/keras_import.py``,
+keras imported only then) or a training log directory of the port's
+Trainer (its latest checkpoint in ``<logdir>/checkpoints`` and its
+``net_config.json``; the JAX package's orbax directories raise, naming its
+``--export-npz``).  ``--int8`` calibrates the int8 trunk on the input
+images themselves (``calibrate_qparams``).  Images are read, and overlays
+written, with cv2; a ``.npy`` image file (an (H, W) or (H, W, 3) RGB uint8
+array) is read with numpy, so the CLI runs where cv2 is not installed.
 """
 
 from __future__ import annotations
@@ -33,23 +36,26 @@ from ubdvss_tpu_torch.ops.quant import (
     calibrate_scales,
     normalize_fma,
 )
-from ubdvss_tpu_torch.utils.checkpoint import load_net_config, load_params_npz, params_from_flat
+from ubdvss_tpu_torch.utils.checkpoint import (
+    load_logdir_params,
+    load_net_config,
+    load_params_npz,
+    params_from_flat,
+)
 from ubdvss_tpu_torch.utils.visualization import draw_detections
 
 
 def load_params(checkpoint: str, cfg: NetConfig) -> dict:
-    """The port's state_dict from an ``.npz`` weight file or a Keras
-    ``.h5``/``.keras`` file of ``cfg``'s architecture."""
+    """The port's state_dict from an ``.npz`` weight file, a Keras
+    ``.h5``/``.keras`` file of ``cfg``'s architecture, or a training log
+    directory (its latest checkpoint)."""
     if checkpoint.endswith(".npz"):
         return params_from_flat(load_params_npz(checkpoint))
     if checkpoint.endswith(".h5") or checkpoint.endswith(".keras"):
         from ubdvss_tpu_torch.utils.keras_import import load_keras_weights
 
         return load_keras_weights(checkpoint, cfg)
-    raise NotImplementedError(
-        "training checkpoints (log directories): ROADMAP.md §1 item 10; "
-        "pass an .npz, .h5 or .keras file"
-    )
+    return load_logdir_params(checkpoint)
 
 
 def calibrate_qparams(params: dict, cfg: NetConfig, images, device=None) -> dict | None:
@@ -87,7 +93,7 @@ def main(argv=None):
     p.add_argument("--images", nargs="+", required=True,
                    help="image files or directories")
     p.add_argument("--checkpoint", required=True,
-                   help="params .npz or Keras .h5/.keras (logdirs are not ported)")
+                   help="training logdir, params .npz, or Keras .h5/.keras")
     p.add_argument("--detection-only", action="store_true")
     p.add_argument("--output", default=None, help="write JSON detections here")
     p.add_argument("--save-overlays", default=None,
@@ -97,8 +103,6 @@ def main(argv=None):
                         "calibrated on the input images themselves)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-
-    import cv2
 
     cfg = load_net_config(args.checkpoint)
     if cfg is None:
@@ -113,6 +117,10 @@ def main(argv=None):
         paths.extend(sorted(q.glob("*")) if q.is_dir() else [q])
 
     def read(path):
+        if path.suffix == ".npy":
+            return np.load(path)
+        import cv2
+
         img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
         return img if img is None or img.ndim == 2 else img[..., ::-1]  # BGR -> RGB
 
@@ -139,6 +147,8 @@ def main(argv=None):
         ]
         print(f"{path}: {len(dets)} detections")
         if args.save_overlays:
+            import cv2
+
             out = draw_detections(img, np.stack([d.box for d in dets]) if dets else [])
             Path(args.save_overlays).mkdir(parents=True, exist_ok=True)
             cv2.imwrite(str(Path(args.save_overlays) / path.name), out[..., ::-1])

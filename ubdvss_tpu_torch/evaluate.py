@@ -25,9 +25,9 @@ Two resolution modes, as in the JAX package:
     the normalize is a multiply and a subtract (``ops/preproc.normalize``),
     as the JAX package computes it eagerly there.
 
-``mesh`` (data-parallel evaluation) and ``--num-devices`` are not ported
-(ROADMAP.md §1 item 9); training log directories as ``--checkpoint`` wait
-for item 10.
+``--checkpoint`` takes a weight file or a training log directory of the
+port's Trainer (``detect.load_params``).  ``mesh`` (data-parallel
+evaluation) and ``--num-devices`` are not ported (ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -433,8 +433,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data", required=True, help="dataset root, or 'synthetic'")
     p.add_argument("--markup-format", default="zvz-json")
     p.add_argument("--checkpoint", required=True,
-                   help="params .npz or Keras .h5/.keras (log directories are "
-                        "not ported)")
+                   help="training logdir, params .npz, or Keras .h5/.keras")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--image-size", type=int, nargs=2, default=(256, 256))
     p.add_argument("--eval-native", action="store_true",

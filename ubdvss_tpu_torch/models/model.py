@@ -27,11 +27,19 @@ Two compute dtypes, as ``NetConfig.dtype`` names them:
 
 ``dense_equivalent_apply`` is the JAX function of that name: each
 separable layer as its rank-1-expanded dense conv.
+
+Training (``init_params``, ``train_apply``) takes the parameters as one
+dict of leaf tensors in ``state_dict`` layout, which both routes read:
+the module through ``torch.func.functional_call``, the dense equivalent
+directly.  ``compute_precision`` is the numerics context of a config;
+the train step holds it over the backward too, since a forward's own
+context has exited by the time ``backward`` runs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -71,6 +79,17 @@ def exact_f32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def compute_precision(cfg: NetConfig):
+    """The context a config's convs run in: ``exact_f32`` (TF32 off) for
+    float32; for bfloat16 also ``bf16_full_accumulation``.  Enter it around
+    the forward AND the backward of a train step."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(exact_f32())
+    if cfg.compute_dtype == torch.bfloat16:
+        stack.enter_context(bf16_full_accumulation())
+    return stack
 
 
 def same_pad(n: int, k: int, s: int, d: int = 1) -> tuple[int, int]:
@@ -241,3 +260,44 @@ def dense_equivalent_apply(params: dict, x_nhwc: torch.Tensor, cfg: NetConfig) -
 def param_count(params: dict) -> int:
     """Number of scalars in a state_dict (or any dict of tensors/arrays)."""
     return sum(math.prod(v.shape) for v in params.values())
+
+
+@functools.lru_cache(maxsize=None)
+def _template(cfg: NetConfig) -> BarcodeFCN:
+    """A parameterless (meta-device) module of ``cfg``'s architecture, the
+    computation ``train_apply`` calls with given parameters."""
+    with torch.device("meta"):
+        return get_model(cfg)
+
+
+def init_params(cfg: NetConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Fresh f32 parameters for ``get_model(cfg)`` (CPU tensors, state_dict
+    layout), with flax's default initializers as the JAX package's
+    ``init_params`` gets them: every kernel lecun-normal — a normal
+    truncated to two standard deviations, scaled to variance 1/fan_in,
+    fan_in = in-features per group x kernel area (9 for a depthwise 3x3,
+    C for a 1x1) — and zero biases.  Draws come from a ``torch.Generator``
+    seeded with ``seed``, kernel by kernel in ``named_parameters`` order;
+    JAX's PRNG streams are not reproduced."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, p in _template(cfg).named_parameters():
+        t = torch.zeros(p.shape, dtype=torch.float32)
+        if name.endswith("weight"):
+            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            # std of a unit normal truncated to [-2, 2]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
+        out[name] = t
+    return out
+
+
+def train_apply(params: dict, x_nhwc: torch.Tensor, cfg: NetConfig) -> torch.Tensor:
+    """Training-time forward, routed as the JAX package's ``train_apply``:
+    a bf16 separable config through ``dense_equivalent_apply``, every other
+    config through the module (f32 at full precision).  Differentiable in
+    ``params`` (a dict of tensors in state_dict layout); NHWC in, f32 NHWC
+    logits out."""
+    if cfg.compute_dtype == torch.bfloat16 and cfg.separable_context:
+        return dense_equivalent_apply(params, x_nhwc, cfg)
+    return torch.func.functional_call(_template(cfg), params, (x_nhwc,))

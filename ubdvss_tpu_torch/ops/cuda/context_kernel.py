@@ -24,7 +24,9 @@ The pieces:
     shifted multiply-adds, the pointwise product, bias, ReLU per layer,
     then the 1x1 head;
   * ``fused_context_head`` — the K4 wrapper (one launch per layer, the
-    head fused into the last, ``csrc/context_kernel.cu``);
+    head fused into the last, ``csrc/context_kernel.cu``), a
+    ``torch.autograd.Function`` whose backward is autograd of the plain
+    version, as the JAX package's ``custom_vjp``;
   * ``dense_context_head`` — each separable layer as one dense 3x3 dilated
     conv (cuDNN in bf16 with f32 accumulation, as XLA's conv in the JAX
     package), bias and ReLU as separate ops at the activation dtype;
@@ -93,14 +95,9 @@ def context_head_reference(x_nchw, dw, pwt, pb, hwt, hb, dilations):
 _FUNCS = {"context_layer": [_build.P] * 7 + [_build.I] * 6 + [_build.P]}
 
 
-def fused_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations) -> torch.Tensor:
-    """Context module + head: (B, C, H, W) f32 -> (B, O, H, W) f32 logits.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    per-layer kernel (the head fused into the last launch) or raises.
-    """
-    if x_nchw.device.type == "cpu":
-        return context_head_reference(x_nchw, dw, pwt, pb, hwt, hb, dilations)
+def _launch_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations) -> torch.Tensor:
+    """The K4 launches on a CUDA tensor: one a layer, the head fused into
+    the last."""
     dev = x_nchw.device
     _build.check_input(x_nchw, "x", torch.float32, 4)
     B, C, H, W = x_nchw.shape
@@ -136,6 +133,43 @@ def fused_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations) -> torch.Tensor:
         fused_context_head.launches += 1
         cur = dst
     return out
+
+
+class _ContextHead(torch.autograd.Function):
+    """K4 forward, and the gradient of its plain version backward: the JAX
+    package's ``custom_vjp`` (``_fch_fwd`` / ``_fch_bwd``), whose backward
+    is XLA's autodiff of ``context_head_reference``."""
+
+    @staticmethod
+    def forward(ctx, x_nchw, dw, pwt, pb, hwt, hb, dilations):
+        ctx.dilations = dilations
+        ctx.save_for_backward(x_nchw, dw, pwt, pb, hwt, hb)
+        if x_nchw.device.type == "cpu":
+            return context_head_reference(x_nchw, dw, pwt, pb, hwt, hb, dilations)
+        return _launch_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad(), exact_f32():
+            out = context_head_reference(*inputs, ctx.dilations)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def fused_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations) -> torch.Tensor:
+    """Context module + head: (B, C, H, W) f32 -> (B, O, H, W) f32 logits.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    per-layer kernel (the head fused into the last launch) or raises.
+    Differentiable in every input: the backward is autograd of
+    ``context_head_reference`` on the saved inputs in full f32, as the JAX
+    package's VJP (``context_kernel.py:454-473``); ``launches`` counts the
+    forward's kernel launches only.
+    """
+    return _ContextHead.apply(x_nchw, dw, pwt, pb, hwt, hb, tuple(dilations))
 
 
 fused_context_head.launches = 0

@@ -17,7 +17,7 @@ The batch axis B is explicit where JAX vmaps; rows are evaluated in chunks
 that bound the (B, P, V, rows, W) temporaries.
 
 ``rasterize_polygons_windowed`` (the training synthesis path's object
-windows) is not ported (ROADMAP.md §1 item 10).
+windows) is not ported (ROADMAP.md §1 item 10b).
 """
 
 from __future__ import annotations

@@ -1,0 +1,468 @@
+"""Training: the train step, the Trainer and the CLI entry point.
+
+Counterpart of ``ubdvss_tpu/train.py`` on its host-fed path: the CLI over
+dataset paths / epochs / batch size / lr / logdir / resume builds the
+model and the batch pipeline, runs the fit loop with checkpoints and
+metric logging, and can export portable weights.
+
+    python -m ubdvss_tpu_torch.train --train-data synthetic --epochs 5 \
+        --batch-size 8 --lr 1e-3 --logdir /tmp/run1 [--device cpu]
+
+One step is the forward (``models/model.train_apply``: the module in f32,
+the dense equivalent for bf16 separable configs), the mined loss, the
+backward, an Adam (AdamW with ``weight_decay``) update with optax's
+defaults and the learning rate of optax's schedule formulas read at the
+step count before the update, and the pixel metrics.  The forward and the
+backward run inside ``compute_precision(cfg)`` (TF32 off; bf16 reduced in
+f32).  The state lives on the card unless ``device="cpu"`` is given.
+
+Not here: data parallelism (``--num-devices``, ``--distributed``; ROADMAP.md
+§1 item 9) and the device-fed pipelines (``synthetic-device`` data,
+``--cache-device``, multi-step dispatch; ROADMAP.md §1 item 10b).  Those
+flags raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import os
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ubdvss_tpu_torch.data import Batches, DataConfig
+from ubdvss_tpu_torch.inference import resolve_device
+from ubdvss_tpu_torch.losses import total_loss
+from ubdvss_tpu_torch.metrics import pixel_detection_metrics
+from ubdvss_tpu_torch.models.model import compute_precision, init_params, train_apply
+from ubdvss_tpu_torch.net_config import NetConfig
+from ubdvss_tpu_torch.utils.checkpoint import CheckpointManager
+from ubdvss_tpu_torch.utils.logging_util import MetricLogger
+
+_F32 = np.float32
+
+
+def make_lr_schedule(
+    kind: str,
+    lr: float,
+    warmup_steps: int = 0,
+    decay_steps: int = 10_000,
+    end_factor: float = 0.01,
+) -> Callable[[int], float]:
+    """Step count -> learning rate, by the formulas of optax's
+    ``constant_schedule``, ``cosine_decay_schedule(lr, decay_steps,
+    alpha=end_factor)`` and ``exponential_decay(lr, decay_steps,
+    decay_rate=end_factor)``, with a ``linear_schedule(0, lr,
+    warmup_steps)`` joined in front (``join_schedules``), in f32 as optax
+    computes them."""
+    lr32 = _F32(lr)
+    if kind == "constant":
+        def sched(count):
+            return lr32
+    elif kind == "cosine":
+        def sched(count):
+            c = min(_F32(count), _F32(decay_steps))
+            cos = _F32(0.5) * (_F32(1) + np.cos(_F32(math.pi) * c / _F32(decay_steps)))
+            return lr32 * (_F32(1.0 - end_factor) * cos + _F32(end_factor))
+    elif kind == "exponential":
+        def sched(count):
+            if count <= 0:
+                return lr32
+            return lr32 * np.power(_F32(end_factor), _F32(count) / _F32(decay_steps))
+    else:
+        raise ValueError(f"unknown schedule {kind!r}")
+    if warmup_steps <= 0:
+        return lambda count: float(sched(count))
+
+    def warm(count):
+        frac = _F32(1) - _F32(min(max(count, 0), warmup_steps)) / _F32(warmup_steps)
+        return (_F32(0) - lr32) * frac + lr32
+
+    return lambda count: float(warm(count) if count < warmup_steps else sched(count - warmup_steps))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Parameters (leaf tensors in state_dict layout), their optimizer, the
+    learning-rate schedule and the step count."""
+
+    params: dict[str, torch.Tensor]
+    tx: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.params.values())).device
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: parameters, optimizer state, step and
+        the generator states of the host and of the state's card."""
+        rng = {"cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {
+            "params": {k: v.detach().clone() for k, v in self.params.items()},
+            "opt_state": self.tx.state_dict(),
+            "step": self.step,
+            "rng": rng,
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        with torch.no_grad():
+            for k, v in self.params.items():
+                v.copy_(d["params"][k])
+        self.tx.load_state_dict(d["opt_state"])
+        self.step = int(d["step"])
+        torch.set_rng_state(d["rng"]["cpu"].cpu())
+        if "cuda" in d["rng"] and self.device.type == "cuda":
+            torch.cuda.set_rng_state(d["rng"]["cuda"].cpu(), self.device)
+
+
+def create_train_state(
+    cfg: NetConfig,
+    lr: float = 1e-3,
+    seed: int = 0,
+    weight_decay: float = 0.0,
+    schedule: str = "constant",
+    warmup_steps: int = 0,
+    decay_steps: int = 10_000,
+    device=None,
+    params: dict | None = None,
+) -> TrainState:
+    """A fresh train state on ``device`` (the card unless "cpu"):
+    ``init_params(cfg, seed)``, or a copy of ``params`` when given; Adam,
+    or AdamW with ``weight_decay`` (every parameter decayed), at optax's
+    defaults b1 0.9, b2 0.999, eps 1e-8."""
+    dev = resolve_device(device)
+    src = init_params(cfg, seed) if params is None else params
+    leaves = {k: v.detach().to(dev, torch.float32).clone().requires_grad_() for k, v in src.items()}
+    sched = make_lr_schedule(schedule, lr, warmup_steps, decay_steps)
+    kw = dict(lr=sched(0), betas=(0.9, 0.999), eps=1e-8)
+    tx = (
+        torch.optim.AdamW(leaves.values(), weight_decay=weight_decay, **kw)
+        if weight_decay
+        else torch.optim.Adam(leaves.values(), **kw)
+    )
+    return TrainState(leaves, tx, sched)
+
+
+def _cls_weight(step: int, cls_schedule, device) -> torch.Tensor:
+    """The classification-loss weight of a (base, end, ramp_steps) ramp at
+    ``step``, in f32 as the JAX step computes it from ``state.step``."""
+    base, end, ramp = (torch.tensor(float(v), dtype=torch.float32, device=device) for v in cls_schedule)
+    frac = torch.clamp(torch.tensor(float(step), device=device) / torch.clamp(ramp, min=1.0), 0.0, 1.0)
+    return base + (end - base) * frac
+
+
+def _check_finite(what: str, tensors) -> None:
+    for name, t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"non-finite {what}: {name}")
+
+
+def _step(state: TrainState, batch: dict, cfg: NetConfig, cls_schedule, checked: bool):
+    cls_w = None if cls_schedule is None else _cls_weight(state.step, cls_schedule, state.device)
+    names = sorted(state.params)  # the JAX package's leaf order
+    leaves = [state.params[k] for k in names]
+    with compute_precision(cfg):
+        logits = train_apply(state.params, batch["images"], cfg)
+        loss, aux = total_loss(logits, batch["segmap"], cfg, cls_weight=cls_w)
+        if checked:
+            _check_finite("loss", [("loss", loss)])
+        grads = torch.autograd.grad(loss, leaves)
+    if checked:
+        _check_finite("gradient", zip(names, grads))
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    for group in state.tx.param_groups:
+        group["lr"] = state.schedule(state.step)
+    state.tx.step()
+    state.step += 1
+    if checked:
+        _check_finite("parameter after the update", zip(names, leaves))
+    metrics = {k: v.detach() for k, v in aux.items()}
+    metrics.update(pixel_detection_metrics(logits[..., 0].detach(), batch["segmap"]))
+    metrics["grad_norm"] = torch.sqrt(sum(g.square().sum() for g in grads))
+    if cls_w is not None:
+        metrics["cls_weight"] = cls_w
+    return state, metrics
+
+
+def train_step(state: TrainState, batch: dict, cfg: NetConfig, cls_schedule=None):
+    """One optimization step on ``state`` (updated in place); returns
+    (state, metrics): the loss and its parts, the pixel metrics,
+    ``grad_norm`` (the global norm of the gradients) and, with a
+    ``cls_schedule`` (base, end, ramp_steps) — the classification-loss
+    weight ramping linearly from base to end over ramp_steps, read from
+    the step count — ``cls_weight``.  Metrics stay 0-d device tensors."""
+    return _step(state, batch, cfg, cls_schedule, checked=False)
+
+
+def checked_train_step(state: TrainState, batch: dict, cfg: NetConfig, cls_schedule=None):
+    """``train_step`` with finite checks on the loss, the gradients and the
+    updated parameters: raises ``FloatingPointError`` naming the first
+    poisoned one (a poisoned loss or gradient before the update)."""
+    return _step(state, batch, cfg, cls_schedule, checked=True)
+
+
+def eval_step(state: TrainState, batch: dict, cfg: NetConfig) -> dict:
+    """Loss and pixel metrics of a batch through the training forward."""
+    with torch.no_grad(), compute_precision(cfg):
+        logits = train_apply(state.params, batch["images"], cfg)
+        _, aux = total_loss(logits, batch["segmap"], cfg)
+    metrics = dict(aux)
+    metrics.update(pixel_detection_metrics(logits[..., 0], batch["segmap"]))
+    return metrics
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Fit loop with checkpoints (the latest ones, and the best by
+    ``best_metric`` over the validation batches), metric logging,
+    prediction image summaries, the learning-rate schedule, the
+    cls-weight ramp and optional finite checks (``debug_checks``)."""
+
+    cfg: NetConfig
+    data_cfg: DataConfig
+    lr: float = 1e-3
+    schedule: str = "constant"
+    warmup_steps: int = 0
+    decay_steps: int = 10_000
+    weight_decay: float = 0.0
+    logdir: str | None = None
+    checkpoint_every: int = 200
+    log_every: int = 20
+    image_summaries: bool = True
+    best_metric: str | None = "pixel_f1"
+    debug_checks: bool = False
+    seed: int = 0
+    # cls-weight schedule: ramp classification_loss_weight -> cls_weight_end
+    # over cls_weight_ramp_steps (None = constant cfg weight)
+    cls_weight_end: float | None = None
+    cls_weight_ramp_steps: int = 10_000
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.state = self._fresh_state()
+        self.logger = MetricLogger(self.logdir)
+        if self.logdir:
+            # architecture sidecar: evaluate/detect rebuild the exact model
+            os.makedirs(self.logdir, exist_ok=True)
+            with open(f"{self.logdir}/net_config.json", "w") as f:
+                f.write(self.cfg.to_json())
+        self.ckpt = CheckpointManager(f"{self.logdir}/checkpoints") if self.logdir else None
+        self.best_ckpt = (
+            CheckpointManager(f"{self.logdir}/best", max_to_keep=1, best_metric=self.best_metric)
+            if self.logdir and self.best_metric
+            else None
+        )
+        self._last_val_metrics: dict | None = None
+        self._last_train_metrics: dict | None = None
+
+    def _fresh_state(self) -> TrainState:
+        return create_train_state(
+            self.cfg, self.lr, self.seed, weight_decay=self.weight_decay,
+            schedule=self.schedule, warmup_steps=self.warmup_steps,
+            decay_steps=self.decay_steps, device=self.device,
+        )
+
+    def maybe_resume(self) -> int:
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            self.ckpt.restore(self.state)
+            print(f"resumed from step {self.state.step}")
+        return self.state.step
+
+    def _cls_sched(self):
+        if self.cls_weight_end is None:
+            return None
+        return (self.cfg.classification_loss_weight, self.cls_weight_end,
+                float(self.cls_weight_ramp_steps))
+
+    def step_fn(self, state: TrainState, batch: dict):
+        """One optimization step (checked under ``debug_checks``)."""
+        step = checked_train_step if self.debug_checks else train_step
+        return step(state, batch, self.cfg, self._cls_sched())
+
+    def _image_summary(self, step: int, batch: dict) -> None:
+        """Prediction overlays for the first val images (host, off the hot path)."""
+        from ubdvss_tpu_torch.ops.postproc import postprocess_batch
+        from ubdvss_tpu_torch.utils.visualization import detection_summary_image
+
+        with torch.no_grad(), compute_precision(self.cfg):
+            logits = train_apply(self.state.params, batch["images"][:2], self.cfg)
+            res = {k: v.cpu().numpy() for k, v in postprocess_batch(logits, self.cfg).items()}
+        imgs = batch["images"][:2, ..., 0].cpu().numpy() * 127.5 + 127.5
+        for i in range(imgs.shape[0]):
+            img = detection_summary_image(imgs[i], {k: v[i] for k, v in res.items()})
+            self.logger.log_image(step, f"predictions_{i}", img)
+
+    def fit(self, train_batches: Batches, epochs: int, val_batches: Batches | None = None) -> TrainState:
+        """``epochs`` passes over ``train_batches``, prefetched two deep
+        (host collate and the copy to the card of batch N+1 in a worker
+        thread while step N runs), then the validation pass, if any."""
+        from ubdvss_tpu_torch.utils.prefetch import prefetched
+
+        step = self.state.step
+        metrics = None
+        last_logged = last_saved = step
+        for epoch in range(epochs):
+            for batch in prefetched(train_batches.epoch(epoch), depth=2, device=self.device):
+                self.state, metrics = self.step_fn(self.state, batch)
+                step += 1
+                if step - last_logged >= self.log_every:
+                    self.logger.log(step, {k: float(v) for k, v in metrics.items()}, "train")
+                    last_logged = step
+                if self.ckpt and step - last_saved >= self.checkpoint_every:
+                    self.ckpt.save(step, self.state)
+                    last_saved = step
+            if val_batches is not None:
+                agg: dict[str, list] = {}
+                first_batch = None
+                for batch in val_batches.epoch(0):
+                    if first_batch is None:
+                        first_batch = batch
+                    for k, v in eval_step(self.state, batch, self.cfg).items():
+                        agg.setdefault(k, []).append(float(v))
+                val_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
+                self._last_val_metrics = val_metrics
+                self.logger.log(step, val_metrics, "val")
+                if self.image_summaries and first_batch is not None:
+                    self._image_summary(step, first_batch)
+                if self.best_ckpt and self.best_metric in val_metrics:
+                    self.best_ckpt.save(step, self.state, metrics=val_metrics)
+        if metrics is not None:
+            self._last_train_metrics = {k: float(v) for k, v in metrics.items()}
+        if self.ckpt:
+            self.ckpt.save(step, self.state)
+        return self.state
+
+    def export_params(self, prefer_best: bool = True) -> dict[str, torch.Tensor]:
+        """Host copy of the trained params — the best checkpoint's when a
+        save-best checkpointer has ranked any, else the final step's."""
+        if prefer_best and self.best_ckpt and self.best_ckpt.best_step() is not None:
+            return self.best_ckpt.restore_params(self.best_ckpt.best_step())
+        return {k: v.detach().cpu().clone() for k, v in self.state.params.items()}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train the barcode detector")
+    p.add_argument("--train-data", required=True,
+                   help="dataset root, or 'synthetic' (host-rendered); "
+                        "'synthetic-device' is not ported")
+    p.add_argument("--val-data", default=None)
+    p.add_argument("--markup-format", default="zvz-json",
+                   help="zvz-json | zvz-xml | synthetic")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--logdir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--train-size", type=int, nargs=2, default=(256, 256), metavar=("H", "W"))
+    p.add_argument("--detection-only", action="store_true")
+    p.add_argument("--channels", type=int, default=None,
+                   help="context-module width (default NetConfig.channels)")
+    p.add_argument("--dilations", type=int, nargs="+", default=None,
+                   help="context-module dilation schedule")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16 = mixed-precision training (bf16 trunk, "
+                        "f32 master weights/optimizer/logits)")
+    p.add_argument("--no-separable-context", action="store_true",
+                   help="dense 3x3 context convs")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-augment", action="store_true")
+    p.add_argument("--synthetic-samples", type=int, default=256)
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help="device-fed pipelines only (not ported); 1 is the host-fed step")
+    p.add_argument("--cache-device", action="store_true",
+                   help="device-resident corpus (not ported)")
+    p.add_argument("--schedule", default="constant", choices=["constant", "cosine", "exponential"])
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--decay-steps", type=int, default=10_000)
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--cls-weight-end", type=float, default=None,
+                   help="ramp the classification-loss weight linearly from its "
+                        "NetConfig value to this over --cls-weight-ramp-steps")
+    p.add_argument("--cls-weight-ramp-steps", type=int, default=10_000)
+    p.add_argument("--export-npz", default=None,
+                   help="after training, write portable weights (+ net_config "
+                        "sidecar) here — best-checkpoint params when available, else final")
+    p.add_argument("--debug-nan", action="store_true",
+                   help="finite checks on the loss, gradients and parameters each step")
+    p.add_argument("--profile", default=None, help="capture a torch.profiler trace into this dir")
+    p.add_argument("--num-devices", default=None, help="data-parallel training (not ported)")
+    p.add_argument("--allow-cpu-mesh", action="store_true", help="with --num-devices (not ported)")
+    p.add_argument("--distributed", action="store_true", help="multi-host training (not ported)")
+    p.add_argument("--coordinator", default=None, help="with --distributed")
+    p.add_argument("--num-processes", type=int, default=None, help="with --distributed")
+    p.add_argument("--process-id", type=int, default=None, help="with --distributed")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.num_devices is not None or args.distributed or args.allow_cpu_mesh:
+        raise NotImplementedError(
+            "--num-devices / --distributed / --allow-cpu-mesh (data-parallel training): "
+            "ROADMAP.md §1 item 9")
+    if "synthetic-device" in (args.train_data, args.val_data):
+        raise NotImplementedError("synthetic-device data (synthgen.py): ROADMAP.md §1 item 10b")
+    if args.cache_device:
+        raise NotImplementedError("--cache-device (DeviceCachedBatches): ROADMAP.md §1 item 10b")
+    if args.steps_per_dispatch is not None and args.steps_per_dispatch > 1:
+        raise NotImplementedError("--steps-per-dispatch > 1 (fused multi-step): ROADMAP.md §1 item 10b")
+
+
+def main(argv: list[str] | None = None) -> Trainer:
+    args = build_argparser().parse_args(argv)
+    _refuse_unported(args)
+    from ubdvss_tpu_torch.markup import get_markup_reader
+    from ubdvss_tpu_torch.utils.checkpoint import save_params_npz
+    from ubdvss_tpu_torch.utils.profiling import trace
+
+    cfg_kw: dict[str, Any] = {"classification": not args.detection_only, "dtype": args.dtype}
+    if args.channels is not None:
+        cfg_kw["channels"] = args.channels
+    if args.dilations is not None:
+        cfg_kw["dilations"] = tuple(args.dilations)
+    if args.no_separable_context:
+        cfg_kw["separable_context"] = False
+    cfg = NetConfig(**cfg_kw)
+    dev = resolve_device(args.device)
+    fmt = "synthetic" if args.train_data == "synthetic" else args.markup_format
+    reader_kw: dict[str, Any] = {}
+    if fmt == "synthetic":
+        reader_kw = {"n_samples": args.synthetic_samples, "image_hw": tuple(args.train_size)}
+    dc = DataConfig(
+        batch_size=args.batch_size,
+        train_hw=tuple(args.train_size),
+        augment=None if args.no_augment else DataConfig().augment,
+        seed=args.seed,
+    )
+    train_b = Batches(get_markup_reader(fmt, args.train_data, **reader_kw), cfg, dc, train=True, device=dev)
+    val_b = None
+    if args.val_data:
+        vfmt = "synthetic" if args.val_data == "synthetic" else args.markup_format
+        val_b = Batches(get_markup_reader(vfmt, args.val_data, **reader_kw), cfg,
+                        dataclasses.replace(dc, shuffle=False), train=False, device=dev)
+    trainer = Trainer(
+        cfg, dc, lr=args.lr, schedule=args.schedule, warmup_steps=args.warmup_steps,
+        decay_steps=args.decay_steps, weight_decay=args.weight_decay, logdir=args.logdir,
+        debug_checks=args.debug_nan, seed=args.seed, cls_weight_end=args.cls_weight_end,
+        cls_weight_ramp_steps=args.cls_weight_ramp_steps, device=dev,
+    )
+    if args.resume:
+        trainer.maybe_resume()
+    with trace(args.profile):
+        trainer.fit(train_b, args.epochs, val_b)
+    if args.export_npz:
+        save_params_npz(args.export_npz, trainer.export_params(), cfg=cfg)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

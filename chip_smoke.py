@@ -31,10 +31,12 @@ them.  Phases, each of which raises on failure:
      H=512 and 1024 (M=64) and the uncompacted one at the three detect
      sizes' heatmaps; then the tall pages' kernels: the uncompacted rect
      on synthetic extremes (K=16, B=1 and 3) with a rotated bar over every
-     row (a long staircase) at H=1088, at its one-block cap
+     row (a long staircase), or a convex blob over every row whose every
+     row is a hull point, at H=1088, at its one-block cap
      (rect_kernel.MAX_EXACT_HEIGHT, 1994, which the library's
-     rect_exact_max_height() must equal) and, in its tall instance, at
-     2048 and 4096, rows within 1e-4 of the plain version; the large fused
+     rect_exact_max_height() must equal) and, in its tall instance (a
+     cluster of eight blocks a component), at 2048 and 4096, and at 8192
+     (B=1), rows within 1e-4 of the plain version; the large fused
      compat geometry (geometry_compat_large) on the 2048² scans' 512² maps,
      the 4096² scan's 1024² map (f32 and bf16) and the adversarial maps at
      512² (4- and 8-connected), K=64, all eight outputs bit for bit equal
@@ -121,9 +123,11 @@ them.  Phases, each of which raises on failure:
         quantize_trunk on the card over 32 synthetic 512x512 scenes (seed
         99), bench.py's calibration, against the same call on the host CPU
         (scales within 1e-5 relative, at most 0.1% of the int8 weights and
-        1e-3 of a bias apart; reported), its bias correction in two
-        qconv_layer launches a layer and one for the head (each checked
-        against its plain version); then the int8 trunk's kernels
+        1e-3 of a bias apart; reported), its bias correction in one
+        qconv_layer_f32 launch a layer and one for the head (the f32
+        pre-activation and the exact accumulator on the tensor cores) and
+        one requantize launch a layer (each checked against its plain
+        version); then the int8 trunk's kernels
         against their plain versions on the card and on the host CPU, bit
         for bit: qstem (layers 0 and 1 from the image), qconv (a context
         layer) and qconv_head (the last context layer with the head), each
@@ -149,7 +153,8 @@ them.  Phases, each of which raises on failure:
         K2, K3x; and the int8 QVGA stream (eight trunk launches a batch):
         each equal to the host CPU;
      p. the CLI's calibration (calibrate_qparams, detect --int8) on 4 scenes
-        on the card (qconv_layer launched, the trunk's kernels not) against
+        on the card (qconv_layer_f32 and requantize launched, the trunk's
+        kernels not) against
         the host CPU, as in l;
   4. timing with CUDA events (median of 10 samples of 10 back-to-back calls,
      after warm-up): img/s of the main path, frames/s of the stream (the
@@ -172,9 +177,13 @@ them.  Phases, each of which raises on failure:
      operations at 1,979 TOPS), their plain versions, one f32 F.conv2d a
      layer on the int8 values (TF32 off), the library yardstick, and, time
      only, a channels-last bf16 F.conv2d a layer of the same shapes; and
-     the bias correction's qconv_layer launches over the calibration
-     images, together, beside the same bounds, their plain versions and
-     one f32 F.conv2d a launch; the uncompacted rect on the A4 page's and
+     the bias correction's launches over the calibration images: the
+     qconv_layer row its 10 qconv_layer_f32 launches alone, beside their
+     plain versions, their bytes' bound and one f32 F.conv2d a layer; the
+     qrequant row its 9 requantize launches alone; and the whole walk's 19
+     (each one's device ms, the bound of the bytes the walk moves beside
+     the dp4a walk's it replaced) as a logged entry of its own;
+     the uncompacted rect on the A4 page's and
      the 8192x1024 page's extremes (rect_exact_h1754, rect_exact_h2048)
      and the large fused compat geometry on the scans' maps, f32 and bf16,
      each with its row; each launch of the tiled kernels (the device-memory
@@ -182,14 +191,16 @@ them.  Phases, each of which raises on failure:
      at the scans' maps, f32 and bf16: device ms, grid and block, and the
      profiler's estimate of resident warps an SM, printed a line a launch
      and kept in the row's ``phases``; the uncompacted rect on the kernel checks'
-     synthetic extremes at each tall height (B=1 and 3); one A4-page
+     synthetic extremes at each tall height (staircase and convex blob,
+     B=1 and 3, and 8192 rows); one A4-page
      detect call and one compat batch of the 2048² scans: wall time,
      device time and busy share;
   5. evaluation, the JAX package's int8 accuracy protocol
      (tests/test_quant.py:256-296) on the card: the asset's config (K=64,
      M=64), 48 synthetic 256x256 scenes (seed 0), DataConfig(batch_size=8,
      max_polys=32), quantize_trunk on the card over the first 32 images of
-     Batches(train=False) (19 qconv_layer launches); run_evaluation in f32
+     Batches(train=False) (10 qconv_layer_f32 and 9 requantize launches);
+     run_evaluation in f32
      (K4 once a layer a batch, K1, K2, K3x) and in int8 (qstem, qconv and
      qconv_head once, six times and once a batch, K1, K2, K3x), neither
      launching K3, the compat geometry or a tiled kernel; int8 F1 >= 0.96
@@ -468,6 +479,22 @@ def synthetic_extremes(B, K, H, seed):
             elif kind == 5:  # one point
                 mn[b, k, y1 - 1] = mx[b, k, y1 - 1] = 7
     return torch.from_numpy(mn.astype(np.int32)), torch.from_numpy(mx.astype(np.int32))
+
+
+def round_extremes(B, K, H, seed):
+    """``synthetic_extremes`` with slot 0 a convex blob over every row whose
+    every row is a hull point on both chains: integer steps nondecreasing
+    from -40 to 40 (the most distinct directions a chain of integer points
+    over H rows can take at this width)."""
+    import torch
+
+    mn, mx = (t.numpy().copy() for t in synthetic_extremes(B, K, H, seed))
+    rng = np.random.default_rng(seed)
+    for b in range(B):
+        c = np.cumsum(np.sort(rng.integers(-40, 41, H)))
+        c -= c.min()
+        mn[b, 0], mx[b, 0] = 100 + c, 150 + 2 * int(c.max()) - c
+    return torch.from_numpy(mn), torch.from_numpy(mx)
 
 
 _PERMS = np.array(list(permutations(range(4))))
@@ -822,7 +849,7 @@ def main() -> int:
     # --- 1. build every kernel, one nvcc per source, in parallel ---
     t0 = time.perf_counter()
     sources = ["context_kernel", "ccl_kernel", "postproc_kernel", "geometry_kernel", "rect_kernel",
-               "qconv_kernel", "qstem_kernel", "qconv_layer_kernel"]
+               "qconv_kernel", "qstem_kernel"]
     _build.build(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s ({len(sources)} sources, "
         f"nvcc {' '.join(_build.NVCC_FLAGS)})")
@@ -1086,16 +1113,20 @@ def main() -> int:
         cap = rect_kernel.MAX_EXACT_HEIGHT
         if _build.load("rect_kernel", rect_kernel._FUNCS).rect_exact_max_height() != cap:
             raise AssertionError("rect: the C side's height cap differs from the wrapper's")
-        for H in (1088, cap, 2048, 4096):
-            for b in (1, 3):
-                mn, mx = (t.to(dev) for t in synthetic_extremes(b, 16, H, H + b))
-                sel_k = rect_kernel.min_area_rect_exact(mn, mx)
-                sel_p = rect_kernel.min_area_rect_select_reference(mn, mx, None)
-                e, f = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
-                err_exact = max(err_exact, e)
-                log(f"check rect_exact H={H}{' (tall instance)' if H > cap else ''}: (B,K,H)="
-                    f"{tuple(mn.shape)} with a staircase over every row, rows max|err| {e:.3g} "
-                    f"<= 1e-4, any_edge identical, {f} exact-tie flips")
+        tall_cases = [(make, H, b) for make in (synthetic_extremes, round_extremes)
+                      for H in (1088, cap, 2048, 4096) for b in (1, 3)]
+        tall_cases += [(make, 8192, 1) for make in (synthetic_extremes, round_extremes)]
+        for make, H, b in tall_cases:
+            mn, mx = (t.to(dev) for t in make(b, 16, H, H + b))
+            sel_k = rect_kernel.min_area_rect_exact(mn, mx)
+            sel_p = rect_kernel.min_area_rect_select_reference(mn, mx, None)
+            e, f = check_rect_rows(sel_k.cpu().numpy(), sel_p.cpu().numpy())
+            err_exact = max(err_exact, e)
+            what = ("a staircase" if make is synthetic_extremes
+                    else "a convex blob whose every row is a hull point")
+            log(f"check rect_exact H={H}{' (tall instance, a cluster a component)' if H > cap else ''}"
+                f": (B,K,H)={tuple(mn.shape)} with {what} over every row, rows max|err| {e:.3g} "
+                f"<= 1e-4, any_edge identical, {f} exact-tie flips")
         lg_big16 = fused_model_apply(params16_d, torch.from_numpy(big).to(dev).to(torch.bfloat16)
                                      [..., None], cfg_l16, raw_gray=True, act_out=True)
         adv_l = torch.from_numpy(adversarial_maps(512)).to(dev)
@@ -1140,7 +1171,8 @@ def main() -> int:
         "qstem": (qconv_kernel.qstem, "launches"),
         "qconv": (qconv_kernel.qconv, "launches"),
         "qconv_head": (qconv_kernel.qconv_head, "launches"),
-        "qconv_layer": (qconv_kernel.qconv_layer, "launches"),
+        "qconv_layer": (qconv_kernel.qconv_layer_f32, "launches"),
+        "qrequant": (qconv_kernel.requantize, "launches"),
     }
     tiled = ["ccl_tiled", "slots_tiled"]  # not on the 128² and smaller maps
     bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", "ccl_tiled_bf16",
@@ -1148,6 +1180,17 @@ def main() -> int:
     # the large K12c launches only on the compat route past 200² maps: a
     # path that does not name it must not launch it
     large_compat = ["geometry_compat_large", "geometry_compat_large_bf16"]
+
+    # the calibration's bias correction: one convolution a layer and the head
+    # (qconv_layer_f32: the f32 pre-activation and the accumulator), one
+    # requantization a layer (requantize)
+    calib8 = ["qconv_layer", "qrequant"]
+
+    def calib_launches(n, c, name):
+        layers = len(_conv_specs(c))
+        if (n["qconv_layer"], n["qrequant"]) != (layers + 1, layers):
+            raise AssertionError(f"{name}: {n['qconv_layer']} qconv_layer_f32 and {n['qrequant']} "
+                                 f"requantize launches, expected {layers + 1} and {layers}")
 
     def counted(run, must_launch, must_not):
         must_not = [*must_not, *(k for k in large_compat if k not in must_launch)]
@@ -1629,13 +1672,11 @@ def main() -> int:
              / 127.5 - 1.0)[..., None]  # bench.py's calibration images
     calib_d = torch.from_numpy(calib).to(dev)
     t0 = time.perf_counter()
-    q_d, n_calib = counted(lambda: quantize_trunk(params_d, cfg, calib_d), ["qconv_layer"],
+    q_d, n_calib = counted(lambda: quantize_trunk(params_d, cfg, calib_d), calib8,
                            ["qstem", "qconv", "qconv_head"])
     t_calib = time.perf_counter() - t0
-    if n_calib["qconv_layer"] != 2 * len(_conv_specs(cfg)) + 1:
-        raise AssertionError(f"calibration: {n_calib['qconv_layer']} qconv_layer launches, expected "
-                             f"two a layer and one for the head")
-    launches["qconv_layer"] = n_calib["qconv_layer"]
+    calib_launches(n_calib, cfg, "calibration")
+    launches.update({k: n_calib[k] for k in calib8})
     t0 = time.perf_counter()
     q_hc = quantize_trunk(params, cfg, torch.from_numpy(calib))
     t_calib_cpu = time.perf_counter() - t0
@@ -1643,7 +1684,8 @@ def main() -> int:
     check_qparams(calib_diff, "quantize_trunk")
     q_h = qparams_to(q_d, "cpu")  # the card's qparams: every equality check below uses them
     log(f"int8 calibration: quantize_trunk on {N_CALIB} {IMG}x{IMG} scenes (seed {CALIB_SEED}) on "
-        f"the card {t_calib:.3f} s ({n_calib['qconv_layer']} qconv_layer launches), on the host CPU "
+        f"the card {t_calib:.3f} s ({n_calib['qconv_layer']} qconv_layer_f32 and "
+        f"{n_calib['qrequant']} requantize launches), on the host CPU "
         f"{t_calib_cpu:.1f} s; card against host CPU: {calib_diff}")
 
     err_q = 0.0
@@ -1698,24 +1740,44 @@ def main() -> int:
         n = len(c.dilations)
         return ins, fused(f"{name} context {n - 1} + head", x, q, n - 1, c.dilations[-1], n_host)
 
+    def check_layer_f32(name, x, L, st, d, n_host=2):
+        """qconv_layer_f32 (one launch: the f32 pre-activation and the exact
+        accumulator) == qconv_reference's pre-activation and
+        qconv_acc_reference's accumulator on the card and on the host CPU
+        (the first ``n_host`` images), bit for bit."""
+        nonlocal err_q
+        y, acc = kq.qconv_layer_f32(x, L, st, d)
+        ry, racc = kq.qconv_reference(x, L, None, st, d), kq.qconv_acc_reference(x, L, st, d)
+        hx, hL = x[:n_host].cpu(), {k: v.cpu() for k, v in L.items()}
+        hy, hacc = kq.qconv_reference(hx, hL, None, st, d), kq.qconv_acc_reference(hx, hL, st, d)
+        if not (torch.equal(y, ry) and torch.equal(acc, racc) and torch.equal(y[:n_host].cpu(), hy)
+                and torch.equal(acc[:n_host].cpu(), hacc)):
+            raise AssertionError(f"qconv_layer_f32 {name}: {int((y != ry).sum())} pre-activations "
+                                 f"and {int((acc != racc).sum())} accumulators differ from the plain "
+                                 "version")
+        err_q = max(err_q, float((y - ry).abs().max()))
+        log(f"check qconv_layer_f32 {name}: {tuple(x.shape)} {x.dtype} -> {tuple(y.shape)} "
+            f"pre-activation and accumulator == plain version on the card and on the host CPU "
+            f"({n_host} images), bit for bit")
+        return y, acc
+
     def bias_walk(x, q, c):
-        """The bias correction's qconv_layer calls on the calibration images
-        x with the corrected qparams q (ops/quant.bias_correct_qparams): a
-        layer's f32 pre-activation, then its requantized output, each layer;
-        then the head's pre-activation.  Each is checked against the plain
-        version; returns the calls' arguments."""
+        """The bias correction's launches on the calibration images x with the
+        corrected qparams q (ops/quant.bias_correct_qparams): each layer's
+        qconv_layer_f32 (its f32 pre-activation and accumulator, one launch),
+        then requantize (the next layer's int8 input); then the head's
+        qconv_layer_f32 without an accumulator.  Each is checked against its
+        plain version; returns the calls as (name, function, arguments)."""
         calls = []
         for i, (st, d) in enumerate(_conv_specs(c)):
             L, s_o = q["layers"][i], q["s_in"][i + 1]
-            calls.append((x, L, None, st, d))
-            check_q(f"bias correction layer {i} pre-activation", kq.qconv_layer, kq.qconv_reference,
-                    calls[-1], n_host=2)
-            calls.append((x, L, s_o, st, d))
-            x = check_q(f"bias correction layer {i} requantized", kq.qconv_layer, kq.qconv_reference,
-                        calls[-1], n_host=2)
-        calls.append((x, q["head"], None, 1, 1))
-        check_q("bias correction head pre-activation", kq.qconv_layer, kq.qconv_reference,
-                calls[-1], n_host=2)
+            calls.append((f"layer {i}", kq.qconv_layer_f32, (x, L, st, d)))
+            _, acc = check_layer_f32(f"bias correction layer {i}", x, L, st, d)
+            calls.append((f"requantize {i}", kq.requantize, (acc, L["ws"], L["b"], s_o)))
+            x = check_q(f"bias correction layer {i}", kq.requantize, kq.requantize_reference,
+                        calls[-1][2], n_host=2)
+        calls.append(("head", kq.qconv_layer_f32, (x, q["head"], 1, 1, False)))
+        check_layer_f32("bias correction head", x, q["head"], 1, 1)
         return calls
 
     def saturating(cin, cout, ks=3):
@@ -1788,7 +1850,7 @@ def main() -> int:
     phase("int8 main path")
     trunk8 = ["qstem", "qconv", "qconv_head"]
     main8 = [*trunk8, "ccl", "slots", "rect_compact"]
-    not8 = ["context_layer", "geometry_compat", "rect_exact", "qconv_layer", *tiled, *bf16]
+    not8 = ["context_layer", "geometry_compat", "rect_exact", *calib8, *tiled, *bf16]
     (res8_d, logits8_d), n_main8 = counted(
         lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), qparams=q_d, device="cuda"),
         main8, not8)
@@ -1833,7 +1895,7 @@ def main() -> int:
     (res8_l, lg8_l), n_large8 = counted(
         lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), qparams=q_d, device="cuda"),
         [*trunk8, "ccl_tiled", "slots_tiled", "rect_compact"],
-        ["context_layer", "ccl", "slots", "geometry_compat", "rect_exact", "qconv_layer", *bf16])
+        ["context_layer", "ccl", "slots", "geometry_compat", "rect_exact", *calib8, *bf16])
     trunk_launches(n_large8, 1, "int8 large scans")
     res8_l = {k: v.cpu().numpy() for k, v in res8_l.items()}
     lg8_l = lg8_l.cpu().numpy()
@@ -1863,7 +1925,7 @@ def main() -> int:
     for name, c8, dd, img in (("512x512", cfg, det8_d, imgs[0]), ("640x480", cfg_l, det8_ld, photos[0])):
         out_hw = c8.grid_size(*img.shape[:2])
         must = [*trunk8, "ccl", "slots", "rect_exact"]
-        must_not = ["context_layer", "rect_compact", "geometry_compat", "qconv_layer", *tiled, *bf16]
+        must_not = ["context_layer", "rect_compact", "geometry_compat", *calib8, *tiled, *bf16]
         (res_1, lg_1), _ = counted(
             lambda: detect_program_int8(q_d, img, c8, out_hw, device="cuda"), must, must_not)
         dets, n_8 = counted(lambda: dd.detect(img), must, must_not)
@@ -1888,7 +1950,7 @@ def main() -> int:
     stream8 = StreamingDetector(cfg_q, params, QVGA, batch_size=B, qparams=q_d, device="cuda")
     got8, n_stream8 = counted(
         lambda: list(stream8.process(iter(frames))), [*trunk8, "ccl", "slots", "rect_exact"],
-        ["context_layer", "rect_compact", "geometry_compat", "qconv_layer", *tiled, *bf16])
+        ["context_layer", "rect_compact", "geometry_compat", *calib8, *tiled, *bf16])
     trunk_launches(n_stream8, N_FRAMES // B, "int8 stream")
     res_s8 = {k: np.stack([d[k] for _, d in got8]) for k in got8[0][1]}
     ref_s8, lg_s8 = {}, []
@@ -1910,8 +1972,7 @@ def main() -> int:
     # --- 3p. the CLI's calibration (detect --int8) on the card and on the host CPU ---
     phase("int8 CLI calibration")
     cli_imgs = [imgs[i] for i in range(4)]
-    qc_d, _ = counted(lambda: calibrate_qparams(params, cfg, cli_imgs, "cuda"), ["qconv_layer"],
-                      trunk8)
+    qc_d, _ = counted(lambda: calibrate_qparams(params, cfg, cli_imgs, "cuda"), calib8, trunk8)
     cli_diff = qparams_diff(qc_d, calibrate_qparams(params, cfg, cli_imgs, "cpu"))
     check_qparams(cli_diff, "calibrate_qparams")
     log(f"int8 CLI calibration: calibrate_qparams on 4 {IMG}x{IMG} scenes, card against host CPU: "
@@ -2188,6 +2249,7 @@ def main() -> int:
             Bt, Kt, Ht = mn_t.shape
             rows_t = (mx_t >= 0).reshape(Bt * Kt, Ht).sum(1).cpu().numpy()
             flops_t = float((exact_directions(mn_t, mx_t) * 2 * rows_t).sum()) * 10
+            bytes_t = Bt * Kt * Ht * 8 + Bt * 9 * Kt * 4
             kernels.append(dict(
                 name=f"rect_exact_{tag}", route="cuda", source="ubdvss_tpu_torch/csrc/rect_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/rect_kernel.py:136",
@@ -2197,7 +2259,8 @@ def main() -> int:
                 plain_ms=time_ms(lambda: rect_kernel.min_area_rect_select_reference(mn_t, mx_t, None),
                                  iters=3, reps=1),
                 library_ms=None,
-                bound=bound(Bt * Kt * Ht * 8 + Bt * 9 * Kt * 4, flops_t),
+                bound=bound(bytes_t, flops_t),
+                bound_bytes_ms=bound(bytes_t, 0)[0], bound_ops_ms=bound(0, flops_t)[0],
             ))
         for tag, lg_, err_ in (("", lg_l, err_slots_l), ("_bf16", lg_l16, err_slots_l16)):
             lab_ = ccl_kernel.ccl_labels_tiled(lg_[..., 0].contiguous())
@@ -2229,13 +2292,13 @@ def main() -> int:
         # every row) at each tall height, one block to the cap, then the tall
         # instance
         tall_rect = {}
-        for H in (1088, rect_kernel.MAX_EXACT_HEIGHT, 2048, 4096):
-            for b in (1, 3):
-                mn_s, mx_s = (t.to(dev) for t in synthetic_extremes(b, 16, H, H + b))
-                tall_rect[f"B={b} H={H}"] = {
-                    "ms": time_ms(lambda: rect_kernel.min_area_rect_exact(mn_s, mx_s)),
-                    "device_ms": device_ms(lambda: rect_kernel.min_area_rect_exact(mn_s, mx_s)),
-                }
+        for make, H, b in tall_cases:
+            mn_s, mx_s = (t.to(dev) for t in make(b, 16, H, H + b))
+            what = "staircase" if make is synthetic_extremes else "round"
+            tall_rect[f"{what} B={b} H={H}"] = {
+                "ms": time_ms(lambda: rect_kernel.min_area_rect_exact(mn_s, mx_s)),
+                "device_ms": device_ms(lambda: rect_kernel.min_area_rect_exact(mn_s, mx_s)),
+            }
         # one A4-page detect call and one compat batch of the 2048² scans:
         # wall time, device time and busy share
         a4 = pages[f"h{A4_PAGE[0] // cfg_page.scale}"]
@@ -2245,8 +2308,8 @@ def main() -> int:
         run_cl = lambda: with_compat(compat_runs["2048² scans f32"][0])  # noqa: E731
         ms_cl = time_ms(run_cl, iters=5, reps=3)
         prof_cl = profile_path(run_cl, ms_cl)
-    log(json.dumps({"rect_exact on synthetic extremes, K=16, a staircase over every row":
-                    tall_rect}))
+    log(json.dumps({"rect_exact on synthetic extremes, K=16, a staircase or a convex blob over "
+                    "every row": tall_rect}))
     log(json.dumps({
         "path": "BarcodeDetector.detect, one A4 page at 600 dpi (7016x4960 uint8 host image)",
         "K": K_l, "M": M_l, "ms_per_page": ms_a4, "device_busy_ms": prof_a4["device_busy_ms"],
@@ -2487,32 +2550,67 @@ def main() -> int:
         trunk8_fn = lambda: int8_trunk_apply(q_d, imgs_d, cfg, raw_gray=True)  # noqa: E731
         trunk8_ms, trunk8_dev = time_ms(trunk8_fn), device_ms(trunk8_fn)
 
-        # the bias correction's qconv_layer launches over the calibration images
-        def walk(fn):
-            return lambda: [fn(*c) for c in calls_bias]
+        # the bias correction's launches over the calibration images: one
+        # qconv_layer_f32 a layer and the head, one requantize a layer.  The
+        # qconv_layer and qrequant rows each time, bound and compare their
+        # own launches alone; the walk's entry (logged, not a kernel row)
+        # takes all of them
+        plain_of = {kq.qconv_layer_f32: lambda x, L, st, d, with_acc=True: (
+                        kq.qconv_reference(x, L, None, st, d),
+                        kq.qconv_acc_reference(x, L, st, d) if with_acc else None),
+                    kq.requantize: kq.requantize_reference}
+        conv_calls = [c for c in calls_bias if c[1] is kq.qconv_layer_f32]
+        req_calls = [c for c in calls_bias if c[1] is kq.requantize]
 
-        nbytes_b = ops_b = 0
-        for xc, Lc, s_c, st, d in calls_bias:
+        def run(calls, plain=False):
+            return lambda: [(plain_of[fn] if plain else fn)(*a) for _, fn, a in calls]
+
+        conv_bytes = req_bytes = ops_b = nbytes_old = 0
+        for _, fn, a in calls_bias:
+            if fn is kq.requantize:
+                req_bytes += a[0].numel() * 5  # the f32 accumulators in, int8 out
+                continue
+            xc, Lc, st, d = a[:4]
+            with_acc = len(a) < 5 or a[4]
             ks, _, cin, cout = Lc["q"].shape
             ho, wo = -(-xc.shape[1] // st), -(-xc.shape[2] // st)
-            nbytes_b += (xc.numel() * xc.element_size() + Lc["q"].numel()
-                         + xc.shape[0] * ho * wo * cout * (4 if s_c is None else 1))
-            ops_b += 2 * xc.shape[0] * ho * wo * cout * cin * ks * ks
+            n_out = xc.shape[0] * ho * wo * cout
+            n_in = xc.numel() * xc.element_size() + Lc["q"].numel()
+            conv_bytes += n_in + n_out * (8 if with_acc else 4)
+            # the dp4a walk it replaced: the layer twice (f32 out, then int8
+            # out), the head once
+            nbytes_old += n_in + 4 * n_out + (n_in + n_out if with_acc else 0)
+            ops_b += 2 * n_out * cin * ks * ks
+
+        def timed(calls, nbytes, ops):
+            r = dict(ms=time_ms(run(calls), iters=5, reps=3), device_ms=device_ms(run(calls), n=5),
+                     plain_ms=time_ms(run(calls, plain=True), iters=3, reps=1, warmup=1))
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops, INT8_OPS)
+            return r
+
+        conv_row, req_row = timed(conv_calls, conv_bytes, ops_b), timed(req_calls, req_bytes, 0)
         with exact_f32():
-            lib_b = time_ms(lib_convs([(c[0], c[1]["q"], c[3], c[4]) for c in calls_bias],
-                                      torch.float32), iters=3, reps=3)
-        bias_row = dict(launches=launches["qconv_layer"], ms=time_ms(walk(kq.qconv_layer), iters=5, reps=3),
-                        device_ms=device_ms(walk(kq.qconv_layer), n=5), bound=bound(nbytes_b, ops_b, INT8_OPS),
-                        plain_ms=time_ms(walk(kq.qconv_reference), iters=3, reps=1, warmup=1),
-                        library_ms=lib_b)
-        bias_row["bound_ms"], bias_row["bound_by"] = bias_row.pop("bound")
+            conv_row["library_ms"] = time_ms(lib_convs([(a[0], a[1]["q"], a[2], a[3])
+                                                        for _, _, a in conv_calls], torch.float32),
+                                             iters=3, reps=3)
+        bias_row = dict(launches=len(calls_bias), **timed(calls_bias, conv_bytes + req_bytes, ops_b),
+                        bound_ms_dp4a_walk=bound(nbytes_old, ops_b, INT8_OPS)[0],
+                        per_launch_device_ms={name: device_ms(lambda fn=fn, a=a: fn(*a), n=5)
+                                              for name, fn, a in calls_bias})
         kernels.append(dict(
-            name="qconv_layer", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_layer_kernel.cu",
+            name="qconv_layer", route="cuda",
+            source="ubdvss_tpu_torch/csrc/qconv_kernel.cu + ubdvss_tpu_torch/csrc/qstem_kernel.cu",
             replaces="ubdvss_tpu/ops/quant.py:276", max_abs_err=err_q,
-            **{k: bias_row[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            launches=launches["qconv_layer"], **conv_row,
         ))
-    log(json.dumps({f"bias correction walk (qconv_layer, {N_CALIB} {IMG}x{IMG} calibration images, "
-                    "all its launches)": bias_row}))
+        # no PyTorch call computes the requantization in one launch
+        kernels.append(dict(
+            name="qrequant", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_kernel.cu",
+            replaces="ubdvss_tpu/ops/quant.py:192", max_abs_err=0.0,
+            launches=launches["qrequant"], library_ms=None, **req_row,
+        ))
+    log(json.dumps({f"bias correction walk (qconv_layer_f32 and requantize, {N_CALIB} {IMG}x{IMG} "
+                    "calibration images, all its launches)": bias_row}))
     log(json.dumps({"int8 trunk launches (main path; plain, library f32 and bf16 per launch)": rows8}))
     log(json.dumps({"int8 trunk by kernel (main path)": kinds8, "trunk_ms": trunk8_ms,
                     "trunk_device_ms": trunk8_dev}))
@@ -2557,9 +2655,8 @@ def main() -> int:
         if sum(c.shape[0] for c in cal) >= EVAL_CALIB:
             break
     cal_e = torch.cat(cal)[:EVAL_CALIB]
-    q_e, n_qe = counted(lambda: quantize_trunk(params_d, cfg_e, cal_e), ["qconv_layer"], trunk8)
-    if n_qe["qconv_layer"] != 2 * len(_conv_specs(cfg_e)) + 1:
-        raise AssertionError(f"evaluation calibration: {n_qe['qconv_layer']} qconv_layer launches")
+    q_e, n_qe = counted(lambda: quantize_trunk(params_d, cfg_e, cal_e), calib8, trunk8)
+    calib_launches(n_qe, cfg_e, "evaluation calibration")
     ev_kernels = ["ccl", "slots", "rect_exact"]
     ev_not = ["geometry_compat", "rect_compact", *tiled, *bf16]
     n_ev_batches = -(-EVAL_N // EVAL_BATCH)
@@ -2569,9 +2666,9 @@ def main() -> int:
                                      native=native, qparams=qp, device=dev_)
 
     r32, n_e32 = counted(lambda: evaluate("cuda"), ["context_layer", *ev_kernels],
-                         [*ev_not, *trunk8, "qconv_layer"])
+                         [*ev_not, *trunk8, *calib8])
     r8, n_e8 = counted(lambda: evaluate("cuda", q_e), [*trunk8, *ev_kernels],
-                       [*ev_not, "context_layer", "qconv_layer"])
+                       [*ev_not, "context_layer", *calib8])
     want_launches = {"context_layer": (n_e32, len(cfg_e.dilations) * n_ev_batches),
                      "qstem": (n_e8, n_ev_batches), "qconv_head": (n_e8, n_ev_batches),
                      "qconv": (n_e8, (len(cfg_e.dilations) - 1) * n_ev_batches)}
@@ -2609,7 +2706,7 @@ def main() -> int:
     for mode, qp, qph in (("f32", None, None), ("int8", q_e, q_eh)):
         trunk, idle = (trunk8, ["context_layer"]) if qp is not None else (["context_layer"], trunk8)
         rn, n_n = counted(lambda: evaluate("cuda", qp, _TwoSizes(), dc_n, native=True),
-                          [*trunk, *ev_kernels], [*ev_not, *idle, "qconv_layer"])
+                          [*trunk, *ev_kernels], [*ev_not, *idle, *calib8])
         same_report(rn, evaluate("cpu", qph, _TwoSizes(), dc_n, native=True), f"native {mode}")
         native_reports[mode] = {**counts(rn), "launches": {k: n_n[k] for k in [*trunk, *ev_kernels]}}
     log(f"evaluation: {EVAL_N} synthetic {EVAL_HW[0]}x{EVAL_HW[1]} scenes, batch {EVAL_BATCH}, "
@@ -2667,7 +2764,7 @@ def main() -> int:
                  "class_accuracy": r8.class_accuracy},
         "launches_f32": {k: n_e32[k] for k in ["context_layer", *ev_kernels]},
         "launches_int8": {k: n_e8[k] for k in [*trunk8, *ev_kernels]},
-        "calibration_qconv_layer_launches": n_qe["qconv_layer"], "host_cpu_f32_s": t_ev_cpu,
+        "calibration_launches": {k: n_qe[k] for k in calib8}, "host_cpu_f32_s": t_ev_cpu,
         "native": native_reports, "timing": ev_timing}}))
 
     # --- 6. training: the gradient through K4, a train step against the host

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Parent against change for the port's kernels on one CUDA card: the
 geometry kernels (CCL K1, slots K2, fused compat geometry K12c, compacted
-rect K3 and uncompacted rect K3x), the int8 trunk, and the tiled kernels
-of the large maps.
+rect K3 and uncompacted rect K3x), the int8 trunk and the calibration's
+bias correction, the tiled kernels of the large maps, and K3x's tall
+instance.
 
     python3 scripts/torch_kernel_ab.py --parent PARENT_TREE
-        [--only geometry|int8|tiled] [--variants TREE ...] [--out FILE]
+        [--only geometry|int8|tiled|tall] [--variants TREE ...] [--out FILE]
 
 PARENT_TREE is an unpacked earlier commit of this repository (for example
 ``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
@@ -31,15 +32,23 @@ identical between the trees, and K12c's identical to CCL + slots.  Each
 its own directory name) has its K3x rows checked against the change's and
 timed in the change's turns.
 
-int8: the parent's ``csrc/qconv_kernel.cu`` (PR 9's ``qconv_layer``, ten
-launches a trunk: layer 0, layer 1, the context layers, the head) against
-this tree's ``qstem_tc`` and ``qconv_tc`` (eight launches: qstem, a
-context layer each but the last, the last with the head), on qparams
-calibrated on the card (``quantize_trunk``, 32 synthetic 512² scenes,
-seed 99), for B=64 512² uint8 scenes (seed 7, NetConfig()) and B=8 2048²
-uint8 scans (seed 11, the asset's config).  The two trunks' logits must be
-identical; then the whole trunk and each launch alone are timed.  Then
-each tree's ``quantize_trunk`` on the card over those calibration scenes
+int8 (the parent is commit 124d259, before the calibration's redesign): both
+trees' serving trunks (``qstem_tc``
+and ``qconv_tc``, eight launches; the parent's plan ints are this tree's
+without the five fields this tree added to ``struct Plan``) on qparams
+calibrated on the card (``quantize_trunk``, 32 synthetic 512² scenes, seed
+99), for B=64 512² uint8 scenes (seed 7, NetConfig()) and B=8 2048² uint8
+scans (seed 11, the asset's config): the logits must be identical, then
+each trunk is timed.  Then the bias correction's walk over the calibration
+scenes (``bias_correct_qparams``' int8 part after the f32 pre-activations,
+which both trees share): the parent's 19 launches of the dp4a
+``qconv_layer`` (a layer's f32 pre-activation, then the layer again with
+the corrected bias for its int8 output; the head once) against this tree's
+``qconv_layer_f32`` a layer (one launch: the pre-activation and the exact
+accumulator) and ``requantize``; the corrected biases and the head's
+pre-activation must be identical; the whole walk (its ``torch.mean``
+calls included) and each launch alone are timed.  Then each tree's
+``quantize_trunk`` on the card over those calibration scenes
 (NetConfig(), bias correction on), in a process of its own started in the
 tree (parent, change, change, parent): wall seconds of four calls after a
 first one that builds the tree's kernels.
@@ -59,6 +68,21 @@ plus the rounding-boundary slack), each tree's large K12c bit for bit its
 pair.  Then each call is timed (CUDA events) and split by launch from the
 profiler's chrome trace: each kernel's device ms, grid, block, registers,
 shared memory and estimated resident warps an SM (``chip_smoke.phase_split``).
+
+tall: K3x's tall instance, the parent's (persistent blocks with a
+device-memory workspace, called with that design's slot size) against this
+tree's (a cluster a component), through the same C entry
+(``rect_select_exact_tall``), on the 8192x1024 page's extremes (the
+asset's model, K=64, H=2048, seed 8, as detect gives them to K3x) and on
+synthetic extremes (K=16, B=1 and 3, 2048 and 4096 rows) whose slot 0 is
+a staircase over every row (``chip_smoke.synthetic_extremes``) or a convex
+blob whose every row is a hull point (``chip_smoke.round_extremes``).  The
+rows must be identical; each case is timed; then a build of each tree
+with ``clock64()`` stamps between the steps (the parent's source patched
+at its step comments, this tree's compiled with ``-DRECT_TALL_STAMPS``)
+gives the cycles of each step for the case's slowest component.  Each
+``--variants`` tree (another ``csrc/rect_kernel.cu`` of the change) has
+its rows checked against the change's and is timed in the change's turns.
 
 Prints one JSON object and writes it to FILE (default
 ``build/ab/ab.json``); exits non-zero on a mismatch.
@@ -90,15 +114,16 @@ P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = ("rect_kernel", "geometry_kernel", "ccl_kernel", "postproc_kernel")
 
 
-def build(csrc: Path, tag: str, sources=SOURCES) -> dict:
-    """Compile the sources of one tree, in parallel."""
+def build(csrc: Path, tag: str, sources=SOURCES, extra=()) -> dict:
+    """Compile the sources of one tree, in parallel (``extra``: more nvcc
+    flags)."""
     out = REPO / "build" / "ab"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in sources:
         so = out / f"{tag}-{name}.so"
         jobs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / f"{name}.cu")]))
+            [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o", str(so), str(csrc / f"{name}.cu")]))
     libs = {}
     for name, (so, proc) in jobs.items():
         if proc.wait() != 0:
@@ -325,13 +350,14 @@ def calibration_ab(args, calib: np.ndarray, res: dict) -> None:
 
 
 def int8_ab(args, dev, res: dict) -> None:
-    """The int8 trunk: the parent's ten qconv_layer launches against this
-    tree's qstem_tc + qconv_tc launches (module docstring)."""
+    """The int8 kernels, parent against change (module docstring): the
+    serving trunk, then the bias correction's walk."""
     from ubdvss_tpu_torch.models.model import same_pad
     from ubdvss_tpu_torch.ops.cuda import qconv_kernel as qk
-    from ubdvss_tpu_torch.ops.quant import quantize_trunk
+    from ubdvss_tpu_torch.ops.quant import _conv_specs, _trunk_pre_relu, quantize_trunk
 
-    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parent8", ("qconv_kernel",)),
+    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parent8",
+                            ("qconv_kernel", "qstem_kernel", "qconv_layer_kernel")),
             "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "change8",
                             ("qconv_kernel", "qstem_kernel"))}
     asset = REPO / "assets" / "pretrained_synthetic.npz"
@@ -343,44 +369,29 @@ def int8_ab(args, dev, res: dict) -> None:
 
     cfg, cfg_l = NetConfig(), load_net_config(asset)
     calib_np = (scenes(32, (512, 512), 99).astype(np.float32) / 127.5 - 1.0)[..., None]
-    calib = torch.from_numpy(calib_np)
+    calib = torch.from_numpy(calib_np).to(dev)
     with torch.inference_mode():
-        q = quantize_trunk(params, cfg, calib.to(dev))
-    inputs = {"main_B64_512": (scenes(64, (512, 512), 7), cfg),
-              "scans_B8_2048": (scenes(8, (2048, 2048), 11), cfg_l)}
+        q = quantize_trunk(params, cfg, calib)
     ptr = lambda t: P(None if t is None else t.data_ptr())  # noqa: E731
+    # the parent's struct Plan lacks this tree's calibration fields
+    new = [qk.PLAN_FIELDS.index(f) for f in ("stride", "ks", "pad_t", "pad_l", "f32")]
 
-    def parent_calls(x, c):
-        """The parent's trunk: (name, library, entry, arguments) a launch."""
-        B, H, W = x.shape
-        layers, s_outs = q["layers"] + [q["head"]], q["s_in"][1:] + [None]
-        specs = [(2, 1), (2, 1)] + [(1, d) for d in c.dilations] + [(1, 1)]
-        calls, cur, (h, w) = [], x, (H, W)
-        for i, (layer, (st, d), s_o) in enumerate(zip(layers, specs, s_outs)):
-            ks, _, cin, cout = layer["q"].shape
-            ho, wo = -(-h // st), -(-w // st)
-            out = torch.empty((B, ho, wo, cout), device=dev,
-                              dtype=torch.float32 if s_o is None else torch.int8)
-            a = (ptr(cur), ptr(layer["q"]), ptr(layer["ws"]), ptr(layer["b"]), ptr(s_o), ptr(out),
-                 I(1 if i == 0 else 0), I(B), I(h), I(w), I(cin), I(ho), I(wo), I(cout), I(ks),
-                 I(st), I(d), I(same_pad(h, ks, st, d)[0]), I(same_pad(w, ks, st, d)[0]))
-            name = "layer0" if i == 0 else "layer1" if i == 1 else "head" if s_o is None else f"context{i - 2}"
-            calls.append((name, "qconv_kernel", "qconv_layer", a, out))
-            cur, h, w = out, ho, wo
-        return calls, cur
+    def plan_args(tag, plan):
+        arr = plan.ints if tag == "change" else np.ascontiguousarray(np.delete(plan.ints, new))
+        return arr, (P(arr.ctypes.data), I(arr.size))
 
-    def change_calls(x, c):
-        """This tree's trunk, as int8_trunk_apply launches it."""
+    def trunk_calls(tag, x, c):
+        """A tree's serving trunk, as int8_trunk_apply launches it:
+        (name, library, entry, arguments, the plan's ints kept alive)."""
         B, H, W = x.shape
         L, s, n = q["layers"], q["s_in"], len(c.dilations)
         c0, c1 = L[0]["q"].shape[-1], L[1]["q"].shape[-1]
         plan = qk.tile_plan("stem", B, H, W, 1, c1, c0=c0, in_kind=qk.IN_U8_RAW)
         cur = torch.empty((B, plan.Ho, plan.Wo, c1), dtype=torch.int8, device=dev)
-        arr = plan.ints
+        arr, pa = plan_args(tag, plan)
         calls = [("qstem", "qstem_kernel", "qstem_tc",
                   (ptr(x), *(ptr(t) for t in (L[0]["q"], L[0]["ws"], L[0]["b"], s[1], L[1]["q"],
-                                              L[1]["ws"], L[1]["b"], s[2], cur)),
-                   P(arr.ctypes.data), I(arr.size)), arr)]
+                                              L[1]["ws"], L[1]["b"], s[2], cur)), *pa), arr)]
         h, w = plan.Ho, plan.Wo
         for li, d in enumerate(c.dilations):
             last = li == n - 1
@@ -390,12 +401,11 @@ def int8_ab(args, dev, res: dict) -> None:
             plan = qk.tile_plan("conv", B, h, w, cur.shape[-1], cout, dil=d, nh=nh)
             out = torch.empty((B, h, w, nh or cout), device=dev,
                               dtype=torch.float32 if last else torch.int8)
-            arr = plan.ints
+            arr, pa = plan_args(tag, plan)
             hp = (head["q"], head["ws"], head["b"]) if last else (None, None, None)
             calls.append(("head" if last else f"context{li}", "qconv_kernel", "qconv_tc",
                           (ptr(cur), ptr(layer["q"]), ptr(layer["ws"]), ptr(layer["b"]),
-                           ptr(s[3 + li]), *(ptr(t) for t in hp), ptr(out), P(arr.ctypes.data),
-                           I(arr.size)), arr))
+                           ptr(s[3 + li]), *(ptr(t) for t in hp), ptr(out), *pa), arr))
             cur = out
         return calls, cur
 
@@ -403,9 +413,10 @@ def int8_ab(args, dev, res: dict) -> None:
         for name, lib, fn, a, _ in calls:
             check(getattr(libs[tag][lib], fn)(*a, stream()), f"{tag} {name}")
 
-    for name, (imgs, c) in inputs.items():
+    for name, (imgs, c) in {"main_B64_512": (scenes(64, (512, 512), 7), cfg),
+                            "scans_B8_2048": (scenes(8, (2048, 2048), 11), cfg_l)}.items():
         x = torch.from_numpy(imgs).to(dev)
-        calls = {"parent": parent_calls(x, c), "change": change_calls(x, c)}
+        calls = {tag: trunk_calls(tag, x, c) for tag in ("parent", "change")}
         for tag, (cl, _) in calls.items():
             run(tag, cl)
         torch.cuda.synchronize()
@@ -413,16 +424,234 @@ def int8_ab(args, dev, res: dict) -> None:
         if not torch.equal(lg_p, lg_c):
             raise AssertionError(f"int8 {name}: {int((lg_p != lg_c).sum())} logits differ")
         res[f"int8_{name}_logits_identical"] = True
-        res[f"int8_{name}_launches"] = {t: [cl[0] for cl in calls[t][0]] for t in calls}
         for turn in ("parent", "change", "change", "parent"):
             cl = calls[turn][0]
             key = f"int8_trunk_{name}_{turn}"
             res.setdefault(key, []).append(time_ms(lambda: run(turn, cl)))
             res.setdefault(key + "_device", []).append(device_ms(lambda: run(turn, cl)))
-            for one in cl:
-                res.setdefault(f"int8_{name}_{turn}_{one[0]}_device", []).append(
-                    device_ms(lambda: run(turn, [one])))
+
+    # the bias correction's walk over the calibration scenes, the f32
+    # pre-activations (cuDNN, as quantize_trunk computes them) once for both
+    with torch.inference_mode():
+        pre = _trunk_pre_relu(params, calib, cfg)
+    specs = _conv_specs(cfg)
+    s_in = q["s_in"]
+    lib_p = libs["parent"]["qconv_layer_kernel"]
+
+    def parent_layer(x, layer, s_out, st, d):
+        """The parent's dp4a kernel (its C entry): f32 or int8 out."""
+        ks, _, cin, cout = layer["q"].shape
+        f32_in = x.dtype != torch.int8
+        if f32_in:
+            x = x[..., 0]
+        B, H, W = x.shape[:3]
+        ho, wo = -(-H // st), -(-W // st)
+        out = torch.empty((B, ho, wo, cout), device=dev,
+                          dtype=torch.float32 if s_out is None else torch.int8)
+        check(lib_p.qconv_layer(
+            ptr(x), ptr(layer["q"]), ptr(layer["ws"]), ptr(layer["b"]), ptr(s_out), ptr(out),
+            I(int(f32_in)), I(B), I(H), I(W), I(1 if f32_in else cin), I(ho), I(wo), I(cout), I(ks),
+            I(st), I(d), I(same_pad(H, ks, st, d)[0]), I(same_pad(W, ks, st, d)[0]), stream()),
+            "parent qconv_layer")
+        return out
+
+    def walk(tag, launches=None):
+        """bias_correct_qparams' int8 part: the corrected biases and the
+        head's pre-activation; ``launches`` collects (name, call) of each
+        kernel launch with its inputs."""
+        qx, biases = calib, []
+        for i, (st, d) in enumerate(specs):
+            L_ = q["layers"][i]
+            if tag == "parent":
+                y = parent_layer(qx, L_, None, st, d)
+                fn_y = lambda x=qx, L_=L_, st=st, d=d: parent_layer(x, L_, None, st, d)  # noqa: E731
+            else:
+                y, acc = qk.qconv_layer_f32(qx, L_, st, d)
+                fn_y = lambda x=qx, L_=L_, st=st, d=d: qk.qconv_layer_f32(x, L_, st, d)  # noqa: E731
+            b = L_["b"] + torch.mean(pre[i] - y, dim=(0, 1, 2))
+            biases.append(b)
+            Lb = dict(q=L_["q"], ws=L_["ws"], b=b)
+            if tag == "parent":
+                nxt = parent_layer(qx, Lb, s_in[i + 1], st, d)
+                fn_q = lambda x=qx, Lb=Lb, s=s_in[i + 1], st=st, d=d: parent_layer(x, Lb, s, st, d)  # noqa: E731
+            else:
+                nxt = qk.requantize(acc, L_["ws"], b, s_in[i + 1])
+                fn_q = lambda a=acc, L_=L_, b=b, s=s_in[i + 1]: qk.requantize(a, L_["ws"], b, s)  # noqa: E731
+            if launches is not None:
+                launches += [(f"layer{i}", fn_y), (f"requant{i}", fn_q)]
+            qx = nxt
+        H_ = q["head"]
+        if tag == "parent":
+            y = parent_layer(qx, H_, None, 1, 1)
+            fn_h = lambda x=qx: parent_layer(x, H_, None, 1, 1)  # noqa: E731
+        else:
+            y = qk.qconv_layer_f32(qx, H_, 1, 1, with_acc=False)[0]
+            fn_h = lambda x=qx: qk.qconv_layer_f32(x, H_, 1, 1, with_acc=False)  # noqa: E731
+        if launches is not None:
+            launches.append(("head", fn_h))
+        return biases, y
+
+    with torch.inference_mode():
+        got = {tag: walk(tag) for tag in ("parent", "change")}
+        torch.cuda.synchronize()
+        for (bp, bc) in zip(got["parent"][0], got["change"][0]):
+            if not torch.equal(bp, bc):
+                raise AssertionError("bias walk: the corrected biases differ between the trees")
+        if not torch.equal(got["parent"][1], got["change"][1]):
+            raise AssertionError("bias walk: the head's pre-activations differ between the trees")
+        res["bias_walk_identical"] = True
+        per = {}
+        for tag in ("parent", "change"):
+            per[tag] = []
+            walk(tag, per[tag])
+        res["bias_walk_launches"] = {t: len(v) for t, v in per.items()}
+        for turn in ("parent", "change", "change", "parent"):
+            key = f"bias_walk_{turn}"
+            res.setdefault(key, []).append(time_ms(lambda: walk(turn), iters=5, reps=3))
+            res.setdefault(key + "_device", []).append(device_ms(lambda: walk(turn), n=5))
+            res.setdefault(key + "_per_launch_device", []).append(
+                {name: device_ms(fn, n=5) for name, fn in per[turn]})
+        print(json.dumps({k: v for k, v in res.items() if k.startswith("bias_walk")}), flush=True)
     calibration_ab(args, calib_np, res)
+
+
+# --- the tall rect instance ---------------------------------------------------
+
+# clock64 stamps at the parent's one-component steps (a copy of its
+# rect_kernel.cu built with them): the anchor each stamp goes before
+_PARENT_STAMPS = (
+    (0, "  // 1. compact the valid rows; the horizontal candidate's extents"),
+    (1, "  // 2. convexify both chains."),
+    (2, "  if (kExact && (s_moving[0] || s_moving[1])) {"),
+    (3, "  if (warp < 2 && has) {\n    const int* xs = warp == 0 ? r_l : r_r;\n    const unsigned* al"),
+    (4, "  // 3. the directions: d = e on the left chain"),
+    (5, "  // 4. selection by block reductions:"),
+    (6, "  const int b = comp / K;\n  const int k = comp - b * K;\n  float* o ="),
+)
+PARENT_STEPS = ("compact rows", "lockstep rounds", "slope rule", "pack points",
+                "directions + projections", "selection")
+CHANGE_STEPS = ("A rows", "R first round", "B hull merges", "C kept points", "D directions",
+                "E projections", "F selection")
+_STAMP_DEFS = """
+__device__ long long g_rect_stamps[1 << 16];
+extern "C" int rect_stamps(long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_rect_stamps, sizeof(long long) * n));
+}
+extern "C" int rect_stamps_clear() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, g_rect_stamps);
+  return static_cast<int>(e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_rect_stamps)));
+}
+#define RECT_STAMP(k) if (threadIdx.x == 0) g_rect_stamps[comp * 8 + (k)] = clock64()
+"""
+
+
+def _stamped_parent(csrc: Path) -> Path:
+    """The parent's rect_kernel.cu with clock64 stamps between its steps."""
+    src = (csrc / "rect_kernel.cu").read_text()
+    src = src.replace('#include "common.cuh"\n', '#include "common.cuh"\n' + _STAMP_DEFS, 1)
+    for k, anchor in _PARENT_STAMPS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"stamp anchor {k} not found once in the parent's rect_kernel.cu")
+        src = src.replace(anchor, f"  RECT_STAMP({k});\n" + anchor)
+    out = REPO / "build" / "ab" / "stamped-parent"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in csrc.glob("*.cuh"):
+        (out / f.name).write_text(f.read_text())
+    (out / "rect_kernel.cu").write_text(src)
+    return out
+
+
+def tall_ab(args, dev, res: dict) -> None:
+    """The tall rect instance, parent against change (module docstring)."""
+    from chip_smoke import round_extremes, synthetic_extremes
+
+    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parentR", ("rect_kernel",)),
+            "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "changeR", ("rect_kernel",))}
+    variants = [v.name for v in args.variants]
+    for v in args.variants:
+        libs[v.name] = build(v / "ubdvss_tpu_torch" / "csrc", v.name + "R", ("rect_kernel",))
+    stamp_libs = {
+        "parent": build(_stamped_parent(args.parent / "ubdvss_tpu_torch" / "csrc"), "parentS",
+                        ("rect_kernel",)),
+        "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "changeS", ("rect_kernel",),
+                        extra=("-DRECT_TALL_STAMPS",)),
+    }
+    # the 8192x1024 page's extremes (the asset's config, K=64), as detect gives them
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(asset)).items()}
+    cfg = load_net_config(asset)
+    page = SyntheticMarkupReader(n_samples=1, image_hw=(8192, 1024), seed=8,
+                                 n_objects=(3, 6)).sample_at(0).image
+    with torch.inference_mode(), exact_f32():
+        lg = fused_model_apply(params, torch.from_numpy(page).to(dev).float()[None, ..., None],
+                               cfg, raw_gray=True)
+        lab = ccl_kernel.ccl_labels_tiled(lg[..., 0].contiguous())
+        g = postproc_kernel.component_slots_tiled(lg, lab, cfg.max_components)
+    cases = {"page_8192x1024_B1_K64_H2048": (g["minx"], g["maxx"])}
+    for H in (2048, 4096):
+        for B in (1, 3):
+            cases[f"staircase_B{B}_H{H}"] = synthetic_extremes(B, 16, H, H + B)
+            cases[f"round_B{B}_H{H}"] = round_extremes(B, 16, H, H + B)
+    cases = {k: (mn.to(dev).contiguous(), mx.to(dev).contiguous()) for k, (mn, mx) in cases.items()}
+    outs, wss = {}, {}
+
+    def call(lib, tag, name):
+        mn, mx = cases[name]
+        B, K, H = mn.shape
+        out = outs.setdefault((tag, name), torch.empty((B, 9, K), device=dev))
+        slots = B * K
+        if tag == "parent":  # the parent's workspace: 116 B a row a persistent block
+            ws = wss.setdefault((tag, name), torch.empty(slots * ((29 * 4 * H + 15) // 16 * 16),
+                                                         dtype=torch.uint8, device=dev))
+        else:
+            ws = None
+        check(lib.rect_select_exact_tall(P(mn.data_ptr()), P(mx.data_ptr()), P(out.data_ptr()),
+                                         P(None if ws is None else ws.data_ptr()), I(B), I(K),
+                                         I(H), I(slots), stream()), f"{tag} {name}")
+        return out
+
+    for name in cases:
+        a = call(libs["parent"]["rect_kernel"], "parent", name).clone()
+        b = call(libs["change"]["rect_kernel"], "change", name).clone()
+        if not torch.equal(a, b):
+            raise AssertionError(f"tall rect {name}: rows differ between the trees")
+        for v in variants:
+            if not torch.equal(call(libs[v]["rect_kernel"], v, name), b):
+                raise AssertionError(f"tall rect {name}: variant {v}'s rows differ from the change's")
+    res["tall_rows_identical"] = True
+    for turn in ("parent", "change", "change", "parent"):
+        for tag in [turn] + (variants if turn == "change" else []):
+            lib = libs[tag]["rect_kernel"]
+            for name in cases:
+                key = f"tall_{name}_{tag}"
+                res.setdefault(key, []).append(time_ms(lambda: call(lib, tag, name)))
+                res.setdefault(key + "_device", []).append(device_ms(lambda: call(lib, tag, name)))
+    # the steps' split: clock64 stamps by each component's thread 0 (block
+    # 0 of its cluster in the change), the component with the most cycles
+    for tag, steps in (("parent", PARENT_STEPS), ("change", CHANGE_STEPS)):
+        lib = stamp_libs[tag]["rect_kernel"]
+        lib.rect_stamps.argtypes = [P, I]
+        for name in cases:
+            mn, _ = cases[name]
+            n_comp = mn.shape[0] * mn.shape[1]
+            check(lib.rect_stamps_clear(), f"{tag} stamps")
+            call(lib, tag, name)
+            torch.cuda.synchronize()
+            width = 8 if tag == "parent" else 16  # the change: then rows, merged chains
+            host = np.zeros(n_comp * width, np.int64)
+            check(lib.rect_stamps(P(host.ctypes.data), I(host.size)), f"{tag} stamps")
+            full = host.reshape(n_comp, width)
+            st = full[:, : len(steps) + 1]
+            span = np.where((st > 0).all(1), st[:, -1] - st[:, 0], -1)  # an empty slot stops early
+            worst = int(np.argmax(span))
+            entry = {"component": worst, "cycles": int(span[worst]),
+                     "split": {s: int(st[worst, i + 1] - st[worst, i]) for i, s in enumerate(steps)}}
+            if tag == "change":  # every non-empty component: rows, merged chains (bits), cycles
+                entry["components"] = [[int(full[i, 8]), int(full[i, 9]), int(span[i])]
+                                       for i in range(n_comp) if span[i] > 0]
+            res[f"tall_steps_{name}_{tag}"] = entry
+    print(json.dumps({k: v for k, v in res.items() if k.startswith("tall")}), flush=True)
 
 
 TILED_SOURCES = ("ccl_kernel", "postproc_kernel", "geometry_kernel")
@@ -602,7 +831,7 @@ def tiled_ab(args, dev, res: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--only", choices=("geometry", "int8", "tiled"), default=None)
+    ap.add_argument("--only", choices=("geometry", "int8", "tiled", "tall"), default=None)
     ap.add_argument("--variants", type=Path, nargs="*", default=[])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
     args = ap.parse_args()
@@ -616,6 +845,8 @@ def main() -> int:
         int8_ab(args, dev, res)
     if args.only in (None, "tiled"):
         tiled_ab(args, dev, res)
+    if args.only in (None, "tall"):
+        tall_ab(args, dev, res)
     print(json.dumps(res), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))

@@ -562,26 +562,163 @@ def _assert_rect_rows(out, ref, atol=1e-4):
 
 
 def test_rect_exact_height_cap_is_one_formula(dev):
-    """The exact kernel's cap and the tall instance's workspace slot are the
-    C side's formulas (rect_exact_max_height, rect_tall_slot_size) and the
-    wrapper's copies of them agree; the tall instance launched directly at
-    heights the one-block kernel serves gives that kernel's rows bit for
-    bit (the same selection in another memory)."""
+    """The exact kernel's cap and the tall instance's layout (rect_tall_plan)
+    and workspace slot (rect_tall_slot_size) are the C side's formulas and
+    the wrapper's copies of them agree; the tall instance launched directly
+    at heights the one-block kernel serves gives that kernel's rows bit for
+    bit (the same selection by another design)."""
+    import ctypes
+
     from ubdvss_tpu_torch.ops.cuda import _build
 
     lib = _build.load("rect_kernel", rect_kernel._FUNCS)
     assert lib.rect_exact_max_height() == rect_kernel.MAX_EXACT_HEIGHT == 1994
-    for H in (60, 1995, 2048, 4096, 100_000):
+    for H in (60, 1995, 2048, 4096, 16_384, 16_385, 100_000):
         assert lib.rect_tall_slot_size(H) == rect_kernel.tall_slot_bytes(H)
+        got = (ctypes.c_int * 14)()
+        lib.rect_tall_plan(H, got)
+        plan = rect_kernel.tall_plan(H)
+        assert list(got) == [getattr(plan, f) for f in plan.FIELDS], H
     for H in (60, 1024, rect_kernel.MAX_EXACT_HEIGHT):
         minx, maxx = (t.to(dev) for t in _staircase_extremes(3, 16, H, H))
         one = rect_kernel.min_area_rect_exact(minx, maxx)
-        for slots in (1, 5, 48):
-            tall = torch.empty_like(one)
+        tall = torch.empty_like(one)
+        _build.launch(lib, "rect_select_exact_tall", dev, minx.data_ptr(), maxx.data_ptr(),
+                      tall.data_ptr(), None, 3, 16, H, 0)
+        assert torch.equal(tall, one), H
+
+
+def _round_extremes(B, K, H, seed, gaps=False):
+    """``_synthetic_extremes`` with slot 0 of each image a convex blob over
+    every row whose every row is a hull point on both chains: integer steps
+    nondecreasing from -40 to 40 (the most distinct directions a chain of
+    integer points spanning H rows can have at this width); with ``gaps``
+    a third of its rows empty in runs."""
+    mn, mx = (t.numpy().copy() for t in _synthetic_extremes(B, K, H, seed))
+    rng = np.random.default_rng(seed)
+    for b in range(B):
+        d = np.sort(rng.integers(-40, 41, H))
+        c = np.cumsum(d)
+        c -= c.min()
+        left = 100 + c
+        right = 100 + 2 * int(c.max()) + 50 - c
+        keep = ((np.arange(H) + 13 * b) // 61) % 3 != 1 if gaps else np.ones(H, bool)
+        mn[b, 0] = np.where(keep, left, 1 << 30)
+        mx[b, 0] = np.where(keep, right, -1)
+    return torch.from_numpy(mn), torch.from_numpy(mx)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H", [2048, 4096, 8192])
+@pytest.mark.parametrize("kind", ["staircase", "round", "round-gaps"])
+def test_rect_tall_cluster_matches_plain(dev, kind, H, B):
+    """The tall instance (a cluster a component) beside the synthetic
+    components: a staircase over every row, a convex blob over every row
+    whose every row is a hull point, the blob with rows missing in runs;
+    any_edge identical, rows within 1e-4 of the plain version (or the same
+    rectangle on an exact caliper tie)."""
+    make = _staircase_extremes if kind == "staircase" else _round_extremes
+    extra = {"gaps": True} if kind == "round-gaps" else {}
+    minx, maxx = (t.to(dev) for t in make(B, 16, H, H + B, **extra))
+    rect_kernel.min_area_rect_exact.launches = 0
+    out = rect_kernel.min_area_rect_exact(minx, maxx)
+    assert rect_kernel.min_area_rect_exact.launches == 1
+    ref = rect_kernel.min_area_rect_select_reference(minx, maxx, None)
+    _assert_rect_rows(out, ref)
+
+
+def _solo_extremes(B, K, h, seed):
+    """(B, K, h) extremes of components of 1 to 1,024 rows (the tall
+    instance's solo size) at offsets down the map, so that most span
+    several blocks' rows: staircases, zig-zags and circles, which have rows
+    concave in the lockstep's first round, convex chains and bars with
+    gaps, which have none, noise rows, one row and empty slots."""
+    rng = np.random.default_rng(seed)
+    mn = np.full((B, K, h), 1 << 30, np.int64)
+    mx = np.full((B, K, h), -1, np.int64)
+    for b in range(B):
+        for k in range(K):
+            kind = (k + b) % 8
+            n = int(rng.integers(200, 1025))
+            y0 = int(rng.integers(0, h - n))
+            y = np.arange(n)
+            if kind == 0:  # staircase
+                l = np.floor(10 + 0.6180339887 / (1 + b) * y).astype(np.int64)
+                r = l + 5
+            elif kind == 1:  # zig-zag
+                l, r = 100 + (y % 7) * 3, 110 + (y % 7) * 3 + (y % 5)
+            elif kind == 2:  # circle
+                half = np.sqrt(np.maximum((n / 2) ** 2 - (y - n / 2) ** 2, 0))
+                l, r = np.floor(600 - half).astype(np.int64), np.ceil(600 + half).astype(np.int64)
+            elif kind == 3:  # convex: every row a hull point
+                c = np.cumsum(np.sort(rng.integers(-6, 7, n)))
+                c -= c.min()
+                l, r = 100 + c, 150 + 2 * int(c.max()) - c
+            elif kind == 4:  # an upright bar, rows missing in runs
+                l, r = np.full(n, 40), np.full(n, 48)
+                keep = (y // 37) % 3 != 1
+                l, r = np.where(keep, l, 1 << 30), np.where(keep, r, -1)
+            elif kind == 5:  # noise rows
+                l = rng.integers(0, 300, n)
+                r = np.where(rng.random(n) < 0.7, l + rng.integers(0, 40, n), -1)
+                l = np.where(r >= 0, l, 1 << 30)
+            elif kind == 6:  # one row
+                l, r = np.full(n, 1 << 30), np.full(n, -1)
+                l[n // 2], r[n // 2] = 5, 30
+            else:  # empty
+                continue
+            mn[b, k, y0:y0 + n], mx[b, k, y0:y0 + n] = l, r
+    return torch.from_numpy(mn.astype(np.int32)), torch.from_numpy(mx.astype(np.int32))
+
+
+@pytest.mark.parametrize("H", [2048, 4096, 20_000])
+def test_rect_tall_solo_components_match_the_one_block_kernel(dev, H):
+    """Components of at most 1,024 rows on a tall map, which block 0 of
+    the tall instance finishes alone, merging hulls only for the chains
+    with a row concave in the lockstep's first round (in the cluster's
+    shared memory, or at 20,000 rows in the workspace): the rows of the
+    same components on a map the one-block kernel serves, bit for bit, and
+    those hold the plain version."""
+    h = rect_kernel.MAX_EXACT_HEIGHT
+    mn, mx = _solo_extremes(2, 16, h, H)
+    pad = (2, 16, H - h)
+    minx = torch.cat([mn, torch.full(pad, 1 << 30, dtype=torch.int32)], -1).to(dev)
+    maxx = torch.cat([mx, torch.full(pad, -1, dtype=torch.int32)], -1).to(dev)
+    out = rect_kernel.min_area_rect_exact(minx, maxx)
+    one = rect_kernel.min_area_rect_exact(mn.to(dev), mx.to(dev))
+    assert torch.equal(out, one)
+    _assert_rect_rows(one, rect_kernel.min_area_rect_select_reference(mn.to(dev), mx.to(dev), None))
+
+
+def test_rect_tall_cluster_past_shared_memory(dev):
+    """Past what the cluster's shared memory holds (20,000 rows) the arrays
+    take the workspace (persistent clusters): a map whose components (a
+    staircase, a convex blob, the synthetic kinds, empty slots) lie in its
+    first 4,096 rows gives the rows of the same components on the 4,096-row
+    map bit for bit (the selection reads only valid rows), which hold the
+    plain version; one and three persistent clusters over the eight
+    components give the same rows."""
+    from ubdvss_tpu_torch.ops.cuda import _build
+
+    H, h = 20_000, 4096
+    assert not rect_kernel.tall_plan(H).in_shared and rect_kernel.tall_plan(h).in_shared
+    lib = _build.load("rect_kernel", rect_kernel._FUNCS)
+    for make in (_staircase_extremes, _round_extremes):
+        mn, mx = make(1, 8, h, 5)
+        pad = (1, 8, H - h)
+        minx = torch.cat([mn, torch.full(pad, 1 << 30, dtype=torch.int32)], -1).to(dev)
+        maxx = torch.cat([mx, torch.full(pad, -1, dtype=torch.int32)], -1).to(dev)
+        out = rect_kernel.min_area_rect_exact(minx, maxx)
+        small = rect_kernel.min_area_rect_exact(mn.to(dev), mx.to(dev))
+        assert torch.equal(out, small)
+        for slots in (1, 3):
+            few = torch.empty_like(out)
             ws = torch.empty(slots * rect_kernel.tall_slot_bytes(H), dtype=torch.uint8, device=dev)
             _build.launch(lib, "rect_select_exact_tall", dev, minx.data_ptr(), maxx.data_ptr(),
-                          tall.data_ptr(), ws.data_ptr(), 3, 16, H, slots)
-            assert torch.equal(tall, one), (H, slots)
+                          few.data_ptr(), ws.data_ptr(), 1, 8, H, slots)
+            assert torch.equal(few, out), slots
+        _assert_rect_rows(small, rect_kernel.min_area_rect_select_reference(mn.to(dev), mx.to(dev),
+                                                                            None))
 
 
 def test_rect_exact_kernel_detect_extremes(dev):
@@ -1320,11 +1457,12 @@ def test_qconv_channel_caps_name_their_roadmap_item(dev, cin, cout):
         qconv_kernel.qconv(x, layer, torch.ones(cout, device=dev), 1)
 
 
-# qconv_layer (the bias correction's single layers): (input shape, input
-# kind, kernel size, cout, stride, dilation, int8 out).  Layer 0 on the
-# normalized image, the stride-2 layer, the dilated context layers and the
-# head, f32 pre-activations and requantized outputs, odd sizes, 32 channels
-# saturated (|acc| = 4,645,152).
+# qconv_layer (the bias correction's single layers: qconv_layer_f32, then
+# requantize for int8 out): (input shape, input kind, kernel size, cout,
+# stride, dilation, int8 out).  Layer 0 on the normalized image, the
+# stride-2 layer, the dilated context layers and the head, f32
+# pre-activations and requantized outputs, odd sizes, 32 channels saturated
+# (|acc| = 4,645,152).
 _QLAYER_CASES = {
     "layer0-f32": ((4, 75, 101), "norm", 3, 24, 2, 1, False),
     "layer0-int8": ((4, 64, 64), "norm", 3, 24, 2, 1, True),
@@ -1340,8 +1478,12 @@ _QLAYER_CASES = {
 
 @pytest.mark.parametrize("case", sorted(_QLAYER_CASES))
 def test_qconv_layer_matches_plain_bit_for_bit(dev, case):
-    """qconv_layer == qconv_reference on the card and on the CPU, bit for
-    bit, f32 pre-activations and int8 outputs alike; one launch."""
+    """The bias correction's layer (qconv_layer_f32, then for int8 out
+    requantize with the layer's bias) == qconv_reference on the card and on
+    the CPU, bit for bit, f32 pre-activations and int8 outputs alike: one
+    launch of the layer's tensor-core kernel (qlayer0_tc for layer 0,
+    qconv_tc_f32 for the others), whose accumulators equal
+    qconv_acc_reference's, and for int8 out one requantize launch."""
     shape, kind, ks, cout, stride, dil, requant = _QLAYER_CASES[case]
     rng = np.random.default_rng(len(case) + cout)
     if kind == "norm":
@@ -1357,10 +1499,16 @@ def test_qconv_layer_matches_plain_bit_for_bit(dev, case):
     x = torch.from_numpy(x).to(dev)
     layer = _qconv_layer(rng, ks, cin, cout, dev, sat="extreme" if kind == "sat" else None)
     s_out = torch.from_numpy(rng.uniform(5, 60, cout).astype(np.float32)).to(dev) if requant else None
-    qconv_kernel.qconv_layer.launches = 0
-    out = qconv_kernel.qconv_layer(x, layer, s_out, stride, dil)
+    qconv_kernel.qconv_layer_f32.launches = qconv_kernel.requantize.launches = 0
+    out, acc = qconv_kernel.qconv_layer_f32(x, layer, stride, dil, with_acc=requant)
+    if requant:
+        out = qconv_kernel.requantize(acc, layer["ws"], layer["b"], s_out)
     torch.cuda.synchronize()
-    assert qconv_kernel.qconv_layer.launches == 1
+    assert qconv_kernel.qconv_layer_f32.launches == 1
+    assert qconv_kernel.requantize.launches == int(requant)
+    y, acc = qconv_kernel.qconv_layer_f32(x, layer, stride, dil)
+    assert torch.equal(acc, qconv_kernel.qconv_acc_reference(x, layer, stride, dil))
+    assert torch.equal(y, qconv_kernel.qconv_reference(x, layer, None, stride, dil))
     ref = qconv_kernel.qconv_reference(x, layer, s_out, stride, dil)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert torch.equal(out, ref)
@@ -1368,6 +1516,45 @@ def test_qconv_layer_matches_plain_bit_for_bit(dev, case):
         assert float((out[0, 1:-1, 1:-1] - 40).abs().max()) < 1e-4
     cpu = qconv_kernel.qconv_reference(*(_to_cpu(a) for a in (x, layer, s_out)), stride, dil)
     assert torch.equal(out.cpu(), cpu)
+
+
+def test_bias_correction_on_card_matches_host_cpu(dev):
+    """A whole bias_correct_qparams on the card (one qconv_layer_f32 a layer
+    and the head, one requantize a layer) against the host CPU's on the same
+    qparams and calibration images: weights and scales untouched, the
+    corrected biases within chip_smoke.check_qparams' 1e-3 (the f32
+    reference convs sum in another order on the card; the int8 walk is
+    exact)."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import load_net_config, load_params_npz, params_from_flat
+    from ubdvss_tpu_torch.ops.quant import (
+        bias_correct_qparams,
+        build_qparams,
+        calibrate_scales,
+        qparams_to,
+    )
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(path)
+    params = params_from_flat(load_params_npz(path))
+    reader = SyntheticMarkupReader(n_samples=4, image_hw=(256, 192), seed=43)
+    imgs = np.stack([reader.sample_at(i).image for i in range(4)])
+    calib = torch.from_numpy((imgs.astype(np.float32) / 127.5 - 1.0)[..., None])
+    q = build_qparams(params, cfg, calibrate_scales(params, cfg, calib))
+    host = bias_correct_qparams(q, params, cfg, calib)
+    qconv_kernel.qconv_layer_f32.launches = qconv_kernel.requantize.launches = 0
+    card = bias_correct_qparams(qparams_to(q, dev), {k: v.to(dev) for k, v in params.items()},
+                                cfg, calib.to(dev))
+    torch.cuda.synchronize()
+    n = 2 + len(cfg.dilations)
+    assert (qconv_kernel.qconv_layer_f32.launches, qconv_kernel.requantize.launches) == (n + 1, n)
+    card = qparams_to(card, "cpu")
+    for a, b in zip(card["layers"] + [card["head"]], host["layers"] + [host["head"]]):
+        assert torch.equal(a["q"], b["q"]) and torch.equal(a["ws"], b["ws"])
+        assert float((a["b"] - b["b"]).abs().max()) <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(card["s_in"], host["s_in"]))
 
 
 @pytest.mark.parametrize("kernel,c0,c1,nh", [("qstem", 6, 24, 0), ("qstem", 24, 36, 0),
@@ -1391,7 +1578,8 @@ def test_qstem_and_qconv_head_channel_caps_name_their_roadmap_item(dev, kernel, 
 
 def test_int8_entry_points_on_card_match_cpu(dev):
     """The int8 route on the card against the CPU with the same qparams
-    (calibrated on the card, the bias correction through qconv_layer):
+    (calibrated on the card, the bias correction through qconv_layer_f32
+    and requantize):
     int8_trunk_apply eight launches (qstem once,
     qconv once a context layer but the last, qconv_head once) and no
     context-kernel launch, logits bit for bit; detect_program_batch fused
@@ -1418,12 +1606,13 @@ def test_int8_entry_points_on_card_match_cpu(dev):
     imgs = np.stack([reader.sample_at(i).image for i in range(6)])
     calib = torch.from_numpy((imgs.astype(np.float32) / 127.5 - 1.0)[..., None]).to(dev)
     kernels = (qconv_kernel.qstem, qconv_kernel.qconv, qconv_kernel.qconv_head)
-    for f in (*kernels, qconv_kernel.qconv_layer):
+    for f in (*kernels, qconv_kernel.qconv_layer_f32, qconv_kernel.requantize):
         f.launches = 0
     q = quantize_trunk({k: v.to(dev) for k, v in params.items()}, cfg, calib)
-    # the bias correction: each layer's f32 pre-activation and requantized
-    # output, then the head's pre-activation, one qconv_layer launch each
-    assert qconv_kernel.qconv_layer.launches == 2 * (2 + len(cfg.dilations)) + 1
+    # the bias correction: one convolution a layer and the head (its f32
+    # pre-activation and accumulator), one requantization a layer
+    assert qconv_kernel.qconv_layer_f32.launches == 2 + len(cfg.dilations) + 1
+    assert qconv_kernel.requantize.launches == 2 + len(cfg.dilations)
     assert [f.launches for f in kernels] == [0, 0, 0]
     q_cpu = qparams_to(q, "cpu")
     context_kernel.fused_context_head.launches = 0

@@ -20,7 +20,12 @@ zero padding, the shared-memory regions.  Held here:
     (saturated 32-channel layers convert);
   * the plain versions of ``qstem`` and ``qconv_head`` equal the jitted
     JAX chains (``_quantize_input`` -> ``_qconv`` x2; ``_qconv`` -> the
-    head) bit for bit.
+    head) bit for bit;
+  * the calibration's kinds — a layer alone with the f32 epilogue
+    ("layer": 3x3 at stride 1 or 2, the 1x1 head) and layer 0 alone
+    ("layer0") — get the same checks: coverage, shared memory, K order, and
+    a walk whose pre-activations and accumulators equal ``qconv_layer_f32``'s
+    plain version bit for bit.
 """
 
 import functools
@@ -74,6 +79,36 @@ def test_stem_plan_covers_each_output_once(name, B):
     assert (plan.inh, plan.inw) == (2 * plan.l0h + 1, 2 * plan.l0w + 1)
 
 
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("name", sorted(MAPS))
+def test_layer_plans_cover_each_output_once(name, B):
+    """The calibration's kinds: every context dilation, the stride-2 layer 1
+    (on the map as layer 0's output) and the 1x1 head; layer 0 on the
+    image twice the map's size."""
+    H, W = MAPS[name]
+    for d in sorted(set(DILATIONS)):
+        plan = qk.tile_plan("layer", B, H, W, 24, 24, dil=d)
+        assert (_coverage(plan) == 1).all(), d
+        assert plan.halo_h == plan.th + 2 and plan.pad_t == plan.pad_l == d and plan.f32 == 1
+    plan = qk.tile_plan("layer", B, H, W, 24, 24, stride=2)
+    assert (plan.Ho, plan.Wo) == (-(-H // 2), -(-W // 2)) and (_coverage(plan) == 1).all()
+    assert (plan.halo_h, plan.halo_w) == (2 * plan.th + 1, 2 * plan.tw + 1)
+    plan = qk.tile_plan("layer", B, H, W, 24, 17, ks=1)
+    assert (_coverage(plan) == 1).all() and plan.nsteps == 1
+    plan = qk.tile_plan("layer0", B, 2 * H - 1, 2 * W, 1, 24, in_kind=qk.IN_F32_NORM)
+    assert (plan.Ho, plan.Wo) == (H, W) and (_coverage(plan) == 1).all()
+    assert (plan.inh, plan.inw) == (2 * plan.th + 1, 2 * plan.tw + 1)
+    p = np.arange(plan.th * plan.tw + 16)
+    np.testing.assert_array_equal((p * plan.l0w_magic) >> 20, p // plan.tw)
+
+
+def test_layer_plan_refuses_what_no_kernel_runs():
+    for kw in ({"stride": 3}, {"ks": 5}, {"stride": 2, "dil": 2}, {"ks": 1, "dil": 2},
+               {"ks": 1, "stride": 2}):
+        with pytest.raises(ValueError):
+            qk.tile_plan("layer", 1, 16, 16, 24, 24, **kw)
+
+
 @pytest.mark.parametrize("cin,cout,nh", [(24, 24, 17), (32, 32, 32), (4, 4, 1), (8, 8, 5)])
 def test_plans_fit_shared_memory(cin, cout, nh):
     for H, W in list(MAPS.values()) + [(1, 4096), (4096, 1), (33, 47)]:
@@ -85,6 +120,12 @@ def test_plans_fit_shared_memory(cin, cout, nh):
     for H, W in list(IMAGES.values()) + [(3, 3), (1, 9000)]:
         plan = qk.tile_plan("stem", 2, H, W, 1, cout, c0=cin, in_kind=qk.IN_F32_RAW)
         assert plan.smem <= qk.SHARED_MEMORY_LIMIT, (H, W, plan.smem)
+        plan = qk.tile_plan("layer0", 2, H, W, 1, cout, in_kind=qk.IN_F32_NORM)
+        assert plan.smem <= qk.SHARED_MEMORY_LIMIT, (H, W, plan.smem)
+    for H, W in list(MAPS.values()) + [(1, 4096), (4096, 1), (33, 47)]:
+        for kw in ({"dil": 1}, {"dil": 16}, {"dil": 64}, {"stride": 2}, {"ks": 1}):
+            plan = qk.tile_plan("layer", 2, H, W, cin, nh if kw.get("ks") == 1 else cout, **kw)
+            assert plan.smem <= qk.SHARED_MEMORY_LIMIT, (H, W, kw, plan.smem)
 
 
 def test_plan_fields_match_the_kernels_struct():
@@ -166,6 +207,27 @@ def test_k_order_unpacks_to_the_hwio_weights(kind, cin, cout):
         assert plan.a_off[j] == (tap // 3) * row + (tap % 3) * d * nw + cw
         if nw % 2 == 0 and j % 8 < 4:
             assert plan.a_off[j] % 2 == 0 and plan.a_off[j + 4] == plan.a_off[j] + 1
+
+
+@pytest.mark.parametrize("cin,cout", [(24, 17), (8, 8), (4, 1), (32, 32), (12, 5)])
+def test_1x1_k_order_is_the_window_centre(cin, cout):
+    """The head alone ("layer", ks=1): K is one tap's words, read at the
+    centre of a 3x3 window (pad 1), in ceil(nw/8) steps; unpacked from the
+    fragments, the 1x1 HWIO weights come back."""
+    rng = np.random.default_rng(cin + 7 * cout)
+    q = rng.integers(-127, 128, (1, 1, cin, cout)).astype(np.int8)
+    plan = qk.tile_plan("layer", 2, 30, 40, cin, cout, ks=1)
+    nw = cin // 4
+    assert plan.nsteps == -(-nw // 8) and plan.pad_t == plan.pad_l == 1 and plan.d == 1
+    bmat = _bmatrix(qk.pack_fragments(q, plan), plan.nsteps)
+    for j in range(8 * plan.nsteps):
+        if plan.b_src[j] == -1:
+            assert plan.a_off[j] == 0 and not bmat[j].any()
+            continue
+        cw = (plan.a_off[j] - plan.row_words - nw) % nw
+        assert plan.a_off[j] == plan.row_words + nw + cw  # window row 1, column 1
+        assert plan.b_src[j] == 4 * cw * cout
+        np.testing.assert_array_equal(bmat[j, :, :cout], q[0, 0, 4 * cw : 4 * cw + 4])
 
 
 def test_layer0_k_order_is_window_rows():
@@ -504,6 +566,142 @@ def test_saturated_wide_accumulators_round_exactly(kernel):
         assert (ref[0, 1:-1, 1:-1] == 40).all()
     np.testing.assert_array_equal(walk().numpy(), ref.numpy())
     assert not np.array_equal(walk(acc_wide=0).numpy(), ref.numpy())
+
+
+def _emulate_layer(x, layer, stride, dil):
+    """The f32 conv kernel's walk ("layer" plans) in numpy: (y, acc)."""
+    B, H, W, cin = x.shape
+    q, ws, b = (layer[k].numpy() for k in ("q", "ws", "b"))
+    ks, cout = q.shape[0], q.shape[-1]
+    plan = qk.tile_plan("layer", B, H, W, cin, cout, dil=dil, stride=stride, ks=ks)
+    bmat = _bmatrix(qk.pack_fragments(q, plan), plan.nsteps)
+    xw = np.ascontiguousarray(x.numpy()).view(np.int32)
+    nw, hw, d = plan.nw, plan.halo_w, plan.d
+    y_out = np.zeros((B, plan.Ho, plan.Wo, cout), np.float32)
+    a_out = np.zeros_like(y_out)
+    pixels = _row_map(plan)
+    for tile in range(plan.n_tiles):
+        bi, r0, x0, ph = plan.decode(tile)
+        halo = np.zeros((plan.halo_h, hw, nw), np.int32)
+        for hr in range(plan.halo_h):
+            y = ph + stride * d * r0 + d * hr - plan.pad_t
+            if 0 <= y < H:
+                cols = stride * x0 - plan.pad_l + np.arange(hw)
+                ok = (cols >= 0) & (cols < W)
+                halo[hr, ok] = xw[bi, y, cols[ok]]
+        rows = np.zeros((plan.halo_h, plan.row_words), np.int32)
+        rows[:, : hw * nw] = halo.reshape(plan.halo_h, -1)
+        flat = rows.reshape(-1)
+        for i in range(plan.th):
+            y = ph + d * (r0 + i)
+            for jx in range(0, plan.tw, 16):
+                xs = x0 + jx
+                if y >= plan.Ho or xs >= plan.Wo:
+                    continue
+                bases = stride * (i * plan.row_words + (jx + pixels) * nw)
+                acc = _runs_mma(flat, bases, plan.a_off, bmat)[:, :cout]
+                af = np.zeros((16, cout), np.float32)
+                af[pixels] = _acc_float(acc, plan.acc_wide)
+                n = min(16, plan.Wo - xs)
+                a_out[bi, y, xs : xs + n] = af[:n]
+                y_out[bi, y, xs : xs + n] = _fma32(af[:n], ws, b)
+    return y_out, a_out
+
+
+def _emulate_layer0(x, layer0):
+    """The layer-0 kernel's walk ("layer0" plans) in numpy: (y, acc)."""
+    x = x.numpy()[..., 0]
+    B, H, W = x.shape
+    q0 = layer0["q"].numpy()
+    c0 = q0.shape[-1]
+    plan = qk.tile_plan("layer0", B, H, W, 1, c0, in_kind=qk.IN_F32_NORM)
+    b0mat = np.zeros((16, c0), np.int64)
+    for k in range(16):
+        if plan.k0_src[k] >= 0:
+            b0mat[k] = q0.reshape(-1)[plan.k0_src[k] : plan.k0_src[k] + c0]
+    xq = _round_int8(x.astype(np.float32) * np.float32(127))
+    y_out = np.zeros((B, plan.Ho, plan.Wo, c0), np.float32)
+    a_out = np.zeros_like(y_out)
+    for tile in range(plan.n_tiles):
+        bi, R0, C0, _ = plan.decode(tile)
+        IR, IC = 2 * R0 - plan.pt0, 2 * C0 - plan.pl0
+        win = np.zeros((plan.inh, plan.in_row), np.int64)
+        yy, xx = IR + np.arange(plan.inh), IC + np.arange(plan.inw)
+        oy, ox = (yy >= 0) & (yy < H), (xx >= 0) & (xx < W)
+        sub = np.zeros((plan.inh, plan.inw), np.int64)
+        sub[np.ix_(oy, ox)] = xq[bi][np.ix_(yy[oy], xx[ox])]
+        win[:, : plan.inw] = sub
+        win = np.concatenate([win.reshape(-1), np.zeros(4, np.int64)])
+        p = np.arange(plan.l0h * plan.l0w)
+        r = (p * plan.l0w_magic) >> 20
+        c = p - r * plan.l0w
+        a0 = win[(2 * r * plan.in_row + 2 * c)[:, None] + np.asarray(plan.k0_off)[None, :]]
+        af = _acc_float(a0 @ b0mat)
+        inside = (R0 + r < plan.H0) & (C0 + c < plan.W0)
+        a_out[bi, R0 + r[inside], C0 + c[inside]] = af[inside]
+        y_out[bi, R0 + r[inside], C0 + c[inside]] = _fma32(af[inside], layer0["ws"].numpy(),
+                                                           layer0["b"].numpy())
+    return y_out, a_out
+
+
+# (B, H, W, Cin, Cout, kernel size, stride, dilation)
+LAYER_CASES = {
+    "layer1-stride2-odd": (2, 38, 51, 24, 24, 3, 2, 1),
+    "layer1-stride2-even": (1, 64, 64, 24, 24, 3, 2, 1),
+    "context-d1-ragged": (2, 33, 47, 24, 24, 3, 1, 1),
+    "context-d16": (1, 40, 36, 24, 24, 3, 1, 16),
+    "widths-4-to-8-d3": (1, 10, 30, 4, 8, 3, 1, 3),
+    "widths-12-stride2": (1, 21, 35, 12, 12, 3, 2, 1),
+    "head-17": (2, 16, 20, 24, 17, 1, 1, 1),
+    "head-narrow-5": (1, 19, 26, 8, 5, 1, 1, 1),
+    "head-32": (1, 17, 18, 32, 32, 1, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYER_CASES))
+def test_layer_plan_walk_equals_the_plain_version(case):
+    """The f32 conv kernel's walk == qconv_layer_f32's plain version (the
+    accumulator exact, acc * ws + b rounded once), bit for bit."""
+    B, H, W, cin, cout, ks, stride, d = LAYER_CASES[case]
+    rng = np.random.default_rng(len(case) + 11 * cout)
+    x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
+    layer = _layer(rng, ks, cin, cout)
+    y, acc = qk.qconv_layer_f32(x, layer, stride, d)  # CPU: the plain version
+    np.testing.assert_array_equal(y.numpy(), qk.qconv_reference(x, layer, None, stride, d).numpy())
+    ey, ea = _emulate_layer(x, layer, stride, d)
+    np.testing.assert_array_equal(ea, acc.numpy())
+    np.testing.assert_array_equal(ey, y.numpy())
+
+
+@pytest.mark.parametrize("shape,c0", [((1, 75, 101), 24), ((2, 64, 48), 8), ((1, 13, 9), 4),
+                                      ((1, 150, 70), 32)])
+def test_layer0_plan_walk_equals_the_plain_version(shape, c0):
+    rng = np.random.default_rng(shape[1] + c0)
+    x = torch.from_numpy(rng.uniform(-1.05, 1.05, shape + (1,)).astype(np.float32))
+    l0 = _layer(rng, 3, 1, c0)
+    y, acc = qk.qconv_layer_f32(x, l0, 2, 1)
+    np.testing.assert_array_equal(y.numpy(), qk.qconv_reference(x, l0, None, 2, 1).numpy())
+    ey, ea = _emulate_layer0(x, l0)
+    np.testing.assert_array_equal(ea, acc.numpy())
+    np.testing.assert_array_equal(ey, y.numpy())
+
+
+def test_saturated_wide_layer_alone_rounds_exactly():
+    """The 32-channel layer at saturation (|acc| = 4,645,152, acc_wide) with
+    the f32 epilogue: the walk's accumulators and pre-activations equal the
+    plain version, the interior pre-activations 40 within an ulp of f32,
+    and the requantized outputs from them equal qconv_reference's."""
+    x = torch.full((2, 12, 20, 32), 127, dtype=torch.int8)
+    x[1] = -127
+    layer = _saturating_layer(32, 32)
+    y, acc = qk.qconv_layer_f32(x, layer, 1, 1)
+    assert float(acc.abs().max()) == 9 * 32 * 127**2
+    ey, ea = _emulate_layer(x, layer, 1, 1)
+    np.testing.assert_array_equal(ea, acc.numpy())
+    np.testing.assert_array_equal(ey, y.numpy())
+    ones = torch.ones(32)
+    np.testing.assert_array_equal(qk.requantize(acc, layer["ws"], layer["b"], ones).numpy(),
+                                  qk.qconv_reference(x, layer, ones, 1, 1).numpy())
 
 
 # --- the plain versions against the jitted JAX chains ------------------------

@@ -1,6 +1,6 @@
-// Shared by the int8 trunk's kernels (qconv_kernel.cu, qstem_kernel.cu):
-// the launch plan, the s8 tensor-core MMAs of a 3x3 layer, the
-// requantization epilogue and the staged warp store.
+// Shared by the int8 kernels (qconv_kernel.cu, qstem_kernel.cu): the
+// launch plan, the s8 tensor-core MMAs of a 3x3 layer, the requantization
+// epilogue and the staged warp store.
 //
 // The plan comes from ops/cuda/qconv_kernel.py (tile_plan), which lays out
 // every index the kernels use: tiles, halos, row phases, the (tap, channel
@@ -56,6 +56,7 @@ struct Plan {
   int off_l0, off_raw, raw_bytes, raw_row, row_words, align16;
   int H0, W0, pt0, pl0, pt1, pl1, l0h, l0w, inh, inw, c0, in_kind, in_row, l0w_magic;
   int acc_wide;  // the 3x3 int8-input layer's Conv3x3::WIDE
+  int stride, ks, pad_t, pad_l, f32;  // a layer alone (the calibration's kinds)
   int a_off[kMaxKWords];  // shared-memory word offset of each K word's A from a pixel's first tap
   int b_src[kMaxKWords];  // HWIO byte index of each K word's first channel at output 0; -1: padding
   int k0_off[16];         // layer 0: input-window byte offset of each K byte (tap)
@@ -102,12 +103,17 @@ __device__ __forceinline__ float acc_float(int biased) {
   return __fsub_rn(__int_as_float(biased), kMagic);
 }
 
-// the requantized int8 in the low byte
-template <bool WIDE>
-__device__ __forceinline__ uint32_t requant(int biased, float ws, float b, float s) {
-  const float y = fmaf(acc_float<WIDE>(biased), ws, b);
+// the int8 of the exact (float)acc requantized, in the low byte
+__device__ __forceinline__ uint32_t requant_float(float acc, float ws, float b, float s) {
+  const float y = fmaf(acc, ws, b);
   const float v = fminf(fmaxf(__fmul_rn(fmaxf(y, 0.f), s), -127.f), 127.f);
   return static_cast<uint32_t>(__float_as_int(__fadd_rn(v, kMagic)));
+}
+
+// the requantized int8 of a biased accumulator in the low byte
+template <bool WIDE>
+__device__ __forceinline__ uint32_t requant(int biased, float ws, float b, float s) {
+  return requant_float(acc_float<WIDE>(biased), ws, b, s);
 }
 
 // two requantized channels as 16 bits
@@ -172,13 +178,16 @@ struct Conv3x3 {
   }
 
   // two runs' MMAs, interleaved, each B fragment read once for both: a0, a1
-  // point at the first tap of run 0's and run 1's first pixel (words)
+  // point at the first tap of run 0's and run 1's first pixel (words); the
+  // first ns of the KS steps (a 1x1 layer's K is one tap's words)
   __device__ __forceinline__ void mma2(int (&acc0)[NT][4], int (&acc1)[NT][4],
-                                       const uint32_t* a0, const uint32_t* a1) const {
+                                       const uint32_t* a0, const uint32_t* a1,
+                                       int ns = KS) const {
     a0 += p0 * PIXW;
     a1 += p0 * PIXW;
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
+      if (s >= ns) break;
       int f0[4], f1[4];
       fragment(f0, a0, s);
       fragment(f1, a1, s);

@@ -1,12 +1,17 @@
 // The int8 trunk's context layers on the tensor cores: one 3x3 stride-1
 // dilated int8 conv with its dequant + bias + ReLU + requant epilogue, and
-// (qconv_head) the last context layer with the 1x1 head fused in.
+// (qconv_head) the last context layer with the 1x1 head fused in.  The
+// same kernel with an f32 epilogue runs one int8-input layer alone for the
+// calibration's bias correction (qconv_tc_f32), and qrequant requantizes
+// that layer's accumulators with the corrected bias.
 //
 // Replaces no Pallas kernel: in the JAX package these layers are XLA's
 // int8 convs, _qconv (ubdvss_tpu/ops/quant.py:276-292: conv_general_dilated
 // with preferred_element_type=int32, then acc * ws + b, ReLU, round(y * s),
 // clip, int8; the head returns acc * ws + b as f32), chained by
-// int8_trunk_apply (:295-312).  PyTorch has no int8 convolution on CUDA.
+// int8_trunk_apply (:295-312); the bias correction (:165-203) computes a
+// layer's acc once, reads acc * ws + b, and requantizes acc with the bias
+// it corrected.  PyTorch has no int8 convolution on CUDA.
 //
 // Bound on this card: a context layer of the main path (B=64, 128x128, 24
 // channels) reads 25.2 MB of int8 and writes 25.2 MB: 15.0 us at 3.35
@@ -16,10 +21,11 @@
 // Design (the plan, ops/cuda/qconv_kernel.py tile_plan, fixes every index):
 //   * a tile is th phase rows x tw columns of one image: a dilated layer
 //     is split into d row phases, so a tile reads th + 2 halo rows whatever
-//     d is, and tw + 2d contiguous columns; the halo is staged into shared
-//     memory by 16-byte cp.async (8 or 4 where map rows are not whole
-//     16-byte chunks), zero outside the map (SAME padding: 3x3 stride 1
-//     pads d each side);
+//     d is, and tw + 2d contiguous columns (a stride-2 layer 2 th + 1 rows
+//     of 2 tw + 1 columns); the halo is staged into shared memory by
+//     16-byte cp.async (8 or 4 where map rows are not whole 16-byte
+//     chunks), zero outside the map (SAME padding, the plan's pad_t and
+//     pad_l: a 3x3 stride-1 layer pads d each side);
 //   * the blocks are persistent (as many as stay resident, three an SM at
 //     the main path's shapes): each packs the weights once and walks the
 //     tiles blockIdx, blockIdx + gridDim, ..., staging the next tile's halo
@@ -27,7 +33,9 @@
 //   * each warp takes 16-pixel runs of a tile row as the M of the s8
 //     mma.sync m16n8k32; N is the output channels (three n8 tiles for 24);
 //     K is (tap, 4-channel word), 9 taps x Cin/4 words padded with zero
-//     weights to whole k32 steps (seven for 24 channels).  An A register is
+//     weights to whole k32 steps (seven for 24 channels; a 1x1 layer's one
+//     tap, the window's centre, fills the first steps and the rest are
+//     skipped).  An A register is
 //     one channel word of one pixel at one tap, read straight from the halo
 //     (no im2col; with an even number of words a lane's two words of a step
 //     are one 8-byte load); the B fragments are packed from the HWIO kernel
@@ -39,7 +47,12 @@
 //     them as one contiguous run, 16 bytes a lane;
 //   * qconv_head: the staged int8 run is the head's A operand (K = Cout
 //     padded to 32, N = the logits padded to n8 tiles); its f32 logits go
-//     through a second staging buffer to one contiguous store.
+//     through a second staging buffer to one contiguous store;
+//   * F32 (qconv_tc_f32): the epilogue writes y = fmaf((float)acc, ws, b)
+//     and the exact (float)acc beside it, each staged and stored as one
+//     contiguous run, four n8 tiles whatever Cout (up to 32 f32 outputs,
+//     the head's 17 too);
+//     qrequant then reads acc once (16 B in, 4 B out a thread).
 // Input channels a multiple of 4 up to 32, int8 outputs a multiple of 4 up
 // to 32, logits up to 32.
 #include "qconv.cuh"
@@ -63,30 +76,34 @@ __device__ __forceinline__ Tile decode(const Plan& p, int tile) {
 // Where a tile's halo starts in its buffer: with align16 (every map row a
 // whole number of 16-byte chunks) at the byte offset that matches the
 // source's address mod 16, so the rows copy as aligned 16-byte chunks.
+template <int STRIDE>
 __device__ __forceinline__ int halo_shift(const int8_t* x, const Plan& p, const Tile& tl) {
-  const uintptr_t g = reinterpret_cast<uintptr_t>(x) +
-                      static_cast<uintptr_t>((static_cast<long long>(tl.x0) - p.d) * 4 * p.nw);
+  const uintptr_t g =
+      reinterpret_cast<uintptr_t>(x) +
+      static_cast<uintptr_t>((static_cast<long long>(STRIDE) * tl.x0 - p.pad_l) * 4 * p.nw);
   return p.align16 ? static_cast<int>(g & 15) : 0;
 }
 
 // Stage a tile's halo into buf: phase rows r0-1 .. r0+th, columns x0-d ..
-// x0+tw+d-1, a row every row_words words, halo byte q of a row at byte
-// halo_shift + q; by cp.async of 16 bytes (align16), else 8 (NW even: a
-// pixel is whole 8-byte chunks) or 4; zero outside the map (SAME padding).
-template <int NW>
+// x0+tw+d-1 (stride 2: input rows 2 r0 - pad_t .. 2 (r0 + th) - pad_t,
+// columns likewise), a row every row_words words, halo byte q of a row at
+// byte halo_shift + q; by cp.async of 16 bytes (align16), else 8 (NW even:
+// a pixel is whole 8-byte chunks) or 4; zero outside the map (SAME padding).
+template <int NW, int STRIDE>
 __device__ __forceinline__ void issue_halo(uint32_t* buf, const int8_t* x, const Plan& p,
                                            const Tile& tl) {
   constexpr int CB = 4 * NW;  // bytes a pixel
-  const int RB = 4 * p.row_words, span = p.halo_w * CB, sh = halo_shift(x, p, tl);
+  const int RB = 4 * p.row_words, span = p.halo_w * CB, sh = halo_shift<STRIDE>(x, p, tl);
+  const int xin = STRIDE * tl.x0 - p.pad_l;  // the halo's first input column
   uint8_t* b8 = reinterpret_cast<uint8_t*>(buf);
   for (int hr = 0; hr < p.halo_h; ++hr) {
-    const int y = tl.ph + p.d * (tl.r0 + hr - 1);
+    const int y = tl.ph + STRIDE * p.d * tl.r0 + p.d * hr - p.pad_t;
     const bool in = y >= 0 && y < p.H;
-    const int lo = in ? max(0, p.d - tl.x0) * CB : span;  // the row's bytes in the map
-    const int hi = in ? min(p.halo_w, p.W - tl.x0 + p.d) * CB : span;
+    const int lo = in ? max(0, -xin) * CB : span;  // the row's bytes in the map
+    const int hi = in ? min(p.halo_w, p.W - xin) * CB : span;
     uint8_t* row = b8 + hr * RB;
     const int8_t* src =
-        x + ((static_cast<long long>(tl.b) * p.H + (in ? y : 0)) * p.W + tl.x0 - p.d) * CB;
+        x + ((static_cast<long long>(tl.b) * p.H + (in ? y : 0)) * p.W + xin) * CB;
     if (p.align16) {
       for (int j = threadIdx.x; j < RB / 16; j += kThreads) {
         const int q0 = 16 * j - sh;  // the halo byte at the chunk's start
@@ -178,6 +195,7 @@ struct RunPair {
   bool ok[2];
 };
 
+template <int STRIDE>
 __device__ __forceinline__ RunPair run_pair(const Plan& p, const Tile& tl, const uint32_t* buf,
                                             int m, int n_mt, int runs, int rw) {
   RunPair r;
@@ -187,20 +205,57 @@ __device__ __forceinline__ RunPair run_pair(const Plan& p, const Tile& tl, const
     const int i = mm / runs, jx = (mm - i * runs) * 16;
     r.y[h] = tl.ph + p.d * (tl.r0 + i);
     r.x[h] = tl.x0 + jx;
-    r.ok[h] = m + h * kWarps < n_mt && r.y[h] < p.H && r.x[h] < p.W;
-    r.a[h] = buf + i * rw + jx * p.nw;
+    r.ok[h] = m + h * kWarps < n_mt && r.y[h] < p.Ho && r.x[h] < p.Wo;
+    r.a[h] = buf + STRIDE * (i * rw + jx * p.nw);
   }
   return r;
 }
 
-template <int NT, int NW>
+// F32: one run's pre-activations y = fmaf((float)acc, ws, b) and, where
+// acc_out is given, the exact (float)acc (channels 8n + 2t, +1 of pixels
+// p0, p1), each staged pixel-major in the warp's buffer and stored as one
+// contiguous run of its first nvalid pixels, 16 bytes a lane.
+template <int NT, bool WIDE>
+__device__ __forceinline__ void store_f32(const int (&acc)[NT][4], long long pix, int nvalid,
+                                          float* y, float* acc_out, int cout, const float* vec,
+                                          int p0, int p1, uint8_t* stage, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float* dst = k ? acc_out : y;
+    if (dst == nullptr) continue;
+    dst += pix * cout;
+    uint8_t* s8 = stage + (reinterpret_cast<uintptr_t>(dst) & 15);
+    float* st = reinterpret_cast<float*>(s8);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c < cout) {
+            const float a = acc_float<WIDE>(acc[n][2 * h + e]);
+            st[(h ? p1 : p0) * cout + c] = k ? a : fmaf(a, vec[c], vec[32 + c]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    warp_store(s8, reinterpret_cast<uint8_t*>(dst), nvalid * cout * 4, lane);
+    __syncwarp();
+  }
+}
+
+template <int NT, int NW, int STRIDE, bool F32>
 __global__ void __launch_bounds__(kThreads, 3)
 qconv_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
                 const float* __restrict__ ws, const float* __restrict__ bias,
                 const float* __restrict__ s_out, const int8_t* __restrict__ qh,
                 const float* __restrict__ wsh, const float* __restrict__ bh,
-                void* __restrict__ out, const __grid_constant__ Plan p) {
-  using Conv = Conv3x3<NT, NW, 1>;
+                void* __restrict__ out, float* __restrict__ acc_out,
+                const __grid_constant__ Plan p) {
+  using Conv = Conv3x3<NT, NW, STRIDE>;
   extern __shared__ __align__(16) uint8_t smem[];
   int* s_w = reinterpret_cast<int*>(smem + p.off_w);
   int* s_wh = reinterpret_cast<int*>(smem + p.off_w0);
@@ -213,10 +268,10 @@ qconv_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   // the first tile's halo, then the weights and vectors while it arrives;
   // the weights are staged raw in the second halo buffer, then packed
   int tile = blockIdx.x;
-  issue_halo<NW>(halo, x, p, decode(p, tile));
+  issue_halo<NW, STRIDE>(halo, x, p, decode(p, tile));
   cp_async_commit();
   int8_t* s_q = reinterpret_cast<int8_t*>(halo + hbuf);
-  const int qbytes = 9 * p.cin * cout;
+  const int qbytes = p.ks * p.ks * p.cin * cout;
   copy_to_shared(s_q, q, qbytes);
   if (nh > 0) copy_to_shared(s_q + ((qbytes + 15) & ~15), qh, cout * nh);
   __syncthreads();
@@ -231,7 +286,7 @@ qconv_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   if (tid < 32) {
     s_vec[tid] = tid < cout ? ws[tid] : 0.f;
     s_vec[32 + tid] = tid < cout ? bias[tid] : 0.f;
-    s_vec[64 + tid] = tid < cout ? s_out[tid] : 0.f;
+    s_vec[64 + tid] = tid < cout && !F32 ? s_out[tid] : 0.f;
     s_vec[96 + tid] = tid < nh ? wsh[tid] : 0.f;
     s_vec[128 + tid] = tid < nh ? bh[tid] : 0.f;
   }
@@ -244,22 +299,33 @@ qconv_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
     // the next tile's halo into the other buffer while this one is computed
     const int next = tile + gridDim.x;
-    if (next < p.n_tiles) issue_halo<NW>(halo + ((k + 1) & 1) * hbuf, x, p, decode(p, next));
+    if (next < p.n_tiles)
+      issue_halo<NW, STRIDE>(halo + ((k + 1) & 1) * hbuf, x, p, decode(p, next));
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
     const Tile tl = decode(p, tile);
-    const uint32_t* buf = halo + (k & 1) * hbuf + halo_shift(x, p, tl) / 4;
+    const uint32_t* buf = halo + (k & 1) * hbuf + halo_shift<STRIDE>(x, p, tl) / 4;
     // two 16-pixel runs a warp at a time: m and m + kWarps
-    const long long row0 = static_cast<long long>(tl.b) * p.H;
+    const long long row0 = static_cast<long long>(tl.b) * p.Ho;
     for (int m = warp; m < n_mt; m += 2 * kWarps) {
-      const RunPair r = run_pair(p, tl, buf, m, n_mt, runs, rw);
+      const RunPair r = run_pair<STRIDE>(p, tl, buf, m, n_mt, runs, rw);
       if (!r.ok[0] && !r.ok[1]) continue;
       int acc0[NT][4], acc1[NT][4];
       init_acc(acc0);
       init_acc(acc1);
-      conv.mma2(acc0, acc1, r.a[0], r.a[1]);
-      const long long pix0 = (row0 + r.y[0]) * p.W + r.x[0], pix1 = (row0 + r.y[1]) * p.W + r.x[1];
+      conv.mma2(acc0, acc1, r.a[0], r.a[1], F32 ? p.nsteps : Conv::KS);
+      const long long pix0 = (row0 + r.y[0]) * p.Wo + r.x[0], pix1 = (row0 + r.y[1]) * p.Wo + r.x[1];
+      if constexpr (F32) {
+        float* y = static_cast<float*>(out);
+        if (r.ok[0])
+          store_f32<NT, Conv::WIDE>(acc0, pix0, min(16, p.Wo - r.x[0]), y, acc_out, cout, s_vec,
+                                    conv.p0, conv.p1, stage, lane);
+        if (r.ok[1])
+          store_f32<NT, Conv::WIDE>(acc1, pix1, min(16, p.Wo - r.x[1]), y, acc_out, cout, s_vec,
+                                    conv.p0, conv.p1, stage, lane);
+        continue;
+      }
       if (nh == 0) {  // both runs staged, then stored: one pair of warp barriers
         uint8_t* d0 = static_cast<uint8_t*>(out) + pix0 * cout;
         uint8_t* d1 = static_cast<uint8_t*>(out) + pix1 * cout;
@@ -268,37 +334,39 @@ qconv_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
         stage_int8<NT, Conv::WIDE>(st0, acc0, cout, s_vec, conv.p0, conv.p1, lane & 3);
         stage_int8<NT, Conv::WIDE>(st1, acc1, cout, s_vec, conv.p0, conv.p1, lane & 3);
         __syncwarp();
-        if (r.ok[0]) warp_store(st0, d0, min(16, p.W - r.x[0]) * cout, lane);
-        if (r.ok[1]) warp_store(st1, d1, min(16, p.W - r.x[1]) * cout, lane);
+        if (r.ok[0]) warp_store(st0, d0, min(16, p.Wo - r.x[0]) * cout, lane);
+        if (r.ok[1]) warp_store(st1, d1, min(16, p.Wo - r.x[1]) * cout, lane);
         __syncwarp();
         continue;
       }
       if (r.ok[0])
-        finish_run<NT, Conv::WIDE>(acc0, p, out, pix0, min(16, p.W - r.x[0]), stage, s_vec,
+        finish_run<NT, Conv::WIDE>(acc0, p, out, pix0, min(16, p.Wo - r.x[0]), stage, s_vec,
                                    s_wh, conv.p0, conv.p1, lane);
       if (r.ok[1])
-        finish_run<NT, Conv::WIDE>(acc1, p, out, pix1, min(16, p.W - r.x[1]), stage, s_vec,
+        finish_run<NT, Conv::WIDE>(acc1, p, out, pix1, min(16, p.Wo - r.x[1]), stage, s_vec,
                                    s_wh, conv.p0, conv.p1, lane);
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 }
 
-template <int NT, int NW>
+template <int NT, int NW, int STRIDE, bool F32>
 int launch(const void* x, const void* q, const void* ws, const void* b, const void* s_out,
-           const void* qh, const void* wsh, const void* bh, void* out, const Plan& p,
-           cudaStream_t stream) {
-  using Conv = Conv3x3<NT, NW, 1>;
-  if (p.nsteps != Conv::KS || p.row_step != Conv::RS || p.acc_wide != Conv::WIDE)
+           const void* qh, const void* wsh, const void* bh, void* out, void* acc_out,
+           const Plan& p, cudaStream_t stream) {
+  using Conv = Conv3x3<NT, NW, STRIDE>;
+  if ((F32 ? p.nsteps > Conv::KS : p.nsteps != Conv::KS) || p.row_step != Conv::RS ||
+      p.acc_wide != Conv::WIDE)
     return cudaErrorInvalidValue;
   int grid = 0;
-  const int e = persistent_grid<qconv_tc_kernel<NT, NW>>(p.smem, p.n_tiles, &grid);
+  const int e = persistent_grid<qconv_tc_kernel<NT, NW, STRIDE, F32>>(p.smem, p.n_tiles, &grid);
   if (e != cudaSuccess) return e;
-  qconv_tc_kernel<NT, NW><<<grid, kThreads, p.smem, stream>>>(
+  qconv_tc_kernel<NT, NW, STRIDE, F32><<<grid, kThreads, p.smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(ws), static_cast<const float*>(b),
       static_cast<const float*>(s_out), static_cast<const int8_t*>(qh),
-      static_cast<const float*>(wsh), static_cast<const float*>(bh), out, p);
+      static_cast<const float*>(wsh), static_cast<const float*>(bh), out,
+      static_cast<float*>(acc_out), p);
   return launch_status();
 }
 
@@ -307,14 +375,61 @@ int dispatch(int nw, const void* x, const void* q, const void* ws, const void* b
              const void* s_out, const void* qh, const void* wsh, const void* bh, void* out,
              const Plan& p, cudaStream_t s) {
   switch (nw) {
-    case 1: return launch<NT, 1>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
-    case 2: return launch<NT, 2>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
-    case 3: return launch<NT, 3>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
-    case 4: return launch<NT, 4>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
-    case 5: return launch<NT, 5>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
-    case 6: return launch<NT, 6>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
-    case 7: return launch<NT, 7>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
-    default: return launch<NT, 8>(x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
+    case 1: return launch<NT, 1, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+    case 2: return launch<NT, 2, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+    case 3: return launch<NT, 3, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+    case 4: return launch<NT, 4, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+    case 5: return launch<NT, 5, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+    case 6: return launch<NT, 6, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+    case 7: return launch<NT, 7, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+    default: return launch<NT, 8, 1, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr, p, s);
+  }
+}
+
+// the f32 instances: four n8 tiles (up to 32 outputs) at any input width
+template <int STRIDE>
+int dispatch_f32(int nw, const void* x, const void* q, const void* ws, const void* b, void* y,
+                 void* acc, const Plan& p, cudaStream_t s) {
+  constexpr int N = 4;
+  const void* z = nullptr;
+  switch (nw) {
+    case 1: return launch<N, 1, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    case 2: return launch<N, 2, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    case 3: return launch<N, 3, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    case 4: return launch<N, 4, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    case 5: return launch<N, 5, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    case 6: return launch<N, 6, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    case 7: return launch<N, 7, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    default: return launch<N, 8, STRIDE, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+  }
+}
+
+// Requantization of exact accumulators, four channels (one int8 word) a
+// thread: 16 bytes in, 4 out; the per-channel vectors in shared memory.
+__global__ void __launch_bounds__(kThreads)
+qrequant_kernel(const float4* __restrict__ acc, const float* __restrict__ ws,
+                const float* __restrict__ b, const float* __restrict__ s_out,
+                uint32_t* __restrict__ out, long long n_words, int cw) {
+  __shared__ float s_vec[3][32];
+  if (threadIdx.x < 32) {
+    const int c = threadIdx.x;
+    const bool in = c < 4 * cw;
+    s_vec[0][c] = in ? ws[c] : 0.f;
+    s_vec[1][c] = in ? b[c] : 0.f;
+    s_vec[2][c] = in ? s_out[c] : 0.f;
+  }
+  __syncthreads();
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n_words;
+       i += static_cast<long long>(gridDim.x) * kThreads) {
+    const float4 a = acc[i];
+    const int c = 4 * static_cast<int>(i % cw);
+    const float v[4] = {a.x, a.y, a.z, a.w};
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= (requant_float(v[j], s_vec[0][c + j], s_vec[1][c + j], s_vec[2][c + j]) & 0xFFu)
+              << (8 * j);
+    out[i] = word;
   }
 }
 
@@ -333,7 +448,7 @@ extern "C" int qconv_tc(const void* x, const void* q, const void* ws, const void
   const int nt = (p.cout + 7) / 8;
   if (p.n_tiles <= 0 || p.cin % 4 != 0 || p.cin <= 0 || p.cin > 32 || p.cout % 4 != 0 ||
       p.cout <= 0 || p.cout > 32 || p.nh < 0 || p.nh > 32 || p.nw != p.cin / 4 || p.tw % 16 != 0 ||
-      (p.nh > 0) != (qh != nullptr))
+      (p.nh > 0) != (qh != nullptr) || p.f32 != 0 || p.stride != 1 || p.ks != 3)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (nt) {
@@ -342,4 +457,38 @@ extern "C" int qconv_tc(const void* x, const void* q, const void* ws, const void
     case 3: return dispatch<3>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
     default: return dispatch<4>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
   }
+}
+
+// One int8-input layer alone with its f32 epilogue (the bias correction):
+// x int8 (B, H, W, Cin); q HWIO int8 (ks, ks, Cin, Cout): 3x3 at stride 1
+// with the plan's dilation or at stride 2, or 1x1; ws, b f32 (Cout).  y:
+// f32 (B, Ho, Wo, Cout) = fmaf((float)acc, ws, b); acc: the exact
+// (float)acc, or null.  plan: the ints of tile_plan("layer", ...).
+extern "C" int qconv_tc_f32(const void* x, const void* q, const void* ws, const void* b, void* y,
+                            void* acc, const int* plan, int plan_ints, void* stream) {
+  if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
+  Plan p;
+  memcpy(&p, plan, sizeof(Plan));
+  if (p.n_tiles <= 0 || p.cin % 4 != 0 || p.cin <= 0 || p.cin > 32 || p.cout <= 0 ||
+      p.cout > 32 || p.nh != 0 || p.nw != p.cin / 4 || p.tw % 16 != 0 || p.f32 != 1 ||
+      (p.ks != 3 && p.ks != 1) || (p.stride != 1 && (p.stride != 2 || p.d != 1 || p.ks != 3)))
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return p.stride == 1 ? dispatch_f32<1>(p.nw, x, q, ws, b, y, acc, p, s)
+                       : dispatch_f32<2>(p.nw, x, q, ws, b, y, acc, p, s);
+}
+
+// acc: f32 (n_pix, C) exact accumulators, C a multiple of 4 up to 32; ws,
+// b, s_out: f32 (C).  out: int8 (n_pix, C) =
+// clamp(rint(max(fmaf(acc, ws, b), 0) * s_out), -127, 127).
+extern "C" int qrequant(const void* acc, const void* ws, const void* b, const void* s_out,
+                        void* out, long long n_pix, int C, void* stream) {
+  if (n_pix <= 0 || C <= 0 || C > 32 || C % 4 != 0) return cudaErrorInvalidValue;
+  const long long n_words = n_pix * (C / 4);
+  const long long blocks = (n_words + kThreads - 1) / kThreads;
+  qrequant_kernel<<<static_cast<unsigned>(blocks < 8 * 132 ? blocks : 8 * 132), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(acc), static_cast<const float*>(ws), static_cast<const float*>(b),
+      static_cast<const float*>(s_out), static_cast<uint32_t*>(out), n_words, C / 4);
+  return launch_status();
 }

@@ -32,6 +32,13 @@
 //     stride 2 on that tile, two runs a warp at a time, then the staged
 //     contiguous store of each 16-pixel run.
 // Odd sizes pad as same_pad computes (the plan's pt0, pl0, pt1, pl1).
+//
+// qlayer0_tc_kernel is layer 0 alone, as the calibration's bias correction
+// reads it (tile_plan kind "layer0"): tiles of th x tw layer-0 outputs, the
+// (2 th + 1) x (2 tw + 1) input window staged and quantized as above, the
+// same m16n8k16 MMAs, and an f32 epilogue: y = fmaf((float)acc, ws, b)
+// and the exact (float)acc, each 16-pixel run staged and stored
+// contiguously.
 #include "qconv.cuh"
 
 namespace {
@@ -115,6 +122,124 @@ __device__ __forceinline__ void quantize_window(uint8_t* s_in, const uint8_t* bu
   }
 }
 
+// A "layer0" tile: layer 0's th x tw outputs from (R0, C0), reading the
+// input window at (IR, IC).
+__device__ __forceinline__ StemTile decode_layer0(const Plan& p, int tile) {
+  const int ct = tile % p.n_ct;
+  tile /= p.n_ct;
+  const int rt = tile % p.n_rt, b = tile / p.n_rt;
+  const int R0 = rt * p.th, C0 = ct * p.tw;
+  return {b, 0, 0, R0, C0, 2 * R0 - p.pt0, 2 * C0 - p.pl0};
+}
+
+// Layer 0's K words for lane (g, t) of n8 tile n: word t of output channel
+// 8n + g holds window row t's three taps (the fourth byte and t = 3 zero).
+template <int NT0>
+__device__ __forceinline__ void layer0_fragments(int* s_w0, const int8_t* q0, const Plan& p,
+                                                 int c0) {
+  const int tid = threadIdx.x;
+  if (tid < NT0 * 32) {
+    const int lane = tid & 31, co = 8 * (tid >> 5) + (lane >> 2), tt = lane & 3;
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int src = p.k0_src[4 * tt + k];
+      if (src >= 0 && co < c0) w |= static_cast<uint32_t>(static_cast<uint8_t>(q0[src + co])) << (8 * k);
+    }
+    s_w0[tid] = static_cast<int>(w);
+  }
+}
+
+template <int NT0>
+__global__ void __launch_bounds__(kThreads, 3)
+qlayer0_tc_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
+                  const float* __restrict__ ws0, const float* __restrict__ b0,
+                  float* __restrict__ y, float* __restrict__ acc_out,
+                  const __grid_constant__ Plan p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* s_w0 = reinterpret_cast<int*>(smem + p.off_w0);
+  float* s_vec = reinterpret_cast<float*>(smem + p.off_vec);
+  uint8_t* s_in = smem + p.off_tile;
+  const uint32_t* s_in_w = reinterpret_cast<const uint32_t*>(s_in);
+  uint8_t* const raw = smem + p.off_raw;  // two buffers of raw_bytes
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int c0 = p.cout, l0w = p.l0w;
+  uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
+
+  int tile = blockIdx.x;
+  issue_window(raw, x, p, decode_layer0(p, tile), warp, lane);
+  cp_async_commit();
+  layer0_fragments<NT0>(s_w0, q0, p, c0);
+  if (tid < 32) {
+    s_vec[tid] = tid < c0 ? ws0[tid] : 0.f;
+    s_vec[32 + tid] = tid < c0 ? b0[tid] : 0.f;
+  }
+  __syncthreads();
+  int bw0[NT0];
+#pragma unroll
+  for (int n = 0; n < NT0; ++n) bw0[n] = s_w0[n * 32 + lane];
+  const int n0 = p.l0h * l0w, mts0 = (n0 + 15) / 16;
+  const int trow = p.k0_off[4 * t];  // lane t gathers window row t (t = 3: zero weights)
+
+  for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < p.n_tiles)
+      issue_window(raw + ((k + 1) & 1) * p.raw_bytes, x, p, decode_layer0(p, next), warp, lane);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const StemTile st = decode_layer0(p, tile);
+    quantize_window(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    __syncthreads();
+    // 16 pixels an MMA tile: a run of one tile row (tw is a multiple of 16)
+    for (int m = warp; m < mts0; m += kWarps) {
+      const int pix = m * 16;
+      const int r = (pix * p.l0w_magic) >> 20, c = pix - r * l0w;  // pix / l0w
+      if (st.R0 + r >= p.H0 || st.C0 + c >= p.W0) continue;
+      int a[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int byte = 2 * r * p.in_row + trow + 2 * (c + g + 8 * h);
+        const uint32_t lo = s_in_w[byte >> 2], hi = s_in_w[(byte >> 2) + 1];
+        a[h] = t < 3 ? static_cast<int>((byte & 2) ? __byte_perm(lo, hi, 0x5432) : lo) : 0;
+      }
+      int acc[NT0][4];
+      init_acc(acc);
+#pragma unroll
+      for (int n = 0; n < NT0; ++n) mma_k16(acc[n], a[0], a[1], bw0[n]);
+      // y, then the accumulator: staged pixel-major, one contiguous run
+      const int nvalid = min(16, p.W0 - (st.C0 + c));
+      const long long o =
+          ((static_cast<long long>(st.b) * p.H0 + st.R0 + r) * p.W0 + st.C0 + c) * c0;
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        float* dst = k2 ? acc_out : y;
+        if (dst == nullptr) continue;
+        dst += o;
+        uint8_t* s8 = stage + (reinterpret_cast<uintptr_t>(dst) & 15);
+        float* sf = reinterpret_cast<float*>(s8);
+#pragma unroll
+        for (int n = 0; n < NT0; ++n) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ch = 8 * n + 2 * t + e;
+              if (ch < c0) {
+                const float av = acc_float<false>(acc[n][2 * h + e]);
+                sf[(g + 8 * h) * c0 + ch] = k2 ? av : fmaf(av, s_vec[ch], s_vec[32 + ch]);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        warp_store(s8, reinterpret_cast<uint8_t*>(dst), nvalid * c0 * 4, lane);
+        __syncwarp();
+      }
+    }
+  }
+}
+
 template <int NW1, int NT1>
 __global__ void __launch_bounds__(kThreads, 3)
 qstem_tc_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
@@ -140,16 +265,7 @@ qstem_tc_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
   int tile = blockIdx.x;
   issue_window(raw, x, p, decode(p, tile), warp, lane);
   cp_async_commit();
-  if (tid < NT0 * 32) {  // layer 0: word t of channel 8n + g holds window row t's taps
-    const int n = tid >> 5, co = 8 * n + (lane >> 2), tt = lane & 3;
-    uint32_t w = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int src = p.k0_src[4 * tt + k];
-      if (src >= 0 && co < c0) w |= static_cast<uint32_t>(static_cast<uint8_t>(q0[src + co])) << (8 * k);
-    }
-    s_w0[tid] = static_cast<int>(w);
-  }
+  layer0_fragments<NT0>(s_w0, q0, p, c0);
   // layer 1's weights staged raw in the layer-0 tile (free until layer 0
   // runs), then packed
   copy_to_shared(reinterpret_cast<int8_t*>(s_l0), q1, 9 * c0 * c1);
@@ -295,7 +411,40 @@ int dispatch(int nt1, const void* x, const void* q0, const void* ws0, const void
   }
 }
 
+template <int NT0>
+int launch_layer0(const void* x, const void* q0, const void* ws0, const void* b0, void* y,
+                  void* acc, const Plan& p, cudaStream_t stream) {
+  int grid = 0;
+  const int e = persistent_grid<qlayer0_tc_kernel<NT0>>(p.smem, p.n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  qlayer0_tc_kernel<NT0><<<grid, kThreads, p.smem, stream>>>(
+      x, static_cast<const int8_t*>(q0), static_cast<const float*>(ws0),
+      static_cast<const float*>(b0), static_cast<float*>(y), static_cast<float*>(acc), p);
+  return launch_status();
+}
+
 }  // namespace
+
+// Layer 0 alone with its f32 epilogue (the bias correction): x the (B, H,
+// W) image as qstem_tc takes it; q0: HWIO int8 (3, 3, 1, C0), ws0, b0: f32
+// (C0); y: f32 (B, H0, W0, C0) = fmaf((float)acc, ws0, b0); acc: the exact
+// (float)acc there too, or null.  plan: the ints of tile_plan("layer0", ...).
+extern "C" int qlayer0_tc(const void* x, const void* q0, const void* ws0, const void* b0,
+                          void* y, void* acc, const int* plan, int plan_ints, void* stream) {
+  if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
+  Plan p;
+  memcpy(&p, plan, sizeof(Plan));
+  if (p.n_tiles <= 0 || p.cout <= 0 || p.cout > 32 || p.f32 != 1 || p.in_kind < kU8Raw ||
+      p.in_kind > kF32Norm || p.l0h != p.th || p.l0w != p.tw)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch ((p.cout + 7) / 8) {
+    case 1: return launch_layer0<1>(x, q0, ws0, b0, y, acc, p, s);
+    case 2: return launch_layer0<2>(x, q0, ws0, b0, y, acc, p, s);
+    case 3: return launch_layer0<3>(x, q0, ws0, b0, y, acc, p, s);
+    default: return launch_layer0<4>(x, q0, ws0, b0, y, acc, p, s);
+  }
+}
 
 // x: the (B, H, W) image, uint8 (in_kind 1) or f32 (2 raw, 3 normalized);
 // q0: HWIO int8 (3, 3, 1, C0), ws0, b0, s1: f32 (C0); q1: HWIO int8 (3, 3,
@@ -309,7 +458,7 @@ extern "C" int qstem_tc(const void* x, const void* q0, const void* ws0, const vo
   memcpy(&p, plan, sizeof(Plan));
   if (p.n_tiles <= 0 || p.c0 % 4 != 0 || p.c0 <= 0 || p.c0 > 32 || p.cout % 4 != 0 ||
       p.cout <= 0 || p.cout > 32 || p.tw % 16 != 0 || p.nsteps != p.c0 / 4 + 1 ||
-      p.in_kind < kU8Raw || p.in_kind > kF32Norm)
+      p.in_kind < kU8Raw || p.in_kind > kF32Norm || p.f32 != 0)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int nt1 = (p.cout + 7) / 8;

@@ -72,19 +72,92 @@
 // kMaxExactHeight (1994 rows, an A4 page at 600 dpi is 1754), the height
 // whose bytes and the static reduction slots fill one block's 232,448 B.
 //
-// Taller maps take the tall instance (rect_tall_kernel running
-// rect_component<true, true>, entry rect_select_exact_tall): the same steps
-// and the same selection, with the rows, points and directions in a
-// device-memory workspace of 116 B a row a component that the caller
-// allocates (only the chains' bitmasks stay in shared memory), 512 threads
-// a block, and persistent blocks: block b takes components b, b + grid,
-// ... in workspace slot b, so the workspace is bounded whatever B * K.  The
-// workspace slots (475 KB a component at H = 4096) stay in L2 between the
-// steps, so the tall instance is bound, as the one-block kernel, by one
-// component's critical path.
+// Taller maps take the tall instance (rect_cluster_kernel, entry
+// rect_select_exact_tall): the same selection, one component a cluster of
+// kCS = 8 blocks of 256 threads, its arrays spread over the blocks' shared
+// memory and read across the cluster (distributed shared memory):
+//   A. each block counts the valid rows of its eighth of the map, the
+//      cluster sums the counts (one barrier), and the rows are compacted in
+//      order into a cluster-wide array, block r holding positions
+//      [r hb, (r+1) hb); a component of at most kSoloRows (1024) rows is
+//      finished by block 0 alone with block barriers once every block has
+//      taken its part of R and of B's block-local levels (its arrays stay
+//      spread, read through distributed shared memory), the others waiting
+//      at the closing barrier: for those, eight blocks' barriers cost more
+//      than their warps save;
+//   R. the lockstep's first round, where every row is alive, each block
+//      over its own positions, the results met at one cluster barrier: a
+//      chain with no row strictly concave between its neighbours is convex
+//      and keeps every row (the one-block kernel's rounds settle it in that
+//      round), and skips B (a padding slot's background rows, an upright
+//      bar, a convex blob).  A chain with a concave row
+//      goes on: later rounds across the cluster cost more than the merges
+//      they would save (a digital line or a noisy edge over a thousand rows
+//      settles in none of them);
+//   B. the chains' hulls in logarithmic depth: each warp takes 32-row
+//      segments and keeps each chain's strict hull vertices within its
+//      segment (a point off its segment's hull is off the chain's hull),
+//      then the segments are merged pairwise over log2(segments) levels, a
+//      warp a merge and chain: the bridge between two convex chains (their common
+//      tangent, the earlier chain's first and the later chain's last point
+//      on it) is found by a 32-way search over the later chain, each probe
+//      a binary search over the earlier one, and the later chain's kept
+//      vertices are copied behind the earlier chain's.  A level whose
+//      merges stay inside one block waits at a block barrier, the others
+//      at the cluster's.  The right chain runs on negated x, so both chains
+//      are lower hulls;
+//   C. on a chain with a concave row, a row is kept iff its point lies on
+//      that chain's hull (a vertex, or on an edge by the int32 cross
+//      product): exactly the points the lockstep rounds and the slope rule
+//      keep, collinear points included; a convex chain keeps every row; the
+//      kept points are ranked across the cluster (where both chains are
+//      convex, each block writes its own rows as the kept points);
+//   D. the directions (consecutive kept points; one equal to the one
+//      before it on its chain dropped, as in the one-block kernel) are
+//      ranked across the cluster;
+//   E. each block projects every direction over its own rows (G lanes a
+//      direction, as the one-block kernel), and the blocks' extremes are
+//      reduced through distributed shared memory, 512 directions at a time;
+//   F. the selection as in the one-block kernel (minimum area, caliper
+//      key, lowest direction, the horizontal candidate), each step a block
+//      reduction and a cluster barrier.
+// A component with no valid row is written after the first barrier.  Maps
+// past what eight blocks' shared memory holds (97 B a row, hb a power of
+// two: 16,384 rows) keep the arrays in a device-memory workspace slot a
+// cluster, read past L1 (ld.global.cg: another block of the cluster may
+// have written them), and the clusters are persistent over the B * K
+// components, which bounds the workspace.
+#include <cooperative_groups.h>
+
 #include <climits>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+// A debug build (-DRECT_TALL_STAMPS, scripts/torch_kernel_ab.py --only
+// tall) records clock64() at the tall instance's step boundaries, thread 0
+// of each component's block 0, for the split of its time over the steps,
+// then the component's valid rows and the chains that went through the
+// merges (16 slots a component).
+#ifdef RECT_TALL_STAMPS
+__device__ long long g_rect_stamps[1 << 17];
+extern "C" int rect_stamps(long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_rect_stamps, sizeof(long long) * n));
+}
+extern "C" int rect_stamps_clear() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, g_rect_stamps);
+  return static_cast<int>(e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_rect_stamps)));
+}
+#define TALL_STAMP(k) \
+  if (rank == 0 && tid == 0 && comp < 8192) g_rect_stamps[comp * 16 + (k)] = clock64()
+#define TALL_INFO(k, v) \
+  if (rank == 0 && tid == 0 && comp < 8192) g_rect_stamps[comp * 16 + 8 + (k)] = (v)
+#else
+#define TALL_STAMP(k)
+#define TALL_INFO(k, v)
+#endif
 
 namespace {
 
@@ -142,10 +215,8 @@ __device__ __forceinline__ int next_bit(const unsigned* m, int k, int lane, int 
 
 // One block of 4 warps per component, in both kernels (256 and 512 threads
 // were slower for the exact kernel at both the stream's and a detect
-// call's shapes); 16 warps in the tall instance, whose slope rule and
-// projections walk thousands of rows.
+// call's shapes).
 constexpr int kThreads = 128;
-constexpr int kTallThreads = 512;
 
 // Block-wide ordered compaction: every thread of the block (kT threads)
 // calls this once a pass with its flag; returns the thread's slot among the
@@ -172,8 +243,7 @@ __device__ __forceinline__ int compact_slot(bool ok, int& n, int* s_cnt) {
 // the 2M directions ux, uy, min_u, max_u, min_v, max_v, area and the
 // caliper key, the compacted valid rows (y, min x, max x; H each), two
 // chains' alive and deleted bitmasks, and the exact kernel's kept
-// directions' slots (2M).  All in shared memory, or (kTall) all but the
-// bitmasks in the workspace.
+// directions' slots (2M).  All in shared memory.
 __host__ __device__ constexpr size_t rect_bitmask_bytes(int H) {
   return 16 * static_cast<size_t>((H + 31) / 32);
 }
@@ -185,11 +255,6 @@ __host__ __device__ constexpr size_t rect_smem_bytes(int H, int M) {
           (kExact ? 2 * static_cast<size_t>(M) : 0)) *
              4 +
          rect_bitmask_bytes(H);
-}
-
-// A component's workspace slot in the tall instance, 16-byte aligned.
-__host__ __device__ constexpr size_t rect_tall_slot_bytes(int H) {
-  return (rect_smem_bytes<true>(H, H) - rect_bitmask_bytes(H) + 15) / 16 * 16;
 }
 
 // The block reductions' slots, static shared memory beside the arrays.
@@ -210,14 +275,12 @@ constexpr int max_exact_height() {
 constexpr int kMaxExactHeight = max_exact_height();
 constexpr int kRounds = 4;  // lockstep rounds before the slope rule finishes
 
-// One component.  ``big`` holds its arrays (shared memory, or kTall its
-// workspace slot), ``bits`` (kTall) the bitmasks in shared memory.
-template <bool kExact, bool kTall>
+// One component, its arrays in ``big`` (shared memory).
+template <bool kExact>
 __device__ __forceinline__ void rect_component(
     const int* __restrict__ minx, const int* __restrict__ maxx, float* __restrict__ out,
-    int comp, int K, int H, int M, float4* big, unsigned* bits,
-    RectShared<kTall ? kTallThreads : kThreads>& st) {
-  constexpr int kT = kTall ? kTallThreads : kThreads;
+    int comp, int K, int H, int M, float4* big, RectShared<kThreads>& st) {
+  constexpr int kT = kThreads;
   float4* rows = big;  // kExact: (min x, max x, y) of the valid rows
   float2* pts = reinterpret_cast<float2*>(big + (kExact ? H : 0));  // left [0, M), right [M, 2M)
   const int D = 2 * M;
@@ -233,10 +296,10 @@ __device__ __forceinline__ void rect_component(
   int* r_y = reinterpret_cast<int*>(d_phi + D);  // valid rows, compacted
   int* r_l = r_y + H;
   int* r_r = r_l + H;
-  unsigned* alive = kTall ? bits : reinterpret_cast<unsigned*>(r_r + H);  // (2, NW)
+  unsigned* alive = reinterpret_cast<unsigned*>(r_r + H);  // (2, NW)
   unsigned* dead = alive + 2 * NW;                                         // (2, NW)
   // kExact: kept directions' slots
-  int* u_d = kTall ? r_r + H : reinterpret_cast<int*>(dead + 2 * NW);
+  int* u_d = reinterpret_cast<int*>(dead + 2 * NW);
   constexpr int kW = kT / 32;
   int* const s_cnt = st.cnt;
   int* const s_mn = st.mn;
@@ -610,21 +673,702 @@ rect_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
             float* __restrict__ out, int K, int H, int M) {
   extern __shared__ float4 smem4[];
   __shared__ RectShared<kThreads> st;
-  rect_component<kExact, false>(minx, maxx, out, blockIdx.x, K, H, M, smem4, nullptr, st);
+  rect_component<kExact>(minx, maxx, out, blockIdx.x, K, H, M, smem4, st);
 }
 
-// Persistent blocks over the B * K components, block b in workspace slot b.
-__global__ void __launch_bounds__(kTallThreads)
-rect_tall_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
-                 float* __restrict__ out, unsigned char* __restrict__ ws, int n_comp, int K,
-                 int H) {
-  extern __shared__ unsigned bits_s[];
-  __shared__ RectShared<kTallThreads> st;
-  float4* slot = reinterpret_cast<float4*>(ws + blockIdx.x * rect_tall_slot_bytes(H));
-  for (int comp = blockIdx.x; comp < n_comp; comp += gridDim.x) {
-    rect_component<true, true>(minx, maxx, out, comp, K, H, H, slot, bits_s, st);
-    __syncthreads();  // the slot and the shared memory are the next component's
+// ---------------------------------------------------------------------------
+// The tall instance: one component a cluster of kCS blocks (file comment).
+// ---------------------------------------------------------------------------
+
+constexpr int kCS = 8;        // blocks a cluster (the portable cluster size)
+constexpr int kCT = 256;      // threads a block
+constexpr int kCW = kCT / 32;
+constexpr int kSeg = 32;      // rows a level-0 segment: one warp's
+constexpr int kDc = 512;      // directions a projection chunk
+constexpr int kScalars = 16;  // a block's slots for the cluster's reductions
+constexpr int kSoloRows = 1024;  // a component of at most this many rows: block 0 alone
+enum TallScalar {
+  kSValid = 0, kSMn, kSMx, kSKeptL, kSKeptR, kSDirs, kSAmin, kSPhi, kSFirst, kSConcave
+};
+
+// The kernel's static shared memory.
+struct TallShared {
+  unsigned char* base[kCS];  // where each block's arrays start (its shared memory or workspace)
+  int cnt[kCW];              // compact_slot's counts
+  int red_i[kCW];
+  float red_f[kCW];
+};
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// A block's arrays, from H alone (ops/cuda/rect_kernel.py tall_plan keeps a
+// copy; rect_tall_plan returns these numbers for the card's test); hb, a
+// power of two, is the compacted rows a block, so a position's block and
+// index are a shift and a mask:
+//   rows  float4 (min x, max x, y) of compacted positions [r hb, (r+1) hb);
+//   hull  int2 [2][hb]: the chains' hull vertices, then their kept points;
+//   dirs  float [8][db]: ux, uy, min u, max u, min v, max v, area, key;
+//   cnt   int [2][hb / 32]: a segment group's vertex count;
+//   kept  uint8 [hb]: bit c set where the position's point is on chain c;
+//   scal  int [kScalars].
+// Then, in shared memory whatever the mode, the projection's partial
+// extremes (float4 [kDc]) and staged directions (float2 [kDc]).
+struct TallLayout {
+  int hb, db, off_hull, off_dirs, off_cnt, off_kept, off_scal, block_bytes, smem, in_shared, lg;
+};
+
+__host__ __device__ constexpr int tall_fixed_bytes() { return kDc * 16 + kDc * 8; }
+
+__host__ __device__ inline TallLayout tall_layout(int H) {
+  TallLayout t{};
+  t.lg = 5;  // hb = 2^lg >= 32, the least with kCS hb >= H
+  while ((kCS << t.lg) < H) ++t.lg;
+  t.hb = 1 << t.lg;
+  t.db = 2 * t.hb;
+  t.off_hull = 16 * t.hb;
+  t.off_dirs = t.off_hull + 2 * 8 * t.hb;
+  t.off_cnt = t.off_dirs + 8 * 4 * t.db;
+  t.off_kept = t.off_cnt + round16(2 * 4 * (t.hb / kSeg));
+  t.off_scal = t.off_kept + round16(t.hb);
+  t.block_bytes = t.off_scal + 4 * kScalars;
+  t.in_shared = t.block_bytes + tall_fixed_bytes() + static_cast<int>(sizeof(TallShared)) <=
+                static_cast<int>(kSmemLimit);
+  t.smem = tall_fixed_bytes() + (t.in_shared ? t.block_bytes : 0);
+  return t;
+}
+
+// The cluster-wide arrays: element idx of an array with 2^lg elements a
+// block lives in block idx >> lg.  kShm: the blocks' shared memory (read
+// through distributed shared memory); else a device-memory workspace, read
+// past L1 (another block of the cluster may have written it).
+template <bool kShm>
+struct TallArrays {
+  unsigned char* const* base;
+  TallLayout L;
+  int hs;  // segments a block
+
+  template <typename T>
+  __device__ __forceinline__ T* at(int off, int idx, int lg) const {
+    return reinterpret_cast<T*>(base[idx >> lg] + off) + (idx & ((1 << lg) - 1));
   }
+  template <typename T>
+  __device__ __forceinline__ static T rd(const T* p) {
+    if constexpr (kShm) {
+      return *p;
+    } else {
+      return __ldcg(p);
+    }
+  }
+  __device__ __forceinline__ float4* row(int P) const { return at<float4>(0, P, L.lg); }
+  __device__ __forceinline__ int2* hull(int c, int P) const {
+    return at<int2>(L.off_hull + c * 8 * L.hb, P, L.lg);
+  }
+  __device__ __forceinline__ float* dir(int a, int j) const {
+    return at<float>(L.off_dirs + a * 4 * L.db, j, L.lg + 1);
+  }
+  __device__ __forceinline__ int* cnt(int c, int s) const {
+    return at<int>(L.off_cnt + c * 4 * hs, s, L.lg - 5);
+  }
+  __device__ __forceinline__ unsigned char* kept(int P) const {
+    return at<unsigned char>(L.off_kept, P, L.lg);
+  }
+  __device__ __forceinline__ int* scal(int r, int k) const {
+    return reinterpret_cast<int*>(base[r] + L.off_scal) + k;
+  }
+};
+
+// Block reductions over kCT threads through red (kCW slots); every thread
+// gets the result.
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  v = __reduce_add_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int s = 0;
+  for (int w = 0; w < kCW; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+__device__ __forceinline__ int block_min(int v, int* red) {
+  v = __reduce_min_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  for (int w = 0; w < kCW; ++w) v = min(v, red[w]);
+  __syncthreads();
+  return v;
+}
+__device__ __forceinline__ int block_max(int v, int* red) {
+  v = __reduce_max_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  for (int w = 0; w < kCW; ++w) v = max(v, red[w]);
+  __syncthreads();
+  return v;
+}
+__device__ __forceinline__ float block_min_f(float v, float* red) {
+  v = warp_min(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  for (int w = 0; w < kCW; ++w) v = fminf(v, red[w]);
+  __syncthreads();
+  return v;
+}
+
+// Whether the lane's point (x, y) is a strict vertex of the lower hull of
+// the first cnt lanes' points (y rising): its largest slope dx/dy back is
+// below its smallest slope forward (sentinels -S, S; int32
+// cross-multiplication), a warp's 32 shuffles.
+__device__ __forceinline__ bool strict_vertex(int x, int y, int cnt, int S, int lane) {
+  int en = -S, ed = 1, fn = S, fd = 1;
+  for (int k = 0; k < 32; ++k) {
+    const int xk = __shfl_sync(kFull, x, k), yk = __shfl_sync(kFull, y, k);
+    if (k >= cnt) continue;
+    if (k < lane) {
+      if (steeper(x - xk, y - yk, en, ed)) {
+        en = x - xk;
+        ed = y - yk;
+      }
+    } else if (k > lane) {
+      if (steeper(fn, fd, xk - x, yk - y)) {
+        fn = xk - x;
+        fd = yk - y;
+      }
+    }
+  }
+  return lane < cnt && steeper(fn, fd, en, ed);
+}
+
+// Merge the hulls of segment groups [sA, sB) (A) and [sB, ...) (B) of chain
+// c, one warp: keep A up to the bridge's first point and B from its last,
+// B's part copied behind A's; the group's count goes to segment sA.  Hulls
+// are strict (no three vertices collinear); points are (x, y), y rising.
+template <bool kShm>
+__device__ __forceinline__ void merge_hulls(const TallArrays<kShm>& T, int c, int sA, int sB,
+                                            int lane) {
+  using A_ = TallArrays<kShm>;
+  const int cA = A_::rd(T.cnt(c, sA)), cB = A_::rd(T.cnt(c, sB));
+  if (cB == 0) return;
+  const int bA = sA * kSeg, bB = sB * kSeg;
+  int i = -1, j = 0;  // keep A[0 .. i], B[j ..]
+  if (cA > 0) {
+    // the tangent from (bx, by) to A: the first i whose next vertex is not
+    // left of the line from vertex i to (bx, by)
+    auto tangent = [&](int bx, int by) {
+      int lo = 0, hi = cA - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const int2 a = A_::rd(T.hull(c, bA + mid)), a1 = A_::rd(T.hull(c, bA + mid + 1));
+        if ((a1.x - a.x) * (by - a.y) >= (bx - a.x) * (a1.y - a.y)) {
+          hi = mid;
+        } else {
+          lo = mid + 1;
+        }
+      }
+      return lo;
+    };
+    // B's vertex jj is the bridge's or before it: its next vertex lies
+    // strictly right of the tangent from A through it (monotone in jj)
+    auto past = [&](int jj) {
+      const int2 b = A_::rd(T.hull(c, bB + jj)), b1 = A_::rd(T.hull(c, bB + jj + 1));
+      const int2 a = A_::rd(T.hull(c, bA + tangent(b.x, b.y)));
+      return (b1.x - b.x) * (b.y - a.y) > (b.x - a.x) * (b1.y - b.y);
+    };
+    int lo = 0, hi = cB - 1;  // the first jj with past(jj); past(cB - 1) by definition
+    while (lo < hi) {
+      const int step = (hi - lo + 31) >> 5;
+      const int jj = lo + lane * step;
+      const unsigned m = __ballot_sync(kFull, jj < hi && past(jj));
+      if (m) {
+        const int k0 = __ffs(m) - 1;
+        const int nhi = lo + k0 * step;
+        lo = k0 > 0 ? lo + (k0 - 1) * step + 1 : lo;
+        hi = nhi;
+      } else {
+        lo += (hi - 1 - lo) / step * step + 1;
+      }
+    }
+    j = lo;
+    const int2 b = A_::rd(T.hull(c, bB + j));
+    i = tangent(b.x, b.y);
+  }
+  // B[j ..] behind A[i]: the destination precedes the source, so each
+  // 32-vertex chunk is read before it is written
+  const int dst = bA + i + 1, src = bB + j, n = cB - j;
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    const bool own = k0 + lane < n;
+    int2 v = make_int2(0, 0);
+    if (own) v = A_::rd(T.hull(c, src + k0 + lane));
+    __syncwarp();
+    if (own) *T.hull(c, dst + k0 + lane) = v;
+    __syncwarp();
+  }
+  if (lane == 0) *T.cnt(c, sA) = i + 1 + n;
+}
+
+// Step R: the lockstep's first round, where every row is alive, over
+// positions [p_lo, p_hi): bit c set where a row of chain c is strictly
+// concave between the rows before and after it.  A chain with no such row
+// settles in that round (it is convex, every row on its hull) and keeps
+// every row, as the one-block kernel's rounds keep them.
+template <bool kShm>
+__device__ __forceinline__ int concave_chains(const TallArrays<kShm>& T, int n, int p_lo,
+                                              int p_hi) {
+  using A_ = TallArrays<kShm>;
+  int any = 0;
+  for (int P = max(p_lo, 1) + threadIdx.x; P < min(p_hi, n - 1); P += kCT) {
+    const float4 a = A_::rd(T.row(P - 1)), q = A_::rd(T.row(P)), e = A_::rd(T.row(P + 1));
+    const int ya = static_cast<int>(a.z), yq = static_cast<int>(q.z), ye = static_cast<int>(e.z);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int xa = static_cast<int>(c == 0 ? a.x : a.y);
+      const int xq = static_cast<int>(c == 0 ? q.x : q.y);
+      const int xe = static_cast<int>(c == 0 ? e.x : e.y);
+      const int cross = (xq - xa) * (ye - ya) - (yq - ya) * (xe - xa);
+      if ((c == 0 ? cross : -cross) > 0) any |= 1 << c;
+    }
+  }
+  return (__syncthreads_or(any & 1) ? 1 : 0) | (__syncthreads_or(any & 2) ? 2 : 0);
+}
+
+template <bool kShm>
+__global__ void __cluster_dims__(kCS, 1, 1) __launch_bounds__(kCT, 4)
+rect_cluster_kernel(const int* __restrict__ minx, const int* __restrict__ maxx,
+                    float* __restrict__ out, unsigned char* __restrict__ ws, int n_comp, int K,
+                    int H) {
+  using A_ = TallArrays<kShm>;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ TallShared st;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const TallLayout L = tall_layout(H);
+  const int cid = blockIdx.x / kCS, n_clusters = gridDim.x / kCS;
+  float4* part = reinterpret_cast<float4*>(dyn + (kShm ? L.block_bytes : 0));
+  float2* stg = reinterpret_cast<float2*>(part + kDc);
+  if (tid < kCS) {  // a block's own shared memory through its local window (no DSMEM hop)
+    st.base[tid] =
+        !kShm ? ws + (static_cast<size_t>(cid) * kCS + tid) * L.block_bytes
+        : tid == rank
+            ? dyn
+            : static_cast<unsigned char*>(cluster.map_shared_rank(static_cast<void*>(dyn), tid));
+  }
+  __syncthreads();
+  cluster.sync();  // every block of the cluster runs before its memory is touched
+  const TallArrays<kShm> T{st.base, L, L.hb / kSeg};
+  auto csync = [&]() {
+    if constexpr (!kShm) __threadfence();
+    cluster.sync();
+  };
+  const int Hr = (H + kCS - 1) / kCS;  // map rows a block reads
+  const int y_lo = min(H, rank * Hr), y_hi = min(H, y_lo + Hr);
+
+  for (int comp = cid; comp < n_comp; comp += n_clusters) {
+    const long long rbase = static_cast<long long>(comp) * H;
+    const int b = comp / K;
+    float* o = out + static_cast<long long>(b) * 9 * K + (comp - b * K);
+    TALL_STAMP(0);
+
+    // A. the valid rows: counts and extents, then compacted in order
+    int cnt = 0, mn = kBig, mx = -kBig;
+    for (int y = y_lo + tid; y < y_hi; y += kCT) {
+      const int r = maxx[rbase + y];
+      if (r >= 0) {
+        ++cnt;
+        mn = min(mn, minx[rbase + y]);
+        mx = max(mx, r);
+      }
+    }
+    cnt = block_sum(cnt, st.red_i);
+    mn = block_min(mn, st.red_i);
+    mx = block_max(mx, st.red_i);
+    if (tid == 0) {
+      *T.scal(rank, kSValid) = cnt;
+      *T.scal(rank, kSMn) = mn;
+      *T.scal(rank, kSMx) = mx;
+    }
+    csync();
+    int n = 0, off = 0;
+    for (int r = 0; r < kCS; ++r) {
+      const int c = A_::rd(T.scal(r, kSValid));
+      off += r < rank ? c : 0;
+      n += c;
+      mn = min(mn, A_::rd(T.scal(r, kSMn)));
+      mx = max(mx, A_::rd(T.scal(r, kSMx)));
+    }
+    // a component of at most kSoloRows rows is finished by block 0 alone,
+    // with block barriers (its arrays stay where they are, reached through
+    // distributed shared memory); the others wait at the closing barrier
+    const bool solo = n <= kSoloRows;
+    const int nr = solo ? 1 : kCS;  // the blocks whose scalars count
+    auto ssync = [&]() {
+      if (solo) {
+        __syncthreads();
+      } else {
+        csync();
+      }
+    };
+    if (n == 0) {  // no row: the horizontal candidate's empty extents, no edge
+      if (rank == 0 && tid == 0) {
+        const float vals[9] = {1.f, 0.f, static_cast<float>(mn), static_cast<float>(mx),
+                               static_cast<float>(kBig), static_cast<float>(-kBig), 0.f, 0.f, 0.f};
+        for (int r = 0; r < 9; ++r) o[r * K] = vals[r];
+      }
+      csync();  // the scalars are the next component's
+      continue;
+    }
+    for (int y0 = y_lo; y0 < y_hi; y0 += kCT) {
+      const int y = y0 + tid;
+      const int l = y < y_hi ? minx[rbase + y] : 0;
+      const int r = y < y_hi ? maxx[rbase + y] : -1;
+      const bool ok = r >= 0;
+      const int P = compact_slot<kCT>(ok, off, st.cnt);
+      if (ok)
+        *T.row(P) = make_float4(static_cast<float>(l), static_cast<float>(r),
+                                static_cast<float>(y), 0.f);
+    }
+    csync();
+    TALL_STAMP(1);
+
+    if (solo && n <= L.hb && rank != 0) {  // block 0 holds every position
+      csync();  // block 0's closing barrier
+      continue;
+    }
+
+    // R. the lockstep's first round, each block over its own positions
+    // (block 0 over all where it holds them all), the blocks' results met
+    // at one cluster barrier: a chain convex in every block skips B
+    const int own_lo = min(n, rank * L.hb), own_hi = min(n, own_lo + L.hb);
+    int moving;  // bit c: chain c has a concave row; its kept rows come from its merged hull
+    if (solo && n <= L.hb) {
+      moving = concave_chains<kShm>(T, n, 0, n);
+    } else {
+      const int concave = concave_chains<kShm>(T, n, own_lo, own_hi);
+      if (tid == 0) *T.scal(rank, kSConcave) = concave;
+      csync();
+      moving = 0;
+      for (int r = 0; r < kCS; ++r) moving |= A_::rd(T.scal(r, kSConcave));
+      if (solo && rank != 0 && moving == 0) {  // block 0 finishes alone
+        csync();  // block 0's closing barrier
+        continue;
+      }
+    }
+    TALL_STAMP(2);
+
+    // B. level 0: each segment's strict hull vertices on each moving chain
+    // (the right chain's x negated), by the slope rule within the warp
+    const int S = mx + 1;  // > |dx| of any two points: a slope sentinel
+    const int nseg = (n + kSeg - 1) / kSeg;
+    const int s_lo = rank * T.hs, s_hi = min(nseg, s_lo + T.hs);  // the block's segments
+    if (moving != 0) {
+      for (int s = s_lo + warp; s < s_hi; s += kCW) {
+        const int P = s * kSeg + lane;
+        const bool ok = P < n;
+        const float4 q = ok ? A_::rd(T.row(P)) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int yy = static_cast<int>(q.z);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (!((moving >> c) & 1)) continue;
+          const int xx = c == 0 ? static_cast<int>(q.x) : -static_cast<int>(q.y);
+          const bool vert = strict_vertex(xx, yy, min(kSeg, n - s * kSeg), S, lane);
+          const unsigned m = __ballot_sync(kFull, vert);
+          if (vert) *T.hull(c, s * kSeg + __popc(m & below)) = make_int2(xx, yy);
+          if (lane == 0) *T.cnt(c, s) = __popc(m);
+        }
+      }
+      // the merge levels: groups of 2, 4, ... segments, each merged by the
+      // warp of the block that holds its first segment; a solo component's
+      // levels past the block-local ones are block 0's alone (one cluster
+      // barrier hands them over), so every block's warps take level 0
+      bool alone = solo && n <= L.hb;  // block 0 works alone
+      for (int lv = 0; (1 << lv) < nseg; ++lv) {
+        const int gsz = 2 << lv;
+        const bool local = T.hs % gsz == 0;
+        if (solo && !alone && !local) {
+          csync();
+          alone = true;
+          if (rank != 0) break;
+        }
+        if (alone || local) {
+          __syncthreads();  // the group's halves were written by this block
+        } else {
+          csync();
+        }
+        const int g_lo = alone ? 0 : (s_lo + gsz - 1) / gsz;
+        const int g_hi = alone ? (nseg + gsz - 1) / gsz
+                               : min((s_lo + T.hs + gsz - 1) / gsz, (nseg + gsz - 1) / gsz);
+        for (int w = warp; w < 2 * (g_hi - g_lo); w += kCW) {  // a warp a group and chain
+          const int sA = (g_lo + (w >> 1)) * gsz, sB = sA + gsz / 2;
+          if (sB < nseg && ((moving >> (w & 1)) & 1)) merge_hulls<kShm>(T, w & 1, sA, sB, lane);
+        }
+      }
+      if (solo && !alone) csync();  // every level stayed inside the blocks: hand over here
+      if (solo && rank != 0) {
+        csync();  // block 0's closing barrier
+        continue;
+      }
+    }
+    ssync();
+    TALL_STAMP(3);
+    TALL_INFO(0, n);
+    TALL_INFO(1, moving);
+
+    // C. the kept rows: on a chain convex in R every row, on a moving one a
+    // point on its merged hull, a vertex or on an edge; ranked across the
+    // cluster (both chains convex: kept point P is row P, written by the
+    // block that holds it)
+    const int p_lo = solo ? 0 : rank * L.hb, p_hi = solo ? n : min(n, p_lo + L.hb);
+    int nk0 = n, nk1 = n;
+    if (moving == 0) {
+      for (int P = p_lo + tid; P < p_hi; P += kCT) {
+        const float4 q = A_::rd(T.row(P));
+        *T.hull(0, P) = make_int2(static_cast<int>(q.x), static_cast<int>(q.z));
+        *T.hull(1, P) = make_int2(static_cast<int>(q.y), static_cast<int>(q.z));
+      }
+    } else {
+      const int nv0 = moving & 1 ? A_::rd(T.cnt(0, 0)) : 0;
+      const int nv1 = moving & 2 ? A_::rd(T.cnt(1, 0)) : 0;
+      int kc0 = 0, kc1 = 0;
+      for (int P = p_lo + tid; P < p_hi; P += kCT) {
+        const float4 q = A_::rd(T.row(P));
+        const int yy = static_cast<int>(q.z);
+        unsigned char k = 0;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          bool on = true;
+          if ((moving >> c) & 1) {
+            const int xx = c == 0 ? static_cast<int>(q.x) : -static_cast<int>(q.y);
+            int lo = 0, hi = (c == 0 ? nv0 : nv1) - 1;  // the last vertex at or above the row
+            while (lo < hi) {
+              const int mid = (lo + hi + 1) >> 1;
+              if (A_::rd(T.hull(c, mid)).y <= yy) {
+                lo = mid;
+              } else {
+                hi = mid - 1;
+              }
+            }
+            const int2 v = A_::rd(T.hull(c, lo));
+            on = v.y == yy;
+            if (!on) {
+              const int2 w = A_::rd(T.hull(c, lo + 1));
+              on = (xx - v.x) * (w.y - v.y) == (w.x - v.x) * (yy - v.y);
+            }
+          }
+          if (on) k |= static_cast<unsigned char>(1u << c);
+        }
+        kc0 += k & 1;
+        kc1 += k >> 1;
+        *T.kept(P) = k;
+      }
+      kc0 = block_sum(kc0, st.red_i);
+      kc1 = block_sum(kc1, st.red_i);
+      if (tid == 0) {
+        *T.scal(rank, kSKeptL) = kc0;
+        *T.scal(rank, kSKeptR) = kc1;
+      }
+      ssync();  // every block is done with the hulls: the kept points replace them
+      int o0 = 0, o1 = 0;
+      nk0 = nk1 = 0;
+      for (int r = 0; r < nr; ++r) {
+        const int c0 = A_::rd(T.scal(r, kSKeptL)), c1 = A_::rd(T.scal(r, kSKeptR));
+        o0 += r < rank ? c0 : 0;
+        o1 += r < rank ? c1 : 0;
+        nk0 += c0;
+        nk1 += c1;
+      }
+      for (int P0 = p_lo; P0 < p_hi; P0 += kCT) {
+        const int P = P0 + tid;
+        const bool own = P < p_hi;
+        const unsigned k = own ? A_::rd(T.kept(P)) : 0u;
+        const float4 q = own ? A_::rd(T.row(P)) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int r0 = compact_slot<kCT>(k & 1u, o0, st.cnt);
+        if (k & 1u) *T.hull(0, r0) = make_int2(static_cast<int>(q.x), static_cast<int>(q.z));
+        const int r1 = compact_slot<kCT>((k >> 1) & 1u, o1, st.cnt);
+        if (k & 2u) *T.hull(1, r1) = make_int2(static_cast<int>(q.y), static_cast<int>(q.z));
+      }
+    }
+    ssync();
+    TALL_STAMP(4);
+
+    // D. the directions: candidate e of a chain is the edge from kept point
+    // e to e + 1, left chain first; kept unless equal to the one before it
+    const int ndl = max(nk0 - 1, 0), ndir = ndl + max(nk1 - 1, 0);
+    const int c_lo = solo ? 0 : min(ndir, rank * L.db), c_hi = solo ? ndir : min(ndir, c_lo + L.db);
+    auto candidate = [&](int cc, float& ex, float& ey) {
+      const int ch = cc < ndl ? 0 : 1, e = ch ? cc - ndl : cc;
+      const int2 p0 = A_::rd(T.hull(ch, e)), p1 = A_::rd(T.hull(ch, e + 1));
+      ex = static_cast<float>(p1.x - p0.x);
+      ey = static_cast<float>(p1.y - p0.y);
+      if (e == 0) return true;
+      const int2 pm = A_::rd(T.hull(ch, e - 1));
+      return p1.x - p0.x != p0.x - pm.x || p1.y - p0.y != p0.y - pm.y;
+    };
+    {
+      int kd = 0;
+      for (int cc = c_lo + tid; cc < c_hi; cc += kCT) {
+        float ex, ey;
+        kd += candidate(cc, ex, ey);
+      }
+      kd = block_sum(kd, st.red_i);
+      if (tid == 0) *T.scal(rank, kSDirs) = kd;
+    }
+    ssync();
+    int nd = 0, od = 0;
+    for (int r = 0; r < nr; ++r) {
+      const int c = A_::rd(T.scal(r, kSDirs));
+      od += r < rank ? c : 0;
+      nd += c;
+    }
+    for (int c0 = c_lo; c0 < c_hi; c0 += kCT) {
+      const int cc = c0 + tid;
+      float ex = 0.f, ey = 0.f;
+      const bool keep = cc < c_hi && candidate(cc, ex, ey);
+      const int jd = compact_slot<kCT>(keep, od, st.cnt);
+      if (keep) {
+        const float el2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
+        const float inv = rsqrtf(fmaxf(el2, 1e-30f));
+        *T.dir(0, jd) = __fmul_rn(ex, inv);
+        *T.dir(1, jd) = __fmul_rn(ey, inv);
+      }
+    }
+    ssync();
+    TALL_STAMP(5);
+
+    // E. projections: each block every direction over its rows, kDc
+    // directions at a time, the blocks' extremes reduced across the cluster
+    for (int j0 = 0; j0 < nd; j0 += kDc) {
+      const int m = min(kDc, nd - j0);
+      for (int jj = tid; jj < m; jj += kCT)
+        stg[jj] = make_float2(A_::rd(T.dir(0, j0 + jj)), A_::rd(T.dir(1, j0 + jj)));
+      __syncthreads();
+      int G = 1;
+      while (G < 32 && m * 2 * G <= kCT) G *= 2;
+      const int groups = kCT / G, g = tid / G, gl = tid - g * G;
+      for (int jb = 0; jb < m; jb += groups) {
+        const int jj = jb + g;
+        const bool own = jj < m;
+        const float2 u = own ? stg[jj] : make_float2(0.f, 0.f);
+        float mnu = kInf, mxu = -kInf, mnv = kInf, mxv = -kInf;
+        if (own) {
+#pragma unroll 2
+          for (int P = p_lo + gl; P < p_hi; P += G) {
+            const float4 q = A_::rd(T.row(P));
+            project(u.x, u.y, q.x, q.z, mnu, mxu, mnv, mxv);
+            project(u.x, u.y, q.y, q.z, mnu, mxu, mnv, mxv);
+          }
+        }
+        for (int sh = G >> 1; sh > 0; sh >>= 1) {
+          mnu = fminf(mnu, __shfl_xor_sync(kFull, mnu, sh));
+          mxu = fmaxf(mxu, __shfl_xor_sync(kFull, mxu, sh));
+          mnv = fminf(mnv, __shfl_xor_sync(kFull, mnv, sh));
+          mxv = fmaxf(mxv, __shfl_xor_sync(kFull, mxv, sh));
+        }
+        if (own && gl == 0) part[jj] = make_float4(mnu, mxu, mnv, mxv);
+      }
+      if (solo) {  // every block's partial extremes
+        __syncthreads();
+      } else {
+        cluster.sync();
+      }
+      for (int jj = solo ? tid : rank + kCS * tid; jj < m; jj += solo ? kCT : kCS * kCT) {
+        float mnu = kInf, mxu = -kInf, mnv = kInf, mxv = -kInf;
+        for (int r = 0; r < nr; ++r) {
+          const float4 pr = *cluster.map_shared_rank(part + jj, r);
+          mnu = fminf(mnu, pr.x);
+          mxu = fmaxf(mxu, pr.y);
+          mnv = fminf(mnv, pr.z);
+          mxv = fmaxf(mxv, pr.w);
+        }
+        const float2 u = stg[jj];
+        const int j = j0 + jj;
+        *T.dir(2, j) = mnu;
+        *T.dir(3, j) = mxu;
+        *T.dir(4, j) = mnv;
+        *T.dir(5, j) = mxv;
+        *T.dir(6, j) = __fmul_rn(__fsub_rn(mxu, mnu), __fsub_rn(mxv, mnv));
+        *T.dir(7, j) = fold_phi_key(u.x, u.y);
+      }
+      ssync();  // the partials and staged directions are the next chunk's
+    }
+    TALL_STAMP(6);
+
+    // F. selection: min area (the horizontal candidate's too), the caliper
+    // key among the ties, the lowest direction among those
+    const int j_lo = solo ? 0 : min(nd, rank * L.db), j_hi = solo ? nd : min(nd, j_lo + L.db);
+    float am = kInf;
+    for (int j = j_lo + tid; j < j_hi; j += kCT) am = fminf(am, A_::rd(T.dir(6, j)));
+    am = block_min_f(am, st.red_f);
+    if (tid == 0) *T.scal(rank, kSAmin) = __float_as_int(am);
+    const float4 q0 = A_::rd(T.row(0)), q1 = A_::rd(T.row(n - 1));
+    const bool hok = q0.y - q0.x > 0.f || q1.y - q1.x > 0.f;
+    const float h_area =
+        hok ? __fmul_rn(static_cast<float>(mx - mn), __fsub_rn(q1.z, q0.z)) : kInf;
+    ssync();
+    float amin = kInf;
+    for (int r = 0; r < nr; ++r) amin = fminf(amin, __int_as_float(A_::rd(T.scal(r, kSAmin))));
+    amin = fminf(amin, h_area);
+    const float thresh = __fadd_rn(__fmul_rn(amin, 1.000001f), 1e-9f);
+    float ph = kInf;
+    for (int j = j_lo + tid; j < j_hi; j += kCT)
+      if (A_::rd(T.dir(6, j)) <= thresh) ph = fminf(ph, A_::rd(T.dir(7, j)));
+    ph = block_min_f(ph, st.red_f);
+    if (tid == 0) *T.scal(rank, kSPhi) = __float_as_int(ph);
+    ssync();
+    float best = (hok && h_area <= thresh) ? 0.f : kInf;
+    for (int r = 0; r < nr; ++r) best = fminf(best, __int_as_float(A_::rd(T.scal(r, kSPhi))));
+    int first = INT_MAX;
+    for (int j = j_lo + tid; j < j_hi; j += kCT) {
+      if (A_::rd(T.dir(6, j)) <= thresh && A_::rd(T.dir(7, j)) <= best) {
+        first = j;
+        break;
+      }
+    }
+    first = block_min(first, st.red_i);
+    if (tid == 0) *T.scal(rank, kSFirst) = first;
+    ssync();
+    if (rank == 0 && tid == 0) {
+      for (int r = 0; r < nr; ++r) first = min(first, A_::rd(T.scal(r, kSFirst)));
+      float vals[6];
+      if (first != INT_MAX) {
+        for (int a = 0; a < 6; ++a) vals[a] = A_::rd(T.dir(a, first));
+      } else {
+        vals[0] = 1.f;
+        vals[1] = 0.f;
+        vals[2] = static_cast<float>(mn);
+        vals[3] = static_cast<float>(mx);
+        vals[4] = q0.z;
+        vals[5] = q1.z;
+      }
+      for (int r = 0; r < 6; ++r) o[r * K] = vals[r];
+      o[6 * K] = (first != INT_MAX || hok) ? 1.f : 0.f;
+      o[7 * K] = q0.x;
+      o[8 * K] = q0.z;
+      TALL_STAMP(7);
+    }
+    csync();  // block 0 has read every block's arrays; they are the next component's
+  }
+}
+
+template <bool kShm>
+int launch_cluster(const void* minx, const void* maxx, void* out, void* ws, int n_comp, int K,
+                   int H, int clusters, const TallLayout& L, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(rect_cluster_kernel<kShm>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rect_cluster_kernel<kShm><<<clusters * kCS, kCT, L.smem, stream>>>(
+      static_cast<const int*>(minx), static_cast<const int*>(maxx), static_cast<float*>(out),
+      static_cast<unsigned char*>(ws), n_comp, K, H);
+  return launch_status();
+}
+
+int launch_tall(const void* minx, const void* maxx, void* out, void* ws, int B, int K, int H,
+                int slots, cudaStream_t stream) {
+  if (B <= 0 || K <= 0 || H <= 0 || static_cast<long long>(B) * K * H >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const TallLayout L = tall_layout(H);
+  const int n_comp = B * K;
+  if (L.in_shared) return launch_cluster<true>(minx, maxx, out, ws, n_comp, K, H, n_comp, L, stream);
+  if (ws == nullptr || slots <= 0) return cudaErrorInvalidValue;
+  return launch_cluster<false>(minx, maxx, out, ws, n_comp, K, H, min(n_comp, slots), L, stream);
 }
 
 template <bool kExact>
@@ -658,30 +1402,37 @@ extern "C" int rect_select_exact(const void* minx, const void* maxx, void* out,
   return launch_rect<true>(minx, maxx, out, B, K, H, H, stream);
 }
 
-// The same for any H, the tall instance: ``ws`` holds ``slots`` workspace
-// slots of rect_tall_slot_bytes(H) (16-byte aligned), one a block.
+// The same for any H, the tall instance (one component a cluster): its
+// arrays in the cluster's shared memory where they fit (``ws`` unused),
+// else ``ws`` holds ``slots`` workspace slots of rect_tall_slot_size(H)
+// bytes, one a resident cluster.
 extern "C" int rect_select_exact_tall(const void* minx, const void* maxx, void* out, void* ws,
                                       int B, int K, int H, int slots, void* stream) {
-  if (B <= 0 || K <= 0 || H <= 0 || slots <= 0 ||
-      static_cast<long long>(B) * K * H >= (1LL << 31))
-    return cudaErrorInvalidValue;
-  const size_t smem = rect_bitmask_bytes(H);
-  if (smem + sizeof(RectShared<kTallThreads>) > kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(rect_tall_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_comp = B * K;
-  rect_tall_kernel<<<n_comp < slots ? n_comp : slots, kTallThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(minx), static_cast<const int*>(maxx), static_cast<float*>(out),
-      static_cast<unsigned char*>(ws), n_comp, K, H);
-  return launch_status();
+  return launch_tall(minx, maxx, out, ws, B, K, H, slots, static_cast<cudaStream_t>(stream));
 }
 
-// The exact kernel's height cap and the tall instance's bytes a workspace
-// slot (H < 2^24), from the formulas the kernels use; the wrapper computes
-// the same from its copy of them, and the card's tests hold the two equal.
+// The exact kernel's height cap, from the formula the kernel uses; the
+// wrapper computes the same from its copy of it, and the card's tests hold
+// the two equal.
 extern "C" int rect_exact_max_height() { return kMaxExactHeight; }
 
-extern "C" int rect_tall_slot_size(int H) { return static_cast<int>(rect_tall_slot_bytes(H)); }
+// The tall instance's workspace a cluster (0 where its arrays fit the
+// cluster's shared memory).
+extern "C" int rect_tall_slot_size(int H) {
+  const TallLayout L = tall_layout(H);
+  return L.in_shared ? 0 : kCS * L.block_bytes;
+}
+
+// The tall instance's layout at H, as ops/cuda/rect_kernel.py tall_plan
+// computes it: cluster size, threads, rows and directions a block, the
+// arrays' offsets and bytes a block, dynamic shared memory, in shared
+// memory or not, static shared memory, the rows a block finishes alone (14
+// ints).
+extern "C" int rect_tall_plan(int H, int* out) {
+  const TallLayout L = tall_layout(H);
+  const int v[14] = {kCS, kCT, L.hb, L.db, L.off_hull, L.off_dirs, L.off_cnt, L.off_kept,
+                     L.off_scal, L.block_bytes, L.smem, L.in_shared,
+                     static_cast<int>(sizeof(TallShared)), kSoloRows};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
+  return 0;
+}

@@ -104,13 +104,16 @@ def load(name: str, functions: dict[str, list]) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in functions.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
+        lib._typed = set()
         _LIBS[name] = lib
+    # several wrappers share a library, each naming its own entry points
+    for fn in functions.keys() - lib._typed:
+        f = getattr(lib, fn)
+        f.argtypes = functions[fn]
+        f.restype = ctypes.c_int
+        lib._typed.add(fn)
     return lib
 
 

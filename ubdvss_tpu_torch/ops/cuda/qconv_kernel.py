@@ -18,8 +18,13 @@ On the card the trunk is three kernels (``csrc/qstem_kernel.cu``,
     f32 logits out.
 
 The calibration's bias correction reads each layer alone, with its f32
-pre-activation: ``qconv_layer`` (``csrc/qconv_layer_kernel.cu``, dp4a, one
-thread a pixel) runs any single layer, int8 or f32 out.
+pre-activation, and computes its accumulator once (as the JAX package's
+``bias_correct_qparams``): ``qconv_layer_f32`` writes a layer's
+``acc * ws + b`` and the exact ``(float)acc`` in one launch — layer 0 by
+``qlayer0_tc`` in ``csrc/qstem_kernel.cu``, every int8-input layer (3x3 at
+stride 1 or 2, the 1x1 head) by ``qconv_tc_kernel`` with an f32 epilogue —
+and ``requantize`` turns the accumulators into the next layer's int8 input
+with the corrected bias (``qrequant``, ``csrc/qconv_kernel.cu``).
 
 Every index the kernels rely on — the tiles and their halos, the split of
 a dilated layer into row phases, the (tap, channel word) order of the
@@ -84,6 +89,32 @@ def quantize_input(x: torch.Tensor, raw_gray: bool) -> torch.Tensor:
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8).reshape(x.shape[:3] + (1,))
 
 
+def qconv_acc_reference(x: torch.Tensor, layer: dict, stride: int, dil: int,
+                        raw_gray: bool = False) -> torch.Tensor:
+    """Plain version of a layer's accumulator: int8 (B, H, W, Cin) -> the
+    exact int32 sums as f32 (B, Ho, Wo, Cout) (|acc| < 2^24 at 32 input
+    channels).  A non-int8 ``x`` is the image of layer 0 and is quantized
+    first (``quantize_input``)."""
+    if x.dtype != torch.int8:
+        x = quantize_input(x, raw_gray)
+    k = layer["q"].permute(3, 2, 0, 1).to(torch.float64)  # HWIO -> OIHW
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = conv2d_same(x.permute(0, 3, 1, 2).to(torch.float64), k, None, stride, dil)
+    return acc.to(torch.float32).permute(0, 2, 3, 1).contiguous()
+
+
+def requantize_reference(acc: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
+                         s_out: torch.Tensor | None) -> torch.Tensor:
+    """The epilogue on exact accumulators (..., C): ``acc * ws + b`` as the
+    exact f64 product plus the bias rounded once to f32; with ``s_out`` then
+    ReLU, ``round(y * s_out)`` half to even, clamp to +-127, int8."""
+    y = (acc.to(torch.float64) * ws.to(torch.float64) + b.to(torch.float64)).to(torch.float32)
+    if s_out is None:
+        return y
+    r = torch.round(torch.clamp(y, min=0.0) * s_out.to(torch.float32))
+    return torch.clamp(r, -127, 127).to(torch.int8)
+
+
 def qconv_reference(
     x: torch.Tensor, layer: dict, s_out: torch.Tensor | None, stride: int, dil: int,
     raw_gray: bool = False,
@@ -91,20 +122,8 @@ def qconv_reference(
     """Plain version of one layer: int8 (B, H, W, Cin) -> int8 (B, Ho, Wo,
     Cout), or f32 logits when ``s_out`` is None.  A non-int8 ``x`` is the
     image of layer 0 and is quantized first (``quantize_input``)."""
-    if x.dtype != torch.int8:
-        x = quantize_input(x, raw_gray)
-    k = layer["q"].permute(3, 2, 0, 1).to(torch.float64)  # HWIO -> OIHW
-    with torch.backends.cudnn.flags(enabled=False):
-        acc = conv2d_same(x.permute(0, 3, 1, 2).to(torch.float64), k, None, stride, dil)
-    # (float)acc, then the exact f64 product plus the bias, rounded once
-    acc = acc.to(torch.float32).to(torch.float64)
-    ws = layer["ws"].to(torch.float64).view(1, -1, 1, 1)
-    b = layer["b"].to(torch.float64).view(1, -1, 1, 1)
-    y = (acc * ws + b).to(torch.float32)
-    if s_out is not None:
-        r = torch.round(torch.clamp(y, min=0.0) * s_out.to(torch.float32).view(1, -1, 1, 1))
-        y = torch.clamp(r, -127, 127).to(torch.int8)
-    return y.permute(0, 2, 3, 1).contiguous()
+    acc = qconv_acc_reference(x, layer, stride, dil, raw_gray)
+    return requantize_reference(acc, layer["ws"], layer["b"], s_out).contiguous()
 
 
 def qstem_reference(x, layer0, s1, layer1, s2, raw_gray=False) -> torch.Tensor:
@@ -136,7 +155,7 @@ PLAN_FIELDS = (
     "smem", "off_w", "off_w0", "off_vec", "off_stage", "stage_bytes", "off_tile", "tile_bytes",
     "off_l0", "off_raw", "raw_bytes", "raw_row", "row_words", "align16",
     "H0", "W0", "pt0", "pl0", "pt1", "pl1", "l0h", "l0w", "inh", "inw", "c0", "in_kind",
-    "in_row", "l0w_magic", "acc_wide",
+    "in_row", "l0w_magic", "acc_wide", "stride", "ks", "pad_t", "pad_l", "f32",
 )
 IN_U8_RAW, IN_F32_RAW, IN_F32_NORM = 1, 2, 3
 
@@ -170,7 +189,12 @@ def _acc_wide(nw: int) -> int:
     return int(36 * nw * 128 * 128 >= 1 << 22)
 
 
-def _k_order(nw: int, cin: int, cout: int, word_offset) -> tuple[list, list, int]:
+_TAPS_3X3 = tuple((ty, tx, 3 * ty + tx) for ty in range(3) for tx in range(3))
+_TAPS_1X1 = ((1, 1, 0),)  # a 1x1 kernel read at the centre of a 3x3 window
+
+
+def _k_order(nw: int, cin: int, cout: int, word_offset,
+             taps=_TAPS_3X3) -> tuple[list, list, int]:
     """The MMA's K dimension as (tap, channel word) pairs, padded with zero
     weights to a whole number of 32-byte k steps.  K word j = 8 s + 4 r + t
     of step s is what lane t holds in register r of the A (and B) fragment.
@@ -180,24 +204,28 @@ def _k_order(nw: int, cin: int, cout: int, word_offset) -> tuple[list, list, int
         words 2 (q % (nw/2)) + r, r = 0, 1;
       * nw odd: K word j < 9 nw is tap j // nw, channel word j % nw.
 
-    Taps are row-major in the 3x3 window.  Returns, for each of the
-    ``MAX_K_WORDS`` words, the shared-memory word offset of its A operand
-    from a pixel's first tap (``word_offset(ty, tx, cw)``; 0 for padding,
-    whose B words are zero) and the HWIO byte index of its B word's first
-    channel at output 0 (-1 for padding), and the number of k steps."""
-    nsteps = -(-9 * nw // 8)
+    ``taps`` are (window row, window column, HWIO tap index): row-major in
+    the 3x3 window, or the centre alone for a 1x1 kernel.  Returns, for
+    each of the ``MAX_K_WORDS`` words, the shared-memory word offset of its
+    A operand from a pixel's first tap (``word_offset(ty, tx, cw)``; 0 for
+    padding, whose B words are zero) and the HWIO byte index of its B
+    word's first channel at output 0 (-1 for padding), and the number of k
+    steps."""
+    n = len(taps)
+    nsteps = -(-n * nw // 8)
     a_off, b_src = [0] * MAX_K_WORDS, [-1] * MAX_K_WORDS
     if nw % 2 == 0:
         words = []
-        for q in range(9 * nw // 2):
+        for q in range(n * nw // 2):
             s, t = divmod(q, 4)
             tap, cp = divmod(q, nw // 2)
             words += [(8 * s + 4 * r + t, tap, 2 * cp + r) for r in (0, 1)]
     else:
-        words = [(j, *divmod(j, nw)) for j in range(9 * nw)]
+        words = [(j, *divmod(j, nw)) for j in range(n * nw)]
     for j, tap, cw in words:
-        a_off[j] = word_offset(tap // 3, tap % 3, cw)
-        b_src[j] = (tap * cin + 4 * cw) * cout
+        ty, tx, k = taps[tap]
+        a_off[j] = word_offset(ty, tx, cw)
+        b_src[j] = (k * cin + 4 * cw) * cout
     return a_off, b_src, nsteps
 
 
@@ -247,7 +275,8 @@ class TilePlan:
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: int = 1,
-              c0: int = 0, nh: int = 0, in_kind: int = 0) -> TilePlan:
+              c0: int = 0, nh: int = 0, in_kind: int = 0, stride: int = 1,
+              ks: int = 3) -> TilePlan:
     """The launch plan of one kernel call (cached: a serving loop asks for
     the same few shapes, and building a plan takes tens of microseconds of
     host time).
@@ -274,45 +303,110 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
     padding), and convolves them.  The next tile's raw window (the image's
     bytes or floats) is staged by cp.async into a second buffer meanwhile;
     a uint8 row is copied as the aligned 4-byte words that hold it.
+
+    The calibration's kinds, one layer alone with an f32 epilogue (``acc *
+    ws + b`` and the exact ``(float)acc``):
+
+      * ``kind="layer"``: an int8 (B, H, W, cin) map through a ``ks`` x
+        ``ks`` kernel — 3x3 at ``stride`` 1 with dilation ``dil`` (the
+        context layers, tiled as "conv"), 3x3 at stride 2 (layer 1: a tile
+        of ``th`` x ``tw`` outputs reads 2 th + 1 halo rows of 2 tw + 1
+        columns), or 1x1 (the head, read as the centre tap of a 3x3 window,
+        its K one tap's words) — to ``cout`` <= 32 f32 channels; the
+        kernel's f32 instances take four n8 tiles whatever ``cout``;
+      * ``kind="layer0"``: layer 0 on a (B, H, W) image (``in_kind``) to
+        ``cout`` channels: ``th`` x ``tw`` tiles of its outputs, each
+        reading and quantizing its (2 th + 1) x (2 tw + 1) input window as
+        the stem does.
     """
+    if kind == "layer" and (stride not in (1, 2) or ks not in (1, 3)
+                            or (dil != 1 and (stride != 1 or ks != 3))
+                            or (ks == 1 and stride != 1)):
+        raise ValueError(f"layer plan: stride {stride}, kernel {ks}x{ks}, dilation {dil}")
     f = dict.fromkeys(PLAN_FIELDS, 0)
     f.update(B=B, H=H, W=W, cin=cin, cout=cout, nh=nh, in_kind=in_kind, d=dil)
     nt = -(-cout // 8)
     vec = 6 * 32 * 4  # ws, b, s_out and the next three per-channel vectors
     k0_off, k0_src = [0] * 16, [-1] * 16
-    if kind == "conv":
+    if kind in ("conv", "layer"):
+        f32 = kind == "layer"
+        if f32:
+            nt, nh = 4, 0  # the f32 instances take every n8 tile
+        else:
+            stride, ks = 1, 3
         nw = cin // 4
-        Ho, Wo = H, W
-        phases = min(dil, H)
-        R = -(-H // dil)  # rows of the longest phase
-        n_ct = -(-W // _MAX_TW)
-        tw = _r16(-(-W // n_ct))
-        # a warp's staging: two int8 runs, or one int8 run and its logits
-        stage = _r16(16 * cout) + (_r16(64 * nh + 16) if nh else _r16(16 * cout) + 32)
-        fixed = (_r16(-(-9 * nw // 8) * nt * 256) + (4 * 256 if nh else 0) + _r16(vec)
+        if stride == 1:
+            Ho, Wo = H, W
+            phases = min(dil, H)
+            R = -(-H // dil)  # rows of the longest phase
+        else:
+            Ho, Wo = -(-H // 2), -(-W // 2)
+            phases, R = 1, Ho
+        n_ct = -(-Wo // _MAX_TW)
+        tw = _r16(-(-Wo // n_ct))
+        taps = _TAPS_3X3 if ks == 3 else _TAPS_1X1
+        # a warp's staging: two int8 runs, or one int8 run and its logits,
+        # or (f32) one run of f32 outputs
+        stage = (_r16(64 * cout + 16) if f32 else
+                 _r16(16 * cout) + (_r16(64 * nh + 16) if nh else _r16(16 * cout) + 32))
+        fixed = (_r16(-(-len(taps) * nw // 8) * nt * 256) + (4 * 256 if nh else 0) + _r16(vec)
                  + WARPS * stage)
+        halo_w = tw + 2 * dil if stride == 1 else 2 * tw + 1
+
+        def halo_rows(th):
+            return th + 2 if stride == 1 else 2 * th + 1
+
         # the tile's rows: three blocks an SM, enough tiles for the card,
         # and the phase's rows split evenly
         th = min(_MAX_TH, R)
-        while th > 2 and fixed + 2 * (th + 2) * _r16((tw + 2 * dil) * cin + 15) > _SMEM_TARGET:
+        while th > 2 and fixed + 2 * halo_rows(th) * _r16(halo_w * cin + 15) > _SMEM_TARGET:
             th -= 1
         while th > 2 and B * phases * -(-R // th) * n_ct < _MIN_BLOCKS:
             th = -(-th // 2)
         th = -(-R // -(-R // th))
-        halo_h, halo_w = th + 2, tw + 2 * dil
+        halo_h = halo_rows(th)
         # a halo row in shared memory: whole 16-byte chunks, room for the
-        # shift that matches the source's alignment (align16: every map row
-        # is whole 16-byte chunks, so one shift serves the tile's rows)
+        # shift that matches the source's alignment (align16: every map row is
+        # whole 16-byte chunks, so one shift serves the tile's rows)
         row_words = _r16(halo_w * cin + 15) // 4
         a_off, b_src, nsteps = _k_order(nw, cin, cout,
-                                        lambda ty, tx, cw: ty * row_words + tx * dil * nw + cw)
+                                        lambda ty, tx, cw: ty * row_words + tx * dil * nw + cw,
+                                        taps)
+        if ks == 1:
+            pad_t = pad_l = 1  # the centre of the window is the output pixel
+        else:
+            pad_t, pad_l = same_pad(H, 3, stride, dil)[0], same_pad(W, 3, stride, dil)[0]
         f.update(phases=phases, n_rt=-(-R // th), n_ct=n_ct, halo_h=halo_h, halo_w=halo_w,
-                 row_step=_row_step(nw, 1), row_words=row_words, align16=int(W * cin % 16 == 0),
-                 acc_wide=_acc_wide(nw))
+                 row_step=_row_step(nw, stride), row_words=row_words,
+                 align16=int(W * cin % 16 == 0), acc_wide=_acc_wide(nw), stride=stride, ks=ks,
+                 pad_t=pad_t, pad_l=pad_l, f32=int(f32))
         # a halo buffer; the second also stages the raw weights at block start
         w0_bytes = 4 * 64 * 4 if nh else 0
-        tile = max(halo_h * row_words * 4, _r16(9 * cin * cout) + _r16(cout * nh))
+        tile = max(halo_h * row_words * 4, _r16(ks * ks * cin * cout) + _r16(cout * nh))
         tiles, l0_bytes, raw_row, raw = 2 * tile, 0, 0, 0
+    elif kind == "layer0":
+        H0, W0 = -(-H // 2), -(-W // 2)
+        Ho, Wo, nw, nsteps = H0, W0, 0, 0
+        stage = _r16(64 * cout + 16)  # a warp's run of f32 outputs
+        a_off, b_src = [0] * MAX_K_WORDS, [-1] * MAX_K_WORDS
+        tw = 64 if W0 > 32 else 32
+        th = min(_MAX_TH, H0)
+        while th > 2 and B * -(-H0 // th) * -(-W0 // tw) < _MIN_BLOCKS:
+            th = -(-th // 2)
+        inh, inw = 2 * th + 1, 2 * tw + 1
+        in_row = -(-inw // 4) * 4
+        for ty in range(3):  # K byte 4 ty + tx: window row ty, column tx (as "stem")
+            for tx in range(4):
+                k0_off[4 * ty + tx] = ty * in_row + tx
+                k0_src[4 * ty + tx] = (3 * ty + tx) * cout if tx < 3 else -1
+        pt0, pl0 = same_pad(H, 3, 2)[0], same_pad(W, 3, 2)[0]
+        f.update(H0=H0, W0=W0, pt0=pt0, pl0=pl0, l0h=th, l0w=tw, inh=inh, inw=inw, c0=cout,
+                 phases=1, n_rt=-(-H0 // th), n_ct=-(-W0 // tw), in_row=in_row,
+                 l0w_magic=-(-(1 << 20) // tw), stride=2, ks=3, pad_t=pt0, pad_l=pl0, f32=1)
+        w0_bytes, tile = -(-cout // 8) * 32 * 4, _r16(inh * in_row + 4)
+        tiles, l0_bytes = tile, 0
+        raw_row = _r16((1 if in_kind == IN_U8_RAW else 4) * inw + 15)
+        raw = _r16(inh * raw_row)
     elif kind == "stem":
         H0, W0 = -(-H // 2), -(-W // 2)
         Ho, Wo = -(-H0 // 2), -(-W0 // 2)
@@ -528,54 +622,84 @@ def qstem(x: torch.Tensor, layer0: dict, s1: torch.Tensor, layer1: dict, s2: tor
 qstem.launches = 0
 
 
-_FUNCS_LAYER = {"qconv_layer": [_build.P] * 6 + [_build.I] * 13 + [_build.P]}
-_LAYER_INT8, _LAYER_F32_NORM = 0, 1
+_FUNCS_CONV_F32 = {"qconv_tc_f32": [_build.P] * 6 + [_PLAN, _build.I, _build.P],
+                   "qrequant": [_build.P] * 5 + [_build.L, _build.I, _build.P],
+                   "qconv_plan_ints": []}
+_FUNCS_LAYER0 = {"qlayer0_tc": [_build.P] * 6 + [_PLAN, _build.I, _build.P],
+                 "qconv_plan_ints": []}
 
 
-def qconv_layer(x: torch.Tensor, layer: dict, s_out: torch.Tensor | None, stride: int,
-                dil: int) -> torch.Tensor:
-    """One layer of the int8 trunk alone, any of its kinds, as the bias
-    correction walks them: ``x`` int8 NHWC activations, or for layer 0 the
-    normalized f32 image (B, H, W[, 1]); a 3x3 kernel with ``stride`` and
-    ``dil``, or the 1x1 head; int8 out requantized by ``s_out``, or with
-    ``s_out`` None the f32 pre-activation ``acc * ws + b`` (see
-    ``qconv_reference``).  A CUDA tensor launches ``csrc/qconv_layer_kernel.cu``
-    (dp4a); a CPU tensor takes ``qconv_reference``."""
+def qconv_layer_f32(x: torch.Tensor, layer: dict, stride: int, dil: int,
+                    with_acc: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer of the int8 trunk alone, as the bias correction reads it:
+    ``x`` int8 NHWC activations, or for layer 0 the normalized f32 image
+    (B, H, W[, 1]); a 3x3 kernel with ``stride`` and ``dil``, or the 1x1
+    head.  Returns the f32 pre-activation ``acc * ws + b`` (one rounding)
+    and, with ``with_acc``, the exact accumulator as f32 (else None), both
+    (B, Ho, Wo, Cout), from one pass over the input: on the card one
+    launch (``qlayer0_tc`` for layer 0, ``qconv_tc_f32`` for the others),
+    on the CPU ``qconv_acc_reference`` and ``requantize_reference``."""
     if x.device.type == "cpu":
-        return qconv_reference(x, layer, s_out, stride, dil)
+        acc = qconv_acc_reference(x, layer, stride, dil)
+        y = requantize_reference(acc, layer["ws"], layer["b"], None)
+        return y, acc if with_acc else None
     dev = x.device
     _build.check_input(layer["q"], "layer.q", torch.int8, 4, dev)
     ks, _, cin, cout = layer["q"].shape
+    if ks not in (1, 3):
+        raise ValueError(f"kernel {tuple(layer['q'].shape)}: expected 3x3 or 1x1")
     if x.dtype == torch.int8:
         _build.check_input(x, "x", torch.int8, 4)
-        kind = _LAYER_INT8
+        _check_layer(layer, "layer", dev, ks, x.shape[-1])
+        _caps(cin, (), (cout,))
+        B, H, W = x.shape[:3]
+        plan = tile_plan("layer", B, H, W, cin, cout, dil=dil, stride=stride, ks=ks)
+        lib, funcs, fn = "qconv_kernel", _FUNCS_CONV_F32, "qconv_tc_f32"
     else:
         if x.ndim == 4 and x.shape[-1] == 1:
             x = x[..., 0]
         _build.check_input(x, "x", torch.float32, 3)
-        kind = _LAYER_F32_NORM
-        if ks != 3:
-            raise ValueError(f"layer 0 is 3x3, got a kernel {tuple(layer['q'].shape)}")
-    if ks not in (1, 3):
-        raise ValueError(f"kernel {tuple(layer['q'].shape)}: expected 3x3 or 1x1")
-    _check_layer(layer, "layer", dev, ks, x.shape[-1] if kind == _LAYER_INT8 else 1)
-    _caps(cin if kind == _LAYER_INT8 else None,
-          *(((cout,), ()) if s_out is not None else ((), (cout,))))
-    if s_out is not None:
-        _check_scale(s_out, "s_out", cout, dev)
-    B, H, W = x.shape[:3]
-    ph, pw = same_pad(H, ks, stride, dil), same_pad(W, ks, stride, dil)
-    Ho, Wo = -(-H // stride), -(-W // stride)  # SAME
-    out = torch.empty((B, Ho, Wo, cout), device=dev,
-                      dtype=torch.float32 if s_out is None else torch.int8)
-    lib = _build.load("qconv_layer_kernel", _FUNCS_LAYER)
-    _build.launch(
-        lib, "qconv_layer", dev, x.data_ptr(), layer["q"].data_ptr(), layer["ws"].data_ptr(),
-        layer["b"].data_ptr(), None if s_out is None else s_out.data_ptr(), out.data_ptr(), kind,
-        B, H, W, cin, Ho, Wo, cout, ks, stride, dil, ph[0], pw[0],
-    )
-    qconv_layer.launches += 1
+        if ks != 3 or stride != 2 or dil != 1:
+            raise ValueError(f"layer 0 is 3x3 stride 2, got a kernel {tuple(layer['q'].shape)}, "
+                             f"stride {stride}, dilation {dil}")
+        _check_layer(layer, "layer", dev, 3, 1)
+        _caps(None, (), (cout,))
+        B, H, W = x.shape
+        plan = tile_plan("layer0", B, H, W, 1, cout, in_kind=IN_F32_NORM)
+        lib, funcs, fn = "qstem_kernel", _FUNCS_LAYER0, "qlayer0_tc"
+    y = torch.empty((B, plan.Ho, plan.Wo, cout), dtype=torch.float32, device=dev)
+    acc = torch.empty_like(y) if with_acc else None
+    _launch(lib, funcs, fn, dev, plan, x.data_ptr(), layer["q"].data_ptr(), layer["ws"].data_ptr(),
+            layer["b"].data_ptr(), y.data_ptr(), None if acc is None else acc.data_ptr())
+    qconv_layer_f32.launches += 1
+    return y, acc
+
+
+qconv_layer_f32.launches = 0
+
+
+def requantize(acc: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
+               s_out: torch.Tensor) -> torch.Tensor:
+    """A layer's exact accumulators (f32 (..., C), ``qconv_layer_f32``)
+    requantized: ``clamp(round(ReLU(acc * ws + b) * s_out), -127, 127)`` as
+    int8, the product and sum rounded once.  On the card ``qrequant``; on
+    the CPU ``requantize_reference``."""
+    if acc.device.type == "cpu":
+        return requantize_reference(acc, ws, b, s_out)
+    dev = acc.device
+    C = acc.shape[-1]
+    _build.check_input(acc, "acc", torch.float32, acc.ndim, dev)
+    for name, v in (("ws", ws), ("b", b), ("s_out", s_out)):
+        _check_scale(v, name, C, dev)
+    _caps(None, (C,))
+    out = torch.empty(acc.shape, dtype=torch.int8, device=dev)
+    n_pix = acc.numel() // C
+    if n_pix:
+        lib = _build.load("qconv_kernel", _FUNCS_CONV_F32)
+        _build.launch(lib, "qrequant", dev, acc.data_ptr(), ws.data_ptr(), b.data_ptr(),
+                      s_out.data_ptr(), out.data_ptr(), n_pix, C)
+        requantize.launches += 1
     return out
 
 
-qconv_layer.launches = 0
+requantize.launches = 0

@@ -16,8 +16,12 @@ horizontal candidate.
     cap, and the directions are projected over every valid row's two
     extremes, as the TPU kernel does.  On the card it serves every height:
     up to ``MAX_EXACT_HEIGHT`` rows with a component's arrays in one
-    block's shared memory, above it with them in a device-memory workspace
-    (the tall instance; the same selection).
+    block's shared memory, above it the tall instance (the same selection):
+    a cluster of eight blocks a component, its arrays spread over their
+    shared memory (``tall_plan``); a chain the lockstep's first round
+    leaves convex keeps every row, the others have their hulls merged in
+    logarithmic depth; past what the cluster holds, the arrays in a
+    device-memory workspace.
 
 Output rows (B, 9, K): ux, uy, min_u, max_u, min_v, max_v, any_edge, p0x,
 p0y; ``rects_from_selection`` turns them into corners, centre, size, angle.
@@ -26,12 +30,17 @@ p0y; ``rects_from_selection`` turns them into corners, centre, size, angle.
 vectorised over components.  The CUDA kernels (``csrc/rect_kernel.cu``)
 reach the same points another way — at most 4 lockstep rounds, then a
 row stays iff its largest slope back is at most its smallest slope
-forward — so comparing them with it also checks that claim.  ``UBDVSS_PALLAS_COMPAT=1`` makes the JAX
+forward; the tall instance keeps every row of a chain the first round
+finds convex and otherwise the points on the chain's hull, found by
+merging 32-row segments' hulls — so comparing them with it also checks
+those claims.  ``UBDVSS_PALLAS_COMPAT=1`` makes the JAX
 kernels convexify the two chains one after the other instead of in
 lockstep; that keeps the same points, so it changes nothing here.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -230,6 +239,7 @@ _FUNCS = {
     "rect_select_exact_tall": [_build.P] * 4 + [_build.I] * 4 + [_build.P],
     "rect_exact_max_height": [],
     "rect_tall_slot_size": [_build.I],
+    "rect_tall_plan": [_build.I, _build.P],
 }
 
 
@@ -254,17 +264,114 @@ MAX_EXACT_HEIGHT = next(
 )
 
 
+TALL_CLUSTER = 8  # blocks a component in the tall instance (the portable cluster size)
+TALL_THREADS = 256
+TALL_SEGMENT = 32  # rows a level-0 hull segment: one warp's
+TALL_CHUNK = 512  # directions a projection pass
+TALL_SOLO_ROWS = 1024  # a component of at most this many rows: block 0 alone
+_TALL_SCALARS = 16
+_TALL_STATIC = 8 * TALL_CLUSTER + 3 * 4 * (TALL_THREADS // 32)  # ``TallShared``
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TallPlan:
+    """The tall instance's layout at height H, as ``tall_layout`` in
+    ``csrc/rect_kernel.cu`` computes it (``rect_tall_plan`` returns the same
+    ints, in ``FIELDS`` order, for the card's test).  ``hb`` compacted rows
+    a block (positions [r hb, (r + 1) hb) in block r; a power of two, so a
+    position's block is a shift), ``db`` directions a block.  A block's
+    arrays: rows (float4), the two chains' hull vertices then kept points
+    (int2), eight direction arrays (f32), the segment groups' counts, the
+    kept flags and the reduction scalars, from the offsets below,
+    ``block_bytes`` in all; ``smem`` the dynamic shared memory a block (the
+    arrays where ``in_shared``; the projection's partial extremes and
+    staged directions always)."""
+
+    cluster: int
+    threads: int
+    hb: int
+    db: int
+    off_hull: int
+    off_dirs: int
+    off_cnt: int
+    off_kept: int
+    off_scal: int
+    block_bytes: int
+    smem: int
+    in_shared: int
+    static_smem: int
+    solo_rows: int
+
+    FIELDS = ("cluster", "threads", "hb", "db", "off_hull", "off_dirs", "off_cnt", "off_kept",
+              "off_scal", "block_bytes", "smem", "in_shared", "static_smem", "solo_rows")
+
+    @property
+    def segments(self) -> int:
+        """Level-0 segments a block."""
+        return self.hb // TALL_SEGMENT
+
+    def solo(self, n: int) -> bool:
+        """Whether block 0 finishes a component of ``n`` valid rows alone,
+        with block barriers (its arrays stay spread over the cluster), once
+        every block has merged what lies inside it."""
+        return n <= self.solo_rows
+
+    def levels(self, n: int) -> list[str]:
+        """The hull merge levels for ``n`` valid rows (of a chain with a
+        row concave in the lockstep's first round), each as the kernel
+        runs it: "block" (each block merges the groups whose first segment
+        it holds, all inside it: a block barrier before), "cluster" (the
+        same across blocks: a cluster barrier before) or "alone" (block 0
+        merges every group: a solo component's levels past the block-local
+        ones, or all of them where block 0 holds every position)."""
+        nseg = -(-n // TALL_SEGMENT)
+        alone = self.solo(n) and n <= self.hb
+        out, lv = [], 0
+        while (1 << lv) < nseg:
+            local = self.segments % (2 << lv) == 0
+            alone = alone or (self.solo(n) and not local)
+            out.append("alone" if alone else "block" if local else "cluster")
+            lv += 1
+        return out
+
+    @property
+    def workspace_bytes(self) -> int:
+        """Device-memory workspace a cluster (0 where the arrays fit the
+        cluster's shared memory; ``rect_tall_slot_size``)."""
+        return 0 if self.in_shared else self.cluster * self.block_bytes
+
+
+def tall_plan(H: int) -> TallPlan:
+    """The tall instance's layout at height ``H`` (``TallPlan``)."""
+    hb = TALL_SEGMENT
+    while TALL_CLUSTER * hb < H:
+        hb *= 2
+    db = 2 * hb
+    off_hull = 16 * hb
+    off_dirs = off_hull + 2 * 8 * hb
+    off_cnt = off_dirs + 8 * 4 * db
+    off_kept = off_cnt + _r16(2 * 4 * (hb // TALL_SEGMENT))
+    off_scal = off_kept + _r16(hb)
+    block_bytes = off_scal + 4 * _TALL_SCALARS
+    fixed = TALL_CHUNK * (16 + 8)
+    in_shared = int(block_bytes + fixed + _TALL_STATIC <= MAX_SHARED_BYTES)
+    return TallPlan(TALL_CLUSTER, TALL_THREADS, hb, db, off_hull, off_dirs, off_cnt, off_kept,
+                    off_scal, block_bytes, fixed + (block_bytes if in_shared else 0), in_shared,
+                    _TALL_STATIC, TALL_SOLO_ROWS)
+
+
 def tall_slot_bytes(H: int) -> int:
-    """The tall instance's device-memory workspace a component: the arrays
-    of ``exact_smem_bytes`` but the bitmasks, 16-byte aligned
-    (``rect_tall_slot_bytes``)."""
-    return (29 * 4 * H + 15) // 16 * 16
+    """The tall instance's device-memory workspace a cluster at height H (0
+    where its arrays fit the cluster's shared memory)."""
+    return tall_plan(H).workspace_bytes
 
 
-# the tall instance's workspace at most (persistent blocks reuse their slot)
+# the tall instance's workspace at most (persistent clusters reuse their slot)
 TALL_WORKSPACE_BYTES = 1 << 28
-# the tall instance's block-reduction slots (``RectShared<512>``)
-_TALL_REDUCTION_BYTES = 400
 
 
 def _check_extremes(minx: torch.Tensor, maxx: torch.Tensor) -> None:
@@ -310,16 +417,16 @@ def min_area_rect_exact(minx: torch.Tensor, maxx: torch.Tensor) -> torch.Tensor:
     valid row's two extremes.  A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises: one block a component with its
     arrays in shared memory up to ``MAX_EXACT_HEIGHT`` rows, else the tall
-    instance (persistent blocks, the arrays in a workspace of
-    ``tall_slot_bytes`` a block, at most ``TALL_WORKSPACE_BYTES``)."""
+    instance (a cluster of blocks a component, ``tall_plan``; past what its
+    shared memory holds, persistent clusters with the arrays in a workspace
+    of ``tall_slot_bytes`` a cluster, at most ``TALL_WORKSPACE_BYTES``)."""
     B, K, H = minx.shape
     if minx.device.type == "cpu":
         return min_area_rect_select_reference(minx, maxx, None)
     _check_extremes(minx, maxx)
-    if B * K * H >= 1 << 31 or 16 * (-(-H // 32)) + _TALL_REDUCTION_BYTES > MAX_SHARED_BYTES:
+    if B * K * H >= 1 << 31:
         raise NotImplementedError(
-            f"B={B}, K={K}, H={H}: the tall rect kernel takes B*K*H < 2^31 and the "
-            "chains' bitmasks in one block's shared memory (ROADMAP.md §2a)"
+            f"B={B}, K={K}, H={H}: the tall rect kernel takes B*K*H < 2^31 (ROADMAP.md §2a)"
         )
     lib = _build.load("rect_kernel", _FUNCS)
     out = torch.empty((B, 9, K), dtype=torch.float32, device=minx.device)
@@ -330,11 +437,11 @@ def min_area_rect_exact(minx: torch.Tensor, maxx: torch.Tensor) -> torch.Tensor:
         )
     else:
         slot = tall_slot_bytes(H)
-        slots = max(1, min(B * K, TALL_WORKSPACE_BYTES // slot))
-        ws = torch.empty(slots * slot, dtype=torch.uint8, device=minx.device)
+        slots = max(1, min(B * K, TALL_WORKSPACE_BYTES // slot)) if slot else 0
+        ws = torch.empty(slots * slot, dtype=torch.uint8, device=minx.device) if slot else None
         _build.launch(
             lib, "rect_select_exact_tall", minx.device, minx.data_ptr(), maxx.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), B, K, H, slots,
+            out.data_ptr(), None if ws is None else ws.data_ptr(), B, K, H, slots,
         )
     min_area_rect_exact.launches += 1
     return out

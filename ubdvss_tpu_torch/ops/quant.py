@@ -15,8 +15,12 @@ last with the head): on the card the hand-written kernels of
 The calibration side (``trunk_intermediates``, ``_trunk_pre_relu``) runs
 f32 convolutions with TF32 off (``exact_f32``), as the JAX package runs
 them at ``Precision.HIGHEST``; the bias correction reads every layer's
-pre-activation output, so it runs each layer alone through ``qconv_layer``
-(on the card its dp4a kernel, on the CPU the plain version).  Rounding follows the JAX
+pre-activation output, so it runs each layer alone, computing its
+accumulator once as the JAX package does: ``qconv_layer_f32`` (one launch
+a layer on the card, the s8 tensor cores; on the CPU the plain version)
+gives ``acc * ws + b`` and the exact accumulator, and ``requantize``
+turns the accumulator into the next layer's int8 input with the corrected
+bias.  Rounding follows the JAX
 package under ``jit``: ``acc * ws + b`` is one fused multiply-add
 (``qconv_kernel``'s docstring), and so is ``normalize``'s
 ``x * (1/127.5) - 1`` on the int8 route (``normalize_fma``).
@@ -38,7 +42,13 @@ import numpy as np
 import torch
 
 from ubdvss_tpu_torch.models.model import conv2d_same, exact_f32
-from ubdvss_tpu_torch.ops.cuda.qconv_kernel import qconv, qconv_head, qconv_layer, qstem
+from ubdvss_tpu_torch.ops.cuda.qconv_kernel import (
+    qconv,
+    qconv_head,
+    qconv_layer_f32,
+    qstem,
+    requantize,
+)
 
 _NORM_SCALE = float(np.float32(1.0 / 127.5))
 
@@ -186,19 +196,21 @@ def bias_correct_qparams(qparams: dict, params: dict, cfg, calib_images: torch.T
     """Sequential PTQ bias correction: walk the quantized trunk over the
     calibration set and fold, layer by layer, the per-output-channel mean
     error against the f32 pre-activation into the bias, every earlier layer
-    already corrected.  Only the f32 biases change."""
+    already corrected.  Only the f32 biases change.  Each layer's
+    accumulator is computed once: its pre-activation and its requantized
+    output both come from it."""
     pre = _trunk_pre_relu(params, calib_images, cfg)
     s = qparams["s_in"]
     qx = calib_images.to(torch.float32)  # layer 0 quantizes it (normalized)
     layers = []
     for i, (st, dil) in enumerate(_conv_specs(cfg)):
         L = qparams["layers"][i]
-        y = qconv_layer(qx, L, None, st, dil)  # acc * ws + b, one rounding
-        layer = dict(q=L["q"], ws=L["ws"], b=L["b"] + torch.mean(pre[i] - y, dim=(0, 1, 2)))
-        layers.append(layer)
-        qx = qconv_layer(qx, layer, s[i + 1], st, dil)  # requant with the corrected bias
+        y, acc = qconv_layer_f32(qx, L, st, dil)  # acc * ws + b (one rounding), acc
+        b = L["b"] + torch.mean(pre[i] - y, dim=(0, 1, 2))
+        layers.append(dict(q=L["q"], ws=L["ws"], b=b))
+        qx = requantize(acc, L["ws"], b, s[i + 1])  # with the corrected bias
     H = qparams["head"]
-    y = qconv_layer(qx, H, None, 1, 1)
+    y, _ = qconv_layer_f32(qx, H, 1, 1, with_acc=False)
     head = dict(q=H["q"], ws=H["ws"], b=H["b"] + torch.mean(pre[-1] - y, dim=(0, 1, 2)))
     return {"layers": layers, "head": head, "s_in": s}
 

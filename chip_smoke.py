@@ -240,7 +240,29 @@ them.  Phases, each of which raises on failure:
      rows (torch.profiler over 3 steps), the loss forward's launches and
      device ms, and the host-fed epoch over 384 scenes through
      Batches(train=True) then train_step, with the prefetch thread and
-     without it (median of 3 epochs).
+     without it (median of 3 epochs);
+  7. device-fed training, at the same B=128 512² (seed 7, the asset's
+     config for the checks, NetConfig() and bf16 for the timing): the
+     scene synthesis on the card against the host CPU on the same draws
+     (made on the host), with the augmentation's affine composed in and
+     without: vertex counts and classes identical, polygons within 1e-4,
+     pixels within 1e-3 but texel flips (at most 1 in 10^4 window
+     pixels), the segmaps identical wherever the grid polygons agree; the
+     windowed rasterizer bit for bit the dense one on the card; the JAX
+     package's transfer gate (tests/test_synthgen.py:236-267: the dense
+     asset on 16 port-generated 256² scenes, object F1 >= 0.95, class
+     accuracy >= 0.75, K1, K2 and K3x counted); Trainer.fit over
+     DeviceSyntheticBatches with 1 and 4 steps a dispatch, and over
+     DeviceCachedBatches of the host-fed epoch's 384 scenes, against the
+     unfused loop (the cache's over Batches), 2 epochs, cudnn
+     deterministic, within 2e-6; then the device-fed epoch's images/s (384
+     scenes, median of 5) in f32 and bf16 and the cached epoch's beside
+     the bare step and the host-fed epoch of phase 6, each with its busy
+     share, the peak memory, the synthesis alone (ms, device ms and top
+     rows a batch), and the synchronizing calls of one 16-step chunk
+     (torch.cuda.set_sync_debug_mode("warn")); then the train CLI with
+     synthetic-device train and val data at 2 steps a dispatch and with
+     --cache-device, each in its own process, run together.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -2983,6 +3005,241 @@ def main() -> int:
                 "evaluate_launches": {k: n_ev_cli[k] for k in ov_kernels},
                 "detect_launches": {k: n_det_cli[k] for k in ov_kernels}},
         "bench": {"batch": TRAIN_BENCH_B, "image": IMG, "epoch_scenes": TRAIN_EPOCH_N, **train_timing}}}))
+
+    # --- 7. device-fed training: scenes synthesized on the card, the corpus
+    # held there, several steps a dispatch ---
+    phase("device-fed training")
+    import warnings
+
+    from ubdvss_tpu_torch import synthgen
+    from ubdvss_tpu_torch.data import DeviceCachedBatches, finalize_batch
+    from ubdvss_tpu_torch.ops.augment import affine_draws, affine_from_draws
+    from ubdvss_tpu_torch.ops.rasterize import polygons_to_grid, rasterize_polygons, rasterize_polygons_windowed
+    from ubdvss_tpu_torch.utils.checkpoint import CheckpointManager
+
+    sc_t = synthgen.SynthConfig(hw=(IMG, IMG), max_polys=dc_t.max_polys, max_verts=dc_t.max_verts,
+                                class_names=tuple(cfg_t.class_names))
+    wn_t = synthgen.synth_raster_window(sc_t, cfg_t)
+    dc_w = DataConfig(batch_size=TRAIN_BENCH_B, train_hw=(IMG, IMG), seed=0, raster_window=wn_t)
+    window_px = min(IMG, 128) ** 2
+
+    # the render on the card against the host CPU on the same draws, made on
+    # the host: the training path's (the augmentation's affine composed in)
+    # and the plain one
+    g_h = torch.Generator().manual_seed(SEED)
+    draws_h = synthgen.scene_draws(g_h, sc_t, TRAIN_BENCH_B)
+    aff_h = affine_from_draws(affine_draws(g_h, dc_t.augment, TRAIN_BENCH_B), dc_t.augment, sc_t.hw)
+    draws_c = {k: v.to(dev) for k, v in draws_h.items()}
+    render_cmp = {}
+    for name_r, aff in (("affine", aff_h), ("plain", None)):
+        t0 = time.perf_counter()
+        host_r = synthgen.render_scenes(draws_h, sc_t, affine=aff, fill=dc_t.augment.fill_value)
+        t_host_r = time.perf_counter() - t0
+        card_r = synthgen.render_scenes(draws_c, sc_t, affine=None if aff is None else aff.to(dev),
+                                        fill=dc_t.augment.fill_value)
+        card_h = [t_.cpu() for t_ in card_r]
+        if not (torch.equal(card_h[2], host_r[2]) and torch.equal(card_h[3], host_r[3])):
+            raise AssertionError(f"render {name_r}: vertex counts or classes differ between the card and the host CPU")
+        poly_err = float((card_h[1] - host_r[1]).abs().max())
+        pix = (card_h[0] - host_r[0]).abs()
+        flips = int((pix > 1e-3).sum())
+        n_win = int((host_r[2] > 0).sum()) * window_px
+        if not (poly_err <= 1e-4 and flips <= 1e-4 * n_win):
+            raise AssertionError(f"render {name_r}: polygons {poly_err} apart, {flips} texel flips of {n_win}")
+        seg_h = finalize_batch(*host_r, cfg_t, dc_w)["segmap"]
+        seg_c = finalize_batch(*card_r, cfg_t, dc_w)["segmap"].cpu()
+        same_grid = (polygons_to_grid(card_h[1], cfg_t.scale)
+                     == polygons_to_grid(host_r[1], cfg_t.scale)).flatten(1).all(1)
+        if not torch.equal(seg_c[same_grid], seg_h[same_grid]):
+            raise AssertionError(f"render {name_r}: segmaps differ where the grid polygons agree")
+        # the windowed rasterizer against the dense one on the card's polygons
+        gp = polygons_to_grid(card_r[1], cfg_t.scale)
+        ho = IMG // cfg_t.scale
+        win = rasterize_polygons_windowed(gp, card_r[2], card_r[3], (ho, ho), wn_t)
+        if not torch.equal(win, rasterize_polygons(gp, card_r[2], card_r[3], (ho, ho))):
+            raise AssertionError(f"render {name_r}: the windowed rasterizer differs from the dense one on the card")
+        render_cmp[name_r] = {
+            "poly_max_abs_err": poly_err, "pixel_max_abs_err_outside_flips": float(pix[pix <= 1e-3].max()),
+            "texel_flips": flips, "window_pixels": n_win, "objects": int((host_r[2] > 0).sum()),
+            "segmap_images_compared": int(same_grid.sum()), "host_cpu_render_s": t_host_r,
+            "windowed_raster_window": wn_t}
+    log(f"render on the card == the host CPU, B={TRAIN_BENCH_B} {IMG}², same draws: "
+        + "; ".join(f"{k} polygons {v['poly_max_abs_err']:.3g}, pixels {v['pixel_max_abs_err_outside_flips']:.3g}, "
+                    f"{v['texel_flips']} texel flips of {v['window_pixels']}, segmaps of "
+                    f"{v['segmap_images_compared']} images identical" for k, v in render_cmp.items())
+        + f"; windowed rasterizer (window {wn_t}) == dense on the card, bit for bit")
+
+    # the JAX package's transfer gate (tests/test_synthgen.py:236-267) on the card
+    cfg_dn = NetConfig(max_components=8, separable_context=False)
+    params_dn = {k: v.to(dev) for k, v in params_from_flat(
+        load_params_npz(REPO / "assets" / "pretrained_dense_synthetic.npz")).items()}
+    sc_g = synthgen.SynthConfig(hw=(256, 256), n_objects=(1, 3), max_polys=4)
+    scenes_g = synthgen.render_scenes(
+        synthgen.scene_draws(synthgen.step_generator(SEED, 0, 0, dev), sc_g, 16), sc_g)
+    gate_kernels = ["ccl", "slots", "rect_exact"]
+    (res_g, _), n_g = counted(
+        lambda: detect_program_batch(params_dn, scenes_g[0], cfg_dn, (256, 256), fused=False, device="cuda"),
+        gate_kernels, [k for k in all_kernels if k not in gate_kernels])
+    per_image_g: list = []
+    ev_mod._collect_batch(per_image_g, {k: v.cpu().numpy() for k, v in res_g.items()},
+                          *(t_.cpu().numpy() for t_ in scenes_g[1:]))
+    gate = ev_mod.evaluate_detections(per_image_g, class_names=cfg_dn.class_names)
+    if not (gate.f1 >= 0.95 and gate.class_accuracy >= 0.75):
+        raise AssertionError(f"transfer gate: F1 {gate.f1}, class accuracy {gate.class_accuracy}")
+    log(f"transfer gate on the card: the dense asset on 16 port-generated 256² scenes, object F1 "
+        f"{gate.f1:.4f} >= 0.95, class accuracy {gate.class_accuracy:.4f} >= 0.75; launches "
+        f"{{{', '.join(f'{k}: {n_g[k]}' for k in gate_kernels)}}}")
+
+    # fused == unfused on the card, and the cache == Batches on the same reader
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fused_cmp = {}
+    try:
+        syn_t = synthgen.DeviceSyntheticBatches(cfg_t, dc_t, n_samples=TRAIN_EPOCH_N, seed=SEED, device=dev)
+        cached_t = DeviceCachedBatches(rd_e, cfg_t, dc_t, device=dev)
+        for name_f, batches_f, manual_src in (("synthesis", syn_t, syn_t), ("cache", cached_t, b_e)):
+            st_m = create_train_state(cfg_t, lr=1e-3, seed=0, device=dev)
+            for epoch in range(2):
+                for batch in manual_src.epoch(epoch):
+                    st_m, _ = train_step(st_m, batch, cfg_t)
+            for spd in (1, 4):
+                tr_f = Trainer(cfg_t, dc_t, steps_per_dispatch=spd, device=dev)
+                tr_f.fit(batches_f, 2)
+                err_f = max(float((tr_f.state.params[k] - v).detach().abs().max()) for k, v in st_m.params.items())
+                if not (tr_f.state.step == st_m.step and err_f <= 2e-6):
+                    raise AssertionError(f"fused {name_f}, {spd} steps a dispatch: {tr_f.state.step} steps, "
+                                         f"parameters {err_f} from the unfused loop's")
+                fused_cmp[f"{name_f}_spd{spd}_max_abs_err"] = err_f
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    log(f"fused == unfused on the card, B={TRAIN_BENCH_B} {IMG}², 2 epochs of {TRAIN_EPOCH_N} scenes "
+        f"(cudnn.deterministic, atol 2e-6; the cache against Batches on the same reader): {fused_cmp}")
+
+    # timing: the device-fed epoch (f32, bf16) and the cached one, beside the
+    # bare step and the host-fed epoch of this run; the synthesis alone; the
+    # busy share; the peak memory; the synchronizing calls in a 16-step chunk
+    def fed_epoch(tr_, batches_, epoch):
+        """One epoch as ``Trainer.fit`` runs it, without logging."""
+        for run_, _ in tr_._epoch_steps(batches_, epoch):
+            tr_.state, _ = run_(tr_.state)
+
+    def fed_epoch_walls(tr_, batches_, n=5):
+        walls_ = []
+        for rep in range(n + 1):  # the first is a warm-up
+            t0_ = time.perf_counter()
+            fed_epoch(tr_, batches_, rep)
+            torch.cuda.synchronize()
+            walls_.append((time.perf_counter() - t0_) * 1e3)
+        return walls_[1:]
+
+    fed_timing = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_b = NetConfig(dtype=dtype)
+        syn_b = synthgen.DeviceSyntheticBatches(cfg_b, dc_t, n_samples=TRAIN_EPOCH_N, seed=SEED, device=dev)
+        tr_b = Trainer(cfg_b, dc_t, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        walls = fed_epoch_walls(tr_b, syn_b)
+        busy_e = device_busy(lambda: fed_epoch(tr_b, syn_b, 0))
+        fed_timing[f"synthetic_device_{dtype}"] = {
+            "walls_ms": walls, "img_per_s": TRAIN_EPOCH_N / statistics.median(walls) * 1e3,
+            "vs_step": (TRAIN_EPOCH_N / statistics.median(walls) * 1e3) / train_timing[dtype]["img_per_s"],
+            "busy_share": busy_e["busy_share"], "device_busy_ms": busy_e["device_busy_ms"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    tr_c = Trainer(NetConfig(), dc_t, device=dev)
+    walls = fed_epoch_walls(tr_c, cached_t)
+    busy_c = device_busy(lambda: fed_epoch(tr_c, cached_t, 0))
+    fed_timing["cache_device_float32"] = {
+        "walls_ms": walls, "img_per_s": TRAIN_EPOCH_N / statistics.median(walls) * 1e3,
+        "vs_step": (TRAIN_EPOCH_N / statistics.median(walls) * 1e3) / train_timing["float32"]["img_per_s"],
+        "busy_share": busy_c["busy_share"]}
+
+    def one_synth():
+        return synthgen.synth_batch_step(synthgen.step_generator(SEED, 0, 0, dev), sc_t, NetConfig(), dc_t, True)
+
+    busy_s = device_busy(lambda: [one_synth() for _ in range(3)])
+    fed_timing["synthesis_alone"] = {
+        "ms_per_batch": time_ms(one_synth, iters=5, reps=2), "device_ms_per_batch": device_ms(one_synth, n=5),
+        "top_device_rows_ms_3_batches": busy_s["device_ms_by_kernel"],
+        "kernel_launches_per_batch": busy_s["kernel_launches"] / 3}
+    # the synchronizing calls inside one 16-step chunk (after a warm-up chunk)
+    syn16 = synthgen.DeviceSyntheticBatches(NetConfig(), dc_t, n_samples=16 * TRAIN_BENCH_B, seed=SEED, device=dev)
+    tr16 = Trainer(NetConfig(), dc_t, steps_per_dispatch=16, device=dev)
+    run16, k16 = next(tr16._epoch_steps(syn16, 0))
+    if k16 != 16:
+        raise AssertionError(f"a chunk of {k16} steps, expected 16")
+    tr16.state, _ = run16(tr16.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr16.state, _ = run16(tr16.state)
+    t_enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t_chunk = (time.perf_counter() - t0) * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr16.state, _ = run16(tr16.state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's own notice is a warning too; a synchronizing call reads
+    # "called a synchronizing CUDA operation"
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)]
+    fed_timing["chunk_16"] = {"synchronizing_calls": len(syncs), "where": sorted(set(syncs)),
+                              "host_ms_to_enqueue": t_enqueue, "wall_ms": t_chunk}
+    fed_timing["beside"] = {
+        "step_img_per_s": {d: train_timing[d]["img_per_s"] for d in ("float32", "bfloat16")},
+        "host_fed_epoch_img_per_s": {k: train_timing[k]["img_per_s"]
+                                     for k in ("epoch_prefetch_2", "epoch_prefetch_0")}}
+    log(f"device-fed epoch, {TRAIN_EPOCH_N} scenes B={TRAIN_BENCH_B} {IMG}²: synthesis f32 "
+        f"{fed_timing['synthetic_device_float32']['img_per_s']:.1f} img/s, bf16 "
+        f"{fed_timing['synthetic_device_bfloat16']['img_per_s']:.1f}, cache f32 "
+        f"{fed_timing['cache_device_float32']['img_per_s']:.1f}; step f32 "
+        f"{train_timing['float32']['img_per_s']:.1f}, host-fed epoch "
+        f"{train_timing['epoch_prefetch_2']['img_per_s']:.1f}; synthesis alone "
+        f"{fed_timing['synthesis_alone']['device_ms_per_batch']:.3f} ms device a batch; "
+        f"{len(syncs)} synchronizing calls in a 16-step chunk {sorted(set(syncs))}")
+
+    # the two device-fed CLI forms, each in its own process, run together
+    work2 = Path(tempfile.mkdtemp(dir=REPO / "build"))
+    common = ["--epochs", "1", "--batch-size", "8", "--synthetic-samples", "16"]
+    cli_cmds = {
+        "synthetic_device": ["--train-data", "synthetic-device", "--val-data", "synthetic-device",
+                             *common, "--steps-per-dispatch", "2"],
+        "cache_device": ["--train-data", "synthetic", "--cache-device", *common],
+    }
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for name_c, args_c in cli_cmds.items():
+            procs[name_c] = subprocess.Popen(
+                [sys.executable, "-m", "ubdvss_tpu_torch.train", *args_c, "--logdir", str(work2 / name_c)],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cli_fed = {}
+        for name_c, proc in procs.items():
+            out_c, err_c = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"train CLI {name_c} failed ({proc.returncode}):\n{out_c[-2000:]}{err_c[-4000:]}")
+            last = CheckpointManager(work2 / name_c / "checkpoints").latest_step()
+            if last != 2:
+                raise AssertionError(f"train CLI {name_c}: last checkpoint at step {last}, expected 2")
+            cli_fed[name_c] = {"seconds": time.perf_counter() - t0, "last_step": last,
+                               "val_logged": '"val"' in (work2 / name_c / "metrics.jsonl").read_text()}
+        if not cli_fed["synthetic_device"]["val_logged"]:
+            raise AssertionError("train CLI synthetic_device: no validation metrics logged")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work2, ignore_errors=True)
+    log(f"device-fed CLIs, each in its own process: {cli_fed}")
+    log(json.dumps({"device_fed_training": {
+        "card": smi, "render_card_vs_host": render_cmp,
+        "transfer_gate": {"f1": gate.f1, "class_accuracy": gate.class_accuracy,
+                          "launches": {k: n_g[k] for k in gate_kernels}},
+        "fused_vs_unfused": fused_cmp, "cli": cli_fed,
+        "bench": {"batch": TRAIN_BENCH_B, "image": IMG, "epoch_scenes": TRAIN_EPOCH_N, **fed_timing}}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """PyTorch port: training on the card against the same calls on the host
 CPU — the context kernel's gradient, one train step (f32 and bf16), the
-augmented train batches, the resumed step and the Trainer.
+augmented train batches, the resumed step and the Trainer; and device-fed
+training: the scene synthesis on the card against the host CPU on the same
+draws, the windowed rasterizer against the dense one, fused against
+unfused training.
 
 Marked ``cuda``; every test skips without a card.  On the H100 (no jax
 there, so without the JAX-importing conftest):
@@ -19,7 +22,13 @@ other sign on the card — losses 1e-3 relative (a quarter of a bf16 ulp:
 each logit is a bf16 value, and cuDNN's run-dependent summation order can
 move one by an ulp; 8.8e-5 was seen), grad_norm 2e-2 relative, pixel
 metrics 2e-3); a resumed step bit for bit with cuDNN's deterministic
-algorithms.
+algorithms.  Device-fed: the card's render of the host's draws within
+1e-3 a pixel (texel flips at most 1 in 10^4 window pixels) and 1e-4 a
+polygon vertex, vertex counts and classes identical, and the segmaps of
+every image whose grid polygons agree identical; the windowed rasterizer
+bit for bit the dense one; fused and unfused training, and the cache
+against ``Batches``, within 2e-6 (the JAX package's bar) under cuDNN's
+deterministic algorithms.
 """
 
 import functools
@@ -29,10 +38,13 @@ import pytest
 import torch
 
 from ubdvss_tpu_torch import load_net_config, load_params_npz, params_from_flat
-from ubdvss_tpu_torch.data import Batches, DataConfig
+from ubdvss_tpu_torch import synthgen
+from ubdvss_tpu_torch.data import Batches, DataConfig, DeviceCachedBatches, finalize_batch
 from ubdvss_tpu_torch.models.model import compute_precision, get_model
 from ubdvss_tpu_torch.ops.cuda import context_kernel
+from ubdvss_tpu_torch.ops.augment import AugmentConfig, affine_draws, affine_from_draws
 from ubdvss_tpu_torch.ops.quant import normalize_fma
+from ubdvss_tpu_torch.ops.rasterize import polygons_to_grid, rasterize_polygons, rasterize_polygons_windowed
 from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
 from ubdvss_tpu_torch.train import Trainer, create_train_state, train_step
 from ubdvss_tpu_torch.utils.checkpoint import CheckpointManager
@@ -153,3 +165,83 @@ def test_trainer_fit_on_the_card(dev, tmp_path):
     assert CheckpointManager(tmp_path / "checkpoints").latest_step() == 4
     assert tr.best_ckpt.best_step() in (2, 4)
     assert all(v.device.type == "cpu" for v in tr.export_params().values())
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["plain", "affine"])
+def test_render_on_the_card_equals_host_cpu(dev, affine):
+    cfg, _ = _asset()
+    sc = synthgen.SynthConfig(hw=(256, 256), max_polys=8)
+    g = torch.Generator().manual_seed(3)
+    draws = synthgen.scene_draws(g, sc, 16)
+    acfg = AugmentConfig()
+    m = affine_from_draws(affine_draws(g, acfg, 16), acfg, sc.hw) if affine else None
+    host = synthgen.render_scenes(draws, sc, affine=m)
+    card = synthgen.render_scenes({k: v.to(dev) for k, v in draws.items()}, sc,
+                                  affine=None if m is None else m.to(dev))
+    card = [t.cpu() for t in card]
+    assert torch.equal(card[2], host[2]) and torch.equal(card[3], host[3])
+    torch.testing.assert_close(card[1], host[1], rtol=0, atol=1e-4)
+    flips = int(((card[0] - host[0]).abs() > 1e-3).sum())
+    assert flips <= 1e-4 * int((host[2] > 0).sum()) * 128 * 128, flips
+    dc = DataConfig(batch_size=16, train_hw=sc.hw, raster_window=synthgen.synth_raster_window(sc, cfg))
+    seg_h = finalize_batch(*host, cfg, dc)["segmap"]
+    seg_c = finalize_batch(*[t.to(dev) for t in card], cfg, dc)["segmap"].cpu()
+    same_grid = (polygons_to_grid(card[1], cfg.scale) == polygons_to_grid(host[1], cfg.scale)).flatten(1).all(1)
+    assert int(same_grid.sum()) >= 15
+    assert torch.equal(seg_c[same_grid], seg_h[same_grid])
+
+
+def test_windowed_rasterizer_on_the_card(dev):
+    rng = torch.Generator().manual_seed(0)
+    B, P, V, H, W, wn = 32, 8, 6, 128, 128, 40
+    ang = torch.sort(torch.rand((B, P, V), generator=rng) * 6.283, dim=2).values
+    r = 2 + torch.rand((B, P, V), generator=rng) * (wn - 5) / 2
+    c = 2 + torch.rand((B, P, 1, 2), generator=rng) * (H - 4)
+    polys = torch.clamp(torch.round(c + torch.stack([r * torch.cos(ang), r * torch.sin(ang)], -1)), 0, H - 1)
+    nv = torch.randint(0, V + 1, (B, P), generator=rng)
+    cid = torch.randint(1, 17, (B, P), generator=rng)
+    args = [t.to(dev) for t in (polys, nv, cid)]
+    win = rasterize_polygons_windowed(*args, (H, W), wn)
+    assert torch.equal(win, rasterize_polygons(*args, (H, W)))
+    assert torch.equal(win.cpu(), rasterize_polygons_windowed(polys, nv, cid, (H, W), wn))
+
+
+def _same_params(a, b):
+    for k, v in b.params.items():
+        torch.testing.assert_close(a.params[k], v, rtol=0, atol=2e-6, msg=k)
+
+
+def test_fused_equals_unfused_on_the_card(dev):
+    cfg = load_net_config(ASSET)
+    dc = DataConfig(batch_size=4, train_hw=(128, 128), seed=3)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        syn = synthgen.DeviceSyntheticBatches(cfg, dc, n_samples=12, seed=5, device=dev)
+        reader = SyntheticMarkupReader(n_samples=12, image_hw=(128, 128), seed=9)
+        cached = DeviceCachedBatches(reader, cfg, dc, device=dev)
+        for batches, manual_src in ((syn, syn), (cached, Batches(reader, cfg, dc, device=dev))):
+            state = create_train_state(cfg, device=dev)
+            for epoch in range(2):
+                for batch in manual_src.epoch(epoch):
+                    state, _ = train_step(state, batch, cfg)
+            for spd in (1, 4):
+                tr = Trainer(cfg, dc, steps_per_dispatch=spd, device=dev)
+                tr.fit(batches, 2)
+                assert tr.state.step == state.step == 6
+                _same_params(tr.state, state)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def test_cls_weight_ramp_on_the_card(dev):
+    """The ramp's weight is a 0-d host tensor (no copy to the card inside
+    the step): the card's step with it equals the host CPU's."""
+    cfg, params = _asset()
+    batch = _batch(n=4, hw=128)
+    sched = (cfg.classification_loss_weight, 2.0, 10.0)
+    sc, mc = train_step(create_train_state(cfg, device=dev, params=params),
+                        {k: v.to(dev) for k, v in batch.items()}, cfg, sched)
+    sh, mh = train_step(create_train_state(cfg, device="cpu", params=params), batch, cfg, sched)
+    assert float(mc["cls_weight"]) == float(mh["cls_weight"])
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= 1e-6 * abs(float(mh["loss"])) + 1e-7

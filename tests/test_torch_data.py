@@ -8,6 +8,7 @@ resize a sample otherwise; the normalize rounded once, as under ``jit``),
 and the polygons, vertex counts, class ids and rasterized segmaps equal.
 """
 
+import dataclasses
 import json
 import threading
 
@@ -128,16 +129,24 @@ def test_batches_len_and_drop_remainder():
 
 
 def test_training_paths_raise_naming_item_10():
-    """Training batches are served (tests/test_torch_augment.py); the
-    windowed rasterizer of the on-device synthesis raises, naming the next
-    slice of item 10."""
+    """Training batches are served (tests/test_torch_augment.py), and so is
+    the windowed rasterizer of the on-device synthesis: with
+    ``raster_window`` set, the batches' segmaps equal the dense ones (the
+    synthetic objects fit the window)."""
     reader = SyntheticMarkupReader(n_samples=2, image_hw=(32, 32))
     batch = next(iter(pdata.Batches(reader, NetConfig(), pdata.DataConfig(batch_size=2, train_hw=(32, 32)),
                                     train=True, device="cpu")))
     assert batch["images"].shape == (2, 32, 32, 1)
-    dc = pdata.DataConfig(batch_size=2, train_hw=(32, 32), augment=None, raster_window=16)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        next(iter(pdata.Batches(reader, NetConfig(), dc, train=False, device="cpu")))
+    dc = pdata.DataConfig(batch_size=2, train_hw=(32, 32), augment=None)
+    reader = SyntheticMarkupReader(n_samples=4, image_hw=(32, 32), seed=3)
+    for wn in (4, 8, 16):
+        win = dataclasses.replace(dc, raster_window=wn)
+        for a, b in zip(pdata.Batches(reader, NetConfig(), win, train=False, device="cpu").epoch(0),
+                        pdata.Batches(reader, NetConfig(), dc, train=False, device="cpu").epoch(0)):
+            assert (a["segmap"] > 0).any()
+            if wn >= 8:  # every object fits: 8 is the whole 8x8 grid
+                assert torch.equal(a["segmap"], b["segmap"])
+            assert all(torch.equal(a[k], b[k]) for k in ("images", "polys", "n_verts", "class_ids"))
     assert pdata.DataConfig() == pdata.DataConfig(augment=pdata.AugmentConfig())
     assert pdata.AugmentConfig().__dict__ == jdata.AugmentConfig().__dict__
 

@@ -344,12 +344,17 @@ def test_train_cli_and_the_logdir_clis(tmp_path):
 
 
 def test_train_cli_refusals(tmp_path):
+    """Only data parallelism (item 9) is refused; the device-fed flags run
+    (tests/test_torch_device_fed.py holds what they train)."""
     base = ["--train-data", "synthetic", "--device", "cpu"]
-    for extra, match in ((["--num-devices", "2"], "item 9"), (["--distributed"], "item 9"),
-                         (["--allow-cpu-mesh"], "item 9"), (["--cache-device"], "item 10b"),
-                         (["--steps-per-dispatch", "4"], "item 10b"),
-                         (["--val-data", "synthetic-device"], "item 10b")):
-        with pytest.raises(NotImplementedError, match=match):
+    for extra in (["--num-devices", "2"], ["--distributed"], ["--allow-cpu-mesh"]):
+        with pytest.raises(NotImplementedError, match="item 9"):
             ptrain.main(base + extra)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ptrain.main(["--train-data", "synthetic-device", "--device", "cpu"])
+    small = ["--epochs", "1", "--batch-size", "2", "--synthetic-samples", "2", "--train-size", "32", "32",
+             "--channels", "8", "--dilations", "1", "2", "--device", "cpu"]
+    for args in (["--train-data", "synthetic", "--cache-device"],
+                 ["--train-data", "synthetic", "--steps-per-dispatch", "4"],
+                 ["--train-data", "synthetic", "--val-data", "synthetic-device"],
+                 ["--train-data", "synthetic-device"]):
+        tr = ptrain.main(args + small)
+        assert tr.state.step == 1 and np.isfinite(tr._last_train_metrics["loss"]), args

@@ -23,10 +23,14 @@ from a ``torch.Generator`` on the batch's device seeded by
 ``batch_seed(dc.seed * 7919 + epoch, batch_index)``, the counterpart of the
 JAX package's ``fold_in(key(dc.seed * 7919 + epoch), batch_index)``; the
 shuffle is the JAX package's, ``np.random.default_rng(dc.seed + epoch)``.
-The device-fed pipelines (``DeviceCachedBatches``, the on-device synthesis
-and its ``raster_window``) and ``GrainBatches`` are the next slice of
-training (ROADMAP.md §1 item 10b): ``raster_window`` raises
-``NotImplementedError``.
+
+Three more sources keep that contract and that sample stream:
+``DeviceCachedBatches`` holds the whole corpus on the device and builds
+each batch there (no host collate, no copy a step); ``GrainBatches``
+decodes and pads in a pool of worker processes; the on-device scene
+synthesis (``synthgen.DeviceSyntheticBatches``) sets ``raster_window``,
+which rasterizes each polygon on a window of that size
+(``ops/rasterize.rasterize_polygons_windowed``).
 """
 
 from __future__ import annotations
@@ -44,7 +48,11 @@ from ubdvss_tpu_torch.net_config import NetConfig
 from ubdvss_tpu_torch.ops.augment import AugmentConfig, augment_batch
 from ubdvss_tpu_torch.ops.preproc import resize_bilinear, rgb_to_grayscale
 from ubdvss_tpu_torch.ops.quant import normalize_fma
-from ubdvss_tpu_torch.ops.rasterize import polygons_to_grid, rasterize_polygons
+from ubdvss_tpu_torch.ops.rasterize import (
+    polygons_to_grid,
+    rasterize_polygons,
+    rasterize_polygons_windowed,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +66,7 @@ class DataConfig:
     seed: int = 0
     drop_remainder: bool = True
     # GT-size bound for object-windowed rasterization (grid px), set by the
-    # on-device synthesis: not ported (ROADMAP.md §1 item 10b)
+    # on-device synthesis (synthgen.synth_batch_step)
     raster_window: int | None = None
 
 
@@ -164,22 +172,22 @@ def finalize_batch(
 ) -> dict:
     """Normalize + rasterize tail of the batch pipeline: (B, H, W) f32
     [0, 255] images at ``train_hw`` -> the batch contract."""
-    if data_cfg.raster_window is not None:
-        raise NotImplementedError(
-            "DataConfig.raster_window (rasterize_polygons_windowed): ROADMAP.md §1 item 10b"
-        )
     ho = data_cfg.train_hw[0] // net_cfg.scale
     wo = data_cfg.train_hw[1] // net_cfg.scale
-    segmap = rasterize_polygons(polygons_to_grid(polys, net_cfg.scale), n_verts, class_ids, (ho, wo))
+    grid_polys = polygons_to_grid(polys, net_cfg.scale)
+    if data_cfg.raster_window is not None:
+        segmap = rasterize_polygons_windowed(grid_polys, n_verts, class_ids, (ho, wo), data_cfg.raster_window)
+    else:
+        segmap = rasterize_polygons(grid_polys, n_verts, class_ids, (ho, wo))
     return {"images": normalize_fma(imgs)[..., None], "segmap": segmap, "polys": polys,
             "n_verts": n_verts, "class_ids": class_ids}
 
 
-def batch_seed(epoch_seed: int, batch_index: int) -> int:
-    """The seed of one batch's augmentation generator, from the epoch's
-    seed and the batch index (the JAX package folds the index into the
-    epoch's key)."""
-    return int(np.random.SeedSequence([epoch_seed, batch_index]).generate_state(1, np.uint64)[0])
+def batch_seed(epoch_seed: int, batch_index: int, *more: int) -> int:
+    """The seed of one batch's generator, from the epoch's seed and the
+    batch index (the JAX package folds the index into the epoch's key);
+    the on-device synthesis passes (seed, epoch, step)."""
+    return int(np.random.SeedSequence([epoch_seed, batch_index, *more]).generate_state(1, np.uint64)[0])
 
 
 def device_batch_step(
@@ -202,6 +210,43 @@ def device_batch_step(
             raise ValueError("an augmented training batch needs a generator")
         imgs, polys = augment_batch(generator, imgs, polys, data_cfg.augment)
     return finalize_batch(imgs, polys, n_verts, class_ids, net_cfg, data_cfg)
+
+
+def _epoch_order(n: int, dc: DataConfig, train: bool, epoch: int) -> np.ndarray:
+    """The sample order of one epoch: shuffled for training by
+    ``np.random.default_rng(dc.seed + epoch)``, as the JAX package."""
+    order = np.arange(n)
+    rng = np.random.default_rng(dc.seed + epoch)
+    if dc.shuffle and train:
+        rng.shuffle(order)
+    return order
+
+
+def _batch_generator(dc: DataConfig, train: bool, epoch: int, bi: int, dev: torch.device):
+    """The augmentation generator of batch ``bi`` of ``epoch`` (None when
+    the batch is not augmented)."""
+    if not (train and dc.augment is not None):
+        return None
+    return torch.Generator(dev).manual_seed(batch_seed(dc.seed * 7919 + epoch, bi))
+
+
+def _host_records(samples: list[Sample], net_cfg: NetConfig, dc: DataConfig):
+    """Decoded images and padded polygons, vertex counts and class ids."""
+    imgs, polys, nvs, cids = [], [], [], []
+    for s in samples:
+        imgs.append(np.asarray(load_image(s)))
+        p, nv, ci = pad_polygons(s, net_cfg, dc.max_polys, dc.max_verts)
+        polys.append(p)
+        nvs.append(nv)
+        cids.append(ci)
+    return imgs, polys, nvs, cids
+
+
+def _collate_records(imgs, polys, nvs, cids, dc: DataConfig, dev: torch.device):
+    """Host records -> device (B, H, W) f32 images at ``train_hw``, scaled
+    polys, vertex counts and class ids."""
+    x, p = _collate_on_device(imgs, polys, dc.train_hw, dev)
+    return x, p, _to_device(np.stack(nvs), dev), _to_device(np.stack(cids), dev)
 
 
 class Batches:
@@ -232,37 +277,159 @@ class Batches:
         b = self.data_cfg.batch_size
         return n // b if self.data_cfg.drop_remainder else -(-n // b)
 
-    def _host_collate(self, samples: list[Sample]):
-        cfg, dc = self.net_cfg, self.data_cfg
-        imgs, polys, nvs, cids = [], [], [], []
-        for s in samples:
-            imgs.append(np.asarray(load_image(s)))
-            p, nv, ci = pad_polygons(s, cfg, dc.max_polys, dc.max_verts)
-            polys.append(p)
-            nvs.append(nv)
-            cids.append(ci)
-        x, p = _collate_on_device(imgs, polys, dc.train_hw, self.device)
-        return x, p, _to_device(np.stack(nvs), self.device), _to_device(np.stack(cids), self.device)
-
     def epoch(self, epoch: int | None = None) -> Iterator[dict]:
         dc = self.data_cfg
         if epoch is None:
             epoch = self._epoch
             self._epoch += 1
-        order = np.arange(len(self._samples))
-        rng = np.random.default_rng(dc.seed + epoch)
-        if dc.shuffle and self.train:
-            rng.shuffle(order)
+        order = _epoch_order(len(self._samples), dc, self.train, epoch)
         b = dc.batch_size
         for bi in range(len(self)):
             idx = order[bi * b : (bi + 1) * b]
-            if len(idx) < b and dc.drop_remainder:
-                break
-            imgs, polys, nvs, cids = self._host_collate([self._samples[i] for i in idx])
-            g = None
-            if self.train and dc.augment is not None:
-                g = torch.Generator(self.device).manual_seed(batch_seed(dc.seed * 7919 + epoch, bi))
+            records = _host_records([self._samples[i] for i in idx], self.net_cfg, dc)
+            imgs, polys, nvs, cids = _collate_records(*records, dc, self.device)
+            g = _batch_generator(dc, self.train, epoch, bi, self.device)
             yield device_batch_step(imgs, polys, nvs, cids, self.net_cfg, dc, self.train, g)
 
     def __iter__(self):
         return self.epoch()
+
+
+class DeviceCachedBatches:
+    """The corpus held on the device: decoded and collated once, as f32
+    (N, H, W) images at ``train_hw`` plus the polygon arrays; every batch
+    is then device work alone (gather, augment, normalize, rasterize), with
+    no host collate and no copy a step.
+
+    The order and each batch's generator are ``Batches``', so the sample
+    stream is the same as streaming the reader through ``Batches``.
+    ``max_bytes`` (8 GB, the JAX package's default) bounds the images'
+    device footprint: a larger corpus raises ``ValueError`` before anything
+    is loaded (use ``Batches`` or ``GrainBatches`` for it).  ``mesh=``
+    raises ``NotImplementedError`` (ROADMAP.md §1 item 9)."""
+
+    def __init__(
+        self,
+        reader: MarkupReader,
+        net_cfg: NetConfig,
+        data_cfg: DataConfig,
+        train: bool = True,
+        max_bytes: int = 8 << 30,
+        mesh=None,
+        device=None,
+    ):
+        if mesh is not None:
+            self.place_on_mesh(mesh)
+        self.net_cfg = net_cfg
+        self.data_cfg = data_cfg
+        self.train = train
+        self.device = resolve_device(device)
+        samples = reader.samples()
+        n = len(samples)
+        est = n * data_cfg.train_hw[0] * data_cfg.train_hw[1] * 4
+        if est > max_bytes:
+            raise ValueError(
+                f"DeviceCachedBatches: corpus ~{est / 1e9:.1f} GB exceeds max_bytes="
+                f"{max_bytes / 1e9:.1f} GB; stream it with Batches or GrainBatches")
+        self._imgs, self._polys, self._nv, self._ci = _collate_records(
+            *_host_records(samples, net_cfg, data_cfg), data_cfg, self.device)
+        self._n = n
+
+    def place_on_mesh(self, mesh) -> None:
+        raise NotImplementedError("DeviceCachedBatches on a mesh: ROADMAP.md §1 item 9")
+
+    def __len__(self) -> int:
+        b = self.data_cfg.batch_size
+        return self._n // b if self.data_cfg.drop_remainder else -(-self._n // b)
+
+    def order(self, epoch: int) -> torch.Tensor:
+        """The epoch's sample order on the device (one copy an epoch)."""
+        return _to_device(_epoch_order(self._n, self.data_cfg, self.train, epoch), self.device)
+
+    def batch_at(self, order: torch.Tensor, epoch: int, bi: int) -> dict:
+        """Batch ``bi`` of the epoch whose ``order`` is given: the rows of
+        its slice of the order, gathered on the device, then
+        ``device_batch_step``."""
+        dc = self.data_cfg
+        idx = order[bi * dc.batch_size : (bi + 1) * dc.batch_size]
+        g = _batch_generator(dc, self.train, epoch, bi, self.device)
+        return device_batch_step(self._imgs[idx], self._polys[idx], self._nv[idx], self._ci[idx],
+                                 self.net_cfg, dc, self.train, g)
+
+    def epoch(self, epoch: int | None = None) -> Iterator[dict]:
+        epoch = 0 if epoch is None else epoch
+        order = self.order(epoch)
+        for bi in range(len(self)):
+            yield self.batch_at(order, epoch, bi)
+
+    def __iter__(self):
+        return self.epoch(0)
+
+
+class _ReaderSource(torch.utils.data.Dataset):
+    """One sample's decoded image and padded polygons, for a worker."""
+
+    def __init__(self, samples, net_cfg: NetConfig, data_cfg: DataConfig):
+        self._samples = samples
+        self._net_cfg = net_cfg
+        self._data_cfg = data_cfg
+
+    def __len__(self) -> int:
+        return len(self._samples)
+
+    def __getitem__(self, i):
+        return [r[0] for r in _host_records([self._samples[int(i)]], self._net_cfg, self._data_cfg)]
+
+
+def _as_list(records):
+    """The worker's batch as a list of records (a module-level function:
+    the spawned workers unpickle it by name)."""
+    return records
+
+
+class GrainBatches:
+    """Host loading in a pool of ``worker_count`` worker processes (the
+    JAX package's grain loader; grain is not used here): a
+    ``torch.utils.data.DataLoader`` whose spawned workers decode and pad a
+    batch each, then the same device batch step as ``Batches``.
+
+    The order is ``Batches``' (grain's own permutation is not reproduced),
+    and so is each batch's generator: the batches equal ``Batches``'.
+    ``worker_count=0`` loads in the calling process."""
+
+    def __init__(
+        self,
+        reader: MarkupReader,
+        net_cfg: NetConfig,
+        data_cfg: DataConfig,
+        train: bool = True,
+        worker_count: int = 4,
+        device=None,
+    ):
+        self.net_cfg = net_cfg
+        self.data_cfg = data_cfg
+        self.train = train
+        self.worker_count = worker_count
+        self.device = resolve_device(device)
+        self._source = _ReaderSource(reader.samples(), net_cfg, data_cfg)
+
+    def __len__(self) -> int:
+        n = len(self._source)
+        b = self.data_cfg.batch_size
+        return n // b if self.data_cfg.drop_remainder else -(-n // b)
+
+    def epoch(self, epoch: int | None = None) -> Iterator[dict]:
+        dc = self.data_cfg
+        epoch = 0 if epoch is None else epoch
+        loader = torch.utils.data.DataLoader(
+            self._source, batch_size=dc.batch_size,
+            sampler=_epoch_order(len(self._source), dc, self.train, epoch).tolist(),
+            drop_last=dc.drop_remainder, collate_fn=_as_list, num_workers=self.worker_count,
+            multiprocessing_context="spawn" if self.worker_count else None)
+        for bi, records in enumerate(loader):
+            imgs, polys, nvs, cids = _collate_records(*zip(*records), dc, self.device)
+            g = _batch_generator(dc, self.train, epoch, bi, self.device)
+            yield device_batch_step(imgs, polys, nvs, cids, self.net_cfg, dc, self.train, g)
+
+    def __iter__(self):
+        return self.epoch(0)

@@ -21,6 +21,7 @@ count-reductions over the whole batch.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ubdvss_tpu_torch.net_config import NetConfig
@@ -82,8 +83,8 @@ def _detection_loss_rows(
     pos = pos_mask.reshape(B, -1)
     n_pos = pos.sum(1, dtype=torch.int32)
     pos_sum = torch.where(pos, flat, 0.0).sum(1)
-    ratio_t = torch.tensor(float(ratio), dtype=torch.float32, device=flat.device)
-    k = torch.maximum(n_pos * ratio_t, ratio_t).to(torch.int32)
+    ratio = float(np.float32(ratio))  # a Python number: no copy to the card
+    k = torch.clamp(n_pos * ratio, min=ratio).to(torch.int32)
     k = torch.minimum(k, flat.shape[1] - n_pos)
     if use_sort:
         # hardest negatives: candidate negative losses sorted descending,

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 
@@ -46,16 +47,19 @@ class AugmentConfig:
     fill_value: float = 255.0  # background fill for out-of-frame samples
 
 
-def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+def _f32(v: float) -> float:
+    """``v`` rounded to f32, as a Python number: the arithmetic with it stays
+    f32 and no scalar is copied to the card (which would synchronize)."""
+    return float(np.float32(v))
 
 
-def _uniform(g: torch.Generator, n: int, lo: float, hi: float) -> torch.Tensor:
-    """(n,) f32 uniform in [lo, hi), as ``jax.random.uniform`` maps its unit
-    draw: u * (hi - lo) + lo, then max with lo."""
+def _uniform(g: torch.Generator, n, lo: float, hi: float) -> torch.Tensor:
+    """f32 uniform in [lo, hi) of shape ``n`` (an int or a tuple), as
+    ``jax.random.uniform`` maps its unit draw: u * (hi - lo) + lo, then max
+    with lo (hi - lo taken in f32)."""
     u = torch.rand(n, generator=g, device=g.device, dtype=torch.float32)
-    lo_t = _f32(lo, u)
-    return torch.maximum(u * (_f32(hi, u) - lo_t) + lo_t, lo_t)
+    lo32 = _f32(lo)
+    return torch.clamp(u * float(np.float32(hi) - np.float32(lo)) + lo32, min=lo32)
 
 
 def affine_draws(g: torch.Generator, cfg: AugmentConfig, n: int) -> dict:
@@ -84,7 +88,7 @@ def affine_from_draws(d: dict, cfg: AugmentConfig, hw: tuple[int, int]) -> torch
     from ``affine_draws``: mirror x/y, then rotate and scale, then
     translate; with a crop, zoom the random window to the frame after it."""
     h, w = hw
-    ang = d["ang"] * _f32(math.pi / 180.0, d["ang"])  # jnp.radians
+    ang = d["ang"] * _f32(math.pi / 180.0)  # jnp.radians
     sc = d["sc"]
     tx, ty = d["tx"] * w, d["ty"] * h
     one = torch.ones_like(sc)

@@ -1,12 +1,15 @@
 """Training: the train step, the Trainer and the CLI entry point.
 
-Counterpart of ``ubdvss_tpu/train.py`` on its host-fed path: the CLI over
-dataset paths / epochs / batch size / lr / logdir / resume builds the
-model and the batch pipeline, runs the fit loop with checkpoints and
-metric logging, and can export portable weights.
+Counterpart of ``ubdvss_tpu/train.py``: the CLI over dataset paths /
+epochs / batch size / lr / logdir / resume builds the model and the batch
+pipeline, runs the fit loop with checkpoints and metric logging, and can
+export portable weights.
 
     python -m ubdvss_tpu_torch.train --train-data synthetic --epochs 5 \
         --batch-size 8 --lr 1e-3 --logdir /tmp/run1 [--device cpu]
+    python -m ubdvss_tpu_torch.train --train-data synthetic-device \
+        --val-data synthetic-device [--steps-per-dispatch 16]
+    python -m ubdvss_tpu_torch.train --train-data synthetic --cache-device
 
 One step is the forward (``models/model.train_apply``: the module in f32,
 the dense equivalent for bf16 separable configs), the mined loss, the
@@ -16,10 +19,18 @@ step count before the update, and the pixel metrics.  The forward and the
 backward run inside ``compute_precision(cfg)`` (TF32 off; bf16 reduced in
 f32).  The state lives on the card unless ``device="cpu"`` is given.
 
+Device-fed training: over scenes synthesized on the device
+(``synthgen.DeviceSyntheticBatches``, ``--train-data synthetic-device``)
+or a corpus held there (``data.DeviceCachedBatches``, ``--cache-device``)
+the Trainer builds each batch and runs its step on one stream with no host
+round trip between them (``make_fused_synth_step``,
+``make_fused_cached_step``), ``steps_per_dispatch`` steps a call (JAX
+scans them in one program; a CUDA graph of a chunk is not used here), and
+logs and checkpoints at chunk boundaries.  The sample stream is the
+unfused one's.  Host-fed batches keep the prefetch thread.
+
 Not here: data parallelism (``--num-devices``, ``--distributed``; ROADMAP.md
-§1 item 9) and the device-fed pipelines (``synthetic-device`` data,
-``--cache-device``, multi-step dispatch; ROADMAP.md §1 item 10b).  Those
-flags raise ``NotImplementedError``.
+§1 item 9): those flags raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ubdvss_tpu_torch.data import Batches, DataConfig
+from ubdvss_tpu_torch.data import Batches, DataConfig, DeviceCachedBatches
 from ubdvss_tpu_torch.inference import resolve_device
 from ubdvss_tpu_torch.losses import total_loss
 from ubdvss_tpu_torch.metrics import pixel_detection_metrics
@@ -150,12 +161,13 @@ def create_train_state(
     return TrainState(leaves, tx, sched)
 
 
-def _cls_weight(step: int, cls_schedule, device) -> torch.Tensor:
+def _cls_weight(step: int, cls_schedule) -> torch.Tensor:
     """The classification-loss weight of a (base, end, ramp_steps) ramp at
-    ``step``, in f32 as the JAX step computes it from ``state.step``."""
-    base, end, ramp = (torch.tensor(float(v), dtype=torch.float32, device=device) for v in cls_schedule)
-    frac = torch.clamp(torch.tensor(float(step), device=device) / torch.clamp(ramp, min=1.0), 0.0, 1.0)
-    return base + (end - base) * frac
+    ``step``, in f32 as the JAX step computes it from ``state.step``: a 0-d
+    host tensor (the card reads it as a scalar, with no copy)."""
+    base, end, ramp = (_F32(v) for v in cls_schedule)
+    frac = np.clip(_F32(step) / max(ramp, _F32(1.0)), _F32(0.0), _F32(1.0))
+    return torch.tensor(base + (end - base) * frac, dtype=torch.float32)
 
 
 def _check_finite(what: str, tensors) -> None:
@@ -165,7 +177,7 @@ def _check_finite(what: str, tensors) -> None:
 
 
 def _step(state: TrainState, batch: dict, cfg: NetConfig, cls_schedule, checked: bool):
-    cls_w = None if cls_schedule is None else _cls_weight(state.step, cls_schedule, state.device)
+    cls_w = None if cls_schedule is None else _cls_weight(state.step, cls_schedule)
     names = sorted(state.params)  # the JAX package's leaf order
     leaves = [state.params[k] for k in names]
     with compute_precision(cfg):
@@ -209,6 +221,51 @@ def checked_train_step(state: TrainState, batch: dict, cfg: NetConfig, cls_sched
     return _step(state, batch, cfg, cls_schedule, checked=True)
 
 
+def make_fused_synth_step(sc, cfg: NetConfig, dc: DataConfig, mesh=None):
+    """Steps over scenes synthesized on the device: ``fused(state, seed,
+    epoch, step_idx, cls_schedule=None, steps=1)`` builds the batch of step
+    ``step_idx + s`` of ``epoch`` (``synthgen.synth_batch_step`` from the
+    generator of (seed, epoch, step)) and runs ``train_step`` on it, for
+    ``s`` in ``range(steps)``, on the state's device with no host round
+    trip between them; it returns the state and the last step's metrics.
+    The stream is ``DeviceSyntheticBatches.epoch``'s, so fused and unfused
+    training end at the same parameters.  ``mesh=`` raises
+    (ROADMAP.md §1 item 9)."""
+    if mesh is not None:
+        raise NotImplementedError("make_fused_synth_step(mesh=): ROADMAP.md §1 item 9")
+    from ubdvss_tpu_torch.synthgen import step_generator, synth_batch_step
+
+    def fused(state, seed, epoch, step_idx, cls_schedule=None, steps: int = 1):
+        metrics = None
+        for s in range(steps):
+            batch = synth_batch_step(step_generator(seed, epoch, step_idx + s, state.device), sc, cfg, dc, True)
+            state, metrics = train_step(state, batch, cfg, cls_schedule)
+        return state, metrics
+
+    return fused
+
+
+def make_fused_cached_step(cfg: NetConfig, dc: DataConfig, mesh=None):
+    """Steps over a corpus held on the device: ``fused(state, batches,
+    order, epoch, bi, cls_schedule=None, steps=1)`` gathers batch
+    ``bi + s`` of the epoch whose ``order`` is given from the
+    ``data.DeviceCachedBatches`` ``batches`` (built with ``cfg`` and
+    ``dc``), augments and rasterizes it and runs ``train_step``, for ``s``
+    in ``range(steps)``; it returns the state and the last step's metrics.
+    The stream is ``DeviceCachedBatches.epoch``'s.  ``mesh=`` raises
+    (ROADMAP.md §1 item 9)."""
+    if mesh is not None:
+        raise NotImplementedError("make_fused_cached_step(mesh=): ROADMAP.md §1 item 9")
+
+    def fused(state, batches, order, epoch, bi, cls_schedule=None, steps: int = 1):
+        metrics = None
+        for b in range(steps):
+            state, metrics = train_step(state, batches.batch_at(order, epoch, bi + b), cfg, cls_schedule)
+        return state, metrics
+
+    return fused
+
+
 def eval_step(state: TrainState, batch: dict, cfg: NetConfig) -> dict:
     """Loss and pixel metrics of a batch through the training forward."""
     with torch.no_grad(), compute_precision(cfg):
@@ -245,6 +302,9 @@ class Trainer:
     cls_weight_end: float | None = None
     cls_weight_ramp_steps: int = 10_000
     device: Any = None
+    # device-fed pipelines only: this many steps a dispatch (logging and
+    # checkpoints fall on chunk boundaries); None = auto (16), 1 = a step
+    steps_per_dispatch: int | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -263,6 +323,8 @@ class Trainer:
         )
         self._last_val_metrics: dict | None = None
         self._last_train_metrics: dict | None = None
+        # the fused data-into-step callables, by (pipeline kind, its configs)
+        self._fused_steps: dict = {}
 
     def _fresh_state(self) -> TrainState:
         return create_train_state(
@@ -288,6 +350,58 @@ class Trainer:
         step = checked_train_step if self.debug_checks else train_step
         return step(state, batch, self.cfg, self._cls_sched())
 
+    def _steps_per_dispatch(self) -> int:
+        """Steps a dispatch on the device-fed pipelines: auto picks 16, as
+        the JAX package (launch latency amortized over the chunk, logging
+        and checkpoint cadence still usable)."""
+        return 16 if self.steps_per_dispatch is None else max(1, self.steps_per_dispatch)
+
+    def _epoch_steps(self, train_batches, epoch: int):
+        """``(thunk, n_steps)`` pairs for one epoch, each ``thunk: state ->
+        (state, metrics)`` advancing ``n_steps`` steps.
+
+        The device-fed pipelines build the batch inside the step's callable
+        (``make_fused_synth_step``, ``make_fused_cached_step``),
+        ``steps_per_dispatch`` steps a thunk; the cached path's partial tail
+        (``drop_remainder=False``) is one unfused step.  Under
+        ``debug_checks`` nothing is fused (each step checked), and host-fed
+        batches come through the prefetch thread."""
+        from ubdvss_tpu_torch.synthgen import DeviceSyntheticBatches
+        from ubdvss_tpu_torch.utils.prefetch import prefetched
+
+        fuse = not self.debug_checks
+        sched = self._cls_sched()
+        k_max = self._steps_per_dispatch()
+        if fuse and isinstance(train_batches, DeviceSyntheticBatches):
+            tb = train_batches
+            fkey = ("synth", tb.sc, tb.data_cfg)
+            if fkey not in self._fused_steps:
+                self._fused_steps[fkey] = make_fused_synth_step(tb.sc, self.cfg, tb.data_cfg)
+            fused_s = self._fused_steps[fkey]
+            n = len(tb)
+            k = min(k_max, n)
+            for s in range(0, n, k):
+                kk = min(k, n - s)
+                yield (lambda st, s=s, kk=kk: fused_s(st, tb.seed, epoch, s, sched, steps=kk)), kk
+            return
+        if fuse and isinstance(train_batches, DeviceCachedBatches):
+            tb = train_batches
+            fkey = ("cached", tb.data_cfg)
+            if fkey not in self._fused_steps:
+                self._fused_steps[fkey] = make_fused_cached_step(self.cfg, tb.data_cfg)
+            fused_c = self._fused_steps[fkey]
+            order = tb.order(epoch)
+            n_full = tb._n // tb.data_cfg.batch_size
+            k = max(1, min(k_max, n_full))
+            for bi in range(0, n_full, k):
+                kk = min(k, n_full - bi)
+                yield (lambda st, bi=bi, kk=kk: fused_c(st, tb, order, epoch, bi, sched, steps=kk)), kk
+            if n_full < len(tb):  # the partial tail (drop_remainder=False)
+                yield (lambda st: self.step_fn(st, tb.batch_at(order, epoch, n_full))), 1
+            return
+        for batch in prefetched(train_batches.epoch(epoch), depth=2, device=self.device):
+            yield (lambda st, b=batch: self.step_fn(st, b)), 1
+
     def _image_summary(self, step: int, batch: dict) -> None:
         """Prediction overlays for the first val images (host, off the hot path)."""
         from ubdvss_tpu_torch.ops.postproc import postprocess_batch
@@ -301,19 +415,18 @@ class Trainer:
             img = detection_summary_image(imgs[i], {k: v[i] for k, v in res.items()})
             self.logger.log_image(step, f"predictions_{i}", img)
 
-    def fit(self, train_batches: Batches, epochs: int, val_batches: Batches | None = None) -> TrainState:
-        """``epochs`` passes over ``train_batches``, prefetched two deep
-        (host collate and the copy to the card of batch N+1 in a worker
-        thread while step N runs), then the validation pass, if any."""
-        from ubdvss_tpu_torch.utils.prefetch import prefetched
-
+    def fit(self, train_batches, epochs: int, val_batches=None) -> TrainState:
+        """``epochs`` passes over ``train_batches`` (``_epoch_steps``: host-fed
+        batches prefetched two deep, device-fed ones built inside the step's
+        chunk), then the validation pass, if any; logs and checkpoints at
+        chunk boundaries."""
         step = self.state.step
         metrics = None
         last_logged = last_saved = step
         for epoch in range(epochs):
-            for batch in prefetched(train_batches.epoch(epoch), depth=2, device=self.device):
-                self.state, metrics = self.step_fn(self.state, batch)
-                step += 1
+            for run, k in self._epoch_steps(train_batches, epoch):
+                self.state, metrics = run(self.state)
+                step += k
                 if step - last_logged >= self.log_every:
                     self.logger.log(step, {k: float(v) for k, v in metrics.items()}, "train")
                     last_logged = step
@@ -352,8 +465,8 @@ class Trainer:
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train the barcode detector")
     p.add_argument("--train-data", required=True,
-                   help="dataset root, or 'synthetic' (host-rendered); "
-                        "'synthetic-device' is not ported")
+                   help="dataset root, 'synthetic' (host-rendered), or "
+                        "'synthetic-device' (scenes synthesized on the device: no host feed)")
     p.add_argument("--val-data", default=None)
     p.add_argument("--markup-format", default="zvz-json",
                    help="zvz-json | zvz-xml | synthetic")
@@ -377,9 +490,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--synthetic-samples", type=int, default=256)
     p.add_argument("--steps-per-dispatch", type=int, default=None,
-                   help="device-fed pipelines only (not ported); 1 is the host-fed step")
+                   help="device-fed pipelines: steps a dispatch, no host round trip "
+                        "between them (logging and checkpoints at chunk boundaries); "
+                        "default auto (16), 1 = a step")
     p.add_argument("--cache-device", action="store_true",
-                   help="device-resident corpus (not ported)")
+                   help="hold the decoded training corpus on the device "
+                        "(data.DeviceCachedBatches): no host collate or copy a step")
     p.add_argument("--schedule", default="constant", choices=["constant", "cosine", "exponential"])
     p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--decay-steps", type=int, default=10_000)
@@ -409,12 +525,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--num-devices / --distributed / --allow-cpu-mesh (data-parallel training): "
             "ROADMAP.md §1 item 9")
-    if "synthetic-device" in (args.train_data, args.val_data):
-        raise NotImplementedError("synthetic-device data (synthgen.py): ROADMAP.md §1 item 10b")
-    if args.cache_device:
-        raise NotImplementedError("--cache-device (DeviceCachedBatches): ROADMAP.md §1 item 10b")
-    if args.steps_per_dispatch is not None and args.steps_per_dispatch > 1:
-        raise NotImplementedError("--steps-per-dispatch > 1 (fused multi-step): ROADMAP.md §1 item 10b")
 
 
 def main(argv: list[str] | None = None) -> Trainer:
@@ -443,9 +553,22 @@ def main(argv: list[str] | None = None) -> Trainer:
         augment=None if args.no_augment else DataConfig().augment,
         seed=args.seed,
     )
-    train_b = Batches(get_markup_reader(fmt, args.train_data, **reader_kw), cfg, dc, train=True, device=dev)
+    if args.train_data == "synthetic-device":
+        from ubdvss_tpu_torch.synthgen import DeviceSyntheticBatches
+
+        train_b = DeviceSyntheticBatches(cfg, dc, n_samples=args.synthetic_samples, seed=args.seed, device=dev)
+    else:
+        train_reader = get_markup_reader(fmt, args.train_data, **reader_kw)
+        cls = DeviceCachedBatches if args.cache_device else Batches
+        train_b = cls(train_reader, cfg, dc, train=True, device=dev)
     val_b = None
-    if args.val_data:
+    if args.val_data == "synthetic-device":
+        from ubdvss_tpu_torch.synthgen import DeviceSyntheticBatches
+
+        val_b = DeviceSyntheticBatches(cfg, dataclasses.replace(dc, shuffle=False),
+                                       n_samples=args.synthetic_samples, seed=args.seed + 1,
+                                       train=False, device=dev)
+    elif args.val_data:
         vfmt = "synthetic" if args.val_data == "synthetic" else args.markup_format
         val_b = Batches(get_markup_reader(vfmt, args.val_data, **reader_kw), cfg,
                         dataclasses.replace(dc, shuffle=False), train=False, device=dev)
@@ -454,6 +577,7 @@ def main(argv: list[str] | None = None) -> Trainer:
         decay_steps=args.decay_steps, weight_decay=args.weight_decay, logdir=args.logdir,
         debug_checks=args.debug_nan, seed=args.seed, cls_weight_end=args.cls_weight_end,
         cls_weight_ramp_steps=args.cls_weight_ramp_steps, device=dev,
+        steps_per_dispatch=args.steps_per_dispatch,
     )
     if args.resume:
         trainer.maybe_resume()

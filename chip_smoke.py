@@ -263,6 +263,29 @@ them.  Phases, each of which raises on failure:
      (torch.cuda.set_sync_debug_mode("warn")); then the train CLI with
      synthetic-device train and val data at 2 steps a dispatch and with
      --cache-device, each in its own process, run together.
+  8. the mesh and tiled scans (parallel/mesh.py, parallel/tiling.py), over
+     entries that repeat the one card (make_mesh(n, devices=[cuda:0] * n):
+     the sharding, halo and seam code that n cards would run):
+     detect_program_batch(mesh=) on the main path's B=64 512² batch over 4
+     entries in f32, bf16 and int8, bit for bit the four per-shard calls,
+     each kernel's launches 4x a shard's, logits within 1e-5 of the
+     full-batch call and its detections equal (compare_detections); once
+     over setup_devices("auto"), bit for bit the single call; the QVGA
+     stream over 4 entries equal to the stream at the shards' batch size;
+     run_evaluation over 4 entries on 44 256² scenes at batch 8 (a padded
+     remainder) equal to the run without a mesh; tiled_detect on a 2048²
+     scan over 4 entries (T = 512, the 140-pixel halo in one hop) and 16
+     (T = 128, two hops) against detect_program on the whole scan: logits
+     within 1e-4, valid identical, boxes within 1e-3 as corner sets,
+     converged; the distributed CCL on the adversarial maps and a snake
+     crossing every seam, on 2, 4 and 8 entries, 4- and 8-connected,
+     labels identical to connected_components (the cap of the seam loop
+     is reached only by the adversarial snake on 8 entries, as in the JAX
+     formulation); connected_components equal to K1's labels compacted on
+     the main path's maps; times (CUDA events): the DP batch against the
+     single call, tiled_detect split into trunk, seam rounds and tail
+     beside detect_program on the whole scan, and K1 against
+     label_propagation and connected_components on the main path's maps.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -3240,6 +3263,207 @@ def main() -> int:
                           "launches": {k: n_g[k] for k in gate_kernels}},
         "fused_vs_unfused": fused_cmp, "cli": cli_fed,
         "bench": {"batch": TRAIN_BENCH_B, "image": IMG, "epoch_scenes": TRAIN_EPOCH_N, **fed_timing}}}))
+    # --- 8. the mesh: data-parallel serving, stream and evaluation over four
+    # entries of the card, the row-tiled 2048² scan, the distributed CCL ---
+    phase("mesh and tiled scans")
+    from ubdvss_tpu_torch.evaluate import run_evaluation
+    from ubdvss_tpu_torch.ops.ccl import compact_labels, connected_components, label_propagation
+    from ubdvss_tpu_torch.ops.postproc import eq_from_raw_labels, finish_from_eq, roots_from_raw_labels
+    from ubdvss_tpu_torch.parallel import make_mesh
+    from ubdvss_tpu_torch.parallel import tiling
+    from ubdvss_tpu_torch.train import setup_devices
+
+    mesh4 = make_mesh(4, devices=[dev] * 4)
+    mesh_report: dict = {"card": smi, "mesh": str(mesh4)}
+
+    def same_results(a, b) -> bool:
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    # a. detect_program_batch(mesh=) on the main path's batch: bit for bit the
+    # four per-shard calls, 4x a shard's launches, within the full call
+    dp_modes = {
+        "float32": (params_d, cfg, None, main_kernels, ["geometry_compat", "rect_exact", *tiled, *bf16]),
+        "bfloat16": (params16_d, cfg16, None, main16, not16),
+        "int8": (params_d, cfg, q_d, main8, not8),
+    }
+    full_calls = {"float32": (res_d, logits_d), "bfloat16": (res16_d, logits16_d), "int8": (res8_d, logits8_d)}
+    mesh_report["dp"] = {}
+    for mode, (p_m, c_m, q_m, must_m, not_m) in dp_modes.items():
+        (res_m, lg_m), n_m = counted(
+            lambda: detect_program_batch(p_m, imgs, c_m, (IMG, IMG), qparams=q_m, mesh=mesh4), must_m, not_m)
+        shards_m, n_sh = [], []
+        for i in range(4):
+            out_i, n_i = counted(lambda i=i: detect_program_batch(
+                p_m, imgs[i * B // 4:(i + 1) * B // 4], c_m, (IMG, IMG), qparams=q_m, device="cuda"), must_m, not_m)
+            shards_m.append(out_i)
+            n_sh.append(n_i)
+        if any(n != n_sh[0] for n in n_sh) or any(n_m[k] != 4 * n_sh[0][k] for k in n_m):
+            raise AssertionError(f"mesh {mode}: launches {n_m}, a shard's {n_sh[0]}: not 4x")
+        if not (same_results(res_m, {k: torch.cat([s[0][k] for s in shards_m]) for k in res_m})
+                and torch.equal(lg_m, torch.cat([s[1] for s in shards_m]))):
+            raise AssertionError(f"mesh {mode}: results differ from the four per-shard calls")
+        res_f, lg_f = full_calls[mode]
+        err_full = float((lg_m - lg_f).abs().max())
+        if not err_full <= 1e-5:
+            raise AssertionError(f"mesh {mode}: logits {err_full} from the full-batch call's")
+        left_out = compare_detections({k: v.cpu().numpy() for k, v in res_m.items()},
+                                      {k: v.cpu().numpy() for k, v in res_f.items()},
+                                      lg_f[..., 0].cpu().numpy(), box_atol=1e-5, score_atol=1e-5)
+        mesh_report["dp"][mode] = {"launches": {k: n_m[k] for k in must_m},
+                                   "launches_one_shard": {k: n_sh[0][k] for k in must_m},
+                                   "logits_vs_full_max_abs_err": err_full,
+                                   "full_call_images_and_class_ids_left_out": left_out}
+        log(f"mesh {mode}: B={B} {IMG}² over {mesh4.size} entries of {dev}: == the four per-shard calls bit "
+            f"for bit, launches {mesh_report['dp'][mode]['launches']} = 4x a shard's; against the full-batch "
+            f"call logits max|err| {err_full:.3g} <= 1e-5, detections equal ({left_out[0]} images, "
+            f"{left_out[1]} near-tie class ids left out)")
+    mesh_auto = setup_devices("auto")
+    res_auto, lg_auto = detect_program_batch(params_d, imgs, cfg, (IMG, IMG), mesh=mesh_auto)
+    if not (mesh_auto.size == torch.cuda.device_count() and same_results(res_auto, res_d)
+            and torch.equal(lg_auto, logits_d)):
+        raise AssertionError("setup_devices('auto'): results differ from the single call")
+    log(f"setup_devices('auto'): {mesh_auto}; == the single call bit for bit")
+
+    # b. the QVGA stream over the mesh == the stream at the shards' batch
+    # size; run_evaluation over the mesh with a remainder batch == without
+    shard_b = B // mesh4.size
+    (got_m, n_sm) = counted(
+        lambda: list(StreamingDetector(cfg_q, params, QVGA, batch_size=B, mesh=mesh4).process(iter(frames))),
+        ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", "geometry_compat", *tiled, *bf16])
+    got_1 = list(StreamingDetector(cfg_q, params, QVGA, batch_size=shard_b, device="cuda").process(iter(frames)))
+    if [i for i, _ in got_m] != list(range(N_FRAMES)) or not all(
+            all(np.array_equal(x[k], y[k]) for k in x) for (_, x), (_, y) in zip(got_m, got_1)):
+        raise AssertionError("mesh stream: detections differ from the stream at the shards' batch size")
+    n_ev = EVAL_N - EVAL_BATCH // 2  # a remainder batch of half a batch
+    reader_m = SyntheticMarkupReader(n_samples=n_ev, image_hw=EVAL_HW, seed=0)
+    dc_m = DataConfig(batch_size=EVAL_BATCH, train_hw=EVAL_HW, max_polys=32)
+    cfg_ev = load_net_config(asset)
+    ev_1 = run_evaluation(params_d, reader_m, cfg_ev, dc_m)
+    ev_m, n_em = counted(lambda: run_evaluation(params_d, reader_m, cfg_ev, dc_m, mesh=mesh4),
+                         ["context_layer", "ccl", "slots", "rect_exact"], ["rect_compact", *tiled, *bf16])
+    if ev_m != ev_1:
+        raise AssertionError(f"mesh evaluation: {ev_m} differs from {ev_1}")
+    mesh_report["stream"] = {"frames": N_FRAMES, "launches": n_sm}
+    mesh_report["evaluation"] = {"images": n_ev, "batch": EVAL_BATCH, "f1": ev_m.f1, "launches": n_em}
+    log(f"mesh stream: {N_FRAMES} QVGA frames, batch {B} over {mesh4.size} entries == batch {shard_b} "
+        f"without a mesh; mesh evaluation: {n_ev} {EVAL_HW[0]}² scenes at batch {EVAL_BATCH} (a remainder "
+        f"of {n_ev % EVAL_BATCH}) F1 {ev_m.f1:.4f} == without a mesh")
+
+    # c. the row-tiled 2048² scan (BASELINE config 4) on 4 entries (T = 512
+    # rows, the 140-pixel halo in one hop) and 16 (T = 128 < halo: two hops)
+    scan0 = scans[0]
+    ref_t, ref_lt = detect_program(params_d, scan0, cfg, (SCAN, SCAN), device="cuda")
+    mesh_report["tiled"] = {}
+    for n_t in (4, 16):
+        mesh_t = make_mesh(n_t, axis="spatial", devices=[dev] * n_t)
+        out_t = tiling.tiled_detect(params_d, scan0, cfg, mesh_t)
+        err_t = float((out_t["logits"] - ref_lt).abs().max())
+        boxes_ok = same_corner_sets(out_t["boxes"].cpu().numpy(), ref_t["boxes"].cpu().numpy(), 1e-3)
+        v_t = ref_t["valid"].cpu().numpy()
+        if not (bool(out_t["ccl_converged"]) and err_t <= 1e-4 and torch.equal(out_t["valid"], ref_t["valid"])
+                and boxes_ok[v_t].all()):
+            raise AssertionError(f"tiled_detect on {n_t} entries: converged {bool(out_t['ccl_converged'])}, "
+                                 f"logits max|err| {err_t}, valid or boxes differ from detect_program")
+        if int(ref_t["num_detections"]) == 0:
+            raise AssertionError("tiled 2048² scan: no detection to compare")
+        T_t, halo_t, hops_t = tiling._halo_plan(SCAN, n_t, cfg, None)
+        mesh_report["tiled"][n_t] = {"rows_a_tile": T_t, "halo": halo_t, "hops": hops_t,
+                                     "logits_max_abs_err": err_t, "detections": int(ref_t["num_detections"])}
+        log(f"tiled_detect {SCAN}² on {n_t} entries (T={T_t}, halo {halo_t}, {hops_t} hop(s)): converged, "
+            f"logits max|err| {err_t:.3g} <= 1e-4, valid identical, {int(ref_t['num_detections'])} boxes "
+            "within 1e-3 of detect_program's")
+
+    def tiled_split(n_t):
+        """tiled_detect's three stages on n_t entries, CUDA events between
+        them: the halo + trunk, the seam rounds (and their count), the tail."""
+        mesh_t = make_mesh(n_t, axis="spatial", devices=[dev] * n_t)
+        devs_t = mesh_t.axis_devices("spatial")
+        Ho, Wo = SCAN // cfg.scale, SCAN // cfg.scale
+        To, sentinel = Ho // n_t, Ho * Wo
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with torch.inference_mode():
+            ev[0].record()
+            tl = tiling._tile_logits(params_d, torch.from_numpy(scan0), cfg, devs_t, None)
+            ev[1].record()
+            masks = [torch.sigmoid(lg[..., 0]) > cfg.detection_threshold for lg in tl]
+            labs, conv, rounds = tiling._seam_merge_ccl(
+                tiling._tile_labels(masks, To, Wo, sentinel), masks, n_t, sentinel, 8, To, Wo)
+            ev[2].record()
+            lab_full = torch.cat(labs)
+            rv, ok = roots_from_raw_labels(lab_full, cfg.max_components)
+            idx = torch.arange(Ho * Wo, dtype=torch.int32, device=dev).reshape(Ho, Wo)
+            total = ((lab_full == idx) & (lab_full < sentinel)).sum().to(torch.int32)
+            finish_from_eq(torch.cat(tl), eq_from_raw_labels(lab_full, rv, ok), cfg, total)
+            ev[3].record()
+        ev[3].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)], rounds, conv
+
+    for n_t in (4, 16):
+        tiled_split(n_t)  # warm-up
+        splits = [tiled_split(n_t) for _ in range(3)]
+        ms_t = time_ms(lambda n_t=n_t: tiling.tiled_detect(
+            params_d, scan0, cfg, make_mesh(n_t, axis="spatial", devices=[dev] * n_t)), iters=3, reps=1, warmup=1)
+        med = [statistics.median(s[0][i] for s in splits) for i in range(3)]
+        mesh_report["tiled"][n_t].update(ms=ms_t, trunk_ms=med[0], seam_ms=med[1], tail_ms=med[2],
+                                         seam_rounds=splits[0][1])
+        log(f"tiled_detect {SCAN}² on {n_t} entries: {ms_t:.2f} ms (trunk {med[0]:.2f}, {splits[0][1]} seam "
+            f"rounds {med[1]:.2f}, tail {med[2]:.2f})")
+    ms_whole = time_ms(lambda: detect_program(params_d, scan0, cfg, (SCAN, SCAN), device="cuda"),
+                       iters=3, reps=1, warmup=1)
+    mesh_report["tiled"]["detect_program_whole_ms"] = ms_whole
+
+    # d. the distributed CCL == connected_components on the adversarial maps
+    # and a snake crossing every seam, on 2, 4 and 8 entries; and
+    # connected_components == K1's raw labels compacted, on the card
+    adv_m = torch.from_numpy(adversarial_maps()).to(dev) > 0
+    seam_snake = torch.zeros((128, 128), dtype=torch.bool, device=dev)
+    for c in range(0, 128, 16):  # 8 columns: within the seam loop's cap on 8 entries
+        seam_snake[:, c] = True
+        seam_snake[0 if (c // 16) % 2 else 127, c:c + 17] = True
+    ccl_maps = list(adv_m) + [seam_snake]
+    capped = []
+    for conn in (8, 4):
+        for j, m_j in enumerate(ccl_maps):
+            lab_j, _ = connected_components(m_j, conn)
+            for n_c in (2, 4, 8):
+                got_j, conv_j = tiling.distributed_connected_components(
+                    m_j, make_mesh(n_c, axis="spatial", devices=[dev] * n_c), connectivity=conn)
+                if not torch.equal(got_j, lab_j):
+                    raise AssertionError(f"distributed CCL map {j} on {n_c} entries ({conn}-conn): labels differ")
+                if not bool(conv_j):
+                    capped.append((j, n_c, conn))
+    # the adversarial snake (32 columns) on 8 entries needs more seam rounds
+    # than the JAX formulation's cap, whose flag then reads False with the
+    # labels complete (tests/test_torch_parallel.py holds this against JAX)
+    if any((j, n_c) != (0, 8) for j, n_c, _ in capped):
+        raise AssertionError(f"distributed CCL: unconverged {capped}")
+    det_main = logits_d[..., 0].contiguous()
+    mask_main = det_main > ccl_kernel.threshold_logit(cfg.detection_threshold)
+    for conn in (8, 4):
+        raw_k = ccl_kernel.ccl_labels_from_logits(det_main, connectivity=conn)
+        for b in range(B):
+            lab_b, n_b = connected_components(mask_main[b], conn)
+            want_b, n_want = compact_labels(raw_k[b], raw_k[b] < raw_k[b].numel(), raw_k[b].numel())
+            if not (torch.equal(lab_b, want_b) and int(n_b) == int(n_want)):
+                raise AssertionError(f"connected_components map {b} ({conn}-conn): differs from K1's labels")
+    t_k1 = time_ms(lambda: ccl_kernel.ccl_labels_from_logits(det_main))
+    t_lp = time_ms(lambda: label_propagation(mask_main), iters=3, reps=1)
+    t_cc = time_ms(lambda: [connected_components(mask_main[b]) for b in range(B)], iters=3, reps=1)
+    mesh_report["ccl"] = {"maps": len(ccl_maps), "entries": [2, 4, 8], "unconverged_at_the_cap": capped,
+                          "k1_ms": t_k1, "label_propagation_batch_ms": t_lp, "connected_components_64_ms": t_cc}
+    log(f"distributed CCL: {len(ccl_maps)} maps x 2, 4, 8 entries x 4/8-conn == connected_components "
+        f"(the seam loop's cap reached, flag False, on {capped}); connected_components == K1's labels "
+        f"compacted on the main path's {B} maps; K1 {t_k1:.4f} ms, label_propagation on the batch "
+        f"{t_lp:.2f} ms, connected_components one map at a time {t_cc:.2f} ms")
+
+    # e. times: the 4-entry DP batch against the single call (images on the card)
+    ms_single = time_ms(lambda: detect_program_batch(params_d, imgs_d, cfg, (IMG, IMG), detections_only=True))
+    ms_dp = time_ms(lambda: detect_program_batch(params_d, imgs_d, cfg, (IMG, IMG), detections_only=True,
+                                                 mesh=mesh4))
+    mesh_report["dp"]["float32"].update(ms=ms_dp, single_call_ms=ms_single)
+    log(f"mesh f32 B={B} {IMG}²: {ms_dp:.3f} ms over {mesh4.size} entries of one card against "
+        f"{ms_single:.3f} ms for one call")
+    log(json.dumps({"mesh_and_tiled_scans": mesh_report}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -248,9 +248,16 @@ def test_entry_points_default_to_the_card():
 
 
 def test_run_evaluation_mesh_raises_naming_item_9():
+    """run_evaluation(mesh=) is served (tests/test_torch_parallel.py); a
+    mesh that does not divide the batch size (8 over 3 entries) raises
+    before anything runs, and so does an object that is no mesh."""
+    from ubdvss_tpu_torch.parallel import make_mesh
+
     _, _, cfg, params = _models()
     reader, _ = _readers(2, (64, 64))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="divisible"):
+        peval.run_evaluation(params, reader, cfg, mesh=make_mesh(3, devices=["cpu"] * 3), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         peval.run_evaluation(params, reader, cfg, mesh=object(), device="cpu")
 
 
@@ -288,8 +295,11 @@ def test_cli_int8_calibrates_on_the_eval_images(tmp_path):
 
 def test_cli_refusals(tmp_path):
     base = ["--data", "synthetic", "--synthetic-samples", "2", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        peval.main(base + ["--checkpoint", str(ASSETS["separable"]), "--num-devices", "2"])
+    # --num-devices past the cards without --allow-cpu-mesh (served with it:
+    # tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="allow-cpu-mesh"):
+        peval.main(base + ["--checkpoint", str(ASSETS["separable"]),
+                           "--num-devices", str(torch.cuda.device_count() + 2)])
     # a log directory without checkpoints, and one of the JAX package's orbax
     # checkpoints (tests/test_torch_train.py serves the port's own)
     with pytest.raises(FileNotFoundError, match="no training checkpoint"):

@@ -439,15 +439,23 @@ def test_port_int8_contract_against_port_f32():
 
 
 def test_int8_mesh_still_raises():
+    """int8 qparams over a mesh are served (tests/test_torch_parallel.py);
+    a batch the mesh does not divide raises on every entry point, and so
+    does an object that is no mesh."""
+    from ubdvss_tpu_torch.parallel import make_mesh
+
     _, _, cfg, params = _models("separable")
     _, pqp = _jax_qparams("separable")
     imgs = np.zeros((1, 64, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    two = make_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="divisible"):
+        detect_program_batch(params, imgs, cfg, (64, 64), qparams=pqp, mesh=two, device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        detect_preprocessed_batch(params, _norm(imgs), cfg, qparams=pqp, mesh=two, device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        StreamingDetector(cfg, params, (64, 64), batch_size=3, qparams=pqp, mesh=two, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         detect_program_batch(params, imgs, cfg, (64, 64), qparams=pqp, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        detect_preprocessed_batch(params, _norm(imgs), cfg, qparams=pqp, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamingDetector(cfg, params, (64, 64), qparams=pqp, mesh=object(), device="cpu")
 
 
 def test_detect_cli_int8_matches_jax(tmp_path):

@@ -83,6 +83,55 @@ def test_fcn_matches_flax(asset, hw):
     assert sum(p.numel() for p in model.parameters()) == n_params
 
 
+def _halo_tile(hw, seed):
+    """A tile of a larger image padded with rows beyond its top edge, as
+    parallel/tiling.py builds one for the first tile: 16 rows outside the
+    image (zeros, their mask 0), then the scene; (2, H, W, 1) normalized
+    images and the (2, H, W, 1) boundary mask."""
+    reader = SyntheticMarkupReader(n_samples=2, image_hw=(hw - 16, hw), seed=seed)
+    x = np.zeros((2, hw, hw), np.float32)
+    x[:, 16:] = np.stack([reader.sample_at(i).image for i in range(2)])
+    x = (x * np.float32(1 / 127.5) - 1.0)[..., None]
+    m = np.zeros((2, hw, hw, 1), np.float32)
+    m[:, 16:] = 1.0
+    return x, m
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("asset", sorted(ASSETS))
+def test_fcn_boundary_mask_matches_flax(asset, dtype):
+    """BarcodeFCN(x, boundary_mask=) == flax's apply(..., boundary_mask=) on
+    a halo-padded 64² tile: f32 within test_fcn_matches_flax's bound, bf16
+    within test_torch_bf16's FCN_ULPS bf16 ulps of max|logit|; None gives
+    the unmasked forward exactly."""
+    x, m = _halo_tile(64, 3)
+    if dtype == "float32":
+        jcfg, jparams = _jax_asset(ASSETS[asset])
+        cfg, params = load_net_config(ASSETS[asset]), load_params(ASSETS[asset])
+    else:
+        from test_torch_bf16 import _jax_bf16, _port_bf16
+
+        jcfg, jparams = _jax_bf16(asset)
+        cfg, params = _port_bf16(asset)
+    ref = np.asarray(jax_get_model(jcfg).apply({"params": jparams}, jnp.asarray(x),
+                                               boundary_mask=jnp.asarray(m)))
+    model = get_model(cfg)
+    model.load_state_dict(params)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), boundary_mask=torch.from_numpy(m)).numpy()
+        plain = model(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape and out.dtype == np.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, atol=max(1e-5, 1e-6 * np.abs(ref).max()))
+    else:
+        from test_torch_bf16 import FCN_ULPS, _ulps
+
+        assert _ulps(out, ref) <= FCN_ULPS
+    with torch.no_grad():
+        np.testing.assert_array_equal(model(torch.from_numpy(x), None).numpy(), plain)
+    assert not np.array_equal(out, plain)  # the mask changed the tile's border rows
+
+
 @pytest.mark.parametrize(
     "in_hw,out_hw,order",
     [
@@ -142,19 +191,22 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize(
-    "kw,match",
+    "kw,exc,match",
     [
         # the ids the cases had beside the bf16 case, which the bf16 slice
         # removed (the bf16 route is served: tests/test_torch_bf16.py); int8
-        # qparams are served too (tests/test_torch_int8.py), but not over a
-        # mesh
-        pytest.param(dict(qparams={}, mesh=object()), "int8 qparams: .*item 9", id="kw1-int8"),
-        pytest.param(dict(mesh=object()), "mesh", id="kw2-mesh"),
+        # qparams are served (tests/test_torch_int8.py), and so is a mesh
+        # (tests/test_torch_parallel.py) that divides the batch
+        pytest.param(dict(qparams={}, mesh="2 cpu entries"), ValueError, "divisible", id="kw1-int8"),
+        pytest.param(dict(mesh=object()), TypeError, "Mesh", id="kw2-mesh"),
     ],
 )
-def test_unported_routes_raise(kw, match):
-    """Routes outside this slice raise NotImplementedError naming their
-    ROADMAP.md item; none falls back to another route."""
+def test_unported_routes_raise(kw, exc, match):
+    """A mesh the batch cannot run on raises (a batch of 1 over 2 entries,
+    an object that is no mesh); none falls back to another route or to a
+    smaller mesh."""
+    from ubdvss_tpu_torch.parallel import make_mesh
+
     args = dict(
         params=load_params(ASSETS["separable"]),
         imgs=np.zeros((1, 64, 64), np.uint8),
@@ -163,9 +215,10 @@ def test_unported_routes_raise(kw, match):
         device="cpu",
     )
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=match) as e:
+    if args["mesh"] == "2 cpu entries":
+        args["mesh"] = make_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(exc, match=match):
         detect_program_batch(**args)
-    assert "ROADMAP.md" in str(e.value)
 
 
 @pytest.mark.parametrize(

@@ -26,11 +26,14 @@ from ubdvss_tpu.inference import detect_program as jax_detect_program
 from ubdvss_tpu.inference import detect_program_batch as jax_detect_program_batch
 from ubdvss_tpu.net_config import NetConfig as JaxNetConfig
 from ubdvss_tpu.ops.ccl import connected_components as jax_connected_components
+from ubdvss_tpu.ops import postproc as jpp
 from ubdvss_tpu.ops.postproc import postprocess as jax_postprocess
 from ubdvss_tpu.ops.postproc import postprocess_batch as jax_postprocess_batch
 from ubdvss_tpu_torch import BarcodeDetector, NetConfig, detect_program, detect_program_batch
 from ubdvss_tpu_torch import detect_preprocessed_batch, load_net_config
 from ubdvss_tpu_torch.ops.cuda.ccl_kernel import ccl_labels_from_logits
+from ubdvss_tpu_torch.ops import postproc as pp
+from ubdvss_tpu_torch.ops.ccl import connected_components, label_propagation
 from ubdvss_tpu_torch.ops.postproc import postprocess, postprocess_batch, postprocess_batch_fused
 from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
 
@@ -135,6 +138,66 @@ def test_postprocess_one_image_matches_jax(connectivity):
                 torch.testing.assert_close(out[key], batch[key][b], atol=1e-6, rtol=0)
             else:
                 assert torch.equal(out[key], batch[key][b]), key
+
+
+def _tail_maps(K):
+    """Blob maps, the bar and the adversarial maps (some with more
+    components than K), with class logits: (B, 32, 32, 5)."""
+    det = np.concatenate([blob_logits(K, B=3, n_blobs=9), upright_bar(H=32, W=32, rows=20),
+                          adversarial_logits()])
+    return _with_classes(det, K + 1)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("K", [4, 16])
+def test_xla_tail_from_raw_labels_matches_jax(K, connectivity):
+    """roots_from_raw_labels (all maps at once, as leading dims) ->
+    eq_from_raw_labels -> finish_from_eq with the true count, image by
+    image, against the JAX functions on the same raw labels: roots, masks
+    and every int identical, scores and class probs within 1e-6, boxes
+    within 1e-4 as corner sets."""
+    logits = _tail_maps(K)
+    cfg, jcfg = _cfgs(max_components=K, min_component_area=3)
+    mask = torch.sigmoid(torch.from_numpy(logits[..., 0])) > cfg.detection_threshold
+    raw = label_propagation(mask, connectivity)
+    rv, ok = pp.roots_from_raw_labels(raw, K)
+    jrv, jok = jpp.roots_from_raw_labels(jnp.asarray(raw.numpy()), K)
+    np.testing.assert_array_equal(rv.numpy(), np.asarray(jrv))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    eq = pp.eq_from_raw_labels(raw, rv, ok)
+    np.testing.assert_array_equal(eq.numpy(), np.asarray(jpp.eq_from_raw_labels(jnp.asarray(raw.numpy()), jrv, jok)))
+    lin = torch.arange(32 * 32, dtype=torch.int32).reshape(32, 32)
+    n_over = 0
+    for b in range(len(logits)):
+        total = ((raw[b] == lin) & (raw[b] < 32 * 32)).sum().to(torch.int32)
+        out = pp.finish_from_eq(torch.from_numpy(logits[b]), eq[b], cfg, num_components_total=total)
+        ref = jax.device_get(jpp.finish_from_eq(jnp.asarray(logits[b]), jnp.asarray(eq[b].numpy()), jcfg,
+                                                num_components_total=jnp.int32(int(total))))
+        assert sorted(out) == sorted(ref)
+        assert_same_detections(out, ref)
+        n_over += int(total) > K
+        none = pp.finish_from_eq(torch.from_numpy(logits[b]), eq[b], cfg)
+        assert int(none["num_components_total"]) == int(
+            jpp.finish_from_eq(jnp.asarray(logits[b]), jnp.asarray(eq[b].numpy()), jcfg)["num_components_total"])
+    assert n_over > 0 or (K, connectivity) == (16, 8)  # maps past K, but for 16 8-connected
+
+
+@pytest.mark.parametrize("classification", [True, False])
+def test_finish_postprocess_matches_jax(classification):
+    """finish_postprocess on compact labels (connected_components) against
+    the JAX function: num_components_total is the true count past the K
+    cut; the detection-only head gives zero classes and unit probs."""
+    logits = _tail_maps(4)
+    if not classification:
+        logits = logits[..., :1]
+    cfg, jcfg = _cfgs(max_components=4, min_component_area=3, classification=classification)
+    for b in range(len(logits)):
+        mask = torch.sigmoid(torch.from_numpy(logits[b, ..., 0])) > cfg.detection_threshold
+        labels, n = connected_components(mask)
+        out = pp.finish_postprocess(torch.from_numpy(logits[b]), labels, cfg)
+        ref = jax.device_get(jpp.finish_postprocess(jnp.asarray(logits[b]), jnp.asarray(labels.numpy()), jcfg))
+        assert_same_detections(out, ref)
+        assert int(out["num_components_total"]) == int(n)
 
 
 @pytest.mark.parametrize("asset", sorted(ASSETS))

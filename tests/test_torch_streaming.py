@@ -66,9 +66,15 @@ def test_stream_empty_and_short(detectors):
 
 
 def test_stream_routes_not_ported_raise():
+    """A mesh is served (tests/test_torch_parallel.py); one that does not
+    divide the batch size, or an object that is no mesh, raises, with or
+    without int8 qparams."""
+    from ubdvss_tpu_torch.parallel import make_mesh
+
     cfg = load_net_config(ASSETS["separable"])
     params = load_params(ASSETS["separable"])
-    # int8 qparams are served (tests/test_torch_int8.py), but not over a mesh
-    for kw, item in ((dict(qparams={}, mesh=object()), "item 9"), (dict(mesh=object()), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
+    three = make_mesh(3, devices=["cpu"] * 3)
+    for kw, exc, match in ((dict(qparams={}, mesh=three), ValueError, "divisible"),
+                           (dict(mesh=object()), TypeError, "Mesh")):
+        with pytest.raises(exc, match=match):
             StreamingDetector(cfg, params, FRAME_HW, device="cpu", **kw)

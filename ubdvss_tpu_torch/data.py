@@ -306,7 +306,7 @@ class DeviceCachedBatches:
     ``max_bytes`` (8 GB, the JAX package's default) bounds the images'
     device footprint: a larger corpus raises ``ValueError`` before anything
     is loaded (use ``Batches`` or ``GrainBatches`` for it).  ``mesh=``
-    raises ``NotImplementedError`` (ROADMAP.md §1 item 9)."""
+    raises ``NotImplementedError`` (ROADMAP.md §1 item 9b)."""
 
     def __init__(
         self,
@@ -336,7 +336,7 @@ class DeviceCachedBatches:
         self._n = n
 
     def place_on_mesh(self, mesh) -> None:
-        raise NotImplementedError("DeviceCachedBatches on a mesh: ROADMAP.md §1 item 9")
+        raise NotImplementedError("DeviceCachedBatches on a mesh: ROADMAP.md §1 item 9b")
 
     def __len__(self) -> int:
         b = self.data_cfg.batch_size

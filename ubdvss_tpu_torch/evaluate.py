@@ -26,8 +26,11 @@ Two resolution modes, as in the JAX package:
     as the JAX package computes it eagerly there.
 
 ``--checkpoint`` takes a weight file or a training log directory of the
-port's Trainer (``detect.load_params``).  ``mesh`` (data-parallel
-evaluation) and ``--num-devices`` are not ported (ROADMAP.md §1 item 9).
+port's Trainer (``detect.load_params``).  ``mesh`` (``--num-devices``,
+through ``train.setup_devices``) evaluates data-parallel: each batch is
+sharded over the mesh by ``detect_preprocessed_batch(mesh=)``, a resized
+remainder batch padded to ``batch_size`` with zero images first (as the
+JAX package does), and the pad rows never reach the match records.
 """
 
 from __future__ import annotations
@@ -40,10 +43,11 @@ import numpy as np
 import torch
 
 from ubdvss_tpu_torch.data import Batches, DataConfig, _to_device, _to_train_shape, load_image, pad_polygons
-from ubdvss_tpu_torch.inference import detect_preprocessed_batch, resolve_device
+from ubdvss_tpu_torch.inference import _check_mesh, _data_parallel, detect_preprocessed_batch, resolve_device
 from ubdvss_tpu_torch.net_config import CLASS_GROUPS, NetConfig
 from ubdvss_tpu_torch.ops.preproc import normalize
 from ubdvss_tpu_torch.ops.quant import qparams_to
+from ubdvss_tpu_torch.parallel.mesh import replicate_to_mesh, shard_batch_to_mesh
 from ubdvss_tpu_torch.utils.geometry import iou as polygon_iou
 
 
@@ -357,15 +361,22 @@ def run_evaluation(
     N's device-to-host readback starts only after batch N+1 has been
     dispatched (on a stream of its own, so it waits for batch N alone).
 
-    ``mesh`` (data-parallel evaluation) is not ported (ROADMAP.md §1 item 9).
+    ``mesh``: data-parallel evaluation — each batch sharded over the mesh
+    (``detect_preprocessed_batch(mesh=)``), the weights placed once a
+    distinct device, the results gathered on its first entry; a resized
+    remainder batch is padded with zero images to ``batch_size``, which
+    the mesh's size must divide, and the pad rows are dropped by
+    ``n_real``.
     """
+    dc = data_cfg or DataConfig(batch_size=8, max_polys=32)
+    dc = dataclasses.replace(dc, shuffle=False, augment=None, drop_remainder=False)
     if mesh is not None:
-        raise NotImplementedError("mesh data-parallel evaluation: ROADMAP.md §1 item 9")
+        _check_mesh(mesh, device, dc.batch_size)
+        device = mesh.devices.flat[0]  # where batches are fed and results gathered
     dev = resolve_device(device)
     params = {k: v.to(dev) for k, v in params.items()}
     qparams = None if qparams is None else qparams_to(qparams, dev)
-    dc = data_cfg or DataConfig(batch_size=8, max_polys=32)
-    dc = dataclasses.replace(dc, shuffle=False, augment=None, drop_remainder=False)
+    placed = None if mesh is None else replicate_to_mesh({"params": params, "qparams": qparams}, mesh)
     class_names = cfg.class_names if cfg.classification else None
     per_image: list[dict] = []
     pending: list[tuple] = []  # one-deep deferred (results, GT, n_real, event)
@@ -379,7 +390,14 @@ def run_evaluation(
 
     def dispatch(x, gt, n_real):
         """Queue one batch's detection, then read back the batch before it."""
-        res, _ = detect_preprocessed_batch(params, x, cfg, qparams=qparams, device=dev)
+        if mesh is None:
+            res, _ = detect_preprocessed_batch(params, x, cfg, qparams=qparams, device=dev)
+        else:
+            if x.shape[0] < dc.batch_size:  # the static shard shapes: pad, dropped by n_real
+                x = torch.cat([x, x.new_zeros((dc.batch_size - x.shape[0],) + x.shape[1:])])
+            shards = shard_batch_to_mesh(x, mesh, mesh.axis_names[0])
+            res, _ = _data_parallel(detect_preprocessed_batch, mesh, placed, shards, None,
+                                    tuple(x.shape[1:3]), cfg, n_strips=None)
         done = None
         if copy_stream is not None:
             done = torch.cuda.Event()
@@ -452,18 +470,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--prefetch-depth", type=int, default=2,
                    help="feed/compute overlap depth (0 = synchronous feed)")
     p.add_argument("--num-devices", default=None,
-                   help="data-parallel evaluation (not ported)")
+                   help="data-parallel evaluation over this many CUDA devices "
+                        "('auto' = all); the batch size must divide by it")
     p.add_argument("--allow-cpu-mesh", action="store_true",
-                   help="accepted for the JAX CLI's flag set; only read with "
-                        "--num-devices")
+                   help="let --num-devices past the cards build CPU entries "
+                        "(tests and dry runs; never silent)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def main(argv: list[str] | None = None) -> EvalResult:
     args = build_argparser().parse_args(argv)
-    if args.num_devices is not None:
-        raise NotImplementedError("--num-devices (data-parallel evaluation): ROADMAP.md §1 item 9")
     from ubdvss_tpu_torch.detect import load_params
     from ubdvss_tpu_torch.markup import get_markup_reader
     from ubdvss_tpu_torch.ops.quant import quantize_trunk
@@ -503,9 +520,18 @@ def main(argv: list[str] | None = None) -> EvalResult:
                 break
         params_d = {k: v.to(dev) for k, v in params.items()}
         qparams = quantize_trunk(params_d, cfg, torch.cat(cal)[: args.int8_calib])
+    mesh = None
+    if args.num_devices is not None:
+        from ubdvss_tpu_torch.train import setup_devices
+
+        mesh = setup_devices(args.num_devices, allow_cpu_mesh=args.allow_cpu_mesh)
+        if args.batch_size % mesh.devices.size:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} not divisible by the "
+                f"{mesh.devices.size}-device mesh")
     result = run_evaluation(
         params, reader, cfg, dc, args.iou_threshold, native=args.eval_native,
-        qparams=qparams, prefetch_depth=args.prefetch_depth, device=dev,
+        qparams=qparams, prefetch_depth=args.prefetch_depth, mesh=mesh, device=dev,
     )
     print(result.to_json())
     if args.report:

@@ -43,10 +43,17 @@ dense configs too, as in JAX).  ``n_strips`` is not read on it, as in JAX.
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, where every kernel takes its plain version).
 
-``mesh`` (data-parallel serving, ROADMAP.md §1 item 9) raises
-``NotImplementedError``.  The JAX package's packed, two-stage and s2d
-large-scan trunks, and its packed int8 trunks, give the same detections
-as the untiled trunks the port runs (ROADMAP.md §1 item 7).
+``mesh`` (``parallel/mesh.py``) serves ``detect_program_batch`` and
+``detect_preprocessed_batch`` data-parallel, as the JAX package's
+``shard_map`` does: the batch shards over the mesh's first axis (its size
+must divide the batch), each shard runs the single-device pipeline on its
+entry's device — the same route, the same kernels, the same launch
+counters — with the weights placed once a distinct device, and the
+results are concatenated on the first entry in shard order.  As in JAX,
+past ``_fused_heatmap_limit`` the int8 route takes the XLA postprocessing
+there too.  The JAX package's packed, two-stage and s2d large-scan
+trunks, and its packed int8 trunks, give the same detections as the
+untiled trunks the port runs (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from ubdvss_tpu_torch.ops.preproc import (
 )
 from ubdvss_tpu_torch.ops.quant import int8_trunk_apply, normalize_fma, qparams_to
 from ubdvss_tpu_torch.ops.strips import receptive_field_halo, strip_tiled_logits
+from ubdvss_tpu_torch.parallel.mesh import Mesh, replicate_to_mesh, shard_batch_to_mesh
 
 
 @dataclasses.dataclass
@@ -98,10 +106,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_route(cfg: NetConfig, hw, qparams=None, mesh=None) -> None:
-    if mesh is not None:
-        what = " of int8 qparams" if qparams is not None else ""
-        raise NotImplementedError(f"mesh data-parallel serving{what}: ROADMAP.md §1 item 9")
+def _check_route(cfg: NetConfig, hw, qparams=None) -> None:
     if qparams is None:
         cfg.compute_dtype  # float32 or bfloat16, else ValueError
     if hw[0] % cfg.scale or hw[1] % cfg.scale:
@@ -133,6 +138,52 @@ def _tiled_trunk(trunk, x: torch.Tensor, cfg: NetConfig, n_strips: int | None) -
     if n_strips is not None and n_strips > 1:
         return strip_tiled_logits(trunk, x, cfg.scale, receptive_field_halo(cfg), n_strips)
     return trunk(x)
+
+
+def _check_mesh(mesh, device, batch: int) -> None:
+    """The data-parallel checks: a ``parallel.mesh.Mesh``, a ``device`` that
+    agrees with its entries, every entry's device present, and a batch its
+    size divides."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: expected a ubdvss_tpu_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+    if device is not None:
+        want = resolve_device(device)
+        if any(d.type != want.type or (want.index is not None and d != want) for d in mesh.devices.flat):
+            raise ValueError(f"device={device} contradicts the mesh {mesh}")
+    for d in mesh.devices.flat:
+        resolve_device(d)
+    if batch % mesh.size:
+        raise ValueError(f"batch {batch} not divisible by the {mesh.size}-device data mesh")
+
+
+def _data_parallel(entry, mesh, placed: list, shards: list, fused, hw, cfg: NetConfig, **kw):
+    """Data-parallel serving core: ``entry`` (the single-device function)
+    on each shard (``parallel.mesh.shard_batch_to_mesh``) on its entry's
+    device, with that device's copy of the weights (``placed``, from
+    ``replicate_to_mesh`` of ``{"params", "qparams"}``); the results
+    concatenated on the first entry in shard order."""
+    devs = mesh.axis_devices(mesh.axis_names[0])
+    fused = _resolve_fused(fused, devs[0])
+    if max(hw) // cfg.scale > _fused_heatmap_limit(cfg):
+        fused = False  # the unsharded entry's route choice, on the int8 route too (as JAX)
+    flat = list(mesh.devices.flat)
+    outs = []
+    for shard, d in zip(shards, devs):
+        w = placed[flat.index(d)]
+        outs.append(entry(w["params"], shard, cfg=cfg, fused=fused, qparams=w["qparams"], device=d, **kw))
+    res = {k: torch.cat([o[0][k].to(devs[0]) for o in outs]) for k in outs[0][0]}
+    if outs[0][1] is None:
+        return res, None
+    return res, torch.cat([o[1].to(devs[0]) for o in outs])
+
+
+def _serve_on_mesh(entry, mesh, device, params, qparams, x, fused, hw, cfg, **kw):
+    """Shard ``x``, place the weights once a distinct device, serve."""
+    x = torch.as_tensor(x)
+    _check_mesh(mesh, device, x.shape[0])
+    placed = replicate_to_mesh({"params": params, "qparams": qparams}, mesh)
+    shards = shard_batch_to_mesh(x, mesh, mesh.axis_names[0])
+    return _data_parallel(entry, mesh, placed, shards, fused, hw, cfg, **kw)
 
 
 def _trunk(
@@ -199,9 +250,17 @@ def detect_program_batch(
     same logits.  ``qparams`` takes the int8 route (``ops/quant.py``) at
     any heatmap size.  ``fused=None`` is the fused route on the card and
     the XLA route on the CPU, on every branch, as the JAX package resolves
-    it by its backend before the int8 branch.
+    it by its backend before the int8 branch.  ``mesh`` serves the batch
+    data-parallel (the module docstring); ``device`` must then agree with
+    the mesh's entries.
     """
-    _check_route(cfg, tuple(out_hw), qparams, mesh)
+    _check_route(cfg, tuple(out_hw), qparams)
+    if mesh is not None:
+        return _serve_on_mesh(
+            detect_program_batch, mesh, device, params, qparams, imgs,
+            fused, tuple(out_hw), cfg, out_hw=out_hw, channel_order=channel_order,
+            n_strips=n_strips, detections_only=detections_only,
+        )
     dev = resolve_device(device)
     fused = _resolve_fused(fused, dev)
     x = torch.as_tensor(imgs).to(dev)
@@ -293,11 +352,16 @@ def detect_preprocessed_batch(
     package, the fused postprocessing serves separable configs only, and
     a dense config takes the XLA route's — except on the int8 route
     (``qparams``), where it serves dense configs too.  Runs on ``device``
-    (default the card).
+    (default the card), or data-parallel over ``mesh``.
     """
     x = torch.as_tensor(x)
     hw = tuple(x.shape[1:3])
-    _check_route(cfg, hw, qparams, mesh)
+    _check_route(cfg, hw, qparams)
+    if mesh is not None:
+        return _serve_on_mesh(
+            detect_preprocessed_batch, mesh, device, params, qparams, x,
+            fused, hw, cfg, n_strips=n_strips,
+        )
     dev = resolve_device(device)
     fused = _resolve_fused(fused, dev)
     x = x.to(dev)

@@ -175,14 +175,23 @@ class BarcodeFCN(nn.Module):
             dtype=cfg.compute_dtype,
         )
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor, boundary_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(B, H, W, 1) images -> (B, H/4, W/4, C) f32 logits.
+
+        ``boundary_mask``: optional (B, H, W, 1) 0/1 floats marking the
+        pixels inside the global image when x is a halo-padded tile of a
+        larger one (``parallel/tiling.py``).  It multiplies the input, the
+        activation after each downscale ReLU (subsampled [::2, ::2] with
+        it) and after each context ReLU, so tile borders reproduce the
+        whole image's SAME padding; None adds no op.
+        """
         if self.dtype == torch.bfloat16:
             with bf16_full_accumulation():
-                return self._forward_bf16(x_nhwc)
+                return self._forward_bf16(x_nhwc, boundary_mask)
         with exact_f32():
-            return self._forward(x_nhwc)
+            return self._forward(x_nhwc, boundary_mask)
 
-    def _forward_bf16(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def _forward_bf16(self, x_nhwc: torch.Tensor, boundary_mask=None) -> torch.Tensor:
         bf = torch.bfloat16
 
         def conv(x, layer, stride=1, dilation=1, groups=1):
@@ -192,8 +201,15 @@ class BarcodeFCN(nn.Module):
             return y + layer.bias.to(bf).view(1, -1, 1, 1)
 
         x = x_nhwc.to(bf).permute(0, 3, 1, 2)
+        m = None
+        if boundary_mask is not None:
+            m = boundary_mask.to(bf).permute(0, 3, 1, 2).contiguous()
+            x = x * m
         for layer in (self.downscale_0, self.downscale_1):
             x = F.relu(conv(x, layer, stride=2))
+            if m is not None:
+                m = m[:, :, ::2, ::2].contiguous()
+                x = x * m
         for i, d in enumerate(self.dilations):
             layer = getattr(self, f"context_{i}")
             if self.separable_context:
@@ -202,17 +218,26 @@ class BarcodeFCN(nn.Module):
             else:
                 x = conv(x, layer, dilation=d)
             x = F.relu(x)
+            if m is not None:
+                x = x * m
         x = conv(x, self.head)
         return x.to(torch.float32).permute(0, 2, 3, 1)
 
-    def _forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x_nhwc: torch.Tensor, boundary_mask=None) -> torch.Tensor:
         # NCHW with standard strides: a contiguous one-channel NHWC batch,
         # permuted, also reads as channels-last, and then the depthwise
         # convs and their gradients take cuDNN's grouped kernels, 1.8x the
         # step's time at B=128 512² on the H100
         x = x_nhwc.to(torch.float32).permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
+        m = None
+        if boundary_mask is not None:
+            m = boundary_mask.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+            x = x * m
         for conv in (self.downscale_0, self.downscale_1):
             x = F.relu(conv2d_same(x, conv.weight, conv.bias, stride=2))
+            if m is not None:
+                m = m[:, :, ::2, ::2].contiguous()
+                x = x * m
         for i, d in enumerate(self.dilations):
             layer = getattr(self, f"context_{i}")
             if self.separable_context:
@@ -220,6 +245,8 @@ class BarcodeFCN(nn.Module):
             else:
                 x = conv2d_same(x, layer.weight, layer.bias, dilation=d)
             x = F.relu(x)
+            if m is not None:
+                x = x * m
         x = self.head(x)
         return x.permute(0, 2, 3, 1)
 

@@ -42,8 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from ubdvss_tpu_torch.models.model import bf16_full_accumulation, conv2d_same, exact_f32
+from ubdvss_tpu_torch.ops.ccl import _shift
 from ubdvss_tpu_torch.ops.cuda import _build
-from ubdvss_tpu_torch.ops.cuda.ccl_kernel import _shift
 
 # the context kernel's compiled channel counts and its head's output bound
 # (csrc/context_kernel.cu)

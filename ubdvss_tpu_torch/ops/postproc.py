@@ -14,10 +14,12 @@ input-image coordinates.  Outputs are fixed-size K-slot tensors plus a
   * ``postprocess`` / ``postprocess_batch`` — the XLA route's entry points,
     one image or a batch.  The JAX package fits each rect exactly from
     every row's extremes (``min_area_rect_from_mask_stack``); that is what
-    K3x computes, so here they run K1 -> K2 -> K3x with no hull cap.  The
-    XLA internals (``label_propagation``, ``monotone_chain_hull``, the
-    mask-stack rect) are not ported (ROADMAP.md §1 item 4): the kernels
-    give the same labels, sums and rects.
+    K3x computes, so here they run K1 -> K2 -> K3x with no hull cap.
+  * ``roots_from_raw_labels`` -> ``eq_from_raw_labels`` -> ``finish_from_eq``,
+    and ``finish_postprocess`` on compact labels — the XLA formulation's
+    tail in plain torch (one-hot masks, einsum stats, ``ops/rect.py``), as
+    the row-tiled scan (``parallel/tiling.py``) runs it after its
+    distributed CCL.
 
 On the CPU every kernel takes its plain version.  The logits are f32, or
 bf16 from the bf16 route's trunk (the kernels read them at that dtype);
@@ -28,12 +30,85 @@ from __future__ import annotations
 
 import torch
 
+from ubdvss_tpu_torch.models.model import exact_f32
 from ubdvss_tpu_torch.net_config import NetConfig
 from ubdvss_tpu_torch.ops.cuda.postproc_kernel import component_stats_from_logits
 from ubdvss_tpu_torch.ops.cuda.rect_kernel import (
     min_area_rect_select,
     rects_from_selection,
 )
+from ubdvss_tpu_torch.ops.rect import min_area_rect_from_mask_stack
+
+
+def roots_from_raw_labels(raw_lab: torch.Tensor, max_components: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw min-index labels (..., H, W) -> the K smallest root values (the
+    components in raster order, the sentinel H*W past the last) and their
+    validity, each (..., K)."""
+    H, W = raw_lab.shape[-2], raw_lab.shape[-1]
+    sentinel = H * W
+    lin = torch.arange(H * W, dtype=raw_lab.dtype, device=raw_lab.device).reshape(H, W)
+    cand = torch.where((raw_lab == lin) & (raw_lab < sentinel), raw_lab, sentinel)
+    rootvals = -torch.topk(-cand.reshape(*raw_lab.shape[:-2], H * W), max_components, dim=-1).values
+    return rootvals, rootvals < sentinel
+
+
+def eq_from_raw_labels(
+    raw_lab: torch.Tensor, rootvals: torch.Tensor, root_valid: torch.Tensor
+) -> torch.Tensor:
+    """One mask a component, (..., H, W, K) bool, from raw labels."""
+    eq = raw_lab[..., None] == rootvals[..., None, None, :]
+    return eq & root_valid[..., None, None, :]
+
+
+def finish_from_eq(
+    logits: torch.Tensor, eq: torch.Tensor, cfg: NetConfig, num_components_total=None
+) -> dict:
+    """The tail given one image's (Ho, Wo, C) logits and its per-component
+    masks eq (Ho, Wo, K): areas, scores, class probabilities (einsums in
+    f32, TF32 off) and the exact rects (``min_area_rect_from_mask_stack``),
+    in the ``postprocess`` dict.  ``num_components_total`` is the true
+    count before the K cut; None takes the occupied slots."""
+    det_prob = torch.sigmoid(logits[..., 0].to(torch.float32))
+    K = cfg.max_components
+    eqf = eq.to(torch.float32)
+    areas = eq.sum((0, 1), dtype=torch.int32)
+    valid = (areas > 0) & (areas >= cfg.min_component_area)
+    safe_area = torch.clamp(areas, min=1).to(torch.float32)
+    with exact_f32():
+        scores = torch.einsum("hwk,hw->k", eqf, det_prob) / safe_area
+        if cfg.classification and logits.shape[-1] > 1:
+            cls_prob = torch.softmax(logits[..., 1:].to(torch.float32), dim=-1)
+            class_probs = torch.einsum("hwk,hwc->kc", eqf, cls_prob) / safe_area[:, None]
+            classes = torch.argmax(class_probs, dim=-1).to(torch.int32)
+        else:
+            classes = torch.zeros((K,), dtype=torch.int32, device=logits.device)
+            class_probs = torch.ones((K, 1), dtype=torch.float32, device=logits.device)
+    rects = min_area_rect_from_mask_stack(eq)
+    s = float(cfg.scale)
+    if num_components_total is None:
+        num_components_total = (areas > 0).sum().to(torch.int32)
+    final_valid = valid & rects["valid"]
+    return {
+        "num_components_total": num_components_total,
+        "boxes": rects["points"] * s,
+        "center": rects["center"] * s,
+        "size": rects["size"] * s,
+        "angle_deg": rects["angle_deg"],
+        "classes": classes,
+        "class_probs": class_probs,
+        "scores": scores,
+        "areas": areas,
+        "valid": final_valid,
+        "num_detections": final_valid.sum().to(torch.int32),
+    }
+
+
+def finish_postprocess(logits: torch.Tensor, labels: torch.Tensor, cfg: NetConfig) -> dict:
+    """The tail given one image's COMPACT labels (1..n in raster order): the
+    first K components' masks, and n = max(labels) as the true count."""
+    K = cfg.max_components
+    eq = labels[..., None] == torch.arange(1, K + 1, dtype=labels.dtype, device=labels.device)
+    return finish_from_eq(logits, eq, cfg, num_components_total=labels.max().to(torch.int32))
 
 
 def _postprocess(

@@ -12,7 +12,11 @@ leaves together, and the host waits once per batch, on that batch's event
 Throughput-oriented: frames are batched; latency mode is batch_size 1.
 A bf16 config (``NetConfig(dtype="bfloat16")``) runs the fused route's
 bf16 trunk and the bf16 CCL and slots kernels, as ``detect_program_batch``
-does; ``qparams`` (``ops/quant.quantize_trunk``) the int8 trunk.
+does; ``qparams`` (``ops/quant.quantize_trunk``) the int8 trunk.  A
+``mesh`` (``parallel/mesh.py``) serves each batch data-parallel
+(``detect_program_batch(mesh=)``): the pinned batch is copied to each
+shard's device, and the results, gathered on the mesh's first entry, are
+copied back from there.
 """
 
 from __future__ import annotations
@@ -22,9 +26,10 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from ubdvss_tpu_torch.inference import detect_program_batch, resolve_device
+from ubdvss_tpu_torch.inference import _check_mesh, _data_parallel, detect_program_batch, resolve_device
 from ubdvss_tpu_torch.net_config import NetConfig
 from ubdvss_tpu_torch.ops.quant import qparams_to
+from ubdvss_tpu_torch.parallel.mesh import replicate_to_mesh, shard_batch_to_mesh
 
 
 class StreamingDetector:
@@ -35,8 +40,9 @@ class StreamingDetector:
     ...     ...
 
     Runs on the card unless ``device="cpu"``.  ``qparams`` serves the int8
-    trunk (moved to the device once, here); ``mesh`` (data-parallel
-    serving) is not ported and raises.
+    trunk (moved to the device once, here).  ``mesh`` shards each batch
+    over the mesh (``batch_size`` must divide by its size); the weights are
+    placed on each distinct device once, here.
     """
 
     def __init__(
@@ -49,39 +55,51 @@ class StreamingDetector:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh data-parallel serving: ROADMAP.md §1 item 9")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh(mesh, device, batch_size)
+            device = mesh.devices.flat[0]  # where the shards' results are gathered
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.qparams = None if qparams is None else qparams_to(qparams, self.device)
+        if mesh is not None:
+            # one copy of the weights a distinct device, read by every shard there
+            self._placed = replicate_to_mesh({"params": self.params, "qparams": self.qparams}, mesh)
         self.frame_hw = frame_hw
         self.batch_size = batch_size
         self.out_hw = cfg.grid_size(*frame_hw)
         self._pinned: list[torch.Tensor | None] = [None, None]
 
-    def _to_device(self, batch_np: np.ndarray, slot: int) -> torch.Tensor:
-        """Host batch -> device tensor, through pinned buffer ``slot`` on
-        the card.  A buffer is refilled two batches later, after the host
-        has waited on the event of the batch that used it, which follows
-        that batch's copy on the stream."""
+    def _pin(self, batch_np: np.ndarray, slot: int) -> torch.Tensor:
+        """Host batch -> pinned buffer ``slot`` (on the card; the CPU takes
+        the batch as it is).  A buffer is refilled two batches later, after
+        the host has waited on the event of the batch that used it, which
+        follows that batch's copies on the stream."""
         x = torch.from_numpy(batch_np)
         if self.device.type == "cpu":
             return x
         buf = self._pinned[slot]
         if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
             buf = self._pinned[slot] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        buf.copy_(x)
-        return buf.to(self.device, non_blocking=True)
+        return buf.copy_(x)
 
     def _launch(self, batch_np: np.ndarray, slot: int):
-        """Queue one batch: H2D copy, the fused program, D2H copies of every
-        result leaf.  Returns (host results, event recorded after them)."""
-        imgs = self._to_device(batch_np, slot)
-        res, _ = detect_program_batch(
-            self.params, imgs, self.cfg, self.out_hw, qparams=self.qparams,
-            detections_only=True, device=self.device,
-        )
+        """Queue one batch: H2D copies (to each shard's device over a mesh),
+        the fused program, D2H copies of every result leaf.  Returns (host
+        results, event recorded after them)."""
+        x = self._pin(batch_np, slot)
+        if self.mesh is None:
+            res, _ = detect_program_batch(
+                self.params, x.to(self.device, non_blocking=True), self.cfg, self.out_hw,
+                qparams=self.qparams, detections_only=True, device=self.device,
+            )
+        else:
+            shards = shard_batch_to_mesh(x, self.mesh, self.mesh.axis_names[0], non_blocking=True)
+            res, _ = _data_parallel(
+                detect_program_batch, self.mesh, self._placed, shards, None, self.out_hw, self.cfg,
+                out_hw=self.out_hw, detections_only=True,
+            )
         if self.device.type == "cpu":
             return res, None
         host = {}

@@ -29,8 +29,10 @@ scans them in one program; a CUDA graph of a chunk is not used here), and
 logs and checkpoints at chunk boundaries.  The sample stream is the
 unfused one's.  Host-fed batches keep the prefetch thread.
 
-Not here: data parallelism (``--num-devices``, ``--distributed``; ROADMAP.md
-§1 item 9): those flags raise ``NotImplementedError``.
+Not here: training over a mesh (``--num-devices``, ``--distributed``;
+ROADMAP.md §1 item 9b): those flags raise ``NotImplementedError``.
+``setup_devices`` resolves a ``--num-devices`` request to a mesh, as the
+evaluate CLI uses it.
 """
 
 from __future__ import annotations
@@ -230,9 +232,9 @@ def make_fused_synth_step(sc, cfg: NetConfig, dc: DataConfig, mesh=None):
     trip between them; it returns the state and the last step's metrics.
     The stream is ``DeviceSyntheticBatches.epoch``'s, so fused and unfused
     training end at the same parameters.  ``mesh=`` raises
-    (ROADMAP.md §1 item 9)."""
+    (ROADMAP.md §1 item 9b)."""
     if mesh is not None:
-        raise NotImplementedError("make_fused_synth_step(mesh=): ROADMAP.md §1 item 9")
+        raise NotImplementedError("make_fused_synth_step(mesh=): ROADMAP.md §1 item 9b")
     from ubdvss_tpu_torch.synthgen import step_generator, synth_batch_step
 
     def fused(state, seed, epoch, step_idx, cls_schedule=None, steps: int = 1):
@@ -253,9 +255,9 @@ def make_fused_cached_step(cfg: NetConfig, dc: DataConfig, mesh=None):
     ``dc``), augments and rasterizes it and runs ``train_step``, for ``s``
     in ``range(steps)``; it returns the state and the last step's metrics.
     The stream is ``DeviceCachedBatches.epoch``'s.  ``mesh=`` raises
-    (ROADMAP.md §1 item 9)."""
+    (ROADMAP.md §1 item 9b)."""
     if mesh is not None:
-        raise NotImplementedError("make_fused_cached_step(mesh=): ROADMAP.md §1 item 9")
+        raise NotImplementedError("make_fused_cached_step(mesh=): ROADMAP.md §1 item 9b")
 
     def fused(state, batches, order, epoch, bi, cls_schedule=None, steps: int = 1):
         metrics = None
@@ -510,9 +512,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--debug-nan", action="store_true",
                    help="finite checks on the loss, gradients and parameters each step")
     p.add_argument("--profile", default=None, help="capture a torch.profiler trace into this dir")
-    p.add_argument("--num-devices", default=None, help="data-parallel training (not ported)")
-    p.add_argument("--allow-cpu-mesh", action="store_true", help="with --num-devices (not ported)")
-    p.add_argument("--distributed", action="store_true", help="multi-host training (not ported)")
+    p.add_argument("--num-devices", default=None, help="data-parallel training (not ported: item 9b)")
+    p.add_argument("--allow-cpu-mesh", action="store_true", help="with --num-devices (not ported: item 9b)")
+    p.add_argument("--distributed", action="store_true", help="multi-host training (not ported: item 9b)")
     p.add_argument("--coordinator", default=None, help="with --distributed")
     p.add_argument("--num-processes", type=int, default=None, help="with --distributed")
     p.add_argument("--process-id", type=int, default=None, help="with --distributed")
@@ -523,8 +525,53 @@ def build_argparser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     if args.num_devices is not None or args.distributed or args.allow_cpu_mesh:
         raise NotImplementedError(
-            "--num-devices / --distributed / --allow-cpu-mesh (data-parallel training): "
-            "ROADMAP.md §1 item 9")
+            "--num-devices / --distributed / --allow-cpu-mesh (training over a mesh): "
+            "ROADMAP.md §1 item 9b")
+
+
+def setup_devices(
+    num_devices: str | None,
+    distributed: bool = False,
+    coordinator: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+    allow_cpu_mesh: bool = False,
+):
+    """Resolve a CLI's ``--num-devices`` request to a ``parallel.mesh.Mesh``
+    on the axis "data", or None when none is asked for.
+
+    ``"auto"`` takes every CUDA device, an integer the first n.  More than
+    the cards present raises, naming ``--allow-cpu-mesh``; with it the
+    mesh is n CPU entries (one for "auto"; tests and dry runs).  Unlike the JAX package,
+    which falls back to its CPU devices when no accelerator exists, this
+    raises without a card too unless ``allow_cpu_mesh`` is given: the
+    port runs on the card unless asked for the CPU.  ``distributed``
+    (several processes, ``torch.distributed``) is not ported: ROADMAP.md
+    §1 item 9b; ``coordinator``, ``num_processes`` and ``process_id`` go
+    with it.
+    """
+    from ubdvss_tpu_torch.parallel.mesh import make_mesh
+
+    if distributed:
+        raise NotImplementedError("setup_devices(distributed=True), multi-process meshes: ROADMAP.md §1 item 9b")
+    if num_devices is None:
+        return None
+    if num_devices == "auto":
+        n = None
+    else:
+        try:
+            n = int(num_devices)
+        except ValueError:
+            raise ValueError(f"--num-devices must be an integer or 'auto', got {num_devices!r}") from None
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if (n is None and n_cards == 0) or (n is not None and n > n_cards):
+        if not allow_cpu_mesh:
+            raise ValueError(
+                f"--num-devices {num_devices} exceeds the {n_cards} CUDA device(s); refusing to "
+                "fall back to host CPU entries — pass --allow-cpu-mesh for CPU test and dry runs, "
+                "or lower --num-devices")
+        return make_mesh(n, axis="data", devices=["cpu"] * (n or 1))
+    return make_mesh(n, axis="data")
 
 
 def main(argv: list[str] | None = None) -> Trainer:

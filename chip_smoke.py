@@ -286,6 +286,32 @@ them.  Phases, each of which raises on failure:
      single call, tiled_detect split into trunk, seam rounds and tail
      beside detect_program on the whole scan, and K1 against
      label_propagation and connected_components on the main path's maps.
+  9. training over a mesh (train.Trainer(mesh=)), NetConfig() at B=128
+     512² (seed 7, DataConfig(seed=0) with augmentation, lr 1e-3), f32 and
+     bf16, over 4 entries that repeat the card, on each pipeline — host-fed
+     Batches, DeviceSyntheticBatches and DeviceCachedBatches (the corpus
+     sharded over the entries, 4 steps a dispatch) — of 4 steps (512
+     scenes): the first sharded step against the unsharded one on the
+     pipeline's first batch (cudnn deterministic): the device-fed shards
+     the whole batch's rows bit for bit, the reduced gradient within 1e-5
+     of each leaf's max|g| (bf16 2e-2), the losses within 1e-5 relative
+     (bf16 1e-3, the bf16 train step's bound against the host CPU),
+     grad_norm 1e-5 (bf16 2e-2), the pixel metrics 1e-6 (bf16 2e-3);
+     then the sharded fit against the unsharded
+     fit: every parameter within 2 lr a step and, in f32, the median
+     within 1e-5 (Adam turns a near-zero gradient's sum-order difference
+     into a step-sized one), the last losses within 1e-3 relative; ms a
+     step of each (CUDA events over an epoch, median of 3), the
+     reduction's ms, and the share of a B=32 shard's synthesis (device ms)
+     taken by the draws of the 96 rows it does not render; run_evaluation
+     over the 4 entries with the f32 host-fed fit's parameters (the
+     asset's config, 48 256² scenes, batch 8): K4, K1, K2 and K3x
+     launched as often as by the unsharded run at the shards' batch of 2,
+     the report equal to the unsharded one's at batch 8; and
+     setup_devices(distributed=True) at world size 1 on NCCL
+     (tcp://localhost, a free port): one Trainer step whose reduction
+     calls all_reduce twice (the gradient, the metric sums), bit for bit
+     the unsharded step, then the process group destroyed.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -331,6 +357,7 @@ EVAL_F1_MIN, EVAL_F1_JAX = 0.96, 0.9661
 # epochs at batch 8), and bench.py's train protocol at B=128 512²
 TRAIN_B, TRAIN_SMALL, OVERFIT_EPOCHS = 8, 128, 150
 TRAIN_BENCH_B, TRAIN_EPOCH_N = 128, 384
+MESH_ENTRIES, MESH_STEPS = 4, 4  # training over a mesh: entries, steps a pipeline
 
 
 T0 = time.perf_counter()
@@ -844,6 +871,218 @@ def device_busy(run) -> dict:
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3, "busy_share": busy / 1e3 / wall,
             "kernel_launches": len(kernels_run),
             "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda r: -r[1])[:16])}
+
+
+def mesh_training(dev, smi: str, counted, eval_not: list) -> dict:
+    """Phase 9, training over a mesh (the module docstring); returns its
+    report.  ``counted(run, must_launch, must_not)`` runs ``run`` with the
+    launch counters set to 0 and returns (its result, the counts)."""
+    import dataclasses
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from ubdvss_tpu_torch import NetConfig, load_net_config, synthgen
+    from ubdvss_tpu_torch.data import Batches, DataConfig, DeviceCachedBatches
+    from ubdvss_tpu_torch.evaluate import run_evaluation
+    from ubdvss_tpu_torch.ops.augment import affine_draws, photometric_draws
+    from ubdvss_tpu_torch.parallel import entry_rows, make_mesh, reduce_to_first, shard_batch_to_mesh
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+    from ubdvss_tpu_torch.train import Trainer, create_train_state, setup_devices, train_step
+
+    lr, Bt = 1e-3, TRAIN_BENCH_B
+    mesh = make_mesh(MESH_ENTRIES, devices=[dev] * MESH_ENTRIES)
+    dc = DataConfig(batch_size=Bt, train_hw=(IMG, IMG), seed=0)
+    reader = SyntheticMarkupReader(n_samples=MESH_STEPS * Bt, image_hw=(IMG, IMG), seed=SEED)
+    reader.samples()  # render once: the reader keeps the scenes
+    cfg32 = NetConfig()
+    sc = synthgen.SynthConfig(hw=(IMG, IMG), max_polys=dc.max_polys, max_verts=dc.max_verts,
+                              class_names=tuple(cfg32.class_names))
+    report: dict = {"card": smi, "mesh": str(mesh), "batch": Bt, "image": IMG, "steps": MESH_STEPS}
+    syn = synthgen.DeviceSyntheticBatches(cfg32, dc, n_samples=MESH_STEPS * Bt, seed=SEED, device=dev)
+    host = Batches(reader, cfg32, dc, train=True, device=dev)
+    cached_1 = DeviceCachedBatches(reader, cfg32, dc, device=dev)
+    cached_4 = DeviceCachedBatches(reader, cfg32, dc, mesh=mesh)
+    if [sh[0].shape[0] for sh in cached_4._shards] != [MESH_STEPS * Bt // MESH_ENTRIES] * MESH_ENTRIES:
+        raise AssertionError("mesh training: the cached corpus is not sharded a quarter an entry")
+    pipelines = {"host_fed": (host, host), "synthesized": (syn, syn), "cached": (cached_1, cached_4)}
+
+    def first_batches(name):
+        """The pipeline's first batch, whole and as the mesh's shards."""
+        if name == "host_fed":
+            whole = next(iter(host.epoch(0)))
+            return whole, shard_batch_to_mesh(whole, mesh)
+        if name == "synthesized":
+            shards = [synthgen.synth_batch_step(synthgen.step_generator(SEED, 0, 0, d), sc, cfg32, dc, True,
+                                                rows=entry_rows(Bt, mesh, i))
+                      for i, d in enumerate(mesh.axis_devices("data"))]
+            return syn.batch_at(0, 0), shards
+        return (cached_1.batch_at(cached_1.order(0), 0, 0),
+                cached_4.shards_at(cached_4.host_order(0), 0, 0, mesh))
+
+    def params_diff(a, b) -> torch.Tensor:
+        return torch.cat([(a.params[k] - v).detach().abs().ravel() for k, v in b.params.items()])
+
+    def epoch_ms(tr, batches, epoch) -> float:
+        """ms a step over one epoch as ``Trainer.fit`` runs it (CUDA events)."""
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for run, _ in tr._epoch_steps(batches, epoch):
+            tr.state, _ = run(tr.state)
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1]) / MESH_STEPS
+
+    prev_det = torch.backends.cudnn.deterministic
+    trained = None
+    report["pipelines"] = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg32.replace(dtype=dtype)
+        f32 = dtype == "float32"
+        for name, (b1, b4) in pipelines.items():
+            row: dict = {}
+            torch.backends.cudnn.deterministic = True
+            try:
+                whole, shards = first_batches(name)
+                if name != "host_fed":
+                    m = Bt // MESH_ENTRIES
+                    if not all(torch.equal(s[k], whole[k][i * m:(i + 1) * m])
+                               for i, s in enumerate(shards) for k in whole):
+                        raise AssertionError(f"mesh training {name}: a shard differs from the whole batch's rows")
+                one, m1 = train_step(create_train_state(cfg, lr=lr, device=dev), whole, cfg)
+                four, m4 = train_step(create_train_state(cfg, lr=lr, device=dev), shards, cfg, mesh=mesh)
+                g_rel = max(float((four.params[k].grad - p.grad).abs().max() / p.grad.abs().max().clamp(min=1e-30))
+                            for k, p in one.params.items())
+                if not g_rel <= (1e-5 if f32 else 2e-2):
+                    raise AssertionError(f"mesh training {name} {dtype}: reduced gradient {g_rel} of max|g| apart")
+                errs = {}
+                for k, v in m1.items():
+                    a_, b_ = float(m4[k]), float(v)
+                    errs[k] = abs(a_ - b_)
+                    if k.startswith("pixel_"):
+                        tol = 1e-6 if f32 else 2e-3
+                    else:
+                        tol = ((1e-5 if f32 else 2e-2) if k == "grad_norm" else (1e-5 if f32 else 1e-3)) * abs(b_)
+                        tol += 1e-7
+                    if not errs[k] <= tol:
+                        raise AssertionError(f"mesh training {name} {dtype}: first step {k} {a_} sharded, {b_} not")
+                row["first_step"] = {"grad_rel_err": g_rel, **errs}
+                t1 = Trainer(cfg, dc, lr=lr, device=dev, steps_per_dispatch=4)
+                t4 = Trainer(cfg, dc, lr=lr, mesh=mesh, steps_per_dispatch=4)
+                t1.fit(b1, 1)
+                t4.fit(b4, 1)
+            finally:
+                torch.backends.cudnn.deterministic = prev_det
+            d = params_diff(t4.state, t1.state)
+            l4, l1 = t4._last_train_metrics["loss"], t1._last_train_metrics["loss"]
+            row["fit"] = {"steps": t4.state.step, "params_max_abs_err": float(d.max()),
+                          "params_median_abs_err": float(d.median()), "loss": l4, "loss_unsharded": l1}
+            if not (t4.state.step == t1.state.step == MESH_STEPS and float(d.max()) <= 2 * lr * MESH_STEPS
+                    and (not f32 or float(d.median()) <= 1e-5) and abs(l4 - l1) <= 1e-3 * abs(l1)):
+                raise AssertionError(f"mesh training {name} {dtype}: the sharded fit differs: {row['fit']}")
+            if f32 and name == "host_fed":
+                trained = {k: v.detach().clone() for k, v in t4.state.params.items()}
+            ms4 = [epoch_ms(t4, b4, e) for e in (1, 2, 3)]
+            ms1 = [epoch_ms(t1, b1, e) for e in (1, 2, 3)]
+            row["ms_per_step"] = statistics.median(ms4)
+            row["ms_per_step_unsharded"] = statistics.median(ms1)
+            row["ratio"] = row["ms_per_step"] / row["ms_per_step_unsharded"]
+            report["pipelines"][f"{name}_{dtype}"] = row
+            log(f"mesh training {name} {dtype}: first step gradient {g_rel:.3g} of max|g|, loss "
+                f"{errs['loss']:.3g}, grad_norm {errs['grad_norm']:.3g}; fit of {MESH_STEPS} steps: parameters "
+                f"max {row['fit']['params_max_abs_err']:.3g}, median {row['fit']['params_median_abs_err']:.3g}, "
+                f"last loss {l4:.6f} against {l1:.6f}; {row['ms_per_step']:.2f} ms a step over "
+                f"{MESH_ENTRIES} entries against {row['ms_per_step_unsharded']:.2f} ({row['ratio']:.2f}x)")
+            del t1, t4
+
+    # the reduction: four flat gradients and four metric-sum vectors
+    n_params = sum(v.numel() for v in trained.values())
+    g4 = [torch.randn(n_params, device=dev) for _ in range(MESH_ENTRIES)]
+    s4 = [torch.randn(11, device=dev, dtype=torch.float64) for _ in range(MESH_ENTRIES)]
+    report["reduction_ms"] = time_ms(lambda: (reduce_to_first(g4, mesh), reduce_to_first(s4, mesh)))
+    report["gradient_floats"] = n_params
+
+    # the draws of the rows a shard does not render, against its synthesis
+    acfg = dc.augment
+
+    def draws(n):
+        g = synthgen.step_generator(SEED, 0, 0, dev)
+        synthgen.scene_draws(g, sc, n)
+        affine_draws(g, acfg, n)
+        photometric_draws(g, acfg, (n, IMG, IMG))
+
+    shard_rows = slice(0, Bt // MESH_ENTRIES)
+    d_full, d_shard = device_ms(lambda: draws(Bt), n=5), device_ms(lambda: draws(Bt // MESH_ENTRIES), n=5)
+    s_shard = device_ms(lambda: synthgen.synth_batch_step(synthgen.step_generator(SEED, 0, 0, dev), sc, cfg32, dc,
+                                                           True, rows=shard_rows), n=5)
+    s_whole = device_ms(lambda: synthgen.synth_batch_step(synthgen.step_generator(SEED, 0, 0, dev), sc, cfg32, dc,
+                                                           True), n=5)
+    report["draws"] = {"whole_batch_draws_device_ms": d_full, "shard_draws_device_ms": d_shard,
+                       "shard_synthesis_device_ms": s_shard, "whole_synthesis_device_ms": s_whole,
+                       "redundant_share_of_shard_synthesis": (d_full - d_shard) / s_shard}
+    log(f"mesh training: reduction of {MESH_ENTRIES} x {n_params} floats + metric sums {report['reduction_ms']:.4f} "
+        f"ms; a B={Bt // MESH_ENTRIES} shard's synthesis {s_shard:.3f} ms device (the whole batch's {s_whole:.3f}), "
+        f"of which the draws of the other {Bt - Bt // MESH_ENTRIES} rows {d_full - d_shard:.3f} "
+        f"({100 * (d_full - d_shard) / s_shard:.1f}%)")
+
+    # the trained model through the serving kernels, over the mesh
+    cfg_ev = load_net_config(REPO / "assets" / "pretrained_synthetic.npz")
+    if (cfg_ev.channels, tuple(cfg_ev.dilations)) != (cfg32.channels, tuple(cfg32.dilations)):
+        raise AssertionError("mesh training: the asset's config is not NetConfig()'s architecture")
+    rd_ev = SyntheticMarkupReader(n_samples=EVAL_N, image_hw=EVAL_HW, seed=0)
+    dc_ev = DataConfig(batch_size=EVAL_BATCH, train_hw=EVAL_HW, max_polys=32)
+    must = ["context_layer", "ccl", "slots", "rect_exact"]
+    ev_m, n_m = counted(lambda: run_evaluation(trained, rd_ev, cfg_ev, dc_ev, mesh=mesh), must, eval_not)
+    _, n_s = counted(lambda: run_evaluation(trained, rd_ev, cfg_ev, dataclasses.replace(
+        dc_ev, batch_size=EVAL_BATCH // MESH_ENTRIES), device=dev), must, eval_not)
+    ev_1 = run_evaluation(trained, rd_ev, cfg_ev, dc_ev, device=dev)
+    if n_m != n_s or ev_m != ev_1:
+        raise AssertionError(f"mesh training: evaluation over the mesh {n_m} / {ev_m} against {n_s} / {ev_1}")
+    report["evaluation"] = {"images": EVAL_N, "batch": EVAL_BATCH, "f1": ev_m.f1,
+                            "launches": {k: n_m[k] for k in must}}
+    log(f"mesh training: run_evaluation over {MESH_ENTRIES} entries with the trained parameters, {EVAL_N} "
+        f"{EVAL_HW[0]}² scenes at batch {EVAL_BATCH}: F1 {ev_m.f1:.4f} == without the mesh; launches "
+        f"{report['evaluation']['launches']} == the unsharded run's at batch {EVAL_BATCH // MESH_ENTRIES}")
+
+    # one process group of one rank on NCCL: a step through all_reduce
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counting(t, *a, **kw):
+        calls.append(tuple(t.shape))
+        return all_reduce(t, *a, **kw)
+
+    dist.all_reduce = counting
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh_n = setup_devices("1", distributed=True, coordinator=f"localhost:{port}", num_processes=1,
+                               process_id=0)
+        backend = dist.get_backend()
+        batch = next(iter(host.epoch(0)))
+        tr_n = Trainer(cfg32, dc, lr=lr, mesh=mesh_n)
+        tr_p = Trainer(cfg32, dc, lr=lr, device=dev)
+        tr_n.state, m_n = tr_n.step_fn(tr_n.state, tr_n.place_batch(batch))
+        tr_p.state, m_p = tr_p.step_fn(tr_p.state, batch)
+        torch.cuda.synchronize()
+        same = all(torch.equal(tr_n.state.params[k], v) for k, v in tr_p.state.params.items())
+        if not (backend == "nccl" and len(calls) == 2 and same and float(m_n["loss"]) == float(m_p["loss"])):
+            raise AssertionError(f"mesh training NCCL: backend {backend}, all_reduce calls {calls}, "
+                                 f"bit for bit {same}, loss {float(m_n['loss'])} against {float(m_p['loss'])}")
+        report["nccl_world_1"] = {"mesh": str(mesh_n), "all_reduce_calls": len(calls), "bit_for_bit": same}
+    finally:
+        dist.all_reduce = all_reduce
+        torch.backends.cudnn.deterministic = prev_det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"mesh training: setup_devices(distributed=True) on NCCL at world size 1, "
+        f"{report['nccl_world_1']['mesh']}: one step, all_reduce {len(calls)} times {calls}, bit for bit the "
+        "unsharded step; the process group destroyed")
+    return report
 
 
 def main() -> int:
@@ -3464,6 +3703,11 @@ def main() -> int:
     log(f"mesh f32 B={B} {IMG}²: {ms_dp:.3f} ms over {mesh4.size} entries of one card against "
         f"{ms_single:.3f} ms for one call")
     log(json.dumps({"mesh_and_tiled_scans": mesh_report}))
+
+    # --- 9. training over a mesh: the three pipelines over four entries of
+    # the card, the evaluation of what they trained, NCCL at world size 1 ---
+    phase("mesh training")
+    log(json.dumps({"mesh_training": mesh_training(dev, smi, counted, ["rect_compact", *tiled, *bf16])}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from ubdvss_tpu_torch import train as ptrain
 from ubdvss_tpu_torch.data import Batches, DataConfig, DeviceCachedBatches, GrainBatches
 from ubdvss_tpu_torch.markup import Sample
 from ubdvss_tpu_torch.net_config import NetConfig
+from ubdvss_tpu_torch.parallel import make_mesh
 from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
 from ubdvss_tpu_torch.synthgen import DeviceSyntheticBatches
 from ubdvss_tpu_torch.train import Trainer, create_train_state, train_step
@@ -120,7 +121,8 @@ def test_fused_step_logs_and_saves_at_chunk_boundaries(tmp_path):
 
 def test_cache_memory_guard_and_mesh():
     """A corpus past 8 GB of f32 images raises before anything is loaded;
-    a mesh raises naming item 9."""
+    a mesh shards the corpus, and the fused steps take one
+    (tests/test_torch_train_mesh.py holds what they train)."""
 
     class _Big:
         def samples(self):
@@ -131,12 +133,11 @@ def test_cache_memory_guard_and_mesh():
     reader = SyntheticMarkupReader(n_samples=2, image_hw=(32, 32))
     with pytest.raises(ValueError, match="exceeds max_bytes"):
         DeviceCachedBatches(reader, CFG, DataConfig(train_hw=(32, 32)), max_bytes=8191, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DeviceCachedBatches(reader, CFG, DataConfig(train_hw=(32, 32)), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ptrain.make_fused_synth_step(None, CFG, DataConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ptrain.make_fused_cached_step(CFG, DataConfig(), mesh=object())
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    placed = DeviceCachedBatches(reader, CFG, DataConfig(train_hw=(32, 32)), mesh=mesh)
+    assert placed.device == torch.device("cpu") and [sh[0].shape[0] for sh in placed._shards] == [1, 1]
+    assert callable(ptrain.make_fused_synth_step(None, CFG, DataConfig(), mesh=mesh))
+    assert callable(ptrain.make_fused_cached_step(CFG, DataConfig(), mesh=mesh))
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

@@ -289,8 +289,8 @@ def test_run_evaluation_over_a_mesh(native):
 def test_setup_devices_gating():
     """--num-devices past the cards raises naming --allow-cpu-mesh, and
     with it builds CPU entries; with no card at all it raises too (the
-    port's deliberate difference: JAX falls back to its CPU devices);
-    distributed=True names item 9b."""
+    port's deliberate difference: JAX falls back to its CPU devices), and
+    so does distributed=True (tests/test_torch_distributed.py runs it)."""
     assert setup_devices(None) is None
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     with pytest.raises(ValueError, match="allow-cpu-mesh"):
@@ -304,5 +304,6 @@ def test_setup_devices_gating():
         assert setup_devices("auto", allow_cpu_mesh=True).devices.size == 1
     with pytest.raises(ValueError, match="integer or 'auto'"):
         setup_devices("two")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        setup_devices("1", distributed=True)
+    if n_cards == 0:
+        with pytest.raises(RuntimeError, match="allow-cpu-mesh"):
+            setup_devices("1", distributed=True)

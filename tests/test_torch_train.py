@@ -344,17 +344,26 @@ def test_train_cli_and_the_logdir_clis(tmp_path):
 
 
 def test_train_cli_refusals(tmp_path):
-    """Only data parallelism (item 9) is refused; the device-fed flags run
-    (tests/test_torch_device_fed.py holds what they train)."""
+    """Nothing is refused any more: the mesh flags refuse only a fall back
+    to the host CPU that was not asked for (``--num-devices`` past the
+    cards, ``--distributed`` without one), and ``--allow-cpu-mesh`` alone
+    trains as without it; the device-fed flags run
+    (tests/test_torch_device_fed.py and tests/test_torch_train_mesh.py
+    hold what they train)."""
     base = ["--train-data", "synthetic", "--device", "cpu"]
-    for extra in (["--num-devices", "2"], ["--distributed"], ["--allow-cpu-mesh"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ptrain.main(base + extra)
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="allow-cpu-mesh"):
+        ptrain.main(base + ["--num-devices", str(n_cards + 1)])
+    if n_cards == 0:
+        with pytest.raises(RuntimeError, match="allow-cpu-mesh"):
+            ptrain.main(base + ["--distributed"])
     small = ["--epochs", "1", "--batch-size", "2", "--synthetic-samples", "2", "--train-size", "32", "32",
              "--channels", "8", "--dilations", "1", "2", "--device", "cpu"]
     for args in (["--train-data", "synthetic", "--cache-device"],
                  ["--train-data", "synthetic", "--steps-per-dispatch", "4"],
                  ["--train-data", "synthetic", "--val-data", "synthetic-device"],
-                 ["--train-data", "synthetic-device"]):
+                 ["--train-data", "synthetic-device"],
+                 ["--train-data", "synthetic", "--allow-cpu-mesh"]):
         tr = ptrain.main(args + small)
         assert tr.state.step == 1 and np.isfinite(tr._last_train_metrics["loss"]), args
+        assert tr.mesh is None

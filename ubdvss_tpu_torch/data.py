@@ -199,16 +199,20 @@ def device_batch_step(
     data_cfg: DataConfig,
     train: bool,
     generator: torch.Generator | None = None,
+    n_draws: int | None = None,
+    rows: slice | None = None,
 ) -> dict:
     """All on-device batch processing: augment -> normalize -> rasterize.
 
     imgs: (B, H, W) f32 [0, 255] at train_hw.  Returns the batch contract.
     ``train`` with ``data_cfg.augment`` set augments first, drawing from
-    ``generator`` (on the images' device; the JAX signature's PRNG key)."""
+    ``generator`` (on the images' device; the JAX signature's PRNG key);
+    ``n_draws`` and ``rows``: the images are those rows of a batch of
+    ``n_draws`` (``ops.augment.augment_batch``)."""
     if train and data_cfg.augment is not None:
         if generator is None:
             raise ValueError("an augmented training batch needs a generator")
-        imgs, polys = augment_batch(generator, imgs, polys, data_cfg.augment)
+        imgs, polys = augment_batch(generator, imgs, polys, data_cfg.augment, n_draws, rows)
     return finalize_batch(imgs, polys, n_verts, class_ids, net_cfg, data_cfg)
 
 
@@ -305,8 +309,15 @@ class DeviceCachedBatches:
     stream is the same as streaming the reader through ``Batches``.
     ``max_bytes`` (8 GB, the JAX package's default) bounds the images'
     device footprint: a larger corpus raises ``ValueError`` before anything
-    is loaded (use ``Batches`` or ``GrainBatches`` for it).  ``mesh=``
-    raises ``NotImplementedError`` (ROADMAP.md §1 item 9b)."""
+    is loaded (use ``Batches`` or ``GrainBatches`` for it).
+
+    ``mesh`` (or ``place_on_mesh``): the corpus is sharded over the mesh's
+    data axis, its sample axis padded with zero rows to a multiple of the
+    axis's N entries and entry i holding rows [i n_pad/N, (i+1) n_pad/N);
+    the pad rows are never referenced.  ``shards_at`` builds each entry's
+    shard of a batch from the rows the entries own, with the whole batch's
+    draws (the unsharded stream).  On a mesh of several processes every
+    process holds the whole corpus over its own entries."""
 
     def __init__(
         self,
@@ -318,11 +329,11 @@ class DeviceCachedBatches:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            self.place_on_mesh(mesh)
         self.net_cfg = net_cfg
         self.data_cfg = data_cfg
         self.train = train
+        if mesh is not None and device is None:
+            device = mesh.axis_devices("data")[0]
         self.device = resolve_device(device)
         samples = reader.samples()
         n = len(samples)
@@ -334,31 +345,101 @@ class DeviceCachedBatches:
         self._imgs, self._polys, self._nv, self._ci = _collate_records(
             *_host_records(samples, net_cfg, data_cfg), data_cfg, self.device)
         self._n = n
+        self._mesh = None
+        self._shards: list | None = None  # a (imgs, polys, n_verts, class_ids) an entry
+        self._per_entry = 0
+        if mesh is not None:
+            self.place_on_mesh(mesh)
+
+    def _corpus(self) -> tuple:
+        """The four corpus arrays, whole, on ``self.device``."""
+        if self._shards is None:
+            return self._imgs, self._polys, self._nv, self._ci
+        return tuple(torch.cat([sh[j].to(self.device) for sh in self._shards])[: self._n] for j in range(4))
 
     def place_on_mesh(self, mesh) -> None:
-        raise NotImplementedError("DeviceCachedBatches on a mesh: ROADMAP.md §1 item 9b")
+        """Shard the corpus over ``mesh``'s data axis (class docstring); a
+        second call with the same mesh does nothing."""
+        if mesh is self._mesh:
+            return
+        devs = mesh.axis_devices("data")
+        pad = -self._n % len(devs)
+        corpus = [torch.cat([a, a.new_zeros((pad, *a.shape[1:]))]) for a in self._corpus()]
+        per = (self._n + pad) // len(devs)
+        self._shards = [tuple(a[i * per:(i + 1) * per].to(d) for a in corpus) for i, d in enumerate(devs)]
+        self._per_entry = per
+        self._imgs = self._polys = self._nv = self._ci = None
+        self._mesh = mesh
 
     def __len__(self) -> int:
         b = self.data_cfg.batch_size
         return self._n // b if self.data_cfg.drop_remainder else -(-self._n // b)
 
+    def host_order(self, epoch: int) -> np.ndarray:
+        """The epoch's sample order on the host."""
+        return _epoch_order(self._n, self.data_cfg, self.train, epoch)
+
     def order(self, epoch: int) -> torch.Tensor:
         """The epoch's sample order on the device (one copy an epoch)."""
-        return _to_device(_epoch_order(self._n, self.data_cfg, self.train, epoch), self.device)
+        return _to_device(self.host_order(epoch), self.device)
 
-    def batch_at(self, order: torch.Tensor, epoch: int, bi: int) -> dict:
+    def _gather(self, rows: np.ndarray, dev: torch.device) -> list:
+        """The corpus rows ``rows`` (host indices), on ``dev``: each row
+        gathered on the entry that owns it, then copied to ``dev``."""
+        owner = rows // self._per_entry
+        owners = np.unique(owner)
+        out = None
+        for j in owners:
+            pos = np.nonzero(owner == j)[0]
+            src = self._shards[j]
+            loc = torch.from_numpy(rows[pos] - j * self._per_entry).to(src[0].device)
+            got = [a[loc].to(dev) for a in src]
+            if len(owners) == 1:
+                return got
+            if out is None:
+                out = [a.new_empty((len(rows), *a.shape[1:])) for a in got]
+            p = torch.from_numpy(pos).to(dev)
+            for o, a in zip(out, got):
+                o[p] = a
+        return out
+
+    def batch_at(self, order, epoch: int, bi: int) -> dict:
         """Batch ``bi`` of the epoch whose ``order`` is given: the rows of
         its slice of the order, gathered on the device, then
         ``device_batch_step``."""
         dc = self.data_cfg
+        if self._shards is not None:
+            return self._rows_batch(np.asarray(order.cpu() if torch.is_tensor(order) else order),
+                                    epoch, bi, slice(None), self.device)
         idx = order[bi * dc.batch_size : (bi + 1) * dc.batch_size]
         g = _batch_generator(dc, self.train, epoch, bi, self.device)
         return device_batch_step(self._imgs[idx], self._polys[idx], self._nv[idx], self._ci[idx],
                                  self.net_cfg, dc, self.train, g)
 
+    def _rows_batch(self, order: np.ndarray, epoch: int, bi: int, rows: slice, dev) -> dict:
+        """The ``rows`` of batch ``bi`` on ``dev``, from the sharded corpus,
+        with the whole batch's draws."""
+        dc = self.data_cfg
+        batch_rows = order[bi * dc.batch_size : (bi + 1) * dc.batch_size]
+        g = _batch_generator(dc, self.train, epoch, bi, dev)
+        return device_batch_step(*self._gather(batch_rows[rows], dev), self.net_cfg, dc, self.train, g,
+                                 n_draws=len(batch_rows), rows=rows)
+
+    def shards_at(self, order: np.ndarray, epoch: int, bi: int, mesh) -> list[dict]:
+        """Batch ``bi`` of the epoch whose host ``order`` is given, as the
+        shards of ``mesh``'s data axis (``parallel.mesh.entry_rows``; the
+        corpus placed on ``mesh`` first): shard i on entry i, its rows
+        equal to those rows of ``batch_at``'s batch."""
+        from ubdvss_tpu_torch.parallel.mesh import entry_rows
+
+        self.place_on_mesh(mesh)
+        b = len(order[bi * self.data_cfg.batch_size : (bi + 1) * self.data_cfg.batch_size])
+        return [self._rows_batch(order, epoch, bi, entry_rows(b, mesh, i), d)
+                for i, d in enumerate(mesh.axis_devices("data"))]
+
     def epoch(self, epoch: int | None = None) -> Iterator[dict]:
         epoch = 0 if epoch is None else epoch
-        order = self.order(epoch)
+        order = self.order(epoch) if self._shards is None else self.host_order(epoch)
         for bi in range(len(self)):
             yield self.batch_at(order, epoch, bi)
 

@@ -257,13 +257,32 @@ def max_shear_for(cfg: AugmentConfig) -> float:
     return max(math.tan(th), math.sin(th) / max(cfg.scale_range[0], 0.1), 0.05) + 0.02
 
 
-def augment_batch(g: torch.Generator, imgs: torch.Tensor, polys: torch.Tensor, cfg: AugmentConfig):
+def draw_rows(d: dict, rows: slice | None) -> dict:
+    """Those rows of every draw (each has the batch's leading dim); all of
+    them for None."""
+    return d if rows is None else {k: v[rows] for k, v in d.items()}
+
+
+def augment_batch(
+    g: torch.Generator,
+    imgs: torch.Tensor,
+    polys: torch.Tensor,
+    cfg: AugmentConfig,
+    n_draws: int | None = None,
+    rows: slice | None = None,
+):
     """(B, H, W) [0, 255] images + (B, P, V, 2) polys -> the augmented
     pair: a random affine a sample (its factors drawn first, for the whole
-    batch), the two-pass warp, then the photometric jitter."""
-    m = affine_from_draws(affine_draws(g, cfg, imgs.shape[0]), cfg, tuple(imgs.shape[1:]))
+    batch), the two-pass warp, then the photometric jitter.
+
+    ``n_draws`` and ``rows``: the images are the ``rows`` of a batch of
+    ``n_draws`` (a shard of it, on a mesh); the draws are made for the
+    whole batch, so each row gets the draws it gets in the whole batch."""
+    n = imgs.shape[0] if n_draws is None else n_draws
+    hw = tuple(imgs.shape[1:])
+    m = affine_from_draws(draw_rows(affine_draws(g, cfg, n), rows), cfg, hw)
     out = affine_warp(imgs, m, cfg.fill_value, max_shear=max_shear_for(cfg))
-    out = photometric_apply(out, photometric_draws(g, cfg, tuple(imgs.shape)), cfg)
+    out = photometric_apply(out, draw_rows(photometric_draws(g, cfg, (n, *hw)), rows), cfg)
     return out, transform_points(polys, m)
 
 

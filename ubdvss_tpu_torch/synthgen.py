@@ -47,6 +47,7 @@ from ubdvss_tpu_torch.ops.augment import (
     _uniform,
     affine_draws,
     affine_from_draws,
+    draw_rows,
     photometric_apply,
     photometric_draws,
 )
@@ -593,21 +594,28 @@ def synth_batch_step(
     net_cfg: NetConfig,
     data_cfg: DataConfig,
     train: bool = True,
+    rows: slice | None = None,
 ) -> dict:
     """One training batch synthesized and finished on ``g``'s device:
     the scenes' draws, then (``train`` with ``data_cfg.augment``) the
     affines' and the photometric draws, all from ``g``; the render with
     the affine composed in (no warp), the photometric jitter, normalize and
-    the windowed rasterizer.  Returns the batch contract."""
+    the windowed rasterizer.  Returns the batch contract.
+
+    ``rows``: only those rows of the batch (a mesh entry's shard).  The
+    draws are still made for the whole batch, in the same order, so the
+    rows equal the whole batch's bit for bit; only they are rendered,
+    jittered and rasterized."""
     if data_cfg.raster_window is None:
         data_cfg = dataclasses.replace(data_cfg, raster_window=synth_raster_window(sc, net_cfg))
     b = data_cfg.batch_size
-    draws = scene_draws(g, sc, b)
+    draws = draw_rows(scene_draws(g, sc, b), rows)
     acfg = data_cfg.augment
     if train and acfg is not None:
-        m = affine_from_draws(affine_draws(g, acfg, b), acfg, sc.hw)
+        m = affine_from_draws(draw_rows(affine_draws(g, acfg, b), rows), acfg, sc.hw)
+        photo = draw_rows(photometric_draws(g, acfg, (b, *sc.hw)), rows)
         imgs, polys, n_verts, class_ids = render_scenes(draws, sc, affine=m, fill=acfg.fill_value)
-        imgs = photometric_apply(imgs, photometric_draws(g, acfg, tuple(imgs.shape)), acfg)
+        imgs = photometric_apply(imgs, photo, acfg)
     else:
         imgs, polys, n_verts, class_ids = render_scenes(draws, sc)
     return finalize_batch(imgs, polys, n_verts, class_ids, net_cfg, data_cfg)

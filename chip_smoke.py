@@ -69,15 +69,16 @@ them.  Phases, each of which raises on failure:
         equal to the same calls through the plain versions on the host CPU;
      e. large scans: the asset's own NetConfig (K=64, M=64, f32), B=8
         synthetic 2048x2048 uint8 scans (seed 11, as
-        tests/test_inference.py:117), detect_program_batch: context,
+        tests/test_inference.py:117), detect_program_batch(n_strips=1),
+        the whole-image trunk (phase 10 drives the packed route): context,
         the device-memory CCL, the tiled slots kernel and the compacted
         rect kernel must have launched, and the one-block CCL, the cluster
         slots kernel, the fused geometry and the uncompacted rect not;
         the first 2 scans' detections equal to the plain route on the
         host CPU;
      f. one 4096x4096 scan (a 1024² heatmap, the compacted rect at
-        H=1024), the same kernels, equal to the plain route on the host
-        CPU;
+        H=1024), n_strips=1, the same kernels, equal to the plain route on
+        the host CPU;
      g. BarcodeDetector.detect and detect_program with the asset's
         NetConfig on a 640x480, a 1024x768 and a 1024x1024 image
         (120x160, 192x256 and 256x256 heatmaps): context, a CCL, a slots
@@ -107,7 +108,8 @@ them.  Phases, each of which raises on failure:
      i. the bf16 compat route: the fused geometry's bf16 kernel launched,
         detections identical to the bf16 default route, its eight outputs
         bit for bit equal to the bf16 slots after the bf16 CCL;
-     j. bf16 large scans: the scans of e in bf16: the bf16 device-memory
+     j. bf16 large scans: the scans of e in bf16 (n_strips=1, and so j'
+        and the large scans' timings): the bf16 device-memory
         CCL and tiled slots kernels launched; the first 2 scans equal to
         the bf16 route on the host CPU;
      j'. the compat route on the large scans: the scans of e and the scan
@@ -145,9 +147,12 @@ them.  Phases, each of which raises on failure:
         to the checked chain's and to the same call on the host CPU with
         the card's qparams bit for bit, detections identical; the scenes
         whose count and classes equal the f32 path's reported;
-     n. int8 large scans (the scans of e): the eight trunk launches, the
-        device-memory CCL, the tiled slots kernel and K3; the first 2 scans
-        equal to the host CPU;
+     n. int8 large scans (the scans of e; the int8 route reads no
+        n_strips, as in the JAX package, so these take the packed int8
+        route): the eight trunk launches, qconv_head's packed store, the
+        device-memory CCL, the tiled slots kernel reading the phase-major
+        logits and K3; the first 2 scans equal to the host CPU (the packed
+        formulation there), logits bit for bit;
      o. int8 BarcodeDetector.detect and detect_program_int8 at 512x512
         (K=16) and 640x480 (the asset's config): the trunk's kernels, K1,
         K2, K3x; and the int8 QVGA stream (eight trunk launches a batch):
@@ -312,6 +317,34 @@ them.  Phases, each of which raises on failure:
      (tcp://localhost, a free port): one Trainer step whose reduction
      calls all_reduce twice (the gradient, the metric sums), bit for bit
      the unsharded step, then the process group destroyed.
+
+  10. the large-scan packed route (after the timing of phase 4, before
+     phase 5), the asset's config: K4's packed store at the 2048² scans'
+     (8, 24, 512, 512) features == _s2d of its unpacked launch bit for
+     bit, within 1e-4 of its plain version and of the JAX package's packed
+     formulation on cuDNN (s2d_context_head, TF32 off), the card's packed
+     trunk within 1e-4 of that formulation's; qconv_head's packed store on
+     the scans' int8 chain == _s2d of its unpacked launch and its plain
+     version bit for bit, the card's packed int8 trunk == the packed
+     formulation (packed int8 kernels, f64 convs) bit for bit on one scan;
+     the tiled K2 and the large K12c on phase-major 512² logits (f32 as
+     K4's packed planes, bf16 as the bf16 route's _s2d copy), K=64: slots,
+     extremes and areas bit for bit the same kernel on the unpacked
+     logits, the stats within 2e-6, and equal to the plain version; then
+     detect_program_batch's auto route with its launches counted: B=8
+     2048² scans in f32 (K4 seven times, once with the packed store, the
+     tiled K2 reading phase-major), bf16 (the dense route, one _s2d copy,
+     recorded) and int8 (qconv_head's packed store), one 4096² scan (the
+     tiled packed trunk, 4x4 tiles in one batch, K4 seven times), the
+     compat route (the large K12c reading phase-major, f32 and bf16) and
+     B=4 1024² scans at K=16 (the cluster K2 and K12c reading
+     phase-major): logits equal to n_strips=1's (the direct int8 trunk's
+     for int8) bit for bit, within 1e-4 at 4096², detections identical
+     (scores within 1e-6, boxes within 1e-4); then the wall and device ms
+     of each auto route against its whole-image route, in turns (auto,
+     whole, whole, auto), the JAX package's packed formulation's on cuDNN,
+     and a kernel row for each mode beside the same kernel's unpacked
+     launch.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -1085,6 +1118,432 @@ def mesh_training(dev, smi: str, counted, eval_not: list) -> dict:
     return report
 
 
+def same_detections(a: dict, b: dict, name: str, score_atol=1e-6, box_atol=1e-4) -> dict:
+    """Two routes' detections on the card: valid, areas, classes and counts
+    identical, scores within score_atol, boxes (and centres) within
+    box_atol.  Returns the largest score and box differences."""
+    import torch
+
+    for key in ("valid", "areas", "classes", "num_detections", "num_components_total"):
+        if not torch.equal(a[key], b[key]):
+            raise AssertionError(f"{name}: {key} differs")
+    v = b["valid"]
+    err = {"scores": float((a["scores"] - b["scores"])[v].abs().max()) if v.any() else 0.0,
+           "boxes": float((a["boxes"] - b["boxes"])[v].abs().max()) if v.any() else 0.0}
+    if not (err["scores"] <= score_atol and err["boxes"] <= box_atol):
+        raise AssertionError(f"{name}: scores or boxes differ by {err}")
+    return err
+
+
+def packed_route(dev, counted, kernels: list, params_d, params16_d, q_d, cfg_l, cfg_l16,
+                 scans, big, lg_l, lg_l16) -> dict:
+    """Phase 10, the large-scan packed route: each of its kernel
+    modes against its plain version on the card, the route driven through
+    detect_program_batch with its launches counted and held against the
+    whole-image route (n_strips=1), and its times.  Appends the modes'
+    rows to ``kernels``; returns the report."""
+    import torch
+
+    from ubdvss_tpu_torch import detect_program_batch
+    from ubdvss_tpu_torch.models.model import exact_f32
+    from ubdvss_tpu_torch.ops import quant
+    from ubdvss_tpu_torch.ops.cuda import ccl_kernel
+    from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
+    from ubdvss_tpu_torch.ops.cuda import postproc_kernel as pk
+    from ubdvss_tpu_torch.ops.cuda import qconv_kernel as kq
+    from ubdvss_tpu_torch.ops.postproc import postprocess_batch_fused
+    from ubdvss_tpu_torch.ops.strips import packed_trunk_tile_grid
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    report: dict = {}
+    K_l, M_l = cfg_l.max_components, cfg_l.max_hull_points
+    dil_l = tuple(cfg_l.dilations)
+    O = cfg_l.n_output_channels
+    PP = (2, 2)
+    hw2, hw4 = (SCAN, SCAN), (BIG_SCAN, BIG_SCAN)
+    bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", "ccl_tiled_bf16", "slots_tiled_bf16"]
+    int8 = ["qstem", "qconv", "qconv_head", "qconv_layer", "qrequant"]
+    scans_d = torch.from_numpy(scans).to(dev)
+    with torch.inference_mode(), exact_f32():
+        # a. K4's packed store at the 2048² scans' features: _s2d of its
+        # unpacked launch bit for bit; the plain version (the reference
+        # context module, then _s2d) within 1e-4; the faithful packed
+        # formulation (s2d_context_head on cuDNN, TF32 off) within 1e-4
+        xl = ck.stem_apply(params_d, scans_d.float()[..., None], cfg_l, raw_gray=True)
+        xl = xl.permute(0, 3, 1, 2).contiguous()  # (8, 24, 512, 512)
+        w_l = ck._pack_weights(params_d, dil_l)
+        unp = ck.fused_context_head(xl, *w_l, dil_l)
+        pkd = ck.fused_context_head(xl, *w_l, dil_l, packed=True)
+        if not torch.equal(pkd, ck._s2d_planes(unp)):
+            raise AssertionError("context_layer packed store: not _s2d of the unpacked launch")
+        err_k4 = float((pkd - ck._s2d_planes(ck.context_head_reference(xl, *w_l, dil_l)))
+                       .abs().max())
+        feat_p = ck._s2d(xl.permute(0, 2, 3, 1))  # the packed formulation's input
+
+        def faithful_ctx():
+            return ck.s2d_context_head(feat_p, *w_l, dil_l, unpack=False, packed_in=True)
+
+        err_faithful = float((faithful_ctx() - pkd.permute(0, 2, 3, 1)).abs().max())
+        if not (err_k4 <= 1e-4 and err_faithful <= 1e-4):
+            raise AssertionError(f"context_layer packed store: {err_k4}, {err_faithful} > 1e-4")
+        x4 = scans_d[..., None]
+        trunk = ck.packed_fused_trunk(params_d, x4, cfg_l, raw_gray=True)
+        err_trunk = float((trunk - ck.packed_trunk_reference(params_d, x4, cfg_l, raw_gray=True))
+                          .abs().max())
+        if not err_trunk <= 1e-4:
+            raise AssertionError(f"packed trunk: {err_trunk} off the packed formulation")
+        log(f"check context_layer packed store: {tuple(pkd.shape)} == _s2d of the unpacked "
+            f"launch bit for bit, max|err| {err_k4:.3g} to the plain version, {err_faithful:.3g} "
+            f"to the packed formulation (cuDNN); the packed trunk within {err_trunk:.3g} of the "
+            "packed formulation's")
+
+        # qconv_head's packed store on the 2048² scans' int8 chain: _s2d of
+        # its unpacked launch and the plain version, bit for bit; the card's
+        # packed int8 trunk == the packed formulation (packed int8 kernels,
+        # f64 convs) bit for bit on one scan
+        L8, s8, n8 = q_d["layers"], q_d["s_in"], len(dil_l)
+        qx = kq.qstem(scans_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
+        for li, d in enumerate(dil_l[:-1]):
+            qx = kq.qconv(qx, L8[2 + li], s8[3 + li], d)
+        head_args = (qx, L8[1 + n8], s8[2 + n8], dil_l[-1], q_d["head"])
+        u8 = kq.qconv_head(*head_args)
+        p8 = kq.qconv_head(*head_args, packed=True)
+        plain8 = kq.qconv_head_reference(qx[:1], *head_args[1:], packed=True)
+        if not (torch.equal(p8, ck._s2d(u8)) and torch.equal(p8[:1], plain8)):
+            raise AssertionError("qconv_head packed store: differs from _s2d of its unpacked launch "
+                                 "or from its plain version")
+        t8 = quant.int8_packed_trunk_apply(q_d, scans_d[:1], cfg_l, raw_gray=True)
+        if not torch.equal(t8, quant.int8_packed_trunk_reference(q_d, scans_d[:1], cfg_l,
+                                                                 raw_gray=True)):
+            raise AssertionError("packed int8 trunk: differs from the packed formulation")
+        log(f"check qconv_head packed store: {tuple(p8.shape)} == _s2d of the unpacked launch and "
+            "the plain version bit for bit; the packed int8 trunk == the packed formulation "
+            "(packed int8 kernels, f64 convs) bit for bit")
+
+        # K2 tiled and the large K12c on phase-major 512² logits (f32: the
+        # NHWC view of K4's packed planes; bf16: the dense route's _s2d
+        # copy), K=64: the same kernel on the unpacked logits bit for bit on
+        # slots, extremes and areas, the stats within 2e-6 (and the count of
+        # stats that differ at all); the plain version on the packed logits
+        errs_pk = {}
+        packed_maps = {"f32": (lg_l, ck._s2d_planes(lg_l.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)),
+                       "bf16": (lg_l16, ck._s2d(lg_l16))}
+        for name, (lg_, pk_lg) in packed_maps.items():
+            lab = ccl_kernel.ccl_labels_tiled(lg_[..., 0].contiguous())
+            ref = pk.component_slots_tiled(lg_, lab, K_l)
+            out = pk.component_slots_tiled(pk_lg, lab, K_l, packed_phases=PP)
+            e1 = check_stats(out, ref, f"slots_tiled packed {name}")
+            plain = pk.component_slots_reference(pk_lg, lab, K_l, packed_phases=PP)
+            check_stats(out, plain, f"slots_tiled packed {name} (plain)", logits=lg_,
+                        exact=exact_stats(lg_, plain["slots"], K_l))
+            ref_g = pk.geometry_compat(lg_, K_l)
+            out_g = pk.geometry_compat(pk_lg, K_l, packed_phases=PP)
+            e2 = check_stats(out_g, ref_g, f"geometry_compat_large packed {name}")
+            pair = {k: v for k, v in out.items()}
+            for key in out_g:
+                if not torch.equal(out_g[key], pair[key]):
+                    raise AssertionError(f"geometry_compat_large packed {name}: {key} differs from "
+                                         "ccl_tiled then slots_tiled on the packed logits")
+            same_bits = sum(not torch.equal(out[k], ref[k]) for k in ("det_sums", "cls_sums"))
+            errs_pk[name] = (e1, e2)
+            log(f"check slots_tiled and geometry_compat_large on phase-major {tuple(pk_lg.shape)} "
+                f"{name} logits, K={K_l}: slots, extremes and areas == the unpacked launch bit for "
+                f"bit, stats means max|err| {e1:.3g} / {e2:.3g} ({same_bits} of 2 stats tensors not "
+                "bit for bit); the large K12c == the pair bit for bit; == the plain version")
+
+    # b. the route, its launches counted: 2048² B=8 in f32, bf16 and int8,
+    # one 4096² scan, the compat route, and the cluster K2 and K12c at a
+    # 256² map (1024² scans at K=16)
+    def run(p_, c_, images, hw, **kw):
+        return lambda: detect_program_batch(p_, images, c_, hw, device=dev, **kw)
+
+    whole = ["context_layer", "ccl_tiled", "slots_tiled", "rect_compact"]
+    not_f32 = ["ccl", "slots", "geometry_compat", "rect_exact", *bf16, *int8]
+    must_f32 = [*whole, "context_layer_packed", "slots_tiled_packed"]
+    runs: dict = {}
+    with torch.inference_mode():
+        (res_a, lg_a), n_a = counted(run(params_d, cfg_l, scans, hw2), must_f32, not_f32)
+        (res_w, lg_w), _ = counted(run(params_d, cfg_l, scans, hw2, n_strips=1), whole, not_f32)
+        if (n_a["context_layer"], n_a["context_layer_packed"], n_a["slots_tiled_packed"]) != (
+                len(dil_l), 1, 1):
+            raise AssertionError(f"packed route f32: launches {n_a}")
+        if not torch.equal(lg_a, lg_w):
+            raise AssertionError("packed route f32: logits differ from n_strips=1's")
+        runs["2048² f32"] = dict(launches=n_a, **same_detections(res_a, res_w, "packed route f32"))
+        runs["2048² f32"]["detections"] = int(res_a["num_detections"].sum())
+
+        must16 = ["ccl_tiled_bf16", "slots_tiled_bf16", "slots_tiled_packed", "rect_compact"]
+        not16 = ["context_layer", "ccl", "slots", "ccl_tiled", "slots_tiled", "ccl_bf16",
+                 "slots_bf16", "geometry_compat", "geometry_compat_bf16", "rect_exact", *int8]
+        (res16, lg16), n16 = counted(run(params16_d, cfg_l16, scans, hw2), must16, not16)
+        (res16w, lg16w), _ = counted(run(params16_d, cfg_l16, scans, hw2, n_strips=1),
+                                     ["ccl_tiled_bf16", "slots_tiled_bf16", "rect_compact"], not16)
+        if not torch.equal(lg16, lg16w):
+            raise AssertionError("packed route bf16: logits after _d2s differ from n_strips=1's")
+        runs["2048² bf16"] = dict(launches=n16, **same_detections(res16, res16w,
+                                                                   "packed route bf16"))
+        numel = B_SCAN * (SCAN // 4) ** 2 * O
+        runs["2048² bf16"]["logit_copies"] = [
+            name for name, _ in logit_copies(run(params16_d, cfg_l16, scans_d, hw2,
+                                                 detections_only=True), numel)]
+
+        must8 = ["qstem", "qconv", "qconv_head", "qconv_head_packed", "ccl_tiled", "slots_tiled",
+                 "slots_tiled_packed", "rect_compact"]
+        (res8, lg8), n8_ = counted(run(params_d, cfg_l, scans, hw2, qparams=q_d), must8,
+                                   ["context_layer", "ccl", "slots", "geometry_compat",
+                                    "rect_exact", "qconv_layer", "qrequant", *bf16])
+        direct8 = quant.int8_trunk_apply(q_d, scans_d, cfg_l, raw_gray=True)
+        if not torch.equal(lg8, direct8):
+            raise AssertionError("packed route int8: logits differ from the direct trunk's")
+        runs["2048² int8"] = dict(launches=n8_, **same_detections(
+            res8, postprocess_batch_fused(direct8, cfg_l), "packed route int8"))
+
+        big_d = torch.from_numpy(big).to(dev)
+        (res_b, lg_b), n_b = counted(run(params_d, cfg_l, big_d, hw4), must_f32, not_f32)
+        (res_bw, lg_bw), _ = counted(run(params_d, cfg_l, big_d, hw4, n_strips=1), whole, not_f32)
+        if n_b["context_layer"] != len(dil_l):
+            raise AssertionError(f"packed route 4096²: {n_b['context_layer']} K4 launches")
+        err_b = float((lg_b - lg_bw).abs().max())
+        if not err_b <= 1e-4:
+            raise AssertionError(f"packed route 4096²: logits {err_b} off n_strips=1's")
+        lg_bw_h = lg_bw.cpu().numpy()
+        skipped = compare_detections({k: v.cpu().numpy() for k, v in res_b.items()},
+                                     {k: v.cpu().numpy() for k, v in res_bw.items()},
+                                     lg_bw_h[..., 0], box_atol=1e-4, score_atol=1e-6)
+        if skipped[0]:
+            raise AssertionError("packed route 4096²: the scan holds a logit at the threshold")
+        runs["4096² f32"] = dict(launches=n_b, logits_max_abs_err=err_b,
+                                 tiles=list(packed_trunk_tile_grid(*hw4, cfg_l)[1]),
+                                 detections=int(res_b["num_detections"].sum()))
+
+        # the compat route on the packed logits: the large K12c reading them
+        must_c = ["context_layer", "context_layer_packed", "geometry_compat_large",
+                  "geometry_compat_large_packed", "rect_compact"]
+        res_c, n_c = counted(lambda: with_compat(run(params_d, cfg_l, scans, hw2))[0], must_c,
+                             [*not_f32, "ccl_tiled", "slots_tiled"])
+        for k in res_c:
+            if not torch.equal(res_c[k], res_a[k]):
+                raise AssertionError(f"packed compat route: {k} differs from the default route")
+        res_c16, n_c16 = counted(lambda: with_compat(run(params16_d, cfg_l16, scans, hw2))[0],
+                                 ["geometry_compat_large_bf16", "geometry_compat_large_packed",
+                                  "rect_compact"],
+                                 [*not16, "ccl_tiled_bf16", "slots_tiled_bf16"])
+        for k in res_c16:
+            if not torch.equal(res_c16[k], res16[k]):
+                raise AssertionError(f"packed compat route bf16: {k} differs from the default route")
+        runs["2048² compat"] = dict(f32=n_c, bf16=n_c16)
+
+        # the cluster K2 and K12c on packed logits: 1024² scans at K=16 (256²
+        # maps, where K12c's cluster kernel fits)
+        cfg_16 = cfg_l.replace(max_components=16)
+        s1k = np.stack([SyntheticMarkupReader(n_samples=4, image_hw=(1024, 1024), seed=SCAN_SEED)
+                        .sample_at(i).image for i in range(4)])
+        must_k = ["context_layer", "context_layer_packed", "ccl_tiled", "slots", "slots_packed",
+                  "rect_compact"]
+        (res_k, lg_k), n_k = counted(run(params_d, cfg_16, s1k, (1024, 1024)), must_k,
+                                     ["ccl", "slots_tiled", "geometry_compat", "rect_exact",
+                                      *bf16, *int8])
+        (res_kw, lg_kw), _ = counted(run(params_d, cfg_16, s1k, (1024, 1024), n_strips=1),
+                                     ["context_layer", "ccl_tiled", "slots", "rect_compact"],
+                                     ["ccl", "slots_tiled", "geometry_compat", "rect_exact"])
+        if not torch.equal(lg_k, lg_kw):
+            raise AssertionError("packed route 1024²: logits differ from n_strips=1's")
+        same_detections(res_k, res_kw, "packed route 1024² K=16")
+        res_kc, n_kc = counted(lambda: with_compat(run(params_d, cfg_16, s1k, (1024, 1024)))[0],
+                               ["context_layer", "context_layer_packed", "geometry_compat",
+                                "geometry_compat_packed", "rect_compact"],
+                               ["ccl", "slots", "ccl_tiled", "slots_tiled", "rect_exact"])
+        for k in res_kc:
+            if not torch.equal(res_kc[k], res_k[k]):
+                raise AssertionError(f"packed compat route 1024²: {k} differs from the default")
+        runs["1024² K=16"] = dict(default=n_k, compat=n_kc)
+        for name, r in runs.items():
+            log(f"packed route {name}: {json.dumps(r)}")
+        report["runs"] = runs
+
+    # c. times: detect_program_batch auto against n_strips=1 (for int8 the
+    # direct trunk, which n_strips does not select), in turns
+    def direct8_run():
+        return postprocess_batch_fused(quant.int8_trunk_apply(q_d, scans_d, cfg_l, raw_gray=True),
+                                       cfg_l)
+
+    pairs = {
+        "2048² B=8 f32": (run(params_d, cfg_l, scans_d, hw2, detections_only=True),
+                          run(params_d, cfg_l, scans_d, hw2, detections_only=True, n_strips=1)),
+        "2048² B=8 bf16": (run(params16_d, cfg_l16, scans_d, hw2, detections_only=True),
+                           run(params16_d, cfg_l16, scans_d, hw2, detections_only=True,
+                               n_strips=1)),
+        "2048² B=8 int8": (run(params_d, cfg_l, scans_d, hw2, qparams=q_d, detections_only=True),
+                           direct8_run),
+        "4096² B=1 f32": (run(params_d, cfg_l, big_d, hw4, detections_only=True),
+                          run(params_d, cfg_l, big_d, hw4, detections_only=True, n_strips=1)),
+    }
+    times = {}
+    with torch.inference_mode():
+        for name, (auto, whole_) in pairs.items():
+            t = {"auto_ms": [], "whole_ms": [], "auto_device_ms": [], "whole_device_ms": []}
+            for which, fn in (("auto", auto), ("whole", whole_), ("whole", whole_),
+                              ("auto", auto)):
+                t[f"{which}_ms"].append(time_ms(fn, iters=5, reps=2))
+                t[f"{which}_device_ms"].append(device_ms(fn, n=3))
+            times[name] = t
+            log(f"time packed route {name}: auto {t['auto_ms']} ms (device {t['auto_device_ms']}), "
+                f"whole-image {t['whole_ms']} ms (device {t['whole_device_ms']})")
+        faithful = {"context_ms": time_ms(faithful_ctx, iters=5, reps=2),
+                    "context_device_ms": device_ms(faithful_ctx, n=3),
+                    "trunk_ms": time_ms(lambda: ck.packed_trunk_reference(
+                        params_d, x4, cfg_l, raw_gray=True), iters=5, reps=2),
+                    "card_trunk_ms": time_ms(lambda: ck.packed_fused_trunk(
+                        params_d, x4, cfg_l, raw_gray=True), iters=5, reps=2)}
+        log(f"time the packed formulation on cuDNN at 2048² B=8 (TF32 off): {json.dumps(faithful)}")
+        report.update(times=times, faithful_packed_formulation=faithful)
+
+        # d. the modes' rows: each at its path's shapes, beside the same
+        # kernel's unpacked launch
+        px = B_SCAN * (SCAN // 4) ** 2
+        C = xl.shape[1]
+        w_bytes = sum(t.numel() for t in w_l) * 4
+
+        def k4(packed):
+            return lambda: ck.fused_context_head(xl, *w_l, dil_l, packed=packed)
+
+        rows = [dict(
+            name="context_layer_packed", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
+            replaces="ubdvss_tpu/ops/pallas/context_kernel.py:388 (s2d_context_head unpack=False)",
+            launches=n_a["context_layer_packed"], max_abs_err=err_k4,
+            ms=time_ms(k4(True)), device_ms=device_ms(k4(True)),
+            unpacked_ms=time_ms(k4(False)), unpacked_device_ms=device_ms(k4(False)),
+            plain_ms=time_ms(lambda: ck._s2d_planes(ck.context_head_reference(xl, *w_l, dil_l)),
+                             iters=3, reps=1),
+            library_ms=faithful["context_ms"],
+            bound=bound((px * C + px * O) * 4 + w_bytes,
+                        px * (len(dil_l) * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2)),
+        )]
+        F_ = torch.nn.functional
+        xq = qx.permute(0, 3, 1, 2).float().contiguous()
+        wq3 = L8[1 + n8]["q"].permute(3, 2, 0, 1).float().contiguous()
+        last_q = kq.qconv(qx, L8[1 + n8], s8[2 + n8], dil_l[-1]).permute(0, 3, 1, 2).float()
+        wq1 = q_d["head"]["q"].permute(3, 2, 0, 1).float().contiguous()
+
+        def q8(packed):
+            return lambda: kq.qconv_head(*head_args, packed=packed)
+
+        cq = qx.shape[-1]
+        ops8 = 2 * px * (cq * cq * 9 + cq * O)
+        rows.append(dict(
+            name="qconv_head_packed", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_kernel.cu",
+            replaces="ubdvss_tpu/ops/quant.py:332 (int8_packed_trunk_apply's head)",
+            launches=n8_["qconv_head_packed"], max_abs_err=0.0,
+            ms=time_ms(q8(True)), device_ms=device_ms(q8(True)),
+            unpacked_ms=time_ms(q8(False)), unpacked_device_ms=device_ms(q8(False)),
+            plain_ms=time_ms(lambda: kq.qconv_head_reference(*head_args, packed=True),
+                             iters=1, reps=1, warmup=0),
+            # one f32 F.conv2d a layer on the int8 values (TF32 off), as the
+            # qconv_head row: the 3x3 layer and the 1x1 head
+            library_ms=time_ms(lambda: F_.conv2d(xq, wq3, None, 1, dil_l[-1], dil_l[-1]),
+                               iters=5, reps=2)
+            + time_ms(lambda: F_.conv2d(last_q, wq1), iters=5, reps=2),
+            bound=bound(qx.numel() + p8.numel() * 4 + head_args[1]["q"].numel()
+                        + q_d["head"]["q"].numel(), ops8, INT8_OPS),
+        ))
+        for name, (lg_, pk_lg) in packed_maps.items():
+            sfx, esz = ("", 4) if name == "f32" else ("_bf16", 2)
+            lab = ccl_kernel.ccl_labels_tiled(lg_[..., 0].contiguous())
+            geo = pk.component_slots_tiled(pk_lg, lab, K_l, packed_phases=PP)
+            in_slot = int((geo["slots"] < K_l).sum())
+            H_ = lg_.shape[1]
+            ext = B_SCAN * K_l * (2 * H_ + 1) * 4 + B_SCAN * 4
+            stat_b = in_slot * (O - 1) * esz + B_SCAN * K_l * (O + 1) * 4
+            launches_k2 = (n_a if name == "f32" else n16)["slots_tiled_packed"]
+            launches_k12 = (n_c if name == "f32" else n_c16)["geometry_compat_large_packed"]
+
+            def k2(lg_x, pp):
+                return lambda: pk.component_slots_tiled(lg_x, lab, K_l, packed_phases=pp)
+
+            def k12(lg_x, pp):
+                return lambda: pk.geometry_compat(lg_x, K_l, packed_phases=pp)
+
+            rows += [dict(
+                name="slots_tiled_packed" + sfx, route="cuda",
+                source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:381 (packed_phases)",
+                launches=launches_k2, max_abs_err=errs_pk[name][0],
+                ms=time_ms(k2(pk_lg, PP)), device_ms=device_ms(k2(pk_lg, PP)),
+                unpacked_ms=time_ms(k2(lg_, None)), unpacked_device_ms=device_ms(k2(lg_, None)),
+                plain_ms=time_ms(lambda: pk.component_slots_reference(pk_lg, lab, K_l,
+                                                                      packed_phases=PP),
+                                 iters=3, reps=1),
+                library_ms=time_ms(lambda: pk._stats_reference(pk_lg, geo["slots"], K_l, PP),
+                                   iters=3, reps=1),
+                bound=bound(px * (esz + 8) + ext + stat_b, px * 4 + in_slot * O * 8),
+            ), dict(
+                name="geometry_compat_large_packed" + sfx, route="cuda",
+                source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50 (packed_phases)",
+                launches=launches_k12, max_abs_err=errs_pk[name][1],
+                ms=time_ms(k12(pk_lg, PP)), device_ms=device_ms(k12(pk_lg, PP)),
+                unpacked_ms=time_ms(k12(lg_, None)), unpacked_device_ms=device_ms(k12(lg_, None)),
+                plain_ms=time_ms(lambda: pk.geometry_compat_reference(pk_lg, K_l,
+                                                                      packed_phases=PP),
+                                 iters=3, reps=1),
+                library_ms=None,
+                bound=bound(px * (esz + 4) + ext + stat_b, px * 13 + in_slot * O * 8),
+            )]
+        # the cluster K2 and K12c at the 1024² scans' 256² maps, K=16
+        lg_k16 = ck.packed_fused_trunk(params_d, torch.from_numpy(s1k).to(dev)[..., None], cfg_16,
+                                       raw_gray=True)  # (4, 128, 128, 68)
+        lg_ku = ck._d2s(lg_k16, O)
+        lab_k = ccl_kernel.ccl_labels_tiled(lg_ku[..., 0].contiguous())
+        geo_k = pk.component_slots(lg_k16, lab_k, 16, packed_phases=PP)
+        e_k2 = check_stats(geo_k, pk.component_slots(lg_ku, lab_k, 16), "slots packed")
+        geo_kc = pk.geometry_compat(lg_k16, 16, packed_phases=PP)
+        e_k12 = check_stats(geo_kc, pk.geometry_compat(lg_ku, 16), "geometry_compat packed")
+        for key in geo_k:
+            if not torch.equal(geo_k[key], geo_kc[key]):
+                raise AssertionError(f"geometry_compat packed: {key} differs from ccl then slots")
+        Bk, Hk = lg_ku.shape[:2]
+        pxk = Bk * Hk * lg_ku.shape[2]
+        in_k = int((geo_k["slots"] < 16).sum())
+        ext_k = Bk * 16 * (2 * Hk + 1) * 4 + Bk * 4
+        stat_k = in_k * (O - 1) * 4 + Bk * 16 * (O + 1) * 4
+        rows += [dict(
+            name="slots_packed", route="cuda", source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
+            replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:381 (packed_phases)",
+            launches=n_k["slots_packed"], max_abs_err=e_k2,
+            ms=time_ms(lambda: pk.component_slots(lg_k16, lab_k, 16, packed_phases=PP)),
+            device_ms=device_ms(lambda: pk.component_slots(lg_k16, lab_k, 16, packed_phases=PP)),
+            unpacked_ms=time_ms(lambda: pk.component_slots(lg_ku, lab_k, 16)),
+            unpacked_device_ms=device_ms(lambda: pk.component_slots(lg_ku, lab_k, 16)),
+            plain_ms=time_ms(lambda: pk.component_slots_reference(lg_k16, lab_k, 16,
+                                                                  packed_phases=PP),
+                             iters=3, reps=1),
+            library_ms=time_ms(lambda: pk._stats_reference(lg_k16, geo_k["slots"], 16, PP),
+                               iters=3, reps=1),
+            bound=bound(pxk * 12 + ext_k + stat_k, pxk * 4 + in_k * O * 8),
+        ), dict(
+            name="geometry_compat_packed", route="cuda",
+            source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
+            replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50 (packed_phases)",
+            launches=n_kc["geometry_compat_packed"], max_abs_err=e_k12,
+            ms=time_ms(lambda: pk.geometry_compat(lg_k16, 16, packed_phases=PP)),
+            device_ms=device_ms(lambda: pk.geometry_compat(lg_k16, 16, packed_phases=PP)),
+            unpacked_ms=time_ms(lambda: pk.geometry_compat(lg_ku, 16)),
+            unpacked_device_ms=device_ms(lambda: pk.geometry_compat(lg_ku, 16)),
+            plain_ms=time_ms(lambda: pk.geometry_compat_reference(lg_k16, 16, packed_phases=PP),
+                             iters=3, reps=1),
+            library_ms=None,
+            bound=bound(pxk * 8 + ext_k + stat_k, pxk * 13 + in_k * O * 8),
+        )]
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        log(f"time {r['name']}: {r['ms']:.4f} ms/call, device {r['device_ms']:.4f} (unpacked "
+            f"{r['unpacked_ms']:.4f}, device {r['unpacked_device_ms']:.4f}; plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']})")
+    kernels += rows
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1457,13 +1916,22 @@ def main() -> int:
         "qconv_head": (qconv_kernel.qconv_head, "launches"),
         "qconv_layer": (qconv_kernel.qconv_layer_f32, "launches"),
         "qrequant": (qconv_kernel.requantize, "launches"),
+        # the packed route's modes, each also counted above
+        "context_layer_packed": (context_kernel.fused_context_head, "launches_packed"),
+        "qconv_head_packed": (qconv_kernel.qconv_head, "launches_packed"),
+        "slots_packed": (postproc_kernel.component_slots, "launches_packed"),
+        "slots_tiled_packed": (postproc_kernel.component_slots_tiled, "launches_packed"),
+        "geometry_compat_packed": (postproc_kernel.geometry_compat, "launches_packed"),
+        "geometry_compat_large_packed": (postproc_kernel.geometry_compat_large, "launches_packed"),
     }
     tiled = ["ccl_tiled", "slots_tiled"]  # not on the 128² and smaller maps
     bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", "ccl_tiled_bf16",
             "slots_tiled_bf16"]  # not on the f32 paths
-    # the large K12c launches only on the compat route past 200² maps: a
-    # path that does not name it must not launch it
+    # the large K12c launches only on the compat route past 200² maps, and
+    # the packed modes only on the large-scan route: a path that does not
+    # name them must not launch them
     large_compat = ["geometry_compat_large", "geometry_compat_large_bf16"]
+    packed_modes = [k for k in wrappers if k.endswith("_packed")]
 
     # the calibration's bias correction: one convolution a layer and the head
     # (qconv_layer_f32: the f32 pre-activation and the accumulator), one
@@ -1477,7 +1945,7 @@ def main() -> int:
                                  f"requantize launches, expected {layers + 1} and {layers}")
 
     def counted(run, must_launch, must_not):
-        must_not = [*must_not, *(k for k in large_compat if k not in must_launch)]
+        must_not = [*must_not, *(k for k in large_compat + packed_modes if k not in must_launch)]
         for f, attr in wrappers.values():
             setattr(f, attr, 0)
         out = run()
@@ -1614,7 +2082,8 @@ def main() -> int:
     large_kernels = ["context_layer", "ccl_tiled", "slots_tiled", "rect_compact"]
     not_large = ["ccl", "slots", "geometry_compat", "rect_exact", *bf16]
     (res_l, logits_l), n_large = counted(
-        lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), device="cuda"),
+        lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), n_strips=1,
+                                     device="cuda"),
         large_kernels, not_large)
     if n_large["context_layer"] != len(dil_l):
         raise AssertionError(f"large scans: {n_large['context_layer']} context launches")
@@ -1625,7 +2094,8 @@ def main() -> int:
         raise AssertionError("large scans: logits not finite or of the wrong shape")
     n_cmp = 2
     t0 = time.perf_counter()
-    ref_l, ref_lg_l = detect_program_batch(params, scans[:n_cmp], cfg_l, (SCAN, SCAN), fused=True, device="cpu")
+    ref_l, ref_lg_l = detect_program_batch(params, scans[:n_cmp], cfg_l, (SCAN, SCAN), fused=True,
+                                           n_strips=1, device="cpu")
     t_cpu_l = time.perf_counter() - t0
     err_lg_l = float(np.abs(logits_l[:n_cmp] - ref_lg_l.numpy()).max())
     if not err_lg_l <= 1e-4:
@@ -1646,12 +2116,14 @@ def main() -> int:
     # --- 3f. one 4096² scan: a 1024² heatmap ---
     phase("4096² scan")
     (res_b, logits_b), n_big = counted(
-        lambda: detect_program_batch(params_d, big, cfg_l, (BIG_SCAN, BIG_SCAN), device="cuda"),
+        lambda: detect_program_batch(params_d, big, cfg_l, (BIG_SCAN, BIG_SCAN), n_strips=1,
+                                     device="cuda"),
         large_kernels, not_large)
     res_b = {k: v.cpu().numpy() for k, v in res_b.items()}
     logits_b = logits_b.cpu().numpy()
     t0 = time.perf_counter()
-    ref_b, ref_lg_b = detect_program_batch(params, big, cfg_l, (BIG_SCAN, BIG_SCAN), fused=True, device="cpu")
+    ref_b, ref_lg_b = detect_program_batch(params, big, cfg_l, (BIG_SCAN, BIG_SCAN), fused=True,
+                                           n_strips=1, device="cpu")
     t_cpu_b = time.perf_counter() - t0
     err_lg_b = float(np.abs(logits_b - ref_lg_b.numpy()).max())
     if not (np.isfinite(logits_b).all() and err_lg_b <= 1e-4):
@@ -1820,7 +2292,8 @@ def main() -> int:
     # --- 3j. bf16 large scans: B=8 2048² scans, the asset's config ---
     phase("bf16 large scans")
     (res_l16, logits_l16), n_large16 = counted(
-        lambda: detect_program_batch(params16_d, scans, cfg_l16, (SCAN, SCAN), device="cuda"),
+        lambda: detect_program_batch(params16_d, scans, cfg_l16, (SCAN, SCAN), n_strips=1,
+                                     device="cuda"),
         ["ccl_tiled_bf16", "slots_tiled_bf16", "rect_compact"],
         ["context_layer", "ccl", "slots", "ccl_bf16", "slots_bf16", "geometry_compat",
          "geometry_compat_bf16", "rect_exact", *tiled])
@@ -1831,7 +2304,7 @@ def main() -> int:
         raise AssertionError("bf16 large scans: logits not finite or of the wrong shape")
     t0 = time.perf_counter()
     ref_l16, ref_lg_l16 = detect_program_batch(params16, scans[:n_cmp], cfg_l16, (SCAN, SCAN),
-                                               fused=True, device="cpu")
+                                               fused=True, n_strips=1, device="cpu")
     t_cpu_l16 = time.perf_counter() - t0
     ref_lg_l16 = ref_lg_l16.numpy()
     ulps_l16 = float(np.abs(logits_l16[:n_cmp] - ref_lg_l16).max()
@@ -1855,7 +2328,7 @@ def main() -> int:
 
     def scan_run(p_, c_, images, hw):
         return lambda: detect_program_batch(p_, images, c_, hw, detections_only=True,
-                                            device="cuda")[0]
+                                            n_strips=1, device="cuda")[0]
 
     compat_runs = {
         "2048² scans f32": (scan_run(params_d, cfg_l, scans, (SCAN, SCAN)), res_l, False),
@@ -2178,7 +2651,8 @@ def main() -> int:
     phase("int8 large scans")
     (res8_l, lg8_l), n_large8 = counted(
         lambda: detect_program_batch(params_d, scans, cfg_l, (SCAN, SCAN), qparams=q_d, device="cuda"),
-        [*trunk8, "ccl_tiled", "slots_tiled", "rect_compact"],
+        [*trunk8, "qconv_head_packed", "ccl_tiled", "slots_tiled", "slots_tiled_packed",
+         "rect_compact"],
         ["context_layer", "ccl", "slots", "geometry_compat", "rect_exact", *calib8, *bf16])
     trunk_launches(n_large8, 1, "int8 large scans")
     res8_l = {k: v.cpu().numpy() for k, v in res8_l.items()}
@@ -2653,14 +3127,14 @@ def main() -> int:
 
         def run_large(images=scans_d):
             return detect_program_batch(params_d, images, cfg_l, (SCAN, SCAN),
-                                        detections_only=True, device="cuda")
+                                        detections_only=True, n_strips=1, device="cuda")
 
         ms_large = time_ms(run_large, iters=5, reps=3)
         ms_large_host = time_ms(lambda: run_large(scans), iters=5, reps=3)
         prof_large = profile_path(run_large, ms_large)
         def run_big():
             return detect_program_batch(params_d, big_d, cfg_l, (BIG_SCAN, BIG_SCAN),
-                                        detections_only=True, device="cuda")
+                                        detections_only=True, n_strips=1, device="cuda")
 
         ms_big = time_ms(run_big, iters=5, reps=2)
         dev_big = device_ms(run_big, n=5)
@@ -2696,7 +3170,7 @@ def main() -> int:
 
         def run_l16(images=scans_d):
             return detect_program_batch(params16_d, images, cfg_l16, (SCAN, SCAN),
-                                        detections_only=True, device="cuda")
+                                        detections_only=True, n_strips=1, device="cuda")
 
         def run_stream16():
             return list(stream16.process(iter(frames)))
@@ -2919,6 +3393,12 @@ def main() -> int:
     }))
     log(json.dumps({"path": "BarcodeDetector.detect int8, one 512x512 uint8 host image",
                     "ms_per_image": ms_detect8, "device_ms_per_image": dev_detect8}))
+
+    # --- 10. the large-scan packed route (run before the evaluation, where
+    # every path it compares with is set up) ---
+    phase("packed route")
+    log(json.dumps({"packed_route": packed_route(dev, counted, kernels, params_d, params16_d, q_d,
+                                                 cfg_l, cfg_l16, scans, big, lg_l, lg_l16)}))
 
     # --- 5. evaluation: the JAX package's int8 accuracy protocol on the card ---
     phase("evaluation")

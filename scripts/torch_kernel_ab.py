@@ -373,8 +373,9 @@ def int8_ab(args, dev, res: dict) -> None:
     with torch.inference_mode():
         q = quantize_trunk(params, cfg, calib)
     ptr = lambda t: P(None if t is None else t.data_ptr())  # noqa: E731
-    # the parent's struct Plan lacks this tree's calibration fields
-    new = [qk.PLAN_FIELDS.index(f) for f in ("stride", "ks", "pad_t", "pad_l", "f32")]
+    # the parent's struct Plan lacks this tree's calibration fields and the
+    # head's packed store
+    new = [qk.PLAN_FIELDS.index(f) for f in ("stride", "ks", "pad_t", "pad_l", "f32", "packed")]
 
     def plan_args(tag, plan):
         arr = plan.ints if tag == "change" else np.ascontiguousarray(np.delete(plan.ints, new))

@@ -1647,3 +1647,182 @@ def test_int8_entry_points_on_card_match_cpu(dev):
     ref = list(StreamingDetector(cfg, params, (128, 160), 4, qparams=q_cpu, device="cpu").process(imgs))
     for (_, o), (_, r) in zip(out, ref):
         same(o, r)
+
+
+# -- the packed route's modes: K4's and qconv_head's phase-major stores, K2
+# and K12c reading phase-major logits (each against its plain version: the
+# same kernel's unpacked launch, packed by ``_s2d``) ---------------------------
+
+
+@pytest.mark.parametrize("C,O", [(24, 17), (8, 1)])
+@pytest.mark.parametrize("hw", [(128, 128), (38, 54)])
+def test_context_kernel_packed_store(dev, C, O, hw):
+    """The packed store writes _s2d of the unpacked launch's logits, bit
+    for bit (the same arithmetic, another address), counted once a call in
+    ``launches_packed``; an odd map is refused."""
+    rng = np.random.default_rng(C + hw[1])
+    dil = (1, 2, 4)
+    L = len(dil)
+    x = torch.from_numpy(rng.normal(0, 1, (3, C, *hw)).astype(np.float32)).to(dev)
+    w = [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).to(dev)
+         for s, shape in ((0.3, (L, 9, C, 1, 1)), (0.3, (L, C, C)), (0.1, (L, C, 1, 1)),
+                          (0.3, (O, C)), (0.1, (O, 1, 1)))]
+    f = context_kernel.fused_context_head
+    f.launches = f.launches_packed = 0
+    out = f(x, *w, dil)
+    packed = f(x, *w, dil, packed=True)
+    assert (f.launches, f.launches_packed) == (2 * L, 1)
+    assert packed.shape == (3, 4 * O, hw[0] // 2, hw[1] // 2)
+    assert torch.equal(packed.permute(0, 2, 3, 1), context_kernel._s2d(out.permute(0, 2, 3, 1)))
+    with pytest.raises(ValueError):
+        f(x[..., :-1].contiguous(), *w, dil, packed=True)
+
+
+def test_qconv_head_packed_store(dev):
+    """qconv_head's packed store == _s2d of its unpacked launch and == the
+    plain packed version, bit for bit, at the asset's widths (24 channels,
+    17 logits) on a map whose rows end in a partial run."""
+    rng = np.random.default_rng(3)
+    cin, cout, nh = 24, 24, 17
+    layer = {"q": torch.from_numpy(rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8)),
+             "ws": torch.from_numpy(rng.uniform(1e-4, 3e-4, cout).astype(np.float32)),
+             "b": torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32))}
+    head = {"q": torch.from_numpy(rng.integers(-127, 128, (1, 1, cout, nh), dtype=np.int8)),
+            "ws": torch.from_numpy(rng.uniform(1e-3, 2e-3, nh).astype(np.float32)),
+            "b": torch.from_numpy(rng.normal(0, 0.1, nh).astype(np.float32))}
+    s_out = torch.from_numpy(rng.uniform(20, 40, cout).astype(np.float32))
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 40, 150, cin), dtype=np.int8))
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}  # noqa: E731
+    f = qconv_kernel.qconv_head
+    f.launches = f.launches_packed = 0
+    args = (x.to(dev), to(layer), s_out.to(dev), 4, to(head))
+    out = f(*args)
+    packed = f(*args, packed=True)
+    assert (f.launches, f.launches_packed) == (2, 1)
+    assert packed.shape == (2, 20, 75, 4 * nh)
+    assert torch.equal(packed, context_kernel._s2d(out))
+    assert torch.equal(packed.cpu(), qconv_kernel.qconv_head_reference(
+        x, layer, s_out, 4, head, packed=True))
+
+
+def _packed_logits(lg: torch.Tensor, layout: str) -> torch.Tensor:
+    """Phase-major packed logits of (B, H, W, C) ``lg``: as the NHWC view
+    of K4's packed (B, 4C, H/2, W/2) planes, or contiguous NHWC (the bf16
+    route's ``_s2d`` copy)."""
+    p = context_kernel._s2d(lg)
+    return p.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) if layout == "planes" else \
+        p.contiguous()
+
+
+_PACKED_SHAPES = [(8, 512, 512, 64), (3, 128, 128, 16), (4, 38, 54, 16)]
+
+
+@pytest.mark.parametrize("layout", ["planes", "nhwc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _PACKED_SHAPES)
+def test_slots_read_phase_major_logits(dev, shape, dtype, layout):
+    """K2 (the cluster kernel where K12c fits, the tiled one past it) on
+    phase-major logits == the same kernel on the unpacked logits: slots,
+    extremes, counts and areas bit for bit, the stats' means within 2e-6
+    (the pass walks the same pixel order, so they come out equal too); and
+    the plain version's geometry.  Counted in ``launches_packed``."""
+    B, H, W, K = shape
+    lg = _head_logits(_maps(H + K, B, H, W), 17, K, dev).to(getattr(torch, dtype))
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0].float())
+    pk = _packed_logits(lg, layout)
+    tiled = not postproc_kernel.geometry_compat_fits(H, W, K, 17)
+    f = postproc_kernel.component_slots_tiled if tiled else postproc_kernel.component_slots
+    f.launches_packed = 0
+    ref = postproc_kernel.component_slots(lg, lab, K)
+    out = postproc_kernel.component_slots(pk, lab, K, packed_phases=(2, 2))
+    assert f.launches_packed == 1
+    assert_stats_close(out, ref)
+    plain = postproc_kernel.component_slots_reference(pk, lab, K, packed_phases=(2, 2))
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], plain[key]), key
+
+
+@pytest.mark.parametrize("layout", ["planes", "nhwc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _PACKED_SHAPES)
+def test_geometry_compat_reads_phase_major_logits(dev, shape, dtype, layout):
+    """K12c (the cluster kernel, or the large one past it) on phase-major
+    logits == the same kernel on the unpacked logits, and its eight outputs
+    == CCL then K2 on the packed logits, as on unpacked ones."""
+    B, H, W, K = shape
+    lg = _head_logits(_maps(H + 2 * K, B, H, W), 17, K, dev).to(getattr(torch, dtype))
+    pk = _packed_logits(lg, layout)
+    large = not postproc_kernel.geometry_compat_fits(H, W, K, 17)
+    f = postproc_kernel.geometry_compat_large if large else postproc_kernel.geometry_compat
+    f.launches_packed = 0
+    ref = postproc_kernel.geometry_compat(lg, K)
+    out = postproc_kernel.geometry_compat(pk, K, packed_phases=(2, 2))
+    assert f.launches_packed == 1
+    assert_stats_close(out, ref)
+    lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
+    pair = postproc_kernel.component_slots(pk, lab, K, packed_phases=(2, 2))
+    for key in out:
+        assert torch.equal(out[key], pair[key]), key
+
+
+@pytest.mark.parametrize("name", ["component_slots", "component_slots_tiled", "geometry_compat",
+                                  "geometry_compat_large"])
+def test_packed_entry_points_with_no_phase_are_the_unpacked_ones(dev, name):
+    """An unpacked launch is what it was: the ``_packed`` entry point with
+    zero phase strides (s = m = 0 in geometry.cuh's pixel_offset) gives the
+    unpacked entry point's eight outputs bit for bit, on the main path's
+    NHWC view over planes."""
+    B, H, W, K = (3, 128, 128, 16) if "large" not in name else (2, 512, 512, 64)
+    lg = _head_logits(_maps(7, B, H, W), 17, 5, dev)
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
+    fn = getattr(postproc_kernel, name)
+    args = (lg, K) if name.startswith("geometry") else (lg, lab, K)
+    ref = fn(*args)
+    real = postproc_kernel._strides
+    zero = lambda lg_, C, pp, n: (n + "_packed" + postproc_kernel.LOGIT_DTYPES[lg_.dtype],  # noqa: E731
+                                  tuple(lg_.stride()) + (0, 0))
+    postproc_kernel._strides = zero
+    try:
+        out = fn(*args)
+    finally:
+        postproc_kernel._strides = real
+    for key in ref:
+        assert torch.equal(out[key], ref[key]), key
+
+
+def test_packed_route_on_card_matches_whole_image_route(dev):
+    """detect_program_batch's packed route (the f32 trunk with K4's packed
+    store, K2 reading it) at 1024² == n_strips=1's whole-image route on the
+    card: logits bit for bit, detections identical; int8 too."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import detect_program_batch, load_net_config, load_params_npz
+    from ubdvss_tpu_torch import params_from_flat
+    from ubdvss_tpu_torch.ops.quant import int8_trunk_apply, quantize_trunk
+    from ubdvss_tpu_torch.ops.postproc import postprocess_batch_fused
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    asset = Path(__file__).resolve().parents[1] / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(asset)
+    params = params_from_flat(load_params_npz(asset))
+    imgs = np.stack([SyntheticMarkupReader(n_samples=2, image_hw=(1024, 1024), seed=5)
+                     .sample_at(i).image for i in range(2)])
+    f = context_kernel.fused_context_head
+    f.launches_packed = 0
+    res, lg = detect_program_batch(params, imgs, cfg, (1024, 1024), device=dev)
+    assert f.launches_packed == 1
+    res1, lg1 = detect_program_batch(params, imgs, cfg, (1024, 1024), n_strips=1, device=dev)
+    assert f.launches_packed == 1
+    assert torch.equal(lg, lg1) and int(res["num_detections"].sum()) > 0
+    for k in res:
+        torch.testing.assert_close(res[k], res1[k], atol=1e-6, rtol=0, msg=k)
+    calib = torch.from_numpy((imgs[:1].astype(np.float32) / 127.5 - 1.0)[..., None]).to(dev)
+    q = quantize_trunk({k: v.to(dev) for k, v in params.items()}, cfg, calib)
+    qconv_kernel.qconv_head.launches_packed = 0
+    res8, lg8 = detect_program_batch(params, imgs, cfg, (1024, 1024), qparams=q, device=dev)
+    assert qconv_kernel.qconv_head.launches_packed == 1
+    direct = int8_trunk_apply(q, torch.from_numpy(imgs).to(dev), cfg, raw_gray=True)
+    assert torch.equal(lg8, direct)
+    ref8 = postprocess_batch_fused(direct, cfg)
+    for k in res8:
+        torch.testing.assert_close(res8[k], ref8[k], atol=1e-6, rtol=0, msg=k)

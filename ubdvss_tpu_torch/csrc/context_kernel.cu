@@ -22,6 +22,15 @@
 // ~0.19 ms.  Neighbouring threads take neighbouring x, so every tap load of
 // a warp is one coalesced 128-byte row segment, and the 9 taps of a
 // channel mostly hit L1/L2.
+//
+// ``packed``: the head's last launch writes its logits phase-major, as the
+// TPU package's packed route hands them to its postprocessing
+// (s2d_context_head(unpack=False), ubdvss_tpu/ops/pallas/
+// context_kernel.py:388-450): (B, 4 O, H/2, W/2), channel (2 py + px) O + o
+// for pixel (2 i + py, 2 j + px), whose NHWC view is the phase-major
+// (B, H/2, W/2, 4 O).  The same arithmetic as the plain store, and the
+// same bytes written; a warp's stores go to two planes (the two column
+// phases of its row), 16 contiguous floats each.
 #include "common.cuh"
 
 namespace {
@@ -37,7 +46,7 @@ context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const float* __restrict__ pb,   // (C)
                      const float* __restrict__ hwt,  // (O, C) or null
                      const float* __restrict__ hb,   // (O) or null
-                     int B, int H, int W, int d, int O) {
+                     int B, int H, int W, int d, int O, int packed) {
   __shared__ float s_dw[9 * C];
   __shared__ float s_pw[C * C];
   __shared__ float s_pb[C];
@@ -97,33 +106,42 @@ context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
     for (int o = 0; o < C; ++o) ob[o * HW] = act[o];
     return;
   }
+  long long os = HW;  // between output channels
+  if (packed) {
+    os = HW / 4;
+    ob = out + (static_cast<long long>(b) * 4 + 2 * (y & 1) + (xw & 1)) * O * os +
+         static_cast<long long>(y >> 1) * (W >> 1) + (xw >> 1);
+  }
   for (int o = 0; o < O; ++o) {
     float s = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) s = fmaf(s_hw[o * C + c], act[c], s);
-    ob[o * HW] = s + s_hb[o];
+    ob[o * os] = s + s_hb[o];
   }
 }
 
 template <int C>
 void launch(const float* x, float* out, const float* dw, const float* pwt,
             const float* pb, const float* hwt, const float* hb, int B, int H,
-            int W, int d, int O, cudaStream_t stream) {
+            int W, int d, int O, int packed, cudaStream_t stream) {
   const long long n = static_cast<long long>(B) * H * W;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   context_layer_kernel<C><<<blocks, kThreads, 0, stream>>>(
-      x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O);
+      x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed);
 }
 
 }  // namespace
 
-// x (B, C, H, W) -> out (B, C, H, W), or (B, O, H, W) when hwt is not null.
-// C must be 8, 16, 24 or 32 and O at most 32.
+// x (B, C, H, W) -> out (B, C, H, W), or (B, O, H, W) when hwt is not null,
+// or with ``packed`` (and hwt) the phase-major (B, 4 O, H/2, W/2), H and W
+// even.  C must be 8, 16, 24 or 32 and O at most 32.
 extern "C" int context_layer(const void* x, void* out, const void* dw,
                              const void* pwt, const void* pb, const void* hwt,
                              const void* hb, int B, int C, int H, int W, int d,
-                             int O, void* stream) {
-  if (O > kMaxO || B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+                             int O, int packed, void* stream) {
+  if (O > kMaxO || B <= 0 || H <= 0 || W <= 0 ||
+      (packed && (hwt == nullptr || H % 2 != 0 || W % 2 != 0)))
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto fx = static_cast<const float*>(x);
   auto fo = static_cast<float*>(out);
@@ -133,10 +151,10 @@ extern "C" int context_layer(const void* x, void* out, const void* dw,
   auto fhw = static_cast<const float*>(hwt);
   auto fhb = static_cast<const float*>(hb);
   switch (C) {
-    case 8: launch<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, s); break;
-    case 16: launch<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, s); break;
-    case 24: launch<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, s); break;
-    case 32: launch<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, s); break;
+    case 8: launch<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+    case 16: launch<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+    case 24: launch<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+    case 32: launch<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
     default: return cudaErrorInvalidValue;
   }
   return launch_status();

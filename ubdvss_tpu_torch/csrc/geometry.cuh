@@ -225,16 +225,42 @@ struct SplitView {
   __device__ int operator[](int p) const { return p < split ? lo[p] : hi[p - split]; }
 };
 
+// Where pixel (y, x) of an image lies beside its row and column strides
+// sy, sx: (y >> s) sy + (y & m) py + (x >> s) sx + (x & m) px.  An
+// ordinary map (NHWC, or the (C, H, W) planes of the context kernel) has
+// s = m = 0 and no phase strides: y sy + x sx.  A phase-major
+// space-to-depth map (the packed route's (B, H/2, W/2, 4C) logits,
+// channel (2 (y & 1) + (x & 1)) C + c) has s = m = 1: sy and sx step over
+// 2x2 cells, and py = 2 C sc, px = C sc pick the pixel within its cell.
+struct Phase {
+  long long py = 0, px = 0;
+  int s = 0, m = 0;
+};
+
+// The phase of a packed map's strides (both 0: an ordinary map).
+inline Phase phase_of(long long py, long long px) {
+  const int packed = py != 0 || px != 0;
+  return Phase{py, px, packed, packed};
+}
+
+__device__ __forceinline__ long long pixel_offset(int y, int x, long long sy, long long sx,
+                                                  const Phase& ph) {
+  return (y >> ph.s) * sy + (y & ph.m) * ph.py + (x >> ph.s) * sx + (x & ph.m) * ph.px;
+}
+
 // One image's (H, W, C) logits of type T at element strides: channel 0 is
 // the detection logit, 1..C-1 the class logits.  The context kernel writes
 // (C, H, W) planes, so a pixel's channels lie H*W apart and neighbouring
 // pixels are neighbours in memory; cuDNN's bf16 head may write channels
-// last, where a pixel's channels are neighbours.
+// last, where a pixel's channels are neighbours; the packed route's logits
+// are phase-major (``ph``).
 template <class T>
 struct Logits {
   const T* p;
   long long sy, sx, sc;
   int C;
+  Phase ph;
+  __device__ const T* at(int y, int x) const { return p + pixel_offset(y, x, sy, sx, ph); }
 };
 
 // One image's (H, W) detection logits at element strides, widened to f32.
@@ -242,7 +268,10 @@ template <class T>
 struct Plane {
   const T* p;
   long long sy, sx;
-  __device__ float operator()(int y, int x) const { return widen(p[y * sy + x * sx]); }
+  Phase ph;
+  __device__ float operator()(int y, int x) const {
+    return widen(p[pixel_offset(y, x, sy, sx, ph)]);
+  }
 };
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -302,7 +331,7 @@ struct StatsAcc {
   float e[CM > 1 ? CM - 1 : 1];  // the pixel's class logits, from fetch()
 
   __device__ void fetch(const Logits<T>& lg, int y, int x) {
-    const T* q = lg.p + y * lg.sy + x * lg.sx;
+    const T* q = lg.at(y, x);
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
       q += lg.sc;

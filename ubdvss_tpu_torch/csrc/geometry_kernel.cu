@@ -72,6 +72,10 @@
 // tiled pair's bytes (8 B a pixel of logit read and slot written, the
 // class logits of the pixels in a slot, the extremes); the barriers cost a
 // few microseconds each.
+//
+// Both have ``_packed`` entry points for the packed route's phase-major
+// logits, read in place at their phase strides (geometry.cuh Phase), equal
+// bit for bit to the same kernel on the unpacked logits.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -87,7 +91,8 @@ constexpr int kThreads = 1024;
 template <int CM, class T>
 __global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1) __launch_bounds__(kThreads)
 geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
-                long long sc, int C, int* __restrict__ rootvals, int* __restrict__ slots,
+                long long sc, geometry::Phase ph, int C, int* __restrict__ rootvals,
+                int* __restrict__ slots,
                 int* __restrict__ minx, int* __restrict__ maxx, int* __restrict__ nroots,
                 float* __restrict__ areas, float* __restrict__ det_sums,
                 float* __restrict__ cls_sums, int H, int W, int K, float thr,
@@ -105,8 +110,8 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
   int* hi = rank == 0 ? peer : own;
   const int p0 = rank == 0 ? 0 : split;
   const int p1 = rank == 0 ? split : N;
-  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
-  const geometry::Plane<T> det{lg.p, sy, sx};
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C, ph};
+  const geometry::Plane<T> det{lg.p, sy, sx, ph};
   const bool eight = connectivity == 8;
 
   // 1-3. CCL over the cluster
@@ -162,12 +167,13 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
   cluster.sync();  // block 1's shared memory lives until block 0 has read it
 }
 
-// logits (B, H, W, C) at element strides (sb, sy, sx, sc) -> the outputs
-// of component_slots (postproc_kernel.cu).  ``threads`` is that of one of
-// K2's blocks.
+// logits (B, H, W, C) at element strides (sb, sy, sx, sc) and phase
+// ``ph`` (geometry.cuh Phase) -> the outputs of component_slots
+// (postproc_kernel.cu).  ``threads`` is that of one of K2's blocks.
 template <class T>
 int geometry_launch(const void* logits, long long sb, long long sy, long long sx, long long sc,
-                    int C, void* rootvals, void* slots, void* minx, void* maxx, void* nroots,
+                    geometry::Phase ph, int C, void* rootvals, void* slots, void* minx,
+                    void* maxx, void* nroots,
                     void* areas, void* det_sums, void* cls_sums, int B, int H, int W, int K,
                     int threads, float thr, int connectivity, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads <= 0 ||
@@ -185,7 +191,7 @@ int geometry_launch(const void* logits, long long sb, long long sy, long long sx
     if (e != cudaSuccess) return static_cast<int>(e);
     geometry_kernel<CM, T><<<geometry::kSlotCtas * B, threads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(logits), sb, sy, sx, sc, C, static_cast<int*>(rootvals),
+        static_cast<const T*>(logits), sb, sy, sx, sc, ph, C, static_cast<int*>(rootvals),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
         static_cast<int*>(nroots), static_cast<float*>(areas),
         static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, thr,
@@ -205,7 +211,8 @@ constexpr int kLargeThreads = 256;  // every phase's block: the tiled pair's at 
 template <int CM, class T>
 __global__ void __launch_bounds__(kLargeThreads, 4)
 geometry_large_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
-                      long long sc, int* labels, int* rootvals, int* slots, int* minx, int* maxx,
+                      long long sc, geometry::Phase ph, int* labels, int* rootvals, int* slots,
+                      int* minx, int* maxx,
                       int* nroots, float* __restrict__ areas, float* __restrict__ det_sums,
                       float* __restrict__ cls_sums, int* counts, int* lists, float* tpart,
                       int* tcnt, int* ext, tiled::Plan pl, float thr, int connectivity) {
@@ -216,7 +223,7 @@ geometry_large_kernel(const T* __restrict__ logits, long long sb, long long sy, 
   const bool eight = connectivity == 8;
   const long long gtid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long gstride = static_cast<long long>(gridDim.x) * blockDim.x;
-  auto det_of = [&](long long b) { return geometry::Plane<T>{logits + b * sb, sy, sx}; };
+  auto det_of = [&](long long b) { return geometry::Plane<T>{logits + b * sb, sy, sx, ph}; };
 
   // 1. the CCL's tiles
   const int ctx = (pl.W + pl.tile_w - 1) / pl.tile_w;
@@ -252,7 +259,7 @@ geometry_large_kernel(const T* __restrict__ logits, long long sb, long long sy, 
   // 4. the pixel pass over the bands
   for (int it = blockIdx.x; it < B * pl.bands; it += gridDim.x) {
     const int b = it / pl.bands;
-    const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
+    const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C, ph};
     const tiled::CoherentLabels lab{labels + b * N};
     __syncthreads();  // the roots, partials and extremes are the next band's
     tiled::slots_pass<CM>(lg, lab, counts + static_cast<long long>(b) * pl.nchunks,
@@ -284,7 +291,8 @@ geometry_large_kernel(const T* __restrict__ logits, long long sb, long long sy, 
 // component_slots_tiled (``counts``, ``lists``, ``tpart``, ``tcnt``).
 template <class T>
 int geometry_large_launch(const void* logits, long long sb, long long sy, long long sx,
-                          long long sc, void* rootvals, void* slots, void* minx, void* maxx,
+                          long long sc, geometry::Phase ph, void* rootvals, void* slots,
+                          void* minx, void* maxx,
                           void* nroots, void* areas, void* det_sums, void* cls_sums, void* labels,
                           void* counts, void* lists, void* tpart, void* tcnt, void* ext,
                           const int* plan, int nplan, float thr, int connectivity,
@@ -328,7 +336,7 @@ int geometry_large_launch(const void* logits, long long sb, long long sy, long l
     float* tp = static_cast<float*>(tpart);
     int* tc = static_cast<int*>(tcnt);
     int* ex = static_cast<int*>(ext);
-    void* args[] = {&lg, &sb, &sy, &sx, &sc, &lab, &roots, &sl, &mn, &mx, &nr, &ar, &ds,
+    void* args[] = {&lg, &sb, &sy, &sx, &sc, &ph, &lab, &roots, &sl, &mn, &mx, &nr, &ar, &ds,
                     &cs, &cn, &li, &tp, &tc, &ex, &pl, &thr, &connectivity};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                     dim3(kLargeThreads), args, smem,
@@ -347,9 +355,9 @@ extern "C" int geometry_compat(const void* logits, long long sb, long long sy, l
                                void* maxx, void* nroots, void* areas, void* det_sums,
                                void* cls_sums, int B, int H, int W, int K, int threads,
                                float thr, int connectivity, void* stream) {
-  return geometry_launch<float>(logits, sb, sy, sx, sc, C, rootvals, slots, minx, maxx, nroots,
-                                areas, det_sums, cls_sums, B, H, W, K, threads, thr,
-                                connectivity, stream);
+  return geometry_launch<float>(logits, sb, sy, sx, sc, geometry::Phase{}, C, rootvals, slots,
+                                minx, maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
+                                threads, thr, connectivity, stream);
 }
 
 // The same from bf16 logits.
@@ -359,9 +367,35 @@ extern "C" int geometry_compat_bf16(const void* logits, long long sb, long long 
                                     void* areas, void* det_sums, void* cls_sums, int B, int H,
                                     int W, int K, int threads, float thr, int connectivity,
                                     void* stream) {
-  return geometry_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, C, rootvals, slots, minx,
-                                        maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
-                                        threads, thr, connectivity, stream);
+  return geometry_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::Phase{}, C, rootvals,
+                                        slots, minx, maxx, nroots, areas, det_sums, cls_sums, B,
+                                        H, W, K, threads, thr, connectivity, stream);
+}
+
+// The same from phase-major packed logits: (sb, sy, sx) step over images
+// and 2x2 cells, (spy, spx) over a cell's phases, sc over channels
+// (geometry.cuh Phase); H, W are the unpacked map's.
+extern "C" int geometry_compat_packed(const void* logits, long long sb, long long sy,
+                                      long long sx, long long sc, long long spy, long long spx,
+                                      int C, void* rootvals, void* slots, void* minx, void* maxx,
+                                      void* nroots, void* areas, void* det_sums, void* cls_sums,
+                                      int B, int H, int W, int K, int threads, float thr,
+                                      int connectivity, void* stream) {
+  return geometry_launch<float>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C,
+                                rootvals, slots, minx, maxx, nroots, areas, det_sums, cls_sums, B,
+                                H, W, K, threads, thr, connectivity, stream);
+}
+
+extern "C" int geometry_compat_packed_bf16(const void* logits, long long sb, long long sy,
+                                           long long sx, long long sc, long long spy,
+                                           long long spx, int C, void* rootvals, void* slots,
+                                           void* minx, void* maxx, void* nroots, void* areas,
+                                           void* det_sums, void* cls_sums, int B, int H, int W,
+                                           int K, int threads, float thr, int connectivity,
+                                           void* stream) {
+  return geometry_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C,
+                                        rootvals, slots, minx, maxx, nroots, areas, det_sums,
+                                        cls_sums, B, H, W, K, threads, thr, connectivity, stream);
 }
 
 // The same for maps of any size (H*W < 2^30), in one cooperative launch
@@ -374,9 +408,10 @@ extern "C" int geometry_compat_large(const void* logits, long long sb, long long
                                      void* lists, void* tpart, void* tcnt, void* ext,
                                      const int* plan, int nplan, float thr, int connectivity,
                                      void* stream) {
-  return geometry_large_launch<float>(logits, sb, sy, sx, sc, rootvals, slots, minx, maxx,
-                                      nroots, areas, det_sums, cls_sums, labels, counts, lists,
-                                      tpart, tcnt, ext, plan, nplan, thr, connectivity, stream);
+  return geometry_large_launch<float>(logits, sb, sy, sx, sc, geometry::Phase{}, rootvals,
+                                      slots, minx, maxx, nroots, areas, det_sums, cls_sums,
+                                      labels, counts, lists, tpart, tcnt, ext, plan, nplan, thr,
+                                      connectivity, stream);
 }
 
 // The same from bf16 logits.
@@ -387,8 +422,35 @@ extern "C" int geometry_compat_large_bf16(const void* logits, long long sb, long
                                           void* labels, void* counts, void* lists, void* tpart,
                                           void* tcnt, void* ext, const int* plan, int nplan,
                                           float thr, int connectivity, void* stream) {
-  return geometry_large_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, rootvals, slots, minx,
-                                              maxx, nroots, areas, det_sums, cls_sums, labels,
-                                              counts, lists, tpart, tcnt, ext, plan, nplan, thr,
-                                              connectivity, stream);
+  return geometry_large_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::Phase{},
+                                              rootvals, slots, minx, maxx, nroots, areas,
+                                              det_sums, cls_sums, labels, counts, lists, tpart,
+                                              tcnt, ext, plan, nplan, thr, connectivity, stream);
+}
+
+// The same from phase-major packed logits (geometry_compat_packed's
+// strides).
+extern "C" int geometry_compat_large_packed(
+    const void* logits, long long sb, long long sy, long long sx, long long sc, long long spy,
+    long long spx, void* rootvals, void* slots, void* minx, void* maxx, void* nroots,
+    void* areas, void* det_sums, void* cls_sums, void* labels, void* counts, void* lists,
+    void* tpart, void* tcnt, void* ext, const int* plan, int nplan, float thr, int connectivity,
+    void* stream) {
+  return geometry_large_launch<float>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx),
+                                      rootvals, slots, minx, maxx, nroots, areas, det_sums,
+                                      cls_sums, labels, counts, lists, tpart, tcnt, ext, plan,
+                                      nplan, thr, connectivity, stream);
+}
+
+extern "C" int geometry_compat_large_packed_bf16(
+    const void* logits, long long sb, long long sy, long long sx, long long sc, long long spy,
+    long long spx, void* rootvals, void* slots, void* minx, void* maxx, void* nroots,
+    void* areas, void* det_sums, void* cls_sums, void* labels, void* counts, void* lists,
+    void* tpart, void* tcnt, void* ext, const int* plan, int nplan, float thr, int connectivity,
+    void* stream) {
+  return geometry_large_launch<__nv_bfloat16>(logits, sb, sy, sx, sc,
+                                              geometry::phase_of(spy, spx), rootvals, slots,
+                                              minx, maxx, nroots, areas, det_sums, cls_sums,
+                                              labels, counts, lists, tpart, tcnt, ext, plan,
+                                              nplan, thr, connectivity, stream);
 }

@@ -69,6 +69,15 @@
 // rounded to bf16 before the f32 sums, as in the JAX package
 // (geometry.cuh StatsAcc), and the partials, their order and the warp
 // count are those of f32, so K2 and K12c stay equal bit for bit.
+//
+// The ``_packed`` entry points read the packed route's phase-major logits
+// ((B, H/2, W/2, 4C), channel (2 (y & 1) + (x & 1)) C + c for pixel (y,
+// x)) in place, as the TPU module's packed_phases does: every load goes
+// through geometry.cuh's pixel_offset with the phase strides, and the
+// pass walks the same unpacked (y, x) order, so the outputs equal those of
+// the same kernel on the unpacked logits bit for bit.  A warp's 32 lanes
+// then read two runs of 16 contiguous cells (one a phase column) where an
+// unpacked map gives one run of 32.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -84,7 +93,8 @@ constexpr int kThreads = 1024;
 template <int CM, class T>
 __global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1) __launch_bounds__(kThreads)
 slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
-             long long sx, long long sc, int C, const int* __restrict__ labels,
+             long long sx, long long sc, geometry::Phase ph, int C,
+             const int* __restrict__ labels,
              int* __restrict__ rootvals, int* __restrict__ slots,
              int* __restrict__ minx, int* __restrict__ maxx,
              int* __restrict__ nroots, float* __restrict__ areas,
@@ -96,8 +106,8 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
   const long long b = blockIdx.x / geometry::kSlotCtas;
   const long long N = static_cast<long long>(H) * W;
   const int nw = blockDim.x >> 5;
-  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C};
-  const geometry::Plane<T> det{lg.p, sy, sx};
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C, ph};
+  const geometry::Plane<T> det{lg.p, sy, sx, ph};
   const geometry::GlobalLabels lab{labels + b * N};
   const geometry::SlotSmem s(sm, K, H, C, nw);
   const int total = geometry::slot_roots(det, lab, s, s.root, 0, static_cast<int>(N), H, W, K,
@@ -127,13 +137,13 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
 template <class T>
 __global__ void __launch_bounds__(tiled::kRootsThreads, 8)
 roots_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
-             const int* __restrict__ labels, int* __restrict__ counts, int* __restrict__ lists,
-             tiled::Plan pl, float thr) {
+             geometry::Phase ph, const int* __restrict__ labels, int* __restrict__ counts,
+             int* __restrict__ lists, tiled::Plan pl, float thr) {
   __shared__ int scratch[tiled::kRootsScratch];
   const int c = blockIdx.x;
   const long long b = blockIdx.y;
   const int N = pl.H * pl.W;
-  const geometry::Plane<T> det{logits + b * sb, sy, sx};
+  const geometry::Plane<T> det{logits + b * sb, sy, sx, ph};
   const geometry::GlobalLabels lab{labels + b * N};
   const long long item = b * pl.nchunks + c;
   tiled::roots_chunk(det, lab, c, N, pl.W, pl.K, pl.chunk, thr, counts + item,
@@ -146,7 +156,7 @@ roots_kernel(const T* __restrict__ logits, long long sb, long long sy, long long
 template <int CM, class T>
 __global__ void __launch_bounds__(256, 4)
 pass_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx, long long sc,
-            const int* __restrict__ labels, const int* __restrict__ counts,
+            geometry::Phase ph, const int* __restrict__ labels, const int* __restrict__ counts,
             const int* __restrict__ lists, int* __restrict__ rootvals, int* __restrict__ nroots,
             int* __restrict__ slots, int* __restrict__ minx, int* __restrict__ maxx,
             float* __restrict__ tpart, int* __restrict__ tcnt, int* __restrict__ ext,
@@ -156,7 +166,7 @@ pass_kernel(const T* __restrict__ logits, long long sb, long long sy, long long 
   const long long N = static_cast<long long>(pl.H) * pl.W;
   const long long band = b * pl.bands + blockIdx.x;
   const int K = pl.K;
-  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, pl.C};
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, pl.C, ph};
   const geometry::GlobalLabels lab{labels + b * N};
   tiled::slots_pass<CM>(lg, lab, counts + b * pl.nchunks, lists + b * pl.nchunks * K,
                         rootvals + b * K, nroots + b, slots + b * N, minx + b * K * pl.H,
@@ -177,16 +187,17 @@ finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcnt,
                       pl.bands, scratch);
 }
 
-// logits (B, H, W, C) at element strides (sb, sy, sx, sc), labels
-// (B, H, W) -> rootvals (B, K), slots (B, H, W), minx/maxx (B, K, H),
-// nroots (B,), all int32; areas, det_sums (B, K) and cls_sums
-// (B, K, max(C-1, 1)) f32.  ``threads`` is 32 x the stats partial sets
-// of a block.
+// logits (B, H, W, C) at element strides (sb, sy, sx, sc) and phase
+// ``ph`` (geometry.cuh Phase), labels (B, H, W) -> rootvals (B, K), slots
+// (B, H, W), minx/maxx (B, K, H), nroots (B,), all int32; areas, det_sums
+// (B, K) and cls_sums (B, K, max(C-1, 1)) f32.  ``threads`` is 32 x the
+// stats partial sets of a block.
 template <class T>
 int slots_cluster(const void* logits, long long sb, long long sy, long long sx, long long sc,
-                  int C, const void* labels, void* rootvals, void* slots, void* minx, void* maxx,
-                  void* nroots, void* areas, void* det_sums, void* cls_sums, int B, int H, int W,
-                  int K, int threads, float thr, void* stream) {
+                  geometry::Phase ph, int C, const void* labels, void* rootvals, void* slots,
+                  void* minx, void* maxx, void* nroots, void* areas, void* det_sums,
+                  void* cls_sums, int B, int H, int W, int K, int threads, float thr,
+                  void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads <= 0 ||
       threads > kThreads || threads % 32 != 0)
     return cudaErrorInvalidValue;
@@ -200,7 +211,7 @@ int slots_cluster(const void* logits, long long sb, long long sy, long long sx, 
     if (e != cudaSuccess) return static_cast<int>(e);
     slots_kernel<CM, T><<<geometry::kSlotCtas * B, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(logits), sb, sy, sx, sc, C,
+        static_cast<const T*>(logits), sb, sy, sx, sc, ph, C,
         static_cast<const int*>(labels), static_cast<int*>(rootvals),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
         static_cast<int*>(nroots), static_cast<float*>(areas),
@@ -218,8 +229,8 @@ int slots_cluster(const void* logits, long long sb, long long sy, long long sx, 
 // bands * 2 * K * tile_rows ints.
 template <class T>
 int slots_tiled(const void* logits, long long sb, long long sy, long long sx, long long sc,
-                const void* labels, void* rootvals, void* slots, void* minx, void* maxx,
-                void* nroots, void* areas, void* det_sums, void* cls_sums, void* counts,
+                geometry::Phase ph, const void* labels, void* rootvals, void* slots, void* minx,
+                void* maxx, void* nroots, void* areas, void* det_sums, void* cls_sums, void* counts,
                 void* lists, void* tpart, void* tcnt, void* ext, const int* plan, int nplan,
                 float thr, void* stream) {
   tiled::Plan pl;
@@ -231,8 +242,8 @@ int slots_tiled(const void* logits, long long sb, long long sy, long long sx, lo
   auto* li = static_cast<int*>(lists);
   auto* tp = static_cast<float*>(tpart);
   auto* tc = static_cast<int*>(tcnt);
-  roots_kernel<T><<<dim3(pl.nchunks, pl.B), tiled::kRootsThreads, 0, s>>>(lg, sb, sy, sx, lab, cn,
-                                                                         li, pl, thr);
+  roots_kernel<T><<<dim3(pl.nchunks, pl.B), tiled::kRootsThreads, 0, s>>>(lg, sb, sy, sx, ph, lab,
+                                                                         cn, li, pl, thr);
   int e = launch_status();
   if (e != 0) return e;
   const size_t smem = tiled::pass_smem(pl);
@@ -242,7 +253,8 @@ int slots_tiled(const void* logits, long long sb, long long sy, long long sx, lo
         pass_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (a != cudaSuccess) return static_cast<int>(a);
     pass_kernel<CM, T><<<dim3(pl.bands, pl.B), 32 * pl.pass_warps, smem, s>>>(
-        lg, sb, sy, sx, sc, lab, cn, li, static_cast<int*>(rootvals), static_cast<int*>(nroots),
+        lg, sb, sy, sx, sc, ph, lab, cn, li, static_cast<int*>(rootvals),
+        static_cast<int*>(nroots),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx), tp, tc,
         static_cast<int*>(ext), pl, thr);
     return launch_status();
@@ -263,9 +275,9 @@ extern "C" int component_slots(const void* logits, long long sb, long long sy, l
                                void* slots, void* minx, void* maxx, void* nroots, void* areas,
                                void* det_sums, void* cls_sums, int B, int H, int W, int K,
                                int threads, float thr, void* stream) {
-  return slots_cluster<float>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx, maxx,
-                              nroots, areas, det_sums, cls_sums, B, H, W, K, threads, thr,
-                              stream);
+  return slots_cluster<float>(logits, sb, sy, sx, sc, geometry::Phase{}, C, labels, rootvals,
+                              slots, minx, maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
+                              threads, thr, stream);
 }
 
 // The same from bf16 logits.
@@ -275,9 +287,36 @@ extern "C" int component_slots_bf16(const void* logits, long long sb, long long 
                                     void* nroots, void* areas, void* det_sums, void* cls_sums,
                                     int B, int H, int W, int K, int threads, float thr,
                                     void* stream) {
-  return slots_cluster<__nv_bfloat16>(logits, sb, sy, sx, sc, C, labels, rootvals, slots, minx,
-                                      maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
-                                      threads, thr, stream);
+  return slots_cluster<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::Phase{}, C, labels,
+                                      rootvals, slots, minx, maxx, nroots, areas, det_sums,
+                                      cls_sums, B, H, W, K, threads, thr, stream);
+}
+
+// The same from phase-major packed logits (the packed route's (B, H/2,
+// W/2, 4C)): (sb, sy, sx) step over images and 2x2 cells, (spy, spx) over
+// a cell's phases, sc over channels (geometry.cuh Phase); H, W are the
+// unpacked map's.
+extern "C" int component_slots_packed(const void* logits, long long sb, long long sy,
+                                      long long sx, long long sc, long long spy, long long spx,
+                                      int C, const void* labels, void* rootvals, void* slots,
+                                      void* minx, void* maxx, void* nroots, void* areas,
+                                      void* det_sums, void* cls_sums, int B, int H, int W, int K,
+                                      int threads, float thr, void* stream) {
+  return slots_cluster<float>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C, labels,
+                              rootvals, slots, minx, maxx, nroots, areas, det_sums, cls_sums, B,
+                              H, W, K, threads, thr, stream);
+}
+
+extern "C" int component_slots_packed_bf16(const void* logits, long long sb, long long sy,
+                                           long long sx, long long sc, long long spy,
+                                           long long spx, int C, const void* labels,
+                                           void* rootvals, void* slots, void* minx, void* maxx,
+                                           void* nroots, void* areas, void* det_sums,
+                                           void* cls_sums, int B, int H, int W, int K,
+                                           int threads, float thr, void* stream) {
+  return slots_cluster<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C,
+                                      labels, rootvals, slots, minx, maxx, nroots, areas,
+                                      det_sums, cls_sums, B, H, W, K, threads, thr, stream);
 }
 
 // The outputs of component_slots for maps of any size, from f32 logits at
@@ -289,9 +328,9 @@ extern "C" int component_slots_tiled(const void* logits, long long sb, long long
                                      void* cls_sums, void* counts, void* lists, void* tpart,
                                      void* tcnt, void* ext, const int* plan, int nplan,
                                      float thr, void* stream) {
-  return slots_tiled<float>(logits, sb, sy, sx, sc, labels, rootvals, slots, minx, maxx, nroots,
-                            areas, det_sums, cls_sums, counts, lists, tpart, tcnt, ext, plan,
-                            nplan, thr, stream);
+  return slots_tiled<float>(logits, sb, sy, sx, sc, geometry::Phase{}, labels, rootvals, slots,
+                            minx, maxx, nroots, areas, det_sums, cls_sums, counts, lists, tpart,
+                            tcnt, ext, plan, nplan, thr, stream);
 }
 
 // The same from bf16 logits.
@@ -302,7 +341,33 @@ extern "C" int component_slots_tiled_bf16(const void* logits, long long sb, long
                                           void* cls_sums, void* counts, void* lists,
                                           void* tpart, void* tcnt, void* ext, const int* plan,
                                           int nplan, float thr, void* stream) {
-  return slots_tiled<__nv_bfloat16>(logits, sb, sy, sx, sc, labels, rootvals, slots, minx, maxx,
-                                    nroots, areas, det_sums, cls_sums, counts, lists, tpart,
-                                    tcnt, ext, plan, nplan, thr, stream);
+  return slots_tiled<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::Phase{}, labels, rootvals,
+                                    slots, minx, maxx, nroots, areas, det_sums, cls_sums, counts,
+                                    lists, tpart, tcnt, ext, plan, nplan, thr, stream);
+}
+
+// The same from phase-major packed logits (component_slots_packed's
+// strides).
+extern "C" int component_slots_tiled_packed(const void* logits, long long sb, long long sy,
+                                            long long sx, long long sc, long long spy,
+                                            long long spx, const void* labels, void* rootvals,
+                                            void* slots, void* minx, void* maxx, void* nroots,
+                                            void* areas, void* det_sums, void* cls_sums,
+                                            void* counts, void* lists, void* tpart, void* tcnt,
+                                            void* ext, const int* plan, int nplan, float thr,
+                                            void* stream) {
+  return slots_tiled<float>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), labels,
+                            rootvals, slots, minx, maxx, nroots, areas, det_sums, cls_sums,
+                            counts, lists, tpart, tcnt, ext, plan, nplan, thr, stream);
+}
+
+extern "C" int component_slots_tiled_packed_bf16(
+    const void* logits, long long sb, long long sy, long long sx, long long sc, long long spy,
+    long long spx, const void* labels, void* rootvals, void* slots, void* minx, void* maxx,
+    void* nroots, void* areas, void* det_sums, void* cls_sums, void* counts, void* lists,
+    void* tpart, void* tcnt, void* ext, const int* plan, int nplan, float thr, void* stream) {
+  return slots_tiled<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx),
+                                    labels, rootvals, slots, minx, maxx, nroots, areas, det_sums,
+                                    cls_sums, counts, lists, tpart, tcnt, ext, plan, nplan, thr,
+                                    stream);
 }

@@ -57,6 +57,7 @@ struct Plan {
   int H0, W0, pt0, pl0, pt1, pl1, l0h, l0w, inh, inw, c0, in_kind, in_row, l0w_magic;
   int acc_wide;  // the 3x3 int8-input layer's Conv3x3::WIDE
   int stride, ks, pad_t, pad_l, f32;  // a layer alone (the calibration's kinds)
+  int packed;  // qconv_head: the logits phase-major (B, Ho/2, Wo/2, 4 nh)
   int a_off[kMaxKWords];  // shared-memory word offset of each K word's A from a pixel's first tap
   int b_src[kMaxKWords];  // HWIO byte index of each K word's first channel at output 0; -1: padding
   int k0_off[16];         // layer 0: input-window byte offset of each K byte (tap)

@@ -144,7 +144,13 @@ __device__ __forceinline__ void issue_halo(uint32_t* buf, const int8_t* x, const
 
 // One run's epilogue with the head: requantize, run the head on the staged
 // int8 run (K = cout channels padded to 32 with zero B words, N = 4 n8
-// tiles) and store its f32 logits, staged and contiguous.
+// tiles) and store its f32 logits, staged and contiguous.  With the plan's
+// ``packed`` the staging is the same and only the store's addressing
+// differs: the logits go phase-major, (B, Ho/2, Wo/2, 4 nh) with channel
+// (2 (y & 1) + (x & 1)) nh + c for pixel (y, x), so the run's pixels 2k and
+// 2k + 1 (a run starts at an even column) are 2 nh contiguous floats of
+// cell (y / 2, x0 / 2 + k) at phase row y & 1, the next pair 4 nh floats
+// further on; the lanes store them 4 bytes each.
 template <int NT, bool WIDE>
 __device__ __forceinline__ void finish_run(const int (&acc)[NT][4], const Plan& p, void* out,
                                            long long pix, int nvalid, uint8_t* stage,
@@ -164,7 +170,7 @@ __device__ __forceinline__ void finish_run(const int (&acc)[NT][4], const Plan& 
 #pragma unroll
   for (int n = 0; n < 4; ++n) mma_k32(hacc[n], a, s_wh[n * 64 + lane], s_wh[n * 64 + 32 + lane]);
   float* dst = static_cast<float*>(out) + pix * nh;
-  const int al = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  const int al = p.packed ? 0 : static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
   uint8_t* st8 = stage + ((16 * cout + 15) & ~15);
   float* st = reinterpret_cast<float*>(st8 + al);
   const float* hws = s_vec + 96;
@@ -182,7 +188,19 @@ __device__ __forceinline__ void finish_run(const int (&acc)[NT][4], const Plan& 
     }
   }
   __syncwarp();
-  warp_store(st8 + al, reinterpret_cast<uint8_t*>(dst), nvalid * nh * 4, lane);
+  if (p.packed) {
+    const long long row = pix / p.Wo;  // b Ho + y, Ho even
+    const int x = static_cast<int>(pix - row * p.Wo);
+    float* cell = static_cast<float*>(out) +
+                  (((row >> 1) * (p.Wo >> 1) + (x >> 1)) * 4 + 2 * (row & 1)) * nh;
+    const int pair = 2 * nh;
+    for (int i = lane; i < nvalid * nh; i += 32) {
+      const int k = i / pair;
+      cell[k * 2 * pair + (i - k * pair)] = st[i];
+    }
+  } else {
+    warp_store(st8 + al, reinterpret_cast<uint8_t*>(dst), nvalid * nh * 4, lane);
+  }
   __syncwarp();
 }
 
@@ -437,7 +455,8 @@ qrequant_kernel(const float4* __restrict__ acc, const float* __restrict__ ws,
 
 // x: int8 (B, H, W, Cin); q: HWIO int8 (3, 3, Cin, Cout); ws, b, s_out: f32
 // (Cout).  With qh (HWIO int8 (1, 1, Cout, O)), wsh, bh (f32 (O)): out is
-// f32 (B, H, W, O) logits; else int8 (B, H, W, Cout).  plan: the ints of
+// f32 (B, H, W, O) logits, or with the plan's ``packed`` the phase-major
+// (B, H/2, W/2, 4 O); else int8 (B, H, W, Cout).  plan: the ints of
 // tile_plan("conv", ...), plan_ints of them.
 extern "C" int qconv_tc(const void* x, const void* q, const void* ws, const void* b,
                         const void* s_out, const void* qh, const void* wsh, const void* bh,
@@ -448,7 +467,8 @@ extern "C" int qconv_tc(const void* x, const void* q, const void* ws, const void
   const int nt = (p.cout + 7) / 8;
   if (p.n_tiles <= 0 || p.cin % 4 != 0 || p.cin <= 0 || p.cin > 32 || p.cout % 4 != 0 ||
       p.cout <= 0 || p.cout > 32 || p.nh < 0 || p.nh > 32 || p.nw != p.cin / 4 || p.tw % 16 != 0 ||
-      (p.nh > 0) != (qh != nullptr) || p.f32 != 0 || p.stride != 1 || p.ks != 3)
+      (p.nh > 0) != (qh != nullptr) || p.f32 != 0 || p.stride != 1 || p.ks != 3 ||
+      (p.packed && (p.nh == 0 || p.Ho % 2 != 0 || p.Wo % 2 != 0)))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (nt) {

@@ -369,7 +369,7 @@ __device__ inline void slots_pass(const geometry::Logits<T>& lg, const Lab& lab,
   }
   const int nvalid = min(total, K);
   const int bg_slot = total < K ? K - 1 : K;
-  const geometry::Plane<T> det{lg.p, lg.sy, lg.sx};
+  const geometry::Plane<T> det{lg.p, lg.sy, lg.sx, lg.ph};
   const int y0 = ty * R;
   const int rows = min(R, H - y0);
   if (warp < nw) {  // warp-uniform

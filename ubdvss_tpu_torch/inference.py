@@ -6,17 +6,30 @@ Counterpart of ``ubdvss_tpu/inference.py``:
     route's ``postprocess`` (exact rects, K3x).  ``BarcodeDetector.detect``
     and ``.heatmap`` go through it, as in the JAX package.
   * ``detect_program_batch`` — a batch: grayscale -> (resize + normalize,
-    or the raw no-resize fold into the stem) -> FCN trunk (whole, or over
-    ``n_strips`` row strips) -> the fused postprocessing (``fused=True``)
-    or the XLA route's ``postprocess_batch`` (``fused=False``).  As in the
-    JAX package, ``fused=None`` resolves by the device: fused on the card,
-    as JAX is fused on its TPU, the XLA route on the CPU.
+    or the raw no-resize fold into the stem) -> FCN trunk (whole, over
+    ``n_strips`` row strips, or the large-scan route below) -> the fused
+    postprocessing (``fused=True``) or the XLA route's
+    ``postprocess_batch`` (``fused=False``).  As in the JAX package,
+    ``fused=None`` resolves by the device: fused on the card, as JAX is
+    fused on its TPU, the XLA route on the CPU.
   * ``detect_preprocessed_batch`` — the same over already-normalized
     (B, H, W, 1) images.
 
 As in the JAX package, heatmaps larger than ``_fused_heatmap_limit`` a
-side take the XLA route (``fused=False``).  The trunk, by
-``NetConfig.dtype``:
+side take the XLA route (``fused=False``).
+
+The large-scan route, the JAX package's gate (``_auto_two_stage``): on
+the fused route of a separable config, with ``n_strips=None``, a scan of
+1024 px or more a side with a feature area of 256² or more runs the
+packed trunk (``ops/strips.packed_fused_trunk_tiled``, image-level tiles
+on axes of 4096 px and more) where ``packed_trunk_selected`` holds, else
+the two-stage tiled trunk (``ops/strips.two_stage_tiled_trunk``), and
+hands its phase-major logits to ``postprocess_batch_fused(packed_phases=
+(2, 2))``; the logits returned are unpacked (``_d2s``) f32.  On the card
+the packed trunk is the direct one with the layout made where the logits
+are written (K4's or ``qconv_head``'s packed store; in bf16 one ``_s2d``
+copy) and read in place by K2 or K12c.  ``n_strips=1`` forces the
+whole-image trunk.  The trunk, by ``NetConfig.dtype``:
 
   * float32: a separable config runs the context kernel's (K4) route at
     every size, on every route; a dense config runs ``BarcodeFCN``;
@@ -36,9 +49,12 @@ kernels: ``qstem``, ``qconv`` for six context layers and ``qconv_head`` —
 and the same postprocessing: ``detect_program_int8`` for one
 image, ``detect_program_batch(qparams=)`` (raw grayscale when no resize is
 needed, else the resized image normalized with one rounding; no heatmap
-limit, as the JAX int8 branch comes before it) and
-``detect_preprocessed_batch(qparams=)`` (whose fused postprocessing serves
-dense configs too, as in JAX).  ``n_strips`` is not read on it, as in JAX.
+limit, as the JAX int8 branch comes before it; on the fused route the
+packed int8 trunk ``int8_packed_trunk_tiled`` where ``_int8_packed`` holds,
+feature areas of 256² and more, as in JAX) and
+``detect_preprocessed_batch(qparams=)`` (the direct trunk; its fused
+postprocessing serves dense configs too, as in JAX).  ``n_strips`` is not
+read on it, as in JAX.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, where every kernel takes its plain version).
@@ -51,9 +67,7 @@ entry's device — the same route, the same kernels, the same launch
 counters — with the weights placed once a distinct device, and the
 results are concatenated on the first entry in shard order.  As in JAX,
 past ``_fused_heatmap_limit`` the int8 route takes the XLA postprocessing
-there too.  The JAX package's packed, two-stage and s2d large-scan
-trunks, and its packed int8 trunks, give the same detections as the
-untiled trunks the port runs (ROADMAP.md §1 item 7).
+there too.  Each shard takes the large-scan route by its own shape.
 """
 
 from __future__ import annotations
@@ -66,7 +80,7 @@ import torch
 
 from ubdvss_tpu_torch.models.model import exact_f32, get_model
 from ubdvss_tpu_torch.net_config import NetConfig
-from ubdvss_tpu_torch.ops.cuda.context_kernel import fused_model_apply
+from ubdvss_tpu_torch.ops.cuda.context_kernel import _d2s, fused_model_apply, packed_trunk_selected
 from ubdvss_tpu_torch.ops.postproc import postprocess, postprocess_batch, postprocess_batch_fused
 from ubdvss_tpu_torch.ops.preproc import (
     normalize,
@@ -74,8 +88,19 @@ from ubdvss_tpu_torch.ops.preproc import (
     resize_bilinear,
     to_grayscale_batch,
 )
-from ubdvss_tpu_torch.ops.quant import int8_trunk_apply, normalize_fma, qparams_to
-from ubdvss_tpu_torch.ops.strips import receptive_field_halo, strip_tiled_logits
+from ubdvss_tpu_torch.ops.quant import (
+    int8_packed_trunk_tiled,
+    int8_trunk_apply,
+    normalize_fma,
+    qparams_to,
+)
+from ubdvss_tpu_torch.ops.strips import (
+    auto_two_stage_grids,
+    packed_fused_trunk_tiled,
+    receptive_field_halo,
+    strip_tiled_logits,
+    two_stage_tiled_trunk,
+)
 from ubdvss_tpu_torch.parallel.mesh import Mesh, replicate_to_mesh, shard_batch_to_mesh
 
 
@@ -138,6 +163,59 @@ def _tiled_trunk(trunk, x: torch.Tensor, cfg: NetConfig, n_strips: int | None) -
     if n_strips is not None and n_strips > 1:
         return strip_tiled_logits(trunk, x, cfg.scale, receptive_field_halo(cfg), n_strips)
     return trunk(x)
+
+
+def _auto_strips(cfg: NetConfig, out_hw, n_strips: int | None) -> int:
+    """The row-strip count of the whole-image trunk (``ops/strips.py``):
+    ``n_strips``, else 1 (large scans take ``_auto_two_stage``'s route
+    instead), as the JAX package's ``_auto_strips``."""
+    return 1 if n_strips is None else n_strips
+
+
+def _auto_two_stage(cfg: NetConfig, out_hw, n_strips: int | None, fused: bool) -> bool:
+    """The JAX package's large-scan gate (``ubdvss_tpu/inference.py:98-117``):
+    the packed or two-stage trunk for the fused route of a separable config
+    when ``n_strips`` is None, a side reaches 1024 px and the feature area
+    256²; an explicit ``n_strips`` forces the whole-image trunk."""
+    return (
+        n_strips is None
+        and fused
+        and cfg.separable_context
+        and max(out_hw) >= 1024
+        and (out_hw[0] // cfg.scale) * (out_hw[1] // cfg.scale) >= 256 * 256
+    )
+
+
+def _int8_packed(cfg: NetConfig, out_hw, fused: bool) -> bool:
+    """The JAX package's packed int8 gate (``ubdvss_tpu/inference.py:304-310``):
+    the fused route, scale 4, sizes divisible by 8, dilations even or 1, a
+    feature area of 256² or more; any architecture."""
+    return fused and (
+        cfg.scale == 4
+        and out_hw[0] % 8 == 0
+        and out_hw[1] % 8 == 0
+        and all(d == 1 or d % 2 == 0 for d in cfg.dilations)
+        and (out_hw[0] // 4) * (out_hw[1] // 4) >= 256 * 256
+    )
+
+
+def _large_scan_trunk(params: dict, x: torch.Tensor, cfg: NetConfig, raw: bool):
+    """The large-scan trunk of (B, H, W) images: ``(logits, packed_phases)``
+    from ``packed_fused_trunk_tiled`` (phase-major, (2, 2)) where
+    ``packed_trunk_selected`` holds, else from ``two_stage_tiled_trunk``
+    (row strips of the stem; packed where the s2d gate fires)."""
+    x4 = x[..., None]
+    if packed_trunk_selected(cfg, tuple(x.shape[1:3])):
+        return packed_fused_trunk_tiled(params, x4, cfg, raw_gray=raw), (2, 2)
+    sg, cg = auto_two_stage_grids(x.shape[1], x.shape[2], cfg.scale, cfg.dilations)
+    return two_stage_tiled_trunk(params, x4, cfg, sg, cg, raw_gray=raw, return_packed=True)
+
+
+def _unpack(logits: torch.Tensor, packed_phases) -> torch.Tensor:
+    """The API's (B, H/4, W/4, O) f32 logits of a trunk's output."""
+    if packed_phases is not None:
+        logits = _d2s(logits, logits.shape[-1] // 4)
+    return logits.to(torch.float32)
 
 
 def _check_mesh(mesh, device, batch: int) -> None:
@@ -247,8 +325,9 @@ def detect_program_batch(
     Heatmaps larger than ``_fused_heatmap_limit`` a side take the XLA
     route, as in the JAX package; ``n_strips > 1`` runs the fused route's
     trunk over that many row strips (``ops/strips.py``), which gives the
-    same logits.  ``qparams`` takes the int8 route (``ops/quant.py``) at
-    any heatmap size.  ``fused=None`` is the fused route on the card and
+    same logits, and ``n_strips=None`` takes the large-scan route (the
+    module docstring) where the JAX package does.  ``qparams`` takes the
+    int8 route (``ops/quant.py``) at any heatmap size.  ``fused=None`` is the fused route on the card and
     the XLA route on the CPU, on every branch, as the JAX package resolves
     it by its backend before the int8 branch.  ``mesh`` serves the batch
     data-parallel (the module docstring); ``device`` must then agree with
@@ -281,8 +360,12 @@ def detect_program_batch(
         x = to_grayscale_batch(x, channel_order, feed)
         if not raw:
             x = normalize(resize_bilinear(x, tuple(out_hw)))
+        if _auto_two_stage(cfg, tuple(out_hw), n_strips, fused):
+            logits, pp = _large_scan_trunk(params, x, cfg, raw)
+            res = postprocess_batch_fused(logits, cfg, packed_phases=pp)
+            return (res, None) if detections_only else (res, _unpack(logits, pp))
         trunk = functools.partial(_trunk, params, cfg=cfg, raw=raw, fused=fused)
-        logits = _tiled_trunk(trunk, x, cfg, n_strips) if fused else trunk(x)
+        logits = _tiled_trunk(trunk, x, cfg, _auto_strips(cfg, out_hw, n_strips)) if fused else trunk(x)
         res = (postprocess_batch_fused if fused else postprocess_batch)(logits, cfg)
     if detections_only:
         return res, None
@@ -296,8 +379,9 @@ def _detect_program_batch_int8(
     """The int8 route of ``detect_program_batch``, after the JAX package's
     ``_detect_program_batch_int8``: the raw grayscale batch when no resize
     is needed (a one-channel uint8 batch goes to the kernel as it is), else
-    the resized image normalized; ``int8_trunk_apply``; the fused or the
-    XLA route's postprocessing."""
+    the resized image normalized; ``int8_trunk_apply``, or
+    ``int8_packed_trunk_tiled`` where ``_int8_packed`` holds; the fused
+    (reading packed logits in place) or the XLA route's postprocessing."""
     with torch.inference_mode(), exact_f32():
         raw = tuple(x.shape[1:3]) == out_hw
         if raw and x.dtype == torch.uint8 and (x.ndim == 3 or x.shape[-1] == 1):
@@ -306,6 +390,10 @@ def _detect_program_batch_int8(
             x = to_grayscale_batch(x, channel_order)
             if not raw:
                 x = normalize_fma(resize_bilinear(x, out_hw))[..., None]
+        if _int8_packed(cfg, out_hw, fused):
+            logits = int8_packed_trunk_tiled(qparams, x, cfg, raw_gray=raw)
+            res = postprocess_batch_fused(logits, cfg, packed_phases=(2, 2))
+            return (res, None) if detections_only else (res, _unpack(logits, (2, 2)))
         logits = int8_trunk_apply(qparams, x, cfg, raw_gray=raw)
         res = (postprocess_batch_fused if fused else postprocess_batch)(logits, cfg)
     return (res, None) if detections_only else (res, logits)
@@ -375,8 +463,11 @@ def detect_preprocessed_batch(
     fused = _fused_route(cfg, hw, fused)
     with torch.inference_mode(), exact_f32():
         x = x.to(torch.float32)[..., 0]
+        if _auto_two_stage(cfg, hw, n_strips, fused):
+            logits, pp = _large_scan_trunk(params, x, cfg, raw=False)
+            return postprocess_batch_fused(logits, cfg, packed_phases=pp), _unpack(logits, pp)
         trunk = functools.partial(_trunk, params, cfg=cfg, raw=False, fused=fused)
-        logits = _tiled_trunk(trunk, x, cfg, n_strips) if fused else trunk(x)
+        logits = _tiled_trunk(trunk, x, cfg, _auto_strips(cfg, hw, n_strips)) if fused else trunk(x)
         post = postprocess_batch_fused if fused and cfg.separable_context else postprocess_batch
         return post(logits, cfg), logits.to(torch.float32)
 

@@ -50,6 +50,16 @@ dtype (``postproc_kernel.py:461-466``); the sigmoid and the counts are not
 rounded.  Each kernel has a bf16 instantiation, counted in its wrapper's
 ``launches_bf16`` (f32 launches in ``launches``).
 
+``packed_phases=(2, 2)`` (the packed route's logits, phase-major
+(B, H/2, W/2, 4C), channel (2 py + px) C + c for pixel (2i + py, 2j + px),
+``ubdvss_tpu/ops/pallas/postproc_kernel.py:381-477``): the kernels read
+them in place at their phase strides (the ``_packed`` C entry points,
+``geometry.cuh`` Phase), counted in each wrapper's ``launches_packed``
+besides its ``launches``/``launches_bf16``; CCL takes a contiguous copy of
+the unpacked detection channel, as the JAX package unpacks it.  The plain
+versions sum the stats in the packed pixel order, as the JAX package's
+``"bhwyx"`` contractions do.
+
 The JAX package stacks G images per CCL program (``_stack_group``) to
 amortise TPU grid overhead; blocks run in parallel here, so there is no
 stacking.
@@ -85,12 +95,43 @@ def _as_nhwc(logits: torch.Tensor) -> torch.Tensor:
     return logits[..., None] if logits.ndim == 3 else logits
 
 
-def _stats_reference(logits: torch.Tensor, slots: torch.Tensor, K: int) -> dict:
+def _check_phases(packed_phases) -> None:
+    if packed_phases is not None and tuple(packed_phases) != (2, 2):
+        raise NotImplementedError(f"packed_phases={packed_phases}: the port reads (2, 2) only, "
+                                  "the packed route's layout")
+
+
+def unpacked_shape(logits: torch.Tensor, packed_phases=None) -> tuple[int, int, int, int]:
+    """(B, H, W, C) of the map ``logits`` hold, phase-major packed
+    (B, H/2, W/2, 4C) with ``packed_phases=(2, 2)``."""
+    _check_phases(packed_phases)
+    B, h, w, c = logits.shape
+    return (B, h, w, c) if packed_phases is None else (B, 2 * h, 2 * w, c // 4)
+
+
+def detection_logits(logits: torch.Tensor, packed_phases=None) -> torch.Tensor:
+    """The (B, H, W) detection channel of (B, H, W, C) logits, or of
+    phase-major packed ones (a copy, unpacked)."""
+    if packed_phases is None:
+        return logits[..., 0]
+    B, H, W, C = unpacked_shape(logits, packed_phases)
+    lg = logits.reshape(B, H // 2, W // 2, 2, 2, C)[..., 0]
+    return lg.permute(0, 1, 3, 2, 4).reshape(B, H, W)
+
+
+def _stats_reference(logits: torch.Tensor, slots: torch.Tensor, K: int,
+                     packed_phases=None) -> dict:
     """Plain per-slot stats: areas, detection-probability sums and
     class-probability sums as one-hot products in f32, as the JAX package
     leaves them to XLA; (B, K, 1) zeros for cls_sums when C = 1.  The class
     softmax is taken in f32 and rounded to the logits' dtype (a no-op for
-    f32 logits) before the f32 sums."""
+    f32 logits) before the f32 sums.  Packed logits are summed in their
+    own pixel order (cell, then phase), the slot map packed to match."""
+    if packed_phases is not None:
+        B, H, W, C = unpacked_shape(logits, packed_phases)
+        logits = logits.reshape(B, H // 2, W // 2 * 4, C)
+        slots = slots.reshape(B, H // 2, 2, W // 2, 2).permute(0, 1, 3, 2, 4)
+        slots = slots.reshape(B, H // 2, W // 2 * 4)
     B, H, W, C = logits.shape
     det = logits[..., 0].to(torch.float32)
     k_ids = torch.arange(K, dtype=torch.int32, device=logits.device).view(1, K, 1)
@@ -108,16 +149,18 @@ def _stats_reference(logits: torch.Tensor, slots: torch.Tensor, K: int) -> dict:
 
 def component_slots_reference(
     logits: torch.Tensor, labels: torch.Tensor, max_components: int,
-    threshold: float = 0.5,
+    threshold: float = 0.5, packed_phases=None,
 ) -> dict:
     """Plain version of the slots kernel: the JAX K-round loop, batched, then
-    the one-hot stats.  ``logits`` is (B, H, W) or (B, H, W, C)."""
+    the one-hot stats.  ``logits`` is (B, H, W) or (B, H, W, C), or
+    phase-major packed with ``packed_phases``."""
     logits = _as_nhwc(logits)
-    B, H, W, _ = logits.shape
+    det = detection_logits(logits, packed_phases)
+    B, H, W = det.shape
     K = max_components
     N = H * W
     dev = logits.device
-    mask = logits[..., 0].to(torch.float32) > threshold_logit(threshold)
+    mask = det.to(torch.float32) > threshold_logit(threshold)
     lab = torch.where(mask, labels.to(torch.int32), N)
     lin = torch.arange(N, dtype=torch.int32, device=dev).view(1, H, W)
     cand = torch.where(mask & (lab == lin), lab, N).view(B, N)
@@ -140,21 +183,28 @@ def component_slots_reference(
         "minx": minx,
         "maxx": maxx,
         "num_components_total": nroots,
-        **_stats_reference(logits, slots, K),
+        **_stats_reference(logits, slots, K, packed_phases),
     }
 
 
-_LOGITS_ARGS = [_build.P] + [_build.L] * 4 + [_build.I]
-_FUNCS = {
-    name + sfx: args
-    for name, args in (
-        ("component_slots",
-         _LOGITS_ARGS + [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.P]),
-        ("component_slots_tiled", [_build.P] + [_build.L] * 4 + [_build.P] * 15
-         + [_build.I, _build.F, _build.P]),
-    )
-    for sfx in LOGIT_DTYPES.values()
-}
+def _entry_points(entries: dict) -> dict:
+    """The C entry points' argtypes: each of ``entries`` (name: (args before
+    the strides, args after them)) for both logit dtypes, with the four
+    strides (logits, sb, sy, sx, sc), and as ``<name>_packed`` with the two
+    phase strides after them."""
+    out = {}
+    for name, (head, tail) in entries.items():
+        for sfx in LOGIT_DTYPES.values():
+            out[name + sfx] = head + [_build.L] * 4 + tail
+            out[name + "_packed" + sfx] = head + [_build.L] * 6 + tail
+    return out
+
+
+_FUNCS = _entry_points({
+    "component_slots": ([_build.P], [_build.I] + [_build.P] * 9 + [_build.I] * 5
+                        + [_build.F, _build.P]),
+    "component_slots_tiled": ([_build.P], [_build.P] * 15 + [_build.I, _build.F, _build.P]),
+})
 _FUNCS["tiled_plan_ints"] = []
 
 
@@ -163,20 +213,37 @@ _FUNCS["tiled_plan_ints"] = []
 MAX_CHANNELS = 33
 
 
-def _check_logits(logits: torch.Tensor) -> None:
+def _check_logits(logits: torch.Tensor, packed_phases=None) -> None:
     """The kernels read the logits at their strides: f32 or bf16, 4 dims,
-    on the card, at most MAX_CHANNELS channels."""
+    on the card, at most MAX_CHANNELS channels a pixel."""
     if logits.device.type != "cuda":
         raise ValueError(f"logits: expected a CUDA tensor, got {logits.device}")
     if logits.dtype not in LOGIT_DTYPES:
         raise TypeError(f"logits: expected torch.float32 or torch.bfloat16, got {logits.dtype}")
     if logits.ndim != 4:
         raise ValueError(f"logits: expected 3 or 4 dims, got shape {tuple(logits.shape)}")
-    if logits.shape[-1] > MAX_CHANNELS:
+    C = unpacked_shape(logits, packed_phases)[3]
+    if C > MAX_CHANNELS:
         raise NotImplementedError(
-            f"{logits.shape[-1]} logit channels: the stats kernels take at most "
+            f"{C} logit channels: the stats kernels take at most "
             f"{MAX_CHANNELS} (ROADMAP.md §2a)"
         )
+
+
+def _strides(logits: torch.Tensor, C: int, packed_phases, name: str) -> tuple[str, tuple]:
+    """The C entry point's name for this dtype and layout, and the logits'
+    element strides it takes: (sb, sy, sx, sc), then for packed logits the
+    phase strides (2 C sc, C sc)."""
+    st = tuple(logits.stride())
+    if packed_phases is not None:
+        name += "_packed"
+        st += (2 * C * st[3], C * st[3])
+    return name + LOGIT_DTYPES[logits.dtype], st
+
+
+def _count(fn, logits: torch.Tensor, packed_phases) -> None:
+    count_launch(fn, logits.dtype)
+    fn.launches_packed += packed_phases is not None
 
 
 # K2's blocks (a cluster) per image (csrc/geometry.cuh, kSlotCtas)
@@ -411,10 +478,11 @@ def _empty_outputs(B: int, H: int, W: int, K: int, C: int, dev) -> dict:
 
 def component_slots(
     logits: torch.Tensor, labels: torch.Tensor, max_components: int,
-    threshold: float = 0.5,
+    threshold: float = 0.5, packed_phases=None,
 ) -> dict:
     """Slots and stats from (B, H, W) detection logits or (B, H, W, C)
-    logits at any strides, and the raw labels (the slots kernel).
+    logits at any strides (phase-major packed with ``packed_phases``), and
+    the raw labels (the slots kernel).
 
     A CPU tensor takes the plain version; a CUDA tensor launches a kernel
     or raises: a cluster of SLOT_CTAS blocks per image (counted here) where
@@ -422,33 +490,35 @@ def component_slots(
     ``component_slots_tiled``.
     """
     if logits.device.type == "cpu":
-        return component_slots_reference(logits, labels, max_components, threshold)
+        return component_slots_reference(logits, labels, max_components, threshold,
+                                         packed_phases)
     logits = _as_nhwc(logits)
-    _check_slots_inputs(logits, labels)
-    B, H, W, C = logits.shape
+    _check_slots_inputs(logits, labels, packed_phases)
+    B, H, W, C = unpacked_shape(logits, packed_phases)
     K = max_components
     if not geometry_compat_fits(H, W, K, C):
-        return component_slots_tiled(logits, labels, K, threshold)
+        return component_slots_tiled(logits, labels, K, threshold, packed_phases)
     nw = stats_warps(H, W, K, C)
     lib = _build.load("postproc_kernel", _FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
+    fn, strides = _strides(logits, C, packed_phases, "component_slots")
     _build.launch(
-        lib, "component_slots" + LOGIT_DTYPES[logits.dtype], logits.device, logits.data_ptr(),
-        *logits.stride(), C, labels.data_ptr(), *(t.data_ptr() for t in out.values()),
-        B, H, W, K, 32 * nw, threshold_logit(threshold),
+        lib, fn, logits.device, logits.data_ptr(), *strides, C, labels.data_ptr(),
+        *(t.data_ptr() for t in out.values()), B, H, W, K, 32 * nw, threshold_logit(threshold),
     )
-    count_launch(component_slots, logits.dtype)
+    _count(component_slots, logits, packed_phases)
     return out
 
 
 component_slots.launches = 0
 component_slots.launches_bf16 = 0
+component_slots.launches_packed = 0
 
 
-def _check_slots_inputs(logits: torch.Tensor, labels: torch.Tensor) -> None:
-    _check_logits(logits)
+def _check_slots_inputs(logits: torch.Tensor, labels: torch.Tensor, packed_phases=None) -> None:
+    _check_logits(logits, packed_phases)
+    B, H, W, _ = unpacked_shape(logits, packed_phases)
     _build.check_input(labels, "labels", torch.int32, 3, logits.device)
-    B, H, W, _ = logits.shape
     if labels.shape != (B, H, W):
         raise ValueError(f"labels {tuple(labels.shape)} != logits {(B, H, W)}")
     if H * W >= 1 << 30 or B > 65535:
@@ -457,7 +527,7 @@ def _check_slots_inputs(logits: torch.Tensor, labels: torch.Tensor) -> None:
 
 def component_slots_tiled(
     logits: torch.Tensor, labels: torch.Tensor, max_components: int,
-    threshold: float = 0.5,
+    threshold: float = 0.5, packed_phases=None,
 ) -> dict:
     """``component_slots`` for maps of any size, at ``tiled_plan``'s
     geometry (three launches): each raster chunk's root count and first K
@@ -472,10 +542,11 @@ def component_slots_tiled(
     or raises.
     """
     if logits.device.type == "cpu":
-        return component_slots_reference(logits, labels, max_components, threshold)
+        return component_slots_reference(logits, labels, max_components, threshold,
+                                         packed_phases)
     logits = _as_nhwc(logits)
-    _check_slots_inputs(logits, labels)
-    B, H, W, C = logits.shape
+    _check_slots_inputs(logits, labels, packed_phases)
+    B, H, W, C = unpacked_shape(logits, packed_phases)
     plan = tiled_plan(B, H, W, max_components, C)
     dev = logits.device
     scratch = tiled_scratch(plan, dev)
@@ -483,55 +554,52 @@ def component_slots_tiled(
     check_plan_length(lib, "postproc_kernel")
     out = _empty_outputs(B, H, W, max_components, C, dev)
     arr = plan.ints
+    fn, strides = _strides(logits, C, packed_phases, "component_slots_tiled")
     _build.launch(
-        lib, "component_slots_tiled" + LOGIT_DTYPES[logits.dtype], dev, logits.data_ptr(),
-        *logits.stride(), labels.data_ptr(), *(t.data_ptr() for t in out.values()),
-        *(t.data_ptr() for t in scratch.values()), arr.ctypes.data, arr.size,
-        threshold_logit(threshold),
+        lib, fn, dev, logits.data_ptr(), *strides, labels.data_ptr(),
+        *(t.data_ptr() for t in out.values()), *(t.data_ptr() for t in scratch.values()),
+        arr.ctypes.data, arr.size, threshold_logit(threshold),
     )
-    count_launch(component_slots_tiled, logits.dtype)
+    _count(component_slots_tiled, logits, packed_phases)
     return out
 
 
 component_slots_tiled.launches = 0
 component_slots_tiled.launches_bf16 = 0
+component_slots_tiled.launches_packed = 0
 
 
 def geometry_compat_reference(
     logits: torch.Tensor, max_components: int, threshold: float = 0.5,
-    connectivity: int = 8,
+    connectivity: int = 8, packed_phases=None,
 ) -> dict:
     """Plain version of K12c: the slots and stats of the CCL labels.  The
     TPU's K12c runs K1's rounds (with the same H+W cap) and then K2's, so
     this is exactly its semantics."""
     logits = _as_nhwc(logits)
-    labels = ccl_labels_reference(logits[..., 0], threshold, connectivity)
-    return component_slots_reference(logits, labels, max_components, threshold)
+    labels = ccl_labels_reference(detection_logits(logits, packed_phases), threshold,
+                                  connectivity)
+    return component_slots_reference(logits, labels, max_components, threshold, packed_phases)
 
 
-_GEO_FUNCS = {
-    **{
-        "geometry_compat" + sfx: _LOGITS_ARGS + [_build.P] * 8 + [_build.I] * 5
-        + [_build.F, _build.I, _build.P]
-        for sfx in LOGIT_DTYPES.values()
-    },
-    "tiled_plan_ints": [],
-    **{
-        "geometry_compat_large" + sfx: [_build.P] + [_build.L] * 4 + [_build.P] * 15
-        + [_build.I, _build.F, _build.I, _build.P]
-        for sfx in LOGIT_DTYPES.values()
-    },
-}
+_GEO_FUNCS = _entry_points({
+    "geometry_compat": ([_build.P], [_build.I] + [_build.P] * 8 + [_build.I] * 5
+                        + [_build.F, _build.I, _build.P]),
+    "geometry_compat_large": ([_build.P], [_build.P] * 15
+                              + [_build.I, _build.F, _build.I, _build.P]),
+})
+_GEO_FUNCS["tiled_plan_ints"] = []
 
 
 def geometry_compat(
     logits: torch.Tensor, max_components: int, threshold: float = 0.5,
-    connectivity: int = 8,
+    connectivity: int = 8, packed_phases=None,
 ) -> dict:
-    """(B, H, W) detection logits or (B, H, W, C) logits at any strides ->
-    the slots and stats outputs, CCL and slots fused in one kernel (K12c, a
-    cluster of SLOT_CTAS blocks per image, each holding half of the label
-    rows in shared memory; union-find with no round cap, as K1).  Past
+    """(B, H, W) detection logits or (B, H, W, C) logits at any strides
+    (phase-major packed with ``packed_phases``) -> the slots and stats
+    outputs, CCL and slots fused in one kernel (K12c, a cluster of
+    SLOT_CTAS blocks per image, each holding half of the label rows in
+    shared memory; union-find with no round cap, as K1).  Past
     ``geometry_compat_fits`` it is ``geometry_compat_large``'s one launch.
 
     A CPU tensor takes the plain version; a CUDA tensor launches a kernel
@@ -540,32 +608,35 @@ def geometry_compat(
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     if logits.device.type == "cpu":
-        return geometry_compat_reference(logits, max_components, threshold, connectivity)
+        return geometry_compat_reference(logits, max_components, threshold, connectivity,
+                                         packed_phases)
     logits = _as_nhwc(logits)
-    _check_logits(logits)
-    B, H, W, C = logits.shape
+    _check_logits(logits, packed_phases)
+    B, H, W, C = unpacked_shape(logits, packed_phases)
     K = max_components
     if not geometry_compat_fits(H, W, K, C):
-        return geometry_compat_large(logits, K, threshold, connectivity)
+        return geometry_compat_large(logits, K, threshold, connectivity, packed_phases)
     nw = stats_warps(H, W, K, C)
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
+    fn, strides = _strides(logits, C, packed_phases, "geometry_compat")
     _build.launch(
-        lib, "geometry_compat" + LOGIT_DTYPES[logits.dtype], logits.device, logits.data_ptr(),
-        *logits.stride(), C, *(t.data_ptr() for t in out.values()),
-        B, H, W, K, 32 * nw, threshold_logit(threshold), connectivity,
+        lib, fn, logits.device, logits.data_ptr(), *strides, C,
+        *(t.data_ptr() for t in out.values()), B, H, W, K, 32 * nw, threshold_logit(threshold),
+        connectivity,
     )
-    count_launch(geometry_compat, logits.dtype)
+    _count(geometry_compat, logits, packed_phases)
     return out
 
 
 geometry_compat.launches = 0
 geometry_compat.launches_bf16 = 0
+geometry_compat.launches_packed = 0
 
 
 def geometry_compat_large(
     logits: torch.Tensor, max_components: int, threshold: float = 0.5,
-    connectivity: int = 8,
+    connectivity: int = 8, packed_phases=None,
 ) -> dict:
     """K12c for maps of any size (H*W < 2^30): the phases of
     ``ccl_labels_tiled`` (tiles, seams, flatten) and
@@ -581,10 +652,11 @@ def geometry_compat_large(
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     if logits.device.type == "cpu":
-        return geometry_compat_reference(logits, max_components, threshold, connectivity)
+        return geometry_compat_reference(logits, max_components, threshold, connectivity,
+                                         packed_phases)
     logits = _as_nhwc(logits)
-    _check_logits(logits)
-    B, H, W, C = logits.shape
+    _check_logits(logits, packed_phases)
+    B, H, W, C = unpacked_shape(logits, packed_phases)
     if H * W >= 1 << 30:
         raise ValueError(f"a {H}x{W} map: the large K12c takes H*W < 2^30")
     plan = tiled_plan(B, H, W, max_components, C)
@@ -595,34 +667,37 @@ def geometry_compat_large(
     check_plan_length(lib, "geometry_kernel")
     out = _empty_outputs(B, H, W, max_components, C, dev)
     arr = plan.ints
+    fn, strides = _strides(logits, C, packed_phases, "geometry_compat_large")
     _build.launch(
-        lib, "geometry_compat_large" + LOGIT_DTYPES[logits.dtype], dev, logits.data_ptr(),
-        *logits.stride(), *(t.data_ptr() for t in out.values()), labels.data_ptr(),
-        *(t.data_ptr() for t in scratch.values()), arr.ctypes.data, arr.size,
-        threshold_logit(threshold), connectivity,
+        lib, fn, dev, logits.data_ptr(), *strides, *(t.data_ptr() for t in out.values()),
+        labels.data_ptr(), *(t.data_ptr() for t in scratch.values()), arr.ctypes.data,
+        arr.size, threshold_logit(threshold), connectivity,
     )
-    count_launch(geometry_compat_large, logits.dtype)
+    _count(geometry_compat_large, logits, packed_phases)
     return out
 
 
 geometry_compat_large.launches = 0
 geometry_compat_large.launches_bf16 = 0
+geometry_compat_large.launches_packed = 0
 
 
 def component_geometry(
     logits: torch.Tensor, max_components: int, threshold: float = 0.5,
-    connectivity: int = 8,
+    connectivity: int = 8, packed_phases=None,
 ) -> dict:
-    """(B, H, W) detection logits or (B, H, W, C) logits -> the eight
-    outputs of the slots kernel: CCL then slots, or K12c when
-    ``UBDVSS_PALLAS_COMPAT`` is ``"1"`` (read at each call).  The logits
-    stay at their dtype: the kernels read f32 or bf16, and CCL takes a
-    (B, H, W) copy of the detection channel."""
+    """(B, H, W) detection logits or (B, H, W, C) logits (phase-major
+    packed with ``packed_phases``) -> the eight outputs of the slots
+    kernel: CCL then slots, or K12c when ``UBDVSS_PALLAS_COMPAT`` is
+    ``"1"`` (read at each call).  The logits stay at their dtype and
+    layout: the kernels read f32 or bf16 at the logits' strides, and CCL
+    takes a (B, H, W) copy of the (unpacked) detection channel."""
     logits = _as_nhwc(logits)
     if os.environ.get("UBDVSS_PALLAS_COMPAT", "") == "1":
-        return geometry_compat(logits, max_components, threshold, connectivity)
-    labels = ccl_labels_from_logits(logits[..., 0].contiguous(), threshold, connectivity)
-    return component_slots(logits, labels, max_components, threshold)
+        return geometry_compat(logits, max_components, threshold, connectivity, packed_phases)
+    det = detection_logits(logits, packed_phases).contiguous()
+    labels = ccl_labels_from_logits(det, threshold, connectivity)
+    return component_slots(logits, labels, max_components, threshold, packed_phases)
 
 
 def component_slots_from_logits(
@@ -639,7 +714,7 @@ def component_slots_from_logits(
 
 def component_stats_from_logits(
     logits: torch.Tensor, max_components: int, threshold: float = 0.5,
-    connectivity: int = 8,
+    connectivity: int = 8, packed_phases=None,
 ) -> dict:
     """(B, H, W, C) NHWC logits -> per-component stats.
 
@@ -648,8 +723,11 @@ def component_stats_from_logits(
     products.  Returns (B, K) rootvals/areas/det_sums, (B, K, n_cls)
     cls_sums (a zero column when detection-only), (B, K, H) minx/maxx, the
     slot map as ``labels`` and ``num_components_total``.
+    ``packed_phases=(py, px)``: the logits are space-to-depth packed,
+    (B, H/py, W/px, py px C) phase-major (the packed route's); only (2, 2)
+    is read.  The slot map and extremes are the unpacked map's.
     """
-    geo = component_geometry(logits, max_components, threshold, connectivity)
+    geo = component_geometry(logits, max_components, threshold, connectivity, packed_phases)
     out = {k: geo[k] for k in ("rootvals", "areas", "det_sums", "cls_sums", "minx", "maxx")}
     out["labels"] = geo["slots"]
     out["num_components_total"] = geo["num_components_total"]

@@ -64,8 +64,11 @@ import functools
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from ubdvss_tpu_torch.models.model import conv2d_same, same_pad
 from ubdvss_tpu_torch.ops.cuda import _build
+from ubdvss_tpu_torch.ops.cuda.context_kernel import _s2d
 
 # the kernels' channel caps: input channels a multiple of 4 up to 32,
 # outputs up to 32 (a multiple of 4 when int8)
@@ -90,16 +93,24 @@ def quantize_input(x: torch.Tensor, raw_gray: bool) -> torch.Tensor:
 
 
 def qconv_acc_reference(x: torch.Tensor, layer: dict, stride: int, dil: int,
-                        raw_gray: bool = False) -> torch.Tensor:
+                        raw_gray: bool = False, padding=None) -> torch.Tensor:
     """Plain version of a layer's accumulator: int8 (B, H, W, Cin) -> the
     exact int32 sums as f32 (B, Ho, Wo, Cout) (|acc| < 2^24 at 32 input
-    channels).  A non-int8 ``x`` is the image of layer 0 and is quantized
-    first (``quantize_input``)."""
+    channels; the packed int8 trunk's 4x channels at most 2^24 too, the
+    extra products being zeros).  A non-int8 ``x`` is the image of layer 0
+    and is quantized first (``quantize_input``).  TF "SAME" padding, or
+    ``padding`` = ((top, bottom), (left, right)) explicit zeros (the
+    packed stem's ((0, 1), (0, 1)), as the JAX package's ``_qconv``)."""
     if x.dtype != torch.int8:
         x = quantize_input(x, raw_gray)
     k = layer["q"].permute(3, 2, 0, 1).to(torch.float64)  # HWIO -> OIHW
+    xd = x.permute(0, 3, 1, 2).to(torch.float64)
     with torch.backends.cudnn.flags(enabled=False):
-        acc = conv2d_same(x.permute(0, 3, 1, 2).to(torch.float64), k, None, stride, dil)
+        if padding is None:
+            acc = conv2d_same(xd, k, None, stride, dil)
+        else:
+            (t, b), (left, r) = padding
+            acc = F.conv2d(F.pad(xd, (left, r, t, b)), k, None, stride, 0, dil)
     return acc.to(torch.float32).permute(0, 2, 3, 1).contiguous()
 
 
@@ -117,12 +128,13 @@ def requantize_reference(acc: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
 
 def qconv_reference(
     x: torch.Tensor, layer: dict, s_out: torch.Tensor | None, stride: int, dil: int,
-    raw_gray: bool = False,
+    raw_gray: bool = False, padding=None,
 ) -> torch.Tensor:
-    """Plain version of one layer: int8 (B, H, W, Cin) -> int8 (B, Ho, Wo,
-    Cout), or f32 logits when ``s_out`` is None.  A non-int8 ``x`` is the
-    image of layer 0 and is quantized first (``quantize_input``)."""
-    acc = qconv_acc_reference(x, layer, stride, dil, raw_gray)
+    """Plain version of one layer, the JAX package's ``_qconv``: int8
+    (B, H, W, Cin) -> int8 (B, Ho, Wo, Cout), or f32 logits when ``s_out``
+    is None.  A non-int8 ``x`` is the image of layer 0 and is quantized
+    first (``quantize_input``); ``padding`` as ``qconv_acc_reference``."""
+    acc = qconv_acc_reference(x, layer, stride, dil, raw_gray, padding)
     return requantize_reference(acc, layer["ws"], layer["b"], s_out).contiguous()
 
 
@@ -131,9 +143,11 @@ def qstem_reference(x, layer0, s1, layer1, s2, raw_gray=False) -> torch.Tensor:
     return qconv_reference(qconv_reference(x, layer0, s1, 2, 1, raw_gray), layer1, s2, 2, 1)
 
 
-def qconv_head_reference(x, layer, s_out, dil, head) -> torch.Tensor:
-    """Plain version of ``qconv_head``: the 3x3 layer, then the 1x1 head."""
-    return qconv_reference(qconv_reference(x, layer, s_out, 1, dil), head, None, 1, 1)
+def qconv_head_reference(x, layer, s_out, dil, head, packed: bool = False) -> torch.Tensor:
+    """Plain version of ``qconv_head``: the 3x3 layer, then the 1x1 head;
+    with ``packed`` the logits' ``_s2d`` (phase-major), contiguous."""
+    out = qconv_reference(qconv_reference(x, layer, s_out, 1, dil), head, None, 1, 1)
+    return _s2d(out).contiguous() if packed else out
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +169,7 @@ PLAN_FIELDS = (
     "smem", "off_w", "off_w0", "off_vec", "off_stage", "stage_bytes", "off_tile", "tile_bytes",
     "off_l0", "off_raw", "raw_bytes", "raw_row", "row_words", "align16",
     "H0", "W0", "pt0", "pl0", "pt1", "pl1", "l0h", "l0w", "inh", "inw", "c0", "in_kind",
-    "in_row", "l0w_magic", "acc_wide", "stride", "ks", "pad_t", "pad_l", "f32",
+    "in_row", "l0w_magic", "acc_wide", "stride", "ks", "pad_t", "pad_l", "f32", "packed",
 )
 IN_U8_RAW, IN_F32_RAW, IN_F32_NORM = 1, 2, 3
 
@@ -276,14 +290,15 @@ class TilePlan:
 @functools.lru_cache(maxsize=256)
 def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: int = 1,
               c0: int = 0, nh: int = 0, in_kind: int = 0, stride: int = 1,
-              ks: int = 3) -> TilePlan:
+              ks: int = 3, packed: bool = False) -> TilePlan:
     """The launch plan of one kernel call (cached: a serving loop asks for
     the same few shapes, and building a plan takes tens of microseconds of
     host time).
 
     ``kind="conv"``: a 3x3 stride-1 int8 layer with dilation ``dil`` on a
     (B, H, W, cin) map to ``cout`` int8 channels, with a 1x1 head to ``nh``
-    f32 logits when ``nh`` > 0.  A dilated layer is split into ``d`` row
+    f32 logits when ``nh`` > 0 (phase-major, ``qconv_head``'s ``packed``,
+    with ``packed``).  A dilated layer is split into ``d`` row
     phases (rows y = phase + d k): within a phase a tap's row offset is one
     phase row, so a tile of ``th`` phase rows reads ``th + 2`` halo rows at
     every dilation.  Columns stay contiguous (``tw`` wide, a multiple of
@@ -323,8 +338,11 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
                             or (dil != 1 and (stride != 1 or ks != 3))
                             or (ks == 1 and stride != 1)):
         raise ValueError(f"layer plan: stride {stride}, kernel {ks}x{ks}, dilation {dil}")
+    if packed and (kind != "conv" or not nh or H % 2 or W % 2):
+        raise ValueError(f"a packed store is the head's, on even maps: {kind}, nh={nh}, {H}x{W}")
     f = dict.fromkeys(PLAN_FIELDS, 0)
-    f.update(B=B, H=H, W=W, cin=cin, cout=cout, nh=nh, in_kind=in_kind, d=dil)
+    f.update(B=B, H=H, W=W, cin=cin, cout=cout, nh=nh, in_kind=in_kind, d=dil,
+             packed=int(packed))
     nt = -(-cout // 8)
     vec = 6 * 32 * 4  # ws, b, s_out and the next three per-channel vectors
     k0_off, k0_src = [0] * 16, [-1] * 16
@@ -559,14 +577,18 @@ qconv.launches = 0
 
 
 def qconv_head(x: torch.Tensor, layer: dict, s_out: torch.Tensor, dil: int,
-               head: dict) -> torch.Tensor:
+               head: dict, packed: bool = False) -> torch.Tensor:
     """The last context layer and the head in one launch: int8 (B, H, W,
     Cin) -> the 3x3 stride-1 layer with dilation ``dil``, requantized by
-    ``s_out`` -> the 1x1 ``head`` -> f32 logits (B, H, W, O).  The
-    requantized tile is the head's A operand in shared memory and never
-    reaches device memory.  A CPU tensor takes ``qconv_head_reference``."""
+    ``s_out`` -> the 1x1 ``head`` -> f32 logits (B, H, W, O), or with
+    ``packed`` (H, W even) the phase-major (B, H/2, W/2, 4 O) that the
+    packed int8 route hands to its postprocessing: the same epilogue, the
+    store's addresses only.  The requantized tile is the head's A operand
+    in shared memory and never reaches device memory.  A CPU tensor takes
+    ``qconv_head_reference``.  ``launches_packed`` counts the packed
+    launches (also counted in ``launches``)."""
     if x.device.type == "cpu":
-        return qconv_head_reference(x, layer, s_out, dil, head)
+        return qconv_head_reference(x, layer, s_out, dil, head, packed)
     dev = x.device
     _build.check_input(x, "x", torch.int8, 4)
     cin, cout = _check_layer(layer, "layer", dev, 3, x.shape[-1])
@@ -574,16 +596,19 @@ def qconv_head(x: torch.Tensor, layer: dict, s_out: torch.Tensor, dil: int,
     _caps(cin, (cout,), (nh,))
     _check_scale(s_out, "s_out", cout, dev)
     B, H, W = x.shape[:3]
-    plan = tile_plan("conv", B, H, W, cin, cout, dil=dil, nh=nh)
-    out = torch.empty((B, H, W, nh), dtype=torch.float32, device=dev)
+    plan = tile_plan("conv", B, H, W, cin, cout, dil=dil, nh=nh, packed=packed)
+    shape = (B, H // 2, W // 2, 4 * nh) if packed else (B, H, W, nh)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     _launch("qconv_kernel", _FUNCS_CONV, "qconv_tc", dev, plan, x.data_ptr(), layer["q"].data_ptr(),
             layer["ws"].data_ptr(), layer["b"].data_ptr(), s_out.data_ptr(), head["q"].data_ptr(),
             head["ws"].data_ptr(), head["b"].data_ptr(), out.data_ptr())
     qconv_head.launches += 1
+    qconv_head.launches_packed += int(packed)
     return out
 
 
 qconv_head.launches = 0
+qconv_head.launches_packed = 0
 
 
 def qstem(x: torch.Tensor, layer0: dict, s1: torch.Tensor, layer1: dict, s2: torch.Tensor,

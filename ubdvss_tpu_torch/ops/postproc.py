@@ -32,7 +32,7 @@ import torch
 
 from ubdvss_tpu_torch.models.model import exact_f32
 from ubdvss_tpu_torch.net_config import NetConfig
-from ubdvss_tpu_torch.ops.cuda.postproc_kernel import component_stats_from_logits
+from ubdvss_tpu_torch.ops.cuda.postproc_kernel import component_stats_from_logits, unpacked_shape
 from ubdvss_tpu_torch.ops.cuda.rect_kernel import (
     min_area_rect_select,
     rects_from_selection,
@@ -112,15 +112,17 @@ def finish_postprocess(logits: torch.Tensor, labels: torch.Tensor, cfg: NetConfi
 
 
 def _postprocess(
-    logits: torch.Tensor, cfg: NetConfig, connectivity: int, max_points: int | None
+    logits: torch.Tensor, cfg: NetConfig, connectivity: int, max_points: int | None,
+    packed_phases=None,
 ) -> dict:
-    """(B, Ho, Wo, C) NHWC logits -> dict of (B, K, ...) detection tensors,
-    the rects fitted with ``max_points`` hull points a chain (None: all)."""
-    B, Ho, Wo, C = logits.shape
+    """(B, Ho, Wo, C) NHWC logits (phase-major packed with
+    ``packed_phases``) -> dict of (B, K, ...) detection tensors, the rects
+    fitted with ``max_points`` hull points a chain (None: all)."""
+    B, Ho, Wo, C = unpacked_shape(logits, packed_phases)
     K = cfg.max_components
     stats = component_stats_from_logits(
         logits, max_components=K, threshold=cfg.detection_threshold,
-        connectivity=connectivity,
+        connectivity=connectivity, packed_phases=packed_phases,
     )
     root_valid = stats["rootvals"] < Ho * Wo  # (B, K)
     # padded root slots matched the background in the slots kernel — zero
@@ -165,7 +167,8 @@ def _postprocess(
 
 
 def postprocess_batch_fused(
-    logits: torch.Tensor, cfg: NetConfig, connectivity: int = 8
+    logits: torch.Tensor, cfg: NetConfig, connectivity: int = 8,
+    packed_phases: tuple[int, int] | None = None,
 ) -> dict:
     """(B, Ho, Wo, C) NHWC logits -> dict of (B, K, ...) detection tensors.
 
@@ -174,8 +177,11 @@ def postprocess_batch_fused(
     The rects take K3 with M = ``cfg.max_hull_points`` < Ho, else K3x.  The
     JAX package serves M >= Ho > 128 by its XLA compact caliper at M = Ho,
     which is exact too, so K3x gives the same rects there.
+    ``packed_phases=(2, 2)``: the logits arrive space-to-depth packed,
+    (B, Ho/2, Wo/2, 4C) phase-major, from the packed route's trunk
+    (``component_stats_from_logits``).
     """
-    return _postprocess(logits, cfg, connectivity, cfg.max_hull_points)
+    return _postprocess(logits, cfg, connectivity, cfg.max_hull_points, packed_phases)
 
 
 def postprocess_batch(logits: torch.Tensor, cfg: NetConfig, connectivity: int = 8) -> dict:

@@ -30,10 +30,18 @@ The qparams keep the JAX pytree's structure as torch tensors:
 "head": {...}, "s_in": [f32 (C,), ...]}``; ``s_in[i]`` are the
 per-channel scales feeding layer i (``s_in[0]`` is the input's, [127.]).
 ``utils.checkpoint.qparams_from_numpy`` carries the JAX package's qparams
-over.  Not ported: the packed int8 trunks (``int8_packed_trunk_apply``,
-``int8_packed_trunk_tiled``), whose int32 accumulators equal the direct
-trunk's bit for bit; the port runs the direct trunk at every size
-(ROADMAP.md §1 item 7).
+over.
+
+The packed int8 trunks (``int8_packed_trunk_apply``,
+``int8_packed_trunk_tiled``: the JAX package's large-scan int8 route,
+``quant.py:332-425``) hand phase-major (B, H/8, W/8, 4 O) logits to
+``postprocess_batch_fused(packed_phases=(2, 2))``.  Their plain version,
+which a CPU tensor takes, is the JAX formulation: the original int8
+kernels placed block-wise into (3, 3, 4C, 4C) kernels (``_packed_layer``)
+on s=2 space-to-depth maps, whose int32 accumulators equal the direct
+trunk's bit for bit.  On the card the direct chain runs instead (no
+96-channel int8 conv, which the kernels' channel caps refuse anyway),
+``qconv_head`` storing its logits phase-major.
 """
 
 from __future__ import annotations
@@ -42,13 +50,22 @@ import numpy as np
 import torch
 
 from ubdvss_tpu_torch.models.model import conv2d_same, exact_f32
+from ubdvss_tpu_torch.ops.cuda.context_kernel import (
+    _d2s,
+    _pack_s2d_kernel,
+    _pack_stride2_kernel,
+    _s2d,
+)
 from ubdvss_tpu_torch.ops.cuda.qconv_kernel import (
     qconv,
     qconv_head,
     qconv_layer_f32,
+    qconv_reference,
     qstem,
+    quantize_input,
     requantize,
 )
+from ubdvss_tpu_torch.ops.strips import packed_trunk_tile_grid, tile_2d_logits
 
 _NORM_SCALE = float(np.float32(1.0 / 127.5))
 
@@ -230,8 +247,10 @@ def quantize_trunk(
     return qp
 
 
-def int8_trunk_apply(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False) -> torch.Tensor:
-    """Quantized FCN forward: images -> f32 logits (B, H/4, W/4, 1+n_cls).
+def int8_trunk_apply(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False,
+                     packed: bool = False) -> torch.Tensor:
+    """Quantized FCN forward: images -> f32 logits (B, H/4, W/4, 1+n_cls),
+    or with ``packed`` phase-major (B, H/8, W/8, 4 (1+n_cls)).
 
     x: normalized (B, H, W, 1) f32 in [-1, 1], or with ``raw_gray`` raw
     [0, 255] grayscale (B, H, W), uint8 or f32 — the normalize folds into
@@ -244,4 +263,77 @@ def int8_trunk_apply(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False
     qx = qstem(x, L[0], s[1], L[1], s[2], raw_gray=raw_gray)
     for li, d in enumerate(cfg.dilations[:-1]):
         qx = qconv(qx, L[2 + li], s[3 + li], d)
-    return qconv_head(qx, L[1 + n], s[2 + n], cfg.dilations[-1], qparams["head"])
+    return qconv_head(qx, L[1 + n], s[2 + n], cfg.dilations[-1], qparams["head"], packed=packed)
+
+
+def _packed_layer(layer: dict, pack_fn, s_out):
+    """One quantized layer's int8 kernel packed by ``pack_fn``
+    (``_pack_stride2_kernel`` or ``_pack_s2d_kernel``), its per-channel
+    vectors tiled 4x for the phase-major output channels: (layer, s_out,
+    packed dilation or None).  The packed kernels hold the original int8
+    values in disjoint blocks and zeros elsewhere, so every packed int32
+    accumulator equals its unpacked one."""
+    packed = pack_fn(layer["q"])
+    kp, dil = packed if isinstance(packed, tuple) else (packed, None)
+    return (
+        dict(q=kp, ws=layer["ws"].repeat(4), b=layer["b"].repeat(4)),
+        None if s_out is None else s_out.repeat(4),
+        dil,
+    )
+
+
+def int8_packed_trunk_reference(qparams: dict, x: torch.Tensor, cfg,
+                                raw_gray: bool = False) -> torch.Tensor:
+    """Plain version of the packed int8 trunk, the JAX package's
+    formulation: the quantized image packed s=2, the two stem layers as
+    stride-2 packed convs with explicit ((0, 1), (0, 1)) padding, the
+    context layers on (3, 3, 4C, 4C) packed kernels, the head
+    block-diagonal over the phases, each through ``qconv_reference`` (the
+    exact int32 accumulator).  -> phase-major (B, H/8, W/8, 4 O) f32."""
+    qx = _s2d(quantize_input(x, raw_gray))  # (B, H/2, W/2, 4) int8
+    s = qparams["s_in"]
+    L = qparams["layers"]
+    pad = ((0, 1), (0, 1))
+    for i in range(2):
+        layer, s_out, _ = _packed_layer(L[i], _pack_stride2_kernel, s[i + 1])
+        qx = qconv_reference(qx, layer, s_out, 2, 1, padding=pad)
+    for li, d in enumerate(cfg.dilations):
+        layer, s_out, dp = _packed_layer(L[2 + li], lambda k, d=d: _pack_s2d_kernel(k, d),
+                                         s[3 + li])
+        qx = qconv_reference(qx, layer, s_out, 1, dp)
+    hq = qparams["head"]["q"]  # (1, 1, C, O) int8
+    C, O = hq.shape[2], hq.shape[3]
+    KH = hq.new_zeros((1, 1, 4 * C, 4 * O))
+    for p in range(4):
+        KH[0, 0, p * C:(p + 1) * C, p * O:(p + 1) * O] = hq[0, 0]
+    head = dict(q=KH, ws=qparams["head"]["ws"].repeat(4), b=qparams["head"]["b"].repeat(4))
+    return qconv_reference(qx, head, None, 1, 1)
+
+
+def int8_packed_trunk_apply(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False,
+                            unpack: bool = False) -> torch.Tensor:
+    """The large-scan int8 trunk: images (as ``int8_trunk_apply``, H and W
+    divisible by 8) -> phase-major logits (B, H/8, W/8, 4 O) for
+    ``postprocess_batch_fused(packed_phases=(2, 2))``, or with ``unpack``
+    their ``_d2s``, (B, H/4, W/4, O).  Bit for bit the direct trunk's
+    logits.  On the card the direct chain, ``qconv_head`` storing
+    phase-major; a CPU tensor takes ``int8_packed_trunk_reference``."""
+    H, W = x.shape[1:3]
+    if H % 8 or W % 8:
+        raise ValueError(f"the packed int8 trunk needs H, W % 8 == 0, got {H}x{W}")
+    if x.device.type == "cpu":
+        out = int8_packed_trunk_reference(qparams, x, cfg, raw_gray)
+    else:
+        out = int8_trunk_apply(qparams, x, cfg, raw_gray=raw_gray, packed=True)
+    return _d2s(out, out.shape[-1] // 4) if unpack else out
+
+
+def int8_packed_trunk_tiled(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False,
+                            grid: tuple[int, int] | None = None) -> torch.Tensor:
+    """``int8_packed_trunk_apply`` tiled at the image level for >=4096 px
+    axes (``strips.packed_trunk_tile_grid``; identity below): bit for bit
+    the untiled trunk's phase-major logits, the tiles' halos covering the
+    receptive field."""
+    halo, auto = packed_trunk_tile_grid(x.shape[1], x.shape[2], cfg)
+    fn = lambda t: int8_packed_trunk_apply(qparams, t, cfg, raw_gray=raw_gray)  # noqa: E731
+    return tile_2d_logits(fn, x, 8, halo, auto if grid is None else grid)

@@ -345,6 +345,31 @@ them.  Phases, each of which raises on failure:
      whole, whole, auto), the JAX package's packed formulation's on cuDNN,
      and a kernel row for each mode beside the same kernel's unpacked
      launch.
+  11. every width the JAX package serves (after phase 10): the wide
+     configuration (48 channels, 40 symbologies: 41 logits; the asset's
+     weights carried into its first 24 channels, the rest drawn from SEED
+     at a small scale) and the narrow one (10 channels, 17 logits;
+     init_params at SEED, the head scaled up), K=16, M=64: K4's instance
+     (the shared-memory "wide" one at 48, the guarded "any" one at 10) on 8
+     images' features within 1e-4 of its plain version, its packed store
+     == _s2d of the unpacked one; B=64 512² detect_program_batch in f32
+     (K4, K1, K2, K3), bf16 (cuDNN, the bf16 K2), int8 after quantize_trunk
+     on 8 of the batch's images (qstem, qconv x6 and qconv_head at the
+     padded width; the calibration's qconv_layer_f32 and requantize), the
+     compat route (K12c) and BarcodeDetector.detect on 2 images (K3x), each
+     launch counted, the first 8 images (2 for detect) against the host
+     CPU: f32 logits within 1e-4 (1e-5 of max|logit| where that is more:
+     the narrow head's logits), bf16 within the bf16 tolerance, int8 bit
+     for bit, detections equal (an image with a detection logit within
+     twice the logits' error of the threshold left out); the stats at the configuration's logit
+     channels (two class passes at 41) against their plain version, K12c
+     equal to K2 bit for bit; the int8 kinds layer by layer on 2 images bit
+     for bit; then, wide only, 2 2048² scans on the packed route: K4's
+     packed store at 41 logits, the tiled K2 and the large K12c reading
+     the phase-major logits, qconv_head's packed store, logits == n_strips=1's
+     bit for bit, scan 0 == the host CPU's; and a kernel row for each
+     instance the asset's widths never reach (ms, device ms, plain,
+     library, bound), beside one timed batch a path.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -1542,6 +1567,548 @@ def packed_route(dev, counted, kernels: list, params_d, params16_d, q_d, cfg_l, 
             f"{r['bound_by']})")
     kernels += rows
     return report
+
+
+# the widths the JAX package serves past the asset's (phase 11): wide, 48
+# channels and 40 symbologies (41 logits); narrow, 10 channels (no compiled
+# context width, no multiple of 4) and the asset's 17 logits
+WIDE_C, WIDE_O, NARROW_C = 48, 41, 10
+N_WIDTH_HOST = 8  # images of a B=64 batch held against the host CPU
+N_WIDTH_SCANS = 2  # 2048² scans of the wide configuration
+
+
+def carry_flat(flat: dict, channels: int, n_out: int, seed: int, scale: float = 0.02) -> dict:
+    """The flat weights of a checkpoint carried into a config of
+    ``channels`` and ``n_out`` head outputs: every array's overlap with the
+    new shape kept, the rest drawn from ``seed`` at ``scale``."""
+    C = flat["downscale_0/bias"].shape[0]
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k in sorted(flat):
+        a = flat[k]
+        shape = list(a.shape)
+        for i in range(a.ndim):
+            if a.shape[i] == C and (a.ndim == 1 or i >= 2):
+                shape[i] = channels
+        if k.startswith("head/"):
+            shape[-1] = n_out
+        new = rng.normal(0, scale, shape).astype(np.float32)
+        ov = tuple(slice(0, min(x, y)) for x, y in zip(a.shape, shape))
+        new[ov] = a[ov]
+        out[k] = new
+    return out
+
+
+def width_configs(asset) -> dict:
+    """name -> (NetConfig, flat weights) of the wide configuration (the
+    asset's 24 channels carried into the first 24 of 48, the 24 new ones
+    and the 24 new class rows drawn from SEED at a small scale) and the
+    narrow one (init_params at SEED, the head scaled by 1000 and the
+    detection bias set to -0.5 so that the detection logits leave the
+    threshold), both at the main path's K and M."""
+    from ubdvss_tpu_torch import NetConfig, load_params_npz
+    from ubdvss_tpu_torch.models.model import init_params
+    from ubdvss_tpu_torch.utils.checkpoint import flat_from_params
+
+    base = NetConfig(max_components=K, max_hull_points=M)
+    wide = base.replace(channels=WIDE_C, class_names=tuple(f"sym{i}" for i in range(WIDE_O - 1)))
+    narrow = base.replace(channels=NARROW_C)
+    p = init_params(narrow, SEED)
+    p["head.weight"] = p["head.weight"] * 1000.0
+    p["head.bias"][0] = -0.5
+    return {"wide": (wide, carry_flat(load_params_npz(asset), WIDE_C, WIDE_O, SEED)),
+            "narrow": (narrow, flat_from_params(p))}
+
+
+def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
+    """Phase 11, every width the JAX package serves: the wide and narrow
+    configurations (width_configs) through the paths, each instance the
+    asset's widths never reach checked against its plain version, and a
+    kernel row for each.  Appends the rows to ``kernels``; returns the
+    report."""
+    import torch
+
+    from ubdvss_tpu_torch import BarcodeDetector, detect_program_batch, params_from_flat
+    from ubdvss_tpu_torch.models.model import exact_f32
+    from ubdvss_tpu_torch.ops.cuda import ccl_kernel
+    from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
+    from ubdvss_tpu_torch.ops.cuda import postproc_kernel as pk
+    from ubdvss_tpu_torch.ops.cuda import qconv_kernel as kq
+    from ubdvss_tpu_torch.ops.quant import qparams_to, quantize_trunk
+
+    F_ = torch.nn.functional
+    tiled, tiled16 = ["ccl_tiled", "slots_tiled"], ["ccl_tiled_bf16", "slots_tiled_bf16"]
+    bf16 = ["ccl_bf16", "slots_bf16", "geometry_compat_bf16", *tiled16]
+    trunk8 = ["qstem", "qconv", "qconv_head"]
+    nh_ = N_WIDTH_HOST
+    imgs_d = torch.from_numpy(imgs).to(dev)
+    calib_d = (imgs_d[:8].float() / 127.5 - 1.0)[..., None]
+    torch.set_num_threads(os.cpu_count() or 1)
+    report, rows = {}, []
+
+    def host(res):
+        return {k: v.cpu().numpy() for k, v in res.items()}
+
+    def library_context(x, w, dil):
+        """The depthwise and 1x1 F.conv2d a layer, then the head (TF32 off)."""
+        C = x.shape[1]
+        for li, d in enumerate(dil):
+            x = F_.conv2d(x, w[0][li, :, :, 0, 0].T.reshape(C, 1, 3, 3), None, 1, d, d, C)
+            x = torch.relu(F_.conv2d(x, w[1][li][:, :, None, None], w[2][li][:, 0, 0]))
+        return F_.conv2d(x, w[3][:, :, None, None], w[4][:, 0, 0])
+
+    def k4_bound(xc, w, dil, O):
+        B_, C, H, W = xc.shape
+        px = B_ * H * W
+        return bound((px * C + px * O) * 4 + sum(t.numel() for t in w) * 4,
+                     px * (len(dil) * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2))
+
+    def stats_bound(lg, geo, Kx, esz, k12=False):
+        B_, H, W, O = lg.shape
+        px = B_ * H * W
+        in_slot = int((geo["slots"] < Kx).sum())
+        ext = B_ * Kx * (2 * H + 1) * 4 + B_ * 4
+        stat = in_slot * (O - 1) * esz + B_ * Kx * (O + 1) * 4
+        if k12:
+            return bound(px * (esz + 4) + ext + stat, px * 13 + in_slot * O * 8)
+        return bound(px * (esz + 8) + ext + stat, px * 4 + in_slot * O * 8)
+
+    for name, (cfg, flat) in width_configs(REPO / "assets" / "pretrained_synthetic.npz").items():
+        params = params_from_flat(flat)
+        params_d = {k: v.to(dev) for k, v in params.items()}
+        dil = tuple(cfg.dilations)
+        C, O = cfg.channels, cfg.n_output_channels
+        r = report[name] = {"channels": C, "outputs": O, "k4_instance": ck.kernel_instance(C, O)}
+        # a. K4's instance on the stem's features of 8 of the batch's images
+        with torch.inference_mode(), exact_f32():
+            xc = ck.stem_apply(params_d, imgs_d.float()[..., None], cfg,
+                               raw_gray=True).permute(0, 3, 1, 2).contiguous()
+            w = ck._pack_weights(params_d, dil)
+            x8 = xc[:8]
+            out = ck.fused_context_head(x8, *w, dil)
+            ref_k4 = ck.context_head_reference(x8, *w, dil)
+            err_k4 = float((out - ref_k4).abs().max())
+            # 1e-4, or 1e-5 of max|logit| where the logits are large (the
+            # narrow configuration's head is scaled by 1000)
+            tol = max(1e-4, 1e-5 * float(ref_k4.abs().max()))
+            if not err_k4 <= tol:
+                raise AssertionError(f"{name}: context kernel max|err| {err_k4} > {tol}")
+            if not torch.equal(ck.fused_context_head(x8, *w, dil, packed=True), ck._s2d_planes(out)):
+                raise AssertionError(f"{name}: K4's packed store differs from its unpacked launch")
+        r["k4_max_abs_err"] = err_k4
+        log(f"check {name} context_layer ({r['k4_instance']} instance): (B,C,H,W)={tuple(x8.shape)}"
+            f" O={O} max|err| {err_k4:.3g} <= {tol:.3g}, packed store == _s2d of the unpacked one")
+
+        # b. the f32 main path, the first images held against the host CPU
+        main = ["context_layer", "ccl", "slots", "rect_compact"]
+        (res_d, lg_d), n_f = counted(
+            lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), device="cuda"),
+            main, ["geometry_compat", "rect_exact", *tiled, *bf16])
+        res, lg = host(res_d), lg_d.cpu().numpy()
+        if not (np.isfinite(lg).all() and lg.shape == (B, IMG // 4, IMG // 4, O)):
+            raise AssertionError(f"{name} main path: logits not finite or of the wrong shape")
+        if int(res["num_detections"].sum()) == 0:
+            raise AssertionError(f"{name} main path: no valid detection")
+        ref, ref_lg = detect_program_batch(params, imgs[:nh_], cfg, (IMG, IMG), fused=True, device="cpu")
+        err_lg = float(np.abs(lg[:nh_] - ref_lg.numpy()).max())
+        if not err_lg <= tol:
+            raise AssertionError(f"{name} main path: logits differ from the plain route by {err_lg}")
+        # an image with a det logit within twice the logits' error of the
+        # threshold is left out: only there may a pixel change sides
+        skip = compare_detections({k: v[:nh_] for k, v in res.items()}, host(ref), lg[:nh_, ..., 0],
+                                  box_atol=4e-4, score_atol=1e-5, margin=max(1e-4, 2 * err_lg))
+        r["f32"] = dict(launches={k: n_f[k] for k in main}, detections=int(res["num_detections"].sum()),
+                        host_images=nh_, logits_max_abs_err=err_lg, left_out=list(skip))
+        log(f"{name} main path: B={B} {IMG}x{IMG} f32 C={C} O={O}, launches {r['f32']['launches']}; "
+            f"{r['f32']['detections']} detections; the first {nh_} images == the host CPU's plain "
+            f"route: logits max|err| {err_lg:.3g}, {skip[0]} images and {skip[1]} near-tie class ids "
+            "left out")
+        # the stats instance (O channels) on the first 8 images' logits, K12c
+        # equal to it bit for bit
+        lg8 = lg_d[:8]
+        lab8 = ccl_kernel.ccl_labels_reference(lg8[..., 0].contiguous())
+        geo_k = pk.component_slots(lg8, lab8, K)
+        err_slots = check_stats(geo_k, pk.component_slots_reference(lg8, lab8, K), f"{name} slots")
+        fused = pk.geometry_compat(lg8, K)
+        if not all(torch.equal(fused[k], geo_k[k]) for k in geo_k):
+            raise AssertionError(f"{name}: geometry_compat differs from slots after CCL")
+        r["slots_max_abs_err"] = err_slots
+        log(f"check {name} slots at {O} channels ({pk.class_chunks(O)} class pass(es)): slot "
+            f"outputs and areas identical, means max|err| {err_slots:.3g} <= 2e-6; "
+            "geometry_compat == slots after CCL bit for bit")
+
+        # c. the compat route: K12c at O channels, detections identical
+        res_c, n_c = counted(
+            lambda: with_compat(lambda: detect_program_batch(
+                params_d, imgs, cfg, (IMG, IMG), detections_only=True, device="cuda")[0]),
+            ["context_layer", "geometry_compat", "rect_compact"],
+            ["ccl", "slots", "rect_exact", *tiled, *bf16])
+        same_detections(res_c, res_d, f"{name} compat route")
+        r["compat_launches"] = {k: n_c[k] for k in ("context_layer", "geometry_compat", "rect_compact")}
+
+        # d. bf16: the dense route on cuDNN, the bf16 stats at O channels
+        params16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        params16_d = {k: v.to(dev) for k, v in params16.items()}
+        cfg16 = cfg.replace(dtype="bfloat16")
+        (res16_d, lg16_d), n16 = counted(
+            lambda: detect_program_batch(params16_d, imgs, cfg16, (IMG, IMG), device="cuda"),
+            ["ccl_bf16", "slots_bf16", "rect_compact"],
+            ["context_layer", "ccl", "slots", "geometry_compat", "geometry_compat_bf16",
+             "rect_exact", *tiled, *tiled16])
+        res16, lg16 = host(res16_d), lg16_d.cpu().numpy()
+        if int(res16["num_detections"].sum()) == 0:
+            raise AssertionError(f"{name} bf16 main path: no valid detection")
+        ref16, ref_lg16 = detect_program_batch(params16, imgs[:nh_], cfg16, (IMG, IMG), fused=True,
+                                               device="cpu")
+        ref_lg16 = ref_lg16.numpy()
+        tol16 = LOGIT_ULPS * 2.0**-8 * float(np.abs(ref_lg16).max())
+        if not float(np.abs(lg16[:nh_] - ref_lg16).max()) <= tol16:
+            raise AssertionError(f"{name} bf16: logits past {LOGIT_ULPS} bf16 ulps of the host CPU's")
+        cmp16 = compare_bf16_detections({k: v[:nh_] for k, v in res16.items()}, host(ref16),
+                                        lg16[:nh_, ..., 0], ref_lg16[..., 0], tol16, f"{name} bf16")
+        lgb = ck.fused_model_apply(params16_d, imgs_d[:8].to(torch.bfloat16)[..., None], cfg16,
+                                   raw_gray=True, act_out=True)
+        lab16 = ccl_kernel.ccl_labels_reference(lgb[..., 0].contiguous())
+        geo16 = pk.component_slots(lgb, lab16, K)
+        err_slots16 = check_stats(geo16, pk.component_slots_reference(lgb, lab16, K),
+                                  f"{name} slots bf16", logits=lgb)
+        r["bf16"] = dict(launches={k: n16[k] for k in ("ccl_bf16", "slots_bf16", "rect_compact")},
+                         detections=int(res16["num_detections"].sum()), host=cmp16,
+                         slots_max_abs_err=err_slots16)
+        log(f"{name} bf16 main path: launches {r['bf16']['launches']}, == the bf16 route on the "
+            f"host CPU for the first {nh_} images: {cmp16}; bf16 slots at {O} channels within the "
+            f"bf16 bounds ({err_slots16:.3g})")
+
+        # e. int8: calibration on the card, the trunk's instances against
+        # their plain versions on two images, the main path against the host
+        q_d, n_cal = counted(lambda: quantize_trunk(params_d, cfg, calib_d),
+                             ["qconv_layer", "qrequant"], [*trunk8, "context_layer"])
+        shapes = [tuple(L["q"].shape) for L in q_d["layers"]] + [tuple(q_d["head"]["q"].shape)]
+        want = [(3, 3, 1, C), (3, 3, C, C)] + [(3, 3, C, C)] * len(dil) + [(1, 1, C, O)]
+        if shapes != want:
+            raise AssertionError(f"{name}: qparams {shapes}, expected the JAX package's {want}")
+        q_h = qparams_to(q_d, "cpu")
+        L8, s8 = q_d["layers"], q_d["s_in"]
+        x2 = imgs_d[:2]
+        qx = kq.qstem(x2, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
+        if not torch.equal(qx.cpu(), kq.qstem_reference(x2.cpu(), q_h["layers"][0], q_h["s_in"][1],
+                                                        q_h["layers"][1], q_h["s_in"][2], True)):
+            raise AssertionError(f"{name}: qstem differs from its plain version")
+        for li, d in enumerate(dil[:-1]):
+            nxt = kq.qconv(qx, L8[2 + li], s8[3 + li], d)
+            if not torch.equal(nxt.cpu(), kq.qconv_reference(qx.cpu(), q_h["layers"][2 + li],
+                                                             q_h["s_in"][3 + li], 1, d)):
+                raise AssertionError(f"{name}: qconv layer {li} differs from its plain version")
+            qx = nxt
+        n_ = len(dil)
+        head_args = (qx, L8[1 + n_], s8[2 + n_], dil[-1], q_d["head"])
+        for packed in (False, True):
+            if not torch.equal(kq.qconv_head(*head_args, packed=packed).cpu(),
+                               kq.qconv_head_reference(*(_cpu(a) for a in head_args), packed=packed)):
+                raise AssertionError(f"{name}: qconv_head (packed={packed}) differs from its plain version")
+        y_k, acc_k = kq.qconv_layer_f32(qx, L8[1 + n_], 1, dil[-1])
+        y_p, acc_p = kq.qconv_layer_f32(qx.cpu(), q_h["layers"][1 + n_], 1, dil[-1])
+        if not (torch.equal(y_k.cpu(), y_p) and torch.equal(acc_k.cpu(), acc_p)):
+            raise AssertionError(f"{name}: qconv_layer_f32 differs from its plain version")
+        rq = kq.requantize(acc_k, L8[1 + n_]["ws"], L8[1 + n_]["b"], s8[2 + n_])
+        if not torch.equal(rq.cpu(), kq.requantize_reference(acc_p, q_h["layers"][1 + n_]["ws"],
+                                                             q_h["layers"][1 + n_]["b"], q_h["s_in"][2 + n_])):
+            raise AssertionError(f"{name}: requantize differs from its plain version")
+        (res8_d, lg8_d), n8 = counted(
+            lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), qparams=q_d, device="cuda"),
+            [*trunk8, "ccl", "slots", "rect_compact"],
+            ["context_layer", "geometry_compat", "rect_exact", "qconv_layer", "qrequant", *tiled, *bf16])
+        if [n8[k] for k in trunk8] != [1, len(dil) - 1, 1]:
+            raise AssertionError(f"{name} int8: trunk launches {[n8[k] for k in trunk8]}")
+        res8, lg8_ = host(res8_d), lg8_d.cpu().numpy()
+        if int(res8["num_detections"].sum()) == 0:
+            raise AssertionError(f"{name} int8 main path: no valid detection")
+        ref8, ref_lg8 = detect_program_batch(params, imgs[:nh_], cfg, (IMG, IMG), qparams=q_h,
+                                             fused=True, device="cpu")
+        if not np.array_equal(lg8_[:nh_], ref_lg8.numpy()):
+            raise AssertionError(f"{name} int8: logits differ from the host CPU's")
+        skip8 = compare_detections({k: v[:nh_] for k, v in res8.items()}, host(ref8),
+                                   lg8_[:nh_, ..., 0], box_atol=4e-4, score_atol=1e-5, margin=0.0)
+        r["int8"] = dict(calibration_launches={k: n_cal[k] for k in ("qconv_layer", "qrequant")},
+                         launches={k: n8[k] for k in trunk8}, detections=int(res8["num_detections"].sum()),
+                         near_tie_classes=skip8[1], padded_width=-(-C // 4) * 4)
+        log(f"{name} int8: calibration launches {r['int8']['calibration_launches']}, qparams in the "
+            f"JAX package's shapes; qstem, qconv, qconv_head (and packed), qconv_layer_f32 and "
+            f"requantize == their plain versions bit for bit; main path launches "
+            f"{r['int8']['launches']} at width {r['int8']['padded_width']}, the first {nh_} images' "
+            "logits == the host CPU's bit for bit, detections identical")
+
+        # f. BarcodeDetector.detect: K3x, against the host CPU
+        det_d = BarcodeDetector(cfg, params, device="cuda")
+        det_h = BarcodeDetector(cfg, params, device="cpu")
+        n_dets = 0
+        for i in range(2):
+            dets, n_det = counted(lambda: det_d.detect(imgs[i]),
+                                  ["context_layer", "ccl", "slots", "rect_exact"],
+                                  ["rect_compact", "geometry_compat", *tiled, *bf16])
+            ref_d = det_h.detect(imgs[i])
+            if len(dets) != len(ref_d):
+                raise AssertionError(f"{name} detect: {len(dets)} detections, the host CPU {len(ref_d)}")
+            for o, rr in zip(dets, ref_d):
+                if (o.class_id, o.area) != (rr.class_id, rr.area) or abs(o.score - rr.score) > 1e-5:
+                    raise AssertionError(f"{name} detect: a detection differs from the host CPU's")
+                if not same_corner_sets(o.box, rr.box, 4e-4):
+                    raise AssertionError(f"{name} detect: a box differs from the host CPU's")
+            n_dets += len(dets)
+        r["detect"] = dict(detections=n_dets, launches_of_one_call=n_det["rect_exact"])
+        log(f"{name} BarcodeDetector.detect: 2 images, {n_dets} detections == the host CPU's")
+
+        # g. the kernel rows of the instances the asset's widths never reach
+        tag = "wide" if name == "wide" else "any"
+        k4 = lambda: ck.fused_context_head(xc, *w, dil)  # noqa: E731
+        with exact_f32():
+            err_lib = float((library_context(x8, w, dil) - ck.context_head_reference(x8, *w, dil))
+                            .abs().max())
+            if not err_lib <= tol:
+                raise AssertionError(f"{name}: the library context differs by {err_lib}")
+            rows.append(dict(
+                name=f"context_layer_{tag}", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/context_kernel.py:39",
+                launches=n_f["context_layer"], max_abs_err=err_k4, channels=C, outputs=O,
+                ms=time_ms(k4, iters=5, reps=2), device_ms=device_ms(k4, n=5),
+                plain_ms=time_ms(lambda: ck.context_head_reference(xc, *w, dil), iters=2, reps=1, warmup=1),
+                library_ms=time_ms(lambda: library_context(xc, w, dil), iters=5, reps=2),
+                bound=k4_bound(xc, w, dil, O)))
+        if name != "wide":
+            r["times"] = {"f32_ms": time_ms(lambda: detect_program_batch(
+                params_d, imgs_d, cfg, (IMG, IMG), detections_only=True), iters=3, reps=2),
+                "int8_ms": time_ms(lambda: detect_program_batch(
+                    params_d, imgs_d, cfg, (IMG, IMG), qparams=q_d, detections_only=True), iters=3, reps=2)}
+            continue
+        lab_w = ccl_kernel.ccl_labels_from_logits(lg_d[..., 0].contiguous())
+        geo_w = pk.component_slots(lg_d, lab_w, K)
+        lab_w16 = ccl_kernel.ccl_labels_from_logits(lg16_d[..., 0].contiguous())
+        lg16_w = ck.fused_model_apply(params16_d, imgs_d.to(torch.bfloat16)[..., None], cfg16,
+                                      raw_gray=True, act_out=True)
+        lab_w16 = ccl_kernel.ccl_labels_from_logits(lg16_w[..., 0].contiguous())
+        geo_w16 = pk.component_slots(lg16_w, lab_w16, K)
+        for rname, lgx, labx, geox, err_, esz, n_ in (
+                ("slots_chunked", lg_d, lab_w, geo_w, err_slots, 4, n_f["slots"]),
+                ("slots_chunked_bf16", lg16_w, lab_w16, geo_w16, err_slots16, 2, n16["slots_bf16"])):
+            rows.append(dict(
+                name=rname, route="cuda", source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130", launches=n_,
+                max_abs_err=err_, channels=O,
+                ms=time_ms(lambda: pk.component_slots(lgx, labx, K), iters=5, reps=4),
+                device_ms=device_ms(lambda: pk.component_slots(lgx, labx, K), n=5),
+                plain_ms=time_ms(lambda: pk.component_slots_reference(lgx, labx, K), iters=2, reps=1),
+                library_ms=time_ms(lambda: pk._stats_reference(lgx, geox["slots"], K), iters=3, reps=2),
+                bound=stats_bound(lgx, geox, K, esz)))
+        rows.append(dict(
+            name="geometry_compat_chunked", route="cuda", source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
+            replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50", launches=n_c["geometry_compat"],
+            max_abs_err=err_slots, channels=O,
+            ms=time_ms(lambda: pk.geometry_compat(lg_d, K), iters=5, reps=4),
+            device_ms=device_ms(lambda: pk.geometry_compat(lg_d, K), n=5),
+            plain_ms=time_ms(lambda: pk.geometry_compat_reference(lg_d, K), iters=2, reps=1),
+            library_ms=None, bound=stats_bound(lg_d, geo_w, K, 4, k12=True)))
+        # the int8 trunk's any-width instances at the main path's shapes: one
+        # row a kind, its launches' times summed; the library yardstick one
+        # f32 F.conv2d a layer on the int8 values (TF32 off)
+        ins, qx = [], kq.qstem(imgs_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
+        for li, d in enumerate(dil[:-1]):
+            ins.append((qx, L8[2 + li], s8[3 + li], d))
+            qx = kq.qconv(*ins[-1])
+        head_full = (qx, L8[1 + n_], s8[2 + n_], dil[-1], q_d["head"])
+        px = B * (IMG // 4) ** 2
+        Ci = -(-C // 4) * 4
+
+        def conv_lib(x, q, st, d):
+            xf = (x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)).float().contiguous()
+            wf = q.permute(3, 2, 0, 1).float().contiguous()
+            pad = d if q.shape[0] == 3 else 0
+            return lambda: F_.conv2d(xf, wf, None, st, pad, d)
+
+        kinds8 = {
+            "qstem_any": ("qstem_kernel.cu", "ubdvss_tpu/ops/quant.py:315", n8["qstem"],
+                          [lambda: kq.qstem(imgs_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)],
+                          [lambda: kq.qstem_reference(imgs_d, L8[0], s8[1], L8[1], s8[2], True)],
+                          [conv_lib(imgs_d.float(), L8[0]["q"], 2, 1),
+                           conv_lib(torch.zeros(B, IMG // 2, IMG // 2, C, device=dev), L8[1]["q"], 2, 1)],
+                          B * IMG * IMG + px * Ci, 2 * (B * (IMG // 2) ** 2 * C * 9 + px * C * C * 9)),
+            "qconv_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276", n8["qconv"],
+                          [lambda a=a: kq.qconv(*a) for a in ins],
+                          [lambda a=a: kq.qconv_reference(a[0], a[1], a[2], 1, a[3]) for a in ins],
+                          [conv_lib(a[0], a[1]["q"], 1, a[3]) for a in ins],
+                          len(ins) * 2 * px * Ci, len(ins) * 2 * px * C * C * 9),
+            "qconv_head_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276", n8["qconv_head"],
+                               [lambda: kq.qconv_head(*head_full)],
+                               [lambda: kq.qconv_head_reference(*head_full)],
+                               [conv_lib(qx, L8[1 + n_]["q"], 1, dil[-1]),
+                                conv_lib(qx, q_d["head"]["q"], 1, 1)],
+                               px * Ci + px * O * 4, 2 * px * (C * C * 9 + C * O)),
+        }
+        for rname, (src, repl, n_, calls, plains, libs, nbytes, ops) in kinds8.items():
+            run = lambda calls=calls: [c() for c in calls]  # noqa: E731
+            with exact_f32():
+                lib_ms = time_ms(lambda libs=libs: [c() for c in libs], iters=3, reps=2)
+            rows.append(dict(
+                name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
+                launches=n_, max_abs_err=0.0, channels=C, outputs=O,
+                ms=time_ms(run, iters=5, reps=2), device_ms=device_ms(run, n=5),
+                plain_ms=time_ms(lambda plains=plains: [c() for c in plains], iters=1, reps=1, warmup=0),
+                library_ms=lib_ms, bound=bound(nbytes, ops, INT8_OPS)))
+        # the calibration's any-width kinds, one call each at the main path's
+        # shapes: a context layer's f32 epilogue, then its requantization
+        xa, La, sa, da = ins[1]
+        y_a, acc_a = kq.qconv_layer_f32(xa, La, 1, da)
+        for rname, src, call, plain, nbytes, ops, lib in (
+                ("qconv_layer_any", "qconv_kernel.cu", lambda: kq.qconv_layer_f32(xa, La, 1, da),
+                 lambda: (kq.qconv_reference(xa, La, None, 1, da), kq.qconv_acc_reference(xa, La, 1, da)),
+                 xa.numel() + px * C * 8, 2 * px * C * C * 9, conv_lib(xa, La["q"], 1, da)),
+                ("qrequant_any", "qconv_kernel.cu", lambda: kq.requantize(acc_a, La["ws"], La["b"], sa),
+                 lambda: kq.requantize_reference(acc_a, La["ws"], La["b"], sa), px * C * 5, 0, None)):
+            if lib is not None:
+                with exact_f32():
+                    lib_ms = time_ms(lib, iters=3, reps=2)
+            rows.append(dict(
+                name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}",
+                replaces="ubdvss_tpu/ops/quant.py:276" if rname == "qconv_layer_any" else "ubdvss_tpu/ops/quant.py:192",
+                launches=n_cal["qconv_layer" if rname == "qconv_layer_any" else "qrequant"],
+                max_abs_err=0.0, channels=C,
+                ms=time_ms(call, iters=5, reps=2), device_ms=device_ms(call, n=5),
+                plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
+                library_ms=lib_ms if lib is not None else None,
+                bound=bound(nbytes, ops, INT8_OPS)))
+        r["times"] = {"f32_ms": time_ms(lambda: detect_program_batch(
+            params_d, imgs_d, cfg, (IMG, IMG), detections_only=True), iters=3, reps=2),
+            "bf16_ms": time_ms(lambda: detect_program_batch(
+                params16_d, imgs_d, cfg16, (IMG, IMG), detections_only=True), iters=3, reps=2),
+            "int8_ms": time_ms(lambda: detect_program_batch(
+                params_d, imgs_d, cfg, (IMG, IMG), qparams=q_d, detections_only=True), iters=3, reps=2)}
+
+        # h. the wide configuration's 2048² scans on the packed route: K4's
+        # packed store at O channels, the tiled K2 and the large K12c
+        # reading the phase-major logits, qconv_head's packed store
+        sc = scans[:N_WIDTH_SCANS]
+        sc_d = torch.from_numpy(sc).to(dev)
+        (res_p, lg_p), n_p = counted(
+            lambda: detect_program_batch(params_d, sc, cfg, (SCAN, SCAN), device="cuda"),
+            ["context_layer", "context_layer_packed", "ccl_tiled", "slots_tiled", "slots_tiled_packed",
+             "rect_compact"], ["ccl", "slots", "geometry_compat", "rect_exact", *bf16])
+        (res_w, lg_w), _ = counted(
+            lambda: detect_program_batch(params_d, sc, cfg, (SCAN, SCAN), n_strips=1, device="cuda"),
+            ["context_layer", "ccl_tiled", "slots_tiled", "rect_compact"], ["context_layer_packed"])
+        if not torch.equal(lg_p, lg_w):
+            raise AssertionError("wide 2048²: the packed route's logits differ from n_strips=1's")
+        same_detections(res_p, res_w, "wide 2048² packed route")
+        ref_p, ref_lgp = detect_program_batch(params, sc[:1], cfg, (SCAN, SCAN), device="cpu")
+        err_p = float((lg_p[:1].cpu() - ref_lgp).abs().max())
+        if not err_p <= 1e-4:
+            raise AssertionError(f"wide 2048²: logits differ from the host CPU's by {err_p}")
+        compare_detections({k: v[:1] for k, v in host(res_p).items()}, host(ref_p),
+                           lg_p[:1, ..., 0].cpu().numpy(), box_atol=1e-3, score_atol=1e-5,
+                           margin=max(1e-4, 2 * err_p))
+        res_pc, n_pc = counted(
+            lambda: with_compat(lambda: detect_program_batch(
+                params_d, sc, cfg, (SCAN, SCAN), detections_only=True, device="cuda")[0]),
+            ["context_layer_packed", "geometry_compat_large", "geometry_compat_large_packed"],
+            ["ccl_tiled", "slots_tiled", "ccl", "slots"])
+        same_detections(res_pc, res_p, "wide 2048² compat route")
+        (res_p8, lg_p8), n_p8 = counted(
+            lambda: detect_program_batch(params_d, sc, cfg, (SCAN, SCAN), qparams=q_d, device="cuda"),
+            [*trunk8, "qconv_head_packed", "ccl_tiled", "slots_tiled", "slots_tiled_packed"],
+            ["context_layer", "ccl", "slots"])
+        ref_p8, ref_lgp8 = detect_program_batch(params, sc[:1], cfg, (SCAN, SCAN), qparams=q_h,
+                                                device="cpu")
+        if not torch.equal(lg_p8[:1].cpu(), ref_lgp8):
+            raise AssertionError("wide 2048² int8: logits differ from the host CPU's")
+        compare_detections({k: v[:1] for k, v in host(res_p8).items()}, host(ref_p8),
+                           lg_p8[:1, ..., 0].cpu().numpy(), box_atol=1e-3, score_atol=1e-5, margin=0.0)
+        r["scan_2048"] = dict(
+            scans=len(sc), f32_launches={k: n_p[k] for k in ("context_layer_packed", "slots_tiled_packed")},
+            compat_launches=n_pc["geometry_compat_large_packed"], int8_launches=n_p8["qconv_head_packed"],
+            detections=int(res_p["num_detections"].sum()), host_logits_max_abs_err=err_p)
+        log(f"wide 2048²: {len(sc)} scans on the packed route, launches {r['scan_2048']}; logits == "
+            "n_strips=1's bit for bit, detections identical; the compat route's large K12c reading "
+            "phase-major logits identical; int8 with qconv_head's packed store; scan 0 == the host "
+            "CPU's (f32 logits within 1e-4, int8 bit for bit)")
+        # their rows: K4's packed store, the tiled K2 and the large K12c at O
+        # phase-major channels, qconv_head's packed store
+        with torch.inference_mode(), exact_f32():
+            xs = ck.stem_apply(params_d, sc_d.float()[..., None], cfg,
+                               raw_gray=True).permute(0, 3, 1, 2).contiguous()
+            k4p = lambda: ck.fused_context_head(xs, *w, dil, packed=True)  # noqa: E731
+            pl_ = k4p()
+            err_k4p = float((pl_ - ck._s2d_planes(ck.context_head_reference(xs, *w, dil))).abs().max())
+            if not err_k4p <= 1e-4:
+                raise AssertionError(f"wide: K4's packed store at 2048² off its plain version by {err_k4p}")
+            rows.append(dict(
+                name="context_layer_wide_packed", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
+                replaces="ubdvss_tpu/ops/pallas/context_kernel.py:388 (s2d_context_head unpack=False)",
+                launches=n_p["context_layer_packed"], max_abs_err=err_k4p, channels=C, outputs=O,
+                ms=time_ms(k4p, iters=3, reps=2), device_ms=device_ms(k4p, n=3),
+                plain_ms=time_ms(lambda: ck._s2d_planes(ck.context_head_reference(xs, *w, dil)),
+                                 iters=1, reps=1, warmup=0),
+                library_ms=time_ms(lambda: library_context(xs, w, dil), iters=3, reps=2),
+                bound=k4_bound(xs, w, dil, O)))
+        pk_lg = pl_.permute(0, 2, 3, 1)  # the packed planes' phase-major NHWC view
+        lg_u = ck._d2s(pk_lg, O)
+        lab_p = ccl_kernel.ccl_labels_tiled(lg_u[..., 0].contiguous())
+        geo_p = pk.component_slots_tiled(pk_lg, lab_p, K, packed_phases=(2, 2))
+        err_tp = check_stats(geo_p, pk.component_slots_reference(pk_lg, lab_p, K, packed_phases=(2, 2)),
+                             "wide slots_tiled packed", exact=exact_stats(lg_u, geo_p["slots"], K))
+        large = pk.geometry_compat(pk_lg, K, packed_phases=(2, 2))
+        if not all(torch.equal(large[k], geo_p[k]) for k in geo_p):
+            raise AssertionError("wide: the large K12c differs from the tiled pair on phase-major logits")
+        for rname, call, plain, lib, n_, k12 in (
+                ("slots_tiled_chunked_packed",
+                 lambda: pk.component_slots_tiled(pk_lg, lab_p, K, packed_phases=(2, 2)),
+                 lambda: pk.component_slots_reference(pk_lg, lab_p, K, packed_phases=(2, 2)),
+                 lambda: pk._stats_reference(pk_lg, geo_p["slots"], K, (2, 2)),
+                 n_p["slots_tiled_packed"], False),
+                ("geometry_compat_large_chunked_packed",
+                 lambda: pk.geometry_compat(pk_lg, K, packed_phases=(2, 2)),
+                 lambda: pk.geometry_compat_reference(pk_lg, K, packed_phases=(2, 2)),
+                 None, n_pc["geometry_compat_large_packed"], True)):
+            rows.append(dict(
+                name=rname, route="cuda",
+                source="ubdvss_tpu_torch/csrc/" + ("geometry_kernel.cu" if k12 else "postproc_kernel.cu"),
+                replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:" + ("50" if k12 else "381")
+                + " (packed_phases)", launches=n_, max_abs_err=err_tp, channels=O,
+                ms=time_ms(call, iters=3, reps=2), device_ms=device_ms(call, n=3),
+                plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
+                library_ms=None if lib is None else time_ms(lib, iters=1, reps=1),
+                bound=stats_bound(lg_u, geo_p, K, 4, k12=k12)))
+        qs = kq.qstem(sc_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
+        for li, d in enumerate(dil[:-1]):
+            qs = kq.qconv(qs, L8[2 + li], s8[3 + li], d)
+        head_s = (qs, L8[1 + n_], s8[2 + n_], dil[-1], q_d["head"])
+        hp = lambda: kq.qconv_head(*head_s, packed=True)  # noqa: E731
+        if not torch.equal(hp(), ck._s2d(kq.qconv_head(*head_s))):
+            raise AssertionError("wide: qconv_head's packed store differs from its unpacked launch")
+        pxs = N_WIDTH_SCANS * (SCAN // 4) ** 2
+        with exact_f32():
+            lib_ms = time_ms(lambda: [conv_lib(qs, L8[1 + n_]["q"], 1, dil[-1])(),
+                                      conv_lib(qs, q_d["head"]["q"], 1, 1)()], iters=3, reps=1)
+        rows.append(dict(
+            name="qconv_head_packed_any", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_kernel.cu",
+            replaces="ubdvss_tpu/ops/quant.py:332 (int8_packed_trunk_apply's head)",
+            launches=n_p8["qconv_head_packed"], max_abs_err=0.0, channels=C, outputs=O,
+            ms=time_ms(hp, iters=3, reps=2), device_ms=device_ms(hp, n=3),
+            plain_ms=time_ms(lambda: kq.qconv_head_reference(*head_s, packed=True), iters=1, reps=1, warmup=0),
+            library_ms=lib_ms, bound=bound(pxs * Ci + pxs * O * 4, 2 * pxs * (C * C * 9 + C * O), INT8_OPS)))
+        r["times"]["scan_2048_ms"] = time_ms(lambda: detect_program_batch(
+            params_d, sc_d, cfg, (SCAN, SCAN), detections_only=True), iters=3, reps=1)
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        log(f"time {row['name']}: {row['ms']:.4f} ms/call, device {row['device_ms']:.4f} (plain "
+            f"{row['plain_ms']:.4f}, library {row['library_ms']}, bound {row['bound_ms']:.4f} by "
+            f"{row['bound_by']}), {row['launches']} launches on its path")
+    kernels += rows
+    return report
+
+
+def _cpu(a):
+    """A tensor, or a dict of them, on the host."""
+    if isinstance(a, dict):
+        return {k: v.cpu() for k, v in a.items()}
+    return a.cpu() if hasattr(a, "cpu") else a
 
 
 def main() -> int:
@@ -3399,6 +3966,11 @@ def main() -> int:
     phase("packed route")
     log(json.dumps({"packed_route": packed_route(dev, counted, kernels, params_d, params16_d, q_d,
                                                  cfg_l, cfg_l16, scans, big, lg_l, lg_l16)}))
+
+    # --- 11. every width the JAX package serves: the wide and narrow
+    # configurations through the paths ---
+    phase("every width")
+    log(json.dumps({"every_width": every_width(dev, counted, kernels, imgs, scans)}))
 
     # --- 5. evaluation: the JAX package's int8 accuracy protocol on the card ---
     phase("evaluation")

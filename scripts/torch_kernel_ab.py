@@ -373,9 +373,10 @@ def int8_ab(args, dev, res: dict) -> None:
     with torch.inference_mode():
         q = quantize_trunk(params, cfg, calib)
     ptr = lambda t: P(None if t is None else t.data_ptr())  # noqa: E731
-    # the parent's struct Plan lacks this tree's calibration fields and the
-    # head's packed store
-    new = [qk.PLAN_FIELDS.index(f) for f in ("stride", "ks", "pad_t", "pad_l", "f32", "packed")]
+    # the parent's struct Plan lacks this tree's calibration fields, the
+    # head's packed store and the any-width kernels' fields
+    new = [qk.PLAN_FIELDS.index(f) for f in ("stride", "ks", "pad_t", "pad_l", "f32", "packed",
+                                             "generic", "off_koff")]
 
     def plan_args(tag, plan):
         arr = plan.ints if tag == "change" else np.ascontiguousarray(np.delete(plan.ints, new))

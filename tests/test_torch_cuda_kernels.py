@@ -193,7 +193,7 @@ def test_slots_kernel_matches_plain(dev, shape, K, C):
     K=16 components, so the padding slot K-1 carries the background),
     noise (more than K) and snakes; two launches bit for bit equal.  C=1
     and C=17 (the main path's) have their own compiled kernels, C=5 takes
-    the one for any C up to MAX_CHANNELS."""
+    the one for any C up to REGISTER_CHANNELS."""
     lg = _head_logits(_maps(K, *shape), C, K + C, dev)
     lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
     out = postproc_kernel.component_slots(lg, lab, K)
@@ -382,9 +382,11 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         postproc_kernel.component_slots(lg, lab.long(), 4)
     with pytest.raises(TypeError, match="float32"):
         postproc_kernel.component_slots(lg.double(), lab, 4)
-    too_many = torch.zeros((2, 16, 16, postproc_kernel.MAX_CHANNELS + 1), device=dev)
-    with pytest.raises(NotImplementedError, match="channels"):
-        postproc_kernel.component_slots(too_many, lab, 4)
+    # past the stats' register chunk the kernels take the logits in chunks
+    wide = _head_logits(_maps(34, 2, 16, 16), postproc_kernel.REGISTER_CHANNELS + 1, 34, dev)
+    wide_lab = ccl_kernel.ccl_labels_reference(wide[..., 0])
+    assert_stats_close(postproc_kernel.component_slots(wide, wide_lab, 4),
+                       postproc_kernel.component_slots_reference(wide, wide_lab, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         postproc_kernel.component_slots(lg, lab.cpu(), 4)
     # past one block's shared memory K12c launches its large kernel, equal
@@ -405,21 +407,25 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
 
 @pytest.mark.parametrize("C,O", [(4, 17), (24, 33), (40, 17)])
 def test_channel_caps_name_their_roadmap_item(dev, C, O):
-    """The context kernel is compiled for C in (8, 16, 24, 32) and O <= 32,
-    the stats kernels take at most 33 logit channels; beyond that they
-    raise NotImplementedError naming ROADMAP.md §2a, as the JAX kernels and
-    the plain versions have no such cap."""
-    x = torch.zeros((1, C, 8, 8), device=dev)
-    w = [torch.zeros(s, device=dev) for s in ((1, 9, C, 1, 1), (1, C, C), (1, C, 1, 1),
-                                              (O, C), (O, 1, 1))]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
-        context_kernel.fused_context_head(x, *w, (1,))
-    lg = torch.zeros((1, 8, 8, postproc_kernel.MAX_CHANNELS + 1), device=dev)
-    lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
+    """The widths that were the port's channel caps (ROADMAP.md §2a): the
+    context kernel at C outside (8, 16, 24, 32) or O > 32 equals its plain
+    version, and the stats kernels (K2, K12c) at one channel past their
+    register chunk equal theirs, as the JAX kernels and the plain versions
+    take any width."""
+    rng = np.random.default_rng(C + O)
+    x = torch.from_numpy(rng.normal(0, 1, (1, C, 8, 8)).astype(np.float32)).to(dev)
+    w = [torch.from_numpy(rng.normal(0, 0.3, shape).astype(np.float32)).to(dev)
+         for shape in ((1, 9, C, 1, 1), (1, C, C), (1, C, 1, 1), (O, C), (O, 1, 1))]
+    out = context_kernel.fused_context_head(x, *w, (1,))
+    with context_kernel.exact_f32():
+        ref = context_kernel.context_head_reference(x, *w, (1,))
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    lg = _head_logits(_maps(C, 1, 8, 8), postproc_kernel.REGISTER_CHANNELS + 1, C, dev)
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
+    ref = postproc_kernel.component_slots_reference(lg, lab, 4)
     for call in (lambda: postproc_kernel.component_slots(lg, lab, 4),
                  lambda: postproc_kernel.geometry_compat(lg, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
-            call()
+        assert_stats_close(call(), ref)
 
 
 def test_kernels_at_a_tall_shape(dev):
@@ -1195,10 +1201,11 @@ def test_bf16_slots_match_plain_and_compat(dev, shape, layout):
 
 
 def test_bf16_wrappers_raise_where_f32_ones_do(dev):
-    """No route falls back to another: on bf16 logits the stats kernels past
-    MAX_CHANNELS raise NotImplementedError naming ROADMAP.md §2a, as on
-    f32; K12c past its shared memory launches its large bf16 kernel, as on
-    f32, equal to the bf16 tiled pair bit for bit."""
+    """No route falls back to another: on bf16 logits the stats kernels one
+    channel past their register chunk serve the logits as on f32 (within
+    the bounds of ``assert_bf16_stats_close``); K12c past its shared memory
+    launches its large bf16 kernel, as on f32, equal to the bf16 tiled pair
+    bit for bit."""
     big = torch.from_numpy(_maps(3, 1, 400, 300)).to(dev).to(torch.bfloat16)
     postproc_kernel.geometry_compat_large.launches_bf16 = 0
     fused = postproc_kernel.geometry_compat(big, 16)
@@ -1206,14 +1213,14 @@ def test_bf16_wrappers_raise_where_f32_ones_do(dev):
     pair = postproc_kernel.component_slots_tiled(big, ccl_kernel.ccl_labels_tiled(big), 16)
     for key in pair:
         assert torch.equal(fused[key], pair[key]), key
-    lg = torch.zeros((1, 8, 8, postproc_kernel.MAX_CHANNELS + 1), dtype=torch.bfloat16,
-                     device=dev)
-    lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
+    wide = postproc_kernel.REGISTER_CHANNELS + 1
+    lg = _head_logits(_maps(wide, 1, 8, 8), wide, wide, dev).to(torch.bfloat16)
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
+    ref = postproc_kernel.component_slots_reference(lg, lab, 4)
     for call in (lambda: postproc_kernel.component_slots(lg, lab, 4),
                  lambda: postproc_kernel.component_slots_tiled(lg, lab, 4),
                  lambda: postproc_kernel.geometry_compat(lg, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
-            call()
+        assert_bf16_stats_close(call(), ref, lg, 4, _stats_f64(lg, ref["slots"], 4))
     with pytest.raises(TypeError, match="bfloat16"):
         ccl_kernel.ccl_labels_from_logits(big.half())
 
@@ -1450,11 +1457,18 @@ def test_qconv_kernel_matches_plain_bit_for_bit(dev, case):
 
 @pytest.mark.parametrize("cin,cout", [(6, 24), (36, 24), (24, 36), (24, 17)])
 def test_qconv_channel_caps_name_their_roadmap_item(dev, cin, cout):
-    x = torch.zeros((1, 8, 8, cin), dtype=torch.int8, device=dev)
-    layer = dict(q=torch.zeros((3, 3, cin, cout), dtype=torch.int8, device=dev),
-                 ws=torch.ones(cout, device=dev), b=torch.zeros(cout, device=dev))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
-        qconv_kernel.qconv(x, layer, torch.ones(cout, device=dev), 1)
+    """The widths that were qconv's channel caps (ROADMAP.md §2a): a count
+    that is not a multiple of 4 (padded inside the wrapper) or past 32 (the
+    any-width kernel) == the plain version bit for bit, on the card and on
+    the CPU."""
+    rng = np.random.default_rng(cin * 100 + cout)
+    x = torch.from_numpy(rng.integers(-127, 128, (1, 8, 8, cin)).astype(np.int8)).to(dev)
+    layer = _qconv_layer(rng, 3, cin, cout, dev)
+    s_out = torch.from_numpy(rng.uniform(5, 60, cout).astype(np.float32)).to(dev)
+    out = qconv_kernel.qconv(x, layer, s_out, 1)
+    ref = _qconv_plain(x, layer, s_out, 1)
+    assert out.shape == (1, 8, 8, cout) and torch.equal(out, ref)
+    assert torch.equal(out.cpu(), _qconv_plain(x.cpu(), _to_cpu(layer), s_out.cpu(), 1))
 
 
 # qconv_layer (the bias correction's single layers: qconv_layer_f32, then
@@ -1561,19 +1575,24 @@ def test_bias_correction_on_card_matches_host_cpu(dev):
                                              ("qstem", 36, 24, 0), ("qconv_head", 6, 24, 17),
                                              ("qconv_head", 24, 36, 17), ("qconv_head", 24, 24, 33)])
 def test_qstem_and_qconv_head_channel_caps_name_their_roadmap_item(dev, kernel, c0, c1, nh):
-    def layer(ks, cin, cout):
-        return dict(q=torch.zeros((ks, ks, cin, cout), dtype=torch.int8, device=dev),
-                    ws=torch.ones(cout, device=dev), b=torch.zeros(cout, device=dev))
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
-        if kernel == "qstem":
-            img = torch.zeros((1, 32, 32), dtype=torch.uint8, device=dev)
-            qconv_kernel.qstem(img, layer(3, 1, c0), torch.ones(c0, device=dev), layer(3, c0, c1),
-                               torch.ones(c1, device=dev), raw_gray=True)
-        else:
-            x = torch.zeros((1, 8, 8, c0), dtype=torch.int8, device=dev)
-            qconv_kernel.qconv_head(x, layer(3, c0, c1), torch.ones(c1, device=dev), 1,
-                                    layer(1, c1, nh))
+    """The widths that were qstem's and qconv_head's channel caps (ROADMAP.md
+    §2a) == the plain versions bit for bit: a count padded to a multiple of
+    4 inside the wrapper, widths past 32 and a head of 33 logits through the
+    any-width kernels."""
+    rng = np.random.default_rng(c0 * 1000 + c1 * 10 + nh)
+    scale = lambda c: torch.from_numpy(rng.uniform(5, 60, c).astype(np.float32)).to(dev)  # noqa: E731
+    if kernel == "qstem":
+        img = torch.from_numpy(rng.integers(0, 256, (1, 32, 32)).astype(np.uint8)).to(dev)
+        args = (img, _qconv_layer(rng, 3, 1, c0, dev), scale(c0), _qconv_layer(rng, 3, c0, c1, dev),
+                scale(c1), True)
+        fn, plain = qconv_kernel.qstem, qconv_kernel.qstem_reference
+    else:
+        x = torch.from_numpy(rng.integers(-127, 128, (1, 8, 8, c0)).astype(np.int8)).to(dev)
+        args = (x, _qconv_layer(rng, 3, c0, c1, dev), scale(c1), 1, _qconv_layer(rng, 1, c1, nh, dev))
+        fn, plain = qconv_kernel.qconv_head, qconv_kernel.qconv_head_reference
+    out = fn(*args)
+    assert torch.equal(out, plain(*args))
+    assert torch.equal(out.cpu(), plain(*(_to_cpu(a) for a in args)))
 
 
 def test_int8_entry_points_on_card_match_cpu(dev):
@@ -1826,3 +1845,182 @@ def test_packed_route_on_card_matches_whole_image_route(dev):
     ref8 = postprocess_batch_fused(direct, cfg)
     for k in res8:
         torch.testing.assert_close(res8[k], ref8[k], atol=1e-6, rtol=0, msg=k)
+
+
+# ---- every width the JAX package serves (no channel caps) -------------------
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("O", [1, 33, 41])
+@pytest.mark.parametrize("C", [4, 10, 40, 48, 64])
+def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
+    """K4 at widths no compiled instance has: C up to 32 at the next
+    compiled width with guarded channel loops (4, 10), C past 32 with each
+    pixel's columns in shared memory (40, 48, 64), heads of 1, 33 and 41
+    outputs: one launch a layer, within 1e-4 of the plain version; the
+    packed store == the unpacked launch's phase-major planes bit for bit."""
+    rng = np.random.default_rng(C * 100 + O)
+    dil = (1, 2, 16)
+    L = len(dil)
+    x = torch.from_numpy(rng.normal(0, 1, (2, C, 38, 52)).astype(np.float32)).to(dev)
+    w = [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).to(dev)
+         for s, shape in ((0.3, (L, 9, C, 1, 1)), (0.3 / np.sqrt(C / 8), (L, C, C)),
+                          (0.1, (L, C, 1, 1)), (0.3, (O, C)), (0.1, (O, 1, 1)))]
+    f = context_kernel.fused_context_head
+    f.launches = f.launches_packed = 0
+    out = f(x, *w, dil, packed=packed)
+    assert (f.launches, f.launches_packed) == (L, int(packed))
+    with context_kernel.exact_f32():
+        ref = context_kernel.context_head_reference(x, *w, dil)
+    if packed:
+        assert torch.equal(out, context_kernel._s2d_planes(f(x, *w, dil)))
+        ref = context_kernel._s2d_planes(ref)
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [34, 65])
+def test_stats_any_channel_count_match_plain(dev, C, dtype, packed):
+    """The stats past the register chunk (34: two chunks, one of a single
+    class; 65: two full chunks), f32 and bf16, unpacked and phase-major:
+    K2's cluster kernel against the plain version, K12c equal to it bit for
+    bit, the tiled K2 against the sums in f64; and on a map past K12c's
+    shared memory the large K12c equal to the tiled pair bit for bit."""
+    B, H, W, K = 3, 64, 48, 16
+    lg = _head_logits(_maps(C, B, H, W), C, C, dev).to(getattr(torch, dtype))
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0].float())
+    phases = (2, 2) if packed else None
+    src = _packed_logits(lg, "planes") if packed else lg
+    close = (assert_stats_close if dtype == "float32" else
+             lambda o, r: assert_bf16_stats_close(o, r, lg, K))
+    ref = postproc_kernel.component_slots_reference(lg, lab, K)
+    assert postproc_kernel.geometry_compat_fits(H, W, K, C)
+    out = postproc_kernel.component_slots(src, lab, K, packed_phases=phases)
+    close(out, ref)
+    fused = postproc_kernel.geometry_compat(src, K, packed_phases=phases)
+    for key in out:
+        assert torch.equal(fused[key], out[key]), key
+    tiled = postproc_kernel.component_slots_tiled(src, lab, K, packed_phases=phases)
+    if dtype == "float32":
+        exact = _stats_f64(lg, ref["slots"], K)
+        for key in _SLOT_KEYS:
+            assert torch.equal(tiled[key], ref[key]), key
+        area = ref["areas"].clamp(min=1).double()
+        torch.testing.assert_close(tiled["cls_sums"].double() / area[..., None],
+                                   exact["cls_sums"] / area[..., None], atol=2e-6, rtol=0)
+    else:
+        assert_bf16_stats_close(tiled, ref, lg, K, _stats_f64(lg, ref["slots"], K))
+    big = _head_logits(_maps(C + 1, 1, 400, 300), C, C, dev).to(getattr(torch, dtype))
+    big_src = _packed_logits(big, "planes") if packed else big
+    large = postproc_kernel.geometry_compat_large
+    large.launches = large.launches_bf16 = 0
+    fused = postproc_kernel.geometry_compat(big_src, 16, packed_phases=phases)
+    assert large.launches + large.launches_bf16 == 1
+    pair = postproc_kernel.component_slots_tiled(
+        big_src, ccl_kernel.ccl_labels_tiled(big[..., 0].contiguous()), 16, packed_phases=phases)
+    for key in pair:
+        assert torch.equal(fused[key], pair[key]), key
+
+
+def test_stats_partial_set_past_shared_memory_names_it(dev):
+    """The one width the stats kernels refuse: one warp's partial set,
+    K (C + 1) words, past one block's shared memory."""
+    C = postproc_kernel.MAX_SHARED_BYTES // (4 * 64)
+    lg = torch.zeros((1, 8, 8, C), device=dev)
+    lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        postproc_kernel.component_slots(lg, lab, 64)
+
+
+# int8 at every width: (kernel, cin or c0, cout or c1, head outputs, dilation)
+_QWIDTH_CASES = [(k, c, c, nh, d) for c in (6, 10, 36, 48) for k, nh, d in (
+    ("qstem", 0, 1), ("qconv", 0, 2), ("qconv_head", 17, 1), ("qconv_head", 41, 16))]
+_QWIDTH_CASES += [("qconv", 128, 8, 0, 1), ("qconv", 48, 64, 0, 4), ("qconv_head", 10, 48, 41, 2),
+                  ("qstem", 10, 48, 0, 1), ("qstem", 48, 10, 0, 1)]
+
+
+@pytest.mark.parametrize("kernel,c0,c1,nh,dil", _QWIDTH_CASES)
+def test_int8_kernels_any_width_bit_for_bit(dev, kernel, c0, c1, nh, dil):
+    """qstem, qconv and qconv_head (unpacked and packed) at widths that are
+    not a multiple of 4 (padded inside the wrappers; no padded channel
+    reaches the output) and past 32 (the any-width kernels: 128 input
+    channels take the rounding conversion, acc_wide 2) == the plain
+    versions bit for bit, on the card and on the CPU."""
+    rng = np.random.default_rng(c0 * 1000 + c1 * 10 + nh + dil)
+    scale = lambda c: torch.from_numpy(rng.uniform(5, 60, c).astype(np.float32)).to(dev)  # noqa: E731
+    if kernel == "qstem":
+        img = torch.from_numpy(rng.integers(0, 256, (2, 76, 100)).astype(np.uint8)).to(dev)
+        args = (img, _qconv_layer(rng, 3, 1, c0, dev), scale(c0), _qconv_layer(rng, 3, c0, c1, dev),
+                scale(c1), True)
+        fns = [(qconv_kernel.qstem, qconv_kernel.qstem_reference, args)]
+    else:
+        x = torch.from_numpy(rng.integers(-127, 128, (2, 38, 50, c0)).astype(np.int8)).to(dev)
+        layer = _qconv_layer(rng, 3, c0, c1, dev)
+        if kernel == "qconv":
+            fns = [(qconv_kernel.qconv, _qconv_plain, (x, layer, scale(c1), dil))]
+        else:
+            args = (x, layer, scale(c1), dil, _qconv_layer(rng, 1, c1, nh, dev))
+            fns = [(qconv_kernel.qconv_head, qconv_kernel.qconv_head_reference, args)]
+            packed = lambda *a: qconv_kernel.qconv_head(*a, packed=True)  # noqa: E731
+            plain = lambda *a: qconv_kernel.qconv_head_reference(*a, packed=True)  # noqa: E731
+            fns.append((packed, plain, args))
+    for fn, plain, args in fns:
+        out = fn(*args)
+        assert torch.equal(out, plain(*args))
+        assert torch.equal(out.cpu(), plain(*(_to_cpu(a) for a in args)))
+
+
+@pytest.mark.parametrize("cin,cout,ks,stride,dil", [
+    (6, 6, 3, 2, 1), (10, 10, 3, 1, 4), (36, 36, 3, 1, 2), (48, 48, 3, 2, 1), (48, 41, 1, 1, 1),
+    (10, 17, 1, 1, 1), (128, 8, 3, 1, 1), (128, 41, 1, 1, 1), (1, 10, 3, 2, 1), (1, 48, 3, 2, 1)])
+def test_int8_calibration_kinds_any_width_bit_for_bit(dev, cin, cout, ks, stride, dil):
+    """The bias correction's kinds at any width: qconv_layer_f32 (layer 0
+    from the image, a 3x3 layer at stride 1 or 2, the 1x1 head; Cin padded
+    to a multiple of 4, f32 outputs of any count) and requantize at any
+    channel count == the plain versions bit for bit: pre-activations,
+    accumulators (rounded to nearest even past 2^24 at 128 channels) and
+    the int8 outputs."""
+    rng = np.random.default_rng(cin * 100 + cout + ks)
+    if cin == 1:
+        x = torch.from_numpy(rng.uniform(-1.05, 1.05, (2, 76, 100, 1)).astype(np.float32)).to(dev)
+    else:
+        x = torch.from_numpy(rng.integers(-127, 128, (2, 38, 50, cin)).astype(np.int8)).to(dev)
+    layer = _qconv_layer(rng, ks, cin, cout, dev)
+    y, acc = qconv_kernel.qconv_layer_f32(x, layer, stride, dil)
+    y_ref, acc_ref = qconv_kernel.qconv_layer_f32(x.cpu(), _to_cpu(layer), stride, dil)
+    assert torch.equal(y.cpu(), y_ref) and torch.equal(acc.cpu(), acc_ref)
+    s_out = torch.from_numpy(rng.uniform(5, 60, cout).astype(np.float32)).to(dev)
+    q8 = qconv_kernel.requantize(acc, layer["ws"], layer["b"], s_out)
+    assert torch.equal(q8.cpu(), qconv_kernel.requantize_reference(
+        acc_ref, layer["ws"].cpu(), layer["b"].cpu(), s_out.cpu()))
+
+
+@pytest.mark.parametrize("C,O", [(10, 17), (48, 41)])
+def test_int8_trunk_any_width_matches_cpu(dev, C, O):
+    """quantize_trunk on the card and int8_trunk_apply at the narrow and
+    wide configurations' widths: the trunk's eight launches at the padded
+    widths, logits bit for bit the CPU's on the same qparams, and the
+    qparams in the JAX package's shapes (no padded channel in them)."""
+    from ubdvss_tpu_torch import NetConfig
+    from ubdvss_tpu_torch.models.model import init_params
+    from ubdvss_tpu_torch.ops import quant
+
+    cfg = NetConfig(channels=C, class_names=tuple(f"s{i}" for i in range(O - 1)))
+    params = {k: v.to(dev) for k, v in init_params(cfg, 3).items()}
+    rng = np.random.default_rng(C)
+    calib = torch.from_numpy(rng.uniform(-1, 1, (4, 128, 128, 1)).astype(np.float32)).to(dev)
+    q = quant.quantize_trunk(params, cfg, calib)
+    assert [layer["q"].shape[3] for layer in q["layers"]] == [C] * (2 + len(cfg.dilations))
+    assert tuple(q["head"]["q"].shape) == (1, 1, C, O)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 256, 256)).astype(np.uint8)).to(dev)
+    for f in (qconv_kernel.qstem, qconv_kernel.qconv, qconv_kernel.qconv_head):
+        f.launches = 0
+    out = quant.int8_trunk_apply(q, img, cfg, raw_gray=True)
+    assert [f.launches for f in (qconv_kernel.qstem, qconv_kernel.qconv,
+                                 qconv_kernel.qconv_head)] == [1, len(cfg.dilations) - 1, 1]
+    qc = {"layers": [_to_cpu(layer) for layer in q["layers"]], "head": _to_cpu(q["head"]),
+          "s_in": [s.cpu() for s in q["s_in"]]}
+    assert out.shape == (2, 64, 64, O)
+    assert torch.equal(out.cpu(), quant.int8_trunk_apply(qc, img.cpu(), cfg, raw_gray=True))

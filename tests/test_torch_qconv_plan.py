@@ -316,9 +316,10 @@ def _emulate_conv(x, layer, s_out, dil, head=None, acc_wide=None):
     out = np.zeros((B, H, W, nh or cout), np.float32 if nh else np.int8)
     pixels = _row_map(plan)
     s_o = s_out.numpy()
+    kh = -(-cout // 32)  # the head's k steps (one below 33 channels)
     if nh:  # the head's B: word w of channel co, zero past cout/4 words and nh channels
         qh = head["q"].numpy()[0, 0]
-        hb = np.zeros((8, 4, 8 * -(-nh // 8)), np.int64)
+        hb = np.zeros((8 * kh, 4, 8 * -(-nh // 8)), np.int64)
         for w in range(cout // 4):
             hb[w, :, :nh] = qh[4 * w : 4 * w + 4]
     for tile in range(plan.n_tiles):
@@ -345,7 +346,7 @@ def _emulate_conv(x, layer, s_out, dil, head=None, acc_wide=None):
                 stage[pixels] = q8
                 if nh:
                     st_words = np.ascontiguousarray(stage).view(np.int32).reshape(-1)
-                    wsel = np.array([w if w < cout // 4 else 0 for w in range(8)])  # padding reads word 0
+                    wsel = np.array([w if w < cout // 4 else 0 for w in range(8 * kh)])  # padding reads word 0
                     hacc = _runs_mma(st_words, pixels * (cout // 4), wsel, hb)[:, :nh]
                     res = np.zeros((16, nh), np.float32)
                     res[pixels] = _fma32(_acc_float(hacc), head["ws"].numpy(), head["b"].numpy())
@@ -742,3 +743,155 @@ def test_qconv_head_plain_matches_jitted_jax_chain(case):
     out = qk.qconv_head(x, layer, s_out, d, head)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+# --- any width: the plans of the any-width kernels (the plan's generic) -----
+
+_ANY_WIDTHS = (6, 10, 36, 48, 64, 128)
+
+
+def _r4(n):
+    return -(-n // 4) * 4
+
+
+def test_acc_mode_follows_the_accumulator_bound():
+    """The epilogue's reading of the accumulator, by 9 Cin 127^2 against
+    2^22 (the conversion-free window) and 2^24 (past it the conversion
+    rounds to nearest even, as XLA's s32 -> f32 convert)."""
+    for cin in range(4, 257, 4):
+        bound = 9 * cin * 127**2
+        assert qk.acc_mode(cin) == (0 if bound < 2**22 else 1 if bound < 2**24 else 2), cin
+    assert [qk.acc_mode(c) for c in (28, 32, 112, 116, 128)] == [0, 1, 1, 2, 2]
+    big = np.array([2**24 + 1, 2**24 + 3, -(2**24) - 1, 18_580_481], np.int64)
+    np.testing.assert_array_equal(_acc_float(big, wide=2), big.astype(np.float32))
+    assert _acc_float(big, wide=2)[0] == np.float32(2**24)  # a tie to even
+
+
+@pytest.mark.parametrize("cout", _ANY_WIDTHS)
+@pytest.mark.parametrize("cin", _ANY_WIDTHS)
+def test_any_width_plans_fit_shared_memory(cin, cout):
+    """Every kind's plan at Cin/Cout in {6, 10, 36, 48, 64, 128} (counts
+    the wrappers pad to a multiple of 4), with heads of 33 and 41 logits:
+    the any-width kernels wherever a width passes 32, each block within
+    the H100's shared memory at the asset's dilations, regions 16-byte
+    aligned, and the accumulator's mode that of 9 Cin 127^2."""
+    ci, co = _r4(cin), _r4(cout)
+
+    def check(plan, generic, acc_cin):
+        assert plan.smem <= qk.SHARED_MEMORY_LIMIT, (plan.kind, plan.fields)
+        assert all(plan.fields[k] % 16 == 0 for k in qk.PLAN_FIELDS if k.startswith("off_"))
+        assert plan.generic == int(generic)
+        if acc_cin:
+            assert plan.acc_wide == qk.acc_mode(acc_cin)
+        if generic and plan.kind != "layer0":
+            assert plan.nsteps * 8 >= (1 if plan.ks == 1 else 9) * plan.nw
+
+    for H, W in ((128, 128), (60, 80), (512, 512), (33, 47), (1, 4096)):
+        for d in (1, 2, 16):
+            for nh in (0, 33, 41):
+                check(qk.tile_plan("conv", 2, H, W, ci, co, dil=d, nh=nh), max(ci, co, nh) > 32, ci)
+            check(qk.tile_plan("layer", 2, H, W, ci, cout, dil=d), max(ci, cout) > 32, ci)
+        check(qk.tile_plan("layer", 2, H, W, ci, cout, stride=2), max(ci, cout) > 32, ci)
+        for nh in (33, 41):
+            check(qk.tile_plan("layer", 2, H, W, ci, nh, ks=1), True, ci)
+    for H, W in ((512, 512), (240, 320), (75, 101), (2048, 2048)):
+        check(qk.tile_plan("stem", 2, H, W, 1, co, c0=ci, in_kind=qk.IN_U8_RAW), max(ci, co) > 32,
+              ci)
+        check(qk.tile_plan("layer0", 2, H, W, 1, cout, in_kind=qk.IN_F32_NORM), cout > 32, 0)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("cin,cout,nh", [(36, 40, 0), (48, 48, 41), (12, 12, 41), (128, 8, 0)])
+def test_any_width_plans_cover_each_output_once(B, cin, cout, nh):
+    for name in ("qvga-60x80", "odd-19x26", "main-128"):
+        for d in (1, 4, 16):
+            plan = qk.tile_plan("conv", B, *MAPS[name], cin, cout, dil=d, nh=nh)
+            assert plan.generic and (_coverage(plan) == 1).all(), (name, d)
+
+
+@pytest.mark.parametrize("cin,cout", [(48, 48), (36, 12), (12, 64), (128, 8)])
+def test_any_width_k_order_unpacks_to_the_hwio_weights(cin, cout):
+    """An any-width plan's K order is the plain one (K word j = tap j // nw,
+    channel word j % nw, the order csrc/qconv.cuh k_offsets_any computes):
+    the fragments unpack to the HWIO weights, zero past 9 nw, and each K
+    word's A offset names its tap and channel word."""
+    for kind in ("conv", "stem"):
+        rng = np.random.default_rng(cin + cout)
+        q = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+        if kind == "conv":
+            plan = qk.tile_plan("conv", 1, 30, 40, cin, cout, dil=2)
+        else:
+            plan = qk.tile_plan("stem", 1, 64, 64, 1, cout, c0=cin, in_kind=qk.IN_U8_RAW)
+        assert plan.generic
+        nw = cin // 4
+        frags = qk.pack_fragments(q, plan)
+        raw = frags.view(np.uint32)
+        back = np.zeros_like(q)
+        for s_, n, lane, r in np.ndindex(raw.shape):
+            j, co = 8 * s_ + 4 * r + lane % 4, 8 * n + lane // 4
+            word = raw[s_, n, lane, r]
+            if j >= 9 * nw or co >= cout:
+                assert word == 0
+                continue
+            tap, cw = divmod(j, nw)
+            ty, tx = divmod(tap, 3)
+            for k in range(4):
+                back[ty, tx, 4 * cw + k, co] = np.uint8((word >> (8 * k)) & 0xFF).view(np.int8)
+            if kind == "conv":
+                assert plan.a_off[j] == ty * plan.row_words + tx * plan.d * nw + cw
+            else:
+                assert plan.a_off[j] == (ty * plan.l0w + tx) * nw + cw
+        np.testing.assert_array_equal(back, q)
+
+
+# (B, H, W, Cin, Cout, dilation, head outputs or 0): every one generic
+ANY_CONV_CASES = {
+    "any-36-to-40-d2": (1, 19, 26, 36, 40, 2, 0),
+    "any-48-d16": (2, 17, 33, 48, 48, 16, 0),
+    "any-12-to-64": (1, 12, 20, 12, 64, 1, 0),
+    "any-48-head-41": (1, 17, 20, 48, 48, 1, 41),
+    "any-12-head-41": (1, 12, 20, 12, 12, 4, 41),
+    "any-40-head-33": (2, 9, 36, 40, 40, 2, 33),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANY_CONV_CASES))
+def test_any_width_conv_walk_equals_the_plain_version(case):
+    """The numpy walk of an any-width plan (the plain K order, groups of
+    n8 tiles, the head's k steps over Cout past 32 channels) == the plain
+    version bit for bit."""
+    B, H, W, cin, cout, d, nh = ANY_CONV_CASES[case]
+    rng = np.random.default_rng(len(case) + cout + nh)
+    x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
+    layer, s_out = _layer(rng, 3, cin, cout), _scale(rng, cout)
+    if nh:
+        head = _layer(rng, 1, cout, nh)
+        ref = qk.qconv_head_reference(x, layer, s_out, d, head)
+        np.testing.assert_array_equal(_emulate_conv(x, layer, s_out, d, head).numpy(), ref.numpy())
+    else:
+        ref = qk.qconv_reference(x, layer, s_out, 1, d)
+        np.testing.assert_array_equal(_emulate_conv(x, layer, s_out, d).numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("c0,c1", [(36, 36), (12, 48), (48, 8)])
+def test_any_width_stem_walk_equals_the_plain_version(c0, c1):
+    rng = np.random.default_rng(c0 + c1)
+    x = torch.from_numpy(rng.integers(0, 256, (1, 75, 101)).astype(np.uint8))
+    l0, l1 = _layer(rng, 3, 1, c0), _layer(rng, 3, c0, c1)
+    s1, s2 = _scale(rng, c0), _scale(rng, c1)
+    ref = qk.qstem_reference(x, l0, s1, l1, s2, True)
+    np.testing.assert_array_equal(_emulate_stem(x, l0, s1, l1, s2, True).numpy(), ref.numpy())
+
+
+def test_padding_keeps_the_layer():
+    """pad_layer / pad_scale: the padded input channels carry zero weights,
+    the padded outputs zero weights, ws = 1, b = 0 and s_out = 1, so the
+    padded layer's outputs are the layer's, then exact zeros."""
+    rng = np.random.default_rng(0)
+    layer, s_out = _layer(rng, 3, 10, 10), _scale(rng, 10)
+    padded, s_p = qk.pad_layer(layer, 12, 12), qk.pad_scale(s_out, 12)
+    assert qk.pad_layer(padded, 12, 12) is padded and qk.pad_scale(s_p, 12) is s_p
+    x = torch.from_numpy(rng.integers(-127, 128, (1, 9, 11, 10)).astype(np.int8))
+    out = qk.qconv_reference(qk.pad_channels(x, 12), padded, s_p, 1, 2)
+    assert torch.equal(out[..., :10], qk.qconv_reference(x, layer, s_out, 1, 2))
+    assert not out[..., 10:].any()

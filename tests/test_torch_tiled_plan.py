@@ -37,7 +37,7 @@ SHAPES = [
     (3, 257, 1000), (2, 1, 60000), (2, 60000, 1), (1, 301, 299), (1, 256, 320),
     (2, 300, 1000), (2, 1000, 300), (2, 512, 250), (3, 128, 128), (4, 37, 53), (64, 60, 80),
 ]
-KC = [(16, 17), (64, 17), (64, 1), (1, 5)]
+KC = [(16, 17), (64, 17), (64, 1), (1, 5), (16, 41), (64, 65)]  # 41, 65: past the register chunk
 
 
 def _small(shapes, limit=600_000):
@@ -141,12 +141,13 @@ def test_plan_ints_are_in_the_kernels_order():
 def test_stats_cap_is_the_one_before_the_redesign(K, C):
     """One warp's stats partial set beside the roots: the cap of PR 11's
     ``_tiled_pass_warps``, (MAX_SHARED_BYTES - 4 K) // (4 K (C + 1)) >= 1.
-    Past it the wrappers raise NotImplementedError naming ROADMAP §2a; the
+    Past it the wrappers raise NotImplementedError naming ROADMAP §2a and
+    shared memory (the stats' only limit left at any channel count); the
     band's extremes go to a device-memory slice where only they no longer
     fit."""
     fits = (ccl_kernel.MAX_SHARED_BYTES - 4 * K) // (4 * K * (C + 1)) >= 1
     if not fits:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §2a"):
+        with pytest.raises(NotImplementedError, match="shared memory.*ROADMAP.md §2a"):
             pk.tiled_plan(1, 512, 512, K, C)
         return
     plan = pk.tiled_plan(1, 512, 512, K, C)
@@ -216,3 +217,24 @@ def test_pair_and_large_compat_launch_one_plan(monkeypatch, B, H, W, K, dtype):
     f = {name: i for i, name in enumerate(pk.PLAN_FIELDS)}
     for name in ("B", "H", "W", "tile_h", "tile_w", "ccl_threads", "seam_threads"):
         assert ccl[f[name]] == large[f[name]], name
+
+
+@pytest.mark.parametrize("C", [41, 65])
+@pytest.mark.parametrize("K", [16, 64])
+def test_plan_at_channel_counts_past_the_register_chunk(K, C):
+    """Past the stats' register chunk (geometry.cuh kWideChannels) the plan
+    is the same function of K (C + 1): one partial set a warp beside the
+    roots, the finish's blocks over every (slot, channel) sum and count, the
+    bands' partials in the scratch; the kernels make one pixel pass a chunk
+    of REGISTER_CHANNELS - 1 classes; K12c's cluster route is chosen by its
+    shared memory at this C."""
+    plan = pk.tiled_plan(2, 512, 512, K, C)
+    assert plan.C == C and plan.fin_blocks == -(-K * (C + 1) // 32)
+    items = [i for f in range(plan.fin_blocks) for i in plan.finish_items(f)]
+    assert items == list(range(K * (C + 1)))
+    assert plan.pass_smem <= ccl_kernel.MAX_SHARED_BYTES
+    assert plan.pass_smem >= 4 * (K + plan.pass_warps * K * (C + 1))
+    assert plan.scratch_shapes()["tpart"][0] == (2, plan.bands, K, C)
+    assert pk.class_chunks(C) == -(-(C - 1) // (pk.REGISTER_CHANNELS - 1))
+    words = pk.geometry_smem_words(128, 128, K) + pk.stats_warps(128, 128, K, C) * K * (C + 1)
+    assert pk.geometry_compat_fits(128, 128, K, C) == (4 * words <= ccl_kernel.MAX_SHARED_BYTES)

@@ -31,12 +31,44 @@
 // (B, H/2, W/2, 4 O).  The same arithmetic as the plain store, and the
 // same bytes written; a warp's stores go to two planes (the two column
 // phases of its row), 16 contiguous floats each.
+//
+// Widths (every C >= 1 and O >= 1, as the TPU kernel takes them from its
+// inputs):
+//   * C in {8, 16, 24, 32} with O <= 32: context_layer_kernel<C>, the
+//     per-pixel register design above, weights in static shared memory;
+//   * other C <= 32, or O > 32: context_layer_any<CM> at the next compiled
+//     width CM >= C, the same registers and the same order of every sum
+//     (c = 0..C-1, one fmaf each), each channel loop guarded by the real C
+//     so that no padding weight enters a sum; its weights, the head's O
+//     rows included, in dynamic shared memory;
+//   * C > 32: context_layer_wide, where acc[C] and act[C] would no longer
+//     fit a thread's registers: each thread keeps its pixel's depthwise
+//     results (and, for the head, its activations) in a column of dynamic
+//     shared memory, C words blockDim.x apart, which only that thread
+//     touches, and runs the pointwise and the head in chunks of
+//     kOutChunk output channels held in registers; the weights are read
+//     from device memory, every lane of a warp at one address (an L1
+//     broadcast).  The same sums in the same order.  A block of 128
+//     threads, or 64 or 32 where C columns do not fit.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxO = 32;
 constexpr int kThreads = 256;
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+// The wide kernel's block: 128 threads, or 64 or 32 where C columns (2 C
+// with the head) of that many floats do not fit; 0 where none fits.
+inline size_t wide_smem(int C, bool head, int T) {
+  return static_cast<size_t>(head ? 2 : 1) * C * T * sizeof(float);
+}
+inline int wide_threads(int C, bool head) {
+  for (int T = 128; T >= 32; T /= 2) {
+    if (wide_smem(C, head, T) <= kMaxSmem) return T;
+  }
+  return 0;
+}
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -120,6 +152,191 @@ context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+// C <= CM channels (the runtime C), any O: the weights in dynamic shared
+// memory (9 C + C C + C + O C + O floats).
+template <int CM>
+__global__ void __launch_bounds__(kThreads)
+context_layer_any(const float* __restrict__ x, float* __restrict__ out,
+                  const float* __restrict__ dw, const float* __restrict__ pwt,
+                  const float* __restrict__ pb, const float* __restrict__ hwt,
+                  const float* __restrict__ hb, int B, int C, int H, int W, int d, int O,
+                  int packed) {
+  extern __shared__ float s_any[];
+  float* s_dw = s_any;
+  float* s_pw = s_dw + 9 * C;
+  float* s_pb = s_pw + C * C;
+  float* s_hw = s_pb + C;
+  float* s_hb = s_hw + O * C;
+  const bool with_head = hwt != nullptr;
+  for (int i = threadIdx.x; i < 9 * C; i += blockDim.x) s_dw[i] = dw[i];
+  for (int i = threadIdx.x; i < C * C; i += blockDim.x) s_pw[i] = pwt[i];
+  for (int i = threadIdx.x; i < C; i += blockDim.x) s_pb[i] = pb[i];
+  if (with_head) {
+    for (int i = threadIdx.x; i < O * C; i += blockDim.x) s_hw[i] = hwt[i];
+    for (int i = threadIdx.x; i < O; i += blockDim.x) s_hb[i] = hb[i];
+  }
+  __syncthreads();
+
+  const long long HW = static_cast<long long>(H) * W;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= B * HW) return;
+  const int b = static_cast<int>(idx / HW);
+  const int p = static_cast<int>(idx - b * HW);
+  const int y = p / W;
+  const int xw = p - y * W;
+  const float* xb = x + static_cast<long long>(b) * C * HW;
+
+  float acc[CM];
+#pragma unroll
+  for (int c = 0; c < CM; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int ty = -1; ty <= 1; ++ty) {
+    const int yy = y + ty * d;
+    if (yy < 0 || yy >= H) continue;
+#pragma unroll
+    for (int tx = -1; tx <= 1; ++tx) {
+      const int xx = xw + tx * d;
+      if (xx < 0 || xx >= W) continue;
+      const float* src = xb + static_cast<long long>(yy) * W + xx;
+      const float* wt = s_dw + ((ty + 1) * 3 + (tx + 1)) * C;
+#pragma unroll
+      for (int c = 0; c < CM; ++c) {
+        if (c < C) acc[c] = fmaf(src[c * HW], wt[c], acc[c]);
+      }
+    }
+  }
+
+  float act[CM];
+#pragma unroll
+  for (int o = 0; o < CM; ++o) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      if (c < C && o < C) s = fmaf(s_pw[o * C + c], acc[c], s);
+    }
+    act[o] = o < C ? fmaxf(s + s_pb[o], 0.f) : 0.f;
+  }
+
+  float* ob = out + static_cast<long long>(b) * (with_head ? O : C) * HW + p;
+  if (!with_head) {
+#pragma unroll
+    for (int o = 0; o < CM; ++o) {
+      if (o < C) ob[o * HW] = act[o];
+    }
+    return;
+  }
+  long long os = HW;
+  if (packed) {
+    os = HW / 4;
+    ob = out + (static_cast<long long>(b) * 4 + 2 * (y & 1) + (xw & 1)) * O * os +
+         static_cast<long long>(y >> 1) * (W >> 1) + (xw >> 1);
+  }
+  for (int o = 0; o < O; ++o) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      if (c < C) s = fmaf(s_hw[o * C + c], act[c], s);
+    }
+    ob[o * os] = s + s_hb[o];
+  }
+}
+
+// C > 32 (any C), any O: a thread a pixel, its depthwise results and its
+// activations in its own column of dynamic shared memory (s_acc[c][t],
+// s_act[c][t], t = threadIdx.x), the pointwise and the head kOutChunk
+// outputs at a time in registers; weights read from device memory at
+// warp-uniform addresses.  No thread reads another's column, so no
+// barrier is needed.
+constexpr int kOutChunk = 32;
+
+__global__ void __launch_bounds__(128)
+context_layer_wide(const float* __restrict__ x, float* __restrict__ out,
+                   const float* __restrict__ dw, const float* __restrict__ pwt,
+                   const float* __restrict__ pb, const float* __restrict__ hwt,
+                   const float* __restrict__ hb, int B, int C, int H, int W, int d, int O,
+                   int packed) {
+  extern __shared__ float s_wide[];
+  const int T = blockDim.x;
+  float* s_acc = s_wide + threadIdx.x;  // s_acc[c * T]
+  float* s_act = s_acc + C * T;         // the head's activations, s_act[c * T]
+  const bool with_head = hwt != nullptr;
+  const long long HW = static_cast<long long>(H) * W;
+  const long long idx = static_cast<long long>(blockIdx.x) * T + threadIdx.x;
+  if (idx >= B * HW) return;
+  const int b = static_cast<int>(idx / HW);
+  const int p = static_cast<int>(idx - b * HW);
+  const int y = p / W;
+  const int xw = p - y * W;
+  const float* xb = x + static_cast<long long>(b) * C * HW + p;
+
+  // depthwise, channel by channel: the taps in the reference order
+  for (int c = 0; c < C; ++c) {
+    float a = 0.f;
+#pragma unroll
+    for (int ty = -1; ty <= 1; ++ty) {
+      const int yy = y + ty * d;
+      if (yy < 0 || yy >= H) continue;
+#pragma unroll
+      for (int tx = -1; tx <= 1; ++tx) {
+        const int xx = xw + tx * d;
+        if (xx < 0 || xx >= W) continue;
+        a = fmaf(xb[c * HW + static_cast<long long>(ty * d) * W + tx * d],
+                 __ldg(dw + ((ty + 1) * 3 + (tx + 1)) * C + c), a);
+      }
+    }
+    s_acc[c * T] = a;
+  }
+
+  float* ob = out + static_cast<long long>(b) * (with_head ? O : C) * HW + p;
+  // pointwise + bias + ReLU, kOutChunk outputs at a time
+  for (int o0 = 0; o0 < C; o0 += kOutChunk) {
+    float s[kOutChunk];
+#pragma unroll
+    for (int j = 0; j < kOutChunk; ++j) s[j] = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float a = s_acc[c * T];
+#pragma unroll
+      for (int j = 0; j < kOutChunk; ++j) {
+        if (o0 + j < C) s[j] = fmaf(__ldg(pwt + static_cast<long long>(o0 + j) * C + c), a, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kOutChunk; ++j) {
+      if (o0 + j < C) {
+        const float v = fmaxf(s[j] + __ldg(pb + o0 + j), 0.f);
+        if (with_head) {
+          s_act[(o0 + j) * T] = v;
+        } else {
+          ob[(o0 + j) * HW] = v;
+        }
+      }
+    }
+  }
+  if (!with_head) return;
+  long long os = HW;
+  if (packed) {
+    os = HW / 4;
+    ob = out + (static_cast<long long>(b) * 4 + 2 * (y & 1) + (xw & 1)) * O * os +
+         static_cast<long long>(y >> 1) * (W >> 1) + (xw >> 1);
+  }
+  for (int o0 = 0; o0 < O; o0 += kOutChunk) {
+    float s[kOutChunk];
+#pragma unroll
+    for (int j = 0; j < kOutChunk; ++j) s[j] = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float a = s_act[c * T];
+#pragma unroll
+      for (int j = 0; j < kOutChunk; ++j) {
+        if (o0 + j < O) s[j] = fmaf(__ldg(hwt + static_cast<long long>(o0 + j) * C + c), a, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kOutChunk; ++j) {
+      if (o0 + j < O) ob[(o0 + j) * os] = s[j] + __ldg(hb + o0 + j);
+    }
+  }
+}
+
 template <int C>
 void launch(const float* x, float* out, const float* dw, const float* pwt,
             const float* pb, const float* hwt, const float* hb, int B, int H,
@@ -130,16 +347,60 @@ void launch(const float* x, float* out, const float* dw, const float* pwt,
       x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed);
 }
 
+// Dynamic shared memory of context_layer_any: its weights.
+inline size_t any_smem(int C, int O, bool head) {
+  return (9 * static_cast<size_t>(C) + static_cast<size_t>(C) * C + C +
+          (head ? static_cast<size_t>(O) * C + O : 0)) * sizeof(float);
+}
+
+template <int CM>
+int launch_any(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
+               const float* hwt, const float* hb, int B, int C, int H, int W, int d, int O,
+               int packed, cudaStream_t stream) {
+  const size_t smem = any_smem(C, O, hwt != nullptr);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        context_layer_any<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const long long n = static_cast<long long>(B) * H * W;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  context_layer_any<CM><<<blocks, kThreads, smem, stream>>>(x, out, dw, pwt, pb, hwt, hb, B, C,
+                                                            H, W, d, O, packed);
+  return cudaSuccess;
+}
+
+int launch_wide(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
+                const float* hwt, const float* hb, int B, int C, int H, int W, int d, int O,
+                int packed, cudaStream_t stream) {
+  const int T = wide_threads(C, hwt != nullptr);
+  if (T == 0) return cudaErrorInvalidValue;
+  const size_t smem = wide_smem(C, hwt != nullptr, T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        context_layer_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const long long n = static_cast<long long>(B) * H * W;
+  const unsigned blocks = static_cast<unsigned>((n + T - 1) / T);
+  context_layer_wide<<<blocks, T, smem, stream>>>(x, out, dw, pwt, pb, hwt, hb, B, C, H, W, d, O,
+                                                  packed);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // x (B, C, H, W) -> out (B, C, H, W), or (B, O, H, W) when hwt is not null,
 // or with ``packed`` (and hwt) the phase-major (B, 4 O, H/2, W/2), H and W
-// even.  C must be 8, 16, 24 or 32 and O at most 32.
+// even.  Any C >= 1 and O >= 1 (the instance as the header says); past the
+// wide kernel's shared memory (2 C columns of 32 floats) cudaErrorInvalidValue.
 extern "C" int context_layer(const void* x, void* out, const void* dw,
                              const void* pwt, const void* pb, const void* hwt,
                              const void* hb, int B, int C, int H, int W, int d,
                              int O, int packed, void* stream) {
-  if (O > kMaxO || B <= 0 || H <= 0 || W <= 0 ||
+  if (O <= 0 || C <= 0 || B <= 0 || H <= 0 || W <= 0 ||
       (packed && (hwt == nullptr || H % 2 != 0 || W % 2 != 0)))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -150,12 +411,25 @@ extern "C" int context_layer(const void* x, void* out, const void* dw,
   auto fpb = static_cast<const float*>(pb);
   auto fhw = static_cast<const float*>(hwt);
   auto fhb = static_cast<const float*>(hb);
-  switch (C) {
-    case 8: launch<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-    case 16: launch<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-    case 24: launch<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-    case 32: launch<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-    default: return cudaErrorInvalidValue;
+  int e = cudaSuccess;
+  if (O <= kMaxO && (C == 8 || C == 16 || C == 24 || C == 32)) {
+    switch (C) {
+      case 8: launch<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      case 16: launch<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      case 24: launch<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      default: launch<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+    }
+  } else if (C <= 8) {
+    e = launch_any<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
+  } else if (C <= 16) {
+    e = launch_any<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
+  } else if (C <= 24) {
+    e = launch_any<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
+  } else if (C <= 32) {
+    e = launch_any<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
+  } else {
+    e = launch_wide(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
   }
+  if (e != cudaSuccess) return e;
   return launch_status();
 }

@@ -37,17 +37,32 @@ __device__ __forceinline__ float at_logit_precision(float v) {
 
 // The stats keep a pixel's class logits in registers: CM is the logit
 // channel count C as a compile-time constant, exact for 1 (detection only)
-// and 17 (the main path's), else the bound kAnyChannels.
+// and 17 (the main path's), else the bound kAnyChannels; past it
+// kWideChannels, a marker for any C: the class logits in chunks of
+// kAnyChannels - 1, one pixel pass a chunk (slot_pass, tiled.cuh
+// slots_pass), each pixel's softmax max and denominator taken over all
+// classes first.
 constexpr int kAnyChannels = 33;
+constexpr int kWideChannels = kAnyChannels + 1;
 
-// Calls f(std::integral_constant<int, CM>()) for C channels; more than
-// kAnyChannels are cudaErrorInvalidValue.
+// Calls f(std::integral_constant<int, CM>()) for C channels.
 template <class F>
 inline int with_channel_bound(int C, F&& f) {
   if (C == 1) return f(std::integral_constant<int, 1>());
   if (C == 17) return f(std::integral_constant<int, 17>());
   if (C <= kAnyChannels) return f(std::integral_constant<int, kAnyChannels>());
-  return cudaErrorInvalidValue;
+  return f(std::integral_constant<int, kWideChannels>());
+}
+
+// The class chunks of a pixel pass for C channels at CM: one, or for
+// kWideChannels one a kAnyChannels - 1 classes.
+template <int CM>
+__device__ __forceinline__ int class_chunks(int C) {
+  if constexpr (CM == kWideChannels) {
+    return (C - 2) / (kAnyChannels - 1) + 1;
+  } else {
+    return 1;
+  }
 }
 
 // Phase 1: threshold + connected-component labelling, in shared memory.
@@ -321,16 +336,49 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
 // rounded reciprocal of the sum, which shortens its dependent chain a
 // pixel (within an ulp or two of the division; its stats are held to the
 // f64 sums, not to K2's bits).
+//
+// kWideChannels (C > kAnyChannels): the accumulator holds the classes
+// [c0, c0 + kAnyChannels - 1) of its pass's chunk (``c0``, set_chunk), and
+// the count and the sigmoid only in the first chunk's pass; each pixel's
+// max and denominator are taken over all C - 1 class logits, in channel
+// order, reloading them, so every sum is the one a single pass would take.
 template <int CM, class T, bool kTiled = false>
 struct StatsAcc {
-  static constexpr bool kExact = CM != kAnyChannels;  // C == CM
+  static constexpr bool kWide = CM == kWideChannels;
+  static constexpr bool kExact = CM != kAnyChannels && !kWide;  // C == CM
+  static constexpr int kN = kWide ? kAnyChannels - 1 : (CM > 1 ? CM - 1 : 1);  // array size
+  static constexpr int kClasses = kWide ? kN : CM - 1;  // the class loops' bound
   int slot;
   int cnt;
   float det;
-  float cls[CM > 1 ? CM - 1 : 1];
-  float e[CM > 1 ? CM - 1 : 1];  // the pixel's class logits, from fetch()
+  float cls[kN];
+  float e[kN];  // the pixel's class logits, from fetch()
+  int c0 = 0;   // kWide: the chunk's first class
+  const T* q = nullptr;  // kWide: the pixel's logits, from fetch()
+
+  __device__ void set_chunk(int chunk) {
+    if constexpr (kWide) c0 = chunk * kN;
+  }
+  // the chunk's first class: 0 but for kWideChannels
+  __device__ int first() const {
+    if constexpr (kWide) {
+      return c0;
+    } else {
+      return 0;
+    }
+  }
+  // whether this pass sums the count and the sigmoid
+  __device__ bool lead_chunk() const { return first() == 0; }
 
   __device__ void fetch(const Logits<T>& lg, int y, int x) {
+    if constexpr (kWide) {
+      q = lg.at(y, x);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        if (c0 + c < lg.C - 1) e[c] = widen(q[(1 + c0 + c) * lg.sc]);
+      }
+      return;
+    }
     const T* q = lg.at(y, x);
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
@@ -344,7 +392,7 @@ struct StatsAcc {
     cnt = 0;
     det = 0.f;
 #pragma unroll
-    for (int c = 0; c < CM - 1; ++c) cls[c] = 0.f;
+    for (int c = 0; c < kClasses; ++c) cls[c] = 0.f;
   }
 
   // Warp-wide: lanes with ``go`` add their sums to the warp's partials.
@@ -379,23 +427,49 @@ struct StatsAcc {
     };
     const bool lead = rank == 0 && key < K;
     float* ps = part + key * C;
-    const int n = group_sum(go ? cnt : 0);
-    const float d = group_sum(go ? det : 0.f);
-    if (lead) {
-      cnt_s[key] += n;
-      ps[0] += d;
+    if (lead_chunk()) {  // warp-uniform
+      const int n = group_sum(go ? cnt : 0);
+      const float d = group_sum(go ? det : 0.f);
+      if (lead) {
+        cnt_s[key] += n;
+        ps[0] += d;
+      }
     }
+    const int f = first();
 #pragma unroll
-    for (int c = 0; c < CM - 1; ++c) {
-      if (kExact || c < C - 1) {  // uniform
+    for (int c = 0; c < kClasses; ++c) {
+      if (kExact || f + c < C - 1) {  // uniform
         const float v = group_sum(go ? cls[c] : 0.f);
-        if (lead) ps[1 + c] += v;
+        if (lead) ps[1 + f + c] += v;
       }
     }
   }
 
+  // kWideChannels: the max and the denominator of the pixel's softmax over
+  // all C - 1 class logits, in channel order (the tiled pass's
+  // denominator as its reciprocal).
+  __device__ void wide_softmax(const Logits<T>& lg, float* mx, float* den) const {
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int c = 0; c < lg.C - 1; ++c) m = fmaxf(m, widen(q[(1 + c) * lg.sc]));
+    float s = 0.f;
+    for (int c = 0; c < lg.C - 1; ++c) s += expf(widen(q[(1 + c) * lg.sc]) - m);
+    *mx = m;
+    *den = s;
+  }
+
   // The tiled pass's sums of one pixel (add's, by trees and a reciprocal).
   __device__ void add_tiled(const Logits<T>& lg, float d) {
+    if constexpr (kWide) {
+      if (lead_chunk()) det += __frcp_rn(1.f + expf(-d));
+      float mx, den;
+      wide_softmax(lg, &mx, &den);
+      const float inv = __frcp_rn(den);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        if (c0 + c < lg.C - 1) cls[c] += at_logit_precision<T>(expf(e[c] - mx) * inv);
+      }
+      return;
+    }
     det += __frcp_rn(1.f + expf(-d));
     if constexpr (CM == 1) return;
     constexpr int n = CM > 1 ? CM - 1 : 1;
@@ -436,6 +510,16 @@ struct StatsAcc {
     cnt += 1;
     if constexpr (kTiled) {
       add_tiled(lg, d);
+      return;
+    }
+    if constexpr (kWide) {
+      if (lead_chunk()) det += 1.f / (1.f + expf(-d));
+      float mx, den;
+      wide_softmax(lg, &mx, &den);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        if (c0 + c < lg.C - 1) cls[c] += at_logit_precision<T>(expf(e[c] - mx) / den);
+      }
       return;
     }
     det += 1.f / (1.f + expf(-d));
@@ -579,49 +663,61 @@ __device__ inline void slot_pass(const Det& det, const Logits<T>& lg, const Lab&
   const int bg_slot = total < K ? K - 1 : K;
   const int runs = (W + 31) / 32 * H;
   const int per_v = (runs + nv - 1) / nv;
-  for (int j = 0; j < reps; ++j) {
-    const int v = first + warp + j * nw;
-    const int set = v - first;
-    float* w_part = s.part + set * K * lg.C;
-    int* w_cnt = s.cnt + set * K;
-    StatsAcc<CM, T> acc;
-    acc.reset(K);
-    const int r0 = min(v * per_v, runs);
-    const int r1 = min(r0 + per_v, runs);
-    int y = r0 % H;
-    int x = r0 / H * 32 + lane;
-    for (int r = r0; r < r1; ++r, ++y) {
-      if (y == H) {
-        y = 0;
-        x += 32;
-      }
-      const int p = y * W + x;
-      int slot = K;
-      float d = 0.f;
-      if (x < W) {
-        acc.fetch(lg, y, x);
-        d = det(y, x);
-        const int lp = lab[p];  // loaded beside d, not after it
-        const int l = d > thr ? lp : N;
-        if (l == N) {
-          slot = bg_slot;
-        } else {
-          int lo = 0, hi = nvalid;
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (s.root[mid] < l) lo = mid + 1; else hi = mid;
+  // one pass a class chunk (kWideChannels); the first writes the slots
+  // and the extremes
+  auto pass = [&](int chunk, bool lead) {
+    for (int j = 0; j < reps; ++j) {
+      const int v = first + warp + j * nw;
+      const int set = v - first;
+      float* w_part = s.part + set * K * lg.C;
+      int* w_cnt = s.cnt + set * K;
+      StatsAcc<CM, T> acc;
+      acc.set_chunk(chunk);
+      acc.reset(K);
+      const int r0 = min(v * per_v, runs);
+      const int r1 = min(r0 + per_v, runs);
+      int y = r0 % H;
+      int x = r0 / H * 32 + lane;
+      for (int r = r0; r < r1; ++r, ++y) {
+        if (y == H) {
+          y = 0;
+          x += 32;
+        }
+        const int p = y * W + x;
+        int slot = K;
+        float d = 0.f;
+        if (x < W) {
+          acc.fetch(lg, y, x);
+          d = det(y, x);
+          const int lp = lab[p];  // loaded beside d, not after it
+          const int l = d > thr ? lp : N;
+          if (l == N) {
+            slot = bg_slot;
+          } else {
+            int lo = 0, hi = nvalid;
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              if (s.root[mid] < l) lo = mid + 1; else hi = mid;
+            }
+            slot = (lo < nvalid && s.root[lo] == l) ? lo : K;
           }
-          slot = (lo < nvalid && s.root[lo] == l) ? lo : K;
+          if (lead) {
+            slots[p] = slot;
+            if (slot < K) {
+              atomicMin(&s.mn[slot * H + y], x);
+              atomicMax(&s.mx[slot * H + y], x);
+            }
+          }
         }
-        slots[p] = slot;
-        if (slot < K) {
-          atomicMin(&s.mn[slot * H + y], x);
-          atomicMax(&s.mx[slot * H + y], x);
-        }
+        acc.add(lg, slot, d, K, w_part, w_cnt);
       }
-      acc.add(lg, slot, d, K, w_part, w_cnt);
+      if (__ballot_sync(kFull, acc.slot < K)) acc.flush(acc.slot < K, K, lg.C, w_part, w_cnt);
     }
-    if (__ballot_sync(kFull, acc.slot < K)) acc.flush(acc.slot < K, K, lg.C, w_part, w_cnt);
+  };
+  if constexpr (CM == kWideChannels) {
+    for (int chunk = 0; chunk < class_chunks<CM>(lg.C); ++chunk) pass(chunk, chunk == 0);
+  } else {
+    pass(0, true);
   }
   __syncthreads();
 }

@@ -70,6 +70,12 @@
 // (geometry.cuh StatsAcc), and the partials, their order and the warp
 // count are those of f32, so K2 and K12c stay equal bit for bit.
 //
+// Any logit channel count: up to geometry.cuh's kAnyChannels the pass
+// keeps a pixel's class logits in registers, past it one pass a chunk of
+// classes (StatsAcc, kWideChannels), the slots and extremes written by the
+// first; the one limit is one warp's partial set, K (C + 1) words, in a
+// block's shared memory.
+//
 // The ``_packed`` entry points read the packed route's phase-major logits
 // ((B, H/2, W/2, 4C), channel (2 (y & 1) + (x & 1)) C + c for pixel (y,
 // x)) in place, as the TPU module's packed_phases does: every load goes

@@ -20,6 +20,10 @@
 //     past it, so its accumulators (WIDE, the plan's acc_wide) go through
 //     the conversion instruction, exact below 2^24: (float)(biased -
 //     0x4B400000);
+//     past 2^24 (a 3x3 layer of 116 input channels and more: the plan's
+//     acc_wide 2) the same instruction rounds to nearest even, as XLA's
+//     s32 -> f32 convert does, and the value is what the JAX package
+//     computes, not (float)acc exactly;
 //   * y = fmaf((float)acc, ws, b) — ONE rounding, which is what XLA's CPU
 //     compiler makes of acc * ws + b under jit (a fused multiply-add);
 //   * v = clamp(__fmul_rn(fmaxf(y, 0), s), -127, 127); clamping before the
@@ -39,7 +43,7 @@ namespace qk {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxKWords = 72;  // 9 taps x 8 channel words (32 channels)
+constexpr int kMaxKWords = 72;  // the K table of the compiled widths: 9 taps x 8 channel words
 constexpr int kMagicBits = 0x4B400000;
 constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
 constexpr float kRawScale = static_cast<float>(127.0 / 127.5);
@@ -58,6 +62,7 @@ struct Plan {
   int acc_wide;  // the 3x3 int8-input layer's Conv3x3::WIDE
   int stride, ks, pad_t, pad_l, f32;  // a layer alone (the calibration's kinds)
   int packed;  // qconv_head: the logits phase-major (B, Ho/2, Wo/2, 4 nh)
+  int generic, off_koff;  // the any-width kernels (ConvAny) and their K offsets' region
   int a_off[kMaxKWords];  // shared-memory word offset of each K word's A from a pixel's first tap
   int b_src[kMaxKWords];  // HWIO byte index of each K word's first channel at output 0; -1: padding
   int k0_off[16];         // layer 0: input-window byte offset of each K byte (tap)
@@ -286,6 +291,101 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+
+// ---- any width (the plan's ``generic``): Cin or Cout past 32, a head of
+// more than 32 logits.  The compiled instances above fix the channel words
+// and n8 tiles at compile time; these take them from the plan and run the
+// output channels in groups of kGroupTiles n8 tiles, each group's K loop
+// over every step.  The K order is the plain one (K word j = 8 s + 4 r + t
+// is tap j / nw, channel word j % nw; zero weights past 9 nw), each K
+// word's A offset in a table in shared memory (k_offsets_any), the B
+// fragments packed straight from the HWIO weights in device memory.
+constexpr int kGroupTiles = 4;
+
+__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+
+// The A word offset of every K word of a plan's int8-input layer: a 3x3
+// kernel's taps row-major or a 1x1 kernel's window centre, at the conv's
+// halo rows (row_words, dilation d) or the stem's layer-0 tile (l0w).
+__device__ __forceinline__ void k_offsets_any(int* s_koff, const Plan& p, bool stem) {
+  const int nw = p.nw, ntaps = p.ks == 1 ? 1 : 9;
+  for (int j = threadIdx.x; j < 8 * p.nsteps; j += kThreads) {
+    int off = 0;
+    if (j < ntaps * nw) {
+      const int tap = j / nw, cw = j - tap * nw;
+      const int ty = p.ks == 1 ? 1 : tap / 3, tx = p.ks == 1 ? 1 : tap - 3 * (tap / 3);
+      off = stem ? (ty * p.l0w + tx) * nw + cw : ty * p.row_words + tx * p.d * nw + cw;
+    }
+    s_koff[j] = off;
+  }
+}
+
+// The B fragments of such a layer from its HWIO kernel q (ks, ks, cin,
+// cout) in device memory, as pack_fragments lays them out: [k step][n
+// tile][lane][register] words.
+__device__ __forceinline__ void pack_fragments_any(int* s_w, const int8_t* q, const Plan& p,
+                                                   int cin, int cout) {
+  const int nw = p.nw, ntaps = p.ks == 1 ? 1 : 9, nt = (cout + 7) / 8;
+  const int n = p.nsteps * nt * 64;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i & 1, lane = (i >> 1) & 31, tile = (i >> 6) % nt, s = (i >> 6) / nt;
+    const int j = 8 * s + 4 * r + (lane & 3), co = 8 * tile + (lane >> 2);
+    int w = 0;
+    if (j < ntaps * nw && co < cout) {
+      const int tap = j / nw, cw = j - tap * nw;
+      w = pack4(q + (static_cast<long long>(tap) * cin + 4 * cw) * cout + co, cout);
+    }
+    s_w[i] = w;
+  }
+}
+
+// A 3x3 (or 1x1) int8-input layer at any width, as its MMAs see it:
+// Conv3x3's scheme with the step count, the pixel stride and the row map
+// from the plan, the A offsets from the shared table and each output
+// group's n8 tiles taken from the packed B fragments.
+struct ConvAny {
+  int nsteps, nt, pixw, drow, p0, p1, t;
+  const int* koff;
+  const int2* bfrag;
+
+  __device__ __forceinline__ void load(const int* s_w, const int* s_koff, const Plan& p,
+                                       int cout, int stride, int lane) {
+    t = lane & 3;
+    const int g = lane >> 2;
+    p0 = p.row_step == 2 ? 2 * g : g;
+    p1 = p.row_step == 2 ? 2 * g + 1 : g + 8;
+    nsteps = p.nsteps;
+    nt = (cout + 7) / 8;
+    pixw = stride * p.nw;
+    drow = (p.row_step == 2 ? 1 : 8) * pixw;
+    koff = s_koff;
+    bfrag = reinterpret_cast<const int2*>(s_w) + lane;
+  }
+
+  // two runs' MMAs for the n8 tiles [g0, g0 + ng) (ng <= kGroupTiles): a0,
+  // a1 point at the first tap of each run's first pixel (words)
+  __device__ __forceinline__ void mma2(int (&acc0)[kGroupTiles][4],
+                                       int (&acc1)[kGroupTiles][4], const uint32_t* a0,
+                                       const uint32_t* a1, int g0, int ng) const {
+    a0 += p0 * pixw;
+    a1 += p0 * pixw;
+    for (int s = 0; s < nsteps; ++s) {
+      const int o0 = koff[8 * s + t], o1 = koff[8 * s + 4 + t];
+      const int f0[4] = {static_cast<int>(a0[o0]), static_cast<int>(a0[drow + o0]),
+                         static_cast<int>(a0[o1]), static_cast<int>(a0[drow + o1])};
+      const int f1[4] = {static_cast<int>(a1[o0]), static_cast<int>(a1[drow + o0]),
+                         static_cast<int>(a1[o1]), static_cast<int>(a1[drow + o1])};
+#pragma unroll
+      for (int n = 0; n < kGroupTiles; ++n) {
+        if (n < ng) {
+          const int2 b = bfrag[(s * nt + g0 + n) * 32];
+          mma_k32(acc0[n], f0, b.x, b.y);
+          mma_k32(acc1[n], f1, b.x, b.y);
+        }
+      }
+    }
+  }
+};
 
 // The launch of a persistent kernel: its dynamic shared memory allowed
 // (past 48 KB, once per kernel and device) and as many blocks as stay

@@ -53,8 +53,14 @@
 //     contiguous run, four n8 tiles whatever Cout (up to 32 f32 outputs,
 //     the head's 17 too);
 //     qrequant then reads acc once (16 B in, 4 B out a thread).
-// Input channels a multiple of 4 up to 32, int8 outputs a multiple of 4 up
-// to 32, logits up to 32.
+// The compiled instances above take input channels and int8 outputs a
+// multiple of 4 up to 32 and logits up to 32; every other width runs
+// qconv_any_kernel (the plan's ``generic``, qconv.cuh ConvAny): the same
+// tiles, halos and runs with the channel words, k steps and n8 tiles from
+// the plan, the output channels four n8 tiles at a time, int8 and f32
+// outputs stored straight from the registers, a head's k steps over its
+// Cout; qrequant takes any channel count.  The wrappers pad a count that is
+// not a multiple of 4 (ops/cuda/qconv_kernel.py pad_layer).
 #include "qconv.cuh"
 
 namespace {
@@ -89,10 +95,11 @@ __device__ __forceinline__ int halo_shift(const int8_t* x, const Plan& p, const 
 // columns likewise), a row every row_words words, halo byte q of a row at
 // byte halo_shift + q; by cp.async of 16 bytes (align16), else 8 (NW even:
 // a pixel is whole 8-byte chunks) or 4; zero outside the map (SAME padding).
+// NW = 0: the plan's channel words (the any-width kernel), 4-byte copies.
 template <int NW, int STRIDE>
 __device__ __forceinline__ void issue_halo(uint32_t* buf, const int8_t* x, const Plan& p,
                                            const Tile& tl) {
-  constexpr int CB = 4 * NW;  // bytes a pixel
+  const int CB = NW != 0 ? 4 * NW : 4 * p.nw;  // bytes a pixel
   const int RB = 4 * p.row_words, span = p.halo_w * CB, sh = halo_shift<STRIDE>(x, p, tl);
   const int xin = STRIDE * tl.x0 - p.pad_l;  // the halo's first input column
   uint8_t* b8 = reinterpret_cast<uint8_t*>(buf);
@@ -124,7 +131,7 @@ __device__ __forceinline__ void issue_halo(uint32_t* buf, const int8_t* x, const
         }
       }
     } else {
-      constexpr int C = NW % 2 == 0 ? 8 : 4;  // bytes a copy
+      constexpr int C = NW != 0 && NW % 2 == 0 ? 8 : 4;  // bytes a copy
       for (int e = threadIdx.x; e < span / C; e += kThreads) {
         const int q = C * e;
         if (q >= lo && q < hi) {
@@ -368,6 +375,202 @@ qconv_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
+// ---- any width (qconv.cuh ConvAny): the plan's ``generic`` ----
+
+// One run's head at any width: the run's requantized int8 outputs staged
+// in ``st`` (16 pixels of cout bytes) are the A operand (K = cout, its
+// words past cout / 4 reading word 0 against zero B words), the head's
+// n8 tiles run kGroupTiles at a time, and each lane stores its logits
+// straight to device memory (phase-major with the plan's ``packed``).
+__device__ __forceinline__ void head_run_any(const uint8_t* st, const Plan& p, float* out,
+                                             long long row, int x0, int nvalid, const int* s_wh,
+                                             const float* hws, const float* hb, int p0, int p1,
+                                             int lane) {
+  const int t = lane & 3, cout = p.cout, nh = p.nh, cw = cout / 4;
+  const int kh = (cw + 7) / 8, nth = (nh + 7) / 8;
+  const uint32_t* h0 = reinterpret_cast<const uint32_t*>(st + p0 * cout);
+  const uint32_t* h1 = reinterpret_cast<const uint32_t*>(st + p1 * cout);
+  for (int g0 = 0; g0 < nth; g0 += kGroupTiles) {
+    int hacc[kGroupTiles][4];
+    init_acc(hacc);
+    for (int ks = 0; ks < kh; ++ks) {
+      const int w0 = 8 * ks + t < cw ? 8 * ks + t : 0;
+      const int w1 = 8 * ks + 4 + t < cw ? 8 * ks + 4 + t : 0;
+      const int a[4] = {static_cast<int>(h0[w0]), static_cast<int>(h1[w0]),
+                        static_cast<int>(h0[w1]), static_cast<int>(h1[w1])};
+#pragma unroll
+      for (int n = 0; n < kGroupTiles; ++n) {
+        if (g0 + n < nth) {
+          const int* b = s_wh + ((ks * nth + g0 + n) * 2) * 32 + lane;
+          mma_k32(hacc[n], a, b[0], b[32]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kGroupTiles; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int px = h ? p1 : p0;
+        if (px >= nvalid) continue;
+        const int x = x0 + px;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * (g0 + n) + 2 * t + e;
+          if (g0 + n >= nth || c >= nh) continue;
+          // the conversion instruction: K = Cout products, exact below 2^24
+          const float v = fmaf(acc_float<true>(hacc[n][2 * h + e]), hws[c], hb[c]);
+          long long o;
+          if (p.packed) {  // row = b Ho + y, Ho even
+            o = (((row >> 1) * (p.Wo >> 1) + (x >> 1)) * 4 + 2 * (row & 1) + (x & 1)) * nh + c;
+          } else {
+            o = (row * p.Wo + x) * nh + c;
+          }
+          out[o] = v;
+        }
+      }
+    }
+  }
+}
+
+// The conv kernel at any width: qconv_tc_kernel's tiles, halos and runs,
+// each run pair's output channels kGroupTiles n8 tiles at a time.  int8
+// outputs and (F32) f32 outputs are stored straight from the registers,
+// two channels a lane; with the head the requantized runs are staged (two
+// runs of 16 pixels of cout bytes a warp) for head_run_any.
+template <int STRIDE, bool WIDE, bool F32>
+__global__ void __launch_bounds__(kThreads, 1)
+qconv_any_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ ws, const float* __restrict__ bias,
+                 const float* __restrict__ s_out, const int8_t* __restrict__ qh,
+                 const float* __restrict__ wsh, const float* __restrict__ bh,
+                 void* __restrict__ out, float* __restrict__ acc_out,
+                 const __grid_constant__ Plan p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* s_w = reinterpret_cast<int*>(smem + p.off_w);
+  int* s_wh = reinterpret_cast<int*>(smem + p.off_w0);
+  float* s_vec = reinterpret_cast<float*>(smem + p.off_vec);
+  int* s_koff = reinterpret_cast<int*>(smem + p.off_koff);
+  uint32_t* const halo = reinterpret_cast<uint32_t*>(smem + p.off_tile);  // two buffers
+  const int hbuf = p.tile_bytes / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, t = lane & 3;
+  const int cout = p.cout, nh = p.nh, rw = p.row_words;
+  const int CP = round32(cout), NP = round32(nh);
+
+  int tile = blockIdx.x;
+  issue_halo<0, STRIDE>(halo, x, p, decode(p, tile));
+  cp_async_commit();
+  k_offsets_any(s_koff, p, false);
+  pack_fragments_any(s_w, q, p, p.cin, cout);
+  if (nh > 0) {
+    const int kh = (cout / 4 + 7) / 8, nth = (nh + 7) / 8;
+    for (int i = tid; i < kh * nth * 64; i += kThreads) {
+      const int ln = i & 31, r = (i >> 5) & 1, tl = (i >> 6) % nth, ks = (i >> 6) / nth;
+      const int w = 8 * ks + 4 * r + (ln & 3), co = 8 * tl + (ln >> 2);
+      s_wh[i] = 4 * w < cout && co < nh ? pack4(qh + 4 * w * nh + co, nh) : 0;
+    }
+  }
+  for (int i = tid; i < CP; i += kThreads) {
+    s_vec[i] = i < cout ? ws[i] : 0.f;
+    s_vec[CP + i] = i < cout ? bias[i] : 0.f;
+    s_vec[2 * CP + i] = i < cout && !F32 ? s_out[i] : 0.f;
+  }
+  for (int i = tid; i < NP; i += kThreads) {
+    s_vec[3 * CP + i] = i < nh ? wsh[i] : 0.f;
+    s_vec[3 * CP + NP + i] = i < nh ? bh[i] : 0.f;
+  }
+  __syncthreads();
+  ConvAny conv;
+  conv.load(s_w, s_koff, p, cout, STRIDE, lane);
+  uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
+  const int runs = p.tw / 16, n_mt = p.th * runs, nt = (cout + 7) / 8;
+  const int half = (p.stage_bytes / 2) & ~15;  // the second run's staging
+
+  for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < p.n_tiles)
+      issue_halo<0, STRIDE>(halo + ((k + 1) & 1) * hbuf, x, p, decode(p, next));
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const Tile tl = decode(p, tile);
+    const uint32_t* buf = halo + (k & 1) * hbuf + halo_shift<STRIDE>(x, p, tl) / 4;
+    const long long row0 = static_cast<long long>(tl.b) * p.Ho;
+    for (int m = warp; m < n_mt; m += 2 * kWarps) {
+      const RunPair r = run_pair<STRIDE>(p, tl, buf, m, n_mt, runs, rw);
+      if (!r.ok[0] && !r.ok[1]) continue;
+      for (int g0 = 0; g0 < nt; g0 += kGroupTiles) {
+        int acc[2][kGroupTiles][4];
+        init_acc(acc[0]);
+        init_acc(acc[1]);
+        conv.mma2(acc[0], acc[1], r.a[0], r.a[1], g0, min(kGroupTiles, nt - g0));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!r.ok[h]) continue;
+          const int nvalid = min(16, p.Wo - r.x[h]);
+          const long long pix = (row0 + r.y[h]) * p.Wo + r.x[h];
+#pragma unroll
+          for (int n = 0; n < kGroupTiles; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * (g0 + n) + 2 * t + e;
+              if (g0 + n >= nt || c >= cout) continue;
+#pragma unroll
+              for (int v = 0; v < 2; ++v) {  // rows g, g + 8
+                const int px = v ? conv.p1 : conv.p0;
+                const int biased = acc[h][n][2 * v + e];
+                if constexpr (F32) {
+                  if (px >= nvalid) continue;
+                  const float a = acc_float<WIDE>(biased);
+                  const long long o = (pix + px) * cout + c;
+                  static_cast<float*>(out)[o] = fmaf(a, s_vec[c], s_vec[CP + c]);
+                  if (acc_out != nullptr) acc_out[o] = a;
+                } else {
+                  const uint8_t b8 = static_cast<uint8_t>(
+                      requant<WIDE>(biased, s_vec[c], s_vec[CP + c], s_vec[2 * CP + c]) & 0xFFu);
+                  if (nh > 0) {
+                    stage[h * half + px * cout + c] = b8;
+                  } else if (px < nvalid) {
+                    static_cast<uint8_t*>(out)[(pix + px) * cout + c] = b8;
+                  }
+                }
+              }
+            }
+          }
+        }
+      }
+      if (!F32 && nh > 0) {
+        __syncwarp();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (r.ok[h])
+            head_run_any(stage + h * half, p, static_cast<float*>(out), row0 + r.y[h], r.x[h],
+                         min(16, p.Wo - r.x[h]), s_wh, s_vec + 3 * CP, s_vec + 3 * CP + NP,
+                         conv.p0, conv.p1, lane);
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+}
+
+template <int STRIDE, bool WIDE, bool F32>
+int launch_any(const void* x, const void* q, const void* ws, const void* b, const void* s_out,
+               const void* qh, const void* wsh, const void* bh, void* out, void* acc_out,
+               const Plan& p, cudaStream_t stream) {
+  int grid = 0;
+  const int e =
+      persistent_grid<qconv_any_kernel<STRIDE, WIDE, F32>>(p.smem, p.n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  qconv_any_kernel<STRIDE, WIDE, F32><<<grid, kThreads, p.smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(ws), static_cast<const float*>(b),
+      static_cast<const float*>(s_out), static_cast<const int8_t*>(qh),
+      static_cast<const float*>(wsh), static_cast<const float*>(bh), out,
+      static_cast<float*>(acc_out), p);
+  return launch_status();
+}
+
 template <int NT, int NW, int STRIDE, bool F32>
 int launch(const void* x, const void* q, const void* ws, const void* b, const void* s_out,
            const void* qh, const void* wsh, const void* bh, void* out, void* acc_out,
@@ -451,6 +654,30 @@ qrequant_kernel(const float4* __restrict__ acc, const float* __restrict__ ws,
   }
 }
 
+// Requantization at any channel count: one accumulator a thread, its
+// channel's vectors read from device memory.
+__global__ void __launch_bounds__(kThreads)
+qrequant_any_kernel(const float* __restrict__ acc, const float* __restrict__ ws,
+                    const float* __restrict__ b, const float* __restrict__ s_out,
+                    int8_t* __restrict__ out, long long n, int C) {
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * kThreads) {
+    const int c = static_cast<int>(i % C);
+    out[i] = static_cast<int8_t>(
+        requant_float(acc[i], __ldg(ws + c), __ldg(b + c), __ldg(s_out + c)) & 0xFFu);
+  }
+}
+
+// The plan's any-width instance, or cudaErrorInvalidValue where the plan
+// is not one tile_plan writes for it.
+inline bool any_plan_ok(const Plan& p, bool f32) {
+  return p.generic == 1 && p.n_tiles > 0 && p.cin > 0 && p.cin % 4 == 0 && p.nw == p.cin / 4 &&
+         p.cout > 0 && p.tw % 16 == 0 && p.nh >= 0 && p.f32 == static_cast<int>(f32) &&
+         p.acc_wide >= 0 && p.acc_wide <= 2 && (f32 || p.cout % 4 == 0) &&
+         (p.row_step == 1 || p.row_step == 2) &&
+         p.nsteps == ((p.ks == 1 ? 1 : 9) * p.nw + 7) / 8;
+}
+
 }  // namespace
 
 // x: int8 (B, H, W, Cin); q: HWIO int8 (3, 3, Cin, Cout); ws, b, s_out: f32
@@ -464,13 +691,22 @@ extern "C" int qconv_tc(const void* x, const void* q, const void* ws, const void
   if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (p.generic) {
+    if (!any_plan_ok(p, false) || (p.nh > 0) != (qh != nullptr) || p.stride != 1 || p.ks != 3 ||
+        (p.packed && (p.nh == 0 || p.Ho % 2 != 0 || p.Wo % 2 != 0)))
+      return cudaErrorInvalidValue;
+    return p.acc_wide ? launch_any<1, true, false>(x, q, ws, b, s_out, qh, wsh, bh, out, nullptr,
+                                                   p, s)
+                      : launch_any<1, false, false>(x, q, ws, b, s_out, qh, wsh, bh, out,
+                                                    nullptr, p, s);
+  }
   const int nt = (p.cout + 7) / 8;
   if (p.n_tiles <= 0 || p.cin % 4 != 0 || p.cin <= 0 || p.cin > 32 || p.cout % 4 != 0 ||
       p.cout <= 0 || p.cout > 32 || p.nh < 0 || p.nh > 32 || p.nw != p.cin / 4 || p.tw % 16 != 0 ||
       (p.nh > 0) != (qh != nullptr) || p.f32 != 0 || p.stride != 1 || p.ks != 3 ||
       (p.packed && (p.nh == 0 || p.Ho % 2 != 0 || p.Wo % 2 != 0)))
     return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
   switch (nt) {
     case 1: return dispatch<1>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
     case 2: return dispatch<2>(p.nw, x, q, ws, b, s_out, qh, wsh, bh, out, p, s);
@@ -489,6 +725,18 @@ extern "C" int qconv_tc_f32(const void* x, const void* q, const void* ws, const 
   if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
+  if (p.generic) {
+    if (!any_plan_ok(p, true) || p.nh != 0 || (p.ks != 3 && p.ks != 1) ||
+        (p.stride != 1 && (p.stride != 2 || p.d != 1 || p.ks != 3)))
+      return cudaErrorInvalidValue;
+    auto s = static_cast<cudaStream_t>(stream);
+    const void* z = nullptr;
+    if (p.stride == 1)
+      return p.acc_wide ? launch_any<1, true, true>(x, q, ws, b, z, z, z, z, y, acc, p, s)
+                        : launch_any<1, false, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+    return p.acc_wide ? launch_any<2, true, true>(x, q, ws, b, z, z, z, z, y, acc, p, s)
+                      : launch_any<2, false, true>(x, q, ws, b, z, z, z, z, y, acc, p, s);
+  }
   if (p.n_tiles <= 0 || p.cin % 4 != 0 || p.cin <= 0 || p.cin > 32 || p.cout <= 0 ||
       p.cout > 32 || p.nh != 0 || p.nw != p.cin / 4 || p.tw % 16 != 0 || p.f32 != 1 ||
       (p.ks != 3 && p.ks != 1) || (p.stride != 1 && (p.stride != 2 || p.d != 1 || p.ks != 3)))
@@ -498,12 +746,23 @@ extern "C" int qconv_tc_f32(const void* x, const void* q, const void* ws, const 
                        : dispatch_f32<2>(p.nw, x, q, ws, b, y, acc, p, s);
 }
 
-// acc: f32 (n_pix, C) exact accumulators, C a multiple of 4 up to 32; ws,
-// b, s_out: f32 (C).  out: int8 (n_pix, C) =
-// clamp(rint(max(fmaf(acc, ws, b), 0) * s_out), -127, 127).
+// acc: f32 (n_pix, C) accumulators, any C; ws, b, s_out: f32 (C).  out:
+// int8 (n_pix, C) = clamp(rint(max(fmaf(acc, ws, b), 0) * s_out), -127,
+// 127): four channels a thread where C is a multiple of 4 up to 32, else
+// one (qrequant_any_kernel).
 extern "C" int qrequant(const void* acc, const void* ws, const void* b, const void* s_out,
                         void* out, long long n_pix, int C, void* stream) {
-  if (n_pix <= 0 || C <= 0 || C > 32 || C % 4 != 0) return cudaErrorInvalidValue;
+  if (n_pix <= 0 || C <= 0) return cudaErrorInvalidValue;
+  if (C > 32 || C % 4 != 0) {
+    const long long n = n_pix * C;
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    qrequant_any_kernel<<<static_cast<unsigned>(blocks < 8 * 132 ? blocks : 8 * 132), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(acc), static_cast<const float*>(ws),
+        static_cast<const float*>(b), static_cast<const float*>(s_out),
+        static_cast<int8_t*>(out), n, C);
+    return launch_status();
+  }
   const long long n_words = n_pix * (C / 4);
   const long long blocks = (n_words + kThreads - 1) / kThreads;
   qrequant_kernel<<<static_cast<unsigned>(blocks < 8 * 132 ? blocks : 8 * 132), kThreads, 0,

@@ -39,6 +39,11 @@
 // same m16n8k16 MMAs, and an f32 epilogue: y = fmaf((float)acc, ws, b)
 // and the exact (float)acc, each 16-pixel run staged and stored
 // contiguously.
+//
+// Past 32 channels (c0 or c1; the plan's ``generic``) qstem_any_kernel and
+// qlayer0_any_kernel run the same tiles with layer 0 an n8 tile at a time,
+// layer 1 through qconv.cuh ConvAny, and the outputs stored straight from
+// the registers.
 #include "qconv.cuh"
 
 namespace {
@@ -381,6 +386,257 @@ qstem_tc_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
   }
 }
 
+// ---- any width (the plan's ``generic``: c0 or c1 past 32) ----
+
+// Layer 0's K words of every n8 tile (layer0_fragments at a runtime tile
+// count): s_w0[n * 32 + lane].
+__device__ __forceinline__ void layer0_fragments_any(int* s_w0, const int8_t* q0, const Plan& p,
+                                                     int c0) {
+  const int nt0 = (c0 + 7) / 8;
+  for (int i = threadIdx.x; i < nt0 * 32; i += kThreads) {
+    const int lane = i & 31, co = 8 * (i >> 5) + (lane >> 2), tt = lane & 3;
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int src = p.k0_src[4 * tt + k];
+      if (src >= 0 && co < c0) w |= static_cast<uint32_t>(static_cast<uint8_t>(q0[src + co])) << (8 * k);
+    }
+    s_w0[i] = static_cast<int>(w);
+  }
+}
+
+// Layer 0 alone at any width with its f32 epilogue (qlayer0_tc_kernel's
+// tiles and A gather), an n8 tile at a time, each lane storing its two
+// channels of its two pixels straight to device memory.
+__global__ void __launch_bounds__(kThreads, 1)
+qlayer0_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
+                   const float* __restrict__ ws0, const float* __restrict__ b0,
+                   float* __restrict__ y, float* __restrict__ acc_out,
+                   const __grid_constant__ Plan p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* s_w0 = reinterpret_cast<int*>(smem + p.off_w0);
+  float* s_vec = reinterpret_cast<float*>(smem + p.off_vec);
+  uint8_t* s_in = smem + p.off_tile;
+  const uint32_t* s_in_w = reinterpret_cast<const uint32_t*>(s_in);
+  uint8_t* const raw = smem + p.off_raw;  // two buffers of raw_bytes
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int c0 = p.cout, l0w = p.l0w, nt0 = (c0 + 7) / 8, CP = round32(c0);
+
+  int tile = blockIdx.x;
+  issue_window(raw, x, p, decode_layer0(p, tile), warp, lane);
+  cp_async_commit();
+  layer0_fragments_any(s_w0, q0, p, c0);
+  for (int i = tid; i < CP; i += kThreads) {
+    s_vec[i] = i < c0 ? ws0[i] : 0.f;
+    s_vec[CP + i] = i < c0 ? b0[i] : 0.f;
+  }
+  __syncthreads();
+  const int n0 = p.l0h * l0w, mts0 = (n0 + 15) / 16;
+  const int trow = p.k0_off[4 * t];
+
+  for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < p.n_tiles)
+      issue_window(raw + ((k + 1) & 1) * p.raw_bytes, x, p, decode_layer0(p, next), warp, lane);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const StemTile st = decode_layer0(p, tile);
+    quantize_window(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    __syncthreads();
+    for (int m = warp; m < mts0; m += kWarps) {
+      const int pix = m * 16;
+      const int r = (pix * p.l0w_magic) >> 20, c = pix - r * l0w;  // pix / l0w
+      if (st.R0 + r >= p.H0 || st.C0 + c >= p.W0) continue;
+      int a[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int byte = 2 * r * p.in_row + trow + 2 * (c + g + 8 * h);
+        const uint32_t lo = s_in_w[byte >> 2], hi = s_in_w[(byte >> 2) + 1];
+        a[h] = t < 3 ? static_cast<int>((byte & 2) ? __byte_perm(lo, hi, 0x5432) : lo) : 0;
+      }
+      const int nvalid = min(16, p.W0 - (st.C0 + c));
+      const long long o = ((static_cast<long long>(st.b) * p.H0 + st.R0 + r) * p.W0 + st.C0 + c);
+      for (int n = 0; n < nt0; ++n) {
+        int acc[4] = {kMagicBits, kMagicBits, kMagicBits, kMagicBits};
+        mma_k16(acc, a[0], a[1], s_w0[n * 32 + lane]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = g + 8 * h;
+          if (px >= nvalid) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ch = 8 * n + 2 * t + e;
+            if (ch >= c0) continue;
+            const float av = acc_float<false>(acc[2 * h + e]);
+            const long long i = (o + px) * c0 + ch;
+            y[i] = fmaf(av, s_vec[ch], s_vec[CP + ch]);
+            if (acc_out != nullptr) acc_out[i] = av;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The stem at any width: qstem_tc_kernel's tiles, window and layer-0 tile
+// in shared memory, layer 0 an n8 tile at a time, layer 1 through ConvAny
+// at stride 2 (output groups of kGroupTiles n8 tiles), its int8 outputs
+// stored straight from the registers.  The vectors: ws0, b0, s1 at a
+// stride of round32(c0), then ws1, b1, s2 at round32(c1).
+template <bool WIDE>
+__global__ void __launch_bounds__(kThreads, 1)
+qstem_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
+                 const float* __restrict__ ws0, const float* __restrict__ b0,
+                 const float* __restrict__ s1, const int8_t* __restrict__ q1,
+                 const float* __restrict__ ws1, const float* __restrict__ b1,
+                 const float* __restrict__ s2, int8_t* __restrict__ out,
+                 const __grid_constant__ Plan p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* s_w = reinterpret_cast<int*>(smem + p.off_w);
+  int* s_w0 = reinterpret_cast<int*>(smem + p.off_w0);
+  float* s_vec = reinterpret_cast<float*>(smem + p.off_vec);
+  int* s_koff = reinterpret_cast<int*>(smem + p.off_koff);
+  uint8_t* s_in = smem + p.off_tile;
+  const uint32_t* s_in_w = reinterpret_cast<const uint32_t*>(s_in);
+  uint8_t* s_l0 = smem + p.off_l0;
+  uint8_t* const raw = smem + p.off_raw;  // two buffers of raw_bytes
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int c0 = p.c0, c1 = p.cout, l0w = p.l0w, nt0 = (c0 + 7) / 8, nt1 = (c1 + 7) / 8;
+  const int C0P = round32(c0), C1P = round32(c1);
+  float* v1 = s_vec + 3 * C0P;  // ws1, b1, s2
+
+  int tile = blockIdx.x;
+  issue_window(raw, x, p, decode(p, tile), warp, lane);
+  cp_async_commit();
+  layer0_fragments_any(s_w0, q0, p, c0);
+  k_offsets_any(s_koff, p, true);
+  pack_fragments_any(s_w, q1, p, c0, c1);
+  for (int i = tid; i < C0P; i += kThreads) {
+    s_vec[i] = i < c0 ? ws0[i] : 0.f;
+    s_vec[C0P + i] = i < c0 ? b0[i] : 0.f;
+    s_vec[2 * C0P + i] = i < c0 ? s1[i] : 0.f;
+  }
+  for (int i = tid; i < C1P; i += kThreads) {
+    v1[i] = i < c1 ? ws1[i] : 0.f;
+    v1[C1P + i] = i < c1 ? b1[i] : 0.f;
+    v1[2 * C1P + i] = i < c1 ? s2[i] : 0.f;
+  }
+  __syncthreads();
+  ConvAny conv;
+  conv.load(s_w, s_koff, p, c1, 2, lane);
+  const uint32_t* l0 = reinterpret_cast<const uint32_t*>(s_l0);
+  const int runs = p.tw / 16, n_mt = p.th * runs;
+  const int n0 = p.l0h * l0w, mts0 = (n0 + 15) / 16;
+  const int trow = p.k0_off[4 * t];
+
+  for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < p.n_tiles)
+      issue_window(raw + ((k + 1) & 1) * p.raw_bytes, x, p, decode(p, next), warp, lane);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const StemTile st = decode(p, tile);
+
+    // 1. the input window, quantized
+    quantize_window(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    __syncthreads();
+
+    // 2. layer 0 on the (2 th + 1) x (2 tw + 1) tile, an n8 tile at a time
+    for (int m = warp; m < mts0; m += kWarps) {
+      int pix[2], a[2];
+      bool ok[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pix[h] = m * 16 + g + 8 * h;
+        const bool in = pix[h] < n0;
+        const int r = (pix[h] * p.l0w_magic) >> 20, c = pix[h] - r * l0w;  // pix / l0w
+        ok[h] = in && st.R0 + r >= 0 && st.R0 + r < p.H0 && st.C0 + c >= 0 && st.C0 + c < p.W0;
+        const int byte = in ? 2 * r * p.in_row + trow + 2 * c : 0;
+        const uint32_t lo = s_in_w[byte >> 2], hi = s_in_w[(byte >> 2) + 1];
+        a[h] = t < 3 ? static_cast<int>((byte & 2) ? __byte_perm(lo, hi, 0x5432) : lo) : 0;
+      }
+      for (int n = 0; n < nt0; ++n) {
+        int acc[4] = {kMagicBits, kMagicBits, kMagicBits, kMagicBits};
+        mma_k16(acc, a[0], a[1], s_w0[n * 32 + lane]);
+        const int c = 8 * n + 2 * t;
+        if (c >= c0) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (pix[h] >= n0) continue;
+          const uint16_t v =
+              ok[h] ? pack2(requant<false>(acc[2 * h], s_vec[c], s_vec[C0P + c], s_vec[2 * C0P + c]),
+                            requant<false>(acc[2 * h + 1], s_vec[c + 1], s_vec[C0P + c + 1],
+                                           s_vec[2 * C0P + c + 1]))
+                    : static_cast<uint16_t>(0);
+          *reinterpret_cast<uint16_t*>(s_l0 + pix[h] * c0 + c) = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. layer 1 from the tile, stride 2, two runs a warp at a time
+    const long long row0 = static_cast<long long>(st.b) * p.Ho;
+    for (int m = warp; m < n_mt; m += 2 * kWarps) {
+      int ys[2], xs[2];
+      bool ok[2];
+      const uint32_t* a[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int mm = min(m + h * kWarps, n_mt - 1);
+        const int i = mm / runs, jx = (mm - i * runs) * 16;
+        ys[h] = st.Y1 + i;
+        xs[h] = st.X1 + jx;
+        ok[h] = m + h * kWarps < n_mt && ys[h] < p.Ho && xs[h] < p.Wo;
+        a[h] = l0 + (2 * i * l0w + 2 * jx) * p.nw;
+      }
+      if (!ok[0] && !ok[1]) continue;
+      for (int g0 = 0; g0 < nt1; g0 += kGroupTiles) {
+        int acc[2][kGroupTiles][4];
+        init_acc(acc[0]);
+        init_acc(acc[1]);
+        conv.mma2(acc[0], acc[1], a[0], a[1], g0, min(kGroupTiles, nt1 - g0));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!ok[h]) continue;
+          const int nvalid = min(16, p.Wo - xs[h]);
+          const long long pixo = (row0 + ys[h]) * p.Wo + xs[h];
+#pragma unroll
+          for (int n = 0; n < kGroupTiles; ++n) {
+            const int c = 8 * (g0 + n) + 2 * t;
+            if (g0 + n >= nt1 || c >= c1) continue;
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const int px = v ? conv.p1 : conv.p0;
+              if (px >= nvalid) continue;
+              *reinterpret_cast<uint16_t*>(out + (pixo + px) * c1 + c) =
+                  pack2(requant<WIDE>(acc[h][n][2 * v], v1[c], v1[C1P + c], v1[2 * C1P + c]),
+                        requant<WIDE>(acc[h][n][2 * v + 1], v1[c + 1], v1[C1P + c + 1],
+                                      v1[2 * C1P + c + 1]));
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool WIDE>
+int launch_any(const void* x, const void* q0, const void* ws0, const void* b0, const void* s1,
+               const void* q1, const void* ws1, const void* b1, const void* s2, void* out,
+               const Plan& p, cudaStream_t stream) {
+  int grid = 0;
+  const int e = persistent_grid<qstem_any_kernel<WIDE>>(p.smem, p.n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  qstem_any_kernel<WIDE><<<grid, kThreads, p.smem, stream>>>(
+      x, static_cast<const int8_t*>(q0), static_cast<const float*>(ws0),
+      static_cast<const float*>(b0), static_cast<const float*>(s1),
+      static_cast<const int8_t*>(q1), static_cast<const float*>(ws1),
+      static_cast<const float*>(b1), static_cast<const float*>(s2), static_cast<int8_t*>(out), p);
+  return launch_status();
+}
+
 template <int NW1, int NT1>
 int launch(const void* x, const void* q0, const void* ws0, const void* b0, const void* s1,
            const void* q1, const void* ws1, const void* b1, const void* s2, void* out,
@@ -434,10 +690,19 @@ extern "C" int qlayer0_tc(const void* x, const void* q0, const void* ws0, const 
   if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
-  if (p.n_tiles <= 0 || p.cout <= 0 || p.cout > 32 || p.f32 != 1 || p.in_kind < kU8Raw ||
-      p.in_kind > kF32Norm || p.l0h != p.th || p.l0w != p.tw)
+  if (p.n_tiles <= 0 || p.cout <= 0 || (p.cout > 32 && !p.generic) || p.f32 != 1 ||
+      p.in_kind < kU8Raw || p.in_kind > kF32Norm || p.l0h != p.th || p.l0w != p.tw)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if (p.generic) {
+    int grid = 0;
+    const int e = persistent_grid<qlayer0_any_kernel>(p.smem, p.n_tiles, &grid);
+    if (e != cudaSuccess) return e;
+    qlayer0_any_kernel<<<grid, kThreads, p.smem, s>>>(
+        x, static_cast<const int8_t*>(q0), static_cast<const float*>(ws0),
+        static_cast<const float*>(b0), static_cast<float*>(y), static_cast<float*>(acc), p);
+    return launch_status();
+  }
   switch ((p.cout + 7) / 8) {
     case 1: return launch_layer0<1>(x, q0, ws0, b0, y, acc, p, s);
     case 2: return launch_layer0<2>(x, q0, ws0, b0, y, acc, p, s);
@@ -456,6 +721,16 @@ extern "C" int qstem_tc(const void* x, const void* q0, const void* ws0, const vo
   if (plan_ints != qconv_plan_ints()) return cudaErrorInvalidValue;
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
+  if (p.generic) {
+    if (p.n_tiles <= 0 || p.c0 % 4 != 0 || p.c0 <= 0 || p.nw != p.c0 / 4 || p.cout % 4 != 0 ||
+        p.cout <= 0 || p.tw % 16 != 0 || p.nsteps != (9 * p.nw + 7) / 8 ||
+        p.in_kind < kU8Raw || p.in_kind > kF32Norm || p.f32 != 0 ||
+        (p.row_step != 1 && p.row_step != 2) || p.acc_wide < 0 || p.acc_wide > 2)
+      return cudaErrorInvalidValue;
+    auto s = static_cast<cudaStream_t>(stream);
+    return p.acc_wide ? launch_any<true>(x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s)
+                      : launch_any<false>(x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s);
+  }
   if (p.n_tiles <= 0 || p.c0 % 4 != 0 || p.c0 <= 0 || p.c0 > 32 || p.cout % 4 != 0 ||
       p.cout <= 0 || p.cout > 32 || p.tw % 16 != 0 || p.nsteps != p.c0 / 4 + 1 ||
       p.in_kind < kU8Raw || p.in_kind > kF32Norm || p.f32 != 0)

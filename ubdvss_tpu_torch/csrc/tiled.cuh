@@ -372,10 +372,13 @@ __device__ inline void slots_pass(const geometry::Logits<T>& lg, const Lab& lab,
   const geometry::Plane<T> det{lg.p, lg.sy, lg.sx, lg.ph};
   const int y0 = ty * R;
   const int rows = min(R, H - y0);
-  if (warp < nw) {  // warp-uniform
+  // one walk of the band a class chunk (geometry.cuh kWideChannels); the
+  // first writes the slots and the extremes
+  auto pass = [&](int chunk, bool lead) {
     float* w_part = part + warp * K * C;
     int* w_cnt = cnt + warp * K;
     geometry::StatsAcc<CM, T, true> acc;
+    acc.set_chunk(chunk);
     acc.reset(K);
     for (int u = warp; u < rows * pl.nseg; u += nw) {
       const int r = u / pl.nseg;
@@ -400,17 +403,26 @@ __device__ inline void slots_pass(const geometry::Logits<T>& lg, const Lab& lab,
             }
             slot = (lo < nvalid && root[lo] == l) ? lo : K;
           }
-          sl[y * W + x] = slot;
+          if (lead) sl[y * W + x] = slot;
         }
-        const unsigned grp = __match_any_sync(kFull, slot);
-        if (slot < K) {
-          if (lane == __ffs(grp) - 1) atomicMin(&emn[slot * R + r], x);
-          if (lane == 31 - __clz(grp)) atomicMax(&emx[slot * R + r], x);
+        if (lead) {  // warp-uniform
+          const unsigned grp = __match_any_sync(kFull, slot);
+          if (slot < K) {
+            if (lane == __ffs(grp) - 1) atomicMin(&emn[slot * R + r], x);
+            if (lane == 31 - __clz(grp)) atomicMax(&emx[slot * R + r], x);
+          }
         }
         acc.add(lg, slot, d, K, w_part, w_cnt);
       }
     }
     if (__ballot_sync(kFull, acc.slot < K)) acc.flush(acc.slot < K, K, C, w_part, w_cnt);
+  };
+  if (warp < nw) {  // warp-uniform
+    if constexpr (CM == geometry::kWideChannels) {
+      for (int chunk = 0; chunk < geometry::class_chunks<CM>(C); ++chunk) pass(chunk, chunk == 0);
+    } else {
+      pass(0, true);
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < K * rows; i += blockDim.x) {

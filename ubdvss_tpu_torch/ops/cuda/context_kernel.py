@@ -45,7 +45,8 @@ The pieces:
     then the 1x1 head;
   * ``fused_context_head`` — the K4 wrapper (one launch per layer, the
     head fused into the last, ``csrc/context_kernel.cu``; with ``packed``
-    the head stored phase-major), a ``torch.autograd.Function`` whose
+    the head stored phase-major; any C and O, ``kernel_instance``), a
+    ``torch.autograd.Function`` whose
     backward is autograd of the plain version, as the JAX package's
     ``custom_vjp``;
   * ``dense_context_head`` — each separable layer as one dense 3x3 dilated
@@ -71,10 +72,41 @@ from ubdvss_tpu_torch.models.model import (
 from ubdvss_tpu_torch.ops.ccl import _shift
 from ubdvss_tpu_torch.ops.cuda import _build
 
-# the context kernel's compiled channel counts and its head's output bound
-# (csrc/context_kernel.cu)
-KERNEL_CHANNELS = (8, 16, 24, 32)
-MAX_HEAD_OUTPUTS = 32
+# The context kernel's instances (csrc/context_kernel.cu): the per-pixel
+# register design compiled for C in EXACT_CHANNELS with at most
+# EXACT_HEAD_OUTPUTS head outputs; any other C <= 32, or a larger head, at
+# the next compiled width with the channel loops guarded ("any"); C > 32
+# with each pixel's depthwise results and activations in shared memory
+# ("wide", WIDE_THREADS threads a block, fewer where C columns do not fit).
+EXACT_CHANNELS = (8, 16, 24, 32)
+EXACT_HEAD_OUTPUTS = 32
+WIDE_THREADS = (128, 64, 32)
+SHARED_MEMORY_LIMIT = 232_448  # bytes a block may use on the H100
+
+
+def kernel_instance(C: int, O: int) -> str:
+    """Which instance of K4 runs C channels and an O-output head:
+    "exact", "any" or "wide"."""
+    if C > 32:
+        return "wide"
+    return "exact" if C in EXACT_CHANNELS and O <= EXACT_HEAD_OUTPUTS else "any"
+
+
+def kernel_smem(C: int, O: int) -> tuple[int, int]:
+    """(threads a block, bytes of dynamic shared memory) of K4's launch
+    with the O-output head at C channels, the layer that needs the most:
+    the "any" instance's weights, or the "wide" instance's per-thread
+    columns (2 C floats a thread) at the largest block that fits; (0,
+    bytes) when none fits one block's shared memory."""
+    inst = kernel_instance(C, O)
+    if inst == "exact":
+        return 256, 0
+    if inst == "any":
+        return 256, 4 * (9 * C + C * C + C + O * C + O)
+    for T in WIDE_THREADS:
+        if 4 * 2 * C * T <= SHARED_MEMORY_LIMIT:
+            return T, 4 * 2 * C * T
+    return 0, 4 * 2 * C * WIDE_THREADS[-1]
 
 
 def _pack_weights(params: dict, dilations) -> tuple:
@@ -164,10 +196,11 @@ def _launch_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations, packed) -> tor
         _build.check_input(t, name, torch.float32, len(shape), dev)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
-    if C not in KERNEL_CHANNELS or O > MAX_HEAD_OUTPUTS:
+    threads, smem = kernel_smem(C, O)
+    if threads == 0 or smem > SHARED_MEMORY_LIMIT:
         raise NotImplementedError(
-            f"C={C}, O={O}: the context kernel is compiled for C in {KERNEL_CHANNELS} "
-            f"and O <= {MAX_HEAD_OUTPUTS} (ROADMAP.md §2a)"
+            f"C={C}, O={O}: a context kernel block needs {smem} B of shared memory, "
+            f"more than the card's {SHARED_MEMORY_LIMIT}"
         )
     if packed and (H % 2 or W % 2):
         raise ValueError(f"a packed store needs an even map, got {H}x{W}")

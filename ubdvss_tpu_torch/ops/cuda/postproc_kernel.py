@@ -43,6 +43,13 @@ what a CPU tensor takes.  On the card K2 and K12c sum them in the pixel
 pass that assigns the slots, reading the class logits where the head wrote
 them, so no one-hot exists there.
 
+Any logit channel count: the kernels' stats keep up to
+``REGISTER_CHANNELS`` channels of a pixel in registers and past it run one
+pixel pass a chunk of classes (``class_chunks``; each pixel's softmax max
+and denominator over all classes first, so the sums are a single pass's).
+The one limit is the tiled plan's: one warp's partial set, K (C + 1)
+words, in one block's shared memory (``tiled_plan`` raises past it).
+
 The logits are f32 or bf16 (the bf16 route's trunk output).  On bf16
 logits the class softmax is taken in f32 and each probability rounded to
 bf16 before the f32 sums, as the JAX package stores it at the logits'
@@ -208,26 +215,27 @@ _FUNCS = _entry_points({
 _FUNCS["tiled_plan_ints"] = []
 
 
-# the kernels' stats keep a pixel's class probabilities in registers, for
-# at most this many channels (csrc/geometry.cuh, with_channel_bound)
-MAX_CHANNELS = 33
+# The kernels' stats keep a pixel's class logits in registers: up to
+# REGISTER_CHANNELS channels in one pixel pass, past it in chunks of
+# REGISTER_CHANNELS - 1 classes, one pass a chunk (csrc/geometry.cuh,
+# with_channel_bound, kWideChannels).
+REGISTER_CHANNELS = 33
+
+
+def class_chunks(C: int) -> int:
+    """The pixel passes of the stats kernels at C logit channels."""
+    return 1 if C <= REGISTER_CHANNELS else (C - 2) // (REGISTER_CHANNELS - 1) + 1
 
 
 def _check_logits(logits: torch.Tensor, packed_phases=None) -> None:
     """The kernels read the logits at their strides: f32 or bf16, 4 dims,
-    on the card, at most MAX_CHANNELS channels a pixel."""
+    on the card, any channel count."""
     if logits.device.type != "cuda":
         raise ValueError(f"logits: expected a CUDA tensor, got {logits.device}")
     if logits.dtype not in LOGIT_DTYPES:
         raise TypeError(f"logits: expected torch.float32 or torch.bfloat16, got {logits.dtype}")
     if logits.ndim != 4:
         raise ValueError(f"logits: expected 3 or 4 dims, got shape {tuple(logits.shape)}")
-    C = unpacked_shape(logits, packed_phases)[3]
-    if C > MAX_CHANNELS:
-        raise NotImplementedError(
-            f"{C} logit channels: the stats kernels take at most "
-            f"{MAX_CHANNELS} (ROADMAP.md §2a)"
-        )
 
 
 def _strides(logits: torch.Tensor, C: int, packed_phases, name: str) -> tuple[str, tuple]:
@@ -430,8 +438,9 @@ def tiled_plan(B: int, H: int, W: int, K: int, C: int) -> TiledPlan:
     nw = min(PASS_WARPS, R * nseg, (words - K) // set_words)
     if nw < 1:
         raise NotImplementedError(
-            f"K={K}, C={C}: one warp's stats partial set exceeds one block's "
-            "shared memory in the tiled slots kernel (ROADMAP.md §2a)"
+            f"K={K}, C={C}: one warp's stats partial set, K (C + 1) = {set_words} words, "
+            f"exceeds one block's shared memory ({MAX_SHARED_BYTES} B) in the tiled slots "
+            "kernel (ROADMAP.md §2a)"
         )
     ext_smem = int(K + nw * set_words + 2 * K * R <= words)
     return TiledPlan(

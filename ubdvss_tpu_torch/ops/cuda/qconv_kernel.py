@@ -26,6 +26,18 @@ stride 1 or 2, the 1x1 head) by ``qconv_tc_kernel`` with an f32 epilogue —
 and ``requantize`` turns the accumulators into the next layer's int8 input
 with the corrected bias (``qrequant``, ``csrc/qconv_kernel.cu``).
 
+Widths: the kernels' compiled instances take channel counts a multiple of
+4 up to ``COMPILED_CHANNELS`` (32); past it the any-width kernels run (the
+plan's ``generic``: the K order, the k steps and the n8 tiles from the
+plan, the output channels four n8 tiles at a time), and the wrappers pad
+any count that is not a multiple of 4 (``pad_layer``, ``pad_scale``: zero
+weights, and for padded outputs ws = 1, b = 0, s_out = 1, so they hold
+exact zeros) and slice the padding off what they return.  The only refusal
+left is a plan past one block's shared memory.  The epilogue reads the
+accumulator by ``acc_mode``: without a conversion below 2^22, with the
+conversion instruction past it, which past 2^24 rounds to nearest even as
+XLA's s32 -> f32 convert does.
+
 Every index the kernels rely on — the tiles and their halos, the split of
 a dilated layer into row phases, the (tap, channel word) order of the
 MMA's K dimension with its zero padding, the shared-memory layout — comes
@@ -70,9 +82,12 @@ from ubdvss_tpu_torch.models.model import conv2d_same, same_pad
 from ubdvss_tpu_torch.ops.cuda import _build
 from ubdvss_tpu_torch.ops.cuda.context_kernel import _s2d
 
-# the kernels' channel caps: input channels a multiple of 4 up to 32,
-# outputs up to 32 (a multiple of 4 when int8)
-MAX_CHANNELS = 32
+# The compiled instances take channel counts a multiple of 4 up to
+# COMPILED_CHANNELS (input words and n8 tiles fixed at compile time); wider
+# layers, or heads of more logits, run the any-width kernels (the plan's
+# ``generic``), and the wrappers pad other counts to a multiple of 4
+# (``pad_layer``).
+COMPILED_CHANNELS = 32
 SHARED_MEMORY_LIMIT = 232_448  # bytes a block may use on the H100
 
 # the input quantization's constants as the JAX package rounds them to f32
@@ -95,9 +110,10 @@ def quantize_input(x: torch.Tensor, raw_gray: bool) -> torch.Tensor:
 def qconv_acc_reference(x: torch.Tensor, layer: dict, stride: int, dil: int,
                         raw_gray: bool = False, padding=None) -> torch.Tensor:
     """Plain version of a layer's accumulator: int8 (B, H, W, Cin) -> the
-    exact int32 sums as f32 (B, Ho, Wo, Cout) (|acc| < 2^24 at 32 input
-    channels; the packed int8 trunk's 4x channels at most 2^24 too, the
-    extra products being zeros).  A non-int8 ``x`` is the image of layer 0
+    exact int32 sums converted to f32 (B, Ho, Wo, Cout), exact while
+    |acc| < 2^24 (up to 112 input channels of a 3x3 layer; the packed int8
+    trunk's 4x channels add only zeros), rounded to nearest even past it as
+    XLA's convert rounds.  A non-int8 ``x`` is the image of layer 0
     and is quantized first (``quantize_input``).  TF "SAME" padding, or
     ``padding`` = ((top, bottom), (left, right)) explicit zeros (the
     packed stem's ((0, 1), (0, 1)), as the JAX package's ``_qconv``)."""
@@ -156,7 +172,7 @@ def qconv_head_reference(x, layer, s_out, dil, head, packed: bool = False) -> to
 
 THREADS = 256  # a block: eight warps
 WARPS = THREADS // 32
-MAX_K_WORDS = 72  # 9 taps x 8 channel words (32 channels) = nine k32 steps
+MAX_K_WORDS = 72  # the compiled instances' K table: 9 taps x 8 channel words, nine k32 steps
 _MAX_TH, _MAX_TW = 8, 128  # qconv's output tile: 8 phase rows x up to 128 columns
 _MIN_BLOCKS = 2 * 132  # smaller tiles below this many tiles (132 SMs)
 _SMEM_TARGET = 75 * 1024  # a conv block's shared memory: three blocks an SM
@@ -170,6 +186,7 @@ PLAN_FIELDS = (
     "off_l0", "off_raw", "raw_bytes", "raw_row", "row_words", "align16",
     "H0", "W0", "pt0", "pl0", "pt1", "pl1", "l0h", "l0w", "inh", "inw", "c0", "in_kind",
     "in_row", "l0w_magic", "acc_wide", "stride", "ks", "pad_t", "pad_l", "f32", "packed",
+    "generic", "off_koff",
 )
 IN_U8_RAW, IN_F32_RAW, IN_F32_NORM = 1, 2, 3
 
@@ -192,15 +209,32 @@ def _row_step(nw: int, stride: int) -> int:
     return 2 if ws % 8 != 4 and (2 * ws) % 8 == 4 else 1
 
 
-def _acc_wide(nw: int) -> int:
-    """1 when a 3x3 layer of ``nw`` input channel words may leave the
-    epilogue's conversion-free window (``csrc/qconv.cuh``: the accumulator
-    started at the bits of 1.5 * 2^23 reads as that float plus acc only
-    while -2^22 <= acc < 2^22).  Its K is 36 nw int8 products: up to 252
-    (28 channels) |acc| <= 252 * 128^2 = 4,128,768 stays inside; at 32
-    channels 9 * 32 * 127^2 = 4,645,152 does not, and the kernel converts
-    with the instruction (``Conv3x3::WIDE``, which must agree)."""
-    return int(36 * nw * 128 * 128 >= 1 << 22)
+def acc_mode(cin: int) -> int:
+    """How the epilogue reads the accumulator of a 3x3 layer of ``cin``
+    int8 input channels (``csrc/qconv.cuh``), by its bound 9 cin 127^2
+    (the plan's ``acc_wide``, which the kernels' WIDE must agree with):
+
+      * 0 below 2^22: the accumulator started at the bits of 1.5 * 2^23
+        reads as that float plus acc, no conversion instruction (up to 28
+        channels);
+      * 1 below 2^24: the conversion instruction, exact (32 to 112);
+      * 2 from 2^24 on (116 channels and more): the same instruction,
+        which then rounds to nearest even as XLA's s32 -> f32 convert
+        does, so the epilogue reads what the JAX package computes."""
+    bound = 9 * cin * 127 * 127
+    return 0 if bound < 1 << 22 else (1 if bound < 1 << 24 else 2)
+
+
+def is_generic(kind: str, cin: int, cout: int, c0: int = 0, nh: int = 0) -> bool:
+    """Whether a plan runs the any-width kernels: a width past the compiled
+    instances' COMPILED_CHANNELS (the stem's c0 and c1, a layer's Cin and
+    Cout, a head's logits)."""
+    widths = {"stem": (c0, cout), "layer0": (cout,)}.get(kind, (cin, cout, nh))
+    return max(widths) > COMPILED_CHANNELS
+
+
+def _r32(n: int) -> int:
+    return -(-n // 32) * 32
 
 
 _TAPS_3X3 = tuple((ty, tx, 3 * ty + tx) for ty in range(3) for tx in range(3))
@@ -208,7 +242,7 @@ _TAPS_1X1 = ((1, 1, 0),)  # a 1x1 kernel read at the centre of a 3x3 window
 
 
 def _k_order(nw: int, cin: int, cout: int, word_offset,
-             taps=_TAPS_3X3) -> tuple[list, list, int]:
+             taps=_TAPS_3X3, generic: bool = False) -> tuple[list, list, int]:
     """The MMA's K dimension as (tap, channel word) pairs, padded with zero
     weights to a whole number of 32-byte k steps.  K word j = 8 s + 4 r + t
     of step s is what lane t holds in register r of the A (and B) fragment.
@@ -216,19 +250,22 @@ def _k_order(nw: int, cin: int, cout: int, word_offset,
       * nw even: the words are paired so that a lane's two words of a step
         are one 8-byte load: pair q = 4 s + t is tap q // (nw/2), channel
         words 2 (q % (nw/2)) + r, r = 0, 1;
-      * nw odd: K word j < 9 nw is tap j // nw, channel word j % nw.
+      * nw odd, and every ``generic`` plan (the any-width kernels compute
+        this order themselves, ``csrc/qconv.cuh`` k_offsets_any): K word
+        j < 9 nw is tap j // nw, channel word j % nw.
 
     ``taps`` are (window row, window column, HWIO tap index): row-major in
     the 3x3 window, or the centre alone for a 1x1 kernel.  Returns, for
-    each of the ``MAX_K_WORDS`` words, the shared-memory word offset of its
-    A operand from a pixel's first tap (``word_offset(ty, tx, cw)``; 0 for
-    padding, whose B words are zero) and the HWIO byte index of its B
-    word's first channel at output 0 (-1 for padding), and the number of k
-    steps."""
+    each of the K words (at least ``MAX_K_WORDS``, the compiled instances'
+    table), the shared-memory word offset of its A operand from a pixel's
+    first tap (``word_offset(ty, tx, cw)``; 0 for padding, whose B words
+    are zero) and the HWIO byte index of its B word's first channel at
+    output 0 (-1 for padding), and the number of k steps."""
     n = len(taps)
     nsteps = -(-n * nw // 8)
-    a_off, b_src = [0] * MAX_K_WORDS, [-1] * MAX_K_WORDS
-    if nw % 2 == 0:
+    size = max(MAX_K_WORDS, 8 * nsteps)
+    a_off, b_src = [0] * size, [-1] * size
+    if nw % 2 == 0 and not generic:
         words = []
         for q in range(n * nw // 2):
             s, t = divmod(q, 4)
@@ -263,9 +300,12 @@ class TilePlan:
 
     @functools.cached_property
     def ints(self) -> np.ndarray:
-        """The ints in the kernels' order (built once a plan)."""
-        return np.array([self.fields[f] for f in PLAN_FIELDS] + list(self.a_off)
-                        + list(self.b_src) + list(self.k0_off) + list(self.k0_src), np.int32)
+        """The ints in the kernels' order (built once a plan): the fields,
+        then the compiled instances' K table (its first MAX_K_WORDS words;
+        a generic plan's kernels compute their K order themselves)."""
+        return np.array([self.fields[f] for f in PLAN_FIELDS] + list(self.a_off[:MAX_K_WORDS])
+                        + list(self.b_src[:MAX_K_WORDS]) + list(self.k0_off)
+                        + list(self.k0_src), np.int32)
 
     def decode(self, tile: int) -> tuple:
         """Tile ``tile`` as the kernels decode it: (image, tile row origin,
@@ -340,16 +380,21 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
         raise ValueError(f"layer plan: stride {stride}, kernel {ks}x{ks}, dilation {dil}")
     if packed and (kind != "conv" or not nh or H % 2 or W % 2):
         raise ValueError(f"a packed store is the head's, on even maps: {kind}, nh={nh}, {H}x{W}")
+    generic = is_generic(kind, cin, cout, c0, nh)
     f = dict.fromkeys(PLAN_FIELDS, 0)
     f.update(B=B, H=H, W=W, cin=cin, cout=cout, nh=nh, in_kind=in_kind, d=dil,
-             packed=int(packed))
+             packed=int(packed), generic=int(generic))
     nt = -(-cout // 8)
-    vec = 6 * 32 * 4  # ws, b, s_out and the next three per-channel vectors
+    # the per-channel vectors: ws, b, s_out and the next three (the head's
+    # or layer 1's), each padded to 32 floats or, at any width, to a
+    # multiple of 32
+    vec = 6 * 32 * 4
     k0_off, k0_src = [0] * 16, [-1] * 16
+    koff = 0  # generic: the K words' A offsets, computed by the kernel
     if kind in ("conv", "layer"):
         f32 = kind == "layer"
         if f32:
-            nt, nh = 4, 0  # the f32 instances take every n8 tile
+            nt, nh = (nt if generic else 4), 0  # the compiled f32 instances take every n8 tile
         else:
             stride, ks = 1, 3
         nw = cin // 4
@@ -360,24 +405,43 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
         else:
             Ho, Wo = -(-H // 2), -(-W // 2)
             phases, R = 1, Ho
-        n_ct = -(-Wo // _MAX_TW)
-        tw = _r16(-(-Wo // n_ct))
         taps = _TAPS_3X3 if ks == 3 else _TAPS_1X1
-        # a warp's staging: two int8 runs, or one int8 run and its logits,
-        # or (f32) one run of f32 outputs
-        stage = (_r16(64 * cout + 16) if f32 else
-                 _r16(16 * cout) + (_r16(64 * nh + 16) if nh else _r16(16 * cout) + 32))
-        fixed = (_r16(-(-len(taps) * nw // 8) * nt * 256) + (4 * 256 if nh else 0) + _r16(vec)
-                 + WARPS * stage)
-        halo_w = tw + 2 * dil if stride == 1 else 2 * tw + 1
+        nsteps_k = -(-len(taps) * nw // 8)
+        if generic:
+            vec = 4 * max(6 * 32, 3 * _r32(cout) + 2 * _r32(nh))
+            koff = 4 * 8 * nsteps_k
+            # int8 and f32 outputs go straight from the registers; a head
+            # stages the warp's two requantized runs
+            stage = 2 * _r16(16 * cout) if nh else 0
+            w0_bytes = -(-cout // 32) * -(-nh // 8) * 64 * 4 if nh else 0
+        else:
+            # a warp's staging: two int8 runs, or one int8 run and its
+            # logits, or (f32) one run of f32 outputs
+            stage = (_r16(64 * cout + 16) if f32 else
+                     _r16(16 * cout) + (_r16(64 * nh + 16) if nh else _r16(16 * cout) + 32))
+            w0_bytes = 4 * 64 * 4 if nh else 0
+        fixed = (_r16(nsteps_k * nt * 256) + _r16(w0_bytes) + _r16(vec) + WARPS * stage
+                 + _r16(koff))
 
         def halo_rows(th):
             return th + 2 if stride == 1 else 2 * th + 1
 
+        def halo_cols(tw):
+            return tw + 2 * dil if stride == 1 else 2 * tw + 1
+
+        # the tile's columns: up to _MAX_TW, split evenly; at any width
+        # narrower (down to 16) where a one-row tile's halos would not fit
+        for max_tw in (_MAX_TW, 64, 32, 16) if generic else (_MAX_TW,):
+            n_ct = -(-Wo // max_tw)
+            tw = _r16(-(-Wo // n_ct))
+            if fixed + 2 * halo_rows(1) * _r16(halo_cols(tw) * cin + 15) <= SHARED_MEMORY_LIMIT:
+                break
+        halo_w = halo_cols(tw)
         # the tile's rows: three blocks an SM, enough tiles for the card,
-        # and the phase's rows split evenly
+        # and the phase's rows split evenly (any width: down to one row)
+        min_th = 1 if generic else 2
         th = min(_MAX_TH, R)
-        while th > 2 and fixed + 2 * halo_rows(th) * _r16(halo_w * cin + 15) > _SMEM_TARGET:
+        while th > min_th and fixed + 2 * halo_rows(th) * _r16(halo_w * cin + 15) > _SMEM_TARGET:
             th -= 1
         while th > 2 and B * phases * -(-R // th) * n_ct < _MIN_BLOCKS:
             th = -(-th // 2)
@@ -389,23 +453,29 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
         row_words = _r16(halo_w * cin + 15) // 4
         a_off, b_src, nsteps = _k_order(nw, cin, cout,
                                         lambda ty, tx, cw: ty * row_words + tx * dil * nw + cw,
-                                        taps)
+                                        taps, generic)
         if ks == 1:
             pad_t = pad_l = 1  # the centre of the window is the output pixel
         else:
             pad_t, pad_l = same_pad(H, 3, stride, dil)[0], same_pad(W, 3, stride, dil)[0]
         f.update(phases=phases, n_rt=-(-R // th), n_ct=n_ct, halo_h=halo_h, halo_w=halo_w,
                  row_step=_row_step(nw, stride), row_words=row_words,
-                 align16=int(W * cin % 16 == 0), acc_wide=_acc_wide(nw), stride=stride, ks=ks,
+                 align16=int(W * cin % 16 == 0), acc_wide=acc_mode(cin), stride=stride, ks=ks,
                  pad_t=pad_t, pad_l=pad_l, f32=int(f32))
-        # a halo buffer; the second also stages the raw weights at block start
-        w0_bytes = 4 * 64 * 4 if nh else 0
-        tile = max(halo_h * row_words * 4, _r16(ks * ks * cin * cout) + _r16(cout * nh))
+        # a halo buffer; the second also stages the compiled instances' raw
+        # weights at block start (the any-width kernels pack them from
+        # device memory)
+        tile = halo_h * row_words * 4
+        if not generic:
+            tile = max(tile, _r16(ks * ks * cin * cout) + _r16(cout * nh))
         tiles, l0_bytes, raw_row, raw = 2 * tile, 0, 0, 0
     elif kind == "layer0":
         H0, W0 = -(-H // 2), -(-W // 2)
         Ho, Wo, nw, nsteps = H0, W0, 0, 0
-        stage = _r16(64 * cout + 16)  # a warp's run of f32 outputs
+        # a warp's run of f32 outputs (any width: stored from the registers)
+        stage = 0 if generic else _r16(64 * cout + 16)
+        if generic:
+            vec = 4 * max(6 * 32, 2 * _r32(cout))
         a_off, b_src = [0] * MAX_K_WORDS, [-1] * MAX_K_WORDS
         tw = 64 if W0 > 32 else 32
         th = min(_MAX_TH, H0)
@@ -434,29 +504,49 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
         th = min(_MAX_TH, Ho)
         while th > 2 and B * -(-Ho // th) * -(-Wo // tw) < _MIN_BLOCKS:
             th = -(-th // 2)
+        nsteps_k = -(-9 * nw // 8)
+        raw_px = 1 if in_kind == IN_U8_RAW else 4
+        if generic:
+            vec = 4 * max(6 * 32, 3 * _r32(c0) + 3 * _r32(cout))
+            koff = 4 * 8 * nsteps_k
+
+            def stem_smem(th):  # layer 1's fragments, the layer-0 tile, two raw windows
+                l0h, l0w = 2 * th + 1, 2 * tw + 1
+                inh, inw = 2 * l0h + 1, 2 * l0w + 1
+                return (_r16(nsteps_k * nt * 256) + _r16(-(-c0 // 8) * 128) + _r16(vec)
+                        + _r16(koff) + _r16(inh * (-(-inw // 4) * 4) + 4) + _r16(l0h * l0w * c0)
+                        + 2 * _r16(inh * _r16(raw_px * inw + 15)))
+
+            while th > 1 and stem_smem(th) > SHARED_MEMORY_LIMIT:
+                th -= 1
         l0h, l0w = 2 * th + 1, 2 * tw + 1
         inh, inw = 2 * l0h + 1, 2 * l0w + 1
         in_row = -(-inw // 4) * 4  # the quantized window's row stride, whole words
         a_off, b_src, nsteps = _k_order(nw, c0, cout,
-                                        lambda ty, tx, cw: (ty * l0w + tx) * nw + cw)
+                                        lambda ty, tx, cw: (ty * l0w + tx) * nw + cw,
+                                        generic=generic)
         # layer 0's K: byte 4 ty + tx is window row ty, column tx; column 3
         # and row 3 have zero weights, so a lane's A word is one row's bytes
         for ty in range(3):
             for tx in range(4):
                 k0_off[4 * ty + tx] = ty * in_row + tx
                 k0_src[4 * ty + tx] = (3 * ty + tx) * c0 if tx < 3 else -1
-        stage = _r16(16 * cout) + 16
+        # a warp's staged run (any width: layer 1's outputs go straight
+        # from the registers)
+        stage = 0 if generic else _r16(16 * cout) + 16
         f.update(H0=H0, W0=W0, pt0=same_pad(H, 3, 2)[0], pl0=same_pad(W, 3, 2)[0],
                  pt1=same_pad(H0, 3, 2)[0], pl1=same_pad(W0, 3, 2)[0], l0h=l0h, l0w=l0w,
                  inh=inh, inw=inw, c0=c0, phases=1, n_rt=-(-Ho // th), n_ct=-(-Wo // tw),
-                 row_step=_row_step(nw, 2), in_row=in_row, acc_wide=_acc_wide(nw),
+                 row_step=_row_step(nw, 2), in_row=in_row, acc_wide=acc_mode(c0),
                  l0w_magic=-(-(1 << 20) // l0w))  # pix // l0w == pix * magic >> 20
         # the window, and one word past it that a gather's second load may touch
         w0_bytes, tile = -(-c0 // 8) * 32 * 4, _r16(inh * in_row + 4)
-        # the layer-0 tile also stages layer 1's raw weights at block start
-        tiles, l0_bytes = tile, max(l0h * l0w * c0, 9 * c0 * cout)
+        # the layer-0 tile also stages the compiled instances' layer-1 raw
+        # weights at block start
+        tiles = tile
+        l0_bytes = l0h * l0w * c0 if generic else max(l0h * l0w * c0, 9 * c0 * cout)
         # a raw window row: the aligned 16-byte blocks holding inw pixels
-        raw_row = _r16((1 if in_kind == IN_U8_RAW else 4) * inw + 15)
+        raw_row = _r16(raw_px * inw + 15)
         raw = _r16(inh * raw_row)
     else:
         raise ValueError(f"unknown plan kind {kind!r}")
@@ -465,7 +555,7 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
     regions = {}
     for name, size in (("off_w", nsteps * nt * 64 * 4), ("off_w0", w0_bytes), ("off_vec", vec),
                        ("off_stage", WARPS * stage), ("off_tile", tiles), ("off_l0", l0_bytes),
-                       ("off_raw", 2 * raw)):
+                       ("off_raw", 2 * raw), ("off_koff", koff)):
         regions[name] = off
         off += _r16(size)
     f.update(regions, Ho=Ho, Wo=Wo, th=th, tw=tw, nw=nw, nsteps=nsteps, stage_bytes=stage,
@@ -524,15 +614,38 @@ def _check_scale(s: torch.Tensor, name: str, cout: int, dev) -> None:
         raise ValueError(f"{name}: expected ({cout},), got {tuple(s.shape)}")
 
 
-def _caps(cin: int | None, couts_int8=(), couts_f32=()) -> None:
-    if (cin is not None and (cin % 4 or cin > MAX_CHANNELS)) or any(
-            c % 4 or c > MAX_CHANNELS for c in couts_int8) or any(
-            c > MAX_CHANNELS for c in couts_f32):
-        raise NotImplementedError(
-            f"Cin={cin}, int8 outputs {list(couts_int8)}, f32 outputs {list(couts_f32)}: the "
-            f"int8 conv kernels take input channels a multiple of 4 up to {MAX_CHANNELS} and at "
-            f"most {MAX_CHANNELS} outputs, a multiple of 4 when they are int8 (ROADMAP.md §2a)"
-        )
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def pad_channels(x: torch.Tensor, c: int) -> torch.Tensor:
+    """NHWC ``x`` with zero channels appended up to ``c`` (the tensor
+    itself when it has them)."""
+    n = x.shape[-1]
+    if n == c:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (c - n,))], dim=-1)
+
+
+def pad_layer(layer: dict, cin: int, cout: int) -> dict:
+    """A quantized layer padded to ``cin`` input and ``cout`` output
+    channels, as the kernels take a count that is not a multiple of 4: zero
+    int8 weights on both axes, and for the padded outputs ws = 1, b = 0, so
+    that with ``pad_scale``'s s_out = 1 they hold exact zeros (acc 0 ->
+    y 0 -> int8 0), which the next layer's zero weights then ignore."""
+    q = layer["q"]
+    if q.shape[2] == cin and q.shape[3] == cout:
+        return layer
+    qp = q.new_zeros(q.shape[:2] + (cin, cout))
+    qp[:, :, : q.shape[2], : q.shape[3]] = q
+    n = cout - q.shape[3]
+    return dict(q=qp, ws=torch.cat([layer["ws"], layer["ws"].new_ones(n)]),
+                b=torch.cat([layer["b"], layer["b"].new_zeros(n)]))
+
+
+def pad_scale(s: torch.Tensor, c: int) -> torch.Tensor:
+    """A requantization scale padded with 1 up to ``c`` channels."""
+    return s if s.shape[0] == c else torch.cat([s, s.new_ones(c - s.shape[0])])
 
 
 _PLAN_CHECKED: set = set()  # libraries whose struct Plan matches PLAN_FIELDS
@@ -547,7 +660,8 @@ def _launch(lib_name: str, funcs: dict, fn: str, dev, plan: TilePlan, *ptrs) -> 
                                f"the plan has {arr.size}")
         _PLAN_CHECKED.add(lib_name)
     if plan.smem > SHARED_MEMORY_LIMIT:
-        raise NotImplementedError(f"{fn}: {plan.smem} B of shared memory a block (ROADMAP.md §2a)")
+        raise NotImplementedError(f"{fn}: a block needs {plan.smem} B of shared memory, more "
+                                  f"than the card's {SHARED_MEMORY_LIMIT}")
     _build.launch(lib, fn, dev, *ptrs, arr.ctypes.data, arr.size)
 
 
@@ -561,16 +675,17 @@ def qconv(x: torch.Tensor, layer: dict, s_out: torch.Tensor, dil: int) -> torch.
     dev = x.device
     _build.check_input(x, "x", torch.int8, 4)
     cin, cout = _check_layer(layer, "layer", dev, 3, x.shape[-1])
-    _caps(cin, (cout,))
     _check_scale(s_out, "s_out", cout, dev)
+    ci, co = _r4(cin), _r4(cout)
+    x, layer, s_out = pad_channels(x, ci), pad_layer(layer, ci, co), pad_scale(s_out, co)
     B, H, W = x.shape[:3]
-    plan = tile_plan("conv", B, H, W, cin, cout, dil=dil)
-    out = torch.empty((B, H, W, cout), dtype=torch.int8, device=dev)
+    plan = tile_plan("conv", B, H, W, ci, co, dil=dil)
+    out = torch.empty((B, H, W, co), dtype=torch.int8, device=dev)
     _launch("qconv_kernel", _FUNCS_CONV, "qconv_tc", dev, plan, x.data_ptr(), layer["q"].data_ptr(),
             layer["ws"].data_ptr(), layer["b"].data_ptr(), s_out.data_ptr(), None, None, None,
             out.data_ptr())
     qconv.launches += 1
-    return out
+    return out if co == cout else out[..., :cout].contiguous()
 
 
 qconv.launches = 0
@@ -593,10 +708,12 @@ def qconv_head(x: torch.Tensor, layer: dict, s_out: torch.Tensor, dil: int,
     _build.check_input(x, "x", torch.int8, 4)
     cin, cout = _check_layer(layer, "layer", dev, 3, x.shape[-1])
     c_h, nh = _check_layer(head, "head", dev, 1, cout)
-    _caps(cin, (cout,), (nh,))
     _check_scale(s_out, "s_out", cout, dev)
+    ci, co = _r4(cin), _r4(cout)
+    x, layer, s_out = pad_channels(x, ci), pad_layer(layer, ci, co), pad_scale(s_out, co)
+    head = pad_layer(head, co, nh)
     B, H, W = x.shape[:3]
-    plan = tile_plan("conv", B, H, W, cin, cout, dil=dil, nh=nh, packed=packed)
+    plan = tile_plan("conv", B, H, W, ci, co, dil=dil, nh=nh, packed=packed)
     shape = (B, H // 2, W // 2, 4 * nh) if packed else (B, H, W, nh)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     _launch("qconv_kernel", _FUNCS_CONV, "qconv_tc", dev, plan, x.data_ptr(), layer["q"].data_ptr(),
@@ -628,10 +745,12 @@ def qstem(x: torch.Tensor, layer0: dict, s1: torch.Tensor, layer1: dict, s2: tor
         raise ValueError("a uint8 image is raw grayscale: pass raw_gray=True")
     _build.check_input(x, "x", x.dtype if x.dtype == torch.uint8 else torch.float32, 3)
     _, c0 = _check_layer(layer0, "layer0", dev, 3, 1)
-    _, c1 = _check_layer(layer1, "layer1", dev, 3, c0)
-    _caps(None, (c0, c1))
+    _, cout = _check_layer(layer1, "layer1", dev, 3, c0)
     _check_scale(s1, "s1", c0, dev)
-    _check_scale(s2, "s2", c1, dev)
+    _check_scale(s2, "s2", cout, dev)
+    c0, c1 = _r4(c0), _r4(cout)
+    layer0, s1 = pad_layer(layer0, 1, c0), pad_scale(s1, c0)
+    layer1, s2 = pad_layer(layer1, c0, c1), pad_scale(s2, c1)
     kind = IN_U8_RAW if x.dtype == torch.uint8 else (IN_F32_RAW if raw_gray else IN_F32_NORM)
     B, H, W = x.shape
     plan = tile_plan("stem", B, H, W, 1, c1, c0=c0, in_kind=kind)
@@ -641,7 +760,7 @@ def qstem(x: torch.Tensor, layer0: dict, s1: torch.Tensor, layer1: dict, s2: tor
             layer1["q"].data_ptr(), layer1["ws"].data_ptr(), layer1["b"].data_ptr(), s2.data_ptr(),
             out.data_ptr())
     qstem.launches += 1
-    return out
+    return out if c1 == cout else out[..., :cout].contiguous()
 
 
 qstem.launches = 0
@@ -676,7 +795,8 @@ def qconv_layer_f32(x: torch.Tensor, layer: dict, stride: int, dil: int,
     if x.dtype == torch.int8:
         _build.check_input(x, "x", torch.int8, 4)
         _check_layer(layer, "layer", dev, ks, x.shape[-1])
-        _caps(cin, (), (cout,))
+        cin = _r4(cin)  # f32 outputs: any count
+        x, layer = pad_channels(x, cin), pad_layer(layer, cin, cout)
         B, H, W = x.shape[:3]
         plan = tile_plan("layer", B, H, W, cin, cout, dil=dil, stride=stride, ks=ks)
         lib, funcs, fn = "qconv_kernel", _FUNCS_CONV_F32, "qconv_tc_f32"
@@ -688,7 +808,6 @@ def qconv_layer_f32(x: torch.Tensor, layer: dict, stride: int, dil: int,
             raise ValueError(f"layer 0 is 3x3 stride 2, got a kernel {tuple(layer['q'].shape)}, "
                              f"stride {stride}, dilation {dil}")
         _check_layer(layer, "layer", dev, 3, 1)
-        _caps(None, (), (cout,))
         B, H, W = x.shape
         plan = tile_plan("layer0", B, H, W, 1, cout, in_kind=IN_F32_NORM)
         lib, funcs, fn = "qstem_kernel", _FUNCS_LAYER0, "qlayer0_tc"
@@ -716,7 +835,6 @@ def requantize(acc: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
     _build.check_input(acc, "acc", torch.float32, acc.ndim, dev)
     for name, v in (("ws", ws), ("b", b), ("s_out", s_out)):
         _check_scale(v, name, C, dev)
-    _caps(None, (C,))
     out = torch.empty(acc.shape, dtype=torch.int8, device=dev)
     n_pix = acc.numel() // C
     if n_pix:

@@ -40,8 +40,14 @@ which a CPU tensor takes, is the JAX formulation: the original int8
 kernels placed block-wise into (3, 3, 4C, 4C) kernels (``_packed_layer``)
 on s=2 space-to-depth maps, whose int32 accumulators equal the direct
 trunk's bit for bit.  On the card the direct chain runs instead (no
-96-channel int8 conv, which the kernels' channel caps refuse anyway),
-``qconv_head`` storing its logits phase-major.
+96-channel int8 conv), ``qconv_head`` storing its logits phase-major.
+
+Any channel width runs on the card: the kernels take a multiple of 4 (past
+32 their any-width instances), so ``int8_trunk_apply`` pads the qparams
+once (``kernel_qparams``: zero weights, and for the padded outputs ws = 1,
+b = 0, s_out = 1, exact zeros) and keeps the padded activations between
+its launches; the logits come out at the head's own width.  The qparams
+themselves keep the JAX package's shapes.
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ from ubdvss_tpu_torch.ops.cuda.context_kernel import (
     _s2d,
 )
 from ubdvss_tpu_torch.ops.cuda.qconv_kernel import (
+    pad_layer,
+    pad_scale,
     qconv,
     qconv_head,
     qconv_layer_f32,
@@ -247,6 +255,25 @@ def quantize_trunk(
     return qp
 
 
+def kernel_qparams(qparams: dict) -> dict:
+    """The qparams at the channel counts the card's int8 kernels take:
+    each layer's outputs (and the next layer's inputs) padded to a
+    multiple of 4 with ``pad_layer`` / ``pad_scale`` (exact zeros in the
+    padded channels), the head's logits as they are.  The qparams
+    themselves where nothing needs padding."""
+    L = qparams["layers"]
+    widths = [-(-layer["q"].shape[3] // 4) * 4 for layer in L]
+    if all(w == layer["q"].shape[3] for w, layer in zip(widths, L)):
+        return qparams
+    layers, cin = [], 1
+    for layer, w in zip(L, widths):
+        layers.append(pad_layer(layer, cin, w))
+        cin = w
+    s = qparams["s_in"]
+    return {"layers": layers, "head": pad_layer(qparams["head"], cin, qparams["head"]["q"].shape[3]),
+            "s_in": [s[0]] + [pad_scale(v, w) for v, w in zip(s[1:], widths)]}
+
+
 def int8_trunk_apply(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False,
                      packed: bool = False) -> torch.Tensor:
     """Quantized FCN forward: images -> f32 logits (B, H/4, W/4, 1+n_cls),
@@ -256,7 +283,10 @@ def int8_trunk_apply(qparams: dict, x: torch.Tensor, cfg, raw_gray: bool = False
     [0, 255] grayscale (B, H, W), uint8 or f32 — the normalize folds into
     the input quantization of layer 0.  On the card 1 + len(dilations)
     launches: ``qstem`` (layers 0 and 1), ``qconv`` for each context layer
-    but the last, ``qconv_head`` for the last with the head."""
+    but the last, ``qconv_head`` for the last with the head, at the
+    widths of ``kernel_qparams``."""
+    if x.device.type != "cpu":
+        qparams = kernel_qparams(qparams)
     s = qparams["s_in"]
     L = qparams["layers"]
     n = len(cfg.dilations)

@@ -350,7 +350,8 @@ them.  Phases, each of which raises on failure:
      weights carried into its first 24 channels, the rest drawn from SEED
      at a small scale) and the narrow one (10 channels, 17 logits;
      init_params at SEED, the head scaled up), K=16, M=64: K4's instance
-     (the shared-memory "wide" one at 48, the guarded "any" one at 10) on 8
+     (the "wide" tile of 128 pixels by 48 channels at 48, the guarded "any"
+     one at 10) on 8
      images' features within 1e-4 of its plain version, its packed store
      == _s2d of the unpacked one; B=64 512² detect_program_batch in f32
      (K4, K1, K2, K3), bf16 (cuDNN, the bf16 K2), int8 after quantize_trunk
@@ -369,7 +370,10 @@ them.  Phases, each of which raises on failure:
      the phase-major logits, qconv_head's packed store, logits == n_strips=1's
      bit for bit, scan 0 == the host CPU's; and a kernel row for each
      instance the asset's widths never reach (ms, device ms, plain,
-     library, bound), beside one timed batch a path.
+     library, bound, and the kernel instance; the log line adds, in
+     brackets, the earlier design's device ms that scripts/
+     torch_kernel_ab.py --only widths read), beside one timed batch a
+     path.
 
 Output: human-readable lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, then the last line
@@ -453,11 +457,34 @@ def time_ms(fn, iters=ITERS, reps=REPS, warmup=WARMUP) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, iters: int = 5, reps: int = 4) -> float:
+    """Device ms of one call of fn: CUDA events around ``reps`` calls queued
+    behind a kernel that sleeps ~0.1 s, so the host's enqueueing never
+    leaves the card idle between them; the median of ``iters`` samples."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        torch.cuda._sleep(200_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def device_ms(fn, n: int = 20, tries: int = 3) -> float:
     """Mean device time of one call of fn: the sum of its kernels' CUPTI
     durations (torch.profiler), without the host's launch time.  A profile
     that recorded no kernel at all (seen once in a while) is taken again,
-    up to ``tries`` times, rather than read as 0."""
+    up to ``tries`` times, rather than read as 0; after that the time comes
+    from ``queued_ms``, which the log line says."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -473,7 +500,8 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> float:
                     if e.device_type == DeviceType.CUDA)
         if total > 0:
             return total / n / 1e3
-    raise AssertionError(f"device_ms: {tries} profiles recorded no kernel")
+    log(f"device_ms: {tries} profiles recorded no kernel; CUDA events around queued calls instead")
+    return queued_ms(fn)
 
 
 def phase_split(fn, n: int = 20) -> dict:
@@ -1575,6 +1603,29 @@ def packed_route(dev, counted, kernels: list, params_d, params16_d, q_d, cfg_l, 
 WIDE_C, WIDE_O, NARROW_C = 48, 41, 10
 N_WIDTH_HOST = 8  # images of a B=64 batch held against the host CPU
 N_WIDTH_SCANS = 2  # 2048² scans of the wide configuration
+# the int8 any-width rows' kernel instances (csrc/qconv_kernel.cu: stride,
+# WIDE accumulator reading, f32 epilogue; qstem_kernel.cu)
+INT8_ANY_INSTANCES = {
+    "qstem_any": "qstem_any_kernel<WIDE>",
+    "qconv_any": "qconv_any_kernel<1, WIDE, false>, staged stores",
+    "qconv_head_any": "qconv_any_kernel<1, WIDE, false> + head_run_any",
+    "qconv_layer_any": "qconv_any_kernel<1, WIDE, true>",
+    "qrequant_any": "qrequant_any_kernel",
+    "qconv_head_packed_any": "qconv_any_kernel<1, WIDE, false> + head_run_any, phase-major",
+}
+# device ms of the kernels' earlier designs at these rows' shapes, printed in
+# brackets beside this run's: the per-pixel column K4 and the four-tile,
+# one-block-an-SM int8 conv with its stores from registers, as
+# scripts/torch_kernel_ab.py --only widths read them (the parent's two
+# turns, CUDA events around calls queued behind a sleep) on an NVIDIA H100
+# 80GB HBM3 at 700 W
+PARENT_DESIGN_DEVICE_MS = {
+    "context_layer_wide": (18.6810, "(64, 48, 128²), head 41"),
+    "context_layer_wide_packed": (9.6049, "(2, 48, 512²), packed"),
+    "qconv_any": (1.6093, "the six at 48 channels"),
+    "qconv_head_any": (0.4379, "48 channels, 41 logits"),
+    "qconv_layer_any": (0.7151, "48 channels"),
+}
 
 
 def carry_flat(flat: dict, channels: int, n_out: int, seed: int, scale: float = 0.02) -> dict:
@@ -1870,6 +1921,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 name=f"context_layer_{tag}", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/context_kernel.py:39",
                 launches=n_f["context_layer"], max_abs_err=err_k4, channels=C, outputs=O,
+                instance=r["k4_instance"],
                 ms=time_ms(k4, iters=5, reps=2), device_ms=device_ms(k4, n=5),
                 plain_ms=time_ms(lambda: ck.context_head_reference(xc, *w, dil), iters=2, reps=1, warmup=1),
                 library_ms=time_ms(lambda: library_context(xc, w, dil), iters=5, reps=2),
@@ -1949,7 +2001,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 lib_ms = time_ms(lambda libs=libs: [c() for c in libs], iters=3, reps=2)
             rows.append(dict(
                 name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
-                launches=n_, max_abs_err=0.0, channels=C, outputs=O,
+                launches=n_, max_abs_err=0.0, channels=C, outputs=O, instance=INT8_ANY_INSTANCES[rname],
                 ms=time_ms(run, iters=5, reps=2), device_ms=device_ms(run, n=5),
                 plain_ms=time_ms(lambda plains=plains: [c() for c in plains], iters=1, reps=1, warmup=0),
                 library_ms=lib_ms, bound=bound(nbytes, ops, INT8_OPS)))
@@ -1970,7 +2022,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}",
                 replaces="ubdvss_tpu/ops/quant.py:276" if rname == "qconv_layer_any" else "ubdvss_tpu/ops/quant.py:192",
                 launches=n_cal["qconv_layer" if rname == "qconv_layer_any" else "qrequant"],
-                max_abs_err=0.0, channels=C,
+                max_abs_err=0.0, channels=C, instance=INT8_ANY_INSTANCES[rname],
                 ms=time_ms(call, iters=5, reps=2), device_ms=device_ms(call, n=5),
                 plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
                 library_ms=lib_ms if lib is not None else None,
@@ -2042,6 +2094,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 name="context_layer_wide_packed", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/context_kernel.py:388 (s2d_context_head unpack=False)",
                 launches=n_p["context_layer_packed"], max_abs_err=err_k4p, channels=C, outputs=O,
+                instance=r["k4_instance"],
                 ms=time_ms(k4p, iters=3, reps=2), device_ms=device_ms(k4p, n=3),
                 plain_ms=time_ms(lambda: ck._s2d_planes(ck.context_head_reference(xs, *w, dil)),
                                  iters=1, reps=1, warmup=0),
@@ -2090,6 +2143,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             name="qconv_head_packed_any", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_kernel.cu",
             replaces="ubdvss_tpu/ops/quant.py:332 (int8_packed_trunk_apply's head)",
             launches=n_p8["qconv_head_packed"], max_abs_err=0.0, channels=C, outputs=O,
+            instance=INT8_ANY_INSTANCES["qconv_head_packed_any"],
             ms=time_ms(hp, iters=3, reps=2), device_ms=device_ms(hp, n=3),
             plain_ms=time_ms(lambda: kq.qconv_head_reference(*head_s, packed=True), iters=1, reps=1, warmup=0),
             library_ms=lib_ms, bound=bound(pxs * Ci + pxs * O * 4, 2 * pxs * (C * C * 9 + C * O), INT8_OPS)))
@@ -2097,9 +2151,12 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             params_d, sc_d, cfg, (SCAN, SCAN), detections_only=True), iters=3, reps=1)
     for row in rows:
         row["bound_ms"], row["bound_by"] = row.pop("bound")
-        log(f"time {row['name']}: {row['ms']:.4f} ms/call, device {row['device_ms']:.4f} (plain "
-            f"{row['plain_ms']:.4f}, library {row['library_ms']}, bound {row['bound_ms']:.4f} by "
-            f"{row['bound_by']}), {row['launches']} launches on its path")
+        inst = f" ({row['instance']})" if "instance" in row else ""
+        before = PARENT_DESIGN_DEVICE_MS.get(row["name"])
+        before = "" if before is None else f" [the earlier design {before[0]:.4f}, {before[1]}]"
+        log(f"time {row['name']}{inst}: {row['ms']:.4f} ms/call, device {row['device_ms']:.4f}"
+            f"{before} (plain {row['plain_ms']:.4f}, library {row['library_ms']}, bound "
+            f"{row['bound_ms']:.4f} by {row['bound_by']}), {row['launches']} launches on its path")
     kernels += rows
     return report
 

@@ -2,11 +2,11 @@
 """Parent against change for the port's kernels on one CUDA card: the
 geometry kernels (CCL K1, slots K2, fused compat geometry K12c, compacted
 rect K3 and uncompacted rect K3x), the int8 trunk and the calibration's
-bias correction, the tiled kernels of the large maps, and K3x's tall
-instance.
+bias correction, the tiled kernels of the large maps, K3x's tall
+instance, and the any-width instances of K4 and the int8 convs.
 
     python3 scripts/torch_kernel_ab.py --parent PARENT_TREE
-        [--only geometry|int8|tiled|tall] [--variants TREE ...] [--out FILE]
+        [--only geometry|int8|tiled|tall|widths] [--variants TREE ...] [--out FILE]
 
 PARENT_TREE is an unpacked earlier commit of this repository (for example
 ``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
@@ -83,6 +83,34 @@ at its step comments, this tree's compiled with ``-DRECT_TALL_STAMPS``)
 gives the cycles of each step for the case's slowest component.  Each
 ``--variants`` tree (another ``csrc/rect_kernel.cu`` of the change) has
 its rows checked against the change's and is timed in the change's turns.
+
+widths: the kernels of the widths past the asset's, both trees'
+``context_kernel.cu`` and ``qconv_kernel.cu`` (with ``qconv.cuh``) called
+through their C entry points, each tree's int8 launches with the plan of
+its own ``tile_plan``.  K4 (``context_layer``, one launch a layer, the head
+fused into the last) on the wide configuration (48 channels, 41 logits,
+``chip_smoke.carry_flat`` of the asset, seed 7): the stem's features of 64
+synthetic 512² scenes (seed 7), (64, 48, 128²) unpacked, and of two 2048²
+scans (seed 11), (2, 48, 512²) packed; then random features and weights
+(seed 7) at (64, C, 128²), C = 40, 64, 96, head 41.  The outputs must be
+the parent's bit for bit and within max(1e-4, 1e-5 max|logit|) of the
+plain version.  int8 at 48 and 64 channels (``quantize_trunk`` on 8 of
+the scenes): the six context layers' ``qconv`` on the trunk's own inputs,
+and at 48 ``qconv_head`` (unpacked and packed) and the calibration's
+``qconv_layer`` (layer 1 of the six, f32 pre-activations and exact
+accumulators), every output equal to the plain version and to the
+parent's bit for bit.  Each case is timed in turns, with its bound
+(``chip_smoke.bound``) and the library call beside it (cuDNN's depthwise
+and 1x1 chain for K4, f32 ``F.conv2d`` on the int8 values for the int8
+kernels, TF32 off): CUDA events around back-to-back calls, CUDA events
+around calls queued behind a sleeping kernel (``chip_smoke.queued_ms``:
+the device's time, whatever the host's enqueueing costs) and the profiler's device ms
+(which has been seen to drop launches on that machine), and each tree's
+kernels by launch from its first turn: device ms, registers, shared
+memory, resident warps an SM (``chip_smoke.phase_split``).  Each
+``--variants`` tree (another ``csrc/context_kernel.cu`` of the change) has
+its K4 outputs checked against the change's bit for bit and is timed in
+the change's turns.
 
 Prints one JSON object and writes it to FILE (default
 ``build/ab/ab.json``); exits non-zero on a mismatch.
@@ -830,10 +858,261 @@ def tiled_ab(args, dev, res: dict) -> None:
             print(json.dumps(log_case), flush=True)
 
 
+def _tree_module(tree: Path, name: str):
+    """``ubdvss_tpu_torch/ops/cuda/<name>.py`` of another tree, loaded under
+    a name of its own (its imports resolve to this tree's package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"ab_{tree.name}_{name}", tree / "ubdvss_tpu_torch" / "ops" / "cuda" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def widths_ab(args, dev, res: dict) -> None:
+    """The any-width kernels, parent against change (module docstring)."""
+    from chip_smoke import INT8_OPS, SEED, bound, carry_flat, phase_split, queued_ms
+
+    from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
+    from ubdvss_tpu_torch.ops.cuda import qconv_kernel as qk
+    from ubdvss_tpu_torch.ops.quant import quantize_trunk
+
+    srcs = ("context_kernel", "qconv_kernel")
+    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parentw", srcs),
+            "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "changew", srcs)}
+    variants = [v.name for v in args.variants]  # other context_kernel.cu of the change
+    for v in args.variants:
+        libs[v.name] = build(v / "ubdvss_tpu_torch" / "csrc", f"{v.name}w", ("context_kernel",))
+    parent_qk = _tree_module(args.parent, "qconv_kernel")
+    if tuple(parent_qk.PLAN_FIELDS) != qk.PLAN_FIELDS:
+        raise RuntimeError("the parent's struct Plan differs from this tree's")
+    plans = {"parent": parent_qk.tile_plan, "change": qk.tile_plan}
+    ptr = lambda t: P(None if t is None else t.data_ptr())  # noqa: E731
+    F_ = torch.nn.functional
+    turns = ("parent", "change", "change", "parent")
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
+    reader = SyntheticMarkupReader(n_samples=64, image_hw=(512, 512), seed=SEED)
+    imgs = torch.from_numpy(np.stack([reader.sample_at(i).image for i in range(64)])).to(dev)
+    scans = torch.from_numpy(np.stack([SyntheticMarkupReader(n_samples=2, image_hw=(2048, 2048),
+                                                             seed=11).sample_at(i).image
+                                       for i in range(2)])).to(dev)
+
+    def config(C, O=41):
+        cfg = NetConfig(max_components=16, max_hull_points=64, channels=C,
+                        class_names=tuple(f"sym{i}" for i in range(O - 1)))
+        flat = carry_flat(load_params_npz(asset), C, O, SEED)
+        return cfg, {k: v.to(dev) for k, v in params_from_flat(flat).items()}
+
+    def timed(case, calls, lib=None, split=True):
+        """Each tree's call in turns (CUDA events back to back, CUDA events
+        queued behind a sleep: device ms, profiler device ms), the variants
+        in the change's turns, the kernels of each tree's first turn by
+        launch, the library call once."""
+        seen = set()
+        for turn in turns:
+            for tag in [turn] + ([v for v in variants if v in calls] if turn == "change" else []):
+                key = f"{case}_{tag}"
+                res.setdefault(key, []).append(time_ms(calls[tag], iters=5, reps=4))
+                res.setdefault(key + "_queued", []).append(queued_ms(calls[tag]))
+                res.setdefault(key + "_device", []).append(device_ms(calls[tag], n=5))
+                if split and tag not in seen:
+                    res[key + "_launches"] = phase_split(calls[tag], n=3)
+                    seen.add(tag)
+        if lib is not None:
+            with exact_f32():
+                res[f"{case}_library"] = time_ms(lib, iters=3, reps=2)
+        log = {k: v for k, v in res.items() if k.startswith(case)}
+        print(json.dumps(log), flush=True)
+
+    # ---- K4: the whole call, one launch a layer, the head fused into the last
+    def k4_calls(x, w, dil, packed):
+        B, C, H, W = x.shape
+        O, L = w[3].shape[0], len(dil)
+        shape = (B, 4 * O, H // 2, W // 2) if packed else (B, O, H, W)
+        tags = ("parent", "change", *variants)
+        outs = {tag: (torch.empty_like(x), torch.empty_like(x),
+                      torch.empty(shape, device=dev)) for tag in tags}
+
+        def call(tag):
+            cur = x
+            for li, d in enumerate(dil):
+                last = li == L - 1
+                dst = outs[tag][2] if last else outs[tag][li % 2]
+                check(libs[tag]["context_kernel"].context_layer(
+                    ptr(cur), ptr(dst), ptr(w[0][li]), ptr(w[1][li]), ptr(w[2][li]),
+                    ptr(w[3] if last else None), ptr(w[4] if last else None), I(B), I(C), I(H),
+                    I(W), I(d), I(O), I(int(packed and last)), stream()), f"{tag} context_layer")
+                cur = dst
+            return outs[tag][2]
+
+        return {tag: (lambda tag=tag: call(tag)) for tag in tags}
+
+    def k4_library(x, w, dil):
+        C = x.shape[1]
+        for li, d in enumerate(dil):
+            x = F_.conv2d(x, w[0][li, :, :, 0, 0].T.reshape(C, 1, 3, 3), None, 1, d, d, C)
+            x = torch.relu(F_.conv2d(x, w[1][li][:, :, None, None], w[2][li][:, 0, 0]))
+        return F_.conv2d(x, w[3][:, :, None, None], w[4][:, 0, 0])
+
+    def k4_case(case, x, w, dil, packed):
+        calls = k4_calls(x, w, dil, packed)
+        got = {tag: calls[tag]().clone() for tag in calls}
+        torch.cuda.synchronize()
+        for v in variants:
+            if not torch.equal(got[v], got["change"]):
+                raise AssertionError(f"{case}: the variant {v}'s outputs differ from the change's")
+        with exact_f32():
+            ref = ck.context_head_reference(x, *w, dil)
+        if packed:
+            ref = ck._s2d_planes(ref)
+        err = float((got["change"] - ref).abs().max())
+        tol = max(1e-4, 1e-5 * float(ref.abs().max()))
+        if not torch.equal(got["parent"], got["change"]):
+            raise AssertionError(f"{case}: {int((got['parent'] != got['change']).sum())} outputs "
+                                 f"differ from the parent's (max {float((got['parent'] - got['change']).abs().max())})")
+        if not err <= tol:
+            raise AssertionError(f"{case}: max|err| {err} against the plain version past {tol}")
+        B, C, H, W = x.shape
+        O, L = w[3].shape[0], len(dil)
+        px = B * H * W
+        res[f"{case}_shape"] = [B, C, H, W, O, int(packed)]
+        res[f"{case}_instance"] = ck.kernel_instance(C, O)
+        res[f"{case}_bit_for_bit"] = True
+        res[f"{case}_max_abs_err"] = err
+        res[f"{case}_bound"] = bound((px * C + px * O) * 4 + sum(t.numel() for t in w) * 4,
+                                     px * (L * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2))
+        timed(case, calls, lambda: k4_library(x, w, dil))
+
+    dil = tuple(NetConfig().dilations)
+    with torch.inference_mode():
+        cfg48, p48 = config(48)
+        w48 = ck._pack_weights(p48, dil)
+        with exact_f32():
+            x48 = ck.stem_apply(p48, imgs.float()[..., None], cfg48,
+                                raw_gray=True).permute(0, 3, 1, 2).contiguous()
+            xs = ck.stem_apply(p48, scans.float()[..., None], cfg48,
+                               raw_gray=True).permute(0, 3, 1, 2).contiguous()
+        k4_case("k4_wide_64x48x128", x48, w48, dil, False)
+        k4_case("k4_wide_packed_2x48x512", xs, w48, dil, True)
+        del xs
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for C in (40, 64, 96):
+            L, O = len(dil), 41
+            x = torch.randn((64, C, 128, 128), generator=gen, device=dev)
+            w = [torch.randn(shape, generator=gen, device=dev) * s for s, shape in (
+                (0.3, (L, 9, C, 1, 1)), (0.3 / np.sqrt(C / 8), (L, C, C)), (0.1, (L, C, 1, 1)),
+                (0.3, (O, C)), (0.1, (O, 1, 1)))]
+            k4_case(f"k4_C{C}_64x128", x, w, dil, False)
+            del x
+        torch.cuda.empty_cache()
+
+        # ---- int8 at 48 and 64 channels: the six qconv, qconv_head, qconv_layer
+        for C in (48, 64):
+            cfg, params = (cfg48, p48) if C == 48 else config(C)
+            calib = (imgs[:8].float() / 127.5 - 1.0)[..., None]
+            q = quantize_trunk(params, cfg, calib)
+            L8, s8 = q["layers"], q["s_in"]
+            xq = qk.qstem(imgs, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
+            B, H, W = xq.shape[:3]
+            ins = []
+            for li, d in enumerate(dil[:-1]):
+                ins.append((xq, L8[2 + li], s8[3 + li], d))
+                xq = qk.qconv(*ins[-1])
+            head_in = (xq, L8[1 + len(dil)], s8[2 + len(dil)], dil[-1], q["head"])
+            arrs = []  # the plans' ints, kept alive while their calls are
+
+            def conv_calls(tag, a, out, head=None, packed=False):
+                x_, layer, s_out, d = a
+                nh = 0 if head is None else head["q"].shape[-1]
+                arr = plans[tag]("conv", B, H, W, C, C, dil=d, nh=nh, packed=packed).ints
+                arrs.append(arr)
+                hp = (None, None, None) if head is None else (head["q"], head["ws"], head["b"])
+                fn = libs[tag]["qconv_kernel"].qconv_tc
+                args_ = (ptr(x_), ptr(layer["q"]), ptr(layer["ws"]), ptr(layer["b"]), ptr(s_out),
+                         *(ptr(t) for t in hp), ptr(out), P(arr.ctypes.data), I(arr.size))
+                return lambda: check(fn(*args_, stream()), f"{tag} qconv_tc")
+
+            outs = {tag: [torch.empty((B, H, W, C), dtype=torch.int8, device=dev) for _ in ins]
+                    for tag in ("parent", "change")}
+            six = {tag: [conv_calls(tag, a, o) for a, o in zip(ins, outs[tag])]
+                   for tag in ("parent", "change")}
+            for tag in six:
+                for c in six[tag]:
+                    c()
+            torch.cuda.synchronize()
+            for li, a in enumerate(ins):
+                ref = qk.qconv_reference(a[0], a[1], a[2], 1, a[3])
+                for tag in ("parent", "change"):
+                    if not torch.equal(outs[tag][li], ref):
+                        raise AssertionError(f"qconv {C} layer {li}: the {tag} differs from "
+                                             "qconv_reference")
+            case = f"qconv_any_six_{C}"
+            res[f"{case}_bit_for_bit"] = True
+            res[f"{case}_bound"] = bound(len(ins) * 2 * B * H * W * C, len(ins) * 2 * B * H * W * C * C * 9,
+                                         INT8_OPS)
+
+            def conv_lib(a):
+                xf = a[0].permute(0, 3, 1, 2).float().contiguous()
+                wf = a[1]["q"].permute(3, 2, 0, 1).float().contiguous()
+                pad = a[3] if wf.shape[-1] == 3 else 0
+                return lambda: F_.conv2d(xf, wf, None, 1, pad, a[3])
+
+            libs6 = [conv_lib(a) for a in ins]
+            timed(case, {tag: (lambda tag=tag: [c() for c in six[tag]]) for tag in six},
+                  lambda: [c() for c in libs6])
+            if C != 48:
+                continue
+            # qconv_head any (unpacked and packed) and the calibration's qconv_layer any
+            nh = q["head"]["q"].shape[-1]
+            for packed in (False, True):
+                shape = (B, H // 2, W // 2, 4 * nh) if packed else (B, H, W, nh)
+                houts = {tag: torch.empty(shape, device=dev) for tag in ("parent", "change")}
+                calls = {tag: conv_calls(tag, head_in[:4], houts[tag], head_in[4], packed)
+                         for tag in houts}
+                for c in calls.values():
+                    c()
+                torch.cuda.synchronize()
+                ref = qk.qconv_head_reference(*head_in, packed=packed)
+                for tag in houts:
+                    if not torch.equal(houts[tag], ref):
+                        raise AssertionError(f"qconv_head {C} packed={packed}: the {tag} differs "
+                                             "from its plain version")
+                case = f"qconv_head_any_{C}" + ("_packed" if packed else "")
+                res[f"{case}_bit_for_bit"] = True
+                hlib = [conv_lib(head_in[:4]),
+                        conv_lib((xq, q["head"], None, 1))]
+                timed(case, calls, lambda: [c() for c in hlib])
+            xa, La, _, da = ins[1]
+            ys = {tag: (torch.empty((B, H, W, C), device=dev), torch.empty((B, H, W, C), device=dev))
+                  for tag in ("parent", "change")}
+
+            def layer_call(tag):
+                arr = plans[tag]("layer", B, H, W, C, C, dil=da).ints
+                arrs.append(arr)
+                fn = libs[tag]["qconv_kernel"].qconv_tc_f32
+                args_ = (ptr(xa), ptr(La["q"]), ptr(La["ws"]), ptr(La["b"]), ptr(ys[tag][0]),
+                         ptr(ys[tag][1]), P(arr.ctypes.data), I(arr.size))
+                return lambda: check(fn(*args_, stream()), f"{tag} qconv_tc_f32")
+
+            calls = {tag: layer_call(tag) for tag in ys}
+            for c in calls.values():
+                c()
+            torch.cuda.synchronize()
+            acc = qk.qconv_acc_reference(xa, La, 1, da)
+            y = qk.requantize_reference(acc, La["ws"], La["b"], None)
+            for tag in ys:
+                if not (torch.equal(ys[tag][0], y) and torch.equal(ys[tag][1], acc)):
+                    raise AssertionError(f"qconv_layer {C}: the {tag} differs from its plain version")
+            res[f"qconv_layer_any_{C}_bit_for_bit"] = True
+            timed(f"qconv_layer_any_{C}", calls, conv_lib(ins[1]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--only", choices=("geometry", "int8", "tiled", "tall"), default=None)
+    ap.add_argument("--only", choices=("geometry", "int8", "tiled", "tall", "widths"), default=None)
     ap.add_argument("--variants", type=Path, nargs="*", default=[])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
     args = ap.parse_args()
@@ -849,6 +1128,8 @@ def main() -> int:
         tiled_ab(args, dev, res)
     if args.only in (None, "tall"):
         tall_ab(args, dev, res)
+    if args.only in (None, "widths"):
+        widths_ab(args, dev, res)
     print(json.dumps(res), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))

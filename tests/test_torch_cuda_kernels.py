@@ -1852,17 +1852,24 @@ def test_packed_route_on_card_matches_whole_image_route(dev):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("O", [1, 33, 41])
-@pytest.mark.parametrize("C", [4, 10, 40, 48, 64])
+@pytest.mark.parametrize("C", [4, 10, 33, 40, 48, 64, 96, 160])
 def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
     """K4 at widths no compiled instance has: C up to 32 at the next
-    compiled width with guarded channel loops (4, 10), C past 32 with each
-    pixel's columns in shared memory (40, 48, 64), heads of 1, 33 and 41
-    outputs: one launch a layer, within 1e-4 of the plain version; the
-    packed store == the unpacked launch's phase-major planes bit for bit."""
+    compiled width with guarded channel loops (4, 10), 33 to 128 as the
+    tile instance (33, 40, 48, 64, 96), past it each pixel's columns in
+    shared memory (160), heads of 1, 33 and 41 outputs, dilations 1, 2, 16
+    and 17: one launch a layer, within 1e-4 of the plain version, on an odd
+    37x53 map (unpacked; the tile's rows cross the map's, its last tile is
+    partial and its stores scalar) and on 38x54 (packed, a row of W = 2
+    mod 4 stored a pixel at a time): the packed store == the unpacked
+    launch's phase-major planes bit for bit."""
     rng = np.random.default_rng(C * 100 + O)
-    dil = (1, 2, 16)
+    dil = (1, 2, 16, 17)
     L = len(dil)
-    x = torch.from_numpy(rng.normal(0, 1, (2, C, 38, 52)).astype(np.float32)).to(dev)
+    assert context_kernel.kernel_instance(C, O) == (
+        "any" if C <= 32 else "wide" if C <= 128 else "wide_columns")
+    H, W = (38, 54) if packed else (37, 53)
+    x = torch.from_numpy(rng.normal(0, 1, (2, C, H, W)).astype(np.float32)).to(dev)
     w = [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).to(dev)
          for s, shape in ((0.3, (L, 9, C, 1, 1)), (0.3 / np.sqrt(C / 8), (L, C, C)),
                           (0.1, (L, C, 1, 1)), (0.3, (O, C)), (0.1, (O, 1, 1)))]
@@ -1939,6 +1946,10 @@ _QWIDTH_CASES = [(k, c, c, nh, d) for c in (6, 10, 36, 48) for k, nh, d in (
     ("qstem", 0, 1), ("qconv", 0, 2), ("qconv_head", 17, 1), ("qconv_head", 41, 16))]
 _QWIDTH_CASES += [("qconv", 128, 8, 0, 1), ("qconv", 48, 64, 0, 4), ("qconv_head", 10, 48, 41, 2),
                   ("qstem", 10, 48, 0, 1), ("qstem", 48, 10, 0, 1)]
+# the any-width conv's one-pass groups (40: five n8 tiles, 64: eight) and
+# their staged stores, on a map whose runs end mid-row (50 columns)
+_QWIDTH_CASES += [(k, c, c, nh, d) for c in (40, 64) for k, nh, d in (
+    ("qconv", 0, 1), ("qconv", 0, 16), ("qconv_head", 41, 2), ("qconv_head", 33, 17))]
 
 
 @pytest.mark.parametrize("kernel,c0,c1,nh,dil", _QWIDTH_CASES)

@@ -32,7 +32,10 @@ def _jax_asset(asset, **kw):
 @pytest.mark.parametrize("asset", sorted(ASSETS))
 def test_detect_program_batch_matches_jax(asset):
     """The port's fused route (device='cpu': every kernel's plain version)
-    == the JAX XLA route on 128x128 scenes.  max_hull_points=31 < H=32
+    == the JAX XLA route on 128x128 scenes, the logits within 1e-5 or 1e-6
+    of max|logit| where that is more (1-3 f32 ulps: the two conv libraries
+    sum in different orders, as tests/test_torch_model.py holds the model).
+    max_hull_points=31 < H=32
     keeps the compacted rect route; no component of these scenes spans
     more than 28 rows, so compaction drops no hull point."""
     kw = dict(max_components=16, max_hull_points=31)
@@ -47,7 +50,8 @@ def test_detect_program_batch_matches_jax(asset):
     out, logits = detect_program_batch(
         load_params(ASSETS[asset]), imgs, cfg, (128, 128), fused=True, device="cpu"
     )
-    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=1e-4)
+    np.testing.assert_allclose(logits.numpy(), ref_logits,
+                               atol=max(1e-5, 1e-6 * np.abs(ref_logits).max()))
     assert int(ref["num_detections"].sum()) > 0
     assert_same_detections(out, ref, score_atol=1e-5)
 

@@ -353,6 +353,17 @@ def _emulate_conv(x, layer, s_out, dil, head=None, acc_wide=None):
                 else:
                     res = stage
                 n = min(16, W - xs)
+                if plan.generic and not nh:
+                    # the any-width kernel's staged store: the run at its
+                    # destination's address mod 16 in the warp's buffer,
+                    # then warp_store's words and 16-byte chunks
+                    pix = (bi * H + y) * W + xs
+                    dst, buf = 256 + pix * cout, np.zeros(plan.stage_bytes, np.int8)
+                    buf[dst % 16 : dst % 16 + 16 * cout] = stage.reshape(-1)
+                    out_bytes = out.reshape(-1)
+                    for o, size in _warp_store_chunks(dst, n * cout):
+                        out_bytes[pix * cout + o : pix * cout + o + size] = buf[dst % 16 + o :][:size]
+                    continue
                 out[bi, y, xs : xs + n] = res[:n]
     return torch.from_numpy(out)
 
@@ -774,7 +785,9 @@ def test_any_width_plans_fit_shared_memory(cin, cout):
     the wrappers pad to a multiple of 4), with heads of 33 and 41 logits:
     the any-width kernels wherever a width passes 32, each block within
     the H100's shared memory at the asset's dilations, regions 16-byte
-    aligned, and the accumulator's mode that of 9 Cin 127^2."""
+    aligned, and the accumulator's mode that of 9 Cin 127^2; the any-width
+    conv's staging region, and two of its blocks an SM up to 64 channels
+    (its launch bound)."""
     ci, co = _r4(cin), _r4(cout)
 
     def check(plan, generic, acc_cin):
@@ -785,6 +798,18 @@ def test_any_width_plans_fit_shared_memory(cin, cout):
             assert plan.acc_wide == qk.acc_mode(acc_cin)
         if generic and plan.kind != "layer0":
             assert plan.nsteps * 8 >= (1 if plan.ks == 1 else 9) * plan.nw
+        if generic and plan.kind in ("conv", "layer"):
+            # the warp's staging: two runs of 16 pixels of cout bytes, each
+            # with 16 bytes to spare for its destination's alignment (a
+            # head's runs are its A operand, f32 outputs are not staged),
+            # 16-byte aligned for every warp; two blocks an SM up to 64
+            # channels (and at the heads' 41 logits)
+            r16 = -(-16 * plan.cout // 16) * 16
+            stage = 0 if plan.f32 else (2 * r16 if plan.nh else 2 * r16 + 32)
+            assert plan.stage_bytes == stage and plan.stage_bytes % 16 == 0
+            assert plan.off_tile - plan.off_stage >= qk.WARPS * stage
+            if max(plan.cin, plan.cout) <= 64:
+                assert plan.smem <= qk.SMEM_TWO_BLOCKS, (plan.kind, plan.fields)
 
     for H, W in ((128, 128), (60, 80), (512, 512), (33, 47), (1, 4096)):
         for d in (1, 2, 16):
@@ -800,13 +825,73 @@ def test_any_width_plans_fit_shared_memory(cin, cout):
         check(qk.tile_plan("layer0", 2, H, W, 1, cout, in_kind=qk.IN_F32_NORM), cout > 32, 0)
 
 
+def _warp_store_chunks(dst, n):
+    """(offset, bytes) of every store of csrc/qconv.cuh ``warp_store`` of n
+    bytes to address ``dst``, for the 32 lanes: 4-byte words up to dst's
+    first 16-byte boundary, 16-byte chunks, the 4-byte tail."""
+    head = min(n, (16 - dst % 16) % 16)
+    chunks = [(4 * lane, 4) for lane in range(32) if 4 * lane < head]
+    body_end = head + ((n - head) & ~15)
+    for lane in range(32):
+        chunks += [(o, 16) for o in range(head + 16 * lane, body_end, 512)]
+        if body_end + 4 * lane < n:
+            chunks.append((body_end + 4 * lane, 4))
+    return chunks
+
+
+def _staged_walk(plan, base=0):
+    """The any-width conv kernel's runs over a plan, as its warps take them
+    (runs m and m + 8 of a tile, the second only inside the tile), each
+    staged at its destination's address mod 16 in the warp's buffer (at the
+    buffer's start with a head) and stored by ``warp_store``: returns how
+    often each output byte (int8) or each pixel (head) is written, after
+    checking that each run's staging lies inside its half of the buffer and
+    every store's bytes come from the same address mod 16."""
+    f = plan.fields
+    cout, half = f["cout"], (f["stage_bytes"] // 2) & ~15
+    seen = np.zeros(f["B"] * f["Ho"] * f["Wo"] * (1 if f["nh"] else cout), np.int32)
+    runs = f["tw"] // 16
+    n_mt = f["th"] * runs
+    for tile in range(f["n_tiles"]):
+        b, r0, x0, ph = plan.decode(tile)
+        for warp in range(qk.WARPS):
+            for m in range(warp, n_mt, 2 * qk.WARPS):
+                for h in range(2):
+                    mm = m + h * qk.WARPS
+                    if mm >= n_mt:
+                        continue
+                    i, jx = divmod(mm, runs)
+                    y, x = ph + f["d"] * (r0 + i), x0 + 16 * jx
+                    if y >= f["Ho"] or x >= f["Wo"]:
+                        continue
+                    nvalid = min(16, f["Wo"] - x)
+                    pix = (b * f["Ho"] + y) * f["Wo"] + x
+                    if f["nh"]:
+                        assert 16 * cout <= half
+                        seen[pix : pix + nvalid] += 1
+                        continue
+                    dst = base + pix * cout
+                    st = h * half + dst % 16
+                    assert st + 16 * cout <= (half if h == 0 else f["stage_bytes"])
+                    for o, size in _warp_store_chunks(dst, nvalid * cout):
+                        assert (st + o) % size == 0 and (st + o) % 16 == (dst + o) % 16
+                        seen[pix * cout + o : pix * cout + o + size] += 1
+    return seen
+
+
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("cin,cout,nh", [(36, 40, 0), (48, 48, 41), (12, 12, 41), (128, 8, 0)])
+@pytest.mark.parametrize("cin,cout,nh", [(36, 40, 0), (48, 48, 41), (12, 12, 41), (128, 8, 0),
+                                         (48, 48, 0), (64, 64, 0)])
 def test_any_width_plans_cover_each_output_once(B, cin, cout, nh):
+    """Each output pixel of an any-width plan in exactly one tile, and the
+    kernel's staged stores (each run staged at its destination's address
+    mod 16, stored 4 and 16 bytes a lane) write each output byte once."""
     for name in ("qvga-60x80", "odd-19x26", "main-128"):
         for d in (1, 4, 16):
             plan = qk.tile_plan("conv", B, *MAPS[name], cin, cout, dil=d, nh=nh)
             assert plan.generic and (_coverage(plan) == 1).all(), (name, d)
+            if name != "main-128" or B == 1:
+                assert (_staged_walk(plan, base=256) == 1).all(), (name, d)
 
 
 @pytest.mark.parametrize("cin,cout", [(48, 48), (36, 12), (12, 64), (128, 8)])
@@ -858,8 +943,9 @@ ANY_CONV_CASES = {
 @pytest.mark.parametrize("case", sorted(ANY_CONV_CASES))
 def test_any_width_conv_walk_equals_the_plain_version(case):
     """The numpy walk of an any-width plan (the plain K order, groups of
-    n8 tiles, the head's k steps over Cout past 32 channels) == the plain
-    version bit for bit."""
+    n8 tiles, the int8 runs staged and stored as contiguous spans, the
+    head's k steps over Cout past 32 channels) == the plain version bit
+    for bit."""
     B, H, W, cin, cout, d, nh = ANY_CONV_CASES[case]
     rng = np.random.default_rng(len(case) + cout + nh)
     x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))

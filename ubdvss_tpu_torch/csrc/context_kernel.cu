@@ -41,11 +41,30 @@
 //     (c = 0..C-1, one fmaf each), each channel loop guarded by the real C
 //     so that no padding weight enters a sum; its weights, the head's O
 //     rows included, in dynamic shared memory;
-//   * C > 32: context_layer_wide, where acc[C] and act[C] would no longer
-//     fit a thread's registers: each thread keeps its pixel's depthwise
-//     results (and, for the head, its activations) in a column of dynamic
-//     shared memory, C words blockDim.x apart, which only that thread
-//     touches, and runs the pointwise and the head in chunks of
+//   * 32 < C <= 128 where its block fits (the head's weights included):
+//     context_layer_tile<OT>, a tile of kTileP consecutive pixels of one
+//     image by all C channels a block.  The depthwise results go to shared
+//     memory, s_acc[c][p], a thread a pixel and every other channel, so a
+//     warp's tap loads are one coalesced row segment; the pointwise is the
+//     small product (P x C) (C x C)^T, register-tiled: each thread holds
+//     4 pixels x OT outputs, reads its 4 pixels of channel c as one float4
+//     and the OT weights of its warp's output group as float4 broadcasts
+//     (weights staged once a block, grouped [group][c][OT rounded to 4]),
+//     3 loads for 24-64 FMAs where a thread a pixel spent one load an FMA.
+//     The head reads the layer's activations, written back over s_acc, as a
+//     second such product.  Blocks are persistent and walk the tiles, three
+//     an SM up to 64 channels, on maps of fewer than 2^30 pixels (int tap
+//     offsets; larger ones take the columns below).  Each sum is taken in
+//     the order the other instances take it (taps (-1,-1) ... (1,1), border
+//     taps skipped; c = 0..C-1, one fmaf each, then the bias), so the
+//     outputs are theirs bit for bit.  Bound: bytes, 384 B a pixel a layer
+//     at C = 48, against 2 (9 C + C^2) FLOP, ~14 FLOP a byte where the
+//     card's f32 rate over its memory rate is ~20;
+//   * other C > 32: context_layer_wide, where acc[C] and act[C] would no
+//     longer fit a thread's registers: each thread keeps its pixel's
+//     depthwise results (and, for the head, its activations) in a column of
+//     dynamic shared memory, C words blockDim.x apart, which only that
+//     thread touches, and runs the pointwise and the head in chunks of
 //     kOutChunk output channels held in registers; the weights are read
 //     from device memory, every lane of a warp at one address (an L1
 //     broadcast).  The same sums in the same order.  A block of 128
@@ -337,6 +356,257 @@ context_layer_wide(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+// ---- the tile instance: 32 < C <= 128 ----
+constexpr int kTileP = 128;        // pixels a tile
+constexpr int kTileThreads = 256;  // a thread a pixel of the depthwise, every other channel
+constexpr int kTileWarps = kTileThreads / 32;
+
+// outputs a warp takes (its group), so that the C outputs make at most
+// kTileWarps groups: 0 past 128 channels
+inline int tile_ot(int C) {
+  return C <= 32 ? 0 : C <= 48 ? 6 : C <= 64 ? 8 : C <= 96 ? 12 : C <= 128 ? 16 : 0;
+}
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Dynamic shared memory of context_layer_tile: the tile's C x kTileP
+// depthwise results, the pointwise and (head) the head weights by output
+// group, [group][c][round4(OT)], then the depthwise taps, the biases.
+inline size_t tile_smem(int C, int O, bool head) {
+  const int ot = tile_ot(C);
+  if (ot == 0) return kMaxSmem + 1;
+  const size_t g = (C + ot - 1) / ot, gh = head ? (O + ot - 1) / ot : 0;
+  return (static_cast<size_t>(C) * kTileP + (g + gh) * C * round4(ot) + 9 * static_cast<size_t>(C) +
+          C + (head ? O : 0)) * sizeof(float);
+}
+// the tile instance runs a call of C channels and an O-output head on a map
+// of H x W (its tap offsets are ints)
+inline bool tile_fits(int C, int O, int H, int W) {
+  return tile_ot(C) > 0 && tile_smem(C, O, true) <= kMaxSmem &&
+         static_cast<long long>(H) * W < (1LL << 30);
+}
+
+// the outputs [g OT, g OT + OT) of the thread's 4 pixels (p, p + 1, p + 2,
+// p + 3 of the tile): s[j][k] = sum over c of w[g][c][j] a[c][p + k], in
+// the order c = 0..C-1, one fmaf each
+template <int OT>
+__device__ __forceinline__ void tile_product(float (&s)[OT][4], const float* __restrict__ a,
+                                             const float* __restrict__ w, int C, int p) {
+  constexpr int OTP = round4(OT);
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s[j][k] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < C; ++c) {
+    const float4 v = *reinterpret_cast<const float4*>(a + c * kTileP + p);
+    float wt[OTP];
+#pragma unroll
+    for (int j = 0; j < OTP; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(w + c * OTP + j);
+      wt[j] = q.x;
+      wt[j + 1] = q.y;
+      wt[j + 2] = q.z;
+      wt[j + 3] = q.w;
+    }
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      s[j][0] = fmaf(wt[j], v.x, s[j][0]);
+      s[j][1] = fmaf(wt[j], v.y, s[j][1]);
+      s[j][2] = fmaf(wt[j], v.z, s[j][2]);
+      s[j][3] = fmaf(wt[j], v.w, s[j][3]);
+    }
+  }
+}
+
+// Four consecutive pixels' values of one output channel to device memory:
+// plane (B, n, H, W) from q = q0 + p (flattened y W + x), or with
+// ``packed`` the phase-major (B, 4 n, H/2, W/2).  A float4 (two float2
+// when packed) where the four are one aligned run of a row.
+__device__ __forceinline__ void tile_store(float* __restrict__ out, const float (&v)[4], int b,
+                                           int o, int n, long long q, int np_left, int H, int W,
+                                           int packed) {
+  const long long HW = static_cast<long long>(H) * W;
+  if (!packed) {
+    float* dst = out + (static_cast<long long>(b) * n + o) * HW + q;
+    if ((HW & 3) == 0) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < np_left) dst[k] = v[k];
+    }
+    return;
+  }
+  const long long Q = HW / 4;
+  if ((W & 3) == 0) {  // the four are x .. x + 3 of one row, x a multiple of 4
+    const int y = static_cast<int>(q / W), x = static_cast<int>(q - static_cast<long long>(y) * W);
+    const long long cell = static_cast<long long>(y >> 1) * (W >> 1) + (x >> 1);
+    float* p0 = out + ((static_cast<long long>(b) * 4 + 2 * (y & 1)) * n + o) * Q + cell;
+    *reinterpret_cast<float2*>(p0) = make_float2(v[0], v[2]);
+    *reinterpret_cast<float2*>(p0 + n * Q) = make_float2(v[1], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k >= np_left) break;
+    const long long qk = q + k;
+    const int y = static_cast<int>(qk / W), x = static_cast<int>(qk - static_cast<long long>(y) * W);
+    out[((static_cast<long long>(b) * 4 + 2 * (y & 1) + (x & 1)) * n + o) * Q +
+        static_cast<long long>(y >> 1) * (W >> 1) + (x >> 1)] = v[k];
+  }
+}
+
+// Three blocks an SM up to 64 channels (OT <= 8: 80 registers a thread),
+// two past them (128).  A thread loads the taps of kUnroll channels before
+// it sums them: four, or two at OT = 8, whose four spill under the
+// three-block cap (-Xptxas -v; each the fastest of the two in
+// scripts/torch_kernel_ab.py --only widths on the H100).
+template <int OT>
+__global__ void __launch_bounds__(kTileThreads, OT <= 8 ? 3 : 2)
+context_layer_tile(const float* __restrict__ x, float* __restrict__ out,
+                   const float* __restrict__ dw, const float* __restrict__ pwt,
+                   const float* __restrict__ pb, const float* __restrict__ hwt,
+                   const float* __restrict__ hb, int B, int C, int H, int W, int d, int O,
+                   int packed) {
+  constexpr int OTP = round4(OT), kUnroll = OT == 8 ? 2 : 4;
+  extern __shared__ __align__(16) float s_tile[];
+  const bool with_head = hwt != nullptr;
+  const int G = (C + OT - 1) / OT, GH = with_head ? (O + OT - 1) / OT : 0;
+  float* s_acc = s_tile;                // [C][kTileP]
+  float* s_pw = s_acc + C * kTileP;     // [G][C][OTP]
+  float* s_hw = s_pw + G * C * OTP;     // [GH][C][OTP]
+  float* s_dw = s_hw + GH * C * OTP;    // [9][C]
+  float* s_pb = s_dw + 9 * C;           // [C]
+  float* s_hb = s_pb + C;               // [O]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < G * C * OTP; i += kTileThreads) {
+    const int j = i % OTP, c = (i / OTP) % C, o = (i / (OTP * C)) * OT + j;
+    s_pw[i] = j < OT && o < C ? pwt[o * C + c] : 0.f;
+  }
+  for (int i = tid; i < GH * C * OTP; i += kTileThreads) {
+    const int j = i % OTP, c = (i / OTP) % C, o = (i / (OTP * C)) * OT + j;
+    s_hw[i] = j < OT && o < O ? hwt[o * C + c] : 0.f;
+  }
+  for (int i = tid; i < 9 * C; i += kTileThreads) s_dw[i] = dw[i];
+  for (int i = tid; i < C; i += kTileThreads) s_pb[i] = pb[i];
+  if (with_head)
+    for (int i = tid; i < O; i += kTileThreads) s_hb[i] = hb[i];
+  __syncthreads();
+
+  const long long HW = static_cast<long long>(H) * W;
+  const long long per_image = (HW + kTileP - 1) / kTileP;
+  const long long n_tiles = per_image * B;
+  const int n_out = with_head ? O : C;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = static_cast<int>(tile / per_image);
+    const long long q0 = (tile - b * per_image) * kTileP;
+    const int np = static_cast<int>(min(static_cast<long long>(kTileP), HW - q0));
+    // depthwise: pixel p, channels c0, c0 + 2, ...; taps in the reference
+    // order, border taps skipped
+    {
+      constexpr int kStep = kTileThreads / kTileP;
+      const int p = tid % kTileP, c0 = tid / kTileP;
+      const long long q = q0 + p;
+      const int y = p < np ? static_cast<int>(q / W) : 0;
+      const int xw = p < np ? static_cast<int>(q - static_cast<long long>(y) * W) : 0;
+      unsigned valid = 0;
+      int off[9];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int ty = t / 3 - 1, tx = t % 3 - 1, yy = y + ty * d, xx = xw + tx * d;
+        off[t] = ty * d * W + tx * d;
+        if (p < np && yy >= 0 && yy < H && xx >= 0 && xx < W) valid |= 1u << t;
+      }
+      const float* xp = x + static_cast<long long>(b) * C * HW + q;
+      for (int c = c0; c < C; c += kStep * kUnroll) {
+        float v[kUnroll][9];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int cc = c + u * kStep;
+#pragma unroll
+          for (int t = 0; t < 9; ++t)
+            v[u][t] = cc < C && (valid >> t & 1u) ? __ldg(xp + cc * HW + off[t]) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int cc = c + u * kStep;
+          if (cc >= C) break;
+          float a = 0.f;
+#pragma unroll
+          for (int t = 0; t < 9; ++t)
+            if (valid >> t & 1u) a = fmaf(v[u][t], s_dw[t * C + cc], a);
+          s_acc[cc * kTileP + p] = a;
+        }
+      }
+    }
+    __syncthreads();
+    // pointwise + bias + ReLU: warp g's outputs, the lane's four pixels
+    const int p = 4 * lane;
+    const long long q = q0 + p;
+    float s[OT][4];
+    if (warp < G) tile_product<OT>(s, s_acc, s_pw + warp * C * OTP, C, p);
+    if (with_head) __syncthreads();  // every warp has read s_acc
+    if (warp < G) {
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        const int o = warp * OT + j;
+        if (o >= C) break;
+        float v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = fmaxf(s[j][k] + s_pb[o], 0.f);
+        if (with_head) {
+          *reinterpret_cast<float4*>(s_acc + o * kTileP + p) = make_float4(v[0], v[1], v[2], v[3]);
+        } else if (p < np) {
+          tile_store(out, v, b, o, n_out, q, np - p, H, W, 0);
+        }
+      }
+    }
+    if (with_head) {
+      __syncthreads();  // the activations are in s_acc
+      for (int g = warp; g < GH; g += kTileWarps) {
+        tile_product<OT>(s, s_acc, s_hw + g * C * OTP, C, p);
+        if (p >= np) continue;
+#pragma unroll
+        for (int j = 0; j < OT; ++j) {
+          const int o = g * OT + j;
+          if (o >= O) break;
+          float v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[k] = s[j][k] + s_hb[o];
+          tile_store(out, v, b, o, n_out, q, np - p, H, W, packed);
+        }
+      }
+    }
+    __syncthreads();  // the next tile's depthwise overwrites s_acc
+  }
+}
+
+template <int OT>
+int launch_tile_ot(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
+                   const float* hwt, const float* hb, int B, int C, int H, int W, int d, int O,
+                   int packed, cudaStream_t stream) {
+  const int smem = static_cast<int>(tile_smem(C, O, hwt != nullptr));
+  const long long n_tiles = (static_cast<long long>(H) * W + kTileP - 1) / kTileP * B;
+  int grid = 0;
+  const int e = persistent_grid<context_layer_tile<OT>>(smem, n_tiles, &grid, kTileThreads);
+  if (e != cudaSuccess) return e;
+  context_layer_tile<OT><<<grid, kTileThreads, smem, stream>>>(x, out, dw, pwt, pb, hwt, hb, B, C,
+                                                               H, W, d, O, packed);
+  return cudaSuccess;
+}
+
+int launch_tile(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
+                const float* hwt, const float* hb, int B, int C, int H, int W, int d, int O,
+                int packed, cudaStream_t s) {
+  switch (tile_ot(C)) {
+    case 6: return launch_tile_ot<6>(x, out, dw, pwt, pb, hwt, hb, B, C, H, W, d, O, packed, s);
+    case 8: return launch_tile_ot<8>(x, out, dw, pwt, pb, hwt, hb, B, C, H, W, d, O, packed, s);
+    case 12: return launch_tile_ot<12>(x, out, dw, pwt, pb, hwt, hb, B, C, H, W, d, O, packed, s);
+    case 16: return launch_tile_ot<16>(x, out, dw, pwt, pb, hwt, hb, B, C, H, W, d, O, packed, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int C>
 void launch(const float* x, float* out, const float* dw, const float* pwt,
             const float* pb, const float* hwt, const float* hb, int B, int H,
@@ -394,7 +664,8 @@ int launch_wide(const float* x, float* out, const float* dw, const float* pwt, c
 
 // x (B, C, H, W) -> out (B, C, H, W), or (B, O, H, W) when hwt is not null,
 // or with ``packed`` (and hwt) the phase-major (B, 4 O, H/2, W/2), H and W
-// even.  Any C >= 1 and O >= 1 (the instance as the header says); past the
+// even.  Any C >= 1 and O >= 1 (the instance as the header says: the tile
+// instance where tile_fits(C, O, H, W), for every layer of the call); past the
 // wide kernel's shared memory (2 C columns of 32 floats) cudaErrorInvalidValue.
 extern "C" int context_layer(const void* x, void* out, const void* dw,
                              const void* pwt, const void* pb, const void* hwt,
@@ -427,6 +698,8 @@ extern "C" int context_layer(const void* x, void* out, const void* dw,
     e = launch_any<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
   } else if (C <= 32) {
     e = launch_any<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
+  } else if (tile_fits(C, O, H, W)) {
+    e = launch_tile(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
   } else {
     e = launch_wide(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
   }

@@ -295,9 +295,11 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 // ---- any width (the plan's ``generic``): Cin or Cout past 32, a head of
 // more than 32 logits.  The compiled instances above fix the channel words
 // and n8 tiles at compile time; these take them from the plan and run the
-// output channels in groups of kGroupTiles n8 tiles, each group's K loop
-// over every step.  The K order is the plain one (K word j = 8 s + 4 r + t
-// is tap j / nw, channel word j % nw; zero weights past 9 nw), each K
+// output channels in groups of n8 tiles (kGroupTiles in the stem, eight
+// in the conv kernel: 64 channels in one pass), each group's K loop over
+// every step.  The K order
+// is the plain one (K word j = 8 s + 4 r + t is tap j / nw, channel word
+// j % nw; zero weights past 9 nw), each K
 // word's A offset in a table in shared memory (k_offsets_any), the B
 // fragments packed straight from the HWIO weights in device memory.
 constexpr int kGroupTiles = 4;
@@ -362,57 +364,42 @@ struct ConvAny {
     bfrag = reinterpret_cast<const int2*>(s_w) + lane;
   }
 
-  // two runs' MMAs for the n8 tiles [g0, g0 + ng) (ng <= kGroupTiles): a0,
-  // a1 point at the first tap of each run's first pixel (words)
-  __device__ __forceinline__ void mma2(int (&acc0)[kGroupTiles][4],
-                                       int (&acc1)[kGroupTiles][4], const uint32_t* a0,
-                                       const uint32_t* a1, int g0, int ng) const {
+  // two runs' MMAs for the n8 tiles [g0, g0 + ng) (ng <= NG): a0, a1
+  // point at the first tap of each run's first pixel (words); without
+  // ``two`` (the warp's second run lies past its tile) run 0's alone
+  template <int NG>
+  __device__ __forceinline__ void mma2(int (&acc0)[NG][4], int (&acc1)[NG][4],
+                                       const uint32_t* a0, const uint32_t* a1, int g0, int ng,
+                                       bool two = true) const {
     a0 += p0 * pixw;
     a1 += p0 * pixw;
     for (int s = 0; s < nsteps; ++s) {
       const int o0 = koff[8 * s + t], o1 = koff[8 * s + 4 + t];
       const int f0[4] = {static_cast<int>(a0[o0]), static_cast<int>(a0[drow + o0]),
                          static_cast<int>(a0[o1]), static_cast<int>(a0[drow + o1])};
-      const int f1[4] = {static_cast<int>(a1[o0]), static_cast<int>(a1[drow + o0]),
-                         static_cast<int>(a1[o1]), static_cast<int>(a1[drow + o1])};
+      if (two) {
+        const int f1[4] = {static_cast<int>(a1[o0]), static_cast<int>(a1[drow + o0]),
+                           static_cast<int>(a1[o1]), static_cast<int>(a1[drow + o1])};
 #pragma unroll
-      for (int n = 0; n < kGroupTiles; ++n) {
-        if (n < ng) {
-          const int2 b = bfrag[(s * nt + g0 + n) * 32];
-          mma_k32(acc0[n], f0, b.x, b.y);
-          mma_k32(acc1[n], f1, b.x, b.y);
+        for (int n = 0; n < NG; ++n) {
+          if (n < ng) {
+            const int2 b = bfrag[(s * nt + g0 + n) * 32];
+            mma_k32(acc0[n], f0, b.x, b.y);
+            mma_k32(acc1[n], f1, b.x, b.y);
+          }
+        }
+      } else {  // two loops: one with a predicated second MMA ran 14-23% slower
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          if (n < ng) {
+            const int2 b = bfrag[(s * nt + g0 + n) * 32];
+            mma_k32(acc0[n], f0, b.x, b.y);
+          }
         }
       }
     }
   }
 };
-
-// The launch of a persistent kernel: its dynamic shared memory allowed
-// (past 48 KB, once per kernel and device) and as many blocks as stay
-// resident on the card, at most one a tile.
-template <auto Kernel>
-int persistent_grid(int smem, int n_tiles, int* grid) {
-  static int allowed[64] = {0}, sms[64] = {0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > allowed[dev]) {
-    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    allowed[dev] = smem;
-  }
-  if (sms[dev] == 0) {
-    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, kThreads, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *grid = min(n_tiles, per_sm * sms[dev]);
-  return cudaSuccess;
-}
 
 }  // namespace qk
 

@@ -57,10 +57,12 @@
 // multiple of 4 up to 32 and logits up to 32; every other width runs
 // qconv_any_kernel (the plan's ``generic``, qconv.cuh ConvAny): the same
 // tiles, halos and runs with the channel words, k steps and n8 tiles from
-// the plan, the output channels four n8 tiles at a time, int8 and f32
-// outputs stored straight from the registers, a head's k steps over its
-// Cout; qrequant takes any channel count.  The wrappers pad a count that is
-// not a multiple of 4 (ops/cuda/qconv_kernel.py pad_layer).
+// the plan, the output channels eight n8 tiles at a time, int8 outputs
+// staged and stored as contiguous runs as the compiled epilogue stores
+// them, f32 outputs stored straight from the registers, a head's k steps
+// over its Cout, two blocks an SM; qrequant takes any channel count.  The
+// wrappers pad a count that is not a multiple of 4
+// (ops/cuda/qconv_kernel.py pad_layer).
 #include "qconv.cuh"
 
 namespace {
@@ -433,12 +435,18 @@ __device__ __forceinline__ void head_run_any(const uint8_t* st, const Plan& p, f
 }
 
 // The conv kernel at any width: qconv_tc_kernel's tiles, halos and runs,
-// each run pair's output channels kGroupTiles n8 tiles at a time.  int8
-// outputs and (F32) f32 outputs are stored straight from the registers,
-// two channels a lane; with the head the requantized runs are staged (two
-// runs of 16 pixels of cout bytes a warp) for head_run_any.
+// each run pair's output channels eight n8 tiles at a time (one pass up to
+// 64 channels; the MMAs of a warp's second run skipped where it lies past
+// the tile).  int8 outputs are requantized into the warp's staging buffer
+// (two runs of 16 pixels of cout bytes, each at its destination's address
+// mod 16), and each run is stored as one contiguous span, 16 bytes a lane;
+// with the head the staged runs are head_run_any's A operand instead.  F32
+// outputs are stored straight from the registers, two channels a lane (one
+// 8-byte store each where cout is even).
+// Two blocks an SM: the launch bound caps a thread at 128 registers, and
+// tile_plan sizes a generic block's shared memory for two.
 template <int STRIDE, bool WIDE, bool F32>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 qconv_any_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
                  const float* __restrict__ ws, const float* __restrict__ bias,
                  const float* __restrict__ s_out, const int8_t* __restrict__ qh,
@@ -484,6 +492,7 @@ qconv_any_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
   const int runs = p.tw / 16, n_mt = p.th * runs, nt = (cout + 7) / 8;
   const int half = (p.stage_bytes / 2) & ~15;  // the second run's staging
+  constexpr int NG = 8;  // n8 tiles a pass: 64 channels
 
   for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
     const int next = tile + gridDim.x;
@@ -498,54 +507,79 @@ qconv_any_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
     for (int m = warp; m < n_mt; m += 2 * kWarps) {
       const RunPair r = run_pair<STRIDE>(p, tl, buf, m, n_mt, runs, rw);
       if (!r.ok[0] && !r.ok[1]) continue;
-      for (int g0 = 0; g0 < nt; g0 += kGroupTiles) {
-        int acc[2][kGroupTiles][4];
+      const bool two = m + kWarps < n_mt;
+      long long pix[2];
+      uint8_t* st[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pix[h] = (row0 + r.y[h]) * p.Wo + r.x[h];
+        const uintptr_t dst = reinterpret_cast<uintptr_t>(static_cast<uint8_t*>(out) + pix[h] * cout);
+        st[h] = stage + h * half + (nh > 0 ? 0 : static_cast<int>(dst & 15));
+      }
+      for (int g0 = 0; g0 < nt; g0 += NG) {
+        int acc[2][NG][4];
         init_acc(acc[0]);
         init_acc(acc[1]);
-        conv.mma2(acc[0], acc[1], r.a[0], r.a[1], g0, min(kGroupTiles, nt - g0));
+        conv.mma2(acc[0], acc[1], r.a[0], r.a[1], g0, min(NG, nt - g0), two);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (!r.ok[h]) continue;
           const int nvalid = min(16, p.Wo - r.x[h]);
-          const long long pix = (row0 + r.y[h]) * p.Wo + r.x[h];
 #pragma unroll
-          for (int n = 0; n < kGroupTiles; ++n) {
+          for (int n = 0; n < NG; ++n) {
+            const int c = 8 * (g0 + n) + 2 * t;
+            if (g0 + n >= nt || c >= cout) continue;
+            if constexpr (F32) {
+              // channels c, c + 1 of rows g, g + 8: a float2 each where cout
+              // is even, else a float each
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = 8 * (g0 + n) + 2 * t + e;
-              if (g0 + n >= nt || c >= cout) continue;
-#pragma unroll
-              for (int v = 0; v < 2; ++v) {  // rows g, g + 8
+              for (int v = 0; v < 2; ++v) {
                 const int px = v ? conv.p1 : conv.p0;
-                const int biased = acc[h][n][2 * v + e];
-                if constexpr (F32) {
-                  if (px >= nvalid) continue;
-                  const float a = acc_float<WIDE>(biased);
-                  const long long o = (pix + px) * cout + c;
-                  static_cast<float*>(out)[o] = fmaf(a, s_vec[c], s_vec[CP + c]);
-                  if (acc_out != nullptr) acc_out[o] = a;
-                } else {
-                  const uint8_t b8 = static_cast<uint8_t>(
-                      requant<WIDE>(biased, s_vec[c], s_vec[CP + c], s_vec[2 * CP + c]) & 0xFFu);
-                  if (nh > 0) {
-                    stage[h * half + px * cout + c] = b8;
-                  } else if (px < nvalid) {
-                    static_cast<uint8_t*>(out)[(pix + px) * cout + c] = b8;
-                  }
+                if (px >= nvalid) continue;
+                const long long o = (pix[h] + px) * cout + c;
+                float* y = static_cast<float*>(out) + o;
+                const float a0 = acc_float<WIDE>(acc[h][n][2 * v]);
+                const float y0 = fmaf(a0, s_vec[c], s_vec[CP + c]);
+                if ((cout & 1) == 0) {
+                  const float a1 = acc_float<WIDE>(acc[h][n][2 * v + 1]);
+                  *reinterpret_cast<float2*>(y) = make_float2(y0, fmaf(a1, s_vec[c + 1], s_vec[CP + c + 1]));
+                  if (acc_out != nullptr) *reinterpret_cast<float2*>(acc_out + o) = make_float2(a0, a1);
+                  continue;
+                }
+                y[0] = y0;
+                if (acc_out != nullptr) acc_out[o] = a0;
+                if (c + 1 < cout) {
+                  const float a1 = acc_float<WIDE>(acc[h][n][2 * v + 1]);
+                  y[1] = fmaf(a1, s_vec[c + 1], s_vec[CP + c + 1]);
+                  if (acc_out != nullptr) acc_out[o + 1] = a1;
                 }
               }
+            } else {  // channels c, c + 1 (cout is a multiple of 4) of rows g, g + 8
+              const float2 w = *reinterpret_cast<const float2*>(s_vec + c);
+              const float2 b = *reinterpret_cast<const float2*>(s_vec + CP + c);
+              const float2 s = *reinterpret_cast<const float2*>(s_vec + 2 * CP + c);
+              *reinterpret_cast<uint16_t*>(st[h] + conv.p0 * cout + c) =
+                  pack2(requant<WIDE>(acc[h][n][0], w.x, b.x, s.x),
+                        requant<WIDE>(acc[h][n][1], w.y, b.y, s.y));
+              *reinterpret_cast<uint16_t*>(st[h] + conv.p1 * cout + c) =
+                  pack2(requant<WIDE>(acc[h][n][2], w.x, b.x, s.x),
+                        requant<WIDE>(acc[h][n][3], w.y, b.y, s.y));
             }
           }
         }
       }
-      if (!F32 && nh > 0) {
+      if constexpr (!F32) {
         __syncwarp();
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          if (r.ok[h])
-            head_run_any(stage + h * half, p, static_cast<float*>(out), row0 + r.y[h], r.x[h],
-                         min(16, p.Wo - r.x[h]), s_wh, s_vec + 3 * CP, s_vec + 3 * CP + NP,
-                         conv.p0, conv.p1, lane);
+          if (!r.ok[h]) continue;
+          const int nvalid = min(16, p.Wo - r.x[h]);
+          if (nh > 0) {
+            head_run_any(st[h], p, static_cast<float*>(out), row0 + r.y[h], r.x[h], nvalid, s_wh,
+                         s_vec + 3 * CP, s_vec + 3 * CP + NP, conv.p0, conv.p1, lane);
+          } else {
+            warp_store(st[h], static_cast<uint8_t*>(out) + pix[h] * cout, nvalid * cout, lane);
+          }
         }
         __syncwarp();
       }

@@ -75,38 +75,69 @@ from ubdvss_tpu_torch.ops.cuda import _build
 # The context kernel's instances (csrc/context_kernel.cu): the per-pixel
 # register design compiled for C in EXACT_CHANNELS with at most
 # EXACT_HEAD_OUTPUTS head outputs; any other C <= 32, or a larger head, at
-# the next compiled width with the channel loops guarded ("any"); C > 32
-# with each pixel's depthwise results and activations in shared memory
-# ("wide", WIDE_THREADS threads a block, fewer where C columns do not fit).
+# the next compiled width with the channel loops guarded ("any"); 32 < C <=
+# 128 as a tile of TILE_PIXELS pixels by all C channels a block of
+# TILE_THREADS, the pointwise and the head register-tiled products over
+# shared memory ("wide", where that block fits); other C with each pixel's
+# depthwise results and activations in shared-memory columns
+# ("wide_columns", COLUMN_THREADS threads a block, fewer where C columns do
+# not fit).  The choice is by (C, O) alone (and, for "wide", a map of
+# fewer than 2^30 pixels), the same for every layer of a call.
 EXACT_CHANNELS = (8, 16, 24, 32)
 EXACT_HEAD_OUTPUTS = 32
-WIDE_THREADS = (128, 64, 32)
+TILE_PIXELS, TILE_THREADS = 128, 256
+COLUMN_THREADS = (128, 64, 32)
 SHARED_MEMORY_LIMIT = 232_448  # bytes a block may use on the H100
+
+
+def tile_outputs(C: int) -> int:
+    """Outputs a warp of the "wide" instance takes, so that C outputs make
+    at most eight groups (csrc/context_kernel.cu ``tile_ot``); 0 where the
+    instance does not take C."""
+    for ot, top in ((6, 48), (8, 64), (12, 96), (16, 128)):
+        if 32 < C <= top:
+            return ot
+    return 0
+
+
+def tile_smem(C: int, O: int, head: bool = True) -> int:
+    """Bytes of dynamic shared memory of a "wide" launch (``tile_smem``):
+    the tile's C x TILE_PIXELS depthwise results, the pointwise (and head)
+    weights by output group, OT rounded up to 4 a channel, the taps and the
+    biases."""
+    ot = tile_outputs(C)
+    if not ot:
+        return SHARED_MEMORY_LIMIT + 1
+    groups = -(-C // ot) + (-(-O // ot) if head else 0)
+    return 4 * (C * TILE_PIXELS + groups * C * (-(-ot // 4) * 4) + 9 * C + C + (O if head else 0))
 
 
 def kernel_instance(C: int, O: int) -> str:
     """Which instance of K4 runs C channels and an O-output head:
-    "exact", "any" or "wide"."""
+    "exact", "any", "wide" or "wide_columns"."""
     if C > 32:
-        return "wide"
+        return "wide" if tile_smem(C, O) <= SHARED_MEMORY_LIMIT else "wide_columns"
     return "exact" if C in EXACT_CHANNELS and O <= EXACT_HEAD_OUTPUTS else "any"
 
 
 def kernel_smem(C: int, O: int) -> tuple[int, int]:
     """(threads a block, bytes of dynamic shared memory) of K4's launch
     with the O-output head at C channels, the layer that needs the most:
-    the "any" instance's weights, or the "wide" instance's per-thread
-    columns (2 C floats a thread) at the largest block that fits; (0,
-    bytes) when none fits one block's shared memory."""
+    the "any" instance's weights, the "wide" instance's tile and weights,
+    or the "wide_columns" instance's per-thread columns (2 C floats a
+    thread) at the largest block that fits; (0, bytes) when none fits one
+    block's shared memory."""
     inst = kernel_instance(C, O)
     if inst == "exact":
         return 256, 0
     if inst == "any":
         return 256, 4 * (9 * C + C * C + C + O * C + O)
-    for T in WIDE_THREADS:
+    if inst == "wide":
+        return TILE_THREADS, tile_smem(C, O)
+    for T in COLUMN_THREADS:
         if 4 * 2 * C * T <= SHARED_MEMORY_LIMIT:
             return T, 4 * 2 * C * T
-    return 0, 4 * 2 * C * WIDE_THREADS[-1]
+    return 0, 4 * 2 * C * COLUMN_THREADS[-1]
 
 
 def _pack_weights(params: dict, dilations) -> tuple:

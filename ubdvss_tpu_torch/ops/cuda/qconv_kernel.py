@@ -29,7 +29,9 @@ with the corrected bias (``qrequant``, ``csrc/qconv_kernel.cu``).
 Widths: the kernels' compiled instances take channel counts a multiple of
 4 up to ``COMPILED_CHANNELS`` (32); past it the any-width kernels run (the
 plan's ``generic``: the K order, the k steps and the n8 tiles from the
-plan, the output channels four n8 tiles at a time), and the wrappers pad
+plan, the output channels four n8 tiles at a time in the stem, eight in
+the conv kernel, whose int8 runs are staged and stored contiguous and
+whose blocks the plan sizes for two an SM), and the wrappers pad
 any count that is not a multiple of 4 (``pad_layer``, ``pad_scale``: zero
 weights, and for padded outputs ws = 1, b = 0, s_out = 1, so they hold
 exact zeros) and slice the padding off what they return.  The only refusal
@@ -176,6 +178,9 @@ MAX_K_WORDS = 72  # the compiled instances' K table: 9 taps x 8 channel words, n
 _MAX_TH, _MAX_TW = 8, 128  # qconv's output tile: 8 phase rows x up to 128 columns
 _MIN_BLOCKS = 2 * 132  # smaller tiles below this many tiles (132 SMs)
 _SMEM_TARGET = 75 * 1024  # a conv block's shared memory: three blocks an SM
+# an any-width conv block's: two blocks an SM (the SM's 233,472 bytes, less
+# the 1 KB the card reserves for each block), as its launch bound asks
+SMEM_TWO_BLOCKS = 233_472 // 2 - 1024
 
 # the order of the ints the kernels read (struct Plan in csrc/qconv.cuh)
 PLAN_FIELDS = (
@@ -410,9 +415,11 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
         if generic:
             vec = 4 * max(6 * 32, 3 * _r32(cout) + 2 * _r32(nh))
             koff = 4 * 8 * nsteps_k
-            # int8 and f32 outputs go straight from the registers; a head
-            # stages the warp's two requantized runs
-            stage = 2 * _r16(16 * cout) if nh else 0
+            # a warp stages its two requantized runs: each at its
+            # destination's address mod 16 for the contiguous store, or
+            # (a head) as the head's A operand; f32 outputs go straight from
+            # the registers
+            stage = 0 if f32 else (2 * _r16(16 * cout) if nh else 2 * _r16(16 * cout) + 32)
             w0_bytes = -(-cout // 32) * -(-nh // 8) * 64 * 4 if nh else 0
         else:
             # a warp's staging: two int8 runs, or one int8 run and its
@@ -431,17 +438,24 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
 
         # the tile's columns: up to _MAX_TW, split evenly; at any width
         # narrower (down to 16) where a one-row tile's halos would not fit
-        for max_tw in (_MAX_TW, 64, 32, 16) if generic else (_MAX_TW,):
-            n_ct = -(-Wo // max_tw)
-            tw = _r16(-(-Wo // n_ct))
-            if fixed + 2 * halo_rows(1) * _r16(halo_cols(tw) * cin + 15) <= SHARED_MEMORY_LIMIT:
-                break
+        # two blocks an SM, or failing that one
+        for limit in (SMEM_TWO_BLOCKS, SHARED_MEMORY_LIMIT) if generic else (SHARED_MEMORY_LIMIT,):
+            for max_tw in (_MAX_TW, 64, 32, 16) if generic else (_MAX_TW,):
+                n_ct = -(-Wo // max_tw)
+                tw = _r16(-(-Wo // n_ct))
+                if fixed + 2 * halo_rows(1) * _r16(halo_cols(tw) * cin + 15) <= limit:
+                    break
+            else:
+                continue
+            break
         halo_w = halo_cols(tw)
-        # the tile's rows: three blocks an SM, enough tiles for the card,
-        # and the phase's rows split evenly (any width: down to one row)
+        # the tile's rows: three blocks an SM (any width: two), enough
+        # tiles for the card, and the phase's rows split evenly (any width:
+        # down to one row)
         min_th = 1 if generic else 2
+        target = SMEM_TWO_BLOCKS if generic else _SMEM_TARGET
         th = min(_MAX_TH, R)
-        while th > min_th and fixed + 2 * halo_rows(th) * _r16(halo_w * cin + 15) > _SMEM_TARGET:
+        while th > min_th and fixed + 2 * halo_rows(th) * _r16(halo_w * cin + 15) > target:
             th -= 1
         while th > 2 and B * phases * -(-R // th) * n_ct < _MIN_BLOCKS:
             th = -(-th // 2)

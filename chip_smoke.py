@@ -350,8 +350,8 @@ them.  Phases, each of which raises on failure:
      weights carried into its first 24 channels, the rest drawn from SEED
      at a small scale) and the narrow one (10 channels, 17 logits;
      init_params at SEED, the head scaled up), K=16, M=64: K4's instance
-     (the "wide" tile of 128 pixels by 48 channels at 48, the guarded "any"
-     one at 10) on 8
+     (the "wide" tile of 128 pixels by 48 channels at 48, the "narrow"
+     register kernel compiled for 10 channels at 10) on 8
      images' features within 1e-4 of its plain version, its packed store
      == _s2d of the unpacked one; B=64 512² detect_program_batch in f32
      (K4, K1, K2, K3), bf16 (cuDNN, the bf16 K2), int8 after quantize_trunk
@@ -363,14 +363,17 @@ them.  Phases, each of which raises on failure:
      the narrow head's logits), bf16 within the bf16 tolerance, int8 bit
      for bit, detections equal (an image with a detection logit within
      twice the logits' error of the threshold left out); the stats at the configuration's logit
-     channels (two class passes at 41) against their plain version, K12c
+     channels (one class pass at 41, 512 threads a block) against their plain version, K12c
      equal to K2 bit for bit; the int8 kinds layer by layer on 2 images bit
      for bit; then, wide only, 2 2048² scans on the packed route: K4's
      packed store at 41 logits, the tiled K2 and the large K12c reading
      the phase-major logits, qconv_head's packed store, logits == n_strips=1's
      bit for bit, scan 0 == the host CPU's; and a kernel row for each
      instance the asset's widths never reach (ms, device ms, plain,
-     library, bound, and the kernel instance; the log line adds, in
+     library, bound, and the kernel instance; the rows of K4's narrow
+     instance and of the stats at 41 logits also the device ms of CUDA
+     events around calls queued behind a sleep, ``queued_ms``, where the
+     profiler has dropped launches; the log line adds, in
      brackets, the earlier design's device ms that scripts/
      torch_kernel_ab.py --only widths read), beside one timed batch a
      path.
@@ -545,6 +548,23 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, 
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stats_bound(lg, geo, K, esz, k12=False) -> tuple[float, str]:
+    """The bound of the stats kernels on (B, H, W, C) logits of ``esz``
+    bytes a logit and their outputs ``geo``: the detection logit and (K2)
+    the label read, the slot written, the class logits of the pixels in a
+    slot read, the extremes and sums written; operations the sigmoid and
+    softmax of those pixels.  ``k12``: K12c, which reads no labels and runs
+    the CCL."""
+    B_, H, W, O = lg.shape
+    px = B_ * H * W
+    in_slot = int((geo["slots"] < K).sum())
+    ext = B_ * K * (2 * H + 1) * 4 + B_ * 4
+    stat = in_slot * (O - 1) * esz + B_ * K * (O + 1) * 4
+    if k12:
+        return bound(px * (esz + 4) + ext + stat, px * 13 + in_slot * O * 8)
+    return bound(px * (esz + 8) + ext + stat, px * 4 + in_slot * O * 8)
 
 
 def adversarial_maps(n=128):
@@ -1615,8 +1635,9 @@ INT8_ANY_INSTANCES = {
 }
 # device ms of the kernels' earlier designs at these rows' shapes, printed in
 # brackets beside this run's: the per-pixel column K4 and the four-tile,
-# one-block-an-SM int8 conv with its stores from registers, as
-# scripts/torch_kernel_ab.py --only widths read them (the parent's two
+# one-block-an-SM int8 conv with its stores from registers; K4's guarded
+# instance at the next compiled width and the stats' pass a 32-class chunk,
+# as scripts/torch_kernel_ab.py --only widths read them (the parent's two
 # turns, CUDA events around calls queued behind a sleep) on an NVIDIA H100
 # 80GB HBM3 at 700 W
 PARENT_DESIGN_DEVICE_MS = {
@@ -1625,6 +1646,12 @@ PARENT_DESIGN_DEVICE_MS = {
     "qconv_any": (1.6093, "the six at 48 channels"),
     "qconv_head_any": (0.4379, "48 channels, 41 logits"),
     "qconv_layer_any": (0.7151, "48 channels"),
+    "context_layer_any": (0.9354, "(64, 10, 128²), head 17"),
+    "slots_chunked": (0.5760, "B=64 128², K=16, 41 logits"),
+    "slots_chunked_bf16": (0.4431, "B=64 128², K=16, 41 bf16 logits"),
+    "geometry_compat_chunked": (0.5892, "B=64 128², K=16, 41 logits"),
+    "slots_tiled_chunked_packed": (0.4344, "2×512², K=16, 41 phase-major logits"),
+    "geometry_compat_large_chunked_packed": (0.4727, "2×512², K=16, 41 phase-major logits"),
 }
 
 
@@ -1713,16 +1740,6 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         px = B_ * H * W
         return bound((px * C + px * O) * 4 + sum(t.numel() for t in w) * 4,
                      px * (len(dil) * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2))
-
-    def stats_bound(lg, geo, Kx, esz, k12=False):
-        B_, H, W, O = lg.shape
-        px = B_ * H * W
-        in_slot = int((geo["slots"] < Kx).sum())
-        ext = B_ * Kx * (2 * H + 1) * 4 + B_ * 4
-        stat = in_slot * (O - 1) * esz + B_ * Kx * (O + 1) * 4
-        if k12:
-            return bound(px * (esz + 4) + ext + stat, px * 13 + in_slot * O * 8)
-        return bound(px * (esz + 8) + ext + stat, px * 4 + in_slot * O * 8)
 
     for name, (cfg, flat) in width_configs(REPO / "assets" / "pretrained_synthetic.npz").items():
         params = params_from_flat(flat)
@@ -1922,7 +1939,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 replaces="ubdvss_tpu/ops/pallas/context_kernel.py:39",
                 launches=n_f["context_layer"], max_abs_err=err_k4, channels=C, outputs=O,
                 instance=r["k4_instance"],
-                ms=time_ms(k4, iters=5, reps=2), device_ms=device_ms(k4, n=5),
+                ms=time_ms(k4, iters=5, reps=2), device_ms=device_ms(k4, n=5), queued_ms=queued_ms(k4),
                 plain_ms=time_ms(lambda: ck.context_head_reference(xc, *w, dil), iters=2, reps=1, warmup=1),
                 library_ms=time_ms(lambda: library_context(xc, w, dil), iters=5, reps=2),
                 bound=k4_bound(xc, w, dil, O)))
@@ -1939,24 +1956,28 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                                       raw_gray=True, act_out=True)
         lab_w16 = ccl_kernel.ccl_labels_from_logits(lg16_w[..., 0].contiguous())
         geo_w16 = pk.component_slots(lg16_w, lab_w16, K)
+        stats_inst = (f"{pk.class_chunks(O)} pixel pass(es) at {O} logits, "
+                      f"{pk.stats_warps(IMG // 4, IMG // 4, K, O)} virtual warps a block")
         for rname, lgx, labx, geox, err_, esz, n_ in (
                 ("slots_chunked", lg_d, lab_w, geo_w, err_slots, 4, n_f["slots"]),
                 ("slots_chunked_bf16", lg16_w, lab_w16, geo_w16, err_slots16, 2, n16["slots_bf16"])):
             rows.append(dict(
                 name=rname, route="cuda", source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130", launches=n_,
-                max_abs_err=err_, channels=O,
+                max_abs_err=err_, channels=O, instance=stats_inst,
                 ms=time_ms(lambda: pk.component_slots(lgx, labx, K), iters=5, reps=4),
                 device_ms=device_ms(lambda: pk.component_slots(lgx, labx, K), n=5),
+                queued_ms=queued_ms(lambda: pk.component_slots(lgx, labx, K)),
                 plain_ms=time_ms(lambda: pk.component_slots_reference(lgx, labx, K), iters=2, reps=1),
                 library_ms=time_ms(lambda: pk._stats_reference(lgx, geox["slots"], K), iters=3, reps=2),
                 bound=stats_bound(lgx, geox, K, esz)))
         rows.append(dict(
             name="geometry_compat_chunked", route="cuda", source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
             replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50", launches=n_c["geometry_compat"],
-            max_abs_err=err_slots, channels=O,
+            max_abs_err=err_slots, channels=O, instance=stats_inst,
             ms=time_ms(lambda: pk.geometry_compat(lg_d, K), iters=5, reps=4),
             device_ms=device_ms(lambda: pk.geometry_compat(lg_d, K), n=5),
+            queued_ms=queued_ms(lambda: pk.geometry_compat(lg_d, K)),
             plain_ms=time_ms(lambda: pk.geometry_compat_reference(lg_d, K), iters=2, reps=1),
             library_ms=None, bound=stats_bound(lg_d, geo_w, K, 4, k12=True)))
         # the int8 trunk's any-width instances at the main path's shapes: one
@@ -2124,7 +2145,8 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 source="ubdvss_tpu_torch/csrc/" + ("geometry_kernel.cu" if k12 else "postproc_kernel.cu"),
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:" + ("50" if k12 else "381")
                 + " (packed_phases)", launches=n_, max_abs_err=err_tp, channels=O,
-                ms=time_ms(call, iters=3, reps=2), device_ms=device_ms(call, n=3),
+                instance=f"{pk.class_chunks(O)} pixel pass(es) at {O} logits (tiled sums)",
+                ms=time_ms(call, iters=3, reps=2), device_ms=device_ms(call, n=3), queued_ms=queued_ms(call),
                 plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
                 library_ms=None if lib is None else time_ms(lib, iters=1, reps=1),
                 bound=stats_bound(lg_u, geo_p, K, 4, k12=k12)))
@@ -2154,8 +2176,9 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         inst = f" ({row['instance']})" if "instance" in row else ""
         before = PARENT_DESIGN_DEVICE_MS.get(row["name"])
         before = "" if before is None else f" [the earlier design {before[0]:.4f}, {before[1]}]"
+        queued = f", queued {row['queued_ms']:.4f}" if "queued_ms" in row else ""
         log(f"time {row['name']}{inst}: {row['ms']:.4f} ms/call, device {row['device_ms']:.4f}"
-            f"{before} (plain {row['plain_ms']:.4f}, library {row['library_ms']}, bound "
+            f"{queued}{before} (plain {row['plain_ms']:.4f}, library {row['library_ms']}, bound "
             f"{row['bound_ms']:.4f} by {row['bound_by']}), {row['launches']} launches on its path")
     kernels += rows
     return report

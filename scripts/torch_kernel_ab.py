@@ -6,7 +6,8 @@ bias correction, the tiled kernels of the large maps, K3x's tall
 instance, and the any-width instances of K4 and the int8 convs.
 
     python3 scripts/torch_kernel_ab.py --parent PARENT_TREE
-        [--only geometry|int8|tiled|tall|widths] [--variants TREE ...] [--out FILE]
+        [--only geometry|int8|tiled|tall|widths] [--variants TREE ...]
+        [--parts narrow stats wide int8] [--stats-logits C ...] [--out FILE]
 
 PARENT_TREE is an unpacked earlier commit of this repository (for example
 ``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
@@ -85,32 +86,56 @@ gives the cycles of each step for the case's slowest component.  Each
 its rows checked against the change's and is timed in the change's turns.
 
 widths: the kernels of the widths past the asset's, both trees'
-``context_kernel.cu`` and ``qconv_kernel.cu`` (with ``qconv.cuh``) called
-through their C entry points, each tree's int8 launches with the plan of
-its own ``tile_plan``.  K4 (``context_layer``, one launch a layer, the head
-fused into the last) on the wide configuration (48 channels, 41 logits,
-``chip_smoke.carry_flat`` of the asset, seed 7): the stem's features of 64
-synthetic 512² scenes (seed 7), (64, 48, 128²) unpacked, and of two 2048²
-scans (seed 11), (2, 48, 512²) packed; then random features and weights
-(seed 7) at (64, C, 128²), C = 40, 64, 96, head 41.  The outputs must be
-the parent's bit for bit and within max(1e-4, 1e-5 max|logit|) of the
-plain version.  int8 at 48 and 64 channels (``quantize_trunk`` on 8 of
-the scenes): the six context layers' ``qconv`` on the trunk's own inputs,
-and at 48 ``qconv_head`` (unpacked and packed) and the calibration's
-``qconv_layer`` (layer 1 of the six, f32 pre-activations and exact
-accumulators), every output equal to the plain version and to the
-parent's bit for bit.  Each case is timed in turns, with its bound
-(``chip_smoke.bound``) and the library call beside it (cuDNN's depthwise
-and 1x1 chain for K4, f32 ``F.conv2d`` on the int8 values for the int8
-kernels, TF32 off): CUDA events around back-to-back calls, CUDA events
-around calls queued behind a sleeping kernel (``chip_smoke.queued_ms``:
-the device's time, whatever the host's enqueueing costs) and the profiler's device ms
-(which has been seen to drop launches on that machine), and each tree's
-kernels by launch from its first turn: device ms, registers, shared
-memory, resident warps an SM (``chip_smoke.phase_split``).  Each
-``--variants`` tree (another ``csrc/context_kernel.cu`` of the change) has
-its K4 outputs checked against the change's bit for bit and is timed in
-the change's turns.
+``context_kernel.cu``, ``qconv_kernel.cu`` (with ``qconv.cuh``),
+``postproc_kernel.cu`` and ``geometry_kernel.cu`` called through their C
+entry points (each tree's int8 launches with the plan of its own
+``tile_plan``), all compiled with ``-Xptxas -v``: every K4 and stats
+kernel's registers, stack frame and spill bytes go to the report
+(``ptxas``).  ``--parts`` picks the sections, in this order:
+  narrow: K4 (``context_layer``, one launch a layer, the head fused into
+    the last) up to 32 channels, on the narrow configuration
+    (``chip_smoke.width_configs``: 10 channels, 17 logits) over the stem's
+    features of 64 synthetic 512² scenes (seed 7), (64, 10, 128²)
+    unpacked, and of two 2048² scans (seed 11), (2, 10, 512²) packed; then
+    random features and weights (seed 7) at (64, C, 128²), C = 4, 12, 20,
+    31 with heads of 17 and 41, and (8, 41), (24, 33);
+  stats: the stats at each logit count of ``--stats-logits`` (34, 41, 42,
+    65, 66 and 97: the ends of each compiled bound; the wide configuration,
+    48 channels, ``chip_smoke.carry_flat`` of the asset, seed 7, K=16):
+    the cluster K2 and K12c on the f32 trunk's logits of the 64 scenes (the
+    NHWC view of K4's planes), and the tiled K2 and the large K12c on the
+    two scans' phase-major logits (``StatsTree``); at 41 also on the bf16
+    trunk's (channels last), and the cluster kernels phase-major
+    (``_s2d``).  The
+    cluster kernels' eight outputs must be the parent's bit for bit and
+    K12c's K2's; the tiled and large kernels' slot outputs the parent's,
+    each tree's means within 2e-6 (and the bf16 slack) of the f64 sums,
+    the large K12c the tiled pair's bit for bit;
+  wide: K4 past 32 channels on the wide configuration, (64, 48, 128²)
+    unpacked and (2, 48, 512²) packed, and random weights at (64, C, 128²),
+    C = 40, 64, 96, head 41;
+  int8: at 48 and 64 channels (``quantize_trunk`` on 8 of the scenes): the
+    six context layers' ``qconv`` on the trunk's own inputs, and at 48
+    ``qconv_head`` (unpacked and packed) and the calibration's
+    ``qconv_layer`` (layer 1 of the six, f32 pre-activations and exact
+    accumulators), every output equal to the plain version and to the
+    parent's bit for bit.
+K4's outputs must be the parent's (and each variant's) bit for bit and
+within max(1e-4, 1e-5 max|logit|) of the plain version.  Each case is
+timed in turns, with its bound (``chip_smoke.bound``, ``stats_bound``) and
+the library call beside it (cuDNN's depthwise and 1x1 chain for K4, the
+torch one-hot stats for K2, f32 ``F.conv2d`` on the int8 values for the
+int8 kernels, TF32 off): CUDA events around back-to-back calls, CUDA
+events around calls queued behind a sleeping kernel
+(``chip_smoke.queued_ms``: the device's time, whatever the host's
+enqueueing costs) and the profiler's device ms (which has been seen to
+drop launches on that machine), and each tree's kernels by launch from its
+first turn: device ms, registers, shared memory, resident warps an SM
+(``chip_smoke.phase_split``).  Each ``--variants`` tree (another
+``context_kernel.cu``, ``postproc_kernel.cu`` and ``geometry_kernel.cu``
+of the change, with their headers) has its K4 and stats outputs checked
+against the change's (bit for bit; the tiled and large stats within the
+f64 bar) and is timed in the change's turns.
 
 Prints one JSON object and writes it to FILE (default
 ``build/ab/ab.json``); exits non-zero on a mismatch.
@@ -145,19 +170,73 @@ SOURCES = ("rect_kernel", "geometry_kernel", "ccl_kernel", "postproc_kernel")
 def build(csrc: Path, tag: str, sources=SOURCES, extra=()) -> dict:
     """Compile the sources of one tree, in parallel (``extra``: more nvcc
     flags)."""
+    return build_trees([(csrc, tag, sources, extra)])[tag]
+
+
+def build_trees(trees, report: dict | None = None) -> dict:
+    """Compile every (csrc, tag, sources, extra) of ``trees``, one nvcc a
+    source, all started together: {tag: {source: CDLL}}.  With ``report``,
+    each tree is compiled with ``-Xptxas -v`` and report[tag] gets every
+    kernel's registers, stack frame and spill bytes (``ptxas_kernels``)."""
     out = REPO / "build" / "ab"
     out.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in sources:
-        so = out / f"{tag}-{name}.so"
-        jobs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o", str(so), str(csrc / f"{name}.cu")]))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on {tag} {name}")
-        libs[name] = ctypes.CDLL(str(so))
+    jobs = []
+    for csrc, tag, sources, extra in trees:
+        flags = [*extra, *(("-Xptxas", "-v") if report is not None else ())]
+        for name in sources:
+            so = out / f"{tag}-{name}.so"
+            jobs.append((tag, name, so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so), str(csrc / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs: dict = {}
+    for tag, name, so, proc in jobs:
+        log_, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {tag} {name}:\n{log_}")
+        libs.setdefault(tag, {})[name] = ctypes.CDLL(str(so))
+        if report is not None:
+            report.setdefault(tag, {}).update(ptxas_kernels(log_))
     return libs
+
+
+def ptxas_kernels(log_: str) -> dict:
+    """Each kernel of an ``nvcc -Xptxas -v`` log, by its demangled name
+    without arguments: registers, stack frame, spill stores and loads
+    (bytes)."""
+    import re
+
+    rep: dict[str, dict] = {}
+    cur = None
+    for line in log_.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line) or re.search(
+            r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            rep.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            rep[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rep[cur]["registers"] = int(m.group(1))
+    names = list(rep)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    out = {}
+    for raw, dm in zip(names, plain):
+        if "registers" not in rep[raw]:
+            continue  # a device function's properties, not a kernel's
+        dm = dm.replace("(anonymous namespace)::", "").replace("void ", "")
+        cut = dm.find(">(")
+        out[dm[:cut + 1] if cut >= 0 else dm.split("(")[0]] = rep[raw]
+    return out
 
 
 def time_ms(fn, iters=15, reps=20) -> float:
@@ -871,20 +950,79 @@ def _tree_module(tree: Path, name: str):
     return mod
 
 
+class StatsTree:
+    """One tree's stats kernels through its C entry points, as the wrappers
+    call them (``stats_warps``' virtual warps, ``tiled_plan`` and its
+    scratch), on one set of logits (phase-major with ``phases``) and its
+    labels: the cluster K2, K12c, the tiled K2 and the large K12c."""
+
+    def __init__(self, libs, lg, lab, K, phases, dev):
+        pk = postproc_kernel
+        self.libs, self.lg, self.lab, self.K, self.phases = libs, lg, lab, K, phases
+        B, H, W, C = self.shape = pk.unpacked_shape(lg, phases)
+        self.thr = ccl_kernel.threshold_logit(0.5)
+        self.threads = 32 * pk.stats_warps(H, W, K, C)
+        self.plan = pk.tiled_plan(B, H, W, K, C)
+        self.scratch = pk.tiled_scratch(self.plan, dev)
+        self.work = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+        self.out = {k: pk._empty_outputs(B, H, W, K, C, dev) for k in ("k2", "k12c", "tiled", "large")}
+
+    def _fn(self, lib, name):
+        fn, strides = postproc_kernel._strides(self.lg, self.shape[3], self.phases, name)
+        return getattr(self.libs[lib], fn), (P(self.lg.data_ptr()), *(L(x) for x in strides))
+
+    def k2(self):
+        fn, head = self._fn("postproc_kernel", "component_slots")
+        o, (B, H, W, C) = self.out["k2"], self.shape
+        check(fn(*head, I(C), P(self.lab.data_ptr()), *(P(t.data_ptr()) for t in o.values()), I(B),
+                 I(H), I(W), I(self.K), I(self.threads), F(self.thr), stream()), "component_slots")
+        return o
+
+    def k12c(self):
+        fn, head = self._fn("geometry_kernel", "geometry_compat")
+        o, (B, H, W, C) = self.out["k12c"], self.shape
+        check(fn(*head, I(C), *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(self.K),
+                 I(self.threads), F(self.thr), I(8), stream()), "geometry_compat")
+        return o
+
+    def tiled(self):
+        fn, head = self._fn("postproc_kernel", "component_slots_tiled")
+        o, arr = self.out["tiled"], self.plan.ints
+        check(fn(*head, P(self.lab.data_ptr()), *(P(t.data_ptr()) for t in o.values()),
+                 *(P(t.data_ptr()) for t in self.scratch.values()), P(arr.ctypes.data), I(arr.size),
+                 F(self.thr), stream()), "component_slots_tiled")
+        return o
+
+    def large(self):
+        fn, head = self._fn("geometry_kernel", "geometry_compat_large")
+        o, arr = self.out["large"], self.plan.ints
+        check(fn(*head, *(P(t.data_ptr()) for t in o.values()), P(self.work.data_ptr()),
+                 *(P(t.data_ptr()) for t in self.scratch.values()), P(arr.ctypes.data), I(arr.size),
+                 F(self.thr), I(8), stream()), "geometry_compat_large")
+        return o
+
+
 def widths_ab(args, dev, res: dict) -> None:
     """The any-width kernels, parent against change (module docstring)."""
-    from chip_smoke import INT8_OPS, SEED, bound, carry_flat, phase_split, queued_ms
+    from chip_smoke import (INT8_OPS, SEED, bf16_cls_slack, bound, carry_flat, exact_stats,
+                            phase_split, queued_ms, stats_bound, width_configs)
 
     from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
     from ubdvss_tpu_torch.ops.cuda import qconv_kernel as qk
     from ubdvss_tpu_torch.ops.quant import quantize_trunk
 
-    srcs = ("context_kernel", "qconv_kernel")
-    libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parentw", srcs),
-            "change": build(REPO / "ubdvss_tpu_torch" / "csrc", "changew", srcs)}
-    variants = [v.name for v in args.variants]  # other context_kernel.cu of the change
-    for v in args.variants:
-        libs[v.name] = build(v / "ubdvss_tpu_torch" / "csrc", f"{v.name}w", ("context_kernel",))
+    srcs = ("context_kernel", "qconv_kernel", "postproc_kernel", "geometry_kernel")
+    csrc = REPO / "ubdvss_tpu_torch" / "csrc"
+    trees = [(args.parent / "ubdvss_tpu_torch" / "csrc", "parent", srcs, ()), (csrc, "change", srcs, ())]
+    trees += [(v / "ubdvss_tpu_torch" / "csrc", v.name, srcs[:1] + srcs[2:], ()) for v in args.variants]
+    ptxas: dict = {}
+    built = build_trees(trees, ptxas)
+    libs = {tag: built[tag] for tag in built}
+    res["ptxas"] = {tag: {k: v for k, v in rep.items() if any(
+        n in k for n in ("context_layer", "slots_kernel", "pass_kernel", "geometry_kernel",
+                         "geometry_large_kernel"))} for tag, rep in ptxas.items()}
+    print(json.dumps({"ptxas": res["ptxas"]}), flush=True)
+    variants = [v.name for v in args.variants]  # other K4 and stats sources of the change
     parent_qk = _tree_module(args.parent, "qconv_kernel")
     if tuple(parent_qk.PLAN_FIELDS) != qk.PLAN_FIELDS:
         raise RuntimeError("the parent's struct Plan differs from this tree's")
@@ -985,20 +1123,131 @@ def widths_ab(args, dev, res: dict) -> None:
                                      px * (L * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2))
         timed(case, calls, lambda: k4_library(x, w, dil))
 
+    def stats_case(case, lg, lab, phases, kinds):
+        """The stats kernels ``kinds`` of both trees on one set of logits:
+        the cluster K2 and K12c the parent's bit for bit and K12c == K2;
+        the tiled K2 and the large K12c with the parent's slot outputs, each
+        tree's means within 2e-6 (and the bf16 slack) of the f64 sums, the
+        large K12c == the tiled pair; each variant's outputs as the change's;
+        then each kind timed in turns."""
+        tags = ("parent", "change", *variants)
+        st = {tag: StatsTree(libs[tag], lg, lab, K, phases, dev) for tag in tags}
+        got = {tag: {kind: {k: v.clone() for k, v in getattr(t, kind)().items()} for kind in kinds}
+               for tag, t in st.items()}
+        torch.cuda.synchronize()
+        B, H, W, C = st["change"].shape
+        lg_u = lg if phases is None else ck._d2s(lg, C)
+        for kind in kinds:
+            b_ = got["change"][kind]
+            keys = (list(b_) if kind in ("k2", "k12c") else
+                    ["rootvals", "slots", "minx", "maxx", "num_components_total", "areas"])
+            for tag in ("parent", *variants):
+                for key in keys:
+                    if not torch.equal(got[tag][kind][key], b_[key]):
+                        raise AssertionError(f"{case} {kind}: {key} of {tag} differs from the change's")
+            if kind in ("tiled", "large"):
+                exact = exact_stats(lg_u, b_["slots"], K)
+                area = b_["areas"].clamp(min=1).double()
+                slack = 0.0
+                if lg.dtype == torch.bfloat16:
+                    slack = bf16_cls_slack(lg_u, b_["slots"], K).double() / area[..., None]
+                for tag in tags:
+                    o = got[tag][kind]
+                    err_d = float((o["det_sums"] / area - exact["det_sums"] / area).abs().max())
+                    err_c = (o["cls_sums"] / area[..., None] - exact["cls_sums"] / area[..., None]).abs()
+                    if not (err_d <= 2e-6 and bool((err_c <= 2e-6 + slack).all())):
+                        raise AssertionError(f"{case} {kind} {tag}: means {err_d}, "
+                                             f"{float(err_c.max())} past 2e-6 of the f64 sums")
+                    res[f"{case}_{kind}_{tag}_f64_err"] = [err_d, float(err_c.max())]
+        pairs = (("k12c", "k2"), ("large", "tiled"))
+        for x_, y_ in pairs:
+            if x_ in kinds and y_ in kinds:
+                for key in got["change"][y_]:
+                    if not torch.equal(got["change"][x_][key], got["change"][y_][key]):
+                        raise AssertionError(f"{case}: the change's {x_} {key} differs from its {y_}")
+        res[f"{case}_shape"] = [B, H, W, C, str(lg.dtype), phases is not None]
+        res[f"{case}_bit_for_bit"] = True
+        esz = lg.element_size()
+        for kind in kinds:
+            geo = got["change"][kind]
+            res[f"{case}_{kind}_bound"] = stats_bound(lg_u, geo, K, esz, k12=kind in ("k12c", "large"))
+            lib = None
+            if kind in ("k2", "tiled"):
+                lib = lambda geo=geo: postproc_kernel._stats_reference(lg, geo["slots"], K, phases)  # noqa: E731
+            timed(f"{case}_{kind}", {tag: (lambda t=t, kind=kind: getattr(t, kind)())
+                                     for tag, t in st.items()}, lib)
+
     dil = tuple(NetConfig().dilations)
+    K = 16
     with torch.inference_mode():
         cfg48, p48 = config(48)
         w48 = ck._pack_weights(p48, dil)
+        # ---- K4 up to 32 channels: the narrow configuration (C=10, O=17)
+        # and random weights
+        cfg10, flat10 = width_configs(asset)["narrow"]
+        p10 = {k: v.to(dev) for k, v in params_from_flat(flat10).items()}
+        w10 = ck._pack_weights(p10, dil)
+        with exact_f32():
+            x10 = ck.stem_apply(p10, imgs.float()[..., None], cfg10,
+                                raw_gray=True).permute(0, 3, 1, 2).contiguous()
+            xs10 = ck.stem_apply(p10, scans.float()[..., None], cfg10,
+                                 raw_gray=True).permute(0, 3, 1, 2).contiguous()
+        if "narrow" in args.parts:
+            k4_case("k4_narrow_64x10x128", x10, w10, dil, False)
+            k4_case("k4_narrow_packed_2x10x512", xs10, w10, dil, True)
+        del x10, xs10
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        narrow = [(c, o) for c in (4, 12, 20, 31) for o in (17, 41)] + [(8, 41), (24, 33)]
+        for C, O in narrow if "narrow" in args.parts else []:
+            L = len(dil)
+            x = torch.randn((64, C, 128, 128), generator=gen, device=dev)
+            w = [torch.randn(shape, generator=gen, device=dev) * s for s, shape in (
+                (0.3, (L, 9, C, 1, 1)), (0.3 / np.sqrt(C / 8), (L, C, C)), (0.1, (L, C, 1, 1)),
+                (0.3, (O, C)), (0.1, (O, 1, 1)))]
+            k4_case(f"k4_C{C}_O{O}_64x128", x, w, dil, False)
+            del x
+        torch.cuda.empty_cache()
+
+        # ---- the stats: the wide configuration's logits at each count of
+        # --stats-logits, f32 (the NHWC view of K4's planes), the 2048²
+        # scans' phase-major logits for the tiled K2 and the large K12c; at
+        # 41 also bf16 (channels last) and the cluster kernels phase-major
+        for O in args.stats_logits if "stats" in args.parts else ():
+            cfgO, pO = (cfg48, p48) if O == 41 else config(48, O)
+            with exact_f32():
+                lg = fused_model_apply(pO, imgs.float()[..., None], cfgO, raw_gray=True)
+                sc = ck.packed_fused_trunk(pO, scans.float()[..., None], cfgO, raw_gray=True)
+            runs = [("f32", lg, sc)]
+            if O == 41:
+                cfg16 = cfgO.replace(dtype="bfloat16")
+                p16 = {k: v.to(torch.bfloat16) for k, v in pO.items()}
+                runs.append(("bf16", fused_model_apply(p16, imgs.to(torch.bfloat16)[..., None], cfg16,
+                                                       raw_gray=True, act_out=True),
+                             ck.packed_fused_trunk(p16, scans.to(torch.bfloat16)[..., None], cfg16,
+                                                   raw_gray=True, act_out=True)))
+            for name, lg, sc in runs:
+                lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
+                stats_case(f"stats{O}_{name}_64x128", lg, lab, None, ("k2", "k12c"))
+                if O == 41:
+                    stats_case(f"stats{O}_{name}_phase_major_64x128", ck._s2d(lg).contiguous(), lab,
+                               (2, 2), ("k2", "k12c"))
+                det = postproc_kernel.detection_logits(sc, (2, 2)).contiguous()
+                lab = ccl_kernel.ccl_labels_from_logits(det)
+                stats_case(f"stats{O}_{name}_phase_major_2x512", sc, lab, (2, 2), ("tiled", "large"))
+            del lg, sc, runs
+            torch.cuda.empty_cache()
+
+        # ---- K4 past 32 channels: the wide configuration and random weights
         with exact_f32():
             x48 = ck.stem_apply(p48, imgs.float()[..., None], cfg48,
                                 raw_gray=True).permute(0, 3, 1, 2).contiguous()
             xs = ck.stem_apply(p48, scans.float()[..., None], cfg48,
                                raw_gray=True).permute(0, 3, 1, 2).contiguous()
-        k4_case("k4_wide_64x48x128", x48, w48, dil, False)
-        k4_case("k4_wide_packed_2x48x512", xs, w48, dil, True)
+        if "wide" in args.parts:
+            k4_case("k4_wide_64x48x128", x48, w48, dil, False)
+            k4_case("k4_wide_packed_2x48x512", xs, w48, dil, True)
         del xs
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        for C in (40, 64, 96):
+        for C in (40, 64, 96) if "wide" in args.parts else ():
             L, O = len(dil), 41
             x = torch.randn((64, C, 128, 128), generator=gen, device=dev)
             w = [torch.randn(shape, generator=gen, device=dev) * s for s, shape in (
@@ -1009,7 +1258,7 @@ def widths_ab(args, dev, res: dict) -> None:
         torch.cuda.empty_cache()
 
         # ---- int8 at 48 and 64 channels: the six qconv, qconv_head, qconv_layer
-        for C in (48, 64):
+        for C in (48, 64) if "int8" in args.parts else ():
             cfg, params = (cfg48, p48) if C == 48 else config(C)
             calib = (imgs[:8].float() / 127.5 - 1.0)[..., None]
             q = quantize_trunk(params, cfg, calib)
@@ -1114,6 +1363,12 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--only", choices=("geometry", "int8", "tiled", "tall", "widths"), default=None)
     ap.add_argument("--variants", type=Path, nargs="*", default=[])
+    ap.add_argument("--parts", nargs="*", default=["narrow", "stats", "wide", "int8"],
+                    choices=("narrow", "stats", "wide", "int8"),
+                    help="widths: K4 up to 32 channels, the stats, K4 past 32 channels, the "
+                         "int8 convs")
+    ap.add_argument("--stats-logits", type=int, nargs="*", default=[34, 41, 42, 65, 66, 97],
+                    help="widths: the logit counts of the stats")
     ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
     args = ap.parse_args()
     dev = torch.device("cuda")

@@ -193,7 +193,7 @@ def test_slots_kernel_matches_plain(dev, shape, K, C):
     K=16 components, so the padding slot K-1 carries the background),
     noise (more than K) and snakes; two launches bit for bit equal.  C=1
     and C=17 (the main path's) have their own compiled kernels, C=5 takes
-    the one for any C up to REGISTER_CHANNELS."""
+    the one for any C up to 33."""
     lg = _head_logits(_maps(K, *shape), C, K + C, dev)
     lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
     out = postproc_kernel.component_slots(lg, lab, K)
@@ -1852,13 +1852,13 @@ def test_packed_route_on_card_matches_whole_image_route(dev):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("O", [1, 33, 41])
-@pytest.mark.parametrize("C", [4, 10, 33, 40, 48, 64, 96, 160])
+@pytest.mark.parametrize("C", [1, 3, 4, 10, 12, 20, 31, 33, 40, 48, 64, 96, 160])
 def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
-    """K4 at widths no compiled instance has: C up to 32 at the next
-    compiled width with guarded channel loops (4, 10), 33 to 128 as the
-    tile instance (33, 40, 48, 64, 96), past it each pixel's columns in
-    shared memory (160), heads of 1, 33 and 41 outputs, dilations 1, 2, 16
-    and 17: one launch a layer, within 1e-4 of the plain version, on an odd
+    """K4 at widths no compiled instance has: C up to 32 as the register
+    kernel compiled for C (1, 3, 4, 10, 12, 20, 31; "narrow"), 33 to 128 as
+    the tile (33, 40, 48, 64, 96), past it each pixel's columns in shared
+    memory (160), heads of 1, 33 and 41 outputs, dilations 1, 2, 16 and 17:
+    one launch a layer, within 1e-4 of the plain version, on an odd
     37x53 map (unpacked; the tile's rows cross the map's, its last tile is
     partial and its stores scalar) and on 38x54 (packed, a row of W = 2
     mod 4 stored a pixel at a time): the packed store == the unpacked
@@ -1867,7 +1867,7 @@ def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
     dil = (1, 2, 16, 17)
     L = len(dil)
     assert context_kernel.kernel_instance(C, O) == (
-        "any" if C <= 32 else "wide" if C <= 128 else "wide_columns")
+        "narrow" if C <= 32 else "wide" if C <= 128 else "wide_columns")
     H, W = (38, 54) if packed else (37, 53)
     x = torch.from_numpy(rng.normal(0, 1, (2, C, H, W)).astype(np.float32)).to(dev)
     w = [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).to(dev)
@@ -1888,10 +1888,11 @@ def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [34, 65])
+@pytest.mark.parametrize("C", [34, 41, 65, 97])
 def test_stats_any_channel_count_match_plain(dev, C, dtype, packed):
-    """The stats past the register chunk (34: two chunks, one of a single
-    class; 65: two full chunks), f32 and bf16, unpacked and phase-major:
+    """The stats past 33 channels (34 and 65: the guarded one-pass instance
+    at its two ends; 41: the exact one; 97: two class passes, of 64 and 32
+    classes), f32 and bf16, unpacked and phase-major:
     K2's cluster kernel against the plain version, K12c equal to it bit for
     bit, the tiled K2 against the sums in f64; and on a map past K12c's
     shared memory the large K12c equal to the tiled pair bit for bit."""

@@ -1,0 +1,127 @@
+"""PyTorch port: the launch plans of the width kernels, on the CPU.
+
+The card's K4 takes every C up to 32 off its compiled widths (and every head
+past 32 outputs) as its register kernel compiled for that C ("narrow"),
+and the stats keep up to 65 logit channels of a pixel in registers in one
+pixel pass.  Their kernels run only on the card; these tests hold, at the
+ends of each range, what the wrappers decide on the host:
+
+  * K4's instance and its block's shared memory at the compiled widths and
+    off them, and a head at the edge of one block's shared memory, past
+    which the per-pixel columns take it;
+  * the stats' virtual-warp count (``stats_warps``, which fixes the order
+    of the sums), their class passes and the route (the cluster K2 / K12c
+    or the tiled kernels) at the logit counts that end each compiled bound;
+  * ``postprocess_batch_fused`` at 97 logits (three class passes on the card)
+    against the JAX package in interpret mode, unpacked and phase-major:
+    labels, valid, areas and classes identical, scores within 1e-6, boxes
+    within 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_ccl import blob_logits
+from test_torch_postproc import assert_same_detections
+
+from ubdvss_tpu.net_config import NetConfig as JaxNetConfig
+from ubdvss_tpu.ops.postproc import postprocess_batch_fused as jax_postprocess_batch_fused
+from ubdvss_tpu_torch import NetConfig
+from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
+from ubdvss_tpu_torch.ops.cuda import postproc_kernel as pk
+from ubdvss_tpu_torch.ops.postproc import postprocess_batch_fused
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("C, O, inst, smem", [
+    (1, 1, "narrow", 52), (1, 41, "narrow", 372), (8, 32, "exact", 0), (8, 33, "narrow", 1764),
+    (10, 17, "narrow", 1548), (16, 1, "exact", 0), (24, 33, "narrow", 6564),
+    (31, 17, "narrow", 7260), (32, 32, "exact", 0), (32, 41, "narrow", 10788),
+])
+def test_k4_instance_and_shared_memory_up_to_32_channels(C, O, inst, smem):
+    """K4 at C <= 32: the register kernel at its compiled widths with heads
+    of up to 32 outputs, its weights static; at every other (C, O) the same
+    kernel compiled for C ("narrow"), 256 threads a block, its taps,
+    pointwise weights, biases and head (O (C + 1) floats) in dynamic
+    shared memory."""
+    assert ck.kernel_instance(C, O) == inst
+    assert ck.kernel_smem(C, O) == (256, smem)
+
+
+def test_k4_every_width_up_to_32_channels_fits_one_block():
+    """Every C in 1..32 with heads of 1, 17, 33 and 41 outputs runs the
+    register kernel, "exact" or "narrow", within one block's 232,448 B."""
+    for C in range(1, 33):
+        for O in (1, 17, 33, 41):
+            inst = ck.kernel_instance(C, O)
+            exact = C in ck.EXACT_CHANNELS and O <= ck.EXACT_HEAD_OUTPUTS
+            assert inst == ("exact" if exact else "narrow"), (C, O)
+            threads, smem = ck.kernel_smem(C, O)
+            assert threads == 256 and smem <= ck.SHARED_MEMORY_LIMIT == 232_448, (C, O)
+
+
+@pytest.mark.parametrize("C, O", [(1, 29050), (10, 5264), (32, 1720)])
+def test_k4_narrow_head_past_shared_memory_takes_the_columns(C, O):
+    """The largest head whose weights fit one narrow block beside the
+    layer's runs narrow, within 232,448 B; one output more takes the
+    per-pixel columns, as past 128 channels."""
+    assert ck.kernel_instance(C, O) == "narrow"
+    assert ck.SHARED_MEMORY_LIMIT - 4 * (C + 1) < ck.kernel_smem(C, O)[1] <= ck.SHARED_MEMORY_LIMIT
+    assert ck.kernel_instance(C, O + 1) == "wide_columns"
+    threads, smem = ck.kernel_smem(C, O + 1)
+    assert threads in ck.COLUMN_THREADS and smem == 4 * 2 * C * threads
+
+
+_SHAPES = [(60, 80, 16), (64, 48, 64), (37, 53, 8), (200, 160, 16), (512, 512, 16)]
+
+
+@pytest.mark.parametrize("C, warps, passes", [
+    (1, 32, 1), (17, 32, 1), (33, 32, 1), (34, 32, 1), (41, 32, 1), (42, 32, 1), (65, 32, 1),
+    (66, 32, 2), (81, 32, 2), (82, 32, 3), (97, 29, 3), (121, 23, 3), (122, 23, 4),
+])
+def test_stats_launch_keeps_the_virtual_warps(C, warps, passes):
+    """The stats at the logit counts that end each compiled bound (33, 41,
+    65; 40 classes a pass past 65): at the main path's 128² maps and K=16,
+    ``stats_warps`` virtual warps a block and one or more class passes; at
+    other shapes, between 1 and 32 virtual warps, and either the cluster
+    K2 / K12c fits one block with one partial set a virtual warp or the
+    tiled kernels plan the shape."""
+    assert pk.stats_warps(128, 128, 16, C) == warps
+    assert pk.class_chunks(C) == passes
+    assert pk.geometry_compat_fits(128, 128, 16, C)
+    for H, W, K in _SHAPES:
+        sets = pk.stats_warps(H, W, K, C)
+        assert 1 <= sets <= 32
+        if pk.geometry_compat_fits(H, W, K, C):
+            assert (pk.geometry_smem_words(H, W, K) + sets * K * (C + 1)) * 4 <= pk.MAX_SHARED_BYTES
+        else:
+            assert pk.tiled_plan(2, H, W, K, C).ints.size > 0
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_postprocess_fused_at_97_logits(packed):
+    """postprocess_batch_fused on 97-channel blob logits (three class
+    passes of the card's stats) == JAX's in interpret mode, unpacked and
+    phase-major."""
+    O = 97
+    rng = np.random.default_rng(O)
+    det = blob_logits(O, B=3, n_blobs=6)
+    logits = rng.normal(0, 2, det.shape + (O,)).astype(np.float32)
+    logits[..., 0] = det
+    kw = dict(class_names=tuple(f"sym{i}" for i in range(O - 1)), max_components=8,
+              min_component_area=3, max_hull_points=8)
+    cfg, jcfg = NetConfig(**kw), JaxNetConfig(**kw)
+    phases = (2, 2) if packed else None
+    if packed:
+        B, H, W, C = logits.shape
+        logits = np.ascontiguousarray(logits.reshape(B, H // 2, 2, W // 2, 2, C)
+                                      .transpose(0, 1, 3, 2, 4, 5).reshape(B, H // 2, W // 2, 4 * C))
+    ref = jax.device_get(jax_postprocess_batch_fused(jnp.asarray(logits), jcfg, interpret=True,
+                                                     packed_phases=phases))
+    out = postprocess_batch_fused(torch.from_numpy(logits), cfg, packed_phases=phases)
+    assert int(np.asarray(ref["num_detections"]).sum()) > 0
+    assert_same_detections(out, ref)
+    assert pk.class_chunks(O) == 3

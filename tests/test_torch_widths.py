@@ -140,20 +140,22 @@ def test_context_reference_matches_pallas_at_any_width(C, O):
     assert torch.equal(packed, ck._s2d_planes(out))
 
 
-@pytest.mark.parametrize("C,O,instance", [(24, 17, "exact"), (8, 32, "exact"), (24, 33, "any"),
-                                          (10, 17, "any"), (4, 1, "any"), (48, 41, "wide"),
+@pytest.mark.parametrize("C,O,instance", [(24, 17, "exact"), (8, 32, "exact"), (24, 33, "narrow"),
+                                          (10, 17, "narrow"), (4, 1, "narrow"), (48, 41, "wide"),
                                           (33, 1, "wide"), (96, 17, "wide"), (128, 41, "wide"),
                                           (128, 400, "wide_columns"), (160, 41, "wide_columns")])
 def test_context_kernel_instance_and_shared_memory(C, O, instance):
     """The card's instance of K4 at each width, and its shared memory: the
-    compiled widths keep the register design, other widths up to 32 take
-    it with guarded channel loops; from 33 to 128 channels a tile of 128
-    pixels by C channels a block of 256 threads, its weights grouped by a
-    warp's OT outputs (6, 8, 12 or 16, so that C outputs make at most eight
-    groups), each group's rows rounded to 4 floats; a width whose tile and
-    weights fit no block, past 128 channels or with a large head, the
-    per-pixel shared-memory columns; each within one block's shared memory;
-    a width whose columns fit no block is the only one the card refuses."""
+    compiled widths keep the register design, other widths up to 32 (or a
+    head past 32 outputs) take it compiled for C ("narrow"); from 33 to 128
+    channels a
+    tile of 128 pixels by C channels a block of 256 threads, its weights
+    grouped by a warp's OT outputs (6, 8, 12 or 16, so that C outputs make
+    at most eight groups), each group's rows rounded to 4 floats; a width
+    whose tile and weights fit no block, past 128 channels or with a large
+    head, the per-pixel shared-memory columns; each within one block's
+    shared memory; a width whose columns fit no block is the only one the
+    card refuses."""
     assert ck.kernel_instance(C, O) == instance
     threads, smem = ck.kernel_smem(C, O)
     assert threads in (256, 128, 64, 32) and smem <= ck.SHARED_MEMORY_LIMIT
@@ -174,9 +176,10 @@ def test_context_kernel_instance_and_shared_memory(C, O, instance):
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("O", OUTPUTS)
 def test_postprocess_fused_at_any_class_count(O, packed):
-    """postprocess_batch_fused on O-channel blob logits (41: past the stats
-    kernels' register chunk) == JAX's in interpret mode, unpacked and
-    phase-major; the stats kernels' chunk count at that width."""
+    """postprocess_batch_fused on O-channel blob logits (41: the stats
+    kernels' exact one-pass instance for 40 symbologies) == JAX's in
+    interpret mode, unpacked and phase-major; the stats kernels' pass count
+    at that width."""
     rng = np.random.default_rng(O)
     det = blob_logits(O, B=3, n_blobs=6)
     logits = rng.normal(0, 2, det.shape + (O,)).astype(np.float32)
@@ -193,7 +196,7 @@ def test_postprocess_fused_at_any_class_count(O, packed):
     out = postprocess_batch_fused(torch.from_numpy(logits), cfg, packed_phases=phases)
     assert int(np.asarray(ref["num_detections"]).sum()) > 0
     assert_same_detections(out, ref)
-    assert postproc_kernel.class_chunks(O) == (2 if O == 41 else 1)
+    assert postproc_kernel.class_chunks(O) == 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -34,13 +34,26 @@
 //
 // Widths (every C >= 1 and O >= 1, as the TPU kernel takes them from its
 // inputs):
-//   * C in {8, 16, 24, 32} with O <= 32: context_layer_kernel<C>, the
-//     per-pixel register design above, weights in static shared memory;
-//   * other C <= 32, or O > 32: context_layer_any<CM> at the next compiled
-//     width CM >= C, the same registers and the same order of every sum
-//     (c = 0..C-1, one fmaf each), each channel loop guarded by the real C
-//     so that no padding weight enters a sum; its weights, the head's O
-//     rows included, in dynamic shared memory;
+//   * C in {8, 16, 24, 32} with O <= 32: context_layer_kernel<C, false>,
+//     the per-pixel register design above, weights in static shared
+//     memory;
+//   * every other C <= 32, or O > 32 ("narrow"): the same register kernel
+//     compiled for that C, context_layer_kernel<C, true>, every channel
+//     loop exactly C long and every weight at a compile-time offset, the
+//     head's O rows and biases in dynamic shared memory, so any O whose
+//     weights fit one block.  It replaces a kernel that ran the loops of
+//     the next compiled width with each channel guarded by the real C: at
+//     C = 10 that issued 256 predicated pointwise FMAs a pixel for 100,
+//     each with a scalar weight load at a runtime offset.  A tile of pixels
+//     by C channels (the wide instance below, brought down to these widths:
+//     8, 4 or 2 runs of 128 pixels a tile) was measured against it and lost
+//     (scripts/torch_kernel_ab.py --only widths; PERF.md §6): at
+//     these widths the pointwise is small beside the taps' loads, and a
+//     thread a pixel keeps them all in flight with no barrier.  The same
+//     sums in the same order, so the outputs are the guarded kernel's bit
+//     for bit.  Bound: 80 B a pixel a layer at C = 10 (device memory, 0.19
+//     ms for the 7 layers and the 17-logit head at (64, 10, 128²), against
+//     0.05 for the operations);
 //   * 32 < C <= 128 where its block fits (the head's weights included):
 //     context_layer_tile<OT>, a tile of kTileP consecutive pixels of one
 //     image by all C channels a block.  The depthwise results go to shared
@@ -60,7 +73,8 @@
 //     outputs are theirs bit for bit.  Bound: bytes, 384 B a pixel a layer
 //     at C = 48, against 2 (9 C + C^2) FLOP, ~14 FLOP a byte where the
 //     card's f32 rate over its memory rate is ~20;
-//   * other C > 32: context_layer_wide, where acc[C] and act[C] would no
+//   * any other C (past 128, a block that does not fit, or a map of 2^30
+//     pixels and more): context_layer_wide, where acc[C] and act[C] may no
 //     longer fit a thread's registers: each thread keeps its pixel's
 //     depthwise results (and, for the head, its activations) in a column of
 //     dynamic shared memory, C words blockDim.x apart, which only that
@@ -74,8 +88,17 @@
 namespace {
 
 constexpr int kMaxO = 32;
+constexpr int kNarrowMax = 32;  // the register kernel's widths
 constexpr int kThreads = 256;
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+// The register kernel with any head (kAnyHead): its weights' dynamic
+// shared memory (it has no static), and whether that fits one block.
+inline size_t narrow_smem(int C, int O) {
+  return (9 * static_cast<size_t>(C) + static_cast<size_t>(C) * C + C +
+          static_cast<size_t>(O) * (C + 1)) * sizeof(float);
+}
+inline bool narrow_fits(int C, int O) { return C <= kNarrowMax && narrow_smem(C, O) <= kMaxSmem; }
 
 // The wide kernel's block: 128 threads, or 64 or 32 where C columns (2 C
 // with the head) of that many floats do not fit; 0 where none fits.
@@ -89,7 +112,9 @@ inline int wide_threads(int C, bool head) {
   return 0;
 }
 
-template <int C>
+// kAnyHead: every weight and bias in dynamic shared memory (narrow_smem),
+// for any O; else static, for O <= kMaxO.
+template <int C, bool kAnyHead>
 __global__ void __launch_bounds__(kThreads)
 context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const float* __restrict__ dw,   // (9, C) tap-major
@@ -98,11 +123,26 @@ context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const float* __restrict__ hwt,  // (O, C) or null
                      const float* __restrict__ hb,   // (O) or null
                      int B, int H, int W, int d, int O, int packed) {
-  __shared__ float s_dw[9 * C];
-  __shared__ float s_pw[C * C];
-  __shared__ float s_pb[C];
-  __shared__ float s_hw[kMaxO * C];
-  __shared__ float s_hb[kMaxO];
+  float *s_dw, *s_pw, *s_pb, *s_hw, *s_hb;
+  if constexpr (kAnyHead) {
+    extern __shared__ float s_weights[];
+    s_dw = s_weights;
+    s_pw = s_dw + 9 * C;
+    s_pb = s_pw + C * C;
+    s_hw = s_pb + C;
+    s_hb = s_hw + O * C;
+  } else {
+    __shared__ float s_dw_static[9 * C];
+    __shared__ float s_pw_static[C * C];
+    __shared__ float s_pb_static[C];
+    __shared__ float s_hw_static[kMaxO * C];
+    __shared__ float s_hb_static[kMaxO];
+    s_dw = s_dw_static;
+    s_pw = s_pw_static;
+    s_pb = s_pb_static;
+    s_hw = s_hw_static;
+    s_hb = s_hb_static;
+  }
   const bool with_head = hwt != nullptr;
   for (int i = threadIdx.x; i < 9 * C; i += blockDim.x) s_dw[i] = dw[i];
   for (int i = threadIdx.x; i < C * C; i += blockDim.x) s_pw[i] = pwt[i];
@@ -167,95 +207,6 @@ context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
     float s = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) s = fmaf(s_hw[o * C + c], act[c], s);
-    ob[o * os] = s + s_hb[o];
-  }
-}
-
-// C <= CM channels (the runtime C), any O: the weights in dynamic shared
-// memory (9 C + C C + C + O C + O floats).
-template <int CM>
-__global__ void __launch_bounds__(kThreads)
-context_layer_any(const float* __restrict__ x, float* __restrict__ out,
-                  const float* __restrict__ dw, const float* __restrict__ pwt,
-                  const float* __restrict__ pb, const float* __restrict__ hwt,
-                  const float* __restrict__ hb, int B, int C, int H, int W, int d, int O,
-                  int packed) {
-  extern __shared__ float s_any[];
-  float* s_dw = s_any;
-  float* s_pw = s_dw + 9 * C;
-  float* s_pb = s_pw + C * C;
-  float* s_hw = s_pb + C;
-  float* s_hb = s_hw + O * C;
-  const bool with_head = hwt != nullptr;
-  for (int i = threadIdx.x; i < 9 * C; i += blockDim.x) s_dw[i] = dw[i];
-  for (int i = threadIdx.x; i < C * C; i += blockDim.x) s_pw[i] = pwt[i];
-  for (int i = threadIdx.x; i < C; i += blockDim.x) s_pb[i] = pb[i];
-  if (with_head) {
-    for (int i = threadIdx.x; i < O * C; i += blockDim.x) s_hw[i] = hwt[i];
-    for (int i = threadIdx.x; i < O; i += blockDim.x) s_hb[i] = hb[i];
-  }
-  __syncthreads();
-
-  const long long HW = static_cast<long long>(H) * W;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= B * HW) return;
-  const int b = static_cast<int>(idx / HW);
-  const int p = static_cast<int>(idx - b * HW);
-  const int y = p / W;
-  const int xw = p - y * W;
-  const float* xb = x + static_cast<long long>(b) * C * HW;
-
-  float acc[CM];
-#pragma unroll
-  for (int c = 0; c < CM; ++c) acc[c] = 0.f;
-#pragma unroll
-  for (int ty = -1; ty <= 1; ++ty) {
-    const int yy = y + ty * d;
-    if (yy < 0 || yy >= H) continue;
-#pragma unroll
-    for (int tx = -1; tx <= 1; ++tx) {
-      const int xx = xw + tx * d;
-      if (xx < 0 || xx >= W) continue;
-      const float* src = xb + static_cast<long long>(yy) * W + xx;
-      const float* wt = s_dw + ((ty + 1) * 3 + (tx + 1)) * C;
-#pragma unroll
-      for (int c = 0; c < CM; ++c) {
-        if (c < C) acc[c] = fmaf(src[c * HW], wt[c], acc[c]);
-      }
-    }
-  }
-
-  float act[CM];
-#pragma unroll
-  for (int o = 0; o < CM; ++o) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < CM; ++c) {
-      if (c < C && o < C) s = fmaf(s_pw[o * C + c], acc[c], s);
-    }
-    act[o] = o < C ? fmaxf(s + s_pb[o], 0.f) : 0.f;
-  }
-
-  float* ob = out + static_cast<long long>(b) * (with_head ? O : C) * HW + p;
-  if (!with_head) {
-#pragma unroll
-    for (int o = 0; o < CM; ++o) {
-      if (o < C) ob[o * HW] = act[o];
-    }
-    return;
-  }
-  long long os = HW;
-  if (packed) {
-    os = HW / 4;
-    ob = out + (static_cast<long long>(b) * 4 + 2 * (y & 1) + (xw & 1)) * O * os +
-         static_cast<long long>(y >> 1) * (W >> 1) + (xw >> 1);
-  }
-  for (int o = 0; o < O; ++o) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < CM; ++c) {
-      if (c < C) s = fmaf(s_hw[o * C + c], act[c], s);
-    }
     ob[o * os] = s + s_hb[o];
   }
 }
@@ -607,39 +558,35 @@ int launch_tile(const float* x, float* out, const float* dw, const float* pwt, c
   }
 }
 
-template <int C>
-void launch(const float* x, float* out, const float* dw, const float* pwt,
-            const float* pb, const float* hwt, const float* hb, int B, int H,
-            int W, int d, int O, int packed, cudaStream_t stream) {
+template <int C, bool kAnyHead = false>
+int launch(const float* x, float* out, const float* dw, const float* pwt,
+           const float* pb, const float* hwt, const float* hb, int B, int H,
+           int W, int d, int O, int packed, cudaStream_t stream) {
   const long long n = static_cast<long long>(B) * H * W;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  context_layer_kernel<C><<<blocks, kThreads, 0, stream>>>(
-      x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed);
-}
-
-// Dynamic shared memory of context_layer_any: its weights.
-inline size_t any_smem(int C, int O, bool head) {
-  return (9 * static_cast<size_t>(C) + static_cast<size_t>(C) * C + C +
-          (head ? static_cast<size_t>(O) * C + O : 0)) * sizeof(float);
-}
-
-template <int CM>
-int launch_any(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
-               const float* hwt, const float* hb, int B, int C, int H, int W, int d, int O,
-               int packed, cudaStream_t stream) {
-  const size_t smem = any_smem(C, O, hwt != nullptr);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int smem = kAnyHead ? static_cast<int>(narrow_smem(C, hwt != nullptr ? O : 0)) : 0;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        context_layer_any<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t e = cudaFuncSetAttribute(context_layer_kernel<C, kAnyHead>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const long long n = static_cast<long long>(B) * H * W;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  context_layer_any<CM><<<blocks, kThreads, smem, stream>>>(x, out, dw, pwt, pb, hwt, hb, B, C,
-                                                            H, W, d, O, packed);
+  context_layer_kernel<C, kAnyHead><<<blocks, kThreads, smem, stream>>>(
+      x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed);
   return cudaSuccess;
+}
+
+// Every C <= 32 off the compiled widths, or a head past kMaxO outputs: the
+// register kernel compiled for C, its head in dynamic shared memory.
+template <int C>
+int launch_narrow(int c, const float* x, float* out, const float* dw, const float* pwt,
+                  const float* pb, const float* hwt, const float* hb, int B, int H, int W, int d,
+                  int O, int packed, cudaStream_t stream) {
+  if constexpr (C > kNarrowMax) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (c == C) return launch<C, true>(x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed, stream);
+    return launch_narrow<C + 1>(c, x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed, stream);
+  }
 }
 
 int launch_wide(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
@@ -685,19 +632,13 @@ extern "C" int context_layer(const void* x, void* out, const void* dw,
   int e = cudaSuccess;
   if (O <= kMaxO && (C == 8 || C == 16 || C == 24 || C == 32)) {
     switch (C) {
-      case 8: launch<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-      case 16: launch<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-      case 24: launch<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-      default: launch<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      case 8: e = launch<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      case 16: e = launch<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      case 24: e = launch<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      default: e = launch<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
     }
-  } else if (C <= 8) {
-    e = launch_any<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
-  } else if (C <= 16) {
-    e = launch_any<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
-  } else if (C <= 24) {
-    e = launch_any<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
-  } else if (C <= 32) {
-    e = launch_any<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
+  } else if (narrow_fits(C, O)) {
+    e = launch_narrow<1>(C, fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s);
   } else if (tile_fits(C, O, H, W)) {
     e = launch_tile(fx, fo, fdw, fpw, fpb, fhw, fhb, B, C, H, W, d, O, packed, s);
   } else {

@@ -35,15 +35,23 @@ __device__ __forceinline__ float at_logit_precision(float v) {
   }
 }
 
-// The stats keep a pixel's class logits in registers: CM is the logit
-// channel count C as a compile-time constant, exact for 1 (detection only)
-// and 17 (the main path's), else the bound kAnyChannels; past it
-// kWideChannels, a marker for any C: the class logits in chunks of
-// kAnyChannels - 1, one pixel pass a chunk (slot_pass, tiled.cuh
-// slots_pass), each pixel's softmax max and denominator taken over all
-// classes first.
+// The stats keep a pixel's class logits and its class sums in registers,
+// each logit loaded once, in one pixel pass: CM is the logit channel count
+// C as a compile-time constant, exact for 1 (detection only) and 17 (the
+// main path's), else the bound kAnyChannels, kMidChannels or
+// kOnePassChannels that holds C, whose class loops are guarded by the real
+// C; each bound is the most class logits and sums a thread holds in the
+// registers its block leaves it (stats_block: 32 classes at 1024 threads,
+// 40 at 512, 64 at 256).  Past them kWideChannels, a marker for any C: the
+// class logits in chunks of kChunkClasses on 512 threads, one pixel pass a
+// chunk (slot_pass, tiled.cuh slots_pass), the first finding each pixel's
+// slot and the others reading it back, each pixel's softmax max and
+// denominator taken over all classes in every pass.
 constexpr int kAnyChannels = 33;
-constexpr int kWideChannels = kAnyChannels + 1;
+constexpr int kMidChannels = 41;
+constexpr int kOnePassChannels = 65;
+constexpr int kWideChannels = kOnePassChannels + 1;
+constexpr int kChunkClasses = kMidChannels - 1;
 
 // Calls f(std::integral_constant<int, CM>()) for C channels.
 template <class F>
@@ -51,15 +59,39 @@ inline int with_channel_bound(int C, F&& f) {
   if (C == 1) return f(std::integral_constant<int, 1>());
   if (C == 17) return f(std::integral_constant<int, 17>());
   if (C <= kAnyChannels) return f(std::integral_constant<int, kAnyChannels>());
+  if (C <= kMidChannels) return f(std::integral_constant<int, kMidChannels>());
+  if (C <= kOnePassChannels) return f(std::integral_constant<int, kOnePassChannels>());
   return f(std::integral_constant<int, kWideChannels>());
 }
 
+// The class loops of CM are guarded by the real C.
+template <int CM>
+__host__ __device__ constexpr bool guarded_channels() {
+  return CM == kAnyChannels || CM == kMidChannels || CM == kOnePassChannels;
+}
+
+// Threads of a K2 or K12c block at CM, whose registers hold a thread's
+// class logits and sums (64 a thread at 1024, 128 at 512, 255 at 256):
+// where a block's virtual warps outnumber its warps, each warp runs
+// several in turn (slot_pass).
+template <int CM>
+__host__ __device__ constexpr int stats_block() {
+  return CM <= kAnyChannels ? 1024 : CM <= kMidChannels || CM == kWideChannels ? 512 : 256;
+}
+
+// Blocks an SM of the tiled pass (256 threads) at CM: 64 registers a
+// thread, 128 or 255 past kAnyChannels.
+template <int CM>
+__host__ __device__ constexpr int tiled_blocks() {
+  return CM <= kAnyChannels ? 4 : CM <= kMidChannels || CM == kWideChannels ? 2 : 1;
+}
+
 // The class chunks of a pixel pass for C channels at CM: one, or for
-// kWideChannels one a kAnyChannels - 1 classes.
+// kWideChannels one a kChunkClasses classes.
 template <int CM>
 __device__ __forceinline__ int class_chunks(int C) {
   if constexpr (CM == kWideChannels) {
-    return (C - 2) / (kAnyChannels - 1) + 1;
+    return (C - 2) / kChunkClasses + 1;
   } else {
     return 1;
   }
@@ -337,17 +369,26 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
 // pixel (within an ulp or two of the division; its stats are held to the
 // f64 sums, not to K2's bits).
 //
-// kWideChannels (C > kAnyChannels): the accumulator holds the classes
-// [c0, c0 + kAnyChannels - 1) of its pass's chunk (``c0``, set_chunk), and
-// the count and the sigmoid only in the first chunk's pass; each pixel's
-// max and denominator are taken over all C - 1 class logits, in channel
-// order, reloading them, so every sum is the one a single pass would take.
+// Up to kOnePassChannels a pixel's class logits are loaded together
+// (fetch), its max and denominator taken from the registers in channel
+// order, and every class sum is held in one pass, so the sums are those a
+// pass a chunk would take, bit for bit.  kWideChannels (C >
+// kOnePassChannels): the accumulator holds the classes [c0, c0 +
+// kChunkClasses) of its pass's chunk (``c0``, set_chunk), and the count and
+// the sigmoid only in the first chunk's pass; each pixel's max and
+// denominator are taken over all C - 1 class logits, in channel order,
+// reloading them.
 template <int CM, class T, bool kTiled = false>
 struct StatsAcc {
   static constexpr bool kWide = CM == kWideChannels;
-  static constexpr bool kExact = CM != kAnyChannels && !kWide;  // C == CM
-  static constexpr int kN = kWide ? kAnyChannels - 1 : (CM > 1 ? CM - 1 : 1);  // array size
+  static constexpr bool kExact = !guarded_channels<CM>() && !kWide;  // C == CM
+  static constexpr int kN = kWide ? kChunkClasses : (CM > 1 ? CM - 1 : 1);  // array size
   static constexpr int kClasses = kWide ? kN : CM - 1;  // the class loops' bound
+  // past kAnyChannels the class loops run every class slot, one past C
+  // reading the first class's logit and adding +0 to the denominator (or a
+  // sum no flush reads), so no loop branches on C and the sums are those
+  // of the classes alone, bit for bit
+  static constexpr bool kSelect = CM > kAnyChannels && !kExact;
   int slot;
   int cnt;
   float det;
@@ -375,15 +416,20 @@ struct StatsAcc {
       q = lg.at(y, x);
 #pragma unroll
       for (int c = 0; c < kN; ++c) {
-        if (c0 + c < lg.C - 1) e[c] = widen(q[(1 + c0 + c) * lg.sc]);
+        e[c] = widen(q[(c0 + c < lg.C - 1 ? 1 + c0 + c : 1) * lg.sc]);
       }
       return;
     }
     const T* q = lg.at(y, x);
+    const T* q1 = q + lg.sc;
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
       q += lg.sc;
-      if (kExact || c < lg.C - 1) e[c] = widen(*q);
+      if constexpr (kSelect) {
+        e[c] = widen(*(c < lg.C - 1 ? q : q1));
+      } else if (kExact || c < lg.C - 1) {
+        e[c] = widen(*q);
+      }
     }
   }
 
@@ -465,9 +511,7 @@ struct StatsAcc {
       wide_softmax(lg, &mx, &den);
       const float inv = __frcp_rn(den);
 #pragma unroll
-      for (int c = 0; c < kN; ++c) {
-        if (c0 + c < lg.C - 1) cls[c] += at_logit_precision<T>(expf(e[c] - mx) * inv);
-      }
+      for (int c = 0; c < kN; ++c) cls[c] += at_logit_precision<T>(expf(e[c] - mx) * inv);
       return;
     }
     det += __frcp_rn(1.f + expf(-d));
@@ -484,7 +528,12 @@ struct StatsAcc {
     const float mx = t[0];
 #pragma unroll
     for (int c = 0; c < n; ++c) {
-      e[c] = (kExact || c < lg.C - 1) ? expf(e[c] - mx) : 0.f;
+      if constexpr (kSelect) {
+        const float v = expf(e[c] - mx);
+        e[c] = c < lg.C - 1 ? v : 0.f;
+      } else {
+        e[c] = (kExact || c < lg.C - 1) ? expf(e[c] - mx) : 0.f;
+      }
       t[c] = e[c];
     }
 #pragma unroll
@@ -495,7 +544,7 @@ struct StatsAcc {
     const float inv = __frcp_rn(t[0]);
 #pragma unroll
     for (int c = 0; c < n; ++c) {
-      if (kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] * inv);
+      if (kSelect || kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] * inv);
     }
   }
 
@@ -517,9 +566,7 @@ struct StatsAcc {
       float mx, den;
       wide_softmax(lg, &mx, &den);
 #pragma unroll
-      for (int c = 0; c < kN; ++c) {
-        if (c0 + c < lg.C - 1) cls[c] += at_logit_precision<T>(expf(e[c] - mx) / den);
-      }
+      for (int c = 0; c < kN; ++c) cls[c] += at_logit_precision<T>(expf(e[c] - mx) / den);
       return;
     }
     det += 1.f / (1.f + expf(-d));
@@ -527,19 +574,27 @@ struct StatsAcc {
     float mx = __int_as_float(0xff800000);  // -inf
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
-      if (kExact || c < lg.C - 1) mx = fmaxf(mx, e[c]);
+      if constexpr (kSelect) {
+        mx = fmaxf(mx, c < lg.C - 1 ? e[c] : __int_as_float(0xff800000));
+      } else if (kExact || c < lg.C - 1) {
+        mx = fmaxf(mx, e[c]);
+      }
     }
     float den = 0.f;
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
-      if (kExact || c < lg.C - 1) {
+      if constexpr (kSelect) {
+        const float v = expf(e[c] - mx);
+        e[c] = c < lg.C - 1 ? v : 0.f;  // + 0 leaves den as it is
+        den += e[c];
+      } else if (kExact || c < lg.C - 1) {
         e[c] = expf(e[c] - mx);
         den += e[c];
       }
     }
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
-      if (kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] / den);
+      if (kSelect || kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] / den);
     }
   }
 };
@@ -645,16 +700,18 @@ __device__ inline int slot_roots(const Det& det, const Lab& lab, const SlotSmem&
 // are cut into ``nv`` runs, one per virtual warp; a warp walks its run with
 // lanes over the strip's columns, so a lane goes down its column and its
 // slot changes only at a component's edge, and every warp-wide stats call
-// sees the whole warp.  Warp w of the block runs the virtual warps
-// first + w + j * nw for j < ``reps``, each into the partial set
-// v - first.  Each pixel finds its root's slot by binary search among the
-// ranked roots, writes it, and takes part in the per-row extremes
-// (shared-memory atomicMin/Max) and the stats.  Ends with a
-// __syncthreads().
+// sees the whole warp.  The block runs the ``sets`` virtual warps first,
+// first + 1, ...: warp w runs first + w + j * nw for every j that stays
+// below first + sets (nw the block's warps; one j where the block has a
+// warp a virtual warp), each into the partial set v - first.  Each pixel
+// finds its root's slot by binary search among the ranked roots, writes
+// it, and takes part in the per-row extremes (shared-memory atomicMin/Max)
+// and the stats; a later class chunk's pass (kWideChannels) reads the slot
+// its own thread wrote.  Ends with a __syncthreads().
 template <int CM, class T, class Det, class Lab>
 __device__ inline void slot_pass(const Det& det, const Logits<T>& lg, const Lab& lab,
                                  const SlotSmem& s, int H, int W, int K, float thr, int total,
-                                 int first, int reps, int nv, int* __restrict__ slots) {
+                                 int first, int sets, int nv, int* __restrict__ slots) {
   const int N = H * W;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -666,9 +723,8 @@ __device__ inline void slot_pass(const Det& det, const Logits<T>& lg, const Lab&
   // one pass a class chunk (kWideChannels); the first writes the slots
   // and the extremes
   auto pass = [&](int chunk, bool lead) {
-    for (int j = 0; j < reps; ++j) {
-      const int v = first + warp + j * nw;
-      const int set = v - first;
+    auto walk = [&](int set) {
+      const int v = first + set;
       float* w_part = s.part + set * K * lg.C;
       int* w_cnt = s.cnt + set * K;
       StatsAcc<CM, T> acc;
@@ -688,30 +744,37 @@ __device__ inline void slot_pass(const Det& det, const Logits<T>& lg, const Lab&
         float d = 0.f;
         if (x < W) {
           acc.fetch(lg, y, x);
-          d = det(y, x);
-          const int lp = lab[p];  // loaded beside d, not after it
-          const int l = d > thr ? lp : N;
-          if (l == N) {
-            slot = bg_slot;
-          } else {
-            int lo = 0, hi = nvalid;
-            while (lo < hi) {
-              const int mid = (lo + hi) >> 1;
-              if (s.root[mid] < l) lo = mid + 1; else hi = mid;
-            }
-            slot = (lo < nvalid && s.root[lo] == l) ? lo : K;
-          }
           if (lead) {
+            d = det(y, x);
+            const int lp = lab[p];  // loaded beside d, not after it
+            const int l = d > thr ? lp : N;
+            if (l == N) {
+              slot = bg_slot;
+            } else {
+              int lo = 0, hi = nvalid;
+              while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                if (s.root[mid] < l) lo = mid + 1; else hi = mid;
+              }
+              slot = (lo < nvalid && s.root[lo] == l) ? lo : K;
+            }
             slots[p] = slot;
             if (slot < K) {
               atomicMin(&s.mn[slot * H + y], x);
               atomicMax(&s.mx[slot * H + y], x);
             }
+          } else {
+            slot = slots[p];
           }
         }
         acc.add(lg, slot, d, K, w_part, w_cnt);
       }
       if (__ballot_sync(kFull, acc.slot < K)) acc.flush(acc.slot < K, K, lg.C, w_part, w_cnt);
+    };
+    if constexpr (stats_block<CM>() >= 1024) {
+      walk(warp);  // a warp a virtual warp: the block is 32 x sets threads
+    } else {
+      for (int set = warp; set < sets; set += nw) walk(set);  // warp-uniform
     }
   };
   if constexpr (CM == kWideChannels) {

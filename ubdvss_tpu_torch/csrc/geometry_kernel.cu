@@ -89,13 +89,14 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 1024;
 
 template <int CM, class T>
-__global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1) __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1)
+__launch_bounds__(geometry::stats_block<CM>())
 geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
                 long long sc, geometry::Phase ph, int C, int* __restrict__ rootvals,
                 int* __restrict__ slots,
                 int* __restrict__ minx, int* __restrict__ maxx, int* __restrict__ nroots,
                 float* __restrict__ areas, float* __restrict__ det_sums,
-                float* __restrict__ cls_sums, int H, int W, int K, float thr,
+                float* __restrict__ cls_sums, int H, int W, int K, int sets, float thr,
                 int connectivity) {
   extern __shared__ int sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -132,11 +133,10 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
   cluster.sync();
 
   // 4. the roots: each block ranks its rows', then joins the two lists
-  const int nw = blockDim.x >> 5;
-  const geometry::SlotSmem s(sm + split, K, H, C, nw);
-  int* ranked = s.cnt + nw * K;  // K roots of this block's rows, then their count
+  const geometry::SlotSmem s(sm + split, K, H, C, sets);
+  int* ranked = s.cnt + sets * K;  // K roots of this block's rows, then their count
   const geometry::SplitView view{lo, hi, split};
-  const int count = geometry::slot_roots(det, view, s, ranked, p0, p1, H, W, K, C, nw, thr);
+  const int count = geometry::slot_roots(det, view, s, ranked, p0, p1, H, W, K, C, sets, thr);
   if (threadIdx.x == 0) ranked[K] = count;
   cluster.sync();
   const int* other = cluster.map_shared_rank(ranked, rank ^ 1);
@@ -150,17 +150,17 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
   __syncthreads();
 
   // 5. K2's pixel pass and finish
-  geometry::slot_pass<CM>(det, lg, view, s, H, W, K, thr, c0 + c1, rank * nw, 1,
-                          geometry::kSlotCtas * nw, slots + b * N);
+  geometry::slot_pass<CM>(det, lg, view, s, H, W, K, thr, c0 + c1, rank * sets, sets,
+                          geometry::kSlotCtas * sets, slots + b * N);
   cluster.sync();
   if (rank == 0) {
-    const geometry::SlotSmem o(cluster.map_shared_rank(sm, 1) + split, K, H, C, nw);
+    const geometry::SlotSmem o(cluster.map_shared_rank(sm, 1) + split, K, H, C, sets);
     for (int i = threadIdx.x; i < K * H; i += blockDim.x) {
       s.mn[i] = min(s.mn[i], o.mn[i]);
       s.mx[i] = max(s.mx[i], o.mx[i]);
     }
     __syncthreads();
-    geometry::slot_finish(s, o.part, o.cnt, H, K, C, c0 + c1, geometry::kSlotCtas * nw,
+    geometry::slot_finish(s, o.part, o.cnt, H, K, C, c0 + c1, geometry::kSlotCtas * sets,
                           rootvals + b * K, minx + b * K * H, maxx + b * K * H, nroots + b,
                           areas + b * K, det_sums + b * K, cls_sums + b * K * max(C - 1, 1));
   }
@@ -169,7 +169,8 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
 
 // logits (B, H, W, C) at element strides (sb, sy, sx, sc) and phase
 // ``ph`` (geometry.cuh Phase) -> the outputs of component_slots
-// (postproc_kernel.cu).  ``threads`` is that of one of K2's blocks.
+// (postproc_kernel.cu).  ``threads`` is that of one of K2's blocks: 32 x
+// its virtual warps, run on at most geometry::stats_block<CM>() threads.
 template <class T>
 int geometry_launch(const void* logits, long long sb, long long sy, long long sx, long long sc,
                     geometry::Phase ph, int C, void* rootvals, void* slots, void* minx,
@@ -189,13 +190,14 @@ int geometry_launch(const void* logits, long long sb, long long sy, long long sx
         geometry_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    geometry_kernel<CM, T><<<geometry::kSlotCtas * B, threads, smem,
+    const int block = threads < geometry::stats_block<CM>() ? threads : geometry::stats_block<CM>();
+    geometry_kernel<CM, T><<<geometry::kSlotCtas * B, block, smem,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(logits), sb, sy, sx, sc, ph, C, static_cast<int*>(rootvals),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
         static_cast<int*>(nroots), static_cast<float*>(areas),
-        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, thr,
-        connectivity);
+        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, threads / 32,
+        thr, connectivity);
     return launch_status();
   });
 }
@@ -209,7 +211,7 @@ constexpr int kLargeThreads = 256;  // every phase's block: the tiled pair's at 
 // reads again is __restrict__ const, so no load of them takes the
 // read-only cache.
 template <int CM, class T>
-__global__ void __launch_bounds__(kLargeThreads, 4)
+__global__ void __launch_bounds__(kLargeThreads, geometry::tiled_blocks<CM>())
 geometry_large_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
                       long long sc, geometry::Phase ph, int* labels, int* rootvals, int* slots,
                       int* minx, int* maxx,

@@ -21,9 +21,12 @@
 // wrote them — the (B, H, W, C) view over (B, C, H, W) planes, at its
 // strides — and then block 0 takes the other block's extremes and stats
 // partials from its shared memory (distributed shared memory) and writes
-// the outputs (slot_finish).  A block has one warp per stats partial set,
-// 32 where K12c's shared memory allows; K12c runs the same virtual warps in
-// its cluster of two blocks, so both sum in one order.
+// the outputs (slot_finish).  A block has one virtual warp per stats
+// partial set, 32 where K12c's shared memory allows, run by as many warps
+// up to 33 logit channels and by 16 or 8 warps in turn past them, whose
+// threads hold more class logits and sums (geometry.cuh stats_block); K12c
+// runs the same virtual warps in its cluster of two blocks, so both sum in
+// one order.
 //
 // Bound on this card: device memory.  Logits plane and labels read, slots
 // written (12 B a pixel), plus the C-1 class logits of the pixels in a
@@ -70,11 +73,12 @@
 // (geometry.cuh StatsAcc), and the partials, their order and the warp
 // count are those of f32, so K2 and K12c stay equal bit for bit.
 //
-// Any logit channel count: up to geometry.cuh's kAnyChannels the pass
-// keeps a pixel's class logits in registers, past it one pass a chunk of
-// classes (StatsAcc, kWideChannels), the slots and extremes written by the
-// first; the one limit is one warp's partial set, K (C + 1) words, in a
-// block's shared memory.
+// Any logit channel count: up to geometry.cuh's kOnePassChannels (65)
+// the pass keeps a pixel's class logits and its class sums in registers,
+// each logit loaded once; past it one pass a chunk of 40 classes (StatsAcc,
+// kWideChannels, kChunkClasses), the slots and extremes written by the first and read
+// back by the others; the one limit is one warp's partial set, K (C + 1)
+// words, in a block's shared memory.
 //
 // The ``_packed`` entry points read the packed route's phase-major logits
 // ((B, H/2, W/2, 4C), channel (2 (y & 1) + (x & 1)) C + c for pixel (y,
@@ -97,7 +101,8 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 1024;
 
 template <int CM, class T>
-__global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1) __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1)
+__launch_bounds__(geometry::stats_block<CM>())
 slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
              long long sx, long long sc, geometry::Phase ph, int C,
              const int* __restrict__ labels,
@@ -105,30 +110,29 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
              int* __restrict__ minx, int* __restrict__ maxx,
              int* __restrict__ nroots, float* __restrict__ areas,
              float* __restrict__ det_sums, float* __restrict__ cls_sums, int H,
-             int W, int K, float thr) {
+             int W, int K, int sets, float thr) {
   extern __shared__ int sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long b = blockIdx.x / geometry::kSlotCtas;
   const long long N = static_cast<long long>(H) * W;
-  const int nw = blockDim.x >> 5;
   const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C, ph};
   const geometry::Plane<T> det{lg.p, sy, sx, ph};
   const geometry::GlobalLabels lab{labels + b * N};
-  const geometry::SlotSmem s(sm, K, H, C, nw);
+  const geometry::SlotSmem s(sm, K, H, C, sets);
   const int total = geometry::slot_roots(det, lab, s, s.root, 0, static_cast<int>(N), H, W, K,
-                                         C, nw, thr);
-  geometry::slot_pass<CM>(det, lg, lab, s, H, W, K, thr, total, rank * nw, 1,
-                          geometry::kSlotCtas * nw, slots + b * N);
+                                         C, sets, thr);
+  geometry::slot_pass<CM>(det, lg, lab, s, H, W, K, thr, total, rank * sets, sets,
+                          geometry::kSlotCtas * sets, slots + b * N);
   cluster.sync();
   if (rank == 0) {
-    const geometry::SlotSmem o(cluster.map_shared_rank(sm, 1), K, H, C, nw);
+    const geometry::SlotSmem o(cluster.map_shared_rank(sm, 1), K, H, C, sets);
     for (int i = threadIdx.x; i < K * H; i += blockDim.x) {
       s.mn[i] = min(s.mn[i], o.mn[i]);
       s.mx[i] = max(s.mx[i], o.mx[i]);
     }
     __syncthreads();
-    geometry::slot_finish(s, o.part, o.cnt, H, K, C, total, geometry::kSlotCtas * nw,
+    geometry::slot_finish(s, o.part, o.cnt, H, K, C, total, geometry::kSlotCtas * sets,
                           rootvals + b * K, minx + b * K * H, maxx + b * K * H, nroots + b,
                           areas + b * K, det_sums + b * K,
                           cls_sums + b * K * max(C - 1, 1));
@@ -158,9 +162,10 @@ roots_kernel(const T* __restrict__ logits, long long sb, long long sy, long long
 
 // 2. block (band, image); dynamic shared memory tiled::pass_smem.  Four
 // blocks an SM (64 registers a thread): the pass is bound by each warp's
-// chain of dependent steps, so resident warps, not registers, set its pace.
+// chain of dependent steps, so resident warps, not registers, set its pace;
+// fewer where a thread holds more classes (geometry.cuh tiled_blocks).
 template <int CM, class T>
-__global__ void __launch_bounds__(256, 4)
+__global__ void __launch_bounds__(256, geometry::tiled_blocks<CM>())
 pass_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx, long long sc,
             geometry::Phase ph, const int* __restrict__ labels, const int* __restrict__ counts,
             const int* __restrict__ lists, int* __restrict__ rootvals, int* __restrict__ nroots,
@@ -197,7 +202,9 @@ finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcnt,
 // ``ph`` (geometry.cuh Phase), labels (B, H, W) -> rootvals (B, K), slots
 // (B, H, W), minx/maxx (B, K, H), nroots (B,), all int32; areas, det_sums
 // (B, K) and cls_sums (B, K, max(C-1, 1)) f32.  ``threads`` is 32 x the
-// stats partial sets of a block.
+// stats partial sets of a block, one a virtual warp; a block has at most
+// geometry::stats_block<CM>() threads, each warp running its share of the
+// virtual warps in turn.
 template <class T>
 int slots_cluster(const void* logits, long long sb, long long sy, long long sx, long long sc,
                   geometry::Phase ph, int C, const void* labels, void* rootvals, void* slots,
@@ -215,13 +222,15 @@ int slots_cluster(const void* logits, long long sb, long long sy, long long sx, 
         slots_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    slots_kernel<CM, T><<<geometry::kSlotCtas * B, threads, smem,
+    const int block = threads < geometry::stats_block<CM>() ? threads : geometry::stats_block<CM>();
+    slots_kernel<CM, T><<<geometry::kSlotCtas * B, block, smem,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(logits), sb, sy, sx, sc, ph, C,
         static_cast<const int*>(labels), static_cast<int*>(rootvals),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
         static_cast<int*>(nroots), static_cast<float*>(areas),
-        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, thr);
+        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, threads / 32,
+        thr);
     return launch_status();
   });
 }

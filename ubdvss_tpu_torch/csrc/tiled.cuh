@@ -331,7 +331,9 @@ __device__ inline int gather_roots(const int* counts, const int* lists, int nchu
 // (shared-memory atomicMin/Max by the lowest and highest lane of each slot
 // in the step, lanes ascending in x), and adds its stats to the warp's
 // registers (geometry.cuh StatsAcc, its tiled sums) and at each slot
-// change to the warp's partial set in shared memory.  The band
+// change to the warp's partial set in shared memory (past
+// geometry.cuh's kOnePassChannels, one walk a class chunk, the later ones
+// reading back the slots the first wrote).  The band
 // then writes its rows of every slot's extremes (the padding slots the
 // background's, slot K-1's) and the sum of its warps' sets, in order, as
 // the band's partials ``tp`` (K, C) and ``tc`` (K); band 0 also writes
@@ -390,20 +392,24 @@ __device__ inline void slots_pass(const geometry::Logits<T>& lg, const Lab& lab,
         float d = 0.f;
         if (x < xe) {
           acc.fetch(lg, y, x);
-          d = det(y, x);
-          const int lp = lab[y * W + x];  // loaded beside d, not after it
-          const int l = d > thr ? lp : N;
-          if (l == N) {
-            slot = bg_slot;
-          } else {
-            int lo = 0, hi = nvalid;
-            while (lo < hi) {
-              const int mid = (lo + hi) >> 1;
-              if (root[mid] < l) lo = mid + 1; else hi = mid;
+          if (lead) {
+            d = det(y, x);
+            const int lp = lab[y * W + x];  // loaded beside d, not after it
+            const int l = d > thr ? lp : N;
+            if (l == N) {
+              slot = bg_slot;
+            } else {
+              int lo = 0, hi = nvalid;
+              while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                if (root[mid] < l) lo = mid + 1; else hi = mid;
+              }
+              slot = (lo < nvalid && root[lo] == l) ? lo : K;
             }
-            slot = (lo < nvalid && root[lo] == l) ? lo : K;
+            sl[y * W + x] = slot;
+          } else {
+            slot = sl[y * W + x];  // written by this thread in the first chunk's walk
           }
-          if (lead) sl[y * W + x] = slot;
         }
         if (lead) {  // warp-uniform
           const unsigned grp = __match_any_sync(kFull, slot);

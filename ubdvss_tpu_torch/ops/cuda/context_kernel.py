@@ -74,9 +74,10 @@ from ubdvss_tpu_torch.ops.cuda import _build
 
 # The context kernel's instances (csrc/context_kernel.cu): the per-pixel
 # register design compiled for C in EXACT_CHANNELS with at most
-# EXACT_HEAD_OUTPUTS head outputs; any other C <= 32, or a larger head, at
-# the next compiled width with the channel loops guarded ("any"); 32 < C <=
-# 128 as a tile of TILE_PIXELS pixels by all C channels a block of
+# EXACT_HEAD_OUTPUTS head outputs ("exact"); any other C <= NARROW_CHANNELS,
+# or a larger head, the same design compiled for that C, its weights in
+# dynamic shared memory ("narrow", where they fit one block); 32 < C <= 128
+# as a tile of TILE_PIXELS pixels by all C channels a block of
 # TILE_THREADS, the pointwise and the head register-tiled products over
 # shared memory ("wide", where that block fits); other C with each pixel's
 # depthwise results and activations in shared-memory columns
@@ -85,6 +86,7 @@ from ubdvss_tpu_torch.ops.cuda import _build
 # fewer than 2^30 pixels), the same for every layer of a call.
 EXACT_CHANNELS = (8, 16, 24, 32)
 EXACT_HEAD_OUTPUTS = 32
+NARROW_CHANNELS = 32
 TILE_PIXELS, TILE_THREADS = 128, 256
 COLUMN_THREADS = (128, 64, 32)
 SHARED_MEMORY_LIMIT = 232_448  # bytes a block may use on the H100
@@ -112,26 +114,33 @@ def tile_smem(C: int, O: int, head: bool = True) -> int:
     return 4 * (C * TILE_PIXELS + groups * C * (-(-ot // 4) * 4) + 9 * C + C + (O if head else 0))
 
 
+def narrow_smem(C: int, O: int) -> int:
+    """Bytes of shared memory of a "narrow" block, all dynamic: the taps,
+    pointwise weights and biases and the O-output head's O (C + 1) floats."""
+    return 4 * (9 * C + C * C + C + O * (C + 1))
+
+
 def kernel_instance(C: int, O: int) -> str:
     """Which instance of K4 runs C channels and an O-output head:
-    "exact", "any", "wide" or "wide_columns"."""
-    if C > 32:
+    "exact", "narrow", "wide" or "wide_columns"."""
+    if C > NARROW_CHANNELS:
         return "wide" if tile_smem(C, O) <= SHARED_MEMORY_LIMIT else "wide_columns"
-    return "exact" if C in EXACT_CHANNELS and O <= EXACT_HEAD_OUTPUTS else "any"
+    if C in EXACT_CHANNELS and O <= EXACT_HEAD_OUTPUTS:
+        return "exact"
+    return "narrow" if narrow_smem(C, O) <= SHARED_MEMORY_LIMIT else "wide_columns"
 
 
 def kernel_smem(C: int, O: int) -> tuple[int, int]:
-    """(threads a block, bytes of dynamic shared memory) of K4's launch
-    with the O-output head at C channels, the layer that needs the most:
-    the "any" instance's weights, the "wide" instance's tile and weights,
-    or the "wide_columns" instance's per-thread columns (2 C floats a
-    thread) at the largest block that fits; (0, bytes) when none fits one
-    block's shared memory."""
+    """(threads a block, bytes of shared memory sized at run time) of K4's
+    launch with the O-output head at C channels, the layer that needs the
+    most: the "narrow" instance's weights, the "wide" instance's tile and
+    weights, or the "wide_columns" instance's per-thread columns (2 C
+    floats a thread) at the largest block that fits; (0, bytes) when none fits one block's shared memory."""
     inst = kernel_instance(C, O)
     if inst == "exact":
         return 256, 0
-    if inst == "any":
-        return 256, 4 * (9 * C + C * C + C + O * C + O)
+    if inst == "narrow":
+        return 256, narrow_smem(C, O)
     if inst == "wide":
         return TILE_THREADS, tile_smem(C, O)
     for T in COLUMN_THREADS:

@@ -44,9 +44,12 @@ pass that assigns the slots, reading the class logits where the head wrote
 them, so no one-hot exists there.
 
 Any logit channel count: the kernels' stats keep up to
-``REGISTER_CHANNELS`` channels of a pixel in registers and past it run one
-pixel pass a chunk of classes (``class_chunks``; each pixel's softmax max
-and denominator over all classes first, so the sums are a single pass's).
+``REGISTER_CHANNELS`` channels of a pixel, and its class sums, in
+registers, one pixel pass reading each logit once (past 33 channels the
+cluster kernels' warps running their blocks' virtual warps in turn, so a
+thread has more registers), and past it run one pixel pass a chunk of
+``CHUNK_CLASSES`` classes (``class_chunks``; each pixel's softmax max and
+denominator over all classes in each, so the sums are a single pass's).
 The one limit is the tiled plan's: one warp's partial set, K (C + 1)
 words, in one block's shared memory (``tiled_plan`` raises past it).
 
@@ -215,16 +218,17 @@ _FUNCS = _entry_points({
 _FUNCS["tiled_plan_ints"] = []
 
 
-# The kernels' stats keep a pixel's class logits in registers: up to
-# REGISTER_CHANNELS channels in one pixel pass, past it in chunks of
-# REGISTER_CHANNELS - 1 classes, one pass a chunk (csrc/geometry.cuh,
-# with_channel_bound, kWideChannels).
-REGISTER_CHANNELS = 33
+# The kernels' stats keep a pixel's class logits and class sums in
+# registers, each logit loaded once, in one pixel pass up to
+# REGISTER_CHANNELS channels; past it in chunks of CHUNK_CLASSES classes,
+# one pass a chunk (csrc/geometry.cuh, with_channel_bound, kWideChannels,
+# kChunkClasses).
+REGISTER_CHANNELS, CHUNK_CLASSES = 65, 40
 
 
 def class_chunks(C: int) -> int:
     """The pixel passes of the stats kernels at C logit channels."""
-    return 1 if C <= REGISTER_CHANNELS else (C - 2) // (REGISTER_CHANNELS - 1) + 1
+    return 1 if C <= REGISTER_CHANNELS else -(-(C - 1) // CHUNK_CLASSES)
 
 
 def _check_logits(logits: torch.Tensor, packed_phases=None) -> None:

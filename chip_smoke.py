@@ -1626,7 +1626,8 @@ N_WIDTH_SCANS = 2  # 2048² scans of the wide configuration
 # the int8 any-width rows' kernel instances (csrc/qconv_kernel.cu: stride,
 # WIDE accumulator reading, f32 epilogue; qstem_kernel.cu)
 INT8_ANY_INSTANCES = {
-    "qstem_any": "qstem_any_kernel<WIDE>",
+    "qstem_any": "qstem_any_kernel<WIDE>, eight n8 tiles a pass, a run staged, two blocks an SM",
+    "qlayer0_any": "qlayer0_any_kernel, runs staged, four blocks an SM",
     "qconv_any": "qconv_any_kernel<1, WIDE, false>, staged stores",
     "qconv_head_any": "qconv_any_kernel<1, WIDE, false> + head_run_any",
     "qconv_layer_any": "qconv_any_kernel<1, WIDE, true>",
@@ -1636,16 +1637,19 @@ INT8_ANY_INSTANCES = {
 # device ms of the kernels' earlier designs at these rows' shapes, printed in
 # brackets beside this run's: the per-pixel column K4 and the four-tile,
 # one-block-an-SM int8 conv with its stores from registers; K4's guarded
-# instance at the next compiled width and the stats' pass a 32-class chunk,
-# as scripts/torch_kernel_ab.py --only widths read them (the parent's two
-# turns, CUDA events around calls queued behind a sleep) on an NVIDIA H100
-# 80GB HBM3 at 700 W
+# instance at the next compiled width and the stats' pass a 32-class chunk;
+# the stem's four-tile passes with layer 1 stored from registers, and layer
+# 0 alone with 4-byte stores from registers, as scripts/torch_kernel_ab.py
+# --only widths read them (the parent's two turns, CUDA events around calls
+# queued behind a sleep) on an NVIDIA H100 80GB HBM3 at 700 W
 PARENT_DESIGN_DEVICE_MS = {
     "context_layer_wide": (18.6810, "(64, 48, 128²), head 41"),
     "context_layer_wide_packed": (9.6049, "(2, 48, 512²), packed"),
     "qconv_any": (1.6093, "the six at 48 channels"),
     "qconv_head_any": (0.4379, "48 channels, 41 logits"),
     "qconv_layer_any": (0.7151, "48 channels"),
+    "qstem_any": (0.4596, "B=64 512² uint8, 48 channels"),
+    "qlayer0_any": (2.5187, "B=64 512² normalized, 48 channels, y and the accumulator"),
     "context_layer_any": (0.9354, "(64, 10, 128²), head 17"),
     "slots_chunked": (0.5760, "B=64 128², K=16, 41 logits"),
     "slots_chunked_bf16": (0.4431, "B=64 128², K=16, 41 bf16 logits"),
@@ -1878,6 +1882,14 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         y_p, acc_p = kq.qconv_layer_f32(qx.cpu(), q_h["layers"][1 + n_], 1, dil[-1])
         if not (torch.equal(y_k.cpu(), y_p) and torch.equal(acc_k.cpu(), acc_p)):
             raise AssertionError(f"{name}: qconv_layer_f32 differs from its plain version")
+        if n_cal["qlayer0"] != 1:
+            raise AssertionError(f"{name}: {n_cal['qlayer0']} layer-0 launches in quantize_trunk")
+        # layer 0 on the batch that quantize_trunk gave it (the main path's tile plan)
+        y0_k, acc0_k = kq.qconv_layer_f32(calib_d, L8[0], 2, 1)
+        y0_p, acc0_p = kq.qconv_layer_f32(calib_d.cpu(), q_h["layers"][0], 2, 1)
+        if not (torch.equal(y0_k.cpu(), y0_p) and torch.equal(acc0_k.cpu(), acc0_p)):
+            raise AssertionError(f"{name}: qconv_layer_f32 on layer 0 differs from its plain version")
+        del y0_k, acc0_k, y0_p, acc0_p
         rq = kq.requantize(acc_k, L8[1 + n_]["ws"], L8[1 + n_]["b"], s8[2 + n_])
         if not torch.equal(rq.cpu(), kq.requantize_reference(acc_p, q_h["layers"][1 + n_]["ws"],
                                                              q_h["layers"][1 + n_]["b"], q_h["s_in"][2 + n_])):
@@ -1901,8 +1913,8 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                          launches={k: n8[k] for k in trunk8}, detections=int(res8["num_detections"].sum()),
                          near_tie_classes=skip8[1], padded_width=-(-C // 4) * 4)
         log(f"{name} int8: calibration launches {r['int8']['calibration_launches']}, qparams in the "
-            f"JAX package's shapes; qstem, qconv, qconv_head (and packed), qconv_layer_f32 and "
-            f"requantize == their plain versions bit for bit; main path launches "
+            f"JAX package's shapes; qstem, qconv, qconv_head (and packed), qconv_layer_f32 (layer "
+            f"0 and a context layer) and requantize == their plain versions bit for bit; main path launches "
             f"{r['int8']['launches']} at width {r['int8']['padded_width']}, the first {nh_} images' "
             "logits == the host CPU's bit for bit, detections identical")
 
@@ -2018,32 +2030,49 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         }
         for rname, (src, repl, n_, calls, plains, libs, nbytes, ops) in kinds8.items():
             run = lambda calls=calls: [c() for c in calls]  # noqa: E731
+            err = bit_equal(run(), [c() for c in plains], f"{name} {rname}")
             with exact_f32():
                 lib_ms = time_ms(lambda libs=libs: [c() for c in libs], iters=3, reps=2)
             rows.append(dict(
                 name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
-                launches=n_, max_abs_err=0.0, channels=C, outputs=O, instance=INT8_ANY_INSTANCES[rname],
+                launches=n_, max_abs_err=err, channels=C, outputs=O, instance=INT8_ANY_INSTANCES[rname],
                 ms=time_ms(run, iters=5, reps=2), device_ms=device_ms(run, n=5),
                 plain_ms=time_ms(lambda plains=plains: [c() for c in plains], iters=1, reps=1, warmup=0),
                 library_ms=lib_ms, bound=bound(nbytes, ops, INT8_OPS)))
         # the calibration's any-width kinds, one call each at the main path's
-        # shapes: a context layer's f32 epilogue, then its requantization
+        # shapes: layer 0 on the batch's images normalized (y and the
+        # accumulator), a context layer's f32 epilogue, then its
+        # requantization
         xa, La, sa, da = ins[1]
         y_a, acc_a = kq.qconv_layer_f32(xa, La, 1, da)
-        for rname, src, call, plain, nbytes, ops, lib in (
-                ("qconv_layer_any", "qconv_kernel.cu", lambda: kq.qconv_layer_f32(xa, La, 1, da),
-                 lambda: (kq.qconv_reference(xa, La, None, 1, da), kq.qconv_acc_reference(xa, La, 1, da)),
-                 xa.numel() + px * C * 8, 2 * px * C * C * 9, conv_lib(xa, La["q"], 1, da)),
-                ("qrequant_any", "qconv_kernel.cu", lambda: kq.requantize(acc_a, La["ws"], La["b"], sa),
-                 lambda: kq.requantize_reference(acc_a, La["ws"], La["b"], sa), px * C * 5, 0, None)):
+        norm_d = imgs_d.float() / 127.5 - 1.0
+        px0 = B * (IMG // 2) ** 2
+        calib_kinds = {
+            "qlayer0_any": ("qstem_kernel.cu", "ubdvss_tpu/ops/quant.py:165", n_cal["qlayer0"],
+                            lambda: kq.qconv_layer_f32(norm_d, L8[0], 2, 1),
+                            lambda: (kq.qconv_reference(norm_d, L8[0], None, 2, 1),
+                                     kq.qconv_acc_reference(norm_d, L8[0], 2, 1)),
+                            norm_d.numel() * 4 + px0 * C * 8, 2 * px0 * C * 9,
+                            conv_lib(norm_d, L8[0]["q"], 2, 1)),
+            "qconv_layer_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276",
+                                n_cal["qconv_layer"] - n_cal["qlayer0"],
+                                lambda: kq.qconv_layer_f32(xa, La, 1, da),
+                                lambda: (kq.qconv_reference(xa, La, None, 1, da),
+                                         kq.qconv_acc_reference(xa, La, 1, da)),
+                                xa.numel() + px * C * 8, 2 * px * C * C * 9, conv_lib(xa, La["q"], 1, da)),
+            "qrequant_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:192", n_cal["qrequant"],
+                             lambda: kq.requantize(acc_a, La["ws"], La["b"], sa),
+                             lambda: kq.requantize_reference(acc_a, La["ws"], La["b"], sa),
+                             px * C * 5, 0, None),
+        }
+        for rname, (src, repl, n_, call, plain, nbytes, ops, lib) in calib_kinds.items():
+            err = bit_equal(call(), plain(), f"{name} {rname}")
             if lib is not None:
                 with exact_f32():
                     lib_ms = time_ms(lib, iters=3, reps=2)
             rows.append(dict(
-                name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}",
-                replaces="ubdvss_tpu/ops/quant.py:276" if rname == "qconv_layer_any" else "ubdvss_tpu/ops/quant.py:192",
-                launches=n_cal["qconv_layer" if rname == "qconv_layer_any" else "qrequant"],
-                max_abs_err=0.0, channels=C, instance=INT8_ANY_INSTANCES[rname],
+                name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
+                launches=n_, max_abs_err=err, channels=C, instance=INT8_ANY_INSTANCES[rname],
                 ms=time_ms(call, iters=5, reps=2), device_ms=device_ms(call, n=5),
                 plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
                 library_ms=lib_ms if lib is not None else None,
@@ -2182,6 +2211,22 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             f"{row['bound_ms']:.4f} by {row['bound_by']}), {row['launches']} launches on its path")
     kernels += rows
     return report
+
+
+def bit_equal(got, want, name: str) -> float:
+    """The largest |difference| between the outputs ``got`` and ``want``
+    (a tensor, or a tuple or list of them), measured; raises unless every
+    pair is equal bit for bit."""
+    import torch
+
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    err = 0.0
+    for g, w in zip(got, want, strict=True):
+        err = max(err, float((g.double() - w.double()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: differs from its plain version by {err}")
+    return err
 
 
 def _cpu(a):
@@ -2562,6 +2607,7 @@ def main() -> int:
         "qconv": (qconv_kernel.qconv, "launches"),
         "qconv_head": (qconv_kernel.qconv_head, "launches"),
         "qconv_layer": (qconv_kernel.qconv_layer_f32, "launches"),
+        "qlayer0": (qconv_kernel.qconv_layer_f32, "launches_layer0"),  # also in qconv_layer
         "qrequant": (qconv_kernel.requantize, "launches"),
         # the packed route's modes, each also counted above
         "context_layer_packed": (context_kernel.fused_context_head, "launches_packed"),

@@ -86,12 +86,12 @@ gives the cycles of each step for the case's slowest component.  Each
 its rows checked against the change's and is timed in the change's turns.
 
 widths: the kernels of the widths past the asset's, both trees'
-``context_kernel.cu``, ``qconv_kernel.cu`` (with ``qconv.cuh``),
-``postproc_kernel.cu`` and ``geometry_kernel.cu`` called through their C
-entry points (each tree's int8 launches with the plan of its own
-``tile_plan``), all compiled with ``-Xptxas -v``: every K4 and stats
-kernel's registers, stack frame and spill bytes go to the report
-(``ptxas``).  ``--parts`` picks the sections, in this order:
+``context_kernel.cu``, ``qconv_kernel.cu``, ``qstem_kernel.cu`` (with
+``qconv.cuh``), ``postproc_kernel.cu`` and ``geometry_kernel.cu`` called
+through their C entry points (each tree's int8 launches with the plan of
+its own ``tile_plan``), all compiled with ``-Xptxas -v``: every K4, stats,
+stem, layer-0 and any-width conv kernel's registers, stack frame and
+spill bytes go to the report (``ptxas``).  ``--parts`` picks the sections, in this order:
   narrow: K4 (``context_layer``, one launch a layer, the head fused into
     the last) up to 32 channels, on the narrow configuration
     (``chip_smoke.width_configs``: 10 channels, 17 logits) over the stem's
@@ -114,12 +114,16 @@ kernel's registers, stack frame and spill bytes go to the report
   wide: K4 past 32 channels on the wide configuration, (64, 48, 128²)
     unpacked and (2, 48, 512²) packed, and random weights at (64, C, 128²),
     C = 40, 64, 96, head 41;
-  int8: at 48 and 64 channels (``quantize_trunk`` on 8 of the scenes): the
-    six context layers' ``qconv`` on the trunk's own inputs, and at 48
-    ``qconv_head`` (unpacked and packed) and the calibration's
-    ``qconv_layer`` (layer 1 of the six, f32 pre-activations and exact
-    accumulators), every output equal to the plain version and to the
-    parent's bit for bit.
+  int8: at 36, 48 and 64 channels (``quantize_trunk`` on 8 of the scenes)
+    the stem (``qstem_tc`` on the 64 uint8 scenes) and layer 0 alone
+    (``qlayer0_tc`` on the same scenes normalized, y and the exact
+    accumulator, then y alone); at 48 and 64 the six context layers'
+    ``qconv`` on the trunk's own inputs, and at 48 ``qconv_head``
+    (unpacked and packed) and the calibration's ``qconv_layer`` (layer 1
+    of the six, f32 pre-activations and exact accumulators), every output
+    equal to the plain version and to the parent's bit for bit.  The
+    compiled stem and layer-0 plans (up to 32 channels, every input kind,
+    four map shapes) must be the parent's int for int.
 K4's outputs must be the parent's (and each variant's) bit for bit and
 within max(1e-4, 1e-5 max|logit|) of the plain version.  Each case is
 timed in turns, with its bound (``chip_smoke.bound``, ``stats_bound``) and
@@ -132,10 +136,16 @@ enqueueing costs) and the profiler's device ms (which has been seen to
 drop launches on that machine), and each tree's kernels by launch from its
 first turn: device ms, registers, shared memory, resident warps an SM
 (``chip_smoke.phase_split``).  Each ``--variants`` tree (another
-``context_kernel.cu``, ``postproc_kernel.cu`` and ``geometry_kernel.cu``
-of the change, with their headers) has its K4 and stats outputs checked
+``context_kernel.cu``, ``postproc_kernel.cu``, ``geometry_kernel.cu`` and
+``qstem_kernel.cu`` of the change, with their headers, and its own
+``tile_plan``) has its K4, stats, stem and layer-0 outputs checked
 against the change's (bit for bit; the tiled and large stats within the
-f64 bar) and is timed in the change's turns.
+f64 bar) and is timed in the change's turns.  With ``--variants``, the
+change's and each variant's ``qstem_kernel.cu`` are also built with
+``-DQSTEM_STAMPS``, and one stem call of each gives its cycles a tile by
+phase (the window's
+wait, the quantization, layer 0, layer 1; thread 0's ``clock64()``
+between the block's barriers, summed over the blocks).
 
 Prints one JSON object and writes it to FILE (default
 ``build/ab/ab.json``); exits non-zero on a mismatch.
@@ -1011,22 +1021,50 @@ def widths_ab(args, dev, res: dict) -> None:
     from ubdvss_tpu_torch.ops.cuda import qconv_kernel as qk
     from ubdvss_tpu_torch.ops.quant import quantize_trunk
 
-    srcs = ("context_kernel", "qconv_kernel", "postproc_kernel", "geometry_kernel")
+    srcs = ("context_kernel", "qconv_kernel", "postproc_kernel", "geometry_kernel", "qstem_kernel")
     csrc = REPO / "ubdvss_tpu_torch" / "csrc"
     trees = [(args.parent / "ubdvss_tpu_torch" / "csrc", "parent", srcs, ()), (csrc, "change", srcs, ())]
-    trees += [(v / "ubdvss_tpu_torch" / "csrc", v.name, srcs[:1] + srcs[2:], ()) for v in args.variants]
+    trees += [(v / "ubdvss_tpu_torch" / "csrc", v.name,
+               ("context_kernel", "postproc_kernel", "geometry_kernel", "qstem_kernel"), ())
+              for v in args.variants]
     ptxas: dict = {}
     built = build_trees(trees, ptxas)
     libs = {tag: built[tag] for tag in built}
+    # with --variants, the stem's phase cycles: the change's and each
+    # variant's qstem_kernel.cu built with -DQSTEM_STAMPS
+    stamped = build_trees([(c, f"{tag}S", ("qstem_kernel",), ("-DQSTEM_STAMPS",))
+                           for c, tag, *_ in trees if tag != "parent"]) \
+        if "int8" in args.parts and args.variants else {}
     res["ptxas"] = {tag: {k: v for k, v in rep.items() if any(
         n in k for n in ("context_layer", "slots_kernel", "pass_kernel", "geometry_kernel",
-                         "geometry_large_kernel"))} for tag, rep in ptxas.items()}
+                         "geometry_large_kernel", "qstem", "qlayer0", "qconv_any"))}
+                    for tag, rep in ptxas.items()}
     print(json.dumps({"ptxas": res["ptxas"]}), flush=True)
     variants = [v.name for v in args.variants]  # other K4 and stats sources of the change
     parent_qk = _tree_module(args.parent, "qconv_kernel")
     if tuple(parent_qk.PLAN_FIELDS) != qk.PLAN_FIELDS:
         raise RuntimeError("the parent's struct Plan differs from this tree's")
     plans = {"parent": parent_qk.tile_plan, "change": qk.tile_plan}
+    plans.update({v.name: _tree_module(v, "qconv_kernel").tile_plan for v in args.variants})
+    # the compiled stem and layer-0 instances' plans (up to 32 channels) are
+    # the parent's, int for int
+    n_plans = 0
+    for B_, H_, W_ in ((64, 512, 512), (8, 2048, 2048), (1, 240, 320), (2, 75, 101)):
+        for kind in (qk.IN_U8_RAW, qk.IN_F32_RAW, qk.IN_F32_NORM):
+            for c0 in range(4, 33, 4):
+                for c1 in range(4, 33, 4):
+                    a, b = (plans[t]("stem", B_, H_, W_, 1, c1, c0=c0, in_kind=kind).ints
+                            for t in ("parent", "change"))
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"stem plan {B_}x{H_}x{W_} {c0}->{c1}: ints differ")
+                    n_plans += 1
+            for c in range(1, 33):
+                a, b = (plans[t]("layer0", B_, H_, W_, 1, c, in_kind=kind).ints
+                        for t in ("parent", "change"))
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"layer0 plan {B_}x{H_}x{W_} {c}: ints differ")
+                n_plans += 1
+    res["compiled_stem_plans_equal_the_parents"] = n_plans
     ptr = lambda t: P(None if t is None else t.data_ptr())  # noqa: E731
     F_ = torch.nn.functional
     turns = ("parent", "change", "change", "parent")
@@ -1257,12 +1295,115 @@ def widths_ab(args, dev, res: dict) -> None:
             del x
         torch.cuda.empty_cache()
 
-        # ---- int8 at 48 and 64 channels: the six qconv, qconv_head, qconv_layer
-        for C in (48, 64) if "int8" in args.parts else ():
+        # ---- int8 at 36, 48 and 64 channels: the stem and layer 0 alone; at
+        # 48 and 64 the six qconv, at 48 qconv_head and qconv_layer
+        norm = imgs.float() / 127.5 - 1.0  # the bias correction's normalized images
+        for C in (36, 48, 64) if "int8" in args.parts else ():
             cfg, params = (cfg48, p48) if C == 48 else config(C)
             calib = (imgs[:8].float() / 127.5 - 1.0)[..., None]
             q = quantize_trunk(params, cfg, calib)
             L8, s8 = q["layers"], q["s_in"]
+            arrs = []  # the plans' ints, kept alive while their calls are
+            IB, IH, IW = imgs.shape
+            H0, W0 = -(-IH // 2), -(-IW // 2)
+
+            tags8 = ("parent", "change", *variants)
+
+            def stem_call(tag, out, lib=None):
+                arr = plans[tag]("stem", IB, IH, IW, 1, C, c0=C, in_kind=qk.IN_U8_RAW).ints
+                arrs.append(arr)
+                fn = (lib or libs[tag]["qstem_kernel"]).qstem_tc
+                args_ = (ptr(imgs), ptr(L8[0]["q"]), ptr(L8[0]["ws"]), ptr(L8[0]["b"]), ptr(s8[1]),
+                         ptr(L8[1]["q"]), ptr(L8[1]["ws"]), ptr(L8[1]["b"]), ptr(s8[2]), ptr(out),
+                         P(arr.ctypes.data), I(arr.size))
+                return lambda: check(fn(*args_, stream()), f"{tag} qstem_tc")
+
+            souts = {tag: torch.empty((IB, -(-H0 // 2), -(-W0 // 2), C), dtype=torch.int8, device=dev)
+                     for tag in tags8}
+            calls = {tag: stem_call(tag, souts[tag]) for tag in souts}
+            for c in calls.values():
+                c()
+            torch.cuda.synchronize()
+            ref = qk.qstem_reference(imgs, L8[0], s8[1], L8[1], s8[2], True)
+            for tag in souts:
+                if not torch.equal(souts[tag], ref):
+                    raise AssertionError(f"qstem {C}: the {tag} differs from qstem_reference")
+            del ref
+            case = f"qstem_any_{C}"
+            res[f"{case}_bit_for_bit"] = True
+            res[f"{case}_plans"] = {tag: {k: plans[tag]("stem", IB, IH, IW, 1, C, c0=C,
+                                                        in_kind=qk.IN_U8_RAW).fields[k]
+                                          for k in ("th", "tw", "smem", "stage_bytes", "n_tiles")}
+                                    for tag in souts}
+            # bytes: the uint8 image in, layer 1's int8 map out (layer 0's f32
+            # requantization, most of the non-tensor work, is in neither term)
+            px1 = souts["change"].numel() // C
+            res[f"{case}_bound"] = bound(imgs.numel() + px1 * C,
+                                         2 * 9 * (IB * H0 * W0 * C + px1 * C * C), INT8_OPS)
+            xf0 = imgs.float()[:, None]
+            w0f = L8[0]["q"].permute(3, 2, 0, 1).float().contiguous()
+            w1f = L8[1]["q"].permute(3, 2, 0, 1).float().contiguous()
+            z1 = torch.zeros((IB, C, H0, W0), device=dev)
+            timed(case, calls, lambda: (F_.conv2d(xf0, w0f, None, 2, 1), F_.conv2d(z1, w1f, None, 2, 1)))
+            # the stamped builds: each phase's cycles a tile, summed over the
+            # blocks (thread 0's clock between the block's barriers)
+            for tag in ("change", *variants) if stamped else ():
+                lib = stamped[f"{tag}S"]["qstem_kernel"]
+                check(lib.qstem_cycles_clear(), f"{tag} stamps")
+                stem_call(tag, souts[tag], lib)()
+                torch.cuda.synchronize()
+                if not torch.equal(souts[tag], souts["parent"]):
+                    raise AssertionError(f"qstem {C}: the stamped {tag} differs")
+                cyc = np.zeros(5 * 2048, np.int64)
+                check(lib.qstem_cycles(P(cyc.ctypes.data), I(cyc.size)), f"{tag} stamps")
+                tot = cyc.reshape(-1, 5).sum(0)
+                res[f"{case}_{tag}_cycles_a_tile"] = dict(zip(
+                    ("wait", "quantize", "layer0", "layer1"), (tot[:4] / max(tot[4], 1)).tolist()),
+                    tiles=int(tot[4]))
+                print(json.dumps({f"{case}_{tag}_cycles_a_tile": res[f"{case}_{tag}_cycles_a_tile"]}),
+                      flush=True)
+            del souts, z1
+            # layer 0 alone with its f32 epilogue, y and the accumulator, on
+            # the normalized images (the bias correction's launch)
+            louts = {tag: (torch.empty((IB, H0, W0, C), device=dev), torch.empty((IB, H0, W0, C), device=dev))
+                     for tag in tags8}
+
+            def layer0_call(tag, with_acc=True):
+                arr = plans[tag]("layer0", IB, IH, IW, 1, C, in_kind=qk.IN_F32_NORM).ints
+                arrs.append(arr)
+                fn = libs[tag]["qstem_kernel"].qlayer0_tc
+                y_, a_ = louts[tag]
+                args_ = (ptr(norm), ptr(L8[0]["q"]), ptr(L8[0]["ws"]), ptr(L8[0]["b"]), ptr(y_),
+                         ptr(a_ if with_acc else None), P(arr.ctypes.data), I(arr.size))
+                return lambda: check(fn(*args_, stream()), f"{tag} qlayer0_tc")
+
+            calls = {tag: layer0_call(tag) for tag in louts}
+            for c in calls.values():
+                c()
+            torch.cuda.synchronize()
+            acc = qk.qconv_acc_reference(norm, L8[0], 2, 1)
+            y = qk.requantize_reference(acc, L8[0]["ws"], L8[0]["b"], None)
+            for tag in louts:
+                if not (torch.equal(louts[tag][0], y) and torch.equal(louts[tag][1], acc)):
+                    raise AssertionError(f"qlayer0 {C}: the {tag} differs from its plain version")
+            for tag in louts:  # without the accumulator: y alone, the same
+                louts[tag][0].zero_()
+                layer0_call(tag, with_acc=False)()
+            torch.cuda.synchronize()
+            for tag in louts:
+                if not torch.equal(louts[tag][0], y):
+                    raise AssertionError(f"qlayer0 {C} without acc: the {tag} differs")
+            del acc, y
+            case = f"qlayer0_any_{C}"
+            res[f"{case}_bit_for_bit"] = True
+            res[f"{case}_bound"] = bound(norm.numel() * 4 + 8 * IB * H0 * W0 * C,
+                                         2 * 9 * IB * H0 * W0 * C, INT8_OPS)
+            timed(case, calls, lambda: F_.conv2d(xf0, w0f, None, 2, 1))
+            del louts, calls
+            torch.cuda.empty_cache()
+            if C == 36:
+                continue
+
             xq = qk.qstem(imgs, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
             B, H, W = xq.shape[:3]
             ins = []
@@ -1270,7 +1411,6 @@ def widths_ab(args, dev, res: dict) -> None:
                 ins.append((xq, L8[2 + li], s8[3 + li], d))
                 xq = qk.qconv(*ins[-1])
             head_in = (xq, L8[1 + len(dil)], s8[2 + len(dil)], dil[-1], q["head"])
-            arrs = []  # the plans' ints, kept alive while their calls are
 
             def conv_calls(tag, a, out, head=None, packed=False):
                 x_, layer, s_out, d = a

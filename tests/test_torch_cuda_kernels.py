@@ -1574,10 +1574,10 @@ def test_bias_correction_on_card_matches_host_cpu(dev):
 @pytest.mark.parametrize("kernel,c0,c1,nh", [("qstem", 6, 24, 0), ("qstem", 24, 36, 0),
                                              ("qstem", 36, 24, 0), ("qconv_head", 6, 24, 17),
                                              ("qconv_head", 24, 36, 17), ("qconv_head", 24, 24, 33)])
-def test_qstem_and_qconv_head_channel_caps_name_their_roadmap_item(dev, kernel, c0, c1, nh):
-    """The widths that were qstem's and qconv_head's channel caps (ROADMAP.md
-    §2a) == the plain versions bit for bit: a count padded to a multiple of
-    4 inside the wrapper, widths past 32 and a head of 33 logits through the
+def test_qstem_and_qconv_head_past_their_old_caps_bit_for_bit(dev, kernel, c0, c1, nh):
+    """The widths that were once qstem's and qconv_head's channel caps ==
+    the plain versions bit for bit: a count padded to a multiple of 4
+    inside the wrapper, widths past 32 and a head of 33 logits through the
     any-width kernels."""
     rng = np.random.default_rng(c0 * 1000 + c1 * 10 + nh)
     scale = lambda c: torch.from_numpy(rng.uniform(5, 60, c).astype(np.float32)).to(dev)  # noqa: E731
@@ -1951,11 +1951,16 @@ _QWIDTH_CASES += [("qconv", 128, 8, 0, 1), ("qconv", 48, 64, 0, 4), ("qconv_head
 # their staged stores, on a map whose runs end mid-row (50 columns)
 _QWIDTH_CASES += [(k, c, c, nh, d) for c in (40, 64) for k, nh, d in (
     ("qconv", 0, 1), ("qconv", 0, 16), ("qconv_head", 41, 2), ("qconv_head", 33, 17))]
+# the any-width stem's one pass and staged runs (40, 64) and its stores from
+# the registers past one pass (68), on layer-1 maps whose runs end mid-row
+# (25 columns), every input kind
+_QWIDTH_CASES += [("qstem", c, c, 0, 1) for c in (40, 64)] + [("qstem", 36, 68, 0, 1)]
 
 
 @pytest.mark.parametrize("kernel,c0,c1,nh,dil", _QWIDTH_CASES)
 def test_int8_kernels_any_width_bit_for_bit(dev, kernel, c0, c1, nh, dil):
-    """qstem, qconv and qconv_head (unpacked and packed) at widths that are
+    """qstem (a uint8, an f32 raw and a normalized image), qconv and
+    qconv_head (unpacked and packed) at widths that are
     not a multiple of 4 (padded inside the wrappers; no padded channel
     reaches the output) and past 32 (the any-width kernels: 128 input
     channels take the rounding conversion, acc_wide 2) == the plain
@@ -1964,9 +1969,11 @@ def test_int8_kernels_any_width_bit_for_bit(dev, kernel, c0, c1, nh, dil):
     scale = lambda c: torch.from_numpy(rng.uniform(5, 60, c).astype(np.float32)).to(dev)  # noqa: E731
     if kernel == "qstem":
         img = torch.from_numpy(rng.integers(0, 256, (2, 76, 100)).astype(np.uint8)).to(dev)
-        args = (img, _qconv_layer(rng, 3, 1, c0, dev), scale(c0), _qconv_layer(rng, 3, c0, c1, dev),
-                scale(c1), True)
-        fns = [(qconv_kernel.qstem, qconv_kernel.qstem_reference, args)]
+        layers = (_qconv_layer(rng, 3, 1, c0, dev), scale(c0), _qconv_layer(rng, 3, c0, c1, dev),
+                  scale(c1))
+        norm = torch.from_numpy(rng.uniform(-1.05, 1.05, (2, 76, 100, 1)).astype(np.float32)).to(dev)
+        fns = [(qconv_kernel.qstem, qconv_kernel.qstem_reference, (x, *layers, raw))
+               for x, raw in ((img, True), (img.float(), True), (norm, False))]
     else:
         x = torch.from_numpy(rng.integers(-127, 128, (2, 38, 50, c0)).astype(np.int8)).to(dev)
         layer = _qconv_layer(rng, 3, c0, c1, dev)
@@ -1986,11 +1993,14 @@ def test_int8_kernels_any_width_bit_for_bit(dev, kernel, c0, c1, nh, dil):
 
 @pytest.mark.parametrize("cin,cout,ks,stride,dil", [
     (6, 6, 3, 2, 1), (10, 10, 3, 1, 4), (36, 36, 3, 1, 2), (48, 48, 3, 2, 1), (48, 41, 1, 1, 1),
-    (10, 17, 1, 1, 1), (128, 8, 3, 1, 1), (128, 41, 1, 1, 1), (1, 10, 3, 2, 1), (1, 48, 3, 2, 1)])
+    (10, 17, 1, 1, 1), (128, 8, 3, 1, 1), (128, 41, 1, 1, 1), (1, 10, 3, 2, 1), (1, 48, 3, 2, 1),
+    (1, 64, 3, 2, 1), (1, 33, 3, 2, 1)])
 def test_int8_calibration_kinds_any_width_bit_for_bit(dev, cin, cout, ks, stride, dil):
     """The bias correction's kinds at any width: qconv_layer_f32 (layer 0
-    from the image, a 3x3 layer at stride 1 or 2, the 1x1 head; Cin padded
-    to a multiple of 4, f32 outputs of any count) and requantize at any
+    from the image, its runs staged, at even and odd counts past 32; a
+    3x3 layer at stride 1 or 2, the 1x1 head; Cin padded
+    to a multiple of 4, f32 outputs of any count), with and without the
+    accumulator, and requantize at any
     channel count == the plain versions bit for bit: pre-activations,
     accumulators (rounded to nearest even past 2^24 at 128 channels) and
     the int8 outputs."""
@@ -2003,6 +2013,8 @@ def test_int8_calibration_kinds_any_width_bit_for_bit(dev, cin, cout, ks, stride
     y, acc = qconv_kernel.qconv_layer_f32(x, layer, stride, dil)
     y_ref, acc_ref = qconv_kernel.qconv_layer_f32(x.cpu(), _to_cpu(layer), stride, dil)
     assert torch.equal(y.cpu(), y_ref) and torch.equal(acc.cpu(), acc_ref)
+    y_only, none = qconv_kernel.qconv_layer_f32(x, layer, stride, dil, with_acc=False)
+    assert none is None and torch.equal(y_only.cpu(), y_ref)
     s_out = torch.from_numpy(rng.uniform(5, 60, cout).astype(np.float32)).to(dev)
     q8 = qconv_kernel.requantize(acc, layer["ws"], layer["b"], s_out)
     assert torch.equal(q8.cpu(), qconv_kernel.requantize_reference(

@@ -391,6 +391,7 @@ def _emulate_stem(x, layer0, s1, layer1, s2, raw_gray, acc_wide=None):
         v = _fma32(xf, np.float32(127 / 127.5), np.float32(-127))
     xq = _round_int8(v)
     out = np.zeros((B, plan.Ho, plan.Wo, c1), np.int8)
+    out_bytes, written = out.reshape(-1), np.zeros(out.size, np.int32)
     rows = _row_map(plan)
     for tile in range(plan.n_tiles):
         bi, Y1, X1, _ = plan.decode(tile)
@@ -425,7 +426,22 @@ def _emulate_stem(x, layer0, s1, layer1, s2, raw_gray, acc_wide=None):
                 res[rows] = _requant(acc, layer1["ws"].numpy(), layer1["b"].numpy(), s2.numpy(),
                                      wide)
                 n = min(16, plan.Wo - xs)
+                if plan.generic and plan.stage_bytes:
+                    # the any-width kernel's staged store: the whole run at
+                    # its destination's address mod 16 in the warp's buffer,
+                    # then warp_store's words and 16-byte chunks
+                    pix = (bi * plan.Ho + y) * plan.Wo + xs
+                    dst, buf = 256 + pix * c1, np.zeros(plan.stage_bytes, np.int8)
+                    assert dst % 16 + 16 * c1 <= plan.stage_bytes
+                    buf[dst % 16 : dst % 16 + 16 * c1] = res.reshape(-1)
+                    for o, size in _warp_store_chunks(dst, n * c1):
+                        assert (dst % 16 + o) % size == 0
+                        out_bytes[pix * c1 + o : pix * c1 + o + size] = buf[dst % 16 + o :][:size]
+                        written[pix * c1 + o : pix * c1 + o + size] += 1
+                    continue
                 out[bi, y, xs : xs + n] = res[:n]
+    if plan.generic and plan.stage_bytes:
+        assert (written == 1).all()  # every output byte stored once
     return torch.from_numpy(out)
 
 
@@ -634,6 +650,8 @@ def _emulate_layer0(x, layer0):
     xq = _round_int8(x.astype(np.float32) * np.float32(127))
     y_out = np.zeros((B, plan.Ho, plan.Wo, c0), np.float32)
     a_out = np.zeros_like(y_out)
+    y_bytes, a_bytes = y_out.reshape(-1).view(np.uint8), a_out.reshape(-1).view(np.uint8)
+    written = np.zeros((2, y_bytes.size), np.int32)
     for tile in range(plan.n_tiles):
         bi, R0, C0, _ = plan.decode(tile)
         IR, IC = 2 * R0 - plan.pt0, 2 * C0 - plan.pl0
@@ -649,10 +667,24 @@ def _emulate_layer0(x, layer0):
         c = p - r * plan.l0w
         a0 = win[(2 * r * plan.in_row + 2 * c)[:, None] + np.asarray(plan.k0_off)[None, :]]
         af = _acc_float(a0 @ b0mat)
-        inside = (R0 + r < plan.H0) & (C0 + c < plan.W0)
-        a_out[bi, R0 + r[inside], C0 + c[inside]] = af[inside]
-        y_out[bi, R0 + r[inside], C0 + c[inside]] = _fma32(af[inside], layer0["ws"].numpy(),
-                                                           layer0["b"].numpy())
+        yf = _fma32(af, layer0["ws"].numpy(), layer0["b"].numpy())
+        # each 16-pixel run inside the map: y, then the accumulator, staged at
+        # the destination's address mod 16 in the warp's buffer and stored by
+        # warp_store's words and 16-byte chunks
+        for pix in range(0, len(p), 16):
+            if R0 + r[pix] >= plan.H0 or C0 + c[pix] >= plan.W0:
+                continue
+            n = min(16, plan.W0 - (C0 + c[pix]))
+            o = ((bi * plan.H0 + R0 + r[pix]) * plan.W0 + C0 + c[pix]) * c0 * 4
+            for out_b, vals in ((y_bytes, yf), (a_bytes, af)):
+                dst, buf = 256 + o, np.zeros(plan.stage_bytes, np.uint8)
+                assert dst % 16 + 64 * c0 <= plan.stage_bytes
+                buf[dst % 16 : dst % 16 + 64 * c0] = vals[pix : pix + 16].astype(np.float32).view(np.uint8).reshape(-1)
+                for off, size in _warp_store_chunks(dst, n * c0 * 4):
+                    assert (dst % 16 + off) % size == 0
+                    out_b[o + off : o + off + size] = buf[dst % 16 + off :][:size]
+                    written[int(out_b is a_bytes), o + off : o + off + size] += 1
+    assert (written == 1).all()  # every output byte stored once
     return y_out, a_out
 
 
@@ -686,8 +718,11 @@ def test_layer_plan_walk_equals_the_plain_version(case):
 
 
 @pytest.mark.parametrize("shape,c0", [((1, 75, 101), 24), ((2, 64, 48), 8), ((1, 13, 9), 4),
-                                      ((1, 150, 70), 32)])
+                                      ((1, 150, 70), 32), ((1, 75, 101), 36), ((2, 37, 53), 33)])
 def test_layer0_plan_walk_equals_the_plain_version(shape, c0):
+    """The layer-0 kernel's walk (its runs staged and stored contiguous,
+    every output byte once; past 32 channels the any-width kernel's) ==
+    qconv_layer_f32's plain version bit for bit."""
     rng = np.random.default_rng(shape[1] + c0)
     x = torch.from_numpy(rng.uniform(-1.05, 1.05, shape + (1,)).astype(np.float32))
     l0 = _layer(rng, 3, 1, c0)
@@ -786,8 +821,8 @@ def test_any_width_plans_fit_shared_memory(cin, cout):
     the any-width kernels wherever a width passes 32, each block within
     the H100's shared memory at the asset's dilations, regions 16-byte
     aligned, and the accumulator's mode that of 9 Cin 127^2; the any-width
-    conv's staging region, and two of its blocks an SM up to 64 channels
-    (its launch bound)."""
+    conv's and stem's staging regions, and two of their blocks an SM up to
+    64 channels (their launch bounds)."""
     ci, co = _r4(cin), _r4(cout)
 
     def check(plan, generic, acc_cin):
@@ -810,6 +845,17 @@ def test_any_width_plans_fit_shared_memory(cin, cout):
             assert plan.off_tile - plan.off_stage >= qk.WARPS * stage
             if max(plan.cin, plan.cout) <= 64:
                 assert plan.smem <= qk.SMEM_TWO_BLOCKS, (plan.kind, plan.fields)
+        if generic and plan.kind == "stem":
+            # a warp stages one run of layer 1's outputs (16 pixels of cout
+            # bytes and 16 to spare for its destination's alignment) where
+            # one pass of n8 tiles holds every channel, 16-byte aligned for
+            # every warp; two blocks an SM up to 64 channels
+            r16 = -(-16 * plan.cout // 16) * 16
+            stage = r16 + 16 if plan.cout <= 8 * qk.PASS_TILES else 0
+            assert plan.stage_bytes == stage and plan.stage_bytes % 16 == 0
+            assert plan.off_tile - plan.off_stage >= qk.WARPS * stage
+            if max(plan.c0, plan.cout) <= 64:
+                assert plan.smem <= qk.SMEM_TWO_BLOCKS, plan.fields
 
     for H, W in ((128, 128), (60, 80), (512, 512), (33, 47), (1, 4096)):
         for d in (1, 2, 16):
@@ -822,7 +868,11 @@ def test_any_width_plans_fit_shared_memory(cin, cout):
     for H, W in ((512, 512), (240, 320), (75, 101), (2048, 2048)):
         check(qk.tile_plan("stem", 2, H, W, 1, co, c0=ci, in_kind=qk.IN_U8_RAW), max(ci, co) > 32,
               ci)
-        check(qk.tile_plan("layer0", 2, H, W, 1, cout, in_kind=qk.IN_F32_NORM), cout > 32, 0)
+        plan0 = qk.tile_plan("layer0", 2, H, W, 1, cout, in_kind=qk.IN_F32_NORM)
+        check(plan0, cout > 32, 0)
+        # a warp stages a run of 16 pixels of cout floats, 16 bytes to spare
+        assert plan0.stage_bytes == -(-(64 * cout + 16) // 16) * 16
+        assert plan0.off_tile - plan0.off_stage >= qk.WARPS * plan0.stage_bytes
 
 
 def _warp_store_chunks(dst, n):
@@ -959,8 +1009,12 @@ def test_any_width_conv_walk_equals_the_plain_version(case):
         np.testing.assert_array_equal(_emulate_conv(x, layer, s_out, d).numpy(), ref.numpy())
 
 
-@pytest.mark.parametrize("c0,c1", [(36, 36), (12, 48), (48, 8)])
+@pytest.mark.parametrize("c0,c1", [(36, 36), (12, 48), (48, 8), (40, 40), (64, 64), (36, 68)])
 def test_any_width_stem_walk_equals_the_plain_version(c0, c1):
+    """The numpy walk of an any-width stem plan (layer 1 a pass of up to
+    eight n8 tiles, each run staged and stored as one contiguous span where
+    one pass holds its channels, every output byte stored once; past 64
+    channels from the registers) == the plain version bit for bit."""
     rng = np.random.default_rng(c0 + c1)
     x = torch.from_numpy(rng.integers(0, 256, (1, 75, 101)).astype(np.uint8))
     l0, l1 = _layer(rng, 3, 1, c0), _layer(rng, 3, c0, c1)

@@ -295,13 +295,14 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 // ---- any width (the plan's ``generic``): Cin or Cout past 32, a head of
 // more than 32 logits.  The compiled instances above fix the channel words
 // and n8 tiles at compile time; these take them from the plan and run the
-// output channels in groups of n8 tiles (kGroupTiles in the stem, eight
-// in the conv kernel: 64 channels in one pass), each group's K loop over
-// every step.  The K order
+// output channels in passes of n8 tiles (kPassTiles in the 3x3 layers of
+// the conv kernel and the stem: 64 channels in one pass; kGroupTiles in
+// the fused head), each pass's K loop over every step.  The K order
 // is the plain one (K word j = 8 s + 4 r + t is tap j / nw, channel word
 // j % nw; zero weights past 9 nw), each K
 // word's A offset in a table in shared memory (k_offsets_any), the B
 // fragments packed straight from the HWIO weights in device memory.
+constexpr int kPassTiles = 8;
 constexpr int kGroupTiles = 4;
 
 __host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }

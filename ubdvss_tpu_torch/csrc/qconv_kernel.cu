@@ -492,7 +492,7 @@ qconv_any_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ q,
   uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
   const int runs = p.tw / 16, n_mt = p.th * runs, nt = (cout + 7) / 8;
   const int half = (p.stage_bytes / 2) & ~15;  // the second run's staging
-  constexpr int NG = 8;  // n8 tiles a pass: 64 channels
+  constexpr int NG = kPassTiles;  // n8 tiles a pass: 64 channels
 
   for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
     const int next = tile + gridDim.x;

@@ -41,10 +41,40 @@
 // contiguously.
 //
 // Past 32 channels (c0 or c1; the plan's ``generic``) qstem_any_kernel and
-// qlayer0_any_kernel run the same tiles with layer 0 an n8 tile at a time,
-// layer 1 through qconv.cuh ConvAny, and the outputs stored straight from
-// the registers.
+// qlayer0_any_kernel run the same tiles: the stem's window quantized and
+// its layer 0 computed without a branch a value, eight n8 tiles a pass,
+// its layer 1 through qconv.cuh ConvAny, eight n8 tiles a pass, a run
+// staged and stored contiguous where one pass holds its channels, two
+// blocks an SM; layer 0 alone an n8 tile at a time, its f32 runs staged
+// as qlayer0_tc_kernel's, four blocks an SM.
 #include "qconv.cuh"
+
+// A debug build (-DQSTEM_STAMPS, scripts/torch_kernel_ab.py --only widths)
+// sums qstem_any_kernel's clock64() cycles by phase for each block, as its
+// thread 0 sees them between the block's barriers: the next window's wait
+// with the barrier before a tile, the quantization, layer 0, layer 1
+// (closed by a barrier of its own in this build), then the tiles walked.
+#ifdef QSTEM_STAMPS
+__device__ long long g_qstem_cycles[5 * 2048];
+extern "C" int qstem_cycles(long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_qstem_cycles, sizeof(long long) * n));
+}
+extern "C" int qstem_cycles_clear() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, g_qstem_cycles);
+  return static_cast<int>(e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_qstem_cycles)));
+}
+#define QSTEM_STAMP(k)                                      \
+  if (threadIdx.x == 0 && blockIdx.x < 2048) {              \
+    const long long now_ = clock64();                       \
+    long long* cycles_ = g_qstem_cycles + 5 * blockIdx.x;   \
+    cycles_[k] += now_ - t_stamp;                           \
+    if ((k) == 3) ++cycles_[4];                             \
+    t_stamp = now_;                                         \
+  }
+#else
+#define QSTEM_STAMP(k)
+#endif
 
 namespace {
 
@@ -121,6 +151,37 @@ __device__ __forceinline__ void quantize_window(uint8_t* s_in, const uint8_t* bu
                              : reinterpret_cast<const float*>(src)[xx - xlo];  // (float)u8 exactly
           word |= (quantize_value(f, p.in_kind) & 0xFF) << (8 * i);
         }
+      }
+      *reinterpret_cast<uint32_t*>(s_in + r * p.in_row + c) = word;
+    }
+  }
+}
+
+// quantize_window without a branch a pixel, as the any-width kernels take
+// it (the compiled kernels keep theirs): the row buffer's index clamped
+// into the row's pixels inside the image, 0 selected outside it
+template <bool U8>
+__device__ __forceinline__ void quantize_rows(uint8_t* s_in, const uint8_t* buf, const void* x,
+                                              const Plan& p, const StemTile& st, int warp,
+                                              int lane) {
+  const int xlo = max(st.IC, 0), xhi = min(st.IC + p.inw, p.W);
+  const int last = max(xhi - xlo - 1, 0);
+  for (int r = warp; r < p.inh; r += kWarps) {
+    const int yy = st.IR + r;
+    const bool row_in = yy >= 0 && yy < p.H;
+    const long long rb = (static_cast<long long>(st.b) * p.H + (row_in ? yy : 0)) * p.W;
+    const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(x) + (rb + xlo) * (U8 ? 1 : 4)) & 15);
+    const uint8_t* src = buf + r * p.raw_row + sh;
+    for (int c = 4 * lane; c < p.inw; c += 128) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int xi = st.IC + c + i - xlo;
+        const int xc = min(max(xi, 0), last);
+        const float f = U8 ? __fsub_rn(__int_as_float(0x4B000000 | src[xc]), 8388608.f)
+                           : reinterpret_cast<const float*>(src)[xc];
+        const uint32_t q = quantize_value(f, p.in_kind) & 0xFF;
+        word |= (row_in && xi >= 0 && xi <= xhi - xlo - 1 ? q : 0u) << (8 * i);
       }
       *reinterpret_cast<uint32_t*>(s_in + r * p.in_row + c) = word;
     }
@@ -406,9 +467,14 @@ __device__ __forceinline__ void layer0_fragments_any(int* s_w0, const int8_t* q0
 }
 
 // Layer 0 alone at any width with its f32 epilogue (qlayer0_tc_kernel's
-// tiles and A gather), an n8 tile at a time, each lane storing its two
-// channels of its two pixels straight to device memory.
-__global__ void __launch_bounds__(kThreads, 1)
+// tiles, A gather and stores), an n8 tile at a time: each 16-pixel run's y,
+// then its accumulator, staged pixel-major in the warp's buffer at the
+// destination's address mod 16 and stored as one contiguous span by
+// warp_store (an 8-byte store a lane from the registers, which filled
+// whole sectors only at some widths, took 1.2-4x as long).  Four blocks an
+// SM (32 warps) up to 64 channels: the launch bound caps a thread at 64
+// registers, and a block's shared memory is about 22 KB and its staging.
+__global__ void __launch_bounds__(kThreads, 4)
 qlayer0_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
                    const float* __restrict__ ws0, const float* __restrict__ b0,
                    float* __restrict__ y, float* __restrict__ acc_out,
@@ -421,6 +487,7 @@ qlayer0_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
   uint8_t* const raw = smem + p.off_raw;  // two buffers of raw_bytes
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int c0 = p.cout, l0w = p.l0w, nt0 = (c0 + 7) / 8, CP = round32(c0);
+  uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
 
   int tile = blockIdx.x;
   issue_window(raw, x, p, decode_layer0(p, tile), warp, lane);
@@ -442,7 +509,10 @@ qlayer0_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
     cp_async_wait_prev();
     __syncthreads();
     const StemTile st = decode_layer0(p, tile);
-    quantize_window(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    if (p.in_kind == kU8Raw)
+      quantize_rows<true>(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    else
+      quantize_rows<false>(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
     __syncthreads();
     for (int m = warp; m < mts0; m += kWarps) {
       const int pix = m * 16;
@@ -457,35 +527,57 @@ qlayer0_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
       }
       const int nvalid = min(16, p.W0 - (st.C0 + c));
       const long long o = ((static_cast<long long>(st.b) * p.H0 + st.R0 + r) * p.W0 + st.C0 + c);
-      for (int n = 0; n < nt0; ++n) {
-        int acc[4] = {kMagicBits, kMagicBits, kMagicBits, kMagicBits};
-        mma_k16(acc, a[0], a[1], s_w0[n * 32 + lane]);
+      // y, then the accumulator: staged pixel-major (the MMAs again for the
+      // second, one k16 step an n8 tile), one contiguous run
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int px = g + 8 * h;
-          if (px >= nvalid) continue;
+      for (int k2 = 0; k2 < 2; ++k2) {
+        float* dst = k2 ? acc_out : y;
+        if (dst == nullptr) continue;
+        dst += o * c0;
+        uint8_t* s8 = stage + (reinterpret_cast<uintptr_t>(dst) & 15);
+        float* sf = reinterpret_cast<float*>(s8);
+        for (int n = 0; n < nt0; ++n) {
+          int acc[4] = {kMagicBits, kMagicBits, kMagicBits, kMagicBits};
+          mma_k16(acc, a[0], a[1], s_w0[n * 32 + lane]);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int ch = 8 * n + 2 * t + e;
-            if (ch >= c0) continue;
-            const float av = acc_float<false>(acc[2 * h + e]);
-            const long long i = (o + px) * c0 + ch;
-            y[i] = fmaf(av, s_vec[ch], s_vec[CP + ch]);
-            if (acc_out != nullptr) acc_out[i] = av;
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ch = 8 * n + 2 * t + e;
+              if (ch >= c0) continue;
+              const float av = acc_float<false>(acc[2 * h + e]);
+              sf[(g + 8 * h) * c0 + ch] = k2 ? av : fmaf(av, s_vec[ch], s_vec[CP + ch]);
+            }
           }
         }
+        __syncwarp();
+        warp_store(s8, reinterpret_cast<uint8_t*>(dst), nvalid * c0 * 4, lane);
+        __syncwarp();
       }
     }
   }
 }
 
 // The stem at any width: qstem_tc_kernel's tiles, window and layer-0 tile
-// in shared memory, layer 0 an n8 tile at a time, layer 1 through ConvAny
-// at stride 2 (output groups of kGroupTiles n8 tiles), its int8 outputs
-// stored straight from the registers.  The vectors: ws0, b0, s1 at a
-// stride of round32(c0), then ws1, b1, s2 at round32(c1).
+// in shared memory.  The window is quantized and layer 0 computed without
+// a branch a value (a branch a pixel pair and its reconvergence cost more
+// than the values' arithmetic): layer 0 eight n8 tiles a pass, unrolled,
+// their B fragments and vectors in registers, every MMA issued before the
+// epilogues, its tile padded to whole 16-pixel runs so that a run's
+// pixels past the tile are written and never read.  Layer 1 goes through
+// ConvAny at stride 2, kPassTiles n8 tiles a pass (a warp's second run
+// skipped where it lies past the tile).  Where one pass holds every
+// channel (c1 <= 64, the plan's
+// stage_bytes), each run's int8 outputs are requantized into the warp's
+// staging buffer (16 pixels of c1 bytes, at its destination's address mod
+// 16) and stored as one contiguous span by warp_store; past that, where a
+// run's pixels are whole only after the last pass, each lane stores its
+// two channels of its two pixels from the registers.  The vectors: ws0,
+// b0, s1 at a stride of round32(c0), then ws1, b1, s2 at round32(c1).
+// Two blocks an SM: the launch bound caps a thread at 128 registers, and
+// tile_plan sizes the block's shared memory for two up to 64 channels.
 template <bool WIDE>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 qstem_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
                  const float* __restrict__ ws0, const float* __restrict__ b0,
                  const float* __restrict__ s1, const int8_t* __restrict__ q1,
@@ -526,9 +618,15 @@ qstem_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
   ConvAny conv;
   conv.load(s_w, s_koff, p, c1, 2, lane);
   const uint32_t* l0 = reinterpret_cast<const uint32_t*>(s_l0);
+  // a warp's staging: one run's c1 bytes a pixel, where one pass holds them
+  uint8_t* stage = smem + p.off_stage + warp * p.stage_bytes;
+  const bool staged = p.stage_bytes > 0;
   const int runs = p.tw / 16, n_mt = p.th * runs;
   const int n0 = p.l0h * l0w, mts0 = (n0 + 15) / 16;
   const int trow = p.k0_off[4 * t];
+#ifdef QSTEM_STAMPS
+  long long t_stamp = clock64();
+#endif
 
   for (int k = 0; tile < p.n_tiles; ++k, tile += gridDim.x) {
     const int next = tile + gridDim.x;
@@ -537,44 +635,63 @@ qstem_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
+    QSTEM_STAMP(0);
     const StemTile st = decode(p, tile);
 
     // 1. the input window, quantized
-    quantize_window(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    if (p.in_kind == kU8Raw)
+      quantize_rows<true>(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
+    else
+      quantize_rows<false>(s_in, raw + (k & 1) * p.raw_bytes, x, p, st, warp, lane);
     __syncthreads();
+    QSTEM_STAMP(1);
 
-    // 2. layer 0 on the (2 th + 1) x (2 tw + 1) tile, an n8 tile at a time
-    for (int m = warp; m < mts0; m += kWarps) {
-      int pix[2], a[2];
-      bool ok[2];
+    // 2. layer 0 on the (2 th + 1) x (2 tw + 1) tile: its B fragments and
+    // vectors in registers, eight n8 tiles a pass, unrolled, without a branch
+    // a value
+    for (int nb = 0; nb < nt0; nb += kPassTiles) {
+      int bw[kPassTiles];
+      float2 w[kPassTiles], bb[kPassTiles], sc[kPassTiles];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        pix[h] = m * 16 + g + 8 * h;
-        const bool in = pix[h] < n0;
-        const int r = (pix[h] * p.l0w_magic) >> 20, c = pix[h] - r * l0w;  // pix / l0w
-        ok[h] = in && st.R0 + r >= 0 && st.R0 + r < p.H0 && st.C0 + c >= 0 && st.C0 + c < p.W0;
-        const int byte = in ? 2 * r * p.in_row + trow + 2 * c : 0;
-        const uint32_t lo = s_in_w[byte >> 2], hi = s_in_w[(byte >> 2) + 1];
-        a[h] = t < 3 ? static_cast<int>((byte & 2) ? __byte_perm(lo, hi, 0x5432) : lo) : 0;
+      for (int j = 0; j < kPassTiles; ++j) {
+        const int c = min(8 * (nb + j) + 2 * t, C0P - 2);
+        bw[j] = nb + j < nt0 ? s_w0[(nb + j) * 32 + lane] : 0;
+        w[j] = *reinterpret_cast<const float2*>(s_vec + c);
+        bb[j] = *reinterpret_cast<const float2*>(s_vec + C0P + c);
+        sc[j] = *reinterpret_cast<const float2*>(s_vec + 2 * C0P + c);
       }
-      for (int n = 0; n < nt0; ++n) {
-        int acc[4] = {kMagicBits, kMagicBits, kMagicBits, kMagicBits};
-        mma_k16(acc, a[0], a[1], s_w0[n * 32 + lane]);
-        const int c = 8 * n + 2 * t;
-        if (c >= c0) continue;
+      for (int m = warp; m < mts0; m += kWarps) {
+        int pix[2], a[2];
+        bool ok[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          if (pix[h] >= n0) continue;
-          const uint16_t v =
-              ok[h] ? pack2(requant<false>(acc[2 * h], s_vec[c], s_vec[C0P + c], s_vec[2 * C0P + c]),
-                            requant<false>(acc[2 * h + 1], s_vec[c + 1], s_vec[C0P + c + 1],
-                                           s_vec[2 * C0P + c + 1]))
-                    : static_cast<uint16_t>(0);
-          *reinterpret_cast<uint16_t*>(s_l0 + pix[h] * c0 + c) = v;
+          pix[h] = m * 16 + g + 8 * h;
+          const bool in = pix[h] < n0;
+          const int r = (pix[h] * p.l0w_magic) >> 20, c = pix[h] - r * l0w;  // pix / l0w
+          ok[h] = in && st.R0 + r >= 0 && st.R0 + r < p.H0 && st.C0 + c >= 0 && st.C0 + c < p.W0;
+          const int byte = in ? 2 * r * p.in_row + trow + 2 * c : 0;
+          const uint32_t lo = s_in_w[byte >> 2], hi = s_in_w[(byte >> 2) + 1];
+          a[h] = t < 3 ? static_cast<int>((byte & 2) ? __byte_perm(lo, hi, 0x5432) : lo) : 0;
+        }
+        int acc[kPassTiles][4];
+        init_acc(acc);
+#pragma unroll
+        for (int j = 0; j < kPassTiles; ++j) mma_k16(acc[j], a[0], a[1], bw[j]);
+#pragma unroll
+        for (int j = 0; j < kPassTiles; ++j) {
+          const int c = 8 * (nb + j) + 2 * t;
+          // the tile holds whole 16-pixel runs: a pixel past it is never read
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint16_t v = pack2(requant<false>(acc[j][2 * h], w[j].x, bb[j].x, sc[j].x),
+                                     requant<false>(acc[j][2 * h + 1], w[j].y, bb[j].y, sc[j].y));
+            if (c < c0) *reinterpret_cast<uint16_t*>(s_l0 + pix[h] * c0 + c) = ok[h] ? v : uint16_t(0);
+          }
         }
       }
     }
     __syncthreads();
+    QSTEM_STAMP(2);
 
     // 3. layer 1 from the tile, stride 2, two runs a warp at a time
     const long long row0 = static_cast<long long>(st.b) * p.Ho;
@@ -592,33 +709,49 @@ qstem_any_kernel(const void* __restrict__ x, const int8_t* __restrict__ q0,
         a[h] = l0 + (2 * i * l0w + 2 * jx) * p.nw;
       }
       if (!ok[0] && !ok[1]) continue;
-      for (int g0 = 0; g0 < nt1; g0 += kGroupTiles) {
-        int acc[2][kGroupTiles][4];
+      const bool two = m + kWarps < n_mt;
+      for (int g0 = 0; g0 < nt1; g0 += kPassTiles) {
+        int acc[2][kPassTiles][4];
         init_acc(acc[0]);
         init_acc(acc[1]);
-        conv.mma2(acc[0], acc[1], a[0], a[1], g0, min(kGroupTiles, nt1 - g0));
+        conv.mma2(acc[0], acc[1], a[0], a[1], g0, min(kPassTiles, nt1 - g0), two);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (!ok[h]) continue;
           const int nvalid = min(16, p.Wo - xs[h]);
-          const long long pixo = (row0 + ys[h]) * p.Wo + xs[h];
+          uint8_t* dst = reinterpret_cast<uint8_t*>(out) + ((row0 + ys[h]) * p.Wo + xs[h]) * c1;
+          uint8_t* sg = stage + (reinterpret_cast<uintptr_t>(dst) & 15);
 #pragma unroll
-          for (int n = 0; n < kGroupTiles; ++n) {
-            const int c = 8 * (g0 + n) + 2 * t;
-            if (g0 + n >= nt1 || c >= c1) continue;
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-              const int px = v ? conv.p1 : conv.p0;
-              if (px >= nvalid) continue;
-              *reinterpret_cast<uint16_t*>(out + (pixo + px) * c1 + c) =
-                  pack2(requant<WIDE>(acc[h][n][2 * v], v1[c], v1[C1P + c], v1[2 * C1P + c]),
-                        requant<WIDE>(acc[h][n][2 * v + 1], v1[c + 1], v1[C1P + c + 1],
-                                      v1[2 * C1P + c + 1]));
+          for (int n = 0; n < kPassTiles; ++n) {
+            if (g0 + n >= nt1) continue;
+            const int c = 8 * (g0 + n) + 2 * t;  // c1 a multiple of 4: c + 1 < c1 where c < c1
+            const float2 w = *reinterpret_cast<const float2*>(v1 + c);
+            const float2 bb = *reinterpret_cast<const float2*>(v1 + C1P + c);
+            const float2 sc = *reinterpret_cast<const float2*>(v1 + 2 * C1P + c);
+            const uint16_t q0v = pack2(requant<WIDE>(acc[h][n][0], w.x, bb.x, sc.x),
+                                       requant<WIDE>(acc[h][n][1], w.y, bb.y, sc.y));
+            const uint16_t q1v = pack2(requant<WIDE>(acc[h][n][2], w.x, bb.x, sc.x),
+                                       requant<WIDE>(acc[h][n][3], w.y, bb.y, sc.y));
+            if (c < c1 && staged) {
+              *reinterpret_cast<uint16_t*>(sg + conv.p0 * c1 + c) = q0v;
+              *reinterpret_cast<uint16_t*>(sg + conv.p1 * c1 + c) = q1v;
+            } else if (c < c1) {
+              if (conv.p0 < nvalid) *reinterpret_cast<uint16_t*>(dst + conv.p0 * c1 + c) = q0v;
+              if (conv.p1 < nvalid) *reinterpret_cast<uint16_t*>(dst + conv.p1 * c1 + c) = q1v;
             }
+          }
+          if (staged) {  // the run's one pass is whole: one contiguous span
+            __syncwarp();
+            warp_store(sg, dst, nvalid * c1, lane);
+            __syncwarp();
           }
         }
       }
     }
+#ifdef QSTEM_STAMPS
+    __syncthreads();
+#endif
+    QSTEM_STAMP(3);
   }
 }
 
@@ -691,7 +824,8 @@ extern "C" int qlayer0_tc(const void* x, const void* q0, const void* ws0, const 
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
   if (p.n_tiles <= 0 || p.cout <= 0 || (p.cout > 32 && !p.generic) || p.f32 != 1 ||
-      p.in_kind < kU8Raw || p.in_kind > kF32Norm || p.l0h != p.th || p.l0w != p.tw)
+      p.in_kind < kU8Raw || p.in_kind > kF32Norm || p.l0h != p.th || p.l0w != p.tw ||
+      p.stage_bytes < 64 * p.cout + 16)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (p.generic) {
@@ -725,7 +859,8 @@ extern "C" int qstem_tc(const void* x, const void* q0, const void* ws0, const vo
     if (p.n_tiles <= 0 || p.c0 % 4 != 0 || p.c0 <= 0 || p.nw != p.c0 / 4 || p.cout % 4 != 0 ||
         p.cout <= 0 || p.tw % 16 != 0 || p.nsteps != (9 * p.nw + 7) / 8 ||
         p.in_kind < kU8Raw || p.in_kind > kF32Norm || p.f32 != 0 ||
-        (p.row_step != 1 && p.row_step != 2) || p.acc_wide < 0 || p.acc_wide > 2)
+        (p.row_step != 1 && p.row_step != 2) || p.acc_wide < 0 || p.acc_wide > 2 ||
+        (p.cout <= 8 * kPassTiles ? p.stage_bytes < 16 * p.cout + 16 : p.stage_bytes != 0))
       return cudaErrorInvalidValue;
     auto s = static_cast<cudaStream_t>(stream);
     return p.acc_wide ? launch_any<true>(x, q0, ws0, b0, s1, q1, ws1, b1, s2, out, p, s)

@@ -29,9 +29,9 @@ with the corrected bias (``qrequant``, ``csrc/qconv_kernel.cu``).
 Widths: the kernels' compiled instances take channel counts a multiple of
 4 up to ``COMPILED_CHANNELS`` (32); past it the any-width kernels run (the
 plan's ``generic``: the K order, the k steps and the n8 tiles from the
-plan, the output channels four n8 tiles at a time in the stem, eight in
-the conv kernel, whose int8 runs are staged and stored contiguous and
-whose blocks the plan sizes for two an SM), and the wrappers pad
+plan, the output channels eight n8 tiles at a time in the conv kernel
+and the stem, whose int8 runs are staged and stored contiguous and whose
+blocks the plan sizes for two an SM), and the wrappers pad
 any count that is not a multiple of 4 (``pad_layer``, ``pad_scale``: zero
 weights, and for padded outputs ws = 1, b = 0, s_out = 1, so they hold
 exact zeros) and slice the padding off what they return.  The only refusal
@@ -178,9 +178,11 @@ MAX_K_WORDS = 72  # the compiled instances' K table: 9 taps x 8 channel words, n
 _MAX_TH, _MAX_TW = 8, 128  # qconv's output tile: 8 phase rows x up to 128 columns
 _MIN_BLOCKS = 2 * 132  # smaller tiles below this many tiles (132 SMs)
 _SMEM_TARGET = 75 * 1024  # a conv block's shared memory: three blocks an SM
-# an any-width conv block's: two blocks an SM (the SM's 233,472 bytes, less
-# the 1 KB the card reserves for each block), as its launch bound asks
+# an any-width conv or stem block's: two blocks an SM (the SM's 233,472
+# bytes, less the 1 KB the card reserves for each block), as their launch
+# bounds ask
 SMEM_TWO_BLOCKS = 233_472 // 2 - 1024
+PASS_TILES = 8  # the any-width 3x3 layers' n8 tiles a pass (csrc/qconv.cuh kPassTiles)
 
 # the order of the ints the kernels read (struct Plan in csrc/qconv.cuh)
 PLAN_FIELDS = (
@@ -486,8 +488,8 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
     elif kind == "layer0":
         H0, W0 = -(-H // 2), -(-W // 2)
         Ho, Wo, nw, nsteps = H0, W0, 0, 0
-        # a warp's run of f32 outputs (any width: stored from the registers)
-        stage = 0 if generic else _r16(64 * cout + 16)
+        # a warp's staged run of f32 outputs
+        stage = _r16(64 * cout + 16)
         if generic:
             vec = 4 * max(6 * 32, 2 * _r32(cout))
         a_off, b_src = [0] * MAX_K_WORDS, [-1] * MAX_K_WORDS
@@ -523,16 +525,31 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
         if generic:
             vec = 4 * max(6 * 32, 3 * _r32(c0) + 3 * _r32(cout))
             koff = 4 * 8 * nsteps_k
+            # a warp stages one run of layer 1's requantized outputs at its
+            # destination's address mod 16, for the contiguous store, where
+            # one pass holds every channel; past that the kernel stores from
+            # the registers
+            stage = _r16(16 * cout) + 16 if cout <= 8 * PASS_TILES else 0
 
-            def stem_smem(th):  # layer 1's fragments, the layer-0 tile, two raw windows
+            def stem_smem(th):  # fragments, staging, the layer-0 tile, two raw windows
                 l0h, l0w = 2 * th + 1, 2 * tw + 1
                 inh, inw = 2 * l0h + 1, 2 * l0w + 1
                 return (_r16(nsteps_k * nt * 256) + _r16(-(-c0 // 8) * 128) + _r16(vec)
-                        + _r16(koff) + _r16(inh * (-(-inw // 4) * 4) + 4) + _r16(l0h * l0w * c0)
-                        + 2 * _r16(inh * _r16(raw_px * inw + 15)))
+                        + WARPS * stage + _r16(koff) + _r16(inh * (-(-inw // 4) * 4) + 4)
+                        + _r16(_r16(l0h * l0w) * c0) + 2 * _r16(inh * _r16(raw_px * inw + 15)))
 
-            while th > 1 and stem_smem(th) > SHARED_MEMORY_LIMIT:
-                th -= 1
+            # the tile's rows: two blocks an SM (the kernel's launch bound)
+            # where fewer rows fit them and still give every warp a run of
+            # layer 1, else one block of as many rows as fit
+            for limit in (SMEM_TWO_BLOCKS, SHARED_MEMORY_LIMIT):
+                t_h = th
+                while t_h > 1 and stem_smem(t_h) > limit:
+                    t_h -= 1
+                if stem_smem(t_h) <= limit and (t_h == th or t_h * (tw // 16) >= WARPS):
+                    break
+            th = t_h
+        else:
+            stage = _r16(16 * cout) + 16  # a warp's staged run, as above
         l0h, l0w = 2 * th + 1, 2 * tw + 1
         inh, inw = 2 * l0h + 1, 2 * l0w + 1
         in_row = -(-inw // 4) * 4  # the quantized window's row stride, whole words
@@ -545,9 +562,6 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
             for tx in range(4):
                 k0_off[4 * ty + tx] = ty * in_row + tx
                 k0_src[4 * ty + tx] = (3 * ty + tx) * c0 if tx < 3 else -1
-        # a warp's staged run (any width: layer 1's outputs go straight
-        # from the registers)
-        stage = 0 if generic else _r16(16 * cout) + 16
         f.update(H0=H0, W0=W0, pt0=same_pad(H, 3, 2)[0], pl0=same_pad(W, 3, 2)[0],
                  pt1=same_pad(H0, 3, 2)[0], pl1=same_pad(W0, 3, 2)[0], l0h=l0h, l0w=l0w,
                  inh=inh, inw=inw, c0=c0, phases=1, n_rt=-(-Ho // th), n_ct=-(-Wo // tw),
@@ -555,10 +569,11 @@ def tile_plan(kind: str, B: int, H: int, W: int, cin: int, cout: int, *, dil: in
                  l0w_magic=-(-(1 << 20) // l0w))  # pix // l0w == pix * magic >> 20
         # the window, and one word past it that a gather's second load may touch
         w0_bytes, tile = -(-c0 // 8) * 32 * 4, _r16(inh * in_row + 4)
-        # the layer-0 tile also stages the compiled instances' layer-1 raw
-        # weights at block start
+        # the layer-0 tile (any width: whole 16-pixel runs, which its
+        # kernel's layer 0 writes without a branch) also stages the compiled
+        # instances' layer-1 raw weights at block start
         tiles = tile
-        l0_bytes = l0h * l0w * c0 if generic else max(l0h * l0w * c0, 9 * c0 * cout)
+        l0_bytes = _r16(l0h * l0w) * c0 if generic else max(l0h * l0w * c0, 9 * c0 * cout)
         # a raw window row: the aligned 16-byte blocks holding inw pixels
         raw_row = _r16(raw_px * inw + 15)
         raw = _r16(inh * raw_row)
@@ -796,7 +811,9 @@ def qconv_layer_f32(x: torch.Tensor, layer: dict, stride: int, dil: int,
     and, with ``with_acc``, the exact accumulator as f32 (else None), both
     (B, Ho, Wo, Cout), from one pass over the input: on the card one
     launch (``qlayer0_tc`` for layer 0, ``qconv_tc_f32`` for the others),
-    on the CPU ``qconv_acc_reference`` and ``requantize_reference``."""
+    on the CPU ``qconv_acc_reference`` and ``requantize_reference``.
+    ``launches_layer0`` counts layer 0's launches (also counted in
+    ``launches``)."""
     if x.device.type == "cpu":
         acc = qconv_acc_reference(x, layer, stride, dil)
         y = requantize_reference(acc, layer["ws"], layer["b"], None)
@@ -830,10 +847,12 @@ def qconv_layer_f32(x: torch.Tensor, layer: dict, stride: int, dil: int,
     _launch(lib, funcs, fn, dev, plan, x.data_ptr(), layer["q"].data_ptr(), layer["ws"].data_ptr(),
             layer["b"].data_ptr(), y.data_ptr(), None if acc is None else acc.data_ptr())
     qconv_layer_f32.launches += 1
+    qconv_layer_f32.launches_layer0 += int(fn == "qlayer0_tc")
     return y, acc
 
 
 qconv_layer_f32.launches = 0
+qconv_layer_f32.launches_layer0 = 0
 
 
 def requantize(acc: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,

@@ -348,8 +348,11 @@ them.  Phases, each of which raises on failure:
   11. every width the JAX package serves (after phase 10): the wide
      configuration (48 channels, 40 symbologies: 41 logits; the asset's
      weights carried into its first 24 channels, the rest drawn from SEED
-     at a small scale) and the narrow one (10 channels, 17 logits;
-     init_params at SEED, the head scaled up), K=16, M=64: K4's instance
+     at a small scale), the narrow one (10 channels, 17 logits;
+     init_params at SEED, the head scaled up), few (the asset cut to its
+     detection row and its QRCode, DataMatrix, EAN13 and Code128 rows: 5
+     logits) and mid (the asset's 17 rows and 8 drawn from SEED at a
+     small scale: 25 logits), K=16, M=64: K4's instance
      (the "wide" tile of 128 pixels by 48 channels at 48, the "narrow"
      register kernel compiled for 10 channels at 10) on 8
      images' features within 1e-4 of its plain version, its packed store
@@ -363,15 +366,18 @@ them.  Phases, each of which raises on failure:
      the narrow head's logits), bf16 within the bf16 tolerance, int8 bit
      for bit, detections equal (an image with a detection logit within
      twice the logits' error of the threshold left out); the stats at the configuration's logit
-     channels (one class pass at 41, 512 threads a block) against their plain version, K12c
+     channels (the instance of the bound that holds them: 5, 25 or 41
+     logits) against their plain version, K12c
      equal to K2 bit for bit; the int8 kinds layer by layer on 2 images bit
-     for bit; then, wide only, 2 2048² scans on the packed route: K4's
-     packed store at 41 logits, the tiled K2 and the large K12c reading
+     for bit; then, but for narrow, 2 2048² scans on the packed route: K4's
+     packed store at the configuration's logits, the tiled K2 and the large K12c reading
      the phase-major logits, qconv_head's packed store, logits == n_strips=1's
      bit for bit, scan 0 == the host CPU's; and a kernel row for each
      instance the asset's widths never reach (ms, device ms, plain,
-     library, bound, and the kernel instance; the rows of K4's narrow
-     instance and of the stats at 41 logits also the device ms of CUDA
+     library, bound, and the kernel instance: K4 wide and narrow, the
+     wide int8 kinds, and the stats at 41, 5 and 25 logits, the cluster
+     K2 in f32 and bf16, K12c, the tiled K2 and the large K12c
+     phase-major; the rows of K4 and of the stats also the device ms of CUDA
      events around calls queued behind a sleep, ``queued_ms``, where the
      profiler has dropped launches; the log line adds, in
      brackets, the earlier design's device ms that scripts/
@@ -1619,8 +1625,23 @@ def packed_route(dev, counted, kernels: list, params_d, params16_d, q_d, cfg_l, 
 
 # the widths the JAX package serves past the asset's (phase 11): wide, 48
 # channels and 40 symbologies (41 logits); narrow, 10 channels (no compiled
-# context width, no multiple of 4) and the asset's 17 logits
+# context width, no multiple of 4) and the asset's 17 logits; the label sets
+# off 16 symbologies at the asset's 24 channels: few, the asset's detection
+# row and its rows of four symbologies (5 logits), and mid, its 16 and eight
+# more (25 logits)
 WIDE_C, WIDE_O, NARROW_C = 48, 41, 10
+FEW_CLASSES = ("QRCode", "DataMatrix", "EAN13", "Code128")
+MID_EXTRA = ("GS1DataBar", "GS1DataBarExpanded", "GS1DataBarLimited", "GS1Composite", "DotCode",
+             "AustraliaPost", "KIXCode", "IdentCode")
+# each configuration's stats rows: the cluster K2 (f32, bf16), K12c, the
+# tiled K2 and the large K12c, phase-major
+STATS_ROWS = {
+    "wide": ("slots_chunked", "slots_chunked_bf16", "geometry_compat_chunked",
+             "slots_tiled_chunked_packed", "geometry_compat_large_chunked_packed"),
+    **{name: (f"slots_at{O}", f"slots_at{O}_bf16", f"geometry_compat_at{O}",
+              f"slots_tiled_packed_at{O}", f"geometry_compat_large_packed_at{O}")
+       for name, O in (("few", 5), ("mid", 25))},
+}
 N_WIDTH_HOST = 8  # images of a B=64 batch held against the host CPU
 N_WIDTH_SCANS = 2  # 2048² scans of the wide configuration
 # the int8 any-width rows' kernel instances (csrc/qconv_kernel.cu: stride,
@@ -1656,6 +1677,20 @@ PARENT_DESIGN_DEVICE_MS = {
     "geometry_compat_chunked": (0.5892, "B=64 128², K=16, 41 logits"),
     "slots_tiled_chunked_packed": (0.4344, "2×512², K=16, 41 phase-major logits"),
     "geometry_compat_large_chunked_packed": (0.4727, "2×512², K=16, 41 phase-major logits"),
+    # the spilling 33-channel instance at 5 and 25 logits, on the wide
+    # configuration's logits cut to those counts
+    "slots_at5": (0.1245, "B=64 128², K=16, 5 logits, the 33-channel instance"),
+    "slots_at5_bf16": (0.1247, "B=64 128², K=16, 5 bf16 logits, the 33-channel instance"),
+    "geometry_compat_at5": (0.1460, "B=64 128², K=16, 5 logits, the 33-channel instance"),
+    "slots_tiled_packed_at5": (0.0631, "2×512², K=16, 5 phase-major logits, the 33-channel instance"),
+    "geometry_compat_large_packed_at5": (0.0868, "2×512², K=16, 5 phase-major logits, the 33-channel "
+                                                 "instance"),
+    "slots_at25": (0.2022, "B=64 128², K=16, 25 logits, the 33-channel instance"),
+    "slots_at25_bf16": (0.1910, "B=64 128², K=16, 25 bf16 logits, the 33-channel instance"),
+    "geometry_compat_at25": (0.2198, "B=64 128², K=16, 25 logits, the 33-channel instance"),
+    "slots_tiled_packed_at25": (0.1053, "2×512², K=16, 25 phase-major logits, the 33-channel instance"),
+    "geometry_compat_large_packed_at25": (0.1349, "2×512², K=16, 25 phase-major logits, the 33-channel "
+                                                  "instance"),
 }
 
 
@@ -1684,10 +1719,12 @@ def carry_flat(flat: dict, channels: int, n_out: int, seed: int, scale: float = 
 def width_configs(asset) -> dict:
     """name -> (NetConfig, flat weights) of the wide configuration (the
     asset's 24 channels carried into the first 24 of 48, the 24 new ones
-    and the 24 new class rows drawn from SEED at a small scale) and the
+    and the 24 new class rows drawn from SEED at a small scale), the
     narrow one (init_params at SEED, the head scaled by 1000 and the
     detection bias set to -0.5 so that the detection logits leave the
-    threshold), both at the main path's K and M."""
+    threshold), few (the asset with its detection row and the head rows
+    of FEW_CLASSES) and mid (the asset's 17 rows and the 8 of MID_EXTRA
+    drawn from SEED at a small scale), all at the main path's K and M."""
     from ubdvss_tpu_torch import NetConfig, load_params_npz
     from ubdvss_tpu_torch.models.model import init_params
     from ubdvss_tpu_torch.utils.checkpoint import flat_from_params
@@ -1698,15 +1735,21 @@ def width_configs(asset) -> dict:
     p = init_params(narrow, SEED)
     p["head.weight"] = p["head.weight"] * 1000.0
     p["head.bias"][0] = -0.5
-    return {"wide": (wide, carry_flat(load_params_npz(asset), WIDE_C, WIDE_O, SEED)),
-            "narrow": (narrow, flat_from_params(p))}
+    flat = load_params_npz(asset)
+    rows = [0] + [1 + base.class_names.index(n) for n in FEW_CLASSES]
+    few = {**flat, "head/kernel": flat["head/kernel"][..., rows], "head/bias": flat["head/bias"][rows]}
+    mid = base.replace(class_names=base.class_names + MID_EXTRA)
+    return {"wide": (wide, carry_flat(flat, WIDE_C, WIDE_O, SEED)),
+            "narrow": (narrow, flat_from_params(p)),
+            "few": (base.replace(class_names=FEW_CLASSES), few),
+            "mid": (mid, carry_flat(flat, base.channels, mid.n_output_channels, SEED))}
 
 
 def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
-    """Phase 11, every width the JAX package serves: the wide and narrow
-    configurations (width_configs) through the paths, each instance the
-    asset's widths never reach checked against its plain version, and a
-    kernel row for each.  Appends the rows to ``kernels``; returns the
+    """Phase 11, every width the JAX package serves: the wide, narrow, few
+    and mid configurations (width_configs) through the paths, each instance
+    the asset's widths never reach checked against its plain version, and
+    a kernel row for each.  Appends the rows to ``kernels``; returns the
     report."""
     import torch
 
@@ -1805,7 +1848,8 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         if not all(torch.equal(fused[k], geo_k[k]) for k in geo_k):
             raise AssertionError(f"{name}: geometry_compat differs from slots after CCL")
         r["slots_max_abs_err"] = err_slots
-        log(f"check {name} slots at {O} channels ({pk.class_chunks(O)} class pass(es)): slot "
+        log(f"check {name} slots at {O} channels (the {pk.stats_channel_bound(O)}-channel instance, "
+            f"{pk.class_chunks(O)} class pass(es)): slot "
             f"outputs and areas identical, means max|err| {err_slots:.3g} <= 2e-6; "
             "geometry_compat == slots after CCL bit for bit")
 
@@ -1872,14 +1916,14 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                                                              q_h["s_in"][3 + li], 1, d)):
                 raise AssertionError(f"{name}: qconv layer {li} differs from its plain version")
             qx = nxt
-        n_ = len(dil)
-        head_args = (qx, L8[1 + n_], s8[2 + n_], dil[-1], q_d["head"])
+        nd = len(dil)
+        head_args = (qx, L8[1 + nd], s8[2 + nd], dil[-1], q_d["head"])
         for packed in (False, True):
             if not torch.equal(kq.qconv_head(*head_args, packed=packed).cpu(),
                                kq.qconv_head_reference(*(_cpu(a) for a in head_args), packed=packed)):
                 raise AssertionError(f"{name}: qconv_head (packed={packed}) differs from its plain version")
-        y_k, acc_k = kq.qconv_layer_f32(qx, L8[1 + n_], 1, dil[-1])
-        y_p, acc_p = kq.qconv_layer_f32(qx.cpu(), q_h["layers"][1 + n_], 1, dil[-1])
+        y_k, acc_k = kq.qconv_layer_f32(qx, L8[1 + nd], 1, dil[-1])
+        y_p, acc_p = kq.qconv_layer_f32(qx.cpu(), q_h["layers"][1 + nd], 1, dil[-1])
         if not (torch.equal(y_k.cpu(), y_p) and torch.equal(acc_k.cpu(), acc_p)):
             raise AssertionError(f"{name}: qconv_layer_f32 differs from its plain version")
         if n_cal["qlayer0"] != 1:
@@ -1890,9 +1934,9 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         if not (torch.equal(y0_k.cpu(), y0_p) and torch.equal(acc0_k.cpu(), acc0_p)):
             raise AssertionError(f"{name}: qconv_layer_f32 on layer 0 differs from its plain version")
         del y0_k, acc0_k, y0_p, acc0_p
-        rq = kq.requantize(acc_k, L8[1 + n_]["ws"], L8[1 + n_]["b"], s8[2 + n_])
-        if not torch.equal(rq.cpu(), kq.requantize_reference(acc_p, q_h["layers"][1 + n_]["ws"],
-                                                             q_h["layers"][1 + n_]["b"], q_h["s_in"][2 + n_])):
+        rq = kq.requantize(acc_k, L8[1 + nd]["ws"], L8[1 + nd]["b"], s8[2 + nd])
+        if not torch.equal(rq.cpu(), kq.requantize_reference(acc_p, q_h["layers"][1 + nd]["ws"],
+                                                             q_h["layers"][1 + nd]["b"], q_h["s_in"][2 + nd])):
             raise AssertionError(f"{name}: requantize differs from its plain version")
         (res8_d, lg8_d), n8 = counted(
             lambda: detect_program_batch(params_d, imgs, cfg, (IMG, IMG), qparams=q_d, device="cuda"),
@@ -1938,24 +1982,27 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         r["detect"] = dict(detections=n_dets, launches_of_one_call=n_det["rect_exact"])
         log(f"{name} BarcodeDetector.detect: 2 images, {n_dets} detections == the host CPU's")
 
-        # g. the kernel rows of the instances the asset's widths never reach
-        tag = "wide" if name == "wide" else "any"
-        k4 = lambda: ck.fused_context_head(xc, *w, dil)  # noqa: E731
-        with exact_f32():
-            err_lib = float((library_context(x8, w, dil) - ck.context_head_reference(x8, *w, dil))
-                            .abs().max())
-            if not err_lib <= tol:
-                raise AssertionError(f"{name}: the library context differs by {err_lib}")
-            rows.append(dict(
-                name=f"context_layer_{tag}", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
-                replaces="ubdvss_tpu/ops/pallas/context_kernel.py:39",
-                launches=n_f["context_layer"], max_abs_err=err_k4, channels=C, outputs=O,
-                instance=r["k4_instance"],
-                ms=time_ms(k4, iters=5, reps=2), device_ms=device_ms(k4, n=5), queued_ms=queued_ms(k4),
-                plain_ms=time_ms(lambda: ck.context_head_reference(xc, *w, dil), iters=2, reps=1, warmup=1),
-                library_ms=time_ms(lambda: library_context(xc, w, dil), iters=5, reps=2),
-                bound=k4_bound(xc, w, dil, O)))
-        if name != "wide":
+        # g. the kernel rows of the instances the asset's widths never reach:
+        # K4 off its compiled widths (wide, narrow), the stats at O logits
+        # (wide, few, mid)
+        if name in ("wide", "narrow"):
+            tag = "wide" if name == "wide" else "any"
+            k4 = lambda: ck.fused_context_head(xc, *w, dil)  # noqa: E731
+            with exact_f32():
+                err_lib = float((library_context(x8, w, dil) - ck.context_head_reference(x8, *w, dil))
+                                .abs().max())
+                if not err_lib <= tol:
+                    raise AssertionError(f"{name}: the library context differs by {err_lib}")
+                rows.append(dict(
+                    name=f"context_layer_{tag}", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
+                    replaces="ubdvss_tpu/ops/pallas/context_kernel.py:39",
+                    launches=n_f["context_layer"], max_abs_err=err_k4, channels=C, outputs=O,
+                    instance=r["k4_instance"],
+                    ms=time_ms(k4, iters=5, reps=2), device_ms=device_ms(k4, n=5), queued_ms=queued_ms(k4),
+                    plain_ms=time_ms(lambda: ck.context_head_reference(xc, *w, dil), iters=2, reps=1, warmup=1),
+                    library_ms=time_ms(lambda: library_context(xc, w, dil), iters=5, reps=2),
+                    bound=k4_bound(xc, w, dil, O)))
+        if name == "narrow":
             r["times"] = {"f32_ms": time_ms(lambda: detect_program_batch(
                 params_d, imgs_d, cfg, (IMG, IMG), detections_only=True), iters=3, reps=2),
                 "int8_ms": time_ms(lambda: detect_program_batch(
@@ -1963,16 +2010,17 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             continue
         lab_w = ccl_kernel.ccl_labels_from_logits(lg_d[..., 0].contiguous())
         geo_w = pk.component_slots(lg_d, lab_w, K)
-        lab_w16 = ccl_kernel.ccl_labels_from_logits(lg16_d[..., 0].contiguous())
         lg16_w = ck.fused_model_apply(params16_d, imgs_d.to(torch.bfloat16)[..., None], cfg16,
                                       raw_gray=True, act_out=True)
         lab_w16 = ccl_kernel.ccl_labels_from_logits(lg16_w[..., 0].contiguous())
         geo_w16 = pk.component_slots(lg16_w, lab_w16, K)
-        stats_inst = (f"{pk.class_chunks(O)} pixel pass(es) at {O} logits, "
-                      f"{pk.stats_warps(IMG // 4, IMG // 4, K, O)} virtual warps a block")
+        stats_inst = (f"the {pk.stats_channel_bound(O)}-channel instance, {pk.class_chunks(O)} pixel "
+                      f"pass(es) at {O} logits, {pk.stats_warps(IMG // 4, IMG // 4, K, O)} virtual "
+                      "warps a block")
+        n_slots, n_slots16, n_compat, n_tiled, n_large = STATS_ROWS[name]
         for rname, lgx, labx, geox, err_, esz, n_ in (
-                ("slots_chunked", lg_d, lab_w, geo_w, err_slots, 4, n_f["slots"]),
-                ("slots_chunked_bf16", lg16_w, lab_w16, geo_w16, err_slots16, 2, n16["slots_bf16"])):
+                (n_slots, lg_d, lab_w, geo_w, err_slots, 4, n_f["slots"]),
+                (n_slots16, lg16_w, lab_w16, geo_w16, err_slots16, 2, n16["slots_bf16"])):
             rows.append(dict(
                 name=rname, route="cuda", source="ubdvss_tpu_torch/csrc/postproc_kernel.cu",
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:130", launches=n_,
@@ -1984,7 +2032,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 library_ms=time_ms(lambda: pk._stats_reference(lgx, geox["slots"], K), iters=3, reps=2),
                 bound=stats_bound(lgx, geox, K, esz)))
         rows.append(dict(
-            name="geometry_compat_chunked", route="cuda", source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
+            name=n_compat, route="cuda", source="ubdvss_tpu_torch/csrc/geometry_kernel.cu",
             replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:50", launches=n_c["geometry_compat"],
             max_abs_err=err_slots, channels=O, instance=stats_inst,
             ms=time_ms(lambda: pk.geometry_compat(lg_d, K), iters=5, reps=4),
@@ -1992,91 +2040,92 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             queued_ms=queued_ms(lambda: pk.geometry_compat(lg_d, K)),
             plain_ms=time_ms(lambda: pk.geometry_compat_reference(lg_d, K), iters=2, reps=1),
             library_ms=None, bound=stats_bound(lg_d, geo_w, K, 4, k12=True)))
-        # the int8 trunk's any-width instances at the main path's shapes: one
-        # row a kind, its launches' times summed; the library yardstick one
-        # f32 F.conv2d a layer on the int8 values (TF32 off)
-        ins, qx = [], kq.qstem(imgs_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
-        for li, d in enumerate(dil[:-1]):
-            ins.append((qx, L8[2 + li], s8[3 + li], d))
-            qx = kq.qconv(*ins[-1])
-        head_full = (qx, L8[1 + n_], s8[2 + n_], dil[-1], q_d["head"])
-        px = B * (IMG // 4) ** 2
-        Ci = -(-C // 4) * 4
+        if name == "wide":
+            # the int8 trunk's any-width instances at the main path's shapes: one
+            # row a kind, its launches' times summed; the library yardstick one
+            # f32 F.conv2d a layer on the int8 values (TF32 off)
+            ins, qx = [], kq.qstem(imgs_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
+            for li, d in enumerate(dil[:-1]):
+                ins.append((qx, L8[2 + li], s8[3 + li], d))
+                qx = kq.qconv(*ins[-1])
+            head_full = (qx, L8[1 + nd], s8[2 + nd], dil[-1], q_d["head"])
+            px = B * (IMG // 4) ** 2
+            Ci = -(-C // 4) * 4
 
-        def conv_lib(x, q, st, d):
-            xf = (x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)).float().contiguous()
-            wf = q.permute(3, 2, 0, 1).float().contiguous()
-            pad = d if q.shape[0] == 3 else 0
-            return lambda: F_.conv2d(xf, wf, None, st, pad, d)
+            def conv_lib(x, q, st, d):
+                xf = (x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)).float().contiguous()
+                wf = q.permute(3, 2, 0, 1).float().contiguous()
+                pad = d if q.shape[0] == 3 else 0
+                return lambda: F_.conv2d(xf, wf, None, st, pad, d)
 
-        kinds8 = {
-            "qstem_any": ("qstem_kernel.cu", "ubdvss_tpu/ops/quant.py:315", n8["qstem"],
-                          [lambda: kq.qstem(imgs_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)],
-                          [lambda: kq.qstem_reference(imgs_d, L8[0], s8[1], L8[1], s8[2], True)],
-                          [conv_lib(imgs_d.float(), L8[0]["q"], 2, 1),
-                           conv_lib(torch.zeros(B, IMG // 2, IMG // 2, C, device=dev), L8[1]["q"], 2, 1)],
-                          B * IMG * IMG + px * Ci, 2 * (B * (IMG // 2) ** 2 * C * 9 + px * C * C * 9)),
-            "qconv_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276", n8["qconv"],
-                          [lambda a=a: kq.qconv(*a) for a in ins],
-                          [lambda a=a: kq.qconv_reference(a[0], a[1], a[2], 1, a[3]) for a in ins],
-                          [conv_lib(a[0], a[1]["q"], 1, a[3]) for a in ins],
-                          len(ins) * 2 * px * Ci, len(ins) * 2 * px * C * C * 9),
-            "qconv_head_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276", n8["qconv_head"],
-                               [lambda: kq.qconv_head(*head_full)],
-                               [lambda: kq.qconv_head_reference(*head_full)],
-                               [conv_lib(qx, L8[1 + n_]["q"], 1, dil[-1]),
-                                conv_lib(qx, q_d["head"]["q"], 1, 1)],
-                               px * Ci + px * O * 4, 2 * px * (C * C * 9 + C * O)),
-        }
-        for rname, (src, repl, n_, calls, plains, libs, nbytes, ops) in kinds8.items():
-            run = lambda calls=calls: [c() for c in calls]  # noqa: E731
-            err = bit_equal(run(), [c() for c in plains], f"{name} {rname}")
-            with exact_f32():
-                lib_ms = time_ms(lambda libs=libs: [c() for c in libs], iters=3, reps=2)
-            rows.append(dict(
-                name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
-                launches=n_, max_abs_err=err, channels=C, outputs=O, instance=INT8_ANY_INSTANCES[rname],
-                ms=time_ms(run, iters=5, reps=2), device_ms=device_ms(run, n=5),
-                plain_ms=time_ms(lambda plains=plains: [c() for c in plains], iters=1, reps=1, warmup=0),
-                library_ms=lib_ms, bound=bound(nbytes, ops, INT8_OPS)))
-        # the calibration's any-width kinds, one call each at the main path's
-        # shapes: layer 0 on the batch's images normalized (y and the
-        # accumulator), a context layer's f32 epilogue, then its
-        # requantization
-        xa, La, sa, da = ins[1]
-        y_a, acc_a = kq.qconv_layer_f32(xa, La, 1, da)
-        norm_d = imgs_d.float() / 127.5 - 1.0
-        px0 = B * (IMG // 2) ** 2
-        calib_kinds = {
-            "qlayer0_any": ("qstem_kernel.cu", "ubdvss_tpu/ops/quant.py:165", n_cal["qlayer0"],
-                            lambda: kq.qconv_layer_f32(norm_d, L8[0], 2, 1),
-                            lambda: (kq.qconv_reference(norm_d, L8[0], None, 2, 1),
-                                     kq.qconv_acc_reference(norm_d, L8[0], 2, 1)),
-                            norm_d.numel() * 4 + px0 * C * 8, 2 * px0 * C * 9,
-                            conv_lib(norm_d, L8[0]["q"], 2, 1)),
-            "qconv_layer_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276",
-                                n_cal["qconv_layer"] - n_cal["qlayer0"],
-                                lambda: kq.qconv_layer_f32(xa, La, 1, da),
-                                lambda: (kq.qconv_reference(xa, La, None, 1, da),
-                                         kq.qconv_acc_reference(xa, La, 1, da)),
-                                xa.numel() + px * C * 8, 2 * px * C * C * 9, conv_lib(xa, La["q"], 1, da)),
-            "qrequant_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:192", n_cal["qrequant"],
-                             lambda: kq.requantize(acc_a, La["ws"], La["b"], sa),
-                             lambda: kq.requantize_reference(acc_a, La["ws"], La["b"], sa),
-                             px * C * 5, 0, None),
-        }
-        for rname, (src, repl, n_, call, plain, nbytes, ops, lib) in calib_kinds.items():
-            err = bit_equal(call(), plain(), f"{name} {rname}")
-            if lib is not None:
+            kinds8 = {
+                "qstem_any": ("qstem_kernel.cu", "ubdvss_tpu/ops/quant.py:315", n8["qstem"],
+                              [lambda: kq.qstem(imgs_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)],
+                              [lambda: kq.qstem_reference(imgs_d, L8[0], s8[1], L8[1], s8[2], True)],
+                              [conv_lib(imgs_d.float(), L8[0]["q"], 2, 1),
+                               conv_lib(torch.zeros(B, IMG // 2, IMG // 2, C, device=dev), L8[1]["q"], 2, 1)],
+                              B * IMG * IMG + px * Ci, 2 * (B * (IMG // 2) ** 2 * C * 9 + px * C * C * 9)),
+                "qconv_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276", n8["qconv"],
+                              [lambda a=a: kq.qconv(*a) for a in ins],
+                              [lambda a=a: kq.qconv_reference(a[0], a[1], a[2], 1, a[3]) for a in ins],
+                              [conv_lib(a[0], a[1]["q"], 1, a[3]) for a in ins],
+                              len(ins) * 2 * px * Ci, len(ins) * 2 * px * C * C * 9),
+                "qconv_head_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276", n8["qconv_head"],
+                                   [lambda: kq.qconv_head(*head_full)],
+                                   [lambda: kq.qconv_head_reference(*head_full)],
+                                   [conv_lib(qx, L8[1 + nd]["q"], 1, dil[-1]),
+                                    conv_lib(qx, q_d["head"]["q"], 1, 1)],
+                                   px * Ci + px * O * 4, 2 * px * (C * C * 9 + C * O)),
+            }
+            for rname, (src, repl, n_, calls, plains, libs, nbytes, ops) in kinds8.items():
+                run = lambda calls=calls: [c() for c in calls]  # noqa: E731
+                err = bit_equal(run(), [c() for c in plains], f"{name} {rname}")
                 with exact_f32():
-                    lib_ms = time_ms(lib, iters=3, reps=2)
-            rows.append(dict(
-                name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
-                launches=n_, max_abs_err=err, channels=C, instance=INT8_ANY_INSTANCES[rname],
-                ms=time_ms(call, iters=5, reps=2), device_ms=device_ms(call, n=5),
-                plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
-                library_ms=lib_ms if lib is not None else None,
-                bound=bound(nbytes, ops, INT8_OPS)))
+                    lib_ms = time_ms(lambda libs=libs: [c() for c in libs], iters=3, reps=2)
+                rows.append(dict(
+                    name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
+                    launches=n_, max_abs_err=err, channels=C, outputs=O, instance=INT8_ANY_INSTANCES[rname],
+                    ms=time_ms(run, iters=5, reps=2), device_ms=device_ms(run, n=5),
+                    plain_ms=time_ms(lambda plains=plains: [c() for c in plains], iters=1, reps=1, warmup=0),
+                    library_ms=lib_ms, bound=bound(nbytes, ops, INT8_OPS)))
+            # the calibration's any-width kinds, one call each at the main path's
+            # shapes: layer 0 on the batch's images normalized (y and the
+            # accumulator), a context layer's f32 epilogue, then its
+            # requantization
+            xa, La, sa, da = ins[1]
+            y_a, acc_a = kq.qconv_layer_f32(xa, La, 1, da)
+            norm_d = imgs_d.float() / 127.5 - 1.0
+            px0 = B * (IMG // 2) ** 2
+            calib_kinds = {
+                "qlayer0_any": ("qstem_kernel.cu", "ubdvss_tpu/ops/quant.py:165", n_cal["qlayer0"],
+                                lambda: kq.qconv_layer_f32(norm_d, L8[0], 2, 1),
+                                lambda: (kq.qconv_reference(norm_d, L8[0], None, 2, 1),
+                                         kq.qconv_acc_reference(norm_d, L8[0], 2, 1)),
+                                norm_d.numel() * 4 + px0 * C * 8, 2 * px0 * C * 9,
+                                conv_lib(norm_d, L8[0]["q"], 2, 1)),
+                "qconv_layer_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:276",
+                                    n_cal["qconv_layer"] - n_cal["qlayer0"],
+                                    lambda: kq.qconv_layer_f32(xa, La, 1, da),
+                                    lambda: (kq.qconv_reference(xa, La, None, 1, da),
+                                             kq.qconv_acc_reference(xa, La, 1, da)),
+                                    xa.numel() + px * C * 8, 2 * px * C * C * 9, conv_lib(xa, La["q"], 1, da)),
+                "qrequant_any": ("qconv_kernel.cu", "ubdvss_tpu/ops/quant.py:192", n_cal["qrequant"],
+                                 lambda: kq.requantize(acc_a, La["ws"], La["b"], sa),
+                                 lambda: kq.requantize_reference(acc_a, La["ws"], La["b"], sa),
+                                 px * C * 5, 0, None),
+            }
+            for rname, (src, repl, n_, call, plain, nbytes, ops, lib) in calib_kinds.items():
+                err = bit_equal(call(), plain(), f"{name} {rname}")
+                if lib is not None:
+                    with exact_f32():
+                        lib_ms = time_ms(lib, iters=3, reps=2)
+                rows.append(dict(
+                    name=rname, route="cuda", source=f"ubdvss_tpu_torch/csrc/{src}", replaces=repl,
+                    launches=n_, max_abs_err=err, channels=C, instance=INT8_ANY_INSTANCES[rname],
+                    ms=time_ms(call, iters=5, reps=2), device_ms=device_ms(call, n=5),
+                    plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
+                    library_ms=lib_ms if lib is not None else None,
+                    bound=bound(nbytes, ops, INT8_OPS)))
         r["times"] = {"f32_ms": time_ms(lambda: detect_program_batch(
             params_d, imgs_d, cfg, (IMG, IMG), detections_only=True), iters=3, reps=2),
             "bf16_ms": time_ms(lambda: detect_program_batch(
@@ -2084,7 +2133,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             "int8_ms": time_ms(lambda: detect_program_batch(
                 params_d, imgs_d, cfg, (IMG, IMG), qparams=q_d, detections_only=True), iters=3, reps=2)}
 
-        # h. the wide configuration's 2048² scans on the packed route: K4's
+        # h. the configuration's 2048² scans on the packed route: K4's
         # packed store at O channels, the tiled K2 and the large K12c
         # reading the phase-major logits, qconv_head's packed store
         sc = scans[:N_WIDTH_SCANS]
@@ -2097,12 +2146,12 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             lambda: detect_program_batch(params_d, sc, cfg, (SCAN, SCAN), n_strips=1, device="cuda"),
             ["context_layer", "ccl_tiled", "slots_tiled", "rect_compact"], ["context_layer_packed"])
         if not torch.equal(lg_p, lg_w):
-            raise AssertionError("wide 2048²: the packed route's logits differ from n_strips=1's")
-        same_detections(res_p, res_w, "wide 2048² packed route")
+            raise AssertionError(f"{name} 2048²: the packed route's logits differ from n_strips=1's")
+        same_detections(res_p, res_w, f"{name} 2048² packed route")
         ref_p, ref_lgp = detect_program_batch(params, sc[:1], cfg, (SCAN, SCAN), device="cpu")
         err_p = float((lg_p[:1].cpu() - ref_lgp).abs().max())
         if not err_p <= 1e-4:
-            raise AssertionError(f"wide 2048²: logits differ from the host CPU's by {err_p}")
+            raise AssertionError(f"{name} 2048²: logits differ from the host CPU's by {err_p}")
         compare_detections({k: v[:1] for k, v in host(res_p).items()}, host(ref_p),
                            lg_p[:1, ..., 0].cpu().numpy(), box_atol=1e-3, score_atol=1e-5,
                            margin=max(1e-4, 2 * err_p))
@@ -2111,7 +2160,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 params_d, sc, cfg, (SCAN, SCAN), detections_only=True, device="cuda")[0]),
             ["context_layer_packed", "geometry_compat_large", "geometry_compat_large_packed"],
             ["ccl_tiled", "slots_tiled", "ccl", "slots"])
-        same_detections(res_pc, res_p, "wide 2048² compat route")
+        same_detections(res_pc, res_p, f"{name} 2048² compat route")
         (res_p8, lg_p8), n_p8 = counted(
             lambda: detect_program_batch(params_d, sc, cfg, (SCAN, SCAN), qparams=q_d, device="cuda"),
             [*trunk8, "qconv_head_packed", "ccl_tiled", "slots_tiled", "slots_tiled_packed"],
@@ -2119,19 +2168,19 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
         ref_p8, ref_lgp8 = detect_program_batch(params, sc[:1], cfg, (SCAN, SCAN), qparams=q_h,
                                                 device="cpu")
         if not torch.equal(lg_p8[:1].cpu(), ref_lgp8):
-            raise AssertionError("wide 2048² int8: logits differ from the host CPU's")
+            raise AssertionError(f"{name} 2048² int8: logits differ from the host CPU's")
         compare_detections({k: v[:1] for k, v in host(res_p8).items()}, host(ref_p8),
                            lg_p8[:1, ..., 0].cpu().numpy(), box_atol=1e-3, score_atol=1e-5, margin=0.0)
         r["scan_2048"] = dict(
             scans=len(sc), f32_launches={k: n_p[k] for k in ("context_layer_packed", "slots_tiled_packed")},
             compat_launches=n_pc["geometry_compat_large_packed"], int8_launches=n_p8["qconv_head_packed"],
             detections=int(res_p["num_detections"].sum()), host_logits_max_abs_err=err_p)
-        log(f"wide 2048²: {len(sc)} scans on the packed route, launches {r['scan_2048']}; logits == "
+        log(f"{name} 2048²: {len(sc)} scans on the packed route, launches {r['scan_2048']}; logits == "
             "n_strips=1's bit for bit, detections identical; the compat route's large K12c reading "
             "phase-major logits identical; int8 with qconv_head's packed store; scan 0 == the host "
             "CPU's (f32 logits within 1e-4, int8 bit for bit)")
-        # their rows: K4's packed store, the tiled K2 and the large K12c at O
-        # phase-major channels, qconv_head's packed store
+        # their rows: the tiled K2 and the large K12c at O phase-major
+        # channels; wide: K4's packed store, qconv_head's packed store
         with torch.inference_mode(), exact_f32():
             xs = ck.stem_apply(params_d, sc_d.float()[..., None], cfg,
                                raw_gray=True).permute(0, 3, 1, 2).contiguous()
@@ -2139,33 +2188,35 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             pl_ = k4p()
             err_k4p = float((pl_ - ck._s2d_planes(ck.context_head_reference(xs, *w, dil))).abs().max())
             if not err_k4p <= 1e-4:
-                raise AssertionError(f"wide: K4's packed store at 2048² off its plain version by {err_k4p}")
-            rows.append(dict(
-                name="context_layer_wide_packed", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
-                replaces="ubdvss_tpu/ops/pallas/context_kernel.py:388 (s2d_context_head unpack=False)",
-                launches=n_p["context_layer_packed"], max_abs_err=err_k4p, channels=C, outputs=O,
-                instance=r["k4_instance"],
-                ms=time_ms(k4p, iters=3, reps=2), device_ms=device_ms(k4p, n=3),
-                plain_ms=time_ms(lambda: ck._s2d_planes(ck.context_head_reference(xs, *w, dil)),
-                                 iters=1, reps=1, warmup=0),
-                library_ms=time_ms(lambda: library_context(xs, w, dil), iters=3, reps=2),
-                bound=k4_bound(xs, w, dil, O)))
+                raise AssertionError(f"{name}: K4's packed store at 2048² off its plain version by {err_k4p}")
+        if name == "wide":
+            with exact_f32():
+                rows.append(dict(
+                    name="context_layer_wide_packed", route="cuda", source="ubdvss_tpu_torch/csrc/context_kernel.cu",
+                    replaces="ubdvss_tpu/ops/pallas/context_kernel.py:388 (s2d_context_head unpack=False)",
+                    launches=n_p["context_layer_packed"], max_abs_err=err_k4p, channels=C, outputs=O,
+                    instance=r["k4_instance"],
+                    ms=time_ms(k4p, iters=3, reps=2), device_ms=device_ms(k4p, n=3),
+                    plain_ms=time_ms(lambda: ck._s2d_planes(ck.context_head_reference(xs, *w, dil)),
+                                     iters=1, reps=1, warmup=0),
+                    library_ms=time_ms(lambda: library_context(xs, w, dil), iters=3, reps=2),
+                    bound=k4_bound(xs, w, dil, O)))
         pk_lg = pl_.permute(0, 2, 3, 1)  # the packed planes' phase-major NHWC view
         lg_u = ck._d2s(pk_lg, O)
         lab_p = ccl_kernel.ccl_labels_tiled(lg_u[..., 0].contiguous())
         geo_p = pk.component_slots_tiled(pk_lg, lab_p, K, packed_phases=(2, 2))
         err_tp = check_stats(geo_p, pk.component_slots_reference(pk_lg, lab_p, K, packed_phases=(2, 2)),
-                             "wide slots_tiled packed", exact=exact_stats(lg_u, geo_p["slots"], K))
+                             f"{name} slots_tiled packed", exact=exact_stats(lg_u, geo_p["slots"], K))
         large = pk.geometry_compat(pk_lg, K, packed_phases=(2, 2))
         if not all(torch.equal(large[k], geo_p[k]) for k in geo_p):
-            raise AssertionError("wide: the large K12c differs from the tiled pair on phase-major logits")
+            raise AssertionError(f"{name}: the large K12c differs from the tiled pair on phase-major logits")
         for rname, call, plain, lib, n_, k12 in (
-                ("slots_tiled_chunked_packed",
+                (n_tiled,
                  lambda: pk.component_slots_tiled(pk_lg, lab_p, K, packed_phases=(2, 2)),
                  lambda: pk.component_slots_reference(pk_lg, lab_p, K, packed_phases=(2, 2)),
                  lambda: pk._stats_reference(pk_lg, geo_p["slots"], K, (2, 2)),
                  n_p["slots_tiled_packed"], False),
-                ("geometry_compat_large_chunked_packed",
+                (n_large,
                  lambda: pk.geometry_compat(pk_lg, K, packed_phases=(2, 2)),
                  lambda: pk.geometry_compat_reference(pk_lg, K, packed_phases=(2, 2)),
                  None, n_pc["geometry_compat_large_packed"], True)):
@@ -2174,21 +2225,26 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                 source="ubdvss_tpu_torch/csrc/" + ("geometry_kernel.cu" if k12 else "postproc_kernel.cu"),
                 replaces="ubdvss_tpu/ops/pallas/postproc_kernel.py:" + ("50" if k12 else "381")
                 + " (packed_phases)", launches=n_, max_abs_err=err_tp, channels=O,
-                instance=f"{pk.class_chunks(O)} pixel pass(es) at {O} logits (tiled sums)",
+                instance=f"the {pk.stats_channel_bound(O)}-channel instance, {pk.class_chunks(O)} "
+                         f"pixel pass(es) at {O} logits (tiled sums)",
                 ms=time_ms(call, iters=3, reps=2), device_ms=device_ms(call, n=3), queued_ms=queued_ms(call),
                 plain_ms=time_ms(plain, iters=1, reps=1, warmup=0),
                 library_ms=None if lib is None else time_ms(lib, iters=1, reps=1),
                 bound=stats_bound(lg_u, geo_p, K, 4, k12=k12)))
+        r["times"]["scan_2048_ms"] = time_ms(lambda: detect_program_batch(
+            params_d, sc_d, cfg, (SCAN, SCAN), detections_only=True), iters=3, reps=1)
+        if name != "wide":
+            continue
         qs = kq.qstem(sc_d, L8[0], s8[1], L8[1], s8[2], raw_gray=True)
         for li, d in enumerate(dil[:-1]):
             qs = kq.qconv(qs, L8[2 + li], s8[3 + li], d)
-        head_s = (qs, L8[1 + n_], s8[2 + n_], dil[-1], q_d["head"])
+        head_s = (qs, L8[1 + nd], s8[2 + nd], dil[-1], q_d["head"])
         hp = lambda: kq.qconv_head(*head_s, packed=True)  # noqa: E731
         if not torch.equal(hp(), ck._s2d(kq.qconv_head(*head_s))):
             raise AssertionError("wide: qconv_head's packed store differs from its unpacked launch")
         pxs = N_WIDTH_SCANS * (SCAN // 4) ** 2
         with exact_f32():
-            lib_ms = time_ms(lambda: [conv_lib(qs, L8[1 + n_]["q"], 1, dil[-1])(),
+            lib_ms = time_ms(lambda: [conv_lib(qs, L8[1 + nd]["q"], 1, dil[-1])(),
                                       conv_lib(qs, q_d["head"]["q"], 1, 1)()], iters=3, reps=1)
         rows.append(dict(
             name="qconv_head_packed_any", route="cuda", source="ubdvss_tpu_torch/csrc/qconv_kernel.cu",
@@ -2198,8 +2254,6 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             ms=time_ms(hp, iters=3, reps=2), device_ms=device_ms(hp, n=3),
             plain_ms=time_ms(lambda: kq.qconv_head_reference(*head_s, packed=True), iters=1, reps=1, warmup=0),
             library_ms=lib_ms, bound=bound(pxs * Ci + pxs * O * 4, 2 * pxs * (C * C * 9 + C * O), INT8_OPS)))
-        r["times"]["scan_2048_ms"] = time_ms(lambda: detect_program_batch(
-            params_d, sc_d, cfg, (SCAN, SCAN), detections_only=True), iters=3, reps=1)
     for row in rows:
         row["bound_ms"], row["bound_by"] = row.pop("bound")
         inst = f" ({row['instance']})" if "instance" in row else ""
@@ -4093,8 +4147,8 @@ def main() -> int:
     log(json.dumps({"packed_route": packed_route(dev, counted, kernels, params_d, params16_d, q_d,
                                                  cfg_l, cfg_l16, scans, big, lg_l, lg_l16)}))
 
-    # --- 11. every width the JAX package serves: the wide and narrow
-    # configurations through the paths ---
+    # --- 11. every width the JAX package serves: the wide, narrow, few and
+    # mid configurations through the paths ---
     phase("every width")
     log(json.dumps({"every_width": every_width(dev, counted, kernels, imgs, scans)}))
 

@@ -99,14 +99,14 @@ spill bytes go to the report (``ptxas``).  ``--parts`` picks the sections, in th
     unpacked, and of two 2048² scans (seed 11), (2, 10, 512²) packed; then
     random features and weights (seed 7) at (64, C, 128²), C = 4, 12, 20,
     31 with heads of 17 and 41, and (8, 41), (24, 33);
-  stats: the stats at each logit count of ``--stats-logits`` (34, 41, 42,
-    65, 66 and 97: the ends of each compiled bound; the wide configuration,
-    48 channels, ``chip_smoke.carry_flat`` of the asset, seed 7, K=16):
-    the cluster K2 and K12c on the f32 trunk's logits of the 64 scenes (the
-    NHWC view of K4's planes), and the tiled K2 and the large K12c on the
-    two scans' phase-major logits (``StatsTree``); at 41 also on the bf16
-    trunk's (channels last), and the cluster kernels phase-major
-    (``_s2d``).  The
+  stats: the stats at each logit count of ``--stats-logits`` (5, 25, 33,
+    34, 41, 42, 65, 66 and 97: label sets of 4 and 24 classes and the ends
+    of each compiled bound; the wide configuration, 48 channels,
+    ``chip_smoke.carry_flat`` of the asset, seed 7, K=16), on the f32
+    trunk's logits (the NHWC view of K4's planes) and the bf16 trunk's
+    (channels last): the cluster K2 and K12c on the 64 scenes' logits and
+    on them phase-major (``_s2d``), and the tiled K2 and the large K12c on
+    the two scans' phase-major logits (``StatsTree``).  The
     cluster kernels' eight outputs must be the parent's bit for bit and
     K12c's K2's; the tiled and large kernels' slot outputs the parent's,
     each tree's means within 2e-6 (and the bf16 slack) of the f64 sums,
@@ -1247,28 +1247,25 @@ def widths_ab(args, dev, res: dict) -> None:
         torch.cuda.empty_cache()
 
         # ---- the stats: the wide configuration's logits at each count of
-        # --stats-logits, f32 (the NHWC view of K4's planes), the 2048²
-        # scans' phase-major logits for the tiled K2 and the large K12c; at
-        # 41 also bf16 (channels last) and the cluster kernels phase-major
+        # --stats-logits, f32 (the NHWC view of K4's planes) and bf16
+        # (channels last): the cluster kernels on them and phase-major, the
+        # tiled K2 and the large K12c on the 2048² scans' phase-major logits
         for O in args.stats_logits if "stats" in args.parts else ():
             cfgO, pO = (cfg48, p48) if O == 41 else config(48, O)
+            cfg16 = cfgO.replace(dtype="bfloat16")
+            p16 = {k: v.to(torch.bfloat16) for k, v in pO.items()}
             with exact_f32():
-                lg = fused_model_apply(pO, imgs.float()[..., None], cfgO, raw_gray=True)
-                sc = ck.packed_fused_trunk(pO, scans.float()[..., None], cfgO, raw_gray=True)
-            runs = [("f32", lg, sc)]
-            if O == 41:
-                cfg16 = cfgO.replace(dtype="bfloat16")
-                p16 = {k: v.to(torch.bfloat16) for k, v in pO.items()}
-                runs.append(("bf16", fused_model_apply(p16, imgs.to(torch.bfloat16)[..., None], cfg16,
-                                                       raw_gray=True, act_out=True),
-                             ck.packed_fused_trunk(p16, scans.to(torch.bfloat16)[..., None], cfg16,
-                                                   raw_gray=True, act_out=True)))
+                runs = [("f32", fused_model_apply(pO, imgs.float()[..., None], cfgO, raw_gray=True),
+                         ck.packed_fused_trunk(pO, scans.float()[..., None], cfgO, raw_gray=True)),
+                        ("bf16", fused_model_apply(p16, imgs.to(torch.bfloat16)[..., None], cfg16,
+                                                   raw_gray=True, act_out=True),
+                         ck.packed_fused_trunk(p16, scans.to(torch.bfloat16)[..., None], cfg16,
+                                               raw_gray=True, act_out=True))]
             for name, lg, sc in runs:
                 lab = ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous())
                 stats_case(f"stats{O}_{name}_64x128", lg, lab, None, ("k2", "k12c"))
-                if O == 41:
-                    stats_case(f"stats{O}_{name}_phase_major_64x128", ck._s2d(lg).contiguous(), lab,
-                               (2, 2), ("k2", "k12c"))
+                stats_case(f"stats{O}_{name}_phase_major_64x128", ck._s2d(lg).contiguous(), lab,
+                           (2, 2), ("k2", "k12c"))
                 det = postproc_kernel.detection_logits(sc, (2, 2)).contiguous()
                 lab = ccl_kernel.ccl_labels_from_logits(det)
                 stats_case(f"stats{O}_{name}_phase_major_2x512", sc, lab, (2, 2), ("tiled", "large"))
@@ -1507,7 +1504,7 @@ def main() -> int:
                     choices=("narrow", "stats", "wide", "int8"),
                     help="widths: K4 up to 32 channels, the stats, K4 past 32 channels, the "
                          "int8 convs")
-    ap.add_argument("--stats-logits", type=int, nargs="*", default=[34, 41, 42, 65, 66, 97],
+    ap.add_argument("--stats-logits", type=int, nargs="*", default=[5, 25, 33, 34, 41, 42, 65, 66, 97],
                     help="widths: the logit counts of the stats")
     ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
     args = ap.parse_args()

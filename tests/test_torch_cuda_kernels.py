@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from ubdvss_tpu_torch.ops.cuda import (
+    _build,
     ccl_kernel,
     context_kernel,
     postproc_kernel,
@@ -193,7 +194,7 @@ def test_slots_kernel_matches_plain(dev, shape, K, C):
     K=16 components, so the padding slot K-1 carries the background),
     noise (more than K) and snakes; two launches bit for bit equal.  C=1
     and C=17 (the main path's) have their own compiled kernels, C=5 takes
-    the one for any C up to 33."""
+    the guarded bound of 5 channels."""
     lg = _head_logits(_maps(K, *shape), C, K + C, dev)
     lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
     out = postproc_kernel.component_slots(lg, lab, K)
@@ -1888,15 +1889,18 @@ def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [34, 41, 65, 97])
-def test_stats_any_channel_count_match_plain(dev, C, dtype, packed):
-    """The stats past 33 channels (34 and 65: the guarded one-pass instance
-    at its two ends; 41: the exact one; 97: two class passes, of 64 and 32
-    classes), f32 and bf16, unpacked and phase-major:
+@pytest.mark.parametrize("C", [2, 5, 16, 18, 25, 33, 34, 41, 65, 97])
+def test_stats_every_guarded_bound_match_plain(dev, C, dtype, packed):
+    """The stats at the guarded bounds off the exact 1 and 17 channels (2
+    and 5, 16, 18 and 25, 33, 34 and 41, 65: the ends of the bounds 5, 16,
+    25, 33, 41 and 65, the bound that holds each from
+    ``stats_channel_bound``; 97: three class passes of 40 classes), f32 and
+    bf16, unpacked and phase-major:
     K2's cluster kernel against the plain version, K12c equal to it bit for
     bit, the tiled K2 against the sums in f64; and on a map past K12c's
     shared memory the large K12c equal to the tiled pair bit for bit."""
     B, H, W, K = 3, 64, 48, 16
+    assert postproc_kernel.stats_channel_bound(C) not in postproc_kernel.STATS_EXACT
     lg = _head_logits(_maps(C, B, H, W), C, C, dev).to(getattr(torch, dtype))
     lab = ccl_kernel.ccl_labels_reference(lg[..., 0].float())
     phases = (2, 2) if packed else None
@@ -1930,6 +1934,15 @@ def test_stats_any_channel_count_match_plain(dev, C, dtype, packed):
         big_src, ccl_kernel.ccl_labels_tiled(big[..., 0].contiguous()), 16, packed_phases=phases)
     for key in pair:
         assert torch.equal(fused[key], pair[key]), key
+
+
+def test_stats_channel_bound_mirrors_the_kernels(dev):
+    """stats_channel_bound, the Python mirror of the kernels' instance
+    choice, returns the kernels' own (the C entry point, csrc/geometry.cuh
+    with_channel_bound) at every logit count up to 200."""
+    lib = _build.load("postproc_kernel", postproc_kernel._FUNCS)
+    for C in range(1, 201):
+        assert lib.stats_channel_bound(C) == postproc_kernel.stats_channel_bound(C), C
 
 
 def test_stats_partial_set_past_shared_memory_names_it(dev):

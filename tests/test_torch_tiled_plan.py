@@ -37,7 +37,8 @@ SHAPES = [
     (3, 257, 1000), (2, 1, 60000), (2, 60000, 1), (1, 301, 299), (1, 256, 320),
     (2, 300, 1000), (2, 1000, 300), (2, 512, 250), (3, 128, 128), (4, 37, 53), (64, 60, 80),
 ]
-KC = [(16, 17), (64, 17), (64, 1), (1, 5), (16, 41), (64, 65)]  # 41, 65: past the register chunk
+# 41, 65: past the register chunk; 5, 25: the few and mid label sets
+KC = [(16, 17), (64, 17), (64, 1), (1, 5), (16, 41), (64, 65), (16, 5), (16, 25)]
 
 
 def _small(shapes, limit=600_000):

@@ -9,10 +9,12 @@ ends of each range, what the wrappers decide on the host:
   * K4's instance and its block's shared memory at the compiled widths and
     off them, and a head at the edge of one block's shared memory, past
     which the per-pixel columns take it;
-  * the stats' virtual-warp count (``stats_warps``, which fixes the order
-    of the sums), their class passes and the route (the cluster K2 / K12c
-    or the tiled kernels) at the logit counts that end each compiled bound;
-  * ``postprocess_batch_fused`` at 97 logits (three class passes on the card)
+  * the stats' instance (``stats_channel_bound``), virtual-warp count
+    (``stats_warps``, which fixes the order of the sums), their class
+    passes and the route (the cluster K2 / K12c or the tiled kernels) at
+    the logit counts that end each compiled bound;
+  * ``postprocess_batch_fused`` at 5 and 25 logits (the guarded bounds of
+    5 and 25 on the card) and 97 (three class passes on the card)
     against the JAX package in interpret mode, unpacked and phase-major:
     labels, valid, areas and classes identical, scores within 1e-6, boxes
     within 1e-4.
@@ -78,17 +80,26 @@ def test_k4_narrow_head_past_shared_memory_takes_the_columns(C, O):
 _SHAPES = [(60, 80, 16), (64, 48, 64), (37, 53, 8), (200, 160, 16), (512, 512, 16)]
 
 
+# the channel count the stats kernels are compiled for at C logit channels
+_BOUND = {1: 1, 2: 5, 5: 5, 16: 16, 17: 17, 18: 25, 25: 25, 33: 33, 34: 41, 41: 41, 42: 65,
+          65: 65, 66: 66, 81: 66, 82: 66, 97: 66, 121: 66, 122: 66}
+
+
 @pytest.mark.parametrize("C, warps, passes", [
     (1, 32, 1), (17, 32, 1), (33, 32, 1), (34, 32, 1), (41, 32, 1), (42, 32, 1), (65, 32, 1),
     (66, 32, 2), (81, 32, 2), (82, 32, 3), (97, 29, 3), (121, 23, 3), (122, 23, 4),
+    (2, 32, 1), (5, 32, 1), (16, 32, 1), (18, 32, 1), (25, 32, 1),
 ])
 def test_stats_launch_keeps_the_virtual_warps(C, warps, passes):
-    """The stats at the logit counts that end each compiled bound (33, 41,
-    65; 40 classes a pass past 65): at the main path's 128² maps and K=16,
-    ``stats_warps`` virtual warps a block and one or more class passes; at
+    """The stats at the logit counts that end each compiled bound (5, 16,
+    25, 33, 41, 65 and the exact 1 and 17; 40 classes a pass past 65): the
+    instance ``stats_channel_bound`` names; at the main path's 128² maps
+    and K=16, ``stats_warps`` virtual warps a block (the same at every
+    bound, so the sums keep their order) and one or more class passes; at
     other shapes, between 1 and 32 virtual warps, and either the cluster
     K2 / K12c fits one block with one partial set a virtual warp or the
     tiled kernels plan the shape."""
+    assert pk.stats_channel_bound(C) == _BOUND[C]
     assert pk.stats_warps(128, 128, 16, C) == warps
     assert pk.class_chunks(C) == passes
     assert pk.geometry_compat_fits(128, 128, 16, C)
@@ -101,12 +112,9 @@ def test_stats_launch_keeps_the_virtual_warps(C, warps, passes):
             assert pk.tiled_plan(2, H, W, K, C).ints.size > 0
 
 
-@pytest.mark.parametrize("packed", [False, True])
-def test_postprocess_fused_at_97_logits(packed):
-    """postprocess_batch_fused on 97-channel blob logits (three class
-    passes of the card's stats) == JAX's in interpret mode, unpacked and
-    phase-major."""
-    O = 97
+def _fused_against_jax(O, packed):
+    """postprocess_batch_fused on O-channel blob logits == JAX's in
+    interpret mode, unpacked or phase-major."""
     rng = np.random.default_rng(O)
     det = blob_logits(O, B=3, n_blobs=6)
     logits = rng.normal(0, 2, det.shape + (O,)).astype(np.float32)
@@ -124,4 +132,23 @@ def test_postprocess_fused_at_97_logits(packed):
     out = postprocess_batch_fused(torch.from_numpy(logits), cfg, packed_phases=phases)
     assert int(np.asarray(ref["num_detections"]).sum()) > 0
     assert_same_detections(out, ref)
-    assert pk.class_chunks(O) == 3
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_postprocess_fused_at_97_logits(packed):
+    """postprocess_batch_fused on 97-channel blob logits (three class
+    passes of the card's stats) == JAX's in interpret mode, unpacked and
+    phase-major."""
+    _fused_against_jax(97, packed)
+    assert pk.class_chunks(97) == 3
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("O, bound", [(5, 5), (25, 25)])
+def test_postprocess_fused_at_guarded_bounds(O, bound, packed):
+    """postprocess_batch_fused on blob logits of 5 channels (4 classes: the
+    guarded bound of 5 on the card) and 25 (24 classes: the bound of 25,
+    its warps running two virtual warps each) == JAX's in interpret mode,
+    unpacked and phase-major."""
+    _fused_against_jax(O, packed)
+    assert pk.stats_channel_bound(O) == bound and pk.class_chunks(O) == 1

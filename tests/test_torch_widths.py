@@ -18,12 +18,14 @@ of 4; 48: past every register design) and O in {1, 41} (detection only;
     padded qparams (``kernel_qparams``) giving the same logits;
   * ``detect_program_batch`` in f32 and int8, B=2 at 128², against JAX's
     (f32 scores within 1e-5, the f32 route's tolerance),
-    at the two configurations ``chip_smoke.py``'s phase "every width"
+    at the four configurations ``chip_smoke.py``'s phase "every width"
     drives: wide (C=48, O=41: the asset's 24 channels carried into the
-    first 24, the rest drawn from a seed at a small scale) and narrow
+    first 24, the rest drawn from a seed at a small scale), narrow
     (C=10, O=17: ``init_params`` at a seed, the head scaled up and its
     detection bias set below 0 so that the detection logits leave the
-    threshold).
+    threshold), few (the asset cut to its detection row and four
+    symbologies' rows, O=5) and mid (the asset's 17 rows and eight drawn
+    from a seed, O=25).
 """
 
 import functools
@@ -99,15 +101,34 @@ def carry_flat(flat, channels, n_out, seed, scale=0.02):
     return out
 
 
+# the label sets of "few" (the asset's rows of four symbologies) and "mid"
+# (the asset's 16 and eight more)
+FEW_CLASSES = ("QRCode", "DataMatrix", "EAN13", "Code128")
+MID_EXTRA = ("GS1DataBar", "GS1DataBarExpanded", "GS1DataBarLimited", "GS1Composite", "DotCode",
+             "AustraliaPost", "KIXCode", "IdentCode")
+
+
 @functools.lru_cache(maxsize=None)
 def _config(name):
-    """(JAX cfg, JAX params, port cfg, port params) of "wide" (C=48, O=41)
-    or "narrow" (C=10, O=17), K=16 and M=31 (compacted rects)."""
+    """(JAX cfg, JAX params, port cfg, port params) of "wide" (C=48, O=41),
+    "narrow" (C=10, O=17), "few" (the asset with its detection row and the
+    head rows of FEW_CLASSES: O=5) or "mid" (the asset's 17 rows and eight
+    drawn from a seed at a small scale: O=25), K=16 and M=31 (compacted
+    rects)."""
     base = load_net_config(ASSETS["separable"])
     kw = dict(max_components=16, max_hull_points=31)
     if name == "wide":
         kw.update(channels=48, class_names=_names(41))
         flat = carry_flat(load_params_npz(ASSETS["separable"]), 48, 41, seed=7)
+    elif name == "few":
+        kw.update(class_names=FEW_CLASSES)
+        flat = dict(load_params_npz(ASSETS["separable"]))
+        rows = [0] + [1 + base.class_names.index(n) for n in FEW_CLASSES]
+        flat["head/kernel"] = flat["head/kernel"][..., rows]
+        flat["head/bias"] = flat["head/bias"][rows]
+    elif name == "mid":
+        kw.update(class_names=base.class_names + MID_EXTRA)
+        flat = carry_flat(load_params_npz(ASSETS["separable"]), base.channels, 25, seed=7)
     else:
         kw.update(channels=10)
         p = init_params(base.replace(**kw), 0)
@@ -258,9 +279,9 @@ def test_padded_channels_hold_exact_zeros():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
-@pytest.mark.parametrize("name", ["wide", "narrow"])
+@pytest.mark.parametrize("name", ["wide", "narrow", "few", "mid"])
 def test_detect_program_batch_at_any_width(name, dtype):
-    """detect_program_batch at the wide and narrow configurations, B=2 at
+    """detect_program_batch at the wide, narrow, few and mid configurations, B=2 at
     128² on the CPU, == the JAX package's: f32 against its XLA route (logits
     within 1e-5, or 1e-6 of max|logit| where that is more, scores within
     1e-5, as tests/test_torch_inference.py holds the asset's f32 route), int8 on JAX's qparams against its int8

@@ -38,36 +38,44 @@ __device__ __forceinline__ float at_logit_precision(float v) {
 // The stats keep a pixel's class logits and its class sums in registers,
 // each logit loaded once, in one pixel pass: CM is the logit channel count
 // C as a compile-time constant, exact for 1 (detection only) and 17 (the
-// main path's), else the bound kAnyChannels, kMidChannels or
-// kOnePassChannels that holds C, whose class loops are guarded by the real
-// C; each bound is the most class logits and sums a thread holds in the
-// registers its block leaves it (stats_block: 32 classes at 1024 threads,
-// 40 at 512, 64 at 256).  Past them kWideChannels, a marker for any C: the
-// class logits in chunks of kChunkClasses on 512 threads, one pixel pass a
-// chunk (slot_pass, tiled.cuh slots_pass), the first finding each pixel's
-// slot and the others reading it back, each pixel's softmax max and
-// denominator taken over all classes in every pass.
-constexpr int kAnyChannels = 33;
-constexpr int kMidChannels = 41;
+// main path's), else the least guarded bound that holds C (kStatsBounds),
+// whose class loops run every class slot of the bound with no branch on C.
+// A bound's class logits and sums fit the registers its block leaves a
+// thread with no spill (stats_block: 8 classes at 1024 threads, 40 at 512,
+// 64 at 256; the exact 16 classes at 1024 spill 4-28 B).  Past them
+// kWideChannels, a marker for any C: the class logits in chunks of
+// kChunkClasses on 512 threads, one pixel pass a chunk (slot_pass, tiled.cuh
+// slots_pass), the first finding each pixel's slot and the others reading
+// it back, each pixel's softmax max and denominator taken over all C - 1
+// class logits in every pass.
+constexpr int kMainChannels = 17;
+constexpr int kStatsBounds[] = {5, 9, 16, 25, 33, 41, 65};
+constexpr int kFullBlockChannels = 9;  // the largest bound on 1024 threads
 constexpr int kOnePassChannels = 65;
 constexpr int kWideChannels = kOnePassChannels + 1;
-constexpr int kChunkClasses = kMidChannels - 1;
+constexpr int kChunkClasses = 40;
 
-// Calls f(std::integral_constant<int, CM>()) for C channels.
-template <class F>
+// Calls f(std::integral_constant<int, CM>()) for C channels: C itself at 1
+// and kMainChannels, else the first of kStatsBounds from I on that holds
+// C, else kWideChannels.
+template <int I = 0, class F>
 inline int with_channel_bound(int C, F&& f) {
-  if (C == 1) return f(std::integral_constant<int, 1>());
-  if (C == 17) return f(std::integral_constant<int, 17>());
-  if (C <= kAnyChannels) return f(std::integral_constant<int, kAnyChannels>());
-  if (C <= kMidChannels) return f(std::integral_constant<int, kMidChannels>());
-  if (C <= kOnePassChannels) return f(std::integral_constant<int, kOnePassChannels>());
-  return f(std::integral_constant<int, kWideChannels>());
+  if constexpr (I == 0) {
+    if (C == 1) return f(std::integral_constant<int, 1>());
+    if (C == kMainChannels) return f(std::integral_constant<int, kMainChannels>());
+  }
+  if constexpr (I == sizeof(kStatsBounds) / sizeof(int)) {
+    return f(std::integral_constant<int, kWideChannels>());
+  } else {
+    if (C <= kStatsBounds[I]) return f(std::integral_constant<int, kStatsBounds[I]>());
+    return with_channel_bound<I + 1>(C, f);
+  }
 }
 
-// The class loops of CM are guarded by the real C.
+// The class loops of CM run the bound's every class slot.
 template <int CM>
 __host__ __device__ constexpr bool guarded_channels() {
-  return CM == kAnyChannels || CM == kMidChannels || CM == kOnePassChannels;
+  return CM != 1 && CM != kMainChannels && CM != kWideChannels;
 }
 
 // Threads of a K2 or K12c block at CM, whose registers hold a thread's
@@ -76,14 +84,19 @@ __host__ __device__ constexpr bool guarded_channels() {
 // several in turn (slot_pass).
 template <int CM>
 __host__ __device__ constexpr int stats_block() {
-  return CM <= kAnyChannels ? 1024 : CM <= kMidChannels || CM == kWideChannels ? 512 : 256;
+  if (CM <= kFullBlockChannels || CM == kMainChannels) return 1024;
+  return CM <= kChunkClasses + 1 || CM == kWideChannels ? 512 : 256;
 }
 
-// Blocks an SM of the tiled pass (256 threads) at CM: 64 registers a
-// thread, 128 or 255 past kAnyChannels.
+// Blocks an SM of the tiled pass and of the large K12c (256 threads) at
+// CM: 64 registers a thread at the exact 1 and kMainChannels, 80 at the
+// bounds of 1024-thread stats blocks (the large K12c spills at 64), 128
+// or 255 past them.
 template <int CM>
 __host__ __device__ constexpr int tiled_blocks() {
-  return CM <= kAnyChannels ? 4 : CM <= kMidChannels || CM == kWideChannels ? 2 : 1;
+  if (CM == 1 || CM == kMainChannels) return 4;
+  if (CM <= kFullBlockChannels) return 3;
+  return CM <= kChunkClasses + 1 || CM == kWideChannels ? 2 : 1;
 }
 
 // The class chunks of a pixel pass for C channels at CM: one, or for
@@ -384,11 +397,12 @@ struct StatsAcc {
   static constexpr bool kExact = !guarded_channels<CM>() && !kWide;  // C == CM
   static constexpr int kN = kWide ? kChunkClasses : (CM > 1 ? CM - 1 : 1);  // array size
   static constexpr int kClasses = kWide ? kN : CM - 1;  // the class loops' bound
-  // past kAnyChannels the class loops run every class slot, one past C
-  // reading the first class's logit and adding +0 to the denominator (or a
-  // sum no flush reads), so no loop branches on C and the sums are those
-  // of the classes alone, bit for bit
-  static constexpr bool kSelect = CM > kAnyChannels && !kExact;
+  // at a guarded bound fetch() loads the classes below C and gives every
+  // class slot past them -inf, whose exponential adds +0 to the
+  // denominator and to a sum no flush reads, so the class loops run every
+  // slot with no branch on C and the sums are those of the classes alone,
+  // bit for bit
+  static constexpr bool kGuarded = guarded_channels<CM>();
   int slot;
   int cnt;
   float det;
@@ -421,13 +435,12 @@ struct StatsAcc {
       return;
     }
     const T* q = lg.at(y, x);
-    const T* q1 = q + lg.sc;
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
       q += lg.sc;
-      if constexpr (kSelect) {
-        e[c] = widen(*(c < lg.C - 1 ? q : q1));
-      } else if (kExact || c < lg.C - 1) {
+      if constexpr (kGuarded) {
+        e[c] = c < lg.C - 1 ? widen(*q) : __int_as_float(0xff800000);  // -inf
+      } else {
         e[c] = widen(*q);
       }
     }
@@ -519,7 +532,7 @@ struct StatsAcc {
     constexpr int n = CM > 1 ? CM - 1 : 1;
     float t[n];
 #pragma unroll
-    for (int c = 0; c < n; ++c) t[c] = (kExact || c < lg.C - 1) ? e[c] : __int_as_float(0xff800000);
+    for (int c = 0; c < n; ++c) t[c] = e[c];
 #pragma unroll
     for (int w = 1; w < n; w *= 2) {
 #pragma unroll
@@ -528,12 +541,7 @@ struct StatsAcc {
     const float mx = t[0];
 #pragma unroll
     for (int c = 0; c < n; ++c) {
-      if constexpr (kSelect) {
-        const float v = expf(e[c] - mx);
-        e[c] = c < lg.C - 1 ? v : 0.f;
-      } else {
-        e[c] = (kExact || c < lg.C - 1) ? expf(e[c] - mx) : 0.f;
-      }
+      e[c] = expf(e[c] - mx);
       t[c] = e[c];
     }
 #pragma unroll
@@ -543,9 +551,7 @@ struct StatsAcc {
     }
     const float inv = __frcp_rn(t[0]);
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
-      if (kSelect || kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] * inv);
-    }
+    for (int c = 0; c < n; ++c) cls[c] += at_logit_precision<T>(e[c] * inv);
   }
 
   // Warp-wide: one pixel of slot ``s`` (K: none) with detection logit d
@@ -573,29 +579,15 @@ struct StatsAcc {
     if (CM == 1) return;
     float mx = __int_as_float(0xff800000);  // -inf
 #pragma unroll
-    for (int c = 0; c < CM - 1; ++c) {
-      if constexpr (kSelect) {
-        mx = fmaxf(mx, c < lg.C - 1 ? e[c] : __int_as_float(0xff800000));
-      } else if (kExact || c < lg.C - 1) {
-        mx = fmaxf(mx, e[c]);
-      }
-    }
+    for (int c = 0; c < CM - 1; ++c) mx = fmaxf(mx, e[c]);
     float den = 0.f;
 #pragma unroll
     for (int c = 0; c < CM - 1; ++c) {
-      if constexpr (kSelect) {
-        const float v = expf(e[c] - mx);
-        e[c] = c < lg.C - 1 ? v : 0.f;  // + 0 leaves den as it is
-        den += e[c];
-      } else if (kExact || c < lg.C - 1) {
-        e[c] = expf(e[c] - mx);
-        den += e[c];
-      }
+      e[c] = expf(e[c] - mx);
+      den += e[c];
     }
 #pragma unroll
-    for (int c = 0; c < CM - 1; ++c) {
-      if (kSelect || kExact || c < lg.C - 1) cls[c] += at_logit_precision<T>(e[c] / den);
-    }
+    for (int c = 0; c < CM - 1; ++c) cls[c] += at_logit_precision<T>(e[c] / den);
   }
 };
 

@@ -23,7 +23,7 @@
 // partials from its shared memory (distributed shared memory) and writes
 // the outputs (slot_finish).  A block has one virtual warp per stats
 // partial set, 32 where K12c's shared memory allows, run by as many warps
-// up to 33 logit channels and by 16 or 8 warps in turn past them, whose
+// up to 17 logit channels and by 16 or 8 warps in turn past them, whose
 // threads hold more class logits and sums (geometry.cuh stats_block); K12c
 // runs the same virtual warps in its cluster of two blocks, so both sum in
 // one order.
@@ -75,7 +75,9 @@
 //
 // Any logit channel count: up to geometry.cuh's kOnePassChannels (65)
 // the pass keeps a pixel's class logits and its class sums in registers,
-// each logit loaded once; past it one pass a chunk of 40 classes (StatsAcc,
+// each logit loaded once, in an instance compiled for 1 or 17 channels or
+// for the least guarded bound that holds C (kStatsBounds, its class loops
+// free of branches on C); past it one pass a chunk of 40 classes (StatsAcc,
 // kWideChannels, kChunkClasses), the slots and extremes written by the first and read
 // back by the others; the one limit is one warp's partial set, K (C + 1)
 // words, in a block's shared memory.
@@ -282,6 +284,12 @@ int slots_tiled(const void* logits, long long sb, long long sy, long long sx, lo
 }
 
 }  // namespace
+
+// The channel count the stats are compiled for at C logit channels
+// (geometry.cuh with_channel_bound).
+extern "C" int stats_channel_bound(int C) {
+  return geometry::with_channel_bound(C, [](auto cm) { return decltype(cm)::value; });
+}
 
 // logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc), labels
 // (B, H, W) -> the outputs of slots_cluster above.

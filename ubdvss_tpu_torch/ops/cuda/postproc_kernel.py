@@ -45,9 +45,11 @@ them, so no one-hot exists there.
 
 Any logit channel count: the kernels' stats keep up to
 ``REGISTER_CHANNELS`` channels of a pixel, and its class sums, in
-registers, one pixel pass reading each logit once (past 33 channels the
-cluster kernels' warps running their blocks' virtual warps in turn, so a
-thread has more registers), and past it run one pixel pass a chunk of
+registers, one pixel pass reading each logit once (an instance compiled
+for 1 or 17 channels, else for the least of ``STATS_BOUNDS`` that holds
+C: ``stats_channel_bound``; past 17 channels the cluster kernels' warps
+running their blocks' virtual warps in turn, so a thread has more
+registers), and past it run one pixel pass a chunk of
 ``CHUNK_CLASSES`` classes (``class_chunks``; each pixel's softmax max and
 denominator over all classes in each, so the sums are a single pass's).
 The one limit is the tiled plan's: one warp's partial set, K (C + 1)
@@ -216,14 +218,27 @@ _FUNCS = _entry_points({
     "component_slots_tiled": ([_build.P], [_build.P] * 15 + [_build.I, _build.F, _build.P]),
 })
 _FUNCS["tiled_plan_ints"] = []
+_FUNCS["stats_channel_bound"] = [_build.I]
 
 
 # The kernels' stats keep a pixel's class logits and class sums in
 # registers, each logit loaded once, in one pixel pass up to
 # REGISTER_CHANNELS channels; past it in chunks of CHUNK_CLASSES classes,
 # one pass a chunk (csrc/geometry.cuh, with_channel_bound, kWideChannels,
-# kChunkClasses).
+# kChunkClasses).  Their instances: exact at STATS_EXACT channels, else the
+# least of the guarded bounds STATS_BOUNDS that holds C (kStatsBounds).
 REGISTER_CHANNELS, CHUNK_CLASSES = 65, 40
+STATS_EXACT, STATS_BOUNDS = (1, 17), (5, 9, 16, 25, 33, 41, REGISTER_CHANNELS)
+
+
+def stats_channel_bound(C: int) -> int:
+    """The channel count the stats kernels are compiled for at C logit
+    channels: C where exact, the bound that holds it, or past one pass
+    REGISTER_CHANNELS + 1 (the chunks' marker); the C entry point
+    ``stats_channel_bound`` returns the kernels' own."""
+    if C in STATS_EXACT:
+        return C
+    return next((b for b in STATS_BOUNDS if C <= b), REGISTER_CHANNELS + 1)
 
 
 def class_chunks(C: int) -> int:

@@ -556,6 +556,43 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k4_byte_floor(shape, O: int, L: int, w_bytes: int = 0) -> float:
+    """ms: the bytes K4's one-launch-a-layer design must move on (B, C, H,
+    W) features, over the card's memory rate: each of the L layers reads
+    the C input channels of a pixel and writes C (the last one O) f32
+    channels, and the weights are read once."""
+    B_, C, H, W = shape
+    px = B_ * H * W
+    return (px * 4 * (L * C + (L - 1) * C + O) + w_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def library_chain(x, w, dil):
+    """K4's function as PyTorch calls (its ``library_ms``): the depthwise and
+    1x1 F.conv2d a layer, then the head; the caller turns TF32 off."""
+    import torch
+    import torch.nn.functional as F_
+
+    C = x.shape[1]
+    for li, d in enumerate(dil):
+        x = F_.conv2d(x, w[0][li, :, :, 0, 0].T.reshape(C, 1, 3, 3), None, 1, d, d, C)
+        x = torch.relu(F_.conv2d(x, w[1][li][:, :, None, None], w[2][li][:, 0, 0]))
+    return F_.conv2d(x, w[3][:, :, None, None], w[4][:, 0, 0])
+
+
+def k4_plans(shape, O: int, dil) -> list | None:
+    """K4's exact-instance plan of each layer on (B, C, H, W) features with
+    an O-output head, as [P pixels a thread, rows of threads an image,
+    threads a block, blocks]; None where another instance runs."""
+    from dataclasses import astuple
+
+    from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
+
+    _, C, H, W = shape
+    if ck.kernel_instance(C, O) != "exact":
+        return None
+    return [list(astuple(ck.exact_plan(H, W, d))) for d in dil]
+
+
 def stats_bound(lg, geo, K, esz, k12=False) -> tuple[float, str]:
     """The bound of the stats kernels on (B, H, W, C) logits of ``esz``
     bytes a logit and their outputs ``geo``: the detection logit and (K2)
@@ -1497,7 +1534,18 @@ def packed_route(dev, counted, kernels: list, params_d, params16_d, q_d, cfg_l, 
             library_ms=faithful["context_ms"],
             bound=bound((px * C + px * O) * 4 + w_bytes,
                         px * (len(dil_l) * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2)),
+            queued_ms=queued_ms(k4(True), iters=3, reps=2),
+            instance=ck.kernel_instance(C, O), plans=k4_plans(xl.shape, O, dil_l),
+            byte_floor_ms=k4_byte_floor(xl.shape, O, len(dil_l), w_bytes),
+            cudnn_chain_ms=time_ms(lambda: library_chain(xl, w_l, dil_l), iters=3, reps=2),
         )]
+        k4r = rows[0]
+        log(f"time context_layer_packed (the scans, {tuple(xl.shape)}): {k4r['instance']} "
+            f"instance, [P, rows, threads, blocks] by layer {k4r['plans']}; device "
+            f"{k4r['device_ms']:.4f} ms, queued {k4r['queued_ms']:.4f}, operation bound "
+            f"{k4r['bound'][0]:.4f}, one-launch-a-layer byte floor {k4r['byte_floor_ms']:.4f}, "
+            f"cuDNN's chain {k4r['cudnn_chain_ms']:.4f} (the packed formulation "
+            f"{k4r['library_ms']:.4f})")
         F_ = torch.nn.functional
         xq = qx.permute(0, 3, 1, 2).float().contiguous()
         wq3 = L8[1 + n8]["q"].permute(3, 2, 0, 1).float().contiguous()
@@ -1774,14 +1822,6 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
     def host(res):
         return {k: v.cpu().numpy() for k, v in res.items()}
 
-    def library_context(x, w, dil):
-        """The depthwise and 1x1 F.conv2d a layer, then the head (TF32 off)."""
-        C = x.shape[1]
-        for li, d in enumerate(dil):
-            x = F_.conv2d(x, w[0][li, :, :, 0, 0].T.reshape(C, 1, 3, 3), None, 1, d, d, C)
-            x = torch.relu(F_.conv2d(x, w[1][li][:, :, None, None], w[2][li][:, 0, 0]))
-        return F_.conv2d(x, w[3][:, :, None, None], w[4][:, 0, 0])
-
     def k4_bound(xc, w, dil, O):
         B_, C, H, W = xc.shape
         px = B_ * H * W
@@ -1989,7 +2029,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
             tag = "wide" if name == "wide" else "any"
             k4 = lambda: ck.fused_context_head(xc, *w, dil)  # noqa: E731
             with exact_f32():
-                err_lib = float((library_context(x8, w, dil) - ck.context_head_reference(x8, *w, dil))
+                err_lib = float((library_chain(x8, w, dil) - ck.context_head_reference(x8, *w, dil))
                                 .abs().max())
                 if not err_lib <= tol:
                     raise AssertionError(f"{name}: the library context differs by {err_lib}")
@@ -2000,7 +2040,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                     instance=r["k4_instance"],
                     ms=time_ms(k4, iters=5, reps=2), device_ms=device_ms(k4, n=5), queued_ms=queued_ms(k4),
                     plain_ms=time_ms(lambda: ck.context_head_reference(xc, *w, dil), iters=2, reps=1, warmup=1),
-                    library_ms=time_ms(lambda: library_context(xc, w, dil), iters=5, reps=2),
+                    library_ms=time_ms(lambda: library_chain(xc, w, dil), iters=5, reps=2),
                     bound=k4_bound(xc, w, dil, O)))
         if name == "narrow":
             r["times"] = {"f32_ms": time_ms(lambda: detect_program_batch(
@@ -2199,7 +2239,7 @@ def every_width(dev, counted, kernels: list, imgs, scans) -> dict:
                     ms=time_ms(k4p, iters=3, reps=2), device_ms=device_ms(k4p, n=3),
                     plain_ms=time_ms(lambda: ck._s2d_planes(ck.context_head_reference(xs, *w, dil)),
                                      iters=1, reps=1, warmup=0),
-                    library_ms=time_ms(lambda: library_context(xs, w, dil), iters=3, reps=2),
+                    library_ms=time_ms(lambda: library_chain(xs, w, dil), iters=3, reps=2),
                     bound=k4_bound(xs, w, dil, O)))
         pk_lg = pl_.permute(0, 2, 3, 1)  # the packed planes' phase-major NHWC view
         lg_u = ck._d2s(pk_lg, O)
@@ -3506,13 +3546,7 @@ def main() -> int:
         stats_ops = in_slot * O * 8  # sigmoid, max, exp, divide and the sums
 
         def library_context():
-            x = xc
-            for li, d in enumerate(dil):
-                x = torch.nn.functional.conv2d(
-                    x, w[0][li, :, :, 0, 0].T.reshape(C, 1, 3, 3), None, 1, d, d, C)
-                x = torch.relu(torch.nn.functional.conv2d(
-                    x, w[1][li][:, :, None, None], w[2][li][:, 0, 0]))
-            return torch.nn.functional.conv2d(x, w[3][:, :, None, None], w[4][:, 0, 0])
+            return library_chain(xc, w, dil)
 
         err_lib = float((library_context() - ctx_p).abs().max())
         if not err_lib <= 1e-4:
@@ -3549,12 +3583,16 @@ def main() -> int:
                 launches=launches["context_layer"], max_abs_err=err_ctx,
                 ms=time_ms(lambda: context_kernel.fused_context_head(xc, *w, dil)),
                 device_ms=device_ms(lambda: context_kernel.fused_context_head(xc, *w, dil)),
+                queued_ms=queued_ms(lambda: context_kernel.fused_context_head(xc, *w, dil)),
                 plain_ms=time_ms(lambda: context_kernel.context_head_reference(xc, *w, dil)),
                 library_ms=time_ms(library_context),
                 bound=bound(
                     (px * C + px * O) * 4 + sum(t.numel() for t in w) * 4,
                     px * (len(dil) * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2),
                 ),
+                instance=context_kernel.kernel_instance(C, O),
+                plans=k4_plans(xc.shape, O, dil),
+                byte_floor_ms=k4_byte_floor(xc.shape, O, len(dil), sum(t.numel() for t in w) * 4),
             ),
             dict(
                 name="ccl", route="cuda", source="ubdvss_tpu_torch/csrc/ccl_kernel.cu",
@@ -3831,6 +3869,12 @@ def main() -> int:
         log(f"time {kd['name']}: {kd['ms']:.4f} ms/call, device {kd['device_ms']:.4f} (plain "
             f"{kd['plain_ms']:.4f}, library {kd['library_ms']}, bound {kd['bound_ms']:.4f} by "
             f"{kd['bound_by']})")
+        if kd["name"] == "context_layer":
+            log(f"time context_layer (main path, {tuple(xc.shape)}): {kd['instance']} instance, "
+                f"[P, rows, threads, blocks] by layer {kd['plans']}; device {kd['device_ms']:.4f} "
+                f"ms, queued {kd['queued_ms']:.4f}, operation bound {kd['bound_ms']:.4f}, "
+                f"one-launch-a-layer byte floor {kd['byte_floor_ms']:.4f}, cuDNN's chain "
+                f"{kd['library_ms']:.4f}")
     with torch.inference_mode():
         ms_detect = time_ms(lambda: det_d.detect(imgs[0]), iters=10, reps=3)
         dev_detect = device_ms(lambda: det_d.detect(imgs[0]), n=10)

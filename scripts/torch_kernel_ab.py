@@ -7,7 +7,7 @@ instance, and the any-width instances of K4 and the int8 convs.
 
     python3 scripts/torch_kernel_ab.py --parent PARENT_TREE
         [--only geometry|int8|tiled|tall|widths] [--variants TREE ...]
-        [--parts narrow stats wide int8] [--stats-logits C ...] [--out FILE]
+        [--parts exact narrow stats wide int8] [--stats-logits C ...] [--out FILE]
 
 PARENT_TREE is an unpacked earlier commit of this repository (for example
 ``git archive <commit> | tar -x -C tmp/parent``, under a directory that git
@@ -91,7 +91,28 @@ widths: the kernels of the widths past the asset's, both trees'
 through their C entry points (each tree's int8 launches with the plan of
 its own ``tile_plan``), all compiled with ``-Xptxas -v``: every K4, stats,
 stem, layer-0 and any-width conv kernel's registers, stack frame and
-spill bytes go to the report (``ptxas``).  ``--parts`` picks the sections, in this order:
+spill bytes go to the report (``ptxas``).  Only the sources the parts
+need are built.  ``--parts`` picks the sections, in this order:
+  exact: K4 at its compiled widths (C = 8, 16, 24, 32 with at most 32
+    outputs), each tree called with its own plan (a tree whose
+    ``context_kernel.py`` has ``exact_plan`` passes each layer's P, rows of
+    threads and threads a block to ``context_layer``; a tree from before
+    ``exact_plan`` takes none): the
+    asset's weights on the stem's features of the 64 synthetic 512² scenes,
+    (64, 24, 128²) unpacked, of the B=8 2048² scans (seed 11), (8, 24,
+    512²) packed, and of 64 QVGA frames (seed 7), (64, 24, 60x80); random
+    features and weights (seed 7) at (64, C, 128²), C = 8, 16, 32, with
+    heads of 1, 17 and 32, at the asset's dilations.  Each case also
+    reports the one-launch-a-layer byte floor (``chip_smoke.k4_byte_floor``)
+    and each tree's plan.  Then the SASS of each tree's exact kernels
+    (``cuobjdump -sass``: LDS by width, LDG, LDC, FFMA, STG and the rest,
+    static counts), and a build of each tree with ``clock64()`` stamps (the
+    parent's source patched at its phase comments, this tree's and each
+    variant's compiled with ``-DCONTEXT_STAMPS``): the cycles of each of the
+    asset's seven layers at (64, 24, 128²) summed over the warps by phase
+    (the parent: depthwise, pointwise, store or head; this tree: depthwise,
+    pointwise with its stores, head with its stores), and the static SASS
+    counts between the stamps;
   narrow: K4 (``context_layer``, one launch a layer, the head fused into
     the last) up to 32 channels, on the narrow configuration
     (``chip_smoke.width_configs``: 10 channels, 17 logits) over the stem's
@@ -947,6 +968,96 @@ def tiled_ab(args, dev, res: dict) -> None:
             print(json.dumps(log_case), flush=True)
 
 
+# --- K4's exact instance: its SASS and its phases -----------------------------
+
+# clock64 stamps at the phases of the register kernel that ran the exact
+# widths before context_exact_kernel, context_layer_kernel<C, false> (a copy
+# of that parent's context_kernel.cu built with -DCONTEXT_STAMPS): the anchor
+# each goes before
+_PARENT_K4_STAMPS = (
+    ("  long long t_stamp = clock64();\n",
+     "  // depthwise: taps in the reference order (ty, tx) = (-1,-1) ... (1,1)\n  float acc[C];\n"),
+    ("  CONTEXT_STAMP(0);\n", "  // pointwise + bias + ReLU\n  float act[C];\n"),
+    ("  CONTEXT_STAMP(1);\n",
+     "  float* ob = out + static_cast<long long>(b) * (with_head ? O : C) * HW + p;\n  if (!with_head) {\n"),
+    ("    CONTEXT_STAMP(2);\n", "    return;\n  }\n  long long os = HW;  // between output channels\n"),
+    ("  CONTEXT_STAMP(2);\n", "    ob[o * os] = s + s_hb[o];\n  }\n}\n"),
+)
+# the stamp definitions of this tree's context_kernel.cu, for the parent's copy
+_K4_STAMP_DEFS_BEGIN, _K4_STAMP_DEFS_END = "#ifdef CONTEXT_STAMPS\n", "#define CONTEXT_STAMP(k)\n#endif\n"
+
+
+def _stamped_parent_k4(csrc: Path) -> Path:
+    """The parent's context_kernel.cu with this tree's CONTEXT_STAMPS
+    definitions and a stamp between the phases of its register kernel."""
+    mine = (REPO / "ubdvss_tpu_torch" / "csrc" / "context_kernel.cu").read_text()
+    i = mine.index(_K4_STAMP_DEFS_BEGIN)
+    defs = mine[i:mine.index(_K4_STAMP_DEFS_END, i) + len(_K4_STAMP_DEFS_END)]
+    src = (csrc / "context_kernel.cu").read_text()
+    src = src.replace('#include "common.cuh"\n', '#include "common.cuh"\n' + defs, 1)
+    for stamp, anchor in _PARENT_K4_STAMPS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"stamp anchor {anchor!r} not found once in the parent's context_kernel.cu")
+        at = src.index(anchor)
+        if stamp.strip().startswith("CONTEXT_STAMP(2)") and anchor.endswith("}\n}\n"):
+            at += len(anchor) - 2  # the head's stamp goes after its loop, before the closing brace
+        src = src[:at] + stamp + src[at:]
+    out = REPO / "build" / "ab" / "stamped-parent-k4"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in csrc.glob("*.cuh"):
+        (out / f.name).write_text(f.read_text())
+    (out / "context_kernel.cu").write_text(src)
+    return out
+
+
+def sass_counts(so: Path, keep) -> dict:
+    """Static SASS counts of the kernels of a library whose demangled name
+    ``keep`` accepts (``cuobjdump -sass``): {kernel: {"all": {opcode:
+    count}, "phases": [{opcode: count}, ...]}}, an opcode with its width
+    suffix (LDS, LDS.64, LDS.128, LDG.E.128 -> LDG.128) but no other
+    modifier; ``phases`` splits the instructions at each read of the
+    clock (a stamped build's phases)."""
+    import re
+    from collections import Counter
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs: dict[str, list] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*(.*)", line)
+        if m and cur is not None:
+            cur.append((m.group(1), m.group(2)))
+    names = list(funcs)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    out = {}
+    for raw, dm in zip(names, plain):
+        dm = dm.replace("(anonymous namespace)::", "").replace("void ", "")
+        dm = dm[:dm.find(">(") + 1] if ">(" in dm else dm.split("(")[0]
+        if not keep(dm):
+            continue
+        phases, allc = [Counter()], Counter()
+        for op, rest in funcs[raw]:
+            base = op.split(".")[0]
+            width = next((w for w in ("64", "128", "U8", "S8", "U16", "S16") if f".{w}" in op), None)
+            key = f"{base}.{width}" if width in ("64", "128") else base
+            if base == "CS2R" and "SR_CLOCK" in rest:
+                phases.append(Counter())
+            phases[-1][key] += 1
+            allc[key] += 1
+        out[dm] = {"all": dict(allc), "phases": [dict(c) for c in phases]}
+    return out
+
+
 def _tree_module(tree: Path, name: str):
     """``ubdvss_tpu_torch/ops/cuda/<name>.py`` of another tree, loaded under
     a name of its own (its imports resolve to this tree's package)."""
@@ -1015,17 +1126,18 @@ class StatsTree:
 def widths_ab(args, dev, res: dict) -> None:
     """The any-width kernels, parent against change (module docstring)."""
     from chip_smoke import (INT8_OPS, SEED, bf16_cls_slack, bound, carry_flat, exact_stats,
-                            phase_split, queued_ms, stats_bound, width_configs)
+                            k4_byte_floor, phase_split, queued_ms, stats_bound, width_configs)
 
     from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
     from ubdvss_tpu_torch.ops.cuda import qconv_kernel as qk
     from ubdvss_tpu_torch.ops.quant import quantize_trunk
 
-    srcs = ("context_kernel", "qconv_kernel", "postproc_kernel", "geometry_kernel", "qstem_kernel")
+    need = {"exact": ("context_kernel",), "narrow": ("context_kernel",), "wide": ("context_kernel",),
+            "stats": ("postproc_kernel", "geometry_kernel"), "int8": ("qconv_kernel", "qstem_kernel")}
+    srcs = tuple(dict.fromkeys(n for part in args.parts for n in need[part]))
     csrc = REPO / "ubdvss_tpu_torch" / "csrc"
     trees = [(args.parent / "ubdvss_tpu_torch" / "csrc", "parent", srcs, ()), (csrc, "change", srcs, ())]
-    trees += [(v / "ubdvss_tpu_torch" / "csrc", v.name,
-               ("context_kernel", "postproc_kernel", "geometry_kernel", "qstem_kernel"), ())
+    trees += [(v / "ubdvss_tpu_torch" / "csrc", v.name, tuple(n for n in srcs if n != "qconv_kernel"), ())
               for v in args.variants]
     ptxas: dict = {}
     built = build_trees(trees, ptxas)
@@ -1036,7 +1148,7 @@ def widths_ab(args, dev, res: dict) -> None:
                            for c, tag, *_ in trees if tag != "parent"]) \
         if "int8" in args.parts and args.variants else {}
     res["ptxas"] = {tag: {k: v for k, v in rep.items() if any(
-        n in k for n in ("context_layer", "slots_kernel", "pass_kernel", "geometry_kernel",
+        n in k for n in ("context_layer", "context_exact", "slots_kernel", "pass_kernel", "geometry_kernel",
                          "geometry_large_kernel", "qstem", "qlayer0", "qconv_any"))}
                     for tag, rep in ptxas.items()}
     print(json.dumps({"ptxas": res["ptxas"]}), flush=True)
@@ -1103,6 +1215,30 @@ def widths_ab(args, dev, res: dict) -> None:
         print(json.dumps(log), flush=True)
 
     # ---- K4: the whole call, one launch a layer, the head fused into the last
+    # each tree's context_kernel.py: its exact plan, where it has one
+    ck_mods = {"parent": _tree_module(args.parent, "context_kernel"), "change": ck}
+    ck_mods.update({v.name: _tree_module(v, "context_kernel") for v in args.variants})
+
+    def k4_plans(tag, x, O, dil):
+        """The (P, rows, threads) each layer of tree ``tag`` passes to
+        context_layer, or None where the tree's entry takes no plan."""
+        mod = ck_mods[tag]
+        _, C, H, W = x.shape
+        if not hasattr(mod, "exact_plan"):
+            return None
+        if mod.kernel_instance(C, O) != "exact":
+            return [(0, 0, 0)] * len(dil)
+        return [(p_.pixels, p_.rows, p_.threads) for p_ in (mod.exact_plan(H, W, d) for d in dil)]
+
+    def k4_layer(lib, tag, plans, x, dst, w, li, d, last, packed):
+        B, C, H, W = x.shape
+        O = w[3].shape[0]
+        extra = () if plans is None else tuple(I(v) for v in plans[li])
+        check(lib.context_layer(
+            ptr(x), ptr(dst), ptr(w[0][li]), ptr(w[1][li]), ptr(w[2][li]),
+            ptr(w[3] if last else None), ptr(w[4] if last else None), I(B), I(C), I(H),
+            I(W), I(d), I(O), I(int(packed and last)), *extra, stream()), f"{tag} context_layer")
+
     def k4_calls(x, w, dil, packed):
         B, C, H, W = x.shape
         O, L = w[3].shape[0], len(dil)
@@ -1110,16 +1246,15 @@ def widths_ab(args, dev, res: dict) -> None:
         tags = ("parent", "change", *variants)
         outs = {tag: (torch.empty_like(x), torch.empty_like(x),
                       torch.empty(shape, device=dev)) for tag in tags}
+        plans = {tag: k4_plans(tag, x, O, dil) for tag in tags}
 
         def call(tag):
             cur = x
             for li, d in enumerate(dil):
                 last = li == L - 1
                 dst = outs[tag][2] if last else outs[tag][li % 2]
-                check(libs[tag]["context_kernel"].context_layer(
-                    ptr(cur), ptr(dst), ptr(w[0][li]), ptr(w[1][li]), ptr(w[2][li]),
-                    ptr(w[3] if last else None), ptr(w[4] if last else None), I(B), I(C), I(H),
-                    I(W), I(d), I(O), I(int(packed and last)), stream()), f"{tag} context_layer")
+                k4_layer(libs[tag]["context_kernel"], tag, plans[tag], cur, dst, w, li, d, last,
+                         packed)
                 cur = dst
             return outs[tag][2]
 
@@ -1159,6 +1294,8 @@ def widths_ab(args, dev, res: dict) -> None:
         res[f"{case}_max_abs_err"] = err
         res[f"{case}_bound"] = bound((px * C + px * O) * 4 + sum(t.numel() for t in w) * 4,
                                      px * (L * (9 * C * 2 + C * C * 2 + 2 * C) + O * C * 2))
+        res[f"{case}_byte_floor"] = k4_byte_floor(x.shape, O, L, sum(t.numel() for t in w) * 4)
+        res[f"{case}_plans"] = {tag: k4_plans(tag, x, O, dil) for tag in ("parent", "change", *variants)}
         timed(case, calls, lambda: k4_library(x, w, dil))
 
     def stats_case(case, lg, lab, phases, kinds):
@@ -1220,6 +1357,11 @@ def widths_ab(args, dev, res: dict) -> None:
     with torch.inference_mode():
         cfg48, p48 = config(48)
         w48 = ck._pack_weights(p48, dil)
+        # ---- K4 at its compiled widths: the asset's weights on the main
+        # path's, the scans' and the stream's features; random weights
+        if "exact" in args.parts:
+            exact_ab(args, dev, res, ck_mods, k4_layer, k4_plans, k4_case, imgs, trees)
+            torch.cuda.empty_cache()
         # ---- K4 up to 32 channels: the narrow configuration (C=10, O=17)
         # and random weights
         cfg10, flat10 = width_configs(asset)["narrow"]
@@ -1495,15 +1637,99 @@ def widths_ab(args, dev, res: dict) -> None:
             timed(f"qconv_layer_any_{C}", calls, conv_lib(ins[1]))
 
 
+def exact_ab(args, dev, res, ck_mods, k4_layer, k4_plans, k4_case, imgs, trees) -> None:
+    """The ``exact`` part of ``--only widths`` (module docstring): the cases,
+    then each tree's SASS and stamped phases."""
+    from chip_smoke import QVGA, SCAN, SCAN_SEED, SEED
+
+    from ubdvss_tpu_torch.ops.cuda import context_kernel as ck
+
+    asset = REPO / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(asset)
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(asset)).items()}
+    dil = tuple(cfg.dilations)
+    w = ck._pack_weights(params, dil)
+    frames = np.stack([SyntheticMarkupReader(n_samples=64, image_hw=QVGA, seed=SEED).sample_at(i).image
+                       for i in range(64)])
+    reader = SyntheticMarkupReader(n_samples=8, image_hw=(SCAN, SCAN), seed=SCAN_SEED)
+    scans = np.stack([reader.sample_at(i).image for i in range(8)])
+
+    def features(images):
+        with exact_f32():
+            f = ck.stem_apply(params, images.float()[..., None], cfg, raw_gray=True)
+        return f.permute(0, 3, 1, 2).contiguous()
+
+    x24 = features(imgs)
+    k4_case("k4_exact_64x24x128", x24, w, dil, False)
+    xs = features(torch.from_numpy(scans).to(dev))
+    k4_case("k4_exact_packed_8x24x512", xs, w, dil, True)
+    del xs
+    k4_case("k4_exact_qvga_64x24x60x80", features(torch.from_numpy(frames).to(dev)), w, dil, False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    L = len(dil)
+    for C in (8, 16, 32):
+        x = torch.randn((64, C, 128, 128), generator=gen, device=dev)
+        for O in (1, 17, 32):
+            wr = [torch.randn(shape, generator=gen, device=dev) * sc for sc, shape in (
+                (0.3, (L, 9, C, 1, 1)), (0.3 / np.sqrt(C / 8), (L, C, C)), (0.1, (L, C, 1, 1)),
+                (0.3, (O, C)), (0.1, (O, 1, 1)))]
+            k4_case(f"k4_exact_C{C}_O{O}_64x128", x, wr, dil, False)
+        del x
+    torch.cuda.empty_cache()
+
+    # the SASS of each tree's exact kernels (the parent's register kernel at
+    # its compiled widths), then the stamped builds' phases on the asset's
+    # seven layers at (64, 24, 128²)
+    def exact_kernel(name):
+        return "context_exact_kernel<" in name or any(
+            f"context_layer_kernel<{c}, false>" in name for c in (8, 16, 24, 32))
+
+    out = REPO / "build" / "ab"
+    sass = {}
+    for _, tag, srcs, _ in trees:
+        if "context_kernel" in srcs:
+            sass[tag] = sass_counts(out / f"{tag}-context_kernel.so", exact_kernel)
+    csrcs = {tag: c for c, tag, *_ in trees}
+    stamp_trees = [(_stamped_parent_k4(csrcs["parent"]), "parentK", ("context_kernel",),
+                    ("-DCONTEXT_STAMPS",))]
+    stamp_trees += [(csrcs[tag], f"{tag}K", ("context_kernel",), ("-DCONTEXT_STAMPS",))
+                    for tag in csrcs if tag != "parent"]
+    stamped = build_trees(stamp_trees)
+    for _, tagk, *_ in stamp_trees:
+        sass[tagk] = sass_counts(out / f"{tagk}-context_kernel.so", exact_kernel)
+    res["k4_exact_sass"] = sass
+    print(json.dumps({"k4_exact_sass": sass}), flush=True)
+    O = w[3].shape[0]
+    bufs = torch.empty_like(x24), torch.empty((64, O, 128, 128), device=dev)
+    for tag in csrcs:
+        lib = stamped[f"{tag}K"]["context_kernel"]
+        lib.context_cycles.argtypes = [P]
+        plans = k4_plans(tag, x24, O, dil)
+        split = []
+        for li, d in enumerate(dil):
+            last = li == L - 1
+            check(lib.context_cycles_clear(), f"{tag} stamps")
+            k4_layer(lib, tag, plans, x24, bufs[1] if last else bufs[0], w, li, d, last, False)
+            torch.cuda.synchronize()
+            host = np.zeros(4, np.uint64)
+            check(lib.context_cycles(P(host.ctypes.data)), f"{tag} stamps")
+            warps = max(int(host[3]), 1)
+            split.append({"dilation": d, "plan": None if plans is None else plans[li],
+                          "warps": int(host[3]),
+                          "cycles_a_warp": [float(v) / warps for v in host[:3]]})
+        res[f"k4_exact_phases_{tag}"] = split
+    print(json.dumps({k: v for k, v in res.items() if k.startswith("k4_exact_phases")}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--only", choices=("geometry", "int8", "tiled", "tall", "widths"), default=None)
     ap.add_argument("--variants", type=Path, nargs="*", default=[])
-    ap.add_argument("--parts", nargs="*", default=["narrow", "stats", "wide", "int8"],
-                    choices=("narrow", "stats", "wide", "int8"),
-                    help="widths: K4 up to 32 channels, the stats, K4 past 32 channels, the "
-                         "int8 convs")
+    ap.add_argument("--parts", nargs="*", default=["exact", "narrow", "stats", "wide", "int8"],
+                    choices=("exact", "narrow", "stats", "wide", "int8"),
+                    help="widths: K4 at its compiled widths, K4 up to 32 channels, the stats, K4 "
+                         "past 32 channels, the int8 convs")
     ap.add_argument("--stats-logits", type=int, nargs="*", default=[5, 25, 33, 34, 41, 42, 65, 66, 97],
                     help="widths: the logit counts of the stats")
     ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")

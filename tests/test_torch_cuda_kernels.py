@@ -52,11 +52,16 @@ def _maps(seed, B, H, W):
     return lg
 
 
-@pytest.mark.parametrize("C,O", [(8, 1), (24, 17), (32, 32)])
+@pytest.mark.parametrize("dil", [(1, 2, 16, 64), (64, 16, 8, 16)])
+@pytest.mark.parametrize("C,O", [(8, 1), (16, 17), (24, 17), (32, 32)])
 @pytest.mark.parametrize("hw", [(128, 128), (37, 53), (60, 80)])
-def test_context_kernel_matches_plain(dev, C, O, hw):
+def test_context_kernel_matches_plain(dev, C, O, hw, dil):
+    """K4's exact instance within 1e-4 of the plain version at every
+    compiled width.  64 puts every off-centre tap outside a 37x53 map and
+    makes the plan take a pixel a thread; at 16 a thread's P d rows pass
+    the end of the 37- and 60-row maps (the last group of rows cut, P
+    halved on 37 rows); the head at 1, 64 and 16."""
     rng = np.random.default_rng(C + O)
-    dil = (1, 2, 16, 64)  # 64 puts every off-centre tap outside a 37x53 map
     L = len(dil)
     x = torch.from_numpy(rng.normal(0, 1, (3, C, *hw)).astype(np.float32)).to(dev)
     w = [
@@ -99,6 +104,35 @@ def test_context_kernel_qvga_asset(dev):
         out = context_kernel.fused_context_head(xc, *w, dil)
         assert context_kernel.fused_context_head.launches == len(dil)
         ref = context_kernel.context_head_reference(xc, *w, dil)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+def test_context_kernel_asset_main_path(dev):
+    """The main path's K4 call: the asset's weights and dilations on the
+    stem's features of 64 synthetic 512x512 scenes, (64, 24, 128, 128) in,
+    17 logits out, seven launches, within 1e-4 of the plain version."""
+    from pathlib import Path
+
+    from ubdvss_tpu_torch import load_net_config, load_params_npz, params_from_flat
+    from ubdvss_tpu_torch.synthetic import SyntheticMarkupReader
+
+    path = Path(__file__).resolve().parent.parent / "assets" / "pretrained_synthetic.npz"
+    cfg = load_net_config(path)
+    params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(path)).items()}
+    reader = SyntheticMarkupReader(n_samples=64, image_hw=(512, 512), seed=7)
+    imgs = torch.from_numpy(np.stack([reader.sample_at(i).image for i in range(64)])).to(dev)
+    dil = tuple(cfg.dilations)
+    with context_kernel.exact_f32():
+        xc = context_kernel.stem_apply(params, imgs.float()[..., None], cfg, raw_gray=True)
+        xc = xc.permute(0, 3, 1, 2).contiguous()
+        assert tuple(xc.shape) == (64, 24, 128, 128)
+        w = context_kernel._pack_weights(params, dil)
+        assert context_kernel.kernel_instance(24, w[3].shape[0]) == "exact"
+        context_kernel.fused_context_head.launches = 0
+        out = context_kernel.fused_context_head(xc, *w, dil)
+        assert context_kernel.fused_context_head.launches == len(dil) == 7
+        ref = context_kernel.context_head_reference(xc, *w, dil)
+    assert out.shape == (64, 17, 128, 128)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
@@ -1674,7 +1708,7 @@ def test_int8_entry_points_on_card_match_cpu(dev):
 # same kernel's unpacked launch, packed by ``_s2d``) ---------------------------
 
 
-@pytest.mark.parametrize("C,O", [(24, 17), (8, 1)])
+@pytest.mark.parametrize("C,O", [(24, 17), (8, 1), (16, 17), (32, 32)])
 @pytest.mark.parametrize("hw", [(128, 128), (38, 54)])
 def test_context_kernel_packed_store(dev, C, O, hw):
     """The packed store writes _s2d of the unpacked launch's logits, bit

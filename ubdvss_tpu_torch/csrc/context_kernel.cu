@@ -8,20 +8,20 @@
 // runs one launch per layer instead and streams the activation through
 // device memory and L2.
 //
-// Per output pixel (one thread each): the 3x3 dilation-d depthwise taps of
-// all C input channels with zero fill at the borders (TF "SAME"), kept in
-// registers; the C x C pointwise product, bias and ReLU; for the last layer
-// the O x C head and its bias.  All arithmetic is f32 FMA on the CUDA cores
-// (no TF32).  Weights (< 10 KB) sit in shared memory and every thread of a
+// Per output pixel: the 3x3 dilation-d depthwise taps of all C input
+// channels with zero fill at the borders (TF "SAME"), kept in registers;
+// the C x C pointwise product, bias and ReLU; for the last layer the O x C
+// head and its bias.  All arithmetic is f32 FMA on the CUDA cores (no
+// TF32).  Weights (< 10 KB) sit in shared memory and every thread of a
 // block reads the same address, a broadcast.
 //
 // Bound on this card: each layer reads C and writes C (or O) f32 channels
 // per pixel, ~192 B/px, so the per-layer design is bound by device memory
-// (~0.42 ms for 7 layers at B=64, 128x128 maps, 3.35 TB/s); the work of the
+// (~0.41 ms for 7 layers at B=64, 128x128 maps, 3.35 TB/s); the work of the
 // whole module (~12.8 GFLOP at that size) is bound by f32 FMA throughput at
 // ~0.19 ms.  Neighbouring threads take neighbouring x, so every tap load of
-// a warp is one coalesced 128-byte row segment, and the 9 taps of a
-// channel mostly hit L1/L2.
+// a warp is one coalesced row segment, and the 9 taps of a channel mostly
+// hit L1/L2.
 //
 // ``packed``: the head's last launch writes its logits phase-major, as the
 // TPU package's packed route hands them to its postprocessing
@@ -34,16 +34,17 @@
 //
 // Widths (every C >= 1 and O >= 1, as the TPU kernel takes them from its
 // inputs):
-//   * C in {8, 16, 24, 32} with O <= 32: context_layer_kernel<C, false>,
-//     the per-pixel register design above, weights in static shared
-//     memory;
-//   * every other C <= 32, or O > 32 ("narrow"): the same register kernel
-//     compiled for that C, context_layer_kernel<C, true>, every channel
-//     loop exactly C long and every weight at a compile-time offset, the
-//     head's O rows and biases in dynamic shared memory, so any O whose
-//     weights fit one block.  It replaces a kernel that ran the loops of
-//     the next compiled width with each channel guarded by the real C: at
-//     C = 10 that issued 256 predicated pointwise FMAs a pixel for 100,
+//   * C in {8, 16, 24, 32} with O <= 32 ("exact"): context_exact_kernel,
+//     two pixels a thread d rows apart, weights in static shared memory
+//     (its section below);
+//   * every other C <= 32, or O > 32 ("narrow"): the register kernel, a
+//     thread a pixel, compiled for that C, context_layer_kernel<C>, every
+//     channel loop exactly C long and every weight at a compile-time
+//     offset, all weights (the head's O rows and biases too) in dynamic
+//     shared memory, so any O whose weights fit one block.  It replaces a
+//     kernel that ran the loops of the next compiled width with each
+//     channel guarded by the real C: at C = 10 that issued 256 predicated
+//     pointwise FMAs a pixel for 100,
 //     each with a scalar weight load at a runtime offset.  A tile of pixels
 //     by C channels (the wide instance below, brought down to these widths:
 //     8, 4 or 2 runs of 128 pixels a tile) was measured against it and lost
@@ -85,6 +86,31 @@
 //     threads, or 64 or 32 where C columns do not fit.
 #include "common.cuh"
 
+// A debug build (-DCONTEXT_STAMPS, scripts/torch_kernel_ab.py --only widths
+// --parts exact) sums the exact instance's clock64() cycles by phase over
+// the warps, as each warp's lane 0 sees them: the depthwise, the pointwise
+// (with its stores), the head (with its stores), then the warps counted.
+#ifdef CONTEXT_STAMPS
+__device__ unsigned long long g_context_cycles[4];
+extern "C" int context_cycles(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_context_cycles, sizeof(g_context_cycles)));
+}
+extern "C" int context_cycles_clear() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, g_context_cycles);
+  return static_cast<int>(e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_context_cycles)));
+}
+#define CONTEXT_STAMP(k)                                                            \
+  if ((threadIdx.x & 31) == 0) {                                                    \
+    const long long now_ = clock64();                                               \
+    atomicAdd(&g_context_cycles[k], static_cast<unsigned long long>(now_ - t_stamp)); \
+    if ((k) == 0) atomicAdd(&g_context_cycles[3], 1ull);                            \
+    t_stamp = now_;                                                                 \
+  }
+#else
+#define CONTEXT_STAMP(k)
+#endif
+
 namespace {
 
 constexpr int kMaxO = 32;
@@ -92,8 +118,8 @@ constexpr int kNarrowMax = 32;  // the register kernel's widths
 constexpr int kThreads = 256;
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
 
-// The register kernel with any head (kAnyHead): its weights' dynamic
-// shared memory (it has no static), and whether that fits one block.
+// The narrow register kernel: its weights' dynamic shared memory (it has
+// no static), and whether that fits one block.
 inline size_t narrow_smem(int C, int O) {
   return (9 * static_cast<size_t>(C) + static_cast<size_t>(C) * C + C +
           static_cast<size_t>(O) * (C + 1)) * sizeof(float);
@@ -112,9 +138,8 @@ inline int wide_threads(int C, bool head) {
   return 0;
 }
 
-// kAnyHead: every weight and bias in dynamic shared memory (narrow_smem),
-// for any O; else static, for O <= kMaxO.
-template <int C, bool kAnyHead>
+// Every weight and bias in dynamic shared memory (narrow_smem), for any O.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
 context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const float* __restrict__ dw,   // (9, C) tap-major
@@ -123,26 +148,12 @@ context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const float* __restrict__ hwt,  // (O, C) or null
                      const float* __restrict__ hb,   // (O) or null
                      int B, int H, int W, int d, int O, int packed) {
-  float *s_dw, *s_pw, *s_pb, *s_hw, *s_hb;
-  if constexpr (kAnyHead) {
-    extern __shared__ float s_weights[];
-    s_dw = s_weights;
-    s_pw = s_dw + 9 * C;
-    s_pb = s_pw + C * C;
-    s_hw = s_pb + C;
-    s_hb = s_hw + O * C;
-  } else {
-    __shared__ float s_dw_static[9 * C];
-    __shared__ float s_pw_static[C * C];
-    __shared__ float s_pb_static[C];
-    __shared__ float s_hw_static[kMaxO * C];
-    __shared__ float s_hb_static[kMaxO];
-    s_dw = s_dw_static;
-    s_pw = s_pw_static;
-    s_pb = s_pb_static;
-    s_hw = s_hw_static;
-    s_hb = s_hb_static;
-  }
+  extern __shared__ float s_weights[];
+  float* s_dw = s_weights;
+  float* s_pw = s_dw + 9 * C;
+  float* s_pb = s_pw + C * C;
+  float* s_hw = s_pb + C;
+  float* s_hb = s_hw + O * C;
   const bool with_head = hwt != nullptr;
   for (int i = threadIdx.x; i < 9 * C; i += blockDim.x) s_dw[i] = dw[i];
   for (int i = threadIdx.x; i < C * C; i += blockDim.x) s_pw[i] = pwt[i];
@@ -208,6 +219,208 @@ context_layer_kernel(const float* __restrict__ x, float* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < C; ++c) s = fmaf(s_hw[o * C + c], act[c], s);
     ob[o * os] = s + s_hb[o];
+  }
+}
+
+// ---- the exact instance: C in {8, 16, 24, 32}, O <= kMaxO ----
+//
+// P pixels a thread (2, or 1 where the map is too short for a second), d
+// rows apart in one column: pixel k at (y0 + k d, x).  Their taps lie on the
+// P + 2 rows y0 + (j - 1) d, j = 0 .. P + 1, so a thread loads each of those
+// rows' three taps of a channel once and feeds them to every pixel whose tap
+// it is: 12 loads a channel for two pixels where a thread a pixel makes 18.
+// A warp takes 32 consecutive x of one row of threads, so every tap load is
+// one coalesced row segment.  Rows are taken in groups of P d, one row of
+// threads a residue of y mod d, the last group cut at the map's edge
+// (exact_thread_rows), so a row of threads always has its first pixel on the
+// map.  The weights sit in static shared memory, 16-byte aligned, and are
+// read as float4 broadcasts, each feeding 4 P FMAs of the pointwise and the
+// head.  Each tap's C loads go out together behind a branch on its place on
+// the map (a tap off the map is skipped, as in the other instances), and a
+// block of 128 threads keeps its registers at 128 (170 at 32 channels), so
+// 16 warps (12) an SM hide the loads.
+//
+// Measured (scripts/torch_kernel_ab.py --only widths --parts exact, PERF.md
+// §6): the parent kernel, a thread a pixel with the weights already read as
+// float4, spent 2,624 instructions a pixel at 24 channels and 10.2K of its
+// 14K cycles a warp in the depthwise; this one 1,704 and 8.4K a pixel.
+// Slower, all bit for bit: one or four pixels a thread (four: 8 warps an
+// SM, or spills), zero-filled branch-free taps and a second register
+// buffer for the next tap (the compiler hoists every load and spills), a
+// tap row's three taps at once, cp.async staging of the taps through
+// shared memory, 256- and 512-thread blocks whose rows share tap rows in
+// L1.
+//
+// The sums keep the order of the other instances: taps (-1,-1) ... (1,1),
+// border taps skipped, one fmaf a channel; c = 0 .. C-1, one fmaf each, then
+// the bias (and ReLU), so the outputs are theirs bit for bit.  A layer
+// writes each output channel as soon as it is summed; the head layer keeps
+// the P C activations in registers and sums its O outputs from them.
+constexpr int kExactThreads = 128;
+
+// Rows of threads an image: groups of P d rows, a row of threads a residue
+// of y mod d in each, the last group's residues only as far as the map
+// goes (ops/cuda/context_kernel.py exact_thread_rows).
+inline int exact_thread_rows(int H, int d, int P) {
+  const long long group = static_cast<long long>(P) * d;
+  const int full = static_cast<int>((H - 1) / group);  // the groups before the last
+  const long long tail = H - full * group;              // rows of the last group
+  return full * d + static_cast<int>(tail < d ? tail : d);
+}
+
+// Blocks of kExactThreads an SM each instance keeps room for, which sets
+// its registers (65,536 / (128 blocks)): 4 (128 registers), or 3 (170) at
+// two pixels of 32 channels, where 128 would spill (-Xptxas -v).
+template <int C, int P, bool kHead>
+constexpr int exact_min_blocks() {
+  return P == 2 && C == 32 ? 3 : 4;
+}
+
+template <int C, int P, bool kHead>
+__global__ void __launch_bounds__(kExactThreads, (exact_min_blocks<C, P, kHead>()))
+context_exact_kernel(const float* __restrict__ x, float* __restrict__ out,
+                     const float* __restrict__ dw, const float* __restrict__ pwt,
+                     const float* __restrict__ pb, const float* __restrict__ hwt,
+                     const float* __restrict__ hb, int H, int W, int d, int O, int packed,
+                     int rows) {
+  static_assert(C % 4 == 0, "float4 weight rows");
+  constexpr int kRows = P + 2;  // tap rows a thread
+  __shared__ __align__(16) float s_dw[9 * C];
+  __shared__ __align__(16) float s_pw[C * C];
+  __shared__ float s_pb[C];
+  __shared__ __align__(16) float s_hw[kHead ? kMaxO * C : 4];
+  __shared__ float s_hb[kHead ? kMaxO : 1];
+  constexpr int T = kExactThreads;
+  for (int i = threadIdx.x; i < 9 * C; i += T) s_dw[i] = dw[i];
+  for (int i = threadIdx.x; i < C * C; i += T) s_pw[i] = pwt[i];
+  for (int i = threadIdx.x; i < C; i += T) s_pb[i] = pb[i];
+  if constexpr (kHead) {
+    for (int i = threadIdx.x; i < O * C; i += T) s_hw[i] = hwt[i];
+    for (int i = threadIdx.x; i < O; i += T) s_hb[i] = hb[i];
+  }
+  __syncthreads();
+
+  // a row of blocks an image (blockIdx.y): thread q of the image's rows x W
+  const int q = blockIdx.x * T + threadIdx.x;
+  if (q >= rows * W) return;
+#ifdef CONTEXT_STAMPS
+  long long t_stamp = clock64();
+#endif
+  const int b = blockIdx.y;
+  const int t = q / W, xw = q - t * W;
+  const int g = t / d;
+  const int y0 = g * P * d + (t - g * d);  // the first pixel's row, always on the map
+
+  // depthwise: for each pixel k the taps (ty, tx) = (-1,-1) ... (1,1) in
+  // this order (tap row j = k + 1 + ty), border taps skipped, one fmaf a
+  // channel; a tap's C loads go out together
+  const long long HW = static_cast<long long>(H) * W, dW = static_cast<long long>(d) * W;
+  const float* xb = x + (static_cast<long long>(b) * C * H + y0) * W + xw;
+  float acc[P][C];
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[k][c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int yy = y0 + (j - 1) * d;
+    if (yy < 0 || yy >= H) continue;
+#pragma unroll
+    for (int tx = 0; tx < 3; ++tx) {
+      if ((tx == 0 && xw < d) || (tx == 2 && xw + d >= W)) continue;
+      const float* src = xb + (j - 1) * dW + (tx - 1) * d;
+      float v[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = __ldg(src + c * HW);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const int ty = j - 1 - k;
+        if (ty < -1 || ty > 1) continue;
+        const float* wt = s_dw + ((ty + 1) * 3 + tx) * C;
+#pragma unroll
+        for (int c = 0; c < C; c += 4) {
+          const float4 w4 = *reinterpret_cast<const float4*>(wt + c);
+          acc[k][c] = fmaf(v[c], w4.x, acc[k][c]);
+          acc[k][c + 1] = fmaf(v[c + 1], w4.y, acc[k][c + 1]);
+          acc[k][c + 2] = fmaf(v[c + 2], w4.z, acc[k][c + 2]);
+          acc[k][c + 3] = fmaf(v[c + 3], w4.w, acc[k][c + 3]);
+        }
+      }
+    }
+  }
+  CONTEXT_STAMP(0);
+
+  // pointwise + bias + ReLU: s = sum over c of w[o][c] acc[c], c = 0 .. C-1
+  unsigned on_map = 1;  // pixel k on the map: bit k
+#pragma unroll
+  for (int k = 1; k < P; ++k)
+    if (y0 + k * d < H) on_map |= 1u << k;
+  float act[kHead ? P : 1][kHead ? C : 1];
+  float* ob = out + (static_cast<long long>(b) * C * H + y0) * W + xw;
+#pragma unroll
+  for (int o = 0; o < C; ++o) {
+    float s[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) s[k] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(s_pw + o * C + c);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        s[k] = fmaf(wv.x, acc[k][c], s[k]);
+        s[k] = fmaf(wv.y, acc[k][c + 1], s[k]);
+        s[k] = fmaf(wv.z, acc[k][c + 2], s[k]);
+        s[k] = fmaf(wv.w, acc[k][c + 3], s[k]);
+      }
+    }
+    const float bias = s_pb[o];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float a = fmaxf(s[k] + bias, 0.f);
+      if constexpr (kHead) {
+        act[k][o] = a;
+      } else {
+        if (on_map >> k & 1u) ob[o * HW + k * dW] = a;
+      }
+    }
+  }
+  CONTEXT_STAMP(1);
+  if constexpr (kHead) {
+    // the head: O outputs from the activations, c = 0 .. C-1, then the bias;
+    // stored plane by plane, or phase-major with ``packed``
+    long long os = HW;
+    float* obk[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int y = y0 + k * d;
+      obk[k] = out + (static_cast<long long>(b) * O * H + y) * W + xw;
+      if (packed) {
+        os = HW / 4;
+        obk[k] = out + (static_cast<long long>(b) * 4 + 2 * (y & 1) + (xw & 1)) * O * os +
+                 static_cast<long long>(y >> 1) * (W >> 1) + (xw >> 1);
+      }
+    }
+    for (int o = 0; o < O; ++o) {
+      float s[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) s[k] = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; c += 4) {
+        const float4 wv = *reinterpret_cast<const float4*>(s_hw + o * C + c);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          s[k] = fmaf(wv.x, act[k][c], s[k]);
+          s[k] = fmaf(wv.y, act[k][c + 1], s[k]);
+          s[k] = fmaf(wv.z, act[k][c + 2], s[k]);
+          s[k] = fmaf(wv.w, act[k][c + 3], s[k]);
+        }
+      }
+      const float bias = s_hb[o];
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (on_map >> k & 1u) obk[k][o * os] = s[k] + bias;
+    }
+    CONTEXT_STAMP(2);
   }
 }
 
@@ -558,21 +771,53 @@ int launch_tile(const float* x, float* out, const float* dw, const float* pwt, c
   }
 }
 
-template <int C, bool kAnyHead = false>
+template <int C>
 int launch(const float* x, float* out, const float* dw, const float* pwt,
            const float* pb, const float* hwt, const float* hb, int B, int H,
            int W, int d, int O, int packed, cudaStream_t stream) {
   const long long n = static_cast<long long>(B) * H * W;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  const int smem = kAnyHead ? static_cast<int>(narrow_smem(C, hwt != nullptr ? O : 0)) : 0;
+  const int smem = static_cast<int>(narrow_smem(C, hwt != nullptr ? O : 0));
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(context_layer_kernel<C, kAnyHead>,
+    const cudaError_t e = cudaFuncSetAttribute(context_layer_kernel<C>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  context_layer_kernel<C, kAnyHead><<<blocks, kThreads, smem, stream>>>(
+  context_layer_kernel<C><<<blocks, kThreads, smem, stream>>>(
       x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed);
   return cudaSuccess;
+}
+
+template <int C, int P, bool kHead>
+int launch_exact_p(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
+                   const float* hwt, const float* hb, int B, int H, int W, int d, int O,
+                   int packed, int rows, int threads, cudaStream_t stream) {
+  const dim3 grid((rows * W + threads - 1) / threads, B);
+  context_exact_kernel<C, P, kHead><<<grid, threads, 0, stream>>>(
+      x, out, dw, pwt, pb, hwt, hb, H, W, d, O, packed, rows);
+  return cudaSuccess;
+}
+
+// The exact instance's plan (ops/cuda/context_kernel.py exact_plan): P
+// pixels a thread (1 or 2), rows of threads an image, which must be
+// exact_thread_rows(H, d, P), and kExactThreads threads a block; a row of
+// blocks an image.
+inline bool exact_plan_ok(int B, int H, int W, int d, int P, int rows, int threads) {
+  return d > 0 && (P == 1 || P == 2) && rows == exact_thread_rows(H, d, P) &&
+         threads == kExactThreads && B <= 65535;
+}
+
+template <int C>
+int launch_exact(const float* x, float* out, const float* dw, const float* pwt, const float* pb,
+                 const float* hwt, const float* hb, int B, int H, int W, int d, int O, int packed,
+                 int P, int rows, int threads, cudaStream_t s) {
+  const bool head = hwt != nullptr;
+#define CONTEXT_EXACT(PP, HEAD)                                                                  \
+  launch_exact_p<C, PP, HEAD>(x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed, rows, threads, \
+                              s)
+  if (P == 1) return head ? CONTEXT_EXACT(1, true) : CONTEXT_EXACT(1, false);
+  return head ? CONTEXT_EXACT(2, true) : CONTEXT_EXACT(2, false);
+#undef CONTEXT_EXACT
 }
 
 // Every C <= 32 off the compiled widths, or a head past kMaxO outputs: the
@@ -584,7 +829,7 @@ int launch_narrow(int c, const float* x, float* out, const float* dw, const floa
   if constexpr (C > kNarrowMax) {
     return cudaErrorInvalidValue;
   } else {
-    if (c == C) return launch<C, true>(x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed, stream);
+    if (c == C) return launch<C>(x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed, stream);
     return launch_narrow<C + 1>(c, x, out, dw, pwt, pb, hwt, hb, B, H, W, d, O, packed, stream);
   }
 }
@@ -614,10 +859,13 @@ int launch_wide(const float* x, float* out, const float* dw, const float* pwt, c
 // even.  Any C >= 1 and O >= 1 (the instance as the header says: the tile
 // instance where tile_fits(C, O, H, W), for every layer of the call); past the
 // wide kernel's shared memory (2 C columns of 32 floats) cudaErrorInvalidValue.
+// P, rows and threads: the exact instance's plan (ops/cuda/context_kernel.py
+// exact_plan: P pixels a thread, rows of threads an image, threads a block),
+// read by no other instance.
 extern "C" int context_layer(const void* x, void* out, const void* dw,
                              const void* pwt, const void* pb, const void* hwt,
                              const void* hb, int B, int C, int H, int W, int d,
-                             int O, int packed, void* stream) {
+                             int O, int packed, int P, int rows, int threads, void* stream) {
   if (O <= 0 || C <= 0 || B <= 0 || H <= 0 || W <= 0 ||
       (packed && (hwt == nullptr || H % 2 != 0 || W % 2 != 0)))
     return cudaErrorInvalidValue;
@@ -631,12 +879,16 @@ extern "C" int context_layer(const void* x, void* out, const void* dw,
   auto fhb = static_cast<const float*>(hb);
   int e = cudaSuccess;
   if (O <= kMaxO && (C == 8 || C == 16 || C == 24 || C == 32)) {
+    if (!exact_plan_ok(B, H, W, d, P, rows, threads)) return cudaErrorInvalidValue;
+#define CONTEXT_EXACT(CC) \
+  launch_exact<CC>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, P, rows, threads, s)
     switch (C) {
-      case 8: e = launch<8>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-      case 16: e = launch<16>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-      case 24: e = launch<24>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
-      default: e = launch<32>(fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s); break;
+      case 8: e = CONTEXT_EXACT(8); break;
+      case 16: e = CONTEXT_EXACT(16); break;
+      case 24: e = CONTEXT_EXACT(24); break;
+      default: e = CONTEXT_EXACT(32); break;
     }
+#undef CONTEXT_EXACT
   } else if (narrow_fits(C, O)) {
     e = launch_narrow<1>(C, fx, fo, fdw, fpw, fpb, fhw, fhb, B, H, W, d, O, packed, s);
   } else if (tile_fits(C, O, H, W)) {

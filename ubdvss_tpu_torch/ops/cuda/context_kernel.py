@@ -60,6 +60,8 @@ The pieces:
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
@@ -72,11 +74,12 @@ from ubdvss_tpu_torch.models.model import (
 from ubdvss_tpu_torch.ops.ccl import _shift
 from ubdvss_tpu_torch.ops.cuda import _build
 
-# The context kernel's instances (csrc/context_kernel.cu): the per-pixel
-# register design compiled for C in EXACT_CHANNELS with at most
-# EXACT_HEAD_OUTPUTS head outputs ("exact"); any other C <= NARROW_CHANNELS,
-# or a larger head, the same design compiled for that C, its weights in
-# dynamic shared memory ("narrow", where they fit one block); 32 < C <= 128
+# The context kernel's instances (csrc/context_kernel.cu): C in
+# EXACT_CHANNELS with at most EXACT_HEAD_OUTPUTS head outputs two pixels a
+# thread, d rows apart ("exact", ``exact_plan``); any other C <=
+# NARROW_CHANNELS, or a larger head, the register kernel, a thread a pixel,
+# compiled for that C, its weights in dynamic shared memory ("narrow",
+# where they fit one block); 32 < C <= 128
 # as a tile of TILE_PIXELS pixels by all C channels a block of
 # TILE_THREADS, the pointwise and the head register-tiled products over
 # shared memory ("wide", where that block fits); other C with each pixel's
@@ -130,6 +133,70 @@ def kernel_instance(C: int, O: int) -> str:
     return "narrow" if narrow_smem(C, O) <= SHARED_MEMORY_LIMIT else "wide_columns"
 
 
+# The exact instance's launch geometry (csrc/context_kernel.cu
+# context_exact_kernel): EXACT_PIXELS pixels a thread, d rows apart in one
+# column, so that they share their tap rows (one where the map is too short
+# for two), EXACT_THREADS threads a block.  Two beat one and four at every
+# exact width and head, with no spill (scripts/torch_kernel_ab.py --only
+# widths --parts exact; PERF.md §6).
+EXACT_PIXELS = 2
+EXACT_THREADS = 128
+
+
+@dataclass(frozen=True)
+class ExactPlan:
+    """One exact-instance launch: ``pixels`` (P) pixels a thread at rows
+    y0, y0 + d, ..., ``rows`` rows of threads an image (a thread a column
+    of each), ``threads`` a block and ``blocks`` blocks an image (grid.x;
+    grid.y is the batch)."""
+
+    pixels: int
+    rows: int
+    threads: int
+    blocks: int
+
+
+STATIC_SHARED_LIMIT = 48 * 1024  # bytes of static shared memory a block may have
+
+
+def exact_smem(C: int) -> int:
+    """Bytes of static shared memory of the exact instance's head layer,
+    the block that holds the most: the taps, the pointwise weights and
+    biases, and EXACT_HEAD_OUTPUTS head rows and biases, all f32
+    (``context_exact_kernel``; a layer without the head holds the first
+    three)."""
+    return 4 * (9 * C + C * C + C + EXACT_HEAD_OUTPUTS * (C + 1))
+
+
+def exact_thread_rows(H: int, d: int, P: int) -> int:
+    """Rows of threads an image of the exact instance: the map's rows in
+    groups of P d, a row of threads a residue of y mod d in each group, the
+    last group's residues only as far as the map goes (csrc
+    ``exact_thread_rows``)."""
+    full = (H - 1) // (P * d)  # the groups before the last
+    return full * d + min(d, H - full * P * d)
+
+
+def exact_first_row(t, d: int, P: int):
+    """The first pixel row of row of threads ``t`` (its group's start plus
+    its residue of y mod d), as the kernel computes it; numpy arrays or
+    ints."""
+    g = t // d
+    return g * P * d + (t - g * d)
+
+
+def exact_plan(H: int, W: int, d: int) -> ExactPlan:
+    """The exact instance's launch of one layer on H x W maps at dilation
+    d, at any of its widths and with or without the head: EXACT_PIXELS
+    pixels a thread, halved while the thread's last pixel could never lie
+    on the map ((P - 1) d >= H)."""
+    P = EXACT_PIXELS
+    while P > 1 and (P - 1) * d >= H:
+        P //= 2
+    rows = exact_thread_rows(H, d, P)
+    return ExactPlan(P, rows, EXACT_THREADS, -(-rows * W // EXACT_THREADS))
+
+
 def kernel_smem(C: int, O: int) -> tuple[int, int]:
     """(threads a block, bytes of shared memory sized at run time) of K4's
     launch with the O-output head at C channels, the layer that needs the
@@ -138,7 +205,7 @@ def kernel_smem(C: int, O: int) -> tuple[int, int]:
     floats a thread) at the largest block that fits; (0, bytes) when none fits one block's shared memory."""
     inst = kernel_instance(C, O)
     if inst == "exact":
-        return 256, 0
+        return EXACT_THREADS, 0
     if inst == "narrow":
         return 256, narrow_smem(C, O)
     if inst == "wide":
@@ -216,7 +283,7 @@ def _d2s_planes(x_nchw: torch.Tensor, O: int) -> torch.Tensor:
     return _d2s(x_nchw.permute(0, 2, 3, 1), O).permute(0, 3, 1, 2)
 
 
-_FUNCS = {"context_layer": [_build.P] * 7 + [_build.I] * 7 + [_build.P]}
+_FUNCS = {"context_layer": [_build.P] * 7 + [_build.I] * 10 + [_build.P]}
 
 
 def _launch_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations, packed) -> torch.Tensor:
@@ -229,6 +296,8 @@ def _launch_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations, packed) -> tor
     O = hwt.shape[0]
     if L == 0:
         raise ValueError("the context kernel needs at least one context layer")
+    if min(int(d) for d in dilations) < 1:
+        raise ValueError(f"dilations must be at least 1, got {tuple(dilations)}")
     for name, t, shape in (
         ("dw", dw, (L, 9, C, 1, 1)), ("pwt", pwt, (L, C, C)),
         ("pb", pb, (L, C, 1, 1)), ("hwt", hwt, (O, C)), ("hb", hb, (O, 1, 1)),
@@ -248,15 +317,18 @@ def _launch_context_head(x_nchw, dw, pwt, pb, hwt, hb, dilations, packed) -> tor
     bufs = [torch.empty_like(x_nchw), torch.empty_like(x_nchw)] if L > 1 else []
     shape = (B, 4 * O, H // 2, W // 2) if packed else (B, O, H, W)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
+    exact = kernel_instance(C, O) == "exact"
     cur = x_nchw
     for li, d in enumerate(dilations):
         last = li == L - 1
         dst = out if last else bufs[li % 2]
+        plan = exact_plan(H, W, int(d)) if exact else None
         _build.launch(
             lib, "context_layer", dev, cur.data_ptr(), dst.data_ptr(),
             dw[li].data_ptr(), pwt[li].data_ptr(), pb[li].data_ptr(),
             hwt.data_ptr() if last else None, hb.data_ptr() if last else None,
             B, C, H, W, int(d), O, int(packed and last),
+            *((plan.pixels, plan.rows, plan.threads) if exact else (0, 0, 0)),
         )
         fused_context_head.launches += 1
         if packed and last:

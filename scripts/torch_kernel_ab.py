@@ -176,10 +176,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -310,6 +312,44 @@ def stream():
     return P(torch.cuda.current_stream().cuda_stream)
 
 
+def card_room(libs: dict, H: int, W: int, K: int, C: int, bf16: bool) -> dict:
+    """{g: clusters of g blocks of K2 and of K12c the card runs at once}
+    from a tree's built libraries (``component_slots_room``,
+    ``geometry_compat_room``), as ``postproc_kernel.cluster_room`` reads
+    them from the package's own build."""
+    threads = 32 * postproc_kernel.stats_warps(H, W, K, C)
+    room = {}
+    for g in postproc_kernel.SLOT_BLOCKS:
+        n = []
+        for lib, fn in ((libs["postproc_kernel"], "component_slots_room"),
+                        (libs["geometry_kernel"], "geometry_compat_room")):
+            out = ctypes.c_int(0)
+            check(getattr(lib, fn)(I(C), I(H), I(W), I(K), I(threads), I(g), I(int(bf16)),
+                                   ctypes.byref(out)), fn)
+            n.append(out.value)
+        room[g] = min(n)
+    return room
+
+
+def card_plan(libs: dict, B: int, H: int, W: int, K: int, C: int, bf16: bool):
+    """This tree's ``slot_plan`` on the card, its room read from ``libs``."""
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return postproc_kernel.slot_plan(B, H, W, K, C, sms, card_room(libs, H, W, K, C, bf16))
+
+
+def plan_args(plan, threads: int) -> tuple:
+    """The ints a tree's cluster K2 and K12c take after their sizes: the
+    plan's (threads, blocks), or ``threads`` alone for a tree from
+    before the plan (``plan`` None)."""
+    return (I(threads),) if plan is None else tuple(I(v) for v in plan.ints)
+
+
+def takes_plan(tree: Path) -> bool:
+    """Whether a tree's cluster K2 and K12c take a plan (its
+    ``postproc_kernel.py`` has ``slot_plan``)."""
+    return "def slot_plan(" in (tree / "ubdvss_tpu_torch" / "ops" / "cuda" / "postproc_kernel.py").read_text()
+
+
 def geometry_ab(args, dev, res: dict) -> None:
     """The geometry kernels, parent against change (module docstring)."""
     libs = {"parent": build(args.parent / "ubdvss_tpu_torch" / "csrc", "parent"),
@@ -377,12 +417,15 @@ def geometry_ab(args, dev, res: dict) -> None:
             P(d.data_ptr()), P(lab.data_ptr()), *size, F(thr), I(8), stream()), f"{tag} {entry}")
         return lab
 
+    plans = {"parent": card_plan(libs["parent"], B, H, W, K, C, False) if takes_plan(args.parent)
+             else None, "change": card_plan(libs["change"], B, H, W, K, C, False)}
+
     def k12c(tag):
         o = geo_out[tag]
         check(libs[tag]["geometry_kernel"].geometry_compat(
             P(lg.data_ptr()), *(L(s_) for s_ in lg.stride()), I(C),
-            *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(K), I(32 * nw), F(thr),
-            I(8), stream()), f"{tag} geometry_compat")
+            *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(K),
+            *plan_args(plans[tag], 32 * nw), F(thr), I(8), stream()), f"{tag} geometry_compat")
         return o
 
     def pair(tag="change"):
@@ -391,8 +434,8 @@ def geometry_ab(args, dev, res: dict) -> None:
         o = geo_out["pair"]
         check(lib["postproc_kernel"].component_slots(
             P(lg.data_ptr()), *(L(s_) for s_ in lg.stride()), I(C), P(labels.data_ptr()),
-            *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(K), I(32 * nw), F(thr),
-            stream()), "slots")
+            *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(K),
+            *plan_args(plans[tag], 32 * nw), F(thr), stream()), "slots")
         return o
 
     # outputs first: identical labels, rows and geometry
@@ -1010,6 +1053,55 @@ def _stamped_parent_k4(csrc: Path) -> Path:
     return out
 
 
+# clock64 stamps at the steps of the parent's two-block K2 and K12c (a copy
+# of its postproc_kernel.cu and geometry_kernel.cu patched at these
+# anchors, with this tree's SLOTS_STAMPS definitions): (anchor, stamp,
+# before or after the anchor)
+_PARENT_SLOT_STAMPS = (
+    ("  cg::cluster_group cluster = cg::this_cluster();\n", "  SLOT_STAMP_START;\n", "after"),
+    ("  geometry::ccl_flatten(lab, p0, p1, N);\n  cluster.sync();\n", "  SLOT_STAMP(0);\n", "after"),
+    ("                                         C, sets, thr);\n", "  SLOT_STAMP(1);\n", "after"),
+    ("    s.root[k] = k < c0 ? lo_roots[k] : (k - c0 < c1 ? hi_roots[k - c0] : N);\n  }\n"
+     "  __syncthreads();\n", "  SLOT_STAMP(1);\n", "after"),
+    ("  cluster.sync();\n  if (rank == 0) {\n", "  SLOT_STAMP(2);\n", "before"),
+    ("  cluster.sync();  // block 1's shared memory lives until block 0 has read it\n",
+     "  SLOT_STAMP(3);\n", "after"),
+)
+_SLOT_STAMP_DEFS_BEGIN, _SLOT_STAMP_DEFS_END = "#ifdef SLOTS_STAMPS\n", "#define SLOT_STAMP_START\n#endif\n"
+
+
+def _stamped_parent_slots(csrc: Path) -> Path:
+    """The parent's postproc_kernel.cu and geometry_kernel.cu with this
+    tree's SLOTS_STAMPS definitions and a stamp after the roots, after the
+    pixel pass and after the finish of its cluster K2 and K12c, and after
+    K12c's CCL (an anchor matches once in a file or not at all: K2's file
+    takes four, K12c's five)."""
+    mine = (REPO / "ubdvss_tpu_torch" / "csrc" / "geometry.cuh").read_text()
+    i = mine.index(_SLOT_STAMP_DEFS_BEGIN)
+    defs = mine[i:mine.index(_SLOT_STAMP_DEFS_END, i) + len(_SLOT_STAMP_DEFS_END)]
+    out = REPO / "build" / "ab" / "stamped-parent-slots"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in csrc.glob("*.cuh"):
+        (out / f.name).write_text(f.read_text())
+    for name in ("postproc_kernel", "geometry_kernel"):
+        src = (csrc / f"{name}.cu").read_text()
+        src = src.replace('#include "tiled.cuh"\n',
+                          '#include "tiled.cuh"\n\nnamespace geometry {\n' + defs + '}  // namespace geometry\n', 1)
+        hits = 0
+        for anchor, stamp, where in _PARENT_SLOT_STAMPS:
+            n = src.count(anchor)
+            if n > 1:
+                raise RuntimeError(f"stamp anchor {anchor!r} found {n} times in the parent's {name}.cu")
+            if n:
+                hits += 1
+                src = src.replace(anchor, anchor + stamp if where == "after" else stamp + anchor)
+        want = 4 if name == "postproc_kernel" else 5
+        if hits != want:
+            raise RuntimeError(f"the parent's {name}.cu: {hits} of its {want} stamp anchors found")
+        (out / f"{name}.cu").write_text(src)
+    return out
+
+
 def sass_counts(so: Path, keep) -> dict:
     """Static SASS counts of the kernels of a library whose demangled name
     ``keep`` accepts (``cuobjdump -sass``): {kernel: {"all": {opcode:
@@ -1073,16 +1165,18 @@ def _tree_module(tree: Path, name: str):
 
 class StatsTree:
     """One tree's stats kernels through its C entry points, as the wrappers
-    call them (``stats_warps``' virtual warps, ``tiled_plan`` and its
+    call them (``stats_warps``' virtual warps and, for a tree whose cluster
+    kernels take one, the slot plan ``plan``; ``tiled_plan`` and its
     scratch), on one set of logits (phase-major with ``phases``) and its
     labels: the cluster K2, K12c, the tiled K2 and the large K12c."""
 
-    def __init__(self, libs, lg, lab, K, phases, dev):
+    def __init__(self, libs, lg, lab, K, phases, dev, plan=None):
         pk = postproc_kernel
         self.libs, self.lg, self.lab, self.K, self.phases = libs, lg, lab, K, phases
         B, H, W, C = self.shape = pk.unpacked_shape(lg, phases)
         self.thr = ccl_kernel.threshold_logit(0.5)
         self.threads = 32 * pk.stats_warps(H, W, K, C)
+        self.slot_plan = plan
         self.plan = pk.tiled_plan(B, H, W, K, C)
         self.scratch = pk.tiled_scratch(self.plan, dev)
         self.work = torch.empty((B, H, W), dtype=torch.int32, device=dev)
@@ -1096,14 +1190,16 @@ class StatsTree:
         fn, head = self._fn("postproc_kernel", "component_slots")
         o, (B, H, W, C) = self.out["k2"], self.shape
         check(fn(*head, I(C), P(self.lab.data_ptr()), *(P(t.data_ptr()) for t in o.values()), I(B),
-                 I(H), I(W), I(self.K), I(self.threads), F(self.thr), stream()), "component_slots")
+                 I(H), I(W), I(self.K), *plan_args(self.slot_plan, self.threads), F(self.thr),
+                 stream()), f"component_slots (plan {self.slot_plan})")
         return o
 
     def k12c(self):
         fn, head = self._fn("geometry_kernel", "geometry_compat")
         o, (B, H, W, C) = self.out["k12c"], self.shape
         check(fn(*head, I(C), *(P(t.data_ptr()) for t in o.values()), I(B), I(H), I(W), I(self.K),
-                 I(self.threads), F(self.thr), I(8), stream()), "geometry_compat")
+                 *plan_args(self.slot_plan, self.threads), F(self.thr), I(8), stream()),
+              f"geometry_compat (plan {self.slot_plan})")
         return o
 
     def tiled(self):
@@ -1140,7 +1236,20 @@ def widths_ab(args, dev, res: dict) -> None:
     trees += [(v / "ubdvss_tpu_torch" / "csrc", v.name, tuple(n for n in srcs if n != "qconv_kernel"), ())
               for v in args.variants]
     ptxas: dict = {}
-    built = build_trees(trees, ptxas)
+    # the stats' steps by clock64() stamps: the change's cluster kernels
+    # built with -DSLOTS_STAMPS
+    slot_srcs = ("postproc_kernel", "geometry_kernel")
+    stamp_tree = [(csrc, "changeS", slot_srcs, ("-DSLOTS_STAMPS",))]
+    if "stats" in args.parts and not takes_plan(args.parent):
+        stamp_tree.append((_stamped_parent_slots(args.parent / "ubdvss_tpu_torch" / "csrc"), "parentS",
+                           slot_srcs, ("-DSLOTS_STAMPS",)))
+    t_build = time.perf_counter()
+    built = build_trees(trees + (stamp_tree if "stats" in args.parts else []), ptxas)
+    res["build_s"] = time.perf_counter() - t_build
+    print(json.dumps({"build_s": res["build_s"]}), flush=True)
+    stamped_slots = {"change": built.pop("changeS", None), "parent": built.pop("parentS", None)}
+    ptxas.pop("changeS", None)
+    ptxas.pop("parentS", None)
     libs = {tag: built[tag] for tag in built}
     # with --variants, the stem's phase cycles: the change's and each
     # variant's qstem_kernel.cu built with -DQSTEM_STAMPS
@@ -1148,7 +1257,8 @@ def widths_ab(args, dev, res: dict) -> None:
                            for c, tag, *_ in trees if tag != "parent"]) \
         if "int8" in args.parts and args.variants else {}
     res["ptxas"] = {tag: {k: v for k, v in rep.items() if any(
-        n in k for n in ("context_layer", "context_exact", "slots_kernel", "pass_kernel", "geometry_kernel",
+        n in k for n in ("context_layer", "context_exact", "slots_kernel", "slots_band_kernel", "pass_kernel",
+                         "geometry_kernel", "geometry_band_kernel",
                          "geometry_large_kernel", "qstem", "qlayer0", "qconv_any"))}
                     for tag, rep in ptxas.items()}
     print(json.dumps({"ptxas": res["ptxas"]}), flush=True)
@@ -1298,29 +1408,41 @@ def widths_ab(args, dev, res: dict) -> None:
         res[f"{case}_plans"] = {tag: k4_plans(tag, x, O, dil) for tag in ("parent", "change", *variants)}
         timed(case, calls, lambda: k4_library(x, w, dil))
 
+    slot_keys = ["rootvals", "slots", "minx", "maxx", "num_components_total", "areas"]
+
     def stats_case(case, lg, lab, phases, kinds):
-        """The stats kernels ``kinds`` of both trees on one set of logits:
-        the cluster K2 and K12c the parent's bit for bit and K12c == K2;
-        the tiled K2 and the large K12c with the parent's slot outputs, each
-        tree's means within 2e-6 (and the bf16 slack) of the f64 sums, the
-        large K12c == the tiled pair; each variant's outputs as the change's;
-        then each kind timed in turns."""
+        """The stats kernels ``kinds`` of both trees on one set of logits,
+        each tree's cluster kernels at its own plan: where the change's plan
+        sums in the parent's order (two blocks an image), the cluster K2 and
+        K12c the parent's bit for bit; elsewhere their slot outputs the
+        parent's and their means within 2e-6 (and the bf16 slack) of the f64
+        sums; K12c == K2 in every tree; the tiled K2 and the large
+        K12c with the parent's slot outputs, each tree's means within 2e-6
+        (and the bf16 slack) of the f64 sums, the large K12c == the tiled
+        pair; each variant's outputs as the change's; then each kind timed
+        in turns."""
         tags = ("parent", "change", *variants)
-        st = {tag: StatsTree(libs[tag], lg, lab, K, phases, dev) for tag in tags}
+        B, H, W, C = postproc_kernel.unpacked_shape(lg, phases)
+        bf16 = lg.dtype == torch.bfloat16
+        plans = {tag: card_plan(libs[tag], B, H, W, K, C, bf16) if tag == "change" or takes_plan(
+            args.parent if tag == "parent" else next(v for v in args.variants if v.name == tag))
+            else None for tag in tags}
+        st = {tag: StatsTree(libs[tag], lg, lab, K, phases, dev, plans[tag]) for tag in tags}
+        plan = plans["change"]
+        same_order = plan.blocks == 2
         got = {tag: {kind: {k: v.clone() for k, v in getattr(t, kind)().items()} for kind in kinds}
                for tag, t in st.items()}
         torch.cuda.synchronize()
-        B, H, W, C = st["change"].shape
         lg_u = lg if phases is None else ck._d2s(lg, C)
         for kind in kinds:
             b_ = got["change"][kind]
-            keys = (list(b_) if kind in ("k2", "k12c") else
-                    ["rootvals", "slots", "minx", "maxx", "num_components_total", "areas"])
+            cluster = kind in ("k2", "k12c")
+            keys = list(b_) if cluster and same_order else slot_keys
             for tag in ("parent", *variants):
                 for key in keys:
                     if not torch.equal(got[tag][kind][key], b_[key]):
                         raise AssertionError(f"{case} {kind}: {key} of {tag} differs from the change's")
-            if kind in ("tiled", "large"):
+            if kind in ("tiled", "large") or not same_order:
                 exact = exact_stats(lg_u, b_["slots"], K)
                 area = b_["areas"].clamp(min=1).double()
                 slack = 0.0
@@ -1341,7 +1463,9 @@ def widths_ab(args, dev, res: dict) -> None:
                     if not torch.equal(got["change"][x_][key], got["change"][y_][key]):
                         raise AssertionError(f"{case}: the change's {x_} {key} differs from its {y_}")
         res[f"{case}_shape"] = [B, H, W, C, str(lg.dtype), phases is not None]
-        res[f"{case}_bit_for_bit"] = True
+        res[f"{case}_bit_for_bit"] = same_order
+        res[f"{case}_plans"] = {tag: None if t.slot_plan is None else dataclasses.asdict(t.slot_plan)
+                                for tag, t in st.items()}
         esz = lg.element_size()
         for kind in kinds:
             geo = got["change"][kind]
@@ -1351,6 +1475,76 @@ def widths_ab(args, dev, res: dict) -> None:
                 lib = lambda geo=geo: postproc_kernel._stats_reference(lg, geo["slots"], K, phases)  # noqa: E731
             timed(f"{case}_{kind}", {tag: (lambda t=t, kind=kind: getattr(t, kind)())
                                      for tag, t in st.items()}, lib)
+            if kind in ("k2", "k12c") and stamped_slots["change"] is not None:
+                slot_steps(f"{case}_{kind}", {"parent": st["parent"], "change": st["change"]}, kind)
+
+    def slot_steps(name, trees_, kind):
+        """Each tree's K2 or K12c at its plan, built with -DSLOTS_STAMPS (the
+        parent's patched): one call's cycles by step (K12c's CCL, the roots
+        ranked and joined, the pixel pass, the finish, each with the
+        cluster barrier after it), a block's mean."""
+        for tag, tree in trees_.items():
+            if stamped_slots.get(tag) is None:
+                continue
+            t = StatsTree(stamped_slots[tag], tree.lg, tree.lab, tree.K, tree.phases, dev,
+                          tree.slot_plan)
+            lib = stamped_slots[tag]["postproc_kernel" if kind == "k2" else "geometry_kernel"]
+            lib.slot_cycles.argtypes = [P]
+            host = np.zeros(5, np.uint64)
+            getattr(t, kind)()
+            torch.cuda.synchronize()
+            check(lib.slot_cycles_clear(), "slot stamps")
+            getattr(t, kind)()
+            torch.cuda.synchronize()
+            check(lib.slot_cycles(P(host.ctypes.data)), "slot stamps")
+            n = max(int(host[4]), 1)
+            res[f"{name}_steps_{tag}"] = {"blocks": int(host[4]), "cycles_a_block": {
+                step: float(host[i]) / n for i, step in enumerate(("ccl", "roots", "pass", "finish"))}}
+            print(json.dumps({f"{name}_steps_{tag}": res[f"{name}_steps_{tag}"]}), flush=True)
+
+    def few_images():
+        """The cluster K2 and K12c on few images of the asset's own logits
+        (K=16, 17 channels), each case against the parent in turns: the
+        packed route's 1024² call (B=4 256², phase-major and unpacked, f32
+        and bf16) and B=2 and 8 of its maps, one detect call's heatmap (B=1
+        at 128², 120x160, 192x256), then the main path's B=64 128² (f32,
+        bf16) and the stream's B=64 60x80."""
+        cfg = load_net_config(asset).replace(max_components=K)
+        cfg16 = cfg.replace(dtype="bfloat16")
+        params = {k: v.to(dev) for k, v in params_from_flat(load_params_npz(asset)).items()}
+        p16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+
+        def scenes(n, hw, seed):
+            r = SyntheticMarkupReader(n_samples=n, image_hw=hw, seed=seed)
+            return torch.from_numpy(np.stack([r.sample_at(i).image for i in range(n)])).to(dev)
+
+        def logits(x, packed=False, bf16=False):
+            with exact_f32():
+                if bf16:
+                    f = ck.packed_fused_trunk if packed else fused_model_apply
+                    return f(p16, x.to(torch.bfloat16)[..., None], cfg16, raw_gray=True, act_out=True)
+                f = ck.packed_fused_trunk if packed else fused_model_apply
+                return f(params, x.float()[..., None], cfg, raw_gray=True)
+
+        def case(name, lg, phases=None):
+            if args.stats_cases and not any(c in name for c in args.stats_cases):
+                return
+            det = postproc_kernel.detection_logits(lg, phases).contiguous()
+            stats_case(name, lg, ccl_kernel.ccl_labels_from_logits(det), phases, ("k2", "k12c"))
+
+        s1k = scenes(8, (1024, 1024), 11)
+        for tag, bf16 in (("f32", False), ("bf16", True)):
+            packed = logits(s1k[:4], packed=True, bf16=bf16)
+            case(f"few_{tag}_phase_major_4x256", packed, (2, 2))
+            case(f"few_{tag}_4x256", ck._d2s(packed, 17).contiguous())
+        case("few_f32_2x256", logits(s1k[:2]))
+        case("few_f32_8x256", logits(s1k))
+        for hw in ((512, 512), (480, 640), (768, 1024)):
+            case(f"few_f32_1x{hw[0] // 4}x{hw[1] // 4}", logits(scenes(1, hw, SEED)))
+        case("few_f32_64x128", logits(imgs))
+        case("few_bf16_64x128", logits(imgs, bf16=True))
+        case("few_f32_64x60x80", logits(scenes(64, (240, 320), SEED)))
+        torch.cuda.empty_cache()
 
     dil = tuple(NetConfig().dilations)
     K = 16
@@ -1413,6 +1607,9 @@ def widths_ab(args, dev, res: dict) -> None:
                 stats_case(f"stats{O}_{name}_phase_major_2x512", sc, lab, (2, 2), ("tiled", "large"))
             del lg, sc, runs
             torch.cuda.empty_cache()
+
+        if "stats" in args.parts:
+            few_images()
 
         # ---- K4 past 32 channels: the wide configuration and random weights
         with exact_f32():
@@ -1732,6 +1929,8 @@ def main() -> int:
                          "past 32 channels, the int8 convs")
     ap.add_argument("--stats-logits", type=int, nargs="*", default=[5, 25, 33, 34, 41, 42, 65, 66, 97],
                     help="widths: the logit counts of the stats")
+    ap.add_argument("--stats-cases", nargs="*", default=[],
+                    help="widths: only the few-image stats cases whose name holds one of these")
     ap.add_argument("--out", type=Path, default=REPO / "build" / "ab" / "ab.json")
     args = ap.parse_args()
     dev = torch.device("cuda")

@@ -33,6 +33,12 @@ def dev():
     return torch.device("cuda")
 
 
+def logit_bar(ref: torch.Tensor) -> float:
+    """The bar of the card's f32 logits against their plain version:
+    max(1e-5, 1e-6 max|logit|), the f32 route's against the JAX package."""
+    return max(1e-5, 1e-6 * float(ref.abs().max()))
+
+
 def _maps(seed, B, H, W):
     """Blob, noise and snake detection-logit maps."""
     rng = np.random.default_rng(seed)
@@ -56,7 +62,7 @@ def _maps(seed, B, H, W):
 @pytest.mark.parametrize("C,O", [(8, 1), (16, 17), (24, 17), (32, 32)])
 @pytest.mark.parametrize("hw", [(128, 128), (37, 53), (60, 80)])
 def test_context_kernel_matches_plain(dev, C, O, hw, dil):
-    """K4's exact instance within 1e-4 of the plain version at every
+    """K4's exact instance within logit_bar of the plain version at every
     compiled width.  64 puts every off-centre tap outside a 37x53 map and
     makes the plan take a pixel a thread; at 16 a thread's P d rows pass
     the end of the 37- and 60-row maps (the last group of rows cut, P
@@ -77,7 +83,7 @@ def test_context_kernel_matches_plain(dev, C, O, hw, dil):
     with context_kernel.exact_f32():
         ref = context_kernel.context_head_reference(x, *w, dil)
     assert out.shape == (3, O, *hw)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, ref, atol=logit_bar(ref), rtol=0)
 
 
 def test_context_kernel_qvga_asset(dev):
@@ -104,13 +110,13 @@ def test_context_kernel_qvga_asset(dev):
         out = context_kernel.fused_context_head(xc, *w, dil)
         assert context_kernel.fused_context_head.launches == len(dil)
         ref = context_kernel.context_head_reference(xc, *w, dil)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, ref, atol=logit_bar(ref), rtol=0)
 
 
 def test_context_kernel_asset_main_path(dev):
     """The main path's K4 call: the asset's weights and dilations on the
     stem's features of 64 synthetic 512x512 scenes, (64, 24, 128, 128) in,
-    17 logits out, seven launches, within 1e-4 of the plain version."""
+    17 logits out, seven launches, within logit_bar of the plain version."""
     from pathlib import Path
 
     from ubdvss_tpu_torch import load_net_config, load_params_npz, params_from_flat
@@ -133,7 +139,7 @@ def test_context_kernel_asset_main_path(dev):
         assert context_kernel.fused_context_head.launches == len(dil) == 7
         ref = context_kernel.context_head_reference(xc, *w, dil)
     assert out.shape == (64, 17, 128, 128)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, ref, atol=logit_bar(ref), rtol=0)
 
 
 @pytest.mark.parametrize("connectivity", [4, 8])
@@ -208,33 +214,49 @@ def _head_logits(det: np.ndarray, C: int, seed: int, dev) -> torch.Tensor:
 
 _SLOT_KEYS = ("rootvals", "slots", "minx", "maxx", "num_components_total", "areas")
 
+# few images, where the slot plan spreads an image over the widest cluster:
+# B = 1, 2, 4 at a 512² detect's, a 640x480's and a 1024x768's heatmap and
+# the packed route's 256² maps (ops/cuda/postproc_kernel.py slot_plan)
+_FEW_MAPS = [(B, H, W) for B in (1, 2, 4) for H, W in ((128, 128), (120, 160), (192, 256),
+                                                        (256, 256))]
 
-def assert_stats_close(out: dict, ref: dict):
+
+def assert_stats_close(out: dict, ref: dict, exact=None):
     """Slot outputs and areas identical; det_sums / areas and
-    cls_sums / areas within 2e-6 (f32 sums in another order)."""
+    cls_sums / areas within 2e-6 (f32 sums in another order) of the plain
+    version's, or of ``exact`` (``_stats_f64``) where given: on the larger
+    maps' components of tens of thousands of pixels the plain version's
+    f32 one-hot products drift from the exact sums by more than that."""
     for key in _SLOT_KEYS:
         assert torch.equal(out[key], ref[key]), key
-    area = ref["areas"].clamp(min=1)
-    torch.testing.assert_close(out["det_sums"] / area, ref["det_sums"] / area, atol=2e-6, rtol=0)
+    want = ref if exact is None else exact
+    area = ref["areas"].clamp(min=1).to(want["det_sums"].dtype)
+    torch.testing.assert_close(out["det_sums"] / area, want["det_sums"] / area, atol=2e-6, rtol=0)
     torch.testing.assert_close(
-        out["cls_sums"] / area[..., None], ref["cls_sums"] / area[..., None], atol=2e-6, rtol=0)
+        out["cls_sums"] / area[..., None], want["cls_sums"] / area[..., None], atol=2e-6, rtol=0)
 
 
 @pytest.mark.parametrize("C", [1, 5, 17])
 @pytest.mark.parametrize("K", [1, 16, 64])
-@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53), (6, 60, 80)])
+@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53), (6, 60, 80), *_FEW_MAPS])
 def test_slots_kernel_matches_plain(dev, shape, K, C):
     """K2's eight outputs against its plain version: blob maps (fewer than
     K=16 components, so the padding slot K-1 carries the background),
     noise (more than K) and snakes; two launches bit for bit equal.  C=1
     and C=17 (the main path's) have their own compiled kernels, C=5 takes
-    the guarded bound of 5 channels."""
+    the guarded bound of 5 channels.  On few images (the widest clusters)
+    the means are held to the f64 sums."""
     lg = _head_logits(_maps(K, *shape), C, K + C, dev)
     lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
     out = postproc_kernel.component_slots(lg, lab, K)
     ref = postproc_kernel.component_slots_reference(lg, lab, K)
     assert out["cls_sums"].shape == (shape[0], K, max(C - 1, 1))
-    assert_stats_close(out, ref)
+    exact = None
+    if shape in _FEW_MAPS:  # components of up to tens of thousands of pixels
+        exact = _stats_f64(lg, ref["slots"], K)
+        if C == 1:
+            exact["cls_sums"] = ref["cls_sums"].double()
+    assert_stats_close(out, ref, exact)
     again = postproc_kernel.component_slots(lg, lab, K)
     for key in out:
         assert torch.equal(out[key], again[key]), key
@@ -370,7 +392,8 @@ def test_rect_exact_kernel_matches_plain(dev, H, K):
 
 @pytest.mark.parametrize("connectivity", [4, 8])
 @pytest.mark.parametrize("K", [1, 16, 64])
-@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53), (3, 256, 64), (2, 1, 40)])
+@pytest.mark.parametrize("shape", [(3, 128, 128), (4, 37, 53), (3, 256, 64), (2, 1, 40),
+                                   *_FEW_MAPS])
 def test_geometry_compat_kernel_matches_plain_and_pair(dev, shape, K, connectivity):
     """K12c's slot outputs identical to its plain version, its stats within
     the plain version's tolerance, and all eight outputs bit for bit equal
@@ -382,7 +405,7 @@ def test_geometry_compat_kernel_matches_plain_and_pair(dev, shape, K, connectivi
     det = lg[..., 0].contiguous()
     pair = postproc_kernel.component_slots(
         lg, ccl_kernel.ccl_labels_from_logits(det, connectivity=connectivity), K)
-    assert_stats_close(out, ref)
+    assert_stats_close(out, ref, _stats_f64(lg, ref["slots"], K) if shape in _FEW_MAPS else None)
     for key in ref:
         assert torch.equal(out[key], pair[key]), key
 
@@ -454,7 +477,7 @@ def test_channel_caps_name_their_roadmap_item(dev, C, O):
     out = context_kernel.fused_context_head(x, *w, (1,))
     with context_kernel.exact_f32():
         ref = context_kernel.context_head_reference(x, *w, (1,))
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, ref, atol=logit_bar(ref), rtol=0)
     lg = _head_logits(_maps(C, 1, 8, 8), postproc_kernel.REGISTER_CHANNELS + 1, C, dev)
     lab = ccl_kernel.ccl_labels_reference(lg[..., 0])
     ref = postproc_kernel.component_slots_reference(lg, lab, 4)
@@ -1060,6 +1083,54 @@ def test_geometry_compat_large_on_adversarial_maps(dev, kind, connectivity):
         assert torch.equal(out[key], slots[key]), key
 
 
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("kind", ["spiral", "checker", "full"])
+@pytest.mark.parametrize("B,blocks", [(1, 16), (12, 8), (24, 4), (40, 2)])
+def test_geometry_compat_at_every_cluster_on_adversarial_maps(dev, kind, connectivity, B, blocks):
+    """K12c at each cluster size its plan takes (16, 8, 4 and 2 blocks an
+    image, by the batch's size) on the adversarial maps of the large K12c's
+    test at 192x256 (a spiral through every band's seam, the
+    checkerboard, full), K=16: its components are scipy's (the slot map of
+    the uncapped labels), and its eight outputs K2's after K1 bit for bit."""
+    H, W, K = 192, 256, 16
+    lg = _head_logits(_large_map(kind, B, H, W), 17, 5, dev)
+    plan = postproc_kernel.launch_plan(lg, H, W, K, 17)
+    assert plan.blocks == blocks, plan
+    out = postproc_kernel.geometry_compat(lg, K, connectivity=connectivity)
+    ref = torch.from_numpy(_uncapped_labels(lg[..., 0].cpu().numpy(), connectivity)).to(dev)
+    slots = postproc_kernel.component_slots_reference(lg, ref, K)
+    for key in _SLOT_KEYS:
+        assert torch.equal(out[key], slots[key]), key
+    pair = postproc_kernel.component_slots(
+        lg, ccl_kernel.ccl_labels_from_logits(lg[..., 0].contiguous(), 0.5, connectivity), K)
+    for key in pair:
+        assert torch.equal(out[key], pair[key]), key
+
+
+@pytest.mark.parametrize("B", [1, 4, 9, 17, 34, 64])
+def test_slot_plan_is_the_c_mirrors(dev, B):
+    """The plan the wrappers launch is ``slot_plan_ints``' (csrc/geometry.cuh
+    slot_plan) for the card's SMs and room, at the main path's 128² maps
+    and the packed route's 256², f32 and bf16; a cluster past two blocks
+    keeps every image on the card at once."""
+    import ctypes
+
+    lib = _build.load("postproc_kernel", postproc_kernel._FUNCS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for H, W in ((128, 128), (256, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            lg = torch.empty((B, H, W, 17), dtype=dtype, device=dev)
+            plan = postproc_kernel.launch_plan(lg, H, W, 16, 17)
+            room = postproc_kernel.cluster_room(dev.index or 0, H, W, 16, 17,
+                                                dtype == torch.bfloat16)
+            arr = (ctypes.c_int * 3)(*(room[g] for g in postproc_kernel.SLOT_BLOCKS))
+            out = (ctypes.c_int * 2)()
+            assert lib.slot_plan_ints(B, plan.sets, sms, arr, out) == 0
+            assert tuple(out) == (plan.blocks, plan.sets)
+            if plan.blocks > 2:
+                assert plan.blocks * B <= sms and B <= room[plan.blocks]
+
+
 # ---- the tiled kernels' plan edges (ops/cuda/postproc_kernel.py tiled_plan) ----
 
 _PLAN_EDGE_SHAPES = [(2, 257, 513), (1, 1023, 257), (3, 5, 4099), (2, 61, 33), (1, 300, 1000)]
@@ -1133,7 +1204,8 @@ def test_slots_tiled_band_extremes_in_device_memory(dev):
 
 # ---- bf16 logits (the bf16 route's trunk output) ----
 
-_BF16_SHAPES = [(3, 128, 128, 16), (3, 256, 64, 16), (2, 512, 512, 64)]
+_BF16_SHAPES = [(3, 128, 128, 16), (3, 256, 64, 16), (2, 512, 512, 64),
+                *((*m, 16) for m in _FEW_MAPS)]
 
 
 def _bf16_head_logits(shape, layout, dev):
@@ -1217,7 +1289,7 @@ def test_bf16_slots_match_plain_and_compat(dev, shape, layout):
     assert (postproc_kernel.component_slots.launches_bf16,
             postproc_kernel.component_slots_tiled.launches_bf16) == ((1, 0) if fits else (0, 1))
     ref = postproc_kernel.component_slots_reference(lg, lab, K)
-    exact = None if fits else _stats_f64(lg, ref["slots"], K)
+    exact = None if fits and (B, H, W) not in _FEW_MAPS else _stats_f64(lg, ref["slots"], K)
     assert_bf16_stats_close(out, ref, lg, K, exact)
     again = postproc_kernel.component_slots(lg, lab, K)
     for key in out:
@@ -1768,7 +1840,8 @@ def _packed_logits(lg: torch.Tensor, layout: str) -> torch.Tensor:
         p.contiguous()
 
 
-_PACKED_SHAPES = [(8, 512, 512, 64), (3, 128, 128, 16), (4, 38, 54, 16)]
+_PACKED_SHAPES = [(8, 512, 512, 64), (3, 128, 128, 16), (4, 38, 54, 16),
+                  *((*m, 16) for m in _FEW_MAPS)]
 
 
 @pytest.mark.parametrize("layout", ["planes", "nhwc"])
@@ -1893,7 +1966,7 @@ def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
     kernel compiled for C (1, 3, 4, 10, 12, 20, 31; "narrow"), 33 to 128 as
     the tile (33, 40, 48, 64, 96), past it each pixel's columns in shared
     memory (160), heads of 1, 33 and 41 outputs, dilations 1, 2, 16 and 17:
-    one launch a layer, within 1e-4 of the plain version, on an odd
+    one launch a layer, within logit_bar of the plain version, on an odd
     37x53 map (unpacked; the tile's rows cross the map's, its last tile is
     partial and its stores scalar) and on 38x54 (packed, a row of W = 2
     mod 4 stored a pixel at a time): the packed store == the unpacked
@@ -1918,7 +1991,7 @@ def test_context_kernel_any_width_matches_plain(dev, C, O, packed):
         assert torch.equal(out, context_kernel._s2d_planes(f(x, *w, dil)))
         ref = context_kernel._s2d_planes(ref)
     assert out.shape == ref.shape
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, ref, atol=logit_bar(ref), rtol=0)
 
 
 @pytest.mark.parametrize("packed", [False, True])

@@ -1,6 +1,6 @@
 // The two phases of the component geometry, as block-wide device functions
 // shared by ccl_kernel.cu (K1), postproc_kernel.cu (K2) and
-// geometry_kernel.cu (K12c, both phases in one cluster of two blocks), so
+// geometry_kernel.cu (K12c, both phases in one cluster of blocks), so
 // that each algorithm has one copy; phase 2 also sums the per-component
 // stats.  Every thread of the block calls them.
 //
@@ -10,10 +10,12 @@
 // sigmoid and the softmax run in f32 on either type.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+#include <utility>
 
 namespace geometry {
 
@@ -140,8 +142,9 @@ __device__ __forceinline__ int class_chunks(int C) {
 //
 // The label map is reached through an accessor: lab(p) is the word of
 // linear index p, in one block's shared memory (FlatLabels) or split by
-// rows over the two blocks of a cluster (SplitLabels, K12c), where the
-// unions reach the other block's words through distributed shared memory.
+// rows over the blocks of a cluster (SplitLabels over two, BandLabels over
+// more, K12c), where the unions reach the other blocks' words through
+// distributed shared memory.
 struct FlatLabels {
   volatile int* base;
   __device__ volatile int& operator()(int p) const { return base[p]; }
@@ -153,6 +156,34 @@ struct SplitLabels {
   volatile int* hi;
   int split;
   __device__ volatile int& operator()(int p) const { return p < split ? lo[p] : hi[p - split]; }
+};
+
+// The band of ``span`` words that holds linear index p (p < 2^24, so the
+// product is within one band of p / span and one step corrects it).
+__device__ __forceinline__ int band_of(int p, int span, float inv) {
+  int r = __float2int_rz(__int2float_rn(p) * inv);
+  r -= r * span > p;
+  r += (r + 1) * span <= p;
+  return r;
+}
+
+// Rows [r S, (r + 1) S) in block r's words, ``span`` = S W words a band,
+// each at the start of its block's shared memory: ``own`` is this block's,
+// which start at linear index ``own0``, and the cluster maps it to block
+// r's (cluster.map_shared_rank, one instruction).  The CCL passes of a
+// block start at its own pixels and walk only to smaller indices (a parent
+// is always smaller), so an index from own0 on is the block's own word,
+// reached without a lookup.
+struct BandLabels {
+  int* own;
+  int own0, span;
+  float inv;  // 1 / span
+  __device__ volatile int& operator()(int p) const {
+    if (p >= own0) return const_cast<volatile int*>(own)[p - own0];
+    const int r = band_of(p, span, inv);
+    return const_cast<volatile int*>(
+        cooperative_groups::cluster_group::map_shared_rank(own, r))[p - r * span];
+  }
 };
 
 template <class Lab>
@@ -285,6 +316,18 @@ struct SplitView {
   __device__ int operator[](int p) const { return p < split ? lo[p] : hi[p - split]; }
 };
 
+// The finished bands of BandLabels, read anywhere (the pixel pass).
+struct BandView {
+  int* own;
+  int own0, span;
+  float inv;
+  __device__ int operator[](int p) const {
+    if (static_cast<unsigned>(p - own0) < static_cast<unsigned>(span)) return own[p - own0];
+    const int r = band_of(p, span, inv);
+    return cooperative_groups::cluster_group::map_shared_rank(own, r)[p - r * span];
+  }
+};
+
 // Where pixel (y, x) of an image lies beside its row and column strides
 // sy, sx: (y >> s) sy + (y & m) py + (x >> s) sx + (x & m) px.  An
 // ordinary map (NHWC, or the (C, H, W) planes of the context kernel) has
@@ -372,7 +415,8 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
 //      ranks (shuffles), and the group's rank 0 adds the sum to the warp's
 //      partial set in shared memory, ``part`` (K, C) floats and ``cnt``
 //      (K) ints, one set per virtual warp of the pass (slot_pass);
-//   3. slot_finish sums the partials in the virtual warps' order.
+//   3. slot_finish (band_finish on a cluster past two blocks) sums the
+//      partials in the virtual warps' order.
 // sigmoid and softmax follow torch's formulas with expf; on bf16 logits
 // each class probability is rounded to bf16 before it is added
 // (at_logit_precision), the sigmoid and the counts are not.  K2 and K12c
@@ -602,32 +646,112 @@ struct StatsAcc {
 // the background's per-row extremes.  Callers mask padding slots by
 // rootvals.
 //
-// Three steps, so that one image's pass can be split over the blocks of a
-// cluster, K2's and K12c's alike, in one order:
+// One image's phase 2 runs on a cluster of ``blocks`` blocks (SlotPlan),
+// K2's and K12c's alike, in one order.  On two blocks (a batch that fills
+// the card, B >= 34 at 132 SMs):
 //   slot_roots   every block of the image ranks the roots itself (K2), or
 //                those of its own rows (K12c, which then joins the lists);
 //   slot_pass    the pixel pass over the block's share of the virtual
 //                warps, writing slots, extremes and stats partials;
 //   slot_finish  one block writes the extremes, roots and stats.
+// On a wider cluster (few images), each block holds a band of rows:
+//   slot_rank    each block ranks the roots of its own band, with coalesced
+//                loads, and clears its extremes and partials (slot_clear)
+//                while the cluster's barrier completes; join_roots then
+//                takes the image's K smallest from the blocks' lists in
+//                block order;
+//   slot_pass    as on two blocks;
+//   band_finish  the outputs, each block a share of them.
 
-// K2 and K12c split an image's pixel pass over a cluster of this many
-// blocks, the same virtual warps in each.
+// The launch plan of K2 and K12c (ops/cuda/postproc_kernel.py slot_plan,
+// whose choice slot_plan below mirrors): ``blocks`` blocks an image in one
+// cluster, each running ``sets`` virtual warps of the pixel pass, one stats
+// partial set each, so blocks * sets virtual warps an image, block r's
+// the r-th run of ``sets``.  The sums run over the partial sets in the
+// virtual warps' order: on two blocks one running sum over all of them; on
+// a wider cluster each block's running sum of its own sets, then the
+// running sum of the blocks' sums.  K2 and K12c take one plan, so they
+// agree bit for bit.
+struct SlotPlan {
+  int blocks, sets;
+};
+
+// The cluster sizes of a plan: the least, then up to kMaxSlotCtas, past
+// the portable 8 only where the card allows it (non-portable).
 constexpr int kSlotCtas = 2;
+constexpr int kMaxSlotCtas = 16;
+
+__host__ __device__ constexpr bool valid_plan(const SlotPlan& pl) {
+  return (pl.blocks == 2 || pl.blocks == 4 || pl.blocks == 8 || pl.blocks == 16) &&
+         pl.sets >= 1 && pl.sets <= 32;
+}
+
+// The plan of B images whose blocks hold ``sets`` virtual warps each (the
+// Python stats_warps) on a card of ``sms`` SMs, where ``room[i]`` clusters
+// of 16 >> i blocks (16, 8, 4) run at once: the largest cluster of 16, 8
+// or 4 blocks that keeps every image's blocks on the card at once (blocks
+// * B <= sms, B <= its room); else two blocks (the main path's B=64 and
+// beyond).
+inline SlotPlan slot_plan(int B, int sets, int sms, const int* room) {
+  for (int i = 0; i < 3; ++i) {
+    const int g = kMaxSlotCtas >> i;
+    if (static_cast<long long>(g) * B <= sms && B <= room[i]) return {g, sets};
+  }
+  return {kSlotCtas, sets};
+}
+
+// The rows of a block's band: ceil(H / blocks).
+__host__ __device__ inline int band_rows(int H, int blocks) { return (H + blocks - 1) / blocks; }
 
 // The per-image state in shared memory: ``sm`` holds K roots (ascending,
 // H*W pads), (K, H) min x, (K, H) max x, then the stats partials, (K, C)
-// floats and K ints for each virtual warp the block runs.
+// floats and K ints for each virtual warp the block runs, then the block's
+// own ranked roots (K) and their count.
 struct SlotSmem {
   int* root;
   int* mn;
   int* mx;
   float* part;
   int* cnt;
+  int* ranked;
   __device__ SlotSmem(int* sm, int K, int H, int C, int sets)
       : root(sm), mn(sm + K), mx(sm + K + K * H),
         part(reinterpret_cast<float*>(sm + K + 2 * K * H)),
-        cnt(reinterpret_cast<int*>(part + sets * K * C)) {}
+        cnt(reinterpret_cast<int*>(part + sets * K * C)), ranked(cnt + sets * K) {}
 };
+
+// Its words: K + 2 K H + sets K (C + 1) + K + 1.
+__host__ __device__ constexpr long long slot_smem_words(int K, int H, int C, int sets) {
+  return 2LL * K + 1 + 2LL * K * H + static_cast<long long>(sets) * K * (C + 1);
+}
+
+// A debug build (-DSLOTS_STAMPS, scripts/torch_kernel_ab.py --only widths
+// --parts stats) sums each block's clock64() cycles by step over the
+// blocks, as its thread 0 sees them: K12c's CCL, the roots (ranked and
+// joined), the pixel pass, the finish (each with the cluster barrier after
+// it), then the blocks counted.
+#ifdef SLOTS_STAMPS
+__device__ unsigned long long g_slot_cycles[5];
+extern "C" int slot_cycles(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_slot_cycles, sizeof(g_slot_cycles)));
+}
+extern "C" int slot_cycles_clear() {
+  const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_slot_cycles, zero, sizeof(zero)));
+}
+#define SLOT_STAMP(k)                                                             \
+  if (threadIdx.x == 0) {                                                         \
+    const long long now_ = clock64();                                             \
+    atomicAdd(&geometry::g_slot_cycles[k],                                        \
+              static_cast<unsigned long long>(now_ - t_stamp));                   \
+    if ((k) == 3) atomicAdd(&geometry::g_slot_cycles[4], 1ULL);                   \
+    t_stamp = now_;                                                               \
+  }
+#define SLOT_STAMP_START long long t_stamp = clock64()
+#else
+#define SLOT_STAMP(k)
+#define SLOT_STAMP_START
+#endif
 
 // Roots (foreground pixels whose label is their own index) among the pixels
 // [p0, p1), ranked in raster order by a block-wide exclusive prefix sum
@@ -683,6 +807,138 @@ __device__ inline int slot_roots(const Det& det, const Lab& lab, const SlotSmem&
   int rank = (warp > 0 ? s_warp[warp - 1] : 0) + incl - cnt;
   for (int p = begin; p < end && rank < K; ++p) {
     if (lab[p] == p && det(p / W, p % W) > thr) roots[rank++] = p;
+  }
+  __syncthreads();
+  return total;
+}
+
+// The tiles of blockDim.x pixels whose labels a thread of slot_rank loads
+// at once (a chunk), so that one load latency, not one a tile, lies on the
+// ranking's path.
+constexpr int kRankTiles = 8;
+
+// Ranks the roots (foreground pixels whose label is their own index) among
+// the pixels [p0, p1) in raster order, a chunk of kRankTiles tiles of
+// blockDim.x pixels at a time, lanes over consecutive pixels: each thread
+// loads its pixels' labels at once, each warp's roots of a tile are ranked
+// by a ballot, and the (tile, warp) counts by one prefix over the chunk;
+// those of rank < K go to ``roots`` (K words), their count to *count.
+// Ends with the count written by thread 0 and not yet seen by the others
+// (a __syncthreads, or the cluster barrier that join_roots waits for,
+// follows).
+template <class Det, class Lab>
+__device__ inline void slot_rank(const Det& det, const Lab& lab, int* roots, int* count, int p0,
+                                 int p1, int W, int K, float thr) {
+  __shared__ int s_cnt[kRankTiles * 32 + 1];  // (tile, warp) counts, then their prefix and total
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int base = 0;
+  for (int t0 = p0; t0 < p1; t0 += kRankTiles * blockDim.x) {
+    const int nt = min(kRankTiles, (p1 - t0 + blockDim.x - 1) / blockDim.x);  // tiles in the chunk
+    int lv[kRankTiles];
+#pragma unroll
+    for (int j = 0; j < kRankTiles; ++j) {
+      const int p = t0 + j * blockDim.x + tid;
+      lv[j] = p < p1 ? lab[p] : -1;
+    }
+    unsigned mine = 0;  // bit j: the thread's pixel of tile j is a root
+#pragma unroll
+    for (int j = 0; j < kRankTiles; ++j) {
+      const int p = t0 + j * blockDim.x + tid;
+      if (lv[j] == p) {
+        const int y = p / W;
+        mine |= static_cast<unsigned>(det(y, p - y * W) > thr) << j;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRankTiles; ++j) {
+      if (j < nt) {  // block-uniform
+        const unsigned ball = __ballot_sync(kFull, (mine >> j) & 1u);
+        if (lane == 0) s_cnt[j * nw + warp] = __popc(ball);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // exclusive prefix of the counts in (tile, warp) order
+      const int n = nt * nw;
+      const int per = (n + 31) / 32;  // at most kRankTiles
+      int v[kRankTiles];
+      int sum = 0;
+#pragma unroll
+      for (int i = 0; i < kRankTiles; ++i) {
+        const int k = lane * per + i;
+        v[i] = i < per && k < n ? s_cnt[k] : 0;
+        sum += v[i];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += u;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int i = 0; i < kRankTiles; ++i) {
+        const int k = lane * per + i;
+        if (i < per && k < n) s_cnt[k] = run;
+        run += v[i];
+      }
+      if (lane == 31) s_cnt[n] = incl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRankTiles; ++j) {
+      if (j >= nt) break;  // block-uniform
+      const unsigned ball = __ballot_sync(kFull, (mine >> j) & 1u);
+      if ((mine >> j) & 1u) {
+        const int rank = base + s_cnt[j * nw + warp] + __popc(ball & below);
+        if (rank < K) roots[rank] = t0 + j * blockDim.x + tid;
+      }
+    }
+    base += s_cnt[nt * nw];
+    __syncthreads();  // s_cnt is the next chunk's
+  }
+  if (tid == 0) *count = base;
+}
+
+// Clears the block's extremes and its ``sets`` stats partial sets.
+__device__ inline void slot_clear(const SlotSmem& s, int H, int K, int C, int sets) {
+  for (int i = threadIdx.x; i < K * H; i += blockDim.x) {
+    s.mn[i] = kBig;
+    s.mx[i] = -1;
+  }
+  for (int i = threadIdx.x; i < sets * K * C; i += blockDim.x) s.part[i] = 0.f;
+  for (int i = threadIdx.x; i < sets * K; i += blockDim.x) s.cnt[i] = 0;
+}
+
+// After a cluster barrier that follows every block's slot_rank (and
+// slot_clear): the image's K smallest roots into s.root (H*W pads), block
+// r's list after those of the blocks before it (its band's pixels come
+// after theirs in raster order).  Returns the image's root count.  Ends
+// with a __syncthreads().
+__device__ inline int join_roots(const cooperative_groups::cluster_group& cluster,
+                                 const SlotSmem& s, int blocks, int K, int N) {
+  __shared__ int s_first[kMaxSlotCtas + 1];  // the blocks' first ranks, then the count
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    const int c = tid < blocks ? cluster.map_shared_rank(s.ranked, tid)[K] : 0;
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (tid >= off) incl += v;
+    }
+    if (tid < blocks) s_first[tid + 1] = incl;
+    if (tid == 0) s_first[0] = 0;
+  }
+  __syncthreads();
+  const int total = s_first[blocks];
+  for (int k = tid; k < K; k += blockDim.x) {
+    int r = 0;
+    while (r + 1 < blocks && s_first[r + 1] <= k) ++r;
+    s.root[k] = k < total ? cluster.map_shared_rank(s.ranked, r)[k - s_first[r]] : N;
   }
   __syncthreads();
   return total;
@@ -777,12 +1033,12 @@ __device__ inline void slot_pass(const Det& det, const Logits<T>& lg, const Lab&
   __syncthreads();
 }
 
-// The outputs of one image: the stats summed over the ``nv`` virtual
-// warps' partial sets in their order (sets [0, nv/2) in ``lo``, the rest
-// in ``hi``, which may be another block's shared memory) into areas (K),
-// det_sums (K) and cls_sums (K, max(C-1, 1)) — with C = 1 one zero column
-// — then rootvals (K), minx/maxx (K, H), the padding slots all carrying the
-// background's extremes, and nroots (1).
+// The outputs of one image on two blocks: the stats summed over the ``nv``
+// virtual warps' partial sets in their order (sets [0, nv/2) in ``lo``,
+// the rest in ``hi``, which may be another block's shared memory) into
+// areas (K), det_sums (K) and cls_sums (K, max(C-1, 1)) — with C = 1 one
+// zero column — then rootvals (K), minx/maxx (K, H), the padding slots all
+// carrying the background's extremes, and nroots (1).
 __device__ inline void slot_finish(const SlotSmem& s, const float* hi_part, const int* hi_cnt,
                                    int H, int K, int C, int total, int nv,
                                    int* __restrict__ rootvals, int* __restrict__ minx,
@@ -818,6 +1074,142 @@ __device__ inline void slot_finish(const SlotSmem& s, const float* hi_part, cons
   }
   for (int k = threadIdx.x; k < K; k += blockDim.x) rootvals[k] = s.root[k];
   if (threadIdx.x == 0) *nroots = total;
+}
+
+// The outputs of one image on a wider cluster, after its block has run its
+// pixel pass, each block a slice of them (block r the r-th of G runs of
+// consecutive items, its threads over consecutive items, so that a warp's
+// loads fall in distinct banks): the stats summed over the partial sets in
+// the plan's order (SlotPlan: a block's sets, then the blocks) into areas
+// (K), det_sums (K) and cls_sums (K, max(C-1, 1)) — with C = 1 one zero
+// column — then the extremes merged over the blocks into minx / maxx (K,
+// H), the padding slots all carrying the background's extremes, rootvals
+// (K) and nroots (1).  The other blocks' shared memory is read through the
+// cluster, between the two cluster barriers here.
+__device__ inline void band_finish(const cooperative_groups::cluster_group& cluster,
+                                   const SlotSmem& s, int rank, const SlotPlan& pl, int H, int K,
+                                   int C, int total, int* __restrict__ rootvals,
+                                   int* __restrict__ minx, int* __restrict__ maxx,
+                                   int* __restrict__ nroots, float* __restrict__ areas,
+                                   float* __restrict__ det_sums, float* __restrict__ cls_sums) {
+  const int G = pl.blocks;
+  const int KC = K * C;
+  // each block's running sum of its own sets, into set 0 (slot_pass ended
+  // with the block's barrier)
+  for (int i = threadIdx.x; i < KC; i += blockDim.x) {
+    float v = s.part[i];
+    for (int w = 1; w < pl.sets; ++w) v += s.part[w * KC + i];
+    s.part[i] = v;
+  }
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    int a = s.cnt[k];
+    for (int w = 1; w < pl.sets; ++w) a += s.cnt[w * K + k];
+    s.cnt[k] = a;
+  }
+  cluster.sync();
+  // block rank's slice of n items
+  auto slice = [&](int n, int* lo, int* hi) {
+    const int len = (n + G - 1) / G;
+    *lo = min(rank * len, n);
+    *hi = min(*lo + len, n);
+  };
+  int i0, i1;
+  slice(KC, &i0, &i1);
+  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+    float v = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < G; ++r) v += (r == rank ? s.part : cluster.map_shared_rank(s.part, r))[i];
+    const int k = i / C;
+    const int c = i - k * C;
+    if (c == 0) {
+      det_sums[k] = v;
+    } else {
+      cls_sums[k * (C - 1) + c - 1] = v;
+    }
+  }
+  slice(K, &i0, &i1);
+  for (int k = i0 + threadIdx.x; k < i1; k += blockDim.x) {
+    int a = 0;
+#pragma unroll 4
+    for (int r = 0; r < G; ++r) a += (r == rank ? s.cnt : cluster.map_shared_rank(s.cnt, r))[k];
+    areas[k] = static_cast<float>(a);
+    if (C == 1) cls_sums[k] = 0.f;
+    rootvals[k] = s.root[k];
+  }
+  const int nvalid = min(total, K);
+  slice(K * H, &i0, &i1);
+  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+    const int k = i / H;
+    const int src = (k >= nvalid && k < K - 1) ? (K - 1) * H + (i - k * H) : i;
+    int lo = kBig, hi = -1;
+#pragma unroll 4
+    for (int r = 0; r < G; ++r) {
+      lo = min(lo, (r == rank ? s.mn : cluster.map_shared_rank(s.mn, r))[src]);
+      hi = max(hi, (r == rank ? s.mx : cluster.map_shared_rank(s.mx, r))[src]);
+    }
+    minx[i] = lo;
+    maxx[i] = hi;
+  }
+  if (rank == 0 && threadIdx.x == 0) *nroots = total;
+  cluster.sync();  // every block's shared memory lives until the others have read it
+}
+
+// ---- the cluster launch of K2 and K12c (host) ----
+
+// Allows ``kernel`` its dynamic shared memory and, past 8 blocks, a
+// non-portable cluster size.
+template <class... KArgs>
+inline cudaError_t allow_cluster(void (*kernel)(KArgs...), int blocks, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess && blocks > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int blocks, int grid,
+                                         int threads, size_t smem, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(blocks);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of ``blocks`` blocks of ``kernel`` the card runs at once
+// (cudaOccupancyMaxActiveClusters) into *room.
+template <class... KArgs>
+inline int cluster_room(void (*kernel)(KArgs...), int blocks, int threads, size_t smem,
+                        int* room) {
+  cudaError_t e = allow_cluster(kernel, blocks, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, blocks, blocks, threads, smem, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(room, reinterpret_cast<const void*>(kernel), &cfg));
+}
+
+// Launches ``kernel`` over B images at plan ``pl``: pl.blocks * B blocks
+// of ``threads`` threads, a cluster an image (cudaLaunchKernelEx).  A
+// launch the card refuses returns its error.
+template <class... KArgs, class... Args>
+inline int launch_cluster(void (*kernel)(KArgs...), const SlotPlan& pl, int B, int threads,
+                          size_t smem, cudaStream_t stream, Args&&... args) {
+  cudaError_t e = allow_cluster(kernel, pl.blocks, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(&attr, pl.blocks, pl.blocks * B, threads, smem, stream);
+  e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace geometry

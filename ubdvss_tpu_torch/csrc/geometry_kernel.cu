@@ -1,4 +1,4 @@
-// The whole component geometry of one image in one cluster of two blocks:
+// The whole component geometry of one image in one cluster of blocks:
 // threshold + CCL (union-find), then the root count, the K smallest roots,
 // the slot map, each slot's per-row x extremes and its stats.
 //
@@ -8,32 +8,38 @@
 // K2 after K1, bit for bit: the same phases of geometry.cuh, with the label
 // map kept in shared memory, so the labels never go to device memory.
 //
-// One cluster of geometry::kSlotCtas (2) blocks per image, as K2, so that
-// B=64 images fill 128 of the 132 SMs:
-//   1. each block holds half of the image's label rows (block 0 rows
-//      [0, S), block 1 rows [S, H), S = ceil(H/2)) in its shared memory and
-//      runs the union-find's initialise and merge passes on them;
-//   2. block 1 merges the seam rows S-1 and S across the cluster: its
-//      unions reach block 0's words through distributed shared memory
-//      (cluster.map_shared_rank; atomicMin on the peer's words).  A root is
-//      always the smaller linear index, so block 1's components link into
-//      block 0's and never the other way;
-//   3. each block flattens its rows (a find may walk into block 0);
-//   4. each block ranks the roots of its rows; block 0's come first in
-//      raster order, so the image's K smallest are block 0's list, then
-//      block 1's, which each block reads from the other;
-//   5. each block runs K2's virtual warps rank * nw ... of the pixel pass,
-//      on labels read from whichever block holds the row, and block 0
-//      finishes as K2 does, with block 1's extremes and stats partials.
-// The same warp count as K2 (the caller's ``threads``), the same virtual
-// warps and the same order of sums give K2's stats bit for bit.  Like K1
-// it reaches the true components, with no round cap.  The detection logits
-// are read at the head's strides, as K2 reads them.
+// One cluster an image at K2's launch plan (geometry.cuh SlotPlan): G = 2
+// blocks where the batch fills the card (the main path's B=64;
+// geometry_kernel), else 16, 8 or 4 (geometry_band_kernel):
+//   1. block r holds the image's label rows [r S, (r + 1) S), S =
+//      ceil(H/G), in its shared memory (a band; the last may be short or
+//      empty) and runs the union-find's initialise and merge passes on
+//      them;
+//   2. each block r > 0 merges the seam rows r S - 1 and r S across the
+//      cluster, all G - 1 seams at once: its unions reach the blocks above
+//      through distributed shared memory (cluster.map_shared_rank;
+//      atomicMin on the peer's words).  A root is always the smaller linear
+//      index, so a component links into the band of its first pixel and
+//      never the other way;
+//   3. each block flattens its rows (a find may walk into any block above);
+//   4. each block ranks the roots of its rows; the bands come in raster
+//      order, so the image's K smallest are the blocks' lists in block
+//      order, which each block reads from the others;
+//   5. each block runs K2's virtual warps rank * sets ... of the pixel
+//      pass, on labels read from whichever block holds the row, and the
+//      outputs are written as K2's are: by block 0 on two blocks, each
+//      block a share on a wider cluster.
+// The same plan as K2 (the caller's ``threads`` and ``blocks``), the same
+// virtual warps and the same order of sums give K2's stats bit for bit.  Like K1 it reaches the true components, with no
+// round cap.  The detection logits are read at the head's strides, as K2
+// reads them.
 //
 // Shared memory a block: S*W + 2K + 1 + 2*K*H words (labels of its rows,
 // the roots, its own ranked roots and count, the extremes; 49 KB at
-// 128x128, K=16), plus (K, C+1) words per warp of stats partials; the
-// caller picks the warps so that it stays within the card's 227 KB.
+// 128x128, K=16, on two blocks), plus (K, C+1) words per virtual warp of
+// stats partials; the caller picks the warps so that it stays within the
+// card's 227 KB on two blocks, and a wider cluster holds fewer rows a
+// block.
 //
 // Bound on this card: 8 B per pixel of device memory (detection logit
 // read, slot written) plus the class logits of the pixels in a slot and
@@ -86,8 +92,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 1024;
-
+// Two blocks an image (the plan's least cluster, fixed at compile time):
+// block 0 holds rows [0, S), block 1 [S, H).
 template <int CM, class T>
 __global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1)
 __launch_bounds__(geometry::stats_block<CM>())
@@ -99,6 +105,7 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
                 float* __restrict__ cls_sums, int H, int W, int K, int sets, float thr,
                 int connectivity) {
   extern __shared__ int sm[];
+  SLOT_STAMP_START;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long b = blockIdx.x / geometry::kSlotCtas;
@@ -131,10 +138,11 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
   cluster.sync();
   geometry::ccl_flatten(lab, p0, p1, N);
   cluster.sync();
+  SLOT_STAMP(0);
 
   // 4. the roots: each block ranks its rows', then joins the two lists
   const geometry::SlotSmem s(sm + split, K, H, C, sets);
-  int* ranked = s.cnt + sets * K;  // K roots of this block's rows, then their count
+  int* ranked = s.ranked;  // K roots of this block's rows, then their count
   const geometry::SplitView view{lo, hi, split};
   const int count = geometry::slot_roots(det, view, s, ranked, p0, p1, H, W, K, C, sets, thr);
   if (threadIdx.x == 0) ranked[K] = count;
@@ -148,10 +156,12 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
     s.root[k] = k < c0 ? lo_roots[k] : (k - c0 < c1 ? hi_roots[k - c0] : N);
   }
   __syncthreads();
+  SLOT_STAMP(1);
 
   // 5. K2's pixel pass and finish
   geometry::slot_pass<CM>(det, lg, view, s, H, W, K, thr, c0 + c1, rank * sets, sets,
                           geometry::kSlotCtas * sets, slots + b * N);
+  SLOT_STAMP(2);
   cluster.sync();
   if (rank == 0) {
     const geometry::SlotSmem o(cluster.map_shared_rank(sm, 1) + split, K, H, C, sets);
@@ -165,40 +175,137 @@ geometry_kernel(const T* __restrict__ logits, long long sb, long long sy, long l
                           areas + b * K, det_sums + b * K, cls_sums + b * K * max(C - 1, 1));
   }
   cluster.sync();  // block 1's shared memory lives until block 0 has read it
+  SLOT_STAMP(3);
+}
+
+// A wider cluster an image, at plan ``pl``: block r holds rows
+// [r S, (r + 1) S), S = ceil(H / pl.blocks).
+template <int CM, class T>
+__global__ void __launch_bounds__(geometry::stats_block<CM>())
+geometry_band_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
+                     long long sc, geometry::Phase ph, int C, int* __restrict__ rootvals,
+                     int* __restrict__ slots, int* __restrict__ minx, int* __restrict__ maxx,
+                     int* __restrict__ nroots, float* __restrict__ areas,
+                     float* __restrict__ det_sums, float* __restrict__ cls_sums, int H, int W,
+                     int K, geometry::SlotPlan pl, float thr, int connectivity) {
+  extern __shared__ int sm[];
+  SLOT_STAMP_START;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long b = blockIdx.x / pl.blocks;
+  const int N = H * W;
+  const int S = geometry::band_rows(H, pl.blocks);
+  const int span = S * W;
+  const int y0 = min(rank * S, H);
+  const int p0 = y0 * W;
+  const int p1 = min(p0 + span, N);
+  const float inv = 1.f / static_cast<float>(span);
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C, ph};
+  const geometry::Plane<T> det{lg.p, sy, sx, ph};
+  const bool eight = connectivity == 8;
+
+  // 1-3. CCL over the cluster
+  const geometry::BandLabels lab{sm, p0, span, inv};
+  geometry::ccl_init(
+      lab,
+      [&](int p) {
+        const int y = p / W;
+        return det(y, p - y * W) > thr;
+      },
+      p0, p1, N);
+  __syncthreads();
+  geometry::ccl_merge(lab, W, y0, p0, p1, N, eight);
+  cluster.sync();
+  if (rank > 0 && y0 < H) geometry::ccl_seam(lab, W, y0, N, eight);
+  cluster.sync();
+  geometry::ccl_flatten(lab, p0, p1, N);
+  cluster.sync();
+  SLOT_STAMP(0);
+
+  // 4. the roots: each block ranks its rows', then takes the image's K
+  // smallest from the blocks' lists
+  const geometry::SlotSmem s(sm + span, K, H, C, pl.sets);
+  const geometry::BandView view{sm, p0, span, inv};
+  geometry::slot_rank(det, view, s.ranked, s.ranked + K, p0, p1, W, K, thr);
+  cluster.barrier_arrive();
+  geometry::slot_clear(s, H, K, C, pl.sets);
+  cluster.barrier_wait();
+  const int total = geometry::join_roots(cluster, s, pl.blocks, K, N);
+  SLOT_STAMP(1);
+
+  // 5. K2's pixel pass and finish
+  geometry::slot_pass<CM>(det, lg, view, s, H, W, K, thr, total, rank * pl.sets, pl.sets,
+                          pl.blocks * pl.sets, slots + b * N);
+  SLOT_STAMP(2);
+  geometry::band_finish(cluster, s, rank, pl, H, K, C, total, rootvals + b * K,
+                        minx + b * K * H, maxx + b * K * H, nroots + b, areas + b * K,
+                        det_sums + b * K, cls_sums + b * K * max(C - 1, 1));
+  SLOT_STAMP(3);
+}
+
+// Shared memory of a K12c block at plan ``pl``: its band's labels, then
+// K2's (geometry.cuh SlotSmem).
+inline size_t geometry_smem(int H, int W, int K, int C, const geometry::SlotPlan& pl) {
+  return (static_cast<size_t>(geometry::band_rows(H, pl.blocks)) * W +
+          geometry::slot_smem_words(K, H, C, pl.sets)) * sizeof(int);
 }
 
 // logits (B, H, W, C) at element strides (sb, sy, sx, sc) and phase
 // ``ph`` (geometry.cuh Phase) -> the outputs of component_slots
-// (postproc_kernel.cu).  ``threads`` is that of one of K2's blocks: 32 x
-// its virtual warps, run on at most geometry::stats_block<CM>() threads.
+// (postproc_kernel.cu), at K2's plan: ``threads`` 32 x the virtual warps
+// of a block, run on at most geometry::stats_block<CM>() threads,
+// ``blocks`` the cluster an image.
 template <class T>
 int geometry_launch(const void* logits, long long sb, long long sy, long long sx, long long sc,
                     geometry::Phase ph, int C, void* rootvals, void* slots, void* minx,
                     void* maxx, void* nroots,
                     void* areas, void* det_sums, void* cls_sums, int B, int H, int W, int K,
-                    int threads, float thr, int connectivity, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads <= 0 ||
-      threads > kThreads || threads % 32 != 0)
+                    int threads, int blocks, float thr, int connectivity,
+                    void* stream) {
+  const geometry::SlotPlan pl{blocks, threads / 32};
+  if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads % 32 != 0 ||
+      !geometry::valid_plan(pl) || static_cast<long long>(blocks) * B > 0x7fffffff ||
+      static_cast<long long>(H) * W >= (1 << 24))
     return cudaErrorInvalidValue;
-  const size_t smem =
-      (static_cast<size_t>((H + 1) / 2) * W + 2 * static_cast<size_t>(K) + 1 +
-       2 * static_cast<size_t>(K) * H) * sizeof(int) +
-      static_cast<size_t>(threads / 32) * K * (C + 1) * sizeof(float);
+  const size_t smem = geometry_smem(H, W, K, C, pl);
   return geometry::with_channel_bound(C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
-    cudaError_t e = cudaFuncSetAttribute(
-        geometry_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
     const int block = threads < geometry::stats_block<CM>() ? threads : geometry::stats_block<CM>();
-    geometry_kernel<CM, T><<<geometry::kSlotCtas * B, block, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+    if (pl.blocks == geometry::kSlotCtas) {
+      cudaError_t e = cudaFuncSetAttribute(
+          geometry_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      geometry_kernel<CM, T><<<geometry::kSlotCtas * B, block, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(logits), sb, sy, sx, sc, ph, C, static_cast<int*>(rootvals),
+          static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
+          static_cast<int*>(nroots), static_cast<float*>(areas),
+          static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, pl.sets,
+          thr, connectivity);
+      return launch_status();
+    }
+    return geometry::launch_cluster(
+        geometry_band_kernel<CM, T>, pl, B, block, smem, static_cast<cudaStream_t>(stream),
         static_cast<const T*>(logits), sb, sy, sx, sc, ph, C, static_cast<int*>(rootvals),
         static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
-        static_cast<int*>(nroots), static_cast<float*>(areas),
-        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, threads / 32,
-        thr, connectivity);
-    return launch_status();
+        static_cast<int*>(nroots), static_cast<float*>(areas), static_cast<float*>(det_sums),
+        static_cast<float*>(cls_sums), H, W, K, pl, thr, connectivity);
+  });
+}
+
+// The clusters of ``blocks`` (4, 8 or 16) blocks of K12c at C channels,
+// (H, W) maps, K slots and ``threads`` that the card runs at once, on f32
+// or bf16 logits.
+int geometry_room(int C, int H, int W, int K, int threads, int blocks, int bf16, int* room) {
+  const size_t smem = geometry_smem(H, W, K, C, geometry::SlotPlan{blocks, threads / 32});
+  return geometry::with_channel_bound(C, [&](auto cm) {
+    constexpr int CM = decltype(cm)::value;
+    const int block = threads < geometry::stats_block<CM>() ? threads : geometry::stats_block<CM>();
+    return bf16 ? geometry::cluster_room(geometry_band_kernel<CM, __nv_bfloat16>, blocks, block,
+                                         smem, room)
+                : geometry::cluster_room(geometry_band_kernel<CM, float>, blocks, block, smem,
+                                         room);
   });
 }
 
@@ -350,16 +457,24 @@ int geometry_large_launch(const void* logits, long long sb, long long sy, long l
 
 }  // namespace
 
+// The clusters of ``blocks`` blocks of K12c the card runs at once, into
+// *room (geometry_room above).
+extern "C" int geometry_compat_room(int C, int H, int W, int K, int threads, int blocks, int bf16,
+                                    int* room) {
+  return geometry_room(C, H, W, K, threads, blocks, bf16, room);
+}
+
 // logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc) -> the
-// outputs of component_slots (postproc_kernel.cu).
+// outputs of component_slots (postproc_kernel.cu), at K2's plan.
 extern "C" int geometry_compat(const void* logits, long long sb, long long sy, long long sx,
                                long long sc, int C, void* rootvals, void* slots, void* minx,
                                void* maxx, void* nroots, void* areas, void* det_sums,
                                void* cls_sums, int B, int H, int W, int K, int threads,
-                               float thr, int connectivity, void* stream) {
+                               int blocks, float thr, int connectivity,
+                               void* stream) {
   return geometry_launch<float>(logits, sb, sy, sx, sc, geometry::Phase{}, C, rootvals, slots,
                                 minx, maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
-                                threads, thr, connectivity, stream);
+                                threads, blocks, thr, connectivity, stream);
 }
 
 // The same from bf16 logits.
@@ -367,11 +482,12 @@ extern "C" int geometry_compat_bf16(const void* logits, long long sb, long long 
                                     long long sx, long long sc, int C, void* rootvals,
                                     void* slots, void* minx, void* maxx, void* nroots,
                                     void* areas, void* det_sums, void* cls_sums, int B, int H,
-                                    int W, int K, int threads, float thr, int connectivity,
-                                    void* stream) {
+                                    int W, int K, int threads, int blocks, float thr,
+                                    int connectivity, void* stream) {
   return geometry_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::Phase{}, C, rootvals,
                                         slots, minx, maxx, nroots, areas, det_sums, cls_sums, B,
-                                        H, W, K, threads, thr, connectivity, stream);
+                                        H, W, K, threads, blocks, thr, connectivity,
+                                        stream);
 }
 
 // The same from phase-major packed logits: (sb, sy, sx) step over images
@@ -381,11 +497,11 @@ extern "C" int geometry_compat_packed(const void* logits, long long sb, long lon
                                       long long sx, long long sc, long long spy, long long spx,
                                       int C, void* rootvals, void* slots, void* minx, void* maxx,
                                       void* nroots, void* areas, void* det_sums, void* cls_sums,
-                                      int B, int H, int W, int K, int threads, float thr,
-                                      int connectivity, void* stream) {
+                                      int B, int H, int W, int K, int threads, int blocks,
+                                      float thr, int connectivity, void* stream) {
   return geometry_launch<float>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C,
                                 rootvals, slots, minx, maxx, nroots, areas, det_sums, cls_sums, B,
-                                H, W, K, threads, thr, connectivity, stream);
+                                H, W, K, threads, blocks, thr, connectivity, stream);
 }
 
 extern "C" int geometry_compat_packed_bf16(const void* logits, long long sb, long long sy,
@@ -393,11 +509,12 @@ extern "C" int geometry_compat_packed_bf16(const void* logits, long long sb, lon
                                            long long spx, int C, void* rootvals, void* slots,
                                            void* minx, void* maxx, void* nroots, void* areas,
                                            void* det_sums, void* cls_sums, int B, int H, int W,
-                                           int K, int threads, float thr, int connectivity,
-                                           void* stream) {
+                                           int K, int threads, int blocks, float thr,
+                                           int connectivity, void* stream) {
   return geometry_launch<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C,
                                         rootvals, slots, minx, maxx, nroots, areas, det_sums,
-                                        cls_sums, B, H, W, K, threads, thr, connectivity, stream);
+                                        cls_sums, B, H, W, K, threads, blocks, thr,
+                                        connectivity, stream);
 }
 
 // The same for maps of any size (H*W < 2^30), in one cooperative launch

@@ -14,19 +14,34 @@
 // fusion (postproc_kernel.py:441-467); here the pixel pass that assigns the
 // slots sums them, so no one-hot, product or softmax tensor exists.
 //
-// One cluster of geometry::kSlotCtas (2) blocks per image, so that B=64
-// images fill 128 of the 132 SMs: each block ranks the image's roots itself
-// (geometry.cuh: slot_roots), runs its half of the pixel pass (slot_pass)
-// on labels read from device memory and the logits read where the head
+// One cluster an image, of the blocks its launch plan gives it (geometry.cuh
+// SlotPlan; ops/cuda/postproc_kernel.py slot_plan):
+//   * 2 where the batch fills the card (B >= 34 at 132 SMs: the main path's
+//     and the stream's B=64 fill 128 of the 132 SMs), slots_kernel: each
+//     block ranks the image's roots itself (geometry.cuh: slot_roots), runs
+//     its half of the pixel pass (slot_pass) and block 0 takes the other
+//     block's extremes and stats partials from its shared memory
+//     (distributed shared memory) and writes the outputs (slot_finish);
+//   * 16, 8 or 4 where every image's blocks of the batch fit the card at
+//     once (a detect call's one heatmap, the packed route's four 256²
+//     maps), slots_band_kernel: each block ranks the roots of its band of
+//     rows with coalesced loads and takes the image's K smallest from the
+//     blocks' lists through the cluster (slot_rank, join_roots), runs its
+//     share of the pixel pass, and writes a share of the outputs, reading
+//     the others' extremes and partials through the cluster (band_finish).
+// The pass reads labels from device memory and the logits where the head
 // wrote them — the (B, H, W, C) view over (B, C, H, W) planes, at its
-// strides — and then block 0 takes the other block's extremes and stats
-// partials from its shared memory (distributed shared memory) and writes
-// the outputs (slot_finish).  A block has one virtual warp per stats
-// partial set, 32 where K12c's shared memory allows, run by as many warps
-// up to 17 logit channels and by 16 or 8 warps in turn past them, whose
-// threads hold more class logits and sums (geometry.cuh stats_block); K12c
-// runs the same virtual warps in its cluster of two blocks, so both sum in
-// one order.
+// strides.  A block has one virtual warp per stats partial set, 32 where
+// K12c's shared memory allows, run by as many warps up to 17 logit channels
+// and by 16 or 8 warps in turn past them, whose threads hold more class
+// logits and sums (geometry.cuh stats_block).  The sums run over the
+// partial sets in the virtual warps' order: one running sum on two blocks,
+// a running sum a block then one over the blocks on a wider cluster; K12c
+// runs the same plan, so both sum in one order and agree bit for bit.  A
+// batch of few images takes more virtual warps an image (16 x 32 against 2
+// x 32), so each walks a shorter run of the image (4 steps at 256² against
+// 32), and its sums come in another order than the same image's in a batch
+// of 34 or more.
 //
 // Bound on this card: device memory.  Logits plane and labels read, slots
 // written (12 B a pixel), plus the C-1 class logits of the pixels in a
@@ -100,8 +115,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 1024;
-
+// Two blocks an image (the plan's least cluster), its cluster fixed at
+// compile time.
 template <int CM, class T>
 __global__ void __cluster_dims__(geometry::kSlotCtas, 1, 1)
 __launch_bounds__(geometry::stats_block<CM>())
@@ -114,6 +129,7 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
              float* __restrict__ det_sums, float* __restrict__ cls_sums, int H,
              int W, int K, int sets, float thr) {
   extern __shared__ int sm[];
+  SLOT_STAMP_START;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long b = blockIdx.x / geometry::kSlotCtas;
@@ -124,8 +140,10 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
   const geometry::SlotSmem s(sm, K, H, C, sets);
   const int total = geometry::slot_roots(det, lab, s, s.root, 0, static_cast<int>(N), H, W, K,
                                          C, sets, thr);
+  SLOT_STAMP(1);
   geometry::slot_pass<CM>(det, lg, lab, s, H, W, K, thr, total, rank * sets, sets,
                           geometry::kSlotCtas * sets, slots + b * N);
+  SLOT_STAMP(2);
   cluster.sync();
   if (rank == 0) {
     const geometry::SlotSmem o(cluster.map_shared_rank(sm, 1), K, H, C, sets);
@@ -140,6 +158,44 @@ slots_kernel(const T* __restrict__ logits, long long sb, long long sy,
                           cls_sums + b * K * max(C - 1, 1));
   }
   cluster.sync();  // block 1's shared memory lives until block 0 has read it
+  SLOT_STAMP(3);
+}
+
+// A wider cluster an image, at plan ``pl``: block r ranks the roots of rows
+// [r S, (r + 1) S), S = ceil(H / pl.blocks).
+template <int CM, class T>
+__global__ void __launch_bounds__(geometry::stats_block<CM>())
+slots_band_kernel(const T* __restrict__ logits, long long sb, long long sy, long long sx,
+                  long long sc, geometry::Phase ph, int C, const int* __restrict__ labels,
+                  int* __restrict__ rootvals, int* __restrict__ slots, int* __restrict__ minx,
+                  int* __restrict__ maxx, int* __restrict__ nroots, float* __restrict__ areas,
+                  float* __restrict__ det_sums, float* __restrict__ cls_sums, int H, int W,
+                  int K, geometry::SlotPlan pl, float thr) {
+  extern __shared__ int sm[];
+  SLOT_STAMP_START;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long b = blockIdx.x / pl.blocks;
+  const int N = H * W;
+  const geometry::Logits<T> lg{logits + b * sb, sy, sx, sc, C, ph};
+  const geometry::Plane<T> det{lg.p, sy, sx, ph};
+  const geometry::GlobalLabels lab{labels + b * N};
+  const geometry::SlotSmem s(sm, K, H, C, pl.sets);
+  const int span = geometry::band_rows(H, pl.blocks) * W;
+  const int p0 = min(rank * span, N);
+  geometry::slot_rank(det, lab, s.ranked, s.ranked + K, p0, min(p0 + span, N), W, K, thr);
+  cluster.barrier_arrive();
+  geometry::slot_clear(s, H, K, C, pl.sets);
+  cluster.barrier_wait();
+  const int total = geometry::join_roots(cluster, s, pl.blocks, K, N);
+  SLOT_STAMP(1);
+  geometry::slot_pass<CM>(det, lg, lab, s, H, W, K, thr, total, rank * pl.sets, pl.sets,
+                          pl.blocks * pl.sets, slots + b * N);
+  SLOT_STAMP(2);
+  geometry::band_finish(cluster, s, rank, pl, H, K, C, total, rootvals + b * K,
+                        minx + b * K * H, maxx + b * K * H, nroots + b, areas + b * K,
+                        det_sums + b * K, cls_sums + b * K * max(C - 1, 1));
+  SLOT_STAMP(3);
 }
 
 // ---- component_slots_tiled: one kernel a phase of tiled.cuh ----
@@ -203,37 +259,63 @@ finish_kernel(const float* __restrict__ tpart, const int* __restrict__ tcnt,
 // logits (B, H, W, C) at element strides (sb, sy, sx, sc) and phase
 // ``ph`` (geometry.cuh Phase), labels (B, H, W) -> rootvals (B, K), slots
 // (B, H, W), minx/maxx (B, K, H), nroots (B,), all int32; areas, det_sums
-// (B, K) and cls_sums (B, K, max(C-1, 1)) f32.  ``threads`` is 32 x the
-// stats partial sets of a block, one a virtual warp; a block has at most
+// (B, K) and cls_sums (B, K, max(C-1, 1)) f32.  The plan (geometry.cuh
+// SlotPlan): ``threads`` is 32 x the stats partial sets of a block, one a
+// virtual warp, ``blocks`` the cluster an image; a block has at most
 // geometry::stats_block<CM>() threads, each warp running its share of the
 // virtual warps in turn.
 template <class T>
 int slots_cluster(const void* logits, long long sb, long long sy, long long sx, long long sc,
                   geometry::Phase ph, int C, const void* labels, void* rootvals, void* slots,
                   void* minx, void* maxx, void* nroots, void* areas, void* det_sums,
-                  void* cls_sums, int B, int H, int W, int K, int threads, float thr,
-                  void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads <= 0 ||
-      threads > kThreads || threads % 32 != 0)
+                  void* cls_sums, int B, int H, int W, int K, int threads, int blocks,
+                  float thr, void* stream) {
+  const geometry::SlotPlan pl{blocks, threads / 32};
+  if (B <= 0 || H <= 0 || W <= 0 || K <= 0 || C <= 0 || threads % 32 != 0 ||
+      !geometry::valid_plan(pl) || static_cast<long long>(blocks) * B > 0x7fffffff)
     return cudaErrorInvalidValue;
-  const size_t smem = (static_cast<size_t>(K) + 2 * static_cast<size_t>(K) * H) * sizeof(int) +
-                      static_cast<size_t>(threads / 32) * K * (C + 1) * sizeof(float);
+  // two blocks: no band's ranked roots (K + 1 words)
+  const size_t smem =
+      (geometry::slot_smem_words(K, H, C, pl.sets) - (pl.blocks == geometry::kSlotCtas) * (K + 1)) *
+      sizeof(int);
   return geometry::with_channel_bound(C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
-    cudaError_t e = cudaFuncSetAttribute(
-        slots_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
     const int block = threads < geometry::stats_block<CM>() ? threads : geometry::stats_block<CM>();
-    slots_kernel<CM, T><<<geometry::kSlotCtas * B, block, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(logits), sb, sy, sx, sc, ph, C,
-        static_cast<const int*>(labels), static_cast<int*>(rootvals),
-        static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
-        static_cast<int*>(nroots), static_cast<float*>(areas),
-        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, threads / 32,
-        thr);
-    return launch_status();
+    if (pl.blocks == geometry::kSlotCtas) {
+      cudaError_t e = cudaFuncSetAttribute(
+          slots_kernel<CM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      slots_kernel<CM, T><<<geometry::kSlotCtas * B, block, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(logits), sb, sy, sx, sc, ph, C,
+          static_cast<const int*>(labels), static_cast<int*>(rootvals),
+          static_cast<int*>(slots), static_cast<int*>(minx), static_cast<int*>(maxx),
+          static_cast<int*>(nroots), static_cast<float*>(areas),
+          static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, pl.sets, thr);
+      return launch_status();
+    }
+    return geometry::launch_cluster(
+        slots_band_kernel<CM, T>, pl, B, block, smem, static_cast<cudaStream_t>(stream),
+        static_cast<const T*>(logits), sb, sy, sx, sc, ph, C, static_cast<const int*>(labels),
+        static_cast<int*>(rootvals), static_cast<int*>(slots), static_cast<int*>(minx),
+        static_cast<int*>(maxx), static_cast<int*>(nroots), static_cast<float*>(areas),
+        static_cast<float*>(det_sums), static_cast<float*>(cls_sums), H, W, K, pl, thr);
+  });
+}
+
+// The clusters of ``blocks`` (4, 8 or 16) blocks of K2 at C channels,
+// (H, W) maps, K slots and ``threads`` (32 x the sets of a block) that the
+// card runs at once, on f32 or bf16 logits.
+int slots_room(int C, int H, int W, int K, int threads, int blocks, int bf16, int* room) {
+  const int sets = threads / 32;
+  const size_t smem = geometry::slot_smem_words(K, H, C, sets) * sizeof(int);
+  return geometry::with_channel_bound(C, [&](auto cm) {
+    constexpr int CM = decltype(cm)::value;
+    const int block = threads < geometry::stats_block<CM>() ? threads : geometry::stats_block<CM>();
+    return bf16 ? geometry::cluster_room(slots_band_kernel<CM, __nv_bfloat16>, blocks, block, smem,
+                                         room)
+                : geometry::cluster_room(slots_band_kernel<CM, float>, blocks, block, smem, room);
   });
 }
 
@@ -291,16 +373,34 @@ extern "C" int stats_channel_bound(int C) {
   return geometry::with_channel_bound(C, [](auto cm) { return decltype(cm)::value; });
 }
 
+// The clusters of ``blocks`` blocks of K2 the card runs at once, into
+// *room (slots_room above).
+extern "C" int component_slots_room(int C, int H, int W, int K, int threads, int blocks, int bf16,
+                                    int* room) {
+  return slots_room(C, H, W, K, threads, blocks, bf16, room);
+}
+
+// geometry.cuh slot_plan: (blocks, sets) into ``out`` for B images,
+// ``sets`` virtual warps a block, ``sms`` SMs and the room of clusters of
+// 16, 8 and 4 blocks, as ops/cuda/postproc_kernel.py slot_plan gives them.
+extern "C" int slot_plan_ints(int B, int sets, int sms, const int* room, int* out) {
+  const geometry::SlotPlan pl = geometry::slot_plan(B, sets, sms, room);
+  out[0] = pl.blocks;
+  out[1] = pl.sets;
+  return 0;
+}
+
 // logits (B, H, W, C) f32 at element strides (sb, sy, sx, sc), labels
-// (B, H, W) -> the outputs of slots_cluster above.
+// (B, H, W) -> the outputs of slots_cluster above, at its plan.
 extern "C" int component_slots(const void* logits, long long sb, long long sy, long long sx,
                                long long sc, int C, const void* labels, void* rootvals,
                                void* slots, void* minx, void* maxx, void* nroots, void* areas,
                                void* det_sums, void* cls_sums, int B, int H, int W, int K,
-                               int threads, float thr, void* stream) {
+                               int threads, int blocks, float thr,
+                               void* stream) {
   return slots_cluster<float>(logits, sb, sy, sx, sc, geometry::Phase{}, C, labels, rootvals,
                               slots, minx, maxx, nroots, areas, det_sums, cls_sums, B, H, W, K,
-                              threads, thr, stream);
+                              threads, blocks, thr, stream);
 }
 
 // The same from bf16 logits.
@@ -308,11 +408,11 @@ extern "C" int component_slots_bf16(const void* logits, long long sb, long long 
                                     long long sx, long long sc, int C, const void* labels,
                                     void* rootvals, void* slots, void* minx, void* maxx,
                                     void* nroots, void* areas, void* det_sums, void* cls_sums,
-                                    int B, int H, int W, int K, int threads, float thr,
-                                    void* stream) {
+                                    int B, int H, int W, int K, int threads, int blocks,
+                                    float thr, void* stream) {
   return slots_cluster<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::Phase{}, C, labels,
                                       rootvals, slots, minx, maxx, nroots, areas, det_sums,
-                                      cls_sums, B, H, W, K, threads, thr, stream);
+                                      cls_sums, B, H, W, K, threads, blocks, thr, stream);
 }
 
 // The same from phase-major packed logits (the packed route's (B, H/2,
@@ -324,10 +424,11 @@ extern "C" int component_slots_packed(const void* logits, long long sb, long lon
                                       int C, const void* labels, void* rootvals, void* slots,
                                       void* minx, void* maxx, void* nroots, void* areas,
                                       void* det_sums, void* cls_sums, int B, int H, int W, int K,
-                                      int threads, float thr, void* stream) {
+                                      int threads, int blocks, float thr,
+                                      void* stream) {
   return slots_cluster<float>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C, labels,
                               rootvals, slots, minx, maxx, nroots, areas, det_sums, cls_sums, B,
-                              H, W, K, threads, thr, stream);
+                              H, W, K, threads, blocks, thr, stream);
 }
 
 extern "C" int component_slots_packed_bf16(const void* logits, long long sb, long long sy,
@@ -336,10 +437,12 @@ extern "C" int component_slots_packed_bf16(const void* logits, long long sb, lon
                                            void* rootvals, void* slots, void* minx, void* maxx,
                                            void* nroots, void* areas, void* det_sums,
                                            void* cls_sums, int B, int H, int W, int K,
-                                           int threads, float thr, void* stream) {
+                                           int threads, int blocks, float thr,
+                                           void* stream) {
   return slots_cluster<__nv_bfloat16>(logits, sb, sy, sx, sc, geometry::phase_of(spy, spx), C,
                                       labels, rootvals, slots, minx, maxx, nroots, areas,
-                                      det_sums, cls_sums, B, H, W, K, threads, thr, stream);
+                                      det_sums, cls_sums, B, H, W, K, threads, blocks,
+                                      thr, stream);
 }
 
 // The outputs of component_slots for maps of any size, from f32 logits at

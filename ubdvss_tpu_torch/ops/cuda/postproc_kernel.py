@@ -24,8 +24,9 @@ Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
     ``geometry_compat_large`` launch with too.  ``component_slots`` takes
     it where K12c cannot run.
   * ``geometry_compat`` — CCL, slots and stats as one kernel (K12c,
-    ``_geometry_kernel_compat``; a cluster of two blocks per image), the
-    same outputs as slots after CCL, stats bit for bit; past
+    ``_geometry_kernel_compat``; a cluster of blocks per image, each
+    holding a band of the label rows), the same outputs as slots after
+    CCL, stats bit for bit; past
     ``geometry_compat_fits`` it launches ``geometry_compat_large``, the
     phases of ``ccl_labels_tiled`` and ``component_slots_tiled`` in one
     cooperative launch, equal to that pair bit for bit.
@@ -36,6 +37,17 @@ Counterpart of ``ubdvss_tpu/ops/pallas/postproc_kernel.py``:
     other on an error.  ``component_slots_from_logits`` and
     ``component_stats_from_logits`` are the JAX functions of those names
     over it.
+
+K2 and K12c launch at one plan (``slot_plan``, ``SlotPlan``): a cluster
+of 16, 8 or 4 blocks an image where all the batch's blocks fit the card at
+once (a detect call's heatmap, the packed route's four 256² maps), else 2
+(B >= 34 at 132 SMs: the main path's and the stream's B=64), each block
+running ``stats_warps`` virtual warps of the pixel pass: two blocks run
+the two-block kernels, a wider cluster the band kernels (each block a band
+of rows; csrc/postproc_kernel.cu, csrc/geometry_kernel.cu).  The stats' sums
+follow the virtual warps, so a batch of few images sums an image in
+another order than a batch of 34 or more (within f32 rounding); K2 and
+K12c of one batch agree bit for bit.
 
 The JAX package leaves the stats to XLA, as one-hot contractions over the
 slot map; their plain version here does the same in f32 torch, and that is
@@ -79,6 +91,7 @@ stacking.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import os
@@ -213,12 +226,14 @@ def _entry_points(entries: dict) -> dict:
 
 
 _FUNCS = _entry_points({
-    "component_slots": ([_build.P], [_build.I] + [_build.P] * 9 + [_build.I] * 5
+    "component_slots": ([_build.P], [_build.I] + [_build.P] * 9 + [_build.I] * 6
                         + [_build.F, _build.P]),
     "component_slots_tiled": ([_build.P], [_build.P] * 15 + [_build.I, _build.F, _build.P]),
 })
 _FUNCS["tiled_plan_ints"] = []
 _FUNCS["stats_channel_bound"] = [_build.I]
+_FUNCS["component_slots_room"] = [_build.I] * 7 + [_build.P]
+_FUNCS["slot_plan_ints"] = [_build.I] * 3 + [_build.P] * 2
 
 
 # The kernels' stats keep a pixel's class logits and class sums in
@@ -273,10 +288,6 @@ def _count(fn, logits: torch.Tensor, packed_phases) -> None:
     fn.launches_packed += packed_phases is not None
 
 
-# K2's blocks (a cluster) per image (csrc/geometry.cuh, kSlotCtas)
-SLOT_CTAS = 2
-
-
 def geometry_smem_words(H: int, W: int, K: int) -> int:
     """Shared-memory words of one K12c block besides its stats partials:
     the labels of its half of the rows, the roots, its own ranked roots and
@@ -300,6 +311,100 @@ def geometry_compat_fits(H: int, W: int, K: int, C: int) -> bool:
     wherever both run; ``component_slots_tiled`` serves the rest."""
     words = geometry_smem_words(H, W, K) + stats_warps(H, W, K, C) * K * (C + 1)
     return words * 4 <= MAX_SHARED_BYTES
+
+
+# The clusters of a slot plan past the least, 2 (csrc/geometry.cuh
+# SlotPlan, kSlotCtas, kMaxSlotCtas), largest first; past 8 non-portable.
+SLOT_BLOCKS = (16, 8, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotPlan:
+    """The launch plan of K2 and K12c (``struct SlotPlan`` in
+    csrc/geometry.cuh): ``blocks`` blocks an image in one cluster, each
+    running ``sets`` virtual warps of the pixel pass (one stats partial set
+    each), block r the r-th run of ``sets``; the sums run over the partial
+    sets in the virtual warps' order: on two blocks one running sum, on a
+    wider cluster each block's running sum, then the running sum of the
+    blocks' sums."""
+
+    blocks: int
+    sets: int
+
+    @property
+    def virtual_warps(self) -> int:
+        return self.blocks * self.sets
+
+    @property
+    def threads(self) -> int:
+        """32 x a block's virtual warps, the C entry points' ``threads``."""
+        return 32 * self.sets
+
+    def block_warps(self, r: int) -> range:
+        """The virtual warps block ``r`` runs."""
+        return range(r * self.sets, (r + 1) * self.sets)
+
+    def sum_order(self) -> list[list[int]]:
+        """The partial sets of each group of the sums, in order: each
+        group's running sum, then the groups' (``slot_finish`` on two
+        blocks, ``band_finish`` on more)."""
+        if self.blocks == 2:
+            return [list(range(self.virtual_warps))]
+        return [list(self.block_warps(r)) for r in range(self.blocks)]
+
+    @property
+    def ints(self) -> tuple[int, int]:
+        """(threads, blocks), as the C entry points take them."""
+        return self.threads, self.blocks
+
+
+def slot_plan(B: int, H: int, W: int, K: int, C: int, sms: int = 132,
+              room: dict | None = None) -> SlotPlan:
+    """The plan of K2 and K12c for B maps of H x W, K slots, C logit
+    channels, on a card of ``sms`` SMs where ``room[g]`` clusters of g
+    blocks run at once (None: as many as the SMs hold): each block runs
+    ``stats_warps`` virtual warps; the largest cluster of SLOT_BLOCKS whose
+    blocks all run at once (g B <= sms, B <= room[g]) takes every image;
+    else two blocks an image (B >= 34 at 132 SMs: the main path's and the
+    stream's B=64).  The C mirror is csrc/geometry.cuh ``slot_plan``
+    (``slot_plan_ints``)."""
+    sets = stats_warps(H, W, K, C)
+    for g in SLOT_BLOCKS:
+        if g * B <= sms and (room is None or B <= room.get(g, 0)):
+            return SlotPlan(g, sets)
+    return SlotPlan(2, sets)
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_room(device_index: int, H: int, W: int, K: int, C: int, bf16: bool) -> dict:
+    """{g: clusters of g blocks of K2 and of K12c the card runs at once,
+    the fewer of the two} for each g of SLOT_BLOCKS, at ``stats_warps``
+    virtual warps a block (``component_slots_room``,
+    ``geometry_compat_room``: cudaOccupancyMaxActiveClusters)."""
+    threads = 32 * stats_warps(H, W, K, C)
+    dev = torch.device("cuda", device_index)
+    room = {}
+    for g in SLOT_BLOCKS:
+        n = []
+        for lib, fn in ((_build.load("postproc_kernel", _FUNCS), "component_slots_room"),
+                        (_build.load("geometry_kernel", _GEO_FUNCS), "geometry_compat_room")):
+            out = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                err = getattr(lib, fn)(C, H, W, K, threads, g, int(bf16), ctypes.byref(out))
+            _build.check(lib, err, fn)
+            n.append(out.value)
+        room[g] = min(n)
+    return room
+
+
+def launch_plan(logits: torch.Tensor, H: int, W: int, K: int, C: int) -> SlotPlan:
+    """The plan of K2 and K12c for these logits on their card (its SMs and
+    its room for each cluster size)."""
+    dev = logits.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    room = cluster_room(index, H, W, K, C, logits.dtype == torch.bfloat16)
+    return slot_plan(logits.shape[0], H, W, K, C, sms, room)
 
 
 # The tiled kernels' geometry (``tiled_plan``): the device-memory CCL's
@@ -513,9 +618,9 @@ def component_slots(
     the raw labels (the slots kernel).
 
     A CPU tensor takes the plain version; a CUDA tensor launches a kernel
-    or raises: a cluster of SLOT_CTAS blocks per image (counted here) where
-    K12c could run (``geometry_compat_fits``), else
-    ``component_slots_tiled``.
+    or raises: a cluster of blocks per image at ``launch_plan`` (counted
+    here) where K12c could run (``geometry_compat_fits``), else
+    ``component_slots_tiled``.  A cluster the card refuses raises.
     """
     if logits.device.type == "cpu":
         return component_slots_reference(logits, labels, max_components, threshold,
@@ -526,13 +631,13 @@ def component_slots(
     K = max_components
     if not geometry_compat_fits(H, W, K, C):
         return component_slots_tiled(logits, labels, K, threshold, packed_phases)
-    nw = stats_warps(H, W, K, C)
+    plan = launch_plan(logits, H, W, K, C)
     lib = _build.load("postproc_kernel", _FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
     fn, strides = _strides(logits, C, packed_phases, "component_slots")
     _build.launch(
         lib, fn, logits.device, logits.data_ptr(), *strides, C, labels.data_ptr(),
-        *(t.data_ptr() for t in out.values()), B, H, W, K, 32 * nw, threshold_logit(threshold),
+        *(t.data_ptr() for t in out.values()), B, H, W, K, *plan.ints, threshold_logit(threshold),
     )
     _count(component_slots, logits, packed_phases)
     return out
@@ -611,12 +716,13 @@ def geometry_compat_reference(
 
 
 _GEO_FUNCS = _entry_points({
-    "geometry_compat": ([_build.P], [_build.I] + [_build.P] * 8 + [_build.I] * 5
+    "geometry_compat": ([_build.P], [_build.I] + [_build.P] * 8 + [_build.I] * 6
                         + [_build.F, _build.I, _build.P]),
     "geometry_compat_large": ([_build.P], [_build.P] * 15
                               + [_build.I, _build.F, _build.I, _build.P]),
 })
 _GEO_FUNCS["tiled_plan_ints"] = []
+_GEO_FUNCS["geometry_compat_room"] = [_build.I] * 7 + [_build.P]
 
 
 def geometry_compat(
@@ -625,9 +731,9 @@ def geometry_compat(
 ) -> dict:
     """(B, H, W) detection logits or (B, H, W, C) logits at any strides
     (phase-major packed with ``packed_phases``) -> the slots and stats
-    outputs, CCL and slots fused in one kernel (K12c, a cluster of
-    SLOT_CTAS blocks per image, each holding half of the label rows in
-    shared memory; union-find with no round cap, as K1).  Past
+    outputs, CCL and slots fused in one kernel (K12c, a cluster of blocks
+    per image at K2's ``launch_plan``, each holding a band of the label
+    rows in shared memory; union-find with no round cap, as K1).  Past
     ``geometry_compat_fits`` it is ``geometry_compat_large``'s one launch.
 
     A CPU tensor takes the plain version; a CUDA tensor launches a kernel
@@ -644,13 +750,13 @@ def geometry_compat(
     K = max_components
     if not geometry_compat_fits(H, W, K, C):
         return geometry_compat_large(logits, K, threshold, connectivity, packed_phases)
-    nw = stats_warps(H, W, K, C)
+    plan = launch_plan(logits, H, W, K, C)
     lib = _build.load("geometry_kernel", _GEO_FUNCS)
     out = _empty_outputs(B, H, W, K, C, logits.device)
     fn, strides = _strides(logits, C, packed_phases, "geometry_compat")
     _build.launch(
         lib, fn, logits.device, logits.data_ptr(), *strides, C,
-        *(t.data_ptr() for t in out.values()), B, H, W, K, 32 * nw, threshold_logit(threshold),
+        *(t.data_ptr() for t in out.values()), B, H, W, K, *plan.ints, threshold_logit(threshold),
         connectivity,
     )
     _count(geometry_compat, logits, packed_phases)
